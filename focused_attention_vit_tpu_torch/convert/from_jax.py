@@ -1,0 +1,110 @@
+"""JAX (Flax) MHLA ViT params -> the port's state dict: the reverse of
+``focused_attention_vit_tpu/convert/torch_to_jax.reference_vit_mhla_to_flax``
+for ``use_mhla=True``.
+
+Flax kernels are ``[in, out]`` and torch Linear weights ``[out, in]``; the
+head-shaped attention kernels flatten back into the reference's fused
+layouts: qkv ``[D, 3, h, d]`` -> ``[3D, D]`` (row ``t*D + head*d + i``) and
+the output projection ``[h, d, D]`` -> ``[D, D]``.
+
+Params travel as ``.npz`` files whose keys are the Flax paths joined by
+``/`` (``blocks_0/attn/qkv/kernel``); :func:`flatten_params` writes that form
+from a nested dict of arrays. Only the loop form of the block stack
+(``blocks_{i}``) is read.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def flatten_params(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested params -> ``{"a/b/c": array}``."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            flat.update(flatten_params(val, path + "/"))
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def unflatten_params(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"a/b/c": array}`` -> nested params."""
+    tree: Dict[str, Any] = {}
+    for path, val in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(val)
+    return tree
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))  # a writable copy
+
+
+def _linear(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
+    kernel = np.asarray(p["kernel"])
+    sd[f"{prefix}.weight"] = _t(kernel.T)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _layernorm(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def flax_vit_mhla_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``VisionTransformerMHLA(use_mhla=True)`` params (loop form) ->
+    f32 state dict of :class:`~..models.VisionTransformerMHLA`."""
+    if "blocks" in params:
+        raise ValueError(
+            "scan-form params (blocks/block) are not supported; unstack them "
+            "into blocks_{i} first"
+        )
+    depth = sum(1 for k in params if re.fullmatch(r"blocks_\d+", k))
+    if sorted(k for k in params if k.startswith("blocks_")) != sorted(
+        f"blocks_{i}" for i in range(depth)
+    ):
+        raise ValueError("block stack must be blocks_0 .. blocks_{depth-1}")
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "patch_embed.projection.1", params["patch_embed"]["projection"])
+    sd["cls_token"] = _t(params["cls_token"])
+    sd["pos_embed"] = _t(params["pos_embed"])
+    for i in range(depth):
+        blk = params[f"blocks_{i}"]
+        pre = f"blocks.{i}"
+        attn = blk["attn"]
+        if "latent_proj" not in attn:
+            raise ValueError(
+                f"blocks_{i} has no latent_proj: dense MHA blocks are not "
+                f"ported yet"
+            )
+        qkv_k = np.asarray(attn["qkv"]["kernel"])  # [D, 3, h, d]
+        sd[f"{pre}.attn.qkv.weight"] = _t(qkv_k.reshape(qkv_k.shape[0], -1).T)
+        sd[f"{pre}.attn.qkv.bias"] = _t(np.asarray(attn["qkv"]["bias"]).reshape(-1))
+        _linear(sd, f"{pre}.attn.latent_proj", attn["latent_proj"])
+        proj_k = np.asarray(attn["proj"]["kernel"])  # [h, d, D]
+        sd[f"{pre}.attn.proj.weight"] = _t(proj_k.reshape(-1, proj_k.shape[-1]).T)
+        sd[f"{pre}.attn.proj.bias"] = _t(attn["proj"]["bias"])
+        _layernorm(sd, f"{pre}.norm1", blk["norm1"])
+        _layernorm(sd, f"{pre}.norm2", blk["norm2"])
+        _linear(sd, f"{pre}.mlp.fc1", blk["mlp"]["fc1"])
+        _linear(sd, f"{pre}.mlp.fc2", blk["mlp"]["fc2"])
+    _layernorm(sd, "norm", params["norm"])
+    _linear(sd, "head", params["head"])
+    return sd
+
+
+def npz_to_state_dict(path) -> Dict[str, torch.Tensor]:
+    """Read a ``.npz`` of ``/``-joined Flax param paths and convert it."""
+    with np.load(path, allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files}
+    return flax_vit_mhla_to_state_dict(unflatten_params(flat))

@@ -1,0 +1,5 @@
+"""Models of the port."""
+
+from focused_attention_vit_tpu_torch.models.vit_mhla import VisionTransformerMHLA
+
+__all__ = ["VisionTransformerMHLA"]

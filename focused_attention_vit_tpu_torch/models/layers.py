@@ -1,0 +1,172 @@
+"""Building blocks of the MHLA ViT, eval only (port of
+``focused_attention_vit_tpu/models/layers.py``).
+
+Module and parameter names follow the reference torch layout, so that
+``state_dict()`` keys are the ones ``convert/torch_to_jax.py`` reads:
+``patch_embed.projection.1``, ``attn.qkv`` (fused ``[q | k | v]`` rows with
+contiguous heads), ``attn.latent_proj``, ``attn.proj``, ``norm1``/``norm2``
+and ``mlp.fc1``/``mlp.fc2``.
+
+Numerics follow the JAX package: LayerNorm eps 1e-5, exact (erf) GELU, and
+the attention dispatch of ``MultiHeadLatentAttention`` by sequence length.
+Dropout, attention masks and dense MHA blocks are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from focused_attention_vit_tpu_torch.ops import window as window_ops
+from focused_attention_vit_tpu_torch.ops.patch_embed import extract_patches
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """The reference init: Linear weights N(0, 0.02) with zero bias,
+    LayerNorm ones and zeros. Values are drawn on the CPU from
+    ``generator`` in module order, so a seed gives the same weights on any
+    device."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                m.weight.copy_(
+                    torch.empty(m.weight.shape).normal_(
+                        0.0, 0.02, generator=generator
+                    )
+                )
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+
+class ExtractPatches(nn.Module):
+    """Parameter-free first stage of the patch projection (the reference's
+    ``Rearrange``)."""
+
+    def __init__(self, patch_size: int):
+        super().__init__()
+        self.patch_size = patch_size
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return extract_patches(images, self.patch_size)
+
+
+class PatchEmbedding(nn.Module):
+    """NHWC images -> ``[B, N, D]`` patch embeddings."""
+
+    def __init__(self, patch_size: int, embed_dim: int, in_channels: int = 3,
+                 device=None):
+        super().__init__()
+        self.projection = nn.Sequential(
+            ExtractPatches(patch_size),
+            nn.Linear(patch_size * patch_size * in_channels, embed_dim,
+                      device=device),
+        )
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.projection(images)
+
+
+class MLP(nn.Module):
+    """fc1 -> exact GELU -> fc2."""
+
+    def __init__(self, embed_dim: int, hidden_dim: int, device=None):
+        super().__init__()
+        self.fc1 = nn.Linear(embed_dim, hidden_dim, device=device)
+        self.fc2 = nn.Linear(hidden_dim, embed_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class MultiHeadLatentAttention(nn.Module):
+    """Windowed latent attention: a fused qkv projection, one latent
+    ``Linear(d, d)`` shared by all heads and applied to K and V, window-local
+    attention with the reference edge rule, and the output projection.
+
+    Dispatch by sequence length S, as in the JAX package: S <= 2W the gather
+    form, S <= ``DENSE_BAND_MAX_SEQ`` the dense band, both on
+    ``[B, h, S, d]``; longer sequences feed the band op its S-minor
+    ``[B, h, d, S]`` layout (:meth:`_forward_sminor`), and the band launches
+    the CUDA kernel on a CUDA tensor.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
+                 device=None):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(
+                f"embed_dim {embed_dim} is not divisible by num_heads "
+                f"{num_heads}"
+            )
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.window_size = window_size
+        self.qkv = nn.Linear(embed_dim, 3 * embed_dim, device=device)
+        self.latent_proj = nn.Linear(self.head_dim, self.head_dim,
+                                     device=device)
+        self.proj = nn.Linear(embed_dim, embed_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, dim = x.shape
+        h, d = self.num_heads, self.head_dim
+        if s > window_ops.DENSE_BAND_MAX_SEQ:
+            return self._forward_sminor(x)
+        q, k, v = self.qkv(x).view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+        k = self.latent_proj(k)
+        v = self.latent_proj(v)
+        out = window_ops.windowed_latent_attention(q, k, v, self.window_size)
+        return self.proj(out.transpose(1, 2).reshape(b, s, dim))
+
+    def _forward_sminor(self, x: torch.Tensor) -> torch.Tensor:
+        """Long-S sublayer with the band in the S-minor layout (the JAX
+        package's ``HeadQKVProjDS`` / ``LatentProjDS`` /
+        ``HeadMergeProjDS``, which XLA fused into its matmuls).
+
+        The fused qkv ``Linear`` runs token-major (one GEMM, bias in its
+        epilogue) and one copy turns it into contiguous ``[3, B, h, d, S]``;
+        the shared latent ``Linear`` is a ``bmm`` over the ``B*h`` rows; the
+        output comes back token-major by one copy before ``proj``. Measured
+        on the card this beats writing S-minor straight from ``bmm`` over
+        stride-0 weights, for which cuBLAS picks slow kernels (PERF.md)."""
+        b, s, dim = x.shape
+        h, d = self.num_heads, self.head_dim
+        q, k, v = (
+            self.qkv(x).view(b, s, 3, h, d).permute(2, 0, 3, 4, 1).contiguous()
+        )
+        w_lat = self.latent_proj.weight.expand(b * h, d, d)
+        b_lat = self.latent_proj.bias.view(d, 1)
+        k, v = (
+            torch.bmm(w_lat, t.view(b * h, d, s)).add_(b_lat).view(b, h, d, s)
+            for t in (k, v)
+        )
+        out = window_ops.windowed_latent_attention_ds(
+            q, k, v, self.window_size
+        )
+        return self.proj(out.view(b, dim, s).transpose(1, 2).contiguous())
+
+
+class SwitchableTransformerBlock(nn.Module):
+    """Pre-LN block: ``x += attn(LN(x)); x += mlp(LN(x))``. Only the MHLA
+    attention (``use_mhla=True``) is ported so far."""
+
+    def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
+                 mlp_ratio: float = 4.0, use_mhla: bool = True, device=None):
+        super().__init__()
+        if not use_mhla:
+            raise NotImplementedError(
+                "dense MHA blocks (use_mhla=False) are not ported yet"
+            )
+        self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+        self.attn = MultiHeadLatentAttention(
+            embed_dim, num_heads, window_size, device=device
+        )
+        self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+        self.mlp = MLP(embed_dim, int(embed_dim * mlp_ratio), device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))

@@ -1,0 +1,98 @@
+"""ViT with MHLA blocks (port of
+``focused_attention_vit_tpu/models/vit_mhla.py``), eval only: a plain loop
+over the blocks, no scan, remat, sequence or pipeline parallelism."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from focused_attention_vit_tpu_torch.models.layers import (
+    PatchEmbedding,
+    SwitchableTransformerBlock,
+    init_weights,
+)
+
+
+class VisionTransformerMHLA(nn.Module):
+    """Patch embedding, cls token and learned positions, ``depth`` pre-LN
+    blocks, final LayerNorm and a linear head on the cls token.
+
+    Input is NHWC ``[B, H, W, C]`` float images; output ``[B, num_classes]``
+    logits. Weights are drawn from ``generator`` (a CPU
+    :class:`torch.Generator`; a fresh one seeded 0 when None) with the
+    reference init, then live on ``device``. The model computes in the dtype
+    of its parameters: ``model.to(torch.bfloat16)`` serves in bf16.
+    """
+
+    def __init__(
+        self,
+        img_size: int = 224,
+        patch_size: int = 4,
+        in_channels: int = 3,
+        num_classes: int = 1000,
+        embed_dim: int = 768,
+        depth: int = 12,
+        num_heads: int = 12,
+        mlp_ratio: float = 4.0,
+        window_size: int = 7,
+        use_mhla: bool = True,
+        *,
+        device=None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if img_size % patch_size:
+            raise ValueError(
+                f"patch_size {patch_size} must divide img_size {img_size}"
+            )
+        self.img_size = img_size
+        self.patch_size = patch_size
+        self.num_classes = num_classes
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.window_size = window_size
+        self.patch_embed = PatchEmbedding(
+            patch_size, embed_dim, in_channels, device=device
+        )
+        self.cls_token = nn.Parameter(
+            torch.empty(1, 1, embed_dim, device=device)
+        )
+        self.pos_embed = nn.Parameter(
+            torch.empty(1, self.num_patches + 1, embed_dim, device=device)
+        )
+        self.blocks = nn.ModuleList(
+            SwitchableTransformerBlock(
+                embed_dim, num_heads, window_size, mlp_ratio, use_mhla,
+                device=device,
+            )
+            for _ in range(depth)
+        )
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+        self.head = nn.Linear(embed_dim, num_classes, device=device)
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in (self.cls_token, self.pos_embed):
+                p.copy_(
+                    torch.empty(p.shape).normal_(0.0, 0.02,
+                                                 generator=generator)
+                )
+        init_weights(self, generator)
+
+    @property
+    def num_patches(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+    def forward_features(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.patch_embed(images)
+        cls = self.cls_token.expand(x.shape[0], -1, -1).to(x.dtype)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        for block in self.blocks:
+            x = block(x)
+        return self.norm(x)[:, 0]
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.head(self.forward_features(images))

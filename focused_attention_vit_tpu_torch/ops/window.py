@@ -1,0 +1,179 @@
+"""MHLA windowed local attention, eval path (port of
+``focused_attention_vit_tpu/ops/window.py``).
+
+Each query attends to a fixed window of W keys centred on it, after a shared
+latent projection of K and V. The edge rule is the reference's
+(``window_index_table``): a left-edge window is padded with key S-1, a
+right-edge window with key 0, and a duplicated key enters the softmax once
+per slot it fills. Even W is defined as the asymmetric window
+``[i - W//2, i + W//2 - 1]`` with the same padding.
+
+Three formulations, chosen by sequence length as in the JAX package:
+
+* S <= 2W: the gather form, which materialises the ``[B, h, S, W, d]``
+  window tensor (only tiny sequences reach it);
+* 2W < S <= ``DENSE_BAND_MAX_SEQ``: dense S x S attention with a static
+  log-multiplicity bias that encodes the window rule exactly;
+* S > ``DENSE_BAND_MAX_SEQ``: the band op of :mod:`.mhla_band_roll` on
+  S-minor ``[B, h, d, S]`` tensors, which launches the CUDA kernel on a CUDA
+  tensor and runs the halo-padded shift band below on a CPU tensor.
+
+Eval only: no attention mask and no dropout hook.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=64)
+def window_index_table(seq_len: int, window_size: int) -> np.ndarray:
+    """Closed-form ``[S, W]`` int32 window-index table (the reference edge
+    rule, extended to even W as the module docstring says)."""
+    s, w = seq_len, window_size
+    hw = w // 2
+    up = hw if w % 2 else hw - 1  # window is [i - hw, i + up]
+    i = np.arange(s, dtype=np.int64)[:, None]
+    j = np.arange(w, dtype=np.int64)[None, :]
+
+    interior = i - hw + j
+    # Left edge: [0 .. min(i + up, S - 1)] first, then S-1 to fill the slots.
+    left = np.where(j <= np.minimum(i + up, s - 1), j, s - 1)
+    # Right edge: p = i + up + 1 - S copies of key 0 first, then [i-hw .. S-1].
+    p = i + up + 1 - s
+    right = np.where(j >= p, i - hw + j - p, 0)
+    # The left rule wins when both apply (S < W), as in the reference.
+    table = np.where(i <= hw, left, np.where(i + up >= s, right, interior))
+    return np.asarray(np.clip(table, 0, s - 1), dtype=np.int32)
+
+
+def _gather_windowed_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+) -> torch.Tensor:
+    """Table-gather form on ``[B, h, S, d]``: logits and softmax in f32,
+    weights cast to V's dtype for the weighted sum."""
+    d = q.shape[-1]
+    table = torch.as_tensor(
+        window_index_table(q.shape[2], window_size), device=q.device
+    ).long()
+    k_win = k[:, :, table]  # [B, h, S, W, d]
+    v_win = v[:, :, table]
+    logits = torch.einsum(
+        "bhsd,bhswd->bhsw", q.float(), k_win.float()
+    ) * (d ** -0.5)
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhsw,bhswd->bhsd", weights.to(v.dtype), v_win)
+
+
+@functools.lru_cache(maxsize=32)
+def _band_log_multiplicity(seq_len: int, window_size: int) -> np.ndarray:
+    """Static ``[S, S]`` additive logit bias: ``log(m_ij)`` where key j fills
+    ``m_ij`` slots of query i's window, ``-inf`` outside the window. A dense
+    softmax with this bias equals the softmax over the W slots."""
+    table = window_index_table(seq_len, window_size)
+    counts = np.zeros((seq_len, seq_len), np.float32)
+    rows = np.repeat(np.arange(seq_len), window_size)
+    np.add.at(counts, (rows, table.reshape(-1)), 1.0)
+    with np.errstate(divide="ignore"):
+        bias = np.log(counts, where=counts > 0)
+    bias[counts == 0] = -np.inf
+    return bias.astype(np.float32)
+
+
+# Above this length the band op replaces the dense band (as in the JAX
+# package, where S x S logits stop paying for themselves). Which S the dense
+# band should keep on the card is not measured yet.
+DENSE_BAND_MAX_SEQ = 512
+
+
+def _dense_band_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+) -> torch.Tensor:
+    """Windowed attention as dense biased attention on ``[B, h, S, d]``:
+    f32 logits plus the log-multiplicity bias, f32 softmax, weights cast to
+    V's dtype for the product with V."""
+    s, d = q.shape[2], q.shape[3]
+    bias = torch.as_tensor(_band_log_multiplicity(s, window_size),
+                           device=q.device)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+        d ** -0.5
+    ) + bias
+    weights = torch.softmax(logits, dim=-1)
+    return torch.matmul(weights.to(v.dtype), v)
+
+
+def _halo_pad(x: torch.Tensor, window_size: int, dim: int) -> torch.Tensor:
+    """Pad ``dim`` with ``W//2`` copies of row S-1 on the left and
+    ``W-1-W//2`` copies of row 0 on the right, so that padded row ``i + o``
+    is the key the reference window puts in slot o of query i."""
+    w = window_size
+    hw = w // 2
+    s = x.shape[dim]
+    last = x.narrow(dim, s - 1, 1)
+    first = x.narrow(dim, 0, 1)
+    parts = [last] * hw + [x] + [first] * (w - 1 - hw)
+    return torch.cat(parts, dim) if len(parts) > 1 else x
+
+
+def _shift_banded_attention_ds(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+) -> torch.Tensor:
+    """Shift band on S-minor ``[B, h, d, S]`` tensors: W shifted multiply-
+    reduces over the halo-padded K for the ``[B, h, W, S]`` logits, an f32
+    softmax over W, and W shifted multiply-adds of V in f32; the result is
+    rounded once to the input dtype. Exact edge rule, no gather. This is the
+    plain version the band kernel is held against."""
+    d, s = q.shape[2], q.shape[3]
+    w = window_size
+    kp = _halo_pad(k, w, dim=3)
+    vp = _halo_pad(v, w, dim=3)
+    qf = q.float()
+    logits = torch.stack(
+        [(qf * kp[..., o:o + s].float()).sum(dim=2) for o in range(w)],
+        dim=2,
+    ) * (d ** -0.5)  # [B, h, W, S]
+    weights = torch.softmax(logits, dim=2)
+    out = sum(
+        weights[:, :, o:o + 1] * vp[..., o:o + s].float() for o in range(w)
+    )
+    return out.to(q.dtype)
+
+
+def windowed_latent_attention_ds(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+) -> torch.Tensor:
+    """Window-local attention on S-minor ``[B, h, d, S]`` tensors; K and V
+    already carry the latent projection. S <= 2W takes the gather form,
+    longer sequences the band op (the CUDA kernel on a CUDA tensor)."""
+    s = q.shape[3]
+    if s <= 2 * window_size:
+        out = _gather_windowed_attention(
+            q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3),
+            window_size,
+        )
+        return out.transpose(2, 3)
+    from focused_attention_vit_tpu_torch.ops.mhla_band_roll import (
+        roll_banded_attention,
+    )
+
+    return roll_banded_attention(q, k, v, window_size)
+
+
+def windowed_latent_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+) -> torch.Tensor:
+    """Window-local attention on per-head ``[B, h, S, d]`` tensors; K and V
+    already carry the latent projection. Returns ``[B, h, S, d]``."""
+    s = q.shape[2]
+    if s <= 2 * window_size:
+        return _gather_windowed_attention(q, k, v, window_size)
+    if s <= DENSE_BAND_MAX_SEQ:
+        return _dense_band_attention(q, k, v, window_size)
+    out = windowed_latent_attention_ds(
+        q.transpose(2, 3).contiguous(), k.transpose(2, 3).contiguous(),
+        v.transpose(2, 3).contiguous(), window_size,
+    )
+    return out.transpose(2, 3)
