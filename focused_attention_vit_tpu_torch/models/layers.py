@@ -1,4 +1,4 @@
-"""Building blocks of the MHLA ViT, eval only (port of
+"""Building blocks of the MHLA ViT (port of
 ``focused_attention_vit_tpu/models/layers.py``).
 
 Module and parameter names follow the reference torch layout, so that
@@ -9,7 +9,9 @@ and ``mlp.fc1``/``mlp.fc2``.
 
 Numerics follow the JAX package: LayerNorm eps 1e-5, exact (erf) GELU, and
 the attention dispatch of ``MultiHeadLatentAttention`` by sequence length.
-Dropout, attention masks and dense MHA blocks are not ported yet.
+``nn.Module.training`` plays the role of JAX's ``deterministic=False``:
+in training mode dropout draws from the :class:`DropoutRNG` a forward is
+given. Attention masks and dense MHA blocks are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,42 @@ from torch import nn
 
 from focused_attention_vit_tpu_torch.ops import window as window_ops
 from focused_attention_vit_tpu_torch.ops.patch_embed import extract_patches
+
+
+class DropoutRNG:
+    """The random streams of one train-mode forward, as JAX's ``dropout``
+    rng: ``device`` (a ``torch.Generator`` on the activations' device)
+    draws the dropout masks, ``host`` (a CPU generator) draws the band's
+    per-call dropout seeds, which go to the kernel as an int without a
+    device sync. Both are seeded from ``seed``; with no seed, both are
+    torch's default generators (a train-mode forward given no rng)."""
+
+    def __init__(self, seed: int | None = None, device=None):
+        self.device = self.host = None
+        if seed is not None:
+            self.device = torch.Generator(device=device).manual_seed(seed)
+            self.host = torch.Generator().manual_seed(seed)
+
+    def band_seed(self) -> int:
+        """A seed for the band op's in-kernel dropout, in [0, 2**31 - 1)
+        as the JAX layer draws it."""
+        return int(torch.randint(0, 2**31 - 1, (), generator=self.host))
+
+
+def inverted_dropout(x: torch.Tensor, rate: float,
+                     rng: DropoutRNG | None) -> torch.Tensor:
+    """Inverted dropout as Flax's ``nn.Dropout``: keep with probability
+    ``1 - rate`` and scale the kept values by ``1 / (1 - rate)``. The mask
+    comes from ``rng.device`` (the default generator when ``rng`` is
+    None); autograd keeps only the bool mask."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    rng = rng or DropoutRNG()
+    keep = torch.empty(x.shape, dtype=torch.bool, device=x.device).bernoulli_(
+        1.0 - rate, generator=rng.device)
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -71,15 +109,20 @@ class PatchEmbedding(nn.Module):
 
 
 class MLP(nn.Module):
-    """fc1 -> exact GELU -> fc2."""
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout."""
 
-    def __init__(self, embed_dim: int, hidden_dim: int, device=None):
+    def __init__(self, embed_dim: int, hidden_dim: int, dropout: float = 0.0,
+                 device=None):
         super().__init__()
+        self.dropout = dropout
         self.fc1 = nn.Linear(embed_dim, hidden_dim, device=device)
         self.fc2 = nn.Linear(hidden_dim, embed_dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
+                ) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        x = inverted_dropout(F.gelu(self.fc1(x)), rate, rng)
+        return inverted_dropout(self.fc2(x), rate, rng)
 
 
 class MultiHeadLatentAttention(nn.Module):
@@ -91,11 +134,18 @@ class MultiHeadLatentAttention(nn.Module):
     form, S <= ``DENSE_BAND_MAX_SEQ`` the dense band, both on
     ``[B, h, S, d]``; longer sequences feed the band op its S-minor
     ``[B, h, d, S]`` layout (:meth:`_forward_sminor`), and the band launches
-    the CUDA kernel on a CUDA tensor.
+    the CUDA kernels on a CUDA tensor.
+
+    In training mode with ``dropout > 0`` (the model's ``attn_dropout``)
+    the window weights are dropped as in JAX (``models/layers.py``
+    :408-424, :513-574): per window slot inside the band op at long S, with
+    a seed drawn once per call from ``rng.host``; per merged key on the
+    dense band's ``[B, h, S, S]`` weights; per slot on the gather form's
+    ``[B, h, S, W]`` weights. The output is dropped at the same rate.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
-                 device=None):
+                 dropout: float = 0.0, device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(
@@ -105,23 +155,39 @@ class MultiHeadLatentAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.window_size = window_size
+        self.dropout = dropout
         self.qkv = nn.Linear(embed_dim, 3 * embed_dim, device=device)
         self.latent_proj = nn.Linear(self.head_dim, self.head_dim,
                                      device=device)
         self.proj = nn.Linear(embed_dim, embed_dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
+                ) -> torch.Tensor:
         b, s, dim = x.shape
         h, d = self.num_heads, self.head_dim
+        w = self.window_size
+        rate = self.dropout if self.training else 0.0
         if s > window_ops.DENSE_BAND_MAX_SEQ:
-            return self._forward_sminor(x)
+            return inverted_dropout(self._forward_sminor(x, rate, rng), rate,
+                                    rng)
         q, k, v = self.qkv(x).view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
         k = self.latent_proj(k)
         v = self.latent_proj(v)
-        out = window_ops.windowed_latent_attention(q, k, v, self.window_size)
-        return self.proj(out.transpose(1, 2).reshape(b, s, dim))
+        if rate > 0.0:
+            def drop(wts):
+                return inverted_dropout(wts, rate, rng)
 
-    def _forward_sminor(self, x: torch.Tensor) -> torch.Tensor:
+            if s > 2 * w:
+                out = window_ops._dense_band_attention(q, k, v, w, drop)
+            else:
+                out = window_ops._gather_windowed_attention(q, k, v, w, drop)
+        else:
+            out = window_ops.windowed_latent_attention(q, k, v, w)
+        out = self.proj(out.transpose(1, 2).reshape(b, s, dim))
+        return inverted_dropout(out, rate, rng)
+
+    def _forward_sminor(self, x: torch.Tensor, rate: float,
+                        rng: DropoutRNG | None) -> torch.Tensor:
         """Long-S sublayer with the band in the S-minor layout (the JAX
         package's ``HeadQKVProjDS`` / ``LatentProjDS`` /
         ``HeadMergeProjDS``, which XLA fused into its matmuls).
@@ -143,18 +209,24 @@ class MultiHeadLatentAttention(nn.Module):
             torch.bmm(w_lat, t.view(b * h, d, s)).add_(b_lat).view(b, h, d, s)
             for t in (k, v)
         )
+        seed = None
+        if rate > 0.0:
+            seed = (rng or DropoutRNG()).band_seed()
         out = window_ops.windowed_latent_attention_ds(
-            q, k, v, self.window_size
+            q, k, v, self.window_size, (rate, seed)
         )
         return self.proj(out.view(b, dim, s).transpose(1, 2).contiguous())
 
 
 class SwitchableTransformerBlock(nn.Module):
-    """Pre-LN block: ``x += attn(LN(x)); x += mlp(LN(x))``. Only the MHLA
-    attention (``use_mhla=True``) is ported so far."""
+    """Pre-LN block: ``x += attn(LN(x)); x += mlp(LN(x))``, with
+    ``attn_dropout`` in the attention and ``dropout`` in the MLP. Only the
+    MHLA attention (``use_mhla=True``) is ported so far."""
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
-                 mlp_ratio: float = 4.0, use_mhla: bool = True, device=None):
+                 mlp_ratio: float = 4.0, use_mhla: bool = True,
+                 dropout: float = 0.0, attn_dropout: float = 0.0,
+                 device=None):
         super().__init__()
         if not use_mhla:
             raise NotImplementedError(
@@ -162,11 +234,13 @@ class SwitchableTransformerBlock(nn.Module):
             )
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
         self.attn = MultiHeadLatentAttention(
-            embed_dim, num_heads, window_size, device=device
+            embed_dim, num_heads, window_size, attn_dropout, device=device
         )
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
-        self.mlp = MLP(embed_dim, int(embed_dim * mlp_ratio), device=device)
+        self.mlp = MLP(embed_dim, int(embed_dim * mlp_ratio), dropout,
+                       device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), rng)
+        return x + self.mlp(self.norm2(x), rng)

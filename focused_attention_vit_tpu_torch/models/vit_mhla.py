@@ -1,6 +1,6 @@
 """ViT with MHLA blocks (port of
-``focused_attention_vit_tpu/models/vit_mhla.py``), eval only: a plain loop
-over the blocks, no scan, remat, sequence or pipeline parallelism."""
+``focused_attention_vit_tpu/models/vit_mhla.py``): a plain loop over the
+blocks, no scan, remat, sequence or pipeline parallelism."""
 
 from __future__ import annotations
 
@@ -8,9 +8,11 @@ import torch
 from torch import nn
 
 from focused_attention_vit_tpu_torch.models.layers import (
+    DropoutRNG,
     PatchEmbedding,
     SwitchableTransformerBlock,
     init_weights,
+    inverted_dropout,
 )
 
 
@@ -22,7 +24,13 @@ class VisionTransformerMHLA(nn.Module):
     logits. Weights are drawn from ``generator`` (a CPU
     :class:`torch.Generator`; a fresh one seeded 0 when None) with the
     reference init, then live on ``device``. The model computes in the dtype
-    of its parameters: ``model.to(torch.bfloat16)`` serves in bf16.
+    of its parameters: ``model.to(torch.bfloat16)`` serves in bf16, and
+    training runs bf16 under ``torch.autocast`` over f32 parameters.
+
+    In training mode (``model.train()``) ``dropout`` applies in the MLPs,
+    ``attn_dropout`` to the window weights and the attention output, and
+    ``embed_dropout`` after the position embedding, drawn from the
+    :class:`~.layers.DropoutRNG` passed to :meth:`forward`.
     """
 
     def __init__(
@@ -37,6 +45,9 @@ class VisionTransformerMHLA(nn.Module):
         mlp_ratio: float = 4.0,
         window_size: int = 7,
         use_mhla: bool = True,
+        dropout: float = 0.0,
+        attn_dropout: float = 0.0,
+        embed_dropout: float = 0.0,
         *,
         device=None,
         generator: torch.Generator | None = None,
@@ -53,6 +64,7 @@ class VisionTransformerMHLA(nn.Module):
         self.depth = depth
         self.num_heads = num_heads
         self.window_size = window_size
+        self.embed_dropout = embed_dropout
         self.patch_embed = PatchEmbedding(
             patch_size, embed_dim, in_channels, device=device
         )
@@ -65,7 +77,7 @@ class VisionTransformerMHLA(nn.Module):
         self.blocks = nn.ModuleList(
             SwitchableTransformerBlock(
                 embed_dim, num_heads, window_size, mlp_ratio, use_mhla,
-                device=device,
+                dropout, attn_dropout, device=device,
             )
             for _ in range(depth)
         )
@@ -86,13 +98,17 @@ class VisionTransformerMHLA(nn.Module):
     def num_patches(self) -> int:
         return (self.img_size // self.patch_size) ** 2
 
-    def forward_features(self, images: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, images: torch.Tensor,
+                         rng: DropoutRNG | None = None) -> torch.Tensor:
         x = self.patch_embed(images)
         cls = self.cls_token.expand(x.shape[0], -1, -1).to(x.dtype)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        x = inverted_dropout(
+            x, self.embed_dropout if self.training else 0.0, rng)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, rng)
         return self.norm(x)[:, 0]
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        return self.head(self.forward_features(images))
+    def forward(self, images: torch.Tensor,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        return self.head(self.forward_features(images, rng))

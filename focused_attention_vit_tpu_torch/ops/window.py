@@ -1,4 +1,4 @@
-"""MHLA windowed local attention, eval path (port of
+"""MHLA windowed local attention (port of
 ``focused_attention_vit_tpu/ops/window.py``).
 
 Each query attends to a fixed window of W keys centred on it, after a shared
@@ -18,7 +18,10 @@ Three formulations, chosen by sequence length as in the JAX package:
   S-minor ``[B, h, d, S]`` tensors, which launches the CUDA kernel on a CUDA
   tensor and runs the halo-padded shift band below on a CPU tensor.
 
-Eval only: no attention mask and no dropout hook.
+The gather form, the dense band and the S-minor shift band take an optional
+``weights_transform``, applied to their f32 softmax weights before the
+product with V: the train-mode attention-weight dropout hook of the MHLA
+layer (JAX ``ops/window.py``). Attention masks are not ported.
 """
 
 from __future__ import annotations
@@ -51,10 +54,12 @@ def window_index_table(seq_len: int, window_size: int) -> np.ndarray:
 
 
 def _gather_windowed_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
+    weights_transform=None,
 ) -> torch.Tensor:
     """Table-gather form on ``[B, h, S, d]``: logits and softmax in f32,
-    weights cast to V's dtype for the weighted sum."""
+    ``weights_transform`` on the ``[B, h, S, W]`` weights, weights cast to
+    V's dtype for the weighted sum."""
     d = q.shape[-1]
     table = torch.as_tensor(
         window_index_table(q.shape[2], window_size), device=q.device
@@ -65,6 +70,8 @@ def _gather_windowed_attention(
         "bhsd,bhswd->bhsw", q.float(), k_win.float()
     ) * (d ** -0.5)
     weights = torch.softmax(logits, dim=-1)
+    if weights_transform is not None:
+        weights = weights_transform(weights)
     return torch.einsum("bhsw,bhswd->bhsd", weights.to(v.dtype), v_win)
 
 
@@ -90,11 +97,16 @@ DENSE_BAND_MAX_SEQ = 512
 
 
 def _dense_band_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
+    weights_transform=None,
 ) -> torch.Tensor:
     """Windowed attention as dense biased attention on ``[B, h, S, d]``:
-    f32 logits plus the log-multiplicity bias, f32 softmax, weights cast to
-    V's dtype for the product with V."""
+    f32 logits plus the log-multiplicity bias, f32 softmax,
+    ``weights_transform`` on the ``[B, h, S, S]`` weights (train-mode
+    dropout then draws one Bernoulli per merged duplicated edge key, as in
+    JAX), weights cast to V's dtype for the product with V. Unlike JAX,
+    autograd keeps the ``[B, h, S, S]`` weights for the backward instead of
+    recomputing them; only S <= ``DENSE_BAND_MAX_SEQ`` comes here."""
     s, d = q.shape[2], q.shape[3]
     bias = torch.as_tensor(_band_log_multiplicity(s, window_size),
                            device=q.device)
@@ -102,6 +114,8 @@ def _dense_band_attention(
         d ** -0.5
     ) + bias
     weights = torch.softmax(logits, dim=-1)
+    if weights_transform is not None:
+        weights = weights_transform(weights)
     return torch.matmul(weights.to(v.dtype), v)
 
 
@@ -118,38 +132,64 @@ def _halo_pad(x: torch.Tensor, window_size: int, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim) if len(parts) > 1 else x
 
 
+def _shift_band_weights_ds(
+    q: torch.Tensor, k: torch.Tensor, window_size: int
+) -> torch.Tensor:
+    """f32 ``[B, h, W, S]`` softmax weights of the shift band on S-minor
+    ``[B, h, d, S]`` q and k: W shifted multiply-reduces over the
+    halo-padded K, scaled by ``d**-0.5``, softmax over W."""
+    d, s = q.shape[2], q.shape[3]
+    kp = _halo_pad(k, window_size, dim=3)
+    qf = q.float()
+    logits = torch.stack(
+        [(qf * kp[..., o:o + s].float()).sum(dim=2)
+         for o in range(window_size)],
+        dim=2,
+    ) * (d ** -0.5)
+    return torch.softmax(logits, dim=2)
+
+
+def _shift_band_apply_ds(weights: torch.Tensor, v: torch.Tensor
+                         ) -> torch.Tensor:
+    """``sum_o weights[:, :, o] * v`` shifted to slot o, in f32 over the
+    halo-padded V; ``[B, h, d, S]`` f32."""
+    w, s = weights.shape[2], v.shape[3]
+    vp = _halo_pad(v, w, dim=3)
+    return sum(
+        weights[:, :, o:o + 1] * vp[..., o:o + s].float() for o in range(w)
+    )
+
+
 def _shift_banded_attention_ds(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
+    weights_transform=None,
 ) -> torch.Tensor:
     """Shift band on S-minor ``[B, h, d, S]`` tensors: W shifted multiply-
     reduces over the halo-padded K for the ``[B, h, W, S]`` logits, an f32
-    softmax over W, and W shifted multiply-adds of V in f32; the result is
-    rounded once to the input dtype. Exact edge rule, no gather. This is the
-    plain version the band kernel is held against."""
-    d, s = q.shape[2], q.shape[3]
-    w = window_size
-    kp = _halo_pad(k, w, dim=3)
-    vp = _halo_pad(v, w, dim=3)
-    qf = q.float()
-    logits = torch.stack(
-        [(qf * kp[..., o:o + s].float()).sum(dim=2) for o in range(w)],
-        dim=2,
-    ) * (d ** -0.5)  # [B, h, W, S]
-    weights = torch.softmax(logits, dim=2)
-    out = sum(
-        weights[:, :, o:o + 1] * vp[..., o:o + s].float() for o in range(w)
-    )
-    return out.to(q.dtype)
+    softmax over W, ``weights_transform`` on those weights, and W shifted
+    multiply-adds of V in f32; the result is rounded once to the input
+    dtype. Exact edge rule, no gather. This is the plain version the band
+    kernel is held against."""
+    weights = _shift_band_weights_ds(q, k, window_size)
+    if weights_transform is not None:
+        weights = weights_transform(weights)
+    return _shift_band_apply_ds(weights, v).to(q.dtype)
 
 
 def windowed_latent_attention_ds(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
+    dropout=(0.0, None),
 ) -> torch.Tensor:
     """Window-local attention on S-minor ``[B, h, d, S]`` tensors; K and V
     already carry the latent projection. S <= 2W takes the gather form,
-    longer sequences the band op (the CUDA kernel on a CUDA tensor)."""
+    longer sequences the band op (the CUDA kernels on a CUDA tensor), which
+    applies ``dropout=(rate, seed)`` per window slot."""
     s = q.shape[3]
     if s <= 2 * window_size:
+        if dropout[1] is not None and dropout[0] > 0.0:
+            raise ValueError(
+                f"band dropout requires S > 2*W (got S={s}, W={window_size})"
+            )
         out = _gather_windowed_attention(
             q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3),
             window_size,
@@ -159,7 +199,7 @@ def windowed_latent_attention_ds(
         roll_banded_attention,
     )
 
-    return roll_banded_attention(q, k, v, window_size)
+    return roll_banded_attention(q, k, v, window_size, dropout)
 
 
 def windowed_latent_attention(

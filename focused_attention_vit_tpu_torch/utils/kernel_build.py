@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled for Hopper
 (``sm_90a``) into a shared library and loaded with :mod:`ctypes`, so no
 PyTorch headers are compiled. The library goes to ``build/kernels/`` at the
 repository root (listed in ``.gitignore``), in a directory named by a hash of
-the source and the flags: an edited source builds anew, an unchanged one
-loads the library built before.
+the source, the headers of ``csrc/`` and the flags: an edited source or
+header builds anew, an unchanged one loads the library built before.
+:func:`build_many` starts one nvcc per source, all at once.
 
 There is no fallback: without ``nvcc``, or when it fails, the build raises
 :class:`KernelCompileError`.
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -58,11 +60,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        source + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to, keyed by source, headers and
+    flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 
@@ -86,6 +90,14 @@ def build(name: str) -> Path:
         )
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
+
+
+def build_many(names) -> list[Path]:
+    """:func:`build` each source, one nvcc process per source, all started
+    together; raises the first failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""The band kernel on an NVIDIA Hopper GPU against its plain version.
+"""The band kernels on an NVIDIA Hopper GPU against their plain versions.
 
 Marked ``gpu``: these skip where there is no CUDA device. On a machine with
 the card and without JAX, run them with
@@ -13,6 +13,20 @@ from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
 
 pytestmark = pytest.mark.gpu
 
+# The band generator's first words (rows=2, W=5, S=3, this seed), flattened
+# [row, slot, query]; tests/test_torch_band_train.py pins the plain version
+# to the same words.
+GOLDEN_SEED = (7 << 32) | 12345
+GOLDEN_WORDS = [
+    3086511039, 245901908, 3177187213, 2069350973, 3103532112, 151919624,
+    1397954912, 2271584979, 2479453186, 1299647223, 2188948469, 937884490,
+    930448833, 3107885048, 2841791171, 693844396, 170832709, 1430873668,
+    4027066890, 3703900889, 714957423, 882152769, 100387362, 27010507,
+    3695691793, 3297131847, 3954828362, 3001140159, 1456036163, 1764380807,
+]
+SHAPES = [(16, 15, 7), (64, 1000, 7), (32, 577, 4), (128, 200, 16),
+          (64, 3137, 1), (64, 3137, 7)]
+
 
 @pytest.fixture
 def cuda():
@@ -23,30 +37,100 @@ def cuda():
     return torch.device("cuda")
 
 
+def _inputs(cuda, shape, dtype, n=3, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, device=cuda, generator=gen).to(dtype)
+            for _ in range(n)]
+
+
+def _close(got, want, dtype, f32_tol, bf16_atol=2.0 ** -16):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=f32_tol, rtol=0)
+    else:
+        # Both sides compute in f32 from the same bf16 inputs and round
+        # once: at most one bf16 ulp apart (2^-7 relative).
+        torch.testing.assert_close(got.float(), want.float(), atol=bf16_atol,
+                                   rtol=2.0 ** -7)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,s,w", [(16, 15, 7), (64, 1000, 7), (32, 577, 4),
-                                   (128, 200, 16), (64, 3137, 1)])
+@pytest.mark.parametrize("d,s,w", SHAPES)
 def test_kernel_matches_plain(cuda, dtype, d, s, w):
-    gen = torch.Generator(device=cuda).manual_seed(s)
-    q, k, v = (torch.randn(2, 3, d, s, device=cuda, generator=gen).to(dtype)
-               for _ in range(3))
+    q, k, v = _inputs(cuda, (2, 3, d, s), dtype, seed=s)
     before = band.launch_count()
     got = band.roll_banded_attention(q, k, v, w)
     torch.cuda.synchronize()
     assert band.launch_count() == before + 1
     want = band.plain_banded_attention(q, k, v, w)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
-    else:
-        # Both sides compute in f32 from the same bf16 inputs and round
-        # once: at most one bf16 ulp apart above 2^-10.
-        torch.testing.assert_close(got.float(), want.float(), atol=2.0 ** -16,
-                                   rtol=2.0 ** -7)
+    _close(got, want, dtype, 1e-5)
 
 
-def test_kernel_rejects_what_it_does_not_take(cuda):
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,s,w", SHAPES)
+def test_training_kernels_match_plain(cuda, dtype, d, s, w, rate):
+    """The training forward (output, saved weights, in-kernel mask) and the
+    backward against their plain versions on the same inputs. f32: the
+    forward within 1e-5 as the eval kernel; the backward within 1e-4, for
+    sums of up to W^2 terms and the softmax backward in other orders. bf16:
+    the forward as the eval kernel; the backward's f32 sums differ by the
+    same 1e-4 before the one rounding, which can exceed one ulp of a
+    gradient that cancels to near 0, so its absolute bound is 1e-4."""
+    q, k, v, g = _inputs(cuda, (2, 3, d, s), dtype, n=4, seed=s + w)
+    seed = 2**33 + 5 if rate else None
+    out, wts = band.band_forward_train(q, k, v, w, rate, seed)
+    ref_out, ref_wts = band.plain_band_forward_train(q, k, v, w, rate, seed)
+    grads = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    ref_grads = band.plain_band_backward(q, k, v, g, wts, w, rate, seed)
+    torch.cuda.synchronize()
+    _close(out, ref_out, dtype, 1e-5)
+    torch.testing.assert_close(wts, ref_wts, atol=1e-5, rtol=0)
+    for got, want in zip(grads, ref_grads):
+        assert got.dtype == dtype
+        _close(got, want, dtype, 1e-4, bf16_atol=1e-4)
+
+
+def test_mask_equals_golden_words(cuda):
+    bits = band.keep_bits(2, 5, 3, GOLDEN_SEED, cuda)
+    assert bits.flatten().tolist() == GOLDEN_WORDS
+    big = band.keep_bits(7, 7, 3137, 99, cuda)
+    assert torch.equal(big.cpu(), band.keep_bits(7, 7, 3137, 99, "cpu"))
+
+
+def test_launch_counters_and_gradients(cuda):
+    """Each wrapper counts its own launches: the lean eval forward outside
+    autograd, the training forward and the backward under it; and q, k, v
+    receive gradients on the card."""
+    band.reset_launch_count()
+    q, k, v = (t.requires_grad_() for t in _inputs(cuda, (2, 2, 64, 600),
+                                                   torch.float32))
+    with torch.no_grad():
+        band.roll_banded_attention(q, k, v, 7)
+    out = band.roll_banded_attention(q, k, v, 7, (0.1, 3))
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert [band.launch_count(kind) for kind in band.LAUNCH_KINDS] == [1, 1, 1]
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+        assert t.grad.abs().sum() > 0
+
+
+def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 16, 40, device=cuda)
-    with pytest.raises(ValueError):
+    wts = torch.zeros(2, 7, 40, device=cuda)
+    with pytest.raises(ValueError):  # layout
         band.roll_banded_attention(q, q, q[..., :20].contiguous(), 7)
-    with pytest.raises(ValueError):
-        band.roll_banded_attention(q, q, q, band.MAX_WINDOW + 1)
+    with pytest.raises(ValueError):  # stride
+        band.band_forward_train(q.transpose(2, 3).contiguous().transpose(
+            2, 3), q, q, 7)
+    with pytest.raises(ValueError):  # window
+        band.band_forward_train(q, q, q, band.MAX_WINDOW + 1)
+    with pytest.raises(ValueError):  # head dim
+        x = torch.zeros(1, 2, 24, 40, device=cuda)
+        band.band_forward_train(x, x, x, 7)
+    with pytest.raises(TypeError):  # dtype
+        x = q.half()
+        band.band_backward(x, x, x, x, wts, 7)
+    with pytest.raises(ValueError):  # saved weights on the wrong device
+        band.band_backward(q, q, q, q, wts.cpu(), 7)
