@@ -2,14 +2,14 @@
 """Smoke run of the PyTorch port on one NVIDIA Hopper GPU.
 
 Drives the serving path and the training path of
-``focused_attention_vit_tpu_torch`` at MHLA-B/4 (D=768, 12 blocks, 12 heads
-of d=64, W=7, patch 4 on 224x224, S=3137, 10 classes, seeded random weights)
-and checks every CUDA kernel on them. Phases, one or more lines each; any
-failure raises and exits non-zero:
+``focused_attention_vit_tpu_torch`` at MHLA-B/4 and at dense ViT-B/4 (D=768,
+12 blocks, 12 heads of d=64, W=7 for MHLA, patch 4 on 224x224, S=3137, 10
+classes, seeded random weights) and checks every CUDA kernel on them.
+Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: requires CUDA and compute capability 9.0; prints the card's name
    and ``nvidia-smi`` name and power limit;
-2. build: compiles both kernel sources from ``csrc/`` with nvcc, in
+2. build: compiles the four kernel sources from ``csrc/`` with nvcc, in
    parallel;
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
@@ -32,9 +32,30 @@ failure raises and exits non-zero:
    microbatch 16; losses finite, every parameter moved, the launch counts
    equal 12 x the passes run; ms per step, images/s and peak memory.
 
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Run from the repository root:
-``python3 chip_smoke.py``.
+9. kernel-flash: the flash-attention forward (eval and training, with its
+   log-sum-exp) and backward kernels against their plain versions over a
+   grid of shapes and at the serving shape, f32 and bf16; the backward run
+   twice gives the same bits; CUDA-event timings of the kernels, the plain
+   versions and PyTorch's fused attention (timed here as the yardstick,
+   used nowhere in the port);
+10. vit-model: dense ViT-B/4 in f32 on the card against the same weights on
+    the CPU;
+11. vit-serve: ``serve.setup(["--model", "vit", ...])``, concurrent requests
+    and one ``POST /predict`` in bf16; flash launches equal 12 x the forward
+    passes run;
+12. vit-train-parity: one train step of dense ViT-B/4 cut to 2 blocks, f32,
+    card against CPU;
+13. vit-train: dense ViT-B/4 trains through ``train.train_and_evaluate`` in
+    bf16 autocast at batch 32 with dropout 0.1, then a short run with
+    attention dropout 0.1, which takes the query-chunked plain path and
+    must launch no flash training kernel.
+
+Every launch count is set to 0 just before its path is driven and read just
+after. The line before the last is a JSON summary of the six kernels, each
+with its time, its plain version's, the least time the card could take
+(``bound_ms``, from this run's shapes) and the library call's where PyTorch
+has one; the last line is ``{"ok": true, "device": {...}}``. Run from the
+repository root: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -58,7 +79,11 @@ import torch
 from focused_attention_vit_tpu_torch import serve, train
 from focused_attention_vit_tpu_torch.data.datasets import load_dataset
 from focused_attention_vit_tpu_torch.data.pipeline import prepare_eval_batch
-from focused_attention_vit_tpu_torch.models import VisionTransformerMHLA
+from focused_attention_vit_tpu_torch.models import (
+    VisionTransformer,
+    VisionTransformerMHLA,
+)
+from focused_attention_vit_tpu_torch.ops import flash_attention as flash
 from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
 from focused_attention_vit_tpu_torch.utils import kernel_build
 
@@ -88,16 +113,32 @@ F32_BWD_TOL = 1e-4
 PARITY_LOSS_TOL = 1e-4
 PARITY_GRAD_REL = 1e-3
 PARITY_GRAD_ABS = 1e-6
-LIBRARIES = ("mhla_band_fwd", "mhla_band_bwd")
+LIBRARIES = ("mhla_band_fwd", "mhla_band_bwd", "flash_attention_fwd",
+             "flash_attention_bwd")
+FLASH_SHAPE = (32, 12, 3137, 64)  # B, h, S, d of the flash op at ViT-B/4 b32
+# The bf16 flash kernels round the softmax weights (and ds in the backward)
+# to bf16 for the tensor cores where the plain versions keep f32: a sum of S
+# independent roundings of relative size 2^-9, far below one ulp of a typical
+# entry. So the bound is BF16_ULPS ulps counted at max(|plain|, a quarter of
+# the tensor's largest |plain|) (entries far below the tensor's scale carry
+# the rounding noise of the large terms that cancelled in them), and the
+# error's rms within 2^-8 of the plain result's rms.
+FLASH_ULP_FLOOR_SHARE = 0.25
+FLASH_RMS_REL = 2.0 ** -8
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory and
+# dense bf16 tensor-core rate. bound_ms is computed against these.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor,
+              floor: float = BF16_ULP_FLOOR) -> float:
     ref = ref.float()
-    mag = ref.abs().clamp_min(BF16_ULP_FLOOR)
+    mag = ref.abs().clamp_min(floor)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)  # 8-bit significand
     return float(((got.float() - ref).abs() / ulp).max())
 
@@ -115,6 +156,16 @@ def cuda_median_ms(fn, repeats: int = 30, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def least_time(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the bf16
+    tensor-core peak, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_device() -> str:
@@ -155,6 +206,16 @@ def phase_build() -> None:
         log("build", f"ptxas {lib.name}: {len(regs)} kernels, registers "
                      f"{min(regs)}-{max(regs)}, spill stores up to "
                      f"{max(spills, default=0)} bytes")
+        # The tensor-core flash kernels at d = 64, the main path's.
+        for m in re.finditer(
+                r"Function properties for \S*?\d(flash_(?:fwd|bwd_dkv|bwd_dq)"
+                r"_mma)ILi64E(\w*?)EvP\S*\n\s*\d+ bytes stack frame, (\d+) "
+                r"bytes spill stores.*\n.*?Used (\d+) registers"
+                r"(?:.*?(\d+) bytes smem)?", text):
+            lse = ", lse" if "Lb1" in m.group(2) else ""
+            log("build", f"ptxas {m.group(1)}<64{lse}>: {m.group(4)} "
+                         f"registers, {m.group(3)} bytes of spill stores, "
+                         f"{m.group(5) or 0} bytes of shared memory")
 
 
 def phase_kernel() -> dict:
@@ -202,7 +263,11 @@ def phase_kernel() -> dict:
         log("kernel", f"serving shape {SERVE_SHAPE} W={SERVE_W} {dt}: kernel "
                       f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s of q,k,v,out"
                       f"), plain {plain_ms:.4f} ms (median of 30, CUDA events)")
-        result[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        b, h, d, n = SERVE_SHAPE
+        # Two products of W*d multiply-adds a query.
+        result[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=None,
+                          **least_time(nbytes, 4 * b * h * n * SERVE_W * d))
     return result
 
 
@@ -302,12 +367,22 @@ def phase_kernel_train() -> dict:
                             f"{times['bwd']:.4f} ms (plain "
                             f"{times['bwd_plain']:.4f}); median of 30, CUDA "
                             f"events")
+        # Bytes the functions must move: q, k, v in and out back, plus the
+        # f32 weights; the backward reads q, k, v, g and the weights and
+        # writes dq, dk, dv (its scratch is the kernel's own). Products: 2
+        # in the forward, 5 in the backward, of W*d multiply-adds a query.
+        one = q.numel() * q.element_size()
+        pairs = b * h * s * SERVE_W * d
         result[dt] = dict(
             fwd_train=dict(max_abs_err=max(res["out"][0], res["wts"][0]),
                            ms=times["fwd_train"],
-                           plain_ms=times["fwd_train_plain"]),
+                           plain_ms=times["fwd_train_plain"],
+                           library_ms=None,
+                           **least_time(4 * one + wts.numel() * 4, 4 * pairs)),
             bwd=dict(max_abs_err=max(res[n][0] for n in ("dq", "dk", "dv")),
-                     ms=times["bwd"], plain_ms=times["bwd_plain"]),
+                     ms=times["bwd"], plain_ms=times["bwd_plain"],
+                     library_ms=None,
+                     **least_time(7 * one + wts.numel() * 4, 10 * pairs)),
         )
     return result
 
@@ -316,25 +391,50 @@ def _images(rng: np.random.Generator, n: int) -> np.ndarray:
     return rng.integers(0, 256, size=(n, 32, 32, 3), dtype=np.uint8)
 
 
-def phase_model(cpu_model: torch.nn.Module, image: np.ndarray) -> np.ndarray:
+class ModelPath:
+    """One model's path through the script: its phases' labels, the model
+    class, the ``--model`` flag and the op whose launches it counts."""
+
+    def __init__(self, prefix, name, cls, flag, op, op_name):
+        self.prefix, self.name, self.cls = prefix, name, cls
+        self.flag, self.op, self.op_name = flag, op, op_name
+
+    def phase(self, base: str) -> str:
+        return f"{self.prefix}{base}"
+
+    def build(self, depth=DEPTH, **kw):
+        return self.cls(img_size=224, patch_size=4, num_classes=10,
+                        depth=depth, **kw)
+
+
+MHLA = ModelPath("", "MHLA-B/4", VisionTransformerMHLA, "vit_mhla", band, "band")
+DENSE = ModelPath("vit-", "dense ViT-B/4", VisionTransformer, "vit", flash,
+              "flash")
+
+
+def phase_model(path: ModelPath, cpu_model: torch.nn.Module,
+                image: np.ndarray) -> np.ndarray:
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     with torch.inference_mode():
         x = prepare_eval_batch(torch.from_numpy(image), 224)
         ref_logits = cpu_model(x)
-        band.reset_launch_count()
+        path.op.reset_launch_count()
         logits = gpu_model(x.to("cuda")).cpu()
-        launches = band.launch_count()
+        launches = path.op.launch_count()
     ref_probs = torch.softmax(ref_logits, -1)
     probs = torch.softmax(logits, -1)
     dl = float((logits - ref_logits).abs().max())
     dp = float((probs - ref_probs).abs().max())
-    log("model", f"MHLA-B/4 f32 batch 1, card vs CPU: max |d logits| {dl:.3g} "
-                 f"(tol 1e-3), max |d probs| {dp:.3g} (tol 1e-4), band "
-                 f"launches {launches}")
+    log(path.phase("model"),
+        f"{path.name} f32 batch 1, card vs CPU: max |d logits| {dl:.3g} "
+        f"(tol 1e-3), max |d probs| {dp:.3g} (tol 1e-4), {path.op_name} "
+        f"launches {launches}")
     if not (dl <= 1e-3 and dp <= 1e-4):
-        raise AssertionError("MHLA-B/4 on the card disagrees with the CPU")
+        raise AssertionError(f"{path.name} on the card disagrees with the "
+                             f"CPU")
     if launches != DEPTH:
-        raise AssertionError(f"expected {DEPTH} band launches, got {launches}")
+        raise AssertionError(f"expected {DEPTH} {path.op_name} launches, "
+                             f"got {launches}")
     return ref_probs.numpy()
 
 
@@ -359,23 +459,27 @@ def _check_probs(probs: np.ndarray, n: int) -> None:
         raise AssertionError("probability rows do not sum to 1")
 
 
-def phase_serve(cpu_model, image, ref_probs) -> int:
+def phase_serve(path: ModelPath, cpu_model, image, ref_probs) -> int:
     rng = np.random.default_rng(1)
+    phase = path.phase("serve")
     with tempfile.TemporaryDirectory() as tmp:
-        weights = os.path.join(tmp, "mhla_b4.pt")
+        weights = os.path.join(tmp, f"{path.flag}_b4.pt")
         torch.save(cpu_model.state_dict(), weights)
         t0 = time.perf_counter()
         args, predictor = serve.setup([
-            "--model", "vit_mhla", "--patch_size", "4", "--img_size", "224",
+            "--model", path.flag, "--patch_size", "4", "--img_size", "224",
             "--compute_dtype", "bfloat16", "--batch_size", "32",
             "--weights", weights,
         ])
-    log("serve", f"set-up (weights, model, warm-up batch) "
+    if not isinstance(predictor.model, path.cls):
+        raise AssertionError(f"--model {path.flag} built "
+                             f"{type(predictor.model).__name__}")
+    log(phase, f"set-up (weights, model, warm-up batch) "
                  f"{time.perf_counter() - t0:.1f} s")
     forwards = [0]
     hook = predictor.model.register_forward_pre_hook(
         lambda *_: forwards.__setitem__(0, forwards[0] + 1))
-    band.reset_launch_count()
+    path.op.reset_launch_count()
 
     sizes = [1, 7, 16, 32, 3, 25, 40, 12]  # 40 > the batch of 32
     reqs = [_images(rng, n) for n in sizes]
@@ -393,7 +497,7 @@ def phase_serve(cpu_model, image, ref_probs) -> int:
         _check_probs(http_out, len(http_req))
         with urllib.request.urlopen(url + "/stats", timeout=60) as resp:
             stats = json.loads(resp.read())
-        log("serve", f"{len(reqs)} concurrent requests of {sizes} images and "
+        log(phase, f"{len(reqs)} concurrent requests of {sizes} images and "
                      f"one POST /predict of {len(http_req)}: shapes, finite, "
                      f"rows sum to 1; /stats {stats}")
         if stats["requests"] != len(reqs) + 1:
@@ -401,7 +505,7 @@ def phase_serve(cpu_model, image, ref_probs) -> int:
         # The served bf16 probabilities of the phase-4 image against the f32
         # reference: bf16 rounding through 12 blocks, so 1e-2 abs.
         dp = float(np.abs(http_out[0] - ref_probs[0]).max())
-        log("serve", f"bf16 served probs vs f32 CPU reference: max abs diff "
+        log(phase, f"bf16 served probs vs f32 CPU reference: max abs diff "
                      f"{dp:.3g} (tol 1e-2)")
         if dp > 1e-2:
             raise AssertionError("served probabilities disagree with the "
@@ -421,17 +525,18 @@ def phase_serve(cpu_model, image, ref_probs) -> int:
             _check_probs(f.result(timeout=300), args.batch_size)
         wall = time.perf_counter() - t0
         n_img = args.batch_size * len(burst)
-        log("serve", f"full batch of {args.batch_size}: median latency "
+        log(phase, f"full batch of {args.batch_size}: median latency "
                      f"{lat_ms:.2f} ms (host clock, 10 runs, uint8 in to "
                      f"probs out); burst of {len(burst)} x "
                      f"{args.batch_size} through the server: "
                      f"{n_img / wall:.1f} images/s")
     hook.remove()
-    launches = band.launch_count()
-    log("serve", f"forward passes {forwards[0]}, band launches {launches}")
+    launches = path.op.launch_count()
+    log(phase, f"forward passes {forwards[0]}, {path.op_name} launches "
+                 f"{launches}")
     if launches != DEPTH * forwards[0] or forwards[0] == 0:
-        raise AssertionError(f"band launches {launches} != {DEPTH} x "
-                             f"{forwards[0]} forward passes")
+        raise AssertionError(f"{path.op_name} launches {launches} != "
+                             f"{DEPTH} x {forwards[0]} forward passes")
     return launches
 
 
@@ -440,25 +545,30 @@ def _leaf_grads(model: torch.nn.Module) -> dict:
             for n, p in model.named_parameters()}
 
 
-def phase_train_parity() -> None:
+def phase_train_parity(path: ModelPath) -> None:
     """One train step, card against CPU, f32 with TF32 off (phase_device)."""
-    cpu_model = VisionTransformerMHLA(
-        img_size=224, patch_size=4, num_classes=10, depth=2,
-        generator=torch.Generator().manual_seed(1),
-    )
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    cpu_model = path.build(depth=2,
+                           generator=torch.Generator().manual_seed(1))
+    gpu_model = copy.deepcopy(cpu_model)
     rng = np.random.default_rng(2)
     u8, y = _images(rng, 2), rng.integers(0, 10, size=2)
     step = train.make_train_step(224, augment=False)
     metrics = {}
     for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
-        state = train.create_train_state(model, train.make_adamw(1e-4))
-        band.reset_launch_count()
+        # The default device is the card; the CPU side asks for the CPU.
+        state = (train.create_train_state(model, train.make_adamw(1e-4))
+                 if name == "cuda" else
+                 train.create_train_state(model, train.make_adamw(1e-4),
+                                          device="cpu"))
+        if next(model.parameters()).device.type != name:
+            raise AssertionError(f"create_train_state left the model on "
+                                 f"{next(model.parameters()).device}")
+        path.op.reset_launch_count()
         _, m = step(state, u8, y, 0)
         metrics[name] = float(m["loss_sum"]) / 2
         if name == "cuda":
             torch.cuda.synchronize()
-            counts = [band.launch_count(k) for k in band.LAUNCH_KINDS]
+            counts = [path.op.launch_count(k) for k in path.op.LAUNCH_KINDS]
     d_loss = abs(metrics["cuda"] - metrics["cpu"])
     g_gpu, g_cpu = _leaf_grads(gpu_model), _leaf_grads(cpu_model)
     worst, worst_name, worst_err = 0.0, "", 0.0
@@ -467,7 +577,8 @@ def phase_train_parity() -> None:
         bound = PARITY_GRAD_REL * float(ref.abs().max()) + PARITY_GRAD_ABS
         if err / bound > worst:
             worst, worst_name, worst_err = err / bound, n, err
-    log("train-parity", f"MHLA-B/4 at depth 2, f32, batch 2, one step: loss "
+    log(path.phase("train-parity"),
+                        f"{path.name} at depth 2, f32, batch 2, one step: loss "
                         f"card {metrics['cuda']:.6f} CPU {metrics['cpu']:.6f}"
                         f" (|d| {d_loss:.3g}, tol {PARITY_LOSS_TOL}); worst "
                         f"gradient leaf {worst_name}: |d| {worst_err:.3g} = "
@@ -512,61 +623,73 @@ def _check_trained(model, before: dict, result: dict, what: str) -> None:
                if torch.equal(p.detach(), before[n])]
     if unmoved:
         raise AssertionError(f"{what}: parameters did not move: {unmoved}")
-    for i, block in enumerate(model.blocks):
-        for name, p in (("qkv", block.attn.qkv.weight),
-                        ("latent_proj", block.attn.latent_proj.weight)):
-            if p.grad is None or not bool(
-                    torch.isfinite(p.grad).all() & (p.grad.abs().max() > 0)):
-                raise AssertionError(f"{what}: blocks.{i}.attn.{name} got no "
-                                     f"finite non-zero gradient")
+    for name, p in model.named_parameters():
+        if ".attn." in name and name.endswith("weight") and (
+                p.grad is None or not bool(
+                    torch.isfinite(p.grad).all() & (p.grad.abs().max() > 0))):
+            raise AssertionError(f"{what}: {name} got no finite non-zero "
+                                 f"gradient")
 
 
-def phase_train() -> dict:
+def phase_train(path: ModelPath, attn_dropout_launches: bool,
+                main_steps: int = 6) -> dict:
+    """Trains ``path``'s model through ``train_and_evaluate``: a main run
+    at dropout 0.1, then a short run with attention dropout 0.1 at
+    microbatch 16, whose training passes launch the op's training kernels
+    iff ``attn_dropout_launches`` (the band drops slots inside its kernels;
+    dense attention takes the query-chunked plain path). Returns the launch
+    counts."""
+    phase = path.phase("train")
     data = load_dataset(
         "cifar10", data_dir=str(REPO / "build" / "no-cifar"),
-        subset_size=6 * TRAIN_BATCH, synthetic_sizes=(1024, 256))
+        subset_size=main_steps * TRAIN_BATCH, synthetic_sizes=(1024, 256))
     if not data["synthetic"]:
         raise AssertionError("expected the synthetic CIFAR stand-in")
-    band.reset_launch_count()
-    lines, passes = [], {"train": 0, "eval": 0}
+    path.op.reset_launch_count()
+    lines = []
+    passes = {"train": 0, "eval": 0, "train_with_kernels": 0}
     runs = (
-        # (label, model kwargs, microbatch, data)
-        ("dropout 0.1", dict(dropout=TRAIN_DROPOUT), None, data),
+        # (label, model kwargs, microbatch, data, launches training kernels)
+        ("dropout 0.1", dict(dropout=TRAIN_DROPOUT), None, data, True),
         (f"attn_dropout {TRAIN_DROPOUT}, microbatch 16",
          dict(dropout=TRAIN_DROPOUT, attn_dropout=TRAIN_DROPOUT), 16,
          {**data, "train_images": data["train_images"][:2 * TRAIN_BATCH],
-          "train_labels": data["train_labels"][:2 * TRAIN_BATCH]}),
+          "train_labels": data["train_labels"][:2 * TRAIN_BATCH]},
+         attn_dropout_launches),
     )
     main_state = None
-    for i, (label, kwargs, microbatch, run_data) in enumerate(runs):
-        model = VisionTransformerMHLA(
-            img_size=224, patch_size=4, num_classes=10, depth=DEPTH,
-            device="cuda", generator=torch.Generator().manual_seed(3 + i),
-            **kwargs)
+    for i, (label, kwargs, microbatch, run_data, launches_train) in enumerate(
+            runs):
+        model = path.build(device="cuda",
+                           generator=torch.Generator().manual_seed(3 + i),
+                           **kwargs)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         t0 = time.perf_counter()
         result, run_passes = _train_run(model, run_data, microbatch, lines)
         for line in lines:
-            log("train", f"{label}: {line}")
+            log(phase, f"{label}: {line}")
         lines.clear()
-        log("train", f"{label}: {len(run_data['train_images'])} train and "
-                     f"{len(run_data['test_images'])} val images in "
-                     f"{time.perf_counter() - t0:.1f} s; forward passes "
-                     f"{run_passes}")
+        log(phase, f"{label}: {len(run_data['train_images'])} train and "
+                   f"{len(run_data['test_images'])} val images in "
+                   f"{time.perf_counter() - t0:.1f} s; forward passes "
+                   f"{run_passes}")
         _check_trained(model, before, result, label)
-        for k in passes:
+        for k in run_passes:
             passes[k] += run_passes[k]
+        if launches_train:
+            passes["train_with_kernels"] += run_passes["train"]
         if i == 0:
             main_state = result["state"]
         del model, before
-    launches = {k: band.launch_count(k) for k in band.LAUNCH_KINDS}
-    log("train", f"launches {launches} for {passes} forward passes (each "
-                 f"train forward has one backward)")
+    launches = {k: path.op.launch_count(k) for k in path.op.LAUNCH_KINDS}
+    log(phase, f"{path.op_name} launches {launches} for {passes} forward "
+               f"passes (each train forward has one backward)")
     expect = {"fwd": DEPTH * passes["eval"],
-              "fwd_train": DEPTH * passes["train"],
-              "bwd": DEPTH * passes["train"]}
+              "fwd_train": DEPTH * passes["train_with_kernels"],
+              "bwd": DEPTH * passes["train_with_kernels"]}
     if launches != expect or passes["train"] == 0 or passes["eval"] == 0:
-        raise AssertionError(f"band launches {launches} != {expect}")
+        raise AssertionError(f"{path.op_name} launches {launches} != "
+                             f"{expect}")
 
     # Speed and memory of the main run's step, after its epoch.
     rng = np.random.default_rng(4)
@@ -583,13 +706,176 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log("train", f"MHLA-B/4 train step, bf16 autocast, batch {TRAIN_BATCH}, "
-                 f"dropout {TRAIN_DROPOUT}: {ms:.2f} ms per step, "
-                 f"{TRAIN_BATCH / ms * 1e3:.1f} images/s (host clock, mean "
-                 f"of {n} steps after a warm-up), peak memory {peak:.2f} GiB "
-                 f"(max_memory_allocated); last loss "
-                 f"{float(m['loss_sum']) / TRAIN_BATCH:.4f}")
+    log(phase, f"{path.name} train step, bf16 autocast, batch {TRAIN_BATCH}, "
+               f"dropout {TRAIN_DROPOUT}: {ms:.2f} ms per step, "
+               f"{TRAIN_BATCH / ms * 1e3:.1f} images/s (host clock, mean "
+               f"of {n} steps after a warm-up), peak memory {peak:.2f} GiB "
+               f"(max_memory_allocated); last loss "
+               f"{float(m['loss_sum']) / TRAIN_BATCH:.4f}")
     return launches
+
+
+def _flash_check(got, ref, dtype, f32_tol):
+    """(max abs err, ok, description) of a flash kernel result against its
+    plain version: f32 within ``f32_tol`` abs; bf16 by the bound stated at
+    FLASH_ULP_FLOOR_SHARE."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    if dtype == torch.float32:
+        return err, err <= f32_tol, f"{err:.3g}"
+    floor = max(FLASH_ULP_FLOOR_SHARE * float(ref.abs().max()),
+                BF16_ULP_FLOOR)
+    ulps = bf16_ulps(got, ref, floor)
+    rms = float((got - ref).pow(2).mean().sqrt())
+    rms_ref = float(ref.pow(2).mean().sqrt())
+    ok = ulps <= BF16_ULPS and rms <= FLASH_RMS_REL * rms_ref + 1e-6
+    return err, ok, (f"{err:.3g} ({ulps:.2f} ulps, rms "
+                     f"{rms / max(rms_ref, 1e-30):.2g} of the plain rms)")
+
+
+def _compare_flash(q, k, v, g):
+    """The eval forward, the training forward and the backward kernels
+    against the plain versions on the same inputs; {name: (err, ok, text)}.
+    The backward takes the kernel's own out and lse, as the autograd
+    Function hands them over, on both sides."""
+    dtype = q.dtype
+    out_eval = flash.flash_attention(q, k, v)
+    out, lse = flash.flash_forward_train(q, k, v)
+    ref_out, ref_lse = flash.plain_flash_forward(q, k, v)
+    grads = flash.flash_backward(q, k, v, out, lse, g)
+    ref_grads = flash.plain_flash_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    res = {"out_eval": _flash_check(out_eval, ref_out, dtype, F32_TOL),
+           "out": _flash_check(out, ref_out, dtype, F32_TOL),
+           # lse is f32 on both sides: f32 logits of the same inputs.
+           "lse": _flash_check(lse, ref_lse, torch.float32, F32_TOL)}
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        res[name] = _flash_check(a, b, dtype, F32_BWD_TOL)
+    return res
+
+
+def phase_kernel_flash() -> dict:
+    import torch.nn.functional as F  # the library call, timed as a yardstick
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def inputs(shape, dtype):
+        return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(4)]
+
+    def check(where, res):
+        bad = [f"{n} {t}" for n, (_, ok, t) in res.items() if not ok]
+        if bad:
+            raise AssertionError(f"flash kernels disagree with the plain "
+                                 f"versions at {where}: {bad}")
+
+    # 127, 197, 513, 1000 and 3137 leave ragged last tiles on both axes.
+    seqs = (1, 127, 197, 513, 1000, 3137)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        for d in (16, 64):
+            worst = {}
+            for s in seqs:
+                q, k, v, g = inputs((2, 3, s, d), dtype)
+                res = _compare_flash(q, k, v, g)
+                check(f"{(2, 3, s, d)} {dt}", res)
+                for n, (e, _, _) in res.items():
+                    worst[n] = max(worst.get(n, 0.0), e)
+            log("kernel-flash", f"{dt} d={d}, S in {seqs}: max abs err "
+                                + ", ".join(f"{n} {e:.3g}"
+                                            for n, e in worst.items()))
+
+    b, h, s, d = FLASH_SHAPE
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v, g = inputs(FLASH_SHAPE, dtype)
+        res = _compare_flash(q, k, v, g)
+        check(f"the serving shape {FLASH_SHAPE} {dt}", res)
+        log("kernel-flash", f"serving shape {FLASH_SHAPE} {dt}: max abs err "
+                            + ", ".join(f"{n} {t}"
+                                        for n, (_, _, t) in res.items()))
+        out, lse = flash.flash_forward_train(q, k, v)
+        first = flash.flash_backward(q, k, v, out, lse, g)
+        second = flash.flash_backward(q, k, v, out, lse, g)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(first, second)):
+            raise AssertionError(f"two runs of the {dt} flash backward "
+                                 f"differ")
+        errs = {n: e for n, (e, _, _) in res.items()}
+        del first, second, res
+        # The scalar f32 kernels and every plain version take tens to
+        # hundreds of ms a call here: fewer repeats.
+        reps = 30 if dtype == torch.bfloat16 else 5
+        times = {
+            "fwd": cuda_median_ms(
+                lambda: flash.flash_attention(q, k, v), reps),
+            "fwd_train": cuda_median_ms(
+                lambda: flash.flash_forward_train(q, k, v), reps),
+            "bwd": cuda_median_ms(
+                lambda: flash.flash_backward(q, k, v, out, lse, g), reps),
+            "fwd_plain": cuda_median_ms(
+                lambda: flash.plain_flash_forward(q, k, v), 5, 1),
+            "bwd_plain": cuda_median_ms(
+                lambda: flash.plain_flash_backward(q, k, v, out, lse, g),
+                5, 1),
+        }
+        # PyTorch's fused attention on the same inputs: forward without and
+        # with autograd's saved statistics, and its backward alone.
+        with torch.no_grad():
+            times["fwd_library"] = cuda_median_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), reps)
+        lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        times["fwd_train_library"] = cuda_median_ms(
+            lambda: F.scaled_dot_product_attention(lq, lk, lv), reps)
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+        times["bwd_library"] = cuda_median_ms(
+            lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g,
+                                        retain_graph=True), reps)
+        lib_err = float(
+            (lib_out.detach().float() - out.float()).abs().max())
+        del lib_out, lq, lk, lv
+        log("kernel-flash", f"serving shape {dt}, kernel / plain / PyTorch "
+                            f"fused attention, ms: forward "
+                            f"{times['fwd']:.4f} / {times['fwd_plain']:.4f} / "
+                            f"{times['fwd_library']:.4f}; training forward "
+                            f"{times['fwd_train']:.4f} / "
+                            f"{times['fwd_plain']:.4f} / "
+                            f"{times['fwd_train_library']:.4f}; backward "
+                            f"{times['bwd']:.4f} / {times['bwd_plain']:.4f} / "
+                            f"{times['bwd_library']:.4f} (CUDA-event medians "
+                            f"of {reps}, plain of 5); two backward runs "
+                            f"bit-identical; max |kernel - fused| "
+                            f"{lib_err:.3g}")
+        # The function's least work: q, k, v in and out back (plus lse),
+        # two products of S*S*d multiply-adds; the backward reads q, k, v,
+        # out, g and lse, writes dq, dk, dv, and needs five products.
+        one = q.numel() * q.element_size()
+        pairs = b * h * s * s * d
+        result[dt] = dict(
+            fwd=dict(max_abs_err=errs["out_eval"],
+                     ms=times["fwd"], plain_ms=times["fwd_plain"],
+                     library_ms=times["fwd_library"],
+                     **least_time(4 * one, 4 * pairs)),
+            fwd_train=dict(max_abs_err=max(errs["out"], errs["lse"]),
+                           ms=times["fwd_train"],
+                           plain_ms=times["fwd_plain"],
+                           library_ms=times["fwd_train_library"],
+                           **least_time(4 * one + lse.numel() * 4, 4 * pairs)),
+            bwd=dict(max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
+                     ms=times["bwd"], plain_ms=times["bwd_plain"],
+                     library_ms=times["bwd_library"],
+                     **least_time(8 * one + lse.numel() * 4, 10 * pairs)),
+        )
+        gflop = 4 * pairs / 1e9
+        log("kernel-flash", f"serving shape {dt}: forward "
+                            f"{gflop / times['fwd']:.1f} TFLOP/s of "
+                            f"{gflop / 1e3:.3f} TFLOP, backward "
+                            f"{2.5 * gflop / times['bwd']:.1f} TFLOP/s of "
+                            f"{2.5 * gflop / 1e3:.3f}")
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
+    return result
 
 
 def main() -> None:
@@ -600,27 +886,41 @@ def main() -> None:
 
     rng = np.random.default_rng(0)
     image = _images(rng, 1)
-    cpu_model = VisionTransformerMHLA(
-        img_size=224, patch_size=4, num_classes=10, depth=DEPTH,
-        generator=torch.Generator().manual_seed(0),
-    ).eval()
-    ref_probs = phase_model(cpu_model, image)
-    torch.cuda.empty_cache()
-    launches = phase_serve(cpu_model, image, ref_probs)
-    del cpu_model
-    torch.cuda.empty_cache()
-    phase_train_parity()
-    train_launches = phase_train()
+    launches, train_launches = {}, {}
+    for path, attn_dropout_launches in ((MHLA, True), (DENSE, False)):
+        if path is DENSE:
+            flash_timing = phase_kernel_flash()
+        cpu_model = path.build(
+            generator=torch.Generator().manual_seed(0)).eval()
+        ref_probs = phase_model(path, cpu_model, image)
+        torch.cuda.empty_cache()
+        launches[path] = phase_serve(path, cpu_model, image, ref_probs)
+        del cpu_model
+        torch.cuda.empty_cache()
+        phase_train_parity(path)
+        train_launches[path] = phase_train(path, attn_dropout_launches)
+        torch.cuda.empty_cache()
 
     tpu = "focused_attention_vit_tpu/ops/mhla_band_roll.py"
+    tpu_flash = "focused_attention_vit_tpu/ops/flash_attention_pallas.py"
     kernels = [
-        ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158", launches,
+        ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158", launches[MHLA],
          timing["bf16"]),
         ("mhla_band_fwd_train", band.KERNEL_SOURCE, f"{tpu}:158",
-         train_launches["fwd_train"], train_timing["bf16"]["fwd_train"]),
+         train_launches[MHLA]["fwd_train"], train_timing["bf16"]["fwd_train"]),
         ("mhla_band_bwd", band.BWD_KERNEL_SOURCE, f"{tpu}:199",
-         train_launches["bwd"], train_timing["bf16"]["bwd"]),
+         train_launches[MHLA]["bwd"], train_timing["bf16"]["bwd"]),
+        ("flash_attention_fwd", flash.FWD_KERNEL_SOURCE, f"{tpu_flash}:73",
+         launches[DENSE], flash_timing["bf16"]["fwd"]),
+        ("flash_attention_fwd_train", flash.FWD_KERNEL_SOURCE,
+         f"{tpu_flash}:73", train_launches[DENSE]["fwd_train"],
+         flash_timing["bf16"]["fwd_train"]),
+        ("flash_attention_bwd", flash.BWD_KERNEL_SOURCE, f"{tpu_flash}:73",
+         train_launches[DENSE]["bwd"], flash_timing["bf16"]["bwd"]),
     ]
+    for name_, _, _, count, _ in kernels:
+        if count <= 0:
+            raise AssertionError(f"{name_} was launched no time on its path")
     print(json.dumps({"kernels": [{
         "name": name_,
         "route": "cuda",
@@ -630,6 +930,9 @@ def main() -> None:
         "max_abs_err": t["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
     } for name_, source, replaces, count, t in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

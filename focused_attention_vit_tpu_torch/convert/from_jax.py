@@ -1,11 +1,15 @@
-"""JAX (Flax) MHLA ViT params -> the port's state dict: the reverse of
-``focused_attention_vit_tpu/convert/torch_to_jax.reference_vit_mhla_to_flax``
-for ``use_mhla=True``.
+"""JAX (Flax) ViT params -> the port's state dicts: the reverse of
+``focused_attention_vit_tpu/convert/torch_to_jax``'s
+``reference_vit_to_flax`` (dense :class:`~..models.VisionTransformer`) and
+``reference_vit_mhla_to_flax`` (:class:`~..models.VisionTransformerMHLA`,
+MHLA or dense blocks).
 
 Flax kernels are ``[in, out]`` and torch Linear weights ``[out, in]``; the
 head-shaped attention kernels flatten back into the reference's fused
 layouts: qkv ``[D, 3, h, d]`` -> ``[3D, D]`` (row ``t*D + head*d + i``) and
-the output projection ``[h, d, D]`` -> ``[D, D]``.
+the output projection ``[h, d, D]`` -> ``[D, D]``. A dense block of the
+MHLA model keeps them as ``attn.in_proj_weight``, ``attn.in_proj_bias``
+and ``attn.out_proj``; every other block as ``attn.qkv`` and ``attn.proj``.
 
 Params travel as ``.npz`` files whose keys are the Flax paths joined by
 ``/`` (``blocks_0/attn/qkv/kernel``); :func:`flatten_params` writes that form
@@ -61,9 +65,11 @@ def _layernorm(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def flax_vit_mhla_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``VisionTransformerMHLA(use_mhla=True)`` params (loop form) ->
-    f32 state dict of :class:`~..models.VisionTransformerMHLA`."""
+def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool
+                          ) -> Dict[str, torch.Tensor]:
+    """The model's state dict; a block without ``latent_proj`` is a dense
+    block, saved under the ``in_proj``/``out_proj`` names if
+    ``in_proj_names``."""
     if "blocks" in params:
         raise ValueError(
             "scan-form params (blocks/block) are not supported; unstack them "
@@ -82,18 +88,23 @@ def flax_vit_mhla_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Te
         blk = params[f"blocks_{i}"]
         pre = f"blocks.{i}"
         attn = blk["attn"]
-        if "latent_proj" not in attn:
-            raise ValueError(
-                f"blocks_{i} has no latent_proj: dense MHA blocks are not "
-                f"ported yet"
-            )
         qkv_k = np.asarray(attn["qkv"]["kernel"])  # [D, 3, h, d]
-        sd[f"{pre}.attn.qkv.weight"] = _t(qkv_k.reshape(qkv_k.shape[0], -1).T)
-        sd[f"{pre}.attn.qkv.bias"] = _t(np.asarray(attn["qkv"]["bias"]).reshape(-1))
-        _linear(sd, f"{pre}.attn.latent_proj", attn["latent_proj"])
+        qkv_w = _t(qkv_k.reshape(qkv_k.shape[0], -1).T)
+        qkv_b = _t(np.asarray(attn["qkv"]["bias"]).reshape(-1))
         proj_k = np.asarray(attn["proj"]["kernel"])  # [h, d, D]
-        sd[f"{pre}.attn.proj.weight"] = _t(proj_k.reshape(-1, proj_k.shape[-1]).T)
-        sd[f"{pre}.attn.proj.bias"] = _t(attn["proj"]["bias"])
+        proj_w = _t(proj_k.reshape(-1, proj_k.shape[-1]).T)
+        if in_proj_names and "latent_proj" not in attn:
+            sd[f"{pre}.attn.in_proj_weight"] = qkv_w
+            sd[f"{pre}.attn.in_proj_bias"] = qkv_b
+            sd[f"{pre}.attn.out_proj.weight"] = proj_w
+            sd[f"{pre}.attn.out_proj.bias"] = _t(attn["proj"]["bias"])
+        else:
+            sd[f"{pre}.attn.qkv.weight"] = qkv_w
+            sd[f"{pre}.attn.qkv.bias"] = qkv_b
+            if "latent_proj" in attn:
+                _linear(sd, f"{pre}.attn.latent_proj", attn["latent_proj"])
+            sd[f"{pre}.attn.proj.weight"] = proj_w
+            sd[f"{pre}.attn.proj.bias"] = _t(attn["proj"]["bias"])
         _layernorm(sd, f"{pre}.norm1", blk["norm1"])
         _layernorm(sd, f"{pre}.norm2", blk["norm2"])
         _linear(sd, f"{pre}.mlp.fc1", blk["mlp"]["fc1"])
@@ -103,8 +114,35 @@ def flax_vit_mhla_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Te
     return sd
 
 
-def npz_to_state_dict(path) -> Dict[str, torch.Tensor]:
-    """Read a ``.npz`` of ``/``-joined Flax param paths and convert it."""
+def flax_vit_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``VisionTransformer`` params (loop form) -> f32 state dict of
+    :class:`~..models.VisionTransformer`."""
+    for k, blk in params.items():
+        if k.startswith("blocks_") and "latent_proj" in blk["attn"]:
+            raise ValueError(
+                f"{k} has a latent_proj: these are VisionTransformerMHLA "
+                f"params, convert them with flax_vit_mhla_to_state_dict"
+            )
+    return _blocks_to_state_dict(params, in_proj_names=False)
+
+
+def flax_vit_mhla_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``VisionTransformerMHLA`` params (loop form), ``use_mhla`` True
+    or False -> f32 state dict of :class:`~..models.VisionTransformerMHLA`
+    built with the same ``use_mhla``."""
+    return _blocks_to_state_dict(params, in_proj_names=True)
+
+
+def npz_to_state_dict(path, in_proj_names: bool | None = None
+                      ) -> Dict[str, torch.Tensor]:
+    """Read a ``.npz`` of ``/``-joined Flax param paths and convert it.
+    ``in_proj_names`` says how dense blocks are named: True as in
+    :class:`~..models.VisionTransformerMHLA`, False as in
+    :class:`~..models.VisionTransformer`. None picks by the keys present:
+    params with a ``latent_proj`` are the MHLA model's, params without one
+    the dense ViT's (the two models' dense params have the same tree)."""
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
-    return flax_vit_mhla_to_state_dict(unflatten_params(flat))
+    if in_proj_names is None:
+        in_proj_names = any("/latent_proj/" in k for k in flat)
+    return _blocks_to_state_dict(unflatten_params(flat), in_proj_names)

@@ -56,17 +56,20 @@ def padded_predict_proba(
     return np.concatenate(out)[:n]
 
 
-def load_state_dict(path) -> Dict[str, torch.Tensor]:
-    """Weights for :class:`~.models.VisionTransformerMHLA` from a ``.pt`` /
-    ``.pth`` state dict in the reference torch layout, or a ``.npz`` of
-    ``/``-joined JAX param paths (converted by :mod:`.convert.from_jax`)."""
+def load_state_dict(path, in_proj_names: bool | None = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Weights for :class:`~.models.VisionTransformer` or
+    :class:`~.models.VisionTransformerMHLA` from a ``.pt`` / ``.pth`` state
+    dict in the reference torch layout, or a ``.npz`` of ``/``-joined JAX
+    param paths (converted by :mod:`.convert.from_jax`, which reads
+    ``in_proj_names``)."""
     path = Path(path)
     if path.suffix == ".npz":
         from focused_attention_vit_tpu_torch.convert.from_jax import (
             npz_to_state_dict,
         )
 
-        return npz_to_state_dict(path)
+        return npz_to_state_dict(path, in_proj_names)
     if path.suffix in (".pt", ".pth"):
         return torch.load(path, map_location="cpu", weights_only=True)
     raise ValueError(f"weights must be .pt, .pth or .npz, got {path.name}")
@@ -107,7 +110,12 @@ class Predictor:
     def from_weights(cls, model: torch.nn.Module, path, **kw) -> "Predictor":
         """Load weights into ``model`` (see :func:`load_state_dict`), then
         build the predictor."""
-        model.load_state_dict(load_state_dict(path))
+        from focused_attention_vit_tpu_torch.models import (
+            VisionTransformerMHLA,
+        )
+
+        model.load_state_dict(load_state_dict(
+            path, in_proj_names=isinstance(model, VisionTransformerMHLA)))
         return cls(model, **kw)
 
     @torch.inference_mode()

@@ -1,5 +1,6 @@
 """Models of the port."""
 
+from focused_attention_vit_tpu_torch.models.vit import VisionTransformer
 from focused_attention_vit_tpu_torch.models.vit_mhla import VisionTransformerMHLA
 
-__all__ = ["VisionTransformerMHLA"]
+__all__ = ["VisionTransformer", "VisionTransformerMHLA"]

@@ -1,17 +1,20 @@
-"""Building blocks of the MHLA ViT (port of
+"""Building blocks of the dense and the MHLA ViT (port of
 ``focused_attention_vit_tpu/models/layers.py``).
 
 Module and parameter names follow the reference torch layout, so that
 ``state_dict()`` keys are the ones ``convert/torch_to_jax.py`` reads:
 ``patch_embed.projection.1``, ``attn.qkv`` (fused ``[q | k | v]`` rows with
 contiguous heads), ``attn.latent_proj``, ``attn.proj``, ``norm1``/``norm2``
-and ``mlp.fc1``/``mlp.fc2``.
+and ``mlp.fc1``/``mlp.fc2``; the dense attention of a switchable block
+carries ``attn.in_proj_weight``, ``attn.in_proj_bias`` and
+``attn.out_proj`` instead.
 
 Numerics follow the JAX package: LayerNorm eps 1e-5, exact (erf) GELU, and
-the attention dispatch of ``MultiHeadLatentAttention`` by sequence length.
+the attention dispatch of ``MultiHeadAttention`` and
+``MultiHeadLatentAttention`` by sequence length.
 ``nn.Module.training`` plays the role of JAX's ``deterministic=False``:
 in training mode dropout draws from the :class:`DropoutRNG` a forward is
-given. Attention masks and dense MHA blocks are not ported yet.
+given. Attention masks are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from focused_attention_vit_tpu_torch.ops import attention as attn_ops
 from focused_attention_vit_tpu_torch.ops import window as window_ops
+from focused_attention_vit_tpu_torch.ops.flash_attention import (
+    dropout_attention_q_chunked,
+)
 from focused_attention_vit_tpu_torch.ops.patch_embed import extract_patches
 
 
@@ -61,10 +68,10 @@ def inverted_dropout(x: torch.Tensor, rate: float,
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """The reference init: Linear weights N(0, 0.02) with zero bias,
-    LayerNorm ones and zeros. Values are drawn on the CPU from
-    ``generator`` in module order, so a seed gives the same weights on any
-    device."""
+    """The reference init: Linear weights (and a dense attention's
+    ``in_proj_weight``) N(0, 0.02) with zero bias, LayerNorm ones and
+    zeros. Values are drawn on the CPU from ``generator`` in module order,
+    so a seed gives the same weights on any device."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Linear):
@@ -75,6 +82,13 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 )
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, MultiHeadAttention) and m.in_proj_names:
+                m.in_proj_weight.copy_(
+                    torch.empty(m.in_proj_weight.shape).normal_(
+                        0.0, 0.02, generator=generator
+                    )
+                )
+                m.in_proj_bias.zero_()
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
@@ -123,6 +137,78 @@ class MLP(nn.Module):
         rate = self.dropout if self.training else 0.0
         x = inverted_dropout(F.gelu(self.fc1(x)), rate, rng)
         return inverted_dropout(self.fc2(x), rate, rng)
+
+
+class MultiHeadAttention(nn.Module):
+    """Dense multi-head self-attention: a fused qkv projection, attention
+    on ``[B, h, S, d]`` and the output projection.
+
+    In eval mode, or with ``dropout == 0``, the core is
+    :func:`~..ops.attention.multi_head_attention`: the flash op from
+    ``FLASH_MIN_SEQ_LEN`` tokens on (the CUDA kernels on a CUDA tensor),
+    the materialised softmax below it; ``use_flash`` True or False forces
+    either. In training mode with ``dropout > 0`` (the model's
+    ``attn_dropout``) the attention weights are dropped as in JAX
+    (``models/layers.py`` :133-173): from ``FLASH_MIN_SEQ_LEN`` tokens on
+    in query chunks that never hold ``[B, h, S, S]``, with the chunks'
+    seeds drawn from ``rng.host``; below it on the materialised f32
+    weights. The output is dropped at the same rate. The JAX package's
+    single-tile fused kernel for short sequences is opt-in there and not
+    ported yet; this module reads no environment variable.
+
+    ``in_proj_names=True`` registers the same parameters under the names a
+    reference switchable block with ``use_mhla=False`` saves them by:
+    ``in_proj_weight`` ``[3D, D]``, ``in_proj_bias`` and ``out_proj``,
+    with the same ``[q | k | v]`` row order. The arithmetic is this
+    module's either way.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 use_flash: bool | None = None, in_proj_names: bool = False,
+                 device=None):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(
+                f"embed_dim {embed_dim} is not divisible by num_heads "
+                f"{num_heads}"
+            )
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.use_flash = use_flash
+        self.in_proj_names = in_proj_names
+        if in_proj_names:
+            self.in_proj_weight = nn.Parameter(
+                torch.empty(3 * embed_dim, embed_dim, device=device))
+            self.in_proj_bias = nn.Parameter(
+                torch.empty(3 * embed_dim, device=device))
+            self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
+        else:
+            self.qkv = nn.Linear(embed_dim, 3 * embed_dim, device=device)
+            self.proj = nn.Linear(embed_dim, embed_dim, device=device)
+
+    def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
+                ) -> torch.Tensor:
+        if self.in_proj_names:
+            qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        else:
+            qkv = self.qkv(x)
+        q, k, v = attn_ops.qkv_split(qkv, self.num_heads)
+        rate = self.dropout if self.training else 0.0
+        if rate == 0.0:
+            out = attn_ops.multi_head_attention(q, k, v,
+                                                use_flash=self.use_flash)
+        elif q.shape[2] >= attn_ops.FLASH_MIN_SEQ_LEN:
+            out = dropout_attention_q_chunked(
+                q, k, v, rate, (rng or DropoutRNG()).host)
+        else:
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+                q.shape[-1] ** -0.5)
+            weights = inverted_dropout(torch.softmax(logits, dim=-1), rate,
+                                       rng)
+            out = torch.matmul(weights.to(v.dtype), v)
+        out = attn_ops.merge_heads(out)
+        out = self.out_proj(out) if self.in_proj_names else self.proj(out)
+        return inverted_dropout(out, rate, rng)
 
 
 class MultiHeadLatentAttention(nn.Module):
@@ -218,24 +304,15 @@ class MultiHeadLatentAttention(nn.Module):
         return self.proj(out.view(b, dim, s).transpose(1, 2).contiguous())
 
 
-class SwitchableTransformerBlock(nn.Module):
+class _PreLNBlock(nn.Module):
     """Pre-LN block: ``x += attn(LN(x)); x += mlp(LN(x))``, with
-    ``attn_dropout`` in the attention and ``dropout`` in the MLP. Only the
-    MHLA attention (``use_mhla=True``) is ported so far."""
+    ``attn_dropout`` in the attention and ``dropout`` in the MLP."""
 
-    def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
-                 mlp_ratio: float = 4.0, use_mhla: bool = True,
-                 dropout: float = 0.0, attn_dropout: float = 0.0,
-                 device=None):
+    def __init__(self, attn: nn.Module, embed_dim: int, mlp_ratio: float,
+                 dropout: float, device=None):
         super().__init__()
-        if not use_mhla:
-            raise NotImplementedError(
-                "dense MHA blocks (use_mhla=False) are not ported yet"
-            )
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
-        self.attn = MultiHeadLatentAttention(
-            embed_dim, num_heads, window_size, attn_dropout, device=device
-        )
+        self.attn = attn
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
         self.mlp = MLP(embed_dim, int(embed_dim * mlp_ratio), dropout,
                        device=device)
@@ -244,3 +321,36 @@ class SwitchableTransformerBlock(nn.Module):
                 ) -> torch.Tensor:
         x = x + self.attn(self.norm1(x), rng)
         return x + self.mlp(self.norm2(x), rng)
+
+
+class TransformerBlock(_PreLNBlock):
+    """The dense ViT's block: :class:`MultiHeadAttention` with ``attn.qkv``
+    and ``attn.proj``."""
+
+    def __init__(self, embed_dim: int, num_heads: int,
+                 mlp_ratio: float = 4.0, dropout: float = 0.0,
+                 attn_dropout: float = 0.0, use_flash: bool | None = None,
+                 device=None):
+        attn = MultiHeadAttention(embed_dim, num_heads, attn_dropout,
+                                  use_flash, device=device)
+        super().__init__(attn, embed_dim, mlp_ratio, dropout, device=device)
+
+
+class SwitchableTransformerBlock(_PreLNBlock):
+    """The MHLA ViT's block: :class:`MultiHeadLatentAttention` with
+    ``use_mhla=True``, else dense :class:`MultiHeadAttention` under the
+    reference's ``in_proj``/``out_proj`` parameter names."""
+
+    def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
+                 mlp_ratio: float = 4.0, use_mhla: bool = True,
+                 dropout: float = 0.0, attn_dropout: float = 0.0,
+                 use_flash: bool | None = None, device=None):
+        if use_mhla:
+            attn = MultiHeadLatentAttention(
+                embed_dim, num_heads, window_size, attn_dropout,
+                device=device)
+        else:
+            attn = MultiHeadAttention(embed_dim, num_heads, attn_dropout,
+                                      use_flash, in_proj_names=True,
+                                      device=device)
+        super().__init__(attn, embed_dim, mlp_ratio, dropout, device=device)

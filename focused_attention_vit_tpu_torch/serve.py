@@ -336,14 +336,16 @@ class HTTPFrontend:
 
 
 def _build_model(args):
-    from focused_attention_vit_tpu_torch.models import VisionTransformerMHLA
+    from focused_attention_vit_tpu_torch import models
 
-    return VisionTransformerMHLA(
+    kw = dict(
         img_size=args.img_size, patch_size=args.patch_size,
         num_classes=args.num_classes, embed_dim=args.embed_dim,
         depth=args.depth, num_heads=args.num_heads,
-        window_size=args.window_size,
     )
+    if args.model == "vit":
+        return models.VisionTransformer(**kw)
+    return models.VisionTransformerMHLA(window_size=args.window_size, **kw)
 
 
 def _parser():
@@ -353,7 +355,10 @@ def _parser():
     p.add_argument("--weights", type=str, required=True,
                    help=".pt/.pth state dict (reference torch layout) or "
                         ".npz of /-joined JAX param paths")
-    p.add_argument("--model", choices=["vit_mhla"], default="vit_mhla")
+    p.add_argument("--model", choices=["vit", "vit_mhla"],
+                   default="vit_mhla",
+                   help="vit: dense attention; vit_mhla: windowed latent "
+                        "attention")
     p.add_argument("--img_size", type=int, default=224)
     p.add_argument("--patch_size", type=int, default=16)
     p.add_argument("--num_classes", type=int, default=10)

@@ -215,6 +215,17 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(model: nn.Module, tx: OptimizerSpec) -> TrainState:
-    """Bind ``tx`` to ``model``'s parameters."""
+def create_train_state(model: nn.Module, tx: OptimizerSpec,
+                       device="cuda") -> TrainState:
+    """Move ``model`` to ``device`` (in place) and bind ``tx`` to its
+    parameters. Training runs on the card unless the caller asks for
+    ``device="cpu"``; without CUDA the default raises, it does not fall
+    back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "create_train_state: CUDA is not available; pass device=\"cpu\" "
+            "to train on the CPU"
+        )
+    model.to(device)
     return TrainState(model=model, tx=tx.bind(model))

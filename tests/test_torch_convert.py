@@ -17,6 +17,7 @@ from focused_attention_vit_tpu.models import (
 from focused_attention_vit_tpu_torch.convert.from_jax import (
     flatten_params,
     flax_vit_mhla_to_state_dict,
+    flax_vit_to_state_dict,
     unflatten_params,
 )
 from focused_attention_vit_tpu_torch.infer import Predictor, load_state_dict
@@ -113,10 +114,11 @@ def test_rejects(jax_params, tmp_path, case):
     if case == "scan_form":
         params["blocks"] = {"block": {}}
     elif case == "dense_blocks":
-        blk = dict(params["blocks_0"])
-        blk["attn"] = {k: v for k, v in blk["attn"].items()
-                       if k != "latent_proj"}
-        params["blocks_0"] = blk
+        # Dense blocks convert now; what is rejected is MHLA params handed
+        # to the dense ViT's converter.
+        with pytest.raises(ValueError, match="latent_proj"):
+            flax_vit_to_state_dict(params)
+        return
     elif case == "holes":
         del params["blocks_0"]
     if case == "suffix":

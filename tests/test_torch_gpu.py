@@ -1,4 +1,5 @@
-"""The band kernels on an NVIDIA Hopper GPU against their plain versions.
+"""The band and flash-attention kernels on an NVIDIA Hopper GPU against
+their plain versions.
 
 Marked ``gpu``: these skip where there is no CUDA device. On a machine with
 the card and without JAX, run them with
@@ -9,6 +10,7 @@ the card and without JAX, run them with
 import pytest
 import torch
 
+from focused_attention_vit_tpu_torch.ops import flash_attention as flash
 from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
 
 pytestmark = pytest.mark.gpu
@@ -134,3 +136,90 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         band.band_backward(x, x, x, x, wts, 7)
     with pytest.raises(ValueError):  # saved weights on the wrong device
         band.band_backward(q, q, q, q, wts.cpu(), 7)
+
+
+# --- flash attention ------------------------------------------------------------
+
+# (d, S): one key, ragged last tiles on both axes, exact tiles, the ViT-B/16
+# and ViT-B/4 lengths.
+FLASH_SHAPES = [(16, 1), (64, 1), (64, 127), (32, 129), (128, 197),
+                (16, 512), (64, 577), (64, 1025), (64, 3137)]
+
+
+def _flash_close(got, want, dtype, f32_tol):
+    """f32 within ``f32_tol``. bf16: the kernels round the softmax weights
+    (and ds) to bf16 for the tensor cores, the plain versions keep f32; the
+    results agree within 2 bf16 ulps of max(|plain|, a quarter of the
+    tensor's largest entry)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=f32_tol, rtol=0)
+        return
+    got, want = got.float(), want.float()
+    floor = max(0.25 * float(want.abs().max()), 2.0 ** -10)
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(floor))) - 7)
+    assert float(((got - want).abs() / ulp).max()) <= 2.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,s", FLASH_SHAPES)
+def test_flash_kernels_match_plain(cuda, dtype, d, s):
+    """Eval forward, training forward with its log-sum-exp, and backward;
+    f32 forward within 1e-5 and backward within 1e-4 (TF32 plays no part:
+    the f32 kernels are scalar)."""
+    q, k, v, g = _inputs(cuda, (2, 3, s, d), dtype, n=4, seed=s + d)
+    before = [flash.launch_count(kind) for kind in flash.LAUNCH_KINDS]
+    with torch.no_grad():
+        lean = flash.flash_attention(q, k, v)
+    out, lse = flash.flash_forward_train(q, k, v)
+    grads = flash.flash_backward(q, k, v, out, lse, g)
+    again = flash.flash_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert [flash.launch_count(kind) for kind in flash.LAUNCH_KINDS] == [
+        before[0] + 1, before[1] + 1, before[2] + 2]
+    ref_out, ref_lse = flash.plain_flash_forward(q, k, v)
+    ref_grads = flash.plain_flash_backward(q, k, v, out, lse, g)
+    assert torch.equal(lean, out)
+    _flash_close(out, ref_out, dtype, 1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert got.dtype == dtype and torch.equal(got, rerun)
+        _flash_close(got, want, dtype, 1e-4)
+
+
+def test_flash_launch_counters_and_gradients(cuda):
+    flash.reset_launch_count()
+    q, k, v = (t.requires_grad_() for t in _inputs(cuda, (2, 2, 600, 64),
+                                                   torch.bfloat16))
+    with torch.no_grad():
+        flash.flash_attention(q, k, v)
+    out = flash.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    # A strided cotangent, as the model's head merge hands it back.
+    out.transpose(1, 2).reshape(2, 600, 128).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [flash.launch_count(kind) for kind in flash.LAUNCH_KINDS] == [
+        1, 1, 1]
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+        assert t.grad.abs().sum() > 0
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 40, 16, device=cuda)
+    with pytest.raises(ValueError):  # shapes
+        flash.flash_attention(q, q, q[:, :, :20].contiguous())
+    with pytest.raises(ValueError):  # stride
+        x = q.transpose(2, 3).contiguous().transpose(2, 3)
+        flash.flash_attention(x, x, x)
+    with pytest.raises(ValueError):  # head dim
+        x = torch.zeros(1, 2, 40, 24, device=cuda)
+        flash.flash_attention(x, x, x)
+    with pytest.raises(TypeError):  # dtype
+        x = q.half()
+        flash.flash_attention(x, x, x)
+    with pytest.raises(ValueError):  # alignment
+        x = torch.zeros(1 * 2 * 40 * 16 + 2, device=cuda)[2:].view(1, 2, 40, 16)
+        flash.flash_attention(x, x, x)
+    lse = torch.zeros(1, 2, 40, device=cuda)
+    with pytest.raises(ValueError):  # lse on the wrong device
+        flash.flash_backward(q, q, q, q, lse.cpu(), q)

@@ -108,5 +108,14 @@ def test_init_is_seeded_and_follows_the_reference_rule():
 
 
 def test_dense_blocks_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        VisionTransformerMHLA(img_size=32, use_mhla=False, **GEOM)
+    """The name is from when they were not: ``use_mhla=False`` now builds
+    dense blocks under the reference's in_proj/out_proj names and runs
+    (held against JAX in test_torch_vit.py)."""
+    model = VisionTransformerMHLA(img_size=32, use_mhla=False, **GEOM).eval()
+    keys = set(model.state_dict())
+    assert {"blocks.0.attn.in_proj_weight", "blocks.0.attn.in_proj_bias",
+            "blocks.0.attn.out_proj.weight"} <= keys
+    assert not any("latent_proj" in k or ".qkv." in k for k in keys)
+    with torch.inference_mode():
+        out = model(torch.zeros(2, 32, 32, 3))
+    assert out.shape == (2, 10) and torch.isfinite(out).all()

@@ -23,6 +23,10 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.infer",
     "focused_attention_vit_tpu_torch.models",
     "focused_attention_vit_tpu_torch.models.layers",
+    "focused_attention_vit_tpu_torch.models.vit",
+    "focused_attention_vit_tpu_torch.models.vit_mhla",
+    "focused_attention_vit_tpu_torch.ops.attention",
+    "focused_attention_vit_tpu_torch.ops.flash_attention",
     "focused_attention_vit_tpu_torch.ops.mhla_band_roll",
     "focused_attention_vit_tpu_torch.ops.philox",
     "focused_attention_vit_tpu_torch.ops.patch_embed",
@@ -30,6 +34,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.serve",
     "focused_attention_vit_tpu_torch.train",
     "focused_attention_vit_tpu_torch.utils.kernel_build",
+    "focused_attention_vit_tpu_torch.utils.step_profile",
 ]
 
 
@@ -46,6 +51,90 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_port_module_is_in_the_import_guard():
+    """A module added to the port must be added to PORT_MODULES (packages
+    are covered by their modules)."""
+    pkg = REPO / "focused_attention_vit_tpu_torch"
+    found = {
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in pkg.rglob("*.py") if p.name != "__init__.py"
+    }
+    listed = set(PORT_MODULES)
+    covered = {m for m in found
+               if m in listed or m.rsplit(".", 1)[0] in listed}
+    assert found == covered, sorted(found - covered)
+
+
+def _port_sources():
+    pkg = REPO / "focused_attention_vit_tpu_torch"
+    return sorted(str(p.relative_to(REPO)) for p in pkg.rglob("*.py")) + [
+        "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_source_names_no_jax_import(path):
+    """No source of the port, nor the smoke script, has an import statement
+    of jax, flax, optax or the JAX package (docstrings may name them)."""
+    import ast
+
+    banned = ("jax", "jaxlib", "flax", "optax", "focused_attention_vit_tpu")
+    for node in ast.walk(ast.parse((REPO / path).read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in banned, f"{path}: {name}"
+
+
+def test_port_never_calls_a_library_attention():
+    """The dense attention is the port's own: no source of the package
+    calls PyTorch's fused attention or its attention module."""
+    import re
+
+    pat = re.compile(r"(F|functional)\.scaled_dot_product_attention"
+                     r"|nn\.MultiheadAttention\(")
+    pkg = REPO / "focused_attention_vit_tpu_torch"
+    hits = [str(p.relative_to(REPO)) for p in pkg.rglob("*.py")
+            if pat.search(p.read_text())]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::flash_fwd_mma<64, false>(...)",
+     "flash kernels"),
+    ("void (anonymous namespace)::flash_bwd_dkv_mma<64>(...)",
+     "flash kernels"),
+    ("void (anonymous namespace)::band_bwd_key_kernel<__nv_bfloat16, 64>",
+     "band kernels"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "GEMMs"),
+    ("void at::native::vectorized_layer_norm_kernel<float, float>",
+     "LayerNorm"),
+    ("void at::native::elementwise_kernel<128, 4, "
+     "at::native::direct_copy_kernel_cuda", "copies and casts"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::GeluCUDAKernelImpl", "GELU"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::CUDAFunctor_add<float>", "other elementwise"),
+    ("something_else", "other"),
+])
+def test_step_profile_sorts_kernels_by_kind(name, kind):
+    from focused_attention_vit_tpu_torch.utils import step_profile
+
+    assert step_profile.categorize(name) == kind
+
+
+def test_step_profile_raises_without_cuda():
+    from focused_attention_vit_tpu_torch.utils import step_profile
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        step_profile.main(["--depth", "1"])
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -92,6 +181,10 @@ def test_library_path_is_keyed_by_source_and_ignored_by_git():
     assert lib.parent.name.startswith("mhla_band_fwd-")
     assert (REPO / band.KERNEL_SOURCE).is_file()
     assert (REPO / band.BWD_KERNEL_SOURCE).is_file()
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+
+    assert (REPO / flash.FWD_KERNEL_SOURCE).is_file()
+    assert (REPO / flash.BWD_KERNEL_SOURCE).is_file()
     assert kernel_build.BUILD_ROOT == REPO / "build" / "kernels"
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()
 

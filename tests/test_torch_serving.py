@@ -301,7 +301,7 @@ def test_setup_builds_a_predictor_from_argv(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--checkpoint_dir", "x"], ["--from_export", "x"],
     ["--export_artifact", "x"], ["--num_devices", "2"], ["--tp", "2"],
-    ["--model", "vit"],
+    ["--model", "sppp"],
 ])
 def test_flags_outside_the_slice_are_rejected(flag, capsys):
     with pytest.raises(SystemExit):

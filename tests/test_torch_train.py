@@ -308,7 +308,8 @@ def test_train_steps_match_jax_trajectory():
     jstate_ = jstate.create_train_state(
         jmodel, None, None, jstate.make_adamw(LR), params)
     jstep = jsteps.make_train_step(96, augment=False)
-    tstate_ = train.create_train_state(tmodel, train.make_adamw(LR))
+    tstate_ = train.create_train_state(tmodel, train.make_adamw(LR),
+                                       device="cpu")
     tstep = train.make_train_step(96, augment=False)
     for i, (u8, y) in enumerate(batches):
         jstate_, jm = jstep(jstate_, jnp.asarray(u8), jnp.asarray(y),
@@ -331,8 +332,10 @@ def test_microbatch_accumulation_equals_monolithic_step():
     _, _, model_a = _pair(3)
     _, _, model_b = _pair(3)
     u8, y = _batch(6, b=8)
-    sa = train.create_train_state(model_a, train.make_adamw(LR))
-    sb = train.create_train_state(model_b, train.make_adamw(LR))
+    sa = train.create_train_state(model_a, train.make_adamw(LR),
+                                  device="cpu")
+    sb = train.create_train_state(model_b, train.make_adamw(LR),
+                                  device="cpu")
     sa, ma = train.make_train_step(96, augment=False)(sa, u8, y, 0)
     sb, mb = train.make_train_step(96, augment=False, microbatch=2)(
         sb, u8, y, 0)
@@ -350,7 +353,8 @@ def test_eval_step_with_mask_matches_jax():
     u8, y = _batch(7, b=5)
     jstate_ = jstate.create_train_state(
         jmodel, None, None, jstate.make_adamw(LR), params)
-    tstate_ = train.create_train_state(tmodel, train.make_adamw(LR))
+    tstate_ = train.create_train_state(tmodel, train.make_adamw(LR),
+                                       device="cpu")
     got_all, want_all = [], []
     for xb, yb, mask in pipeline.padded_eval_batches(u8, y, 4):
         got_all.append(train.make_eval_step(96, return_logits=True)(
@@ -401,10 +405,10 @@ def test_attention_dropout_branches_train(img_size):
                                     generator=torch.Generator().manual_seed(0))
     u8, y = _batch(9)
     step = train.make_train_step(img_size)
-    sa, ma = step(train.create_train_state(model_a, train.make_adamw(LR)),
-                  u8, y, 4)
-    sb, mb = step(train.create_train_state(model_b, train.make_adamw(LR)),
-                  u8, y, 4)
+    sa, ma = step(train.create_train_state(model_a, train.make_adamw(LR),
+                                           device="cpu"), u8, y, 4)
+    sb, mb = step(train.create_train_state(model_b, train.make_adamw(LR),
+                                           device="cpu"), u8, y, 4)
     assert torch.equal(ma["loss_sum"], mb["loss_sum"])
     for name, p in model_a.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
@@ -420,7 +424,7 @@ def test_train_and_evaluate_runs_the_reference_protocol():
                                  subset_size=24, synthetic_sizes=(64, 32))
     model = VisionTransformerMHLA(**dict(GEOM, img_size=32, depth=1),
                                   dropout=0.1, attn_dropout=0.1)
-    state = train.create_train_state(model, train.make_adamw(LR))
+    state = train.create_train_state(model, train.make_adamw(LR), device="cpu")
     lines = []
     band.reset_launch_count()
     out = train.train_and_evaluate(
