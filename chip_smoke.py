@@ -4,12 +4,14 @@
 Drives the serving path and the training path of
 ``focused_attention_vit_tpu_torch`` at MHLA-B/4 and at dense ViT-B/4 (D=768,
 12 blocks, 12 heads of d=64, W=7 for MHLA, patch 4 on 224x224, S=3137, 10
-classes, seeded random weights) and checks every CUDA kernel on them.
+classes, seeded random weights), then experiment E1 ``traditional`` at
+ViT-B/16 (patch 16, S=197) through the CLI, and checks every CUDA kernel on
+them.
 Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: requires CUDA and compute capability 9.0; prints the card's name
    and ``nvidia-smi`` name and power limit;
-2. build: compiles the four kernel sources from ``csrc/`` with nvcc, in
+2. build: compiles the six kernel sources from ``csrc/`` with nvcc, in
    parallel;
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
@@ -50,8 +52,27 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     attention dropout 0.1, which takes the query-chunked plain path and
     must launch no flash training kernel.
 
+14. kernel-fused: the fused short-S attention's eval forward, training
+    forward (in-kernel dropout, log-sum-exp) and backward against their plain
+    versions over S in 1..1024 and at the E1 shape (B*h=1536, S=197, d=64),
+    f32 and bf16, at dropout 0 and 0.1; the dropout words bit for bit against
+    the plain generator; the backward run twice gives the same bits;
+    CUDA-event timings of the kernels, the plain versions and PyTorch's
+    fused attention;
+15. e1: ``cli.main(["--experiment", "traditional", ...])`` at ViT-B/16, bf16
+    autocast, batch 128, attention dropout 0.1, two epochs on synthetic
+    CIFAR with ``FAVIT_FUSED_MHA=1``: the one-row CSV has the reference's 19
+    columns, ``parameters`` and ``flops`` equal the complexity formula's,
+    the confusion matrix sums to the test count, and the fused launch counts
+    equal 12 x the passes run (training passes, the mid-run memory probe's
+    backward, eval passes); ms per step, images/s and peak memory, also at
+    microbatch 64, 32 and 16; then one epoch with the switch off, which must
+    launch nothing;
+16. e1-train-parity: one f32 train step of ViT-B/16 cut to 2 blocks with
+    attention dropout 0.1 and the switch on, card against CPU.
+
 Every launch count is set to 0 just before its path is driven and read just
-after. The line before the last is a JSON summary of the six kernels, each
+after. The line before the last is a JSON summary of the nine kernels, each
 with its time, its plain version's, the least time the card could take
 (``bound_ms``, from this run's shapes) and the library call's where PyTorch
 has one; the last line is ``{"ok": true, "device": {...}}``. Run from the
@@ -60,6 +81,7 @@ repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
@@ -72,6 +94,7 @@ import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -84,7 +107,9 @@ from focused_attention_vit_tpu_torch.models import (
     VisionTransformerMHLA,
 )
 from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
 from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
+from focused_attention_vit_tpu_torch.ops import philox
 from focused_attention_vit_tpu_torch.utils import kernel_build
 
 REPO = Path(__file__).resolve().parent
@@ -114,8 +139,10 @@ PARITY_LOSS_TOL = 1e-4
 PARITY_GRAD_REL = 1e-3
 PARITY_GRAD_ABS = 1e-6
 LIBRARIES = ("mhla_band_fwd", "mhla_band_bwd", "flash_attention_fwd",
-             "flash_attention_bwd")
+             "flash_attention_bwd", "fused_mha_fwd", "fused_mha_bwd")
 FLASH_SHAPE = (32, 12, 3137, 64)  # B, h, S, d of the flash op at ViT-B/4 b32
+# B, h, S, d of the fused short-S attention at ViT-B/16, batch 128.
+FUSED_SHAPE = (128, 12, 197, 64)
 # The bf16 flash kernels round the softmax weights (and ds in the backward)
 # to bf16 for the tensor cores where the plain versions keep f32: a sum of S
 # independent roundings of relative size 2^-9, far below one ulp of a typical
@@ -125,6 +152,16 @@ FLASH_SHAPE = (32, 12, 3137, 64)  # B, h, S, d of the flash op at ViT-B/4 b32
 # error's rms within 2^-8 of the plain result's rms.
 FLASH_ULP_FLOOR_SHARE = 0.25
 FLASH_RMS_REL = 2.0 ** -8
+# The fused short-S kernels are held by the same rule, BF16_ULPS included,
+# at the training shape and over the grid. The grid is 168 tensors of short
+# sequences, where one weight can be a large share of a sum and its bf16
+# rounding is not averaged away: the one (S, d) case listed here, whose
+# worst entry lies in that tail (dv at rate 0: 2.25 ulps; every other
+# reading of the grid is at most 1.98), gets FUSED_LOOSE_ULPS instead, and
+# the phase prints its readings. The rms bound, which a fault would break
+# first, is the flash kernels' everywhere.
+FUSED_LOOSE_ULPS = 3
+FUSED_LOOSE_CASES = frozenset({(256, 16)})
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory and
 # dense bf16 tensor-core rate. bound_ms is computed against these.
 PEAK_BYTES_PER_S = 3.35e12
@@ -395,21 +432,27 @@ class ModelPath:
     """One model's path through the script: its phases' labels, the model
     class, the ``--model`` flag and the op whose launches it counts."""
 
-    def __init__(self, prefix, name, cls, flag, op, op_name):
+    def __init__(self, prefix, name, cls, flag, op, op_name, patch=4,
+                 model_kw=None):
         self.prefix, self.name, self.cls = prefix, name, cls
         self.flag, self.op, self.op_name = flag, op, op_name
+        self.patch, self.model_kw = patch, model_kw or {}
 
     def phase(self, base: str) -> str:
         return f"{self.prefix}{base}"
 
     def build(self, depth=DEPTH, **kw):
-        return self.cls(img_size=224, patch_size=4, num_classes=10,
-                        depth=depth, **kw)
+        return self.cls(img_size=224, patch_size=self.patch, num_classes=10,
+                        depth=depth, **self.model_kw, **kw)
 
 
 MHLA = ModelPath("", "MHLA-B/4", VisionTransformerMHLA, "vit_mhla", band, "band")
 DENSE = ModelPath("vit-", "dense ViT-B/4", VisionTransformer, "vit", flash,
               "flash")
+# The short-S path: ViT-B/16 (S = 197) with attention dropout, whose
+# attention is the fused op when FAVIT_FUSED_MHA=1.
+E1 = ModelPath("e1-", "ViT-B/16", VisionTransformer, "vit", fused, "fused",
+               patch=16, model_kw=dict(attn_dropout=TRAIN_DROPOUT))
 
 
 def phase_model(path: ModelPath, cpu_model: torch.nn.Module,
@@ -715,7 +758,7 @@ def phase_train(path: ModelPath, attn_dropout_launches: bool,
     return launches
 
 
-def _flash_check(got, ref, dtype, f32_tol):
+def _flash_check(got, ref, dtype, f32_tol, max_ulps=BF16_ULPS):
     """(max abs err, ok, description) of a flash kernel result against its
     plain version: f32 within ``f32_tol`` abs; bf16 by the bound stated at
     FLASH_ULP_FLOOR_SHARE."""
@@ -728,7 +771,7 @@ def _flash_check(got, ref, dtype, f32_tol):
     ulps = bf16_ulps(got, ref, floor)
     rms = float((got - ref).pow(2).mean().sqrt())
     rms_ref = float(ref.pow(2).mean().sqrt())
-    ok = ulps <= BF16_ULPS and rms <= FLASH_RMS_REL * rms_ref + 1e-6
+    ok = ulps <= max_ulps and rms <= FLASH_RMS_REL * rms_ref + 1e-6
     return err, ok, (f"{err:.3g} ({ulps:.2f} ulps, rms "
                      f"{rms / max(rms_ref, 1e-30):.2g} of the plain rms)")
 
@@ -878,6 +921,447 @@ def phase_kernel_flash() -> dict:
     return result
 
 
+def _rms_check(got, ref):
+    """(max abs err, ok, description): the error's rms within FLASH_RMS_REL
+    of the reference's rms, and no bound on the worst entry."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    rms = float((got - ref).pow(2).mean().sqrt())
+    rms_ref = float(ref.pow(2).mean().sqrt())
+    return err, rms <= FLASH_RMS_REL * rms_ref + 1e-6, (
+        f"{err:.3g} (rms {rms / max(rms_ref, 1e-30):.2g} of the plain rms)")
+
+
+def _compare_fused(q, k, v, g, rate, seed, max_ulps=BF16_ULPS):
+    """The eval forward (at rate 0), the training forward and the backward
+    kernels of the fused short-S attention against the plain versions on
+    the same inputs; {name: (err, ok, text)}. The backward takes the
+    kernel's own out and lse, as the autograd Function hands them over.
+
+    The f32 backward is held to the plain version's direct row sum, which
+    shows that the kernel's rowsum(g * out) is the same number with
+    dropout. The bf16 kernels are held to the plain versions run in f32 on
+    the same bf16 values (as the flash op's plain versions compute) and
+    not rounded: the plain versions' own bf16 roundings of the weights, of
+    ds and of the result would otherwise count against the kernel. The
+    bf16 backward is held twice: entry by entry to a reference that takes
+    the row sum from the same bf16 out, whose rounding both then carry, and
+    by the rms bound to the direct row sum (``dq_direct``, ``dk_direct``),
+    which holds the identity in bf16 too. At S = 1 the true dq and dk are 0
+    and out's rounding is all there is, so the second has no scale to be
+    relative to and is left out."""
+    dtype = q.dtype
+    res = {}
+
+    def held(got, ref, dt, tol):
+        return _flash_check(got, ref, dt, tol, max_ulps)
+
+    if dtype == torch.bfloat16:
+        rq, rk, rv, rg = (x.float() for x in (q, k, v, g))
+    else:
+        rq, rk, rv, rg = q, k, v, g
+    ref_out, ref_lse = fused.plain_fused_mha_forward(rq, rk, rv, rate, seed)
+    if rate == 0.0:
+        with torch.no_grad():
+            out_eval = fused.fused_multi_head_attention(q, k, v)
+        res["out_eval"] = held(out_eval, ref_out, dtype, F32_TOL)
+    out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
+    grads = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+    ref_grads = fused.plain_fused_mha_backward(
+        rq, rk, rv, rg, rate, seed,
+        out=out.float() if dtype == torch.bfloat16 else None)
+    torch.cuda.synchronize()
+    res["out"] = held(out, ref_out, dtype, F32_TOL)
+    # lse is f32 on both sides: f32 logits of the same inputs.
+    res["lse"] = held(lse, ref_lse, torch.float32, F32_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        res[name] = held(a, b, dtype, F32_BWD_TOL)
+    if dtype == torch.bfloat16 and q.shape[2] > 1:
+        direct = fused.plain_fused_mha_backward(rq, rk, rv, rg, rate, seed)
+        for name, a, b in zip(("dq_direct", "dk_direct"), grads, direct):
+            res[name] = _rms_check(a, b)
+    return res
+
+
+def phase_kernel_fused() -> dict:
+    import torch.nn.functional as F  # the library call, timed as a yardstick
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    phase = "kernel-fused"
+
+    def inputs(shape, dtype):
+        return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(4)]
+
+    failures = []
+
+    def check(where, res):
+        bad = [f"{n} {t}" for n, (_, ok, t) in res.items() if not ok]
+        if bad:
+            failures.append(f"{where}: {bad}")
+
+    def raise_failures():
+        if failures:
+            raise AssertionError("fused attention kernels disagree with the "
+                                 "plain versions at " + "; ".join(failures))
+
+    # 1, 17, 197 and 577 leave ragged last tiles on both axes; 1024 is the
+    # op's longest sequence.
+    seqs = (1, 17, 128, 197, 256, 577, 1024)
+    seed = 2**40 + 99
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        for d in (16, 64):
+            worst = {}
+            for s in seqs:
+                q, k, v, g = inputs((2, 3, s, d), dtype)
+                loose = dtype == torch.bfloat16 and (s, d) in FUSED_LOOSE_CASES
+                for rate in (0.0, TRAIN_DROPOUT):
+                    res = _compare_fused(
+                        q, k, v, g, rate, seed + s,
+                        FUSED_LOOSE_ULPS if loose else BF16_ULPS)
+                    check(f"{(2, 3, s, d)} {dt} rate {rate}", res)
+                    if loose:
+                        log(phase, f"{(2, 3, s, d)} bf16 rate {rate}, held "
+                                   f"to {FUSED_LOOSE_ULPS} ulps: "
+                                   + ", ".join(f"{n} {t}" for n, (_, _, t)
+                                               in res.items()))
+                    for n, (e, _, _) in res.items():
+                        worst[n] = max(worst.get(n, 0.0), e)
+            log(phase, f"{dt} d={d}, S in {seqs}, rate 0 and "
+                       f"{TRAIN_DROPOUT}: max abs err "
+                       + ", ".join(f"{n} {e:.3g}" for n, e in worst.items()))
+    raise_failures()
+
+    # The mask, bit for bit: against the plain generator on the CPU at a
+    # few rows, and on the card at the training shape.
+    b, h, s, d = FUSED_SHAPE
+    small = fused.keep_bits(6, s, seed, "cuda").cpu()
+    if not torch.equal(small, fused.keep_bits(6, s, seed, "cpu")):
+        raise AssertionError("the fused kernels' dropout bits differ from "
+                             "the plain generator's on the CPU")
+    bits = fused.keep_bits(b * h, s, seed, "cuda")
+    if not torch.equal(bits, philox.mha_keep_bits(b * h, s, seed, "cuda")):
+        raise AssertionError("the fused kernels' dropout bits differ from "
+                             "the plain generator's")
+    kept = float((bits >= philox.keep_threshold(TRAIN_DROPOUT)).float().mean())
+    log(phase, f"dropout words at B*h={b * h}, S={s}: identical to the plain "
+               f"generator's ({bits.numel()} words; share kept at rate "
+               f"{TRAIN_DROPOUT}: {kept:.5f})")
+    del bits, small
+    torch.cuda.empty_cache()
+
+    rate = TRAIN_DROPOUT
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v, g = inputs(FUSED_SHAPE, dtype)
+        errs = {}
+        for r in (0.0, rate):
+            res = _compare_fused(q, k, v, g, r, seed)
+            check(f"the training shape {FUSED_SHAPE} {dt} rate {r}", res)
+            log(phase, f"training shape {FUSED_SHAPE} {dt} rate {r}: max abs "
+                       f"err " + ", ".join(f"{n} {t}"
+                                           for n, (_, _, t) in res.items()))
+            for n, (e, _, _) in res.items():
+                errs[n] = max(errs.get(n, 0.0), e)
+        raise_failures()
+        out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
+        first = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+        second = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(first, second)):
+            raise AssertionError(f"two runs of the {dt} fused backward "
+                                 f"differ")
+        del first, second, res
+        reps = 30 if dtype == torch.bfloat16 else 5
+        with torch.no_grad():
+            times = {
+                "fwd": cuda_median_ms(
+                    lambda: fused.fused_multi_head_attention(q, k, v), reps),
+                "fwd_train": cuda_median_ms(
+                    lambda: fused.fused_mha_forward_train(q, k, v, rate,
+                                                          seed), reps),
+                "fwd_train_nodrop": cuda_median_ms(
+                    lambda: fused.fused_mha_forward_train(q, k, v), reps),
+                "bwd": cuda_median_ms(
+                    lambda: fused.fused_mha_backward(q, k, v, out, lse, g,
+                                                     rate, seed), reps),
+                "bwd_nodrop": cuda_median_ms(
+                    lambda: fused.fused_mha_backward(q, k, v, out, lse, g),
+                    reps),
+                "fwd_plain": cuda_median_ms(
+                    lambda: fused.plain_fused_mha_forward(q, k, v), 5, 1),
+                "fwd_train_plain": cuda_median_ms(
+                    lambda: fused.plain_fused_mha_forward(q, k, v, rate,
+                                                          seed), 5, 1),
+                "bwd_plain": cuda_median_ms(
+                    lambda: fused.plain_fused_mha_backward(
+                        q, k, v, g, rate, seed, out=out), 5, 1),
+                # PyTorch's fused attention on the same inputs.
+                "fwd_library": cuda_median_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v), reps),
+            }
+        lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        for key, p_drop in (("", rate), ("_nodrop", 0.0)):
+            times[f"fwd_train{key}_library"] = cuda_median_ms(
+                lambda: F.scaled_dot_product_attention(
+                    lq, lk, lv, dropout_p=p_drop), reps)
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv,
+                                                     dropout_p=p_drop)
+            times[f"bwd{key}_library"] = cuda_median_ms(
+                lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g,
+                                            retain_graph=True), reps)
+        del lib_out, lq, lk, lv
+        log(phase, f"training shape {dt}, kernel / plain / PyTorch fused "
+                   f"attention, ms: eval forward {times['fwd']:.4f} / "
+                   f"{times['fwd_plain']:.4f} / {times['fwd_library']:.4f}; "
+                   f"training forward at rate {rate} "
+                   f"{times['fwd_train']:.4f} / "
+                   f"{times['fwd_train_plain']:.4f} / "
+                   f"{times['fwd_train_library']:.4f} (at rate 0: kernel "
+                   f"{times['fwd_train_nodrop']:.4f}, PyTorch "
+                   f"{times['fwd_train_nodrop_library']:.4f}); backward at "
+                   f"rate {rate} {times['bwd']:.4f} / "
+                   f"{times['bwd_plain']:.4f} / {times['bwd_library']:.4f} "
+                   f"(at rate 0: kernel {times['bwd_nodrop']:.4f}, PyTorch "
+                   f"{times['bwd_nodrop_library']:.4f}) (CUDA-event medians "
+                   f"of {reps}, plain of 5); two backward runs bit-identical")
+        # The function's least work: q, k, v in and out back; the backward
+        # takes q, k, v and g and gives dq, dk, dv. Two products of S*S*d
+        # multiply-adds forward, five backward. The lse that the training
+        # forward writes, and the out and lse that the backward reads, are
+        # this design's saved state and not part of the function (the TPU
+        # kernel saves q, k, v and the seed alone): they stay out of the
+        # bound.
+        one = q.numel() * q.element_size()
+        pairs = b * h * s * s * d
+        result[dt] = dict(
+            fwd=dict(max_abs_err=errs["out_eval"], ms=times["fwd"],
+                     plain_ms=times["fwd_plain"],
+                     library_ms=times["fwd_library"],
+                     **least_time(4 * one, 4 * pairs)),
+            fwd_train=dict(max_abs_err=max(errs["out"], errs["lse"]),
+                           ms=times["fwd_train"],
+                           plain_ms=times["fwd_train_plain"],
+                           library_ms=times["fwd_train_library"],
+                           **least_time(4 * one, 4 * pairs)),
+            bwd=dict(max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
+                     ms=times["bwd"], plain_ms=times["bwd_plain"],
+                     library_ms=times["bwd_library"],
+                     **least_time(7 * one, 10 * pairs)),
+        )
+        if dtype == torch.bfloat16:
+            log(phase, f"training shape bf16: eval forward "
+                       f"{4 * one / times['fwd'] / 1e6:.0f} GB/s of q, k, v, "
+                       f"out and {4 * pairs / times['fwd'] / 1e9:.1f} "
+                       f"TFLOP/s; backward "
+                       f"{7 * one / times['bwd'] / 1e6:.0f} GB/s of q, k, "
+                       f"v, g, dq, dk, dv and "
+                       f"{10 * pairs / times['bwd'] / 1e9:.1f} TFLOP/s")
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
+    return result
+
+
+@contextlib.contextmanager
+def _fused_switch(on: bool):
+    """FAVIT_FUSED_MHA set to 1, or unset, for a block; the environment is
+    restored after."""
+    with mock.patch.dict(os.environ):
+        os.environ.pop("FAVIT_FUSED_MHA", None)
+        if on:
+            os.environ["FAVIT_FUSED_MHA"] = "1"
+        yield
+
+
+def _host_mask_dropout(x, rate, rng):
+    """``layers.inverted_dropout`` with the mask drawn on the CPU from
+    ``rng.host``: the card and the CPU then drop the same entries."""
+    if rate == 0.0:
+        return x
+    keep = torch.empty(x.shape, dtype=torch.bool).bernoulli_(
+        1.0 - rate, generator=rng.host).to(x.device)
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def phase_e1_parity() -> None:
+    """One f32 train step of ViT-B/16 at 2 blocks with attention dropout
+    0.1 and the fused switch on, card against CPU: K3 with in-kernel
+    dropout and K4 against their plain versions through the whole model.
+    The attention's output dropout draws from a device generator, which
+    differs between the card and the CPU, so for this phase its mask is
+    drawn on the CPU on both sides; the weight dropout inside the fused op
+    is the op's own (Philox from a host seed) on both."""
+    from focused_attention_vit_tpu_torch.models import layers
+
+    with _fused_switch(True), mock.patch.object(
+            layers, "inverted_dropout", _host_mask_dropout):
+        phase_train_parity(E1)
+
+
+E1_COLUMNS = [
+    "model", "img_size", "patch_size", "embed_dim", "depth", "num_heads",
+    "parameters", "flops", "time_complexity", "space_complexity_mb",
+    "model_size_mb", "avg_epoch_time", "total_training_time",
+    "final_val_acc", "final_val_loss", "test_acc", "test_loss",
+    "avg_inference_time_per_image", "peak_gpu_memory_mb",
+]
+E1_BATCH = 128
+
+
+def _e1_cli(tmp: str, epochs: int):
+    """E1 ``traditional`` at ViT-B/16 through ``cli.main``; returns the
+    experiment, the model's forward passes by kind and the seconds taken.
+    Passes are counted by a global forward hook: ``train`` in training
+    mode, ``probe`` in eval mode under autograd (the mid-run memory probe's
+    backward), ``eval`` in eval mode without."""
+    import csv as csv_mod
+
+    from torch.nn.modules import module as nn_module
+
+    from focused_attention_vit_tpu_torch import cli
+    from focused_attention_vit_tpu_torch.utils.metrics import (
+        calculate_vit_complexity,
+    )
+
+    passes = {"train": 0, "probe": 0, "eval": 0}
+
+    def count(mod, _):
+        if isinstance(mod, VisionTransformer):
+            kind = ("train" if mod.training else
+                    "probe" if torch.is_grad_enabled() else "eval")
+            passes[kind] += 1
+
+    results = os.path.join(tmp, f"results-{epochs}")
+    hook = nn_module.register_module_forward_pre_hook(count)
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the CLI writes its log file into the working directory
+    t0 = time.perf_counter()
+    try:
+        e = cli.main([
+            "--experiment", "traditional", "--img_size", "224",
+            "--patch_size", "16", "--batch_size", str(E1_BATCH),
+            "--attn_dropout", str(TRAIN_DROPOUT),
+            "--compute_dtype", "bfloat16", "--epochs", str(epochs),
+            "--subset_size", "1024",
+            "--data_dir", os.path.join(tmp, "no-cifar"),
+            "--results_dir", results,
+        ])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        hook.remove()
+    seconds = time.perf_counter() - t0
+
+    with open(os.path.join(results, "exp1_traditional.csv"), newline="") as f:
+        rows = list(csv_mod.reader(f))
+    if rows[0] != E1_COLUMNS or len(rows) != 2:
+        raise AssertionError(f"E1 CSV: columns {rows[0]}, {len(rows) - 1} "
+                             f"rows")
+    row = dict(zip(rows[0], rows[1]))
+    theory = calculate_vit_complexity(224, 16, 768, 12, 12)
+    if (int(row["parameters"]), int(row["flops"])) != (
+            theory["parameters"], theory["flops"]):
+        raise AssertionError(f"E1 CSV: parameters {row['parameters']}, "
+                             f"flops {row['flops']} != {theory}")
+    tr = e.metrics["training"]
+    losses = (tr["train_losses"] + tr["val_losses"]
+              + [float(row["test_loss"]), float(row["final_val_loss"])])
+    if len(tr["train_losses"]) != epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"E1: non-finite or missing losses {losses}")
+    if not float(row["peak_gpu_memory_mb"]) > 0:
+        raise AssertionError("E1 CSV: peak_gpu_memory_mb is not positive")
+    cm = np.load(os.path.join(results, "exp1_traditional_confusion.npy"))
+    n_test = len(e.data["test_labels"])
+    if cm.shape != (10, 10) or cm.sum() != n_test:
+        raise AssertionError(f"E1 confusion matrix {cm.shape} sums to "
+                             f"{cm.sum()}, not {n_test}")
+    if not e.data["synthetic"]:
+        raise AssertionError("expected the synthetic CIFAR stand-in")
+    return e, passes, seconds, row
+
+
+def _e1_step_time(e, microbatch=None, n: int = 5):
+    """(ms per step, peak GiB) of E1's train step on its trained state."""
+    rng = np.random.default_rng(7)
+    u8 = _images(rng, E1_BATCH)
+    y = rng.integers(0, 10, size=E1_BATCH)
+    step = train.make_train_step(224, compute_dtype=torch.bfloat16,
+                                 microbatch=microbatch)
+    state = e.state
+    state, _ = step(state, u8, y, 100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for j in range(n):
+        state, _ = step(state, u8, y, 101 + j)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    return ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_e1() -> dict:
+    """E1 ``traditional`` at ViT-B/16 through the CLI with the fused switch
+    on (2 epochs, so that the mid-run probe fires), then one epoch with it
+    off; returns the fused launch counts of the first run."""
+    phase = "e1"
+    ops = (fused, flash, band)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, on, epochs in (("on", True, 2), ("off", False, 1)):
+            for op in ops:
+                op.reset_launch_count()
+            with _fused_switch(on):
+                e, passes, seconds, row = _e1_cli(tmp, epochs)
+                counts = {k: fused.launch_count(k)
+                          for k in fused.LAUNCH_KINDS}
+                others = [op.launch_count(k) for op in (flash, band)
+                          for k in op.LAUNCH_KINDS]
+                ms, peak = _e1_step_time(e)
+                sweep = {}
+                if on:
+                    out.update(counts)
+                    sweep = {mb: _e1_step_time(e, mb) for mb in (64, 32, 16)}
+            log(phase, f"switch {label}: cli.main, {epochs} epochs of "
+                       f"{len(e.data['train_images'])} train and "
+                       f"{len(e.data['test_labels'])} test images in "
+                       f"{seconds:.1f} s; forward passes {passes}; fused "
+                       f"launches {counts}; CSV test_loss "
+                       f"{float(row['test_loss']):.4f}, final_val_loss "
+                       f"{float(row['final_val_loss']):.4f}, "
+                       f"peak_gpu_memory_mb "
+                       f"{float(row['peak_gpu_memory_mb']):.1f}, "
+                       f"avg_inference_time_per_image "
+                       f"{float(row['avg_inference_time_per_image']):.6f} s")
+            expect = {"fwd": 0, "fwd_train": 0, "bwd": 0}
+            if on:
+                grads = DEPTH * (passes["train"] + passes["probe"])
+                expect = {"fwd": DEPTH * passes["eval"], "fwd_train": grads,
+                          "bwd": grads}
+            steps = epochs * (len(e.data["train_images"]) // E1_BATCH)
+            if (counts != expect or any(others) or passes["train"] != steps
+                    or passes["probe"] != 1 or passes["eval"] == 0):
+                raise AssertionError(
+                    f"E1 switch {label}: fused launches {counts} != "
+                    f"{expect}, flash and band launches {others}, passes "
+                    f"{passes} for {steps} steps")
+            log(phase, f"switch {label}: ViT-B/16 train step, bf16 autocast, "
+                       f"batch {E1_BATCH}, dropout {TRAIN_DROPOUT}, attention "
+                       f"dropout {TRAIN_DROPOUT}: {ms:.2f} ms per step, "
+                       f"{E1_BATCH / ms * 1e3:.1f} images/s (host clock, "
+                       f"mean of 5 steps after a warm-up), peak memory "
+                       f"{peak:.2f} GiB (max_memory_allocated)")
+            if sweep:
+                log(phase, "switch on, microbatch 0 / 64 / 32 / 16: "
+                           + " / ".join(f"{m:.2f} ms, {p:.2f} GiB"
+                                        for m, p in [(ms, peak),
+                                                     *sweep.values()]))
+            del e
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -901,8 +1385,13 @@ def main() -> None:
         train_launches[path] = phase_train(path, attn_dropout_launches)
         torch.cuda.empty_cache()
 
+    fused_timing = phase_kernel_fused()
+    e1_launches = phase_e1()
+    phase_e1_parity()
+
     tpu = "focused_attention_vit_tpu/ops/mhla_band_roll.py"
     tpu_flash = "focused_attention_vit_tpu/ops/flash_attention_pallas.py"
+    tpu_fused = "focused_attention_vit_tpu/ops/mha_kernel.py"
     kernels = [
         ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158", launches[MHLA],
          timing["bf16"]),
@@ -917,6 +1406,12 @@ def main() -> None:
          flash_timing["bf16"]["fwd_train"]),
         ("flash_attention_bwd", flash.BWD_KERNEL_SOURCE, f"{tpu_flash}:73",
          train_launches[DENSE]["bwd"], flash_timing["bf16"]["bwd"]),
+        ("fused_mha_fwd", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
+         e1_launches["fwd"], fused_timing["bf16"]["fwd"]),
+        ("fused_mha_fwd_train", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
+         e1_launches["fwd_train"], fused_timing["bf16"]["fwd_train"]),
+        ("fused_mha_bwd", fused.BWD_KERNEL_SOURCE, f"{tpu_fused}:83",
+         e1_launches["bwd"], fused_timing["bf16"]["bwd"]),
     ]
     for name_, _, _, count, _ in kernels:
         if count <= 0:

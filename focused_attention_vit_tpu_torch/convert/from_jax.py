@@ -146,3 +146,14 @@ def npz_to_state_dict(path, in_proj_names: bool | None = None
     if in_proj_names is None:
         in_proj_names = any("/latent_proj/" in k for k in flat)
     return _blocks_to_state_dict(unflatten_params(flat), in_proj_names)
+
+
+def load_flax_params_into_experiment(experiment, params: Mapping[str, Any]
+                                     ) -> None:
+    """Load a JAX E1 param tree (nested numpy arrays, loop form) into the
+    model of a port experiment after its ``setup()``, in place and on the
+    model's device, so that both sides evaluate the same weights."""
+    model = experiment.model
+    device = next(model.parameters()).device
+    state = {k: v.to(device) for k, v in flax_vit_to_state_dict(params).items()}
+    model.load_state_dict(state, strict=True)

@@ -64,58 +64,10 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;  // 4 warps of 16 rows, or 128 scalar rows
 constexpr int kTile = 64;      // rows of the owned and of the staged tile
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_delta(const T* __restrict__ out, const T* __restrict__ g,
-                float* __restrict__ delta, int64_t n) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-  if (i >= n) return;
-  constexpr int kVec = 16 / sizeof(T);  // elements in 16 bytes
-  const T* orow = out + i * D;
-  const T* grow = g + i * D;
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += kVec) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-    const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
-    const T* oe = reinterpret_cast<const T*>(&ov);
-    const T* ge = reinterpret_cast<const T*>(&gv);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) sum += to_f32(oe[e]) * to_f32(ge[e]);
-  }
-  delta[i] = sum;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int a = 0; a < N; ++a) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[a][r] = 0.f;
-  }
-}
-
-// Rows g and g + 8 of a warp's 16 x D accumulator to a [s, D] bf16 matrix.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4],
-                                           int r0, int s, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = r0 + g + 8 * h;
-    if (i >= s) continue;
-    bf16* row = dst + static_cast<int64_t>(i) * D;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nt][2 * h], acc[nt][2 * h + 1]);
-    }
-  }
-}
+using flash::load_row;
+using flash::store_row;
+using flash::store_rows;
+using flash::zero;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -318,26 +270,6 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kF32Tile = 32;  // rows of the staged tile
 
 template <int D>
-__device__ __forceinline__ void load_row(float (&x)[D], const float* src,
-                                         bool real) {
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (real) val = *reinterpret_cast<const float4*>(src + c);
-    x[c] = val.x, x[c + 1] = val.y, x[c + 2] = val.z, x[c + 3] = val.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&x)[D]) {
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    *reinterpret_cast<float4*>(dst + c) =
-        make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]);
-  }
-}
-
-template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ g,
@@ -455,17 +387,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_delta(const Args& a) {
-  const int64_t n = a.rows * a.s;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  flash_delta<T, D><<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.out), static_cast<const T*>(a.g),
-      static_cast<float*>(a.delta), n);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_d(const Args& a, bool is_bf16) {
   const int bm = is_bf16 ? kTile : kThreads;  // rows a block owns
@@ -477,7 +398,8 @@ cudaError_t launch_d(const Args& a, bool is_bf16) {
   const float* delta = static_cast<const float*>(a.delta);
   cudaError_t err;
   if (is_bf16) {
-    err = launch_delta<bf16, D>(a);
+    err = flash::launch_delta<bf16, D, flash::for_flash_bwd>(
+        a.out, a.g, a.delta, a.rows * a.s, a.stream);
     if (err != cudaSuccess) return err;
     const bf16* q = static_cast<const bf16*>(a.q);
     const bf16* k = static_cast<const bf16*>(a.k);
@@ -493,7 +415,8 @@ cudaError_t launch_d(const Args& a, bool is_bf16) {
         q, k, v, g, lse, delta, static_cast<bf16*>(a.dq), a.s, tiles, a.scale,
         scale_log2);
   } else {
-    err = launch_delta<float, D>(a);
+    err = flash::launch_delta<float, D, flash::for_flash_bwd>(
+        a.out, a.g, a.delta, a.rows * a.s, a.stream);
     if (err != cudaSuccess) return err;
     const float* q = static_cast<const float*>(a.q);
     const float* k = static_cast<const float*>(a.k);

@@ -1,7 +1,8 @@
-// Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): the warp-level bf16 tensor-core product
-// (mma.sync.m16n8k16, f32 accumulation), ldmatrix fragment loads from
-// shared-memory tiles, and the tile loaders.
+// Shared pieces of the attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu, fused_mha_fwd.cu, fused_mha_bwd.cu): the
+// warp-level bf16 tensor-core product (mma.sync.m16n8k16, f32 accumulation),
+// ldmatrix fragment loads from shared-memory tiles, the tile loaders, the
+// backward's delta kernel and the accumulator and row helpers.
 //
 // Fragment layout of mma.m16n8k16 for lane l, g = l / 4, t = l % 4:
 //   A (16 x 16, row-major), 4 words of two bf16:
@@ -17,6 +18,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace flash {
@@ -128,6 +130,104 @@ __device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
           src + static_cast<int64_t>(row0 + r) * D + c);
     }
     *reinterpret_cast<float4*>(tile + r * D + c) = val;
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// delta_i = sum_c g_ic out_ic for every query row of [n, D] `out` and `g`:
+// the first kernel of a backward, a thread per row. `Caller` is one of the
+// tags below and changes nothing but the kernel's name, so that a profile
+// books the time under the op that launched it.
+constexpr int kDeltaThreads = 128;
+struct for_flash_bwd {};
+struct for_fused_bwd {};
+
+template <typename T, int D, typename Caller>
+__global__ void __launch_bounds__(kDeltaThreads)
+    flash_delta(const T* __restrict__ out, const T* __restrict__ g,
+                float* __restrict__ delta, int64_t n) {
+  const int64_t i =
+      blockIdx.x * static_cast<int64_t>(kDeltaThreads) + threadIdx.x;
+  if (i >= n) return;
+  constexpr int kVec = 16 / sizeof(T);  // elements in 16 bytes
+  const T* orow = out + i * D;
+  const T* grow = g + i * D;
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += kVec) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+    const T* oe = reinterpret_cast<const T*>(&ov);
+    const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) sum += to_f32(oe[e]) * to_f32(ge[e]);
+  }
+  delta[i] = sum;
+}
+
+template <typename T, int D, typename Caller>
+cudaError_t launch_delta(const void* out, const void* g, void* delta,
+                         int64_t n, cudaStream_t stream) {
+  const int64_t blocks = (n + kDeltaThreads - 1) / kDeltaThreads;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  flash_delta<T, D, Caller>
+      <<<static_cast<unsigned>(blocks), kDeltaThreads, 0, stream>>>(
+          static_cast<const T*>(out), static_cast<const T*>(g),
+          static_cast<float*>(delta), n);
+  return cudaGetLastError();
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[a][r] = 0.f;
+  }
+}
+
+// Rows g and g + 8 of a warp's 16 x D accumulator to a [s, D] bf16 matrix.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           const float (&acc)[D / 8][4],
+                                           int r0, int s, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r0 + g + 8 * h;
+    if (i >= s) continue;
+    __nv_bfloat16* row = dst + static_cast<int64_t>(i) * D;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[nt][2 * h], acc[nt][2 * h + 1]);
+    }
+  }
+}
+
+// One row of D floats into registers (zeros when `real` is false), and back.
+template <int D>
+__device__ __forceinline__ void load_row(float (&x)[D], const float* src,
+                                         bool real) {
+#pragma unroll
+  for (int c = 0; c < D; c += 4) {
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (real) val = *reinterpret_cast<const float4*>(src + c);
+    x[c] = val.x, x[c + 1] = val.y, x[c + 2] = val.z, x[c + 3] = val.w;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_row(float* dst, const float (&x)[D]) {
+#pragma unroll
+  for (int c = 0; c < D; c += 4) {
+    *reinterpret_cast<float4*>(dst + c) =
+        make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]);
   }
 }
 

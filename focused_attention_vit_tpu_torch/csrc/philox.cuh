@@ -1,5 +1,6 @@
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
-// 3", SC'11), the counter-based generator behind the band kernels' dropout.
+// 3", SC'11), the counter-based generator behind the band kernels' and the
+// fused attention kernels' dropout.
 //
 // The plain PyTorch version, which the CPU path runs and the tests hold this
 // one to, is focused_attention_vit_tpu_torch/ops/philox.py; both must give
@@ -14,6 +15,17 @@
 // (the JAX kernel's rule, focused_attention_vit_tpu/ops/mhla_band_roll.py
 // :107-108). The forward and the backward kernel draw the same bits, so the
 // backward regenerates the forward's mask without saving it.
+//
+// The fused short-S attention (fused_mha_fwd.cu, fused_mha_bwd.cu) keys one
+// draw on (seed, b*h row, query i, key j), again on nothing about the tiling,
+// the dtype or the direction of the pass. One Philox call yields four words,
+// and they go to the four keys that one lane of an mma.m16n8k16 accumulator
+// owns in a row of a 16-key chunk (columns 2t, 2t+1, 2t+8, 2t+9), so that the
+// tensor-core kernels spend one call per lane, row and chunk:
+//   counter = (query i, 4 * (j / 16) + (j % 8) / 2, row low, row high)
+//   key     = (seed low 32 bits, seed high 32 bits)
+//   bits    = word (j % 2) + 2 * ((j % 16) / 8) of the output
+// A weight is kept iff bits >= threshold, the band's rule.
 
 #pragma once
 
@@ -74,6 +86,27 @@ __device__ __forceinline__ uint32_t band_keep_mask(uint64_t seed, int64_t row,
     }
   }
   return keep;
+}
+
+// The four words of query i and key group `grp` in row `row` of the fused
+// attention's stream: for grp = 4 * c + t they decide keys 16c + 2t,
+// 16c + 2t + 1, 16c + 2t + 8 and 16c + 2t + 9, in that order. The stream's
+// one definition: the kernels and the test entry point draw through it.
+__device__ __forceinline__ uint4 mha_words(uint64_t seed, int64_t row, int i,
+                                           int grp) {
+  return band_words(seed, row, i, grp);
+}
+
+__device__ __forceinline__ int mha_group(int j) {
+  return 4 * (j >> 4) + ((j & 7) >> 1);
+}
+
+// The word that decides key j of query i (scalar kernels: one call a key).
+__device__ __forceinline__ uint32_t mha_word(uint64_t seed, int64_t row, int i,
+                                             int j) {
+  const uint4 r = mha_words(seed, row, i, mha_group(j));
+  const bool odd = j & 1;
+  return (j & 8) ? (odd ? r.w : r.z) : (odd ? r.y : r.x);
 }
 
 }  // namespace philox

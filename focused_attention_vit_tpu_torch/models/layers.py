@@ -19,6 +19,8 @@ given. Attention masks are not ported yet.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,6 +29,10 @@ from focused_attention_vit_tpu_torch.ops import attention as attn_ops
 from focused_attention_vit_tpu_torch.ops import window as window_ops
 from focused_attention_vit_tpu_torch.ops.flash_attention import (
     dropout_attention_q_chunked,
+)
+from focused_attention_vit_tpu_torch.ops.mha_kernel import (
+    fused_mha_supported,
+    fused_multi_head_attention,
 )
 from focused_attention_vit_tpu_torch.ops.patch_embed import extract_patches
 
@@ -46,8 +52,8 @@ class DropoutRNG:
             self.host = torch.Generator().manual_seed(seed)
 
     def band_seed(self) -> int:
-        """A seed for the band op's in-kernel dropout, in [0, 2**31 - 1)
-        as the JAX layer draws it."""
+        """A seed for an op's in-kernel dropout (the band's, the fused
+        attention's), in [0, 2**31 - 1) as the JAX layers draw it."""
         return int(torch.randint(0, 2**31 - 1, (), generator=self.host))
 
 
@@ -152,9 +158,14 @@ class MultiHeadAttention(nn.Module):
     (``models/layers.py`` :133-173): from ``FLASH_MIN_SEQ_LEN`` tokens on
     in query chunks that never hold ``[B, h, S, S]``, with the chunks'
     seeds drawn from ``rng.host``; below it on the materialised f32
-    weights. The output is dropped at the same rate. The JAX package's
-    single-tile fused kernel for short sequences is opt-in there and not
-    ported yet; this module reads no environment variable.
+    weights. The output is dropped at the same rate.
+
+    With ``FAVIT_FUSED_MHA=1`` in the environment (read at each call, off
+    by default, as in JAX), ``use_flash`` None and a shape that
+    :func:`~..ops.mha_kernel.fused_mha_supported` takes, the core is the
+    fused short-S op instead, with and without dropout: the CUDA kernels on
+    a CUDA tensor, their plain versions on a CPU tensor. Its dropout seed
+    is drawn once per call from ``rng.host``.
 
     ``in_proj_names=True`` registers the same parameters under the names a
     reference switchable block with ``use_mhla=False`` saves them by:
@@ -194,7 +205,17 @@ class MultiHeadAttention(nn.Module):
             qkv = self.qkv(x)
         q, k, v = attn_ops.qkv_split(qkv, self.num_heads)
         rate = self.dropout if self.training else 0.0
-        if rate == 0.0:
+        use_fused = (
+            os.environ.get("FAVIT_FUSED_MHA", "0") == "1"
+            and self.use_flash is None  # explicit True/False: caller's choice
+            and fused_mha_supported(q.shape[2], q.shape[3])
+        )
+        if use_fused:
+            seed = (rng or DropoutRNG()).band_seed() if rate > 0.0 else None
+            out = fused_multi_head_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                dropout_rate=rate, dropout_seed=seed)
+        elif rate == 0.0:
             out = attn_ops.multi_head_attention(q, k, v,
                                                 use_flash=self.use_flash)
         elif q.shape[2] >= attn_ops.FLASH_MIN_SEQ_LEN:

@@ -1,8 +1,9 @@
 """Philox4x32-10 in PyTorch integer tensor ops: the plain version of
-``csrc/philox.cuh``, the counter-based generator that draws the window
-band's dropout mask inside the CUDA kernels.
+``csrc/philox.cuh``, the counter-based generator that draws the dropout
+masks of the window band and of the fused short-S attention inside the CUDA
+kernels.
 
-On the CPU the band op draws its mask here; on the card the kernels draw the
+On the CPU the ops draw their masks here; on the card the kernels draw the
 same bits from the same (counter, key), so one seed gives one mask on both.
 All arithmetic is on int64 tensors holding 32-bit words: each 32x32-bit
 product is split into 16-bit halves so that nothing overflows 63 bits.
@@ -14,6 +15,13 @@ tiling: counter ``(i, o // 4, row & 0xFFFFFFFF, row >> 32)``, key
 ``keep_threshold(rate)``, the JAX kernel's rule (``mhla_band_roll.py``
 :107-108). JAX's TPU generator draws other bits: the dropout stream is not
 the JAX package's (SURVEY.md §7), only its rate and independence are.
+
+The fused attention keys each draw on (seed, b*h row, query i, key j). The
+four words of one Philox call go to the four keys that one lane of a
+tensor-core accumulator owns in a row of a 16-key chunk: counter
+``(i, 4 * (j // 16) + (j % 8) // 2, row & 0xFFFFFFFF, row >> 32)``, the same
+key, and the bits of key j are word ``j % 2 + 2 * ((j % 16) // 8)``. A
+weight is kept by the band's rule.
 """
 
 from __future__ import annotations
@@ -82,3 +90,34 @@ def band_keep_mask(rows: int, window_size: int, seq_len: int, rate: float,
     """Bool ``[rows, W, S]``: True where the slot is kept."""
     bits = band_keep_bits(rows, window_size, seq_len, seed, device)
     return bits >= keep_threshold(rate)
+
+
+def mha_keep_bits(rows: int, seq_len: int, seed: int,
+                  device=None) -> torch.Tensor:
+    """The fused attention's dropout words: int64 ``[rows, S, S]`` of
+    32-bit values, entry ``[row, i, j]`` deciding key j of query i in row
+    ``row``."""
+    if not 0 <= seed < 2**64:
+        raise ValueError(f"seed must be in [0, 2**64), got {seed}")
+    chunks = -(-seq_len // 16)
+    i = torch.arange(seq_len, dtype=torch.int64, device=device)
+    g = torch.arange(4 * chunks, dtype=torch.int64, device=device)
+    row = torch.arange(rows, dtype=torch.int64, device=device)
+    counter = (
+        i.view(1, -1, 1),
+        g.view(1, 1, -1),
+        (row & _MASK32).view(-1, 1, 1),
+        (row >> 32).view(-1, 1, 1),
+    )
+    words = philox4x32_10(counter, (seed & _MASK32, seed >> 32))
+    words = [x.expand(rows, seq_len, 4 * chunks) for x in words]
+    # [rows, S, chunk c, pair t, word (hi, lo)] -> key 16c + 8hi + 2t + lo.
+    bits = torch.stack(words, dim=-1).view(rows, seq_len, chunks, 4, 2, 2)
+    bits = bits.permute(0, 1, 2, 4, 3, 5).reshape(rows, seq_len, 16 * chunks)
+    return bits[:, :, :seq_len]
+
+
+def mha_keep_mask(rows: int, seq_len: int, rate: float, seed: int,
+                  device=None) -> torch.Tensor:
+    """Bool ``[rows, S, S]``: True where the weight is kept."""
+    return mha_keep_bits(rows, seq_len, seed, device) >= keep_threshold(rate)

@@ -1,7 +1,8 @@
 """Where the card's time goes in one serving forward or one train step.
 
-Runs the port's model at ViT-B width (D=768, 12 heads, patch 4 on 224x224,
-S=3137, 10 classes, seeded random weights) on an NVIDIA GPU under
+Runs the port's model at ViT-B width (D=768, 12 heads, 224x224 images in
+patches of ``--patch_size``: 4 gives S=3137, 16 gives S=197; 10 classes,
+seeded random weights) on an NVIDIA GPU under
 ``torch.profiler`` and prints the device time per step by kind of kernel
 (matrix products, the hand-written attention kernels, copies, LayerNorm,
 dropout, other elementwise, reductions, the optimizer), the busiest kernels
@@ -11,6 +12,12 @@ as one JSON line. From the repository root::
     python -m focused_attention_vit_tpu_torch.utils.step_profile \\
         --model vit --mode train --batch_size 32
 
+The E1 step at ViT-B/16, with and without the fused short-S attention::
+
+    FAVIT_FUSED_MHA=1 python -m \\
+        focused_attention_vit_tpu_torch.utils.step_profile --model vit \\
+        --mode train --patch_size 16 --batch_size 128 --attn_dropout 0.1
+
 It needs CUDA and raises without it.
 """
 
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import time
@@ -31,6 +39,7 @@ TOP = 25       # kernels listed by name
 # First match wins; names are those of PyTorch's, cuBLAS's and this
 # package's kernels as the profiler reports them.
 CATEGORIES = (
+    ("fused attention kernels", r"fused_(fwd|bwd|keep)"),
     ("flash kernels", r"flash_(fwd|bwd|delta)"),
     ("band kernels", r"band_(fwd|bwd)"),
     ("GEMMs", r"gemm|cutlass|cublas|xmma|nvjet|gemv"),
@@ -55,8 +64,9 @@ def categorize(name: str) -> str:
 def _build(args, device):
     from focused_attention_vit_tpu_torch import models
 
-    kw = dict(img_size=224, patch_size=4, num_classes=10, depth=args.depth,
-              device=device, generator=torch.Generator().manual_seed(0))
+    kw = dict(img_size=224, patch_size=args.patch_size, num_classes=10,
+              depth=args.depth, device=device,
+              generator=torch.Generator().manual_seed(0))
     if args.mode == "train":
         kw.update(dropout=DROPOUT, attn_dropout=args.attn_dropout)
     if args.model == "vit":
@@ -96,6 +106,7 @@ def main(argv=None) -> dict:
     p.add_argument("--microbatch", type=int, default=None)
     p.add_argument("--depth", type=int, default=12)
     p.add_argument("--attn_dropout", type=float, default=0.0)
+    p.add_argument("--patch_size", type=int, default=4)
     p.add_argument("--steps", type=int, default=3)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -105,6 +116,7 @@ def main(argv=None) -> dict:
     for i in range(2):
         run(i)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -131,7 +143,8 @@ def main(argv=None) -> dict:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"{smi}; torch {torch.__version__}")
     print(f"{args.model} {args.mode}, batch {args.batch_size}, microbatch "
-          f"{args.microbatch}, depth {args.depth}, patch 4, dropout "
+          f"{args.microbatch}, depth {args.depth}, patch {args.patch_size}, "
+          f"fused switch {os.environ.get('FAVIT_FUSED_MHA', '0')}, dropout "
           f"{DROPOUT}, attn_dropout {args.attn_dropout}: "
           f"{wall_ms:.2f} ms wall per step (host clock, under the profiler), "
           f"{total:.2f} ms of kernels, device idle share "

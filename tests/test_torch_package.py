@@ -17,9 +17,13 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "focused_attention_vit_tpu_torch",
+    "focused_attention_vit_tpu_torch.cli",
     "focused_attention_vit_tpu_torch.convert.from_jax",
     "focused_attention_vit_tpu_torch.data.datasets",
     "focused_attention_vit_tpu_torch.data.pipeline",
+    "focused_attention_vit_tpu_torch.experiments",
+    "focused_attention_vit_tpu_torch.experiments.base",
+    "focused_attention_vit_tpu_torch.experiments.traditional",
     "focused_attention_vit_tpu_torch.infer",
     "focused_attention_vit_tpu_torch.models",
     "focused_attention_vit_tpu_torch.models.layers",
@@ -27,6 +31,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.models.vit_mhla",
     "focused_attention_vit_tpu_torch.ops.attention",
     "focused_attention_vit_tpu_torch.ops.flash_attention",
+    "focused_attention_vit_tpu_torch.ops.mha_kernel",
     "focused_attention_vit_tpu_torch.ops.mhla_band_roll",
     "focused_attention_vit_tpu_torch.ops.philox",
     "focused_attention_vit_tpu_torch.ops.patch_embed",
@@ -34,6 +39,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.serve",
     "focused_attention_vit_tpu_torch.train",
     "focused_attention_vit_tpu_torch.utils.kernel_build",
+    "focused_attention_vit_tpu_torch.utils.metrics",
     "focused_attention_vit_tpu_torch.utils.step_profile",
 ]
 
@@ -110,6 +116,15 @@ def test_port_never_calls_a_library_attention():
      "flash kernels"),
     ("void (anonymous namespace)::band_bwd_key_kernel<__nv_bfloat16, 64>",
      "band kernels"),
+    ("void (anonymous namespace)::fused_fwd_mma<64, true, true>(...)",
+     "fused attention kernels"),
+    ("void (anonymous namespace)::fused_bwd_dkv_mma<64, true>(...)",
+     "fused attention kernels"),
+    # The shared row-sum kernel is booked under the op that launched it.
+    ("void flash::flash_delta<__nv_bfloat16, 64, flash::for_fused_bwd>(...)",
+     "fused attention kernels"),
+    ("void flash::flash_delta<__nv_bfloat16, 64, flash::for_flash_bwd>(...)",
+     "flash kernels"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "GEMMs"),
     ("void at::native::vectorized_layer_norm_kernel<float, float>",
@@ -163,6 +178,26 @@ def test_cpu_training_launches_no_kernel():
     assert [band.launch_count(k) for k in band.LAUNCH_KINDS] == [0, 0, 0]
 
 
+def test_cpu_fused_attention_launches_no_kernel(monkeypatch):
+    """With the fused switch on, a CPU ViT runs the fused op's plain
+    versions, eval and training, and launches nothing."""
+    from focused_attention_vit_tpu_torch.models import VisionTransformer
+    from focused_attention_vit_tpu_torch.models.layers import DropoutRNG
+    from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
+
+    monkeypatch.setenv("FAVIT_FUSED_MHA", "1")
+    fused.reset_launch_count()
+    model = VisionTransformer(img_size=16, patch_size=4, num_classes=3,
+                              embed_dim=32, depth=1, num_heads=2,
+                              attn_dropout=0.1)
+    with torch.inference_mode():
+        model.eval()(torch.zeros(1, 16, 16, 3))
+    model.train()(torch.zeros(1, 16, 16, 3),
+                  DropoutRNG(0, "cpu")).sum().backward()
+    assert model.blocks[0].attn.qkv.weight.grad is not None
+    assert [fused.launch_count(k) for k in fused.LAUNCH_KINDS] == [0, 0, 0]
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -185,6 +220,10 @@ def test_library_path_is_keyed_by_source_and_ignored_by_git():
 
     assert (REPO / flash.FWD_KERNEL_SOURCE).is_file()
     assert (REPO / flash.BWD_KERNEL_SOURCE).is_file()
+    from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
+
+    assert (REPO / fused.FWD_KERNEL_SOURCE).is_file()
+    assert (REPO / fused.BWD_KERNEL_SOURCE).is_file()
     assert kernel_build.BUILD_ROOT == REPO / "build" / "kernels"
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()
 
