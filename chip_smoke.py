@@ -5,13 +5,14 @@ Drives the serving path and the training path of
 ``focused_attention_vit_tpu_torch`` at MHLA-B/4 and at dense ViT-B/4 (D=768,
 12 blocks, 12 heads of d=64, W=7 for MHLA, patch 4 on 224x224, S=3137, 10
 classes, seeded random weights), then experiment E1 ``traditional`` at
-ViT-B/16 (patch 16, S=197) through the CLI, and checks every CUDA kernel on
-them.
+ViT-B/16 (patch 16, S=197) through the CLI, then MHLA-B/4 again through the
+tile band (``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``), and
+checks every CUDA kernel on them.
 Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: requires CUDA and compute capability 9.0; prints the card's name
    and ``nvidia-smi`` name and power limit;
-2. build: compiles the six kernel sources from ``csrc/`` with nvcc, in
+2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, in
    parallel;
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
@@ -71,8 +72,24 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 16. e1-train-parity: one f32 train step of ViT-B/16 cut to 2 blocks with
     attention dropout 0.1 and the switch on, card against CPU.
 
+17. kernel-tileband: the tile band's forward (K6), backward (K7, before and
+    after the plain edge fold) and window-tile forward (K8) against their
+    plain versions over d in 16..128, W in 3..33 and S from 2W+1 to 3137,
+    f32 and bf16, and at the serving shape; the backward run twice gives the
+    same bits; the composite (K6 plus the exact edge rows) equals K1 at
+    W=7; CUDA-event timings of the kernels, the plain versions, PyTorch's
+    fused attention on K8's window tiles with the band as a mask, and one
+    band call of the composite against K1 (eval) and K1 + K2 (training);
+18. tile-model: MHLA-B/4 in f32 through the tile band on the card against
+    the CPU (which runs the plain shift band);
+19. tile-serve: MHLA-B/4 as phase 6, then MHLA-B/16 (S=197) for one burst;
+    K6 launches equal 12 x the forward passes and K1 launches nothing;
+20. tile-train-parity: one f32 train step at 2 blocks, card against CPU;
+21. tile-train: MHLA-B/4 trains as phase 8 (the attention-dropout run takes
+    the plain shift band); K6 and K7 launches equal 12 x the passes run.
+
 Every launch count is set to 0 just before its path is driven and read just
-after. The line before the last is a JSON summary of the nine kernels, each
+after. The line before the last is a JSON summary of the twelve kernels, each
 with its time, its plain version's, the least time the card could take
 (``bound_ms``, from this run's shapes) and the library call's where PyTorch
 has one; the last line is ``{"ok": true, "device": {...}}``. Run from the
@@ -109,7 +126,9 @@ from focused_attention_vit_tpu_torch.models import (
 from focused_attention_vit_tpu_torch.ops import flash_attention as flash
 from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
 from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
+from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
 from focused_attention_vit_tpu_torch.ops import philox
+from focused_attention_vit_tpu_torch.ops import window
 from focused_attention_vit_tpu_torch.utils import kernel_build
 
 REPO = Path(__file__).resolve().parent
@@ -139,7 +158,10 @@ PARITY_LOSS_TOL = 1e-4
 PARITY_GRAD_REL = 1e-3
 PARITY_GRAD_ABS = 1e-6
 LIBRARIES = ("mhla_band_fwd", "mhla_band_bwd", "flash_attention_fwd",
-             "flash_attention_bwd", "fused_mha_fwd", "fused_mha_bwd")
+             "flash_attention_bwd", "fused_mha_fwd", "fused_mha_bwd",
+             "mhla_tile_band_fwd", "mhla_tile_band_bwd")
+# B, h, S, d of the tile band at MHLA-B/4 b32, token-major.
+TILE_SHAPE = (32, 12, 3137, 64)
 FLASH_SHAPE = (32, 12, 3137, 64)  # B, h, S, d of the flash op at ViT-B/4 b32
 # B, h, S, d of the fused short-S attention at ViT-B/16, batch 128.
 FUSED_SHAPE = (128, 12, 197, 64)
@@ -162,6 +184,16 @@ FLASH_RMS_REL = 2.0 ** -8
 # first, is the flash kernels' everywhere.
 FUSED_LOOSE_ULPS = 3
 FUSED_LOOSE_CASES = frozenset({(256, 16)})
+# The tile band's bf16 kernels and plain versions both round the weights
+# (and ds) to bf16, as JAX does, so an f32 difference of 1e-7 in a logit can
+# round one weight the other way on one side. The band sums only 2*hw + 1
+# terms and one weight can be near 1, so that moves an entry by a bf16 ulp of
+# the weight (2^-8) times an input of up to about 4.5 here: up to 4.5 ulps of
+# a quarter of the tensor's largest entry, plus 1 for the final rounding.
+# So the flash rule with TILE_BF16_ULPS; its rms bound, which a fault breaks
+# first, is unchanged (measured at most 2.3e-4 of the plain rms, against
+# 2^-8).
+TILE_BF16_ULPS = 6
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory and
 # dense bf16 tensor-core rate. bound_ms is computed against these.
 PEAK_BYTES_PER_S = 3.35e12
@@ -424,19 +456,311 @@ def phase_kernel_train() -> dict:
     return result
 
 
+def _tile_compare(q, k, v, g, w):
+    """K6, K7 and K8 (through ``banded_attention_v4b``) against their plain
+    versions on ``[B*h, S, d]`` inputs; K7 is held before and after the
+    plain edge fold, which both sides then share. {name: (err, ok, text)}."""
+    dtype = q.dtype
+    bh, s, d = q.shape
+    out = tile.tile_band_forward(q, k, v, w)
+    ref = tile.plain_tile_band_forward(q, k, v, w)
+    out_b = tile.banded_attention_v4b(
+        *(x.view(1, bh, s, d) for x in (q, k, v)), w).view(bh, s, d)
+    grads = tile.tile_band_backward(q, k, v, g, w)
+    ref_grads = tile.plain_tile_band_backward(q, k, v, g, w)
+    folded = tile._edge_fold(q, k, v, g, *grads[1:], w)
+    ref_folded = tile._edge_fold(q, k, v, g, *ref_grads[1:], w)
+    torch.cuda.synchronize()
+    res = {"fwd": _flash_check(out, ref, dtype, F32_TOL, TILE_BF16_ULPS),
+           "fwd_b": _flash_check(out_b, ref, dtype, F32_TOL, TILE_BF16_ULPS)}
+    for name, a, b in zip(("dq", "dk", "dv", "dk_folded", "dv_folded"),
+                          (*grads, *folded), (*ref_grads, *ref_folded)):
+        res[name] = _flash_check(a, b, dtype, F32_BWD_TOL, TILE_BF16_ULPS)
+    return res
+
+
+def phase_kernel_tileband() -> dict:
+    """K6, K7 and K8 against their plain versions over a grid and at the
+    serving shape; the tile-band composite against K1 there; CUDA-event
+    timings of the kernels, the plain versions, the library call on the
+    window tiles, and the composite against K1/K2 per band call."""
+    import torch.nn.functional as F  # the library call, timed as a yardstick
+
+    phase = "kernel-tileband"
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def inputs(shape, dtype, n=4):
+        return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(n)]
+
+    def check(where, res):
+        bad = [f"{n} {t}" for n, (_, ok, t) in res.items() if not ok]
+        if bad:
+            raise AssertionError(f"tile band kernels disagree with the plain "
+                                 f"versions at {where}: {bad}")
+
+    tile.reset_launch_count()
+    windows = (3, 4, 7, 15, 33)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        for d in tile.HEAD_DIMS:
+            worst, texts = {}, {}
+            for w in windows:
+                for s in (2 * w + 1, 197, 1000, 3137):
+                    res = _tile_compare(*inputs((6, s, d), dtype), w)
+                    check(f"(6, {s}, {d}) W={w} {dt}", res)
+                    for n, (e, _, text) in res.items():
+                        if e >= worst.get(n, -1.0):
+                            worst[n], texts[n] = e, text
+            log(phase, f"{dt} d={d}, W in {windows}, S in 2W+1,197,1000,3137: "
+                       f"largest error " + ", ".join(
+                           f"{n} {t}" for n, t in texts.items()))
+    k8_launches = tile.launch_count("fwd_b")
+
+    b, h, s, d = TILE_SHAPE
+    w = SERVE_W
+    hw = w // 2
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v, g = inputs((b * h, s, d), dtype)
+        res = _tile_compare(q, k, v, g, w)
+        check(f"the serving shape {TILE_SHAPE} {dt}", res)
+        log(phase, f"serving shape {TILE_SHAPE} W={w} {dt}: max abs err "
+                   + ", ".join(f"{n} {t}" for n, (_, _, t) in res.items()))
+        first = tile.tile_band_backward(q, k, v, g, w)
+        second = tile.tile_band_backward(q, k, v, g, w)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"two runs of the {dt} tile band backward "
+                                 f"differ")
+        del first, second
+        # The composite (K6 plus the exact edge rows) is the reference
+        # window at odd W: K1's result on the same inputs.
+        q4, k4, v4, g4 = (x.view(b, h, s, d) for x in (q, k, v, g))
+        with _environ(TILE_ENV), torch.no_grad():
+            comp = window.windowed_latent_attention(q4, k4, v4, w)
+        qs, ks, vs = (x.transpose(2, 3).contiguous() for x in (q4, k4, v4))
+        with torch.no_grad():
+            k1 = band.roll_banded_attention(qs, ks, vs, w).transpose(2, 3)
+        _, ok, text = _flash_check(comp, k1, dtype, F32_TOL, TILE_BF16_ULPS)
+        log(phase, f"serving shape {dt}: composite (K6 + edge rows) against "
+                   f"K1, max abs err {text}")
+        if not ok:
+            raise AssertionError(f"the {dt} tile band composite disagrees "
+                                 f"with K1")
+        del comp, k1
+        if dtype == torch.float32:
+            del q, k, v, g, q4, k4, v4, g4, qs, ks, vs
+            torch.cuda.empty_cache()
+            continue
+
+        # K8's inputs: the window tiles, built once outside the timed call.
+        halo = tile._halo(tile.DEFAULT_BLOCK, hw)
+        t = max(2 * halo, min(tile.DEFAULT_BLOCK, -(-s // 8) * 8))
+        sp = -(-s // t) * t
+        build_ms = cuda_median_ms(lambda: (
+            tile._window_tiles(k, t, halo, sp),
+            tile._window_tiles(v, t, halo, sp),
+            tile._pad_seq(q, 0, sp - s).reshape(b * h, sp // t, t, d)
+            .contiguous()), 10)
+        ke, ve = (tile._window_tiles(x, t, halo, sp) for x in (k, v))
+        qt = tile._pad_seq(q, 0, sp - s).reshape(b * h, sp // t, t, d)
+        qt = qt.contiguous()
+        mask = tile._band_mask(t, t + 2 * halo, halo, hw, "cuda")
+        with torch.no_grad():
+            lib = F.scaled_dot_product_attention(qt, ke, ve, attn_mask=mask)
+            k8 = tile.window_tile_band(qt, ke, ve, w)
+        lib_err = float((lib.float() - k8.float()).abs().max())
+        del lib, k8
+        with torch.no_grad():
+            times = {
+                "fwd": cuda_median_ms(
+                    lambda: tile.tile_band_forward(q, k, v, w)),
+                "bwd": cuda_median_ms(
+                    lambda: tile.tile_band_backward(q, k, v, g, w)),
+                "fold": cuda_median_ms(lambda: tile._edge_fold(
+                    q, k, v, g, k, v, w)),
+                "fwd_b": cuda_median_ms(
+                    lambda: tile.window_tile_band(qt, ke, ve, w)),
+                "fwd_plain": cuda_median_ms(
+                    lambda: tile.plain_tile_band_forward(q, k, v, w), 5, 1),
+                "bwd_plain": cuda_median_ms(
+                    lambda: tile.plain_tile_band_backward(q, k, v, g, w),
+                    5, 1),
+                "fwd_b_plain": cuda_median_ms(
+                    lambda: tile.plain_window_tile_band(qt, ke, ve, w), 5, 1),
+                "library": cuda_median_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, ke, ve, attn_mask=mask)),
+            }
+            # One band call of the model, eval: the composite on [B, h, S, d]
+            # against K1 on its S-minor layout.
+            with _environ(TILE_ENV):
+                times["composite"] = cuda_median_ms(
+                    lambda: window.windowed_latent_attention(q4, k4, v4, w))
+            times["k1"] = cuda_median_ms(
+                lambda: band.roll_banded_attention(qs, ks, vs, w))
+
+        # Training: forward and backward of one band call.
+        def train_call(fn, args, cot):
+            def run():
+                xs = [x.detach().requires_grad_(True) for x in args]
+                torch.autograd.grad(fn(*xs), xs, cot)
+            return run
+
+        with _environ(TILE_ENV):
+            times["composite_train"] = cuda_median_ms(train_call(
+                lambda *a: window.windowed_latent_attention(*a, w),
+                (q4, k4, v4), g4))
+        times["k1k2_train"] = cuda_median_ms(train_call(
+            lambda *a: band.roll_banded_attention(*a, w), (qs, ks, vs),
+            g4.transpose(2, 3).contiguous()))
+        log(phase, f"serving shape bf16, kernel / plain, ms: K6 "
+                   f"{times['fwd']:.4f} / {times['fwd_plain']:.4f}; K7 "
+                   f"{times['bwd']:.4f} / {times['bwd_plain']:.4f} (the plain "
+                   f"edge fold after it {times['fold']:.4f}); K8 "
+                   f"{times['fwd_b']:.4f} / {times['fwd_b_plain']:.4f} on "
+                   f"prebuilt tiles of {t} rows (building them "
+                   f"{build_ms:.4f}); PyTorch's fused attention on the tiles "
+                   f"with the band as a boolean mask {times['library']:.4f} "
+                   f"(max |K8 - it| {lib_err:.3g}); CUDA-event medians of "
+                   f"30, plain of 5; two backward runs bit-identical")
+        log(phase, f"one band call at the serving shape, bf16, ms: eval "
+                   f"composite (K6 + edge rows) {times['composite']:.4f} "
+                   f"against K1 {times['k1']:.4f}; training forward + "
+                   f"backward composite {times['composite_train']:.4f} "
+                   f"against K1 + K2 {times['k1k2_train']:.4f}")
+        # The functions' least work: K6 reads q, k, v and writes out; K7
+        # reads q, k, v, g and writes dq, dk, dv; K8 reads the q tiles and
+        # both window tensors and writes the output tiles. Products: 2 in
+        # the forward, 5 in the backward, of 2*hw + 1 keys of d a query.
+        one = q.numel() * q.element_size()
+        pairs = b * h * s * (2 * hw + 1) * d
+        tile_bytes = sum(x.numel() * x.element_size()
+                         for x in (qt, ke, ve, qt))
+        tile_pairs = qt.numel() // d * (2 * hw + 1) * d
+        result = dict(
+            fwd=dict(max_abs_err=res["fwd"][0], ms=times["fwd"],
+                     plain_ms=times["fwd_plain"],
+                     library_ms=times["library"],
+                     **least_time(4 * one, 4 * pairs)),
+            bwd=dict(max_abs_err=max(res[n][0] for n in ("dq", "dk", "dv")),
+                     ms=times["bwd"], plain_ms=times["bwd_plain"],
+                     library_ms=None, **least_time(7 * one, 10 * pairs)),
+            fwd_b=dict(max_abs_err=res["fwd_b"][0], ms=times["fwd_b"],
+                       plain_ms=times["fwd_b_plain"],
+                       library_ms=times["library"],
+                       **least_time(tile_bytes, 4 * tile_pairs)),
+            fwd_b_launches=k8_launches,
+        )
+        log(phase, f"bf16 bounds, ms: K6 {result['fwd']['bound_ms']:.4f}, "
+                   f"K7 {result['bwd']['bound_ms']:.4f}, K8 "
+                   f"{result['fwd_b']['bound_ms']:.4f} (by bytes); K6 "
+                   f"{4 * one / times['fwd'] / 1e6:.0f} GB/s of q, k, v, out")
+        del q, k, v, g, q4, k4, v4, g4, qs, ks, vs, qt, ke, ve
+        torch.cuda.empty_cache()
+    return result
+
+
+@contextlib.contextmanager
+def _environ(env: dict):
+    """``env`` set on top of the environment for a block, then restored."""
+    with mock.patch.dict(os.environ, env):
+        yield
+
+
+def phase_tile_serve_b16() -> int:
+    """MHLA-B/16 (S = 197) served in bf16 through the tile band: one burst
+    through ``BatchingServer``; every block launches K6 once a pass and K1
+    nothing."""
+    phase = "tile-serve"
+    rng = np.random.default_rng(11)
+    cpu_model = VisionTransformerMHLA(
+        img_size=224, patch_size=16, num_classes=10,
+        generator=torch.Generator().manual_seed(0)).eval()
+    image = _images(rng, 1)
+    with torch.inference_mode():
+        ref_probs = torch.softmax(cpu_model(prepare_eval_batch(
+            torch.from_numpy(image), 224)), -1).numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "vit_mhla_b16.pt")
+        torch.save(cpu_model.state_dict(), weights)
+        args, predictor = serve.setup([
+            "--model", "vit_mhla", "--patch_size", "16", "--img_size", "224",
+            "--compute_dtype", "bfloat16", "--batch_size", "32",
+            "--weights", weights,
+        ])
+    forwards = [0]
+    hook = predictor.model.register_forward_pre_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    TILE.reset_counts()
+    burst = [np.concatenate([image, _images(rng, args.batch_size - 1)])] + [
+        _images(rng, args.batch_size) for _ in range(7)]
+    with serve.BatchingServer(predictor, max_delay_ms=args.max_delay_ms,
+                              workers=args.workers) as srv:
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=300) for f in [srv.submit(r) for r in burst]]
+        wall = time.perf_counter() - t0
+    hook.remove()
+    for out in outs:
+        _check_probs(out, args.batch_size)
+    dp = float(np.abs(outs[0][0] - ref_probs[0]).max())
+    launches = tile.launch_count()
+    TILE.check_idle(phase)
+    log(phase, f"MHLA-B/16 (S=197), burst of {len(burst)} x "
+               f"{args.batch_size}: {len(burst) * args.batch_size / wall:.1f} "
+               f"images/s (host clock, includes the first calls); bf16 "
+               f"against the f32 CPU model {dp:.3g} (tol 1e-2); forward "
+               f"passes {forwards[0]}, K6 launches {launches}")
+    if dp > 1e-2:
+        raise AssertionError("MHLA-B/16 served probabilities disagree with "
+                             "the f32 reference")
+    if launches != DEPTH * forwards[0] or forwards[0] == 0:
+        raise AssertionError(f"K6 launches {launches} != {DEPTH} x "
+                             f"{forwards[0]} forward passes")
+    return launches
+
+
 def _images(rng: np.random.Generator, n: int) -> np.ndarray:
     return rng.integers(0, 256, size=(n, 32, 32, 3), dtype=np.uint8)
 
 
 class ModelPath:
     """One model's path through the script: its phases' labels, the model
-    class, the ``--model`` flag and the op whose launches it counts."""
+    class, the ``--model`` flag, the op whose launches it counts (and the
+    kind its training forward counts under), the environment its phases run
+    in and the ops that must launch nothing on it."""
 
     def __init__(self, prefix, name, cls, flag, op, op_name, patch=4,
-                 model_kw=None):
+                 model_kw=None, env=None, train_fwd_kind="fwd_train",
+                 idle_ops=()):
         self.prefix, self.name, self.cls = prefix, name, cls
         self.flag, self.op, self.op_name = flag, op, op_name
         self.patch, self.model_kw = patch, model_kw or {}
+        self.env, self.train_fwd_kind = env or {}, train_fwd_kind
+        self.idle_ops = idle_ops
+
+    def reset_counts(self) -> None:
+        for op in (self.op, *self.idle_ops):
+            op.reset_launch_count()
+
+    def expected(self, eval_passes: int, grad_passes: int,
+                 depth: int = DEPTH) -> dict:
+        """Launch counts by kind for forward passes of a ``depth``-block
+        model without and with a backward through the op's kernels."""
+        out = dict.fromkeys(self.op.LAUNCH_KINDS, 0)
+        out["fwd"] += depth * eval_passes
+        out[self.train_fwd_kind] += depth * grad_passes
+        out["bwd"] += depth * grad_passes
+        return out
+
+    def check_idle(self, phase: str) -> None:
+        busy = {op.__name__: [op.launch_count(k) for k in op.LAUNCH_KINDS]
+                for op in self.idle_ops}
+        if any(any(c) for c in busy.values()):
+            raise AssertionError(f"{phase}: ops that {self.name} must not "
+                                 f"run were launched: {busy}")
 
     def phase(self, base: str) -> str:
         return f"{self.prefix}{base}"
@@ -446,13 +770,22 @@ class ModelPath:
                         depth=depth, **self.model_kw, **kw)
 
 
-MHLA = ModelPath("", "MHLA-B/4", VisionTransformerMHLA, "vit_mhla", band, "band")
+# Without the tile-band variables MHLA-B/4 runs the S-minor band (K1/K2)
+# and launches no tile-band kernel.
+MHLA = ModelPath("", "MHLA-B/4", VisionTransformerMHLA, "vit_mhla", band,
+                 "band", idle_ops=(tile,))
 DENSE = ModelPath("vit-", "dense ViT-B/4", VisionTransformer, "vit", flash,
               "flash")
 # The short-S path: ViT-B/16 (S = 197) with attention dropout, whose
 # attention is the fused op when FAVIT_FUSED_MHA=1.
 E1 = ModelPath("e1-", "ViT-B/16", VisionTransformer, "vit", fused, "fused",
                patch=16, model_kw=dict(attn_dropout=TRAIN_DROPOUT))
+# MHLA-B/4 through the token-major tile band (K6/K7) instead of the S-minor
+# band (K1/K2, which must then launch nothing).
+TILE_ENV = {"FAVIT_MHLA_IMPL": "shiftband", "FAVIT_USE_PALLAS_MHLA": "1"}
+TILE = ModelPath("tile-", "MHLA-B/4 tile band", VisionTransformerMHLA,
+                 "vit_mhla", tile, "tile band", env=TILE_ENV,
+                 train_fwd_kind="fwd", idle_ops=(band,))
 
 
 def phase_model(path: ModelPath, cpu_model: torch.nn.Module,
@@ -461,9 +794,10 @@ def phase_model(path: ModelPath, cpu_model: torch.nn.Module,
     with torch.inference_mode():
         x = prepare_eval_batch(torch.from_numpy(image), 224)
         ref_logits = cpu_model(x)
-        path.op.reset_launch_count()
+        path.reset_counts()
         logits = gpu_model(x.to("cuda")).cpu()
         launches = path.op.launch_count()
+    path.check_idle(path.phase("model"))
     ref_probs = torch.softmax(ref_logits, -1)
     probs = torch.softmax(logits, -1)
     dl = float((logits - ref_logits).abs().max())
@@ -522,7 +856,7 @@ def phase_serve(path: ModelPath, cpu_model, image, ref_probs) -> int:
     forwards = [0]
     hook = predictor.model.register_forward_pre_hook(
         lambda *_: forwards.__setitem__(0, forwards[0] + 1))
-    path.op.reset_launch_count()
+    path.reset_counts()
 
     sizes = [1, 7, 16, 32, 3, 25, 40, 12]  # 40 > the batch of 32
     reqs = [_images(rng, n) for n in sizes]
@@ -575,6 +909,7 @@ def phase_serve(path: ModelPath, cpu_model, image, ref_probs) -> int:
                      f"{n_img / wall:.1f} images/s")
     hook.remove()
     launches = path.op.launch_count()
+    path.check_idle(phase)
     log(phase, f"forward passes {forwards[0]}, {path.op_name} launches "
                  f"{launches}")
     if launches != DEPTH * forwards[0] or forwards[0] == 0:
@@ -606,7 +941,7 @@ def phase_train_parity(path: ModelPath) -> None:
         if next(model.parameters()).device.type != name:
             raise AssertionError(f"create_train_state left the model on "
                                  f"{next(model.parameters()).device}")
-        path.op.reset_launch_count()
+        path.reset_counts()
         _, m = step(state, u8, y, 0)
         metrics[name] = float(m["loss_sum"]) / 2
         if name == "cuda":
@@ -626,14 +961,16 @@ def phase_train_parity(path: ModelPath) -> None:
                         f" (|d| {d_loss:.3g}, tol {PARITY_LOSS_TOL}); worst "
                         f"gradient leaf {worst_name}: |d| {worst_err:.3g} = "
                         f"{worst:.3f} of its tolerance ({PARITY_GRAD_REL} x "
-                        f"leaf max + {PARITY_GRAD_ABS}); launches (eval fwd, "
-                        f"train fwd, bwd) {counts}")
+                        f"leaf max + {PARITY_GRAD_ABS}); launches "
+                        f"{dict(zip(path.op.LAUNCH_KINDS, counts))}")
     if d_loss > PARITY_LOSS_TOL or worst > 1.0:
         raise AssertionError("the train step on the card disagrees with the "
                              "CPU")
-    if counts != [0, 2, 2]:
-        raise AssertionError(f"expected 0 eval, 2 training-forward and 2 "
-                             f"backward launches, got {counts}")
+    expect = list(path.expected(0, 1, depth=2).values())
+    if counts != expect:
+        raise AssertionError(f"expected launches {expect} of "
+                             f"{path.op.LAUNCH_KINDS}, got {counts}")
+    path.check_idle(path.phase("train-parity"))
 
 
 def _train_run(model, data, microbatch, log_lines):
@@ -688,7 +1025,7 @@ def phase_train(path: ModelPath, attn_dropout_launches: bool,
         subset_size=main_steps * TRAIN_BATCH, synthetic_sizes=(1024, 256))
     if not data["synthetic"]:
         raise AssertionError("expected the synthetic CIFAR stand-in")
-    path.op.reset_launch_count()
+    path.reset_counts()
     lines = []
     passes = {"train": 0, "eval": 0, "train_with_kernels": 0}
     runs = (
@@ -727,12 +1064,11 @@ def phase_train(path: ModelPath, attn_dropout_launches: bool,
     launches = {k: path.op.launch_count(k) for k in path.op.LAUNCH_KINDS}
     log(phase, f"{path.op_name} launches {launches} for {passes} forward "
                f"passes (each train forward has one backward)")
-    expect = {"fwd": DEPTH * passes["eval"],
-              "fwd_train": DEPTH * passes["train_with_kernels"],
-              "bwd": DEPTH * passes["train_with_kernels"]}
+    expect = path.expected(passes["eval"], passes["train_with_kernels"])
     if launches != expect or passes["train"] == 0 or passes["eval"] == 0:
         raise AssertionError(f"{path.op_name} launches {launches} != "
                              f"{expect}")
+    path.check_idle(phase)
 
     # Speed and memory of the main run's step, after its epoch.
     rng = np.random.default_rng(4)
@@ -1389,9 +1725,24 @@ def main() -> None:
     e1_launches = phase_e1()
     phase_e1_parity()
 
+    tile_timing = phase_kernel_tileband()
+    with _environ(TILE.env):
+        cpu_model = TILE.build(
+            generator=torch.Generator().manual_seed(0)).eval()
+        ref_probs = phase_model(TILE, cpu_model, image)
+        torch.cuda.empty_cache()
+        launches[TILE] = phase_serve(TILE, cpu_model, image, ref_probs)
+        del cpu_model
+        launches[TILE] += phase_tile_serve_b16()
+        torch.cuda.empty_cache()
+        phase_train_parity(TILE)
+        train_launches[TILE] = phase_train(TILE, False)
+        torch.cuda.empty_cache()
+
     tpu = "focused_attention_vit_tpu/ops/mhla_band_roll.py"
     tpu_flash = "focused_attention_vit_tpu/ops/flash_attention_pallas.py"
     tpu_fused = "focused_attention_vit_tpu/ops/mha_kernel.py"
+    tpu_tile = "focused_attention_vit_tpu/ops/mhla_kernel_v4.py"
     kernels = [
         ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158", launches[MHLA],
          timing["bf16"]),
@@ -1412,6 +1763,14 @@ def main() -> None:
          e1_launches["fwd_train"], fused_timing["bf16"]["fwd_train"]),
         ("fused_mha_bwd", fused.BWD_KERNEL_SOURCE, f"{tpu_fused}:83",
          e1_launches["bwd"], fused_timing["bf16"]["bwd"]),
+        # K6 runs in serving (MHLA-B/4 and B/16) and in training; K8 has no
+        # caller on a model path, so its launches are kernel-tileband's.
+        ("mhla_tile_band_fwd", tile.KERNEL_SOURCE, f"{tpu_tile}:66",
+         launches[TILE] + train_launches[TILE]["fwd"], tile_timing["fwd"]),
+        ("mhla_tile_band_bwd", tile.BWD_KERNEL_SOURCE, f"{tpu_tile}:104",
+         train_launches[TILE]["bwd"], tile_timing["bwd"]),
+        ("mhla_tile_band_fwd_tiles", tile.KERNEL_SOURCE, f"{tpu_tile}:383",
+         tile_timing["fwd_b_launches"], tile_timing["fwd_b"]),
     ]
     for name_, _, _, count, _ in kernels:
         if count <= 0:

@@ -237,18 +237,26 @@ class MultiHeadLatentAttention(nn.Module):
     ``Linear(d, d)`` shared by all heads and applied to K and V, window-local
     attention with the reference edge rule, and the output projection.
 
-    Dispatch by sequence length S, as in the JAX package: S <= 2W the gather
-    form, S <= ``DENSE_BAND_MAX_SEQ`` the dense band, both on
-    ``[B, h, S, d]``; longer sequences feed the band op its S-minor
-    ``[B, h, d, S]`` layout (:meth:`_forward_sminor`), and the band launches
-    the CUDA kernels on a CUDA tensor.
+    Dispatch as in the JAX package (``models/layers.py`` :361-592), by
+    sequence length S and ``FAVIT_MHLA_IMPL`` (read at each call). At
+    S > ``DENSE_BAND_MAX_SEQ`` with ``auto`` (the default) or ``roll`` the
+    band op gets its S-minor ``[B, h, d, S]`` layout
+    (:meth:`_forward_sminor`) and launches the CUDA kernels K1/K2 on a CUDA
+    tensor; JAX's ``auto`` takes that branch on the TPU only, and on the
+    CPU the two branches compute the same shift band. Otherwise the layer
+    keeps token-major ``[B, h, S, d]`` and calls
+    :func:`~..ops.window.windowed_latent_attention`, whose dispatch picks the
+    gather form, the dense band, the shift band or, with
+    ``FAVIT_USE_PALLAS_MHLA=1`` on a CUDA tensor, the tile band (K6/K7).
 
     In training mode with ``dropout > 0`` (the model's ``attn_dropout``)
     the window weights are dropped as in JAX (``models/layers.py``
-    :408-424, :513-574): per window slot inside the band op at long S, with
-    a seed drawn once per call from ``rng.host``; per merged key on the
-    dense band's ``[B, h, S, S]`` weights; per slot on the gather form's
-    ``[B, h, S, W]`` weights. The output is dropped at the same rate.
+    :408-424, :513-574): per window slot inside the band op on the S-minor
+    branch, with a seed drawn once per call from ``rng.host``; per slot on
+    the token-major shift band's ``[B, h, W, S]`` weights at long S
+    otherwise (no kernel); per merged key on the dense band's
+    ``[B, h, S, S]`` weights; per slot on the gather form's ``[B, h, S, W]``
+    weights. The output is dropped at the same rate.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
@@ -274,7 +282,9 @@ class MultiHeadLatentAttention(nn.Module):
         h, d = self.num_heads, self.head_dim
         w = self.window_size
         rate = self.dropout if self.training else 0.0
-        if s > window_ops.DENSE_BAND_MAX_SEQ:
+        long_s = s > window_ops.DENSE_BAND_MAX_SEQ
+        if long_s and os.environ.get("FAVIT_MHLA_IMPL", "auto") in ("auto",
+                                                                    "roll"):
             return inverted_dropout(self._forward_sminor(x, rate, rng), rate,
                                     rng)
         q, k, v = self.qkv(x).view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
@@ -284,7 +294,9 @@ class MultiHeadLatentAttention(nn.Module):
             def drop(wts):
                 return inverted_dropout(wts, rate, rng)
 
-            if s > 2 * w:
+            if long_s:
+                out = window_ops._shift_banded_attention(q, k, v, w, drop)
+            elif s > 2 * w:
                 out = window_ops._dense_band_attention(q, k, v, w, drop)
             else:
                 out = window_ops._gather_windowed_attention(q, k, v, w, drop)

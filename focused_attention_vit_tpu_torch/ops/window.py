@@ -8,17 +8,23 @@ right-edge window with key 0, and a duplicated key enters the softmax once
 per slot it fills. Even W is defined as the asymmetric window
 ``[i - W//2, i + W//2 - 1]`` with the same padding.
 
-Three formulations, chosen by sequence length as in the JAX package:
+The formulations, chosen as in the JAX package by sequence length and by
+``FAVIT_MHLA_IMPL`` and ``FAVIT_USE_PALLAS_MHLA`` (read at each call):
 
 * S <= 2W: the gather form, which materialises the ``[B, h, S, W, d]``
   window tensor (only tiny sequences reach it);
-* 2W < S <= ``DENSE_BAND_MAX_SEQ``: dense S x S attention with a static
-  log-multiplicity bias that encodes the window rule exactly;
-* S > ``DENSE_BAND_MAX_SEQ``: the band op of :mod:`.mhla_band_roll` on
-  S-minor ``[B, h, d, S]`` tensors, which launches the CUDA kernel on a CUDA
-  tensor and runs the halo-padded shift band below on a CPU tensor.
+* the dense band, S x S attention with a static log-multiplicity bias that
+  encodes the window rule exactly: ``densefull`` at any S, ``auto`` (the
+  default) at S <= ``DENSE_BAND_MAX_SEQ``;
+* ``roll``: the band op of :mod:`.mhla_band_roll` on S-minor ``[B, h, d, S]``
+  tensors, which launches the CUDA kernels on a CUDA tensor and runs the
+  halo-padded shift band below on a CPU tensor;
+* any other value, with ``FAVIT_USE_PALLAS_MHLA=1`` on a CUDA tensor: the
+  clamped tile band of :mod:`.mhla_kernel_v4` (the CUDA kernels K6/K7), its
+  2*(W//2) edge rows overwritten with the reference's windows;
+* otherwise the token-major shift band :func:`_shift_banded_attention`.
 
-The gather form, the dense band and the S-minor shift band take an optional
+The gather form, the dense band and both shift bands take an optional
 ``weights_transform``, applied to their f32 softmax weights before the
 product with V: the train-mode attention-weight dropout hook of the MHLA
 layer (JAX ``ops/window.py``). Attention masks are not ported.
@@ -27,6 +33,7 @@ layer (JAX ``ops/window.py``). Attention masks are not ported.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -176,6 +183,20 @@ def _shift_banded_attention_ds(
     return _shift_band_apply_ds(weights, v).to(q.dtype)
 
 
+def _shift_banded_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
+    weights_transform=None,
+) -> torch.Tensor:
+    """The shift band on token-major ``[B, h, S, d]`` tensors: the S-minor
+    shift band on transposed views, so the same ``[B, h, W, S]`` weights
+    (one Bernoulli per window slot under a dropout ``weights_transform``)
+    and the same exact edge rule."""
+    out = _shift_banded_attention_ds(
+        q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3), window_size,
+        weights_transform)
+    return out.transpose(2, 3)
+
+
 def windowed_latent_attention_ds(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
     dropout=(0.0, None),
@@ -202,18 +223,81 @@ def windowed_latent_attention_ds(
     return roll_banded_attention(q, k, v, window_size, dropout)
 
 
+@functools.lru_cache(maxsize=64)
+def _edge_slab_index(seq_len: int, window_size: int, device: torch.device):
+    """Indices of the exact edge rows, on ``device``: ``q_rows`` the first
+    and last W//2 queries; ``k_rows`` the slab of 2W + 2 keys their
+    reference windows read (keys 0..W-1 and S-1 for the left edge, key 0
+    and keys S-W..S-1 for the right); ``slots`` ``[2*(W//2), W]``, each
+    window as positions in that slab. Cached, so that a call copies nothing
+    from the host, and made outside inference mode, so that a later
+    autograd pass may save them."""
+    s, w = seq_len, window_size
+    hw = w // 2
+    table = window_index_table(s, w)
+    left = np.where(table[:hw] < w, table[:hw], w)
+    rtab = table[s - hw:]
+    right = np.where(rtab == 0, w + 1, rtab - (s - w) + w + 2)
+    q_rows = np.r_[0:hw, s - hw:s]
+    k_rows = np.r_[0:w, s - 1, 0, s - w:s]
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(x, dtype=torch.long, device=device)
+                     for x in (q_rows, k_rows, np.concatenate([left, right])))
+
+
+def _tile_band_on_card(x: torch.Tensor) -> bool:
+    """Whether the opt-in tile band may run: on a CUDA tensor, where JAX
+    asks ``jax.default_backend() == "tpu"``. One predicate, so that a CPU
+    test can monkeypatch it as the JAX tests patch the backend."""
+    return x.is_cuda
+
+
 def windowed_latent_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
 ) -> torch.Tensor:
     """Window-local attention on per-head ``[B, h, S, d]`` tensors; K and V
-    already carry the latent projection. Returns ``[B, h, S, d]``."""
-    s = q.shape[2]
-    if s <= 2 * window_size:
-        return _gather_windowed_attention(q, k, v, window_size)
-    if s <= DENSE_BAND_MAX_SEQ:
-        return _dense_band_attention(q, k, v, window_size)
-    out = windowed_latent_attention_ds(
-        q.transpose(2, 3).contiguous(), k.transpose(2, 3).contiguous(),
-        v.transpose(2, 3).contiguous(), window_size,
+    already carry the latent projection. Returns ``[B, h, S, d]``. The
+    formulation follows ``FAVIT_MHLA_IMPL`` and ``FAVIT_USE_PALLAS_MHLA``,
+    read at each call, as the module docstring lists."""
+    s, d = q.shape[2], q.shape[3]
+    w = window_size
+    hw = w // 2
+    if s <= 2 * w:
+        return _gather_windowed_attention(q, k, v, w)
+    impl = os.environ.get("FAVIT_MHLA_IMPL", "auto")
+    if impl == "densefull" or (impl == "auto" and s <= DENSE_BAND_MAX_SEQ):
+        return _dense_band_attention(q, k, v, w)
+    if impl == "roll":
+        out = windowed_latent_attention_ds(
+            q.transpose(2, 3).contiguous(), k.transpose(2, 3).contiguous(),
+            v.transpose(2, 3).contiguous(), w,
+        )
+        return out.transpose(2, 3)
+    if not (os.environ.get("FAVIT_USE_PALLAS_MHLA", "0") == "1"
+            and _tile_band_on_card(q)):
+        return _shift_banded_attention(q, k, v, w)
+
+    from focused_attention_vit_tpu_torch.ops.mhla_kernel_v4 import (
+        banded_attention_v4,
     )
-    return out.transpose(2, 3)
+
+    out = banded_attention_v4(q, k, v, w)
+    if hw == 0:
+        return out
+    # The tile band clamps at the edges; the reference pads a left-edge
+    # window with key S-1 and a right-edge window with key 0. The first and
+    # last hw rows are recomputed from a slab of the 2W + 2 keys their
+    # windows read (so the backward scatters into no full K/V beyond one
+    # index_add) and joined to the band's rows by concatenation, which
+    # autograd carries.
+    q_rows, k_rows, slots = _edge_slab_index(s, w, q.device)
+    q_e = q.index_select(2, q_rows)  # [B, h, 2*hw, d]
+    k_e = k.index_select(2, k_rows)[:, :, slots]  # [B, h, 2*hw, W, d]
+    v_e = v.index_select(2, k_rows)[:, :, slots]
+    logits = torch.einsum("bhed,bhewd->bhew", q_e.float(),
+                          k_e.float()) * (d ** -0.5)
+    weights = torch.softmax(logits, dim=-1)
+    edges = torch.einsum("bhew,bhewd->bhed", weights,
+                         v_e.float()).to(out.dtype)
+    return torch.cat([edges[:, :, :hw], out[:, :, hw:s - hw],
+                      edges[:, :, hw:]], dim=2)

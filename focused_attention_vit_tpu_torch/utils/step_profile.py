@@ -12,6 +12,12 @@ as one JSON line. From the repository root::
     python -m focused_attention_vit_tpu_torch.utils.step_profile \\
         --model vit --mode train --batch_size 32
 
+MHLA through the tile band (K6/K7) instead of the S-minor band (K1/K2)::
+
+    FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1 python -m \\
+        focused_attention_vit_tpu_torch.utils.step_profile \\
+        --model vit_mhla --mode serve --batch_size 32
+
 The E1 step at ViT-B/16, with and without the fused short-S attention::
 
     FAVIT_FUSED_MHA=1 python -m \\
@@ -41,6 +47,7 @@ TOP = 25       # kernels listed by name
 CATEGORIES = (
     ("fused attention kernels", r"fused_(fwd|bwd|keep)"),
     ("flash kernels", r"flash_(fwd|bwd|delta)"),
+    ("tile band kernels", r"tile_band_(fwd|bwd)"),
     ("band kernels", r"band_(fwd|bwd)"),
     ("GEMMs", r"gemm|cutlass|cublas|xmma|nvjet|gemv"),
     ("optimizer",
@@ -144,7 +151,9 @@ def main(argv=None) -> dict:
     print(f"{smi}; torch {torch.__version__}")
     print(f"{args.model} {args.mode}, batch {args.batch_size}, microbatch "
           f"{args.microbatch}, depth {args.depth}, patch {args.patch_size}, "
-          f"fused switch {os.environ.get('FAVIT_FUSED_MHA', '0')}, dropout "
+          f"fused switch {os.environ.get('FAVIT_FUSED_MHA', '0')}, MHLA "
+          f"impl {os.environ.get('FAVIT_MHLA_IMPL', 'auto')} with tile-band "
+          f"opt-in {os.environ.get('FAVIT_USE_PALLAS_MHLA', '0')}, dropout "
           f"{DROPOUT}, attn_dropout {args.attn_dropout}: "
           f"{wall_ms:.2f} ms wall per step (host clock, under the profiler), "
           f"{total:.2f} ms of kernels, device idle share "

@@ -1,5 +1,5 @@
-"""The band, flash-attention and fused short-S attention kernels on an
-NVIDIA Hopper GPU against their plain versions.
+"""The band, flash-attention, fused short-S attention and tile-band kernels
+on an NVIDIA Hopper GPU against their plain versions.
 
 Marked ``gpu``: these skip where there is no CUDA device. On a machine with
 the card and without JAX, run them with
@@ -13,6 +13,8 @@ import torch
 from focused_attention_vit_tpu_torch.ops import flash_attention as flash
 from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
 from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
+from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
+from focused_attention_vit_tpu_torch.ops import window
 
 pytestmark = pytest.mark.gpu
 
@@ -355,3 +357,104 @@ def test_fused_kernels_reject_what_they_do_not_take(cuda):
     lse = torch.zeros(1, 2, 40, device=cuda)
     with pytest.raises(ValueError):  # lse on the wrong device
         fused.fused_mha_backward(q, q, q, q, lse.cpu(), q)
+
+
+# --- tile band (K6, K7, K8) -----------------------------------------------------
+
+
+def _tile_close(got, want, dtype, f32_tol):
+    """f32 within ``f32_tol``. bf16: both sides round the weights (and ds)
+    to bf16, as JAX does, so an f32 difference of 1e-7 can round one weight
+    the other way on one side; in a sum of 2*hw + 1 terms with a weight near
+    1 that moves an entry by 2^-8 of an input (up to about 4.5): up to 4.5
+    ulps of a quarter of the tensor's largest entry, plus 1 for the final
+    rounding. So 6 ulps of max(|plain|, that quarter), and the error's rms
+    within 2^-8 of the plain rms."""
+    _fused_close(got, want, dtype, f32_tol, ulps=6.0)
+    if dtype == torch.bfloat16:
+        _rms_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", tile.HEAD_DIMS)
+@pytest.mark.parametrize("w", [3, 4, 7, 15, 33])
+@pytest.mark.parametrize("s", [None, 197, 1000, 3137])  # None: S = 2W + 1
+def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
+    """K6, K7 (before the edge fold) and K8 against their plain versions:
+    f32 forward within 1e-5, backward within 1e-4; two backward runs give
+    the same bits; K8 equals K6's plain version too."""
+    s = s or 2 * w + 1
+    q, k, v, g = (x.view(6, s, d) for x in _inputs(cuda, (2, 3, s, d), dtype,
+                                                   n=4, seed=s + w + d))
+    before = [tile.launch_count(kind) for kind in tile.LAUNCH_KINDS]
+    out = tile.tile_band_forward(q, k, v, w)
+    grads = tile.tile_band_backward(q, k, v, g, w)
+    again = tile.tile_band_backward(q, k, v, g, w)
+    out_b = tile.banded_attention_v4b(*(x.view(2, 3, s, d) for x in (q, k, v)),
+                                      w)
+    torch.cuda.synchronize()
+    assert [tile.launch_count(kind) for kind in tile.LAUNCH_KINDS] == [
+        before[0] + 1, before[1] + 2, before[2] + 1]
+    ref = tile.plain_tile_band_forward(q, k, v, w)
+    _tile_close(out, ref, dtype, 1e-5)
+    _tile_close(out_b.view(6, s, d), ref, dtype, 1e-5)
+    for got, rerun, want in zip(grads, again,
+                                tile.plain_tile_band_backward(q, k, v, g, w)):
+        assert got.dtype == dtype and torch.equal(got, rerun)
+        _tile_close(got, want, dtype, 1e-4)
+
+
+def test_tile_band_k8_matches_its_plain_version_on_tiles(cuda):
+    q, k, v = _inputs(cuda, (2, 3, 197, 64), torch.float32, seed=8)
+    t, halo = 200, tile.MAX_HALF_WINDOW
+    ke, ve = (tile._window_tiles(x.view(6, 197, 64), t, halo, t)
+              for x in (k, v))
+    qt = tile._pad_seq(q.view(6, 197, 64), 0, 3).view(6, 1, t, 64)
+    torch.testing.assert_close(
+        tile.window_tile_band(qt, ke, ve, 7),
+        tile.plain_window_tile_band(qt, ke, ve, 7), atol=1e-5, rtol=0)
+
+
+def test_tile_band_composite_launches_and_gradients(cuda, monkeypatch):
+    """With the two variables set, windowed_latent_attention on the card
+    runs K6 (and K7 under autograd), equals the gather oracle at odd W in
+    f32, and gives q, k, v finite gradients."""
+    monkeypatch.setenv("FAVIT_MHLA_IMPL", "shiftband")
+    monkeypatch.setenv("FAVIT_USE_PALLAS_MHLA", "1")
+    tile.reset_launch_count()
+    band.reset_launch_count()
+    q, k, v = (t.requires_grad_() for t in _inputs(cuda, (2, 2, 600, 64),
+                                                   torch.float32))
+    with torch.no_grad():
+        oracle = window._gather_windowed_attention(q, k, v, 7)
+        torch.testing.assert_close(window.windowed_latent_attention(q, k, v, 7),
+                                   oracle, atol=1e-5, rtol=0)
+    out = window.windowed_latent_attention(q, k, v, 7)
+    out.transpose(1, 2).square().sum().backward()
+    torch.cuda.synchronize()
+    assert [tile.launch_count(kind) for kind in tile.LAUNCH_KINDS] == [2, 1, 0]
+    assert band.launch_count() == 0
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+        assert t.grad.abs().sum() > 0
+
+
+def test_tile_band_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(6, 40, 16, device=cuda)
+    with pytest.raises(ValueError):  # shapes
+        tile.tile_band_forward(q, q, q[:, :20].contiguous(), 7)
+    with pytest.raises(ValueError):  # stride
+        x = q.transpose(1, 2).contiguous().transpose(1, 2)
+        tile.tile_band_forward(x, x, x, 7)
+    with pytest.raises(ValueError, match="window_size"):
+        tile.tile_band_backward(q, q, q, q, tile.MAX_WINDOW + 1)
+    with pytest.raises(ValueError, match="head dims"):
+        x = torch.zeros(6, 40, 24, device=cuda)
+        tile.tile_band_forward(x, x, x, 7)
+    with pytest.raises(TypeError):  # dtype
+        x = q.half()
+        tile.tile_band_forward(x, x, x, 7)
+    with pytest.raises(ValueError, match="halo"):  # K8 takes a halo of 16
+        qt = torch.zeros(6, 1, 64, 16, device=cuda)
+        kt = torch.zeros(6, 1, 64 + 64, 16, device=cuda)
+        tile.window_tile_band(qt, kt, kt, 7)

@@ -33,6 +33,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.ops.flash_attention",
     "focused_attention_vit_tpu_torch.ops.mha_kernel",
     "focused_attention_vit_tpu_torch.ops.mhla_band_roll",
+    "focused_attention_vit_tpu_torch.ops.mhla_kernel_v4",
     "focused_attention_vit_tpu_torch.ops.philox",
     "focused_attention_vit_tpu_torch.ops.patch_embed",
     "focused_attention_vit_tpu_torch.ops.window",
@@ -116,6 +117,10 @@ def test_port_never_calls_a_library_attention():
      "flash kernels"),
     ("void (anonymous namespace)::band_bwd_key_kernel<__nv_bfloat16, 64>",
      "band kernels"),
+    ("void (anonymous namespace)::tile_band_fwd_mma<64, false>(...)",
+     "tile band kernels"),
+    ("void (anonymous namespace)::tile_band_bwd_mma<64>(...)",
+     "tile band kernels"),
     ("void (anonymous namespace)::fused_fwd_mma<64, true, true>(...)",
      "fused attention kernels"),
     ("void (anonymous namespace)::fused_bwd_dkv_mma<64, true>(...)",
@@ -198,6 +203,29 @@ def test_cpu_fused_attention_launches_no_kernel(monkeypatch):
     assert [fused.launch_count(k) for k in fused.LAUNCH_KINDS] == [0, 0, 0]
 
 
+def test_cpu_tile_band_launches_no_kernel(monkeypatch):
+    """With the tile-band variables set, a CPU MHLA ViT runs the plain
+    versions, eval and training, at short and long S, and launches
+    nothing."""
+    from focused_attention_vit_tpu_torch.models import VisionTransformerMHLA
+    from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
+
+    monkeypatch.setenv("FAVIT_MHLA_IMPL", "shiftband")
+    monkeypatch.setenv("FAVIT_USE_PALLAS_MHLA", "1")
+    tile.reset_launch_count()
+    band.reset_launch_count()
+    for img in (16, 96):  # S = 17 and S = 577
+        model = VisionTransformerMHLA(img_size=img, patch_size=4,
+                                      num_classes=3, embed_dim=32, depth=1,
+                                      num_heads=2)
+        with torch.inference_mode():
+            model.eval()(torch.zeros(1, img, img, 3))
+        model.train()(torch.zeros(1, img, img, 3)).sum().backward()
+        assert model.blocks[0].attn.qkv.weight.grad is not None
+    assert [tile.launch_count(k) for k in tile.LAUNCH_KINDS] == [0, 0, 0]
+    assert [band.launch_count(k) for k in band.LAUNCH_KINDS] == [0, 0, 0]
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -224,6 +252,10 @@ def test_library_path_is_keyed_by_source_and_ignored_by_git():
 
     assert (REPO / fused.FWD_KERNEL_SOURCE).is_file()
     assert (REPO / fused.BWD_KERNEL_SOURCE).is_file()
+    from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
+
+    assert (REPO / tile.KERNEL_SOURCE).is_file()
+    assert (REPO / tile.BWD_KERNEL_SOURCE).is_file()
     assert kernel_build.BUILD_ROOT == REPO / "build" / "kernels"
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()
 
