@@ -36,11 +36,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    equal 12 x the passes run; ms per step, images/s and peak memory.
 
 9. kernel-flash: the flash-attention forward (eval and training, with its
-   log-sum-exp) and backward kernels against their plain versions over a
-   grid of shapes and at the serving shape, f32 and bf16; the backward run
-   twice gives the same bits; CUDA-event timings of the kernels, the plain
+   log-sum-exp) and backward kernels (wgmma products, TMA tiles in an
+   mbarrier ring) against their plain versions over a grid of head dims and
+   shapes and at the serving shape, f32 and bf16; the backward run twice
+   gives the same bits; CUDA-event timings of the kernels, the plain
    versions and PyTorch's fused attention (timed here as the yardstick,
-   used nowhere in the port);
+   used nowhere in the port), and for each bf16 kernel its TFLOP/s, its
+   share of ``bound_ms`` and its ratio to the library call;
 10. vit-model: dense ViT-B/4 in f32 on the card against the same weights on
     the CPU;
 11. vit-serve: ``serve.setup(["--model", "vit", ...])``, concurrent requests
@@ -275,16 +277,40 @@ def phase_build() -> None:
         log("build", f"ptxas {lib.name}: {len(regs)} kernels, registers "
                      f"{min(regs)}-{max(regs)}, spill stores up to "
                      f"{max(spills, default=0)} bytes")
-        # The tensor-core flash kernels at d = 64, the main path's.
-        for m in re.finditer(
-                r"Function properties for \S*?\d(flash_(?:fwd|bwd_dkv|bwd_dq)"
-                r"_mma)ILi64E(\w*?)EvP\S*\n\s*\d+ bytes stack frame, (\d+) "
-                r"bytes spill stores.*\n.*?Used (\d+) registers"
-                r"(?:.*?(\d+) bytes smem)?", text):
-            lse = ", lse" if "Lb1" in m.group(2) else ""
-            log("build", f"ptxas {m.group(1)}<64{lse}>: {m.group(4)} "
-                         f"registers, {m.group(3)} bytes of spill stores, "
-                         f"{m.group(5) or 0} bytes of shared memory")
+        # The bf16 flash kernels at d = 64, the main path's: registers,
+        # spills and the dynamic shared memory they are launched with.
+        if lib.name.startswith("libflash_attention_"):
+            _flash_ptxas(lib, text)
+
+
+def _flash_ptxas(lib: Path, text: str) -> None:
+    """Log ptxas's report of each d = 64 bf16 flash kernel in ``lib``; raise
+    if one spills or is missing."""
+    lib_name = lib.name[3:-3]
+    so = kernel_build.load(lib_name)
+    if lib_name == "flash_attention_fwd":
+        smem = {"flash_fwd_wgmma": so.flash_attention_fwd_smem(64)}
+    else:
+        smem = {"flash_bwd_dkv_wgmma": so.flash_attention_bwd_smem(64, 0),
+                "flash_bwd_dq_wgmma": so.flash_attention_bwd_smem(64, 1)}
+    found = set()
+    for m in re.finditer(
+            r"Function properties for \S*?\d(flash_(?:fwd|bwd_dkv|bwd_dq)"
+            r"_wgmma)ILi64E(\w*?)Ev\S*\n\s*\d+ bytes stack frame, (\d+) "
+            r"bytes spill stores.*\n.*?Used (\d+) registers"
+            r"(?:.*?(\d+) bytes smem)?", text):
+        kernel, spills = m.group(1), int(m.group(3))
+        lse = ", lse" if "Lb1" in m.group(2) else ""
+        found.add(kernel)
+        log("build", f"ptxas {kernel}<64{lse}>: {m.group(4)} registers, "
+                     f"{spills} bytes of spill stores, {m.group(5) or 0} "
+                     f"bytes of static and {smem[kernel]} of dynamic shared "
+                     f"memory")
+        if spills:
+            raise AssertionError(f"{kernel}<64{lse}> spills {spills} bytes")
+    if found != set(smem):
+        raise AssertionError(f"ptxas report of {sorted(set(smem) - found)} "
+                             f"not found in {lib.parent / 'build.log'}")
 
 
 def phase_kernel() -> dict:
@@ -1152,7 +1178,7 @@ def phase_kernel_flash() -> dict:
     seqs = (1, 127, 197, 513, 1000, 3137)
     for dtype in (torch.float32, torch.bfloat16):
         dt = "f32" if dtype == torch.float32 else "bf16"
-        for d in (16, 64):
+        for d in (16, 64, 128):
             worst = {}
             for s in seqs:
                 q, k, v, g = inputs((2, 3, s, d), dtype)
@@ -1246,12 +1272,15 @@ def phase_kernel_flash() -> dict:
                      library_ms=times["bwd_library"],
                      **least_time(8 * one + lse.numel() * 4, 10 * pairs)),
         )
-        gflop = 4 * pairs / 1e9
-        log("kernel-flash", f"serving shape {dt}: forward "
-                            f"{gflop / times['fwd']:.1f} TFLOP/s of "
-                            f"{gflop / 1e3:.3f} TFLOP, backward "
-                            f"{2.5 * gflop / times['bwd']:.1f} TFLOP/s of "
-                            f"{2.5 * gflop / 1e3:.3f}")
+        gflop = {"fwd": 4 * pairs / 1e9, "fwd_train": 4 * pairs / 1e9,
+                 "bwd": 10 * pairs / 1e9}
+        rates = "; ".join(
+            f"{kind} {r['ms']:.4f} ms, {gflop[kind] / r['ms']:.1f} TFLOP/s, "
+            f"{r['bound_ms'] / r['ms']:.3f} of the bound, "
+            f"{r['ms'] / r['library_ms']:.3f}x the library"
+            for kind, r in result[dt].items())
+        log("kernel-flash", f"serving shape {dt}, of the function's work (4 "
+                            f"S^2 d B h flops forward, 10 backward): {rates}")
         del q, k, v, g, out, lse
         torch.cuda.empty_cache()
     return result

@@ -17,7 +17,7 @@
 // stored; only q, k, v, out and lse were saved.
 //
 // Three kernels, launched in order on one stream:
-//   1. delta: a thread per query row;
+//   1. delta: a thread per query row (flash_common.cuh);
 //   2. dkv: a block owns a tile of keys and loops over the query tiles;
 //   3. dq: a block owns a tile of queries and loops over the key tiles.
 // The TPU kernels carry the dk/dv (and dq) sums in scratch memory across a
@@ -25,21 +25,37 @@
 // sum over the other axis is a loop inside the block, and each of dq, dk,
 // dv is written by exactly one thread: no atomics, and the result is the
 // same from run to run. The price is that the logits and dp are computed
-// twice (7 matrix products instead of 5).
+// twice (7 matrix products instead of 5) and so are the exponentials.
 //
 // What bounds it on this card: operations. The function needs
 // 10*B*h*S^2*d flops (2.4 TFLOP at B*h=384, S=3137, d=64: 2.4 ms at the
 // 989 TFLOP/s bf16 peak) against 1.4 GB of q, k, v, out, g, dq, dk, dv
-// (0.4 ms at 3.35 TB/s). So the bf16 kernels run every product on the
-// tensor cores (mma.sync.m16n8k16, f32 accumulation): a warp owns 16 rows
-// of its block's tile and keeps their K and V (dkv) or Q and G (dq)
-// fragments in registers; the other side's tiles of 64 rows are staged in
-// shared memory for all 4 warps; a 16 x 16 block of logits and of dp is
-// produced at a time, turned into p and ds on the accumulator registers,
-// rounded to bf16 and fed straight back as the A operand of the products
-// that accumulate dv, dk or dq. In dkv the logits are computed transposed
-// (K Q^T), so that p^T and ds^T come out in the layout the tensor cores
-// take as A. No wgmma, no TMA, no pipelining: later work.
+// (0.4 ms at 3.35 TB/s); the deterministic design does 7/5 of those
+// products (3.4 ms) and 2 B*h*S^2 exponentials. So the bf16 kernels run
+// every product as an asynchronous warpgroup product (wgmma, f32
+// accumulators). Each block is two consumer warpgroups of 64 rows and a
+// producer warpgroup, one warp of which brings tiles by TMA (3-D maps over
+// [B*h, S, d]: a tile past S is zero-filled and never reads the next head)
+// into a ring of 3 stages with "full" and "free" mbarriers; the
+// producer keeps 24 registers a thread and the consumers take 240
+// (setmaxnreg), which holds the d = 64 kernels free of spills:
+//   - dkv: a block keeps 128 keys (K and V tiles, loaded once) and streams
+//     Q and g tiles of 64 queries (32 at d = 128) with their lse and delta,
+//     which the producer warp writes beside them. S^T = K Q^T and dP^T = V g^T are wgmmas with both
+//     operands in shared memory; p^T and ds^T stay in registers, rounded to
+//     bf16, as the register A operands of dv += P^T g and dk += dS^T Q,
+//     whose B operands are read through the transpose bit. A query past S
+//     arrives as zeros with lse = +inf, so its p and ds are 0. Each
+//     warpgroup runs products, then exponentials, then products; the two
+//     warpgroups overlap each other freely;
+//   - dq: a block keeps 128 queries (Q and g tiles, loaded once) and streams
+//     K and V tiles of 64 keys; S = Q K^T and dP = g V^T from shared memory,
+//     ds in registers as the A operand of dq += dS K. Keys past S are masked
+//     on the last tile. The two warpgroups take turns at the tensor cores:
+//     a turn issues one tile's dq product and the next tile's S and dP, so
+//     that one warpgroup's exponentials run under the other's products.
+// Every wgmma's registers are written only while no product is in flight
+// (ptxas serializes the products of a pipeline stage otherwise).
 // p and ds are rounded to bf16 for the second products; the plain version
 // keeps them in f32.
 //
@@ -55,214 +71,408 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using flash::kPad;
 using bf16 = __nv_bfloat16;
+namespace hp = hopper;
 
-constexpr int kThreads = 128;  // 4 warps of 16 rows, or 128 scalar rows
-constexpr int kTile = 64;      // rows of the owned and of the staged tile
+constexpr int kThreads = 128;  // the f32 kernels: 128 scalar rows a block
+
+constexpr int kConsumers = 256;               // two warpgroups of 64 rows
+constexpr int kMmaThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kOwn = 128;                      // rows a block owns
+constexpr int kStages = 3;
+// Registers a thread after the split: the block is launched with 168 (65536
+// over 384 threads); the producer warpgroup, of which one warp issues the
+// copies, gives all but 24 back, and the consumers take 240.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
 using flash::load_row;
 using flash::store_row;
-using flash::store_rows;
-using flash::zero;
 
+// This thread's rows r, r + 8 of its warpgroup's 64 (accumulator layout).
+__device__ __forceinline__ int acc_row(int tid) {
+  return ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2);
+}
+
+// Rows r and r + 8 of a 64 x D accumulator, rounded, to a [s, D] matrix.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ g,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int s, int tiles_per_row,
-                      float scale, float scale_log2) {
-  constexpr int LD = D + kPad;
-  __shared__ __align__(16) bf16 qs[kTile * LD];
-  __shared__ __align__(16) bf16 gs[kTile * LD];
-  __shared__ float lse_s[kTile];    // in log2 units; +inf past S
-  __shared__ float delta_s[kTile];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int t = lane & 3;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int key0 = (blockIdx.x % tiles_per_row) * kTile;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
-  const int64_t vec = row * static_cast<int64_t>(s);
-
-  // This block's K and V tile goes through shared memory into registers.
-  flash::load_tile<kTile, D, kThreads>(qs, k + base, key0, s, tid);
-  flash::load_tile<kTile, D, kThreads>(gs, v + base, key0, s, tid);
-  __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];
+__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 2],
+                                          int r0, int s, int wq) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    flash::load_a<LD>(kf[kk], qs, warp * 16, kk * 16, lane);
-    flash::load_a<LD>(vf[kk], gs, warp * 16, kk * 16, lane);
-  }
-  __syncthreads();
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int q0 = 0; q0 < s; q0 += kTile) {
-    flash::load_tile<kTile, D, kThreads>(qs, q + base, q0, s, tid);
-    flash::load_tile<kTile, D, kThreads>(gs, g + base, q0, s, tid);
-    if (tid < kTile) {
-      const bool real = q0 + tid < s;
-      // A query past S gets p = exp2(-inf) = 0 and so ds = 0.
-      lse_s[tid] = real ? lse[vec + q0 + tid] * flash::kLog2e : INFINITY;
-      delta_s[tid] = real ? delta[vec + q0 + tid] : 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int i = r0 + 8 * h;
+    if (i >= s) continue;
+    bf16* row = dst + static_cast<int64_t>(i) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * wq) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int qc = 0; qc < kTile / 16; ++qc) {
-      // 16 keys x 16 queries of logits^T and dp^T.
-      float st[2][4], dp[2][4];
-      zero(st);
-      zero(dp);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
-        flash::load_b<LD>(b, qs, qc * 16, kk * 16, lane);
-        flash::mma_bf16(st[0], kf[kk], b[0], b[1]);
-        flash::mma_bf16(st[1], kf[kk], b[2], b[3]);
-        flash::load_b<LD>(b, gs, qc * 16, kk * 16, lane);
-        flash::mma_bf16(dp[0], vf[kk], b[0], b[1]);
-        flash::mma_bf16(dp[1], vf[kk], b[2], b[3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int col = qc * 16 + nt * 8 + 2 * t + (r & 1);  // the query
-          const float p = exp2f(st[nt][r] * scale_log2 - lse_s[col]);
-          st[nt][r] = p;
-          dp[nt][r] = p * (dp[nt][r] - delta_s[col]) * scale;
-        }
-      }
-      const uint32_t pa[4] = {flash::pack_bf16(st[0][0], st[0][1]),
-                              flash::pack_bf16(st[0][2], st[0][3]),
-                              flash::pack_bf16(st[1][0], st[1][1]),
-                              flash::pack_bf16(st[1][2], st[1][3])};
-      const uint32_t dsa[4] = {flash::pack_bf16(dp[0][0], dp[0][1]),
-                               flash::pack_bf16(dp[0][2], dp[0][3]),
-                               flash::pack_bf16(dp[1][0], dp[1][1]),
-                               flash::pack_bf16(dp[1][2], dp[1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        flash::load_b_trans<LD>(b, gs, qc * 16, np * 16, lane);
-        flash::mma_bf16(dv_acc[2 * np], pa, b[0], b[1]);
-        flash::mma_bf16(dv_acc[2 * np + 1], pa, b[2], b[3]);
-        flash::load_b_trans<LD>(b, qs, qc * 16, np * 16, lane);
-        flash::mma_bf16(dk_acc[2 * np], dsa, b[0], b[1]);
-        flash::mma_bf16(dk_acc[2 * np + 1], dsa, b[2], b[3]);
-      }
-    }
-    __syncthreads();
   }
-
-  store_rows<D>(dk + base, dk_acc, key0 + warp * 16, s, lane);
-  store_rows<D>(dv + base, dv_acc, key0 + warp * 16, s, lane);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ g,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int s, int tiles_per_row, float scale,
-                     float scale_log2) {
-  constexpr int LD = D + kPad;
-  __shared__ __align__(16) bf16 ks[kTile * LD];
-  __shared__ __align__(16) bf16 vs[kTile * LD];
+struct Dkv {
+  static constexpr int kBQ = D <= 64 ? 64 : 32;  // queries a staged tile
+  static constexpr int kOwnBytes = kOwn * D * 2;  // the K or the V tile
+  static constexpr int kTileBytes = kBQ * D * 2;  // one Q or g tile
+  static constexpr int kSmem = 2 * kOwnBytes + 2 * kStages * kTileBytes + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tg,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int s, int tiles_per_row,
+                        float scale, float scale_log2) {
+  using C = Dkv<D>;
+  constexpr int BQ = C::kBQ;
+  constexpr int ST = kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, bar_full[ST], bar_free[ST];
+  __shared__ float lse_s[ST][BQ];  // in log2 units; +inf past S
+  __shared__ float delta_s[ST][BQ];
+  uint8_t* smem = hp::align1024(smem_raw);
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kOwn * D;
+  // Stage st: the Q tile at ring + 2 st BQ D, the g tile after it.
+  bf16* ring = vs + kOwn * D;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int gq = lane >> 2;
-  const int t = lane & 3;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int q0 = (blockIdx.x % tiles_per_row) * kTile;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
-  const int64_t vec = row * static_cast<int64_t>(s);
+  const int row = blockIdx.x / tiles_per_row;
+  const int key0 = (blockIdx.x % tiles_per_row) * kOwn;
+  const int64_t vec = static_cast<int64_t>(row) * s;
+  const int n = (s + BQ - 1) / BQ;
 
-  flash::load_tile<kTile, D, kThreads>(ks, q + base, q0, s, tid);
-  flash::load_tile<kTile, D, kThreads>(vs, g + base, q0, s, tid);
-  __syncthreads();
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    flash::load_a<LD>(qf[kk], ks, warp * 16, kk * 16, lane);
-    flash::load_a<LD>(gf[kk], vs, warp * 16, kk * 16, lane);
+  if (tid == 0) {
+    hp::mbar_init(&bar_kv, 1);
+    for (int st = 0; st < ST; ++st) {
+      hp::mbar_init(&bar_full[st], 32);  // every producer lane arrives
+      hp::mbar_init(&bar_free[st], kConsumers / 32);
+    }
+    hp::fence_barrier_init();
   }
   __syncthreads();
 
-  float lse2[2], dl[2];  // rows gq and gq + 8 of the warp's 16 queries
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = q0 + warp * 16 + gq + 8 * h;
-    lse2[h] = i < s ? lse[vec + i] * flash::kLog2e : INFINITY;
-    dl[h] = i < s ? delta[vec + i] : 0.f;
-  }
-
-  float dq_acc[D / 8][4];
-  zero(dq_acc);
-
-  for (int key0 = 0; key0 < s; key0 += kTile) {
-    flash::load_tile<kTile, D, kThreads>(ks, k + base, key0, s, tid);
-    flash::load_tile<kTile, D, kThreads>(vs, v + base, key0, s, tid);
-    __syncthreads();
-
-#pragma unroll 1
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      // 16 queries x 16 keys of logits and dp.
-      float st[2][4], dp[2][4];
-      zero(st);
-      zero(dp);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
-        flash::load_b<LD>(b, ks, kc * 16, kk * 16, lane);
-        flash::mma_bf16(st[0], qf[kk], b[0], b[1]);
-        flash::mma_bf16(st[1], qf[kk], b[2], b[3]);
-        flash::load_b<LD>(b, vs, kc * 16, kk * 16, lane);
-        flash::mma_bf16(dp[0], gf[kk], b[0], b[1]);
-        flash::mma_bf16(dp[1], gf[kk], b[2], b[3]);
+  if (warp >= kConsumers / 32) {
+    hp::reg_dealloc<kProducerRegs>();
+    if (warp > kConsumers / 32) return;
+    if (lane == 0) {
+      hp::prefetch_tensor_map(&tq);
+      hp::prefetch_tensor_map(&tk);
+      hp::prefetch_tensor_map(&tv);
+      hp::prefetch_tensor_map(&tg);
+      hp::mbar_arrive_expect_tx(&bar_kv, 2 * C::kOwnBytes);
+      hp::load_tile<D, kOwn>(ks, &tk, &bar_kv, row, key0);
+      hp::load_tile<D, kOwn>(vs, &tv, &bar_kv, row, key0);
+    }
+    for (int i = 0; i < n; ++i) {
+      const int st = i % ST;
+      if (i >= ST) hp::mbar_wait(&bar_free[st], ((i / ST) & 1) ^ 1);
+      for (int c = lane; c < BQ; c += 32) {
+        const int qi = i * BQ + c;
+        lse_s[st][c] = qi < s ? lse[vec + qi] * flash::kLog2e : INFINITY;
+        delta_s[st][c] = qi < s ? delta[vec + qi] : 0.f;
       }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int key = key0 + kc * 16 + nt * 8 + 2 * t + (r & 1);
-          const int h = r >> 1;
-          const float p =
-              key < s ? exp2f(st[nt][r] * scale_log2 - lse2[h]) : 0.f;
-          dp[nt][r] = p * (dp[nt][r] - dl[h]) * scale;
-        }
-      }
-      const uint32_t dsa[4] = {flash::pack_bf16(dp[0][0], dp[0][1]),
-                               flash::pack_bf16(dp[0][2], dp[0][3]),
-                               flash::pack_bf16(dp[1][0], dp[1][1]),
-                               flash::pack_bf16(dp[1][2], dp[1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        flash::load_b_trans<LD>(b, ks, kc * 16, np * 16, lane);
-        flash::mma_bf16(dq_acc[2 * np], dsa, b[0], b[1]);
-        flash::mma_bf16(dq_acc[2 * np + 1], dsa, b[2], b[3]);
+      if (lane == 0) {
+        bf16* qt = ring + st * 2 * BQ * D;
+        hp::mbar_arrive_expect_tx(&bar_full[st], 2 * C::kTileBytes);
+        hp::load_tile<D, BQ>(qt, &tq, &bar_full[st], row, i * BQ);
+        hp::load_tile<D, BQ>(qt + BQ * D, &tg, &bar_full[st], row, i * BQ);
+      } else {
+        hp::mbar_arrive(&bar_full[st]);
       }
     }
-    __syncthreads();
-  }
+  } else {
+    hp::reg_alloc<kConsumerRegs>();
+    // Consumer warpgroup wg owns keys [key0 + 64 wg, key0 + 64 wg + 64).
+    const int wg = warp >> 2;
+    const int wq = lane & 3;
 
-  store_rows<D>(dq + base, dq_acc, q0 + warp * 16, s, lane);
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    float st_acc[BQ / 2], dp_acc[BQ / 2];  // S^T and dP^T of one query tile
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // p^T, ds^T as A operands
+
+    // S^T = K Q^T and dP^T = V g^T of the query tile in stage st.
+    auto issue = [&](int st) {
+      const bf16* qt = ring + st * 2 * BQ * D;
+      hp::fence_regs(st_acc);
+      hp::fence_regs(dp_acc);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        hp::Wgmma<BQ>::ss(st_acc,
+                                      hp::desc_k<D, kOwn>(ks, wg * 64, kk),
+                                      hp::desc_k<D, BQ>(qt, 0, kk),
+                                      kk > 0 ? 1 : 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        hp::Wgmma<BQ>::ss(dp_acc,
+                                      hp::desc_k<D, kOwn>(vs, wg * 64, kk),
+                                      hp::desc_k<D, BQ>(qt + BQ * D, 0, kk),
+                                      kk > 0 ? 1 : 0);
+      }
+      hp::wgmma_commit();
+      hp::fence_regs(st_acc);
+      hp::fence_regs(dp_acc);
+    };
+    // dv += P^T g and dk += dS^T Q.
+    auto accumulate = [&](int st) {
+      const bf16* qt = ring + st * 2 * BQ * D;
+      hp::fence_regs(dk_acc);
+      hp::fence_regs(dv_acc);
+      hp::fence_regs(pa);
+      hp::fence_regs(da);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        hp::Wgmma<D>::rs(dv_acc, pa[kc],
+                                     hp::desc_mn<D, BQ>(qt + BQ * D, kc), 1);
+        hp::Wgmma<D>::rs(dk_acc, da[kc],
+                                     hp::desc_mn<D, BQ>(qt, kc), 1);
+      }
+      hp::wgmma_commit();
+      hp::fence_regs(dk_acc);
+      hp::fence_regs(dv_acc);
+      hp::fence_regs(pa);
+      hp::fence_regs(da);
+    };
+    // p^T and ds^T of the query tile in stage st, rounded into pa and da.
+    auto grads = [&](int st) {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int c = (i >> 2) * 8 + 2 * wq + (i & 1);  // the query
+        const float p = exp2f(fmaf(st_acc[i], scale_log2, -lse_s[st][c]));
+        st_acc[i] = p;
+        dp_acc[i] = p * (dp_acc[i] - delta_s[st][c]) * scale;
+      }
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        hp::pack_a(pa[kc], st_acc, kc);
+        hp::pack_a(da[kc], dp_acc, kc);
+      }
+    };
+
+    // The two warpgroups run this loop without turns: taking turns at the
+    // tensor cores, as the dq kernel does, measured slower here (PERF.md).
+    hp::mbar_wait(&bar_kv, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % ST;
+      hp::mbar_wait(&bar_full[st], (i / ST) & 1);
+      issue(st);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(st_acc);
+      hp::fence_regs(dp_acc);
+      grads(st);
+      accumulate(st);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dk_acc);
+      hp::fence_regs(dv_acc);
+      hp::fence_regs(pa);
+      hp::fence_regs(da);
+      if (lane == 0) hp::mbar_arrive(&bar_free[st]);
+    }
+
+    const int r0 = key0 + wg * 64 + acc_row(tid);
+    store_acc<D>(dk + vec * D, dk_acc, r0, s, wq);
+    store_acc<D>(dv + vec * D, dv_acc, r0, s, wq);
+  }
+}
+
+template <int D>
+struct Dq {
+  static constexpr int kBN = 64;                  // keys a staged tile
+  static constexpr int kOwnBytes = kOwn * D * 2;  // the Q or the g tile
+  static constexpr int kTileBytes = kBN * D * 2;  // one K or V tile
+  static constexpr int kSmem = 2 * kOwnBytes + 2 * kStages * kTileBytes + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tg,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int s, int tiles_per_row, float scale,
+                       float scale_log2) {
+  using C = Dq<D>;
+  constexpr int BN = C::kBN;
+  constexpr int ST = kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_qg, bar_full[ST], bar_free[ST];
+  uint8_t* smem = hp::align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* gs = qs + kOwn * D;
+  // Stage st: the K tile at ring + 2 st BN D, the V tile after it.
+  bf16* ring = gs + kOwn * D;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int row = blockIdx.x / tiles_per_row;
+  const int q0 = (blockIdx.x % tiles_per_row) * kOwn;
+  const int64_t vec = static_cast<int64_t>(row) * s;
+  const int n = (s + BN - 1) / BN;
+
+  if (tid == 0) {
+    hp::mbar_init(&bar_qg, 1);
+    for (int st = 0; st < ST; ++st) {
+      hp::mbar_init(&bar_full[st], 1);
+      hp::mbar_init(&bar_free[st], kConsumers / 32);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    hp::reg_dealloc<kProducerRegs>();
+    if (warp > kConsumers / 32) return;
+    if (lane == 0) {
+      hp::prefetch_tensor_map(&tq);
+      hp::prefetch_tensor_map(&tk);
+      hp::prefetch_tensor_map(&tv);
+      hp::prefetch_tensor_map(&tg);
+      hp::mbar_arrive_expect_tx(&bar_qg, 2 * C::kOwnBytes);
+      hp::load_tile<D, kOwn>(qs, &tq, &bar_qg, row, q0);
+      hp::load_tile<D, kOwn>(gs, &tg, &bar_qg, row, q0);
+      for (int j = 0; j < n; ++j) {
+        const int st = j % ST;
+        if (j >= ST) hp::mbar_wait(&bar_free[st], ((j / ST) & 1) ^ 1);
+        bf16* kt = ring + st * 2 * BN * D;
+        hp::mbar_arrive_expect_tx(&bar_full[st], 2 * C::kTileBytes);
+        hp::load_tile<D, BN>(kt, &tk, &bar_full[st], row, j * BN);
+        hp::load_tile<D, BN>(kt + BN * D, &tv, &bar_full[st], row, j * BN);
+      }
+    }
+  } else {
+    hp::reg_alloc<kConsumerRegs>();
+    // Consumer warpgroup wg owns queries [q0 + 64 wg, q0 + 64 wg + 64).
+    const int wg = warp >> 2;
+    const int wq = lane & 3;
+    const int r0 = q0 + wg * 64 + acc_row(tid);
+    float lse2[2], dl[2];  // rows r0 and r0 + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = r0 + 8 * h;
+      lse2[h] = i < s ? lse[vec + i] * flash::kLog2e : INFINITY;
+      dl[h] = i < s ? delta[vec + i] : 0.f;
+    }
+
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    float s_acc[BN / 2], dp_acc[BN / 2];  // S and dP of one key tile
+    uint32_t da[BN / 16][4];              // ds as the A operand
+
+    // S = Q K^T and dP = g V^T of the key tile in stage st.
+    auto issue = [&](int st) {
+      const bf16* kt = ring + st * 2 * BN * D;
+      hp::fence_regs(s_acc);
+      hp::fence_regs(dp_acc);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        hp::Wgmma<BN>::ss(s_acc,
+                                      hp::desc_k<D, kOwn>(qs, wg * 64, kk),
+                                      hp::desc_k<D, BN>(kt, 0, kk),
+                                      kk > 0 ? 1 : 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        hp::Wgmma<BN>::ss(dp_acc,
+                                      hp::desc_k<D, kOwn>(gs, wg * 64, kk),
+                                      hp::desc_k<D, BN>(kt + BN * D, 0, kk),
+                                      kk > 0 ? 1 : 0);
+      }
+      hp::wgmma_commit();
+      hp::fence_regs(s_acc);
+      hp::fence_regs(dp_acc);
+    };
+    // dq += dS K.
+    auto accumulate = [&](int st) {
+      const bf16* kt = ring + st * 2 * BN * D;
+      hp::fence_regs(dq_acc);
+      hp::fence_regs(da);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        hp::Wgmma<D>::rs(dq_acc, da[kc],
+                                     hp::desc_mn<D, BN>(kt, kc), 1);
+      }
+      hp::wgmma_commit();
+      hp::fence_regs(dq_acc);
+      hp::fence_regs(da);
+    };
+    // ds of key tile j, rounded into da; keys past S get p = 0.
+    auto grads = [&](int j) {
+      const int key0 = j * BN;
+      const bool ragged = key0 + BN > s;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        float p = exp2f(fmaf(s_acc[i], scale_log2, -lse2[h]));
+        if (ragged && key0 + (i >> 2) * 8 + 2 * wq + (i & 1) >= s) p = 0.f;
+        dp_acc[i] = p * (dp_acc[i] - dl[h]) * scale;
+      }
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) hp::pack_a(da[kc], dp_acc, kc);
+    };
+
+    // Turn t (0..n) of this warpgroup at the tensor cores issues dq's
+    // product for key tile t - 1 and S, dP of tile t; between turns it
+    // waits for them and computes tile t's ds. The warpgroups alternate
+    // (named barriers 1 and 2, warpgroup 0 first), so that one's
+    // exponentials run while the other's products do.
+    const int my_bar = 1 + wg, other_bar = 2 - wg;
+    if (wg == 1) hp::named_arrive(1, kConsumers);
+    hp::mbar_wait(&bar_qg, 0);
+    hp::mbar_wait(&bar_full[0], 0);
+    hp::named_sync(my_bar, kConsumers);
+    issue(0);
+    hp::named_arrive(other_bar, kConsumers);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(s_acc);
+    hp::fence_regs(dp_acc);
+    grads(0);
+    for (int j = 0; j + 1 < n; ++j) {
+      const int st = j % ST;
+      const int nst = (j + 1) % ST;
+      hp::mbar_wait(&bar_full[nst], ((j + 1) / ST) & 1);
+      hp::named_sync(my_bar, kConsumers);
+      accumulate(st);
+      issue(nst);
+      hp::named_arrive(other_bar, kConsumers);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dq_acc);
+      hp::fence_regs(da);
+      hp::fence_regs(s_acc);
+      hp::fence_regs(dp_acc);
+      if (lane == 0) hp::mbar_arrive(&bar_free[st]);
+      grads(j + 1);
+    }
+    hp::named_sync(my_bar, kConsumers);
+    accumulate((n - 1) % ST);
+    if (wg == 0) hp::named_arrive(other_bar, kConsumers);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dq_acc);
+    hp::fence_regs(da);
+    store_acc<D>(dq + vec * D, dq_acc, r0, s, wq);
+  }
 }
 
 // --- f32: scalar FMA, a thread per row of the owned tile -------------------
@@ -388,49 +598,80 @@ struct Args {
 };
 
 template <int D>
+cudaError_t launch_wgmma(const Args& a) {
+  const int tiles = (a.s + kOwn - 1) / kOwn;
+  const int64_t blocks = a.rows * tiles;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  // Boxes of kOwn rows for the tiles a block keeps, of the staged tile's
+  // rows for the ones it streams.
+  CUtensorMap q_own, g_own, k_own, v_own, q_str, g_str, k_str, v_str;
+  cudaError_t err = cudaSuccess;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int box;
+  } maps[8] = {{&q_own, a.q, kOwn},         {&g_own, a.g, kOwn},
+               {&k_own, a.k, kOwn},         {&v_own, a.v, kOwn},
+               {&q_str, a.q, Dkv<D>::kBQ},  {&g_str, a.g, Dkv<D>::kBQ},
+               {&k_str, a.k, Dq<D>::kBN},   {&v_str, a.v, Dq<D>::kBN}};
+  for (const auto& m : maps) {
+    if (err == cudaSuccess) {
+      err = hp::tensor_map_3d(m.map, m.base, a.rows, a.s, D, m.box);
+    }
+  }
+  if (err != cudaSuccess) return err;
+  err = flash::launch_delta<bf16, D, flash::for_flash_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, a.stream);
+  if (err != cudaSuccess) return err;
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  const float scale_log2 = a.scale * flash::kLog2e;
+  const dim3 grid(static_cast<unsigned>(blocks));
+
+  auto dkv = flash_bwd_dkv_wgmma<D>;
+  err = cudaFuncSetAttribute(
+      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  dkv<<<grid, kMmaThreads, Dkv<D>::kSmem, a.stream>>>(
+      q_str, k_own, v_own, g_str, lse, delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.s, tiles, a.scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dq = flash_bwd_dq_wgmma<D>;
+  err = cudaFuncSetAttribute(
+      dq, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  dq<<<grid, kMmaThreads, Dq<D>::kSmem, a.stream>>>(
+      q_own, k_str, v_str, g_own, lse, delta, static_cast<bf16*>(a.dq), a.s,
+      tiles, a.scale, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_d(const Args& a, bool is_bf16) {
-  const int bm = is_bf16 ? kTile : kThreads;  // rows a block owns
-  const int tiles = (a.s + bm - 1) / bm;
+  if (is_bf16) return launch_wgmma<D>(a);
+  const int tiles = (a.s + kThreads - 1) / kThreads;  // rows a block owns
   const int64_t blocks = a.rows * tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
   const dim3 grid(static_cast<unsigned>(blocks));
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err;
-  if (is_bf16) {
-    err = flash::launch_delta<bf16, D, flash::for_flash_bwd>(
-        a.out, a.g, a.delta, a.rows * a.s, a.stream);
-    if (err != cudaSuccess) return err;
-    const bf16* q = static_cast<const bf16*>(a.q);
-    const bf16* k = static_cast<const bf16*>(a.k);
-    const bf16* v = static_cast<const bf16*>(a.v);
-    const bf16* g = static_cast<const bf16*>(a.g);
-    const float scale_log2 = a.scale * flash::kLog2e;
-    flash_bwd_dkv_mma<D><<<grid, kThreads, 0, a.stream>>>(
-        q, k, v, g, lse, delta, static_cast<bf16*>(a.dk),
-        static_cast<bf16*>(a.dv), a.s, tiles, a.scale, scale_log2);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_mma<D><<<grid, kThreads, 0, a.stream>>>(
-        q, k, v, g, lse, delta, static_cast<bf16*>(a.dq), a.s, tiles, a.scale,
-        scale_log2);
-  } else {
-    err = flash::launch_delta<float, D, flash::for_flash_bwd>(
-        a.out, a.g, a.delta, a.rows * a.s, a.stream);
-    if (err != cudaSuccess) return err;
-    const float* q = static_cast<const float*>(a.q);
-    const float* k = static_cast<const float*>(a.k);
-    const float* v = static_cast<const float*>(a.v);
-    const float* g = static_cast<const float*>(a.g);
-    flash_bwd_dkv_f32<D><<<grid, kThreads, 0, a.stream>>>(
-        q, k, v, g, lse, delta, static_cast<float*>(a.dk),
-        static_cast<float*>(a.dv), a.s, tiles, a.scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_f32<D><<<grid, kThreads, 0, a.stream>>>(
-        q, k, v, g, lse, delta, static_cast<float*>(a.dq), a.s, tiles,
-        a.scale);
-  }
+  cudaError_t err = flash::launch_delta<float, D, flash::for_flash_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, a.stream);
+  if (err != cudaSuccess) return err;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* g = static_cast<const float*>(a.g);
+  flash_bwd_dkv_f32<D><<<grid, kThreads, 0, a.stream>>>(
+      q, k, v, g, lse, delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.s, tiles, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32<D><<<grid, kThreads, 0, a.stream>>>(
+      q, k, v, g, lse, delta, static_cast<float*>(a.dq), a.s, tiles,
+      a.scale);
   return cudaGetLastError();
 }
 
@@ -472,4 +713,22 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory, in bytes, that the bf16 dkv (kernel = 0) or dq
+// (kernel = 1) kernel at head dim d is launched with (0 for a head dim it
+// does not take).
+extern "C" int flash_attention_bwd_smem(int d, int kernel) {
+  switch (d) {
+    case 16:
+      return kernel == 0 ? Dkv<16>::kSmem : Dq<16>::kSmem;
+    case 32:
+      return kernel == 0 ? Dkv<32>::kSmem : Dq<32>::kSmem;
+    case 64:
+      return kernel == 0 ? Dkv<64>::kSmem : Dq<64>::kSmem;
+    case 128:
+      return kernel == 0 ? Dkv<128>::kSmem : Dq<128>::kSmem;
+    default:
+      return 0;
+  }
 }

@@ -11,34 +11,44 @@
 // maximum m, a running sum l and an f32 accumulator per query, one rounding
 // to the input dtype at the end. The training instantiation also writes
 // lse_i = m_i + log l_i (f32 [B*h, S]) for the backward
-// (flash_attention_bwd.cu); the eval instantiation writes none. The key
+// (flash_attention_bwd.cu); the eval instantiation writes none and is
+// otherwise the same code, so the two outputs agree bit for bit. The key
 // length is an argument: keys at or past S in the last tile get a logit of
 // -inf, so there are no padded copies of q, k, v and no segment ids (the TPU
 // wrapper pads S to 512 and masks by segment id because Mosaic's blocks
-// must divide the arrays). Query rows at or past S in the last query tile
-// are computed on zeros and never written.
+// must divide the arrays). Query rows at or past S are never written.
 //
 // What bounds it on this card: operations. A call does 4*B*h*S^2*d flops
 // (0.97 TFLOP at B*h=384, S=3137, d=64: 0.98 ms at the 989 TFLOP/s bf16
 // peak) and must move only q, k, v and out once (617 MB, 0.18 ms at
-// 3.35 TB/s). So the bf16 kernel runs both products on the tensor cores:
-//   - a block of 8 warps owns 128 queries, a warp 16 of them; its Q
-//     fragments stay in registers for the whole key loop;
-//   - K and V tiles of 64 keys are staged in shared memory (16-byte loads,
-//     rows padded by 16 bytes so ldmatrix reads without bank conflicts) and
-//     shared by the 8 warps, which cuts the re-reads of K and V from L2 to
-//     one per 128 queries;
-//   - S = Q K^T by mma.sync.m16n8k16 (bf16 in, f32 out), the softmax on the
-//     accumulator registers (row statistics reduced over the 4 lanes that
-//     share a row), P rounded to bf16 in registers and fed straight back as
-//     the A operand of O += P V. Nothing of size S x S touches memory.
+// 3.35 TB/s); its B*h*S^2 exponentials (3.8e9) take about as long again on
+// the special-function units. So the bf16 kernel is built around the
+// tensor cores' asynchronous warpgroup products and keeps the exponentials
+// beside them:
+//   - a block owns 128 queries: two consumer warpgroups of 64 queries and
+//     one producer warp;
+//   - the producer brings the Q tile once and then K and V tiles of 128
+//     keys (64 at d = 128) by TMA into a ring of 3 stages, each with a
+//     "full" mbarrier per tensor (completed by the copy's bytes) and a
+//     "free" mbarrier (completed by the 8 consumer warps); TMA's 3-D maps
+//     over [B*h, S, d] zero-fill a tile past S without reading the next
+//     head, and swizzle rows so that wgmma reads without bank conflicts;
+//   - S = Q K^T is a wgmma with both operands in shared memory and f32
+//     accumulators; the softmax runs on those registers (row statistics
+//     reduced over the 4 lanes that share a row); P is rounded to bf16 in
+//     registers and is the register A operand of O += P V, whose B operand
+//     V is read through the transpose bit, so it stays [keys, d];
+//   - each warpgroup issues the next tile's Q K^T together with the current
+//     tile's P V and runs the softmax of the next tile while P V is still in
+//     flight, and the two warpgroups take turns at issuing (named
+//     barriers), so that one's exponentials run under the other's products.
+//     The A operand and the accumulators are written only while no product
+//     is in flight: ptxas serializes every product of a pipeline stage in
+//     which other instructions write their registers.
 // P is rounded to bf16 for the second product (the tensor cores take bf16),
 // while l sums the unrounded f32 weights; the plain version keeps P in f32.
 // The difference is a sum of S independent roundings of relative size 2^-9,
 // far below one bf16 ulp of a typical output.
-// This first design issues its loads and its products from the same warps
-// with one barrier pair per key tile: no wgmma, no TMA, no pipelining of
-// the next tile behind the current products. Those are later work.
 //
 // The f32 instantiation is a scalar-FMA kernel (a thread per query, K and V
 // tiles broadcast from shared memory): full f32 products, which TF32 tensor
@@ -52,156 +62,235 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using flash::kPad;
 using bf16 = __nv_bfloat16;
+namespace hp = hopper;
 
-constexpr int kMmaThreads = 256;  // 8 warps of 16 queries
-constexpr int kMmaBM = 128;       // queries a block
-constexpr int kMmaBN = 64;        // keys a tile
+constexpr int kConsumers = 256;            // two warpgroups of 64 queries
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kBM = 128;                   // queries a block
 
-// At most 128 registers a thread for d <= 64, so that two blocks (16 warps)
-// share an SM and one block's loads hide behind the other's products.
+template <int D>
+struct Fwd {
+  // 128-key tiles keep the logits in 64 registers a thread; at d = 128 the
+  // output accumulator takes 64 more, so the tiles are 64 keys.
+  static constexpr int kBN = D <= 64 ? 128 : 64;
+  static constexpr int kStages = 3;
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kTileBytes = kBN * D * 2;  // one K or V tile
+  // Q, the K/V ring, and 1 KB to align the tiles to the swizzle's period.
+  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024;
+};
+
 template <int D, bool kLse>
-__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 2 : 1)
-    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                  float* __restrict__ lse, int s, int tiles_per_row,
-                  float scale_log2) {
-  constexpr int LD = D + kPad;
-  constexpr int BN = kMmaBN;
-  static_assert(kMmaBM == 2 * BN, "the Q tile is staged through K and V's");
-  __shared__ __align__(16) bf16 smem[2 * BN * LD];
-  bf16* ks = smem;
-  bf16* vs = smem + BN * LD;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    bf16* __restrict__ out, float* __restrict__ lse, int s,
+                    int tiles_per_row, float scale_log2) {
+  using C = Fwd<D>;
+  constexpr int BN = C::kBN;
+  constexpr int ST = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_k[ST], bar_v[ST], bar_free[ST];
+  uint8_t* smem = hp::align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  // Stage st: the K tile at ring + 2 st BN D, the V tile after it.
+  bf16* ring = reinterpret_cast<bf16*>(smem + C::kQBytes);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int q0 = (blockIdx.x % tiles_per_row) * kMmaBM;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int row = blockIdx.x / tiles_per_row;
+  const int q0 = (blockIdx.x % tiles_per_row) * kBM;
+  const int n = (s + BN - 1) / BN;
 
-  // The Q tile goes through K's and V's shared memory into registers.
-  flash::load_tile<kMmaBM, D, kMmaThreads>(smem, q + base, q0, s, tid);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    flash::load_a<LD>(qf[kk], smem, warp * 16, kk * 16, lane);
+  if (tid == 0) {
+    hp::mbar_init(&bar_q, 1);
+    for (int st = 0; st < ST; ++st) {
+      hp::mbar_init(&bar_k[st], 1);
+      hp::mbar_init(&bar_v[st], 1);
+      hp::mbar_init(&bar_free[st], kConsumers / 32);
+    }
+    hp::fence_barrier_init();
   }
   __syncthreads();
 
-  float o[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) o[nt][r] = 0.f;
-  }
-  // Rows g and g + 8 of the warp's 16; m in log2 units of the scaled logit.
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
-
-  const int key_tiles = (s + BN - 1) / BN;
-  for (int kt = 0; kt < key_tiles; ++kt) {
-    const int key0 = kt * BN;
-    flash::load_tile<BN, D, kMmaThreads>(ks, k + base, key0, s, tid);
-    flash::load_tile<BN, D, kMmaThreads>(vs, v + base, key0, s, tid);
-    __syncthreads();
-
-    float sc[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) sc[nt][r] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t b[4];
-        flash::load_b<LD>(b, ks, np * 16, kk * 16, lane);
-        flash::mma_bf16(sc[2 * np], qf[kk], b[0], b[1]);
-        flash::mma_bf16(sc[2 * np + 1], qf[kk], b[2], b[3]);
+  if (warp == kConsumers / 32) {
+    // Producer: one lane issues every copy.
+    if (lane == 0) {
+      hp::prefetch_tensor_map(&tq);
+      hp::prefetch_tensor_map(&tk);
+      hp::prefetch_tensor_map(&tv);
+      hp::mbar_arrive_expect_tx(&bar_q, C::kQBytes);
+      hp::load_tile<D, kBM>(qs, &tq, &bar_q, row, q0);
+      for (int j = 0; j < n; ++j) {
+        const int st = j % ST;
+        // Tile j - ST, which used this stage, must have been consumed.
+        if (j >= ST) hp::mbar_wait(&bar_free[st], ((j / ST) & 1) ^ 1);
+        bf16* ks = ring + st * 2 * BN * D;
+        hp::mbar_arrive_expect_tx(&bar_k[st], C::kTileBytes);
+        hp::load_tile<D, BN>(ks, &tk, &bar_k[st], row, j * BN);
+        hp::mbar_arrive_expect_tx(&bar_v[st], C::kTileBytes);
+        hp::load_tile<D, BN>(ks + BN * D, &tv, &bar_v[st], row, j * BN);
       }
     }
+  } else {
+    // Consumer warpgroup wg owns queries [q0 + 64 wg, q0 + 64 wg + 64); this
+    // thread holds rows r and r + 8 of them, columns 8j + 2wq (+1).
+    const int wg = warp >> 2;
+    const int wq = lane & 3;
+    const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2);
 
-    const bool ragged = key0 + BN > s;
-    float mx[2] = {-INFINITY, -INFINITY};
+    float o[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float sc[BN / 2];         // logits, then weights, of one key tile
+    uint32_t pa[BN / 16][4];  // the weights as P V's A operand
+    // m in log2 units of the scaled logit; l this lane's share of the sum.
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+
+    auto qk = [&](int st) {
+      const bf16* ks = ring + st * 2 * BN * D;
+      hp::fence_regs(sc);
+      hp::wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float x = sc[nt][r] * scale_log2;
-        if (ragged && key0 + nt * 8 + 2 * t + (r & 1) >= s) x = -INFINITY;
-        sc[nt][r] = x;
-        mx[r >> 1] = fmaxf(mx[r >> 1], x);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        hp::Wgmma<BN>::ss(sc, hp::desc_k<D, kBM>(qs, wg * 64, kk),
+                                      hp::desc_k<D, BN>(ks, 0, kk),
+                                      kk > 0 ? 1 : 0);
       }
-    }
+      hp::wgmma_commit();
+      hp::fence_regs(sc);
+    };
+    auto pv = [&](int st) {
+      const bf16* vs = ring + st * 2 * BN * D + BN * D;
+      hp::fence_regs(o);
+      hp::fence_regs(pa);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        hp::Wgmma<D>::rs(o, pa[kc], hp::desc_mn<D, BN>(vs, kc), 1);
+      }
+      hp::wgmma_commit();
+      hp::fence_regs(o);
+      hp::fence_regs(pa);
+    };
+    // The online softmax of key tile j on sc, in place: updates m and l and
+    // returns the factor that rescales o.
+    auto softmax = [&](int j, float (&alpha)[2]) {
+      const int key0 = j * BN;
+      if (key0 + BN > s) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          if (key0 + (i >> 2) * 8 + 2 * wq + (i & 1) >= s) sc[i] = -INFINITY;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        // The tile's first key is real, so m_new is finite and neither
+        // difference is (-inf) - (-inf).
+        const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+        alpha[h] = exp2f(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        const float p = exp2f(fmaf(sc[i], scale_log2, -m[h]));
+        sc[i] = p;
+        l[h] += p;
+      }
+    };
+    // The weights, rounded to bf16, into the A operand of P V. Only called
+    // when no product is in flight: ptxas serializes every wgmma of a
+    // pipeline stage in which other instructions write their registers.
+    auto to_pa = [&]() {
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) hp::pack_a(pa[kc], sc, kc);
+    };
+    auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    };
+
+    // Step j issues Q K_j^T and then P_{j-1} V_{j-1}, and runs the softmax
+    // of tile j while P V is in flight. The two warpgroups take turns at
+    // issuing (named barriers 1 and 2, warpgroup 0 first), so that one's
+    // softmax runs while the other's products keep the tensor cores busy.
+    // Each warpgroup takes n + 1 turns and arrives once for each of the
+    // other's.
     float alpha[2];
+    const int my_bar = 1 + wg, other_bar = 2 - wg;
+    if (wg == 1) hp::named_arrive(1, kConsumers);
+    hp::mbar_wait(&bar_q, 0);
+    hp::mbar_wait(&bar_k[0], 0);
+    hp::named_sync(my_bar, kConsumers);
+    qk(0);
+    hp::named_arrive(other_bar, kConsumers);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    softmax(0, alpha);
+    to_pa();
+    for (int j = 1; j < n; ++j) {
+      const int st = j % ST;
+      const int pst = (j - 1) % ST;
+      hp::mbar_wait(&bar_k[st], (j / ST) & 1);
+      hp::mbar_wait(&bar_v[pst], ((j - 1) / ST) & 1);
+      hp::named_sync(my_bar, kConsumers);
+      qk(st);
+      rescale(alpha);  // o is idle until P V is issued
+      pv(pst);
+      hp::named_arrive(other_bar, kConsumers);
+      hp::wgmma_wait<1>();  // Q K_j^T is done; P_{j-1} V_{j-1} may not be
+      hp::fence_regs(sc);
+      softmax(j, alpha);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(o);
+      hp::fence_regs(pa);
+      if (lane == 0) hp::mbar_arrive(&bar_free[pst]);
+      to_pa();
+    }
+    rescale(alpha);
+    const int lst = (n - 1) % ST;
+    hp::mbar_wait(&bar_v[lst], ((n - 1) / ST) & 1);
+    hp::named_sync(my_bar, kConsumers);
+    pv(lst);
+    if (wg == 0) hp::named_arrive(other_bar, kConsumers);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(o);
+
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      // Key 0 is always real, so after the first tile m is finite and
-      // neither difference below is (-inf) - (-inf).
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int i = q0 + r + 8 * h;
+      if (i >= s) continue;
+      const float inv = 1.f / l[h];
+      bf16* orow = out + (static_cast<int64_t>(row) * s + i) * D;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = exp2f(sc[nt][r] - m[r >> 1]);
-        sc[nt][r] = p;
-        l[r >> 1] += p;
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * wq) =
+            __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
+                                  o[4 * j + 2 * h + 1] * inv);
       }
-    }
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) o[nt][r] *= alpha[r >> 1];
-    }
-
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      const uint32_t pa[4] = {
-          flash::pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
-          flash::pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
-          flash::pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
-          flash::pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        flash::load_b_trans<LD>(b, vs, kc * 16, np * 16, lane);
-        flash::mma_bf16(o[2 * np], pa, b[0], b[1]);
-        flash::mma_bf16(o[2 * np + 1], pa, b[2], b[3]);
+      if (kLse && wq == 0) {
+        lse[static_cast<int64_t>(row) * s + i] =
+            (m[h] + log2f(l[h])) * flash::kLn2;
       }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int i = q0 + warp * 16 + g + 8 * h;
-    if (i >= s) continue;
-    const float inv = 1.f / l[h];
-    bf16* orow = out + base + static_cast<int64_t>(i) * D;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[nt][2 * h] * inv, o[nt][2 * h + 1] * inv);
-    }
-    if (kLse && t == 0) {
-      lse[row * s + i] = (m[h] + log2f(l[h])) * flash::kLn2;
     }
   }
 }
@@ -288,40 +377,54 @@ __global__ void __launch_bounds__(kF32Threads)
   if (kLse) lse[row * s + i] = m + logf(l);
 }
 
+template <int D, bool kLse>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, float* lse, int64_t rows, int s,
+                         float scale, cudaStream_t stream) {
+  using C = Fwd<D>;
+  const int tiles = (s + kBM - 1) / kBM;
+  const int64_t blocks = rows * tiles;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = hp::tensor_map_3d(&tq, q, rows, s, D, kBM);
+  if (err == cudaSuccess) err = hp::tensor_map_3d(&tk, k, rows, s, D, C::kBN);
+  if (err == cudaSuccess) err = hp::tensor_map_3d(&tv, v, rows, s, D, C::kBN);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_wgmma<D, kLse>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), lse, s, tiles,
+      scale * flash::kLog2e);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      float* lse, int64_t rows, int s, bool is_bf16,
                      float scale, cudaStream_t stream) {
-  const int bm = is_bf16 ? kMmaBM : kF32Threads;
-  const int tiles = (s + bm - 1) / bm;
+  if (is_bf16) {
+    return lse != nullptr
+               ? launch_wgmma<D, true>(q, k, v, out, lse, rows, s, scale,
+                                       stream)
+               : launch_wgmma<D, false>(q, k, v, out, lse, rows, s, scale,
+                                        stream);
+  }
+  const int tiles = (s + kF32Threads - 1) / kF32Threads;
   const int64_t blocks = rows * tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
   const dim3 grid(static_cast<unsigned>(blocks));
-  if (is_bf16) {
-    const bf16* qp = static_cast<const bf16*>(q);
-    const bf16* kp = static_cast<const bf16*>(k);
-    const bf16* vp = static_cast<const bf16*>(v);
-    bf16* op = static_cast<bf16*>(out);
-    const float scale_log2 = scale * flash::kLog2e;
-    if (lse != nullptr) {
-      flash_fwd_mma<D, true><<<grid, kMmaThreads, 0, stream>>>(
-          qp, kp, vp, op, lse, s, tiles, scale_log2);
-    } else {
-      flash_fwd_mma<D, false><<<grid, kMmaThreads, 0, stream>>>(
-          qp, kp, vp, op, lse, s, tiles, scale_log2);
-    }
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(out);
+  if (lse != nullptr) {
+    flash_fwd_f32<D, true><<<grid, kF32Threads, 0, stream>>>(
+        qp, kp, vp, op, lse, s, tiles, scale);
   } else {
-    const float* qp = static_cast<const float*>(q);
-    const float* kp = static_cast<const float*>(k);
-    const float* vp = static_cast<const float*>(v);
-    float* op = static_cast<float*>(out);
-    if (lse != nullptr) {
-      flash_fwd_f32<D, true><<<grid, kF32Threads, 0, stream>>>(
-          qp, kp, vp, op, lse, s, tiles, scale);
-    } else {
-      flash_fwd_f32<D, false><<<grid, kF32Threads, 0, stream>>>(
-          qp, kp, vp, op, lse, s, tiles, scale);
-    }
+    flash_fwd_f32<D, false><<<grid, kF32Threads, 0, stream>>>(
+        qp, kp, vp, op, lse, s, tiles, scale);
   }
   return cudaGetLastError();
 }
@@ -362,4 +465,21 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory, in bytes, that the bf16 kernel at head dim d
+// is launched with (0 for a head dim it does not take).
+extern "C" int flash_attention_fwd_smem(int d) {
+  switch (d) {
+    case 16:
+      return Fwd<16>::kSmem;
+    case 32:
+      return Fwd<32>::kSmem;
+    case 64:
+      return Fwd<64>::kSmem;
+    case 128:
+      return Fwd<128>::kSmem;
+    default:
+      return 0;
+  }
 }

@@ -25,9 +25,9 @@ torch.set_num_threads(2)
 # different orders.
 TOL = 1e-5
 # (S, key chunk): chunks that divide S, that leave a ragged last chunk, and
-# that exceed S.
+# that exceed S; and the CUDA kernels' 128-row tile with a ragged end.
 SHAPES = [(1, 512), (127, 127), (127, 50), (513, 512), (513, 171),
-          (1025, 512), (1025, 205)]
+          (1025, 512), (1025, 205), (129, 128), (257, 128)]
 
 
 def _qkv(s, seed=0, d=16, n=3):

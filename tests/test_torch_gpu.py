@@ -144,23 +144,34 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 # --- flash attention ------------------------------------------------------------
 
 # (d, S): one key, ragged last tiles on both axes, exact tiles, the ViT-B/16
-# and ViT-B/4 lengths.
+# and ViT-B/4 lengths; then every head dim at the edges of the kernels' 64-
+# and 128-row tiles (one short, exact, one past), and d = 128 at ViT-B/4's S.
 FLASH_SHAPES = [(16, 1), (64, 1), (64, 127), (32, 129), (128, 197),
                 (16, 512), (64, 577), (64, 1025), (64, 3137)]
+FLASH_SHAPES += [(d, s) for d in (16, 32, 64, 128)
+                 for s in (63, 64, 65, 128, 129, 255, 256, 257)
+                 if (d, s) not in FLASH_SHAPES]
+FLASH_SHAPES += [(128, 3137)]
+# (d, S) whose bf16 gradients lie past 2 ulps on this test's inputs for the
+# kernels before and after the Hopper redesign alike (dv 2.48 ulps for both,
+# dq 3.00 before and 2.00 after, on an H100): at d = 16 and S = 129 a few
+# weights are a large share of a sum and their bf16 rounding is not averaged
+# away. Held to 3; every other case holds 2.
+FLASH_LOOSE_CASES = frozenset({(16, 129)})
 
 
-def _flash_close(got, want, dtype, f32_tol):
+def _flash_close(got, want, dtype, f32_tol, max_ulps=2.0):
     """f32 within ``f32_tol``. bf16: the kernels round the softmax weights
     (and ds) to bf16 for the tensor cores, the plain versions keep f32; the
-    results agree within 2 bf16 ulps of max(|plain|, a quarter of the
-    tensor's largest entry)."""
+    results agree within ``max_ulps`` bf16 ulps of max(|plain|, a quarter
+    of the tensor's largest entry)."""
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=f32_tol, rtol=0)
         return
     got, want = got.float(), want.float()
     floor = max(0.25 * float(want.abs().max()), 2.0 ** -10)
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(floor))) - 7)
-    assert float(((got - want).abs() / ulp).max()) <= 2.0
+    assert float(((got - want).abs() / ulp).max()) <= max_ulps
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -184,9 +195,10 @@ def test_flash_kernels_match_plain(cuda, dtype, d, s):
     assert torch.equal(lean, out)
     _flash_close(out, ref_out, dtype, 1e-5)
     torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    max_ulps = 3.0 if (d, s) in FLASH_LOOSE_CASES else 2.0
     for got, rerun, want in zip(grads, again, ref_grads):
         assert got.dtype == dtype and torch.equal(got, rerun)
-        _flash_close(got, want, dtype, 1e-4)
+        _flash_close(got, want, dtype, 1e-4, max_ulps)
 
 
 def test_flash_launch_counters_and_gradients(cuda):
@@ -205,6 +217,63 @@ def test_flash_launch_counters_and_gradients(cuda):
     for t in (q, k, v):
         assert t.grad is not None and torch.isfinite(t.grad).all()
         assert t.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), 3e38])
+def test_flash_kernels_read_no_other_head(cuda, d, bad):
+    """The q, k, v, g rows of head 1 hold huge or non-finite values; head 0
+    (S = 65: a ragged last tile of every kernel) must come out finite and
+    equal to the plain version on head 0 alone. The kernels' tensor maps
+    zero-fill a tile past S instead of reading the next head's rows."""
+    s = 65
+    q, k, v, g = _inputs(cuda, (1, 2, s, d), torch.bfloat16, n=4, seed=d)
+    for x in (q, k, v, g):
+        x[0, 1] = bad
+    head = [x[:, :1].contiguous() for x in (q, k, v, g)]
+    out, lse = flash.flash_forward_train(q, k, v)
+    with torch.no_grad():
+        lean = flash.flash_attention(q, k, v)
+    ref_out, ref_lse = flash.plain_flash_forward(*head[:3])
+    grads = flash.flash_backward(q, k, v, out, lse, g)
+    ref_grads = flash.plain_flash_backward(*head[:3], out[:, :1].contiguous(),
+                                           lse[:, :1].contiguous(), head[3])
+    torch.cuda.synchronize()
+    for got in (out, lean, lse, *grads):
+        assert torch.isfinite(got[:, :1]).all()
+    _flash_close(out[:, :1], ref_out, torch.bfloat16, 0.0)
+    torch.testing.assert_close(lse[:, :1], ref_lse, atol=1e-5, rtol=0)
+    for got, want in zip(grads, ref_grads):
+        _flash_close(got[:, :1], want, torch.bfloat16, 0.0)
+
+
+def test_flash_launches_on_a_dense_vit_step(cuda):
+    """One bf16 train step and one eval pass of dense ViT-B/4 cut to 2
+    blocks launch the training forward and the backward once per block in
+    the step and the eval forward once per block in the pass."""
+    import numpy as np
+
+    from focused_attention_vit_tpu_torch import train
+    from focused_attention_vit_tpu_torch.models import VisionTransformer
+
+    model = VisionTransformer(img_size=224, patch_size=4, num_classes=10,
+                              depth=2,
+                              generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(model, train.make_adamw(1e-4))
+    rng = np.random.default_rng(0)
+    u8 = rng.integers(0, 256, size=(2, 32, 32, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, size=2)
+    flash.reset_launch_count()
+    _, metrics = train.make_train_step(224, compute_dtype=torch.bfloat16)(
+        state, u8, y, 0)
+    torch.cuda.synchronize()
+    assert [flash.launch_count(k) for k in flash.LAUNCH_KINDS] == [0, 2, 2]
+    assert np.isfinite(float(metrics["loss_sum"]))
+    flash.reset_launch_count()
+    train.make_eval_step(224, compute_dtype=torch.bfloat16)(
+        state, u8, y, np.ones(2, dtype=bool))
+    torch.cuda.synchronize()
+    assert [flash.launch_count(k) for k in flash.LAUNCH_KINDS] == [2, 0, 0]
 
 
 def test_flash_kernels_reject_what_they_do_not_take(cuda):

@@ -115,6 +115,13 @@ def test_port_never_calls_a_library_attention():
      "flash kernels"),
     ("void (anonymous namespace)::flash_bwd_dkv_mma<64>(...)",
      "flash kernels"),
+    ("void (anonymous namespace)::flash_fwd_wgmma<64, true>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, __nv_bfloat16*, float*, int, int, float)",
+     "flash kernels"),
+    ("void (anonymous namespace)::flash_bwd_dkv_wgmma<64>(...)",
+     "flash kernels"),
+    ("void (anonymous namespace)::flash_bwd_dq_wgmma<64>(...)",
+     "flash kernels"),
     ("void (anonymous namespace)::band_bwd_key_kernel<__nv_bfloat16, 64>",
      "band kernels"),
     ("void (anonymous namespace)::tile_band_fwd_mma<64, false>(...)",
@@ -271,3 +278,85 @@ def test_library_path_changes_with_a_shared_header(monkeypatch, tmp_path):
     after = [kernel_build.library_path(n)
              for n in ("mhla_band_fwd", "mhla_band_bwd")]
     assert before[0] != after[0] and before[1] != after[1]
+
+
+# --- the flash kernels' sources ------------------------------------------------
+
+CSRC = REPO / "focused_attention_vit_tpu_torch" / "csrc"
+FLASH_SOURCES = ["flash_attention_fwd.cu", "flash_attention_bwd.cu"]
+
+
+def _with_headers(name: str) -> str:
+    """A source and the text of the ``csrc`` headers it includes."""
+    import re
+
+    text = (CSRC / name).read_text()
+    for header in re.findall(r'#include "(\w+\.cuh)"', text):
+        text += (CSRC / header).read_text()
+    return text
+
+
+@pytest.mark.parametrize("name", FLASH_SOURCES)
+def test_flash_sources_use_wgmma_and_asynchronous_copies(name):
+    """Every product of the bf16 flash kernels is a warpgroup product and
+    the next tile arrives by an asynchronous copy that completes on an
+    mbarrier; the source calls none of the mma.sync fragment helpers."""
+    import re
+
+    own = (CSRC / name).read_text()
+    text = _with_headers(name)
+    assert "wgmma.mma_async" in text
+    assert "cp.async.bulk.tensor" in text
+    assert "mbarrier::complete_tx" in text and "mbarrier.try_wait" in text
+    assert re.search(r"Wgmma<\w+>::ss\(", own)
+    assert re.search(r"Wgmma<\w+>::rs\(", own)
+    assert "load_tile<" in own and "mbar_wait(" in own
+    for old in ("mma_bf16", "ldsm_x4", "load_b_trans", "flash::load_tile<",
+                "mma.sync"):
+        assert old not in own, old
+
+
+_C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p",
+            "long long": "c_longlong", "int": "c_int", "float": "c_float"}
+
+
+@pytest.mark.parametrize("name", FLASH_SOURCES)
+def test_flash_entry_points_match_the_wrapper_signatures(name):
+    """The argument list of each ``extern "C"`` entry point, parsed from the
+    source, is the one the ctypes wrapper declares."""
+    import ctypes
+    import re
+
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+
+    src = (CSRC / name).read_text()
+    entry = name[:-3]
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert m, entry
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    types = [re.sub(r"\s*\w+$", "", p).replace(" *", "*") for p in params]
+    got = [getattr(ctypes, _C_TYPES[t]) for t in types]
+    assert got == flash._SIGNATURES[entry], (types, flash._SIGNATURES[entry])
+
+
+def test_flash_common_keeps_the_fused_kernels_helpers():
+    """``flash_common.cuh`` still defines every ``flash::`` helper that the
+    fused short-S sources use (the flash kernels no longer need them)."""
+    import re
+
+    header = (CSRC / "flash_common.cuh").read_text()
+    used = set()
+    for src in sorted(CSRC.glob("fused_mha_*.cu")):
+        text = src.read_text()
+        assert '#include "flash_common.cuh"' in text
+        used |= set(re.findall(r"flash::(\w+)", text))
+    assert {"mma_bf16", "load_a", "load_b", "load_b_trans", "pack_bf16",
+            "load_tile", "launch_delta"} <= used
+    for name in sorted(used):
+        defined = (
+            re.search(rf"\b(?:void|float|uint32_t|cudaError_t|int)\s+{name}"
+                      rf"\s*\(", header)
+            or re.search(rf"^\s+{name}\(", header, re.M)
+            or re.search(rf"constexpr\s+\w+\s+{name}\s*=", header)
+            or re.search(rf"struct\s+{name}\b", header))
+        assert defined, name
