@@ -13,7 +13,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 1. device: requires CUDA and compute capability 9.0; prints the card's name
    and ``nvidia-smi`` name and power limit;
 2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, in
-   parallel;
+   parallel, and prints ptxas's registers, spills and shared memory of the
+   main path's wgmma kernels;
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
    shapes and at the serving shape, with CUDA-event timings of both;
@@ -60,8 +61,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     versions over S in 1..1024 and at the E1 shape (B*h=1536, S=197, d=64),
     f32 and bf16, at dropout 0 and 0.1; the dropout words bit for bit against
     the plain generator; the backward run twice gives the same bits;
-    CUDA-event timings of the kernels, the plain versions and PyTorch's
-    fused attention;
+    CUDA-event timings of the kernels (the whole-row wgmma kernels at E1's
+    S), the plain versions and PyTorch's fused attention, and of the tiled
+    kernels at S=577 beside the library call;
 15. e1: ``cli.main(["--experiment", "traditional", ...])`` at ViT-B/16, bf16
     autocast, batch 128, attention dropout 0.1, two epochs on synthetic
     CIFAR with ``FAVIT_FUSED_MHA=1``: the one-row CSV has the reference's 19
@@ -167,6 +169,9 @@ TILE_SHAPE = (32, 12, 3137, 64)
 FLASH_SHAPE = (32, 12, 3137, 64)  # B, h, S, d of the flash op at ViT-B/4 b32
 # B, h, S, d of the fused short-S attention at ViT-B/16, batch 128.
 FUSED_SHAPE = (128, 12, 197, 64)
+# A row longer than the whole-row kernels take (S = 577 is ViT-B/16 at 384
+# pixels), B*h = 384: the tiled kernels' shape.
+FUSED_TILED_SHAPE = (32, 12, 577, 64)
 # The bf16 flash kernels round the softmax weights (and ds in the backward)
 # to bf16 for the tensor cores where the plain versions keep f32: a sum of S
 # independent roundings of relative size 2^-9, far below one ulp of a typical
@@ -214,7 +219,12 @@ def bf16_ulps(got: torch.Tensor, ref: torch.Tensor,
     return float(((got.float() - ref).abs() / ulp).max())
 
 
-def cuda_median_ms(fn, repeats: int = 30, warmup: int = 3) -> float:
+def cuda_median_ms(fn, repeats: int = 30, warmup: int = 3,
+                   batch: int = 1) -> float:
+    """Median over ``repeats`` of the CUDA-event time of ``batch`` calls,
+    divided by ``batch``. A batch of back-to-back calls keeps the host's
+    launch work (tensor maps, ctypes, autograd) off the device's clock
+    where a call takes about as long on the host as on the card."""
     for _ in range(warmup):
         fn()
     times = []
@@ -222,10 +232,11 @@ def cuda_median_ms(fn, repeats: int = 30, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -277,10 +288,13 @@ def phase_build() -> None:
         log("build", f"ptxas {lib.name}: {len(regs)} kernels, registers "
                      f"{min(regs)}-{max(regs)}, spill stores up to "
                      f"{max(spills, default=0)} bytes")
-        # The bf16 flash kernels at d = 64, the main path's: registers,
-        # spills and the dynamic shared memory they are launched with.
+        # The bf16 flash kernels at d = 64, the main path's, and the fused
+        # whole-row kernels at E1's d = 64, S = 197: registers, spills and
+        # the dynamic shared memory they are launched with.
         if lib.name.startswith("libflash_attention_"):
             _flash_ptxas(lib, text)
+        if lib.name.startswith("libfused_mha_"):
+            _fused_ptxas(lib, text)
 
 
 def _flash_ptxas(lib: Path, text: str) -> None:
@@ -311,6 +325,32 @@ def _flash_ptxas(lib: Path, text: str) -> None:
     if found != set(smem):
         raise AssertionError(f"ptxas report of {sorted(set(smem) - found)} "
                              f"not found in {lib.parent / 'build.log'}")
+
+
+def _fused_ptxas(lib: Path, text: str) -> None:
+    """Log ptxas's report of the whole-row bf16 fused kernel in ``lib`` at
+    E1's shape (d = 64, S = 197: 13 chunks of 16 keys); raise if it spills
+    or is missing."""
+    lib_name = lib.name[3:-3]
+    so = kernel_build.load(lib_name)
+    _, _, s, d = FUSED_SHAPE
+    kernel = lib_name.replace("_mha_", "_") + "_row_wgmma"
+    smem = getattr(so, f"{lib_name}_smem")(d, s)
+    m = re.search(
+        rf"Function properties for \S*?\d{kernel}ILi{d}ELi{-(-s // 16)}E"
+        r"\S*\n\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
+        r".*?Used (\d+) registers(?:.*?(\d+) bytes smem)?", text)
+    if m is None or smem <= 0:
+        raise AssertionError(f"ptxas report of {kernel}<{d}, "
+                             f"{-(-s // 16)}> not found in "
+                             f"{lib.parent / 'build.log'}")
+    spills = int(m.group(1))
+    log("build", f"ptxas {kernel}<{d}, {-(-s // 16)}>: {m.group(2)} "
+                 f"registers, {spills} bytes of spill stores, "
+                 f"{m.group(3) or 0} bytes of static and {smem} of dynamic "
+                 f"shared memory")
+    if spills:
+        raise AssertionError(f"{kernel}<{d}> spills {spills} bytes")
 
 
 def phase_kernel() -> dict:
@@ -1439,22 +1479,28 @@ def phase_kernel_fused() -> dict:
             raise AssertionError(f"two runs of the {dt} fused backward "
                                  f"differ")
         del first, second, res
-        reps = 30 if dtype == torch.bfloat16 else 5
+        # bf16 kernels and library calls: medians of 30 batches of 10 calls
+        # (a call takes about as long on the host as on the card).
+        reps, batch = (30, 10) if dtype == torch.bfloat16 else (5, 1)
         with torch.no_grad():
             times = {
                 "fwd": cuda_median_ms(
-                    lambda: fused.fused_multi_head_attention(q, k, v), reps),
+                    lambda: fused.fused_multi_head_attention(q, k, v), reps,
+                    batch=batch),
                 "fwd_train": cuda_median_ms(
                     lambda: fused.fused_mha_forward_train(q, k, v, rate,
-                                                          seed), reps),
+                                                          seed), reps,
+                    batch=batch),
                 "fwd_train_nodrop": cuda_median_ms(
-                    lambda: fused.fused_mha_forward_train(q, k, v), reps),
+                    lambda: fused.fused_mha_forward_train(q, k, v), reps,
+                    batch=batch),
                 "bwd": cuda_median_ms(
                     lambda: fused.fused_mha_backward(q, k, v, out, lse, g,
-                                                     rate, seed), reps),
+                                                     rate, seed), reps,
+                    batch=batch),
                 "bwd_nodrop": cuda_median_ms(
                     lambda: fused.fused_mha_backward(q, k, v, out, lse, g),
-                    reps),
+                    reps, batch=batch),
                 "fwd_plain": cuda_median_ms(
                     lambda: fused.plain_fused_mha_forward(q, k, v), 5, 1),
                 "fwd_train_plain": cuda_median_ms(
@@ -1465,19 +1511,10 @@ def phase_kernel_fused() -> dict:
                         q, k, v, g, rate, seed, out=out), 5, 1),
                 # PyTorch's fused attention on the same inputs.
                 "fwd_library": cuda_median_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v), reps),
+                    lambda: F.scaled_dot_product_attention(q, k, v), reps,
+                    batch=batch),
             }
-        lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
-        for key, p_drop in (("", rate), ("_nodrop", 0.0)):
-            times[f"fwd_train{key}_library"] = cuda_median_ms(
-                lambda: F.scaled_dot_product_attention(
-                    lq, lk, lv, dropout_p=p_drop), reps)
-            lib_out = F.scaled_dot_product_attention(lq, lk, lv,
-                                                     dropout_p=p_drop)
-            times[f"bwd{key}_library"] = cuda_median_ms(
-                lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g,
-                                            retain_graph=True), reps)
-        del lib_out, lq, lk, lv
+        times.update(_fused_library_times(q, k, v, g, rate, reps, batch))
         log(phase, f"training shape {dt}, kernel / plain / PyTorch fused "
                    f"attention, ms: eval forward {times['fwd']:.4f} / "
                    f"{times['fwd_plain']:.4f} / {times['fwd_library']:.4f}; "
@@ -1491,7 +1528,8 @@ def phase_kernel_fused() -> dict:
                    f"{times['bwd_plain']:.4f} / {times['bwd_library']:.4f} "
                    f"(at rate 0: kernel {times['bwd_nodrop']:.4f}, PyTorch "
                    f"{times['bwd_nodrop_library']:.4f}) (CUDA-event medians "
-                   f"of {reps}, plain of 5); two backward runs bit-identical")
+                   f"of {reps} batches of {batch}, plain of 5 calls); two "
+                   f"backward runs bit-identical")
         # The function's least work: q, k, v in and out back; the backward
         # takes q, k, v and g and gives dq, dk, dv. Two products of S*S*d
         # multiply-adds forward, five backward. The lse that the training
@@ -1526,7 +1564,64 @@ def phase_kernel_fused() -> dict:
                        f"{10 * pairs / times['bwd'] / 1e9:.1f} TFLOP/s")
         del q, k, v, g, out, lse
         torch.cuda.empty_cache()
+
+    # A row longer than one block holds: the tiled kernels, timed beside
+    # the library call (bf16, d = 64, rate 0.1). The grid above holds them
+    # to the ulps rule at S = 577; this timing shape, 64 times as many
+    # rows, is held to the rms rule, and its worst entries are printed.
+    q, k, v, g = inputs(FUSED_TILED_SHAPE, torch.bfloat16)
+    res = _compare_fused(q, k, v, g, rate, seed, max_ulps=float("inf"))
+    check(f"the tiled shape {FUSED_TILED_SHAPE} bf16 rate {rate}", res)
+    raise_failures()
+    out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
+    with torch.no_grad():
+        tiled = {
+            "fwd": cuda_median_ms(
+                lambda: fused.fused_multi_head_attention(q, k, v), 30,
+                batch=10),
+            "fwd_train": cuda_median_ms(
+                lambda: fused.fused_mha_forward_train(q, k, v, rate, seed),
+                30, batch=10),
+            "bwd": cuda_median_ms(
+                lambda: fused.fused_mha_backward(q, k, v, out, lse, g, rate,
+                                                 seed), 30, batch=10),
+            "fwd_library": cuda_median_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), 30,
+                batch=10),
+        }
+    tiled.update(_fused_library_times(q, k, v, g, rate, 30, 10))
+    log(phase, f"tiled shape {FUSED_TILED_SHAPE} bf16 (S past the whole-row "
+               f"kernels), kernel / PyTorch fused attention, ms: eval "
+               f"forward {tiled['fwd']:.4f} / {tiled['fwd_library']:.4f}; "
+               f"training forward at rate {rate} {tiled['fwd_train']:.4f} / "
+               f"{tiled['fwd_train_library']:.4f}; backward at rate {rate} "
+               f"{tiled['bwd']:.4f} / {tiled['bwd_library']:.4f} (medians of "
+               f"30 batches of 10); max abs err "
+               + ", ".join(f"{n} {t}" for n, (_, _, t) in res.items()))
+    del q, k, v, g, out, lse
+    torch.cuda.empty_cache()
     return result
+
+
+def _fused_library_times(q, k, v, g, rate, reps, batch) -> dict:
+    """CUDA-event times of PyTorch's fused attention as the training forward
+    (with ``dropout_p``) and of its backward through autograd, at ``rate``
+    and at 0: the yardstick, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    times = {}
+    lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    for key, p_drop in (("", rate), ("_nodrop", 0.0)):
+        times[f"fwd_train{key}_library"] = cuda_median_ms(
+            lambda: F.scaled_dot_product_attention(
+                lq, lk, lv, dropout_p=p_drop), reps, batch=batch)
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv,
+                                                 dropout_p=p_drop)
+        times[f"bwd{key}_library"] = cuda_median_ms(
+            lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g,
+                                        retain_graph=True), reps,
+            batch=batch)
+    return times
 
 
 @contextlib.contextmanager

@@ -1,8 +1,10 @@
-// Shared pieces of the attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu, fused_mha_fwd.cu, fused_mha_bwd.cu): the
-// warp-level bf16 tensor-core product (mma.sync.m16n8k16, f32 accumulation),
-// ldmatrix fragment loads from shared-memory tiles, the tile loaders, the
-// backward's delta kernel and the accumulator and row helpers.
+// Shared pieces of the attention kernels that do not run on wgmma: the
+// tile band (mhla_tile_band_fwd.cu, mhla_tile_band_bwd.cu) and the f32
+// parity kernels of the flash and fused short-S sources, and the constants
+// and the backward's delta kernel that the wgmma kernels use too: the
+// warp-level bf16 tensor-core product (mma.sync.m16n8k16, f32
+// accumulation), ldmatrix fragment loads from shared-memory tiles, the f32
+// tile loader, the delta kernel and the accumulator and row helpers.
 //
 // Fragment layout of mma.m16n8k16 for lane l, g = l / 4, t = l % 4:
 //   A (16 x 16, row-major), 4 words of two bf16:
@@ -96,27 +98,9 @@ __device__ __forceinline__ void load_b_trans(uint32_t (&b)[4],
       b, tile + (k0 + (mi & 1) * 8 + (lane & 7)) * LD + n0 + (mi >> 1) * 8);
 }
 
-// Copy rows [row0, row0 + ROWS) of a contiguous [s, D] bf16 matrix into a
-// tile, 16 bytes a thread and step; rows at or past s become zeros.
-template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* src, int row0,
-                                          int s, int tid) {
-  constexpr int kVecs = D / 8;  // 16-byte pieces a row
-  constexpr int LD = D + kPad;
-  for (int idx = tid; idx < ROWS * kVecs; idx += THREADS) {
-    const int r = idx / kVecs;
-    const int c = (idx % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < s) {
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<int64_t>(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(tile + r * LD + c) = val;
-  }
-}
-
-// The same for a float matrix into an unpadded float tile.
+// Copy rows [row0, row0 + ROWS) of a contiguous [s, D] float matrix into
+// an unpadded float tile, 16 bytes a thread and step; rows at or past s
+// become zeros.
 template <int ROWS, int D, int THREADS>
 __device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
                                               int row0, int s, int tid) {

@@ -17,27 +17,49 @@
 // for the backward; the eval instantiation writes none and draws nothing.
 //
 // The TPU kernel holds the whole [Sp, Sp] f32 score tile of one row in
-// VMEM (4 MB at Sp = 1024). A block here has 227 KB of shared memory and a
-// warp's registers hold 16 queries x 64 keys at a time, so the kernel walks
-// the keys in tiles of 64 with the online-softmax recurrence instead: a
-// running maximum m, a running sum l and an f32 accumulator per query.
-// Dropout acts on the NORMALISED weights, so the recurrence masks only the
-// numerator: l sums every exp, kept or not, the masked exps go into the
-// product with V, and the result is divided by l and by (1 - rate) at the
-// end. The key length is an argument: keys at or past S get a logit of -inf
-// and query rows at or past S are never written, so nothing is padded to
-// 128 in memory as the TPU wrapper pads it.
+// VMEM and runs the softmax in one pass over it. At S <= 256 and d <= 64 a
+// row's Q, K and V take at most 96 KB, so the bf16 kernel here keeps that
+// shape: one block owns one whole head-row.
 //
 // What bounds it on this card: bytes, on paper. At B*h = 1536, S = 197,
 // d = 64 in bf16 a call moves 155 MB of q, k, v and out (0.046 ms at
-// 3.35 TB/s) and does 15.3 GFLOP (0.015 ms at the bf16 peak). This first
-// design follows the flash forward (flash_attention_fwd.cu): a block of 4
-// warps owns 64 queries of one row, a warp 16; K and V tiles of 64 keys are
-// staged in shared memory with 16-byte loads; both products run on the
-// tensor cores (mma.sync.m16n8k16) with the softmax, and the Philox draw, on
-// the accumulator registers. One Philox call yields the four words of the
-// four keys a lane owns in one row of a 16-key chunk. No wgmma, no TMA, no
-// pipelining: later work.
+// 3.35 TB/s) and does 15.3 GFLOP (0.015 ms at the bf16 peak). In training
+// the Philox draw (one call of 10 rounds per four weights) and the
+// exponentials are the largest share of the work. The whole-row kernel
+// (fused_fwd_row_wgmma, S <= 256 at d <= 64, S <= 128 at d = 128):
+//   - a block is two warpgroups and owns one head-row at a time; it is
+//     persistent (one block an SM, an equal share of the rows each) and
+//     holds two rows, so that the next row's Q, K and V arrive by TMA
+//     (3-D maps over [B*h, S, d], which zero-fill past S inside the head;
+//     two mbarriers a row: Q and K, then V) while this one is computed;
+//     the warpgroups take the row's 64-query tiles in turns;
+//   - keys are padded to a multiple of 16 only (208 at S = 197), and that
+//     width is a template parameter: S = Q K^T for 64 queries over the
+//     whole row is one chain of wgmma products (64 keys each, and one of
+//     16, 32 or 48 for the rest) with the logits in registers;
+//   - the softmax is one pass over the row: maximum, exponentials, the sum
+//     over every key (dropped or not), then the mask on the numerator; in
+//     the accumulator layout a lane owns columns 2t, 2t+1, 2t+8, 2t+9 of
+//     each 16, the four keys of one Philox call, so a call serves four
+//     weights. Warps whose 16 queries all lie past S skip it;
+//   - P, rounded to bf16 in registers, is the A operand of O = P V, with V
+//     read through the transpose bit; the output is divided by the sum and
+//     by (1 - rate) and rounded once. Rounding the weights before they are
+//     normalised keeps the largest of each row exact (1.0); rounding the
+//     normalised weights, as the plain version does, measured 1.3 to 1.4
+//     bf16 ulps of error on average against 1.0 to 1.1 (PERF.md);
+//   - a row at S = 197 is 4 tiles of 64 queries, the last with 5 real
+//     ones. Every product is waited for before its registers are touched,
+//     so ptxas serializes nothing.
+// Eval and training are one code path (the lse store and the draw are
+// flags), so their outputs agree bit for bit.
+//
+// Longer rows (up to the op's S = 1024) take the tiled kernel
+// (fused_fwd_tiled_wgmma): the dense flash forward's block
+// (flash_fwd_block.cuh: 128 queries, K/V tiles of 128 keys, 64 at d = 128,
+// in a TMA ring, wgmma products, the online-softmax recurrence, the two
+// consumer warpgroups taking turns) with the same Philox mask applied to
+// each key tile's weights after they entered the sum.
 //
 // The f32 instantiation is a scalar-FMA kernel (a thread per query) with
 // full f32 products, for parity runs (1e-5 against the plain version), not
@@ -51,12 +73,14 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "flash_fwd_block.cuh"
+#include "hopper_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using flash::kPad;
 using bf16 = __nv_bfloat16;
+namespace hp = hopper;
 
 struct Dropout {
   uint64_t seed;
@@ -64,157 +88,298 @@ struct Dropout {
   float inv_keep;      // 1 / (1 - rate); 1 without dropout
 };
 
-constexpr int kThreads = 128;  // 4 warps of 16 queries, or 128 scalar queries
-constexpr int kBM = 64;        // queries a tensor-core block
-constexpr int kBN = 64;        // keys a tile
+// --- bf16, a whole row a block (S <= kRowMaxKeys) ----------------------------
 
-template <int D, bool kLse, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    fused_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                  float* __restrict__ lse, int s, int tiles_per_row,
-                  float scale_log2, Dropout drop) {
-  constexpr int LD = D + kPad;
-  constexpr int BN = kBN;
-  static_assert(kBM == BN, "the Q tile is staged through K's");
-  __shared__ __align__(16) bf16 ks[BN * LD];
-  __shared__ __align__(16) bf16 vs[BN * LD];
+// The keys of a row that one block holds: S <= 256 at d <= 64, S <= 128 at
+// d = 128 (where the output accumulator takes 64 registers more and two
+// rows' tiles must still fit).
+template <int D>
+constexpr int kRowMaxKeys = D <= 64 ? 256 : 128;
+
+constexpr int kRowThreads = 256;  // two warpgroups
+constexpr int kRowStages = 2;     // rows in flight a block
+
+// Dynamic shared memory of the whole-row kernel: two stages of Q, K and V
+// of a row, and 1 KB to align them (RowFwd below).
+constexpr int row_fwd_smem(int d, int kc) {
+  return kRowStages * (64 * ((kc + 3) / 4) * d * 2 +
+                       2 * ((16 * kc * d * 2 + 1023) / 1024 * 1024)) +
+         1024;
+}
+
+// One instantiation per count KC of 16-key chunks: the row's keys padded to
+// 16 KC are the N of one chain of products, fixed at compile time so that
+// the logits stay in registers.
+template <int D, int KC>
+struct RowFwd {
+  static constexpr int kKeys = 16 * KC;
+  // Whole 64-query tiles: the M of a warpgroup's product.
+  static constexpr int kQRows = 64 * ((KC + 3) / 4);
+  static constexpr int kQBytes = kQRows * D * 2;
+  static constexpr int kKVBytes = (kKeys * D * 2 + 1023) / 1024 * 1024;
+  static constexpr int kStageBytes = kQBytes + 2 * kKVBytes;
+  static constexpr int kSmem = kRowStages * kStageBytes + 1024;
+  static_assert(kSmem == row_fwd_smem(D, KC), "one formula");
+  static_assert(kKeys <= kRowMaxKeys<D>, "row too long for one block");
+  static_assert(kSmem <= 227 * 1024, "shared memory");
+};
+
+// A persistent block walks rows blockIdx.x, blockIdx.x + gridDim.x, ...;
+// row n of its walk sits in stage n % 2, and the next row's loads run
+// while this one is computed. Both warpgroups work on each row, taking its
+// 64-query tiles in turns (the first turn alternating from row to row, so
+// that a short last tile does not always fall to the same one); the one
+// that finishes a row second refills its stage with the row after next.
+template <int D, int KC>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    fused_fwd_row_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        int64_t rows, int s, float scale_log2, Dropout drop,
+                        int drop_on) {
+  using C = RowFwd<D, KC>;
+  constexpr int NK = C::kKeys;
+  constexpr int NFULL = NK / 64;  // 64-key products of the chain
+  constexpr int NTAIL = NK % 64;  // and the last one's width, if any
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_qk[kRowStages], bar_v[kRowStages];
+  __shared__ int released[kRowStages];  // warpgroups done with the stage
+  uint8_t* smem = hp::align1024(smem_raw);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;  // in the warpgroup
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int q0 = (blockIdx.x % tiles_per_row) * kBM;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int wq = lane & 3;
+  // This thread's rows r and r + 8 of each 64-query tile, columns
+  // 8j + 2wq (+1) of the accumulators.
+  const int r = warp * 16 + (lane >> 2);
 
-  // The Q tile goes through K's shared memory into registers.
-  flash::load_tile<kBM, D, kThreads>(ks, q + base, q0, s, tid);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    flash::load_a<LD>(qf[kk], ks, warp * 16, kk * 16, lane);
+  auto load = [&](int st, int64_t row) {
+    uint8_t* base = smem + st * C::kStageBytes;
+    bf16* qs = reinterpret_cast<bf16*>(base);
+    bf16* ks = reinterpret_cast<bf16*>(base + C::kQBytes);
+    bf16* vs = reinterpret_cast<bf16*>(base + C::kQBytes + C::kKVBytes);
+    hp::mbar_arrive_expect_tx(&bar_qk[st], (C::kQRows + NK) * D * 2);
+    hp::load_tile<D, C::kQRows>(qs, &tq, &bar_qk[st], row, 0);
+    hp::load_tile<D, NK>(ks, &tk, &bar_qk[st], row, 0);
+    hp::mbar_arrive_expect_tx(&bar_v[st], NK * D * 2);
+    hp::load_tile<D, NK>(vs, &tv, &bar_v[st], row, 0);
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < kRowStages; ++st) {
+      hp::mbar_init(&bar_qk[st], 1);
+      hp::mbar_init(&bar_v[st], 1);
+      released[st] = 0;
+    }
+    hp::fence_barrier_init();
   }
   __syncthreads();
+  if (tid == 0) {
+    for (int st = 0; st < kRowStages; ++st) {
+      const int64_t row = blockIdx.x + st * static_cast<int64_t>(gridDim.x);
+      if (row < rows) load(st, row);
+    }
+  }
 
-  float o[D / 8][4];
-  flash::zero(o);
-  // Rows g and g + 8 of the warp's 16; m in log2 units of the scaled logit.
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums, unmasked
-
-  for (int key0 = 0; key0 < s; key0 += BN) {
-    flash::load_tile<BN, D, kThreads>(ks, k + base, key0, s, tid);
-    flash::load_tile<BN, D, kThreads>(vs, v + base, key0, s, tid);
-    __syncthreads();
-
-    float sc[BN / 8][4];
-    flash::zero(sc);
+  float sc[NK / 2];    // logits, then weights, of two query rows
+  uint32_t pa[KC][4];  // the weights as P V's A operand
+  float o[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  const int tiles = (s + 63) / 64;
+  for (int n = 0;; ++n) {
+    const int64_t row = blockIdx.x + n * static_cast<int64_t>(gridDim.x);
+    if (row >= rows) break;
+    const int st = n % kRowStages;
+    const uint32_t parity = (n / kRowStages) & 1;
+    uint8_t* base = smem + st * C::kStageBytes;
+    const bf16* qs = reinterpret_cast<const bf16*>(base);
+    const bf16* ks = reinterpret_cast<const bf16*>(base + C::kQBytes);
+    const bf16* vs =
+        reinterpret_cast<const bf16*>(base + C::kQBytes + C::kKVBytes);
+    hp::mbar_wait(&bar_qk[st], parity);
+
+    for (int t = (wg + n) & 1; t < tiles; t += 2) {
+      // S = Q K^T over the whole row: NFULL products of 64 keys and a
+      // narrower last one, with Q's tile as A.
+      hp::fence_regs(sc);
+      hp::wgmma_fence();
 #pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t b[4];
-        flash::load_b<LD>(b, ks, np * 16, kk * 16, lane);
-        flash::mma_bf16(sc[2 * np], qf[kk], b[0], b[1]);
-        flash::mma_bf16(sc[2 * np + 1], qf[kk], b[2], b[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da = hp::desc_k<D, C::kQRows>(qs, 64 * t, kk);
+#pragma unroll
+        for (int c = 0; c < NFULL; ++c) {
+          hp::Wgmma<64>::ss(hp::slice<32>(sc, 32 * c), da,
+                            hp::desc_k<D, NK>(ks, 64 * c, kk),
+                            kk > 0 ? 1 : 0);
+        }
+        if constexpr (NTAIL > 0) {
+          hp::Wgmma<NTAIL>::ss(hp::slice<NTAIL / 2>(sc, 32 * NFULL), da,
+                               hp::desc_k<D, NK>(ks, 64 * NFULL, kk),
+                               kk > 0 ? 1 : 0);
+        }
       }
-    }
+      hp::wgmma_commit();
+      hp::fence_regs(sc);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(sc);
 
-    const bool ragged = key0 + BN > s;
-    float mx[2] = {-INFINITY, -INFINITY};
+      // The softmax in one pass over the row: maximum, exponentials and
+      // the sum over every key, dropped or not; then the mask on the
+      // numerator. A warp whose 16 queries all lie past S skips it: its
+      // rows are never written and the rows of a product do not mix.
+      const int i0 = 64 * t + r;
+      float m[2] = {-INFINITY, -INFINITY};
+      float l[2] = {0.f, 0.f};
+      const bool live = 64 * t + warp * 16 < s;
+      if (live) {
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+        for (int i = 8 * (KC - 1); i < NK / 2; ++i) {  // the last chunk
+          if ((i >> 2) * 8 + 2 * wq + (i & 1) >= s) sc[i] = -INFINITY;
+        }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float x = sc[nt][r] * scale_log2;
-        if (ragged && key0 + nt * 8 + 2 * t + (r & 1) >= s) x = -INFINITY;
-        sc[nt][r] = x;
-        mx[r >> 1] = fmaxf(mx[r >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      // Key 0 is always real, so after the first tile m is finite and
-      // neither difference below is (-inf) - (-inf).
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = exp2f(sc[nt][r] - m[r >> 1]);
-        sc[nt][r] = p;
-        l[r >> 1] += p;  // the softmax sum takes every key, dropped or not
-      }
-    }
-    if (kDrop) {
-      // Only the numerator is masked. One Philox call gives the words of
-      // this lane's four keys of one row in one 16-key chunk.
-#pragma unroll
-      for (int kc = 0; kc < BN / 16; ++kc) {
-        const int grp = 4 * ((key0 >> 4) + kc) + t;
+        for (int i = 0; i < NK / 2; ++i) {
+          m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], sc[i]);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int i = q0 + warp * 16 + g + 8 * h;
-          const uint4 w = philox::mha_words(drop.seed, row, i, grp);
-          if (w.x < drop.threshold) sc[2 * kc][2 * h] = 0.f;
-          if (w.y < drop.threshold) sc[2 * kc][2 * h + 1] = 0.f;
-          if (w.z < drop.threshold) sc[2 * kc + 1][2 * h] = 0.f;
-          if (w.w < drop.threshold) sc[2 * kc + 1][2 * h + 1] = 0.f;
+          m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+          m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+          m[h] *= scale_log2;  // key 0 is real, so m is finite
+        }
+#pragma unroll
+        for (int i = 0; i < NK / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          const float p = exp2f(fmaf(sc[i], scale_log2, -m[h]));
+          sc[i] = p;
+          l[h] += p;
+        }
+        if (drop_on) {
+          // One Philox call gives the words of this lane's four keys of
+          // one row in one 16-key chunk: columns 2wq, 2wq+1, 2wq+8, 2wq+9.
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint4 w = philox::mha_words(drop.seed, row, i0 + 8 * h,
+                                                4 * kc + wq);
+              const int e = 8 * kc + 2 * h;
+              if (w.x < drop.threshold) sc[e] = 0.f;
+              if (w.y < drop.threshold) sc[e + 1] = 0.f;
+              if (w.z < drop.threshold) sc[e + 4] = 0.f;
+              if (w.w < drop.threshold) sc[e + 5] = 0.f;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) hp::pack_a(pa[kc], sc, kc);
+
+      // O = P V, V read through the transpose bit.
+      hp::mbar_wait(&bar_v[st], parity);
+      hp::fence_regs(o);
+      hp::fence_regs(pa);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        hp::Wgmma<D>::rs(o, pa[kc], hp::desc_mn<D, NK>(vs, kc),
+                         kc > 0 ? 1 : 0);
+      }
+      hp::wgmma_commit();
+      hp::fence_regs(o);
+      hp::fence_regs(pa);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(o);
+      hp::fence_regs(pa);
+
+      if (live) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+          const int i = i0 + 8 * h;
+          if (i >= s) continue;
+          const float inv = drop.inv_keep / l[h];
+          bf16* orow = out + (row * s + i) * D;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * wq) =
+                __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
+                                      o[4 * j + 2 * h + 1] * inv);
+          }
+          if (lse != nullptr && wq == 0) {
+            lse[row * s + i] = (m[h] + log2f(l[h])) * flash::kLn2;
+          }
         }
       }
     }
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) o[nt][r] *= alpha[r >> 1];
-    }
 
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      const uint32_t pa[4] = {
-          flash::pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
-          flash::pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
-          flash::pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
-          flash::pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        flash::load_b_trans<LD>(b, vs, kc * 16, np * 16, lane);
-        flash::mma_bf16(o[2 * np], pa, b[0], b[1]);
-        flash::mma_bf16(o[2 * np + 1], pa, b[2], b[3]);
+    // This warpgroup is done with the stage (its products were waited
+    // for); the second to get here refills it with the row after next.
+    hp::named_sync(1 + wg, 128);
+    if ((tid & 127) == 0) {
+      __threadfence_block();
+      if (atomicAdd(&released[st], 1) == 1) {
+        released[st] = 0;
+        const int64_t next = row + kRowStages * static_cast<int64_t>(gridDim.x);
+        if (next < rows) load(st, next);
       }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int i = q0 + warp * 16 + g + 8 * h;
-    if (i >= s) continue;
-    const float inv = drop.inv_keep / l[h];
-    bf16* orow = out + base + static_cast<int64_t>(i) * D;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[nt][2 * h] * inv, o[nt][2 * h + 1] * inv);
-    }
-    if (kLse && t == 0) {
-      lse[row * s + i] = (m[h] + log2f(l[h])) * flash::kLn2;
     }
   }
 }
+
+// --- bf16, tiled (longer rows) -----------------------------------------------
+
+// The Philox mask on the numerator, for the flash forward's block
+// (flash_fwd_block.cuh): zero the weights of this thread's rows i and i + 8
+// whose word is below the threshold, keys from key0 in the accumulator
+// layout, one call per lane, row and 16-key chunk.
+struct PhiloxMask {
+  uint64_t seed;
+  uint32_t threshold;
+  float inv_keep;  // 1 / (1 - rate); 1 without dropout
+  int on;
+
+  template <int N>
+  __device__ __forceinline__ void apply(float (&sc)[N], int64_t row, int i,
+                                        int key0) const {
+    if (!on) return;
+    const int wq = threadIdx.x & 3;
+#pragma unroll
+    for (int kc = 0; kc < N / 8; ++kc) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 w =
+            philox::mha_words(seed, row, i + 8 * h, 4 * (key0 / 16 + kc) + wq);
+        const int e = 8 * kc + 2 * h;
+        if (w.x < threshold) sc[e] = 0.f;
+        if (w.y < threshold) sc[e + 1] = 0.f;
+        if (w.z < threshold) sc[e + 4] = 0.f;
+        if (w.w < threshold) sc[e + 5] = 0.f;
+      }
+    }
+  }
+};
+
+template <int D, bool kLse>
+__global__ void __launch_bounds__(flash_fwd::kThreads, 1)
+    fused_fwd_tiled_wgmma(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          bf16* __restrict__ out, float* __restrict__ lse,
+                          int s, int tiles_per_row, float scale_log2,
+                          PhiloxMask mask) {
+  flash_fwd::block<D, kLse>(tq, tk, tv, out, lse, s, tiles_per_row,
+                            scale_log2, mask);
+}
+
+// --- f32: scalar FMA, a thread per query -------------------------------------
+
+constexpr int kThreads = 128;  // scalar queries a block
 
 template <int D, bool kLse, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
@@ -319,38 +484,108 @@ struct Args {
   float scale;
   bool drop_on;
   Dropout drop;
+  int device;
   cudaStream_t stream;
 };
 
 template <int D, bool kLse, bool kDrop>
-cudaError_t launch_kernel(const Args& a, bool is_bf16) {
-  const int bm = is_bf16 ? kBM : kThreads;
-  const int tiles = (a.s + bm - 1) / bm;
+cudaError_t launch_f32(const Args& a) {
+  const int tiles = (a.s + kThreads - 1) / kThreads;
   const int64_t blocks = a.rows * tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (is_bf16) {
-    fused_fwd_mma<D, kLse, kDrop><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.s,
-        tiles, a.scale * flash::kLog2e, a.drop);
-  } else {
-    fused_fwd_f32<D, kLse, kDrop><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
-        a.s, tiles, a.scale, a.drop);
-  }
+  fused_fwd_f32<D, kLse, kDrop>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
+          a.s, tiles, a.scale, a.drop);
   return cudaGetLastError();
+}
+
+template <int D, bool kLse>
+cudaError_t launch_tiled(const Args& a) {
+  using C = flash_fwd::Fwd<D>;
+  const int tiles = (a.s + flash_fwd::kBM - 1) / flash_fwd::kBM;
+  const int64_t blocks = a.rows * tiles;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err =
+      hp::tensor_map_3d(&tq, a.q, a.rows, a.s, D, flash_fwd::kBM);
+  if (err == cudaSuccess) {
+    err = hp::tensor_map_3d(&tk, a.k, a.rows, a.s, D, C::kBN);
+  }
+  if (err == cudaSuccess) {
+    err = hp::tensor_map_3d(&tv, a.v, a.rows, a.s, D, C::kBN);
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = fused_fwd_tiled_wgmma<D, kLse>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const PhiloxMask mask{a.drop.seed, a.drop.threshold, a.drop.inv_keep,
+                        a.drop_on ? 1 : 0};
+  kernel<<<static_cast<unsigned>(blocks), flash_fwd::kThreads, C::kSmem,
+           a.stream>>>(tq, tk, tv, static_cast<bf16*>(a.out), a.lse, a.s,
+                       tiles, a.scale * flash::kLog2e, mask);
+  return cudaGetLastError();
+}
+
+template <int D, int KC>
+cudaError_t launch_row(const Args& a) {
+  using C = RowFwd<D, KC>;
+  if (a.rows > INT32_MAX) return cudaErrorInvalidConfiguration;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = hp::tensor_map_3d(&tq, a.q, a.rows, a.s, D, C::kQRows);
+  if (err == cudaSuccess) {
+    err = hp::tensor_map_3d(&tk, a.k, a.rows, a.s, D, C::kKeys);
+  }
+  if (err == cudaSuccess) {
+    err = hp::tensor_map_3d(&tv, a.v, a.rows, a.s, D, C::kKeys);
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = fused_fwd_row_wgmma<D, KC>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  // A persistent grid of equal shares: at most one block an SM.
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               a.device);
+  if (err != cudaSuccess) return err;
+  const int64_t per_block = (a.rows + sms - 1) / sms;
+  const int64_t blocks = (a.rows + per_block - 1) / per_block;
+  kernel<<<static_cast<unsigned>(blocks), kRowThreads, C::kSmem, a.stream>>>(
+      tq, tk, tv, static_cast<bf16*>(a.out), a.lse, a.rows, a.s,
+      a.scale * flash::kLog2e, a.drop, a.drop_on ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// The whole-row instantiation for kc = ceil(S / 16) chunks, KC >= kc.
+template <int D, int KC>
+cudaError_t launch_row_chunks(const Args& a, int kc) {
+  if constexpr (KC > 1) {
+    if (kc < KC) return launch_row_chunks<D, KC - 1>(a, kc);
+  }
+  return launch_row<D, KC>(a);
 }
 
 template <int D>
 cudaError_t launch_d(const Args& a, bool is_bf16) {
-  if (a.lse != nullptr) {
-    return a.drop_on ? launch_kernel<D, true, true>(a, is_bf16)
-                     : launch_kernel<D, true, false>(a, is_bf16);
+  if (is_bf16) {
+    // Dispatch by S: a row that one block holds takes the whole-row
+    // kernel, a longer one the tiled kernel. Neither falls back to the
+    // other.
+    if (a.s <= kRowMaxKeys<D>) {
+      return launch_row_chunks<D, kRowMaxKeys<D> / 16>(a, (a.s + 15) / 16);
+    }
+    return a.lse != nullptr ? launch_tiled<D, true>(a)
+                            : launch_tiled<D, false>(a);
   }
-  return a.drop_on ? launch_kernel<D, false, true>(a, is_bf16)
-                   : launch_kernel<D, false, false>(a, is_bf16);
+  if (a.lse != nullptr) {
+    return a.drop_on ? launch_f32<D, true, true>(a)
+                     : launch_f32<D, true, false>(a);
+  }
+  return a.drop_on ? launch_f32<D, false, true>(a)
+                   : launch_f32<D, false, false>(a);
 }
 
 }  // namespace
@@ -378,8 +613,9 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Dropout drop{(static_cast<uint64_t>(seed_hi) << 32) | seed_lo,
                      threshold, drop_on ? 1.f / keep_prob : 1.f};
-  const Args a{q,     k,           v,    out, static_cast<float*>(lse), rows, s,
-               scale, drop_on != 0, drop, static_cast<cudaStream_t>(stream)};
+  const Args a{q,     k,           v,    out,
+               static_cast<float*>(lse), rows, s, scale,
+               drop_on != 0, drop, device, static_cast<cudaStream_t>(stream)};
   const bool bf = is_bf16 != 0;
   switch (d) {
     case 16:
@@ -417,4 +653,14 @@ extern "C" int fused_mha_keep_bits(void* out, long long rows, int s,
       static_cast<uint32_t*>(out), rows, s, groups,
       (static_cast<uint64_t>(seed_hi) << 32) | seed_lo);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory, in bytes, that the whole-row bf16 kernel is
+// launched with at head dim d and key length s (0 where the tiled kernel
+// runs instead).
+extern "C" int fused_mha_fwd_smem(int d, int s) {
+  const int max_keys = d == 16 || d == 32 || d == 64 ? kRowMaxKeys<64>
+                       : d == 128                    ? kRowMaxKeys<128>
+                                                     : 0;
+  return s >= 1 && s <= max_keys ? row_fwd_smem(d, (s + 15) / 16) : 0;
 }

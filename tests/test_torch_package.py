@@ -128,9 +128,14 @@ def test_port_never_calls_a_library_attention():
      "tile band kernels"),
     ("void (anonymous namespace)::tile_band_bwd_mma<64>(...)",
      "tile band kernels"),
-    ("void (anonymous namespace)::fused_fwd_mma<64, true, true>(...)",
+    ("void (anonymous namespace)::fused_fwd_tiled_wgmma<64, true>(...)",
      "fused attention kernels"),
-    ("void (anonymous namespace)::fused_bwd_dkv_mma<64, true>(...)",
+    ("void (anonymous namespace)::fused_bwd_dkv_tiled_wgmma<64>(...)",
+     "fused attention kernels"),
+    ("void (anonymous namespace)::fused_fwd_row_wgmma<64, 13>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, __nv_bfloat16*, float*, long, int, float, "
+     "(anonymous namespace)::Dropout, int)", "fused attention kernels"),
+    ("void (anonymous namespace)::fused_bwd_row_wgmma<64, 13>(...)",
      "fused attention kernels"),
     # The shared row-sum kernel is booked under the op that launched it.
     ("void flash::flash_delta<__nv_bfloat16, 64, flash::for_fused_bwd>(...)",
@@ -280,10 +285,25 @@ def test_library_path_changes_with_a_shared_header(monkeypatch, tmp_path):
     assert before[0] != after[0] and before[1] != after[1]
 
 
-# --- the flash kernels' sources ------------------------------------------------
+# --- the flash and fused kernels' sources ---------------------------------------
 
 CSRC = REPO / "focused_attention_vit_tpu_torch" / "csrc"
 FLASH_SOURCES = ["flash_attention_fwd.cu", "flash_attention_bwd.cu"]
+WGMMA_SOURCES = FLASH_SOURCES + ["fused_mha_bwd.cu", "fused_mha_fwd.cu"]
+# Headers of shared pieces; any other csrc header a source includes holds
+# kernel code of its own (the flash blocks that the fused sources share).
+SHARED_HEADERS = {"flash_common.cuh", "hopper_common.cuh", "philox.cuh"}
+
+
+def _kernel_code(name: str) -> str:
+    """A source and the kernel code it includes (its block headers)."""
+    import re
+
+    text = (CSRC / name).read_text()
+    for header in re.findall(r'#include "(\w+\.cuh)"', text):
+        if header not in SHARED_HEADERS:
+            text += (CSRC / header).read_text()
+    return text
 
 
 def _with_headers(name: str) -> str:
@@ -296,14 +316,15 @@ def _with_headers(name: str) -> str:
     return text
 
 
-@pytest.mark.parametrize("name", FLASH_SOURCES)
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_flash_sources_use_wgmma_and_asynchronous_copies(name):
-    """Every product of the bf16 flash kernels is a warpgroup product and
-    the next tile arrives by an asynchronous copy that completes on an
-    mbarrier; the source calls none of the mma.sync fragment helpers."""
+    """Every product of the bf16 flash kernels and of the fused short-S
+    kernels (whole-row, and tiled on the flash blocks) is a warpgroup
+    product and the tiles arrive by an asynchronous copy that completes on
+    an mbarrier; their code calls none of the mma.sync fragment helpers."""
     import re
 
-    own = (CSRC / name).read_text()
+    own = _kernel_code(name)
     text = _with_headers(name)
     assert "wgmma.mma_async" in text
     assert "cp.async.bulk.tensor" in text
@@ -317,41 +338,60 @@ def test_flash_sources_use_wgmma_and_asynchronous_copies(name):
 
 
 _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p",
-            "long long": "c_longlong", "int": "c_int", "float": "c_float"}
+            "long long": "c_longlong", "int": "c_int", "float": "c_float",
+            "unsigned": "c_uint"}
 
 
-@pytest.mark.parametrize("name", FLASH_SOURCES)
-def test_flash_entry_points_match_the_wrapper_signatures(name):
-    """The argument list of each ``extern "C"`` entry point, parsed from the
-    source, is the one the ctypes wrapper declares."""
+def _entry_types(src: str, entry: str) -> list:
+    """The ctypes types of the argument list of ``extern "C"`` entry point
+    ``entry``, parsed from a source."""
     import ctypes
     import re
 
-    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
-
-    src = (CSRC / name).read_text()
-    entry = name[:-3]
     m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
     assert m, entry
     params = [" ".join(p.split()) for p in m.group(1).split(",")]
     types = [re.sub(r"\s*\w+$", "", p).replace(" *", "*") for p in params]
-    got = [getattr(ctypes, _C_TYPES[t]) for t in types]
-    assert got == flash._SIGNATURES[entry], (types, flash._SIGNATURES[entry])
+    return [getattr(ctypes, _C_TYPES[t]) for t in types]
+
+
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
+def test_flash_entry_points_match_the_wrapper_signatures(name):
+    """The argument list of each ``extern "C"`` entry point that a wrapper
+    declares, parsed from the source, is the one the ctypes wrapper
+    declares (for a fused source: every entry of ``mha_kernel._SIGNATURES``
+    it holds)."""
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+    from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
+
+    src = (CSRC / name).read_text()
+    if name in FLASH_SOURCES:
+        entries = {name[:-3]: flash._SIGNATURES[name[:-3]]}
+    else:
+        entries = {fn: sig for (lib, fn), sig in fused._SIGNATURES.items()
+                   if lib == name[:-3]}
+        assert name[:-3] in entries
+    for entry, declared in entries.items():
+        assert _entry_types(src, entry) == declared, entry
 
 
 def test_flash_common_keeps_the_fused_kernels_helpers():
     """``flash_common.cuh`` still defines every ``flash::`` helper that the
-    fused short-S sources use (the flash kernels no longer need them)."""
+    sources including it use: the tile band's kernels, and the flash and
+    fused short-S sources' f32 kernels, delta kernel and constants."""
     import re
 
     header = (CSRC / "flash_common.cuh").read_text()
+    users = [src for src in sorted(CSRC.glob("*.cu"))
+             if '#include "flash_common.cuh"' in src.read_text()]
+    assert {"mhla_tile_band_fwd.cu", "mhla_tile_band_bwd.cu",
+            "fused_mha_fwd.cu", "fused_mha_bwd.cu"} <= {
+                src.name for src in users}
     used = set()
-    for src in sorted(CSRC.glob("fused_mha_*.cu")):
-        text = src.read_text()
-        assert '#include "flash_common.cuh"' in text
-        used |= set(re.findall(r"flash::(\w+)", text))
+    for src in users:
+        used |= set(re.findall(r"flash::(\w+)", src.read_text()))
     assert {"mma_bf16", "load_a", "load_b", "load_b_trans", "pack_bf16",
-            "load_tile", "launch_delta"} <= used
+            "load_tile_f32", "launch_delta"} <= used
     for name in sorted(used):
         defined = (
             re.search(rf"\b(?:void|float|uint32_t|cudaError_t|int)\s+{name}"
