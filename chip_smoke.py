@@ -14,14 +14,16 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    and ``nvidia-smi`` name and power limit;
 2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, in
    parallel, and prints ptxas's registers, spills and shared memory of the
-   main path's wgmma kernels;
+   main path's wgmma kernels and of every instantiation of the band
+   backward (K2);
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
    shapes and at the serving shape, with CUDA-event timings of both;
 4. kernel-train: the training forward (output, saved weights, dropout mask
    bit for bit) and the backward kernel against their plain versions over a
    grid of shapes and at the training shape, at dropout 0 and 0.1, with
-   CUDA-event timings;
+   CUDA-event timings; the backward run twice gives the same bits, and the
+   profiler splits its time between its two passes;
 5. model: MHLA-B/4 in f32 on the card against the same weights on the CPU;
 6. serve: the ``serve`` module's set-up, ``BatchingServer`` and
    ``HTTPFrontend`` answer concurrent requests in bf16; the eval launch
@@ -295,6 +297,8 @@ def phase_build() -> None:
             _flash_ptxas(lib, text)
         if lib.name.startswith("libfused_mha_"):
             _fused_ptxas(lib, text)
+        if lib.name == "libmhla_band_bwd.so":
+            _band_bwd_ptxas(lib, text)
 
 
 def _flash_ptxas(lib: Path, text: str) -> None:
@@ -351,6 +355,66 @@ def _fused_ptxas(lib: Path, text: str) -> None:
                  f"shared memory")
     if spills:
         raise AssertionError(f"{kernel}<{d}> spills {spills} bytes")
+
+
+def _band_bwd_ptxas(lib: Path, text: str) -> None:
+    """Log ptxas's registers and spills and the dynamic shared memory of
+    every K2 instantiation (pass 1 and 2, per dtype, head dim, slot cap and
+    dropout flag); raise if one is missing or the main path's (bf16, d=64,
+    slot cap 8) spills."""
+    so = kernel_build.load("mhla_band_bwd")
+    found = {}
+    for m in re.finditer(
+            r"Function properties for \S*?band_bwd_(query|key)_kernelI"
+            r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E(?:Lb(\d)E)?E\S*\n\s*\d+ "
+            r"bytes stack frame, (\d+) bytes spill stores.*\n.*?Used (\d+) "
+            r"registers", text):
+        kind, dtype, d, cap, drop, spills, regs = m.groups()
+        bf16 = dtype != "f"
+        smem = so.mhla_band_bwd_smem(1 if kind == "query" else 2, int(bf16),
+                                     int(d), int(cap))
+        key = ("bf16" if bf16 else "f32", kind, int(d), int(cap), drop)
+        found[key] = (int(regs), int(spills), smem)
+        if bf16 and d == "64" and cap == "8" and int(spills):
+            raise AssertionError(f"K2 {key} spills {spills} bytes")
+    if len(found) != 48:
+        raise AssertionError(f"ptxas reports {len(found)} of K2's 48 "
+                             f"instantiations in {lib.parent / 'build.log'}")
+    for dt in ("bf16", "f32"):
+        for kind in ("query", "key"):
+            log("build", f"ptxas K2 {dt} pass {1 if kind == 'query' else 2}"
+                         f" (d/slot cap[/dropout]: registers, spill bytes, "
+                         f"dynamic smem): " + "; ".join(
+                             f"{d}/{cap}{'' if drop is None else '/' + drop}"
+                             f": {r}, {sp}, {sm}"
+                             for (t_, k_, d, cap, drop), (r, sp, sm)
+                             in sorted(found.items(),
+                                       key=lambda kv: (kv[0][2], kv[0][3],
+                                                       kv[0][4] or ""))
+                             if t_ == dt and k_ == kind))
+
+
+def profile_device_ms(fn, calls: int = 20) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, by kernel name
+    (template arguments dropped), from ``torch.profiler`` over ``calls``
+    calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+)[<(]", e.key)
+            name = m.group(1) if m else e.key
+            ms = e.self_device_time_total / 1e3 / calls
+            out[name] = out.get(name, 0.0) + ms
+    if not out:
+        raise AssertionError("the profiler recorded no device time")
+    return out
 
 
 def phase_kernel() -> dict:
@@ -451,7 +515,7 @@ def phase_kernel_train() -> dict:
         for d in (16, 64):
             worst = {}
             for w in (1, 3, 4, 5, 7):
-                for s in (2 * w + 1, 197, 1000, 3137):
+                for s in (2 * w + 1, 197, 1000, 1001, 3137):
                     q, k, v, g = inputs((2, 3, d, s), dtype)
                     for rate, seed in ((0.0, None), (TRAIN_DROPOUT, 1234567)):
                         res = _compare_train(q, k, v, g, w, rate, seed)
@@ -459,8 +523,8 @@ def phase_kernel_train() -> dict:
                         for n, (e, _, _) in res.items():
                             worst[n] = max(worst.get(n, 0.0), e)
             log("kernel-train", f"{dt} d={d}, W in 1,3,4,5,7, S in 2W+1,197,"
-                                f"1000,3137, rate 0 and {TRAIN_DROPOUT}: max "
-                                f"abs err " + ", ".join(
+                                f"1000,1001,3137, rate 0 and {TRAIN_DROPOUT}: "
+                                f"max abs err " + ", ".join(
                                     f"{n} {e:.3g}" for n, e in worst.items()))
 
     # The mask, bit for bit, at the training shape.
@@ -502,6 +566,21 @@ def phase_kernel_train() -> dict:
                             f"{times['bwd']:.4f} ms (plain "
                             f"{times['bwd_plain']:.4f}); median of 30, CUDA "
                             f"events")
+        # The backward twice on the same inputs: the same bits (no atomics).
+        again = band.band_backward(q, k, v, g, wts, SERVE_W, TRAIN_DROPOUT,
+                                   seed)
+        first = band.band_backward(q, k, v, g, wts, SERVE_W, TRAIN_DROPOUT,
+                                   seed)
+        if not all(torch.equal(a, b) for a, b in zip(again, first)):
+            raise AssertionError(f"two {dt} band backward runs differ")
+        passes = profile_device_ms(lambda: band.band_backward(
+            q, k, v, g, wts, SERVE_W, TRAIN_DROPOUT, seed))
+        log("kernel-train", f"training shape {dt}: two backward runs "
+                            f"bit-identical; backward {times['bwd']:.4f} ms "
+                            f"(CUDA events) = device ms a call " + ", ".join(
+                                f"{n} {ms:.4f}" for n, ms in passes.items())
+                            + f" (profiler, 20 calls; sum "
+                            f"{sum(passes.values()):.4f})")
         # Bytes the functions must move: q, k, v in and out back, plus the
         # f32 weights; the backward reads q, k, v, g and the weights and
         # writes dq, dk, dv (its scratch is the kernel's own). Products: 2

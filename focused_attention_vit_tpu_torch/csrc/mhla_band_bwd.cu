@@ -25,23 +25,66 @@
 // order, so the sum is turned around and made key-centred, in two passes
 // with no atomics (float atomics would make the sum order, and so the
 // result, change from run to run):
-//   pass 1, one thread per query: u, the softmax backward and dq; it writes
-//     the per-slot coefficients dlog_o * scale and wd_o (f32 [2, B*h, W, S]
-//     scratch, allocated by the wrapper);
-//   pass 2, one thread per key j: an interior key is read by exactly one
-//     slot of each of the W queries i = j + W/2 - o, so dk/dv gather those W
-//     terms. Only rows S-1 and 0 also collect the slots that wrapped past
-//     the edges (queries i < W/2 for S-1, i >= S - (W-1-W/2) for 0): the
-//     fold of _fold_ext, done by the two edge threads of the row.
+//   pass 1, a block per tile of kTile queries of a row: u, the softmax
+//     backward and dq; it writes the per-slot coefficients dlog_o * scale
+//     and wd_o (f32 [2, B*h, W, S] scratch, allocated by the wrapper, in
+//     the weights' [W, S] layout);
+//   pass 2, a block per tile of kTile keys, dk in its even warps and dv in
+//     its odd ones: an interior key j is read by exactly one slot of each of
+//     the W queries i = j + W/2 - o, so dk/dv gather those W terms. Only
+//     keys S-1 and 0 also collect the slots that
+//     wrapped past the edges (queries i < W/2 for S-1, i >= S - (W-1-W/2)
+//     for 0): the fold of _fold_ext. A block that holds one of those keys
+//     computes the fold of every channel once, before its channel loop, into
+//     shared memory; the thread that owns the key adds one value a channel.
 //
-// What bounds it on this card: bytes, as in the forward (about 8*W*d flops
-// per query against ~7 d-vectors and 4W f32 words moved). Each of q, k, v,
-// g, dq, dk and dv passes through device memory once; the W-fold shifted
-// re-reads hit in L1/L2, and the coefficient scratch is 4W f32 words a
-// query, written once and read once. Loops are channel-outer, slot-inner,
-// so registers hold W coefficients and W indices, never a d-vector. Like
-// the forward, this first design makes one scalar load per element and
-// slot; shared-memory staging is left for later work.
+// What bounds it on this card: bytes, by the function. A query costs about
+// 10*W*d flops against 7 d-vectors of 2 bytes and 4W f32 words of weights
+// and scratch, far below the card's flop-to-byte ratio. The two passes move
+// 718 MB and 684 MB at B*h=384, S=3137, W=7, d=64 (0.42 ms at 3.35 TB/s;
+// the function's own floor, without the scratch, is 0.33 ms). In practice
+// the instructions come close to the bytes: each staged bf16 value is
+// widened to f32 once per run that reads it, and the FMAs are scalar f32
+// (the tensor cores take no product of this shape). The design:
+//   - Tiles in shared memory. A block stages the rows it reads in chunks of
+//     kChunk channels, double-buffered: the next chunk's copies run under
+//     this chunk's FMAs. Each channel row holds the tile's columns and its
+//     halo (kTile + W - 1, plus the alignment slack). Copies are 16-byte
+//     cp.async (L1 bypassed; neighbouring tiles' halos come from L2).
+//   - Alignment. In the S-minor layout channel c of row r starts at element
+//     (r*d + c)*S, which at odd S is 2-byte aligned for most channels. So a
+//     channel's columns are copied as the 16-byte-aligned span that covers
+//     them, and the staged row keeps the channel's element offset within
+//     16 bytes: column x sits at x - c_lo + lead(c_lo). The slack belongs to
+//     the neighbouring channel or row and is never read into a sum. TMA does
+//     not fit this layout: a tensor map's strides must be multiples of
+//     16 bytes, and a channel's stride, S*2 bytes, is not one at odd S.
+//   - The halo at a row's two ends follows the edge rule, not the memory:
+//     after a chunk lands, the columns below 0 are filled from column S-1
+//     and those past S-1 from column 0 (pass 1), or with zeros (pass 2,
+//     whose out-of-row queries carry no coefficient).
+//   - Runs of consecutive queries (keys) a thread: kRun = 4 in pass 1,
+//     kKeyRun = 8 in pass 2 (4 past slot cap 8). For one channel a thread
+//     reads run + W - 1 staged values as 8-byte words and does run * W
+//     FMAs, where one query a thread would issue W + 1 scalar loads for W
+//     FMAs. In pass 2 a thread gives one of dk and dv, so its coefficients
+//     (run * WMAX f32) and its one run of staged values fit the registers
+//     of a run twice as long.
+//   - The slot count is a template parameter, WMAX in {8, 16}, dispatched by
+//     W inside the entry point: at W = 7 the slot arrays and loops are 8
+//     wide.
+//   - dq, dk and dv go out through a staged tile as well (written there in
+//     bf16 pairs), so the stores are 16 bytes wide but for each channel's
+//     two ragged ends.
+//   - The scratch keeps the weights' [W, S] layout: the wrapper's
+//     [2, B*h, W, S] allocation leaves no room for padding a row to whole
+//     tiles. Its reads and writes are scalar but coalesced across a warp.
+// Tried and not kept (in turns on one card): 3 stages, or 4 stages of
+// 4-channel chunks, or 16-channel chunks, all of which cost blocks an SM;
+// 64-thread blocks; the channel loop unrolled by 2 (more registers, fewer
+// blocks); runs of 8 queries in pass 1 (64 threads a block).
+// The f32 instantiation runs the same kernels (4 channels a chunk, scalar
+// reads of the staged rows): it is the parity version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,22 +96,32 @@
 namespace {
 
 constexpr int kMaxWindow = 16;  // the wrapper raises above this
-constexpr int kThreads = 128;
+constexpr int kTile = 512;      // queries (keys) a block
+constexpr int kRun = 4;         // consecutive queries a thread (pass 1)
+constexpr int kThreads = kTile / kRun;
+// Consecutive keys a thread of pass 2, which gives dk and dv to different
+// warps: 8 at slot cap 8 (128 threads), 4 at 16 (256 threads), so that a
+// thread's coefficients stay at 64 registers.
+template <int WMAX>
+constexpr int kKeyRun = WMAX <= 8 ? 8 : 4;
+template <int WMAX>
+constexpr int kKeyThreads = 2 * kTile / kKeyRun<WMAX>;
+
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements a copy
+template <typename T>
+constexpr int kChunk = sizeof(T) == 2 ? 8 : 4;  // channels a staged chunk
+constexpr int kStages = 2;  // chunks staged at once: one computed, the rest
+                            // in flight
+// Elements of one staged channel row: the tile, its halo (W - 1) and the
+// slack of aligning both ends to 16 bytes; a multiple of 8 elements, so
+// every row starts 16-byte aligned.
+template <int WMAX>
+constexpr int kWidth = kTile + WMAX + 16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 struct Dropout {
@@ -77,8 +130,210 @@ struct Dropout {
   float one_minus_rate;
 };
 
-// Pass 1: one thread per query.
-template <typename T, int D, bool kDrop>
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The element offset within its 16-byte block of column x of the channel
+// row at p (x may lie outside the row: the offset is taken modulo kVec).
+template <typename T>
+__device__ __forceinline__ int lead(const T* p, int x) {
+  const int64_t e =
+      static_cast<int64_t>(reinterpret_cast<uintptr_t>(p) / sizeof(T)) + x;
+  return static_cast<int>(e & (kVec<T> - 1));
+}
+
+// lead() of the channel rows of one (b*h) row, by channel: channel c starts
+// c*S elements after channel 0.
+template <typename T>
+struct Leads {
+  int first;   // lead(channel 0, 0)
+  int stride;  // S mod kVec
+  __device__ __forceinline__ Leads(const T* row0, int64_t s)
+      : first(lead(row0, 0)), stride(static_cast<int>(s & (kVec<T> - 1))) {}
+  __device__ __forceinline__ int at(int c, int x) const {
+    return (first + c * stride + x) & (kVec<T> - 1);
+  }
+};
+
+// Stages columns [lo, hi) (at most kTile + WMAX - 1 of them) of the kChunk
+// channel rows from channel c0 of one (b*h) row (channel c at row0 + c*s,
+// offsets `leads`) into rows of WIDTH elements at dst: column x lands at
+// x - c_lo + lead(c_lo), by 16-byte asynchronous copies of the aligned span
+// that covers [lo, hi). The caller commits the group.
+template <typename T, int WIDTH, int WMAX, int NT>
+__device__ __forceinline__ void stage(T* dst, const T* row0, int64_t s,
+                                     const Leads<T>& leads, int c0, int c_lo,
+                                     int lo, int hi) {
+  constexpr int V = kVec<T>;
+  constexpr int C = kChunk<T>;
+  // Copies of one row, at most.
+  constexpr int kCopies = (kTile + WMAX - 1 + 2 * V - 2) / V;
+#pragma unroll
+  for (int f0 = 0; f0 < C * kCopies; f0 += NT) {
+    const int f = f0 + threadIdx.x;
+    const int cc = f / kCopies;
+    const int m = f - cc * kCopies;
+    const int off = leads.at(c0 + cc, lo);
+    if (f < C * kCopies && m * V < off + hi - lo) {
+      cp_async16(dst + cc * WIDTH + (lo - c_lo) + leads.at(c0 + cc, c_lo) -
+                     off + m * V,
+                 row0 + (c0 + cc) * s + (lo - off + m * V));
+    }
+  }
+}
+
+// Writes the staged columns of [c_lo, c_hi) that lie outside the row (the
+// halo) of the kChunk rows staged from src into dst: from column S-1 below
+// 0 and column 0 past S-1 (the forward's edge rule), or zeros.
+template <typename T, int WIDTH, int NT>
+__device__ __forceinline__ void fill_halo(T* dst, const T* src, int64_t s,
+                                         int c_lo, int c_hi, bool zeros) {
+  const int left = c_lo < 0 ? -c_lo : 0;
+  const int right = c_hi > s ? c_hi - static_cast<int>(s) : 0;
+  const int n = left + right;
+  for (int f = threadIdx.x; f < kChunk<T> * n; f += NT) {
+    const int cc = f / n;
+    const int e = f - cc * n;
+    const int x = e < left ? c_lo + e : static_cast<int>(s) + (e - left);
+    const T* row = src + cc * s;
+    const T val = zeros ? T(0.f) : (e < left ? row[s - 1] : row[0]);
+    dst[cc * WIDTH + x - c_lo + lead(row, c_lo)] = val;
+  }
+}
+
+// Writes columns [lo, hi) (at most kTile) of the kChunk channel rows from
+// channel c0 of one (b*h) row (as stage()'s) from the staged rows at src
+// (column x at x - lo + lead(lo)): 16-byte stores, element stores in the
+// two partial blocks at a row's ends.
+template <typename T, int WIDTH, int NT>
+__device__ __forceinline__ void unstage(T* row0, const T* src, int64_t s,
+                                       const Leads<T>& leads, int c0, int lo,
+                                       int hi) {
+  constexpr int V = kVec<T>;
+  constexpr int C = kChunk<T>;
+  constexpr int kStores = (kTile + 2 * V - 2) / V;  // a row, at most
+#pragma unroll
+  for (int f0 = 0; f0 < C * kStores; f0 += NT) {
+    const int f = f0 + threadIdx.x;
+    const int cc = f / kStores;
+    const int m = f - cc * kStores;
+    const int x0 = lo - leads.at(c0 + cc, lo) + m * V;  // 16-byte aligned
+    if (f < C * kStores && x0 < hi) {
+      T* row = row0 + (c0 + cc) * s;
+      const T* from = src + cc * WIDTH + m * V;
+      if (x0 >= lo && x0 + V <= hi) {
+        *reinterpret_cast<uint4*>(row + x0) =
+            *reinterpret_cast<const uint4*>(from);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if (x0 + e >= lo && x0 + e < hi) row[x0 + e] = from[e];
+        }
+      }
+    }
+  }
+}
+
+// Value j of a run that starts E bf16 elements into the words h.
+template <int E, int N, int M>
+__device__ __forceinline__ void take_run(float (&out)[N],
+                                         const uint32_t (&h)[M]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint32_t word = h[(E + j) >> 1];
+    out[j] = __uint_as_float(((E + j) & 1) ? (word & 0xffff0000u)
+                                           : (word << 16));
+  }
+}
+
+// The N staged values at positions [pos, pos + N) of a row, as f32. bf16:
+// 8-byte shared loads from the 4-element boundary at or below pos (a warp's
+// threads, kRun elements apart, read conflict-free), then a branch on
+// pos % 4, which is the same in every thread of the block.
+template <int N>
+__device__ __forceinline__ void load_run(float (&out)[N],
+                                         const __nv_bfloat16* row, int pos) {
+  constexpr int kWords = (N + 3 + 3) / 4;
+  const uint2* p = reinterpret_cast<const uint2*>(row + (pos & ~3));
+  uint32_t h[2 * kWords];
+#pragma unroll
+  for (int m = 0; m < kWords; ++m) {
+    const uint2 x = p[m];
+    h[2 * m] = x.x;
+    h[2 * m + 1] = x.y;
+  }
+  switch (pos & 3) {
+    case 0: take_run<0>(out, h); break;
+    case 1: take_run<1>(out, h); break;
+    case 2: take_run<2>(out, h); break;
+    default: take_run<3>(out, h); break;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_run(float (&out)[N], const float* row,
+                                         int pos) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = row[pos + j];
+}
+
+// Rounds the N values and writes them to positions [pos, pos + N) of a
+// staged row. bf16: in pairs (4-byte stores) from the first even position;
+// the parity of pos is the same in every thread of the block.
+template <int N>
+__device__ __forceinline__ void store_run(__nv_bfloat16* row, int pos,
+                                          const float (&val)[N]) {
+  if (pos & 1) {
+    row[pos] = __float2bfloat16(val[0]);
+#pragma unroll
+    for (int j = 1; j + 1 < N; j += 2) {
+      *reinterpret_cast<__nv_bfloat162*>(row + pos + j) =
+          __floats2bfloat162_rn(val[j], val[j + 1]);
+    }
+    if (N % 2 == 0) row[pos + N - 1] = __float2bfloat16(val[N - 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j + 1 < N; j += 2) {
+      *reinterpret_cast<__nv_bfloat162*>(row + pos + j) =
+          __floats2bfloat162_rn(val[j], val[j + 1]);
+    }
+    if (N % 2 == 1) row[pos + N - 1] = __float2bfloat16(val[N - 1]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_run(float* row, int pos,
+                                          const float (&val)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) row[pos + j] = val[j];
+}
+
+template <typename T, int WMAX>
+constexpr int query_smem_bytes() {
+  // kStages stages of (v or k, g) and the dq tile.
+  return (2 * kStages + 1) * kChunk<T> * kWidth<WMAX> *
+         static_cast<int>(sizeof(T));
+}
+template <typename T, int WMAX>
+constexpr int key_smem_bytes(int d) {
+  // kStages stages of (q, g), the dk and dv tiles, and the edge fold.
+  return (2 * kStages + 2) * kChunk<T> * kWidth<WMAX> *
+             static_cast<int>(sizeof(T)) +
+         4 * d * static_cast<int>(sizeof(float));
+}
+
+// Pass 1: a block per kTile queries of a row; thread t owns the run of
+// queries i0 + kRun*t + r. Chunks 0..NC-1 stage v and g and sum u; chunks
+// NC..2NC-1 stage k, and the first of them turns u into the coefficients.
+template <typename T, int D, int WMAX, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     band_bwd_query_kernel(const T* __restrict__ k, const T* __restrict__ v,
                           const T* __restrict__ g,
@@ -86,172 +341,362 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ coef_k,
                           float* __restrict__ coef_v, int s, int w,
                           int tiles_per_row, float scale, Dropout drop) {
+  constexpr int C = kChunk<T>;
+  constexpr int WIDTH = kWidth<WMAX>;
+  constexpr int NC = D / C;
+  constexpr int RUN = kRun + WMAX - 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int SC = C * WIDTH;  // elements of one staged chunk
+  T* const buf_a = reinterpret_cast<T*>(smem_raw);  // [kStages][SC]: v, k
+  T* const buf_g = buf_a + kStages * SC;            // [kStages][SC]: g
+  T* const buf_out = buf_g + kStages * SC;          // [SC]: dq
+
   const int64_t row = blockIdx.x / tiles_per_row;
-  const int i = (blockIdx.x % tiles_per_row) * kThreads + threadIdx.x;
-  if (i >= s) return;
-  const int64_t base = row * D * static_cast<int64_t>(s);
-  const int64_t wbase = row * w * static_cast<int64_t>(s);
-  const T* kr = k + base;
-  const T* vr = v + base;
-  const T* gr = g + base;
-
+  const int i0 = (blockIdx.x % tiles_per_row) * kTile;
+  const int nq = min(kTile, s - i0);
   const int hw = w / 2;
-  int key[kMaxWindow];
-#pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    const int j = i - hw + o;
-    key[o] = j < 0 ? s - 1 : (j >= s ? 0 : j);
-  }
+  const int c_lo = i0 - hw;  // staged key columns [c_lo, c_hi)
+  const int c_hi = i0 + nq + (w - 1 - hw);
+  const int lo = max(c_lo, 0);
+  const int hi = min(c_hi, s);
+  const bool edge = c_lo < 0 || c_hi > s;
+  const int64_t sl = s;
+  const int64_t base = row * D * sl;
+  const int64_t wbase = row * w * sl;
+  const int t = threadIdx.x;
+  const int q0 = kRun * t;  // this thread's first query, within the tile
 
-  float u[kMaxWindow];
-#pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) u[o] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const int64_t off = static_cast<int64_t>(c) * s;
-    const float gc = to_f32(gr[off + i]);
-#pragma unroll
-    for (int o = 0; o < kMaxWindow; ++o) {
-      if (o < w) u[o] += gc * to_f32(vr[off + key[o]]);
+  const Leads<T> lv(v + base, sl), lk(k + base, sl), lg(g + base, sl),
+      ld(dq + base, sl);
+
+  // Stages chunk n (none past the last: the group stays, empty, so that
+  // the wait below counts the same in every iteration).
+  auto issue = [&](int n) {
+    const int b = n % kStages;
+    if (n < NC) {
+      stage<T, WIDTH, WMAX, kThreads>(buf_a + b * SC, v + base, sl, lv, n * C,
+                                      c_lo, lo, hi);
+      stage<T, WIDTH, WMAX, kThreads>(buf_g + b * SC, g + base, sl, lg, n * C,
+                                      i0, i0, i0 + nq);
+    } else if (n < 2 * NC) {
+      stage<T, WIDTH, WMAX, kThreads>(buf_a + b * SC, k + base, sl, lk,
+                                      (n - NC) * C, c_lo, lo, hi);
     }
+    cp_async_commit();
+  };
+
+  float u[kRun][WMAX];  // then dlog
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+    for (int o = 0; o < WMAX; ++o) u[r][o] = 0.f;
   }
 
-  float wt[kMaxWindow];
-  float wd[kMaxWindow];  // the weights the forward used (after dropout)
+  for (int n = 0; n < kStages - 1; ++n) issue(n);
+  for (int n = 0; n < 2 * NC; ++n) {
+    issue(n + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int b = n % kStages;
+    const T* a = buf_a + b * SC;
+    const T* src =
+        n < NC ? v + base + n * C * sl : k + base + (n - NC) * C * sl;
+    if (edge) {
+      fill_halo<T, WIDTH, kThreads>(buf_a + b * SC, src, sl, c_lo, c_hi,
+                                    false);
+      __syncthreads();
+    }
+    if (n < NC) {
+      const T* gs = buf_g + b * SC;
+#pragma unroll 1
+      for (int cc = 0; cc < C; ++cc) {
+        float gr[kRun];
+        load_run(gr, gs + cc * WIDTH, q0 + lg.at(n * C + cc, i0));
+        float vr[RUN];
+        load_run(vr, a + cc * WIDTH, q0 + lv.at(n * C + cc, c_lo));
 #pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    wt[o] = o < w ? wts[wbase + static_cast<int64_t>(o) * s + i] : 0.f;
-    wd[o] = wt[o];
-  }
-  if constexpr (kDrop) {
-    const uint32_t keep =
-        philox::band_keep_mask(drop.seed, row, i, w, drop.threshold);
+        for (int r = 0; r < kRun; ++r) {
 #pragma unroll
-    for (int o = 0; o < kMaxWindow; ++o) {
-      if (o < w) {
-        const bool kept = (keep >> o) & 1u;
-        u[o] = kept ? u[o] / drop.one_minus_rate : 0.f;
-        wd[o] = kept ? wt[o] / drop.one_minus_rate : 0.f;
+          for (int o = 0; o < WMAX; ++o) {
+            if (o < w) u[r][o] += gr[r] * vr[r + o];
+          }
+        }
       }
-    }
-  }
-  float dot = 0.f;
+    } else {
+      if (n == NC) {
+        // u -> dlog (kept in u), and the coefficients for pass 2.
 #pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    if (o < w) dot += wt[o] * u[o];
-  }
-  float dlog[kMaxWindow];
+        for (int r = 0; r < kRun; ++r) {
+          const int i = i0 + q0 + r;
+          const bool valid = q0 + r < nq;
+          float wt[WMAX];
+          float wd[WMAX];  // the weights the forward used (after dropout)
 #pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    dlog[o] = o < w ? wt[o] * (u[o] - dot) : 0.f;
-    if (o < w) {
-      coef_k[wbase + static_cast<int64_t>(o) * s + i] = dlog[o] * scale;
-      coef_v[wbase + static_cast<int64_t>(o) * s + i] = wd[o];
-    }
-  }
-
-  T* dqr = dq + base;
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const int64_t off = static_cast<int64_t>(c) * s;
-    float acc = 0.f;
+          for (int o = 0; o < WMAX; ++o) {
+            wt[o] = valid && o < w ? wts[wbase + o * sl + i] : 0.f;
+            wd[o] = wt[o];
+          }
+          if constexpr (kDrop) {
+            const uint32_t keep =
+                valid ? philox::band_keep_mask(drop.seed, row, i, w,
+                                               drop.threshold)
+                      : 0u;
 #pragma unroll
-    for (int o = 0; o < kMaxWindow; ++o) {
-      if (o < w) acc += dlog[o] * to_f32(kr[off + key[o]]);
+            for (int o = 0; o < WMAX; ++o) {
+              const bool kept = (keep >> o) & 1u;
+              u[r][o] = kept ? u[r][o] / drop.one_minus_rate : 0.f;
+              wd[o] = kept ? wt[o] / drop.one_minus_rate : 0.f;
+            }
+          }
+          float dot = 0.f;
+#pragma unroll
+          for (int o = 0; o < WMAX; ++o) {
+            if (o < w) dot += wt[o] * u[r][o];
+          }
+#pragma unroll
+          for (int o = 0; o < WMAX; ++o) {
+            u[r][o] = valid && o < w ? wt[o] * (u[r][o] - dot) : 0.f;
+            if (valid && o < w) {
+              coef_k[wbase + o * sl + i] = u[r][o] * scale;
+              coef_v[wbase + o * sl + i] = wd[o];
+            }
+          }
+        }
+      }
+      const int c0 = (n - NC) * C;
+#pragma unroll 1
+      for (int cc = 0; cc < C; ++cc) {
+        float kr[RUN];
+        load_run(kr, a + cc * WIDTH, q0 + lk.at(c0 + cc, c_lo));
+        float acc[kRun];
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+          acc[r] = 0.f;
+#pragma unroll
+          for (int o = 0; o < WMAX; ++o) {
+            if (o < w) acc[r] += u[r][o] * kr[r + o];
+          }
+          acc[r] *= scale;
+        }
+        store_run(buf_out + cc * WIDTH, q0 + ld.at(c0 + cc, i0), acc);
+      }
+      __syncthreads();
+      unstage<T, WIDTH, kThreads>(dq + base, buf_out, sl, ld, c0, i0,
+                                  i0 + nq);
     }
-    dqr[off + i] = from_f32<T>(acc * scale);
+    __syncthreads();  // before stage b is refilled, by the next issue()
   }
 }
 
-// Pass 2: one thread per key.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// Pass 2: a block per kTile keys of a row. Warps of even index give dk
+// (from q and the dlog coefficients), odd ones dv (from g and the dropped
+// weights); thread t of a role owns the run of keys j0 + R*t + r. Slot o of
+// query i = j + W/2 - o reads key j, so with the slots taken in reverse order
+// (p = W-1-o) the queries of key r are the staged columns r + p of the
+// thread's run.
+template <typename T, int D, int WMAX>
+__global__ void __launch_bounds__(kKeyThreads<WMAX>)
     band_bwd_key_kernel(const T* __restrict__ q, const T* __restrict__ g,
                         const float* __restrict__ coef_k,
                         const float* __restrict__ coef_v, T* __restrict__ dk,
                         T* __restrict__ dv, int s, int w, int tiles_per_row) {
+  constexpr int C = kChunk<T>;
+  constexpr int WIDTH = kWidth<WMAX>;
+  constexpr int NC = D / C;
+  constexpr int R = kKeyRun<WMAX>;
+  constexpr int NT = kKeyThreads<WMAX>;
+  constexpr int RUN = R + WMAX - 1;
+  constexpr int SC = C * WIDTH;  // elements of one staged chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf_q = reinterpret_cast<T*>(smem_raw);  // [kStages][SC]
+  T* const buf_g = buf_q + kStages * SC;            // [kStages][SC]
+  T* const out_k = buf_g + kStages * SC;            // [SC]
+  T* const out_v = out_k + SC;                      // [SC]
+  // [edge: S-1, 0][dk, dv][D]
+  float* const fold = reinterpret_cast<float*>(out_v + SC);
+
   const int64_t row = blockIdx.x / tiles_per_row;
-  const int j = (blockIdx.x % tiles_per_row) * kThreads + threadIdx.x;
-  if (j >= s) return;
-  const int64_t base = row * D * static_cast<int64_t>(s);
-  const int64_t wbase = row * w * static_cast<int64_t>(s);
-  const T* qr = q + base;
-  const T* gr = g + base;
-  const float* ckr = coef_k + wbase;
-  const float* cvr = coef_v + wbase;
-
-  // Slot o of query i = j + hw - o reads key j without wrapping, for every
-  // such i inside the row.
+  const int j0 = (blockIdx.x % tiles_per_row) * kTile;
+  const int nk = min(kTile, s - j0);
   const int hw = w / 2;
-  int qi[kMaxWindow];
-  float ck[kMaxWindow];
-  float cv[kMaxWindow];
+  const int c_lo = j0 - (w - 1 - hw);  // staged query columns [c_lo, c_hi)
+  const int c_hi = j0 + nk + hw;
+  const int lo = max(c_lo, 0);
+  const int hi = min(c_hi, s);
+  const bool edge = c_lo < 0 || c_hi > s;
+  const int64_t sl = s;
+  const int64_t base = row * D * sl;
+  const float* ckr = coef_k + row * w * sl;
+  const float* cvr = coef_v + row * w * sl;
+  const int t = threadIdx.x;
+  const int role = (t >> 5) & 1;  // 0: dk, 1: dv; the same across a warp
+  const int k0 = R * (((t >> 6) << 5) | (t & 31));  // first key, in the tile
+  const Leads<T> lq(q + base, sl), lg(g + base, sl), lk(dk + base, sl),
+      lv(dv + base, sl);
+
+  auto issue = [&](int n) {  // as pass 1's
+    const int b = n % kStages;
+    if (n < NC) {
+      stage<T, WIDTH, WMAX, NT>(buf_q + b * SC, q + base, sl, lq, n * C, c_lo,
+                                lo, hi);
+      stage<T, WIDTH, WMAX, NT>(buf_g + b * SC, g + base, sl, lg, n * C, c_lo,
+                                lo, hi);
+    }
+    cp_async_commit();
+  };
+  for (int n = 0; n < kStages - 1; ++n) issue(n);
+
+  // Coefficients of the W in-row queries of each of this thread's keys.
+  const float* cr = role ? cvr : ckr;
+  float cf[WMAX][R];
 #pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    const int i = j + hw - o;
-    const bool valid = o < w && i >= 0 && i < s;
-    qi[o] = valid ? i : j;
-    ck[o] = valid ? ckr[static_cast<int64_t>(o) * s + i] : 0.f;
-    cv[o] = valid ? cvr[static_cast<int64_t>(o) * s + i] : 0.f;
-  }
-  // The edge fold: the wrapped slots of the first hw queries read row S-1,
-  // those of the last w-1-hw queries read row 0.
-  int edge_lo = 0, edge_hi = 0;  // queries [edge_lo, edge_hi) wrapped here
-  if (j == s - 1) {
-    edge_lo = 0;
-    edge_hi = hw;
-  } else if (j == 0) {
-    edge_lo = s - (w - 1 - hw);
-    edge_hi = s;
+  for (int p = 0; p < WMAX; ++p) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int o = w - 1 - p;
+      const int i = j0 + k0 + r + hw - o;
+      const bool valid = p < w && k0 + r < nk && i >= 0 && i < s;
+      cf[p][r] = valid ? cr[o * sl + i] : 0.f;
+    }
   }
 
-#pragma unroll 2
-  for (int c = 0; c < D; ++c) {
-    const int64_t off = static_cast<int64_t>(c) * s;
-    float acc_k = 0.f;
-    float acc_v = 0.f;
+  // The edge fold, one channel a thread: the wrapped slots of queries
+  // i < hw (slots o < hw - i) land on key S-1, those of queries
+  // i >= S - (w-1-hw) (slots o >= S + hw - i) on key 0.
+  const bool has_last = j0 + nk == s;
+  const bool has_first = j0 == 0;
+  if (has_last || has_first) {
+    for (int c = t; c < D; c += NT) {
+      const T* qr = q + base + c * sl;
+      const T* gr = g + base + c * sl;
+      float fk = 0.f, fv = 0.f;
+      if (has_last) {
+        for (int i = 0; i < hw; ++i) {
+          const float qv = to_f32(qr[i]);
+          const float gv = to_f32(gr[i]);
+          for (int o = 0; o < hw - i; ++o) {
+            fk += ckr[o * sl + i] * qv;
+            fv += cvr[o * sl + i] * gv;
+          }
+        }
+      }
+      fold[c] = fk;
+      fold[D + c] = fv;
+      fk = fv = 0.f;
+      if (has_first) {
+        for (int i = s - (w - 1 - hw); i < s; ++i) {
+          const float qv = to_f32(qr[i]);
+          const float gv = to_f32(gr[i]);
+          for (int o = s + hw - i; o < w; ++o) {
+            fk += ckr[o * sl + i] * qv;
+            fv += cvr[o * sl + i] * gv;
+          }
+        }
+      }
+      fold[2 * D + c] = fk;
+      fold[3 * D + c] = fv;
+    }
+  }
+  // The runs that hold key S-1 and key 0 (-1: none).
+  const int r_last = has_last && s - 1 - j0 - k0 >= 0 && s - 1 - j0 - k0 < R
+                         ? s - 1 - j0 - k0
+                         : -1;
+  const int r_first = has_first && k0 == 0 ? 0 : -1;
+  const float* fold_last = fold + role * D;
+  const float* fold_first = fold + (2 + role) * D;
+  const T* buf_in = role ? buf_g : buf_q;
+  T* const out_s = role ? out_v : out_k;
+  const Leads<T> lin = role ? lg : lq;
+  const Leads<T> lout = role ? lv : lk;
+
+  for (int n = 0; n < NC; ++n) {
+    issue(n + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int b = n % kStages;
+    if (edge) {
+      fill_halo<T, WIDTH, NT>(buf_q + b * SC, q + base + n * C * sl, sl, c_lo,
+                              c_hi, true);
+      fill_halo<T, WIDTH, NT>(buf_g + b * SC, g + base + n * C * sl, sl, c_lo,
+                              c_hi, true);
+      __syncthreads();
+    }
+    const T* in = buf_in + b * SC;
+    const int c0 = n * C;
+#pragma unroll 1
+    for (int cc = 0; cc < C; ++cc) {
+      float run[RUN];
+      load_run(run, in + cc * WIDTH, k0 + lin.at(c0 + cc, c_lo));
+      float acc[R];
 #pragma unroll
-    for (int o = 0; o < kMaxWindow; ++o) {
-      if (o < w) {
-        acc_k += ck[o] * to_f32(qr[off + qi[o]]);
-        acc_v += cv[o] * to_f32(gr[off + qi[o]]);
+      for (int r = 0; r < R; ++r) {
+        acc[r] = 0.f;
+#pragma unroll
+        for (int p = 0; p < WMAX; ++p) {
+          if (p < w) acc[r] += cf[p][r] * run[r + p];
+        }
       }
-    }
-    for (int i = edge_lo; i < edge_hi; ++i) {
-      const float qv = to_f32(qr[off + i]);
-      const float gv = to_f32(gr[off + i]);
-      // Slots of query i that wrapped: below 0 (o < hw - i) for row S-1,
-      // past S-1 (o >= s + hw - i) for row 0.
-      const int o_lo = j == 0 ? s + hw - i : 0;
-      const int o_hi = j == 0 ? w : hw - i;
-      for (int o = o_lo; o < o_hi; ++o) {
-        acc_k += ckr[static_cast<int64_t>(o) * s + i] * qv;
-        acc_v += cvr[static_cast<int64_t>(o) * s + i] * gv;
+      if (r_last >= 0 || r_first >= 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r == r_last) acc[r] += fold_last[c0 + cc];
+          if (r == r_first) acc[r] += fold_first[c0 + cc];
+        }
       }
+      store_run(out_s + cc * WIDTH, k0 + lout.at(c0 + cc, j0), acc);
     }
-    dk[base + off + j] = from_f32<T>(acc_k);
-    dv[base + off + j] = from_f32<T>(acc_v);
+    __syncthreads();
+    unstage<T, WIDTH, NT>(dk + base, out_k, sl, lk, c0, j0, j0 + nk);
+    unstage<T, WIDTH, NT>(dv + base, out_v, sl, lv, c0, j0, j0 + nk);
+    __syncthreads();  // before stage b is refilled, by the next issue()
   }
 }
 
-template <typename T, int D>
+// Raises a kernel's dynamic shared memory limit where it passes 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, int D, int WMAX>
 cudaError_t launch_d(const T* q, const T* k, const T* v, const T* g,
                      const float* wts, T* dq, T* dk, T* dv, float* coef_k,
                      float* coef_v, int s, int w, dim3 grid, int tiles,
                      float scale, bool dropout, Dropout drop,
                      cudaStream_t stream) {
-  if (dropout) {
-    band_bwd_query_kernel<T, D, true><<<grid, kThreads, 0, stream>>>(
-        k, v, g, wts, dq, coef_k, coef_v, s, w, tiles, scale, drop);
-  } else {
-    band_bwd_query_kernel<T, D, false><<<grid, kThreads, 0, stream>>>(
-        k, v, g, wts, dq, coef_k, coef_v, s, w, tiles, scale, drop);
-  }
-  cudaError_t err = cudaGetLastError();
+  constexpr int kQuerySmem = query_smem_bytes<T, WMAX>();
+  auto* query = dropout ? band_bwd_query_kernel<T, D, WMAX, true>
+                        : band_bwd_query_kernel<T, D, WMAX, false>;
+  cudaError_t err = allow_smem(query, kQuerySmem);
   if (err != cudaSuccess) return err;
-  band_bwd_key_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      q, g, coef_k, coef_v, dk, dv, s, w, tiles);
+  query<<<grid, kThreads, kQuerySmem, stream>>>(
+      k, v, g, wts, dq, coef_k, coef_v, s, w, tiles, scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int kKeySmem = key_smem_bytes<T, WMAX>(D);
+  auto* key = band_bwd_key_kernel<T, D, WMAX>;
+  err = allow_smem(key, kKeySmem);
+  if (err != cudaSuccess) return err;
+  key<<<grid, kKeyThreads<WMAX>, kKeySmem, stream>>>(q, g, coef_k, coef_v,
+                                                     dk, dv, s, w, tiles);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_w(const T* q, const T* k, const T* v, const T* g,
+                     const float* wts, T* dq, T* dk, T* dv, float* coef_k,
+                     float* coef_v, int s, int w, dim3 grid, int tiles,
+                     float scale, bool dropout, Dropout drop,
+                     cudaStream_t stream) {
+  if (w <= 8) {
+    return launch_d<T, D, 8>(q, k, v, g, wts, dq, dk, dv, coef_k, coef_v, s,
+                             w, grid, tiles, scale, dropout, drop, stream);
+  }
+  return launch_d<T, D, kMaxWindow>(q, k, v, g, wts, dq, dk, dv, coef_k,
+                                    coef_v, s, w, grid, tiles, scale, dropout,
+                                    drop, stream);
 }
 
 template <typename T>
@@ -260,7 +705,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dv, float* scratch, int64_t rows, int d, int s,
                    int w, float scale, bool dropout, Dropout drop,
                    cudaStream_t stream) {
-  const int tiles = (s + kThreads - 1) / kThreads;
+  const int tiles = (s + kTile - 1) / kTile;
   const int64_t blocks = rows * tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
   const dim3 grid(static_cast<unsigned>(blocks));
@@ -275,19 +720,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   T* dvp = static_cast<T*>(dv);
   switch (d) {
     case 16:
-      return launch_d<T, 16>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
+      return launch_w<T, 16>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
                              coef_v, s, w, grid, tiles, scale, dropout, drop,
                              stream);
     case 32:
-      return launch_d<T, 32>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
+      return launch_w<T, 32>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
                              coef_v, s, w, grid, tiles, scale, dropout, drop,
                              stream);
     case 64:
-      return launch_d<T, 64>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
+      return launch_w<T, 64>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
                              coef_v, s, w, grid, tiles, scale, dropout, drop,
                              stream);
     case 128:
-      return launch_d<T, 128>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
+      return launch_w<T, 128>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
                               coef_v, s, w, grid, tiles, scale, dropout, drop,
                               stream);
     default:
@@ -300,11 +745,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // launches (0 on success). q, k, v, g, dq, dk and dv are device pointers to
 // contiguous [rows, d, s] tensors of one dtype (is_bf16 = 1 for bf16, 0 for
-// f32); wts is the forward's f32 [rows, w, s] weights; scratch is f32
-// [2, rows, w, s], written and read here. With dropout != 0 the forward's
-// mask is regenerated by philox.cuh's rule under (seed_lo, seed_hi,
-// threshold). `stream` is the caller's cudaStream_t. Nothing is allocated
-// and nothing synchronises.
+// f32), each at least 2-byte (bf16) or 4-byte (f32) aligned; wts is the
+// forward's f32 [rows, w, s] weights; scratch is f32 [2, rows, w, s],
+// written and read here. With dropout != 0 the forward's mask is
+// regenerated by philox.cuh's rule under (seed_lo, seed_hi, threshold).
+// `stream` is the caller's cudaStream_t. Nothing is allocated and nothing
+// synchronises.
 extern "C" int mhla_band_bwd(const void* q, const void* k, const void* v,
                              const void* g, const void* wts, void* dq,
                              void* dk, void* dv, void* scratch,
@@ -328,4 +774,28 @@ extern "C" int mhla_band_bwd(const void* q, const void* k, const void* v,
             : launch<float>(q, k, v, g, wp, dq, dk, dv, sp, rows, d, s, w,
                             scale, dropout != 0, drop, st);
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory, in bytes, of pass 1 (pass = 1) or pass 2 (pass = 2)
+// at head dim d and window w, for the build report; 0 for what the kernels
+// do not take.
+extern "C" int mhla_band_bwd_smem(int pass, int is_bf16, int d, int w) {
+  if (w < 1 || w > kMaxWindow || (d != 16 && d != 32 && d != 64 && d != 128)) {
+    return 0;
+  }
+  if (pass == 1) {
+    if (is_bf16) {
+      return w <= 8 ? query_smem_bytes<__nv_bfloat16, 8>()
+                    : query_smem_bytes<__nv_bfloat16, kMaxWindow>();
+    }
+    return w <= 8 ? query_smem_bytes<float, 8>()
+                  : query_smem_bytes<float, kMaxWindow>();
+  }
+  if (pass != 2) return 0;
+  if (is_bf16) {
+    return w <= 8 ? key_smem_bytes<__nv_bfloat16, 8>(d)
+                  : key_smem_bytes<__nv_bfloat16, kMaxWindow>(d);
+  }
+  return w <= 8 ? key_smem_bytes<float, 8>(d)
+                : key_smem_bytes<float, kMaxWindow>(d);
 }

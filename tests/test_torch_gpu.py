@@ -31,6 +31,17 @@ GOLDEN_WORDS = [
 ]
 SHAPES = [(16, 15, 7), (64, 1000, 7), (32, 577, 4), (128, 200, 16),
           (64, 3137, 1), (64, 3137, 7)]
+# The backward's tiling (d, S, W): S at every residue mod 8 (a channel row's
+# alignment within 16 bytes), S just below, at and above multiples of its
+# 512-query tile, rows shorter than a tile (S = 2W + 1), W on both sides of
+# the slot-cap dispatch (8 | 9) and at the cap, every head dim.
+BWD_SHAPES = SHAPES + [
+    (16, 1001, 7), (32, 1002, 7), (64, 1003, 7), (128, 1004, 7),
+    (16, 1005, 8), (32, 1006, 9), (64, 1007, 16), (128, 3137, 7),
+    (64, 511, 7), (64, 512, 7), (64, 513, 7), (32, 1023, 9), (32, 1025, 8),
+    (64, 17, 8), (32, 19, 9), (128, 33, 16), (16, 3, 1),
+    (64, 1000, 8), (64, 1000, 9), (64, 1000, 16), (16, 3137, 9),
+]
 
 
 @pytest.fixture
@@ -72,7 +83,7 @@ def test_kernel_matches_plain(cuda, dtype, d, s, w):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,s,w", SHAPES)
+@pytest.mark.parametrize("d,s,w", BWD_SHAPES)
 def test_training_kernels_match_plain(cuda, dtype, d, s, w, rate):
     """The training forward (output, saved weights, in-kernel mask) and the
     backward against their plain versions on the same inputs. f32: the
@@ -93,6 +104,42 @@ def test_training_kernels_match_plain(cuda, dtype, d, s, w, rate):
     for got, want in zip(grads, ref_grads):
         assert got.dtype == dtype
         _close(got, want, dtype, 1e-4, bf16_atol=1e-4)
+
+
+@pytest.mark.parametrize("side", ["previous", "next"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), 3e38])
+def test_band_backward_reads_no_other_row(cuda, d, bad, side):
+    """Row 1 of three (S = 1001: every channel row starts at another offset
+    within 16 bytes, so the backward's aligned copies take in bytes of the
+    neighbouring rows) gets bit-identical dq, dk and dv when the previous or
+    the next row's q, k, v, g and weights hold NaN, inf or 3e38."""
+    s, w, rate, seed = 1001, 7, 0.1, 11
+    q, k, v, g = _inputs(cuda, (1, 3, d, s), torch.bfloat16, n=4, seed=d)
+    _, wts = band.band_forward_train(q, k, v, w, rate, seed)
+    clean = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    other = 0 if side == "previous" else 2
+    for x in (q, k, v, g):
+        x[0, other] = bad
+    wts[other] = bad
+    poisoned = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    torch.cuda.synchronize()
+    for got, want in zip(poisoned, clean):
+        assert torch.isfinite(want[0, 1]).all()
+        assert torch.equal(got[0, 1], want[0, 1])
+
+
+def test_band_backward_is_deterministic(cuda):
+    """Two backward runs on the same inputs give the same bits (no
+    atomics)."""
+    w, rate, seed = 7, 0.1, 5
+    q, k, v, g = _inputs(cuda, (2, 3, 64, 3137), torch.bfloat16, n=4)
+    _, wts = band.band_forward_train(q, k, v, w, rate, seed)
+    first = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    second = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_mask_equals_golden_words(cuda):

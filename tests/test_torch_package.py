@@ -339,7 +339,7 @@ def test_flash_sources_use_wgmma_and_asynchronous_copies(name):
 
 _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p",
             "long long": "c_longlong", "int": "c_int", "float": "c_float",
-            "unsigned": "c_uint"}
+            "unsigned": "c_uint", "unsigned int": "c_uint"}
 
 
 def _entry_types(src: str, entry: str) -> list:
@@ -373,6 +373,44 @@ def test_flash_entry_points_match_the_wrapper_signatures(name):
         assert name[:-3] in entries
     for entry, declared in entries.items():
         assert _entry_types(src, entry) == declared, entry
+
+
+def _band_entries():
+    from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
+
+    return sorted(band._SIGNATURES)
+
+
+@pytest.mark.parametrize("lib,entry", _band_entries())
+def test_band_entry_points_match_the_wrapper_signatures(lib, entry):
+    """The argument list of each band entry point (K1's two, K2's), parsed
+    from its source, is the one ``mhla_band_roll._SIGNATURES`` declares."""
+    from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
+
+    src = (CSRC / f"{lib}.cu").read_text()
+    assert _entry_types(src, entry) == band._SIGNATURES[(lib, entry)]
+
+
+@pytest.mark.parametrize("pattern,present", [
+    (r"cp\.async\.cg\.shared\.global", True),  # tiles by async copies
+    (r"\], 16;", True),                         # of 16 bytes
+    (r"cp\.async\.wait_group", True),
+    (r"reinterpret_cast<uint4\*>", True),  # 16-byte stores of dq, dk, dv
+    (r"launch_d<T, D, 8>", True),          # the slot cap 8 at W <= 8
+    (r"launch_d<T, D, kMaxWindow>", True),  # and 16 past it
+    (r"\batomic\w*\(", False),             # sums in a fixed order
+    (r"\batom\.", False),
+    (r"\bred\.", False),
+])
+def test_band_backward_stages_tiles_without_atomics(pattern, present):
+    """K2 (``mhla_band_bwd.cu``) stages its tiles by 16-byte ``cp.async``
+    copies, stores its results 16 bytes wide, fixes the slot count at
+    compile time (8 or 16, by W) and uses no atomics, so two runs give the
+    same bits."""
+    import re
+
+    text = (CSRC / "mhla_band_bwd.cu").read_text()
+    assert bool(re.search(pattern, text)) == present, pattern
 
 
 def test_flash_common_keeps_the_fused_kernels_helpers():
