@@ -15,15 +15,17 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, in
    parallel, and prints ptxas's registers, spills and shared memory of the
    main path's wgmma kernels and of every instantiation of the band
-   backward (K2);
+   forward (K1) and backward (K2);
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
-   shapes and at the serving shape, with CUDA-event timings of both;
+   shapes and at the serving shape, with CUDA-event timings of both, the
+   kernel's GB/s and its device time under the profiler;
 4. kernel-train: the training forward (output, saved weights, dropout mask
    bit for bit) and the backward kernel against their plain versions over a
    grid of shapes and at the training shape, at dropout 0 and 0.1, with
-   CUDA-event timings; the backward run twice gives the same bits, and the
-   profiler splits its time between its two passes;
+   CUDA-event timings; the forward's GB/s and device time; the backward run
+   twice gives the same bits, and the profiler splits its time between its
+   two passes;
 5. model: MHLA-B/4 in f32 on the card against the same weights on the CPU;
 6. serve: the ``serve`` module's set-up, ``BatchingServer`` and
    ``HTTPFrontend`` answer concurrent requests in bf16; the eval launch
@@ -297,6 +299,8 @@ def phase_build() -> None:
             _flash_ptxas(lib, text)
         if lib.name.startswith("libfused_mha_"):
             _fused_ptxas(lib, text)
+        if lib.name == "libmhla_band_fwd.so":
+            _band_fwd_ptxas(lib, text)
         if lib.name == "libmhla_band_bwd.so":
             _band_bwd_ptxas(lib, text)
 
@@ -355,6 +359,35 @@ def _fused_ptxas(lib: Path, text: str) -> None:
                  f"shared memory")
     if spills:
         raise AssertionError(f"{kernel}<{d}> spills {spills} bytes")
+
+
+def _band_fwd_ptxas(lib: Path, text: str) -> None:
+    """Log ptxas's registers and spills and the dynamic shared memory of
+    every K1 instantiation (per dtype, head dim, slot cap, saved weights and
+    dropout); raise if one is missing or one of the main path's (bf16,
+    d=64, slot cap 8, eval or training form) spills."""
+    so = kernel_build.load("mhla_band_fwd")
+    found = {}
+    for m in re.finditer(
+            r"Function properties for \S*?band_fwd_kernelI(13__nv_bfloat16|f)"
+            r"Li(\d+)ELi(\d+)ELb(\d)ELb(\d)E\S*\n\s*\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores.*\n.*?Used (\d+) registers", text):
+        dtype, d, cap, save, drop, spills, regs = m.groups()
+        bf16 = dtype != "f"
+        smem = so.mhla_band_fwd_smem(int(bf16), int(d), int(cap))
+        key = ("bf16" if bf16 else "f32", int(d), int(cap), save + drop)
+        found[key] = (int(regs), int(spills), smem)
+        if bf16 and d == "64" and cap == "8" and int(spills):
+            raise AssertionError(f"K1 {key} spills {spills} bytes")
+    if len(found) != 64:
+        raise AssertionError(f"ptxas reports {len(found)} of K1's 64 "
+                             f"instantiations in {lib.parent / 'build.log'}")
+    for dt in ("bf16", "f32"):
+        log("build", f"ptxas K1 {dt} (d/slot cap/save,dropout: registers, "
+                     f"spill bytes, dynamic smem): " + "; ".join(
+                         f"{d}/{cap}/{form}: {r}, {sp}, {sm}"
+                         for (t_, d, cap, form), (r, sp, sm)
+                         in sorted(found.items()) if t_ == dt))
 
 
 def _band_bwd_ptxas(lib: Path, text: str) -> None:
@@ -446,8 +479,10 @@ def phase_kernel() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for d in (16, 64):
             for w in (1, 3, 5, 7):
-                # 1000 is not a multiple of the kernel's 128-query tile.
-                for s in (2 * w + 1, 197, 577, 1000, 3137):
+                # S just below and past the kernel's 512-query tile; 1001
+                # leaves every channel row at another offset within 16
+                # bytes.
+                for s in (2 * w + 1, 197, 511, 513, 577, 1000, 1001, 3137):
                     compare((2, 3, d, s), w, dtype)
 
     result = {}
@@ -457,11 +492,16 @@ def phase_kernel() -> dict:
                                                                SERVE_W))
         plain_ms = cuda_median_ms(
             lambda: band.plain_banded_attention(q, k, v, SERVE_W))
+        device = profile_device_ms(
+            lambda: band.roll_banded_attention(q, k, v, SERVE_W))
         nbytes = 4 * q.numel() * q.element_size()  # q, k, v read; out written
         dt = "f32" if dtype == torch.float32 else "bf16"
         log("kernel", f"serving shape {SERVE_SHAPE} W={SERVE_W} {dt}: kernel "
                       f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s of q,k,v,out"
-                      f"), plain {plain_ms:.4f} ms (median of 30, CUDA events)")
+                      f"), plain {plain_ms:.4f} ms (median of 30, CUDA events)"
+                      f"; device ms a call " + ", ".join(
+                          f"{n} {t:.4f}" for n, t in device.items())
+                      + " (profiler, 20 calls)")
         b, h, d, n = SERVE_SHAPE
         # Two products of W*d multiply-adds a query.
         result[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -560,12 +600,21 @@ def phase_kernel_train() -> dict:
         log("kernel-train", f"training shape {TRAIN_SHAPE} W={SERVE_W} {dt} "
                             f"rate {TRAIN_DROPOUT}: max abs err " + ", ".join(
                                 f"{n} {t}" for n, (_, _, t) in res.items()))
+        fwd_bytes = 4 * q.numel() * q.element_size() + wts.numel() * 4
+        fwd_device = profile_device_ms(lambda: band.band_forward_train(
+            q, k, v, SERVE_W, TRAIN_DROPOUT, seed))
         log("kernel-train", f"training shape {dt}: training forward "
                             f"{times['fwd_train']:.4f} ms (plain "
                             f"{times['fwd_train_plain']:.4f}), backward "
                             f"{times['bwd']:.4f} ms (plain "
                             f"{times['bwd_plain']:.4f}); median of 30, CUDA "
                             f"events")
+        log("kernel-train", f"training shape {dt}: training forward "
+                            f"{fwd_bytes / times['fwd_train'] / 1e6:.0f} "
+                            f"GB/s of q,k,v,out,wts; device ms a call "
+                            + ", ".join(f"{n} {t:.4f}"
+                                        for n, t in fwd_device.items())
+                            + " (profiler, 20 calls)")
         # The backward twice on the same inputs: the same bits (no atomics).
         again = band.band_backward(q, k, v, g, wts, SERVE_W, TRAIN_DROPOUT,
                                    seed)
@@ -592,7 +641,7 @@ def phase_kernel_train() -> dict:
                            ms=times["fwd_train"],
                            plain_ms=times["fwd_train_plain"],
                            library_ms=None,
-                           **least_time(4 * one + wts.numel() * 4, 4 * pairs)),
+                           **least_time(fwd_bytes, 4 * pairs)),
             bwd=dict(max_abs_err=max(res[n][0] for n in ("dq", "dk", "dv")),
                      ms=times["bwd"], plain_ms=times["bwd_plain"],
                      library_ms=None,

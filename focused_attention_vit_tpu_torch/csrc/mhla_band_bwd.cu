@@ -46,7 +46,8 @@
 // the instructions come close to the bytes: each staged bf16 value is
 // widened to f32 once per run that reads it, and the FMAs are scalar f32
 // (the tensor cores take no product of this shape). The design:
-//   - Tiles in shared memory. A block stages the rows it reads in chunks of
+//   - Tiles in shared memory (the helpers are band_stage.cuh's, shared with
+//     the forward). A block stages the rows it reads in chunks of
 //     kChunk channels, double-buffered: the next chunk's copies run under
 //     this chunk's FMAs. Each channel row holds the tile's columns and its
 //     halo (kTile + W - 1, plus the alignment slack). Copies are 16-byte
@@ -91,9 +92,12 @@
 
 #include <cstdint>
 
+#include "band_stage.cuh"
 #include "philox.cuh"
 
 namespace {
+
+using namespace band_stage;
 
 constexpr int kMaxWindow = 16;  // the wrapper raises above this
 constexpr int kTile = 512;      // queries (keys) a block
@@ -107,8 +111,6 @@ constexpr int kKeyRun = WMAX <= 8 ? 8 : 4;
 template <int WMAX>
 constexpr int kKeyThreads = 2 * kTile / kKeyRun<WMAX>;
 
-template <typename T>
-constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements a copy
 template <typename T>
 constexpr int kChunk = sizeof(T) == 2 ? 8 : 4;  // channels a staged chunk
 constexpr int kStages = 2;  // chunks staged at once: one computed, the rest
@@ -129,192 +131,6 @@ struct Dropout {
   uint32_t threshold;
   float one_minus_rate;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The element offset within its 16-byte block of column x of the channel
-// row at p (x may lie outside the row: the offset is taken modulo kVec).
-template <typename T>
-__device__ __forceinline__ int lead(const T* p, int x) {
-  const int64_t e =
-      static_cast<int64_t>(reinterpret_cast<uintptr_t>(p) / sizeof(T)) + x;
-  return static_cast<int>(e & (kVec<T> - 1));
-}
-
-// lead() of the channel rows of one (b*h) row, by channel: channel c starts
-// c*S elements after channel 0.
-template <typename T>
-struct Leads {
-  int first;   // lead(channel 0, 0)
-  int stride;  // S mod kVec
-  __device__ __forceinline__ Leads(const T* row0, int64_t s)
-      : first(lead(row0, 0)), stride(static_cast<int>(s & (kVec<T> - 1))) {}
-  __device__ __forceinline__ int at(int c, int x) const {
-    return (first + c * stride + x) & (kVec<T> - 1);
-  }
-};
-
-// Stages columns [lo, hi) (at most kTile + WMAX - 1 of them) of the kChunk
-// channel rows from channel c0 of one (b*h) row (channel c at row0 + c*s,
-// offsets `leads`) into rows of WIDTH elements at dst: column x lands at
-// x - c_lo + lead(c_lo), by 16-byte asynchronous copies of the aligned span
-// that covers [lo, hi). The caller commits the group.
-template <typename T, int WIDTH, int WMAX, int NT>
-__device__ __forceinline__ void stage(T* dst, const T* row0, int64_t s,
-                                     const Leads<T>& leads, int c0, int c_lo,
-                                     int lo, int hi) {
-  constexpr int V = kVec<T>;
-  constexpr int C = kChunk<T>;
-  // Copies of one row, at most.
-  constexpr int kCopies = (kTile + WMAX - 1 + 2 * V - 2) / V;
-#pragma unroll
-  for (int f0 = 0; f0 < C * kCopies; f0 += NT) {
-    const int f = f0 + threadIdx.x;
-    const int cc = f / kCopies;
-    const int m = f - cc * kCopies;
-    const int off = leads.at(c0 + cc, lo);
-    if (f < C * kCopies && m * V < off + hi - lo) {
-      cp_async16(dst + cc * WIDTH + (lo - c_lo) + leads.at(c0 + cc, c_lo) -
-                     off + m * V,
-                 row0 + (c0 + cc) * s + (lo - off + m * V));
-    }
-  }
-}
-
-// Writes the staged columns of [c_lo, c_hi) that lie outside the row (the
-// halo) of the kChunk rows staged from src into dst: from column S-1 below
-// 0 and column 0 past S-1 (the forward's edge rule), or zeros.
-template <typename T, int WIDTH, int NT>
-__device__ __forceinline__ void fill_halo(T* dst, const T* src, int64_t s,
-                                         int c_lo, int c_hi, bool zeros) {
-  const int left = c_lo < 0 ? -c_lo : 0;
-  const int right = c_hi > s ? c_hi - static_cast<int>(s) : 0;
-  const int n = left + right;
-  for (int f = threadIdx.x; f < kChunk<T> * n; f += NT) {
-    const int cc = f / n;
-    const int e = f - cc * n;
-    const int x = e < left ? c_lo + e : static_cast<int>(s) + (e - left);
-    const T* row = src + cc * s;
-    const T val = zeros ? T(0.f) : (e < left ? row[s - 1] : row[0]);
-    dst[cc * WIDTH + x - c_lo + lead(row, c_lo)] = val;
-  }
-}
-
-// Writes columns [lo, hi) (at most kTile) of the kChunk channel rows from
-// channel c0 of one (b*h) row (as stage()'s) from the staged rows at src
-// (column x at x - lo + lead(lo)): 16-byte stores, element stores in the
-// two partial blocks at a row's ends.
-template <typename T, int WIDTH, int NT>
-__device__ __forceinline__ void unstage(T* row0, const T* src, int64_t s,
-                                       const Leads<T>& leads, int c0, int lo,
-                                       int hi) {
-  constexpr int V = kVec<T>;
-  constexpr int C = kChunk<T>;
-  constexpr int kStores = (kTile + 2 * V - 2) / V;  // a row, at most
-#pragma unroll
-  for (int f0 = 0; f0 < C * kStores; f0 += NT) {
-    const int f = f0 + threadIdx.x;
-    const int cc = f / kStores;
-    const int m = f - cc * kStores;
-    const int x0 = lo - leads.at(c0 + cc, lo) + m * V;  // 16-byte aligned
-    if (f < C * kStores && x0 < hi) {
-      T* row = row0 + (c0 + cc) * s;
-      const T* from = src + cc * WIDTH + m * V;
-      if (x0 >= lo && x0 + V <= hi) {
-        *reinterpret_cast<uint4*>(row + x0) =
-            *reinterpret_cast<const uint4*>(from);
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          if (x0 + e >= lo && x0 + e < hi) row[x0 + e] = from[e];
-        }
-      }
-    }
-  }
-}
-
-// Value j of a run that starts E bf16 elements into the words h.
-template <int E, int N, int M>
-__device__ __forceinline__ void take_run(float (&out)[N],
-                                         const uint32_t (&h)[M]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const uint32_t word = h[(E + j) >> 1];
-    out[j] = __uint_as_float(((E + j) & 1) ? (word & 0xffff0000u)
-                                           : (word << 16));
-  }
-}
-
-// The N staged values at positions [pos, pos + N) of a row, as f32. bf16:
-// 8-byte shared loads from the 4-element boundary at or below pos (a warp's
-// threads, kRun elements apart, read conflict-free), then a branch on
-// pos % 4, which is the same in every thread of the block.
-template <int N>
-__device__ __forceinline__ void load_run(float (&out)[N],
-                                         const __nv_bfloat16* row, int pos) {
-  constexpr int kWords = (N + 3 + 3) / 4;
-  const uint2* p = reinterpret_cast<const uint2*>(row + (pos & ~3));
-  uint32_t h[2 * kWords];
-#pragma unroll
-  for (int m = 0; m < kWords; ++m) {
-    const uint2 x = p[m];
-    h[2 * m] = x.x;
-    h[2 * m + 1] = x.y;
-  }
-  switch (pos & 3) {
-    case 0: take_run<0>(out, h); break;
-    case 1: take_run<1>(out, h); break;
-    case 2: take_run<2>(out, h); break;
-    default: take_run<3>(out, h); break;
-  }
-}
-template <int N>
-__device__ __forceinline__ void load_run(float (&out)[N], const float* row,
-                                         int pos) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) out[j] = row[pos + j];
-}
-
-// Rounds the N values and writes them to positions [pos, pos + N) of a
-// staged row. bf16: in pairs (4-byte stores) from the first even position;
-// the parity of pos is the same in every thread of the block.
-template <int N>
-__device__ __forceinline__ void store_run(__nv_bfloat16* row, int pos,
-                                          const float (&val)[N]) {
-  if (pos & 1) {
-    row[pos] = __float2bfloat16(val[0]);
-#pragma unroll
-    for (int j = 1; j + 1 < N; j += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(row + pos + j) =
-          __floats2bfloat162_rn(val[j], val[j + 1]);
-    }
-    if (N % 2 == 0) row[pos + N - 1] = __float2bfloat16(val[N - 1]);
-  } else {
-#pragma unroll
-    for (int j = 0; j + 1 < N; j += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(row + pos + j) =
-          __floats2bfloat162_rn(val[j], val[j + 1]);
-    }
-    if (N % 2 == 1) row[pos + N - 1] = __float2bfloat16(val[N - 1]);
-  }
-}
-template <int N>
-__device__ __forceinline__ void store_run(float* row, int pos,
-                                          const float (&val)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) row[pos + j] = val[j];
-}
 
 template <typename T, int WMAX>
 constexpr int query_smem_bytes() {
@@ -374,13 +190,14 @@ __global__ void __launch_bounds__(kThreads)
   auto issue = [&](int n) {
     const int b = n % kStages;
     if (n < NC) {
-      stage<T, WIDTH, WMAX, kThreads>(buf_a + b * SC, v + base, sl, lv, n * C,
-                                      c_lo, lo, hi);
-      stage<T, WIDTH, WMAX, kThreads>(buf_g + b * SC, g + base, sl, lg, n * C,
-                                      i0, i0, i0 + nq);
+      stage<T, kTile, C, WIDTH, WMAX, kThreads>(buf_a + b * SC, v + base, sl,
+                                                lv, n * C, c_lo, lo, hi);
+      stage<T, kTile, C, WIDTH, WMAX, kThreads>(buf_g + b * SC, g + base, sl,
+                                                lg, n * C, i0, i0, i0 + nq);
     } else if (n < 2 * NC) {
-      stage<T, WIDTH, WMAX, kThreads>(buf_a + b * SC, k + base, sl, lk,
-                                      (n - NC) * C, c_lo, lo, hi);
+      stage<T, kTile, C, WIDTH, WMAX, kThreads>(buf_a + b * SC, k + base, sl,
+                                                lk, (n - NC) * C, c_lo, lo,
+                                                hi);
     }
     cp_async_commit();
   };
@@ -402,8 +219,8 @@ __global__ void __launch_bounds__(kThreads)
     const T* src =
         n < NC ? v + base + n * C * sl : k + base + (n - NC) * C * sl;
     if (edge) {
-      fill_halo<T, WIDTH, kThreads>(buf_a + b * SC, src, sl, c_lo, c_hi,
-                                    false);
+      fill_halo<T, C, WIDTH, kThreads>(buf_a + b * SC, src, sl, c_lo, c_hi,
+                                       false);
       __syncthreads();
     }
     if (n < NC) {
@@ -481,8 +298,8 @@ __global__ void __launch_bounds__(kThreads)
         store_run(buf_out + cc * WIDTH, q0 + ld.at(c0 + cc, i0), acc);
       }
       __syncthreads();
-      unstage<T, WIDTH, kThreads>(dq + base, buf_out, sl, ld, c0, i0,
-                                  i0 + nq);
+      unstage<T, kTile, C, WIDTH, kThreads>(dq + base, buf_out, sl, ld, c0,
+                                            i0, i0 + nq);
     }
     __syncthreads();  // before stage b is refilled, by the next issue()
   }
@@ -537,10 +354,10 @@ __global__ void __launch_bounds__(kKeyThreads<WMAX>)
   auto issue = [&](int n) {  // as pass 1's
     const int b = n % kStages;
     if (n < NC) {
-      stage<T, WIDTH, WMAX, NT>(buf_q + b * SC, q + base, sl, lq, n * C, c_lo,
-                                lo, hi);
-      stage<T, WIDTH, WMAX, NT>(buf_g + b * SC, g + base, sl, lg, n * C, c_lo,
-                                lo, hi);
+      stage<T, kTile, C, WIDTH, WMAX, NT>(buf_q + b * SC, q + base, sl, lq,
+                                          n * C, c_lo, lo, hi);
+      stage<T, kTile, C, WIDTH, WMAX, NT>(buf_g + b * SC, g + base, sl, lg,
+                                          n * C, c_lo, lo, hi);
     }
     cp_async_commit();
   };
@@ -615,10 +432,10 @@ __global__ void __launch_bounds__(kKeyThreads<WMAX>)
     __syncthreads();
     const int b = n % kStages;
     if (edge) {
-      fill_halo<T, WIDTH, NT>(buf_q + b * SC, q + base + n * C * sl, sl, c_lo,
-                              c_hi, true);
-      fill_halo<T, WIDTH, NT>(buf_g + b * SC, g + base + n * C * sl, sl, c_lo,
-                              c_hi, true);
+      fill_halo<T, C, WIDTH, NT>(buf_q + b * SC, q + base + n * C * sl, sl,
+                                 c_lo, c_hi, true);
+      fill_halo<T, C, WIDTH, NT>(buf_g + b * SC, g + base + n * C * sl, sl,
+                                 c_lo, c_hi, true);
       __syncthreads();
     }
     const T* in = buf_in + b * SC;
@@ -646,8 +463,8 @@ __global__ void __launch_bounds__(kKeyThreads<WMAX>)
       store_run(out_s + cc * WIDTH, k0 + lout.at(c0 + cc, j0), acc);
     }
     __syncthreads();
-    unstage<T, WIDTH, NT>(dk + base, out_k, sl, lk, c0, j0, j0 + nk);
-    unstage<T, WIDTH, NT>(dv + base, out_v, sl, lv, c0, j0, j0 + nk);
+    unstage<T, kTile, C, WIDTH, NT>(dk + base, out_k, sl, lk, c0, j0, j0 + nk);
+    unstage<T, kTile, C, WIDTH, NT>(dv + base, out_v, sl, lv, c0, j0, j0 + nk);
     __syncthreads();  // before stage b is refilled, by the next issue()
   }
 }

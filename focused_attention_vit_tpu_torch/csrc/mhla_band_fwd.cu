@@ -18,60 +18,105 @@
 //   weight of a dropped slot becomes 0 and a kept one w_o / (1 - rate);
 //   out_i = sum_o w_o * v_j accumulated in f32 and rounded once to the
 //   input dtype (f32 or bf16).
-//
 // Layout: q, k, v and out are contiguous S-minor [B*h, d, S], the layout the
-// model's projections emit; wts is f32 [B*h, W, S]. One thread owns one
-// query. For a channel c the 32 threads of a warp read q[c, i..i+31] and,
-// for each slot, the keys k[c, i-W/2+o ..] -- neighbouring threads on
-// neighbouring addresses, so every load is coalesced, and the W shifted
-// reads of one warp overlap in L1.
+// model's projections emit; wts is f32 [B*h, W, S].
 //
-// What bounds it on this card: bytes. Per query it reads d values each of
-// q, k and v and writes d of out (plus W f32 weights in training), and does
-// about 4*W*d flops -- far below the card's flop-to-byte ratio. So the design
-// moves each of q, k, v and out through device memory once: key indices come
-// straight from the edge rule, so no halo-extended copies of K and V are
-// written before the kernel (the TPU version needed them because Mosaic
-// cannot shift sublanes), and the W shifted re-reads of a key row hit in
-// L1/L2 instead of device memory. The loops run channel-outer, slot-inner,
-// so a thread keeps only W logits and W key indices in registers, never a
-// d-vector of q or of the accumulator. The dropout mask is never stored:
-// the backward regenerates it from the seed. The eval instantiation
-// (kSave = kDrop = false) compiles neither the weights write nor the mask.
-// This first design does not reach the byte bound: it makes one scalar
-// load per element and slot, so bf16 runs no faster than f32 (about 1.35 ms
-// for both at B=32, h=12, d=64, S=3137, W=7 on an H100 80GB HBM3 at 700 W,
-// against ~0.18 ms for the bf16 bytes at 3.35 TB/s). Staging the K/V window
-// in shared memory (TMA) and wider per-thread loads are left for later work.
+// What bounds it on this card: bytes, by the function. Per query it reads d
+// values each of q, k and v and writes d of out (plus W f32 weights in
+// training), and does about 4*W*d flops, far below the card's flop-to-byte
+// ratio: 617 MB (eval) and 650 MB (training) at B*h=384, S=3137, W=7, d=64,
+// 0.184 and 0.194 ms at 3.35 TB/s. In practice the instructions come close
+// to the bytes, as in the backward's first pass, whose shape this kernel
+// shares: the FMAs are scalar f32 (no tensor-core product has this shape)
+// and each staged bf16 value is widened once per run that reads it. The
+// design (the staging helpers are band_stage.cuh's, shared with the
+// backward):
+//   - A block per tile of kTile = 512 queries of a row; thread t owns the
+//     run of kRun = 4 consecutive queries i0 + 4t .. i0 + 4t + 3.
+//   - The block stages what it reads in chunks of kChunk channels (8 in
+//     bf16, 4 in f32), double-buffered, by 16-byte cp.async copies of each
+//     channel's 16-byte-aligned span (odd S leaves every channel row at its
+//     own offset within 16 bytes, which the staged row keeps; TMA's 16-byte
+//     strides do not fit). Chunks 0..NC-1 stage q (the tile's columns) and
+//     k (the tile and its W - 1 halo columns) and sum the run's W logits;
+//     chunks NC..2NC-1 stage v (with its halo) and sum out. One ring runs
+//     across the two phases, so v's first chunk is in flight while the last
+//     q/k chunk computes and while the softmax, the mask and the weights'
+//     write run.
+//   - The halo at a row's two ends follows the edge rule, not the memory:
+//     after a chunk lands, its columns below 0 are filled from column S-1
+//     and those past S-1 from column 0, behind one more barrier (another
+//     thread's copy of the same 16 bytes may land after a halo column is
+//     written before it).
+//   - Register-blocked runs: for one channel a thread reads run + W - 1
+//     staged k (or v) values as 8-byte words and its run of q values, and
+//     does run * W FMAs, where one query a thread would issue W + 1 scalar
+//     global loads for W FMAs. The run's logits (then weights) are
+//     kRun * WMAX f32 registers.
+//   - The slot count is a template parameter, WMAX in {8, 16}, dispatched
+//     by W inside the entry point: at W = 7 the slot loops are 8 wide.
+//   - out leaves through a staged tile (written there in bf16 pairs), in
+//     16-byte stores but for each channel's two ragged ends.
+//   - Training: the mask is drawn per query by philox::band_keep_mask, the
+//     call the backward makes to regenerate it (never stored, never drawn
+//     per tile), at the kernel's start, under the first copies, into one
+//     word of kRun * WMAX bits. The f32 weights go out through the q
+//     stages, free once the logits are summed, in 16-byte stores (scalar at
+//     a slot row's ends; at odd S a slot row is only 4-byte aligned). The
+//     eval instantiation (kSave = kDrop = false) compiles neither the
+//     weights' write nor the mask.
+//   - The bf16 kernels at slot cap 8 without dropout are held to 102
+//     registers, so that 5 blocks (20 warps) share an SM; the others take
+//     the registers they need (4 blocks an SM for the bf16 dropout forms at
+//     slot cap 8).
+// Tried and not kept (device time in turns on one H100 80GB HBM3 at 700 W,
+// bf16, d=64, S=3137, W=7, utils/band_ab.py): 3 stages (21% slower in eval,
+// 14% with dropout: 3 blocks an SM by shared memory); a tile balanced over
+// the row's blocks (456 queries at S=3137: 7% and 23% slower); the weights
+// stored straight from registers (2-4% slower with dropout than through
+// the q stages); 5 blocks an SM for the dropout forms (they spill, and run
+// no faster).
+// The f32 instantiation runs the same kernels (4 channels a chunk, scalar
+// reads of the staged rows): it is the parity version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
+#include "band_stage.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kMaxWindow = 16;  // the wrapper raises above this
-constexpr int kThreads = 128;   // queries per block
+using namespace band_stage;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kMaxWindow = 16;  // the wrapper raises above this
+constexpr int kTile = 512;      // queries a block
+constexpr int kRun = 4;         // consecutive queries a thread
+constexpr int kThreads = kTile / kRun;
 
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
+constexpr int kChunk = sizeof(T) == 2 ? 8 : 4;  // channels a staged chunk
+constexpr int kStages = 2;  // chunks staged at once: one computed, one in
+                            // flight
+// Elements of one staged channel row: the tile, its halo (W - 1) and the
+// slack of aligning both ends to 16 bytes; a multiple of 8 elements, so
+// every row starts 16-byte aligned.
+template <int WMAX>
+constexpr int kWidth = kTile + WMAX + 16;
+// Slot rows of weights staged at once, and the f32 elements of one staged
+// slot row (the tile and its 16-byte slack).
+constexpr int kWeightRows = 8;
+constexpr int kWeightWidth = kTile + 4;
+// Blocks an SM that the register budget is cut for: 5 (102 registers a
+// thread) for the bf16 kernels at slot cap 8 without dropout, which then
+// spill nothing and run 5% faster than with no bound (4 blocks; H100, in
+// turns); no bound elsewhere (the dropout forms spill at 5).
+template <typename T, int WMAX, bool kDrop>
+constexpr int kMinBlocks = sizeof(T) == 2 && WMAX <= 8 && !kDrop ? 5 : 1;
 
 struct Dropout {
   uint64_t seed;
@@ -79,127 +124,285 @@ struct Dropout {
   float one_minus_rate;  // kept weights are divided by this
 };
 
-// Slots are unrolled to kMaxWindow with an `o < w` guard so that the
-// per-slot arrays stay in registers for any runtime W <= kMaxWindow.
-template <typename T, int D, bool kSave, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int WMAX>
+constexpr int smem_bytes() {
+  // kStages stages of q and of k (then v), and the out tile.
+  return (2 * kStages + 1) * kChunk<T> * kWidth<WMAX> *
+         static_cast<int>(sizeof(T));
+}
+
+// Writes the weights of slots [O0, O0 + kWeightRows) of the tile's queries
+// (the runs' p[r][o]) to the f32 [W, S] slot rows at wr: staged in buf as
+// slot rows that keep each row's offset within 16 bytes, then 16-byte
+// stores. The caller has passed a barrier since buf was last read; this
+// ends with one.
+template <int O0, int WMAX>
+__device__ __forceinline__ void save_weights(float* wr, float* buf,
+                                             const float (&p)[kRun][WMAX],
+                                             int64_t s, int w, int i0, int nq,
+                                             int q0) {
+  const Leads<float> lw(wr, s);
+#pragma unroll
+  for (int o = 0; o < kWeightRows; ++o) {
+    float* row = buf + o * kWeightWidth + q0 + lw.at(O0 + o, i0);
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) row[r] = p[r][O0 + o];
+  }
+  __syncthreads();
+  const int rows = min(kWeightRows, w - O0);
+  constexpr int kStores = (kTile + 2 * 4 - 2) / 4;  // a slot row, at most
+  for (int f = threadIdx.x; f < rows * kStores; f += kThreads) {
+    const int o = f / kStores;
+    const int m = f - o * kStores;
+    const int x0 = i0 - lw.at(O0 + o, i0) + 4 * m;  // 16-byte aligned
+    if (x0 < i0 + nq) {
+      float* row = wr + (O0 + o) * s;
+      const float* from = buf + o * kWeightWidth + 4 * m;
+      if (x0 >= i0 && x0 + 4 <= i0 + nq) {
+        *reinterpret_cast<float4*>(row + x0) =
+            *reinterpret_cast<const float4*>(from);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (x0 + e >= i0 && x0 + e < i0 + nq) row[x0 + e] = from[e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// A block per kTile queries of a row; thread t owns the run of queries
+// i0 + kRun*t + r. Chunks 0..NC-1 stage q and k and sum the logits; after
+// the last of them the logits become the (saved, dropped) weights; chunks
+// NC..2NC-1 stage v and sum out.
+template <typename T, int D, int WMAX, bool kSave, bool kDrop>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, WMAX, kDrop>))
     band_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
                     float* __restrict__ wts, int s, int w, int tiles_per_row,
                     float scale, Dropout drop) {
+  constexpr int C = kChunk<T>;
+  constexpr int WIDTH = kWidth<WMAX>;
+  constexpr int NC = D / C;
+  constexpr int RUN = kRun + WMAX - 1;
+  constexpr int SC = C * WIDTH;  // elements of one staged chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf_q = reinterpret_cast<T*>(smem_raw);  // [kStages][SC]
+  T* const buf_a = buf_q + kStages * SC;            // [kStages][SC]: k, v
+  T* const buf_out = buf_a + kStages * SC;          // [SC]
+  // The weights' staging reuses the q stages.
+  static_assert(kWeightRows * kWeightWidth * 4 <=
+                    kStages * SC * static_cast<int>(sizeof(T)),
+                "the weights' staging does not fit the q stages");
+
   const int64_t row = blockIdx.x / tiles_per_row;
-  const int i = (blockIdx.x % tiles_per_row) * kThreads + threadIdx.x;
-  if (i >= s) return;
-  const int64_t base = row * D * static_cast<int64_t>(s);
-  const T* qr = q + base;
-  const T* kr = k + base;
-  const T* vr = v + base;
-  T* outr = out + base;
-
+  const int i0 = (blockIdx.x % tiles_per_row) * kTile;
+  const int nq = min(kTile, s - i0);
   const int hw = w / 2;
-  int key[kMaxWindow];
+  const int c_lo = i0 - hw;  // staged key columns [c_lo, c_hi)
+  const int c_hi = i0 + nq + (w - 1 - hw);
+  const int lo = max(c_lo, 0);
+  const int hi = min(c_hi, s);
+  const bool edge = c_lo < 0 || c_hi > s;
+  const int64_t sl = s;
+  const int64_t base = row * D * sl;
+  const int t = threadIdx.x;
+  const int q0 = kRun * t;  // this thread's first query, within the tile
+
+  const Leads<T> lq(q + base, sl), lk(k + base, sl), lv(v + base, sl),
+      lout(out + base, sl);
+
+  // Stages chunk n (none past the last: the group stays, empty, so that
+  // the wait below counts the same in every iteration).
+  auto issue = [&](int n) {
+    const int b = n % kStages;
+    if (n < NC) {
+      stage<T, kTile, C, WIDTH, WMAX, kThreads>(buf_q + b * SC, q + base, sl,
+                                                lq, n * C, i0, i0, i0 + nq);
+      stage<T, kTile, C, WIDTH, WMAX, kThreads>(buf_a + b * SC, k + base, sl,
+                                                lk, n * C, c_lo, lo, hi);
+    } else if (n < 2 * NC) {
+      stage<T, kTile, C, WIDTH, WMAX, kThreads>(buf_a + b * SC, v + base, sl,
+                                                lv, (n - NC) * C, c_lo, lo,
+                                                hi);
+    }
+    cp_async_commit();
+  };
+
+  float p[kRun][WMAX];  // the logits, then the weights
 #pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    const int j = i - hw + o;
-    key[o] = j < 0 ? s - 1 : (j >= s ? 0 : j);
+  for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+    for (int o = 0; o < WMAX; ++o) p[r][o] = 0.f;
   }
 
-  float logit[kMaxWindow];
-#pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) logit[o] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const int64_t off = static_cast<int64_t>(c) * s;
-    const float qc = to_f32(qr[off + i]);
-#pragma unroll
-    for (int o = 0; o < kMaxWindow; ++o) {
-      if (o < w) logit[o] += qc * to_f32(kr[off + key[o]]);
-    }
-  }
+  for (int n = 0; n < kStages - 1; ++n) issue(n);
 
-  float m = -INFINITY;
-#pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    if (o < w) {
-      logit[o] *= scale;
-      m = fmaxf(m, logit[o]);
-    }
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    if (o < w) {
-      logit[o] = expf(logit[o] - m);
-      sum += logit[o];
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < kMaxWindow; ++o) {
-    if (o < w) logit[o] = logit[o] / sum;  // now the softmax weights
-  }
-
-  if constexpr (kSave) {
-    float* wr = wts + row * w * static_cast<int64_t>(s);
-#pragma unroll
-    for (int o = 0; o < kMaxWindow; ++o) {
-      if (o < w) wr[static_cast<int64_t>(o) * s + i] = logit[o];
-    }
-  }
+  // Training: the run's dropout mask (bit WMAX*r + o keeps slot o of query
+  // r), drawn while the first chunk's copies are in flight, so that the
+  // Philox state is not live beside the weights.
+  using Bits = std::conditional_t<WMAX <= 8, uint32_t, uint64_t>;
+  [[maybe_unused]] Bits keep = 0;
   if constexpr (kDrop) {
-    const uint32_t keep =
-        philox::band_keep_mask(drop.seed, row, i, w, drop.threshold);
 #pragma unroll
-    for (int o = 0; o < kMaxWindow; ++o) {
-      if (o < w) {
-        logit[o] = (keep >> o) & 1u ? logit[o] / drop.one_minus_rate : 0.f;
+    for (int r = 0; r < kRun; ++r) {
+      if (q0 + r < nq) {
+        keep |= static_cast<Bits>(philox::band_keep_mask(
+                    drop.seed, row, i0 + q0 + r, w, drop.threshold))
+                << (WMAX * r);
       }
     }
   }
 
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const int64_t off = static_cast<int64_t>(c) * s;
-    float acc = 0.f;
-#pragma unroll
-    for (int o = 0; o < kMaxWindow; ++o) {
-      if (o < w) acc += logit[o] * to_f32(vr[off + key[o]]);
+  for (int n = 0; n < 2 * NC; ++n) {
+    issue(n + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int b = n % kStages;
+    const T* a = buf_a + b * SC;
+    if (edge) {
+      const T* src =
+          n < NC ? k + base + n * C * sl : v + base + (n - NC) * C * sl;
+      fill_halo<T, C, WIDTH, kThreads>(buf_a + b * SC, src, sl, c_lo, c_hi,
+                                       false);
+      __syncthreads();
     }
-    outr[off + i] = from_f32<T>(acc);
+    if (n < NC) {
+      const T* qs = buf_q + b * SC;
+      const int c0 = n * C;
+#pragma unroll 1
+      for (int cc = 0; cc < C; ++cc) {
+        float qr[kRun];
+        load_run(qr, qs + cc * WIDTH, q0 + lq.at(c0 + cc, i0));
+        float kr[RUN];
+        load_run(kr, a + cc * WIDTH, q0 + lk.at(c0 + cc, c_lo));
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+          for (int o = 0; o < WMAX; ++o) {
+            if (o < w) p[r][o] += qr[r] * kr[r + o];
+          }
+        }
+      }
+    } else {
+      const int c0 = (n - NC) * C;
+#pragma unroll 1
+      for (int cc = 0; cc < C; ++cc) {
+        float vr[RUN];
+        load_run(vr, a + cc * WIDTH, q0 + lv.at(c0 + cc, c_lo));
+        float acc[kRun];
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+          acc[r] = 0.f;
+#pragma unroll
+          for (int o = 0; o < WMAX; ++o) {
+            if (o < w) acc[r] += p[r][o] * vr[r + o];
+          }
+        }
+        store_run(buf_out + cc * WIDTH, q0 + lout.at(c0 + cc, i0), acc);
+      }
+      __syncthreads();
+      unstage<T, kTile, C, WIDTH, kThreads>(out + base, buf_out, sl, lout, c0,
+                                            i0, i0 + nq);
+    }
+    __syncthreads();  // before stage b is refilled, by the next issue()
+
+    if (n == NC - 1) {
+      // Logits -> softmax weights, saved before the dropout; v's first
+      // chunk is in flight meanwhile.
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        float m = -INFINITY;
+#pragma unroll
+        for (int o = 0; o < WMAX; ++o) {
+          if (o < w) {
+            p[r][o] *= scale;
+            m = fmaxf(m, p[r][o]);
+          }
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int o = 0; o < WMAX; ++o) {
+          if (o < w) {
+            p[r][o] = expf(p[r][o] - m);
+            sum += p[r][o];
+          }
+        }
+#pragma unroll
+        for (int o = 0; o < WMAX; ++o) {
+          p[r][o] = o < w ? p[r][o] / sum : 0.f;
+        }
+      }
+      if constexpr (kSave) {
+        float* const wr = wts + row * w * sl;
+        float* const wbuf = reinterpret_cast<float*>(buf_q);
+        save_weights<0>(wr, wbuf, p, sl, w, i0, nq, q0);
+        if constexpr (WMAX > kWeightRows) {
+          static_assert(WMAX <= 2 * kWeightRows, "two rounds of slot rows");
+          if (w > kWeightRows) {
+            save_weights<kWeightRows>(wr, wbuf, p, sl, w, i0, nq, q0);
+          }
+        }
+      }
+      if constexpr (kDrop) {
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+          for (int o = 0; o < WMAX; ++o) {
+            p[r][o] = (keep >> (WMAX * r + o)) & 1u
+                          ? p[r][o] / drop.one_minus_rate
+                          : 0.f;
+          }
+        }
+      }
+    }
   }
 }
 
-template <typename T, bool kSave, bool kDrop>
+// Raises a kernel's dynamic shared memory limit where it passes 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, int D, int WMAX>
 cudaError_t launch_d(const T* q, const T* k, const T* v, T* out, float* wts,
-                     int d, int s, int w, dim3 grid, int tiles, float scale,
-                     Dropout drop, cudaStream_t stream) {
-  switch (d) {
-    case 16:
-      band_fwd_kernel<T, 16, kSave, kDrop><<<grid, kThreads, 0, stream>>>(
-          q, k, v, out, wts, s, w, tiles, scale, drop);
-      break;
-    case 32:
-      band_fwd_kernel<T, 32, kSave, kDrop><<<grid, kThreads, 0, stream>>>(
-          q, k, v, out, wts, s, w, tiles, scale, drop);
-      break;
-    case 64:
-      band_fwd_kernel<T, 64, kSave, kDrop><<<grid, kThreads, 0, stream>>>(
-          q, k, v, out, wts, s, w, tiles, scale, drop);
-      break;
-    case 128:
-      band_fwd_kernel<T, 128, kSave, kDrop><<<grid, kThreads, 0, stream>>>(
-          q, k, v, out, wts, s, w, tiles, scale, drop);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+                     int s, int w, dim3 grid, int tiles, float scale,
+                     bool dropout, Dropout drop, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<T, WMAX>();
+  auto* kernel =
+      wts == nullptr
+          ? (dropout ? band_fwd_kernel<T, D, WMAX, false, true>
+                     : band_fwd_kernel<T, D, WMAX, false, false>)
+          : (dropout ? band_fwd_kernel<T, D, WMAX, true, true>
+                     : band_fwd_kernel<T, D, WMAX, true, false>);
+  const cudaError_t err = allow_smem(kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, kSmem, stream>>>(q, k, v, out, wts, s, w, tiles,
+                                            scale, drop);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_w(const T* q, const T* k, const T* v, T* out, float* wts,
+                     int s, int w, dim3 grid, int tiles, float scale,
+                     bool dropout, Dropout drop, cudaStream_t stream) {
+  if (w <= 8) {
+    return launch_d<T, D, 8>(q, k, v, out, wts, s, w, grid, tiles, scale,
+                             dropout, drop, stream);
+  }
+  return launch_d<T, D, kMaxWindow>(q, k, v, out, wts, s, w, grid, tiles,
+                                    scale, dropout, drop, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* wts, int64_t rows, int d, int s, int w, float scale,
                    bool dropout, Dropout drop, cudaStream_t stream) {
-  const int tiles = (s + kThreads - 1) / kThreads;
+  const int tiles = (s + kTile - 1) / kTile;
   const int64_t blocks = rows * tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
   const dim3 grid(static_cast<unsigned>(blocks));
@@ -207,17 +410,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
-  if (wts == nullptr) {
-    return dropout ? launch_d<T, false, true>(qp, kp, vp, op, wts, d, s, w,
-                                              grid, tiles, scale, drop, stream)
-                   : launch_d<T, false, false>(qp, kp, vp, op, wts, d, s, w,
-                                               grid, tiles, scale, drop,
-                                               stream);
+  switch (d) {
+    case 16:
+      return launch_w<T, 16>(qp, kp, vp, op, wts, s, w, grid, tiles, scale,
+                             dropout, drop, stream);
+    case 32:
+      return launch_w<T, 32>(qp, kp, vp, op, wts, s, w, grid, tiles, scale,
+                             dropout, drop, stream);
+    case 64:
+      return launch_w<T, 64>(qp, kp, vp, op, wts, s, w, grid, tiles, scale,
+                             dropout, drop, stream);
+    case 128:
+      return launch_w<T, 128>(qp, kp, vp, op, wts, s, w, grid, tiles, scale,
+                              dropout, drop, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return dropout ? launch_d<T, true, true>(qp, kp, vp, op, wts, d, s, w, grid,
-                                           tiles, scale, drop, stream)
-                 : launch_d<T, true, false>(qp, kp, vp, op, wts, d, s, w, grid,
-                                            tiles, scale, drop, stream);
 }
 
 __global__ void keep_bits_kernel(uint32_t* __restrict__ out, int64_t rows,
@@ -241,12 +449,13 @@ __global__ void keep_bits_kernel(uint32_t* __restrict__ out, int64_t rows,
 
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // launch (0 on success). Pointers are device pointers to contiguous
-// [rows, d, s] tensors of one dtype (is_bf16 = 1 for bf16, 0 for f32);
-// `wts` is a contiguous f32 [rows, w, s] tensor to receive the pre-dropout
-// softmax weights, or null for the eval kernel. With dropout != 0 the slots
-// are dropped by philox.cuh's rule under (seed_lo, seed_hi, threshold).
-// `stream` is the caller's cudaStream_t. The kernel allocates nothing and
-// does not synchronise.
+// [rows, d, s] tensors of one dtype (is_bf16 = 1 for bf16, 0 for f32), each
+// at least 2-byte (bf16) or 4-byte (f32) aligned; `wts` is a contiguous f32
+// [rows, w, s] tensor to receive the pre-dropout softmax weights, or null
+// for the eval kernel. With dropout != 0 the slots are dropped by
+// philox.cuh's rule under (seed_lo, seed_hi, threshold). `stream` is the
+// caller's cudaStream_t. The kernel allocates nothing and does not
+// synchronise.
 extern "C" int mhla_band_fwd(const void* q, const void* k, const void* v,
                              void* out, void* wts, long long rows, int d,
                              int s, int w, int is_bf16, float scale,
@@ -267,6 +476,20 @@ extern "C" int mhla_band_fwd(const void* q, const void* k, const void* v,
                 : launch<float>(q, k, v, out, wp, rows, d, s, w, scale,
                                 dropout != 0, drop, st);
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory, in bytes, of the forward at head dim d and window
+// w (the same for the eval and the training form), for the build report; 0
+// for what the kernel does not take.
+extern "C" int mhla_band_fwd_smem(int is_bf16, int d, int w) {
+  if (w < 1 || w > kMaxWindow || (d != 16 && d != 32 && d != 64 && d != 128)) {
+    return 0;
+  }
+  if (is_bf16) {
+    return w <= 8 ? smem_bytes<__nv_bfloat16, 8>()
+                  : smem_bytes<__nv_bfloat16, kMaxWindow>();
+  }
+  return w <= 8 ? smem_bytes<float, 8>() : smem_bytes<float, kMaxWindow>();
 }
 
 // The band's dropout bits as the kernels draw them: out[row, o, i] is the

@@ -31,10 +31,10 @@ GOLDEN_WORDS = [
 ]
 SHAPES = [(16, 15, 7), (64, 1000, 7), (32, 577, 4), (128, 200, 16),
           (64, 3137, 1), (64, 3137, 7)]
-# The backward's tiling (d, S, W): S at every residue mod 8 (a channel row's
-# alignment within 16 bytes), S just below, at and above multiples of its
-# 512-query tile, rows shorter than a tile (S = 2W + 1), W on both sides of
-# the slot-cap dispatch (8 | 9) and at the cap, every head dim.
+# The band kernels' tiling (d, S, W): S at every residue mod 8 (a channel
+# row's alignment within 16 bytes), S just below, at and above multiples of
+# their 512-query tile, rows shorter than a tile (S = 2W + 1), W on both
+# sides of the slot-cap dispatch (8 | 9) and at the cap, every head dim.
 BWD_SHAPES = SHAPES + [
     (16, 1001, 7), (32, 1002, 7), (64, 1003, 7), (128, 1004, 7),
     (16, 1005, 8), (32, 1006, 9), (64, 1007, 16), (128, 3137, 7),
@@ -70,7 +70,7 @@ def _close(got, want, dtype, f32_tol, bf16_atol=2.0 ** -16):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,s,w", SHAPES)
+@pytest.mark.parametrize("d,s,w", BWD_SHAPES)
 def test_kernel_matches_plain(cuda, dtype, d, s, w):
     q, k, v = _inputs(cuda, (2, 3, d, s), dtype, seed=s)
     before = band.launch_count()
@@ -127,6 +127,45 @@ def test_band_backward_reads_no_other_row(cuda, d, bad, side):
     for got, want in zip(poisoned, clean):
         assert torch.isfinite(want[0, 1]).all()
         assert torch.equal(got[0, 1], want[0, 1])
+
+
+@pytest.mark.parametrize("side", ["previous", "next"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), 3e38])
+def test_band_forward_reads_no_other_row(cuda, d, bad, side):
+    """Row 1 of three (S = 1001, as the backward's test) gets a
+    bit-identical eval output, training output and saved weights when the
+    previous or the next row's q, k and v hold NaN, inf or 3e38."""
+    s, w, rate, seed = 1001, 7, 0.1, 11
+    q, k, v = _inputs(cuda, (1, 3, d, s), torch.bfloat16, seed=d)
+
+    def forward():
+        out = band.roll_banded_attention(q, k, v, w)
+        out_train, wts = band.band_forward_train(q, k, v, w, rate, seed)
+        return out, out_train, wts.view(1, 3, w, s)
+
+    clean = forward()
+    other = 0 if side == "previous" else 2
+    for x in (q, k, v):
+        x[0, other] = bad
+    poisoned = forward()
+    torch.cuda.synchronize()
+    for got, want in zip(poisoned, clean):
+        assert torch.isfinite(want[0, 1]).all()
+        assert torch.equal(got[0, 1], want[0, 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,s,w", [(64, 3137, 7), (32, 1001, 9),
+                                   (128, 513, 16), (16, 15, 7)])
+def test_band_forward_eval_equals_training_at_rate_0(cuda, dtype, d, s, w):
+    """At rate 0 the eval form and the training form of the forward give
+    the same bits of out: the weights' write changes nothing of the sum."""
+    q, k, v = _inputs(cuda, (2, 3, d, s), dtype, seed=s)
+    out = band.roll_banded_attention(q, k, v, w)
+    out_train, _ = band.band_forward_train(q, k, v, w, 0.0, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_train)
 
 
 def test_band_backward_is_deterministic(cuda):

@@ -39,6 +39,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.ops.window",
     "focused_attention_vit_tpu_torch.serve",
     "focused_attention_vit_tpu_torch.train",
+    "focused_attention_vit_tpu_torch.utils.band_ab",
     "focused_attention_vit_tpu_torch.utils.kernel_build",
     "focused_attention_vit_tpu_torch.utils.metrics",
     "focused_attention_vit_tpu_torch.utils.step_profile",
@@ -167,6 +168,16 @@ def test_step_profile_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         step_profile.main(["--depth", "1"])
+
+
+def test_band_ab_runs_in_turns_and_raises_without_cuda():
+    from focused_attention_vit_tpu_torch.utils import band_ab
+
+    assert band_ab.turns(["a", "b"]) == ["a", "b", "b", "a"]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        band_ab.main(["."])
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -391,26 +402,61 @@ def test_band_entry_points_match_the_wrapper_signatures(lib, entry):
     assert _entry_types(src, entry) == band._SIGNATURES[(lib, entry)]
 
 
-@pytest.mark.parametrize("pattern,present", [
+BAND_STAGING_PATTERNS = [
     (r"cp\.async\.cg\.shared\.global", True),  # tiles by async copies
     (r"\], 16;", True),                         # of 16 bytes
     (r"cp\.async\.wait_group", True),
-    (r"reinterpret_cast<uint4\*>", True),  # 16-byte stores of dq, dk, dv
+    (r"reinterpret_cast<uint4\*>", True),  # 16-byte stores of the results
     (r"launch_d<T, D, 8>", True),          # the slot cap 8 at W <= 8
     (r"launch_d<T, D, kMaxWindow>", True),  # and 16 past it
     (r"\batomic\w*\(", False),             # sums in a fixed order
     (r"\batom\.", False),
     (r"\bred\.", False),
-])
+]
+
+
+@pytest.mark.parametrize("pattern,present", BAND_STAGING_PATTERNS)
 def test_band_backward_stages_tiles_without_atomics(pattern, present):
-    """K2 (``mhla_band_bwd.cu``) stages its tiles by 16-byte ``cp.async``
+    """K2 (``mhla_band_bwd.cu`` and the ``csrc`` headers it includes, where
+    its staging helpers live) stages its tiles by 16-byte ``cp.async``
     copies, stores its results 16 bytes wide, fixes the slot count at
     compile time (8 or 16, by W) and uses no atomics, so two runs give the
     same bits."""
     import re
 
-    text = (CSRC / "mhla_band_bwd.cu").read_text()
+    text = _with_headers("mhla_band_bwd.cu")
     assert bool(re.search(pattern, text)) == present, pattern
+
+
+@pytest.mark.parametrize("pattern,present", BAND_STAGING_PATTERNS)
+def test_band_forward_stages_tiles(pattern, present):
+    """K1 (``mhla_band_fwd.cu`` and the ``csrc`` headers it includes) stages
+    q, k and v by 16-byte ``cp.async`` copies, stores out 16 bytes wide,
+    fixes the slot count at compile time (8 or 16, by W) and uses no
+    atomics."""
+    import re
+
+    text = _with_headers("mhla_band_fwd.cu")
+    assert bool(re.search(pattern, text)) == present, pattern
+
+
+def test_band_sources_share_one_staging_header():
+    """Both band sources include ``band_stage.cuh``, which defines the
+    staging helpers, and neither defines its own copy of them."""
+    import re
+
+    header = (CSRC / "band_stage.cuh").read_text()
+    helpers = ("cp_async16", "cp_async_commit", "cp_async_wait", "lead",
+               "Leads", "stage", "fill_halo", "unstage", "take_run",
+               "load_run", "store_run")
+    for name in helpers:
+        assert re.search(rf"(void|int|struct) {name}\b", header), name
+    for src in ("mhla_band_fwd.cu", "mhla_band_bwd.cu"):
+        text = (CSRC / src).read_text()
+        assert '#include "band_stage.cuh"' in text
+        for name in helpers:
+            assert not re.search(rf"(void|int|struct) {name}\b", text), (
+                src, name)
 
 
 def test_flash_common_keeps_the_fused_kernels_helpers():
