@@ -15,7 +15,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, in
    parallel, and prints ptxas's registers, spills and shared memory of the
    main path's wgmma kernels and of every instantiation of the band
-   forward (K1) and backward (K2);
+   forward (K1) and backward (K2) and of the tile band's backward (K7);
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
    shapes and at the serving shape, with CUDA-event timings of both, the
@@ -80,9 +80,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 16. e1-train-parity: one f32 train step of ViT-B/16 cut to 2 blocks with
     attention dropout 0.1 and the switch on, card against CPU.
 
-17. kernel-tileband: the tile band's forward (K6), backward (K7, before and
-    after the plain edge fold) and window-tile forward (K8) against their
-    plain versions over d in 16..128, W in 3..33 and S from 2W+1 to 3137,
+17. kernel-tileband: the tile band's forward (K6), backward (K7, which
+    folds the clamped positions' mass into rows 0 and S-1 as JAX's edge
+    fold does) and window-tile forward (K8) against their plain versions
+    over d in 16..128, W in 3..33 and S from 2W+1 to 3137,
     f32 and bf16, and at the serving shape; the backward run twice gives the
     same bits; the composite (K6 plus the exact edge rows) equals K1 at
     W=7; CUDA-event timings of the kernels, the plain versions, PyTorch's
@@ -303,6 +304,8 @@ def phase_build() -> None:
             _band_fwd_ptxas(lib, text)
         if lib.name == "libmhla_band_bwd.so":
             _band_bwd_ptxas(lib, text)
+        if lib.name == "libmhla_tile_band_bwd.so":
+            _tile_bwd_ptxas(lib, text)
 
 
 def _flash_ptxas(lib: Path, text: str) -> None:
@@ -425,6 +428,33 @@ def _band_bwd_ptxas(lib: Path, text: str) -> None:
                                        key=lambda kv: (kv[0][2], kv[0][3],
                                                        kv[0][4] or ""))
                              if t_ == dt and k_ == kind))
+
+
+def _tile_bwd_ptxas(lib: Path, text: str) -> None:
+    """Log ptxas's registers, spills and shared memory of every K7
+    instantiation (bf16 and f32, each head dim); raise if one is missing or
+    spills."""
+    smem = tile._kernel("mhla_tile_band_bwd", "mhla_tile_band_bwd_smem")
+    found = {}
+    for m in re.finditer(
+            r"Function properties for \S*?tile_band_bwd_(mma|f32)ILi(\d+)E"
+            r"\S*\n\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
+            r".*?Used (\d+) registers(?:.*?(\d+) bytes smem)?", text):
+        kind, d, spills, regs, static = m.groups()
+        dt = "bf16" if kind == "mma" else "f32"
+        found[(dt, int(d))] = (int(regs), int(spills), int(static or 0),
+                               smem(int(d)) if dt == "bf16" else 0)
+    if len(found) != 2 * len(tile.HEAD_DIMS):
+        raise AssertionError(f"ptxas reports {len(found)} of K7's "
+                             f"{2 * len(tile.HEAD_DIMS)} instantiations in "
+                             f"{lib.parent / 'build.log'}")
+    log("build", "ptxas K7 (dtype d: registers, spill bytes, static and "
+                 "dynamic smem): " + "; ".join(
+                     f"{dt} {d}: {r}, {sp}, {st}, {dy}"
+                     for (dt, d), (r, sp, st, dy) in sorted(found.items())))
+    spilled = {key: v[1] for key, v in found.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"K7 spills (bytes): {spilled}")
 
 
 def profile_device_ms(fn, calls: int = 20) -> dict:
@@ -651,9 +681,9 @@ def phase_kernel_train() -> dict:
 
 
 def _tile_compare(q, k, v, g, w):
-    """K6, K7 and K8 (through ``banded_attention_v4b``) against their plain
-    versions on ``[B*h, S, d]`` inputs; K7 is held before and after the
-    plain edge fold, which both sides then share. {name: (err, ok, text)}."""
+    """K6, K7 (which folds the clamped positions' mass into rows 0 and S-1)
+    and K8 (through ``banded_attention_v4b``) against their plain versions
+    on ``[B*h, S, d]`` inputs. {name: (err, ok, text)}."""
     dtype = q.dtype
     bh, s, d = q.shape
     out = tile.tile_band_forward(q, k, v, w)
@@ -661,14 +691,11 @@ def _tile_compare(q, k, v, g, w):
     out_b = tile.banded_attention_v4b(
         *(x.view(1, bh, s, d) for x in (q, k, v)), w).view(bh, s, d)
     grads = tile.tile_band_backward(q, k, v, g, w)
-    ref_grads = tile.plain_tile_band_backward(q, k, v, g, w)
-    folded = tile._edge_fold(q, k, v, g, *grads[1:], w)
-    ref_folded = tile._edge_fold(q, k, v, g, *ref_grads[1:], w)
+    ref_grads = tile.plain_bwd_rule(q, k, v, g, w)
     torch.cuda.synchronize()
     res = {"fwd": _flash_check(out, ref, dtype, F32_TOL, TILE_BF16_ULPS),
            "fwd_b": _flash_check(out_b, ref, dtype, F32_TOL, TILE_BF16_ULPS)}
-    for name, a, b in zip(("dq", "dk", "dv", "dk_folded", "dv_folded"),
-                          (*grads, *folded), (*ref_grads, *ref_folded)):
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
         res[name] = _flash_check(a, b, dtype, F32_BWD_TOL, TILE_BF16_ULPS)
     return res
 
@@ -773,6 +800,8 @@ def phase_kernel_tileband() -> dict:
                     lambda: tile.tile_band_forward(q, k, v, w)),
                 "bwd": cuda_median_ms(
                     lambda: tile.tile_band_backward(q, k, v, g, w)),
+                # The plain edge fold that ran after K7 before it folded
+                # in-kernel, for the record.
                 "fold": cuda_median_ms(lambda: tile._edge_fold(
                     q, k, v, g, k, v, w)),
                 "fwd_b": cuda_median_ms(
@@ -780,8 +809,7 @@ def phase_kernel_tileband() -> dict:
                 "fwd_plain": cuda_median_ms(
                     lambda: tile.plain_tile_band_forward(q, k, v, w), 5, 1),
                 "bwd_plain": cuda_median_ms(
-                    lambda: tile.plain_tile_band_backward(q, k, v, g, w),
-                    5, 1),
+                    lambda: tile.plain_bwd_rule(q, k, v, g, w), 5, 1),
                 "fwd_b_plain": cuda_median_ms(
                     lambda: tile.plain_window_tile_band(qt, ke, ve, w), 5, 1),
                 "library": cuda_median_ms(
@@ -811,9 +839,10 @@ def phase_kernel_tileband() -> dict:
             lambda *a: band.roll_banded_attention(*a, w), (qs, ks, vs),
             g4.transpose(2, 3).contiguous()))
         log(phase, f"serving shape bf16, kernel / plain, ms: K6 "
-                   f"{times['fwd']:.4f} / {times['fwd_plain']:.4f}; K7 "
-                   f"{times['bwd']:.4f} / {times['bwd_plain']:.4f} (the plain "
-                   f"edge fold after it {times['fold']:.4f}); K8 "
+                   f"{times['fwd']:.4f} / {times['fwd_plain']:.4f}; K7, "
+                   f"edge fold included, {times['bwd']:.4f} / "
+                   f"{times['bwd_plain']:.4f} (the plain edge fold that ran "
+                   f"after the earlier K7: {times['fold']:.4f}); K8 "
                    f"{times['fwd_b']:.4f} / {times['fwd_b_plain']:.4f} on "
                    f"prebuilt tiles of {t} rows (building them "
                    f"{build_ms:.4f}); PyTorch's fused attention on the tiles "
@@ -848,10 +877,17 @@ def phase_kernel_tileband() -> dict:
                        **least_time(tile_bytes, 4 * tile_pairs)),
             fwd_b_launches=k8_launches,
         )
+        # K7 in batches of 10 back-to-back calls: the host's launch work
+        # then runs ahead of the card instead of inside the timed span.
+        k7_batched = cuda_median_ms(
+            lambda: tile.tile_band_backward(q, k, v, g, w), 30, 3, 10)
         log(phase, f"bf16 bounds, ms: K6 {result['fwd']['bound_ms']:.4f}, "
                    f"K7 {result['bwd']['bound_ms']:.4f}, K8 "
                    f"{result['fwd_b']['bound_ms']:.4f} (by bytes); K6 "
-                   f"{4 * one / times['fwd'] / 1e6:.0f} GB/s of q, k, v, out")
+                   f"{4 * one / times['fwd'] / 1e6:.0f} GB/s of q, k, v, out; "
+                   f"K7 {k7_batched:.4f} ms a call in batches of 10 (CUDA "
+                   f"events), {7 * one / k7_batched / 1e6:.0f} GB/s of q, k, "
+                   f"v, g, dq, dk, dv")
         del q, k, v, g, q4, k4, v4, g4, qs, ks, vs, qt, ke, ve
         torch.cuda.empty_cache()
     return result

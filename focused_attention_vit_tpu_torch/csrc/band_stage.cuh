@@ -2,6 +2,8 @@
 // mhla_band_bwd.cu): channel rows of [B*h, d, S] tensors copied into shared
 // memory by 16-byte asynchronous copies, read back as register runs of
 // consecutive queries (keys), and results written out through a staged tile.
+// The tile band's backward (mhla_tile_band_bwd.cu) uses the cp.async
+// helpers alone.
 //
 // In the S-minor layout channel c of row r starts at element (r*d + c)*S,
 // which at odd S is 2-byte aligned for most channels. So a channel's columns

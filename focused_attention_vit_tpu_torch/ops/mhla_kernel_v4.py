@@ -17,10 +17,12 @@ plain version. Nothing falls back.
 - K6, the forward on ``[B*h, S, d]``: :func:`tile_band_forward`,
   ``csrc/mhla_tile_band_fwd.cu``, count ``"fwd"``, plain
   :func:`plain_tile_band_forward`;
-- K7, its backward (dq, dk, dv of the in-range positions):
-  :func:`tile_band_backward`, ``csrc/mhla_tile_band_bwd.cu``, count
-  ``"bwd"``, plain :func:`plain_tile_band_backward`; the mass of the
-  clamped positions is added by the plain :func:`_edge_fold`, as in JAX;
+- K7, its backward: :func:`tile_band_backward`,
+  ``csrc/mhla_tile_band_bwd.cu``, count ``"bwd"``; what JAX's ``_bwd_rule``
+  returns, dq, dk and dv with the clamped positions' mass folded into rows
+  0 and S-1 (the kernel folds in one launch), plain :func:`plain_bwd_rule`:
+  :func:`plain_tile_band_backward` (JAX's ``_bwd_kernel``, the in-range
+  positions), then :func:`_edge_fold`, as in JAX;
 - K8, the same band from prebuilt ``[B*h, n_t, t + 2*halo, d]`` window
   tiles, forward only: :func:`window_tile_band`, the forward's source,
   count ``"fwd_b"``, plain :func:`plain_window_tile_band`.
@@ -216,6 +218,16 @@ def _edge_fold(q, k, v, g, dk, dv, window_size: int):
     return dk, dv
 
 
+def plain_bwd_rule(q, k, v, g, window_size: int):
+    """K7's plain version: JAX's ``_bwd_rule`` in plain PyTorch,
+    :func:`plain_tile_band_backward` and then, where W//2 > 0,
+    :func:`_edge_fold`."""
+    dq, dk, dv = plain_tile_band_backward(q, k, v, g, window_size)
+    if window_size // 2 > 0:
+        dk, dv = _edge_fold(q, k, v, g, dk, dv, window_size)
+    return dq, dk, dv
+
+
 def plain_window_tile_band(qt: torch.Tensor, ke: torch.Tensor,
                            ve: torch.Tensor, window_size: int) -> torch.Tensor:
     """K8's plain version: per-tile masked attention of query tiles
@@ -241,6 +253,7 @@ _SIGNATURES = {
         [_PTR] * 4 + [_LL, _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
     ("mhla_tile_band_bwd", "mhla_tile_band_bwd"):
         [_PTR] * 7 + [_LL, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
+    ("mhla_tile_band_bwd", "mhla_tile_band_bwd_smem"): [_INT],
 }
 
 
@@ -316,12 +329,12 @@ def tile_band_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def tile_band_backward(q, k, v, g, window_size: int):
-    """K7: ``(dq, dk, dv)`` as :func:`plain_tile_band_backward` (in-range
-    positions only); the kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    """K7: ``(dq, dk, dv)`` of JAX's ``_bwd_rule``, the clamped positions'
+    mass folded into rows 0 and S-1 of dk and dv; one kernel launch on a
+    CUDA tensor, :func:`plain_bwd_rule` on a CPU tensor."""
     _check_rows((q, k, v, g), window_size, "tile band backward")
     if q.device.type == "cpu":
-        return plain_tile_band_backward(q, k, v, g, window_size)
+        return plain_bwd_rule(q, k, v, g, window_size)
     bh, s, d = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     fn = _kernel("mhla_tile_band_bwd", "mhla_tile_band_bwd")
@@ -364,7 +377,7 @@ def window_tile_band(qt: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
 
 
 class _TileBandFunction(torch.autograd.Function):
-    """K6 forward, K7 backward plus the plain edge fold; saves q, k, v."""
+    """K6 forward, K7 backward (the edge fold included); saves q, k, v."""
 
     @staticmethod
     def forward(ctx, q, k, v, window_size):
@@ -376,12 +389,8 @@ class _TileBandFunction(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        w = ctx.window_size
         g = g.to(q.dtype).contiguous()
-        dq, dk, dv = tile_band_backward(q, k, v, g, w)
-        if w // 2 > 0:
-            dk, dv = _edge_fold(q, k, v, g, dk, dv, w)
-        return dq, dk, dv, None
+        return (*tile_band_backward(q, k, v, g, ctx.window_size), None)
 
 
 def _check_block(block: int) -> None:

@@ -1,15 +1,19 @@
-"""The S-minor window band's kernels of several checkouts, in turns on one
-card.
+"""The window band's kernels of several checkouts, in turns on one card.
 
 Times K1 (``csrc/mhla_band_fwd.cu``: the eval forward, and the training
 forward at dropout 0.1) and K2 (``csrc/mhla_band_bwd.cu``) at MHLA-B/4's
-band shape (B*h=384, S=3137, W=7, d=64, bf16) in each checkout given, each in
-a process of its own that imports that checkout's package, in turns: the
+band shape (B*h=384, S=3137, W=7, d=64, bf16), and the tile band's backward
+as its autograd Function runs it (K7, ``csrc/mhla_tile_band_bwd.cu``, with
+whatever edge fold the checkout runs after it, so that every checkout does
+the same work) on the same shape token-major, in each checkout given, each
+in a process of its own that imports that checkout's package, in turns: the
 order given, then the reverse. Every checkout's kernels are built first, all
-at once. With ``--steps`` it then profiles MHLA-B/4's S-minor serving forward
-and train step (``utils/step_profile.py``, batch 32) in the same turns. Each
-run prints one JSON line: CUDA-event medians of 30 calls, the profiler's
-device ms a call by kernel, the largest error against the plain version.
+at once. With ``--steps`` it then profiles MHLA-B/4's S-minor serving
+forward and train step and its tile-band train step
+(``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``;
+``utils/step_profile.py``, batch 32) in the same turns. Each run prints one
+JSON line: CUDA-event medians of 30 calls, the profiler's device ms a call by
+kernel, the largest error against the plain version.
 From the repository root, with the parent commit unpacked into an ignored
 directory::
 
@@ -31,6 +35,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -38,7 +43,12 @@ SHAPE = (32, 12, 64, 3137)  # B, h, d, S of the band at MHLA-B/4, batch 32
 WINDOW = 7
 RATE = 0.1
 SEED = 1234
-LIBRARIES = ["mhla_band_fwd", "mhla_band_bwd"]
+LIBRARIES = ["mhla_band_fwd", "mhla_band_bwd", "mhla_tile_band_fwd",
+             "mhla_tile_band_bwd"]
+TILE_ENV = {"FAVIT_MHLA_IMPL": "shiftband", "FAVIT_USE_PALLAS_MHLA": "1"}
+# --steps: (label, step_profile mode, environment).
+STEPS = [("serve", "serve", {}), ("train", "train", {}),
+         ("tile-train", "train", TILE_ENV)]
 
 
 def turns(trees: list) -> list:
@@ -80,8 +90,10 @@ def _device_ms(fn, calls: int = 20) -> dict:
 
 
 def time_kernels() -> dict:
-    """K1 and K2 of the package on ``sys.path`` at :data:`SHAPE`."""
+    """K1 and K2 of the package on ``sys.path`` at :data:`SHAPE`, and its
+    tile band's backward on the same shape token-major."""
     from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
+    from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, g = (torch.randn(SHAPE, device="cuda", generator=gen).bfloat16()
@@ -102,16 +114,28 @@ def time_kernels() -> dict:
         "train": lambda: band.band_forward_train(q, k, v, w, RATE, SEED),
         "bwd": lambda: band.band_backward(q, k, v, g, wts, w, RATE, SEED),
     }
+    # The tile band's backward as _TileBandFunction runs it: the cast of g,
+    # K7 and the edge fold, in whichever place the checkout folds.
+    b, h, d, s = SHAPE
+    rows = [x.view(b * h, s, d) for x in (q, k, v, g)]
+    ctx = SimpleNamespace(saved_tensors=tuple(rows[:3]), window_size=w)
+    got = tile._TileBandFunction.backward(ctx, rows[3])[:3]
+    ref = tile.plain_tile_band_backward(*rows, w)
+    ref = (ref[0], *tile._edge_fold(*rows, *ref[1:], w))
+    res["tile_bwd_err"] = max(float((x.float() - y.float()).abs().max())
+                              for x, y in zip(got, ref))
+    del got, ref
+    calls["tile_bwd"] = lambda: tile._TileBandFunction.backward(ctx, rows[3])
     for name, fn in calls.items():
         res[f"{name}_ms"] = _median_ms(fn)
         res[f"{name}_device_ms"] = _device_ms(fn)
     return res
 
 
-def _run(tree: Path, args: list) -> str:
+def _run(tree: Path, args: list, env: dict | None = None) -> str:
     proc = subprocess.run(
         [sys.executable, *args], cwd=tree,
-        env={**os.environ, "PYTHONPATH": str(tree)},
+        env={**os.environ, **(env or {}), "PYTHONPATH": str(tree)},
         capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"{' '.join(args[:3])} failed in {tree}:\n"
@@ -143,14 +167,14 @@ def main(argv=None) -> list:
         line = _run(tree, [__file__, "--here"]).strip().splitlines()[-1]
         rows.append({"tree": str(tree), **json.loads(line)})
         print(json.dumps(rows[-1]), flush=True)
-    for mode in ("serve", "train") if args.steps else ():
+    for label, mode, env in STEPS if args.steps else ():
         for tree in turns(trees):
             out = _run(tree, [
                 "-m", "focused_attention_vit_tpu_torch.utils.step_profile",
                 "--model", "vit_mhla", "--mode", mode, "--batch_size", "32",
-                "--steps", "5"])
+                "--steps", "5"], env)
             summary = json.loads(out.strip().splitlines()[-1])
-            rows.append({"tree": str(tree), "mode": mode,
+            rows.append({"tree": str(tree), "mode": label,
                          "wall_ms": summary["wall_ms"],
                          "kernel_ms": summary["kernel_ms"],
                          "by_kind_ms": summary["by_kind_ms"]})

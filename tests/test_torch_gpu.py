@@ -591,14 +591,23 @@ def _tile_close(got, want, dtype, f32_tol):
         _rms_close(got, want)
 
 
+# S for the tile band: 2W + 1 (None); rows of one 64-row tile, where both
+# edges fall in one tile (20: below 2 * (W//2) + 1 at W = 33, 48: K7's one
+# step, 64); 64 k + 1 (65, 3137: a last tile of one row); K7's run of 8
+# steps a block (496 rows) and one row past it, and one row past 512; the
+# ViT-B/16 length; 1000.
+TILE_LENGTHS = [None, 20, 48, 64, 65, 197, 496, 497, 513, 1000, 3137]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", tile.HEAD_DIMS)
-@pytest.mark.parametrize("w", [3, 4, 7, 15, 33])
-@pytest.mark.parametrize("s", [None, 197, 1000, 3137])  # None: S = 2W + 1
+@pytest.mark.parametrize("w", [1, 3, 4, 7, 15, 33])
+@pytest.mark.parametrize("s", TILE_LENGTHS)
 def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
-    """K6, K7 (before the edge fold) and K8 against their plain versions:
-    f32 forward within 1e-5, backward within 1e-4; two backward runs give
-    the same bits; K8 equals K6's plain version too."""
+    """K6, K7 (with the edge fold, W = 1 folding nothing) and K8 against
+    their plain versions: f32 forward within 1e-5, backward within 1e-4;
+    two backward runs give the same bits; K8 equals K6's plain version
+    too."""
     s = s or 2 * w + 1
     q, k, v, g = (x.view(6, s, d) for x in _inputs(cuda, (2, 3, s, d), dtype,
                                                    n=4, seed=s + w + d))
@@ -615,9 +624,27 @@ def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
     _tile_close(out, ref, dtype, 1e-5)
     _tile_close(out_b.view(6, s, d), ref, dtype, 1e-5)
     for got, rerun, want in zip(grads, again,
-                                tile.plain_tile_band_backward(q, k, v, g, w)):
+                                tile.plain_bwd_rule(q, k, v, g, w)):
         assert got.dtype == dtype and torch.equal(got, rerun)
         _tile_close(got, want, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("poison", [float("nan"), float("inf"), 3e38])
+@pytest.mark.parametrize("s", [48, 65, 497, 3137])
+def test_tile_band_backward_reads_only_its_row(cuda, dtype, poison, s):
+    """NaN, inf or 3e38 in the neighbouring (b*h) rows of q, k, v and g
+    leave a row's dq, dk and dv bit-identical: K7 reads no row but its
+    own, its clamped halo included."""
+    q, k, v, g = _inputs(cuda, (3, s, 64), dtype, n=4, seed=s)
+    clean = [x[1].clone() for x in tile.tile_band_backward(q, k, v, g, 7)]
+    for x in (q, k, v, g):
+        x[0].fill_(poison)
+        x[2].fill_(poison)
+    got = tile.tile_band_backward(q, k, v, g, 7)
+    torch.cuda.synchronize()
+    for a, b in zip(got, clean):
+        assert torch.equal(a[1], b)
 
 
 def test_tile_band_k8_matches_its_plain_version_on_tiles(cuda):

@@ -440,6 +440,47 @@ def test_band_forward_stages_tiles(pattern, present):
     assert bool(re.search(pattern, text)) == present, pattern
 
 
+TILE_BWD_PATTERNS = [
+    (r"cp\.async\.cg\.shared\.global", True),  # rows by async copies
+    (r"\], 16;", True),                         # of 16 bytes
+    (r"cp\.async\.wait_group", True),
+    (r"stmatrix\.sync", True),            # results staged in the dead rows
+    (r"reinterpret_cast<uint4\*>", True),  # and stored 16 bytes wide
+    (r"\batomic\w*\(", False),             # sums in a fixed order
+    (r"\batom\.", False),
+    (r"\bred\.", False),
+]
+
+
+@pytest.mark.parametrize("pattern,present", TILE_BWD_PATTERNS)
+def test_tile_band_backward_stages_rows_without_atomics(pattern, present):
+    """K7 (``mhla_tile_band_bwd.cu`` and the ``csrc`` headers it includes)
+    brings its rows in by 16-byte ``cp.async`` copies, stores its results
+    16 bytes wide through shared memory and uses no atomics, so two runs
+    give the same bits."""
+    import re
+
+    text = _with_headers("mhla_tile_band_bwd.cu")
+    assert bool(re.search(pattern, text)) == present, pattern
+
+
+def _tile_entries():
+    from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
+
+    return sorted(tile._SIGNATURES)
+
+
+@pytest.mark.parametrize("lib,entry", _tile_entries())
+def test_tile_band_entry_points_match_the_wrapper_signatures(lib, entry):
+    """The argument list of each tile-band entry point (K6's two, K7's and
+    its shared-memory report), parsed from its source, is the one
+    ``mhla_kernel_v4._SIGNATURES`` declares."""
+    from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
+
+    src = (CSRC / f"{lib}.cu").read_text()
+    assert _entry_types(src, entry) == tile._SIGNATURES[(lib, entry)]
+
+
 def test_band_sources_share_one_staging_header():
     """Both band sources include ``band_stage.cuh``, which defines the
     staging helpers, and neither defines its own copy of them."""

@@ -75,9 +75,11 @@ def _jax_v4(case):
 
 
 # (B, h, S, d, W): S = 40 and 197 take JAX's block rule (one tile of
-# ceil(S/8)*8 rows), S = 300 two tiles of 256; W even and odd.
+# ceil(S/8)*8 rows), S = 300 two tiles of 256; W even and odd; S = 20 at
+# W = 33 is shorter than a band (2 * 16 + 1 keys), where a query near one
+# edge also reads clamped positions past the other.
 V4_CASES = [(1, 2, 40, 16, 3), (1, 2, 197, 64, 7), (2, 1, 300, 16, 4),
-            (1, 1, 197, 16, 4)]
+            (1, 1, 197, 16, 4), (1, 2, 20, 16, 33)]
 
 
 @pytest.mark.parametrize("case", V4_CASES)
@@ -89,13 +91,17 @@ def test_plain_k6_matches_jax_v4(case):
 
 @pytest.mark.parametrize("case", V4_CASES)
 def test_plain_k7_with_edge_fold_matches_jax_grad(case):
+    """K7's plain version and the edge fold give JAX's ``_bwd_rule``
+    gradients, and so does ``tile_band_backward`` on CPU tensors, which
+    returns them folded."""
     (q, k, v, g), _, want = _jax_v4(case)
     w = case[4]
     rows = [_rows(x) for x in (q, k, v, g)]
     dq, dk, dv = tv4.plain_tile_band_backward(*rows, w)
     dk, dv = tv4._edge_fold(*rows, dk, dv, w)
-    for got, ref in zip((dq, dk, dv), want):
-        _close(got.reshape(ref.shape), ref)
+    for grads in ((dq, dk, dv), tv4.tile_band_backward(*rows, w)):
+        for got, ref in zip(grads, want):
+            _close(got.reshape(ref.shape), ref)
 
 
 @pytest.mark.parametrize("case", V4_CASES[:2])
