@@ -15,7 +15,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, in
    parallel, and prints ptxas's registers, spills and shared memory of the
    main path's wgmma kernels and of every instantiation of the band
-   forward (K1) and backward (K2) and of the tile band's backward (K7);
+   forward (K1) and backward (K2) and of the tile band's forward (K6, K8)
+   and backward (K7);
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
    shapes and at the serving shape, with CUDA-event timings of both, the
@@ -89,6 +90,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     W=7; CUDA-event timings of the kernels, the plain versions, PyTorch's
     fused attention on K8's window tiles with the band as a mask, and one
     band call of the composite against K1 (eval) and K1 + K2 (training);
+    K6's and K8's device time under the profiler and their GB/s;
 18. tile-model: MHLA-B/4 in f32 through the tile band on the card against
     the CPU (which runs the plain shift band);
 19. tile-serve: MHLA-B/4 as phase 6, then MHLA-B/16 (S=197) for one burst;
@@ -304,8 +306,9 @@ def phase_build() -> None:
             _band_fwd_ptxas(lib, text)
         if lib.name == "libmhla_band_bwd.so":
             _band_bwd_ptxas(lib, text)
-        if lib.name == "libmhla_tile_band_bwd.so":
-            _tile_bwd_ptxas(lib, text)
+        if lib.name in ("libmhla_tile_band_fwd.so",
+                        "libmhla_tile_band_bwd.so"):
+            _tile_ptxas(lib, text)
 
 
 def _flash_ptxas(lib: Path, text: str) -> None:
@@ -430,37 +433,48 @@ def _band_bwd_ptxas(lib: Path, text: str) -> None:
                              if t_ == dt and k_ == kind))
 
 
-def _tile_bwd_ptxas(lib: Path, text: str) -> None:
-    """Log ptxas's registers, spills and shared memory of every K7
-    instantiation (bf16 and f32, each head dim); raise if one is missing or
-    spills."""
-    smem = tile._kernel("mhla_tile_band_bwd", "mhla_tile_band_bwd_smem")
+def _tile_ptxas(lib: Path, text: str) -> None:
+    """Log ptxas's registers, spills and shared memory of every
+    instantiation of a tile-band source, K6/K8 (bf16 and f32, each head dim,
+    rows and tiles) or K7 (bf16 and f32, each head dim); raise if one is
+    missing or spills."""
+    fwd = lib.name == "libmhla_tile_band_fwd.so"
+    kind, what = ("fwd", "K6/K8") if fwd else ("bwd", "K7")
+    smem = tile._kernel(f"mhla_tile_band_{kind}",
+                        f"mhla_tile_band_{kind}_smem")
     found = {}
     for m in re.finditer(
-            r"Function properties for \S*?tile_band_bwd_(mma|f32)ILi(\d+)E"
-            r"\S*\n\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
-            r".*?Used (\d+) registers(?:.*?(\d+) bytes smem)?", text):
-        kind, d, spills, regs, static = m.groups()
-        dt = "bf16" if kind == "mma" else "f32"
-        found[(dt, int(d))] = (int(regs), int(spills), int(static or 0),
-                               smem(int(d)) if dt == "bf16" else 0)
-    if len(found) != 2 * len(tile.HEAD_DIMS):
-        raise AssertionError(f"ptxas reports {len(found)} of K7's "
-                             f"{2 * len(tile.HEAD_DIMS)} instantiations in "
+            rf"Function properties for \S*?tile_band_{kind}_(mma|f32)"
+            r"ILi(\d+)E(?:Lb(\d)E)?\S*\n\s*\d+ bytes stack frame, (\d+) "
+            r"bytes spill stores.*\n.*?Used (\d+) registers"
+            r"(?:.*?(\d+) bytes smem)?", text):
+        k, d, tiles, spills, regs, static = m.groups()
+        dt = "bf16" if k == "mma" else "f32"
+        key = (dt, int(d), "K8" if tiles == "1" else "K6") if fwd else (
+            dt, int(d))
+        found[key] = (int(regs), int(spills), int(static or 0),
+                      smem(int(d)) if dt == "bf16" else 0)
+    expected = 2 * len(tile.HEAD_DIMS) * (2 if fwd else 1)
+    if len(found) != expected:
+        raise AssertionError(f"ptxas reports {len(found)} of {what}'s "
+                             f"{expected} instantiations in "
                              f"{lib.parent / 'build.log'}")
-    log("build", "ptxas K7 (dtype d: registers, spill bytes, static and "
-                 "dynamic smem): " + "; ".join(
-                     f"{dt} {d}: {r}, {sp}, {st}, {dy}"
-                     for (dt, d), (r, sp, st, dy) in sorted(found.items())))
+    log("build", f"ptxas {what} (dtype d{' kernel' if fwd else ''}: "
+                 f"registers, spill bytes, static and dynamic smem): "
+        + "; ".join(f"{' '.join(map(str, key))}: {r}, {sp}, {st}, {dy}"
+                    for key, (r, sp, st, dy) in sorted(found.items())))
     spilled = {key: v[1] for key, v in found.items() if v[1]}
     if spilled:
-        raise AssertionError(f"K7 spills (bytes): {spilled}")
+        raise AssertionError(f"{what} spills (bytes): {spilled}")
 
 
 def profile_device_ms(fn, calls: int = 20) -> dict:
     """Device ms a call of each kernel ``fn`` launches, by kernel name
     (template arguments dropped), from ``torch.profiler`` over ``calls``
-    calls after one warm-up."""
+    calls after one warm-up: the mean of the launches the profiler recorded
+    times the launches a call. Late in this script the profiler has
+    recorded only about 13 of 20 launches of a kernel on an H100, so the sum
+    is not divided by ``calls``."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -468,16 +482,17 @@ def profile_device_ms(fn, calls: int = 20) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    total, count = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             m = re.search(r"(\w+)[<(]", e.key)
             name = m.group(1) if m else e.key
-            ms = e.self_device_time_total / 1e3 / calls
-            out[name] = out.get(name, 0.0) + ms
-    if not out:
+            total[name] = total.get(name, 0.0) + e.self_device_time_total
+            count[name] = count.get(name, 0) + e.count
+    if not total:
         raise AssertionError("the profiler recorded no device time")
-    return out
+    return {name: total[name] / 1e3 / count[name]
+            * max(1, round(count[name] / calls)) for name in total}
 
 
 def phase_kernel() -> dict:
@@ -888,6 +903,17 @@ def phase_kernel_tileband() -> dict:
                    f"K7 {k7_batched:.4f} ms a call in batches of 10 (CUDA "
                    f"events), {7 * one / k7_batched / 1e6:.0f} GB/s of q, k, "
                    f"v, g, dq, dk, dv")
+        # Device time of K6 and K8 alone (the profiler), and their rates.
+        dev = {name: profile_device_ms(fn)["tile_band_fwd_mma"]
+               for name, fn in (
+                   ("K6", lambda: tile.tile_band_forward(q, k, v, w)),
+                   ("K8", lambda: tile.window_tile_band(qt, ke, ve, w)))}
+        log(phase, f"bf16 device time a call (torch.profiler, 20 calls): K6 "
+                   f"{dev['K6']:.4f} ms, {4 * one / dev['K6'] / 1e6:.0f} "
+                   f"GB/s of q, k, v, out; K8 {dev['K8']:.4f} ms, "
+                   f"{tile_bytes / dev['K8'] / 1e6:.0f} GB/s of the q tiles, "
+                   f"window tiles and out tiles; K8 by events "
+                   f"{tile_bytes / times['fwd_b'] / 1e6:.0f} GB/s")
         del q, k, v, g, q4, k4, v4, g4, qs, ks, vs, qt, ke, ve
         torch.cuda.empty_cache()
     return result

@@ -3,8 +3,9 @@
 // parity kernels of the flash and fused short-S sources, and the constants
 // and the backward's delta kernel that the wgmma kernels use too: the
 // warp-level bf16 tensor-core product (mma.sync.m16n8k16, f32
-// accumulation), ldmatrix fragment loads from shared-memory tiles, the f32
-// tile loader, the delta kernel and the accumulator and row helpers.
+// accumulation), ldmatrix fragment loads, the f32 tile loader, the delta
+// kernel and the accumulator and row helpers. The tile band's ring layout
+// (unpadded, swizzled rows) is in tile_ring.cuh.
 //
 // Fragment layout of mma.m16n8k16 for lane l, g = l / 4, t = l % 4:
 //   A (16 x 16, row-major), 4 words of two bf16:
@@ -27,9 +28,6 @@ namespace flash {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// Tile rows are padded by 8 bf16 (16 bytes): row starts then fall on all
-// eight 16-byte bank groups in turn and ldmatrix reads without conflicts.
-constexpr int kPad = 8;
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -62,40 +60,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// A shared-memory tile of bf16 rows, LD = D + kPad elements a row.
-//
-// A fragment of rows [r0, r0 + 16), columns [c0, c0 + 16).
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int r0,
-                                       int c0, int lane) {
-  const int mi = lane >> 3;
-  ldsm_x4(a, tile + (r0 + (mi & 1) * 8 + (lane & 7)) * LD + c0 + (mi >> 1) * 8);
-}
-
-// B fragments with B[k][n] = tile[n0 + n][k0 + k] (the product contracts
-// over the tile's columns): b[0], b[1] for columns n0..n0+7 of the result,
-// b[2], b[3] for n0+8..n0+15.
-template <int LD>
-__device__ __forceinline__ void load_b(uint32_t (&b)[4],
-                                       const __nv_bfloat16* tile, int n0,
-                                       int k0, int lane) {
-  const int mi = lane >> 3;
-  ldsm_x4(b, tile + (n0 + (mi >> 1) * 8 + (lane & 7)) * LD + k0 + (mi & 1) * 8);
-}
-
-// B fragments with B[k][n] = tile[k0 + k][n0 + n] (the product contracts
-// over the tile's rows), read transposed: b[0], b[1] for n0..n0+7, b[2],
-// b[3] for n0+8..n0+15.
-template <int LD>
-__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4],
-                                             const __nv_bfloat16* tile,
-                                             int k0, int n0, int lane) {
-  const int mi = lane >> 3;
-  ldsm_x4_trans(
-      b, tile + (k0 + (mi & 1) * 8 + (lane & 7)) * LD + n0 + (mi >> 1) * 8);
 }
 
 // Copy rows [row0, row0 + ROWS) of a contiguous [s, D] float matrix into
@@ -171,26 +135,6 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
   for (int a = 0; a < N; ++a) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) x[a][r] = 0.f;
-  }
-}
-
-// Rows g and g + 8 of a warp's 16 x D accumulator to a [s, D] bf16 matrix.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
-                                           const float (&acc)[D / 8][4],
-                                           int r0, int s, int lane) {
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = r0 + g + 8 * h;
-    if (i >= s) continue;
-    __nv_bfloat16* row = dst + static_cast<int64_t>(i) * D;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nt][2 * h], acc[nt][2 * h + 1]);
-    }
   }
 }
 

@@ -50,7 +50,9 @@
 //     the Q and G rows outside [0, S) are zeros stored by the issuing
 //     thread (g = 0 gives those queries p g = ds = 0). Rows are unpadded and
 //     their 16-byte chunks XOR-swizzled by the ring row, so ldmatrix reads
-//     8 rows of one chunk from 8 bank groups.
+//     8 rows of one chunk from 8 bank groups. The ring helpers (ring rows,
+//     swizzle, row copies, staged stores) are tile_ring.cuh's, shared with
+//     K6 and K8.
 //   - p and ds once per query: a pair of warps takes 16 of the step's
 //     queries, each warp half of the 48 keys that meet their band (24: a
 //     16-key block and 8 rows of the middle one). Each forms its logits and
@@ -107,10 +109,12 @@
 
 #include "band_stage.cuh"
 #include "flash_common.cuh"
+#include "tile_ring.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace tile_ring;
 
 constexpr int kHalo = 16;          // hw <= 16
 constexpr int kStep = 64;          // queries (keys) a step owns
@@ -129,66 +133,9 @@ __device__ __forceinline__ int clamp_row(int x, int s) {
   return min(max(x, 0), s - 1);
 }
 
-// Ring row of position p (p >= -kRing; here p >= -48).
-__device__ __forceinline__ int ring_row(int p) { return (p + kRing) % kRing; }
-
 // The p/ds tile of the 16-query block holding position p (p >= -96).
 __device__ __forceinline__ int ptile(int p) {
   return ((p + 16 * kPTiles) >> 4) % kPTiles;
-}
-
-// The XOR swizzle of ring row j: the ring's rows are D bf16, unpadded, and
-// chunk c (16 bytes) of row j is stored at chunk c ^ swz(j), so that 8
-// consecutive rows hold one chunk in 8 different 16-byte bank groups.
-template <int D>
-__device__ __forceinline__ int swz(int j) {
-  constexpr int kChunks = D / 8;
-  constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
-  constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
-  return (j / kRowsPerLine) & kMask;
-}
-
-template <int D>
-__device__ __forceinline__ char* ring_at(bf16* ring, int j, int c) {
-  return reinterpret_cast<char*>(ring) + j * (2 * D) + ((c ^ swz<D>(j)) << 4);
-}
-
-// A lane's address in an ldmatrix (stmatrix) x4 over a block of 16 ring
-// rows, which starts at a ring row that is a multiple of 16, so the
-// swizzle of its row r is that of r alone. Pattern A (also B read
-// transposed, and stmatrix): matrix lane / 8 holds rows 8 (lane / 8 & 1)..
-// and chunk lane / 16; pattern B: rows 8 (lane / 16).. and chunk
-// lane / 8 & 1. at(ring, j0, m): the block at ring row j0, chunk pair m.
-template <int D>
-struct LaneAddr {
-  int row;  // byte offset of the lane's row in the block
-  int x16;  // (the lane's chunk ^ its row's swizzle) << 4
-  __device__ __forceinline__ LaneAddr(int r, int chunk)
-      : row(r * 2 * D), x16((chunk ^ swz<D>(r)) << 4) {}
-  // Chunk 2m + chunk of row r: (2m + chunk) ^ s == 2m ^ (chunk ^ s).
-  __device__ __forceinline__ char* at(bf16* ring, int j0, int m) const {
-    return reinterpret_cast<char*>(ring) + j0 * (2 * D) + row +
-           ((m << 5) ^ x16);
-  }
-};
-
-template <int D>
-__device__ __forceinline__ LaneAddr<D> pattern_a(int lane) {
-  return LaneAddr<D>(((lane >> 3) & 1) * 8 + (lane & 7), lane >> 4);
-}
-
-template <int D>
-__device__ __forceinline__ LaneAddr<D> pattern_b(int lane) {
-  return LaneAddr<D>((lane >> 4) * 8 + (lane & 7), (lane >> 3) & 1);
-}
-
-__device__ __forceinline__ void stsm_x4(void* ptr, uint32_t r0, uint32_t r1,
-                                        uint32_t r2, uint32_t r3) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
-      ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
-      : "memory");
 }
 
 struct Smem {
@@ -221,45 +168,16 @@ __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
 }
 
-// Positions [p0, p0 + N) of one (b*h) row of src into a ring, by 16-byte
-// cp.async: rows outside [0, S) are copied from the clamped row (K, V: the
-// band's replicas of rows 0 and S-1) or stored as zeros (Q, G). The caller
-// commits the group.
-template <int D, int N, int NT>
-__device__ __forceinline__ void issue_rows(bf16* ring, const bf16* src, int p0,
-                                           int s, bool clamp, int tid) {
-  constexpr int C = D / 8;
-  constexpr int kItems = N * C;
-  const int j0 = ring_row(p0);
-#pragma unroll
-  for (int f0 = 0; f0 < kItems; f0 += NT) {
-    const int f = f0 + tid;
-    if (kItems % NT == 0 || f < kItems) {
-      const int r = f / C;
-      const int c = f % C;
-      const int p = p0 + r;
-      const int j = j0 + r < kRing ? j0 + r : j0 + r - kRing;
-      char* dst = ring_at<D>(ring, j, c);
-      if ((p >= 0 && p < s) || clamp) {
-        band_stage::cp_async16(
-            dst, src + static_cast<int64_t>(clamp_row(p, s)) * D + c * 8);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  }
-}
-
 // Q and G at [qa, qa + NQ), K and V at [ka, ka + 64), by NT threads.
 template <int D, int NQ, int NT>
 __device__ __forceinline__ void issue_step(const Smem& sm, const bf16* q,
                                            const bf16* k, const bf16* v,
                                            const bf16* g, int qa, int ka,
                                            int s, int tid) {
-  issue_rows<D, NQ, NT>(sm.q, q, qa, s, false, tid);
-  issue_rows<D, NQ, NT>(sm.g, g, qa, s, false, tid);
-  issue_rows<D, kStep, NT>(sm.k, k, ka, s, true, tid);
-  issue_rows<D, kStep, NT>(sm.v, v, ka, s, true, tid);
+  issue_rows<D, NQ, NT, kRing>(sm.q, q, qa, 0, s, false, tid);
+  issue_rows<D, NQ, NT, kRing>(sm.g, g, qa, 0, s, false, tid);
+  issue_rows<D, kStep, NT, kRing>(sm.k, k, ka, 0, s, true, tid);
+  issue_rows<D, kStep, NT, kRing>(sm.v, v, ka, 0, s, true, tid);
 }
 
 // Half `half` of the band of the 16 queries [qb, qb + 16), in warp pair
@@ -284,8 +202,8 @@ __device__ __forceinline__ void band_half(const Smem& sm, int qb, int pair,
   const LaneAddr<D> lb = pattern_b<D>(lane);
   // The half's 16-key block, and 8 rows of the middle block (x2 loads).
   const LaneAddr<D> lm((8 * half) + (lane & 7), (lane >> 3) & 1);
-  const int jq = ring_row(qb);
-  const int jfull = ring_row(half ? qb + 16 : qb - kHalo);
+  const int jq = ring_row<kRing>(qb);
+  const int jfull = ring_row<kRing>(half ? qb + 16 : qb - kHalo);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t qf[4], gf[4], b[4], m[2];
@@ -447,7 +365,7 @@ __device__ __forceinline__ void query_grad(const Smem& sm, int qb,
     uint32_t a[4];
     flash::ldsm_x4(a, tile + ((lane & 7) + 8 * (mi & 1)) * kLDP + 16 * kc +
                           8 * (mi >> 1));
-    const int jk = ring_row(qb - kHalo + 16 * kc);
+    const int jk = ring_row<kRing>(qb - kHalo + 16 * kc);
 #pragma unroll
     for (int np = 0; np < NC / 2; ++np) {
       uint32_t b[4];
@@ -475,7 +393,7 @@ __device__ __forceinline__ void key_grad(const bf16* tiles, bf16* rows,
     flash::ldsm_x4_trans(a, tiles + ptile(qb) * 16 * kLDP +
                                 ((lane & 7) + 8 * (mi >> 1)) * kLDP +
                                 (32 - 16 * u) + 8 * (mi & 1));
-    const int jq = ring_row(qb);
+    const int jq = ring_row<kRing>(qb);
 #pragma unroll
     for (int np = 0; np < D / 16; ++np) {
       uint32_t b[4];
@@ -498,7 +416,7 @@ __device__ __forceinline__ void add_edge(float (&acc)[D / 8][4], bf16* rows,
   for (int r = r0; r < r1; ++r) {
     const int at = ptile(r) * 16 + (r & 15);
     const float f = fold[at] + fold[kPTiles * 16 + at];
-    const int j = ring_row(r);
+    const int j = ring_row<kRing>(r);
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt) {
       const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
@@ -514,39 +432,6 @@ __device__ __forceinline__ void add_edge(float (&acc)[D / 8][4], bf16* rows,
       }
     }
   }
-}
-
-// Columns [C0 * 8, (C0 + NC) * 8) of a warp's 16-row f32 result, rounded
-// to bf16, to rows pos0..pos0+15 of dst (those in [0, S)) in 16-byte
-// stores: through the same columns of ring rows j0..j0+15 of `stage`, which
-// no other warp touches meanwhile.
-template <int D, int C0, int NC>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[NC][4],
-                                           bf16* stage, int j0, int pos0,
-                                           int s, int lane) {
-  const LaneAddr<D> la = pattern_a<D>(lane);
-  __syncwarp();
-#pragma unroll
-  for (int nt = 0; nt < NC; nt += 2) {
-    stsm_x4(la.at(stage, j0, (C0 + nt) / 2),
-            flash::pack_bf16(acc[nt][0], acc[nt][1]),
-            flash::pack_bf16(acc[nt][2], acc[nt][3]),
-            flash::pack_bf16(acc[nt + 1][0], acc[nt + 1][1]),
-            flash::pack_bf16(acc[nt + 1][2], acc[nt + 1][3]));
-  }
-  __syncwarp();
-#pragma unroll
-  for (int it = 0; it < (16 * NC + 31) / 32; ++it) {
-    const int f = it * 32 + lane;
-    const int r = f / NC;
-    const int c = C0 + f % NC;
-    const int pos = pos0 + r;
-    if (f < 16 * NC && pos >= 0 && pos < s) {
-      *reinterpret_cast<uint4*>(dst + static_cast<int64_t>(pos) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(ring_at<D>(stage, j0 + r, c));
-    }
-  }
-  __syncwarp();
 }
 
 template <int D>
@@ -646,7 +531,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
       // stages its results there, warp j in the K rows (its dq columns,
       // then dk), warp j + 4 in the V rows (its dq columns, then dv).
       const int kb = t - kHalo + 16 * pair;
-      const int jk = ring_row(kb);
+      const int jk = ring_row<kRing>(kb);
       const bool is_dv = half == 1;
       bf16* stage = is_dv ? sm.v : sm.k;
       if constexpr (C > 2) {

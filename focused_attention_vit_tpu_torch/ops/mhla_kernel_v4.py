@@ -251,6 +251,7 @@ _SIGNATURES = {
         [_PTR] * 4 + [_LL, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
     ("mhla_tile_band_fwd", "mhla_tile_band_fwd_tiles"):
         [_PTR] * 4 + [_LL, _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
+    ("mhla_tile_band_fwd", "mhla_tile_band_fwd_smem"): [_INT],
     ("mhla_tile_band_bwd", "mhla_tile_band_bwd"):
         [_PTR] * 7 + [_LL, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
     ("mhla_tile_band_bwd", "mhla_tile_band_bwd_smem"): [_INT],

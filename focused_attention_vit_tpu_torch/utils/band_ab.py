@@ -2,15 +2,17 @@
 
 Times K1 (``csrc/mhla_band_fwd.cu``: the eval forward, and the training
 forward at dropout 0.1) and K2 (``csrc/mhla_band_bwd.cu``) at MHLA-B/4's
-band shape (B*h=384, S=3137, W=7, d=64, bf16), and the tile band's backward
-as its autograd Function runs it (K7, ``csrc/mhla_tile_band_bwd.cu``, with
-whatever edge fold the checkout runs after it, so that every checkout does
-the same work) on the same shape token-major, in each checkout given, each
-in a process of its own that imports that checkout's package, in turns: the
-order given, then the reverse. Every checkout's kernels are built first, all
-at once. With ``--steps`` it then profiles MHLA-B/4's S-minor serving
-forward and train step and its tile-band train step
-(``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``;
+band shape (B*h=384, S=3137, W=7, d=64, bf16), and on the same shape
+token-major the tile band's forward (K6, ``csrc/mhla_tile_band_fwd.cu``),
+its window-tile forward on JAX's 256-row tiles (K8, the same source) and
+its backward as its autograd Function runs it (K7,
+``csrc/mhla_tile_band_bwd.cu``, with whatever edge fold the checkout runs
+after it, so that every checkout does the same work), in each checkout
+given, each in a process of its own that imports that checkout's package,
+in turns: the order given, then the reverse. Every checkout's kernels are
+built first, all at once. With ``--steps`` it then profiles MHLA-B/4's
+S-minor serving forward and train step and its tile-band serving forward
+and train step (``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``;
 ``utils/step_profile.py``, batch 32) in the same turns. Each run prints one
 JSON line: CUDA-event medians of 30 calls, the profiler's device ms a call by
 kernel, the largest error against the plain version.
@@ -48,7 +50,7 @@ LIBRARIES = ["mhla_band_fwd", "mhla_band_bwd", "mhla_tile_band_fwd",
 TILE_ENV = {"FAVIT_MHLA_IMPL": "shiftband", "FAVIT_USE_PALLAS_MHLA": "1"}
 # --steps: (label, step_profile mode, environment).
 STEPS = [("serve", "serve", {}), ("train", "train", {}),
-         ("tile-train", "train", TILE_ENV)]
+         ("tile-serve", "serve", TILE_ENV), ("tile-train", "train", TILE_ENV)]
 
 
 def turns(trees: list) -> list:
@@ -72,6 +74,8 @@ def _median_ms(fn, repeats: int = 30) -> float:
 
 
 def _device_ms(fn, calls: int = 20) -> dict:
+    """Device ms a call by kernel name: the mean of the launches the
+    profiler recorded (it can miss some) times the launches a call."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -79,19 +83,20 @@ def _device_ms(fn, calls: int = 20) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    total, count = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             m = re.search(r"(\w+)[<(]", e.key)
             name = m.group(1) if m else e.key
-            out[name] = out.get(name, 0.0) + (
-                e.self_device_time_total / 1e3 / calls)
-    return out
+            total[name] = total.get(name, 0.0) + e.self_device_time_total
+            count[name] = count.get(name, 0) + e.count
+    return {name: total[name] / 1e3 / count[name]
+            * max(1, round(count[name] / calls)) for name in total}
 
 
 def time_kernels() -> dict:
     """K1 and K2 of the package on ``sys.path`` at :data:`SHAPE`, and its
-    tile band's backward on the same shape token-major."""
+    tile band's K6, K8 and backward on the same shape token-major."""
     from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
     from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
 
@@ -126,6 +131,23 @@ def time_kernels() -> dict:
                               for x, y in zip(got, ref))
     del got, ref
     calls["tile_bwd"] = lambda: tile._TileBandFunction.backward(ctx, rows[3])
+    # K6 on the rows; K8 on their window tiles at JAX's tile length (256),
+    # built once outside the timed calls.
+    ref = tile.plain_tile_band_forward(*rows[:3], w)
+    res["tile_fwd_err"] = float(
+        (tile.tile_band_forward(*rows[:3], w).float() - ref.float())
+        .abs().max())
+    halo = tile._halo(tile.DEFAULT_BLOCK, w // 2)
+    t = max(2 * halo, min(tile.DEFAULT_BLOCK, -(-s // 8) * 8))
+    sp = -(-s // t) * t
+    ke, ve = (tile._window_tiles(x, t, halo, sp) for x in rows[1:3])
+    qt = tile._pad_seq(rows[0], 0, sp - s).reshape(b * h, sp // t, t, d)
+    qt = qt.contiguous()
+    got = tile.window_tile_band(qt, ke, ve, w).reshape(b * h, sp, d)[:, :s]
+    res["tile_fwd_b_err"] = float((got.float() - ref.float()).abs().max())
+    del got, ref
+    calls["tile_fwd"] = lambda: tile.tile_band_forward(*rows[:3], w)
+    calls["tile_fwd_b"] = lambda: tile.window_tile_band(qt, ke, ve, w)
     for name, fn in calls.items():
         res[f"{name}_ms"] = _median_ms(fn)
         res[f"{name}_device_ms"] = _device_ms(fn)
@@ -148,7 +170,7 @@ def main(argv=None) -> list:
     p.add_argument("trees", nargs="*", type=Path,
                    help="checkouts of the repository (their roots)")
     p.add_argument("--steps", action="store_true",
-                   help="also profile the serving forward and train step")
+                   help="also profile the serving forwards and train steps")
     p.add_argument("--here", action="store_true",
                    help="time the package on sys.path and print one line")
     args = p.parse_args(argv)

@@ -591,12 +591,14 @@ def _tile_close(got, want, dtype, f32_tol):
         _rms_close(got, want)
 
 
-# S for the tile band: 2W + 1 (None); rows of one 64-row tile, where both
-# edges fall in one tile (20: below 2 * (W//2) + 1 at W = 33, 48: K7's one
-# step, 64); 64 k + 1 (65, 3137: a last tile of one row); K7's run of 8
-# steps a block (496 rows) and one row past it, and one row past 512; the
-# ViT-B/16 length; 1000.
-TILE_LENGTHS = [None, 20, 48, 64, 65, 197, 496, 497, 513, 1000, 3137]
+# S for the tile band: 2W + 1 (None); rows of one 64-row step, where both
+# edges fall in one step (20: below 2 * (W//2) + 1 at W = 33, 48: K7's one
+# step, 64); 64 k + 1 (65, 3137: a last step of one query); K7's run of 8
+# steps a block (496 rows) and one row past it; K6's run of 8 steps (512
+# queries) ending inside a row (511), at its end (512) and one past it
+# (513); the ViT-B/16 length; 1000.
+TILE_LENGTHS = [None, 20, 48, 64, 65, 197, 496, 497, 511, 512, 513, 1000,
+                3137]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -606,20 +608,22 @@ TILE_LENGTHS = [None, 20, 48, 64, 65, 197, 496, 497, 513, 1000, 3137]
 def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
     """K6, K7 (with the edge fold, W = 1 folding nothing) and K8 against
     their plain versions: f32 forward within 1e-5, backward within 1e-4;
-    two backward runs give the same bits; K8 equals K6's plain version
-    too."""
+    two forward and two backward runs give the same bits; K8 equals K6's
+    plain version too."""
     s = s or 2 * w + 1
     q, k, v, g = (x.view(6, s, d) for x in _inputs(cuda, (2, 3, s, d), dtype,
                                                    n=4, seed=s + w + d))
     before = [tile.launch_count(kind) for kind in tile.LAUNCH_KINDS]
     out = tile.tile_band_forward(q, k, v, w)
+    out_again = tile.tile_band_forward(q, k, v, w)
     grads = tile.tile_band_backward(q, k, v, g, w)
     again = tile.tile_band_backward(q, k, v, g, w)
     out_b = tile.banded_attention_v4b(*(x.view(2, 3, s, d) for x in (q, k, v)),
                                       w)
     torch.cuda.synchronize()
     assert [tile.launch_count(kind) for kind in tile.LAUNCH_KINDS] == [
-        before[0] + 1, before[1] + 2, before[2] + 1]
+        before[0] + 2, before[1] + 2, before[2] + 1]
+    assert torch.equal(out, out_again)
     ref = tile.plain_tile_band_forward(q, k, v, w)
     _tile_close(out, ref, dtype, 1e-5)
     _tile_close(out_b.view(6, s, d), ref, dtype, 1e-5)
@@ -629,33 +633,57 @@ def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
         _tile_close(got, want, dtype, 1e-4)
 
 
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("poison", [float("nan"), float("inf"), 3e38])
 @pytest.mark.parametrize("s", [48, 65, 497, 3137])
-def test_tile_band_backward_reads_only_its_row(cuda, dtype, poison, s):
+def test_tile_band_backward_reads_only_its_row(cuda, dtype, poison, s,
+                                               kernel):
     """NaN, inf or 3e38 in the neighbouring (b*h) rows of q, k, v and g
-    leave a row's dq, dk and dv bit-identical: K7 reads no row but its
-    own, its clamped halo included."""
+    leave a row's K6 output, and its K7 dq, dk and dv, bit-identical: the
+    kernels read no row but their own, the clamped halo included."""
     q, k, v, g = _inputs(cuda, (3, s, 64), dtype, n=4, seed=s)
-    clean = [x[1].clone() for x in tile.tile_band_backward(q, k, v, g, 7)]
+
+    def run():
+        if kernel == "K6":
+            return [tile.tile_band_forward(q, k, v, 7)]
+        return tile.tile_band_backward(q, k, v, g, 7)
+
+    clean = [x[1].clone() for x in run()]
     for x in (q, k, v, g):
         x[0].fill_(poison)
         x[2].fill_(poison)
-    got = tile.tile_band_backward(q, k, v, g, 7)
+    got = run()
     torch.cuda.synchronize()
     for a, b in zip(got, clean):
         assert torch.equal(a[1], b)
 
 
-def test_tile_band_k8_matches_its_plain_version_on_tiles(cuda):
-    q, k, v = _inputs(cuda, (2, 3, 197, 64), torch.float32, seed=8)
-    t, halo = 200, tile.MAX_HALF_WINDOW
-    ke, ve = (tile._window_tiles(x.view(6, 197, 64), t, halo, t)
-              for x in (k, v))
-    qt = tile._pad_seq(q.view(6, 197, 64), 0, 3).view(6, 1, t, 64)
-    torch.testing.assert_close(
-        tile.window_tile_band(qt, ke, ve, 7),
-        tile.plain_window_tile_band(qt, ke, ve, 7), atol=1e-5, rtol=0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [32, 200, 256])
+def test_tile_band_k8_matches_its_plain_version_on_tiles(cuda, t, dtype):
+    """K8 on three window tiles of t rows a (b*h) row (JAX's tile lengths
+    at S <= 32, S = 197 and the 256-row cap; none a multiple of 64 but
+    256) against its plain version, and NaN, inf or 3e38 in the
+    neighbouring tiles (the row's other tiles, the other rows) leave the
+    middle tile of the middle row bit-identical: K8 reads its own window
+    rows only."""
+    s = 3 * t - 3
+    q, k, v = (x.view(3, s, 64) for x in _inputs(cuda, (3, s, 64), dtype,
+                                                 seed=t))
+    halo = tile.MAX_HALF_WINDOW
+    ke, ve = (tile._window_tiles(x, t, halo, 3 * t) for x in (k, v))
+    qt = tile._pad_seq(q, 0, 3).view(3, 3, t, 64).contiguous()
+    got = tile.window_tile_band(qt, ke, ve, 7)
+    _tile_close(got, tile.plain_window_tile_band(qt, ke, ve, 7), dtype, 1e-5)
+    clean = got[1, 1].clone()
+    for poison in (float("nan"), float("inf"), 3e38):
+        for x in (qt, ke, ve):
+            x[[0, 2]] = poison
+            x[1, [0, 2]] = poison
+        again = tile.window_tile_band(qt, ke, ve, 7)
+        torch.cuda.synchronize()
+        assert torch.equal(again[1, 1], clean), poison
 
 
 def test_tile_band_composite_launches_and_gradients(cuda, monkeypatch):

@@ -464,6 +464,51 @@ def test_tile_band_backward_stages_rows_without_atomics(pattern, present):
     assert bool(re.search(pattern, text)) == present, pattern
 
 
+TILE_FWD_PATTERNS = [
+    (r"cp\.async\.cg\.shared\.global", True),  # rows by async copies
+    (r"\], 16;", True),                         # of 16 bytes
+    (r"cp\.async\.wait_group", True),
+    (r"stmatrix\.sync", True),            # results staged in the dead Q rows
+    (r"reinterpret_cast<uint4\*>", True),  # and stored 16 bytes wide
+    (r"\batomic\w*\(", False),             # every element by one thread
+    (r"\batom\.", False),
+    (r"\bred\.", False),
+]
+
+
+@pytest.mark.parametrize("pattern,present", TILE_FWD_PATTERNS)
+def test_tile_band_forward_stages_rows_without_atomics(pattern, present):
+    """K6 and K8 (``mhla_tile_band_fwd.cu`` and the ``csrc`` headers it
+    includes) bring their rows in by 16-byte ``cp.async`` copies, store
+    their results 16 bytes wide through shared memory and use no atomics,
+    so two runs give the same bits."""
+    import re
+
+    text = _with_headers("mhla_tile_band_fwd.cu")
+    assert bool(re.search(pattern, text)) == present, pattern
+
+
+def test_tile_band_sources_share_one_ring_header():
+    """Both tile-band sources include ``tile_ring.cuh``, which defines the
+    ring helpers (ring rows, swizzle, lane addresses, row copies, staged
+    stores), and neither defines its own copy of them."""
+    import re
+
+    header = (CSRC / "tile_ring.cuh").read_text()
+    helpers = ("ring_row", "swz", "ring_at", "LaneAddr", "pattern_a",
+               "pattern_b", "stsm_x4", "issue_rows", "store_rows")
+    for name in helpers:
+        assert re.search(rf"(void|int|char\*|struct|LaneAddr<D>) {name}\b",
+                         header), name
+    for src in ("mhla_tile_band_fwd.cu", "mhla_tile_band_bwd.cu"):
+        text = (CSRC / src).read_text()
+        assert '#include "tile_ring.cuh"' in text
+        for name in helpers:
+            assert not re.search(
+                rf"(void|int|char\*|struct|LaneAddr<D>) {name}\b", text), (
+                    src, name)
+
+
 def _tile_entries():
     from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
 
@@ -472,8 +517,8 @@ def _tile_entries():
 
 @pytest.mark.parametrize("lib,entry", _tile_entries())
 def test_tile_band_entry_points_match_the_wrapper_signatures(lib, entry):
-    """The argument list of each tile-band entry point (K6's two, K7's and
-    its shared-memory report), parsed from its source, is the one
+    """The argument list of each tile-band entry point (K6's two and their
+    shared-memory report, K7's and its), parsed from its source, is the one
     ``mhla_kernel_v4._SIGNATURES`` declares."""
     from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
 
@@ -515,7 +560,7 @@ def test_flash_common_keeps_the_fused_kernels_helpers():
     used = set()
     for src in users:
         used |= set(re.findall(r"flash::(\w+)", src.read_text()))
-    assert {"mma_bf16", "load_a", "load_b", "load_b_trans", "pack_bf16",
+    assert {"mma_bf16", "ldsm_x4", "ldsm_x4_trans", "pack_bf16",
             "load_tile_f32", "launch_delta"} <= used
     for name in sorted(used):
         defined = (
