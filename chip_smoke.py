@@ -6,8 +6,11 @@ Drives the serving path and the training path of
 12 blocks, 12 heads of d=64, W=7 for MHLA, patch 4 on 224x224, S=3137, 10
 classes, seeded random weights), then experiment E1 ``traditional`` at
 ViT-B/16 (patch 16, S=197) through the CLI, then MHLA-B/4 again through the
-tile band (``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``), and
-checks every CUDA kernel on them.
+tile band (``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``), then the
+pretrained fine-tunes E3 ``traditional_pretrained`` and E5
+``mhla_pretrained`` at ViT-B/16 from a seeded vit_b_16 checkpoint and
+``PretrainedViTWithMHLA`` (W=4, S=3137), and checks every CUDA kernel on
+them.
 Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: requires CUDA and compute capability 9.0; prints the card's name
@@ -99,6 +102,26 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 21. tile-train: MHLA-B/4 trains as phase 8 (the attention-dropout run takes
     the plain shift band); K6 and K7 launches equal 12 x the passes run.
 
+22. pretrained-fixture: the seeded vit_b_16 checkpoint fixture, written by
+    the port's writer into a temporary ``pretrained_weights/``;
+23. e3: ``cli.main(["--experiment", "traditional_pretrained", ...])`` at
+    ViT-B/16, batch 128, bf16, one epoch on synthetic CIFAR with
+    ``FAVIT_FUSED_MHA=1``, run from that directory: the checkpoint loaded
+    (every tensor but the 10-class head merged, the first qkv equal to the
+    fixture's upcast tensor), the CSV's 24 columns in JAX's order and its
+    parameter counts equal to the model's, K3/K4 launches equal 12 x the
+    passes run; ms per step, images/s, peak memory;
+24. e5: ``--experiment mhla_pretrained`` the same way, three times: by
+    default (the dense band at S=197: no kernel launches), under the
+    tile-band opt-in (K6/K7 launches equal 12 x the passes) and with
+    ``--freeze_layers`` (only the head and the latent projections move, over
+    the run and over one more step); every ``latent_proj`` is the identity
+    at load; step time at microbatch 0, 64, 32 and 16 on both paths;
+25. pretrained-mhla: ``PretrainedViTWithMHLA`` at its defaults (patch 4,
+    S=3137, W=4) in f32 against the CPU, then the bf16 forward at batch 32
+    (timed; K1 launches equal 12 x the passes), then one 2-block f32 train
+    step against the CPU (K1's training form and K2 through the model).
+
 Every launch count is set to 0 just before its path is driven and read just
 after. The line before the last is a JSON summary of the twelve kernels, each
 with its time, its plain version's, the least time the card could take
@@ -131,6 +154,7 @@ from focused_attention_vit_tpu_torch import serve, train
 from focused_attention_vit_tpu_torch.data.datasets import load_dataset
 from focused_attention_vit_tpu_torch.data.pipeline import prepare_eval_batch
 from focused_attention_vit_tpu_torch.models import (
+    PretrainedViTWithMHLA,
     VisionTransformer,
     VisionTransformerMHLA,
 )
@@ -173,6 +197,12 @@ LIBRARIES = ("mhla_band_fwd", "mhla_band_bwd", "flash_attention_fwd",
              "mhla_tile_band_fwd", "mhla_tile_band_bwd")
 # B, h, S, d of the tile band at MHLA-B/4 b32, token-major.
 TILE_SHAPE = (32, 12, 3137, 64)
+# B*h, S, d of E5's tile band (ViT-B/16, batch 128, under the opt-in): its
+# rows spread over K6's and K7's persistent grids so that blocks start
+# mid-row and on the short last step, which the small grid never does.
+E5_TILE_SHAPE = (128 * 12, 197, 64)
+# PretrainedViTWithMHLA's default window: K1 and K2 at an even W.
+PMHLA_W = 4
 FLASH_SHAPE = (32, 12, 3137, 64)  # B, h, S, d of the flash op at ViT-B/4 b32
 # B, h, S, d of the fused short-S attention at ViT-B/16, batch 128.
 FUSED_SHAPE = (128, 12, 197, 64)
@@ -523,7 +553,7 @@ def phase_kernel() -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         for d in (16, 64):
-            for w in (1, 3, 5, 7):
+            for w in (1, 3, 4, 5, 7):  # 4: PretrainedViTWithMHLA's
                 # S just below and past the kernel's 512-query tile; 1001
                 # leaves every channel row at another offset within 16
                 # bytes.
@@ -532,6 +562,9 @@ def phase_kernel() -> dict:
 
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
+        # PretrainedViTWithMHLA's serving forward: the same shape at W = 4.
+        err_w4 = compare(SERVE_SHAPE, PMHLA_W, dtype)[0]
+        torch.cuda.empty_cache()
         err, (q, k, v) = compare(SERVE_SHAPE, SERVE_W, dtype)
         ms = cuda_median_ms(lambda: band.roll_banded_attention(q, k, v,
                                                                SERVE_W))
@@ -548,8 +581,10 @@ def phase_kernel() -> dict:
                           f"{n} {t:.4f}" for n, t in device.items())
                       + " (profiler, 20 calls)")
         b, h, d, n = SERVE_SHAPE
-        # Two products of W*d multiply-adds a query.
-        result[dt] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        # Two products of W*d multiply-adds a query. The error is the larger
+        # of the two main-path windows'; the times are W = 7's.
+        result[dt] = dict(max_abs_err=max(err, err_w4), ms=ms,
+                          plain_ms=plain_ms,
                           library_ms=None,
                           **least_time(nbytes, 4 * b * h * n * SERVE_W * d))
     return result
@@ -627,6 +662,13 @@ def phase_kernel_train() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         dt = "f32" if dtype == torch.float32 else "bf16"
         q, k, v, g = inputs(TRAIN_SHAPE, dtype)
+        # PretrainedViTWithMHLA's train step: W = 4, no dropout.
+        res_w4 = _compare_train(q, k, v, g, PMHLA_W, 0.0, None)
+        check(f"the training shape {TRAIN_SHAPE} W={PMHLA_W} {dt} rate 0",
+              res_w4)
+        log("kernel-train", f"training shape {TRAIN_SHAPE} W={PMHLA_W} {dt} "
+                            f"rate 0: max abs err " + ", ".join(
+                                f"{n} {t}" for n, (_, _, t) in res_w4.items()))
         res = _compare_train(q, k, v, g, SERVE_W, TRAIN_DROPOUT, seed)
         check(f"the training shape {TRAIN_SHAPE} {dt}", res)
         out, wts = band.band_forward_train(q, k, v, SERVE_W, TRAIN_DROPOUT,
@@ -681,6 +723,8 @@ def phase_kernel_train() -> dict:
         # in the forward, 5 in the backward, of W*d multiply-adds a query.
         one = q.numel() * q.element_size()
         pairs = b * h * s * SERVE_W * d
+        # Errors: the larger of the two main-path windows'; times W = 7's.
+        res = {n: max(res[n], res_w4[n]) for n in res}
         result[dt] = dict(
             fwd_train=dict(max_abs_err=max(res["out"][0], res["wts"][0]),
                            ms=times["fwd_train"],
@@ -752,6 +796,15 @@ def phase_kernel_tileband() -> dict:
                        f"largest error " + ", ".join(
                            f"{n} {t}" for n, t in texts.items()))
     k8_launches = tile.launch_count("fwd_b")
+
+    e5 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        e5[dt] = _tile_compare(*inputs(E5_TILE_SHAPE, dtype), SERVE_W)
+        check(f"E5's shape {E5_TILE_SHAPE} {dt}", e5[dt])
+        log(phase, f"E5's shape {E5_TILE_SHAPE} W={SERVE_W} {dt}: max abs "
+                   f"err " + ", ".join(
+                       f"{n} {t}" for n, (_, _, t) in e5[dt].items()))
 
     b, h, s, d = TILE_SHAPE
     w = SERVE_W
@@ -878,6 +931,10 @@ def phase_kernel_tileband() -> dict:
         tile_bytes = sum(x.numel() * x.element_size()
                          for x in (qt, ke, ve, qt))
         tile_pairs = qt.numel() // d * (2 * hw + 1) * d
+        # K6's and K7's errors: the larger of the serving shape's and
+        # E5's; the times are the serving shape's.
+        res.update({n: max(res[n], e5[dt][n]) for n in ("fwd", "dq", "dk",
+                                                       "dv")})
         result = dict(
             fwd=dict(max_abs_err=res["fwd"][0], ms=times["fwd"],
                      plain_ms=times["fwd_plain"],
@@ -1860,80 +1917,99 @@ E1_COLUMNS = [
 E1_BATCH = 128
 
 
-def _e1_cli(tmp: str, epochs: int):
-    """E1 ``traditional`` at ViT-B/16 through ``cli.main``; returns the
-    experiment, the model's forward passes by kind and the seconds taken.
-    Passes are counted by a global forward hook: ``train`` in training
-    mode, ``probe`` in eval mode under autograd (the mid-run memory probe's
-    backward), ``eval`` in eval mode without."""
-    import csv as csv_mod
-
+def _cli_run(tmp: str, argv: list, model_cls, results: str):
+    """``cli.main(argv)`` with its working directory in ``tmp`` (where the
+    CLI writes its log file and E3/E5 find ``./pretrained_weights``) on the
+    synthetic CIFAR stand-in; returns the experiment, the model's forward
+    passes by kind and the seconds taken. Passes are counted by a global
+    forward hook: ``train`` in training mode, ``probe`` in eval mode under
+    autograd (the mid-run memory probe's backward), ``eval`` in eval mode
+    without."""
     from torch.nn.modules import module as nn_module
 
     from focused_attention_vit_tpu_torch import cli
-    from focused_attention_vit_tpu_torch.utils.metrics import (
-        calculate_vit_complexity,
-    )
 
     passes = {"train": 0, "probe": 0, "eval": 0}
 
     def count(mod, _):
-        if isinstance(mod, VisionTransformer):
+        if type(mod) is model_cls:
             kind = ("train" if mod.training else
                     "probe" if torch.is_grad_enabled() else "eval")
             passes[kind] += 1
 
-    results = os.path.join(tmp, f"results-{epochs}")
     hook = nn_module.register_module_forward_pre_hook(count)
     cwd = os.getcwd()
-    os.chdir(tmp)  # the CLI writes its log file into the working directory
+    os.chdir(tmp)
     t0 = time.perf_counter()
     try:
-        e = cli.main([
-            "--experiment", "traditional", "--img_size", "224",
-            "--patch_size", "16", "--batch_size", str(E1_BATCH),
-            "--attn_dropout", str(TRAIN_DROPOUT),
-            "--compute_dtype", "bfloat16", "--epochs", str(epochs),
-            "--subset_size", "1024",
-            "--data_dir", os.path.join(tmp, "no-cifar"),
-            "--results_dir", results,
-        ])
+        e = cli.main(argv + ["--data_dir", os.path.join(tmp, "no-cifar"),
+                             "--results_dir", results])
         torch.cuda.synchronize()
     finally:
         os.chdir(cwd)
         hook.remove()
-    seconds = time.perf_counter() - t0
+    if not e.data["synthetic"]:
+        raise AssertionError("expected the synthetic CIFAR stand-in")
+    return e, passes, time.perf_counter() - t0
 
-    with open(os.path.join(results, "exp1_traditional.csv"), newline="") as f:
+
+def _csv_row(path: str, columns: list) -> dict:
+    import csv as csv_mod
+
+    with open(path, newline="") as f:
         rows = list(csv_mod.reader(f))
-    if rows[0] != E1_COLUMNS or len(rows) != 2:
-        raise AssertionError(f"E1 CSV: columns {rows[0]}, {len(rows) - 1} "
-                             f"rows")
-    row = dict(zip(rows[0], rows[1]))
+    if rows[0] != columns or len(rows) != 2:
+        raise AssertionError(f"{path}: columns {rows[0]}, {len(rows) - 1} "
+                             f"rows; expected {columns}")
+    return dict(zip(rows[0], rows[1]))
+
+
+def _check_run(e, row, epochs: int, what: str) -> None:
+    tr = e.metrics["training"]
+    losses = (tr["train_losses"] + tr["val_losses"]
+              + [float(row["test_loss"]), float(row["final_val_loss"])])
+    if len(tr["train_losses"]) != epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: non-finite or missing losses {losses}")
+    if not float(row["peak_gpu_memory_mb"]) > 0:
+        raise AssertionError(f"{what} CSV: peak_gpu_memory_mb is not "
+                             f"positive")
+
+
+def _e1_cli(tmp: str, epochs: int):
+    """E1 ``traditional`` at ViT-B/16 through ``cli.main``; returns the
+    experiment, the model's forward passes by kind, the seconds taken and
+    the CSV row."""
+    from focused_attention_vit_tpu_torch.utils.metrics import (
+        calculate_vit_complexity,
+    )
+
+    results = os.path.join(tmp, f"results-{epochs}")
+    e, passes, seconds = _cli_run(tmp, [
+        "--experiment", "traditional", "--img_size", "224",
+        "--patch_size", "16", "--batch_size", str(E1_BATCH),
+        "--attn_dropout", str(TRAIN_DROPOUT),
+        "--compute_dtype", "bfloat16", "--epochs", str(epochs),
+        "--subset_size", "1024",
+    ], VisionTransformer, results)
+    row = _csv_row(os.path.join(results, "exp1_traditional.csv"),
+                   E1_COLUMNS)
     theory = calculate_vit_complexity(224, 16, 768, 12, 12)
     if (int(row["parameters"]), int(row["flops"])) != (
             theory["parameters"], theory["flops"]):
         raise AssertionError(f"E1 CSV: parameters {row['parameters']}, "
                              f"flops {row['flops']} != {theory}")
-    tr = e.metrics["training"]
-    losses = (tr["train_losses"] + tr["val_losses"]
-              + [float(row["test_loss"]), float(row["final_val_loss"])])
-    if len(tr["train_losses"]) != epochs or not np.isfinite(losses).all():
-        raise AssertionError(f"E1: non-finite or missing losses {losses}")
-    if not float(row["peak_gpu_memory_mb"]) > 0:
-        raise AssertionError("E1 CSV: peak_gpu_memory_mb is not positive")
+    _check_run(e, row, epochs, "E1")
     cm = np.load(os.path.join(results, "exp1_traditional_confusion.npy"))
     n_test = len(e.data["test_labels"])
     if cm.shape != (10, 10) or cm.sum() != n_test:
         raise AssertionError(f"E1 confusion matrix {cm.shape} sums to "
                              f"{cm.sum()}, not {n_test}")
-    if not e.data["synthetic"]:
-        raise AssertionError("expected the synthetic CIFAR stand-in")
     return e, passes, seconds, row
 
 
-def _e1_step_time(e, microbatch=None, n: int = 5):
-    """(ms per step, peak GiB) of E1's train step on its trained state."""
+def _step_time(e, microbatch=None, n: int = 5):
+    """(ms per step, peak GiB) of an experiment's bf16 train step at batch
+    128 on its trained state (E1, E3, E5)."""
     rng = np.random.default_rng(7)
     u8 = _images(rng, E1_BATCH)
     y = rng.integers(0, 10, size=E1_BATCH)
@@ -1968,11 +2044,11 @@ def phase_e1() -> dict:
                           for k in fused.LAUNCH_KINDS}
                 others = [op.launch_count(k) for op in (flash, band)
                           for k in op.LAUNCH_KINDS]
-                ms, peak = _e1_step_time(e)
+                ms, peak = _step_time(e)
                 sweep = {}
                 if on:
                     out.update(counts)
-                    sweep = {mb: _e1_step_time(e, mb) for mb in (64, 32, 16)}
+                    sweep = {mb: _step_time(e, mb) for mb in (64, 32, 16)}
             log(phase, f"switch {label}: cli.main, {epochs} epochs of "
                        f"{len(e.data['train_images'])} train and "
                        f"{len(e.data['test_labels'])} test images in "
@@ -2012,6 +2088,295 @@ def phase_e1() -> dict:
     return out
 
 
+E3_COLUMNS = [
+    "model", "pretrained_source", "pretrained_model_variant",
+    "freeze_layers", "img_size", "patch_size", "embed_dim", "depth",
+    "num_heads", "total_parameters", "trainable_parameters",
+    "frozen_parameters", "flops", "time_complexity", "space_complexity_mb",
+    "model_size_mb", "avg_epoch_time", "total_training_time",
+    "final_val_acc", "final_val_loss", "test_acc", "test_loss",
+    "avg_inference_time_per_image", "peak_gpu_memory_mb",
+]
+# E5's row puts the window and the complexity ratio after num_heads.
+E5_COLUMNS = E3_COLUMNS[:9] + ["window_size", "complexity_reduction_ratio"] + (
+    E3_COLUMNS[9:])
+PRETRAINED_ARGS = ["--img_size", "224", "--patch_size", "16", "--batch_size",
+                   str(E1_BATCH), "--compute_dtype", "bfloat16", "--epochs",
+                   "1", "--subset_size", "1024"]
+# The fixture's tensor that the first block's fused qkv is loaded from.
+FIXTURE_QKV = "encoder.layers.encoder_layer_0.self_attention.in_proj_weight"
+ALL_OPS = (band, flash, fused, tile)
+
+
+def phase_pretrained_fixture(tmp: str) -> dict:
+    """The vit_b_16 fixture written by the port's writer into
+    ``tmp/pretrained_weights``, where E3 and E5 look for it; returns it as
+    read back."""
+    from focused_attention_vit_tpu_torch.data.pretrained import write_fixture
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        path = write_fixture(os.path.join(tmp, "pretrained_weights"))
+    seconds = time.perf_counter() - t0
+    log("pretrained-fixture", f"{out.getvalue().strip()}; "
+                              f"{os.path.getsize(path)} bytes in "
+                              f"{seconds:.1f} s (host clock)")
+    return torch.load(path, weights_only=True)
+
+
+def _pretrained_cli(tmp: str, name: str, model_cls, csv_name: str,
+                    columns: list, extra=()):
+    """E3 or E5 through ``cli.main`` at ViT-B/16, batch 128, bf16, one
+    epoch, with ``./pretrained_weights`` the fixture. Checks that the
+    checkpoint loaded and merged (every tensor but the 10-class head), the
+    CSV's columns and its parameter counts against the model's; returns the
+    experiment, the passes, the seconds, the CSV row and the model's state
+    dict as loaded."""
+    from focused_attention_vit_tpu_torch.experiments.pretrained_common import (
+        PretrainedMixin,
+    )
+
+    loaded = {}
+    real = PretrainedMixin.build_params
+
+    def spy(self, model):
+        real(self, model)
+        loaded.update({k: v.detach().clone()
+                       for k, v in model.state_dict().items()})
+
+    results = os.path.join(tmp, f"results-{name}-{len(extra)}")
+    with mock.patch.object(PretrainedMixin, "build_params", spy):
+        e, passes, seconds = _cli_run(
+            tmp, ["--experiment", name, *PRETRAINED_ARGS, *extra], model_cls,
+            results)
+    row = _csv_row(os.path.join(results, csv_name), columns)
+    _check_run(e, row, 1, name)
+    n = len(loaded)
+    if not e.pretrained_loaded or e.merge_counts != {"copied": n - 2,
+                                                     "skipped": 0}:
+        raise AssertionError(f"{name}: pretrained_loaded "
+                             f"{e.pretrained_loaded}, merge {e.merge_counts}"
+                             f" of {n} tensors (expected all but the head)")
+    total = sum(p.numel() for p in e.model.parameters())
+    trainable = sum(p.numel() for p in e.model.parameters()
+                    if p.requires_grad)
+    counts = tuple(int(row[k]) for k in ("total_parameters",
+                                         "trainable_parameters",
+                                         "frozen_parameters"))
+    if counts != (total, trainable, total - trainable):
+        raise AssertionError(f"{name} CSV parameter counts {counts} != the "
+                             f"model's {(total, trainable)}")
+    return e, passes, seconds, row, loaded
+
+
+def _check_loaded(loaded: dict, fixture: dict, what: str) -> None:
+    got = loaded["blocks.0.attn.qkv.weight"].cpu()
+    if not torch.equal(got, fixture[FIXTURE_QKV].float()):
+        raise AssertionError(f"{what}: blocks.0.attn.qkv.weight is not the "
+                             f"fixture's upcast {FIXTURE_QKV}")
+
+
+def _op_counts() -> dict:
+    return {op.__name__.rsplit(".", 1)[1]: {
+        k: op.launch_count(k) for k in op.LAUNCH_KINDS} for op in ALL_OPS}
+
+
+def _reset_ops() -> None:
+    for op in ALL_OPS:
+        op.reset_launch_count()
+
+
+def _log_run(phase, label, e, passes, seconds, row, launches) -> None:
+    log(phase, f"{label}: cli.main, 1 epoch of {len(e.data['train_images'])}"
+               f" train and {len(e.data['test_labels'])} test images in "
+               f"{seconds:.1f} s; pretrained_loaded {e.pretrained_loaded}, "
+               f"merge {e.merge_counts}; parameters total "
+               f"{row['total_parameters']}, trainable "
+               f"{row['trainable_parameters']}; forward passes {passes}; "
+               f"launches {launches}; CSV test_loss "
+               f"{float(row['test_loss']):.4f}, peak_gpu_memory_mb "
+               f"{float(row['peak_gpu_memory_mb']):.1f}")
+
+
+def _log_step(phase, label, timings) -> None:
+    """Step times of one experiment path: microbatch 0 first."""
+    (ms, peak), *rest = timings.values()
+    log(phase, f"{label}: ViT-B/16 train step, bf16 autocast, batch "
+               f"{E1_BATCH}: {ms:.2f} ms per step, "
+               f"{E1_BATCH / ms * 1e3:.1f} images/s (host clock, mean of 5 "
+               f"steps after a warm-up), peak memory {peak:.2f} GiB "
+               f"(max_memory_allocated)")
+    if rest:
+        log(phase, f"{label}, microbatch 0 / 64 / 32 / 16: " + " / ".join(
+            f"{m:.2f} ms, {p:.2f} GiB" for m, p in timings.values()))
+
+
+def phase_e3(tmp: str, fixture: dict) -> dict:
+    """E3 ``traditional_pretrained`` through the CLI with the fused switch
+    on: the fixture loaded, the CSV, and K3/K4 launched 12 times a pass
+    (training passes and the memory probe's backward, eval passes); returns
+    the fused launch counts."""
+    phase = "e3"
+    _reset_ops()
+    with _fused_switch(True):
+        e, passes, seconds, row, loaded = _pretrained_cli(
+            tmp, "traditional_pretrained", VisionTransformer,
+            "exp3_pretrained_traditional.csv", E3_COLUMNS)
+        launches = _op_counts()
+        timings = {None: _step_time(e)}
+    _check_loaded(loaded, fixture, "E3")
+    _log_run(phase, "switch on", e, passes, seconds, row, launches)
+    _log_step(phase, "switch on", timings)
+    grads = DEPTH * (passes["train"] + passes["probe"])
+    expect = {"fwd": DEPTH * passes["eval"], "fwd_train": grads,
+              "bwd": grads}
+    others = [c for op, k in launches.items() if op != "mha_kernel"
+              for c in k.values()]
+    if (launches["mha_kernel"] != expect or any(others)
+            or passes["train"] != len(e.data["train_images"]) // E1_BATCH
+            or passes["probe"] != 1
+            or passes["eval"] == 0):
+        raise AssertionError(f"E3: launches {launches}, expected fused "
+                             f"{expect} and nothing else; passes {passes}")
+    del e, loaded
+    torch.cuda.empty_cache()
+    return launches["mha_kernel"]
+
+
+def phase_e5(tmp: str, fixture: dict) -> dict:
+    """E5 ``mhla_pretrained`` through the CLI: by default (the dense band at
+    S = 197, no kernel), under the tile-band opt-in (K6/K7 12 times a pass)
+    and with ``--freeze_layers`` (only the head and the latent projections
+    train); the step time at microbatch 0, 64, 32 and 16 on both paths.
+    Returns the tile launch counts."""
+    phase = "e5"
+    out = {}
+    for label, env, extra in (("dense band", {}, ()),
+                              ("tile band", TILE_ENV, ()),
+                              ("dense band, --freeze_layers", {},
+                               ("--freeze_layers",))):
+        _reset_ops()
+        with _environ(env):
+            e, passes, seconds, row, loaded = _pretrained_cli(
+                tmp, "mhla_pretrained", VisionTransformerMHLA,
+                "exp4_pretrained_mhla.csv", E5_COLUMNS, extra)
+            launches = _op_counts()
+            timings = {None: _step_time(e)}
+            if not extra:
+                timings.update({mb: _step_time(e, mb) for mb in (64, 32, 16)})
+        _check_loaded(loaded, fixture, f"E5 {label}")
+        d = e.embed_dim // e.num_heads
+        for i in range(e.depth):
+            w = loaded[f"blocks.{i}.attn.latent_proj.weight"]
+            if not (torch.equal(w, torch.eye(d, device=w.device)) and not
+                    loaded[f"blocks.{i}.attn.latent_proj.bias"].any()):
+                raise AssertionError(f"E5: block {i}'s latent_proj is not "
+                                     f"the identity at load time")
+        _log_run(phase, label, e, passes, seconds, row, launches)
+        _log_step(phase, label, timings)
+        if extra:
+            _check_frozen(e, loaded)
+        tile_counts = launches["mhla_kernel_v4"]
+        grads = DEPTH * (passes["train"] + passes["probe"])
+        expect = {"fwd": grads + DEPTH * passes["eval"], "bwd": grads,
+                  "fwd_b": 0} if env else dict.fromkeys(tile.LAUNCH_KINDS, 0)
+        others = [c for op, k in launches.items() if op != "mhla_kernel_v4"
+                  for c in k.values()]
+        if tile_counts != expect or any(others) or passes["eval"] == 0:
+            raise AssertionError(f"E5 {label}: launches {launches}, expected "
+                                 f"tile band {expect} and nothing else; "
+                                 f"passes {passes}")
+        if env:
+            out = tile_counts
+        del e, loaded
+        torch.cuda.empty_cache()
+    return out
+
+
+def _check_frozen(e, loaded: dict) -> None:
+    """After the frozen run only the head and the latent projections have
+    moved from the loaded weights, and one more step moves only them;
+    ``trainable_parameters`` counts the head and the latent projections."""
+    d = e.embed_dim // e.num_heads
+    head, latent = e.embed_dim * 10 + 10, e.depth * (d * d + d)
+
+    def moved(before):
+        return sorted(n for n, p in e.model.named_parameters()
+                      if not torch.equal(p.detach(), before[n]))
+
+    want = sorted(n for n, _ in e.model.named_parameters()
+                  if n.startswith("head.") or "latent_proj" in n)
+    before = {n: p.detach().clone() for n, p in e.model.named_parameters()}
+    rng = np.random.default_rng(9)
+    e.train_step(e.state, _images(rng, E1_BATCH),
+                 rng.integers(0, 10, size=E1_BATCH), 1000)
+    torch.cuda.synchronize()
+    after_run, after_step = moved(loaded), moved(before)
+    log("e5", f"--freeze_layers: trainable_parameters "
+              f"{e.param_counts['trainable_params']} (head {head} + "
+              f"{e.depth} x ({d}*{d} + {d})); moved over the run "
+              f"{len(after_run)} tensors, over one more step "
+              f"{len(after_step)}, all head or latent_proj: "
+              f"{after_run == after_step == want}")
+    if (e.param_counts["trainable_params"] != head + latent
+            or after_run != want or after_step != want):
+        raise AssertionError(f"E5 --freeze_layers: trainable "
+                             f"{e.param_counts}, moved {after_run} / "
+                             f"{after_step}, expected {want}")
+
+
+# PretrainedViTWithMHLA at its defaults: patch 4 (S = 3137) and W = 4, an
+# even window, through the S-minor band (K1/K2).
+PMHLA = ModelPath("pretrained-mhla-", "PretrainedViTWithMHLA B/4 W=4",
+                  PretrainedViTWithMHLA, None, band, "band", idle_ops=(tile,))
+
+
+def phase_pretrained_mhla(image: np.ndarray) -> int:
+    """``PretrainedViTWithMHLA`` at full width and its defaults: the f32
+    forward against the CPU (phase_model), the bf16 serving forward at
+    batch 32 against the f32 CPU probabilities with K1 launched once a
+    block, timed; then a 2-block f32 train step against the CPU
+    (phase_train_parity). Returns the bf16 forward's K1 launches."""
+    phase = "pretrained-mhla"
+    cpu_model = PMHLA.build(generator=torch.Generator().manual_seed(0)).eval()
+    if cpu_model.window_size != 4 or cpu_model.blocks[0].attn.window_size != 4:
+        raise AssertionError("PretrainedViTWithMHLA's default window is not 4")
+    ref_probs = phase_model(PMHLA, cpu_model, image)
+    model = copy.deepcopy(cpu_model).to("cuda", torch.bfloat16).eval()
+    del cpu_model
+    rng = np.random.default_rng(12)
+    u8 = torch.from_numpy(np.concatenate([image, _images(rng, 31)]))
+    x = prepare_eval_batch(u8.to("cuda"), 224).to(torch.bfloat16)
+    forwards = [0]
+    hook = model.register_forward_pre_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    PMHLA.reset_counts()
+    with torch.inference_mode():
+        probs = torch.softmax(model(x).float(), -1).cpu().numpy()
+        ms = cuda_median_ms(lambda: model(x), repeats=10, warmup=2)
+    torch.cuda.synchronize()
+    hook.remove()
+    launches = band.launch_count()
+    PMHLA.check_idle(phase)
+    _check_probs(probs, 32)
+    dp = float(np.abs(probs[0] - ref_probs[0]).max())
+    log(phase, f"bf16 forward, batch 32: {ms:.2f} ms (median of 10, CUDA "
+               f"events), {32 / ms * 1e3:.1f} images/s; bf16 against the "
+               f"f32 CPU model {dp:.3g} (tol 1e-2); forward passes "
+               f"{forwards[0]}, K1 launches {launches}")
+    if dp > 1e-2:
+        raise AssertionError("PretrainedViTWithMHLA bf16 probabilities "
+                             "disagree with the f32 reference")
+    if launches != DEPTH * forwards[0]:
+        raise AssertionError(f"K1 launches {launches} != {DEPTH} x "
+                             f"{forwards[0]} forward passes")
+    del model
+    torch.cuda.empty_cache()
+    phase_train_parity(PMHLA)
+    return launches
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2039,6 +2404,13 @@ def main() -> None:
     e1_launches = phase_e1()
     phase_e1_parity()
 
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = phase_pretrained_fixture(tmp)
+        e3_launches = phase_e3(tmp, fixture)
+        e5_launches = phase_e5(tmp, fixture)
+        del fixture
+    pmhla_launches = phase_pretrained_mhla(image)
+
     tile_timing = phase_kernel_tileband()
     with _environ(TILE.env):
         cpu_model = TILE.build(
@@ -2058,8 +2430,8 @@ def main() -> None:
     tpu_fused = "focused_attention_vit_tpu/ops/mha_kernel.py"
     tpu_tile = "focused_attention_vit_tpu/ops/mhla_kernel_v4.py"
     kernels = [
-        ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158", launches[MHLA],
-         timing["bf16"]),
+        ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158",
+         launches[MHLA] + pmhla_launches, timing["bf16"]),
         ("mhla_band_fwd_train", band.KERNEL_SOURCE, f"{tpu}:158",
          train_launches[MHLA]["fwd_train"], train_timing["bf16"]["fwd_train"]),
         ("mhla_band_bwd", band.BWD_KERNEL_SOURCE, f"{tpu}:199",
@@ -2071,18 +2443,25 @@ def main() -> None:
          flash_timing["bf16"]["fwd_train"]),
         ("flash_attention_bwd", flash.BWD_KERNEL_SOURCE, f"{tpu_flash}:73",
          train_launches[DENSE]["bwd"], flash_timing["bf16"]["bwd"]),
+        # K3/K4 run in E1 and E3 with the fused switch on.
         ("fused_mha_fwd", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
-         e1_launches["fwd"], fused_timing["bf16"]["fwd"]),
+         e1_launches["fwd"] + e3_launches["fwd"],
+         fused_timing["bf16"]["fwd"]),
         ("fused_mha_fwd_train", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
-         e1_launches["fwd_train"], fused_timing["bf16"]["fwd_train"]),
+         e1_launches["fwd_train"] + e3_launches["fwd_train"],
+         fused_timing["bf16"]["fwd_train"]),
         ("fused_mha_bwd", fused.BWD_KERNEL_SOURCE, f"{tpu_fused}:83",
-         e1_launches["bwd"], fused_timing["bf16"]["bwd"]),
-        # K6 runs in serving (MHLA-B/4 and B/16) and in training; K8 has no
-        # caller on a model path, so its launches are kernel-tileband's.
+         e1_launches["bwd"] + e3_launches["bwd"],
+         fused_timing["bf16"]["bwd"]),
+        # K6 runs in serving (MHLA-B/4 and B/16), in training and in E5
+        # under the opt-in; K8 has no caller on a model path, so its
+        # launches are kernel-tileband's.
         ("mhla_tile_band_fwd", tile.KERNEL_SOURCE, f"{tpu_tile}:66",
-         launches[TILE] + train_launches[TILE]["fwd"], tile_timing["fwd"]),
+         launches[TILE] + train_launches[TILE]["fwd"] + e5_launches["fwd"],
+         tile_timing["fwd"]),
         ("mhla_tile_band_bwd", tile.BWD_KERNEL_SOURCE, f"{tpu_tile}:104",
-         train_launches[TILE]["bwd"], tile_timing["bwd"]),
+         train_launches[TILE]["bwd"] + e5_launches["bwd"],
+         tile_timing["bwd"]),
         ("mhla_tile_band_fwd_tiles", tile.KERNEL_SOURCE, f"{tpu_tile}:383",
          tile_timing["fwd_b_launches"], tile_timing["fwd_b"]),
     ]

@@ -3,11 +3,16 @@ flag-compatible with the JAX package's:
 
     python -m focused_attention_vit_tpu_torch.cli --experiment traditional ...
 
-The port runs E1 ``traditional`` on one CUDA device (``--device cpu`` for
-the CPU). Every other flag of the JAX surface is parsed; those the port does
+The port runs E1 ``traditional``, E3 ``traditional_pretrained`` and E5
+``mhla_pretrained`` on one CUDA device (``--device cpu`` for the CPU). E3
+and E5 load ``./pretrained_weights/<variant>_weights.pth`` (python -m
+focused_attention_vit_tpu_torch.data.pretrained writes the seeded stand-in
+there). Every other flag of the JAX surface is parsed; those the port does
 not act on yet raise an error that names the flag, before anything runs.
 None is silently ignored. Set ``FAVIT_FUSED_MHA=1`` to take the fused
-short-sequence attention kernels (``ops/mha_kernel.py``).
+short-sequence attention kernels (``ops/mha_kernel.py``), and
+``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1`` to take E5's MHLA
+through the tile band (``ops/mhla_kernel_v4.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from focused_attention_vit_tpu_torch.experiments.base import (
     NOT_PORTED_DEFAULTS,
+    PORTED_EXPERIMENTS,
     not_ported,
 )
 
@@ -30,7 +36,6 @@ EXPERIMENTS = [
     "cross_attention", "multihead_cross_attention",
     "mhla_pretrained", "sppp_mhla_pretrained",
 ]
-PORTED_EXPERIMENTS = ("traditional",)
 
 
 def parse_args(argv=None):
@@ -71,7 +76,7 @@ def parse_args(argv=None):
     parser.add_argument("--slic_connectivity", type=str, default="auto",
                         choices=["auto", "on", "off", "host"])
 
-    # MHLA settings (experiments not ported yet)
+    # MHLA settings
     parser.add_argument("--window_size", type=int, default=7)
 
     # Training settings
@@ -90,7 +95,7 @@ def parse_args(argv=None):
                         help="AdamW first-moment dtype; bfloat16 is not "
                              "ported yet")
 
-    # Pretrained settings (experiments not ported yet)
+    # Pretrained settings
     parser.add_argument("--pretrained_model_variant", type=str, default="vit_b_16")
     parser.add_argument("--pretrained_source", type=str, default="torchvision",
                         choices=["torchvision", "huggingface"])
@@ -194,6 +199,15 @@ def _common_kwargs(args):
     )
 
 
+def _pretrained_kwargs(args):
+    return dict(
+        pretrained_model_variant=args.pretrained_model_variant,
+        pretrained_source=args.pretrained_source,
+        freeze_layers=args.freeze_layers,
+        head_learning_rate=args.head_learning_rate,
+    )
+
+
 def _backend(device) -> str:
     """What the ``Backend:`` log line names: the CUDA device, or the CPU
     when the caller asked for it. Without CUDA and without ``--device
@@ -239,7 +253,16 @@ def main(argv=None):
 
     from focused_attention_vit_tpu_torch import experiments as exp
 
-    instance = exp.TraditionalViTExperiment(**_common_kwargs(args))
+    name = args.experiment
+    if name == "traditional":
+        instance = exp.TraditionalViTExperiment(**_common_kwargs(args))
+    elif name == "traditional_pretrained":
+        instance = exp.PretrainedTraditionalViTExperiment(
+            **_common_kwargs(args), **_pretrained_kwargs(args))
+    else:  # mhla_pretrained
+        instance = exp.PretrainedMHLAViTExperiment(
+            **_common_kwargs(args), **_pretrained_kwargs(args),
+            window_size=args.window_size)
     instance.run()
     return instance
 

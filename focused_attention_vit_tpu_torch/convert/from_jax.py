@@ -1,8 +1,10 @@
 """JAX (Flax) ViT params -> the port's state dicts: the reverse of
 ``focused_attention_vit_tpu/convert/torch_to_jax``'s
-``reference_vit_to_flax`` (dense :class:`~..models.VisionTransformer`) and
+``reference_vit_to_flax`` (dense :class:`~..models.VisionTransformer`),
 ``reference_vit_mhla_to_flax`` (:class:`~..models.VisionTransformerMHLA`,
-MHLA or dense blocks).
+MHLA or dense blocks) and ``reference_mhla_vit_to_flax``
+(:class:`~..models.PretrainedViTWithMHLA`, whose MLP is ``mlp.0`` and
+``mlp.3``).
 
 Flax kernels are ``[in, out]`` and torch Linear weights ``[out, in]``; the
 head-shaped attention kernels flatten back into the reference's fused
@@ -65,11 +67,13 @@ def _layernorm(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool
+def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool,
+                          mlp_names=("fc1", "fc2")
                           ) -> Dict[str, torch.Tensor]:
     """The model's state dict; a block without ``latent_proj`` is a dense
     block, saved under the ``in_proj``/``out_proj`` names if
-    ``in_proj_names``."""
+    ``in_proj_names``. The MLP's two Linears are saved as ``mlp.<name>``
+    for the two ``mlp_names``."""
     if "blocks" in params:
         raise ValueError(
             "scan-form params (blocks/block) are not supported; unstack them "
@@ -107,8 +111,8 @@ def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool
             sd[f"{pre}.attn.proj.bias"] = _t(attn["proj"]["bias"])
         _layernorm(sd, f"{pre}.norm1", blk["norm1"])
         _layernorm(sd, f"{pre}.norm2", blk["norm2"])
-        _linear(sd, f"{pre}.mlp.fc1", blk["mlp"]["fc1"])
-        _linear(sd, f"{pre}.mlp.fc2", blk["mlp"]["fc2"])
+        for name, flax_name in zip(mlp_names, ("fc1", "fc2")):
+            _linear(sd, f"{pre}.mlp.{name}", blk["mlp"][flax_name])
     _layernorm(sd, "norm", params["norm"])
     _linear(sd, "head", params["head"])
     return sd
@@ -131,6 +135,16 @@ def flax_vit_mhla_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Te
     or False -> f32 state dict of :class:`~..models.VisionTransformerMHLA`
     built with the same ``use_mhla``."""
     return _blocks_to_state_dict(params, in_proj_names=True)
+
+
+def flax_pretrained_mhla_to_state_dict(params: Mapping[str, Any]
+                                       ) -> Dict[str, torch.Tensor]:
+    """Flax ``PretrainedViTWithMHLA`` params -> f32 state dict of
+    :class:`~..models.PretrainedViTWithMHLA`: the reverse of
+    ``reference_mhla_vit_to_flax``, the MLP under the reference MHLA
+    block's ``mlp.0``/``mlp.3``."""
+    return _blocks_to_state_dict(params, in_proj_names=False,
+                                 mlp_names=("0", "3"))
 
 
 def npz_to_state_dict(path, in_proj_names: bool | None = None

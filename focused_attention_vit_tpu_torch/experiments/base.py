@@ -10,11 +10,15 @@ setup -> train -> evaluate -> save_results -> run and shares:
 * per-epoch progress lines and a one-row CSV in ``results_dir``, written
   with the standard ``csv`` module.
 
-The experiment runs on the card: ``device=None`` means CUDA, and ``setup``
-raises without it; ``device="cpu"`` asks for the CPU. The options of the
-JAX package that the port does not have yet (checkpoints, profiles, remat,
-scan, meshes, a bf16 first moment, ImageNet) are kept as fields, so that the
-flag surface stays the same, and rejected by name in ``setup``.
+The port runs the experiments named in ``PORTED_EXPERIMENTS``: E1
+``traditional``, and the pretrained fine-tunes E3 ``traditional_pretrained``
+and E5 ``mhla_pretrained``, which load their weights in the
+:meth:`ExperimentBase.build_params` hook. The experiment runs on the card:
+``device=None`` means CUDA, and ``setup`` raises without it;
+``device="cpu"`` asks for the CPU. The options of the JAX package that the
+port does not have yet (checkpoints, profiles, remat, scan, meshes, a bf16
+first moment, ImageNet) are kept as fields, so that the flag surface stays
+the same, and rejected by name in ``setup``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from focused_attention_vit_tpu_torch import NotPortedError
 from focused_attention_vit_tpu_torch.data.datasets import load_dataset
 from focused_attention_vit_tpu_torch.data.pipeline import prepare_eval_batch
 from focused_attention_vit_tpu_torch.train import (
@@ -62,14 +67,15 @@ NOT_PORTED_DEFAULTS = {
 }
 
 
-class NotPortedError(NotImplementedError):
-    """An option of the JAX package that the port does not have yet."""
+PORTED_EXPERIMENTS = ("traditional", "traditional_pretrained",
+                      "mhla_pretrained")
 
 
 def not_ported(flag: str, value) -> NotPortedError:
     return NotPortedError(
         f"--{flag} {value!r} is not ported yet: the PyTorch port runs the "
-        f"'traditional' experiment on one device without it (see ROADMAP.md)"
+        f"experiments {', '.join(PORTED_EXPERIMENTS)} on one device without "
+        f"it (see ROADMAP.md)"
     )
 
 
@@ -148,6 +154,11 @@ class ExperimentBase:
         """The model, on ``self.torch_device``, its weights drawn from a
         generator seeded with ``self.seed``."""
         raise NotImplementedError
+
+    def build_params(self, model: torch.nn.Module) -> None:
+        """Called between :meth:`build_model` and the train state; may load
+        weights into ``model`` in place. Default: keep the random init
+        (pretrained experiments override)."""
 
     def _steps_per_epoch(self) -> int:
         n = len(self.data["train_images"]) if getattr(self, "data", None) else 0
@@ -234,6 +245,7 @@ class ExperimentBase:
             )
             self.num_classes = int(data_classes)
         self.model = self.build_model()
+        self.build_params(self.model)
         self.state = create_train_state(self.model, self.build_optimizer(),
                                         device=self.torch_device)
 

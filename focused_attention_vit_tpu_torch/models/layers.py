@@ -7,7 +7,8 @@ Module and parameter names follow the reference torch layout, so that
 contiguous heads), ``attn.latent_proj``, ``attn.proj``, ``norm1``/``norm2``
 and ``mlp.fc1``/``mlp.fc2``; the dense attention of a switchable block
 carries ``attn.in_proj_weight``, ``attn.in_proj_bias`` and
-``attn.out_proj`` instead.
+``attn.out_proj`` instead, and the MLP of :class:`MHLATransformerBlock`
+``mlp.0``/``mlp.3``.
 
 Numerics follow the JAX package: LayerNorm eps 1e-5, exact (erf) GELU, and
 the attention dispatch of ``MultiHeadAttention`` and
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from focused_attention_vit_tpu_torch import NotPortedError
 from focused_attention_vit_tpu_torch.ops import attention as attn_ops
 from focused_attention_vit_tpu_torch.ops import window as window_ops
 from focused_attention_vit_tpu_torch.ops.flash_attention import (
@@ -337,18 +339,41 @@ class MultiHeadLatentAttention(nn.Module):
         return self.proj(out.view(b, dim, s).transpose(1, 2).contiguous())
 
 
+class SequentialMLP(nn.Sequential):
+    """:class:`MLP` under the reference MHLA block's anonymous
+    ``nn.Sequential`` names (reference models/mhla.py:197-203): Linear
+    ``0``, GELU ``1``, dropout ``2``, Linear ``3``, dropout ``4``. The
+    dropout slots hold no parameters; the masks come from the
+    :class:`DropoutRNG` as in :class:`MLP`."""
+
+    def __init__(self, embed_dim: int, hidden_dim: int, dropout: float = 0.0,
+                 device=None):
+        super().__init__(
+            nn.Linear(embed_dim, hidden_dim, device=device), nn.GELU(),
+            nn.Identity(), nn.Linear(hidden_dim, embed_dim, device=device),
+            nn.Identity())
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
+                ) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        x = inverted_dropout(F.gelu(self[0](x)), rate, rng)
+        return inverted_dropout(self[3](x), rate, rng)
+
+
 class _PreLNBlock(nn.Module):
     """Pre-LN block: ``x += attn(LN(x)); x += mlp(LN(x))``, with
-    ``attn_dropout`` in the attention and ``dropout`` in the MLP."""
+    ``attn_dropout`` in the attention and ``dropout`` in the MLP
+    (``mlp_cls``: :class:`MLP` or :class:`SequentialMLP`)."""
 
     def __init__(self, attn: nn.Module, embed_dim: int, mlp_ratio: float,
-                 dropout: float, device=None):
+                 dropout: float, device=None, mlp_cls=MLP):
         super().__init__()
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
         self.attn = attn
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
-        self.mlp = MLP(embed_dim, int(embed_dim * mlp_ratio), dropout,
-                       device=device)
+        self.mlp = mlp_cls(embed_dim, int(embed_dim * mlp_ratio), dropout,
+                           device=device)
 
     def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
                 ) -> torch.Tensor:
@@ -387,3 +412,29 @@ class SwitchableTransformerBlock(_PreLNBlock):
                                       use_flash, in_proj_names=True,
                                       device=device)
         super().__init__(attn, embed_dim, mlp_ratio, dropout, device=device)
+
+
+class MHLATransformerBlock(_PreLNBlock):
+    """The pre-LN MHLA block of ``PretrainedViTWithMHLA`` (JAX
+    ``models/layers.py`` :629-670; reference models/mhla.py:164-222):
+    :class:`MultiHeadLatentAttention` as ``attn.qkv``, ``attn.latent_proj``
+    and ``attn.proj``, and the MLP as ``mlp.0`` and ``mlp.3``, the keys
+    JAX's ``reference_mhla_vit_to_flax`` reads. Attention masks are not
+    ported yet: a mask raises (ROADMAP §A 7)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
+                 mlp_ratio: float = 4.0, dropout: float = 0.0,
+                 attn_dropout: float = 0.0, device=None):
+        attn = MultiHeadLatentAttention(embed_dim, num_heads, window_size,
+                                        attn_dropout, device=device)
+        super().__init__(attn, embed_dim, mlp_ratio, dropout, device=device,
+                         mlp_cls=SequentialMLP)
+
+    def forward(self, x: torch.Tensor,
+                attention_mask: torch.Tensor | None = None,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        if attention_mask is not None:
+            raise NotPortedError(
+                "MHLATransformerBlock: attention masks are not ported yet "
+                "(ROADMAP §A 7)")
+        return super().forward(x, rng)

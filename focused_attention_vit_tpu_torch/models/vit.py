@@ -86,7 +86,7 @@ class ViTBase(nn.Module):
         x = inverted_dropout(
             x, self.embed_dropout if self.training else 0.0, rng)
         for block in self.blocks:
-            x = block(x, rng)
+            x = block(x, rng=rng)
         return self.norm(x)[:, 0]
 
     def forward(self, images: torch.Tensor,

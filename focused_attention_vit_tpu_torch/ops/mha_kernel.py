@@ -201,9 +201,12 @@ def _check_launch(err: int, what: str, q: torch.Tensor) -> None:
 def _weights(q, k, rate: float, seed: int):
     """``(p, z, keep, lse)``: the f32 softmax ``[B, h, S, S]``, the dropped
     weights, the bool keep mask (``p`` itself and None at rate 0) and the
-    log-sum-exp of the scaled logits."""
+    log-sum-exp of the scaled logits. The logits stay f32 under an
+    autocast region too (CPU autocast would run the product in bf16)."""
     b, h, s, d = q.shape
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
+            d ** -0.5)
     lse = torch.logsumexp(logits, dim=-1)
     p = torch.softmax(logits, dim=-1)
     if rate == 0.0:

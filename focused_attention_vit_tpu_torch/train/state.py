@@ -179,9 +179,11 @@ def make_adamw(
     grad_clip_norm: Optional[float] = None,
     mu_dtype=None,
 ) -> OptimizerSpec:
-    """AdamW over every parameter (reference protocol:
+    """AdamW over every parameter, E1's optimizer (reference protocol:
     experiments/traditional.py:152-157), optionally after global-norm
-    clipping. ``mu_dtype`` other than None raises: see ROADMAP."""
+    clipping; the pretrained experiments E3 and E5 take
+    :func:`make_grouped_optimizer`. ``mu_dtype`` other than None raises: a
+    bf16 first moment needs an AdamW of the port's own (ROADMAP)."""
     _check_mu_dtype(mu_dtype)
     return OptimizerSpec({"all": learning_rate}, weight_decay=weight_decay,
                          grad_clip_norm=_check_clip(grad_clip_norm))

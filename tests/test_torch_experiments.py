@@ -218,7 +218,9 @@ def test_experiment_fields_match_jax():
     assert exp.TraditionalViTExperiment.auto_microbatch is None
     for method in ("setup", "train", "evaluate", "save_results", "run"):
         assert callable(getattr(exp.ExperimentBase, method))
-    assert exp.__all__ == ["ExperimentBase", "TraditionalViTExperiment"]
+    assert exp.__all__ == ["ExperimentBase", "TraditionalViTExperiment",
+                           "PretrainedTraditionalViTExperiment",
+                           "PretrainedMHLAViTExperiment"]
 
 
 def test_e1_csv_has_the_reference_schema(port_e1):
@@ -338,7 +340,7 @@ def test_cli_rejects_what_is_not_ported(extra, flag, dirs, tmp_path,
 
 
 @pytest.mark.parametrize("name", [n for n in cli.EXPERIMENTS
-                                  if n != "traditional"])
+                                  if n not in cli.PORTED_EXPERIMENTS])
 def test_cli_rejects_the_other_experiments(name, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotPortedError, match=f"--experiment '{name}'"):

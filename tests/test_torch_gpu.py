@@ -729,3 +729,45 @@ def test_tile_band_kernels_reject_what_they_do_not_take(cuda):
         qt = torch.zeros(6, 1, 64, 16, device=cuda)
         kt = torch.zeros(6, 1, 64 + 64, 16, device=cuda)
         tile.window_tile_band(qt, kt, kt, 7)
+
+
+@pytest.mark.parametrize("name,env,op,want", [
+    ("PretrainedMHLAViTExperiment",
+     {"FAVIT_MHLA_IMPL": "shiftband", "FAVIT_USE_PALLAS_MHLA": "1"}, tile,
+     {"fwd": 2 + 2, "bwd": 2, "fwd_b": 0}),
+    ("PretrainedTraditionalViTExperiment", {"FAVIT_FUSED_MHA": "1"}, fused,
+     {"fwd": 2, "fwd_train": 2, "bwd": 2}),
+])
+def test_pretrained_experiments_launch_their_kernels(cuda, monkeypatch,
+                                                     tmp_path, name, env,
+                                                     op, want):
+    """E5 (MHLA-B/16, 2 blocks) under the tile-band opt-in launches K6 and
+    K7, and E3 (ViT-B/16, 2 blocks) with the fused switch K3 and K4: one
+    bf16 train step and one eval pass after loading the vit_b_16 fixture
+    (the merge takes the first 2 of its 12 blocks)."""
+    import numpy as np
+
+    from focused_attention_vit_tpu_torch import experiments as exp
+    from focused_attention_vit_tpu_torch.data.pretrained import write_fixture
+
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    write_fixture(str(tmp_path / "weights"))
+    e = getattr(exp, name)(
+        img_size=224, patch_size=16, depth=2, batch_size=4,
+        compute_dtype="bfloat16", subset_size=8,
+        data_dir=str(tmp_path / "data"), results_dir=str(tmp_path / "res"),
+        pretrained_cache_dir=str(tmp_path / "weights"))
+    e.setup()
+    assert e.pretrained_loaded
+    rng = np.random.default_rng(0)
+    u8 = rng.integers(0, 256, size=(4, 32, 32, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, size=4)
+    op.reset_launch_count()
+    band.reset_launch_count()
+    _, metrics = e.train_step(e.state, u8, y, 0)
+    e.eval_step(e.state, u8, y, np.ones(4, dtype=bool))
+    torch.cuda.synchronize()
+    assert {k: op.launch_count(k) for k in op.LAUNCH_KINDS} == want
+    assert band.launch_count() == 0
+    assert np.isfinite(float(metrics["loss_sum"]))

@@ -295,3 +295,22 @@ def test_switch_on_trains_with_in_op_dropout(monkeypatch):
     assert not torch.equal(outs[0], outs[2])
     assert float(grads[0].abs().max()) > 0
     assert flash.launch_count("fwd_train") == 0
+
+
+def test_switch_on_trains_under_cpu_bf16_autocast(monkeypatch):
+    """A bf16 autocast train pass on the CPU with the switch on (E1/E3 with
+    ``--device cpu --compute_dtype bfloat16``): the plain forward keeps its
+    logits and lse in f32, so the backward takes them, and the output is
+    the f32-logit function of the bf16 q, k and v."""
+    monkeypatch.setenv("FAVIT_FUSED_MHA", "1")
+    layer = _layer(dropout=0.1).train()
+    x = torch.from_numpy(
+        np.random.default_rng(2).normal(size=(2, 40, 32)).astype(np.float32))
+    q, k, v = (torch.randn(2, 2, 40, 16).to(torch.bfloat16) for _ in range(3))
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        out, lse = mha.plain_fused_mha_forward(q, k, v)
+        layer(x, DropoutRNG(0, "cpu")).float().sum().backward()
+    assert lse.dtype == torch.float32
+    want, want_lse = mha.plain_fused_mha_forward(q, k, v)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    assert float(layer.qkv.weight.grad.abs().max()) > 0

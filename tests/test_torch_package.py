@@ -18,15 +18,22 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "focused_attention_vit_tpu_torch",
     "focused_attention_vit_tpu_torch.cli",
+    "focused_attention_vit_tpu_torch.convert.__main__",
+    "focused_attention_vit_tpu_torch.convert.checkpoints",
     "focused_attention_vit_tpu_torch.convert.from_jax",
     "focused_attention_vit_tpu_torch.data.datasets",
     "focused_attention_vit_tpu_torch.data.pipeline",
+    "focused_attention_vit_tpu_torch.data.pretrained",
     "focused_attention_vit_tpu_torch.experiments",
     "focused_attention_vit_tpu_torch.experiments.base",
+    "focused_attention_vit_tpu_torch.experiments.mhla_pretrained",
+    "focused_attention_vit_tpu_torch.experiments.pretrained_common",
     "focused_attention_vit_tpu_torch.experiments.traditional",
+    "focused_attention_vit_tpu_torch.experiments.traditional_pretrained",
     "focused_attention_vit_tpu_torch.infer",
     "focused_attention_vit_tpu_torch.models",
     "focused_attention_vit_tpu_torch.models.layers",
+    "focused_attention_vit_tpu_torch.models.mhla_models",
     "focused_attention_vit_tpu_torch.models.vit",
     "focused_attention_vit_tpu_torch.models.vit_mhla",
     "focused_attention_vit_tpu_torch.ops.attention",
