@@ -9,14 +9,16 @@ ViT-B/16 (patch 16, S=197) through the CLI, then MHLA-B/4 again through the
 tile band (``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``), then the
 pretrained fine-tunes E3 ``traditional_pretrained`` and E5
 ``mhla_pretrained`` at ViT-B/16 from a seeded vit_b_16 checkpoint and
-``PretrainedViTWithMHLA`` (W=4, S=3137), and checks every CUDA kernel on
-them.
+``PretrainedViTWithMHLA`` (W=4, S=3137), then the SPPP family (SLIC,
+``SPPPViT``, E2 ``sppp``, E4 ``sppp_pretrained``, E6
+``sppp_mhla_pretrained`` and ``PretrainedSPPPViTWithMHLA``, whose blocks
+see R+1 = 17 tokens), and checks every CUDA kernel on them.
 Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: requires CUDA and compute capability 9.0; prints the card's name
    and ``nvidia-smi`` name and power limit;
-2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, in
-   parallel, and prints ptxas's registers, spills and shared memory of the
+2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, and
+   ``native/connectivity.cpp`` with g++, in parallel, and prints ptxas's registers, spills and shared memory of the
    main path's wgmma kernels and of every instantiation of the band
    forward (K1) and backward (K2) and of the tile band's forward (K6, K8)
    and backward (K7);
@@ -122,6 +124,29 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     (timed; K1 launches equal 12 x the passes), then one 2-block f32 train
     step against the CPU (K1's training form and K2 through the model).
 
+26. slic: SLIC on the card on the committed goldens: at 32^2 the share of
+    pixels where the connectivity-off core equals the numpy oracle
+    (``tools/slic_numpy.py``), and the device pass's patch-dominant
+    agreement with the golden (>= 0.72 mean, >= 0.60 min); at 224^2 the
+    host pass (>= 0.97 mean, image 0 pixel-equal on >= 0.98); then ms a
+    batch of 128 ImageNet-standardised 224^2 images under bf16 autocast
+    with connectivity off and host, and on at batch 8 (CUDA events), with
+    the host pass's copies and C++ timed apart;
+27. sppp-model: ``SPPPViT`` at ViT-B/16 in f32, card against CPU: the
+    dominant-superpixel ids equal, then the logits;
+28. e2, e4, e6: ``cli.main`` with ``sppp``, ``sppp_pretrained`` and
+    ``sppp_mhla_pretrained`` at ViT-B/16 (R=16, ``auto`` connectivity: the
+    host pass), batch 128, bf16, one epoch, E4 and E6 from the fixture:
+    JAX's CSV columns, the load, no kernel launched; E6 again under the
+    tile-band opt-in after K6/K7 are held against their plain versions at
+    (1536, 17, 64), W=7, its K6/K7 launches 12 x the passes; ms per step,
+    images/s, peak memory and SLIC's share of the step
+    (``utils/step_profile.profile``);
+29. pretrained-sppp-mhla: K1 against its plain version at (32, 12, 64,
+    17), W=4, then ``PretrainedSPPPViTWithMHLA`` at its defaults, bf16,
+    batch 32, against the f32 CPU model, by default (the dense band, no
+    kernel) and under ``FAVIT_MHLA_IMPL=roll`` (K1 12 x the passes), timed.
+
 Every launch count is set to 0 just before its path is driven and read just
 after. The line before the last is a JSON summary of the twelve kernels, each
 with its time, its plain version's, the least time the card could take
@@ -154,7 +179,10 @@ from focused_attention_vit_tpu_torch import serve, train
 from focused_attention_vit_tpu_torch.data.datasets import load_dataset
 from focused_attention_vit_tpu_torch.data.pipeline import prepare_eval_batch
 from focused_attention_vit_tpu_torch.models import (
+    PretrainedSPPPViTWithMHLA,
     PretrainedViTWithMHLA,
+    SPPPViT,
+    SPPPViTMHLA,
     VisionTransformer,
     VisionTransformerMHLA,
 )
@@ -162,7 +190,10 @@ from focused_attention_vit_tpu_torch.ops import flash_attention as flash
 from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
 from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
 from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
+from focused_attention_vit_tpu_torch.ops import native_connectivity
 from focused_attention_vit_tpu_torch.ops import philox
+from focused_attention_vit_tpu_torch.ops import segment_pool
+from focused_attention_vit_tpu_torch.ops import slic
 from focused_attention_vit_tpu_torch.ops import window
 from focused_attention_vit_tpu_torch.utils import kernel_build
 
@@ -312,11 +343,18 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = kernel_build.build_many(LIBRARIES)
+    # The host connectivity library (g++) builds beside the eight nvcc
+    # processes.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native = pool.submit(kernel_build.build_native, "connectivity")
+        libs = kernel_build.build_many(LIBRARIES)
+        libs.append(native.result())
     for name in LIBRARIES:
         kernel_build.load(name)
+    native_connectivity.get_lib()
     log("build", f"{', '.join(str(p.relative_to(REPO)) for p in libs)} "
                  f"ready in {time.perf_counter() - t0:.1f} s")
+    libs.pop()  # ptxas reports below are the CUDA libraries'.
     for lib in libs:
         text = (lib.parent / "build.log").read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
@@ -2007,12 +2045,13 @@ def _e1_cli(tmp: str, epochs: int):
     return e, passes, seconds, row
 
 
-def _step_time(e, microbatch=None, n: int = 5):
+def _step_time(e, microbatch=None, n: int = 5, batch=None):
     """(ms per step, peak GiB) of an experiment's bf16 train step at batch
-    128 on its trained state (E1, E3, E5)."""
+    128 on its trained state (E1-E6), on ``batch`` (uint8 images, labels)
+    or seeded random pixels."""
     rng = np.random.default_rng(7)
-    u8 = _images(rng, E1_BATCH)
-    y = rng.integers(0, 10, size=E1_BATCH)
+    u8, y = batch or (_images(rng, E1_BATCH),
+                      rng.integers(0, 10, size=E1_BATCH))
     step = train.make_train_step(224, compute_dtype=torch.bfloat16,
                                  microbatch=microbatch)
     state = e.state
@@ -2377,6 +2416,351 @@ def phase_pretrained_mhla(image: np.ndarray) -> int:
     return launches
 
 
+# --- the SPPP family: SLIC, SPPPViT, E2, E4, E6, PretrainedSPPPViTWithMHLA ----
+
+FIXTURES = REPO / "tests" / "fixtures"
+SLIC_BATCH = 128  # the E2/E4/E6 training batch
+SLIC_ON_BATCH = 8  # the device connectivity pass, the slow mode at 224^2
+# B*h, S, d of E6's tile band (ViT-B/16, batch 128): R + 1 = 17 tokens.
+E6_TILE_SHAPE = (128 * 12, 17, 64)
+# B, h, d, S of PretrainedSPPPViTWithMHLA's S-minor band at batch 32.
+PSPPP_BAND_SHAPE = (32, 12, 64, 17)
+E2_COLUMNS = E1_COLUMNS[:6] + ["num_superpixels", "traditional_tokens",
+                               "sppp_tokens", "token_reduction_factor"] + (
+    E1_COLUMNS[6:])
+E4_COLUMNS = (E3_COLUMNS[:4] + E2_COLUMNS[1:10] + E3_COLUMNS[9:12]
+              + E2_COLUMNS[11:])
+E6_COLUMNS = (E3_COLUMNS[:4] + E2_COLUMNS[1:7] + ["window_size"]
+              + E2_COLUMNS[7:10] + ["complexity_reduction_ratio"]
+              + E3_COLUMNS[9:12] + E2_COLUMNS[11:])
+
+
+def _golden(name: str):
+    fix = np.load(FIXTURES / name)
+    return (fix["images"], fix["golden_labels"], int(fix["n_segments"]),
+            float(fix["compactness"]), float(fix["sigma"]))
+
+
+def _sppp_images(n: int) -> np.ndarray:
+    """``n`` ImageNet-standardised 224^2 images with structure for SLIC to
+    find (random pixels collapse into one superpixel): the six images of
+    ``slic_golden_224.npz``, mirrored and shifted at random, seeded."""
+    images = _golden("slic_golden_224.npz")[0]
+    rng = np.random.default_rng(14)
+    return np.stack([
+        np.roll(images[i][:, ::rng.choice([1, -1])],
+                int(rng.integers(0, 224)), axis=1)
+        for i in [0, 1, *rng.integers(0, len(images), n)][:n]]).copy()
+
+
+def _dominant_agreement(a: np.ndarray, b: np.ndarray, patch: int) -> float:
+    """Share of patches whose dominant superpixels agree under the best
+    one-to-one matching of the two label sets (tests/test_ops.py's
+    measure)."""
+    from scipy.optimize import linear_sum_assignment
+
+    da, db = (segment_pool.dominant_superpixel_per_patch(
+        torch.from_numpy(x), patch, int(x.max()) + 1).numpy() for x in (a, b))
+    n = int(max(da.max(), db.max())) + 1
+    cont = np.zeros((n, n))
+    np.add.at(cont, (da, db), 1)
+    ri, ci = linear_sum_assignment(-cont)
+    return float(cont[ri, ci].sum() / da.size)
+
+
+def _host_ms(fn, repeats: int) -> float:
+    """Median host-clock ms of ``fn()``, each call ended by a device
+    sync."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_slic() -> dict:
+    """SLIC on the card against the numpy oracle and the committed
+    skimage-faithful goldens, then its time at 224^2 by connectivity mode;
+    returns the times."""
+    from tools.slic_numpy import slic_numpy
+
+    phase = "slic"
+    images, golden, r, m, sigma = _golden("slic_golden.npz")
+    x = torch.from_numpy(images).cuda()
+    off = slic.slic_segment(x, r, m, sigma, enforce_connectivity=False)
+    oracle = np.stack([slic_numpy(im, n_segments=r, compactness=m,
+                                  sigma=sigma, enforce_connectivity=False)
+                       for im in images])
+    share = float((off.cpu().numpy() == oracle).mean())
+    dev = slic.slic_segment(x, r, m, sigma, enforce_connectivity=True)
+    scores = [_dominant_agreement(golden[i], dev[i].cpu().numpy(), 4)
+              for i in range(len(images))]
+    log(phase, f"32^2 golden ({len(images)} images, R={r}): connectivity-off "
+               f"core equal to the numpy oracle on {share:.6f} of the "
+               f"pixels; device connectivity pass, patch-dominant agreement "
+               f"with the golden mean {np.mean(scores):.4f} (>= 0.72), min "
+               f"{np.min(scores):.4f} (>= 0.60)")
+    if np.mean(scores) < 0.72 or np.min(scores) < 0.60:
+        raise AssertionError(f"SLIC's device pass disagrees with the 32^2 "
+                             f"golden: {scores}")
+
+    images, golden, r, m, sigma = _golden("slic_golden_224.npz")
+    x = torch.from_numpy(images).cuda()
+    host = slic.slic_segment(x, r, m, sigma, enforce_connectivity="host")
+    host = host.cpu().numpy()
+    scores = [_dominant_agreement(golden[i], host[i], 16)
+              for i in range(len(images))]
+    pixels0 = float((host[0] == golden[0]).mean())
+    log(phase, f"224^2 golden ({len(images)} images): host connectivity, "
+               f"patch-dominant agreement (patch 16) mean "
+               f"{np.mean(scores):.4f} (>= 0.97); image 0 equal to the golden "
+               f"on {pixels0:.4f} of its pixels (>= 0.98)")
+    if np.mean(scores) < 0.97 or pixels0 < 0.98:
+        raise AssertionError(f"SLIC's host path disagrees with the 224^2 "
+                             f"golden: {scores}, image 0 {pixels0}")
+
+    # A training batch of ImageNet-standardised images, under the train
+    # step's bf16 autocast.
+    x = torch.from_numpy(_sppp_images(SLIC_BATCH)).cuda()
+    times = {}
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        for mode, n, reps in (("off", SLIC_BATCH, 10),
+                              ("host", SLIC_BATCH, 10),
+                              ("on", SLIC_ON_BATCH, 3)):
+            conn = {"off": False, "on": True}.get(mode, mode)
+            xs = x[:n]
+            times[mode] = cuda_median_ms(
+                lambda: slic.slic_segment(xs, r, m, sigma,
+                                          enforce_connectivity=conn),
+                repeats=reps, warmup=1)
+            log(phase, f"224^2, batch {n}, connectivity {mode}: "
+                       f"{times[mode]:.2f} ms a batch (median of {reps}, "
+                       f"CUDA events), {times[mode] / n:.3f} ms an image")
+        labels = slic.slic_segment(x, r, m, sigma, enforce_connectivity=False)
+    min_size = int(round(slic.MIN_SIZE_FACTOR * 224 * 224 / r))
+    host_labels = labels.to("cpu", torch.int32).numpy()
+    split = {
+        "d2h": _host_ms(lambda: labels.to("cpu", torch.int32), 10),
+        "cxx": _host_ms(lambda: native_connectivity.enforce_connectivity_host(
+            host_labels, min_size, r), 10),
+        "h2d": _host_ms(lambda: torch.from_numpy(host_labels).cuda(), 10),
+    }
+    log(phase, f"host connectivity at batch {SLIC_BATCH}: copy to the host "
+               f"{split['d2h']:.2f} ms, C++ ({os.cpu_count()} cores) "
+               f"{split['cxx']:.2f} ms, copy back {split['h2d']:.2f} ms "
+               f"(medians of 10, host clock); k-means and blur "
+               f"{times['off']:.2f} ms")
+    times["host_split"] = split
+    return times
+
+
+def phase_sppp_model() -> None:
+    """SPPPViT at ViT-B/16 width in f32 on the card against the same weights
+    on the CPU, on two structured images: the dominant-superpixel ids
+    first, then the logits."""
+    phase = "sppp-model"
+    cpu_model = SPPPViT(img_size=224, patch_size=16, num_classes=10,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    x = torch.from_numpy(_sppp_images(2))
+    ids = {}
+    for dev, xx in (("cpu", x), ("cuda", x.cuda())):
+        seg = slic.slic_segment(xx, 16)  # auto: the host pass at 224^2
+        ids[dev] = segment_pool.dominant_superpixel_per_patch(
+            seg, 16, 16).cpu()
+    same = bool(torch.equal(ids["cpu"], ids["cuda"]))
+    with torch.inference_mode():
+        ref = cpu_model(x)
+        got = gpu_model(x.cuda()).cpu()
+    dl = float((got - ref).abs().max())
+    dp = float((torch.softmax(got, -1) - torch.softmax(ref, -1)).abs().max())
+    log(phase, f"SPPPViT-B/16 f32 batch 2, card vs CPU: dominant-superpixel "
+               f"ids equal {same} ({[len(torch.unique(i)) for i in ids['cpu']]}"
+               f" distinct an image); "
+               f"max |d logits| {dl:.3g} (tol 1e-3), max |d probs| {dp:.3g} "
+               f"(tol 1e-4)")
+    if not same:
+        raise AssertionError("SLIC's superpixels on the card differ from the "
+                             "CPU's")
+    if not (dl <= 1e-3 and dp <= 1e-4):
+        raise AssertionError("SPPPViT on the card disagrees with the CPU")
+
+
+def _sppp_cli(tmp: str, name: str, model_cls, csv_name: str, columns: list):
+    """E2 (no checkpoint) or E4/E6 (the fixture) through ``cli.main`` at
+    ViT-B/16, batch 128, bf16, one epoch; returns the experiment, passes,
+    seconds, CSV row and the state dict as loaded (None for E2)."""
+    if name != "sppp":
+        return _pretrained_cli(tmp, name, model_cls, csv_name, columns)
+    results = os.path.join(tmp, "results-sppp")
+    e, passes, seconds = _cli_run(tmp, ["--experiment", name,
+                                        *PRETRAINED_ARGS], model_cls, results)
+    row = _csv_row(os.path.join(results, csv_name), columns)
+    _check_run(e, row, 1, name)
+    return e, passes, seconds, row, None
+
+
+def phase_sppp_experiments(tmp: str, fixture: dict) -> dict:
+    """E2 ``sppp``, E4 ``sppp_pretrained`` and E6 ``sppp_mhla_pretrained``
+    through the CLI at the CLI's SPPP defaults (R = 16, mean pooling,
+    compactness 0.1, 10 iterations, ``auto`` connectivity: the host pass at
+    224^2), then E6 under the tile-band opt-in, where K6/K7 are first held
+    against their plain versions at E6's shape. Each: the CSV in JAX's
+    columns, the checkpoint loaded (E4, E6), the launches, ms per step,
+    images/s, peak memory and SLIC's share of the step. Returns E6's tile
+    launches."""
+    from focused_attention_vit_tpu_torch.utils import step_profile
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        res = _tile_compare(*[torch.randn(E6_TILE_SHAPE, device="cuda",
+                                          generator=gen).to(dtype)
+                              for _ in range(4)], SERVE_W)
+        bad = [f"{n} {t}" for n, (_, ok, t) in res.items() if not ok]
+        log("e6", f"tile band at E6's shape {E6_TILE_SHAPE} W={SERVE_W} {dt}:"
+                  f" max abs err " + ", ".join(
+                      f"{n} {t}" for n, (_, _, t) in res.items()))
+        if bad:
+            raise AssertionError(f"tile band kernels disagree with the plain "
+                                 f"versions at E6's shape {dt}: {bad}")
+
+    out = {}
+    for phase, name, cls, csv_name, columns, env in (
+            ("e2", "sppp", SPPPViT, "exp2_sppp.csv", E2_COLUMNS, {}),
+            ("e4", "sppp_pretrained", SPPPViT, "exp3_pretrained_sppp.csv",
+             E4_COLUMNS, {}),
+            ("e6", "sppp_mhla_pretrained", SPPPViTMHLA,
+             "exp5_pretrained_sppp_mhla.csv", E6_COLUMNS, {}),
+            ("e6", "sppp_mhla_pretrained", SPPPViTMHLA,
+             "exp5_pretrained_sppp_mhla.csv", E6_COLUMNS, TILE_ENV)):
+        label = "tile band" if env else "default"
+        _reset_ops()
+        with _environ(env):
+            e, passes, seconds, row, loaded = _sppp_cli(tmp, name, cls,
+                                                        csv_name, columns)
+            launches = _op_counts()
+            # The synthetic CIFAR batch it trained on: SLIC's work depends on
+            # the pixels (random ones collapse into one superpixel).
+            u8 = e.data["train_images"][:E1_BATCH]
+            y = e.data["train_labels"][:E1_BATCH]
+            ms, peak = _step_time(e, batch=(u8, y))
+            prof = step_profile.profile(
+                lambda i: e.train_step(e.state, u8, y, 300 + i), 3)
+        if loaded is not None:
+            _check_loaded(loaded, fixture, f"{phase} {label}")
+            _log_run(phase, label, e, passes, seconds, row, launches)
+        else:
+            log(phase, f"cli.main, 1 epoch of {len(e.data['train_images'])} "
+                       f"train and {len(e.data['test_labels'])} test images "
+                       f"in {seconds:.1f} s; forward passes {passes}; "
+                       f"launches {launches}; CSV test_loss "
+                       f"{float(row['test_loss']):.4f}")
+        if name == "sppp_mhla_pretrained":
+            d = e.embed_dim // e.num_heads
+            for i in range(e.depth):
+                if not torch.equal(loaded[f"blocks.{i}.attn.latent_proj."
+                                          f"weight"],
+                                   torch.eye(d, device="cuda")):
+                    raise AssertionError(f"E6: block {i}'s latent_proj is "
+                                         f"not the identity at load time")
+        share = prof["slic_host_ms"] / prof["wall_ms"]
+        log(phase, f"{label}: SPPP-B/16 train step, bf16 autocast, batch "
+                   f"{E1_BATCH}: {ms:.2f} ms per step, "
+                   f"{E1_BATCH / ms * 1e3:.1f} images/s (host clock, mean of "
+                   f"5 steps after a warm-up), peak memory {peak:.2f} GiB "
+                   f"(max_memory_allocated); under the profiler "
+                   f"{prof['wall_ms']:.2f} ms a step, SLIC's range "
+                   f"{prof['slic_host_ms']:.2f} ms of it ({share:.1%}; "
+                   f"{prof['slic_device_ms']:.2f} ms of kernels in it), "
+                   f"kernels {prof['kernel_ms']:.2f} ms")
+        tile_counts = launches["mhla_kernel_v4"]
+        grads = DEPTH * (passes["train"] + passes["probe"])
+        expect = ({"fwd": grads + DEPTH * passes["eval"], "bwd": grads,
+                   "fwd_b": 0} if env else dict.fromkeys(tile.LAUNCH_KINDS, 0))
+        others = [c for op, k in launches.items() if op != "mhla_kernel_v4"
+                  for c in k.values()]
+        if (tile_counts != expect or any(others) or passes["probe"] != 1
+                or passes["train"] != len(e.data["train_images"]) // E1_BATCH
+                or passes["eval"] == 0):
+            raise AssertionError(f"{phase} {label}: launches {launches}, "
+                                 f"expected tile band {expect} and nothing "
+                                 f"else; passes {passes}")
+        if env:
+            out = tile_counts
+        del e, loaded
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pretrained_sppp_mhla() -> int:
+    """``PretrainedSPPPViTWithMHLA`` at its defaults (patch 4, W = 4, R + 1
+    = 17 tokens): K1 against its plain version at the S-minor shape of a
+    batch of 32, then the bf16 forward at batch 32 by default (the dense
+    band, no kernel) and under ``FAVIT_MHLA_IMPL=roll`` (K1 once a block),
+    each against the f32 CPU model; returns the roll forward's K1
+    launches."""
+    phase = "pretrained-sppp-mhla"
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(PSPPP_BAND_SHAPE, device="cuda",
+                               generator=gen).to(dtype) for _ in range(3))
+        got = band.roll_banded_attention(q, k, v, PMHLA_W)
+        err, ok, text = _worst(got, band.plain_banded_attention(
+            q, k, v, PMHLA_W), dtype, F32_TOL)
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        log(phase, f"K1 at B,h,d,S={PSPPP_BAND_SHAPE} W={PMHLA_W} {dt}: max "
+                   f"abs err {text}")
+        if not ok:
+            raise AssertionError(f"K1 disagrees with its plain version at "
+                                 f"{PSPPP_BAND_SHAPE} {dt}: {text}")
+    cpu_model = PretrainedSPPPViTWithMHLA(
+        num_classes=10, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(_sppp_images(32))  # f32: SLIC reads f32
+    with torch.inference_mode():
+        ref = torch.softmax(cpu_model(x[:1]), -1).numpy()
+    model = copy.deepcopy(cpu_model).to("cuda", torch.bfloat16).eval()
+    del cpu_model
+    x = x.cuda()
+    forwards = [0]
+    hook = model.register_forward_pre_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    launches = 0
+    for label, env in (("dense band", {}), ("roll", {"FAVIT_MHLA_IMPL":
+                                                     "roll"})):
+        _reset_ops()
+        forwards[0] = 0
+        with _environ(env), torch.inference_mode():
+            probs = torch.softmax(model(x).float(), -1).cpu().numpy()
+            ms = cuda_median_ms(lambda: model(x), repeats=10, warmup=2)
+        torch.cuda.synchronize()
+        counts = _op_counts()
+        _check_probs(probs, 32)
+        dp = float(np.abs(probs[0] - ref[0]).max())
+        k1 = band.launch_count("fwd")
+        log(phase, f"{label}: bf16 forward, batch 32: {ms:.2f} ms (median of "
+                   f"10, CUDA events, SLIC included), {32 / ms * 1e3:.1f} "
+                   f"images/s; bf16 against the f32 CPU model {dp:.3g} (tol "
+                   f"1e-2); forward passes {forwards[0]}, launches {counts}")
+        others = [c for op, kinds in counts.items() for kk, c in kinds.items()
+                  if env == {} or (op, kk) != ("mhla_band_roll", "fwd")]
+        if dp > 1e-2 or any(others):
+            raise AssertionError(f"PretrainedSPPPViTWithMHLA {label}: probs "
+                                 f"{dp}, unexpected launches {counts}")
+        if env and k1 != DEPTH * forwards[0]:
+            raise AssertionError(f"K1 launches {k1} != {DEPTH} x "
+                                 f"{forwards[0]} forward passes")
+        if env:
+            launches = k1
+    hook.remove()
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2408,8 +2792,12 @@ def main() -> None:
         fixture = phase_pretrained_fixture(tmp)
         e3_launches = phase_e3(tmp, fixture)
         e5_launches = phase_e5(tmp, fixture)
+        pmhla_launches = phase_pretrained_mhla(image)
+        phase_slic()
+        phase_sppp_model()
+        e6_launches = phase_sppp_experiments(tmp, fixture)
         del fixture
-    pmhla_launches = phase_pretrained_mhla(image)
+    psppp_launches = phase_pretrained_sppp_mhla()
 
     tile_timing = phase_kernel_tileband()
     with _environ(TILE.env):
@@ -2430,8 +2818,10 @@ def main() -> None:
     tpu_fused = "focused_attention_vit_tpu/ops/mha_kernel.py"
     tpu_tile = "focused_attention_vit_tpu/ops/mhla_kernel_v4.py"
     kernels = [
+        # K1 also serves PretrainedViTWithMHLA (S = 3137) and, under
+        # FAVIT_MHLA_IMPL=roll, PretrainedSPPPViTWithMHLA (S = 17), at W = 4.
         ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158",
-         launches[MHLA] + pmhla_launches, timing["bf16"]),
+         launches[MHLA] + pmhla_launches + psppp_launches, timing["bf16"]),
         ("mhla_band_fwd_train", band.KERNEL_SOURCE, f"{tpu}:158",
          train_launches[MHLA]["fwd_train"], train_timing["bf16"]["fwd_train"]),
         ("mhla_band_bwd", band.BWD_KERNEL_SOURCE, f"{tpu}:199",
@@ -2453,15 +2843,15 @@ def main() -> None:
         ("fused_mha_bwd", fused.BWD_KERNEL_SOURCE, f"{tpu_fused}:83",
          e1_launches["bwd"] + e3_launches["bwd"],
          fused_timing["bf16"]["bwd"]),
-        # K6 runs in serving (MHLA-B/4 and B/16), in training and in E5
-        # under the opt-in; K8 has no caller on a model path, so its
+        # K6 runs in serving (MHLA-B/4 and B/16), in training and in E5 and
+        # E6 under the opt-in; K8 has no caller on a model path, so its
         # launches are kernel-tileband's.
         ("mhla_tile_band_fwd", tile.KERNEL_SOURCE, f"{tpu_tile}:66",
-         launches[TILE] + train_launches[TILE]["fwd"] + e5_launches["fwd"],
-         tile_timing["fwd"]),
+         launches[TILE] + train_launches[TILE]["fwd"] + e5_launches["fwd"]
+         + e6_launches["fwd"], tile_timing["fwd"]),
         ("mhla_tile_band_bwd", tile.BWD_KERNEL_SOURCE, f"{tpu_tile}:104",
-         train_launches[TILE]["bwd"] + e5_launches["bwd"],
-         tile_timing["bwd"]),
+         train_launches[TILE]["bwd"] + e5_launches["bwd"]
+         + e6_launches["bwd"], tile_timing["bwd"]),
         ("mhla_tile_band_fwd_tiles", tile.KERNEL_SOURCE, f"{tpu_tile}:383",
          tile_timing["fwd_b_launches"], tile_timing["fwd_b"]),
     ]

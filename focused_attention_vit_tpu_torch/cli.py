@@ -3,16 +3,17 @@ flag-compatible with the JAX package's:
 
     python -m focused_attention_vit_tpu_torch.cli --experiment traditional ...
 
-The port runs E1 ``traditional``, E3 ``traditional_pretrained`` and E5
-``mhla_pretrained`` on one CUDA device (``--device cpu`` for the CPU). E3
-and E5 load ``./pretrained_weights/<variant>_weights.pth`` (python -m
+The port runs E1 ``traditional``, E2 ``sppp``, E3
+``traditional_pretrained``, E4 ``sppp_pretrained``, E5 ``mhla_pretrained``
+and E6 ``sppp_mhla_pretrained`` on one CUDA device (``--device cpu`` for the
+CPU). E3-E6 load ``./pretrained_weights/<variant>_weights.pth`` (python -m
 focused_attention_vit_tpu_torch.data.pretrained writes the seeded stand-in
 there). Every other flag of the JAX surface is parsed; those the port does
 not act on yet raise an error that names the flag, before anything runs.
 None is silently ignored. Set ``FAVIT_FUSED_MHA=1`` to take the fused
 short-sequence attention kernels (``ops/mha_kernel.py``), and
-``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1`` to take E5's MHLA
-through the tile band (``ops/mhla_kernel_v4.py``).
+``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1`` to take E5's and
+E6's MHLA through the tile band (``ops/mhla_kernel_v4.py``).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def parse_args(argv=None):
     parser.add_argument("--attn_dropout", type=float, default=0.0)
     parser.add_argument("--embed_dropout", type=float, default=0.0)
 
-    # SPPP settings (experiments not ported yet)
+    # SPPP settings
     parser.add_argument("--num_superpixels", type=int, default=16)
     parser.add_argument("--compactness", type=float, default=0.1)
     parser.add_argument("--pooling_type", type=str, default="mean",
@@ -208,6 +209,16 @@ def _pretrained_kwargs(args):
     )
 
 
+def _sppp_kwargs(args):
+    return dict(
+        num_superpixels=args.num_superpixels,
+        compactness=args.compactness,
+        pooling_type=args.pooling_type,
+        slic_connectivity=args.slic_connectivity,
+        slic_iters=args.slic_iters,
+    )
+
+
 def _backend(device) -> str:
     """What the ``Backend:`` log line names: the CUDA device, or the CPU
     when the caller asked for it. Without CUDA and without ``--device
@@ -256,13 +267,24 @@ def main(argv=None):
     name = args.experiment
     if name == "traditional":
         instance = exp.TraditionalViTExperiment(**_common_kwargs(args))
+    elif name == "sppp":
+        instance = exp.SPPPExperiment(**_common_kwargs(args),
+                                      **_sppp_kwargs(args))
     elif name == "traditional_pretrained":
         instance = exp.PretrainedTraditionalViTExperiment(
             **_common_kwargs(args), **_pretrained_kwargs(args))
-    else:  # mhla_pretrained
+    elif name == "sppp_pretrained":
+        instance = exp.PretrainedSPPPExperiment(
+            **_common_kwargs(args), **_pretrained_kwargs(args),
+            **_sppp_kwargs(args))
+    elif name == "mhla_pretrained":
         instance = exp.PretrainedMHLAViTExperiment(
             **_common_kwargs(args), **_pretrained_kwargs(args),
             window_size=args.window_size)
+    else:  # sppp_mhla_pretrained
+        instance = exp.PretrainedSPPPMHLAExperiment(
+            **_common_kwargs(args), **_pretrained_kwargs(args),
+            **_sppp_kwargs(args), window_size=args.window_size)
     instance.run()
     return instance
 

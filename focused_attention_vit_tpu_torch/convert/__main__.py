@@ -8,13 +8,14 @@ to a state dict of the port's models::
         --format reference --to mhla
 
 The output is an f32 state dict of :class:`~..models.VisionTransformer`
-(``--to vit``) or of :class:`~..models.VisionTransformerMHLA` with
-``use_mhla=True`` (``--to mhla``, identity ``latent_proj``), written with
-``torch.save``: ``serve --weights OUT.pt --model vit|vit_mhla`` reads it.
-The JAX CLI writes a Flax msgpack instead. ``--format reference`` reads the
-reference repo's ``VisionTransformer`` state dict, whose keys are already
-the port's. ``--to sppp`` and ``--to cross`` raise ``NotPortedError``: those
-model families are not ported yet.
+(``--to vit``), of :class:`~..models.VisionTransformerMHLA` with
+``use_mhla=True`` (``--to mhla``, identity ``latent_proj``) or of
+:class:`~..models.SPPPViT` (``--to sppp``, no ``pos_embed``), written with
+``torch.save``: ``serve --weights OUT.pt --model vit|vit_mhla`` reads the
+first two. The JAX CLI writes a Flax msgpack instead. ``--format
+reference`` reads the reference repo's ``VisionTransformer`` state dict,
+whose keys are already the port's. ``--to cross`` raises
+``NotPortedError``: the cross-attention models are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ def main(argv=None) -> int:
     p.add_argument("--to", choices=["vit", "mhla", "sppp", "cross"],
                    default="vit",
                    help="apply the variant surgery after conversion "
-                        "(identity latent_proj for mhla; sppp and cross are "
-                        "not ported yet)")
+                        "(identity latent_proj for mhla, no pos_embed for "
+                        "sppp; cross is not ported yet)")
     p.add_argument("--depth", type=int, default=12)
     p.add_argument("--num_heads", type=int, default=12)
     p.add_argument("--embed_dim", type=int, default=768,
@@ -56,11 +57,10 @@ def main(argv=None) -> int:
     p.add_argument("--drop_pos_embed", action="store_true",
                    help="drop the learned pos_embed (--to mhla only)")
     args = p.parse_args(argv)
-    if args.to in ("sppp", "cross"):
+    if args.to == "cross":
         raise NotPortedError(
-            f"--to {args.to!r} is not ported yet: the port has no "
-            f"{'SPPP' if args.to == 'sppp' else 'cross-attention'} models "
-            f"(see ROADMAP.md)")
+            "--to 'cross' is not ported yet: the port has no "
+            "cross-attention models (see ROADMAP.md)")
 
     sd = torch.load(args.input, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd and not any(
@@ -80,6 +80,8 @@ def main(argv=None) -> int:
         state = C.vit_state_to_mhla(
             state, args.depth, args.embed_dim // args.num_heads,
             keep_pos_embed=not args.drop_pos_embed)
+    elif args.to == "sppp":
+        state = C.vit_state_to_sppp(state)
 
     torch.save(state, args.output)
     n = sum(t.numel() for t in state.values())

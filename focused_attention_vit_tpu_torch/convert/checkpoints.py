@@ -11,7 +11,9 @@ Each map takes a torch state dict and gives the port's keys:
 * :func:`vit_state_to_mhla`: the E5 surgery, a ViT state dict to
   :class:`~..models.VisionTransformerMHLA`'s (``use_mhla=True``) keys, with
   an identity ``latent_proj`` in every block so that the MHLA model starts
-  as a windowed copy of the pretrained attention.
+  as a windowed copy of the pretrained attention;
+* :func:`vit_state_to_sppp`: the E4 surgery (and E6's first step), a ViT
+  state dict without its learned ``pos_embed``, for the SPPP models.
 
 Every tensor comes out f32 (fp16 and f64 are upcast, as JAX's ``_np``
 does). The conv patch projection ``[D, C, p, p]`` becomes the Linear
@@ -155,3 +157,11 @@ def vit_state_to_mhla(state: Mapping, depth: int, head_dim: int,
         out[f"blocks.{i}.attn.latent_proj.weight"] = torch.eye(head_dim)
         out[f"blocks.{i}.attn.latent_proj.bias"] = torch.zeros(head_dim)
     return out
+
+
+def vit_state_to_sppp(state: Mapping) -> State:
+    """ViT state dict -> SPPP state dict: everything but the learned
+    ``pos_embed``, which the SPPP models replace by the centroid encoding
+    (JAX's ``vit_params_to_sppp``; reference experiments/sppp_pretrained.py:
+    177-232)."""
+    return {k: v for k, v in state.items() if k != "pos_embed"}

@@ -4,7 +4,11 @@
 ``reference_vit_mhla_to_flax`` (:class:`~..models.VisionTransformerMHLA`,
 MHLA or dense blocks) and ``reference_mhla_vit_to_flax``
 (:class:`~..models.PretrainedViTWithMHLA`, whose MLP is ``mlp.0`` and
-``mlp.3``).
+``mlp.3``). The same three maps take the SPPP models' params, which have
+no ``pos_embed``: :class:`~..models.SPPPViT`'s (the dense ViT's blocks),
+:class:`~..models.SPPPViTMHLA`'s (the MHLA ViT's switchable blocks) and
+:class:`~..models.PretrainedSPPPViTWithMHLA`'s (``PretrainedViTWithMHLA``'s
+blocks).
 
 Flax kernels are ``[in, out]`` and torch Linear weights ``[out, in]``; the
 head-shaped attention kernels flatten back into the reference's fused
@@ -87,7 +91,8 @@ def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool,
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "patch_embed.projection.1", params["patch_embed"]["projection"])
     sd["cls_token"] = _t(params["cls_token"])
-    sd["pos_embed"] = _t(params["pos_embed"])
+    if "pos_embed" in params:  # the SPPP models have none
+        sd["pos_embed"] = _t(params["pos_embed"])
     for i in range(depth):
         blk = params[f"blocks_{i}"]
         pre = f"blocks.{i}"
@@ -119,8 +124,9 @@ def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool,
 
 
 def flax_vit_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``VisionTransformer`` params (loop form) -> f32 state dict of
-    :class:`~..models.VisionTransformer`."""
+    """Flax ``VisionTransformer`` (or ``SPPPViT``) params (loop form) -> f32
+    state dict of :class:`~..models.VisionTransformer` (or
+    :class:`~..models.SPPPViT`)."""
     for k, blk in params.items():
         if k.startswith("blocks_") and "latent_proj" in blk["attn"]:
             raise ValueError(
@@ -131,16 +137,18 @@ def flax_vit_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
 
 
 def flax_vit_mhla_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``VisionTransformerMHLA`` params (loop form), ``use_mhla`` True
-    or False -> f32 state dict of :class:`~..models.VisionTransformerMHLA`
-    built with the same ``use_mhla``."""
+    """Flax ``VisionTransformerMHLA`` (or ``SPPPViTMHLA``) params (loop
+    form), ``use_mhla`` True or False -> f32 state dict of
+    :class:`~..models.VisionTransformerMHLA` (or
+    :class:`~..models.SPPPViTMHLA`) built with the same ``use_mhla``."""
     return _blocks_to_state_dict(params, in_proj_names=True)
 
 
 def flax_pretrained_mhla_to_state_dict(params: Mapping[str, Any]
                                        ) -> Dict[str, torch.Tensor]:
-    """Flax ``PretrainedViTWithMHLA`` params -> f32 state dict of
-    :class:`~..models.PretrainedViTWithMHLA`: the reverse of
+    """Flax ``PretrainedViTWithMHLA`` (or ``PretrainedSPPPViTWithMHLA``)
+    params -> f32 state dict of :class:`~..models.PretrainedViTWithMHLA`
+    (or :class:`~..models.PretrainedSPPPViTWithMHLA`): the reverse of
     ``reference_mhla_vit_to_flax``, the MLP under the reference MHLA
     block's ``mlp.0``/``mlp.3``."""
     return _blocks_to_state_dict(params, in_proj_names=False,
@@ -162,12 +170,32 @@ def npz_to_state_dict(path, in_proj_names: bool | None = None
     return _blocks_to_state_dict(unflatten_params(flat), in_proj_names)
 
 
+def flax_to_state_dict_for(model: torch.nn.Module,
+                           params: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The map that ``model``'s class takes: JAX params of the model of
+    the same name -> an f32 state dict for ``model``."""
+    from focused_attention_vit_tpu_torch import models
+
+    maps = {
+        models.VisionTransformer: flax_vit_to_state_dict,
+        models.SPPPViT: flax_vit_to_state_dict,
+        models.VisionTransformerMHLA: flax_vit_mhla_to_state_dict,
+        models.SPPPViTMHLA: flax_vit_mhla_to_state_dict,
+        models.PretrainedViTWithMHLA: flax_pretrained_mhla_to_state_dict,
+        models.PretrainedSPPPViTWithMHLA: flax_pretrained_mhla_to_state_dict,
+    }
+    return maps[type(model)](params)
+
+
 def load_flax_params_into_experiment(experiment, params: Mapping[str, Any]
                                      ) -> None:
-    """Load a JAX E1 param tree (nested numpy arrays, loop form) into the
-    model of a port experiment after its ``setup()``, in place and on the
+    """Load a JAX experiment's param tree (nested numpy arrays, loop form:
+    E1, E2, E4, E6 and the others the port runs) into the model of the port
+    experiment of the same name after its ``setup()``, in place and on the
     model's device, so that both sides evaluate the same weights."""
     model = experiment.model
     device = next(model.parameters()).device
-    state = {k: v.to(device) for k, v in flax_vit_to_state_dict(params).items()}
+    state = {k: v.to(device)
+             for k, v in flax_to_state_dict_for(model, params).items()}
     model.load_state_dict(state, strict=True)

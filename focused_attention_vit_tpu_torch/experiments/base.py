@@ -11,8 +11,9 @@ setup -> train -> evaluate -> save_results -> run and shares:
   with the standard ``csv`` module.
 
 The port runs the experiments named in ``PORTED_EXPERIMENTS``: E1
-``traditional``, and the pretrained fine-tunes E3 ``traditional_pretrained``
-and E5 ``mhla_pretrained``, which load their weights in the
+``traditional``, E2 ``sppp``, and the pretrained fine-tunes E3
+``traditional_pretrained``, E4 ``sppp_pretrained``, E5 ``mhla_pretrained``
+and E6 ``sppp_mhla_pretrained``, which load their weights in the
 :meth:`ExperimentBase.build_params` hook. The experiment runs on the card:
 ``device=None`` means CUDA, and ``setup`` raises without it;
 ``device="cpu"`` asks for the CPU. The options of the JAX package that the
@@ -67,8 +68,9 @@ NOT_PORTED_DEFAULTS = {
 }
 
 
-PORTED_EXPERIMENTS = ("traditional", "traditional_pretrained",
-                      "mhla_pretrained")
+PORTED_EXPERIMENTS = ("traditional", "traditional_pretrained", "sppp",
+                      "sppp_pretrained", "mhla_pretrained",
+                      "sppp_mhla_pretrained")
 
 
 def not_ported(flag: str, value) -> NotPortedError:
@@ -154,6 +156,22 @@ class ExperimentBase:
         """The model, on ``self.torch_device``, its weights drawn from a
         generator seeded with ``self.seed``."""
         raise NotImplementedError
+
+    def _slic_connectivity(self):
+        """The ``--slic_connectivity`` string as
+        :func:`~..ops.slic.slic_segment`'s ``enforce_connectivity``."""
+        v = getattr(self, "slic_connectivity", "auto")
+        if isinstance(v, str):
+            v = v.lower()
+            if v in ("auto", "host"):
+                return v
+            if v in ("on", "true", "1"):
+                return True
+            if v in ("off", "false", "0"):
+                return False
+            raise ValueError(
+                f"slic_connectivity must be auto/on/off/host, got {v!r}")
+        return bool(v)
 
     def build_params(self, model: torch.nn.Module) -> None:
         """Called between :meth:`build_model` and the train state; may load

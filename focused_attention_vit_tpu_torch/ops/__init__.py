@@ -1,2 +1,9 @@
-"""Ops of the port: patch extraction, the MHLA window formulations and the
-band op with its CUDA kernel."""
+"""Ops of the port: patch extraction (``patch_embed``), the MHLA window
+formulations (``window``) and the band ops with their CUDA kernels
+(``mhla_band_roll``, ``mhla_kernel_v4``), the attention ops (``attention``,
+``flash_attention``, ``mha_kernel``, ``philox``), and the SPPP ops: SLIC
+(``slic``, with its host connectivity pass ``native_connectivity``),
+segment pooling (``segment_pool``) and the encodings (``posenc``).
+
+Unlike the JAX package, this package re-exports no function: the function
+``segment_pool`` would shadow its module of the same name."""

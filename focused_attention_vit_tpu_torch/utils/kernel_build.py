@@ -10,6 +10,11 @@ header builds anew, an unchanged one loads the library built before.
 
 There is no fallback: without ``nvcc``, or when it fails, the build raises
 :class:`KernelCompileError`.
+
+:func:`build_native` does the same for the repository's host C++ sources
+(``native/<name>.cpp``, plain C interface): ``g++ -O3 -shared -fPIC`` into
+``build/native/<name>-<hash>/``, raising :class:`NativeBuildError` without
+``g++`` or when it fails. The ``.so`` files beside the sources are not read.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
+NATIVE_DIR = PACKAGE_DIR.parent / "native"
+NATIVE_BUILD_ROOT = PACKAGE_DIR.parent / "build" / "native"
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,6 +46,10 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 class KernelCompileError(RuntimeError):
     """nvcc is missing or failed to build a kernel source."""
+
+
+class NativeBuildError(RuntimeError):
+    """g++ is missing or failed to build a host C++ source."""
 
 
 def find_nvcc() -> str:
@@ -108,4 +120,50 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
+        return lib
+
+
+def native_library_path(name: str) -> Path:
+    """Where ``native/<name>.cpp`` builds to, keyed by source and flags."""
+    h = hashlib.sha256((NATIVE_DIR / f"{name}.cpp").read_bytes())
+    h.update("\0".join(GXX_FLAGS).encode())
+    return (NATIVE_BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
+            / f"lib{name}.so")
+
+
+def build_native(name: str) -> Path:
+    """Compile ``native/<name>.cpp`` with g++ unless its library is already
+    built; raises :class:`NativeBuildError` naming the cause."""
+    lib = native_library_path(name)
+    if lib.is_file():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise NativeBuildError(
+            f"g++ not found on PATH: native/{name}.cpp cannot be built")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(NATIVE_DIR / f"{name}.cpp")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (lib.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise NativeBuildError(
+            f"g++ exited {proc.returncode} building native/{name}.cpp:\n"
+            f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load_native(name: str, configure) -> ctypes.CDLL:
+    """Build (if needed) and load ``native/<name>.cpp``, then
+    ``configure(lib)`` (which declares the argument and result types); once
+    per process, thread-safe."""
+    key = f"native/{name}"
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_native(name)))
+            configure(lib)
+            _loaded[key] = lib
         return lib

@@ -41,6 +41,7 @@ import torch
 
 DROPOUT = 0.1  # the train mode's MLP dropout, as chip_smoke.py's
 TOP = 25       # kernels listed by name
+SLIC_RANGE = "slic"  # ops/slic.py's profiler range
 
 # First match wins; names are those of PyTorch's, cuBLAS's and this
 # package's kernels as the profiler reports them.
@@ -78,6 +79,12 @@ def _build(args, device):
         kw.update(dropout=DROPOUT, attn_dropout=args.attn_dropout)
     if args.model == "vit":
         return models.VisionTransformer(**kw)
+    if args.model == "sppp":
+        return models.SPPPViT(**kw)
+    if args.model == "sppp_mhla":
+        return models.SPPPViTMHLA(use_mhla=True, **kw)
+    if args.model == "pretrained_sppp_mhla":
+        return models.PretrainedSPPPViTWithMHLA(**kw)
     return models.VisionTransformerMHLA(**kw)
 
 
@@ -105,9 +112,46 @@ def _step_fn(args, model):
     return run
 
 
+def profile(run, steps: int) -> dict:
+    """``run(i)`` for ``steps`` steps under ``torch.profiler``, each ending
+    in a device sync: the wall ms a step, the kernels' ms a step (in all,
+    by kind, and as ``(name, ms, launches)``), and the ``slic`` range's host
+    and device ms a step (0 where no SLIC ran)."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            run(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    averages = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
+                e.count / steps)
+               for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != SLIC_RANGE]  # the range's own device span
+    total = sum(ms for _, ms, _ in kernels)
+    if total <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    by_kind: dict = {}
+    for name, ms, _ in kernels:
+        kind = categorize(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    slic = [e for e in averages if e.key == SLIC_RANGE
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    return {"wall_ms": wall_ms, "kernel_ms": total, "by_kind_ms": by_kind,
+            "kernels": kernels,
+            "slic_host_ms": sum(e.cpu_time_total for e in slic) / 1e3 / steps,
+            "slic_device_ms": sum(e.device_time_total for e in slic) / 1e3
+            / steps}
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--model", choices=["vit", "vit_mhla"], default="vit")
+    p.add_argument("--model", choices=["vit", "vit_mhla", "sppp", "sppp_mhla",
+                                       "pretrained_sppp_mhla"],
+                   default="vit")
     p.add_argument("--mode", choices=["serve", "train"], default="train")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--microbatch", type=int, default=None)
@@ -124,26 +168,9 @@ def main(argv=None) -> dict:
         run(i)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for i in range(args.steps):
-            run(2 + i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
-
-    kernels = [(e.key, e.self_device_time_total / 1e3 / args.steps,
-                e.count / args.steps)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(ms for _, ms, _ in kernels)
-    if total <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    by_kind: dict = {}
-    for name, ms, _ in kernels:
-        kind = categorize(name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    prof = profile(lambda i: run(2 + i), args.steps)
+    wall_ms, total = prof["wall_ms"], prof["kernel_ms"]
+    kernels, by_kind = prof["kernels"], prof["by_kind_ms"]
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -159,6 +186,11 @@ def main(argv=None) -> dict:
           f"{total:.2f} ms of kernels, device idle share "
           f"{max(0.0, 1 - total / wall_ms):.3f}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if prof["slic_host_ms"]:
+        print(f"SLIC (the {SLIC_RANGE!r} range): {prof['slic_host_ms']:.2f} "
+              f"ms of host time a step, {prof['slic_host_ms'] / wall_ms:.1%} "
+              f"of the wall; {prof['slic_device_ms']:.2f} ms of kernels "
+              f"launched in it")
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.3f} ms  {ms / total:6.1%}  {kind}")
     print(f"busiest {TOP} kernels (ms per step, launches per step):")
@@ -166,7 +198,9 @@ def main(argv=None) -> dict:
         print(f"  {ms:9.3f}  {count:7.1f}  [{categorize(name)}] {name[:110]}")
     summary = {"card": smi, "model": args.model, "mode": args.mode,
                "batch_size": args.batch_size, "wall_ms": wall_ms,
-               "kernel_ms": total, "by_kind_ms": by_kind}
+               "kernel_ms": total, "by_kind_ms": by_kind,
+               "slic_host_ms": prof["slic_host_ms"],
+               "slic_device_ms": prof["slic_device_ms"]}
     print(json.dumps(summary))
     return summary
 

@@ -219,8 +219,12 @@ def test_experiment_fields_match_jax():
     for method in ("setup", "train", "evaluate", "save_results", "run"):
         assert callable(getattr(exp.ExperimentBase, method))
     assert exp.__all__ == ["ExperimentBase", "TraditionalViTExperiment",
+                           "SPPPExperiment",
                            "PretrainedTraditionalViTExperiment",
-                           "PretrainedMHLAViTExperiment"]
+                           "PretrainedSPPPExperiment",
+                           "SPPPPretrainedViTExperiment",
+                           "PretrainedMHLAViTExperiment",
+                           "PretrainedSPPPMHLAExperiment"]
 
 
 def test_e1_csv_has_the_reference_schema(port_e1):

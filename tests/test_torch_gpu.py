@@ -771,3 +771,119 @@ def test_pretrained_experiments_launch_their_kernels(cuda, monkeypatch,
     assert {k: op.launch_count(k) for k in op.LAUNCH_KINDS} == want
     assert band.launch_count() == 0
     assert np.isfinite(float(metrics["loss_sum"]))
+
+
+# --- the SPPP slice: SLIC, pooling, the kernels at S = 17, the models -----------
+
+
+def _slic_golden():
+    import numpy as np
+    from pathlib import Path
+
+    fix = np.load(Path(__file__).resolve().parent / "fixtures"
+                  / "slic_golden.npz")
+    return torch.from_numpy(fix["images"]), int(fix["n_segments"])
+
+
+@pytest.mark.parametrize("mode", [False, True, "host"])
+def test_slic_on_the_card_equals_the_cpu(cuda, mode):
+    """SLIC on the card gives the CPU port's labels on the committed 32^2
+    golden images (connectivity off, the device pass, the host pass), also
+    under bf16 autocast."""
+    from focused_attention_vit_tpu_torch.ops.slic import slic_segment
+
+    images, r = _slic_golden()
+    want = slic_segment(images, r, enforce_connectivity=mode)
+    got = slic_segment(images.to(cuda), r, enforce_connectivity=mode)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        auto = slic_segment(images.to(cuda), r, enforce_connectivity=mode)
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want) and torch.equal(auto.cpu(), want)
+
+
+@pytest.mark.parametrize("pooling", ["mean", "max", "attention"])
+def test_segment_pool_in_bf16_on_the_card(cuda, pooling):
+    from focused_attention_vit_tpu_torch.ops import segment_pool as sp
+
+    gen = torch.Generator().manual_seed(1)
+    emb = torch.randn(8, 196, 768, generator=gen).bfloat16()
+    ids = torch.randint(0, 16, (8, 196), generator=gen)
+    want = sp.segment_pool(emb, ids, 16, pooling)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        got = sp.segment_pool(emb.to(cuda), ids.to(cuda), 16, pooling)
+    assert got.dtype == torch.bfloat16
+    # f32 sums in another order, each rounded once to bf16.
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               atol=2.0 ** -16, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", tile.HEAD_DIMS)
+@pytest.mark.parametrize("w", [4, 7])
+def test_tile_band_kernels_at_17_tokens(cuda, dtype, d, w):
+    """K6 and K7 at the SPPP models' S = 17 (a 16-query step and a 1-query
+    step a row) over E6's B*h = 1536 rows."""
+    q, k, v, g = _inputs(cuda, (1536, 17, d), dtype, n=4, seed=17 + d + w)
+    out = tile.tile_band_forward(q, k, v, w)
+    grads = tile.tile_band_backward(q, k, v, g, w)
+    torch.cuda.synchronize()
+    _tile_close(out, tile.plain_tile_band_forward(q, k, v, w), dtype, 1e-5)
+    for got, want in zip(grads, tile.plain_bwd_rule(q, k, v, g, w)):
+        _tile_close(got, want, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_band_kernels_at_17_tokens(cuda, dtype, d):
+    """K1 (eval and training) and K2 at S = 17, W = 4 over B*h = 384: an
+    S-minor channel row of 34 bf16 bytes, not 16-byte aligned."""
+    q, k, v, g = _inputs(cuda, (32, 12, d, 17), dtype, n=4, seed=d)
+    _close(band.roll_banded_attention(q, k, v, 4),
+           band.plain_banded_attention(q, k, v, 4), dtype, 1e-5)
+    out, wts = band.band_forward_train(q, k, v, 4, 0.0, None)
+    ref_out, ref_wts = band.plain_band_forward_train(q, k, v, 4, 0.0, None)
+    grads = band.band_backward(q, k, v, g, wts, 4, 0.0, None)
+    ref_grads = band.plain_band_backward(q, k, v, g, wts, 4, 0.0, None)
+    torch.cuda.synchronize()
+    _close(out, ref_out, dtype, 1e-5)
+    torch.testing.assert_close(wts, ref_wts, atol=1e-5, rtol=0)
+    for got, want in zip(grads, ref_grads):
+        _close(got, want, dtype, 1e-4, bf16_atol=1e-4)
+
+
+@pytest.mark.parametrize("name,env,op,kind", [
+    ("SPPPViT", {}, None, None),
+    ("SPPPViTMHLA", {"FAVIT_MHLA_IMPL": "shiftband",
+                     "FAVIT_USE_PALLAS_MHLA": "1"}, tile, "fwd"),
+    ("PretrainedSPPPViTWithMHLA", {"FAVIT_MHLA_IMPL": "roll"}, band, "fwd"),
+])
+def test_sppp_models_on_the_card_equal_the_cpu(cuda, monkeypatch, name, env,
+                                               op, kind):
+    """The three SPPP models (32^2, patch 4, D=64, 2 blocks) in f32 on the
+    card against the same weights on the CPU, TF32 off; under their
+    kernel's variables each block launches it once a forward."""
+    import numpy as np
+
+    from focused_attention_vit_tpu_torch import models
+
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    kw = dict(use_mhla=True) if name == "SPPPViTMHLA" else {}
+    cpu = getattr(models, name)(img_size=32, patch_size=4, num_classes=10,
+                                embed_dim=64, depth=2, num_heads=4,
+                                **kw).eval()
+    card = getattr(models, name)(img_size=32, patch_size=4, num_classes=10,
+                                 embed_dim=64, depth=2, num_heads=4,
+                                 device=cuda, **kw).eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 32, 32, 3)).astype(np.float32))
+    if op is not None:
+        op.reset_launch_count()
+    with torch.inference_mode():
+        want = cpu(x)
+        got = card(x.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    if op is not None:
+        assert op.launch_count(kind) == 2

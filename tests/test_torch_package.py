@@ -28,12 +28,18 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.experiments.base",
     "focused_attention_vit_tpu_torch.experiments.mhla_pretrained",
     "focused_attention_vit_tpu_torch.experiments.pretrained_common",
+    "focused_attention_vit_tpu_torch.experiments.sppp",
+    "focused_attention_vit_tpu_torch.experiments.sppp_mhla_pretrained",
+    "focused_attention_vit_tpu_torch.experiments.sppp_pretrained",
     "focused_attention_vit_tpu_torch.experiments.traditional",
     "focused_attention_vit_tpu_torch.experiments.traditional_pretrained",
     "focused_attention_vit_tpu_torch.infer",
     "focused_attention_vit_tpu_torch.models",
     "focused_attention_vit_tpu_torch.models.layers",
     "focused_attention_vit_tpu_torch.models.mhla_models",
+    "focused_attention_vit_tpu_torch.models.sppp",
+    "focused_attention_vit_tpu_torch.models.sppp_common",
+    "focused_attention_vit_tpu_torch.models.sppp_mhla",
     "focused_attention_vit_tpu_torch.models.vit",
     "focused_attention_vit_tpu_torch.models.vit_mhla",
     "focused_attention_vit_tpu_torch.ops.attention",
@@ -41,8 +47,12 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.ops.mha_kernel",
     "focused_attention_vit_tpu_torch.ops.mhla_band_roll",
     "focused_attention_vit_tpu_torch.ops.mhla_kernel_v4",
+    "focused_attention_vit_tpu_torch.ops.native_connectivity",
     "focused_attention_vit_tpu_torch.ops.philox",
     "focused_attention_vit_tpu_torch.ops.patch_embed",
+    "focused_attention_vit_tpu_torch.ops.posenc",
+    "focused_attention_vit_tpu_torch.ops.segment_pool",
+    "focused_attention_vit_tpu_torch.ops.slic",
     "focused_attention_vit_tpu_torch.ops.window",
     "focused_attention_vit_tpu_torch.serve",
     "focused_attention_vit_tpu_torch.train",

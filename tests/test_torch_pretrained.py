@@ -634,9 +634,14 @@ def test_convert_cli(cache, tmp_path, capsys):
     assert "blocks.1.norm1.weight" not in one
     assert torch.equal(one["blocks.0.attn.latent_proj.weight"], torch.eye(16))
     assert "format=torchvision" in capsys.readouterr().out
-    for to in ("sppp", "cross"):
-        with pytest.raises(NotPortedError, match=f"--to '{to}'"):
-            convert_main([src, str(tmp_path / "x.pt"), "--to", to])
+    # --to sppp converts since the SPPP family was ported
+    # (tests/test_torch_sppp.py); --to cross is still refused.
+    assert convert_main([src, str(tmp_path / "sppp.pt"), "--to", "sppp",
+                         "--depth", "2"]) == 0
+    assert "pos_embed" not in torch.load(tmp_path / "sppp.pt",
+                                         weights_only=True)
+    with pytest.raises(NotPortedError, match="--to 'cross'"):
+        convert_main([src, str(tmp_path / "x.pt"), "--to", "cross"])
 
 
 # --- PretrainedViTWithMHLA -------------------------------------------------------
