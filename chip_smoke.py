@@ -12,7 +12,10 @@ pretrained fine-tunes E3 ``traditional_pretrained`` and E5
 ``PretrainedViTWithMHLA`` (W=4, S=3137), then the SPPP family (SLIC,
 ``SPPPViT``, E2 ``sppp``, E4 ``sppp_pretrained``, E6
 ``sppp_mhla_pretrained`` and ``PretrainedSPPPViTWithMHLA``, whose blocks
-see R+1 = 17 tokens), and checks every CUDA kernel on them.
+see R+1 = 17 tokens), and last the cross-attention suites E7 and E8, E1
+preempted by SIGTERM and resumed from its checkpoint, serving from that
+checkpoint directory and the MHLA-B/4 train state's checkpoint round trip,
+and checks every CUDA kernel on them.
 Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: requires CUDA and compute capability 9.0; prints the card's name
@@ -146,6 +149,26 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     17), W=4, then ``PretrainedSPPPViTWithMHLA`` at its defaults, bf16,
     batch 32, against the f32 CPU model, by default (the dense band, no
     kernel) and under ``FAVIT_MHLA_IMPL=roll`` (K1 12 x the passes), timed.
+
+30. e7-e8: ``cli.main`` with ``cross_attention`` and
+    ``multihead_cross_attention`` at ViT-B/16, batch 128, bf16, one epoch
+    of each of 4A-4D and 5A-5D (C and D from the fixture): the eight CSVs
+    under JAX's names and columns, the pretrained merge, no kernel
+    launched; ms a step, peak memory and SLIC's share of the SPPP rows (host
+    clock, a device sync around SLIC; these last phases use no profiler);
+31. preempt: E1 at ViT-B/16, batch 128, ``FAVIT_FUSED_MHA=1``,
+    ``--checkpoint_dir``, in a child process sent SIGTERM after its
+    ``Epoch 1/`` line: exit code 143, the ``Preempted`` line, a committed
+    checkpoint, no CSV; then the command again in this process to one
+    epoch past the checkpoint: ``Resumed from checkpoint epoch``, the CSV,
+    K3/K4 12 x the passes;
+32. serve-checkpoint: ``serve.setup(["--checkpoint_dir", ...])`` on that
+    directory in f32 against the resumed run's model; the time to load;
+33. checkpoint: the MHLA-B/4 ``TrainState`` at batch 32 after one bf16 step
+    through K1 and K2, saved asynchronously and restored into a fresh
+    state bit for bit, one more step from each bit-equal; the training
+    thread's hold, the on-device snapshot, the background pull and write,
+    the bytes and the extra peak memory.
 
 Every launch count is set to 0 just before its path is driven and read just
 after. The line before the last is a JSON summary of the twelve kernels, each
@@ -536,6 +559,10 @@ def _tile_ptxas(lib: Path, text: str) -> None:
         raise AssertionError(f"{what} spills (bytes): {spilled}")
 
 
+class NoDeviceTime(AssertionError):
+    """``torch.profiler`` recorded no device time for a call."""
+
+
 def profile_device_ms(fn, calls: int = 20) -> dict:
     """Device ms a call of each kernel ``fn`` launches, by kernel name
     (template arguments dropped), from ``torch.profiler`` over ``calls``
@@ -558,7 +585,7 @@ def profile_device_ms(fn, calls: int = 20) -> dict:
             total[name] = total.get(name, 0.0) + e.self_device_time_total
             count[name] = count.get(name, 0) + e.count
     if not total:
-        raise AssertionError("the profiler recorded no device time")
+        raise NoDeviceTime("the profiler recorded no device time")
     return {name: total[name] / 1e3 / count[name]
             * max(1, round(count[name] / calls)) for name in total}
 
@@ -998,12 +1025,24 @@ def phase_kernel_tileband() -> dict:
                    f"K7 {k7_batched:.4f} ms a call in batches of 10 (CUDA "
                    f"events), {7 * one / k7_batched / 1e6:.0f} GB/s of q, k, "
                    f"v, g, dq, dk, dv")
-        # Device time of K6 and K8 alone (the profiler), and their rates.
-        dev = {name: profile_device_ms(fn)["tile_band_fwd_mma"]
-               for name, fn in (
-                   ("K6", lambda: tile.tile_band_forward(q, k, v, w)),
-                   ("K8", lambda: tile.window_tile_band(qt, ke, ve, w)))}
-        log(phase, f"bf16 device time a call (torch.profiler, 20 calls): K6 "
+        # Device time of K6 and K8 alone, and their rates: the profiler, or,
+        # where this late in the process it records no device time, CUDA
+        # events over batches of 10 calls.
+        try:
+            dev = {name: profile_device_ms(fn)["tile_band_fwd_mma"]
+                   for name, fn in (
+                       ("K6", lambda: tile.tile_band_forward(q, k, v, w)),
+                       ("K8", lambda: tile.window_tile_band(qt, ke, ve, w)))}
+            how = "torch.profiler, 20 calls"
+        except NoDeviceTime:
+            dev = {"K6": cuda_median_ms(
+                       lambda: tile.tile_band_forward(q, k, v, w), 30, 3, 10),
+                   "K8": cuda_median_ms(
+                       lambda: tile.window_tile_band(qt, ke, ve, w), 30, 3,
+                       10)}
+            how = ("CUDA events, batches of 10 calls: the profiler recorded "
+                   "no device time")
+        log(phase, f"bf16 device time a call ({how}): K6 "
                    f"{dev['K6']:.4f} ms, {4 * one / dev['K6'] / 1e6:.0f} "
                    f"GB/s of q, k, v, out; K8 {dev['K8']:.4f} ms, "
                    f"{tile_bytes / dev['K8'] / 1e6:.0f} GB/s of the q tiles, "
@@ -1958,8 +1997,9 @@ E1_BATCH = 128
 def _cli_run(tmp: str, argv: list, model_cls, results: str):
     """``cli.main(argv)`` with its working directory in ``tmp`` (where the
     CLI writes its log file and E3/E5 find ``./pretrained_weights``) on the
-    synthetic CIFAR stand-in; returns the experiment, the model's forward
-    passes by kind and the seconds taken. Passes are counted by a global
+    synthetic CIFAR stand-in; returns the experiment (None for the E7/E8
+    batch runners), the model's forward passes by kind and the seconds
+    taken. Passes are counted by a global
     forward hook: ``train`` in training mode, ``probe`` in eval mode under
     autograd (the mid-run memory probe's backward), ``eval`` in eval mode
     without."""
@@ -1986,7 +2026,7 @@ def _cli_run(tmp: str, argv: list, model_cls, results: str):
     finally:
         os.chdir(cwd)
         hook.remove()
-    if not e.data["synthetic"]:
+    if e is not None and not e.data["synthetic"]:
         raise AssertionError("expected the synthetic CIFAR stand-in")
     return e, passes, time.perf_counter() - t0
 
@@ -2761,6 +2801,359 @@ def phase_pretrained_sppp_mhla() -> int:
     return launches
 
 
+# --- checkpoint, resume and preemption; the cross-attention family -------------
+
+def _timed_save(mngr, step: int, state) -> dict:
+    """One async save of ``state``: the training thread's hold (host
+    clock), the device time of the snapshot's copies (CUDA events around a
+    stream kept busy by a sleep, so that the host has queued every copy
+    before the first runs), the background pull and write, and the card's
+    memory beyond the live state at the peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of the stream
+    ev0.record()
+    t0 = time.perf_counter()
+    mngr.save(step, state)
+    held_ms = (time.perf_counter() - t0) * 1e3
+    ev1.record()
+    ev1.synchronize()
+    t1 = time.perf_counter()
+    mngr.wait_until_finished()
+    return dict(mngr.stats, held_ms=held_ms, copy_ms=ev0.elapsed_time(ev1),
+                waited_s=time.perf_counter() - t1,
+                extra=torch.cuda.max_memory_allocated() - base)
+
+
+def phase_checkpoint() -> dict:
+    """The MHLA-B/4 ``TrainState`` at batch 32 takes one bf16 training step
+    through K1's training form and K2 and is saved asynchronously twice
+    (clones on the training stream, the pull and the write in the
+    background; the first save meets a cold allocator and cold pinned
+    memory), restored into a fresh state and held bit for bit (parameters,
+    AdamW moments and step counters, step and update count); then one more
+    step from each with the same key must give the same bits. Returns the
+    band launches of the first step."""
+    from focused_attention_vit_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        STATE_FILE,
+    )
+
+    phase = "checkpoint"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+    u8, y = _images(rng, TRAIN_BATCH), rng.integers(0, 10, size=TRAIN_BATCH)
+    step = train.make_train_step(224, compute_dtype=torch.bfloat16)
+
+    def fresh(seed):
+        return train.create_train_state(MHLA.build(
+            dropout=TRAIN_DROPOUT, device="cuda",
+            generator=torch.Generator().manual_seed(seed)),
+            train.make_adamw(1e-4))
+
+    MHLA.reset_counts()
+    state, _ = step(fresh(21), u8, y, 0)
+    torch.cuda.synchronize()
+    launches = {k: band.launch_count(k) for k in band.LAUNCH_KINDS}
+    if launches != MHLA.expected(0, 1):
+        raise AssertionError(f"checkpoint: the step launched {launches}, "
+                             f"expected {MHLA.expected(0, 1)}")
+    MHLA.check_idle(phase)
+    with tempfile.TemporaryDirectory() as tmp:
+        mngr = CheckpointManager(tmp, async_save=True)
+        saves = [_timed_save(mngr, i, state) for i in (1, 2)]
+        size = os.path.getsize(os.path.join(tmp, "2", STATE_FILE))
+        other = fresh(22)
+        t2 = time.perf_counter()
+        mngr.restore(other)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t2
+    for label, t in zip(("first", "second"), saves):
+        log(phase, f"MHLA-B/4 TrainState, bf16 autocast, batch "
+                   f"{TRAIN_BATCH}: {label} async save of {t['bytes']} bytes "
+                   f"({size} on disk): training thread held "
+                   f"{t['held_ms']:.2f} ms (host clock), the snapshot's "
+                   f"copies {t['copy_ms']:.3f} ms of the card (CUDA events), "
+                   f"background pull to pinned memory {t['pull_s']:.3f} s and "
+                   f"write {t['write_s']:.3f} s (host clock; "
+                   f"{t['waited_s']:.3f} s waited for them here), extra peak "
+                   f"memory {t['extra'] / 2**30:.2f} GiB")
+    mismatch = [k for k, v in state.model.state_dict().items()
+                if not torch.equal(v, other.model.state_dict()[k])]
+    opt_a, opt_b = (s.tx.adamw.state_dict()["state"] for s in (state, other))
+    mismatch += [f"adamw {i} {n}" for i, s in opt_a.items()
+                 for n, t in s.items() if not torch.equal(t, opt_b[i][n])]
+    if mismatch or (state.step, state.tx.count) != (other.step,
+                                                    other.tx.count):
+        raise AssertionError(f"checkpoint: restore is not bit-equal: "
+                             f"{mismatch[:5]}, steps {state.step} "
+                             f"{other.step}")
+    a, _ = step(state, u8, y, 1)
+    b, _ = step(other, u8, y, 1)
+    torch.cuda.synchronize()
+    b_params = dict(b.model.named_parameters())
+    diff = [n for n, p in a.model.named_parameters()
+            if not torch.equal(p, b_params[n])]
+    log(phase, f"restore into a fresh state {restore_s:.3f} s (host clock); "
+               f"parameters, AdamW moments, step counters and step "
+               f"bit-equal; one more step from each with the same key: "
+               f"{len(diff)} parameters differ; band launches {launches}")
+    if diff:
+        raise AssertionError(f"checkpoint: the step after restore differs "
+                             f"in {diff[:5]}")
+    del state, other, a, b, b_params
+    torch.cuda.empty_cache()
+    log(phase, f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+E1_ARGS = ["--experiment", "traditional", "--img_size", "224", "--patch_size",
+           "16", "--batch_size", str(E1_BATCH), "--attn_dropout",
+           str(TRAIN_DROPOUT), "--compute_dtype", "bfloat16",
+           "--subset_size", "1024"]
+
+
+def phase_preempt(tmp: str):
+    """E1 at ViT-B/16, batch 128, with ``FAVIT_FUSED_MHA=1`` and
+    ``--checkpoint_dir`` in a child process (signals reach the main thread
+    only), SIGTERM after its ``Epoch 1/`` line: exit code 143, the
+    ``Preempted`` line, a committed checkpoint and no CSV. Then the command
+    again in this process to one epoch past the checkpoint: ``Resumed from
+    checkpoint epoch``, the CSV, and K3/K4 launched 12 times a pass.
+    Returns the fused launches, the checkpoint directory and the
+    experiment."""
+    import signal
+    import sys
+    import threading
+
+    phase = "preempt"
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(tmp, "e1-ckpt")
+    results = os.path.join(tmp, "results-preempt")
+    argv = E1_ARGS + ["--epochs", "2", "--checkpoint_dir", ckpt]
+    env = dict(os.environ, FAVIT_FUSED_MHA="1", PYTHONPATH=os.pathsep.join(
+        [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    torch.cuda.empty_cache()
+    child = subprocess.Popen(
+        [sys.executable, "-u", "-m", "focused_attention_vit_tpu_torch.cli",
+         *argv, "--data_dir", os.path.join(tmp, "no-cifar"),
+         "--results_dir", results], cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(300, child.kill)
+    timer.start()
+    lines, sent = [], None
+    try:
+        for line in child.stdout:
+            lines.append(line)
+            if line.startswith("Epoch 1/") and sent is None:
+                child.send_signal(signal.SIGTERM)
+                sent = time.perf_counter()
+        rc = child.wait()
+    finally:
+        timer.cancel()
+    out = "".join(lines)
+    stop = [ln for ln in lines if ln.startswith("Preempted")]
+    if (rc != 143 or not stop or sent is None
+            or os.path.exists(os.path.join(results, "exp1_traditional.csv"))):
+        raise AssertionError(f"preempt: child exit code {rc} (expected "
+                             f"143), Preempted line {stop}, CSV present; "
+                             f"output tail:\n{out[-3000:]}")
+    from focused_attention_vit_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+
+    done = CheckpointManager(ckpt).latest_step()
+    log(phase, f"child: SIGTERM after 'Epoch 1/', exit code {rc} "
+               f"{time.perf_counter() - sent:.1f} s later; "
+               f"{stop[0].strip()}; committed epoch {done}; no CSV")
+
+    _reset_ops()
+    buf = io.StringIO()
+    argv[argv.index("--epochs") + 1] = str(done + 1)
+    with _fused_switch(True), contextlib.redirect_stdout(buf):
+        e, passes, seconds = _cli_run(tmp, argv, VisionTransformer, results)
+    launches = _op_counts()
+    printed = buf.getvalue()
+    resumed = [ln for ln in printed.splitlines()
+               if ln.startswith("Resumed from checkpoint epoch")]
+    row = _csv_row(os.path.join(results, "exp1_traditional.csv"), E1_COLUMNS)
+    _check_run(e, row, 1, "E1 resumed")
+    grads = DEPTH * (passes["train"] + passes["probe"])
+    expect = {"fwd": DEPTH * passes["eval"], "fwd_train": grads,
+              "bwd": grads}
+    others = [c for op, k in launches.items() if op != "mha_kernel"
+              for c in k.values()]
+    log(phase, f"rerun in process to --epochs {done + 1}: {resumed}; "
+               f"{seconds:.1f} s; forward passes {passes}; launches "
+               f"{launches}; CSV test_loss {float(row['test_loss']):.4f}; "
+               f"checkpoint epoch {CheckpointManager(ckpt).latest_step()}")
+    if (resumed != [f"Resumed from checkpoint epoch {done}"]
+            or launches["mha_kernel"] != expect or any(others)
+            or min(expect.values()) == 0 or e.preempted):
+        raise AssertionError(f"preempt: resumed {resumed}, fused launches "
+                             f"{launches['mha_kernel']} != {expect}, others "
+                             f"{others}")
+    log(phase, f"{time.perf_counter() - t_phase:.1f} s")
+    return launches["mha_kernel"], ckpt, e
+
+
+def phase_serve_checkpoint(ckpt: str, e) -> None:
+    """``serve --checkpoint_dir`` on the directory the preempt phase left:
+    the sidecar of its last epoch is the resumed run's final model, so the
+    served probabilities (f32) equal that model's eval forward on the same
+    images."""
+    phase = "serve-checkpoint"
+    t0 = time.perf_counter()
+    args, pred = serve.setup([
+        "--checkpoint_dir", ckpt, "--model", "vit", "--patch_size", "16",
+        "--compute_dtype", "float32", "--batch_size", "32"])
+    load_s = time.perf_counter() - t0
+    images = _images(np.random.default_rng(12), 40)
+    probs = pred.predict_proba(images)
+    model = e.state.model.eval()
+    with torch.inference_mode():
+        want = torch.softmax(model(prepare_eval_batch(
+            torch.from_numpy(images).cuda(), 224)).float(), -1).cpu().numpy()
+    _check_probs(probs, 40)
+    err = float(np.abs(probs - want).max())
+    log(phase, f"serve.setup(--checkpoint_dir, --model vit, f32, batch 32) "
+               f"in {load_s:.2f} s (host clock: the sidecar of "
+               f"{os.path.getsize(os.path.join(ckpt, 'params_latest.pt'))} "
+               f"bytes read and the warm-up batch); 40 images against the "
+               f"resumed run's model: max abs err {err:.3g} (tol 1e-6)")
+    if err > 1e-6:
+        raise AssertionError(f"serve --checkpoint_dir disagrees with the "
+                             f"trained model: {err}")
+    del pred
+    torch.cuda.empty_cache()
+    log(phase, f"{time.perf_counter() - t0:.1f} s")
+
+
+def _slic_share(e, u8, y, n: int = 3):
+    """(ms a step, ms of SLIC in it) of an SPPP experiment's train step, by
+    host clock with a device sync on both sides of each SLIC call."""
+    from focused_attention_vit_tpu_torch.models import sppp_common
+
+    spent = []
+    real = sppp_common.slic_segment
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    with mock.patch.object(sppp_common, "slic_segment", timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            e.train_step(e.state, u8, y, 300 + i)
+        torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / n * 1e3, sum(spent) / n * 1e3)
+
+
+E7_COLUMNS = [
+    "model", "use_pretrained", "pretrained_source", "pretrained_model_variant",
+    "freeze_layers", "img_size", "patch_size", "embed_dim", "depth",
+    "num_heads", "use_multi_head", "total_parameters",
+    "trainable_parameters", "frozen_parameters", "flops", "time_complexity",
+    "space_complexity_mb", "model_size_mb", "avg_epoch_time",
+    "total_training_time", "final_val_acc", "final_val_loss", "test_acc",
+    "test_loss", "avg_inference_time_per_image", "peak_gpu_memory_mb",
+]
+E7_SPPP_COLUMNS = E7_COLUMNS + ["num_superpixels", "traditional_tokens",
+                                "sppp_tokens", "token_reduction_factor"]
+
+
+def phase_e7_e8(tmp: str) -> None:
+    """E7 ``cross_attention`` and E8 ``multihead_cross_attention`` through
+    ``cli.main`` at ViT-B/16, batch 128, bf16, one epoch each of 4A-4D and
+    5A-5D (C and D from the fixture in ``tmp/pretrained_weights``): the
+    eight CSVs under JAX's names and columns, the pretrained runs' merge,
+    no kernel launched (the cross-attention is plain ``torch.matmul``, as
+    JAX's einsums); ms a step and peak memory of each, and SLIC's share of
+    the SPPP rows' step."""
+    from focused_attention_vit_tpu_torch.experiments import attention
+
+    from focused_attention_vit_tpu_torch.experiments import base
+
+    phase = "e7-e8"
+    t_phase = time.perf_counter()
+    results = os.path.join(tmp, "results-e7e8")
+    # The eight runs cut the same subset from the synthetic stand-in, which
+    # takes seconds to build: build it once.
+    data = {}
+    real_load = base.load_dataset
+
+    def load(name, data_dir, subset_size, seed):
+        if not data:
+            data.update(real_load(name, data_dir=data_dir,
+                                  subset_size=subset_size, seed=seed))
+        return dict(data)
+
+    for name in ("cross_attention", "multihead_cross_attention"):
+        runs = []
+        real = attention.CrossAttentionExperiment.run
+        _reset_ops()
+        with mock.patch.object(attention.CrossAttentionExperiment, "run",
+                               lambda self: (runs.append(self),
+                                             real(self))[1]), \
+                mock.patch.object(base, "load_dataset", load):
+            e, passes, seconds = _cli_run(
+                tmp, ["--experiment", name, *PRETRAINED_ARGS],
+                None, results)
+        launches = _op_counts()
+        if e is not None or len(runs) != 4 or any(
+                c for k in launches.values() for c in k.values()):
+            raise AssertionError(f"{name}: returned {e}, {len(runs)} runs, "
+                                 f"launches {launches}")
+        for r in runs:
+            if not r.data["synthetic"]:
+                raise AssertionError("expected the synthetic CIFAR stand-in")
+            cols = E7_SPPP_COLUMNS if r.use_sppp else E7_COLUMNS
+            row = _csv_row(os.path.join(results, r.csv_filename), cols)
+            _check_run(r, row, 1, r.csv_filename)
+            n = len(r.model.state_dict())
+            if r.use_pretrained and (not r.pretrained_loaded or r.merge_counts
+                                     != {"copied": n - 2, "skipped": 0}):
+                raise AssertionError(f"{r.csv_filename}: merge "
+                                     f"{r.merge_counts} of {n} tensors")
+            u8 = r.data["train_images"][:E1_BATCH]
+            y = r.data["train_labels"][:E1_BATCH]
+            ms, peak = _step_time(r, batch=(u8, y))
+            share = ""
+            if r.use_sppp:
+                step_ms, slic_ms = _slic_share(r, u8, y)
+                share = (f"; with a device sync around SLIC, {step_ms:.2f} ms "
+                         f"a step, SLIC {slic_ms:.2f} ms of it "
+                         f"({slic_ms / step_ms:.1%}, host clock, 3 steps)")
+            log(phase, f"{r.csv_filename}: {r.model_display_name}, merge "
+                       f"{r.merge_counts}, test_loss "
+                       f"{float(row['test_loss']):.4f}; train step, bf16 "
+                       f"autocast, batch {E1_BATCH}: {ms:.2f} ms, "
+                       f"{E1_BATCH / ms * 1e3:.1f} images/s (host clock, "
+                       f"mean of 5 steps after a warm-up), peak memory "
+                       f"{peak:.2f} GiB{share}")
+        log(phase, f"{name}: cli.main ran 4 experiments in {seconds:.1f} s, "
+                   f"launches {launches}")
+        del runs, r
+        torch.cuda.empty_cache()
+    names = sorted(f for f in os.listdir(results) if f.endswith(".csv"))
+    want = sorted(f"exp{n}_{t}{p}_{m}.csv"
+                  for n, t in ((4, "cross_attention"),
+                               (5, "multihead_cross_attention"))
+                  for p in ("", "_pretrained") for m in ("traditional",
+                                                          "sppp"))
+    if names != want:
+        raise AssertionError(f"E7/E8 CSVs {names} != {want}")
+    log(phase, f"8 CSVs with JAX's names and columns; "
+               f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2788,15 +3181,17 @@ def main() -> None:
     e1_launches = phase_e1()
     phase_e1_parity()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        fixture = phase_pretrained_fixture(tmp)
-        e3_launches = phase_e3(tmp, fixture)
-        e5_launches = phase_e5(tmp, fixture)
-        pmhla_launches = phase_pretrained_mhla(image)
-        phase_slic()
-        phase_sppp_model()
-        e6_launches = phase_sppp_experiments(tmp, fixture)
-        del fixture
+    # The fixture's directory lives until the checkpoint phases have run.
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    fixture = phase_pretrained_fixture(tmp)
+    e3_launches = phase_e3(tmp, fixture)
+    e5_launches = phase_e5(tmp, fixture)
+    pmhla_launches = phase_pretrained_mhla(image)
+    phase_slic()
+    phase_sppp_model()
+    e6_launches = phase_sppp_experiments(tmp, fixture)
+    del fixture
     psppp_launches = phase_pretrained_sppp_mhla()
 
     tile_timing = phase_kernel_tileband()
@@ -2813,6 +3208,16 @@ def main() -> None:
         train_launches[TILE] = phase_train(TILE, False)
         torch.cuda.empty_cache()
 
+    # Checkpoint, resume and preemption, and the cross-attention suites:
+    # last, and without the profiler, whose later sessions in one process
+    # record fewer and fewer launches (profile_device_ms).
+    phase_e7_e8(tmp)
+    preempt_launches, ckpt, resumed = phase_preempt(tmp)
+    phase_serve_checkpoint(ckpt, resumed)
+    del resumed
+    tmp_dir.cleanup()
+    ckpt_launches = phase_checkpoint()
+
     tpu = "focused_attention_vit_tpu/ops/mhla_band_roll.py"
     tpu_flash = "focused_attention_vit_tpu/ops/flash_attention_pallas.py"
     tpu_fused = "focused_attention_vit_tpu/ops/mha_kernel.py"
@@ -2822,10 +3227,13 @@ def main() -> None:
         # FAVIT_MHLA_IMPL=roll, PretrainedSPPPViTWithMHLA (S = 17), at W = 4.
         ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158",
          launches[MHLA] + pmhla_launches + psppp_launches, timing["bf16"]),
+        # K1's training form and K2 also run in the checkpoint phase's steps.
         ("mhla_band_fwd_train", band.KERNEL_SOURCE, f"{tpu}:158",
-         train_launches[MHLA]["fwd_train"], train_timing["bf16"]["fwd_train"]),
+         train_launches[MHLA]["fwd_train"] + ckpt_launches["fwd_train"],
+         train_timing["bf16"]["fwd_train"]),
         ("mhla_band_bwd", band.BWD_KERNEL_SOURCE, f"{tpu}:199",
-         train_launches[MHLA]["bwd"], train_timing["bf16"]["bwd"]),
+         train_launches[MHLA]["bwd"] + ckpt_launches["bwd"],
+         train_timing["bf16"]["bwd"]),
         ("flash_attention_fwd", flash.FWD_KERNEL_SOURCE, f"{tpu_flash}:73",
          launches[DENSE], flash_timing["bf16"]["fwd"]),
         ("flash_attention_fwd_train", flash.FWD_KERNEL_SOURCE,
@@ -2833,15 +3241,17 @@ def main() -> None:
          flash_timing["bf16"]["fwd_train"]),
         ("flash_attention_bwd", flash.BWD_KERNEL_SOURCE, f"{tpu_flash}:73",
          train_launches[DENSE]["bwd"], flash_timing["bf16"]["bwd"]),
-        # K3/K4 run in E1 and E3 with the fused switch on.
+        # K3/K4 run in E1, E3 and E1 resumed after preemption, with the
+        # fused switch on.
         ("fused_mha_fwd", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
-         e1_launches["fwd"] + e3_launches["fwd"],
+         e1_launches["fwd"] + e3_launches["fwd"] + preempt_launches["fwd"],
          fused_timing["bf16"]["fwd"]),
         ("fused_mha_fwd_train", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
-         e1_launches["fwd_train"] + e3_launches["fwd_train"],
+         e1_launches["fwd_train"] + e3_launches["fwd_train"]
+         + preempt_launches["fwd_train"],
          fused_timing["bf16"]["fwd_train"]),
         ("fused_mha_bwd", fused.BWD_KERNEL_SOURCE, f"{tpu_fused}:83",
-         e1_launches["bwd"] + e3_launches["bwd"],
+         e1_launches["bwd"] + e3_launches["bwd"] + preempt_launches["bwd"],
          fused_timing["bf16"]["bwd"]),
         # K6 runs in serving (MHLA-B/4 and B/16), in training and in E5 and
         # E6 under the opt-in; K8 has no caller on a model path, so its

@@ -1,13 +1,14 @@
 """PyTorch/CUDA port of ``focused_attention_vit_tpu`` for NVIDIA Hopper.
 
 Module names mirror the JAX package. This package imports ``torch`` and never
-``jax``, ``flax`` or the JAX package. Ported so far: the dense ViT, the MHLA
-ViT and ``PretrainedViTWithMHLA`` (:mod:`.models`), their serving
-(:mod:`.serve`, :mod:`.infer`) and training (:mod:`.train`), experiments E1
-``traditional``, E3 ``traditional_pretrained`` and E5 ``mhla_pretrained``
+``jax``, ``flax``, ``msgpack``, ``orbax`` or the JAX package. Ported so far:
+the eight model classes (:mod:`.models`: the dense and MHLA ViTs,
+``PretrainedViTWithMHLA``, the SPPP family and the cross-attention ViTs),
+their serving (:mod:`.serve`, :mod:`.infer`) and training (:mod:`.train`,
+with checkpoint, resume and preemption), the eight experiments
 (:mod:`.experiments`, :mod:`.cli`) with the pretrained-checkpoint loader
-(:mod:`.data.pretrained`, :mod:`.convert`), and every TPU kernel as a
-hand-written CUDA kernel (``csrc/``).
+(:mod:`.data.pretrained`, :mod:`.convert`, a Flax msgpack reader), and every
+TPU kernel as a hand-written CUDA kernel (``csrc/``).
 """
 
 

@@ -3,17 +3,23 @@ flag-compatible with the JAX package's:
 
     python -m focused_attention_vit_tpu_torch.cli --experiment traditional ...
 
-The port runs E1 ``traditional``, E2 ``sppp``, E3
-``traditional_pretrained``, E4 ``sppp_pretrained``, E5 ``mhla_pretrained``
-and E6 ``sppp_mhla_pretrained`` on one CUDA device (``--device cpu`` for the
-CPU). E3-E6 load ``./pretrained_weights/<variant>_weights.pth`` (python -m
-focused_attention_vit_tpu_torch.data.pretrained writes the seeded stand-in
-there). Every other flag of the JAX surface is parsed; those the port does
-not act on yet raise an error that names the flag, before anything runs.
-None is silently ignored. Set ``FAVIT_FUSED_MHA=1`` to take the fused
-short-sequence attention kernels (``ops/mha_kernel.py``), and
-``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1`` to take E5's and
-E6's MHLA through the tile band (``ops/mhla_kernel_v4.py``).
+The port runs the eight experiments, E1 ``traditional``, E2 ``sppp``, E3
+``traditional_pretrained``, E4 ``sppp_pretrained``, E5 ``mhla_pretrained``,
+E6 ``sppp_mhla_pretrained`` and the cross-attention suites E7
+``cross_attention`` and E8 ``multihead_cross_attention`` (4A-4D, 5A-5D), on
+one CUDA device (``--device cpu`` for the CPU). The pretrained runs load
+``./pretrained_weights/<variant>_weights.pth`` or ``<variant>_flax.msgpack``
+(python -m focused_attention_vit_tpu_torch.data.pretrained writes the seeded
+stand-in there). ``--checkpoint_dir`` saves, resumes and handles SIGTERM as
+in JAX: a preempted run exits with code 143 after its checkpoint is
+committed, and the same command resumes it (E7 and E8 run four experiments
+each and take no checkpoint directory). Every other flag of the JAX surface
+is parsed; those the port does not act on yet raise an error that names the
+flag, before anything runs. None is silently ignored. Set
+``FAVIT_FUSED_MHA=1`` to take the fused short-sequence attention kernels
+(``ops/mha_kernel.py``), and ``FAVIT_MHLA_IMPL=shiftband
+FAVIT_USE_PALLAS_MHLA=1`` to take E5's and E6's MHLA through the tile band
+(``ops/mhla_kernel_v4.py``).
 """
 
 from __future__ import annotations
@@ -27,10 +33,10 @@ import torch
 
 from focused_attention_vit_tpu_torch.experiments.base import (
     NOT_PORTED_DEFAULTS,
-    PORTED_EXPERIMENTS,
     not_ported,
 )
 
+CROSS_SUITES = ("cross_attention", "multihead_cross_attention")
 EXPERIMENTS = [
     "traditional", "traditional_pretrained",
     "sppp", "sppp_pretrained",
@@ -108,9 +114,11 @@ def parse_args(argv=None):
 
     # Extensions of the JAX package
     parser.add_argument("--checkpoint_dir", type=str, default=None,
-                        help="not ported yet")
+                        help="Save the train state every epoch and resume "
+                             "from the latest checkpoint here")
     parser.add_argument("--sync_checkpoint", action="store_true",
-                        help="not ported yet")
+                        help="Block on each checkpoint save (default: the "
+                             "save runs in the background)")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="not ported yet")
     parser.add_argument("--no_detailed_metrics", action="store_true",
@@ -143,8 +151,6 @@ def parse_args(argv=None):
 def reject_not_ported(args) -> None:
     """Raise for every flag and choice the port parses but does not act on
     yet, naming it; nothing is silently ignored."""
-    if args.experiment not in PORTED_EXPERIMENTS:
-        raise not_ported("experiment", args.experiment)
     if args.dataset == "imagenet":
         raise not_ported("dataset", args.dataset)
     if args.visualize:
@@ -154,6 +160,12 @@ def reject_not_ported(args) -> None:
     for flag, off in NOT_PORTED_DEFAULTS.items():
         if getattr(args, flag) != off:
             raise not_ported(flag, getattr(args, flag))
+    if args.checkpoint_dir and args.experiment in CROSS_SUITES:
+        # JAX's suites drop the flag; four runs would resume from one
+        # directory.
+        raise ValueError(
+            f"--checkpoint_dir: --experiment {args.experiment} runs four "
+            f"experiments and takes no checkpoint directory")
 
 
 def _common_kwargs(args):
@@ -265,6 +277,7 @@ def main(argv=None):
     from focused_attention_vit_tpu_torch import experiments as exp
 
     name = args.experiment
+    instance = None
     if name == "traditional":
         instance = exp.TraditionalViTExperiment(**_common_kwargs(args))
     elif name == "sppp":
@@ -281,11 +294,20 @@ def main(argv=None):
         instance = exp.PretrainedMHLAViTExperiment(
             **_common_kwargs(args), **_pretrained_kwargs(args),
             window_size=args.window_size)
-    else:  # sppp_mhla_pretrained
+    elif name == "sppp_mhla_pretrained":
         instance = exp.PretrainedSPPPMHLAExperiment(
             **_common_kwargs(args), **_pretrained_kwargs(args),
             **_sppp_kwargs(args), window_size=args.window_size)
-    instance.run()
+    elif name == "cross_attention":
+        exp.run_cross_attention_experiments(args)
+    else:  # multihead_cross_attention
+        exp.run_multihead_cross_attention_experiments(args)
+    if instance is not None:
+        instance.run()
+        if instance.preempted:
+            # 128 + SIGTERM: a supervisor sees a termination, restarts the
+            # command, and --checkpoint_dir resumes it.
+            raise SystemExit(143)
     return instance
 
 

@@ -10,12 +10,14 @@ to a state dict of the port's models::
 The output is an f32 state dict of :class:`~..models.VisionTransformer`
 (``--to vit``), of :class:`~..models.VisionTransformerMHLA` with
 ``use_mhla=True`` (``--to mhla``, identity ``latent_proj``) or of
-:class:`~..models.SPPPViT` (``--to sppp``, no ``pos_embed``), written with
-``torch.save``: ``serve --weights OUT.pt --model vit|vit_mhla`` reads the
-first two. The JAX CLI writes a Flax msgpack instead. ``--format
+:class:`~..models.SPPPViT` (``--to sppp``, no ``pos_embed``) or of
+:class:`~..models.CrossAttentionViT` (``--to cross``: q, k and v split out
+of the fused qkv, ``norm1`` in ``norm1_query`` and ``norm1_kv``; with
+``--drop_pos_embed``, :class:`~..models.CrossAttentionSPPPViT`'s), written
+with ``torch.save``: ``serve --weights OUT.pt --model vit|vit_mhla`` reads
+the first two. The JAX CLI writes a Flax msgpack instead. ``--format
 reference`` reads the reference repo's ``VisionTransformer`` state dict,
-whose keys are already the port's. ``--to cross`` raises
-``NotPortedError``: the cross-attention models are not ported yet.
+whose keys are already the port's.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import sys
 
 import torch
 
-from focused_attention_vit_tpu_torch import NotPortedError
 from focused_attention_vit_tpu_torch.convert import checkpoints as C
 
 
@@ -46,7 +47,7 @@ def main(argv=None) -> int:
                    default="vit",
                    help="apply the variant surgery after conversion "
                         "(identity latent_proj for mhla, no pos_embed for "
-                        "sppp; cross is not ported yet)")
+                        "sppp, q/k/v split out of qkv for cross)")
     p.add_argument("--depth", type=int, default=12)
     p.add_argument("--num_heads", type=int, default=12)
     p.add_argument("--embed_dim", type=int, default=768,
@@ -55,12 +56,9 @@ def main(argv=None) -> int:
                    help="keep the checkpoint head only if it matches "
                         "(torchvision/hf formats; reference keeps always)")
     p.add_argument("--drop_pos_embed", action="store_true",
-                   help="drop the learned pos_embed (--to mhla only)")
+                   help="drop the learned pos_embed (--to mhla and "
+                        "--to cross)")
     args = p.parse_args(argv)
-    if args.to == "cross":
-        raise NotPortedError(
-            "--to 'cross' is not ported yet: the port has no "
-            "cross-attention models (see ROADMAP.md)")
 
     sd = torch.load(args.input, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd and not any(
@@ -82,6 +80,9 @@ def main(argv=None) -> int:
             keep_pos_embed=not args.drop_pos_embed)
     elif args.to == "sppp":
         state = C.vit_state_to_sppp(state)
+    elif args.to == "cross":
+        state = C.vit_state_to_cross(
+            state, args.depth, keep_pos_embed=not args.drop_pos_embed)
 
     torch.save(state, args.output)
     n = sum(t.numel() for t in state.values())

@@ -13,7 +13,9 @@ Each map takes a torch state dict and gives the port's keys:
   an identity ``latent_proj`` in every block so that the MHLA model starts
   as a windowed copy of the pretrained attention;
 * :func:`vit_state_to_sppp`: the E4 surgery (and E6's first step), a ViT
-  state dict without its learned ``pos_embed``, for the SPPP models.
+  state dict without its learned ``pos_embed``, for the SPPP models;
+* :func:`vit_state_to_cross`: the E7/E8 surgery, the fused qkv split into
+  q, k and v projections for the cross-attention models.
 
 Every tensor comes out f32 (fp16 and f64 are upcast, as JAX's ``_np``
 does). The conv patch projection ``[D, C, p, p]`` becomes the Linear
@@ -165,3 +167,40 @@ def vit_state_to_sppp(state: Mapping) -> State:
     (JAX's ``vit_params_to_sppp``; reference experiments/sppp_pretrained.py:
     177-232)."""
     return {k: v for k, v in state.items() if k != "pos_embed"}
+
+
+# A ViT block's keys -> a cross-attention block's (JAX's
+# ``vit_params_to_cross``; the MLP under the reference block's mlp.0/mlp.3).
+_CROSS_RENAMES = {"attn.proj": ("attn.out_proj",),
+                  "norm1": ("norm1_query", "norm1_kv"),
+                  "mlp.fc1": ("mlp.0",), "mlp.fc2": ("mlp.3",)}
+
+
+def vit_state_to_cross(state: Mapping, depth: int,
+                       keep_pos_embed: bool = True) -> State:
+    """ViT state dict -> cross-attention state dict (JAX's
+    ``vit_params_to_cross``; reference experiments/attention.py:203-293):
+    the fused ``attn.qkv`` split into ``attn.q_proj``, ``k_proj`` and
+    ``v_proj`` (its ``[q | k | v]`` thirds), ``attn.proj`` renamed
+    ``attn.out_proj``, ``norm1`` copied into both ``norm1_query`` and
+    ``norm1_kv`` (called as self-attention, both normalise the same
+    tokens), and ``pos_embed`` dropped unless ``keep_pos_embed`` (the SPPP
+    side has none)."""
+    _check_depth(state, depth)
+    out: State = {}
+    for key, val in state.items():
+        if key == "pos_embed" and not keep_pos_embed:
+            continue
+        m = re.fullmatch(r"(blocks\.\d+)\.(.+)\.(weight|bias)", key)
+        if m is None:
+            out[key] = val
+            continue
+        pre, name, kind = m.groups()
+        if name == "attn.qkv":
+            for proj, third in zip(("q_proj", "k_proj", "v_proj"),
+                                   val.chunk(3, dim=0)):
+                out[f"{pre}.attn.{proj}.{kind}"] = third.clone()
+            continue
+        for new in _CROSS_RENAMES.get(name, (name,)):
+            out[f"{pre}.{new}.{kind}"] = val.clone()
+    return out

@@ -8,7 +8,9 @@ MHLA or dense blocks) and ``reference_mhla_vit_to_flax``
 no ``pos_embed``: :class:`~..models.SPPPViT`'s (the dense ViT's blocks),
 :class:`~..models.SPPPViTMHLA`'s (the MHLA ViT's switchable blocks) and
 :class:`~..models.PretrainedSPPPViTWithMHLA`'s (``PretrainedViTWithMHLA``'s
-blocks).
+blocks). :func:`flax_cross_to_state_dict` is the reverse of
+``reference_cross_vit_to_flax`` (:class:`~..models.CrossAttentionViT` and
+:class:`~..models.CrossAttentionSPPPViT`).
 
 Flax kernels are ``[in, out]`` and torch Linear weights ``[out, in]``; the
 head-shaped attention kernels flatten back into the reference's fused
@@ -57,6 +59,8 @@ def unflatten_params(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a bf16 leaf of the msgpack reader
+        return x.detach().float().clone()
     return torch.from_numpy(np.array(x, np.float32))  # a writable copy
 
 
@@ -78,22 +82,8 @@ def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool,
     block, saved under the ``in_proj``/``out_proj`` names if
     ``in_proj_names``. The MLP's two Linears are saved as ``mlp.<name>``
     for the two ``mlp_names``."""
-    if "blocks" in params:
-        raise ValueError(
-            "scan-form params (blocks/block) are not supported; unstack them "
-            "into blocks_{i} first"
-        )
-    depth = sum(1 for k in params if re.fullmatch(r"blocks_\d+", k))
-    if sorted(k for k in params if k.startswith("blocks_")) != sorted(
-        f"blocks_{i}" for i in range(depth)
-    ):
-        raise ValueError("block stack must be blocks_0 .. blocks_{depth-1}")
-    sd: Dict[str, torch.Tensor] = {}
-    _linear(sd, "patch_embed.projection.1", params["patch_embed"]["projection"])
-    sd["cls_token"] = _t(params["cls_token"])
-    if "pos_embed" in params:  # the SPPP models have none
-        sd["pos_embed"] = _t(params["pos_embed"])
-    for i in range(depth):
+    sd = _stem(params)
+    for i in range(_depth(params)):
         blk = params[f"blocks_{i}"]
         pre = f"blocks.{i}"
         attn = blk["attn"]
@@ -118,8 +108,39 @@ def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool,
         _layernorm(sd, f"{pre}.norm2", blk["norm2"])
         for name, flax_name in zip(mlp_names, ("fc1", "fc2")):
             _linear(sd, f"{pre}.mlp.{name}", blk["mlp"][flax_name])
+    return _tail(sd, params)
+
+
+def _depth(params: Mapping[str, Any]) -> int:
+    if "blocks" in params:
+        raise ValueError(
+            "scan-form params (blocks/block) are not supported; unstack them "
+            "into blocks_{i} first"
+        )
+    depth = sum(1 for k in params if re.fullmatch(r"blocks_\d+", k))
+    if sorted(k for k in params if k.startswith("blocks_")) != sorted(
+        f"blocks_{i}" for i in range(depth)
+    ):
+        raise ValueError("block stack must be blocks_0 .. blocks_{depth-1}")
+    return depth
+
+
+def _stem(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "patch_embed.projection.1", params["patch_embed"]["projection"])
+    sd["cls_token"] = _t(params["cls_token"])
+    if "pos_embed" in params:  # the SPPP models have none
+        sd["pos_embed"] = _t(params["pos_embed"])
+    return sd
+
+
+def _tail(sd: Dict[str, torch.Tensor], params: Mapping[str, Any]
+          ) -> Dict[str, torch.Tensor]:
+    """The final LayerNorm and the head (absent from a pretrained cache
+    whose head was dropped)."""
     _layernorm(sd, "norm", params["norm"])
-    _linear(sd, "head", params["head"])
+    if "head" in params:
+        _linear(sd, "head", params["head"])
     return sd
 
 
@@ -155,6 +176,26 @@ def flax_pretrained_mhla_to_state_dict(params: Mapping[str, Any]
                                  mlp_names=("0", "3"))
 
 
+def flax_cross_to_state_dict(params: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """Flax ``CrossAttentionViT`` (or ``CrossAttentionSPPPViT``) params ->
+    f32 state dict of :class:`~..models.CrossAttentionViT` (or
+    :class:`~..models.CrossAttentionSPPPViT`): the reverse of
+    ``reference_cross_vit_to_flax`` with ``conv_patch=False``. The
+    attention's four projections are plain ``[D, D]`` kernels, and the MLP
+    goes under the reference block's ``mlp.0``/``mlp.3``."""
+    sd = _stem(params)
+    for i in range(_depth(params)):
+        blk, pre = params[f"blocks_{i}"], f"blocks.{i}"
+        for name in ("norm1_query", "norm1_kv", "norm2"):
+            _layernorm(sd, f"{pre}.{name}", blk[name])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{pre}.attn.{name}", blk["attn"][name])
+        _linear(sd, f"{pre}.mlp.0", blk["mlp"]["fc1"])
+        _linear(sd, f"{pre}.mlp.3", blk["mlp"]["fc2"])
+    return _tail(sd, params)
+
+
 def npz_to_state_dict(path, in_proj_names: bool | None = None
                       ) -> Dict[str, torch.Tensor]:
     """Read a ``.npz`` of ``/``-joined Flax param paths and convert it.
@@ -184,6 +225,8 @@ def flax_to_state_dict_for(model: torch.nn.Module,
         models.SPPPViTMHLA: flax_vit_mhla_to_state_dict,
         models.PretrainedViTWithMHLA: flax_pretrained_mhla_to_state_dict,
         models.PretrainedSPPPViTWithMHLA: flax_pretrained_mhla_to_state_dict,
+        models.CrossAttentionViT: flax_cross_to_state_dict,
+        models.CrossAttentionSPPPViT: flax_cross_to_state_dict,
     }
     return maps[type(model)](params)
 

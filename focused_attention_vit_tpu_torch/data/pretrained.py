@@ -3,8 +3,14 @@ stands in for the real weights (port of
 ``focused_attention_vit_tpu/data/pretrained.py`` and of the draws of
 ``tools/make_pretrained_fixture.py``).
 
-:func:`load_pretrained_vit_params` looks under ``cache_dir`` for
+:func:`load_pretrained_vit_params` looks under ``cache_dir``, in JAX's
+order, for
 
+* ``<variant>_flax.msgpack`` (``<variant>_hf_flax.msgpack`` with
+  ``source="huggingface"``), a converted Flax ViT param tree that the JAX
+  loader writes, read by the port's own msgpack reader
+  (:mod:`~..convert.flax_msgpack`) and mapped by
+  :func:`~..convert.from_jax.flax_vit_to_state_dict`;
 * ``<variant>_weights.pth``, a torchvision ``vit_b_16``-layout state dict
   (the reference's own cache file name), read with ``weights_only=True``,
   fp16 upcast to f32, and mapped to the port's
@@ -21,14 +27,8 @@ returns ``None`` (the caller keeps its random init).
 Deviations from the JAX loader:
 
 * The port writes no ``<variant>_flax.msgpack`` cache of the converted
-  weights: reading the ``.pth`` and mapping it is all the work.
-* If the only file for the request is ``<variant>_flax.msgpack`` (or
-  ``<variant>_hf_flax.msgpack``), the loader raises
-  :class:`~focused_attention_vit_tpu_torch.NotPortedError`: JAX would load
-  it, so a warning and a random init would give another result without
-  saying so. The port has no msgpack reader yet (ROADMAP §A 3). When the
-  ``.pth`` is there too the port reads the ``.pth``, from which JAX wrote
-  the msgpack.
+  weights (it has a msgpack reader and no writer): reading the ``.pth``
+  and mapping it is all the work.
 * There is no live download (JAX tries ``torchvision`` with network
   access; the card's machine has neither).
 
@@ -50,10 +50,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from focused_attention_vit_tpu_torch import NotPortedError
 from focused_attention_vit_tpu_torch.convert.checkpoints import (
     hf_vit_to_state_dict,
     torchvision_vit_to_state_dict,
+)
+from focused_attention_vit_tpu_torch.convert.flax_msgpack import read_msgpack
+from focused_attention_vit_tpu_torch.convert.from_jax import (
+    flax_vit_to_state_dict,
 )
 
 logger = logging.getLogger(__name__)
@@ -137,6 +140,10 @@ def load_pretrained_vit_params(
         cache_dir, f"{variant}_hf_flax.msgpack" if hf
         else f"{variant}_flax.msgpack")
 
+    if os.path.exists(msgpack):  # first, as in JAX
+        state = flax_vit_to_state_dict(read_msgpack(msgpack))
+        logger.info("Loaded converted msgpack cache %s", msgpack)
+        return _apply_head_rule(state, num_classes), cfg
     pth = os.path.join(cache_dir, f"{variant}_weights.pth")
     if not hf and os.path.exists(pth):
         logger.info("Loaded cached torch checkpoint %s", pth)
@@ -148,12 +155,6 @@ def load_pretrained_vit_params(
         if sd is not None:
             state = hf_vit_to_state_dict(sd, depth=cfg["depth"])
             return _apply_head_rule(state, num_classes), cfg
-    if os.path.exists(msgpack):
-        raise NotPortedError(
-            f"{msgpack} is a converted Flax cache, which the JAX package "
-            f"would load; the port has no msgpack reader yet (ROADMAP §A 3). "
-            f"Put {variant}_weights.pth beside it"
-        )
     msg = (f"Pretrained weights for {variant!r} unavailable (no cache under "
            f"{cache_dir}, no download in the port)")
     if strict:

@@ -1,10 +1,15 @@
-"""Experiment runners (the JAX package's ``experiments`` names that the port
-has): E1 ``traditional`` and E2 ``sppp``, from scratch; E3
+"""Experiment runners (the JAX package's ``experiments`` names): E1
+``traditional`` and E2 ``sppp``, from scratch; E3
 ``traditional_pretrained``, E4 ``sppp_pretrained``, E5 ``mhla_pretrained``
 and E6 ``sppp_mhla_pretrained``, the fine-tunes from a pretrained ViT
-checkpoint. The cross-attention experiments (E7, E8) are still to be
-ported."""
+checkpoint; and the cross-attention suites E7 and E8
+(:class:`CrossAttentionExperiment` and its two batch runners)."""
 
+from focused_attention_vit_tpu_torch.experiments.attention import (
+    CrossAttentionExperiment,
+    run_cross_attention_experiments,
+    run_multihead_cross_attention_experiments,
+)
 from focused_attention_vit_tpu_torch.experiments.base import ExperimentBase
 from focused_attention_vit_tpu_torch.experiments.mhla_pretrained import (
     PretrainedMHLAViTExperiment,
@@ -27,4 +32,6 @@ from focused_attention_vit_tpu_torch.experiments.traditional_pretrained import (
 __all__ = ["ExperimentBase", "TraditionalViTExperiment", "SPPPExperiment",
            "PretrainedTraditionalViTExperiment", "PretrainedSPPPExperiment",
            "SPPPPretrainedViTExperiment", "PretrainedMHLAViTExperiment",
-           "PretrainedSPPPMHLAExperiment"]
+           "PretrainedSPPPMHLAExperiment", "CrossAttentionExperiment",
+           "run_cross_attention_experiments",
+           "run_multihead_cross_attention_experiments"]

@@ -10,22 +10,29 @@ setup -> train -> evaluate -> save_results -> run and shares:
 * per-epoch progress lines and a one-row CSV in ``results_dir``, written
   with the standard ``csv`` module.
 
-The port runs the experiments named in ``PORTED_EXPERIMENTS``: E1
-``traditional``, E2 ``sppp``, and the pretrained fine-tunes E3
+The port runs the eight experiments of the JAX package: E1
+``traditional``, E2 ``sppp``, the pretrained fine-tunes E3
 ``traditional_pretrained``, E4 ``sppp_pretrained``, E5 ``mhla_pretrained``
 and E6 ``sppp_mhla_pretrained``, which load their weights in the
-:meth:`ExperimentBase.build_params` hook. The experiment runs on the card:
-``device=None`` means CUDA, and ``setup`` raises without it;
-``device="cpu"`` asks for the CPU. The options of the JAX package that the
-port does not have yet (checkpoints, profiles, remat, scan, meshes, a bf16
-first moment, ImageNet) are kept as fields, so that the flag surface stays
-the same, and rejected by name in ``setup``.
+:meth:`ExperimentBase.build_params` hook, and the cross-attention suites E7
+``cross_attention`` and E8 ``multihead_cross_attention``
+(:mod:`.attention`). The experiment runs on the card: ``device=None`` means
+CUDA, and ``setup`` raises without it; ``device="cpu"`` asks for the CPU.
+
+With ``checkpoint_dir`` the run saves its :class:`~..train.TrainState`
+after every epoch (asynchronously unless ``sync_checkpoint``), resumes from
+the latest checkpoint there, and under SIGTERM stops at a batch boundary,
+saves and sets ``preempted`` (the CLI then exits with 143), as JAX's does.
+The options of the JAX package that the port does not have yet (profiles,
+remat, scan, meshes, a bf16 first moment, ImageNet) are kept as fields, so
+that the flag surface stays the same, and rejected by name in ``setup``.
 """
 
 from __future__ import annotations
 
 import csv
 import os
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
@@ -54,8 +61,6 @@ from focused_attention_vit_tpu_torch.utils.metrics import (
 # Fields the JAX package acts on and the port does not yet, with the value
 # that leaves each off. Anything else is rejected by name in setup().
 NOT_PORTED_DEFAULTS = {
-    "checkpoint_dir": None,
-    "sync_checkpoint": False,
     "profile_dir": None,
     "remat": False,
     "remat_policy": None,
@@ -68,16 +73,10 @@ NOT_PORTED_DEFAULTS = {
 }
 
 
-PORTED_EXPERIMENTS = ("traditional", "traditional_pretrained", "sppp",
-                      "sppp_pretrained", "mhla_pretrained",
-                      "sppp_mhla_pretrained")
-
-
 def not_ported(flag: str, value) -> NotPortedError:
     return NotPortedError(
         f"--{flag} {value!r} is not ported yet: the PyTorch port runs the "
-        f"experiments {', '.join(PORTED_EXPERIMENTS)} on one device without "
-        f"it (see ROADMAP.md)"
+        f"experiments on one device without it (see ROADMAP.md)"
     )
 
 
@@ -107,8 +106,8 @@ class ExperimentBase:
     subset_size: Optional[int] = None
     dataset: str = "cifar10"
     seed: int = 42
-    checkpoint_dir: Optional[str] = None  # not ported yet
-    sync_checkpoint: bool = False  # not ported yet
+    checkpoint_dir: Optional[str] = None  # per-epoch TrainState saves
+    sync_checkpoint: bool = False  # block on each save (default: async)
     profile_dir: Optional[str] = None  # not ported yet
     detailed_metrics: bool = True  # AUC + confusion matrix at evaluate()
     compute_dtype: str = "float32"  # 'bfloat16': autocast over f32 params
@@ -131,8 +130,8 @@ class ExperimentBase:
     # change the batch math: it trades speed against live activations.
     microbatch: Optional[int] = None
 
-    # Preemption (SIGTERM -> checkpoint -> exit 143) comes with
-    # checkpointing; until then nothing sets this.
+    # Set by train() when SIGTERM stopped a run with a checkpoint_dir: the
+    # state is saved, run() skips evaluation, the CLI exits with 143.
     preempted: bool = field(default=False, init=False)
 
     # --- subclass hooks -----------------------------------------------------
@@ -338,24 +337,90 @@ class ExperimentBase:
         memory_usage = [self._memory_probe(backward=False)]
         half = self.epochs // 2
 
+        ckpt_mngr = None
+        start_epoch = 0
+        if self.checkpoint_dir:
+            from focused_attention_vit_tpu_torch.train.checkpoint import (
+                CheckpointManager,
+            )
+
+            ckpt_mngr = CheckpointManager(
+                self.checkpoint_dir, async_save=not self.sync_checkpoint)
+            latest = ckpt_mngr.latest_step()
+            if latest is not None:
+                ckpt_mngr.restore(self.state)
+                start_epoch = latest
+                print(f"Resumed from checkpoint epoch {latest}")
+
         def epoch_cb(epoch, state):
-            if epoch == half:
+            # ``epoch`` is local to this (possibly resumed) segment; the
+            # bookkeeping uses the global epoch, so that checkpoints continue
+            # the step numbering and the mid-run probe fires at the run's
+            # midpoint.
+            g = start_epoch + epoch
+            if g == half:
                 self.state = state
                 memory_usage.append(self._memory_probe(backward=True))
+            if ckpt_mngr is not None:
+                ckpt_mngr.save(g + 1, state)
 
-        results = train_and_evaluate(
-            self.state,
-            self.train_step,
-            self.eval_step,
-            self.data,
-            epochs=max(0, self.epochs),
-            batch_size=self.batch_size,
-            seed=self.seed,
-            epoch_callback=epoch_cb,
-        )
-        results.pop("interrupted", None)
-        results.pop("interrupted_mid_epoch", None)
+        # SIGTERM -> checkpoint -> exit 143 needs somewhere to checkpoint;
+        # without a manager the default signal disposition stays.
+        interrupt = None
+        if ckpt_mngr is not None:
+            from focused_attention_vit_tpu_torch.train.resilience import (
+                GracefulShutdown,
+            )
+
+            interrupt = GracefulShutdown()
+
+        with interrupt or nullcontext():
+            results = train_and_evaluate(
+                self.state,
+                self.train_step,
+                self.eval_step,
+                self.data,
+                epochs=max(0, self.epochs - start_epoch),
+                batch_size=self.batch_size,
+                seed=self.seed,
+                epoch_offset=start_epoch,
+                epoch_callback=epoch_cb,
+                should_stop=interrupt,
+            )
+        self.preempted = bool(results.pop("interrupted", False))
+        mid_epoch = bool(results.pop("interrupted_mid_epoch", False))
+        if self.preempted:
+            g_done = start_epoch + len(results["train_losses"])
+            if mid_epoch:
+                # The partial epoch counts as complete (its remaining
+                # batches are skipped on resume): trained work is never
+                # lost, and the resumed run still totals ``epochs``.
+                g_done += 1
+                ckpt_mngr.save(g_done, results["state"])
+            print(
+                f"Preempted (SIGTERM): training stopped at epoch {g_done}"
+                + (" (checkpoint committed); rerun the same command to"
+                   " resume" if g_done > 0
+                   else " (before any training; a rerun starts fresh)")
+            )
+        if ckpt_mngr is not None:
+            ckpt_mngr.close()
         self.state = results.pop("state", self.state)
+        if start_epoch >= self.epochs and self.epochs > 0:
+            # A fully trained checkpoint with nothing left to train: the CSV's
+            # final_val columns describe the restored model.
+            print(
+                f"Checkpoint already at epoch {start_epoch} >= "
+                f"epochs={self.epochs}; skipping training and evaluating "
+                f"the restored model"
+            )
+            val = evaluate(
+                self.eval_step, self.state,
+                self.data["test_images"], self.data["test_labels"],
+                self.batch_size,
+            )
+            results["final_val_acc"] = val["acc"]
+            results["final_val_loss"] = val["loss"]
         memory_usage.append(self._memory_probe(backward=False))
         results["memory_usage"] = memory_usage
         self.metrics["training"] = results
@@ -453,6 +518,12 @@ class ExperimentBase:
         self.setup()
         print("Starting training...")
         self.train()
+        if self.preempted:
+            print(
+                "Experiment preempted — skipping evaluation/results "
+                "(resume with the same command)."
+            )
+            return self.metrics
         print("Evaluating model...")
         self.evaluate()
         print("Saving results...")

@@ -7,6 +7,7 @@ by repeating its first image and the padding dropped on the way out.
 
 from __future__ import annotations
 
+import os
 from collections import deque
 from pathlib import Path
 from typing import Callable, Dict, Tuple
@@ -116,6 +117,38 @@ class Predictor:
 
         model.load_state_dict(load_state_dict(
             path, in_proj_names=isinstance(model, VisionTransformerMHLA)))
+        return cls(model, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, model: torch.nn.Module, checkpoint_dir,
+                        **kw) -> "Predictor":
+        """Load the params-only sidecar of a training checkpoint directory
+        into ``model``, then build the predictor: the port's
+        ``params_latest.pt`` (``train.checkpoint.CheckpointManager``), or,
+        where only a JAX run's ``params_latest.msgpack`` is there, that file
+        through the msgpack reader and :mod:`.convert.from_jax`."""
+        from focused_attention_vit_tpu_torch.train.checkpoint import (
+            PARAMS_FILE,
+            load_params,
+        )
+
+        path = os.path.join(checkpoint_dir, PARAMS_FILE)
+        jax_path = os.path.join(checkpoint_dir, "params_latest.msgpack")
+        if os.path.exists(path):
+            state = load_params(path)
+        elif os.path.exists(jax_path):
+            from focused_attention_vit_tpu_torch.convert.flax_msgpack import (
+                read_msgpack,
+            )
+            from focused_attention_vit_tpu_torch.convert.from_jax import (
+                flax_to_state_dict_for,
+            )
+
+            state = flax_to_state_dict_for(model, read_msgpack(jax_path))
+        else:
+            raise FileNotFoundError(
+                f"no params sidecar at {path} or {jax_path}")
+        model.load_state_dict(state)
         return cls(model, **kw)
 
     @torch.inference_mode()

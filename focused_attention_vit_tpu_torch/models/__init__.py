@@ -1,5 +1,9 @@
 """Models of the port."""
 
+from focused_attention_vit_tpu_torch.models.attention import (
+    CrossAttentionSPPPViT,
+    CrossAttentionViT,
+)
 from focused_attention_vit_tpu_torch.models.mhla_models import (
     PretrainedSPPPViTWithMHLA,
     PretrainedViTWithMHLA,
@@ -11,4 +15,5 @@ from focused_attention_vit_tpu_torch.models.vit_mhla import VisionTransformerMHL
 
 __all__ = ["VisionTransformer", "VisionTransformerMHLA",
            "PretrainedViTWithMHLA", "SPPPViT", "SPPPViTMHLA",
-           "PretrainedSPPPViTWithMHLA"]
+           "PretrainedSPPPViTWithMHLA", "CrossAttentionViT",
+           "CrossAttentionSPPPViT"]

@@ -1,4 +1,4 @@
-"""Building blocks of the dense and the MHLA ViT (port of
+"""Building blocks of the dense, the MHLA and the cross-attention ViTs (port of
 ``focused_attention_vit_tpu/models/layers.py``).
 
 Module and parameter names follow the reference torch layout, so that
@@ -8,14 +8,17 @@ contiguous heads), ``attn.latent_proj``, ``attn.proj``, ``norm1``/``norm2``
 and ``mlp.fc1``/``mlp.fc2``; the dense attention of a switchable block
 carries ``attn.in_proj_weight``, ``attn.in_proj_bias`` and
 ``attn.out_proj`` instead, and the MLP of :class:`MHLATransformerBlock`
-``mlp.0``/``mlp.3``.
+and :class:`CrossAttentionTransformerBlock` ``mlp.0``/``mlp.3``; the
+cross-attention blocks carry ``norm1_query``, ``norm1_kv`` and
+``attn.{q,k,v,out}_proj``.
 
 Numerics follow the JAX package: LayerNorm eps 1e-5, exact (erf) GELU, and
 the attention dispatch of ``MultiHeadAttention`` and
 ``MultiHeadLatentAttention`` by sequence length.
 ``nn.Module.training`` plays the role of JAX's ``deterministic=False``:
 in training mode dropout draws from the :class:`DropoutRNG` a forward is
-given. Attention masks are not ported yet.
+given. The cross-attention layers take an attention mask; the MHLA
+layer does not yet (ROADMAP §A 7).
 """
 
 from __future__ import annotations
@@ -438,3 +441,114 @@ class MHLATransformerBlock(_PreLNBlock):
                 "MHLATransformerBlock: attention masks are not ported yet "
                 "(ROADMAP §A 7)")
         return super().forward(x, rng)
+
+
+def _cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float, mask: torch.Tensor | None,
+                          rate: float, rng: DropoutRNG | None
+                          ) -> torch.Tensor:
+    """Attention over ``[..., S, d]`` q and ``[..., T, d]`` k, v as JAX's
+    cross layers compute it: logits and softmax in f32 with autocast off
+    (JAX asks for ``preferred_element_type=float32``), masked logits set to
+    the most negative finite f32 (a fully masked row gives uniform weights,
+    not NaN), the weights dropped at ``rate``, then cast to v's dtype for
+    the product with V."""
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if mask is not None:
+            logits = torch.where(mask == 0, torch.finfo(torch.float32).min,
+                                 logits)
+        weights = torch.softmax(logits, dim=-1)
+    weights = inverted_dropout(weights, rate, rng)
+    return torch.matmul(weights.to(v.dtype), v)
+
+
+class CrossAttention(nn.Module):
+    """Single-head cross-attention (JAX ``models/layers.py`` :726-767):
+    separate ``q_proj``, ``k_proj`` and ``v_proj``, the logits scaled by
+    ``embed_dim**-0.5`` (the full width, not a head's: the reference's
+    quirk, kept), and ``out_proj``. ``attention_mask`` broadcasts to
+    ``[B, S, T]``; zero entries are masked. In training mode the weights
+    are dropped at ``dropout`` after the softmax; the output is not."""
+
+    def __init__(self, embed_dim: int, dropout: float = 0.0, device=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.dropout = dropout
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, nn.Linear(embed_dim, embed_dim,
+                                          device=device))
+
+    def forward(self, query: torch.Tensor, key_value: torch.Tensor,
+                attention_mask: torch.Tensor | None = None,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        out = _cross_attention_core(
+            self.q_proj(query), self.k_proj(key_value),
+            self.v_proj(key_value), self.embed_dim ** -0.5, attention_mask,
+            self.dropout if self.training else 0.0, rng)
+        return self.out_proj(out)
+
+
+class MultiHeadCrossAttention(CrossAttention):
+    """Multi-head cross-attention (JAX ``models/layers.py`` :770-808): the
+    same projections, split into ``num_heads`` heads scaled by
+    ``head_dim**-0.5``; ``attention_mask`` ``[B, S, T]`` applies to every
+    head."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 device=None):
+        if embed_dim % num_heads:
+            raise ValueError(
+                f"embed_dim {embed_dim} is not divisible by num_heads "
+                f"{num_heads}"
+            )
+        super().__init__(embed_dim, dropout, device=device)
+        self.num_heads = num_heads
+
+    def forward(self, query: torch.Tensor, key_value: torch.Tensor,
+                attention_mask: torch.Tensor | None = None,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        h = self.num_heads
+        q = attn_ops.split_heads(self.q_proj(query), h)
+        k = attn_ops.split_heads(self.k_proj(key_value), h)
+        v = attn_ops.split_heads(self.v_proj(key_value), h)
+        mask = attention_mask[:, None] if attention_mask is not None else None
+        out = _cross_attention_core(
+            q, k, v, q.shape[-1] ** -0.5, mask,
+            self.dropout if self.training else 0.0, rng)
+        return self.out_proj(attn_ops.merge_heads(out))
+
+
+class CrossAttentionTransformerBlock(nn.Module):
+    """Pre-LN cross-attention block (JAX ``models/layers.py`` :811-855):
+    ``query += attn(norm1_query(query), norm1_kv(key_value)); query +=
+    mlp(norm2(query))``, with :class:`MultiHeadCrossAttention` when
+    ``use_multi_head`` else :class:`CrossAttention`, and the MLP under the
+    reference block's ``mlp.0``/``mlp.3``. ``key_value=None`` attends to
+    the query tokens themselves, as the cross-attention ViTs call it."""
+
+    def __init__(self, embed_dim: int, num_heads: int,
+                 mlp_ratio: float = 4.0, dropout: float = 0.0,
+                 attn_dropout: float = 0.0, use_multi_head: bool = False,
+                 device=None):
+        super().__init__()
+        self.norm1_query = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+        self.norm1_kv = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+        if use_multi_head:
+            self.attn = MultiHeadCrossAttention(embed_dim, num_heads,
+                                                attn_dropout, device=device)
+        else:
+            self.attn = CrossAttention(embed_dim, attn_dropout, device=device)
+        self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+        self.mlp = SequentialMLP(embed_dim, int(embed_dim * mlp_ratio),
+                                 dropout, device=device)
+
+    def forward(self, query: torch.Tensor,
+                key_value: torch.Tensor | None = None,
+                attention_mask: torch.Tensor | None = None,
+                rng: DropoutRNG | None = None) -> torch.Tensor:
+        key_value = query if key_value is None else key_value
+        query = query + self.attn(self.norm1_query(query),
+                                  self.norm1_kv(key_value), attention_mask,
+                                  rng)
+        return query + self.mlp(self.norm2(query), rng)

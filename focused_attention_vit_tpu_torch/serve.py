@@ -10,7 +10,10 @@
   ``GET /stats`` give liveness and the coalescer's counters.
 - ``python -m focused_attention_vit_tpu_torch.serve --weights PATH ...``
   serves a model from a ``.pt``/``.pth`` state dict or a ``.npz`` of JAX
-  params (:func:`setup` builds the predictor, :func:`main` serves it).
+  params; ``--checkpoint_dir DIR`` instead serves a training checkpoint
+  directory's params sidecar, the port's ``params_latest.pt`` or a JAX
+  run's ``params_latest.msgpack`` (:func:`setup` builds the predictor,
+  :func:`main` serves it).
 
 ``submit`` is thread-safe; results come back as
 :class:`concurrent.futures.Future`.
@@ -352,9 +355,14 @@ def _parser():
     import argparse
 
     p = argparse.ArgumentParser(description="favit serving front end (PyTorch)")
-    p.add_argument("--weights", type=str, required=True,
-                   help=".pt/.pth state dict (reference torch layout) or "
-                        ".npz of /-joined JAX param paths")
+    source = p.add_mutually_exclusive_group(required=True)
+    source.add_argument("--weights", type=str,
+                        help=".pt/.pth state dict (reference torch layout) "
+                             "or .npz of /-joined JAX param paths")
+    source.add_argument("--checkpoint_dir", type=str,
+                        help="training checkpoint directory: its "
+                             "params_latest.pt, or a JAX run's "
+                             "params_latest.msgpack")
     p.add_argument("--model", choices=["vit", "vit_mhla"],
                    default="vit_mhla",
                    help="vit: dense attention; vit_mhla: windowed latent "
@@ -389,19 +397,24 @@ def setup(argv=None):
     from focused_attention_vit_tpu_torch.infer import Predictor
 
     args = _parser().parse_args(argv)
-    predictor = Predictor.from_weights(
-        _build_model(args), args.weights, img_size=args.img_size,
-        device=args.device, batch_size=args.batch_size,
-        compute_dtype=(torch.bfloat16 if args.compute_dtype == "bfloat16"
-                       else torch.float32),
-    )
+    kw = dict(img_size=args.img_size, device=args.device,
+              batch_size=args.batch_size,
+              compute_dtype=(torch.bfloat16
+                             if args.compute_dtype == "bfloat16"
+                             else torch.float32))
+    if args.checkpoint_dir:
+        predictor = Predictor.from_checkpoint(
+            _build_model(args), args.checkpoint_dir, **kw)
+    else:
+        predictor = Predictor.from_weights(_build_model(args), args.weights,
+                                           **kw)
     predictor.warmup()
     return args, predictor
 
 
 def main(argv=None) -> None:
-    """``python -m focused_attention_vit_tpu_torch.serve --weights ...``:
-    serve HTTP until interrupted."""
+    """``python -m focused_attention_vit_tpu_torch.serve --weights ...``
+    (or ``--checkpoint_dir ...``): serve HTTP until interrupted."""
     args, predictor = setup(argv)
     with BatchingServer(predictor, max_delay_ms=args.max_delay_ms,
                         workers=args.workers) as srv:

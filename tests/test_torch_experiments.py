@@ -224,7 +224,12 @@ def test_experiment_fields_match_jax():
                            "PretrainedSPPPExperiment",
                            "SPPPPretrainedViTExperiment",
                            "PretrainedMHLAViTExperiment",
-                           "PretrainedSPPPMHLAExperiment"]
+                           "PretrainedSPPPMHLAExperiment",
+                           "CrossAttentionExperiment",
+                           "run_cross_attention_experiments",
+                           "run_multihead_cross_attention_experiments"]
+    # Every name JAX exports, E7/E8's runners included.
+    assert set(jexp.__all__) <= set(exp.__all__)
 
 
 def test_e1_csv_has_the_reference_schema(port_e1):
@@ -316,8 +321,6 @@ def test_evaluate_with_the_fused_switch_on_gives_the_same_loss(
 BASE_ARGS = ["--experiment", "traditional", "--device", "cpu"]
 REJECTED = [
     (["--dataset", "imagenet"], "dataset"),
-    (["--checkpoint_dir", "ckpt"], "checkpoint_dir"),
-    (["--sync_checkpoint"], "sync_checkpoint"),
     (["--profile_dir", "prof"], "profile_dir"),
     (["--remat"], "remat"),
     (["--remat_policy", "full"], "remat_policy"),
@@ -343,12 +346,63 @@ def test_cli_rejects_what_is_not_ported(extra, flag, dirs, tmp_path,
     assert not os.path.exists(dirs["results_dir"])  # before anything ran
 
 
-@pytest.mark.parametrize("name", [n for n in cli.EXPERIMENTS
-                                  if n not in cli.PORTED_EXPERIMENTS])
-def test_cli_rejects_the_other_experiments(name, tmp_path, monkeypatch):
+CLI_TINY = ["--device", "cpu", "--img_size", "16", "--patch_size", "4",
+            "--embed_dim", "32", "--depth", "1", "--num_heads", "2",
+            "--batch_size", "32", "--subset_size", "64",
+            "--no_detailed_metrics"]
+
+
+@pytest.mark.parametrize("extra,sync", [
+    (["--checkpoint_dir", "ckpt"], False),
+    (["--checkpoint_dir", "ckpt", "--sync_checkpoint"], True)],
+    ids=["checkpoint_dir", "sync_checkpoint"])
+def test_cli_takes_the_checkpoint_flags(extra, sync, dirs, tmp_path,
+                                        monkeypatch):
+    """Were rejected until checkpointing was ported: each epoch is saved
+    (in the background unless --sync_checkpoint) with the params sidecar,
+    and the CSV is written."""
+    from focused_attention_vit_tpu_torch.train import checkpoint
+
+    seen = []
+    real = checkpoint.CheckpointManager.__init__
+
+    def spy(self, directory, max_to_keep=3, async_save=False):
+        seen.append(async_save)
+        real(self, directory, max_to_keep, async_save)
+
+    monkeypatch.setattr(checkpoint.CheckpointManager, "__init__", spy)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotPortedError, match=f"--experiment '{name}'"):
-        cli.main(["--experiment", name, "--device", "cpu"])
+    e = cli.main(["--experiment", "traditional", *CLI_TINY, "--epochs", "2",
+                  *extra, "--data_dir", dirs["data_dir"], "--results_dir",
+                  dirs["results_dir"]])
+    assert seen == [not sync] and not e.preempted
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "2",
+                                                     "params_latest.pt"]
+    assert os.path.exists(os.path.join(dirs["results_dir"],
+                                       "exp1_traditional.csv"))
+
+
+@pytest.mark.parametrize("name", ["cross_attention",
+                                  "multihead_cross_attention"])
+def test_cli_dispatches_the_cross_attention_suites(name, tmp_path,
+                                                   monkeypatch):
+    """E7 and E8 were rejected until ported: the CLI runs the batch runner,
+    which returns no experiment (so it never exits with 143), and refuses
+    a checkpoint directory that its four runs would share."""
+    calls = []
+    for runner in ("run_cross_attention_experiments",
+                   "run_multihead_cross_attention_experiments"):
+        monkeypatch.setattr(exp, runner,
+                            lambda args, r=runner: calls.append((r, args)))
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["--experiment", name, "--device", "cpu"]) is None
+    want = ("run_multihead_cross_attention_experiments" if "multi" in name
+            else "run_cross_attention_experiments")
+    assert [c[0] for c in calls] == [want]
+    assert calls[0][1].experiment == name
+    with pytest.raises(ValueError, match="--checkpoint_dir"):
+        cli.main(["--experiment", name, "--device", "cpu",
+                  "--checkpoint_dir", "ckpt"])
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -361,6 +415,25 @@ def test_experiment_rejects_what_is_not_ported(flag, value, dirs):
     with pytest.raises(NotPortedError, match=f"--{flag} "):
         e.setup()
     assert not hasattr(e, "model")
+
+
+@pytest.mark.parametrize("flag", ["checkpoint_dir", "sync_checkpoint"])
+def test_experiment_takes_the_checkpoint_fields(flag, dirs, tmp_path):
+    """Were rejected by name until checkpointing was ported: with a
+    checkpoint directory (saves in the background, or blocking with
+    ``sync_checkpoint``) a second run to more epochs resumes from the
+    first's last epoch and trains only the rest."""
+    kw = dict(TINY, device="cpu", detailed_metrics=False, **dirs,
+              checkpoint_dir=str(tmp_path / "ckpt"),
+              sync_checkpoint=flag == "sync_checkpoint")
+    first = exp.TraditionalViTExperiment(**kw)
+    first.run()
+    second = exp.TraditionalViTExperiment(**{**kw, "epochs": 2})
+    second.run()
+    assert len(second.metrics["training"]["train_losses"]) == 1
+    assert second.state.step == 4 and not second.preempted
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "2",
+                                                     "params_latest.pt"]
 
 
 def test_cli_flag_surface_matches_jax():

@@ -1,5 +1,7 @@
 """The band, flash-attention, fused short-S attention and tile-band kernels
-on an NVIDIA Hopper GPU against their plain versions.
+on an NVIDIA Hopper GPU against their plain versions, SLIC and the SPPP
+models on the card, and the checkpoint manager's async snapshot and restore
+there.
 
 Marked ``gpu``: these skip where there is no CUDA device. On a machine with
 the card and without JAX, run them with
@@ -887,3 +889,99 @@ def test_sppp_models_on_the_card_equal_the_cpu(cuda, monkeypatch, name, env,
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     if op is not None:
         assert op.launch_count(kind) == 2
+
+
+# --- checkpoints on the card ------------------------------------------------------
+
+def _ckpt_state(device, seed=0):
+    from focused_attention_vit_tpu_torch import train
+    from focused_attention_vit_tpu_torch.models import VisionTransformer
+
+    model = VisionTransformer(img_size=32, patch_size=8, num_classes=10,
+                              embed_dim=64, depth=2, num_heads=4,
+                              generator=torch.Generator().manual_seed(seed))
+    return train.create_train_state(model, train.make_adamw(1e-3),
+                                    device=device)
+
+
+def _ckpt_step(state, key):
+    import numpy as np
+
+    from focused_attention_vit_tpu_torch import train
+
+    rng = np.random.default_rng(key)
+    u8 = rng.integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, 8)
+    return train.make_train_step(32)(state, u8, y, key)[0]
+
+
+def _host_copy(state):
+    opt = state.tx.adamw.state_dict()["state"]
+    return ({k: v.cpu().clone() for k, v in state.model.state_dict().items()},
+            {(i, n): t.cpu().clone() for i, s in opt.items()
+             for n, t in s.items()})
+
+
+@pytest.mark.parametrize("hold", [False, True], ids=["free", "held"])
+def test_async_snapshot_on_the_card_precedes_the_next_step(
+        cuda, tmp_path, monkeypatch, hold):
+    """``save()`` clones on the training stream and returns; the next step's
+    in-place AdamW update is queued after the clones, so what is written is
+    the state at the call, whether the background pull runs at once or is
+    held until after the step."""
+    import threading
+
+    from focused_attention_vit_tpu_torch.train import checkpoint
+
+    if hold:
+        release = threading.Event()
+        real = checkpoint._pull_to_host
+        monkeypatch.setattr(checkpoint, "_pull_to_host",
+                            lambda *a: (release.wait(30), real(*a))[1])
+    state = _ckpt_step(_ckpt_state(cuda), 0)
+    before = _host_copy(state)
+    # Keep the stream busy, so that the clones are still queued when save()
+    # returns and the next step is queued behind them.
+    x = torch.randn(4096, 4096, device=cuda)
+    for _ in range(20):
+        x = x @ x / 64
+    mngr = checkpoint.CheckpointManager(str(tmp_path), async_save=True)
+    mngr.save(1, state)
+    state = _ckpt_step(state, 1)
+    if hold:
+        torch.cuda.synchronize()
+        release.set()
+    mngr.close()
+    fresh = _ckpt_state("cpu", seed=5)
+    mngr.restore(fresh)
+    got = _host_copy(fresh)
+    after = _host_copy(state)
+    for k, v in before[0].items():
+        assert torch.equal(got[0][k], v), k
+    for k, v in before[1].items():
+        assert torch.equal(got[1][k], v), k
+    assert not torch.equal(after[0]["head.weight"], before[0]["head.weight"])
+
+
+def test_restore_onto_the_card(cuda, tmp_path):
+    """A checkpoint saved from the CPU restores into a state on the card:
+    parameters and AdamW moments on the card and bit-equal, the step
+    counters on the host as AdamW keeps them; the next step runs there."""
+    from focused_attention_vit_tpu_torch.train import checkpoint
+
+    state = _ckpt_step(_ckpt_state("cpu"), 0)
+    mngr = checkpoint.CheckpointManager(str(tmp_path))
+    mngr.save(1, state)
+    on_card = mngr.restore(_ckpt_state(cuda, seed=3))
+    want, got = _host_copy(state), _host_copy(on_card)
+    assert all(p.is_cuda for p in on_card.model.parameters())
+    opt = on_card.tx.adamw.state_dict()["state"]
+    assert all(s["exp_avg"].is_cuda and not s["step"].is_cuda
+               for s in opt.values())
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), k
+    assert (on_card.step, on_card.tx.count) == (1, 1)
+    stepped = _ckpt_step(on_card, 1)
+    assert all(torch.isfinite(p).all() for p in stepped.model.parameters())

@@ -20,11 +20,13 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.cli",
     "focused_attention_vit_tpu_torch.convert.__main__",
     "focused_attention_vit_tpu_torch.convert.checkpoints",
+    "focused_attention_vit_tpu_torch.convert.flax_msgpack",
     "focused_attention_vit_tpu_torch.convert.from_jax",
     "focused_attention_vit_tpu_torch.data.datasets",
     "focused_attention_vit_tpu_torch.data.pipeline",
     "focused_attention_vit_tpu_torch.data.pretrained",
     "focused_attention_vit_tpu_torch.experiments",
+    "focused_attention_vit_tpu_torch.experiments.attention",
     "focused_attention_vit_tpu_torch.experiments.base",
     "focused_attention_vit_tpu_torch.experiments.mhla_pretrained",
     "focused_attention_vit_tpu_torch.experiments.pretrained_common",
@@ -35,6 +37,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.experiments.traditional_pretrained",
     "focused_attention_vit_tpu_torch.infer",
     "focused_attention_vit_tpu_torch.models",
+    "focused_attention_vit_tpu_torch.models.attention",
     "focused_attention_vit_tpu_torch.models.layers",
     "focused_attention_vit_tpu_torch.models.mhla_models",
     "focused_attention_vit_tpu_torch.models.sppp",
@@ -56,6 +59,8 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.ops.window",
     "focused_attention_vit_tpu_torch.serve",
     "focused_attention_vit_tpu_torch.train",
+    "focused_attention_vit_tpu_torch.train.checkpoint",
+    "focused_attention_vit_tpu_torch.train.resilience",
     "focused_attention_vit_tpu_torch.utils.band_ab",
     "focused_attention_vit_tpu_torch.utils.kernel_build",
     "focused_attention_vit_tpu_torch.utils.metrics",
@@ -69,7 +74,8 @@ def test_port_imports_no_jax():
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'focused_attention_vit_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'orbax', "
+        "'focused_attention_vit_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -101,10 +107,12 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources())
 def test_source_names_no_jax_import(path):
     """No source of the port, nor the smoke script, has an import statement
-    of jax, flax, optax or the JAX package (docstrings may name them)."""
+    of jax, flax, optax, msgpack, orbax or the JAX package (docstrings may
+    name them)."""
     import ast
 
-    banned = ("jax", "jaxlib", "flax", "optax", "focused_attention_vit_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax",
+              "focused_attention_vit_tpu")
     for node in ast.walk(ast.parse((REPO / path).read_text())):
         names = []
         if isinstance(node, ast.Import):

@@ -54,6 +54,7 @@ from focused_attention_vit_tpu_torch.experiments.pretrained_common import (
     merge_matching,
 )
 from focused_attention_vit_tpu_torch.models import (
+    CrossAttentionViT,
     PretrainedViTWithMHLA,
     VisionTransformer,
     VisionTransformerMHLA,
@@ -351,10 +352,13 @@ def test_loader_miss_rules(tmp_path, caplog, monkeypatch):
 @pytest.mark.parametrize("source,name", [
     ("torchvision", "tiny_flax.msgpack"),
     ("huggingface", "tiny_hf_flax.msgpack")])
-def test_a_msgpack_only_cache_raises(cache, tmp_path, monkeypatch, source,
-                                     name):
-    """JAX would load a converted msgpack cache; the port cannot read one
-    yet, so it raises instead of falling back to a random init."""
+def test_a_msgpack_only_cache_loads(cache, tmp_path, monkeypatch, source,
+                                   name):
+    """A converted Flax cache that JAX wrote, and nothing else: the port
+    reads it by its own msgpack reader (raised NotPortedError until the
+    reader was ported) and gets the state the ``.pth`` gives, head rule
+    included; with a ``.pth`` beside it the msgpack is read first, as in
+    JAX."""
     monkeypatch.setitem(sys.modules, "transformers", None)  # no HF snapshot
     d = tmp_path / "msgpack_only"
     d.mkdir()
@@ -363,9 +367,18 @@ def test_a_msgpack_only_cache_raises(cache, tmp_path, monkeypatch, source,
     params, _ = jpre.load_pretrained_vit_params("tiny", source=source,
                                                 cache_dir=str(d))
     assert params is not None
-    with pytest.raises(NotPortedError, match="§A 3"):
-        tpre.load_pretrained_vit_params("tiny", source=source,
-                                        cache_dir=str(d))
+    want, _ = tpre.load_pretrained_vit_params("tiny", cache_dir=cache)
+    got, _ = tpre.load_pretrained_vit_params("tiny", source=source,
+                                             cache_dir=str(d))
+    _assert_states_equal(got, want)
+    _assert_states_equal(flax_vit_to_state_dict(params), want)
+    headless, _ = tpre.load_pretrained_vit_params(
+        "tiny", source=source, cache_dir=str(d), num_classes=10)
+    assert "head.weight" not in headless and len(headless) == len(want) - 2
+    torch.save({}, d / "tiny_weights.pth")  # unreadable as a ViT: not read
+    again, _ = tpre.load_pretrained_vit_params("tiny", source=source,
+                                               cache_dir=str(d))
+    _assert_states_equal(again, want)
 
 
 # --- E3 and E5 against JAX ------------------------------------------------------
@@ -599,7 +612,6 @@ def test_cli_runs_the_pretrained_experiments(cache, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("extra,flag", [
-    (["--checkpoint_dir", "ckpt"], "checkpoint_dir"),
     (["--mu_dtype", "bfloat16"], "mu_dtype"),
     (["--remat"], "remat"),
     (["--visualize"], "visualize")])
@@ -611,6 +623,26 @@ def test_cli_rejects_what_is_not_ported(tmp_path, monkeypatch, name, extra,
     with pytest.raises(NotPortedError, match=f"--{flag} .*not ported yet"):
         cli.main(["--experiment", name, "--device", "cpu", *extra])
     assert not (tmp_path / "results").exists()
+
+
+@pytest.mark.parametrize("name", ["traditional_pretrained",
+                                  "mhla_pretrained"])
+def test_cli_takes_checkpoint_dir(cache, tmp_path, monkeypatch, name,
+                                  capsys):
+    """Was rejected until checkpointing was ported: the pretrained run
+    saves its epoch, and the same command to more epochs resumes from the
+    saved state (not from the checkpoint it was fine-tuned from)."""
+    monkeypatch.chdir(tmp_path)
+    os.symlink(cache, tmp_path / "pretrained_weights")
+    argv = ["--experiment", name, *CLI_TINY, "--checkpoint_dir", "ckpt"]
+    first = cli.main(argv)
+    argv[argv.index("--epochs") + 1] = "2"
+    second = cli.main(argv)
+    assert "Resumed from checkpoint epoch 1" in capsys.readouterr().out
+    assert len(second.metrics["training"]["train_losses"]) == 1
+    assert second.state.step == 2 * first.state.step
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "2",
+                                                     "params_latest.pt"]
 
 
 def test_convert_cli(cache, tmp_path, capsys):
@@ -635,13 +667,17 @@ def test_convert_cli(cache, tmp_path, capsys):
     assert torch.equal(one["blocks.0.attn.latent_proj.weight"], torch.eye(16))
     assert "format=torchvision" in capsys.readouterr().out
     # --to sppp converts since the SPPP family was ported
-    # (tests/test_torch_sppp.py); --to cross is still refused.
+    # (tests/test_torch_sppp.py), --to cross since the cross-attention
+    # family was (tests/test_torch_cross_attention.py).
     assert convert_main([src, str(tmp_path / "sppp.pt"), "--to", "sppp",
                          "--depth", "2"]) == 0
     assert "pos_embed" not in torch.load(tmp_path / "sppp.pt",
                                          weights_only=True)
-    with pytest.raises(NotPortedError, match="--to 'cross'"):
-        convert_main([src, str(tmp_path / "x.pt"), "--to", "cross"])
+    assert convert_main([src, str(tmp_path / "x.pt"), "--to", "cross",
+                         "--depth", "2"]) == 0
+    CrossAttentionViT(img_size=224, patch_size=16, num_classes=1000,
+                      embed_dim=64, depth=2, num_heads=4).load_state_dict(
+        torch.load(tmp_path / "x.pt", weights_only=True), strict=True)
 
 
 # --- PretrainedViTWithMHLA -------------------------------------------------------

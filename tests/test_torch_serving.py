@@ -298,8 +298,19 @@ def test_setup_builds_a_predictor_from_argv(tmp_path):
                                atol=1e-6)
 
 
+def test_weights_or_checkpoint_dir_exactly_one(capsys):
+    """``--checkpoint_dir`` was rejected until checkpointing was ported
+    (tests/test_torch_checkpoint.py serves from one); now exactly one of it
+    and ``--weights`` is required."""
+    p = tserve._parser()
+    assert p.parse_args(["--checkpoint_dir", "d"]).checkpoint_dir == "d"
+    for argv in ([], ["--weights", "w.pt", "--checkpoint_dir", "d"]):
+        with pytest.raises(SystemExit):
+            p.parse_args(argv)
+
+
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint_dir", "x"], ["--from_export", "x"],
+    ["--from_export", "x"],
     ["--export_artifact", "x"], ["--num_devices", "2"], ["--tp", "2"],
     ["--model", "sppp"],
 ])

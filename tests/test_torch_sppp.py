@@ -37,7 +37,7 @@ from focused_attention_vit_tpu.ops import (  # the package's re-exports
     dominant_superpixel_per_patch as jax_dominant,
     slic_segment as jax_slic_segment,
 )
-from focused_attention_vit_tpu_torch import NotPortedError, cli
+from focused_attention_vit_tpu_torch import cli
 from focused_attention_vit_tpu_torch import experiments as exp
 from focused_attention_vit_tpu_torch.convert import checkpoints as C
 from focused_attention_vit_tpu_torch.convert.__main__ import (
@@ -393,10 +393,37 @@ def test_cli_runs_the_sppp_experiments(cache, tmp_path, monkeypatch, name,
 
 @pytest.mark.parametrize("name", ["cross_attention",
                                   "multihead_cross_attention"])
-def test_cli_still_rejects_cross_attention(tmp_path, monkeypatch, name):
+def test_cli_runs_cross_attention_sppp(cache, tmp_path, monkeypatch, name):
+    """E7/E8 were rejected until the cross-attention family was ported:
+    their SPPP sub-experiments (B, D) take the CLI's SPPP flags through to
+    ``CrossAttentionSPPPViT`` and write their CSVs (the whole suites are
+    held to JAX in tests/test_torch_cross_attention.py)."""
+    from focused_attention_vit_tpu_torch.experiments import attention
+    from focused_attention_vit_tpu_torch.models import CrossAttentionSPPPViT
+
+    monkeypatch.setattr(attention, "SUITE", tuple(
+        (n, cfg) for n, cfg in attention.SUITE if cfg["use_sppp"]))
+    seen = []
+    real = attention.CrossAttentionExperiment.run
+    monkeypatch.setattr(attention.CrossAttentionExperiment, "run",
+                        lambda self: (seen.append(self), real(self))[1])
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotPortedError, match=f"--experiment '{name}'"):
-        cli.main(["--experiment", name, "--device", "cpu"])
+    os.symlink(cache, tmp_path / "pretrained_weights")
+    assert cli.main(["--experiment", name, *CLI_TINY,
+                     "--num_superpixels", "9", "--pooling_type", "max",
+                     "--slic_connectivity", "off", "--slic_iters", "3",
+                     "--compactness", "0.5"]) is None
+    n = 5 if "multi" in name else 4
+    assert [e.csv_filename for e in seen] == [
+        f"exp{n}_{name}_sppp.csv", f"exp{n}_{name}_pretrained_sppp.csv"]
+    for e in seen:
+        assert type(e.model) is CrossAttentionSPPPViT
+        assert (e.model.num_superpixels, e.model.pooling_type,
+                e.model.slic_connectivity, e.model.slic_iters,
+                e.model.compactness) == (9, "max", False, 3, 0.5)
+        assert e.model.use_multi_head == ("multi" in name)
+        assert os.path.exists(tmp_path / "results" / e.csv_filename)
+    assert seen[1].pretrained_loaded and not seen[0].pretrained_loaded
 
 
 def test_convert_cli_to_sppp(cache, tmp_path, capsys):
@@ -414,5 +441,12 @@ def test_convert_cli_to_sppp(cache, tmp_path, capsys):
                     embed_dim=64, depth=2, num_heads=4)
     model.load_state_dict(state, strict=True)
     assert "to=sppp" in capsys.readouterr().out
-    with pytest.raises(NotPortedError, match="--to 'cross'"):
-        convert_main([src, str(tmp_path / "x.pt"), "--to", "cross"])
+    # --to cross converts since the cross-attention family was ported; with
+    # --drop_pos_embed it gives CrossAttentionSPPPViT's state.
+    assert convert_main([src, str(tmp_path / "x.pt"), "--to", "cross",
+                         "--drop_pos_embed", "--depth", "2"]) == 0
+    from focused_attention_vit_tpu_torch.models import CrossAttentionSPPPViT
+
+    CrossAttentionSPPPViT(img_size=224, patch_size=16, num_classes=1000,
+                          embed_dim=64, depth=2, num_heads=4).load_state_dict(
+        torch.load(tmp_path / "x.pt", weights_only=True), strict=True)
