@@ -15,7 +15,9 @@ pretrained fine-tunes E3 ``traditional_pretrained`` and E5
 see R+1 = 17 tokens), and last the cross-attention suites E7 and E8, E1
 preempted by SIGTERM and resumed from its checkpoint, serving from that
 checkpoint directory and the MHLA-B/4 train state's checkpoint round trip,
-and checks every CUDA kernel on them.
+and checks every CUDA kernel on them. The serving paths are also exported
+(``torch.export``) and served from their artifacts, and the training paths
+run with remat and a bf16 first moment.
 Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: requires CUDA and compute capability 9.0; prints the card's name
@@ -169,6 +171,29 @@ Phases, one or more lines each; any failure raises and exits non-zero:
     state bit for bit, one more step from each bit-equal; the training
     thread's hold, the on-device snapshot, the background pull and write,
     the bytes and the extra peak memory.
+
+Two more phases run inside the sequence above:
+
+34. export, vit-export, tile-export (each right after its serve phase) and
+    e1-fused-export (after e1-train-parity, ViT-B/16 with
+    ``FAVIT_FUSED_MHA=1``): ``serve --weights W --export_artifact DIR`` at
+    full width in bf16, batch 32, then ``serve --from_export DIR``; the
+    artifact's probabilities against the live Predictor's on the same
+    requests (bit for bit expected, 1e-2 the bound), K1, K5, K6 or K3
+    launched 12 x the artifact's forward passes (counted inside the
+    ``favit::`` ops), requests through ``BatchingServer`` and one ``POST
+    /predict``, and a batch timed from the artifact against the live path
+    (CUDA-event medians, in turns);
+35. train-flags and vit-train-flags (after train and vit-train): 12 blocks,
+    batch 32, bf16 autocast, dropout 0.1 (and attention dropout 0.1 on
+    MHLA): the first step with ``remat`` (and ``remat_policy
+    band_weights`` on MHLA) against the step without, loss and gradients
+    within train-parity's tolerances; the training forward launched once a
+    block without remat, twice under full remat and once under
+    ``band_weights``; step time and peak memory of each; the bf16 first
+    moment's AdamW state bytes (three quarters of f32's) and losses against
+    f32's; on MHLA one ``utils.profiling.trace`` of a step, which must name
+    the band kernels.
 
 Every launch count is set to 0 just before its path is driven and read just
 after. The line before the last is a JSON summary of the twelve kernels, each
@@ -3154,6 +3179,291 @@ def phase_e7_e8(tmp: str) -> None:
                f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# --- export ------------------------------------------------------------------
+
+EXPORT_BATCH = 32
+EXPORT_SIZES = (1, 7, 32, 40)  # request sizes; 40 takes two batches
+# Artifact against live, bf16 at 12 blocks: the serve phases' bound on
+# served probabilities (the artifact is expected to equal the live path bit
+# for bit; the bound only stands if it does not).
+EXPORT_PROBS_TOL = 1e-2
+E1_FUSED = ModelPath("e1-fused-", "ViT-B/16 (FAVIT_FUSED_MHA=1)",
+                     VisionTransformer, "vit", fused, "fused", patch=16,
+                     env={"FAVIT_FUSED_MHA": "1"}, idle_ops=(flash, band))
+
+
+def phase_export(path: ModelPath, cpu_model) -> dict:
+    """``serve --export_artifact`` on ``path``'s model at full width with
+    ``cpu_model``'s weights, in bf16 at batch 32 on the card, then ``serve
+    --from_export``: the artifact's probabilities against the live
+    Predictor's on the same requests, its kernel launches (counted inside
+    the ``favit::`` ops) equal 12 x the artifact's forward passes, requests
+    through ``BatchingServer`` and one ``POST /predict``, and a full batch
+    timed from each (CUDA-event medians, in turns). An exported program
+    takes one input shape, the model's 224x224 by default (JAX's rule), so
+    the requests here are 224x224. Returns the artifact's launches and the
+    times."""
+    phase = path.phase("export")
+    rng = np.random.default_rng(6)
+
+    def images(n):
+        return rng.integers(0, 256, size=(n, 224, 224, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "w.pt")
+        torch.save(cpu_model.state_dict(), weights)
+        flags = ["--model", path.flag, "--patch_size", str(path.patch),
+                 "--img_size", "224", "--compute_dtype", "bfloat16",
+                 "--batch_size", str(EXPORT_BATCH), "--weights", weights]
+        art = os.path.join(tmp, "artifact")
+        t0 = time.perf_counter()
+        serve.main([*flags, "--export_artifact", art])
+        t_export = time.perf_counter() - t0
+        with open(os.path.join(art, "meta.json")) as f:
+            meta = json.load(f)
+        size = os.path.getsize(os.path.join(art, "serving_fn.pt2"))
+        t0 = time.perf_counter()
+        _, exported = serve.setup(["--from_export", art])
+        t_load = time.perf_counter() - t0
+        _, live = serve.setup(flags)
+    want_env = {k: path.env.get(k) for k in meta["trace_env"]}
+    if meta["device"] != "cuda" or meta["trace_env"] != want_env or meta[
+            "batch_size"] != EXPORT_BATCH:
+        raise AssertionError(f"{phase}: meta {meta}, expected the cuda "
+                             f"device and the trace environment {want_env}")
+    log(phase, f"{path.name}: serve --export_artifact in {t_export:.1f} s "
+               f"({size / 2**20:.1f} MiB program with its bf16 weights); "
+               f"--from_export load and warm-up {t_load:.1f} s; meta {meta}")
+    reqs = [images(n) for n in EXPORT_SIZES]
+    path.reset_counts()
+    got = [exported.predict_proba(r) for r in reqs]
+    torch.cuda.synchronize()
+    launches = path.op.launch_count()
+    path.check_idle(phase)
+    passes = sum(-(-n // EXPORT_BATCH) for n in EXPORT_SIZES)
+    want = [live.predict_proba(r) for r in reqs]
+    equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+    dp = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    for r, a in zip(reqs, got):
+        _check_probs(a, len(r))
+    log(phase, f"requests of {list(EXPORT_SIZES)} images: artifact against "
+               f"the live Predictor bit-equal: {equal}, max |d probs| {dp:.3g} "
+               f"(tol {EXPORT_PROBS_TOL}); {path.op_name} launches "
+               f"{launches} inside the ops for {passes} forward passes")
+    if dp > EXPORT_PROBS_TOL:
+        raise AssertionError(f"{phase}: the artifact disagrees with the live "
+                             f"path")
+    if launches != DEPTH * passes:
+        raise AssertionError(f"{phase}: {path.op_name} launches {launches} "
+                             f"!= {DEPTH} x {passes} forward passes")
+
+    path.reset_counts()
+    with serve.BatchingServer(exported, max_delay_ms=5.0, workers=2) as srv, \
+            serve.HTTPFrontend(srv, host="127.0.0.1", port=0) as fe:
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            outs = list(pool.map(
+                lambda r: srv.submit(r).result(timeout=300), reqs))
+        http_out = _post(f"http://{fe.host}:{fe.port}", reqs[1])
+    served = max(float(np.abs(a - b).max())
+                 for a, b in zip(outs + [http_out], want + [want[1]]))
+    launches += path.op.launch_count()
+    log(phase, f"BatchingServer ({len(reqs)} concurrent requests) and one "
+               f"POST /predict on the artifact: max |d probs| against the "
+               f"live path {served:.3g} (tol {EXPORT_PROBS_TOL})")
+    if served > EXPORT_PROBS_TOL:
+        raise AssertionError(f"{phase}: served artifact probabilities "
+                             f"disagree with the live path")
+
+    full = images(EXPORT_BATCH)
+    times = {"live": [], "artifact": []}
+    for which in ("live", "artifact", "artifact", "live"):
+        p = live if which == "live" else exported
+        times[which].append(cuda_median_ms(lambda: p._fwd(full), repeats=10,
+                                           warmup=2))
+    live_ms = statistics.mean(times["live"])
+    art_ms = statistics.mean(times["artifact"])
+    log(phase, f"a batch of {EXPORT_BATCH} (uint8 to probs on the card, "
+               f"CUDA-event medians of 10, in turns live, artifact, artifact, "
+               f"live): live {times['live']} ms, artifact "
+               f"{times['artifact']} ms; artifact / live "
+               f"{art_ms / live_ms:.4f}")
+    del live, exported
+    torch.cuda.empty_cache()
+    return {"launches": launches, "live_ms": live_ms, "artifact_ms": art_ms}
+
+
+def phase_export_fused() -> int:
+    """The export phase for ViT-B/16 with the fused short-S attention on
+    (K3's eval forward through ``favit::fused_mha_fwd``)."""
+    cpu_model = E1_FUSED.build(
+        generator=torch.Generator().manual_seed(7)).eval()
+    with _environ(E1_FUSED.env):
+        out = phase_export(E1_FUSED, cpu_model)
+    return out["launches"]
+
+
+# --- train-flags -------------------------------------------------------------
+
+# The bf16 first moment against the f32 one over a few steps from the same
+# state and batches: mean CE losses within this (the moment's rounding,
+# 2^-9 relative, moves each update by about as much).
+MU_LOSS_TOL = 1e-2
+
+
+def _opt_state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size()
+               for st in state.tx.adamw.state.values()
+               for k, t in st.items() if k != "step")
+
+
+def _flags_step(path, remat, policy, u8, y, steps=3, mu_dtype=None,
+                **model_kw):
+    """A fresh model of ``path`` (seed 8) with ``remat``/``remat_policy``:
+    ``steps`` bf16-autocast train steps on one batch after a warm-up step.
+    Returns the first step's loss, grads and launches, and the steady
+    step's ms, peak memory and optimizer-state bytes."""
+    kw = dict(model_kw)
+    if remat:
+        kw["remat"] = True
+    if policy:
+        kw["remat_policy"] = policy
+    model = path.build(device="cuda",
+                       generator=torch.Generator().manual_seed(8), **kw)
+    state = train.create_train_state(model, train.make_adamw(
+        1e-4, mu_dtype=mu_dtype))
+    step = train.make_train_step(224, compute_dtype=torch.bfloat16)
+    path.reset_counts()
+    _, m = step(state, u8, y, 11)
+    torch.cuda.synchronize()
+    launches = {k: path.op.launch_count(k) for k in path.op.LAUNCH_KINDS}
+    out = {"loss": float(m["loss_sum"]) / len(y),
+           "grads": _leaf_grads(model), "launches": launches}
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for j in range(steps):
+        _, m = step(state, u8, y, 12 + j)
+        losses.append(float(m["loss_sum"]) / len(y))
+    torch.cuda.synchronize()
+    out.update(ms=(time.perf_counter() - t0) / steps * 1e3,
+               peak=torch.cuda.max_memory_allocated() / 2**30,
+               losses=losses, opt_bytes=_opt_state_bytes(state))
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grad_parity(ref: dict, got: dict):
+    worst, name = 0.0, ""
+    for n, r in ref.items():
+        bound = PARITY_GRAD_REL * float(r.abs().max()) + PARITY_GRAD_ABS
+        err = float((got[n] - r).abs().max()) / bound
+        if err > worst:
+            worst, name = err, n
+    return worst, name
+
+
+def phase_train_flags(path: ModelPath, policies, profile: bool) -> dict:
+    """``path``'s model (12 blocks, batch 32, bf16 autocast, dropout 0.1,
+    and attention dropout 0.1 where the op drops in its kernel) trained
+    without remat, with full remat and with each of ``policies``: the
+    first step's loss and gradients agree with the no-remat step (the
+    train-parity tolerances), the training forward launches once a block a
+    step without remat, twice under full remat, once under
+    ``band_weights``, and the backward once; step time and peak memory of
+    each. Then the bf16 first moment against the f32 one: the optimizer's
+    state bytes and the losses over four steps. With ``profile``, one
+    ``utils.profiling.trace`` of a step, whose file must name the op's
+    kernels. Returns the launch counts of the remat runs."""
+    from focused_attention_vit_tpu_torch.utils import profiling
+
+    phase = path.phase("train-flags")
+    rng = np.random.default_rng(9)
+    u8 = _images(rng, TRAIN_BATCH)
+    y = rng.integers(0, 10, size=TRAIN_BATCH)
+    model_kw = dict(dropout=TRAIN_DROPOUT)
+    if path is MHLA:
+        model_kw["attn_dropout"] = TRAIN_DROPOUT
+    kind = path.train_fwd_kind
+    runs = {"no remat": (False, None, 1)}
+    runs["remat"] = (True, None, 2)
+    for policy in policies:
+        runs[f"remat {policy}"] = (True, policy, 1)
+    base, total = None, dict.fromkeys(path.op.LAUNCH_KINDS, 0)
+    for label, (remat, policy, fwd_per_block) in runs.items():
+        r = _flags_step(path, remat, policy, u8, y, **model_kw)
+        for k, c in r["launches"].items():
+            if label != "no remat":
+                total[k] += c
+        want = dict.fromkeys(path.op.LAUNCH_KINDS, 0)
+        want[kind] = DEPTH * fwd_per_block
+        want["bwd"] = DEPTH
+        msg = (f"{path.name}, {label}: {r['ms']:.2f} ms a step (host clock, "
+               f"mean of 3 after a warm-up), peak memory {r['peak']:.2f} GiB "
+               f"(max_memory_allocated); first step's launches "
+               f"{r['launches']}")
+        if base is None:
+            base = r
+        else:
+            worst, name = _grad_parity(base["grads"], r["grads"])
+            d_loss = abs(r["loss"] - base["loss"])
+            msg += (f"; against no remat: loss |d| {d_loss:.3g} (tol "
+                    f"{PARITY_LOSS_TOL}), worst gradient leaf "
+                    f"{name or '(all equal)'} at {worst:.3f} of its "
+                    f"tolerance")
+            if d_loss > PARITY_LOSS_TOL or worst > 1.0:
+                raise AssertionError(f"{phase}: {label} disagrees with the "
+                                     f"step without remat")
+        log(phase, msg)
+        if r["launches"] != want:
+            raise AssertionError(f"{phase}: {label}: launches "
+                                 f"{r['launches']} != {want}")
+        path.check_idle(phase)
+        del r
+
+    ref = _flags_step(path, False, None, u8, y, **model_kw)
+    bf16 = _flags_step(path, False, None, u8, y, mu_dtype=torch.bfloat16,
+                       **model_kw)
+    d = max(abs(a - b) for a, b in zip(ref["losses"], bf16["losses"]))
+    ratio = bf16["opt_bytes"] / ref["opt_bytes"]
+    log(phase, f"{path.name}, AdamW state: f32 first moment "
+               f"{ref['opt_bytes']} bytes, bf16 first moment "
+               f"{bf16['opt_bytes']} bytes ({ratio:.4f} of it); losses over "
+               f"steps 2-4 f32 {[round(x, 5) for x in ref['losses']]}, bf16 "
+               f"{[round(x, 5) for x in bf16['losses']]}, max |d| {d:.3g} "
+               f"(tol {MU_LOSS_TOL}); step {ref['ms']:.2f} / "
+               f"{bf16['ms']:.2f} ms, peak {ref['peak']:.2f} / "
+               f"{bf16['peak']:.2f} GiB")
+    if not (np.isfinite(bf16["losses"]).all() and d <= MU_LOSS_TOL
+            and abs(ratio - 0.75) < 1e-3):
+        raise AssertionError(f"{phase}: the bf16 first moment's run is off")
+
+    if profile:
+        with tempfile.TemporaryDirectory() as tmp:
+            model = path.build(depth=2, device="cuda",
+                               generator=torch.Generator().manual_seed(8),
+                               **model_kw)
+            state = train.create_train_state(model, train.make_adamw(1e-4))
+            step = train.make_train_step(224, compute_dtype=torch.bfloat16)
+            step(state, u8, y, 1)
+            with profiling.trace(tmp):
+                step(state, u8, y, 2)
+                torch.cuda.synchronize()
+            trace_path = os.path.join(tmp, profiling.TRACE_FILE)
+            text = open(trace_path).read()
+            names = ("band_fwd_kernel", "band_bwd_query_kernel",
+                     "band_bwd_key_kernel")
+            found = {n: text.count(n) for n in names}
+            log(phase, f"utils.profiling.trace of one 2-block step: "
+                       f"{os.path.getsize(trace_path)} bytes, kernel names "
+                       f"found {found}")
+            if not all(found.values()):
+                raise AssertionError(f"{phase}: the trace does not name the "
+                                     f"band kernels: {found}")
+            del model, state
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -3163,6 +3473,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
     image = _images(rng, 1)
     launches, train_launches = {}, {}
+    exports, flags_launches = {}, {}
     for path, attn_dropout_launches in ((MHLA, True), (DENSE, False)):
         if path is DENSE:
             flash_timing = phase_kernel_flash()
@@ -3171,15 +3482,20 @@ def main() -> None:
         ref_probs = phase_model(path, cpu_model, image)
         torch.cuda.empty_cache()
         launches[path] = phase_serve(path, cpu_model, image, ref_probs)
+        exports[path] = phase_export(path, cpu_model)
         del cpu_model
         torch.cuda.empty_cache()
         phase_train_parity(path)
         train_launches[path] = phase_train(path, attn_dropout_launches)
         torch.cuda.empty_cache()
+        flags_launches[path] = phase_train_flags(
+            path, ("band_weights",) if path is MHLA else (),
+            profile=path is MHLA)
 
     fused_timing = phase_kernel_fused()
     e1_launches = phase_e1()
     phase_e1_parity()
+    fused_export_launches = phase_export_fused()
 
     # The fixture's directory lives until the checkpoint phases have run.
     tmp_dir = tempfile.TemporaryDirectory()
@@ -3201,6 +3517,7 @@ def main() -> None:
         ref_probs = phase_model(TILE, cpu_model, image)
         torch.cuda.empty_cache()
         launches[TILE] = phase_serve(TILE, cpu_model, image, ref_probs)
+        exports[TILE] = phase_export(TILE, cpu_model)
         del cpu_model
         launches[TILE] += phase_tile_serve_b16()
         torch.cuda.empty_cache()
@@ -3218,6 +3535,15 @@ def main() -> None:
     tmp_dir.cleanup()
     ckpt_launches = phase_checkpoint()
 
+    log("export", "a batch of 32 from the artifact against the live path "
+                  "(ms, CUDA-event medians), and the kernel launches of the "
+                  "artifacts (counted inside the favit:: ops, included in "
+                  "the kernels line): " + "; ".join(
+                      f"{p.name} {e['artifact_ms']:.2f} against "
+                      f"{e['live_ms']:.2f}, {p.op_name} {e['launches']}"
+                      for p, e in exports.items())
+        + f"; ViT-B/16 fused {fused_export_launches}")
+
     tpu = "focused_attention_vit_tpu/ops/mhla_band_roll.py"
     tpu_flash = "focused_attention_vit_tpu/ops/flash_attention_pallas.py"
     tpu_fused = "focused_attention_vit_tpu/ops/mha_kernel.py"
@@ -3225,27 +3551,36 @@ def main() -> None:
     kernels = [
         # K1 also serves PretrainedViTWithMHLA (S = 3137) and, under
         # FAVIT_MHLA_IMPL=roll, PretrainedSPPPViTWithMHLA (S = 17), at W = 4.
+        # The eval forwards also run from the serving artifacts (export
+        # phases; counted inside the favit:: ops), and the training forms
+        # and backwards in the train-flags phases (remat).
         ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158",
-         launches[MHLA] + pmhla_launches + psppp_launches, timing["bf16"]),
+         launches[MHLA] + pmhla_launches + psppp_launches
+         + exports[MHLA]["launches"], timing["bf16"]),
         # K1's training form and K2 also run in the checkpoint phase's steps.
         ("mhla_band_fwd_train", band.KERNEL_SOURCE, f"{tpu}:158",
-         train_launches[MHLA]["fwd_train"] + ckpt_launches["fwd_train"],
+         train_launches[MHLA]["fwd_train"] + ckpt_launches["fwd_train"]
+         + flags_launches[MHLA]["fwd_train"],
          train_timing["bf16"]["fwd_train"]),
         ("mhla_band_bwd", band.BWD_KERNEL_SOURCE, f"{tpu}:199",
-         train_launches[MHLA]["bwd"] + ckpt_launches["bwd"],
-         train_timing["bf16"]["bwd"]),
+         train_launches[MHLA]["bwd"] + ckpt_launches["bwd"]
+         + flags_launches[MHLA]["bwd"], train_timing["bf16"]["bwd"]),
         ("flash_attention_fwd", flash.FWD_KERNEL_SOURCE, f"{tpu_flash}:73",
-         launches[DENSE], flash_timing["bf16"]["fwd"]),
+         launches[DENSE] + exports[DENSE]["launches"],
+         flash_timing["bf16"]["fwd"]),
         ("flash_attention_fwd_train", flash.FWD_KERNEL_SOURCE,
-         f"{tpu_flash}:73", train_launches[DENSE]["fwd_train"],
+         f"{tpu_flash}:73", train_launches[DENSE]["fwd_train"]
+         + flags_launches[DENSE]["fwd_train"],
          flash_timing["bf16"]["fwd_train"]),
         ("flash_attention_bwd", flash.BWD_KERNEL_SOURCE, f"{tpu_flash}:73",
-         train_launches[DENSE]["bwd"], flash_timing["bf16"]["bwd"]),
+         train_launches[DENSE]["bwd"] + flags_launches[DENSE]["bwd"],
+         flash_timing["bf16"]["bwd"]),
         # K3/K4 run in E1, E3 and E1 resumed after preemption, with the
-        # fused switch on.
+        # fused switch on; K3's eval forward also from the ViT-B/16
+        # artifact.
         ("fused_mha_fwd", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
-         e1_launches["fwd"] + e3_launches["fwd"] + preempt_launches["fwd"],
-         fused_timing["bf16"]["fwd"]),
+         e1_launches["fwd"] + e3_launches["fwd"] + preempt_launches["fwd"]
+         + fused_export_launches, fused_timing["bf16"]["fwd"]),
         ("fused_mha_fwd_train", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
          e1_launches["fwd_train"] + e3_launches["fwd_train"]
          + preempt_launches["fwd_train"],
@@ -3258,7 +3593,8 @@ def main() -> None:
         # launches are kernel-tileband's.
         ("mhla_tile_band_fwd", tile.KERNEL_SOURCE, f"{tpu_tile}:66",
          launches[TILE] + train_launches[TILE]["fwd"] + e5_launches["fwd"]
-         + e6_launches["fwd"], tile_timing["fwd"]),
+         + e6_launches["fwd"] + exports[TILE]["launches"],
+         tile_timing["fwd"]),
         ("mhla_tile_band_bwd", tile.BWD_KERNEL_SOURCE, f"{tpu_tile}:104",
          train_launches[TILE]["bwd"] + e5_launches["bwd"]
          + e6_launches["bwd"], tile_timing["bwd"]),

@@ -14,8 +14,10 @@ stand-in there). ``--checkpoint_dir`` saves, resumes and handles SIGTERM as
 in JAX: a preempted run exits with code 143 after its checkpoint is
 committed, and the same command resumes it (E7 and E8 run four experiments
 each and take no checkpoint directory). Every other flag of the JAX surface
-is parsed; those the port does not act on yet raise an error that names the
-flag, before anything runs. None is silently ignored. Set
+is parsed; those the port does not act on yet (meshes, ImageNet,
+``--visualize``) raise an error that names the flag, before anything runs.
+None is silently ignored: ``--scan_layers``, which means nothing to an eager
+loop, says so on stderr. Set
 ``FAVIT_FUSED_MHA=1`` to take the fused short-sequence attention kernels
 (``ops/mha_kernel.py``), and ``FAVIT_MHLA_IMPL=shiftband
 FAVIT_USE_PALLAS_MHLA=1`` to take E5's and E6's MHLA through the tile band
@@ -99,8 +101,8 @@ def parse_args(argv=None):
                         help="Global-norm gradient clipping (extension)")
     parser.add_argument("--mu_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="AdamW first-moment dtype; bfloat16 is not "
-                             "ported yet")
+                        help="AdamW first-moment dtype (bfloat16 saves 2 "
+                             "bytes a parameter; optax's rule)")
 
     # Pretrained settings
     parser.add_argument("--pretrained_model_variant", type=str, default="vit_b_16")
@@ -120,15 +122,22 @@ def parse_args(argv=None):
                         help="Block on each checkpoint save (default: the "
                              "save runs in the background)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported yet")
+                        help="Write a torch.profiler trace of the training "
+                             "loop to DIR/trace.json (Perfetto)")
     parser.add_argument("--no_detailed_metrics", action="store_true",
                         help="Skip AUC/confusion-matrix computation")
-    parser.add_argument("--remat", action="store_true", help="not ported yet")
+    parser.add_argument("--remat", action="store_true",
+                        help="Recompute each block's activations in the "
+                             "backward (less memory, more time)")
     parser.add_argument("--remat_policy", type=str, default=None,
                         choices=["full", "band_weights"],
-                        help="not ported yet")
+                        help="What --remat saves (MHLA models): 'full' "
+                             "nothing; 'band_weights' keeps the MHLA band "
+                             "weights across the backward")
     parser.add_argument("--scan_layers", action="store_true",
-                        help="not ported yet")
+                        help="Accepted for the JAX surface and a no-op here: "
+                             "the blocks run in an eager loop (JAX rolls them "
+                             "into one lax.scan); says so on stderr")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
                         help="Compute dtype (bfloat16: autocast over "
@@ -155,8 +164,6 @@ def reject_not_ported(args) -> None:
         raise not_ported("dataset", args.dataset)
     if args.visualize:
         raise not_ported("visualize", True)
-    if args.mu_dtype == "bfloat16":
-        raise not_ported("mu_dtype", args.mu_dtype)
     for flag, off in NOT_PORTED_DEFAULTS.items():
         if getattr(args, flag) != off:
             raise not_ported(flag, getattr(args, flag))

@@ -23,9 +23,14 @@ With ``checkpoint_dir`` the run saves its :class:`~..train.TrainState`
 after every epoch (asynchronously unless ``sync_checkpoint``), resumes from
 the latest checkpoint there, and under SIGTERM stops at a batch boundary,
 saves and sets ``preempted`` (the CLI then exits with 143), as JAX's does.
-The options of the JAX package that the port does not have yet (profiles,
-remat, scan, meshes, a bf16 first moment, ImageNet) are kept as fields, so
-that the flag surface stays the same, and rejected by name in ``setup``.
+``profile_dir`` writes a ``torch.profiler`` trace of the training loop
+(:mod:`..utils.profiling`); ``remat`` and ``remat_policy`` rematerialise the
+blocks of the models that take them (the dense and MHLA ViTs), and
+``mu_dtype="bfloat16"`` keeps AdamW's first moment in bf16, as in JAX;
+``scan_layers`` is accepted and a no-op (the model says so on stderr). The
+options of the JAX package that the port does not have yet (meshes,
+ImageNet) are kept as fields, so that the flag surface stays the same, and
+rejected by name in ``setup``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from focused_attention_vit_tpu_torch.train import (
     make_train_step,
     train_and_evaluate,
 )
+from focused_attention_vit_tpu_torch.utils import profiling
 from focused_attention_vit_tpu_torch.utils.metrics import (
     calculate_model_size,
     calculate_vit_complexity,
@@ -61,10 +67,6 @@ from focused_attention_vit_tpu_torch.utils.metrics import (
 # Fields the JAX package acts on and the port does not yet, with the value
 # that leaves each off. Anything else is rejected by name in setup().
 NOT_PORTED_DEFAULTS = {
-    "profile_dir": None,
-    "remat": False,
-    "remat_policy": None,
-    "scan_layers": False,
     "num_devices": None,
     "fsdp": False,
     "tp": 1,
@@ -108,18 +110,20 @@ class ExperimentBase:
     seed: int = 42
     checkpoint_dir: Optional[str] = None  # per-epoch TrainState saves
     sync_checkpoint: bool = False  # block on each save (default: async)
-    profile_dir: Optional[str] = None  # not ported yet
+    profile_dir: Optional[str] = None  # torch.profiler trace of training
     detailed_metrics: bool = True  # AUC + confusion matrix at evaluate()
     compute_dtype: str = "float32"  # 'bfloat16': autocast over f32 params
-    remat: bool = False  # not ported yet
-    remat_policy: Optional[str] = None  # not ported yet
+    remat: bool = False  # recompute each block's activations in backward
+    # What the per-block remat saves (MHLA models): None/'full' nothing,
+    # 'band_weights' the band's weights (models/layers.resolve_remat_policy).
+    remat_policy: Optional[str] = None
     # LR schedule over the whole run (reference protocol = constant LR;
     # these are opt-in extensions).
     lr_schedule: str = "constant"  # 'constant' | 'cosine'
     warmup_epochs: float = 0.0  # linear warmup, in (fractional) epochs
     grad_clip_norm: Optional[float] = None  # global-norm gradient clipping
-    mu_dtype: str = "float32"  # 'bfloat16' is not ported yet
-    scan_layers: bool = False  # not ported yet
+    mu_dtype: str = "float32"  # 'bfloat16': AdamW's first moment in bf16
+    scan_layers: bool = False  # accepted; a no-op in the port
     num_devices: Optional[int] = None  # not ported yet
     fsdp: bool = False  # not ported yet
     tp: int = 1  # not ported yet
@@ -195,7 +199,7 @@ class ExperimentBase:
         if self.mu_dtype in (None, "float32", "f32"):
             return None
         if self.mu_dtype in ("bfloat16", "bf16"):
-            raise not_ported("mu_dtype", self.mu_dtype)
+            return torch.bfloat16
         raise ValueError(
             f"--mu_dtype must be 'float32' or 'bfloat16', got "
             f"{self.mu_dtype!r}"
@@ -228,6 +232,28 @@ class ExperimentBase:
         if self.dataset == "imagenet":
             raise not_ported("dataset", self.dataset)
         self._mu_dtype()
+
+    def _check_remat_flags(self) -> None:
+        """JAX's rules: ``remat_policy`` only under ``remat``, and each of
+        ``scan_layers``, ``remat`` and a ``remat_policy`` other than
+        ``'full'`` only on a model that has the option."""
+        if self.remat_policy and not self.remat:
+            raise ValueError(
+                "--remat_policy only applies under --remat (it selects "
+                "what the per-block checkpointing saves)"
+            )
+        for flag in ("scan_layers", "remat", "remat_policy"):
+            # 'full' is the explicit spelling of what --remat alone does,
+            # so it is valid on any remat-capable model.
+            if flag == "remat_policy" and self.remat_policy in (None, "full"):
+                continue
+            if getattr(self, flag, False) and not hasattr(self.model, flag):
+                raise ValueError(
+                    f"--{flag} is not supported by "
+                    f"{type(self.model).__name__} (token-reduced SPPP "
+                    f"models have tiny per-block state; the flag targets "
+                    f"the long-sequence transformer stacks)"
+                )
 
     def _resolve_device(self) -> torch.device:
         device = torch.device("cuda" if self.device is None else self.device)
@@ -262,6 +288,7 @@ class ExperimentBase:
             )
             self.num_classes = int(data_classes)
         self.model = self.build_model()
+        self._check_remat_flags()
         self.build_params(self.model)
         self.state = create_train_state(self.model, self.build_optimizer(),
                                         device=self.torch_device)
@@ -374,7 +401,7 @@ class ExperimentBase:
 
             interrupt = GracefulShutdown()
 
-        with interrupt or nullcontext():
+        with profiling.trace(self.profile_dir), (interrupt or nullcontext()):
             results = train_and_evaluate(
                 self.state,
                 self.train_step,

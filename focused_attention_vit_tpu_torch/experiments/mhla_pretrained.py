@@ -65,6 +65,9 @@ class PretrainedMHLAViTExperiment(PretrainedMixin, ExperimentBase):
             dropout=self.dropout,
             attn_dropout=self.attn_dropout,
             embed_dropout=self.embed_dropout,
+            remat=self.remat,
+            remat_policy=self.remat_policy,
+            scan_layers=self.scan_layers,
             device=self.torch_device,
             generator=torch.Generator().manual_seed(self.seed),
         )

@@ -32,6 +32,8 @@ class TraditionalViTExperiment(ExperimentBase):
             dropout=self.dropout,
             attn_dropout=self.attn_dropout,
             embed_dropout=self.embed_dropout,
+            remat=self.remat,
+            scan_layers=self.scan_layers,
             device=self.torch_device,
             generator=torch.Generator().manual_seed(self.seed),
         )

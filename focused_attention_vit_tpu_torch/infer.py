@@ -76,6 +76,34 @@ def load_state_dict(path, in_proj_names: bool | None = None
     raise ValueError(f"weights must be .pt, .pth or .npz, got {path.name}")
 
 
+class ServingModule(torch.nn.Module):
+    """The tensor part of serving: uint8 ``[batch, h, w, C]`` on the
+    model's device to f32 ``[batch, num_classes]`` probabilities. The batch
+    runs in chunks of ``chunk`` images (one chunk when ``chunk`` does not
+    split it), each resized and normalised on the device
+    (:func:`~.data.pipeline.prepare_eval_batch`), classified by ``model``
+    in ``dtype`` and put through an f32 softmax. :class:`Predictor` serves
+    with it and :mod:`.export` exports it, so the two give the same
+    numbers."""
+
+    def __init__(self, model: torch.nn.Module, *, img_size: int,
+                 dtype: torch.dtype, mean, std, chunk: int):
+        super().__init__()
+        self.model = model
+        self.img_size = img_size
+        self.dtype = dtype
+        self.mean, self.std = mean, std
+        self.chunk = chunk
+
+    def forward(self, images_u8: torch.Tensor) -> torch.Tensor:
+        probs = []
+        for xc in images_u8.split(self.chunk):
+            xc = prepare_eval_batch(xc, self.img_size, mean=self.mean,
+                                    std=self.std, dtype=self.dtype)
+            probs.append(torch.softmax(self.model(xc).float(), dim=-1))
+        return torch.cat(probs)
+
+
 class Predictor:
     """Classifier over uint8 NHWC images at a fixed device batch.
 
@@ -103,9 +131,10 @@ class Predictor:
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
         self.num_classes = int(model.num_classes)
-        self._mean, self._std = mean, std
         split = batch_size > chunk and batch_size % chunk == 0
-        self._chunk = chunk if split else batch_size
+        self.serving = ServingModule(
+            self.model, img_size=img_size, dtype=compute_dtype, mean=mean,
+            std=std, chunk=chunk if split else batch_size)
 
     @classmethod
     def from_weights(cls, model: torch.nn.Module, path, **kw) -> "Predictor":
@@ -154,14 +183,7 @@ class Predictor:
     @torch.inference_mode()
     def _fwd(self, images_u8: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
-        probs = []
-        for xc in x.split(self._chunk):
-            xc = prepare_eval_batch(
-                xc, self.img_size, mean=self._mean, std=self._std,
-                dtype=self.compute_dtype,
-            )
-            probs.append(torch.softmax(self.model(xc).float(), dim=-1))
-        return torch.cat(probs)
+        return self.serving(x)
 
     def warmup(self, input_hw: Tuple[int, int] | None = None) -> None:
         """Run one batch of the expected input shape (default the model's

@@ -23,6 +23,7 @@ layer does not yet (ROADMAP §A 7).
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -60,6 +61,83 @@ class DropoutRNG:
         """A seed for an op's in-kernel dropout (the band's, the fused
         attention's), in [0, 2**31 - 1) as the JAX layers draw it."""
         return int(torch.randint(0, 2**31 - 1, (), generator=self.host))
+
+
+def resolve_remat_policy(policy):
+    """Map a model's ``remat_policy`` string to a selective-checkpoint
+    policy for :func:`checkpoint_block` (None: save nothing, classic full
+    remat), as JAX's ``resolve_remat_policy``.
+
+    ``'band_weights'`` saves the MHLA band's post-softmax weights across
+    the forward and the backward, so the recompute skips the band's logits
+    and softmax; everything else is recomputed. The weights come out of
+    ``favit::band_fwd_train`` on the S-minor band (K1's training form, with
+    its output; ``ops/library.py``) and out of the softmax of the plain
+    bands (the dense band at S <= 512, the gather form, the shift band),
+    the only softmax of an MHLA block."""
+    if policy in (None, "full"):
+        return None
+    if policy == "band_weights":
+        return _save_band_weights
+    raise ValueError(
+        f"unknown remat_policy {policy!r} (expected None, 'full', or "
+        "'band_weights')"
+    )
+
+
+def _save_band_weights(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.favit.band_fwd_train.default,
+              torch.ops.aten._softmax.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _generator_states(rng: "DropoutRNG | None"):
+    gens = [] if rng is None else [g for g in (rng.device, rng.host)
+                                   if g is not None]
+    return gens, [g.get_state() for g in gens]
+
+
+def checkpoint_block(block: nn.Module, x: torch.Tensor,
+                     rng: "DropoutRNG | None", policy=None) -> torch.Tensor:
+    """``block(x, rng=rng)`` under ``torch.utils.checkpoint`` (non-
+    reentrant): its activations are recomputed in the backward, all but
+    what ``policy`` (:func:`resolve_remat_policy`) saves.
+
+    The dropout masks and the band's seeds come from ``rng``'s explicit
+    generators, which checkpoint does not restore (it restores torch's
+    default ones, which a forward given no rng draws from). So their
+    states are taken on entry; the recompute runs from them and puts back
+    the states it found, so that it draws the forward's masks and seeds
+    and leaves the generators where the forward left them."""
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    gens, entry = _generator_states(rng)
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1:
+            return block(x, rng=rng)
+        _, now = _generator_states(rng)
+        for g, st in zip(gens, entry):
+            g.set_state(st)
+        try:
+            return block(x, rng=rng)
+        finally:
+            for g, st in zip(gens, now):
+                g.set_state(st)
+
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    return checkpoint(run, x, use_reentrant=False, **kw)
 
 
 def inverted_dropout(x: torch.Tensor, rate: float,

@@ -1,9 +1,14 @@
 """Dense Vision Transformer (port of
 ``focused_attention_vit_tpu/models/vit.py``), and the stem and head that
 :class:`~.vit_mhla.VisionTransformerMHLA` shares with it: a plain loop over
-the blocks, no scan, remat or pipeline parallelism."""
+the blocks, each optionally rematerialised (``remat``); no pipeline
+parallelism. ``scan_layers`` is accepted and does nothing: JAX rolls the
+blocks into one ``lax.scan`` to shrink its XLA program and to feed its
+pipeline, and an eager loop has neither need."""
 
 from __future__ import annotations
+
+import sys
 
 import torch
 from torch import nn
@@ -12,9 +17,14 @@ from focused_attention_vit_tpu_torch.models.layers import (
     DropoutRNG,
     PatchEmbedding,
     TransformerBlock,
+    checkpoint_block,
     init_weights,
     inverted_dropout,
 )
+
+SCAN_LAYERS_NOTE = (
+    "scan_layers: a no-op in the PyTorch port (the blocks run in an eager "
+    "loop; JAX's lax.scan over depth has no counterpart here)")
 
 
 class ViTBase(nn.Module):
@@ -32,13 +42,26 @@ class ViTBase(nn.Module):
     In training mode (``model.train()``) ``embed_dropout`` applies after
     the position embedding and the blocks apply their own rates, all drawn
     from the :class:`~.layers.DropoutRNG` passed to :meth:`forward`.
+
+    With ``remat`` a training forward under autograd runs each block under
+    :func:`~.layers.checkpoint_block` (JAX's per-block ``nn.remat``),
+    saving what ``remat_context`` (a policy of
+    :func:`~.layers.resolve_remat_policy`) names; ``scan_layers`` prints
+    :data:`SCAN_LAYERS_NOTE` to stderr and changes nothing.
     """
 
     def __init__(self, make_block, *, img_size: int, patch_size: int,
                  in_channels: int, num_classes: int, embed_dim: int,
                  depth: int, num_heads: int, embed_dropout: float, device,
-                 generator: torch.Generator | None):
+                 generator: torch.Generator | None, remat: bool = False,
+                 remat_context=None, scan_layers: bool = False):
         super().__init__()
+        # Private: only the models that take the options in JAX expose
+        # ``remat`` and ``scan_layers`` (the experiments read them).
+        self._remat = remat
+        self._remat_context = remat_context
+        if scan_layers:
+            print(SCAN_LAYERS_NOTE, file=sys.stderr, flush=True)
         if img_size % patch_size:
             raise ValueError(
                 f"patch_size {patch_size} must divide img_size {img_size}"
@@ -85,8 +108,12 @@ class ViTBase(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         x = inverted_dropout(
             x, self.embed_dropout if self.training else 0.0, rng)
+        remat = self._remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, rng=rng)
+            if remat:
+                x = checkpoint_block(block, x, rng, self._remat_context)
+            else:
+                x = block(x, rng=rng)
         return self.norm(x)[:, 0]
 
     def forward(self, images: torch.Tensor,
@@ -100,7 +127,9 @@ class VisionTransformer(ViTBase):
     to the attention weights and the attention output, ``embed_dropout``
     after the position embedding. ``use_flash=None`` takes the flash op
     from 512 tokens on (patch 4 on 224x224 gives S = 3137); True or False
-    forces either path."""
+    forces either path. ``remat`` rematerialises each block in training
+    (full remat: JAX's dense ViT takes no policy); ``scan_layers`` is a
+    no-op (module docstring)."""
 
     def __init__(
         self,
@@ -116,6 +145,8 @@ class VisionTransformer(ViTBase):
         attn_dropout: float = 0.0,
         embed_dropout: float = 0.0,
         use_flash: bool | None = None,
+        remat: bool = False,
+        scan_layers: bool = False,
         *,
         device=None,
         generator: torch.Generator | None = None,
@@ -128,4 +159,7 @@ class VisionTransformer(ViTBase):
             in_channels=in_channels, num_classes=num_classes,
             embed_dim=embed_dim, depth=depth, num_heads=num_heads,
             embed_dropout=embed_dropout, device=device, generator=generator,
+            remat=remat, scan_layers=scan_layers,
         )
+        self.remat = remat
+        self.scan_layers = scan_layers

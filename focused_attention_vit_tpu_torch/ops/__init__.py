@@ -7,3 +7,7 @@ segment pooling (``segment_pool``) and the encodings (``posenc``).
 
 Unlike the JAX package, this package re-exports no function: the function
 ``segment_pool`` would shadow its module of the same name."""
+
+# Registers the kernels' forwards as ``favit::`` operators (ops/library.py);
+# the op modules call them at run time.
+from focused_attention_vit_tpu_torch.ops import library  # noqa: E402,F401

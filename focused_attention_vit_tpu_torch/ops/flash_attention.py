@@ -12,7 +12,8 @@ it runs the kernel's plain version. There is no fallback from a kernel to a
 plain version.
 
 - eval forward: ``csrc/flash_attention_fwd.cu``, launch count ``"fwd"``,
-  plain version :func:`plain_flash_forward`;
+  plain version :func:`plain_flash_forward`, through the
+  ``favit::flash_fwd`` operator (``ops/library.py``);
 - training forward, which also writes ``lse = m + log l`` (f32
   ``[B, h, S]``): the same source, ``"fwd_train"``, the same plain version;
 - backward (dq, dk, dv from q, k, v, out, lse and the cotangent): the three
@@ -125,7 +126,13 @@ def _check_layout(**tensors: torch.Tensor) -> None:
     for name, x in tensors.items():
         if not x.is_contiguous():
             raise ValueError(f"flash op needs contiguous [B, h, S, d] {name}")
-        if x.device.type == "cuda" and x.data_ptr() % 16:
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """The kernels' 16-byte alignment, checked where they launch: a fake
+    tensor that ``torch.export`` traces has no address."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
             raise ValueError(f"flash op needs 16-byte aligned {name}")
 
 
@@ -203,6 +210,7 @@ def plain_flash_backward(q, k, v, out, lse, g, chunk: int = DEFAULT_CHUNK):
 
 
 def _launch_forward(q, k, v, save: bool):
+    _check_aligned(q=q, k=k, v=v)
     b, h, s, _ = q.shape
     fn = _kernel("flash_attention_fwd")
     out = torch.empty_like(q)
@@ -246,6 +254,7 @@ def flash_backward(q, k, v, out, lse, g, chunk: int = DEFAULT_CHUNK):
     _check_layout(out=out, g=g, lse=lse)
     if q.device.type == "cpu":
         return plain_flash_backward(q, k, v, out, lse, g, chunk)
+    _check_aligned(q=q, k=k, v=v, out=out, g=g, lse=lse)
     fn = _kernel("flash_attention_bwd")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
@@ -290,9 +299,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
         return _FlashFunction.apply(q, k, v, chunk)
-    if q.device.type == "cpu":
-        return plain_flash_forward(q, k, v, chunk)[0]
-    return _launch_forward(q, k, v, save=False)[0]
+    # The eval forward: the favit::flash_fwd operator (ops/library.py).
+    return torch.ops.favit.flash_fwd(q, k, v, chunk)
 
 
 # --- attention-weight dropout at long S --------------------------------------

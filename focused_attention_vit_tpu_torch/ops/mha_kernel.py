@@ -15,7 +15,8 @@ hand-written kernel or raises; on a CPU tensor it runs the kernel's plain
 version. There is no fallback from a kernel to a plain version.
 
 - eval forward: ``csrc/fused_mha_fwd.cu``, launch count ``"fwd"``, plain
-  version :func:`plain_fused_mha_forward`;
+  version :func:`plain_fused_mha_forward`, through the
+  ``favit::fused_mha_fwd`` operator (``ops/library.py``);
 - training forward (dropout drawn in the kernel; also writes the
   log-sum-exp, f32 ``[B, h, S]``): the same source, ``"fwd_train"``, the
   same plain version;
@@ -157,7 +158,13 @@ def _check_layout(**tensors: torch.Tensor) -> None:
     for name, x in tensors.items():
         if not x.is_contiguous():
             raise ValueError(f"fused attention needs contiguous {name}")
-        if x.device.type == "cuda" and x.data_ptr() % 16:
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """The kernels' 16-byte alignment, checked where they launch: a fake
+    tensor that ``torch.export`` traces has no address."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
             raise ValueError(f"fused attention needs 16-byte aligned {name}")
 
 
@@ -263,6 +270,7 @@ def plain_fused_mha_backward(q, k, v, g, rate: float = 0.0,
 
 
 def _launch_forward(q, k, v, rate: float, seed: int, save: bool):
+    _check_aligned(q=q, k=k, v=v)
     b, h, s, _ = q.shape
     fn = _kernel("fused_mha_fwd", "fused_mha_fwd")
     out = torch.empty_like(q)
@@ -312,6 +320,7 @@ def fused_mha_backward(q, k, v, out, lse, g, rate: float = 0.0,
     _check_layout(out=out, g=g, lse=lse)
     if q.device.type == "cpu":
         return plain_fused_mha_backward(q, k, v, g, rate, seed)
+    _check_aligned(q=q, k=k, v=v, out=out, g=g, lse=lse)
     fn = _kernel("fused_mha_bwd", "fused_mha_bwd")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
@@ -379,6 +388,6 @@ def fused_multi_head_attention(
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
         return _FusedFunction.apply(q, k, v, rate, seed)
-    if q.device.type == "cpu":
-        return plain_fused_mha_forward(q, k, v, rate, seed)[0]
-    return _launch_forward(q, k, v, rate, seed, save=False)[0]
+    # The eval forward: the favit::fused_mha_fwd operator (ops/library.py).
+    return torch.ops.favit.fused_mha_fwd(q, k, v, rate, seed & 0xFFFFFFFF,
+                                         seed >> 32)

@@ -10,7 +10,8 @@ kernel's plain version. There is no fallback from a kernel to a plain
 version.
 
 - eval forward: ``csrc/mhla_band_fwd.cu``, launch count ``"fwd"``, plain
-  version :data:`plain_banded_attention`;
+  version :data:`plain_banded_attention`, through the ``favit::band_fwd``
+  operator (``ops/library.py``);
 - training forward, which also saves the pre-dropout weights: the same
   source, ``"fwd_train"``, :func:`plain_band_forward_train`;
 - backward (dq, dk, dv): ``csrc/mhla_band_bwd.cu``, ``"bwd"``,
@@ -259,22 +260,17 @@ def _launch_forward(q, k, v, w: int, rate: float, seed: int, save: bool):
     return out, wts
 
 
-def _forward_no_grad(q, k, v, w: int, rate: float, seed: int):
-    if q.device.type == "cpu":
-        return plain_band_forward_train(q, k, v, w, rate, seed)[0]
-    return _launch_forward(q, k, v, w, rate, seed, save=False)[0]
-
-
 def band_forward_train(q, k, v, window_size: int, rate: float = 0.0,
                        seed: int | None = None):
     """The training forward: ``(out, wts)`` as
-    :func:`plain_band_forward_train`; on a CUDA tensor the kernel writes
-    them, on a CPU tensor the plain version does."""
+    :func:`plain_band_forward_train`, through the ``favit::band_fwd_train``
+    operator; on a CUDA tensor the kernel writes them, on a CPU tensor the
+    plain version does."""
     _check(q, k, v, window_size)
     rate, seed = _dropout_args(rate, seed)
-    if q.device.type == "cpu":
-        return plain_band_forward_train(q, k, v, window_size, rate, seed)
-    return _launch_forward(q, k, v, window_size, rate, seed, save=True)
+    out, wts = torch.ops.favit.band_fwd_train(
+        q, k, v, window_size, rate, seed & 0xFFFFFFFF, seed >> 32)
+    return out, wts
 
 
 def band_backward(q, k, v, g, wts, window_size: int, rate: float = 0.0,
@@ -337,8 +333,10 @@ def keep_bits(rows: int, window_size: int, seq_len: int, seed: int,
 
 
 class _BandFunction(torch.autograd.Function):
-    """The band op under autograd: the training forward saves q, k, v and
-    the pre-dropout weights; the backward regenerates the mask."""
+    """The band op under autograd: the training forward (the
+    ``favit::band_fwd_train`` operator, which a remat policy can name)
+    saves q, k, v and the pre-dropout weights; the backward regenerates the
+    mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, window_size, rate, seed):
@@ -371,4 +369,6 @@ def roll_banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
         return _BandFunction.apply(q, k, v, window_size, rate, seed)
-    return _forward_no_grad(q, k, v, window_size, rate, seed)
+    # The eval forward: the favit::band_fwd operator (ops/library.py).
+    return torch.ops.favit.band_fwd(q, k, v, window_size, rate,
+                                    seed & 0xFFFFFFFF, seed >> 32)

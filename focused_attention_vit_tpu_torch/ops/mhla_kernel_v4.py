@@ -43,6 +43,8 @@ import threading
 import numpy as np
 import torch
 
+from focused_attention_vit_tpu_torch.ops.window import real_constants
+
 KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/mhla_tile_band_fwd.cu"
 BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/mhla_tile_band_bwd.cu"
 DEFAULT_BLOCK = 256
@@ -179,12 +181,12 @@ def plain_tile_band_backward(q, k, v, g, window_size: int):
 def _fold_index(seq_len: int, hw: int, device: torch.device):
     """For :func:`_edge_fold`: the first and last ``hw`` query rows, the
     clamped key row of each of their ``2*hw + 1`` positions, and 1.0 where
-    that position is out of range. Cached on ``device`` (made outside
-    inference mode, so that a later autograd pass may use them)."""
+    that position is out of range. Cached on ``device``, made by
+    :func:`.window.real_constants`."""
     rows = np.r_[0:hw, seq_len - hw:seq_len]
     pos = rows[:, None] + np.arange(-hw, hw + 1)[None, :]
     idx = np.clip(pos, 0, seq_len - 1)
-    with torch.inference_mode(False):
+    with real_constants():
         return (torch.as_tensor(rows, device=device),
                 torch.as_tensor(idx, device=device),
                 torch.as_tensor((pos != idx).astype(np.float32),
@@ -312,13 +314,7 @@ def _check_launch(err: int, what: str, q: torch.Tensor, w: int) -> None:
                            f"(shape {tuple(q.shape)}, W={w}, {q.dtype})")
 
 
-def tile_band_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      window_size: int) -> torch.Tensor:
-    """K6 on ``[BH, S, d]``: the kernel on a CUDA tensor, its plain version
-    on a CPU tensor."""
-    _check_rows((q, k, v), window_size, "tile band forward")
-    if q.device.type == "cpu":
-        return plain_tile_band_forward(q, k, v, window_size)
+def _launch_forward(q, k, v, window_size: int) -> torch.Tensor:
     bh, s, d = q.shape
     out = torch.empty_like(q)
     fn = _kernel("mhla_tile_band_fwd", "mhla_tile_band_fwd")
@@ -327,6 +323,15 @@ def tile_band_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_launch(err, "mhla_tile_band_fwd", q, window_size)
     _count("fwd")
     return out
+
+
+def tile_band_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window_size: int) -> torch.Tensor:
+    """K6 on ``[BH, S, d]`` through the ``favit::tile_band_fwd`` operator
+    (``ops/library.py``): the kernel on a CUDA tensor, its plain version on
+    a CPU tensor."""
+    _check_rows((q, k, v), window_size, "tile band forward")
+    return torch.ops.favit.tile_band_fwd(q, k, v, window_size)
 
 
 def tile_band_backward(q, k, v, g, window_size: int):
@@ -407,9 +412,11 @@ def banded_attention_v4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     depend on it, and the kernel tiles the queries by 64 of its own."""
     _check_block(block)
     b, h, s, d = q.shape
-    out = _TileBandFunction.apply(
-        *(x.reshape(b * h, s, d).contiguous() for x in (q, k, v)),
-        window_size)
+    rows = [x.reshape(b * h, s, d).contiguous() for x in (q, k, v)]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in rows):
+        out = _TileBandFunction.apply(*rows, window_size)
+    else:
+        out = tile_band_forward(*rows, window_size)
     return out.view(b, h, s, d)
 
 

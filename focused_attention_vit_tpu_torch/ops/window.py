@@ -32,6 +32,7 @@ layer (JAX ``ops/window.py``). Attention masks are not ported.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 
@@ -223,6 +224,18 @@ def windowed_latent_attention_ds(
     return roll_banded_attention(q, k, v, window_size, dropout)
 
 
+@contextlib.contextmanager
+def real_constants():
+    """Make a cached tensor constant as a real tensor outside inference
+    mode: a later autograd pass may save it, and a first call while
+    ``torch.export`` traces (under fake tensors) does not leave a fake
+    tensor in the cache for every later call."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily(), torch.inference_mode(False):
+        yield
+
+
 @functools.lru_cache(maxsize=64)
 def _edge_slab_index(seq_len: int, window_size: int, device: torch.device):
     """Indices of the exact edge rows, on ``device``: ``q_rows`` the first
@@ -230,8 +243,7 @@ def _edge_slab_index(seq_len: int, window_size: int, device: torch.device):
     reference windows read (keys 0..W-1 and S-1 for the left edge, key 0
     and keys S-W..S-1 for the right); ``slots`` ``[2*(W//2), W]``, each
     window as positions in that slab. Cached, so that a call copies nothing
-    from the host, and made outside inference mode, so that a later
-    autograd pass may save them."""
+    from the host, and made by :func:`real_constants`."""
     s, w = seq_len, window_size
     hw = w // 2
     table = window_index_table(s, w)
@@ -240,7 +252,7 @@ def _edge_slab_index(seq_len: int, window_size: int, device: torch.device):
     right = np.where(rtab == 0, w + 1, rtab - (s - w) + w + 2)
     q_rows = np.r_[0:hw, s - hw:s]
     k_rows = np.r_[0:w, s - 1, 0, s - w:s]
-    with torch.inference_mode(False):
+    with real_constants():
         return tuple(torch.as_tensor(x, dtype=torch.long, device=device)
                      for x in (q_rows, k_rows, np.concatenate([left, right])))
 

@@ -13,7 +13,9 @@
   params; ``--checkpoint_dir DIR`` instead serves a training checkpoint
   directory's params sidecar, the port's ``params_latest.pt`` or a JAX
   run's ``params_latest.msgpack`` (:func:`setup` builds the predictor,
-  :func:`main` serves it).
+  :func:`main` serves it); ``--export_artifact DIR`` writes the
+  predictor's serving artifact (:mod:`.export`) instead of serving, and
+  ``--from_export DIR`` serves such an artifact.
 
 ``submit`` is thread-safe; results come back as
 :class:`concurrent.futures.Future`.
@@ -354,15 +356,42 @@ def _build_model(args):
 def _parser():
     import argparse
 
-    p = argparse.ArgumentParser(description="favit serving front end (PyTorch)")
-    source = p.add_mutually_exclusive_group(required=True)
-    source.add_argument("--weights", type=str,
-                        help=".pt/.pth state dict (reference torch layout) "
-                             "or .npz of /-joined JAX param paths")
-    source.add_argument("--checkpoint_dir", type=str,
-                        help="training checkpoint directory: its "
-                             "params_latest.pt, or a JAX run's "
-                             "params_latest.msgpack")
+    class Parser(argparse.ArgumentParser):
+        """Exactly one weights source; an artifact is served as it is
+        (JAX ``serve.py``'s rules, with ``--weights`` beside
+        ``--checkpoint_dir``)."""
+
+        def parse_args(self, args=None, namespace=None):
+            a = super().parse_args(args, namespace)
+            if a.from_export:
+                for flag in ("export_artifact", "checkpoint_dir", "weights"):
+                    if getattr(a, flag):
+                        self.error(
+                            f"--from_export and --{flag} are exclusive: the "
+                            f"artifact carries its own program and weights")
+            elif not (a.weights or a.checkpoint_dir):
+                self.error("one of --weights, --checkpoint_dir or "
+                           "--from_export is required")
+            elif a.weights and a.checkpoint_dir:
+                self.error("--weights and --checkpoint_dir are exclusive")
+            return a
+
+    p = Parser(description="favit serving front end (PyTorch)")
+    p.add_argument("--weights", type=str,
+                   help=".pt/.pth state dict (reference torch layout) or "
+                        ".npz of /-joined JAX param paths")
+    p.add_argument("--checkpoint_dir", type=str,
+                   help="training checkpoint directory: its "
+                        "params_latest.pt, or a JAX run's "
+                        "params_latest.msgpack")
+    p.add_argument("--from_export", type=str, default=None, metavar="DIR",
+                   help="serve a torch.export artifact directory "
+                        "(export.save_serving_artifact): no model class or "
+                        "weights needed; the model flags are ignored")
+    p.add_argument("--export_artifact", type=str, default=None,
+                   metavar="DIR",
+                   help="instead of serving: write the serving program and "
+                        "its weights to DIR, print its path and exit")
     p.add_argument("--model", choices=["vit", "vit_mhla"],
                    default="vit_mhla",
                    help="vit: dense attention; vit_mhla: windowed latent "
@@ -390,13 +419,24 @@ def _parser():
 
 
 def setup(argv=None):
-    """Parse serving flags, load the weights and build a warmed-up
-    :class:`~.infer.Predictor`. Returns ``(args, predictor)``."""
+    """Parse serving flags and build the predictor: with ``--from_export``
+    the artifact's :class:`~.export.ExportedPredictor`, else a
+    :class:`~.infer.Predictor` from the weights, warmed up unless
+    ``--export_artifact`` asks for an artifact instead. Returns
+    ``(args, predictor)``."""
     import torch
 
     from focused_attention_vit_tpu_torch.infer import Predictor
 
     args = _parser().parse_args(argv)
+    if args.from_export:
+        from focused_attention_vit_tpu_torch.export import (
+            load_serving_artifact,
+        )
+
+        predictor = load_serving_artifact(args.from_export)
+        predictor.warmup()
+        return args, predictor
     kw = dict(img_size=args.img_size, device=args.device,
               batch_size=args.batch_size,
               compute_dtype=(torch.bfloat16
@@ -408,20 +448,32 @@ def setup(argv=None):
     else:
         predictor = Predictor.from_weights(_build_model(args), args.weights,
                                            **kw)
-    predictor.warmup()
+    if not args.export_artifact:
+        predictor.warmup()
     return args, predictor
 
 
 def main(argv=None) -> None:
     """``python -m focused_attention_vit_tpu_torch.serve --weights ...``
-    (or ``--checkpoint_dir ...``): serve HTTP until interrupted."""
+    (or ``--checkpoint_dir ...``, or ``--from_export DIR``): serve HTTP
+    until interrupted; with ``--export_artifact DIR`` write the serving
+    artifact instead and exit."""
     args, predictor = setup(argv)
+    if args.export_artifact:
+        from focused_attention_vit_tpu_torch.export import (
+            save_serving_artifact,
+        )
+
+        out = save_serving_artifact(predictor, args.export_artifact)
+        print(f"serving artifact written to {out}", flush=True)
+        return
     with BatchingServer(predictor, max_delay_ms=args.max_delay_ms,
                         workers=args.workers) as srv:
         with HTTPFrontend(srv, host=args.host, port=args.port) as fe:
             print(f"serving on http://{fe.host}:{fe.port} "
                   f"(POST /predict, GET /stats, GET /healthz; "
-                  f"batch {args.batch_size}, {predictor.device})", flush=True)
+                  f"batch {predictor.batch_size}, {predictor.device})",
+                  flush=True)
             try:
                 while True:
                     time.sleep(3600)

@@ -8,7 +8,9 @@ transformation is not bound to parameters; a torch optimizer is. So the
 factories here return an :class:`OptimizerSpec`, the recipe, and
 :func:`create_train_state` binds it to a model's parameters as an
 :class:`Optimizer` around ``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8,
-decoupled weight decay: optax's defaults and update rule).
+decoupled weight decay: optax's defaults and update rule), or, for a bf16
+first moment (``mu_dtype``), around :class:`MuDtypeAdamW`, which follows
+optax's ``scale_by_adam(mu_dtype=...)`` step by step.
 
 Two parts are written here rather than taken from torch, because torch's
 differ from optax's:
@@ -98,13 +100,96 @@ def _check_clip(grad_clip_norm: Optional[float]) -> Optional[float]:
     return grad_clip_norm
 
 
-def _check_mu_dtype(mu_dtype) -> None:
-    if mu_dtype is not None:
-        raise NotImplementedError(
-            f"mu_dtype={mu_dtype!r}: torch.optim.AdamW keeps its first "
-            "moment in the parameter dtype; a bf16 first moment is not "
-            "ported yet"
-        )
+def _check_mu_dtype(mu_dtype) -> Optional[torch.dtype]:
+    """None (the first moment in the parameters' dtype, as optax's default
+    and ``torch.optim.AdamW``) or ``torch.bfloat16``; float32 is None, and
+    the names ``"float32"`` and ``"bfloat16"`` stand for the dtypes."""
+    if isinstance(mu_dtype, str):
+        mu_dtype = {"float32": torch.float32,
+                    "bfloat16": torch.bfloat16}.get(mu_dtype, mu_dtype)
+    if mu_dtype in (None, torch.float32):
+        return None
+    if mu_dtype == torch.bfloat16:
+        return mu_dtype
+    raise ValueError(f"mu_dtype must be None, torch.float32 or "
+                     f"torch.bfloat16, got {mu_dtype!r}")
+
+
+class MuDtypeAdamW(torch.optim.Optimizer):
+    """AdamW with its first moment stored in ``mu_dtype`` (bf16), by
+    optax's ``adamw(mu_dtype=...)`` (optax 0.2.6: ``scale_by_adam``, then
+    ``add_decayed_weights``, then the learning rate), for f32 parameters:
+
+    - ``mu = (1 - b1) g + b1 * mu`` with ``b1 * mu`` taken in the stored
+      dtype, as JAX promotes it: b1 rounded to bf16 (0.8984375 for 0.9),
+      the product rounded to bf16, the sum in f32;
+    - ``nu = (1 - b2) g^2 + b2 nu`` in f32, stored f32;
+    - the update ``mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps)`` from
+      that f32 mu; then mu is stored cast to ``mu_dtype``;
+    - decoupled weight decay ``+ wd * p``, times ``-lr``, added to p.
+
+    The state per parameter is ``exp_avg`` (``mu_dtype``), ``exp_avg_sq``
+    (f32) and ``step``, under ``torch.optim.AdamW``'s names, so a
+    checkpoint holds it as it holds AdamW's; :meth:`load_state_dict` keeps
+    ``exp_avg`` in ``mu_dtype`` (torch's loader would cast it to the
+    parameter's dtype)."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p,
+                                                        dtype=torch.float32)
+            states = [self.state[p] for p in params]
+            steps = [st["step"] for st in states]
+            torch._foreach_add_(steps, 1.0)
+            grads = [p.grad.float() for p in params]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            # b1 * mu in the stored dtype: b1 rounded to it, the product
+            # rounded to it (an f32 product, then the cast).
+            b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+            mu = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(mu, torch._foreach_mul(mus, b1_mu))
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, sq)
+            # One update count per group (every parameter steps together).
+            t = torch.tensor(float(steps[0]), dtype=torch.float32)
+            bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
+            bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
+            update = torch._foreach_div(mu, bc1)
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            torch._foreach_div_(update, denom)
+            torch._foreach_add_(update, torch._foreach_mul(params, wd))
+            torch._foreach_mul_(update, -lr)
+            torch._foreach_add_(params, update)
+            torch._foreach_copy_(mus, mu)
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
@@ -135,6 +220,7 @@ class OptimizerSpec:
     label_fn: Callable[[str], str] = field(default=lambda name: "all")
     weight_decay: float = 0.05
     grad_clip_norm: Optional[float] = None
+    mu_dtype: Optional[torch.dtype] = None  # bf16: MuDtypeAdamW
 
     def bind(self, model: nn.Module) -> "Optimizer":
         return Optimizer(self, model)
@@ -143,7 +229,9 @@ class OptimizerSpec:
 class Optimizer:
     """An :class:`OptimizerSpec` bound to a model: ``step()`` clips the
     trained parameters' gradients, sets each group's learning rate for the
-    current update count and runs ``torch.optim.AdamW``."""
+    current update count and runs ``torch.optim.AdamW``, or
+    :class:`MuDtypeAdamW` under a bf16 ``mu_dtype`` (the attribute is
+    ``adamw`` either way)."""
 
     def __init__(self, spec: OptimizerSpec, model: nn.Module):
         self.spec = spec
@@ -154,11 +242,16 @@ class Optimizer:
             if label in groups:
                 groups[label].append(p)
         self.params = [p for ps in groups.values() for p in ps]
-        self.adamw = torch.optim.AdamW(
-            [{"params": ps, "label": label, "lr": 0.0}
-             for label, ps in groups.items() if ps],
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=spec.weight_decay,
-        )
+        param_groups = [{"params": ps, "label": label, "lr": 0.0}
+                        for label, ps in groups.items() if ps]
+        if spec.mu_dtype is None:
+            self.adamw = torch.optim.AdamW(
+                param_groups, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=spec.weight_decay)
+        else:
+            self.adamw = MuDtypeAdamW(
+                param_groups, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=spec.weight_decay, mu_dtype=spec.mu_dtype)
 
     def step(self) -> None:
         if self.spec.grad_clip_norm is not None:
@@ -182,11 +275,11 @@ def make_adamw(
     """AdamW over every parameter, E1's optimizer (reference protocol:
     experiments/traditional.py:152-157), optionally after global-norm
     clipping; the pretrained experiments E3 and E5 take
-    :func:`make_grouped_optimizer`. ``mu_dtype`` other than None raises: a
-    bf16 first moment needs an AdamW of the port's own (ROADMAP)."""
-    _check_mu_dtype(mu_dtype)
+    :func:`make_grouped_optimizer`. ``mu_dtype=torch.bfloat16`` keeps the
+    first moment in bf16 (:class:`MuDtypeAdamW`, optax's rule)."""
     return OptimizerSpec({"all": learning_rate}, weight_decay=weight_decay,
-                         grad_clip_norm=_check_clip(grad_clip_norm))
+                         grad_clip_norm=_check_clip(grad_clip_norm),
+                         mu_dtype=_check_mu_dtype(mu_dtype))
 
 
 def make_grouped_optimizer(
@@ -201,11 +294,12 @@ def make_grouped_optimizer(
     a learning rate, and ``frozen_label``, are frozen. The clip runs after
     the frozen parameters are zeroed, so its norm spans only the trained
     groups. Unlike JAX it takes no params tree: labels are read when the
-    spec is bound to a model."""
-    _check_mu_dtype(mu_dtype)
+    spec is bound to a model. ``mu_dtype`` applies to every group, as in
+    JAX."""
     lrs = {k: v for k, v in group_lrs.items() if k != frozen_label}
     return OptimizerSpec(lrs, label_fn, weight_decay,
-                         _check_clip(grad_clip_norm))
+                         _check_clip(grad_clip_norm),
+                         _check_mu_dtype(mu_dtype))
 
 
 @dataclass

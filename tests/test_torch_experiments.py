@@ -335,12 +335,27 @@ REJECTED = [
 ]
 
 
+# Refused until ported (tests/test_torch_train_flags.py runs them).
+PORTED_SINCE = {"profile_dir", "remat", "remat_policy", "scan_layers",
+                "mu_dtype"}
+
+
 @pytest.mark.parametrize("extra,flag", REJECTED, ids=[f for _, f in REJECTED])
 def test_cli_rejects_what_is_not_ported(extra, flag, dirs, tmp_path,
                                         monkeypatch):
+    """A flag of ``PORTED_SINCE`` now passes the refusal and reaches the
+    experiment's field; the others are still refused by name."""
     monkeypatch.chdir(tmp_path)
     argv = BASE_ARGS + extra + ["--data_dir", dirs["data_dir"],
                                 "--results_dir", dirs["results_dir"]]
+    if flag in PORTED_SINCE:
+        args = cli.parse_args(argv)
+        cli.reject_not_ported(args)
+        e = exp.TraditionalViTExperiment(**cli._common_kwargs(args))
+        e._reject_not_ported()
+        assert getattr(e, flag) == getattr(args, flag) != getattr(
+            exp.TraditionalViTExperiment, flag)
+        return
     with pytest.raises(NotPortedError, match=f"--{flag} .*not ported yet"):
         cli.main(argv)
     assert not os.path.exists(dirs["results_dir"])  # before anything ran
@@ -406,12 +421,32 @@ def test_cli_dispatches_the_cross_attention_suites(name, tmp_path,
 
 
 @pytest.mark.parametrize("flag,value", [
+    ("profile_dir", "x"), ("remat", True), ("remat_policy", "x"),
+    ("scan_layers", True),
+] + [
     (f, {None: "x", False: True, 1: 2}[off])
     for f, off in NOT_PORTED_DEFAULTS.items()
 ] + [("dataset", "imagenet"), ("mu_dtype", "bfloat16")])
 def test_experiment_rejects_what_is_not_ported(flag, value, dirs):
+    """The fields of ``PORTED_SINCE`` are taken now: the model or the
+    optimizer carries them, and a ``remat_policy`` without ``remat`` is
+    refused as in JAX; the others are still refused by name."""
     e = exp.TraditionalViTExperiment(**TINY, device="cpu", **dirs,
                                      **{flag: value})
+    if flag in PORTED_SINCE:
+        e._reject_not_ported()
+        e.torch_device = torch.device("cpu")
+        e.model = e.build_model()
+        if flag == "remat_policy":
+            with pytest.raises(ValueError, match="only applies under"):
+                e._check_remat_flags()
+            return
+        e._check_remat_flags()
+        if flag in ("remat", "scan_layers"):
+            assert getattr(e.model, flag) is True
+        if flag == "mu_dtype":
+            assert e.build_optimizer().mu_dtype == torch.bfloat16
+        return
     with pytest.raises(NotPortedError, match=f"--{flag} "):
         e.setup()
     assert not hasattr(e, "model")

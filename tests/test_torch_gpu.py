@@ -985,3 +985,103 @@ def test_restore_onto_the_card(cuda, tmp_path):
     assert (on_card.step, on_card.tx.count) == (1, 1)
     stepped = _ckpt_step(on_card, 1)
     assert all(torch.isfinite(p).all() for p in stepped.model.parameters())
+
+
+# --- the favit:: operators, a card artifact, remat's launches --------------
+
+
+def _op_cases(cuda):
+    """(op, args, plain version's output) at small shapes, bf16."""
+    from focused_attention_vit_tpu_torch.ops import library
+
+    q, k, v = _inputs(cuda, (2, 3, 64, 300), torch.bfloat16, seed=16)
+    qt, kt, vt = (x.transpose(2, 3).contiguous() for x in (q, k, v))
+    seed = 2**63 + 12345  # above int64: travels as two 32-bit halves
+    lo, hi = seed & 0xFFFFFFFF, seed >> 32
+    return [
+        (library.band_fwd, (q, k, v, 7, 0.1, lo, hi),
+         band.plain_band_forward_train(q, k, v, 7, 0.1, seed)[0]),
+        (library.band_fwd_train, (q, k, v, 7, 0.1, lo, hi),
+         band.plain_band_forward_train(q, k, v, 7, 0.1, seed)),
+        (library.flash_fwd, (qt, kt, vt, 512),
+         flash.plain_flash_forward(qt, kt, vt)[0]),
+        (library.fused_mha_fwd, (qt, kt, vt, 0.1, lo, hi),
+         fused.plain_fused_mha_forward(qt, kt, vt, 0.1, seed)[0]),
+        (library.tile_band_fwd, tuple(x.reshape(6, 300, 64) for x in
+                                      (qt, kt, vt)) + (7,),
+         tile.plain_tile_band_forward(*(x.reshape(6, 300, 64) for x in
+                                        (qt, kt, vt)), 7)),
+    ]
+
+
+def test_custom_ops_launch_their_kernels(cuda):
+    """Each ``favit::`` op's CUDA implementation launches its kernel (the
+    launch counted inside the op) and agrees with the plain version; its
+    fake implementation gives the kernel output's shape, dtype and
+    strides; a seed at or above 2**63 draws the plain version's mask."""
+    for op, args, want in _op_cases(cuda):
+        mods = (band, flash, fused, tile)
+        for m in mods:
+            m.reset_launch_count()
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert sum(m.launch_count(kind) for m in mods
+                   for kind in m.LAUNCH_KINDS) == 1, op
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        # The op's plumbing, not the kernels' error bounds (the tests
+        # above hold those): a few bf16 ulps.
+        for g, w in pairs:
+            torch.testing.assert_close(g.float(), w.float(), atol=2.0 ** -6,
+                                       rtol=2.0 ** -6)
+        torch.library.opcheck(op, args, test_utils=(
+            "test_schema", "test_faketensor"))
+
+
+def test_card_artifact_round_trip(cuda, tmp_path):
+    """A 2-block MHLA ViT at S=577 exported on the card serves the live
+    Predictor's probabilities bit for bit, K1 launched by the replayed
+    program."""
+    import numpy as np
+
+    from focused_attention_vit_tpu_torch.export import (
+        load_serving_artifact,
+        save_serving_artifact,
+    )
+    from focused_attention_vit_tpu_torch.infer import Predictor
+    from focused_attention_vit_tpu_torch.models import VisionTransformerMHLA
+
+    model = VisionTransformerMHLA(img_size=96, patch_size=4, num_classes=10,
+                                  embed_dim=128, depth=2, num_heads=2,
+                                  window_size=7)
+    live = Predictor(model, img_size=96, device="cuda", batch_size=4)
+    art = save_serving_artifact(live, str(tmp_path / "art"),
+                                input_hw=(32, 32))
+    exported = load_serving_artifact(art)
+    images = np.random.default_rng(0).integers(0, 256, (6, 32, 32, 3),
+                                               dtype=np.uint8)
+    band.reset_launch_count()
+    got = exported.predict_proba(images)
+    assert band.launch_count("fwd") == 2 * 2
+    np.testing.assert_array_equal(got, live.predict_proba(images))
+
+
+@pytest.mark.parametrize("policy,fwd_per_block", [
+    (None, 1), ("full", 2), ("band_weights", 1)])
+def test_remat_band_launches(cuda, policy, fwd_per_block):
+    """K1's training form launches once a block a step without remat,
+    twice under full remat (the recompute) and once under
+    ``band_weights``, whose policy saves its output; K2 once a block."""
+    from focused_attention_vit_tpu_torch.models import VisionTransformerMHLA
+    from focused_attention_vit_tpu_torch.models.layers import DropoutRNG
+
+    kw = {} if policy is None else dict(remat=True, remat_policy=policy)
+    model = VisionTransformerMHLA(img_size=96, patch_size=4, num_classes=10,
+                                  embed_dim=128, depth=2, num_heads=2,
+                                  attn_dropout=0.1, device="cuda",
+                                  **kw).train()
+    x = torch.randn(2, 96, 96, 3, device="cuda")
+    band.reset_launch_count()
+    model(x, DropoutRNG(3, "cuda")).square().sum().backward()
+    torch.cuda.synchronize()
+    assert [band.launch_count(k) for k in band.LAUNCH_KINDS] == [
+        0, 2 * fwd_per_block, 2]

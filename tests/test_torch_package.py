@@ -35,6 +35,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.experiments.sppp_pretrained",
     "focused_attention_vit_tpu_torch.experiments.traditional",
     "focused_attention_vit_tpu_torch.experiments.traditional_pretrained",
+    "focused_attention_vit_tpu_torch.export",
     "focused_attention_vit_tpu_torch.infer",
     "focused_attention_vit_tpu_torch.models",
     "focused_attention_vit_tpu_torch.models.attention",
@@ -47,6 +48,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.models.vit_mhla",
     "focused_attention_vit_tpu_torch.ops.attention",
     "focused_attention_vit_tpu_torch.ops.flash_attention",
+    "focused_attention_vit_tpu_torch.ops.library",
     "focused_attention_vit_tpu_torch.ops.mha_kernel",
     "focused_attention_vit_tpu_torch.ops.mhla_band_roll",
     "focused_attention_vit_tpu_torch.ops.mhla_kernel_v4",
@@ -64,6 +66,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.utils.band_ab",
     "focused_attention_vit_tpu_torch.utils.kernel_build",
     "focused_attention_vit_tpu_torch.utils.metrics",
+    "focused_attention_vit_tpu_torch.utils.profiling",
     "focused_attention_vit_tpu_torch.utils.step_profile",
 ]
 

@@ -311,9 +311,12 @@ def test_weights_or_checkpoint_dir_exactly_one(capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--from_export", "x"],
-    ["--export_artifact", "x"], ["--num_devices", "2"], ["--tp", "2"],
-    ["--model", "sppp"],
+    ["--export_artifact", "x", "--from_export", "y"], ["--num_devices", "2"],
+    ["--tp", "2"], ["--model", "sppp"],
 ])
 def test_flags_outside_the_slice_are_rejected(flag, capsys):
+    """The export flags have been ported since (tests/test_torch_export.py):
+    beside ``--weights``, ``--from_export`` is refused as exclusive, and
+    ``--export_artifact`` is refused beside ``--from_export``."""
     with pytest.raises(SystemExit):
         tserve._parser().parse_args(["--weights", "w.pt", *flag])

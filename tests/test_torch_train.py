@@ -243,8 +243,10 @@ def test_lr_schedules_match_optax(kw):
 
 
 def test_optimizer_refusals():
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        train.make_adamw(LR, mu_dtype="bfloat16")
+    # A bf16 first moment is ported (tests/test_torch_train_flags.py); a
+    # dtype optax's rule is not written for is refused.
+    with pytest.raises(ValueError, match="mu_dtype"):
+        train.make_adamw(LR, mu_dtype=torch.float16)
     with pytest.raises(ValueError):
         train.make_adamw(LR, grad_clip_norm=0.0)
     with pytest.raises(ValueError):
