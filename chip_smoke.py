@@ -23,7 +23,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 1. device: requires CUDA and compute capability 9.0; prints the card's name
    and ``nvidia-smi`` name and power limit;
 2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, and
-   ``native/connectivity.cpp`` with g++, in parallel, and prints ptxas's registers, spills and shared memory of the
+   ``native/connectivity.cpp`` and ``native/batcher.cpp`` with g++, in
+   parallel, and prints ptxas's registers, spills and shared memory of the
    main path's wgmma kernels and of every instantiation of the band
    forward (K1) and backward (K2) and of the tile band's forward (K6, K8)
    and backward (K7);
@@ -195,6 +196,32 @@ Two more phases run inside the sequence above:
     f32's; on MHLA one ``utils.profiling.trace`` of a step, which must name
     the band kernels.
 
+Three phases of PR 17 run inside the sequence too:
+
+36. native-batcher (inside e1, after the first run, which must log that it
+    drew its batches from the native C++ prefetcher): the host ms a batch
+    of 128 CIFAR-shaped uint8 images from the prefetcher and from the
+    numpy iterator over a 50,000-image set, then E1's step fed by each, in
+    turns;
+37. mhla-mask (after vit-train-flags): an MHLA-B/4 block (S=3137, batch 2)
+    with an attention mask: bf16 with an all-ones mask against the
+    unmasked kernel path (K1), its attention sublayer by the flash rule and
+    the block by the rms bound, f32 with a random mask against the CPU
+    within 1e-4, and the masked forward's ms;
+38. parallel (after mhla-mask): a world-1 NCCL group, ``make_mesh(1)``,
+    MHLA-B/4 at batch 32 in f32 with remat (``band_weights``), 3 steps
+    plain, under DDP, FSDP2 (``fully_shard``) and tensor parallelism at
+    tp=1: losses and parameters within 1e-5 of the plain path's, K1's
+    training form and K2 12 launches a step inside each, ms a step and peak
+    GiB; the FSDP2 state's gathered checkpoint restored into a plain model
+    bit for bit; the group destroyed before the next phase.
+
+The kernel, kernel-train and kernel-tileband phases also time PyTorch's
+fused attention on K1's function (the band's float log-multiplicity mask
+on the S-minor tensors' transposed views: the eval call, the call with
+dropout for K1's training form, its backward for K2) and the backward of
+K6's boolean band-mask call for K7.
+
 Every launch count is set to 0 just before its path is driven and read just
 after. The line before the last is a JSON summary of the twelve kernels, each
 with its time, its plain version's, the least time the card could take
@@ -209,6 +236,7 @@ import contextlib
 import copy
 import io
 import json
+import logging
 import os
 import re
 import statistics
@@ -224,8 +252,12 @@ import numpy as np
 import torch
 
 from focused_attention_vit_tpu_torch import serve, train
+from focused_attention_vit_tpu_torch.data import native as native_batcher
 from focused_attention_vit_tpu_torch.data.datasets import load_dataset
-from focused_attention_vit_tpu_torch.data.pipeline import prepare_eval_batch
+from focused_attention_vit_tpu_torch.data.pipeline import (
+    batch_iterator,
+    prepare_eval_batch,
+)
 from focused_attention_vit_tpu_torch.models import (
     PretrainedSPPPViTWithMHLA,
     PretrainedViTWithMHLA,
@@ -366,6 +398,37 @@ def least_time(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def band_library_call(s: int, w: int, dtype):
+    """PyTorch's fused attention computing the band's function (K1's):
+    ``F.scaled_dot_product_attention`` on the S-minor tensors' transposed
+    views, with the band's float mask (log m on the window, m the slots a
+    key fills, -inf off it; ``ops/window._band_log_multiplicity``), the
+    memory-efficient backend. That backend takes rows of stride 1, so the
+    views are copied inside the call. Timed as a yardstick; the port uses
+    it nowhere."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    bias = torch.as_tensor(window._band_log_multiplicity(s, w),
+                           device="cuda").to(dtype)
+
+    def call(q, k, v, dropout_p=0.0):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(
+                *(x.transpose(-1, -2).contiguous() for x in (q, k, v)),
+                attn_mask=bias, dropout_p=dropout_p)
+    return call
+
+
+def backward_ms(fn, args, cot) -> float:
+    """CUDA-event median ms of the backward alone of ``fn(*args)`` through
+    autograd, the forward's graph kept across the repeats."""
+    xs = [x.detach().requires_grad_(True) for x in args]
+    out = fn(*xs)
+    return cuda_median_ms(
+        lambda: torch.autograd.grad(out, xs, cot, retain_graph=True))
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -391,18 +454,20 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    # The host connectivity library (g++) builds beside the eight nvcc
-    # processes.
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        native = pool.submit(kernel_build.build_native, "connectivity")
+    # The host libraries (g++: SLIC's connectivity pass and the batch
+    # prefetcher) build beside the eight nvcc processes.
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        natives = [pool.submit(kernel_build.build_native, n)
+                   for n in ("connectivity", "batcher")]
         libs = kernel_build.build_many(LIBRARIES)
-        libs.append(native.result())
+        libs += [f.result() for f in natives]
     for name in LIBRARIES:
         kernel_build.load(name)
     native_connectivity.get_lib()
+    native_batcher.get_lib()
     log("build", f"{', '.join(str(p.relative_to(REPO)) for p in libs)} "
                  f"ready in {time.perf_counter() - t0:.1f} s")
-    libs.pop()  # ptxas reports below are the CUDA libraries'.
+    del libs[-2:]  # ptxas reports below are the CUDA libraries'.
     for lib in libs:
         text = (lib.parent / "build.log").read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
@@ -664,6 +729,17 @@ def phase_kernel() -> dict:
             lambda: band.roll_banded_attention(q, k, v, SERVE_W))
         nbytes = 4 * q.numel() * q.element_size()  # q, k, v read; out written
         dt = "f32" if dtype == torch.float32 else "bf16"
+        library = band_library_call(SERVE_SHAPE[3], SERVE_W, dtype)
+        with torch.no_grad():
+            lib_err = float((library(q, k, v).transpose(-1, -2).float()
+                             - band.roll_banded_attention(
+                                 q, k, v, SERVE_W).float()).abs().max())
+            library_ms = cuda_median_ms(lambda: library(q, k, v))
+        log("kernel", f"serving shape {dt}: PyTorch's fused attention "
+                      f"(memory-efficient backend) on the transposed views "
+                      f"with the band's log-multiplicity mask {library_ms:.4f}"
+                      f" ms (max |K1 - it| {lib_err:.3g}); K1 "
+                      f"{ms / library_ms:.3f} x it")
         log("kernel", f"serving shape {SERVE_SHAPE} W={SERVE_W} {dt}: kernel "
                       f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s of q,k,v,out"
                       f"), plain {plain_ms:.4f} ms (median of 30, CUDA events)"
@@ -675,7 +751,7 @@ def phase_kernel() -> dict:
         # of the two main-path windows'; the times are W = 7's.
         result[dt] = dict(max_abs_err=max(err, err_w4), ms=ms,
                           plain_ms=plain_ms,
-                          library_ms=None,
+                          library_ms=library_ms,
                           **least_time(nbytes, 4 * b * h * n * SERVE_W * d))
     return result
 
@@ -774,6 +850,20 @@ def phase_kernel_train() -> dict:
             "bwd_plain": cuda_median_ms(lambda: band.plain_band_backward(
                 q, k, v, g, wts, SERVE_W, TRAIN_DROPOUT, seed)),
         }
+        library = band_library_call(s, SERVE_W, dtype)
+        with torch.no_grad():
+            times["library_fwd_train"] = cuda_median_ms(
+                lambda: library(q, k, v, TRAIN_DROPOUT))
+        times["library_bwd"] = backward_ms(
+            lambda *a: library(*a, TRAIN_DROPOUT), (q, k, v),
+            g.transpose(-1, -2).contiguous())
+        log("kernel-train", f"training shape {dt}: PyTorch's fused attention "
+                            f"with the band's log-multiplicity mask and "
+                            f"dropout_p {TRAIN_DROPOUT}: forward "
+                            f"{times['library_fwd_train']:.4f} ms, its "
+                            f"backward through autograd "
+                            f"{times['library_bwd']:.4f} ms (CUDA-event "
+                            f"medians of 30)")
         log("kernel-train", f"training shape {TRAIN_SHAPE} W={SERVE_W} {dt} "
                             f"rate {TRAIN_DROPOUT}: max abs err " + ", ".join(
                                 f"{n} {t}" for n, (_, _, t) in res.items()))
@@ -819,11 +909,11 @@ def phase_kernel_train() -> dict:
             fwd_train=dict(max_abs_err=max(res["out"][0], res["wts"][0]),
                            ms=times["fwd_train"],
                            plain_ms=times["fwd_train_plain"],
-                           library_ms=None,
+                           library_ms=times["library_fwd_train"],
                            **least_time(fwd_bytes, 4 * pairs)),
             bwd=dict(max_abs_err=max(res[n][0] for n in ("dq", "dk", "dv")),
                      ms=times["bwd"], plain_ms=times["bwd_plain"],
-                     library_ms=None,
+                     library_ms=times["library_bwd"],
                      **least_time(7 * one + wts.numel() * 4, 10 * pairs)),
         )
     return result
@@ -982,6 +1072,18 @@ def phase_kernel_tileband() -> dict:
             times["k1"] = cuda_median_ms(
                 lambda: band.roll_banded_attention(qs, ks, vs, w))
 
+        # K7's yardstick: the backward of K6's library call on the tiles.
+        gt = torch.randn(qt.shape, device="cuda", generator=gen).to(dtype)
+        times["library_bwd"] = backward_ms(
+            lambda *a: F.scaled_dot_product_attention(*a, attn_mask=mask),
+            (qt, ke, ve), gt)
+        log(phase, f"serving shape bf16: the backward of PyTorch's fused "
+                   f"attention on the window tiles with the band as a "
+                   f"boolean mask {times['library_bwd']:.4f} ms (CUDA-event "
+                   f"median of 30); K7 {times['bwd'] / times['library_bwd']:.3f}"
+                   f" x it")
+        del gt
+
         # Training: forward and backward of one band call.
         def train_call(fn, args, cot):
             def run():
@@ -1032,7 +1134,8 @@ def phase_kernel_tileband() -> dict:
                      **least_time(4 * one, 4 * pairs)),
             bwd=dict(max_abs_err=max(res[n][0] for n in ("dq", "dk", "dv")),
                      ms=times["bwd"], plain_ms=times["bwd_plain"],
-                     library_ms=None, **least_time(7 * one, 10 * pairs)),
+                     library_ms=times["library_bwd"],
+                     **least_time(7 * one, 10 * pairs)),
             fwd_b=dict(max_abs_err=res["fwd_b"][0], ms=times["fwd_b"],
                        plain_ms=times["fwd_b_plain"],
                        library_ms=times["library"],
@@ -1507,6 +1610,180 @@ def phase_train(path: ModelPath, attn_dropout_launches: bool,
                f"(max_memory_allocated); last loss "
                f"{float(m['loss_sum']) / TRAIN_BATCH:.4f}")
     return launches
+
+
+MASK_BATCH = 2
+
+
+def phase_mhla_mask() -> None:
+    """An MHLA-B/4 block (D=768, 12 heads, W=7, S=3137) with an attention
+    mask, batch 2: in bf16 an all-ones mask (the plain masked shift band)
+    against no mask (K1), the attention sublayer by the flash rule and the
+    block by its rms bound; in f32 a random mask on the card against the
+    same block on the CPU within 1e-4; ms a masked bf16 forward."""
+    from focused_attention_vit_tpu_torch.models.layers import (
+        MHLATransformerBlock,
+    )
+
+    phase = "mhla-mask"
+    s = (224 // 4) ** 2 + 1
+    gen = torch.Generator().manual_seed(12)
+    block = MHLATransformerBlock(768, 12, SERVE_W)
+    with torch.no_grad():  # the default init leaves attention near uniform
+        for p in block.parameters():
+            if p.dim() == 2:
+                p.normal_(0.0, 768 ** -0.5, generator=gen)
+    block.eval()
+    x = torch.randn(MASK_BATCH, s, 768, generator=gen)
+    mask = (torch.rand(MASK_BATCH, s, s, generator=gen) > 0.3).float()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = block(x, mask)
+        cpu_s = time.perf_counter() - t0
+        block.to("cuda")
+        band.reset_launch_count()
+        got = block(x.cuda(), mask.cuda()).cpu()
+        if band.launch_count("fwd"):
+            raise AssertionError("the masked block launched K1")
+        err, ok, text = _flash_check(got, want, torch.float32, 1e-4)
+        log(phase, f"f32, random mask (30% zeros), batch {MASK_BATCH}, "
+                   f"S={s}: card against the CPU's plain masked shift band "
+                   f"(the CPU took {cpu_s:.1f} s): max abs err {text}")
+        if not ok:
+            raise AssertionError(f"the masked block on the card disagrees "
+                                 f"with the CPU: {text}")
+        block.to(torch.bfloat16)
+        xb = x.to("cuda", torch.bfloat16)
+        ones = torch.ones(MASK_BATCH, s, s, device="cuda")
+        # The attention sublayer, where the plain masked band replaces K1,
+        # by the flash rule; the whole block by its rms bound (its bf16
+        # LayerNorm, GEMMs and residual adds can turn one ulp of the
+        # attention into a few of an entry: 2 and 3 in two card runs).
+        h = block.norm1(xb)
+        unmasked = block.attn(h)
+        if band.launch_count("fwd") != 1:
+            raise AssertionError("the unmasked layer did not launch K1")
+        checks = {"attention": _flash_check(
+                      block.attn(h, attention_mask=ones), unmasked,
+                      torch.bfloat16, None),
+                  "block": _rms_check(block(xb, ones), block(xb))}
+        log(phase, "bf16, all-ones mask against no mask (K1): max abs err "
+                   + "; ".join(f"{n} {t}" for n, (_, _, t) in checks.items()))
+        bad = [n for n, (_, ok, _) in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"the all-ones masked {bad} disagree with "
+                                 f"the kernel path: {checks}")
+        ms_masked = cuda_median_ms(lambda: block(xb, ones), 10, 2)
+        ms_plain = cuda_median_ms(lambda: block(xb), 10, 2)
+    log(phase, f"bf16 forward of the block, batch {MASK_BATCH}: masked (the "
+               f"plain shift band, mask gathered into [B, W, S]) "
+               f"{ms_masked:.3f} ms, unmasked (K1) {ms_plain:.3f} ms "
+               f"(CUDA-event medians of 10)")
+    del block, x, mask, got, want, xb, ones
+    torch.cuda.empty_cache()
+
+
+PARALLEL_STEPS = 3
+
+
+def phase_parallel(tmp: str) -> dict:
+    """A world-1 NCCL group on the card: MHLA-B/4 (12 blocks) at batch 32,
+    f32, dropout 0.1, remat with ``band_weights`` (so that f32 fits),
+    ``PARALLEL_STEPS`` steps plain, then under DDP, FSDP2 and tensor
+    parallelism at tp=1 from the same weights and batches: losses and
+    parameters equal the plain path's within 1e-5, and K1's training form
+    and K2 launch 12 times a step inside each wrapper; ms a step and peak
+    GiB each; the sharded state's checkpoint restored into a plain model
+    bit for bit. Returns the launches under the wrappers."""
+    import torch.distributed as dist
+
+    from focused_attention_vit_tpu_torch.parallel import make_mesh, shard_state
+    from focused_attention_vit_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+
+    phase = "parallel"
+    rng = np.random.default_rng(13)
+    data = [(_images(rng, TRAIN_BATCH), rng.integers(0, 10, TRAIN_BATCH))
+            for _ in range(PARALLEL_STEPS)]
+
+    def fresh():
+        model = MHLA.build(device="cuda", dropout=TRAIN_DROPOUT, remat=True,
+                           remat_policy="band_weights",
+                           generator=torch.Generator().manual_seed(21))
+        return train.create_train_state(model, train.make_adamw(1e-4))
+
+    def run(state, step, label):
+        losses = []
+        band.reset_launch_count()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i, (u8, y) in enumerate(data):
+            state, m = step(state, u8, y, 300 + i)
+            losses.append(float(m["loss_sum"] / m["count"]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / len(data) * 1e3
+        launches = {k: band.launch_count(k) for k in band.LAUNCH_KINDS}
+        want = {"fwd": 0, "fwd_train": DEPTH * len(data),
+                "bwd": DEPTH * len(data)}
+        if launches != want:
+            raise AssertionError(f"{label}: band launches {launches} != "
+                                 f"{want}")
+        log(phase, f"{label}: {ms:.1f} ms a step (host clock, {len(data)} "
+                   f"steps, the first included), peak "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                   f"losses {['%.6f' % x for x in losses]}; band launches "
+                   f"{launches}")
+        return state, losses, launches
+
+    step = train.make_train_step(224)
+    plain, want_losses, _ = run(fresh(), step, "plain")
+    want = {n: p.detach() for n, p in plain.model.named_parameters()}
+    del plain
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-store",
+                            rank=0, world_size=1)
+    total = dict.fromkeys(band.LAUNCH_KINDS, 0)
+    try:
+        mesh = make_mesh(1)
+        step = train.make_train_step(224, mesh=mesh)
+        for label in ("DDP", "FSDP2 (fully_shard)", "TP at tp=1"):
+            state = shard_state(fresh(), mesh, fsdp=label.startswith("F"),
+                                ddp=label == "DDP",
+                                tensor_parallel=label.startswith("TP"))
+            state, losses, launches = run(state, step, label)
+            for k in total:
+                total[k] += launches[k]
+            got = state.layout.params
+            worst = max(
+                float(((p.full_tensor() if hasattr(p, "full_tensor") else p)
+                       .detach() - want[n]).abs().max())
+                for n, p in got.items())
+            loss_err = max(abs(a - b) for a, b in zip(losses, want_losses))
+            log(phase, f"{label}: against plain, losses within "
+                       f"{loss_err:.3g}, parameters within {worst:.3g}")
+            if loss_err > 1e-5 or worst > 1e-5:
+                raise AssertionError(f"{label} departs from the plain path: "
+                                     f"losses {loss_err}, parameters {worst}")
+            if state.layout.fsdp:
+                mngr = CheckpointManager(os.path.join(tmp, "parallel-ckpt"))
+                mngr.save(PARALLEL_STEPS, state)
+                full = state.layout.full_state(state)
+                back = fresh()
+                mngr.restore(back)
+                same = all(torch.equal(p.detach(), full["model"][n])
+                           for n, p in back.model.named_parameters())
+                log(phase, f"{label}: the gathered checkpoint restored into "
+                           f"a plain model: bit-equal {same}")
+                if not same:
+                    raise AssertionError("the FSDP2 checkpoint does not "
+                                         "restore bit for bit")
+                del back, full
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total
 
 
 def _flash_check(got, ref, dtype, f32_tol, max_ulps=BF16_ULPS):
@@ -2131,10 +2408,87 @@ def _step_time(e, microbatch=None, n: int = 5, batch=None):
     return ms, torch.cuda.max_memory_allocated() / 2**30
 
 
+class _Lines(logging.Handler):
+    """The messages of the records a logger emits while attached."""
+
+    def __init__(self, logger: str):
+        super().__init__()
+        self.lines, self._logger = [], logging.getLogger(logger)
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self._logger.addHandler(self)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+
+
+PIPELINE_LINE = "train batch pipeline: native C++ prefetcher"
+
+
+def phase_native_batcher(e) -> None:
+    """The host side of E1's input: ms a batch of 128 CIFAR-shaped uint8
+    images from the native prefetcher and from the numpy iterator over a
+    50,000-image train set, then E1's step (ViT-B/16, batch 128, bf16,
+    the trained state) fed by each, per step with the batch's assembly
+    and copy to the card inside."""
+    phase = "native-batcher"
+    rng = np.random.default_rng(11)
+    u8 = rng.integers(0, 256, (50_000, 32, 32, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, 50_000).astype(np.int32)
+
+    def native_batches():
+        pf = native_batcher.NativePrefetcher(u8, y, E1_BATCH, seed=5)
+        try:
+            yield from pf.epoch_batches()
+        finally:
+            pf.close()
+
+    def numpy_batches():
+        return batch_iterator(u8, y, E1_BATCH, shuffle=True,
+                              rng=np.random.default_rng(5), drop_last=True)
+
+    host = {}
+    for name, batches in (("native", native_batches),
+                          ("numpy", numpy_batches)):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in batches())
+        host[name] = (time.perf_counter() - t0) / n * 1e3
+        if n != len(u8) // E1_BATCH:
+            raise AssertionError(f"{name}: {n} batches an epoch")
+    log(phase, f"host ms a batch of {E1_BATCH} uint8 32x32x3 images (one "
+               f"epoch of {len(u8) // E1_BATCH} batches, shuffled, copied "
+               f"out): native C++ prefetcher {host['native']:.4f}, numpy "
+               f"iterator {host['numpy']:.4f}")
+    step = train.make_train_step(224, compute_dtype=torch.bfloat16)
+    state, steps = e.state, 10
+    for name, batches in (("native", native_batches),
+                          ("numpy", numpy_batches), ("native", native_batches),
+                          ("numpy", numpy_batches)):
+        it = batches()
+        state, _ = step(state, *next(it), 200)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(steps):
+            state, m = step(state, *next(it), 201 + j)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        it.close()
+        log(phase, f"E1 step fed by the {name} pipeline: {ms:.2f} ms per "
+                   f"step (host clock, {steps} steps after a warm-up, the "
+                   f"batch's assembly inside); last loss "
+                   f"{float(m['loss_sum']) / E1_BATCH:.4f}")
+
+
 def phase_e1() -> dict:
     """E1 ``traditional`` at ViT-B/16 through the CLI with the fused switch
     on (2 epochs, so that the mid-run probe fires), then one epoch with it
-    off; returns the fused launch counts of the first run."""
+    off; each run must log that it drew its batches from the native
+    prefetcher. After the first run, the native-batcher phase. Returns the
+    fused launch counts of the first run."""
     phase = "e1"
     ops = (fused, flash, band)
     out = {}
@@ -2142,8 +2496,13 @@ def phase_e1() -> dict:
         for label, on, epochs in (("on", True, 2), ("off", False, 1)):
             for op in ops:
                 op.reset_launch_count()
-            with _fused_switch(on):
+            with _fused_switch(on), _Lines(
+                    "focused_attention_vit_tpu_torch.train.loop") as lines:
                 e, passes, seconds, row = _e1_cli(tmp, epochs)
+            if PIPELINE_LINE not in lines:
+                raise AssertionError(f"E1 switch {label}: no "
+                                     f"'{PIPELINE_LINE}' in {lines}")
+            with _fused_switch(on):
                 counts = {k: fused.launch_count(k)
                           for k in fused.LAUNCH_KINDS}
                 others = [op.launch_count(k) for op in (flash, band)
@@ -2153,6 +2512,7 @@ def phase_e1() -> dict:
                 if on:
                     out.update(counts)
                     sweep = {mb: _step_time(e, mb) for mb in (64, 32, 16)}
+            log(phase, f"switch {label}: {PIPELINE_LINE} (logged)")
             log(phase, f"switch {label}: cli.main, {epochs} epochs of "
                        f"{len(e.data['train_images'])} train and "
                        f"{len(e.data['test_labels'])} test images in "
@@ -2187,6 +2547,8 @@ def phase_e1() -> dict:
                            + " / ".join(f"{m:.2f} ms, {p:.2f} GiB"
                                         for m, p in [(ms, peak),
                                                      *sweep.values()]))
+                with _fused_switch(on):
+                    phase_native_batcher(e)
             del e
             torch.cuda.empty_cache()
     return out
@@ -3492,6 +3854,11 @@ def main() -> None:
             path, ("band_weights",) if path is MHLA else (),
             profile=path is MHLA)
 
+    phase_mhla_mask()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel_launches = phase_parallel(tmp)
+    torch.cuda.empty_cache()
+
     fused_timing = phase_kernel_fused()
     e1_launches = phase_e1()
     phase_e1_parity()
@@ -3557,14 +3924,17 @@ def main() -> None:
         ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158",
          launches[MHLA] + pmhla_launches + psppp_launches
          + exports[MHLA]["launches"], timing["bf16"]),
-        # K1's training form and K2 also run in the checkpoint phase's steps.
+        # K1's training form and K2 also run in the checkpoint phase's steps
+        # and inside DDP, FSDP2 and tensor parallelism (parallel phase).
         ("mhla_band_fwd_train", band.KERNEL_SOURCE, f"{tpu}:158",
          train_launches[MHLA]["fwd_train"] + ckpt_launches["fwd_train"]
-         + flags_launches[MHLA]["fwd_train"],
+         + flags_launches[MHLA]["fwd_train"]
+         + parallel_launches["fwd_train"],
          train_timing["bf16"]["fwd_train"]),
         ("mhla_band_bwd", band.BWD_KERNEL_SOURCE, f"{tpu}:199",
          train_launches[MHLA]["bwd"] + ckpt_launches["bwd"]
-         + flags_launches[MHLA]["bwd"], train_timing["bf16"]["bwd"]),
+         + flags_launches[MHLA]["bwd"] + parallel_launches["bwd"],
+         train_timing["bf16"]["bwd"]),
         ("flash_attention_fwd", flash.FWD_KERNEL_SOURCE, f"{tpu_flash}:73",
          launches[DENSE] + exports[DENSE]["launches"],
          flash_timing["bf16"]["fwd"]),

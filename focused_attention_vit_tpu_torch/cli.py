@@ -13,11 +13,18 @@ one CUDA device (``--device cpu`` for the CPU). The pretrained runs load
 stand-in there). ``--checkpoint_dir`` saves, resumes and handles SIGTERM as
 in JAX: a preempted run exits with code 143 after its checkpoint is
 committed, and the same command resumes it (E7 and E8 run four experiments
-each and take no checkpoint directory). Every other flag of the JAX surface
-is parsed; those the port does not act on yet (meshes, ImageNet,
-``--visualize``) raise an error that names the flag, before anything runs.
-None is silently ignored: ``--scan_layers``, which means nothing to an eager
-loop, says so on stderr. Set
+each and take no checkpoint directory). ``--dataset imagenet`` reads an
+ImageFolder tree under ``<data_dir>/imagenet`` (Pillow decodes it), and
+``--visualize`` writes ``sample_images.png`` and ``sample_patches.png`` into
+``--results_dir`` (matplotlib draws them). ``--num_devices N`` (-1: every
+card) with ``--tp`` and ``--fsdp`` trains over a ``(data, model)`` mesh: with
+no ``RANK`` in the environment the CLI starts N ranks itself (rank r on
+``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``), and
+under ``torchrun`` it joins the ranks there; rank 0 alone prints and writes.
+Every other flag of the JAX surface is parsed; those the port does not act
+on yet (``--sp``, ``--pp``) raise an error that names the flag, before
+anything runs. None is silently ignored: ``--scan_layers``, which means
+nothing to an eager loop, says so on stderr. Set
 ``FAVIT_FUSED_MHA=1`` to take the fused short-sequence attention kernels
 (``ops/mha_kernel.py``), and ``FAVIT_MHLA_IMPL=shiftband
 FAVIT_USE_PALLAS_MHLA=1`` to take E5's and E6's MHLA through the tile band
@@ -27,6 +34,7 @@ FAVIT_USE_PALLAS_MHLA=1`` to take E5's and E6's MHLA through the tile band
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -111,7 +119,7 @@ def parse_args(argv=None):
     parser.add_argument("--freeze_layers", action="store_true")
     parser.add_argument("--head_learning_rate", type=float, default=1e-3)
 
-    # Visualization settings (not ported yet)
+    # Visualization settings
     parser.add_argument("--visualize", action="store_true")
 
     # Extensions of the JAX package
@@ -143,10 +151,15 @@ def parse_args(argv=None):
                         help="Compute dtype (bfloat16: autocast over "
                              "float32 parameters)")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="not ported yet")
-    parser.add_argument("--tp", type=int, default=1, help="not ported yet")
+                        help="Train on a mesh of N ranks (-1: every card); "
+                             "the CLI starts them unless RANK is set")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="Tensor-parallel size (the mesh's model "
+                             "dimension)")
     parser.add_argument("--sp", type=int, default=1, help="not ported yet")
-    parser.add_argument("--fsdp", action="store_true", help="not ported yet")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="Shard parameters and optimizer state over the "
+                             "mesh's data dimension (FSDP2)")
     parser.add_argument("--pp", type=int, default=1, help="not ported yet")
     parser.add_argument("--microbatch", type=int, default=None,
                         help="Gradient-accumulation chunk of the train step "
@@ -160,10 +173,6 @@ def parse_args(argv=None):
 def reject_not_ported(args) -> None:
     """Raise for every flag and choice the port parses but does not act on
     yet, naming it; nothing is silently ignored."""
-    if args.dataset == "imagenet":
-        raise not_ported("dataset", args.dataset)
-    if args.visualize:
-        raise not_ported("visualize", True)
     for flag, off in NOT_PORTED_DEFAULTS.items():
         if getattr(args, flag) != off:
             raise not_ported(flag, getattr(args, flag))
@@ -238,6 +247,52 @@ def _sppp_kwargs(args):
     )
 
 
+def _save_visualizations(args) -> None:
+    """``--visualize``: a grid of 16 sample images and one image's patch
+    grid, as ``sample_images.png`` and ``sample_patches.png`` in
+    ``results_dir`` (JAX ``cli.py`` ``_save_visualizations``; the reference
+    parses the flag and does nothing with it)."""
+    import numpy as np
+
+    from focused_attention_vit_tpu_torch.data.datasets import load_dataset
+    from focused_attention_vit_tpu_torch.utils.viz import (
+        CIFAR10_MEAN,
+        CIFAR10_STD,
+        visualize_images,
+        visualize_patches,
+    )
+
+    data = load_dataset(
+        args.dataset if args.dataset != "imagenet" else "cifar10",
+        data_dir=args.data_dir,
+        subset_size=max(16, args.subset_size or 16),
+        seed=args.seed,
+    )
+    imgs = data["train_images"][:16].astype(np.float32) / 255.0
+    # The plots denormalise; give them normalised values.
+    normed = (imgs - np.array(CIFAR10_MEAN)) / np.array(CIFAR10_STD)
+    visualize_images(normed, labels=data["train_labels"][:16],
+                     class_names=data["class_names"],
+                     save_path=os.path.join(args.results_dir,
+                                            "sample_images.png"))
+    visualize_patches(normed[0], patch_size=min(args.patch_size,
+                                                imgs.shape[1]),
+                      save_path=os.path.join(args.results_dir,
+                                             "sample_patches.png"))
+    print(f"Visualizations saved to {args.results_dir}")
+
+
+def _world_size(args) -> int:
+    """The ranks that ``--num_devices`` asks for: every card for -1, or
+    for ``--tp`` without ``--num_devices``, as JAX takes every device;
+    one device on the CPU."""
+    n = args.num_devices
+    if (n is None and args.tp > 1) or (n is not None and n <= 0):
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        n = 1 if cpu else torch.cuda.device_count()
+    return n or 1
+
+
 def _backend(device) -> str:
     """What the ``Backend:`` log line names: the CUDA device, or the CPU
     when the caller asked for it. Without CUDA and without ``--device
@@ -256,21 +311,54 @@ def _backend(device) -> str:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     reject_not_ported(args)
 
+    import torch.distributed as dist
+
+    from focused_attention_vit_tpu_torch.parallel import launch, multihost
+
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    world = _world_size(args)
+    if world > 1 and "RANK" not in os.environ:
+        # The ranks run this same command; this process only waits.
+        launch.launch_cli(argv, world, "gloo" if cpu else "nccl")
+        return None
+    own_group = "RANK" in os.environ and not dist.is_initialized()
+    if own_group:  # torchrun
+        multihost.initialize(backend="gloo" if cpu else "nccl")
+    try:
+        if dist.is_initialized() and dist.get_rank() != 0:
+            # Rank 0 alone prints; the others' errors still reach stderr.
+            with open(os.devnull, "w") as null, \
+                    contextlib.redirect_stdout(null):
+                return _run(args)
+        return _run(args)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args):
+    from focused_attention_vit_tpu_torch.experiments.base import is_rank_zero
+
+    rank_zero = is_rank_zero()
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if rank_zero else logging.WARNING,
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
         handlers=[
             logging.FileHandler("vit_experiments.log"),
             logging.StreamHandler(sys.stdout),
-        ],
+        ] if rank_zero else [logging.StreamHandler(sys.stderr)],
     )
     logger = logging.getLogger("focused_attention_vit_tpu_torch")
 
     os.makedirs(args.data_dir, exist_ok=True)
     os.makedirs(args.results_dir, exist_ok=True)
+
+    if args.visualize and rank_zero:
+        _save_visualizations(args)
 
     logger.info("Experiment: %s", args.experiment)
     logger.info("Dataset: %s", args.dataset)

@@ -27,10 +27,18 @@ saves and sets ``preempted`` (the CLI then exits with 143), as JAX's does.
 (:mod:`..utils.profiling`); ``remat`` and ``remat_policy`` rematerialise the
 blocks of the models that take them (the dense and MHLA ViTs), and
 ``mu_dtype="bfloat16"`` keeps AdamW's first moment in bf16, as in JAX;
-``scan_layers`` is accepted and a no-op (the model says so on stderr). The
-options of the JAX package that the port does not have yet (meshes,
-ImageNet) are kept as fields, so that the flag surface stays the same, and
-rejected by name in ``setup``.
+``scan_layers`` is accepted and a no-op (the model says so on stderr).
+``dataset="imagenet"`` reads ``<data_dir>/imagenet`` (:mod:`..data.imagenet`).
+
+``num_devices`` (-1: every device) and ``tp`` build a ``(data, model)``
+mesh over the ranks of the process group (:meth:`ExperimentBase._build_mesh`;
+``cli.main`` starts the ranks, or ``torchrun`` does), and ``setup`` shards the
+state over it (:func:`~..parallel.shard_state`: DDP, or FSDP2 with ``fsdp``,
+tensor parallelism at ``tp > 1``). Rank 0 alone writes the CSV, the
+confusion matrix and the checkpoints, which hold the full state. The options
+of the JAX package that the port does not have yet (``sp``, ``pp``) are
+kept as fields, so that the flag surface stays the same, and rejected by
+name in ``setup``.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from focused_attention_vit_tpu_torch import NotPortedError
 from focused_attention_vit_tpu_torch.data.datasets import load_dataset
@@ -67,12 +76,15 @@ from focused_attention_vit_tpu_torch.utils.metrics import (
 # Fields the JAX package acts on and the port does not yet, with the value
 # that leaves each off. Anything else is rejected by name in setup().
 NOT_PORTED_DEFAULTS = {
-    "num_devices": None,
-    "fsdp": False,
-    "tp": 1,
     "sp": 1,
     "pp": 1,
 }
+
+
+def is_rank_zero() -> bool:
+    """True outside a process group and on its rank 0: the process that
+    writes results and checkpoints."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def not_ported(flag: str, value) -> NotPortedError:
@@ -124,9 +136,9 @@ class ExperimentBase:
     grad_clip_norm: Optional[float] = None  # global-norm gradient clipping
     mu_dtype: str = "float32"  # 'bfloat16': AdamW's first moment in bf16
     scan_layers: bool = False  # accepted; a no-op in the port
-    num_devices: Optional[int] = None  # not ported yet
-    fsdp: bool = False  # not ported yet
-    tp: int = 1  # not ported yet
+    num_devices: Optional[int] = None  # ranks of the mesh; -1: all devices
+    fsdp: bool = False  # FSDP2 over the mesh's data dimension
+    tp: int = 1  # tensor-parallel size (the mesh's model dimension)
     sp: int = 1  # not ported yet
     pp: int = 1  # not ported yet
     # Gradient-accumulation chunk of the train step. None = auto (the
@@ -146,8 +158,7 @@ class ExperimentBase:
     # JAX package's 16 is a TPU measurement and is not carried over.
     auto_microbatch: Optional[int] = None
 
-    # The port has no mesh; the attribute keeps _effective_microbatch's
-    # rules in the JAX package's shape.
+    # The (data, model) DeviceMesh, set by setup() (None: one device).
     mesh = None
 
     @property
@@ -229,8 +240,6 @@ class ExperimentBase:
             value = getattr(self, flag)
             if value != off:
                 raise not_ported(flag, value)
-        if self.dataset == "imagenet":
-            raise not_ported("dataset", self.dataset)
         self._mu_dtype()
 
     def _check_remat_flags(self) -> None:
@@ -256,6 +265,8 @@ class ExperimentBase:
                 )
 
     def _resolve_device(self) -> torch.device:
+        """The card (each rank of a process group its own: ``LOCAL_RANK``,
+        else the rank modulo the card count), or the CPU when asked."""
         device = torch.device("cuda" if self.device is None else self.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -263,19 +274,73 @@ class ExperimentBase:
                 "available; pass device=\"cpu\" (--device cpu) to run on "
                 "the CPU"
             )
+        if (device.type == "cuda" and device.index is None
+                and dist.is_initialized()):
+            device = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count())))
+            torch.cuda.set_device(device)
         return device
+
+    def _build_mesh(self):
+        """The ``(data, model)`` mesh when multi-device training is asked
+        for (``num_devices``, ``tp``), as JAX's ``_build_mesh``: one device
+        with ``tp <= 1`` is no mesh, and the batch must split over the data
+        dimension. The ranks must already form the process group."""
+        if not self.num_devices and self.tp <= 1:
+            return None
+        n = self.num_devices
+        if n is None or n <= 0:
+            if dist.is_initialized():
+                n = dist.get_world_size()
+            elif self.torch_device.type == "cuda":
+                n = torch.cuda.device_count()
+            else:
+                n = 1
+        if n == 1 and self.tp <= 1:
+            return None
+        if n % self.tp:
+            raise ValueError(f"tp={self.tp} must divide device count {n}")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"--num_devices {n} / --tp {self.tp}: the ranks are not "
+                f"started; run through cli.main (which starts them) or "
+                f"torchrun")
+        from focused_attention_vit_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(n, tp=self.tp, sp=self.sp, pp=self.pp)
+        dp = mesh.size(0)
+        if self.batch_size % dp:
+            raise ValueError(
+                f"batch_size={self.batch_size} must be divisible by the "
+                f"data-parallel axis size {dp}")
+        if is_rank_zero():
+            print(f"Training on a {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  f" device mesh ({mesh.size()} devices)")
+        return mesh
+
+    def _load_data(self) -> Dict[str, Any]:
+        if self.dataset == "imagenet":
+            from focused_attention_vit_tpu_torch.data.imagenet import (
+                load_imagenet_subset,
+            )
+
+            return load_imagenet_subset(
+                data_dir=os.path.join(self.data_dir, "imagenet"),
+                subset_size=self.subset_size, seed=self.seed)
+        return load_dataset(self.dataset, data_dir=self.data_dir,
+                            subset_size=self.subset_size, seed=self.seed)
 
     # --- pipeline -----------------------------------------------------------
     def setup(self):
         self._reject_not_ported()
         self.torch_device = self._resolve_device()
+        self.mesh = self._build_mesh()
+        if self.fsdp and self.mesh is None:
+            raise ValueError(
+                "--fsdp requires a device mesh (--num_devices/--tp/...): "
+                "parameter sharding needs a 'data' axis to shard over")
         os.makedirs(self.results_dir, exist_ok=True)
-        self.data = load_dataset(
-            self.dataset,
-            data_dir=self.data_dir,
-            subset_size=self.subset_size,
-            seed=self.seed,
-        )
+        self.data = self._load_data()
         # The dataset is the authority on class count: a head built for the
         # config default would train on out-of-range labels and feed
         # mis-shaped probabilities to the detailed metrics.
@@ -297,13 +362,18 @@ class ExperimentBase:
         self.metrics["theoretical"] = self.theoretical_metrics()
         self.metrics["model_size"] = calculate_model_size(self.model)
 
+        if self.mesh is not None:
+            from focused_attention_vit_tpu_torch.parallel import shard_state
+
+            self.state = shard_state(self.state, self.mesh, fsdp=self.fsdp)
         self.train_step = make_train_step(
             self.img_size,
             compute_dtype=self.torch_dtype,
             microbatch=self._effective_microbatch(),
+            mesh=self.mesh,
         )
         self.eval_step = make_eval_step(
-            self.img_size, compute_dtype=self.torch_dtype
+            self.img_size, compute_dtype=self.torch_dtype, mesh=self.mesh
         )
 
     def _auto_microbatch_value(self) -> Optional[int]:
@@ -316,6 +386,15 @@ class ExperimentBase:
             return None
         if mb is not None and mb < 0:
             raise ValueError(f"--microbatch must be positive (got {mb})")
+        if mb is not None and self.mesh is not None:
+            # Each accumulation chunk is itself split over the data ranks.
+            dp = self.mesh.size(0)
+            if mb % dp:
+                raise ValueError(
+                    f"--microbatch {mb} must be a multiple of the "
+                    f"data-parallel axis size {dp} (each accumulation "
+                    f"chunk is itself batch-sharded over 'data')"
+                )
         if mb is not None:
             # Explicit flag: refuse values the step could not honor instead
             # of silently running monolithic (a benchmark or an
@@ -327,8 +406,11 @@ class ExperimentBase:
                     f"--batch_size {self.batch_size} (or 0 to disable)"
                 )
             return mb
-        # Auto values that don't divide the batch fall back to monolithic
-        # silently: auto is a heuristic, not a request.
+        # Auto: one device only (a mesh already shrinks the per-device
+        # batch). Auto values that don't divide the batch fall back to
+        # monolithic silently: auto is a heuristic, not a request.
+        if self.mesh is not None:
+            return None
         mb = self._auto_microbatch_value()
         if not mb:
             return None
@@ -342,8 +424,11 @@ class ExperimentBase:
 
     def _memory_probe(self, backward: bool) -> Dict[str, float]:
         """One eval-mode pass (and backward) of the model on the sample
-        batch, in the compute dtype. A probe that fails is a fault to see:
-        nothing is caught."""
+        batch, in the compute dtype, on every rank of a mesh. Under FSDP
+        the probe runs the forward only: its parameters' gradients come
+        from FSDP's reduce-scatter, not from autograd. A probe that fails
+        is a fault to see: nothing is caught."""
+        backward = backward and not (self.mesh is not None and self.fsdp)
         model = self.model
         was_training = model.training
         model.eval()
@@ -393,13 +478,17 @@ class ExperimentBase:
 
         # SIGTERM -> checkpoint -> exit 143 needs somewhere to checkpoint;
         # without a manager the default signal disposition stays.
-        interrupt = None
+        interrupt = should_stop = None
         if ckpt_mngr is not None:
             from focused_attention_vit_tpu_torch.train.resilience import (
                 GracefulShutdown,
             )
 
-            interrupt = GracefulShutdown()
+            interrupt = should_stop = GracefulShutdown()
+            if self.state.layout is not None:
+                # Every rank stops at the same batch.
+                def should_stop():
+                    return self.state.layout.agree(interrupt())
 
         with profiling.trace(self.profile_dir), (interrupt or nullcontext()):
             results = train_and_evaluate(
@@ -412,7 +501,7 @@ class ExperimentBase:
                 seed=self.seed,
                 epoch_offset=start_epoch,
                 epoch_callback=epoch_cb,
-                should_stop=interrupt,
+                should_stop=should_stop,
             )
         self.preempted = bool(results.pop("interrupted", False))
         mid_epoch = bool(results.pop("interrupted_mid_epoch", False))
@@ -480,15 +569,17 @@ class ExperimentBase:
                 self.batch_size,
                 self.img_size,
                 self.data["num_classes"],
+                mesh=self.mesh,
             )
             self.metrics["evaluation_detailed"] = det
-            np.save(
-                os.path.join(
-                    self.results_dir,
-                    self.csv_filename.replace(".csv", "_confusion.npy"),
-                ),
-                det["confusion_matrix"],
-            )
+            if is_rank_zero():
+                np.save(
+                    os.path.join(
+                        self.results_dir,
+                        self.csv_filename.replace(".csv", "_confusion.npy"),
+                    ),
+                    det["confusion_matrix"],
+                )
             print(
                 f"AUC (macro OvR): {det['auc_macro_ovr']:.4f} | "
                 f"confusion matrix saved"
@@ -533,6 +624,8 @@ class ExperimentBase:
     def save_results(self):
         csv_path = os.path.join(self.results_dir, self.csv_filename)
         row = self.results_row()
+        if not is_rank_zero():
+            return csv_path
         with open(csv_path, "w", newline="") as f:
             writer = csv.DictWriter(f, fieldnames=list(row))
             writer.writeheader()

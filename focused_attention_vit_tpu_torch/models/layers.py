@@ -17,8 +17,15 @@ the attention dispatch of ``MultiHeadAttention`` and
 ``MultiHeadLatentAttention`` by sequence length.
 ``nn.Module.training`` plays the role of JAX's ``deterministic=False``:
 in training mode dropout draws from the :class:`DropoutRNG` a forward is
-given. The cross-attention layers take an attention mask; the MHLA
-layer does not yet (ROADMAP §A 7).
+given. The cross-attention layers and the MHLA layer take an attention
+mask.
+
+Under tensor parallelism (:mod:`..parallel.sharding`) the attention layers
+and the MLPs hold their rank's heads and hidden columns, ``num_heads`` is
+the local count, and their ``tp_local`` flag makes them draw the dropout
+of those head-local values from the rank's own stream
+(:func:`local_rng`); the replicated values keep the stream every rank of
+the model group shares.
 """
 
 from __future__ import annotations
@@ -30,7 +37,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from focused_attention_vit_tpu_torch import NotPortedError
 from focused_attention_vit_tpu_torch.ops import attention as attn_ops
 from focused_attention_vit_tpu_torch.ops import window as window_ops
 from focused_attention_vit_tpu_torch.ops.flash_attention import (
@@ -51,16 +57,30 @@ class DropoutRNG:
     device sync. Both are seeded from ``seed``; with no seed, both are
     torch's default generators (a train-mode forward given no rng)."""
 
-    def __init__(self, seed: int | None = None, device=None):
+    def __init__(self, seed: int | None = None, device=None,
+                 local: "DropoutRNG | None" = None):
         self.device = self.host = None
         if seed is not None:
             self.device = torch.Generator(device=device).manual_seed(seed)
             self.host = torch.Generator().manual_seed(seed)
+        # The streams of the values this rank holds alone under tensor
+        # parallelism (its heads, its MLP columns); None: these streams.
+        self.local = local
 
     def band_seed(self) -> int:
         """A seed for an op's in-kernel dropout (the band's, the fused
         attention's), in [0, 2**31 - 1) as the JAX layers draw it."""
         return int(torch.randint(0, 2**31 - 1, (), generator=self.host))
+
+
+def local_rng(rng: DropoutRNG | None, module: nn.Module
+              ) -> DropoutRNG | None:
+    """The streams ``module`` draws its head-local dropout from: ``rng``'s
+    ``local`` streams when the module holds a tensor-parallel slice
+    (``tp_local``) and ``rng`` has them, else ``rng``."""
+    if rng is not None and rng.local is not None and module.tp_local:
+        return rng.local
+    return rng
 
 
 def resolve_remat_policy(policy):
@@ -214,6 +234,8 @@ class PatchEmbedding(nn.Module):
 class MLP(nn.Module):
     """fc1 -> exact GELU -> dropout -> fc2 -> dropout."""
 
+    tp_local = False  # True: fc1 holds this rank's hidden columns
+
     def __init__(self, embed_dim: int, hidden_dim: int, dropout: float = 0.0,
                  device=None):
         super().__init__()
@@ -224,7 +246,7 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
                 ) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
-        x = inverted_dropout(F.gelu(self.fc1(x)), rate, rng)
+        x = inverted_dropout(F.gelu(self.fc1(x)), rate, local_rng(rng, self))
         return inverted_dropout(self.fc2(x), rate, rng)
 
 
@@ -257,6 +279,8 @@ class MultiHeadAttention(nn.Module):
     module's either way.
     """
 
+    tp_local = False  # True: this rank's heads only (tensor parallelism)
+
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  use_flash: bool | None = None, in_proj_names: bool = False,
                  device=None):
@@ -288,13 +312,14 @@ class MultiHeadAttention(nn.Module):
             qkv = self.qkv(x)
         q, k, v = attn_ops.qkv_split(qkv, self.num_heads)
         rate = self.dropout if self.training else 0.0
+        hrng = local_rng(rng, self)
         use_fused = (
             os.environ.get("FAVIT_FUSED_MHA", "0") == "1"
             and self.use_flash is None  # explicit True/False: caller's choice
             and fused_mha_supported(q.shape[2], q.shape[3])
         )
         if use_fused:
-            seed = (rng or DropoutRNG()).band_seed() if rate > 0.0 else None
+            seed = (hrng or DropoutRNG()).band_seed() if rate > 0.0 else None
             out = fused_multi_head_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 dropout_rate=rate, dropout_seed=seed)
@@ -303,12 +328,12 @@ class MultiHeadAttention(nn.Module):
                                                 use_flash=self.use_flash)
         elif q.shape[2] >= attn_ops.FLASH_MIN_SEQ_LEN:
             out = dropout_attention_q_chunked(
-                q, k, v, rate, (rng or DropoutRNG()).host)
+                q, k, v, rate, (hrng or DropoutRNG()).host)
         else:
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (
                 q.shape[-1] ** -0.5)
             weights = inverted_dropout(torch.softmax(logits, dim=-1), rate,
-                                       rng)
+                                       hrng)
             out = torch.matmul(weights.to(v.dtype), v)
         out = attn_ops.merge_heads(out)
         out = self.out_proj(out) if self.in_proj_names else self.proj(out)
@@ -340,7 +365,15 @@ class MultiHeadLatentAttention(nn.Module):
     otherwise (no kernel); per merged key on the dense band's
     ``[B, h, S, S]`` weights; per slot on the gather form's ``[B, h, S, W]``
     weights. The output is dropped at the same rate.
+
+    An ``attention_mask`` ``[B, S, S]`` (zero entries masked) takes the
+    plain bands as in JAX (``models/layers.py`` :365-577): the shift band
+    with the mask gathered into its ``[B, W, S]`` layout at S > 2W, the
+    gather form below, each with the per-slot dropout above; the S-minor
+    kernels, the dense band and the tile band run unmasked only.
     """
+
+    tp_local = False  # True: this rank's heads only (tensor parallelism)
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
                  dropout: float = 0.0, device=None):
@@ -359,24 +392,31 @@ class MultiHeadLatentAttention(nn.Module):
                                      device=device)
         self.proj = nn.Linear(embed_dim, embed_dim, device=device)
 
-    def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
-                ) -> torch.Tensor:
-        b, s, dim = x.shape
+    def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None,
+                attention_mask: torch.Tensor | None = None) -> torch.Tensor:
+        b, s, _ = x.shape
         h, d = self.num_heads, self.head_dim
         w = self.window_size
         rate = self.dropout if self.training else 0.0
         long_s = s > window_ops.DENSE_BAND_MAX_SEQ
-        if long_s and os.environ.get("FAVIT_MHLA_IMPL", "auto") in ("auto",
-                                                                    "roll"):
+        if (long_s and attention_mask is None
+                and os.environ.get("FAVIT_MHLA_IMPL", "auto") in ("auto",
+                                                                  "roll")):
             return inverted_dropout(self._forward_sminor(x, rate, rng), rate,
                                     rng)
         q, k, v = self.qkv(x).view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
         k = self.latent_proj(k)
         v = self.latent_proj(v)
-        if rate > 0.0:
-            def drop(wts):
-                return inverted_dropout(wts, rate, rng)
 
+        def drop(wts):
+            return inverted_dropout(wts, rate, local_rng(rng, self))
+
+        if attention_mask is not None:
+            band = (window_ops._shift_banded_attention if s > 2 * w
+                    else window_ops._gather_windowed_attention)
+            out = band(q, k, v, w, drop if rate > 0.0 else None,
+                       attention_mask)
+        elif rate > 0.0:
             if long_s:
                 out = window_ops._shift_banded_attention(q, k, v, w, drop)
             elif s > 2 * w:
@@ -385,7 +425,7 @@ class MultiHeadLatentAttention(nn.Module):
                 out = window_ops._gather_windowed_attention(q, k, v, w, drop)
         else:
             out = window_ops.windowed_latent_attention(q, k, v, w)
-        out = self.proj(out.transpose(1, 2).reshape(b, s, dim))
+        out = self.proj(out.transpose(1, 2).reshape(b, s, h * d))
         return inverted_dropout(out, rate, rng)
 
     def _forward_sminor(self, x: torch.Tensor, rate: float,
@@ -400,7 +440,7 @@ class MultiHeadLatentAttention(nn.Module):
         output comes back token-major by one copy before ``proj``. Measured
         on the card this beats writing S-minor straight from ``bmm`` over
         stride-0 weights, for which cuBLAS picks slow kernels (PERF.md)."""
-        b, s, dim = x.shape
+        b, s, _ = x.shape
         h, d = self.num_heads, self.head_dim
         q, k, v = (
             self.qkv(x).view(b, s, 3, h, d).permute(2, 0, 3, 4, 1).contiguous()
@@ -413,11 +453,11 @@ class MultiHeadLatentAttention(nn.Module):
         )
         seed = None
         if rate > 0.0:
-            seed = (rng or DropoutRNG()).band_seed()
+            seed = (local_rng(rng, self) or DropoutRNG()).band_seed()
         out = window_ops.windowed_latent_attention_ds(
             q, k, v, self.window_size, (rate, seed)
         )
-        return self.proj(out.view(b, dim, s).transpose(1, 2).contiguous())
+        return self.proj(out.view(b, h * d, s).transpose(1, 2).contiguous())
 
 
 class SequentialMLP(nn.Sequential):
@@ -426,6 +466,8 @@ class SequentialMLP(nn.Sequential):
     ``0``, GELU ``1``, dropout ``2``, Linear ``3``, dropout ``4``. The
     dropout slots hold no parameters; the masks come from the
     :class:`DropoutRNG` as in :class:`MLP`."""
+
+    tp_local = False  # True: Linear 0 holds this rank's hidden columns
 
     def __init__(self, embed_dim: int, hidden_dim: int, dropout: float = 0.0,
                  device=None):
@@ -438,7 +480,7 @@ class SequentialMLP(nn.Sequential):
     def forward(self, x: torch.Tensor, rng: DropoutRNG | None = None
                 ) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
-        x = inverted_dropout(F.gelu(self[0](x)), rate, rng)
+        x = inverted_dropout(F.gelu(self[0](x)), rate, local_rng(rng, self))
         return inverted_dropout(self[3](x), rate, rng)
 
 
@@ -500,8 +542,8 @@ class MHLATransformerBlock(_PreLNBlock):
     ``models/layers.py`` :629-670; reference models/mhla.py:164-222):
     :class:`MultiHeadLatentAttention` as ``attn.qkv``, ``attn.latent_proj``
     and ``attn.proj``, and the MLP as ``mlp.0`` and ``mlp.3``, the keys
-    JAX's ``reference_mhla_vit_to_flax`` reads. Attention masks are not
-    ported yet: a mask raises (ROADMAP §A 7)."""
+    JAX's ``reference_mhla_vit_to_flax`` reads. ``attention_mask``
+    ``[B, S, S]`` goes to the attention (its plain masked bands)."""
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
                  mlp_ratio: float = 4.0, dropout: float = 0.0,
@@ -514,11 +556,8 @@ class MHLATransformerBlock(_PreLNBlock):
     def forward(self, x: torch.Tensor,
                 attention_mask: torch.Tensor | None = None,
                 rng: DropoutRNG | None = None) -> torch.Tensor:
-        if attention_mask is not None:
-            raise NotPortedError(
-                "MHLATransformerBlock: attention masks are not ported yet "
-                "(ROADMAP §A 7)")
-        return super().forward(x, rng)
+        x = x + self.attn(self.norm1(x), rng, attention_mask)
+        return x + self.mlp(self.norm2(x), rng)
 
 
 def _cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -27,7 +27,14 @@ The formulations, chosen as in the JAX package by sequence length and by
 The gather form, the dense band and both shift bands take an optional
 ``weights_transform``, applied to their f32 softmax weights before the
 product with V: the train-mode attention-weight dropout hook of the MHLA
-layer (JAX ``ops/window.py``). Attention masks are not ported.
+layer (JAX ``ops/window.py``).
+
+An attention mask ``[B, S, S]`` (zero entries masked: their logits become
+the most negative finite f32) takes the gather form at S <= 2W and the
+token-major shift band above it, whatever ``FAVIT_MHLA_IMPL`` says, as in
+JAX: the band gathers the mask into its ``[B, W, S]`` layout
+(:func:`_banded_mask`), so no ``[B, h, S, W, d]`` window tensor is made at
+long S. The kernels (the band op, the tile band) run unmasked only.
 """
 
 from __future__ import annotations
@@ -63,11 +70,13 @@ def window_index_table(seq_len: int, window_size: int) -> np.ndarray:
 
 def _gather_windowed_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
-    weights_transform=None,
+    weights_transform=None, attention_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Table-gather form on ``[B, h, S, d]``: logits and softmax in f32,
-    ``weights_transform`` on the ``[B, h, S, W]`` weights, weights cast to
-    V's dtype for the weighted sum."""
+    """Table-gather form on ``[B, h, S, d]``: logits and softmax in f32
+    (``attention_mask`` ``[B, S, S]`` gathered per window slot, its zero
+    entries at the f32 minimum), ``weights_transform`` on the
+    ``[B, h, S, W]`` weights, weights cast to V's dtype for the weighted
+    sum."""
     d = q.shape[-1]
     table = torch.as_tensor(
         window_index_table(q.shape[2], window_size), device=q.device
@@ -77,6 +86,11 @@ def _gather_windowed_attention(
     logits = torch.einsum(
         "bhsd,bhswd->bhsw", q.float(), k_win.float()
     ) * (d ** -0.5)
+    if attention_mask is not None:
+        rows = torch.arange(q.shape[2], device=q.device)[:, None]
+        mask_win = attention_mask[:, rows, table][:, None]  # [B, 1, S, W]
+        logits = torch.where(mask_win == 0, torch.finfo(torch.float32).min,
+                             logits)
     weights = torch.softmax(logits, dim=-1)
     if weights_transform is not None:
         weights = weights_transform(weights)
@@ -140,12 +154,30 @@ def _halo_pad(x: torch.Tensor, window_size: int, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim) if len(parts) > 1 else x
 
 
+def _banded_mask(attention_mask: torch.Tensor, seq_len: int,
+                 window_size: int) -> torch.Tensor:
+    """A dense ``[B, S, S]`` mask in the shift band's ``[B, W, S]`` layout:
+    entry ``(o, i)`` is the bit of query i against the key that slot o
+    reads, the keys padded along their axis as :func:`_halo_pad` pads K
+    and V, so a duplicated edge slot sees the bit of the key it
+    duplicates. Masks carry no gradient; the result is O(S·W)."""
+    s, w = seq_len, window_size
+    mp = _halo_pad(attention_mask, w, dim=2)  # [B, S, S + W - 1]
+    col = (torch.arange(s, device=mp.device)[:, None]
+           + torch.arange(w, device=mp.device)[None, :])  # [S, W]
+    rows = torch.arange(s, device=mp.device)[:, None]
+    return mp[:, rows, col].transpose(1, 2)  # [B, W, S]
+
+
 def _shift_band_weights_ds(
-    q: torch.Tensor, k: torch.Tensor, window_size: int
+    q: torch.Tensor, k: torch.Tensor, window_size: int,
+    attention_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """f32 ``[B, h, W, S]`` softmax weights of the shift band on S-minor
     ``[B, h, d, S]`` q and k: W shifted multiply-reduces over the
-    halo-padded K, scaled by ``d**-0.5``, softmax over W."""
+    halo-padded K, scaled by ``d**-0.5``, the logits that
+    ``attention_mask`` ``[B, S, S]`` zeroes set to the f32 minimum
+    (:func:`_banded_mask`), softmax over W."""
     d, s = q.shape[2], q.shape[3]
     kp = _halo_pad(k, window_size, dim=3)
     qf = q.float()
@@ -154,6 +186,10 @@ def _shift_band_weights_ds(
          for o in range(window_size)],
         dim=2,
     ) * (d ** -0.5)
+    if attention_mask is not None:
+        mask_win = _banded_mask(attention_mask, s, window_size)[:, None]
+        logits = torch.where(mask_win == 0, torch.finfo(torch.float32).min,
+                             logits)
     return torch.softmax(logits, dim=2)
 
 
@@ -170,15 +206,16 @@ def _shift_band_apply_ds(weights: torch.Tensor, v: torch.Tensor
 
 def _shift_banded_attention_ds(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
-    weights_transform=None,
+    weights_transform=None, attention_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Shift band on S-minor ``[B, h, d, S]`` tensors: W shifted multiply-
     reduces over the halo-padded K for the ``[B, h, W, S]`` logits, an f32
     softmax over W, ``weights_transform`` on those weights, and W shifted
     multiply-adds of V in f32; the result is rounded once to the input
     dtype. Exact edge rule, no gather. This is the plain version the band
-    kernel is held against."""
-    weights = _shift_band_weights_ds(q, k, window_size)
+    kernel is held against; ``attention_mask`` as
+    :func:`_shift_band_weights_ds` takes it."""
+    weights = _shift_band_weights_ds(q, k, window_size, attention_mask)
     if weights_transform is not None:
         weights = weights_transform(weights)
     return _shift_band_apply_ds(weights, v).to(q.dtype)
@@ -186,15 +223,15 @@ def _shift_banded_attention_ds(
 
 def _shift_banded_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
-    weights_transform=None,
+    weights_transform=None, attention_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The shift band on token-major ``[B, h, S, d]`` tensors: the S-minor
     shift band on transposed views, so the same ``[B, h, W, S]`` weights
-    (one Bernoulli per window slot under a dropout ``weights_transform``)
-    and the same exact edge rule."""
+    (one Bernoulli per window slot under a dropout ``weights_transform``),
+    the same exact edge rule and the same banded ``attention_mask``."""
     out = _shift_banded_attention_ds(
         q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3), window_size,
-        weights_transform)
+        weights_transform, attention_mask)
     return out.transpose(2, 3)
 
 
@@ -265,17 +302,24 @@ def _tile_band_on_card(x: torch.Tensor) -> bool:
 
 
 def windowed_latent_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window_size: int,
+    attention_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Window-local attention on per-head ``[B, h, S, d]`` tensors; K and V
     already carry the latent projection. Returns ``[B, h, S, d]``. The
     formulation follows ``FAVIT_MHLA_IMPL`` and ``FAVIT_USE_PALLAS_MHLA``,
-    read at each call, as the module docstring lists."""
+    read at each call, as the module docstring lists; an
+    ``attention_mask`` takes the gather form at S <= 2W and the shift band
+    above, as in JAX."""
     s, d = q.shape[2], q.shape[3]
     w = window_size
     hw = w // 2
     if s <= 2 * w:
-        return _gather_windowed_attention(q, k, v, w)
+        return _gather_windowed_attention(q, k, v, w,
+                                          attention_mask=attention_mask)
+    if attention_mask is not None:
+        return _shift_banded_attention(q, k, v, w,
+                                       attention_mask=attention_mask)
     impl = os.environ.get("FAVIT_MHLA_IMPL", "auto")
     if impl == "densefull" or (impl == "auto" and s <= DENSE_BAND_MAX_SEQ):
         return _dense_band_attention(q, k, v, w)

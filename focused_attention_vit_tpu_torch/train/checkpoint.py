@@ -26,6 +26,12 @@ a side stream that waits on the event, then writes the files. At most one
 save is in flight; a failure in the background is raised again at the next
 ``save``, ``restore``, ``latest_step`` or ``close``. While a save is in
 flight the clones take one more copy of the state on the card.
+
+A state sharded over a device mesh (``state.layout``, :mod:`..parallel`) is
+saved in exactly the single-device format: every rank calls ``save``, the
+full state is gathered on every rank (FSDP shards, then the tensor-parallel
+slices), and rank 0 alone writes it. ``restore`` cuts the full state into
+each rank's pieces, so a checkpoint restores on any topology.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params_latest.pt"
@@ -61,8 +68,10 @@ def _tensors(tree: Any):
 
 
 def _state_tree(state) -> Dict[str, Any]:
-    """The live state's tensors (no copies): model, AdamW, update count and
-    step."""
+    """The live state's tensors (no copies; a sharded state's gathered
+    full tensors): model, AdamW, update count and step."""
+    if state.layout is not None:
+        return state.layout.full_state(state)
     return {
         "model": state.model.state_dict(),
         "optimizer": state.tx.adamw.state_dict(),
@@ -124,6 +133,10 @@ class CheckpointManager:
         t0 = time.perf_counter()
         tree = _state_tree(state)
         nbytes = sum(t.numel() * t.element_size() for t in _tensors(tree))
+        if dist.is_initialized() and dist.get_rank() != 0:
+            # The gather above was this rank's part; rank 0 writes.
+            self.stats = {"held_s": time.perf_counter() - t0, "bytes": nbytes}
+            return
         if not self._async:
             self._write(step, _map_tensors(tree, lambda t: t.detach().cpu()))
             self.stats = {"held_s": time.perf_counter() - t0, "pull_s": 0.0,
@@ -209,6 +222,9 @@ class CheckpointManager:
             return None
         ckpt = torch.load(os.path.join(self._dir, str(step), STATE_FILE),
                           map_location="cpu", weights_only=True)
+        if state.layout is not None:
+            state.layout.load_full_state(state, ckpt)
+            return state
         state.model.load_state_dict(ckpt["model"])
         # AdamW moves the moments to their parameters' device and keeps its
         # step counters on the host, where they were saved from.

@@ -3,9 +3,16 @@
 
 The progress line is the reference's ('Epoch {e}/{E} | Train Loss: … |
 Train Acc: …% | Val Loss: … | Val Acc: …% | Time: …s'). The train pass reads
-its metrics from the card once per epoch. Batches come from the numpy
-iterator of ``data/pipeline.py``; the JAX package's native C++ prefetcher is
-not ported yet.
+its metrics from the card once per epoch. Training batches come from the
+native C++ prefetcher (:mod:`..data.native`, shuffled by
+``std::mt19937_64``, as JAX's default run draws them) whenever the train set
+holds a batch, else from the numpy iterator of ``data/pipeline.py``; a
+failed g++ build raises instead of falling back.
+
+Under a device mesh (:mod:`..parallel`) every rank runs the same loop on the
+same global batches; the steps slice their rank's rows and sum the metrics
+over the ``data`` group, and :func:`evaluate_detailed` gathers the
+probabilities in batch order.
 """
 
 from __future__ import annotations
@@ -28,11 +35,16 @@ from focused_attention_vit_tpu_torch.train.metrics import (
 )
 from focused_attention_vit_tpu_torch.train.steps import fold_in
 
+logger = logging.getLogger(__name__)
+
 
 def _epoch_pass(train_step, state, images, labels, batch_size, key: int,
-                np_rng, should_stop=None):
-    batches = batch_iterator(images, labels, batch_size, shuffle=True,
-                             rng=np_rng, drop_last=True)
+                np_rng, prefetcher=None, should_stop=None):
+    if prefetcher is not None:
+        batches = prefetcher.epoch_batches()
+    else:
+        batches = batch_iterator(images, labels, batch_size, shuffle=True,
+                                 rng=np_rng, drop_last=True)
     sums = []
     completed = True
     for bi, (xb, yb) in enumerate(batches):
@@ -81,19 +93,29 @@ def evaluate(eval_step, state, images: np.ndarray, labels: np.ndarray,
 
 
 def evaluate_detailed(state, images: np.ndarray, labels: np.ndarray,
-                      batch_size: int, img_size: int, num_classes: int
-                      ) -> Dict[str, Any]:
+                      batch_size: int, img_size: int, num_classes: int,
+                      mesh=None) -> Dict[str, Any]:
     """Full eval with the macro one-vs-rest AUC and the confusion matrix,
     in f32. JAX's version also takes the model; here it is
-    ``state.model``."""
+    ``state.model``. With ``mesh`` each rank runs its rows of every batch
+    and the probabilities are gathered over the ``data`` group in batch
+    order (JAX constrains the batch to ``P('data')``)."""
     model = state.model
     model.eval()
     device = next(model.parameters()).device
+    rows = slice(None)
+    if mesh is not None:
+        from focused_attention_vit_tpu_torch.parallel import sharding
+
+        rows = sharding.data_rows(batch_size, mesh)
     all_probs = []
     with torch.inference_mode():
         for xb, _, mask in padded_eval_batches(images, labels, batch_size):
-            x = prepare_eval_batch(torch.as_tensor(xb).to(device), img_size)
+            x = prepare_eval_batch(torch.as_tensor(xb[rows]).to(device),
+                                   img_size)
             probs = torch.softmax(model(x).float(), dim=-1)
+            if mesh is not None:
+                probs = sharding.gather_rows(probs, mesh)
             all_probs.append(probs[torch.as_tensor(mask, device=device) > 0])
         probs = torch.cat(all_probs)[:len(labels)]
         labels_t = torch.as_tensor(np.asarray(labels), device=device).long()
@@ -131,43 +153,64 @@ def train_and_evaluate(
     train_losses, train_accs, val_losses, val_accs, epoch_times = (
         [], [], [], [], [])
     np_rng = np.random.default_rng([seed, epoch_offset])
-    logging.getLogger(__name__).info("train batch pipeline: numpy iterator")
+
+    # The native prefetcher whenever the train set holds a batch, seeded
+    # per segment as in JAX; its build failing raises (no numpy fallback).
+    prefetcher = None
+    if len(data["train_images"]) >= batch_size:
+        from focused_attention_vit_tpu_torch.data.native import (
+            NativePrefetcher,
+        )
+
+        prefetcher = NativePrefetcher(
+            data["train_images"], data["train_labels"], batch_size,
+            seed=seed + 1_000_003 * epoch_offset)
+    logger.info("train batch pipeline: %s",
+                "native C++ prefetcher" if prefetcher is not None
+                else "numpy iterator")
 
     total_start = time.time()
     interrupted = False
     interrupted_mid_epoch = False
-    for epoch in range(epochs):
-        if should_stop is not None and should_stop():
-            interrupted = True  # between epochs: state is at a boundary
-            break
-        t0 = time.time()
-        epoch_key = fold_in(seed, epoch_offset + epoch)
-        state, tr_loss, tr_acc, completed = _epoch_pass(
-            train_step, state, data["train_images"], data["train_labels"],
-            batch_size, epoch_key, np_rng, should_stop=should_stop,
-        )
-        if not completed:
-            interrupted = True
-            interrupted_mid_epoch = True
-            break
-        val = evaluate(eval_step, state, data["test_images"],
-                       data["test_labels"], batch_size)
-        epoch_time = time.time() - t0
+    try:
+        for epoch in range(epochs):
+            if should_stop is not None and should_stop():
+                interrupted = True  # between epochs: at a boundary
+                break
+            t0 = time.time()
+            epoch_key = fold_in(seed, epoch_offset + epoch)
+            state, tr_loss, tr_acc, completed = _epoch_pass(
+                train_step, state, data["train_images"],
+                data["train_labels"], batch_size, epoch_key, np_rng,
+                prefetcher=prefetcher, should_stop=should_stop,
+            )
+            if not completed:
+                interrupted = True
+                interrupted_mid_epoch = True
+                break
+            val = evaluate(eval_step, state, data["test_images"],
+                           data["test_labels"], batch_size)
+            epoch_time = time.time() - t0
 
-        train_losses.append(tr_loss)
-        train_accs.append(tr_acc)
-        val_losses.append(val["loss"])
-        val_accs.append(val["acc"])
-        epoch_times.append(epoch_time)
+            train_losses.append(tr_loss)
+            train_accs.append(tr_acc)
+            val_losses.append(val["loss"])
+            val_accs.append(val["acc"])
+            epoch_times.append(epoch_time)
 
-        log_fn(
-            f"Epoch {epoch + 1}/{epochs} | "
-            f"Train Loss: {tr_loss:.4f} | Train Acc: {tr_acc:.2f}% | "
-            f"Val Loss: {val['loss']:.4f} | Val Acc: {val['acc']:.2f}% | "
-            f"Time: {epoch_time:.2f}s"
-        )
-        if epoch_callback is not None:
-            epoch_callback(epoch, state)
+            log_fn(
+                f"Epoch {epoch + 1}/{epochs} | "
+                f"Train Loss: {tr_loss:.4f} | Train Acc: {tr_acc:.2f}% | "
+                f"Val Loss: {val['loss']:.4f} | Val Acc: {val['acc']:.2f}% | "
+                f"Time: {epoch_time:.2f}s"
+            )
+            if epoch_callback is not None:
+                epoch_callback(epoch, state)
+    finally:
+        # Also on an exception: the worker thread and the copies of the
+        # train set go now, not at some later collection.
+        if prefetcher is not None:
+            prefetcher.close()
 
     total_training_time = time.time() - total_start
     return {

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -192,13 +192,24 @@ class MuDtypeAdamW(torch.optim.Optimizer):
                 st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """An FSDP2 shard's local tensor; any other tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def clip_by_global_norm_(grads, max_norm: float,
+                         norm_sq: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / norm`` when their global
     norm is at least ``max_norm`` (``optax.clip_by_global_norm``: no
-    epsilon, no change below the bound). Returns the norm, on the device:
-    nothing here waits for the card."""
+    epsilon, no change below the bound). ``norm_sq``, the squared norm,
+    replaces the sum over ``grads`` (a sharded model's, summed over its
+    ranks). Returns the norm, on the device: nothing here waits for the
+    card."""
     grads = list(grads)
-    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    if norm_sq is None:
+        norm_sq = sum(g.float().pow(2).sum() for g in grads)
+    norm = torch.sqrt(norm_sq)
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm.to(g.dtype)
                             * max_norm))
@@ -242,6 +253,9 @@ class Optimizer:
             if label in groups:
                 groups[label].append(p)
         self.params = [p for ps in groups.values() for p in ps]
+        # Under a mesh (parallel.shard_state): the squared global norm of
+        # this rank's gradient pieces, for the clip.
+        self.grad_norm_sq: Optional[Callable] = None
         param_groups = [{"params": ps, "label": label, "lr": 0.0}
                         for label, ps in groups.items() if ps]
         if spec.mu_dtype is None:
@@ -255,10 +269,11 @@ class Optimizer:
 
     def step(self) -> None:
         if self.spec.grad_clip_norm is not None:
+            norm_sq = (None if self.grad_norm_sq is None
+                       else self.grad_norm_sq(self.params))
             clip_by_global_norm_(
-                (p.grad for p in self.params if p.grad is not None),
-                self.spec.grad_clip_norm,
-            )
+                (_local(p.grad) for p in self.params if p.grad is not None),
+                self.spec.grad_clip_norm, norm_sq)
         for group in self.adamw.param_groups:
             group["lr"] = _lr_at(self.spec.group_lrs[group["label"]],
                                  self.count)
@@ -304,11 +319,15 @@ def make_grouped_optimizer(
 
 @dataclass
 class TrainState:
-    """The model (its parameters), the bound optimizer and the step."""
+    """The model (its parameters), the bound optimizer and the step; under
+    a device mesh, ``layout`` (:class:`~..parallel.sharding.Layout`) says
+    how the model is spread, and ``model`` is the module to call (a DDP
+    wrapper, or the model itself)."""
 
     model: nn.Module
     tx: Optimizer
     step: int = 0
+    layout: Any = None
 
 
 def create_train_state(model: nn.Module, tx: OptimizerSpec,

@@ -15,6 +15,14 @@ dropout from ``fold_in(that key, 1)``. The streams are torch's, not JAX's.
 
 Where bf16 autocast keeps f32 (LayerNorm, softmax, the loss) and where the
 JAX ``compute_dtype`` differs is recorded in PERF.md.
+
+With ``mesh`` (a ``(data, model)`` mesh of :mod:`..parallel`, the state
+sharded by ``parallel.shard_state``), both steps take the global batch on
+every rank and run this rank's ``data`` rows: the augmentation is drawn for
+the global batch (or microbatch) and sliced, the dropout key gets the data
+rank folded in (:func:`~..parallel.sharding.dropout_rng`), and the metric
+sums are summed over the ``data`` group, so every rank returns the global
+batch's. JAX shards the batch over ``'data'`` with ``in_shardings``.
 """
 
 from __future__ import annotations
@@ -24,13 +32,15 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+import numpy as np
+
 from focused_attention_vit_tpu_torch.data.pipeline import (
     CIFAR10_MEAN,
     CIFAR10_STD,
     augment_train_batch,
+    draw_augment_params,
     prepare_eval_batch,
 )
-from focused_attention_vit_tpu_torch.models.layers import DropoutRNG
 
 _MASK64 = 2**64 - 1
 
@@ -45,7 +55,31 @@ def fold_in(key: int, data: int) -> int:
 
 
 def _device(model: torch.nn.Module) -> torch.device:
-    return next(model.parameters()).device
+    p = next(model.parameters())
+    return p.to_local().device if hasattr(p, "to_local") else p.device
+
+
+def _local_rows(batch: int, n: int, mesh):
+    """Row indices, in chunk order, of this rank's rows of each of the
+    ``n`` chunks of a global batch, and the slice of one chunk that they
+    are."""
+    from focused_attention_vit_tpu_torch.parallel import sharding
+
+    chunk = batch // n
+    rows = sharding.data_rows(chunk, mesh)
+    idx = np.concatenate([np.arange(i * chunk, (i + 1) * chunk)[rows]
+                          for i in range(n)])
+    return idx, rows
+
+
+def _sum_over_data(metrics: dict, mesh) -> dict:
+    from focused_attention_vit_tpu_torch.parallel import sharding
+
+    keys = list(metrics)
+    total = sharding.sum_over_data(
+        torch.stack([torch.as_tensor(metrics[k]).double() for k in keys]),
+        mesh)
+    return dict(zip(keys, total.unbind()))
 
 
 def _autocast(device: torch.device, compute_dtype: torch.dtype):
@@ -71,6 +105,7 @@ def make_train_step(
     std=CIFAR10_STD,
     compute_dtype: torch.dtype = torch.float32,
     microbatch: Optional[int] = None,
+    mesh=None,
 ) -> Callable:
     """Build ``train_step(state, images_u8, labels, key) -> (state,
     metrics)``. ``images_u8`` is uint8 NHWC and ``labels`` int, as numpy
@@ -79,19 +114,34 @@ def make_train_step(
     With ``microbatch`` dividing the batch, the batch runs as chunks whose
     gradients add up in the parameters' f32 ``.grad`` and are divided by
     the chunk count: the mean of the chunk gradients, as JAX's scan. The
-    live activations are one chunk's."""
-    image_dtype = _image_dtype(compute_dtype)
+    live activations are one chunk's. Under ``mesh`` the microbatch must
+    be a multiple of the data size: each chunk is itself split over the
+    data ranks."""
+    from focused_attention_vit_tpu_torch.parallel import sharding
 
-    def fwd_bwd(model, images_u8, labels, key: int):
+    image_dtype = _image_dtype(compute_dtype)
+    if mesh is not None and microbatch:
+        dp = sharding.mesh_size(mesh, sharding.DATA)
+        if microbatch % dp:
+            raise ValueError(
+                f"microbatch={microbatch} must be a multiple of the "
+                f"data-parallel axis size {dp} (each accumulation chunk is "
+                f"itself batch-sharded over 'data')")
+
+    def fwd_bwd(model, images_u8, labels, key: int, chunk: int, rows):
+        """One chunk: ``images_u8`` and ``labels`` are this rank's
+        ``rows`` of a global chunk of ``chunk`` examples."""
         device = labels.device
         if augment:
             gen = torch.Generator(device=device).manual_seed(key)
-            images = augment_train_batch(images_u8, gen, img_size, mean=mean,
-                                         std=std, dtype=image_dtype)
+            offsets, flips = draw_augment_params(chunk, gen)
+            images = augment_train_batch(
+                images_u8, None, img_size, mean=mean, std=std,
+                dtype=image_dtype, offsets=offsets[rows], flips=flips[rows])
         else:
             images = prepare_eval_batch(images_u8, img_size, mean=mean,
                                         std=std, dtype=image_dtype)
-        rng = DropoutRNG(fold_in(key, 1), device)
+        rng = sharding.dropout_rng(fold_in(key, 1), device, mesh)
         with _autocast(device, compute_dtype):
             logits = model(images, rng)
         # Promote-only: bf16 logits go to f32 for the loss; f64 stays f64.
@@ -105,31 +155,42 @@ def make_train_step(
         model = state.model
         model.train()
         device = _device(model)
+        b = len(labels)
+        n = (b // microbatch
+             if microbatch and b > microbatch and b % microbatch == 0 else 1)
+        rows = slice(None)
+        if mesh is not None:
+            idx, rows = _local_rows(b, n, mesh)
+            images_u8, labels = images_u8[idx], labels[idx]
         images_u8 = torch.as_tensor(images_u8).to(device, non_blocking=True)
         labels = torch.as_tensor(labels).to(device, torch.long,
                                             non_blocking=True)
-        b = labels.shape[0]
         model.zero_grad(set_to_none=True)
-        if microbatch and b > microbatch and b % microbatch == 0:
-            n = b // microbatch
+        if n > 1:
+            c = labels.shape[0] // n  # this rank's rows of a chunk
             loss_sum = correct = 0
             for i in range(n):
-                chunk = slice(i * microbatch, (i + 1) * microbatch)
+                chunk = slice(i * c, (i + 1) * c)
                 ls, co = fwd_bwd(model, images_u8[chunk], labels[chunk],
-                                 fold_in(key, i))
+                                 fold_in(key, i), microbatch, rows)
                 loss_sum, correct = loss_sum + ls, correct + co
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(n)
         else:
-            loss_sum, correct = fwd_bwd(model, images_u8, labels, key)
+            loss_sum, correct = fwd_bwd(model, images_u8, labels, key, b,
+                                        rows)
+        if state.layout is not None:
+            state.layout.finish_grads()
         state.tx.step()
         state.step += 1
         metrics = {
             "loss_sum": loss_sum,
             "correct": correct,
-            "count": torch.tensor(b, device=device),
+            "count": torch.tensor(labels.shape[0], device=device),
         }
+        if mesh is not None:
+            metrics = _sum_over_data(metrics, mesh)
         return state, metrics
 
     return train_step
@@ -142,17 +203,25 @@ def make_eval_step(
     std=CIFAR10_STD,
     compute_dtype: torch.dtype = torch.float32,
     return_logits: bool = False,
+    mesh=None,
 ) -> Callable:
     """Build ``eval_step(state, images_u8, labels, mask) -> metrics``:
     the model in eval mode under ``inference_mode``, and the padded
     examples (``mask`` 0, see ``data.pipeline.padded_eval_batches``) zeroed
-    out of the sums. The per-example CE is clamped at 0, as in JAX."""
+    out of the sums. The per-example CE is clamped at 0, as in JAX. Under
+    ``mesh`` each rank runs its data rows and the sums are summed over the
+    data group (``logits`` are this rank's rows)."""
     image_dtype = _image_dtype(compute_dtype)
 
     def eval_step(state, images_u8, labels, mask):
         model = state.model
         model.eval()
         device = _device(model)
+        if mesh is not None:
+            from focused_attention_vit_tpu_torch.parallel import sharding
+
+            rows = sharding.data_rows(len(labels), mesh)
+            images_u8, labels, mask = images_u8[rows], labels[rows], mask[rows]
         with torch.inference_mode():
             images_u8 = torch.as_tensor(images_u8).to(device,
                                                       non_blocking=True)
@@ -171,6 +240,9 @@ def make_eval_step(
                 "correct": (correct * mask).sum(),
                 "count": mask.sum(),
             }
+            if mesh is not None:
+                metrics = {k: v.float() for k, v in
+                           _sum_over_data(metrics, mesh).items()}
             if return_logits:
                 metrics["logits"] = logits
         return metrics

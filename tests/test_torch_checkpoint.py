@@ -31,7 +31,6 @@ import torch
 
 from focused_attention_vit_tpu import experiments as jexp
 from focused_attention_vit_tpu import models as jmodels
-from focused_attention_vit_tpu.data import native as jnative
 from focused_attention_vit_tpu.experiments import base as jbase
 from focused_attention_vit_tpu.infer import Predictor as JaxPredictor
 from focused_attention_vit_tpu_torch import cli, serve, train
@@ -337,15 +336,15 @@ def test_checkpoint_at_epochs_reevaluates(tmp_path, capsys, cifar):
 
 @pytest.fixture(scope="module")
 def same_batches():
-    """Augmentation off in both packages' experiments and JAX's numpy batch
-    iterator (not its C++ prefetcher, which shuffles with another RNG):
-    with dropout 0 the two trajectories then see the same batches. JAX's
-    memory probes, which only measure, are left out (each is a compile)."""
+    """Augmentation off in both packages' experiments; both draw their
+    batches from the native C++ prefetcher, their default (seeded per
+    segment the same way): with dropout 0 the two trajectories then see the
+    same batches. JAX's memory probes, which only measure, are left out
+    (each is a compile)."""
     with pytest.MonkeyPatch.context() as mp:
         for module in (jbase, base):
             mp.setattr(module, "make_train_step", functools.partial(
                 module.make_train_step, augment=False))
-        mp.setattr(jnative, "native_available", lambda: False)
         mp.setattr(jbase.ExperimentBase, "_memory_probe",
                    lambda self, backward: {"gpu_memory_peak_mb": 0.0})
         yield

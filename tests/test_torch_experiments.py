@@ -335,22 +335,29 @@ REJECTED = [
 ]
 
 
-# Refused until ported (tests/test_torch_train_flags.py runs them).
+# Refused until ported (tests/test_torch_train_flags.py runs the training
+# flags, tests/test_torch_data_utils.py the data flags and
+# tests/test_torch_parallel.py the mesh flags).
 PORTED_SINCE = {"profile_dir", "remat", "remat_policy", "scan_layers",
-                "mu_dtype"}
+                "mu_dtype", "dataset", "visualize", "num_devices", "tp",
+                "fsdp"}
 
 
 @pytest.mark.parametrize("extra,flag", REJECTED, ids=[f for _, f in REJECTED])
 def test_cli_rejects_what_is_not_ported(extra, flag, dirs, tmp_path,
                                         monkeypatch):
     """A flag of ``PORTED_SINCE`` now passes the refusal and reaches the
-    experiment's field; the others are still refused by name."""
+    experiment's field (``--visualize``, which the CLI acts on itself, its
+    parsed value); the others are still refused by name."""
     monkeypatch.chdir(tmp_path)
     argv = BASE_ARGS + extra + ["--data_dir", dirs["data_dir"],
                                 "--results_dir", dirs["results_dir"]]
     if flag in PORTED_SINCE:
         args = cli.parse_args(argv)
         cli.reject_not_ported(args)
+        if flag == "visualize":
+            assert args.visualize is True
+            return
         e = exp.TraditionalViTExperiment(**cli._common_kwargs(args))
         e._reject_not_ported()
         assert getattr(e, flag) == getattr(args, flag) != getattr(
@@ -426,13 +433,28 @@ def test_cli_dispatches_the_cross_attention_suites(name, tmp_path,
 ] + [
     (f, {None: "x", False: True, 1: 2}[off])
     for f, off in NOT_PORTED_DEFAULTS.items()
-] + [("dataset", "imagenet"), ("mu_dtype", "bfloat16")])
+] + [("dataset", "imagenet"), ("mu_dtype", "bfloat16"),
+     ("num_devices", 2), ("tp", 2), ("fsdp", True)])
 def test_experiment_rejects_what_is_not_ported(flag, value, dirs):
     """The fields of ``PORTED_SINCE`` are taken now: the model or the
     optimizer carries them, and a ``remat_policy`` without ``remat`` is
-    refused as in JAX; the others are still refused by name."""
+    refused as in JAX; ``dataset="imagenet"`` reads ``<data_dir>/imagenet``
+    and names it when it is missing; the mesh fields need the ranks of a
+    process group (``--fsdp`` a mesh, as in JAX). The others are still
+    refused by name."""
     e = exp.TraditionalViTExperiment(**TINY, device="cpu", **dirs,
                                      **{flag: value})
+    if flag in ("dataset", "num_devices", "tp", "fsdp"):
+        e._reject_not_ported()
+        err, match = {
+            "dataset": (FileNotFoundError, "imagenet"),
+            "num_devices": (RuntimeError, "ranks are not started"),
+            "tp": (ValueError, "tp=2 must divide device count 1"),
+            "fsdp": (ValueError, "--fsdp requires a device mesh"),
+        }[flag]
+        with pytest.raises(err, match=match):
+            e.setup()
+        return
     if flag in PORTED_SINCE:
         e._reject_not_ported()
         e.torch_device = torch.device("cpu")

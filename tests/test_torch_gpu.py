@@ -1085,3 +1085,82 @@ def test_remat_band_launches(cuda, policy, fwd_per_block):
     torch.cuda.synchronize()
     assert [band.launch_count(k) for k in band.LAUNCH_KINDS] == [
         0, 2 * fwd_per_block, 2]
+
+
+@pytest.mark.parametrize("wrapper", ["ddp", "fsdp", "tp"])
+def test_world_one_wrappers_launch_the_band_kernels(cuda, tmp_path,
+                                                    wrapper):
+    """A world-1 NCCL group: DDP, FSDP2 and tensor parallelism at tp=1
+    train an MHLA model at S=577 (the band kernels) with AdamW at the
+    experiments' learning rate to the plain path's losses and parameters
+    (f32, dropout off) and launch K1's training form and K2 once a block a
+    step inside the wrapper."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from focused_attention_vit_tpu_torch import train
+    from focused_attention_vit_tpu_torch.models import VisionTransformerMHLA
+    from focused_attention_vit_tpu_torch.parallel import make_mesh, shard_state
+
+    def fresh():
+        model = VisionTransformerMHLA(
+            img_size=96, patch_size=4, num_classes=10, embed_dim=128,
+            depth=2, num_heads=2, generator=torch.Generator().manual_seed(1))
+        return train.create_train_state(model, train.make_adamw(1e-4))
+
+    rng = np.random.default_rng(0)
+    data = [(rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+             rng.integers(0, 10, 4)) for _ in range(2)]
+    plain = fresh()
+    step = train.make_train_step(96)
+    want = [float(step(plain, x, y, i)[1]["loss_sum"])
+            for i, (x, y) in enumerate(data)]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        state = shard_state(fresh(), mesh, fsdp=wrapper == "fsdp",
+                            ddp=wrapper == "ddp",
+                            tensor_parallel=wrapper == "tp")
+        step = train.make_train_step(96, mesh=mesh)
+        got = []
+        for i, (x, y) in enumerate(data):
+            band.reset_launch_count()
+            got.append(float(step(state, x, y, i)[1]["loss_sum"]))
+            torch.cuda.synchronize()
+            assert [band.launch_count(k) for k in band.LAUNCH_KINDS] == [
+                0, 2, 2]
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        for n, p in plain.model.named_parameters():
+            q = state.layout.params[n]
+            q = q.full_tensor() if hasattr(q, "full_tensor") else q
+            torch.testing.assert_close(q, p, atol=1e-5, rtol=0)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_masked_block_on_the_card(cuda):
+    """An MHLA block at S=577 with a mask: all ones in bf16 equals the
+    unmasked kernel path (K1) within the bf16 rule; a random mask in f32
+    equals the CPU's plain masked shift band within 1e-4."""
+    from focused_attention_vit_tpu_torch.models.layers import (
+        MHLATransformerBlock,
+    )
+
+    block = MHLATransformerBlock(128, 2, 7).eval()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 577, 128, generator=gen)
+    mask = (torch.rand(2, 577, 577, generator=gen) > 0.3).float()
+    with torch.no_grad():
+        want = block(x, mask)
+        block.to(cuda)
+        got = block(x.to(cuda), mask.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+        block.to(torch.bfloat16)
+        xb = x.to(cuda, torch.bfloat16)
+        band.reset_launch_count()
+        unmasked = block(xb)
+        assert band.launch_count("fwd") == 1
+        masked = block(xb, torch.ones(2, 577, 577, device=cuda))
+        assert band.launch_count("fwd") == 1  # the mask takes no kernel
+        _close(masked, unmasked, torch.bfloat16, None, bf16_atol=2.0 ** -5)

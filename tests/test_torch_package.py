@@ -23,6 +23,8 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.convert.flax_msgpack",
     "focused_attention_vit_tpu_torch.convert.from_jax",
     "focused_attention_vit_tpu_torch.data.datasets",
+    "focused_attention_vit_tpu_torch.data.imagenet",
+    "focused_attention_vit_tpu_torch.data.native",
     "focused_attention_vit_tpu_torch.data.pipeline",
     "focused_attention_vit_tpu_torch.data.pretrained",
     "focused_attention_vit_tpu_torch.experiments",
@@ -59,6 +61,11 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.ops.segment_pool",
     "focused_attention_vit_tpu_torch.ops.slic",
     "focused_attention_vit_tpu_torch.ops.window",
+    "focused_attention_vit_tpu_torch.parallel",
+    "focused_attention_vit_tpu_torch.parallel.launch",
+    "focused_attention_vit_tpu_torch.parallel.mesh",
+    "focused_attention_vit_tpu_torch.parallel.multihost",
+    "focused_attention_vit_tpu_torch.parallel.sharding",
     "focused_attention_vit_tpu_torch.serve",
     "focused_attention_vit_tpu_torch.train",
     "focused_attention_vit_tpu_torch.train.checkpoint",
@@ -66,8 +73,10 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.utils.band_ab",
     "focused_attention_vit_tpu_torch.utils.kernel_build",
     "focused_attention_vit_tpu_torch.utils.metrics",
+    "focused_attention_vit_tpu_torch.utils.patchify",
     "focused_attention_vit_tpu_torch.utils.profiling",
     "focused_attention_vit_tpu_torch.utils.step_profile",
+    "focused_attention_vit_tpu_torch.utils.viz",
 ]
 
 

@@ -620,17 +620,16 @@ def test_cli_runs_the_pretrained_experiments(cache, tmp_path, monkeypatch,
 def test_cli_rejects_what_is_not_ported(tmp_path, monkeypatch, name, extra,
                                         flag):
     """``--mu_dtype bfloat16`` and ``--remat`` have been ported since
-    (tests/test_torch_train_flags.py): they pass the refusal now;
-    ``--visualize`` is still refused by name."""
+    (tests/test_torch_train_flags.py), and ``--visualize``
+    (tests/test_torch_data_utils.py): they pass the refusal now, and
+    ``--sp`` is still refused by name."""
     monkeypatch.chdir(tmp_path)
-    if flag in ("mu_dtype", "remat"):
-        args = cli.parse_args(["--experiment", name, "--device", "cpu",
-                               *extra])
-        cli.reject_not_ported(args)
-        assert getattr(args, flag) in ("bfloat16", True)
-        return
-    with pytest.raises(NotPortedError, match=f"--{flag} .*not ported yet"):
-        cli.main(["--experiment", name, "--device", "cpu", *extra])
+    args = cli.parse_args(["--experiment", name, "--device", "cpu", *extra])
+    cli.reject_not_ported(args)
+    assert getattr(args, flag) in ("bfloat16", True)
+    with pytest.raises(NotPortedError, match="--sp .*not ported yet"):
+        cli.main(["--experiment", name, "--device", "cpu", *extra,
+                  "--sp", "2"])
     assert not (tmp_path / "results").exists()
 
 
@@ -753,9 +752,18 @@ def test_pretrained_mhla_defaults_and_refusals():
     assert model.blocks[0].mlp.dropout == 0.0
     with pytest.raises(NotPortedError, match="sp_mesh"):
         PretrainedViTWithMHLA(depth=1, sp_mesh=object())
-    block = MHLATransformerBlock(32, 2, 4)
-    with pytest.raises(NotPortedError, match="§A 7"):
-        block(torch.zeros(1, 9, 32), torch.ones(1, 9, 9))
+    # A mask was refused until ported: the masked block now equals JAX's
+    # (its plain masked bands) at banded S and at S <= 2W.
+    for s in (100, 7):
+        block, params, x, jblock = _even_w_block(s=s)
+        mask = (np.random.default_rng(s).random((1, s, s)) > 0.3).astype(
+            np.float32)
+        with torch.inference_mode():
+            got = block(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+        want = np.asarray(jblock.apply({"params": params}, jnp.asarray(x),
+                                       jnp.asarray(mask)))
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+        assert isinstance(block, MHLATransformerBlock)
 
 
 @pytest.fixture()
