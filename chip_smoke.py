@@ -216,6 +216,28 @@ Three phases of PR 17 run inside the sequence too:
     GiB; the FSDP2 state's gathered checkpoint restored into a plain model
     bit for bit; the group destroyed before the next phase.
 
+Three phases of PR 18 run right after parallel, on another world-1 NCCL
+group:
+
+39. sequence: the SP band (``parallel/sequence.py``; plain on the card, as
+    JAX's is) over a size-1 ``seq`` dimension at B=8, S=3137, W=7 against
+    the plain shift band and K1's eval output (f32 within 1e-5, bf16
+    within BF16_ULPS), 4 virtual shards (L=785, 3 pad rows) stitched
+    against the single-device band and their f32 gradients through the
+    exchange against the plain band's; a 12-block MHLA-B/4 f32 eval at
+    batch 8 with the size-1 seq dimension against the S-minor path, logits
+    within 1e-3, ms a batch of both;
+40. pipeline: MHLA-B/4 at batch 32, f32, remat ``band_weights``, over a
+    1-stage ``stage`` dimension in 4 microbatches, 3 steps, against the
+    plain step at microbatch 8: losses within 1e-5, the first step's
+    gradients by train-parity's rule, the parameters printed, K1's
+    training form and K2 12 x 4 launches a step, ms a step and peak GiB,
+    the gathered checkpoint restored into a plain model bit for bit;
+41. mesh-serve: ``Predictor(mesh=make_mesh(1))`` at MHLA-B/4, bf16, batch
+    32, behind ``BatchingServer`` and ``HTTPFrontend``: its probabilities
+    against the plain Predictor's on the same requests, K1 12 x the
+    forward passes.
+
 The kernel, kernel-train and kernel-tileband phases also time PyTorch's
 fused attention on K1's function (the band's float log-multiplicity mask
 on the S-minor tensors' transposed views: the eval call, the call with
@@ -355,6 +377,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 
 
+# The card's name and power limit as nvidia-smi gives them (phase_device).
+CARD = "unknown card"
+
+
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
@@ -447,6 +473,8 @@ def phase_device() -> str:
                   f"visible; torch {torch.__version__}, CUDA "
                   f"{torch.version.cuda}; nvidia-smi name, power limit:")
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return name
@@ -1784,6 +1812,289 @@ def phase_parallel(tmp: str) -> dict:
     finally:
         dist.destroy_process_group()
     return total
+
+
+# The SP band at MHLA-B/4 width, batch 8 (B, h, S, d), over 4 virtual
+# shards: L = 785 rows a shard, 3 pad rows on the last.
+SEQ_SHAPE = (8, 12, 3137, 64)
+SEQ_SHARDS = 4
+PIPE_MICROBATCHES = 4
+
+
+@contextlib.contextmanager
+def _world_one(tmp: str):
+    """A world-1 NCCL process group for the phases of the parallel layer,
+    destroyed on the way out."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/mesh-store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _band_check(what: str, got, ref, dtype, f32_tol: float) -> float:
+    err = float((got.float() - ref.float()).abs().max())
+    if dtype == torch.float32:
+        ok, text = err <= f32_tol, f"max abs err {err:.3g} (tol {f32_tol:g})"
+    else:
+        ulps = bf16_ulps(got, ref)
+        ok, text = ulps <= BF16_ULPS, (f"max abs err {err:.3g}, {ulps:.2f} "
+                                       f"ulps (tol {BF16_ULPS})")
+    log("sequence", f"{what}: {text}")
+    if not ok:
+        raise AssertionError(f"sequence: {what} disagrees: {text}")
+    return err
+
+
+def phase_sequence(card: str) -> None:
+    """Sequence parallelism at MHLA-B/4 width on a world-1 group: the SP
+    band (``parallel.sequence.sp_windowed_attention``, plain on the card
+    as in JAX) over a size-1 ``seq`` dimension against the plain shift band
+    and K1's eval output at B=8, S=3137, W=7 (f32 within 1e-5, bf16 within
+    BF16_ULPS); 4 virtual shards (L=785, 3 pad rows) stitched against the
+    single-device band, and their gradients through the exchange against
+    the plain band's (f32, F32_BWD_TOL); then a 12-block MHLA-B/4 f32 eval
+    at batch 8 with the size-1 seq dimension against the S-minor path
+    (K1): logits within 1e-3, ms a batch of both."""
+    from focused_attention_vit_tpu_torch.parallel import make_mesh, sequence
+
+    phase = "sequence"
+    mesh = make_mesh(1, unit_dims=("seq",))
+    b, h, s, d = SEQ_SHAPE
+    w = SERVE_W
+    shards = sequence.SeqShards.of(mesh, "seq", s)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v = (torch.randn(SEQ_SHAPE, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(3))
+        with torch.no_grad():
+            got = sequence.sp_windowed_attention(q, k, v, w, shards)
+            plain = window._shift_banded_attention(q, k, v, w)
+            k1 = band.roll_banded_attention(
+                *(t.transpose(2, 3).contiguous() for t in (q, k, v)),
+                w).transpose(2, 3)
+            virtual = sequence.virtual_sp_windowed_attention(
+                q, k, v, w, SEQ_SHARDS)
+        _band_check(f"{SEQ_SHAPE} W={w} {dt}, a size-1 seq group against "
+                    f"the plain shift band", got, plain, dtype, F32_TOL)
+        _band_check(f"{dt}, a size-1 seq group against K1", got, k1, dtype,
+                    F32_TOL)
+        _band_check(f"{dt}, {SEQ_SHARDS} virtual shards (L, pad = "
+                    f"{sequence.check_shards(s, SEQ_SHARDS, w)}) stitched "
+                    f"against the plain shift band", virtual, plain, dtype,
+                    F32_TOL)
+        sp_ms = cuda_median_ms(
+            lambda: sequence.sp_windowed_attention(q, k, v, w, shards))
+        k1_ms = cuda_median_ms(lambda: band.roll_banded_attention(
+            *(t.transpose(2, 3).contiguous() for t in (q, k, v)), w))
+        log(phase, f"{dt}: the SP band over a size-1 group {sp_ms:.3f} ms, "
+                   f"K1 with its layout copies {k1_ms:.3f} ms (median of 30, "
+                   f"CUDA events; {card})")
+        del got, plain, k1, virtual
+    q, k, v = (torch.randn(SEQ_SHAPE, device="cuda", generator=gen)
+               .requires_grad_() for _ in range(3))
+    g = torch.randn(SEQ_SHAPE, device="cuda", generator=gen)
+    out = sequence.virtual_sp_windowed_attention(q, k, v, w, SEQ_SHARDS)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(window._shift_banded_attention(q, k, v, w),
+                               (q, k, v), g)
+    for name, a, c in zip("qkv", got, want):
+        _band_check(f"f32 d{name} of {SEQ_SHARDS} virtual shards through the "
+                    f"exchange against the plain band's", a, c,
+                    torch.float32, F32_BWD_TOL)
+    del q, k, v, g, out, got, want
+    torch.cuda.empty_cache()
+
+    ref = MHLA.build(generator=torch.Generator().manual_seed(0))
+    sp_model = MHLA.build(generator=torch.Generator().manual_seed(0),
+                          sp_mesh=mesh)
+    ref, sp_model = ref.to("cuda").eval(), sp_model.to("cuda").eval()
+    x = prepare_eval_batch(torch.from_numpy(
+        _images(np.random.default_rng(8), b)).cuda(), 224)
+    band.reset_launch_count()
+    with torch.inference_mode():
+        want = ref(x)
+        launches = band.launch_count()
+        got = sp_model(x)
+        if band.launch_count() != launches:
+            raise AssertionError("the SP model launched K1")
+        ref_ms = cuda_median_ms(lambda: ref(x), repeats=5, warmup=1)
+        sp_ms = cuda_median_ms(lambda: sp_model(x), repeats=5, warmup=1)
+    dl = float((got - want).abs().max())
+    log(phase, f"MHLA-B/4 f32 eval, batch {b}: a size-1 seq group (the plain "
+               f"SP band) against the S-minor path (K1, {launches} launches):"
+               f" max |d logits| {dl:.3g} (tol 1e-3); {sp_ms:.1f} ms a batch "
+               f"against {ref_ms:.1f} (median of 5, CUDA events; {card})")
+    if dl > 1e-3:
+        raise AssertionError("the SP model departs from the S-minor path")
+    del ref, sp_model, x
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(tmp: str, card: str) -> dict:
+    """Pipeline parallelism on a world-1 group: MHLA-B/4 (12 blocks) over a
+    1-stage ``stage`` dimension in ``PIPE_MICROBATCHES`` microbatches at
+    batch 32, f32, dropout 0, remat with ``band_weights``,
+    ``PARALLEL_STEPS`` steps, against the plain step at the same microbatch
+    split (``microbatch=8``, no augmentation on either side): losses
+    within 1e-5 and the first step's gradients by the train-parity rule
+    (each leaf within 1e-3 of its largest entry plus 1e-6); K1's training
+    form and K2 launch 12 x 4 times a step on both; ms a step and peak GiB;
+    the gathered checkpoint restored into a plain model bit for bit.
+    Returns the pipeline's launches. The parameters after the AdamW steps
+    are printed and not bound: the stem and the head run on the whole
+    batch in the pipeline and per microbatch in the plain step (other
+    cuBLAS kernels), and Adam turns the f32 noise of an entry whose
+    gradient is near zero into a step of up to the learning rate."""
+    from focused_attention_vit_tpu_torch.parallel import make_mesh, shard_state
+    from focused_attention_vit_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+
+    phase = "pipeline"
+    mesh = make_mesh(1, unit_dims=("stage",))
+    rng = np.random.default_rng(17)
+    data = [(_images(rng, TRAIN_BATCH), rng.integers(0, 10, TRAIN_BATCH))
+            for _ in range(PARALLEL_STEPS)]
+    per_step = DEPTH * PIPE_MICROBATCHES
+
+    def fresh(**kw):
+        model = MHLA.build(device="cuda", remat=True,
+                           remat_policy="band_weights",
+                           generator=torch.Generator().manual_seed(21), **kw)
+        return train.create_train_state(model, train.make_adamw(1e-4))
+
+    def run(state, step, label):
+        losses, grads = [], None
+        band.reset_launch_count()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i, (u8, y) in enumerate(data):
+            state, m = step(state, u8, y, 400 + i)
+            losses.append(float(m["loss_sum"] / m["count"]))
+            if grads is None:  # the first step's, as the update used them
+                grads = {n: p.grad.detach().clone()
+                         for n, p in state.model.named_parameters()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / len(data) * 1e3
+        launches = {k: band.launch_count(k) for k in band.LAUNCH_KINDS}
+        want = {"fwd": 0, "fwd_train": per_step * len(data),
+                "bwd": per_step * len(data)}
+        if launches != want:
+            raise AssertionError(f"{label}: band launches {launches} != "
+                                 f"{want}")
+        log(phase, f"{label}: {ms:.1f} ms a step (host clock, {len(data)} "
+                   f"steps, the first included), peak "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                   f"({card}); losses {['%.6f' % x for x in losses]}; band "
+                   f"launches {launches}")
+        return state, losses, launches, grads
+
+    plain, want_losses, _, want_grads = run(
+        fresh(), train.make_train_step(
+            224, augment=False,
+            microbatch=TRAIN_BATCH // PIPE_MICROBATCHES),
+        f"plain, microbatch {TRAIN_BATCH // PIPE_MICROBATCHES}")
+    want = {n: p.detach() for n, p in plain.model.named_parameters()}
+    del plain
+    torch.cuda.empty_cache()
+    state = shard_state(fresh(scan_layers=True, pp_mesh=mesh,
+                              pp_microbatches=PIPE_MICROBATCHES), mesh)
+    state, losses, launches, grads = run(
+        state, train.make_train_step(224, augment=False, mesh=mesh),
+        f"GPipe, 1 stage, {PIPE_MICROBATCHES} microbatches")
+    loss_err = max(abs(a - b) for a, b in zip(losses, want_losses))
+    grad_worst = max(
+        (float((g - want_grads[n]).abs().max())
+         / (PARITY_GRAD_REL * float(want_grads[n].abs().max())
+            + PARITY_GRAD_ABS), n) for n, g in grads.items())
+    errs = {n: float((p.detach() - want[n]).abs().max())
+            for n, p in state.layout.params.items()}
+    top = max(errs, key=errs.get)
+    log(phase, f"against plain: losses within {loss_err:.3g} (tol 1e-5); "
+               f"the first step's gradients within {grad_worst[0]:.3g} of "
+               f"the train-parity bound (worst leaf {grad_worst[1]}); "
+               f"parameters after {PARALLEL_STEPS} AdamW steps within "
+               f"{errs[top]:.3g}, at {top} (printed, not bound)")
+    if loss_err > 1e-5 or grad_worst[0] > 1.0:
+        raise AssertionError(f"the pipeline departs from the plain step: "
+                             f"losses {loss_err}, gradients {grad_worst}")
+    mngr = CheckpointManager(os.path.join(tmp, "pipeline-ckpt"))
+    mngr.save(PARALLEL_STEPS, state)
+    full = state.layout.full_state(state)
+    back = fresh()
+    mngr.restore(back)
+    same = all(torch.equal(p.detach(), full["model"][n])
+               for n, p in back.model.named_parameters())
+    log(phase, f"the gathered checkpoint restored into a plain model: "
+               f"bit-equal {same}")
+    if not same:
+        raise AssertionError("the pipeline's checkpoint does not restore bit "
+                             "for bit")
+    del state, back, full, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mesh_serve(card: str) -> int:
+    """Mesh serving on a world-1 group: MHLA-B/4 in bf16 at batch 32,
+    ``Predictor(mesh=make_mesh(1))`` behind ``BatchingServer`` and
+    ``HTTPFrontend``: concurrent requests and one ``POST /predict``, whose
+    probabilities must equal the plain ``Predictor``'s on the same
+    requests (the difference printed; bit for bit expected, 1e-2 the
+    bound), and K1 launched 12 x the forward passes. Returns those
+    launches."""
+    from focused_attention_vit_tpu_torch.infer import Predictor
+    from focused_attention_vit_tpu_torch.parallel import make_mesh
+
+    phase = "mesh-serve"
+    rng = np.random.default_rng(9)
+    cpu_model = MHLA.build(generator=torch.Generator().manual_seed(0))
+    kw = dict(img_size=224, device="cuda", batch_size=32)
+    plain = Predictor(copy.deepcopy(cpu_model), **kw)
+    meshed = Predictor(cpu_model, mesh=make_mesh(1), **kw)
+    meshed.warmup()
+    sizes = [1, 7, 32, 40, 12]
+    reqs = [_images(rng, n) for n in sizes]
+    http_req = _images(rng, 5)
+    want = [plain.predict_proba(r) for r in reqs + [http_req]]
+    del plain
+    forwards = [0]
+    hook = meshed.model.register_forward_pre_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    band.reset_launch_count()
+    t0 = time.perf_counter()
+    with serve.BatchingServer(meshed, max_delay_ms=5.0, workers=2) as srv, \
+            serve.HTTPFrontend(srv, host="127.0.0.1", port=0) as fe:
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            outs = list(pool.map(
+                lambda r: srv.submit(r).result(timeout=300), reqs))
+        outs.append(_post(f"http://{fe.host}:{fe.port}", http_req))
+    wall = time.perf_counter() - t0
+    meshed.close()
+    hook.remove()
+    launches = band.launch_count()
+    for req, out in zip(reqs + [http_req], outs):
+        _check_probs(out, len(req))
+    dp = max(float(np.abs(a - b).max()) for a, b in zip(outs, want))
+    log(phase, f"{len(reqs)} concurrent requests of {sizes} images and one "
+               f"POST /predict of {len(http_req)} through a (data 1, model 1)"
+               f" mesh in {wall:.2f} s: max |d probs| against the plain "
+               f"Predictor {dp:.3g} (tol 1e-2); forward passes {forwards[0]},"
+               f" K1 launches {launches} ({card})")
+    if dp > 1e-2:
+        raise AssertionError("mesh serving disagrees with the plain Predictor")
+    if launches != DEPTH * forwards[0] or forwards[0] == 0:
+        raise AssertionError(f"K1 launches {launches} != {DEPTH} x "
+                             f"{forwards[0]} forward passes")
+    del meshed, cpu_model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _flash_check(got, ref, dtype, f32_tol, max_ulps=BF16_ULPS):
@@ -3857,6 +4168,11 @@ def main() -> None:
     phase_mhla_mask()
     with tempfile.TemporaryDirectory() as tmp:
         parallel_launches = phase_parallel(tmp)
+        torch.cuda.empty_cache()
+        with _world_one(tmp):
+            phase_sequence(CARD)
+            pipeline_launches = phase_pipeline(tmp, CARD)
+            mesh_serve_launches = phase_mesh_serve(CARD)
     torch.cuda.empty_cache()
 
     fused_timing = phase_kernel_fused()
@@ -3923,18 +4239,19 @@ def main() -> None:
         # and backwards in the train-flags phases (remat).
         ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158",
          launches[MHLA] + pmhla_launches + psppp_launches
-         + exports[MHLA]["launches"], timing["bf16"]),
-        # K1's training form and K2 also run in the checkpoint phase's steps
-        # and inside DDP, FSDP2 and tensor parallelism (parallel phase).
+         + exports[MHLA]["launches"] + mesh_serve_launches, timing["bf16"]),
+        # K1's training form and K2 also run in the checkpoint phase's steps,
+        # inside DDP, FSDP2 and tensor parallelism (parallel phase) and in
+        # each stage of the pipeline (pipeline phase).
         ("mhla_band_fwd_train", band.KERNEL_SOURCE, f"{tpu}:158",
          train_launches[MHLA]["fwd_train"] + ckpt_launches["fwd_train"]
          + flags_launches[MHLA]["fwd_train"]
-         + parallel_launches["fwd_train"],
+         + parallel_launches["fwd_train"] + pipeline_launches["fwd_train"],
          train_timing["bf16"]["fwd_train"]),
         ("mhla_band_bwd", band.BWD_KERNEL_SOURCE, f"{tpu}:199",
          train_launches[MHLA]["bwd"] + ckpt_launches["bwd"]
-         + flags_launches[MHLA]["bwd"] + parallel_launches["bwd"],
-         train_timing["bf16"]["bwd"]),
+         + flags_launches[MHLA]["bwd"] + parallel_launches["bwd"]
+         + pipeline_launches["bwd"], train_timing["bf16"]["bwd"]),
         ("flash_attention_fwd", flash.FWD_KERNEL_SOURCE, f"{tpu_flash}:73",
          launches[DENSE] + exports[DENSE]["launches"],
          flash_timing["bf16"]["fwd"]),

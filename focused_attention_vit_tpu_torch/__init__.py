@@ -7,10 +7,8 @@ the eight model classes (:mod:`.models`: the dense and MHLA ViTs,
 their serving (:mod:`.serve`, :mod:`.infer`) and training (:mod:`.train`,
 with checkpoint, resume and preemption), the eight experiments
 (:mod:`.experiments`, :mod:`.cli`) with the pretrained-checkpoint loader
-(:mod:`.data.pretrained`, :mod:`.convert`, a Flax msgpack reader), and every
-TPU kernel as a hand-written CUDA kernel (``csrc/``).
+(:mod:`.data.pretrained`, :mod:`.convert`, a Flax msgpack reader), the
+parallel layer (:mod:`.parallel`: DP, TP, FSDP, sequence and pipeline
+parallelism, mesh serving), and every TPU kernel as a hand-written CUDA
+kernel (``csrc/``).
 """
-
-
-class NotPortedError(NotImplementedError):
-    """An option of the JAX package that the port does not have yet."""

@@ -17,14 +17,15 @@ each and take no checkpoint directory). ``--dataset imagenet`` reads an
 ImageFolder tree under ``<data_dir>/imagenet`` (Pillow decodes it), and
 ``--visualize`` writes ``sample_images.png`` and ``sample_patches.png`` into
 ``--results_dir`` (matplotlib draws them). ``--num_devices N`` (-1: every
-card) with ``--tp`` and ``--fsdp`` trains over a ``(data, model)`` mesh: with
-no ``RANK`` in the environment the CLI starts N ranks itself (rank r on
-``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``), and
-under ``torchrun`` it joins the ranks there; rank 0 alone prints and writes.
-Every other flag of the JAX surface is parsed; those the port does not act
-on yet (``--sp``, ``--pp``) raise an error that names the flag, before
-anything runs. None is silently ignored: ``--scan_layers``, which means
-nothing to an eager loop, says so on stderr. Set
+card) with ``--tp``, ``--sp``, ``--pp`` and ``--fsdp`` trains over a
+``(data, model[, seq][, stage])`` mesh: with no ``RANK`` in the environment
+the CLI starts N ranks itself (rank r on ``cuda:r`` over NCCL, or on the
+CPU over gloo with ``--device cpu``), and under ``torchrun`` it joins the
+ranks there; rank 0 alone prints and writes. ``--sp`` splits the tokens of
+an MHLA-family model (the band exchanges halos), ``--pp`` runs the blocks
+as a GPipe pipeline and, as in JAX, needs ``--scan_layers``. Every flag of
+the JAX surface is acted on; none is silently ignored: ``--scan_layers``,
+which means nothing to an eager loop, says so on stderr. Set
 ``FAVIT_FUSED_MHA=1`` to take the fused short-sequence attention kernels
 (``ops/mha_kernel.py``), and ``FAVIT_MHLA_IMPL=shiftband
 FAVIT_USE_PALLAS_MHLA=1`` to take E5's and E6's MHLA through the tile band
@@ -41,10 +42,6 @@ import sys
 
 import torch
 
-from focused_attention_vit_tpu_torch.experiments.base import (
-    NOT_PORTED_DEFAULTS,
-    not_ported,
-)
 
 CROSS_SUITES = ("cross_attention", "multihead_cross_attention")
 EXPERIMENTS = [
@@ -156,11 +153,22 @@ def parse_args(argv=None):
     parser.add_argument("--tp", type=int, default=1,
                         help="Tensor-parallel size (the mesh's model "
                              "dimension)")
-    parser.add_argument("--sp", type=int, default=1, help="not ported yet")
+    parser.add_argument("--sp", type=int, default=1,
+                        help="Sequence-parallel size (the mesh's seq "
+                             "dimension): each rank holds its share of the "
+                             "tokens and windowed MHLA attention exchanges "
+                             "a W//2-row halo with its neighbours "
+                             "(parallel/sequence.py). MHLA models only")
     parser.add_argument("--fsdp", action="store_true",
                         help="Shard parameters and optimizer state over the "
                              "mesh's data dimension (FSDP2)")
-    parser.add_argument("--pp", type=int, default=1, help="not ported yet")
+    parser.add_argument("--pp", type=int, default=1,
+                        help="Pipeline-parallel size (the mesh's stage "
+                             "dimension); must divide the depth. GPipe "
+                             "fill-drain over the blocks "
+                             "(parallel/pipeline.py); requires "
+                             "--scan_layers. Composes with --sp: each "
+                             "stage's blocks exchange their halos")
     parser.add_argument("--microbatch", type=int, default=None,
                         help="Gradient-accumulation chunk of the train step "
                              "(identical batch math; smaller live "
@@ -170,12 +178,10 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def reject_not_ported(args) -> None:
-    """Raise for every flag and choice the port parses but does not act on
-    yet, naming it; nothing is silently ignored."""
-    for flag, off in NOT_PORTED_DEFAULTS.items():
-        if getattr(args, flag) != off:
-            raise not_ported(flag, getattr(args, flag))
+def reject_unsupported(args) -> None:
+    """Raise, before anything runs, for a flag combination the port does
+    not run: ``--checkpoint_dir`` with E7/E8, whose four runs would share
+    it."""
     if args.checkpoint_dir and args.experiment in CROSS_SUITES:
         # JAX's suites drop the flag; four runs would resume from one
         # directory.
@@ -284,10 +290,11 @@ def _save_visualizations(args) -> None:
 
 def _world_size(args) -> int:
     """The ranks that ``--num_devices`` asks for: every card for -1, or
-    for ``--tp`` without ``--num_devices``, as JAX takes every device;
-    one device on the CPU."""
+    for ``--tp``, ``--sp`` or ``--pp`` without ``--num_devices``, as JAX
+    takes every device; one device on the CPU."""
     n = args.num_devices
-    if (n is None and args.tp > 1) or (n is not None and n <= 0):
+    split = args.tp > 1 or args.sp > 1 or args.pp > 1
+    if (n is None and split) or (n is not None and n <= 0):
         cpu = args.device is not None and torch.device(args.device).type == "cpu"
         n = 1 if cpu else torch.cuda.device_count()
     return n or 1
@@ -313,7 +320,7 @@ def _backend(device) -> str:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    reject_not_ported(args)
+    reject_unsupported(args)
 
     import torch.distributed as dist
 
@@ -321,6 +328,10 @@ def main(argv=None):
 
     cpu = args.device is not None and torch.device(args.device).type == "cpu"
     world = _world_size(args)
+    if world % (args.tp * args.sp * args.pp):
+        # JAX's make_mesh error, before anything runs or is written.
+        raise ValueError(f"tp={args.tp} * sp={args.sp} * pp={args.pp} must "
+                         f"divide device count {world}")
     if world > 1 and "RANK" not in os.environ:
         # The ranks run this same command; this process only waits.
         launch.launch_cli(argv, world, "gloo" if cpu else "nccl")

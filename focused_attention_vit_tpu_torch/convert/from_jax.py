@@ -21,8 +21,10 @@ and ``attn.out_proj``; every other block as ``attn.qkv`` and ``attn.proj``.
 
 Params travel as ``.npz`` files whose keys are the Flax paths joined by
 ``/`` (``blocks_0/attn/qkv/kernel``); :func:`flatten_params` writes that form
-from a nested dict of arrays. Only the loop form of the block stack
-(``blocks_{i}``) is read.
+from a nested dict of arrays. The block stack is read in the loop form
+(``blocks_{i}``) or in the scan form of ``--scan_layers`` and ``--pp`` runs
+(``blocks/block`` with a leading depth axis), which
+:func:`unstack_block_params` turns into the loop form first.
 """
 
 from __future__ import annotations
@@ -58,6 +60,44 @@ def unflatten_params(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return tree
 
 
+def unstack_block_params(params: Mapping[str, Any], depth: int | None = None,
+                         prefix: str = "blocks_",
+                         scan_name: str = "blocks") -> Dict[str, Any]:
+    """Scan-form params (``{scan_name}/block``, every leaf with a leading
+    depth axis) -> the loop form (``{prefix}0 .. {prefix}{depth-1}``), as
+    JAX's ``unstack_block_params``; ``depth`` defaults to the leading axis.
+    Other entries pass through."""
+    out = {k: v for k, v in params.items() if k != scan_name}
+    stacked = params[scan_name]["block"]
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, Mapping) else (v,)
+
+    if depth is None:
+        depth = int(next(iter(leaves(stacked))).shape[0])
+
+    def take(tree, i):
+        return {k: take(v, i) if isinstance(v, Mapping) else v[i]
+                for k, v in tree.items()}
+
+    for i in range(depth):
+        out[f"{prefix}{i}"] = take(stacked, i)
+    return out
+
+
+def _loop_form(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    """``params`` with a scan-form block stack unstacked; a tree with both
+    forms is refused."""
+    if "blocks" not in params:
+        return params
+    if any(re.fullmatch(r"blocks_\d+", k) for k in params):
+        raise ValueError(
+            "params hold both a scan-form stack (blocks/block) and loop-form "
+            "blocks_{i}")
+    return unstack_block_params(params)
+
+
 def _t(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):  # a bf16 leaf of the msgpack reader
         return x.detach().float().clone()
@@ -82,6 +122,7 @@ def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool,
     block, saved under the ``in_proj``/``out_proj`` names if
     ``in_proj_names``. The MLP's two Linears are saved as ``mlp.<name>``
     for the two ``mlp_names``."""
+    params = _loop_form(params)
     sd = _stem(params)
     for i in range(_depth(params)):
         blk = params[f"blocks_{i}"]
@@ -112,11 +153,6 @@ def _blocks_to_state_dict(params: Mapping[str, Any], in_proj_names: bool,
 
 
 def _depth(params: Mapping[str, Any]) -> int:
-    if "blocks" in params:
-        raise ValueError(
-            "scan-form params (blocks/block) are not supported; unstack them "
-            "into blocks_{i} first"
-        )
     depth = sum(1 for k in params if re.fullmatch(r"blocks_\d+", k))
     if sorted(k for k in params if k.startswith("blocks_")) != sorted(
         f"blocks_{i}" for i in range(depth)
@@ -148,6 +184,7 @@ def flax_vit_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     """Flax ``VisionTransformer`` (or ``SPPPViT``) params (loop form) -> f32
     state dict of :class:`~..models.VisionTransformer` (or
     :class:`~..models.SPPPViT`)."""
+    params = _loop_form(params)
     for k, blk in params.items():
         if k.startswith("blocks_") and "latent_proj" in blk["attn"]:
             raise ValueError(
@@ -184,6 +221,7 @@ def flax_cross_to_state_dict(params: Mapping[str, Any]
     ``reference_cross_vit_to_flax`` with ``conv_patch=False``. The
     attention's four projections are plain ``[D, D]`` kernels, and the MLP
     goes under the reference block's ``mlp.0``/``mlp.3``."""
+    params = _loop_form(params)
     sd = _stem(params)
     for i in range(_depth(params)):
         blk, pre = params[f"blocks_{i}"], f"blocks.{i}"

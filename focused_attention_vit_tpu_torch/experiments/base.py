@@ -30,15 +30,17 @@ blocks of the models that take them (the dense and MHLA ViTs), and
 ``scan_layers`` is accepted and a no-op (the model says so on stderr).
 ``dataset="imagenet"`` reads ``<data_dir>/imagenet`` (:mod:`..data.imagenet`).
 
-``num_devices`` (-1: every device) and ``tp`` build a ``(data, model)``
-mesh over the ranks of the process group (:meth:`ExperimentBase._build_mesh`;
-``cli.main`` starts the ranks, or ``torchrun`` does), and ``setup`` shards the
-state over it (:func:`~..parallel.shard_state`: DDP, or FSDP2 with ``fsdp``,
-tensor parallelism at ``tp > 1``). Rank 0 alone writes the CSV, the
-confusion matrix and the checkpoints, which hold the full state. The options
-of the JAX package that the port does not have yet (``sp``, ``pp``) are
-kept as fields, so that the flag surface stays the same, and rejected by
-name in ``setup``.
+``num_devices`` (-1: every device), ``tp``, ``sp`` and ``pp`` build a
+``(data, model[, seq][, stage])`` mesh over the ranks of the process group
+(:meth:`ExperimentBase._build_mesh`; ``cli.main`` starts the ranks, or
+``torchrun`` does). ``setup`` gives the model the ``seq`` dimension
+(sequence parallelism: MHLA-family models only) and the ``stage`` dimension
+(pipeline parallelism: the models with ``pp_mesh``, under
+``scan_layers``), as JAX clones its model with ``sp_mesh`` and ``pp_mesh``,
+and shards the state over the mesh (:func:`~..parallel.shard_state`: DDP,
+or FSDP2 with ``fsdp``, tensor parallelism at ``tp > 1``, each stage's
+blocks). Rank 0 alone writes the CSV, the confusion matrix and the
+checkpoints, which hold the full state.
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from focused_attention_vit_tpu_torch import NotPortedError
 from focused_attention_vit_tpu_torch.data.datasets import load_dataset
 from focused_attention_vit_tpu_torch.data.pipeline import prepare_eval_batch
 from focused_attention_vit_tpu_torch.train import (
@@ -73,25 +74,12 @@ from focused_attention_vit_tpu_torch.utils.metrics import (
     measure_memory_usage,
 )
 
-# Fields the JAX package acts on and the port does not yet, with the value
-# that leaves each off. Anything else is rejected by name in setup().
-NOT_PORTED_DEFAULTS = {
-    "sp": 1,
-    "pp": 1,
-}
 
 
 def is_rank_zero() -> bool:
     """True outside a process group and on its rank 0: the process that
     writes results and checkpoints."""
     return not dist.is_initialized() or dist.get_rank() == 0
-
-
-def not_ported(flag: str, value) -> NotPortedError:
-    return NotPortedError(
-        f"--{flag} {value!r} is not ported yet: the PyTorch port runs the "
-        f"experiments on one device without it (see ROADMAP.md)"
-    )
 
 
 @dataclass
@@ -139,8 +127,8 @@ class ExperimentBase:
     num_devices: Optional[int] = None  # ranks of the mesh; -1: all devices
     fsdp: bool = False  # FSDP2 over the mesh's data dimension
     tp: int = 1  # tensor-parallel size (the mesh's model dimension)
-    sp: int = 1  # not ported yet
-    pp: int = 1  # not ported yet
+    sp: int = 1  # sequence-parallel size (the mesh's seq dimension)
+    pp: int = 1  # pipeline-parallel size (the mesh's stage dimension)
     # Gradient-accumulation chunk of the train step. None = auto (the
     # class's ``auto_microbatch``); 0 disables. Accumulation does not
     # change the batch math: it trades speed against live activations.
@@ -158,7 +146,8 @@ class ExperimentBase:
     # JAX package's 16 is a TPU measurement and is not carried over.
     auto_microbatch: Optional[int] = None
 
-    # The (data, model) DeviceMesh, set by setup() (None: one device).
+    # The (data, model[, seq][, stage]) DeviceMesh, set by setup() (None: one
+    # device).
     mesh = None
 
     @property
@@ -235,13 +224,6 @@ class ExperimentBase:
             in_channels=self.in_channels,
         )
 
-    def _reject_not_ported(self) -> None:
-        for flag, off in NOT_PORTED_DEFAULTS.items():
-            value = getattr(self, flag)
-            if value != off:
-                raise not_ported(flag, value)
-        self._mu_dtype()
-
     def _check_remat_flags(self) -> None:
         """JAX's rules: ``remat_policy`` only under ``remat``, and each of
         ``scan_layers``, ``remat`` and a ``remat_policy`` other than
@@ -264,6 +246,35 @@ class ExperimentBase:
                     f"the long-sequence transformer stacks)"
                 )
 
+    def _parallel_model(self) -> None:
+        """Give the model the mesh's ``seq`` and ``stage`` dimensions, with
+        JAX's errors for a model without the option (JAX
+        ``experiments/base.py`` :281-305)."""
+        names = () if self.mesh is None else self.mesh.mesh_dim_names
+        if "seq" in names:
+            if not hasattr(self.model, "sp_mesh"):
+                raise ValueError(
+                    f"--sp requires an MHLA-family model; "
+                    f"{type(self.model).__name__} has no sequence-parallel "
+                    f"support (dense attention is not window-local)"
+                )
+            self.model.sp_mesh = self.mesh
+            self.model.enable_sequence_parallel(self.mesh, "seq")
+        if "stage" in names:
+            if not hasattr(self.model, "pp_mesh"):
+                raise ValueError(
+                    f"--pp not supported by {type(self.model).__name__}"
+                )
+            if not getattr(self.model, "scan_layers", False):
+                raise ValueError(
+                    "--pp requires the scan-form block stack: pass "
+                    "--scan_layers (random-init experiments; pretrained "
+                    "experiments build loop-form params — convert with "
+                    "layers.stack_block_params)"
+                )
+            self.model.pp_mesh = self.mesh
+            self.model.enable_pipeline_parallel(self.mesh, "stage")
+
     def _resolve_device(self) -> torch.device:
         """The card (each rank of a process group its own: ``LOCAL_RANK``,
         else the rank modulo the card count), or the CPU when asked."""
@@ -282,11 +293,13 @@ class ExperimentBase:
         return device
 
     def _build_mesh(self):
-        """The ``(data, model)`` mesh when multi-device training is asked
-        for (``num_devices``, ``tp``), as JAX's ``_build_mesh``: one device
-        with ``tp <= 1`` is no mesh, and the batch must split over the data
-        dimension. The ranks must already form the process group."""
-        if not self.num_devices and self.tp <= 1:
+        """The mesh when multi-device training is asked for
+        (``num_devices``, ``tp``, ``sp``, ``pp``), as JAX's
+        ``_build_mesh``: one device with ``tp``, ``sp`` and ``pp`` at most 1
+        is no mesh, and the batch must split over the data dimension. The
+        ranks must already form the process group."""
+        one = self.tp <= 1 and self.sp <= 1 and self.pp <= 1
+        if not self.num_devices and one:
             return None
         n = self.num_devices
         if n is None or n <= 0:
@@ -296,13 +309,18 @@ class ExperimentBase:
                 n = torch.cuda.device_count()
             else:
                 n = 1
-        if n == 1 and self.tp <= 1:
+        if n == 1 and one:
             return None
-        if n % self.tp:
-            raise ValueError(f"tp={self.tp} must divide device count {n}")
+        if n % (self.tp * self.sp * self.pp):
+            raise ValueError(
+                f"tp={self.tp} must divide device count {n}"
+                if self.sp <= 1 and self.pp <= 1 else
+                f"tp={self.tp} * sp={self.sp} * pp={self.pp} must divide "
+                f"device count {n}")
         if not dist.is_initialized():
             raise RuntimeError(
-                f"--num_devices {n} / --tp {self.tp}: the ranks are not "
+                f"--num_devices {n} / --tp {self.tp} / --sp {self.sp} / "
+                f"--pp {self.pp}: the ranks are not "
                 f"started; run through cli.main (which starts them) or "
                 f"torchrun")
         from focused_attention_vit_tpu_torch.parallel import make_mesh
@@ -332,7 +350,7 @@ class ExperimentBase:
 
     # --- pipeline -----------------------------------------------------------
     def setup(self):
-        self._reject_not_ported()
+        self._mu_dtype()  # a bad --mu_dtype fails before anything runs
         self.torch_device = self._resolve_device()
         self.mesh = self._build_mesh()
         if self.fsdp and self.mesh is None:
@@ -354,6 +372,7 @@ class ExperimentBase:
             self.num_classes = int(data_classes)
         self.model = self.build_model()
         self._check_remat_flags()
+        self._parallel_model()
         self.build_params(self.model)
         self.state = create_train_state(self.model, self.build_optimizer(),
                                         device=self.torch_device)
@@ -426,9 +445,12 @@ class ExperimentBase:
         """One eval-mode pass (and backward) of the model on the sample
         batch, in the compute dtype, on every rank of a mesh. Under FSDP
         the probe runs the forward only: its parameters' gradients come
-        from FSDP's reduce-scatter, not from autograd. A probe that fails
-        is a fault to see: nothing is caught."""
-        backward = backward and not (self.mesh is not None and self.fsdp)
+        from FSDP's reduce-scatter, not from autograd; so it does under
+        pipeline parallelism, whose blocks' gradients the schedule's own
+        backward adds into ``.grad``. A probe that fails is a fault to see:
+        nothing is caught."""
+        backward = backward and not (self.mesh is not None and (
+            self.fsdp or "stage" in self.mesh.mesh_dim_names))
         model = self.model
         was_training = model.training
         model.eval()

@@ -58,7 +58,15 @@ def save_serving_artifact(predictor, out_dir: str, *,
     artifact per shape clients will send). The files are written into
     ``<out_dir>.tmp-new`` and the directories swapped at the end, so a
     crash never leaves a mixed artifact; the windows that remain fail
-    loudly (a missing directory), never wrongly."""
+    loudly (a missing directory), never wrongly. A Predictor on a mesh is
+    refused, as in JAX."""
+    if getattr(predictor, "mesh", None) is not None:
+        raise ValueError(
+            "export of a mesh-sharded Predictor is not supported: the "
+            "serialized program would pin this host's device topology. "
+            "Export from a Predictor(mesh=None) and apply sharding on the "
+            "serving host."
+        )
     h, w = input_hw if input_hw is not None else (
         predictor.img_size, predictor.img_size)
     example = torch.zeros(predictor.batch_size, h, w, 3, dtype=torch.uint8,

@@ -2,12 +2,15 @@
 
 A :class:`Predictor` serves uint8 NHWC images at one fixed device batch:
 requests of any size are cut into ``batch_size`` chunks, the last one padded
-by repeating its first image and the padding dropped on the way out.
+by repeating its first image and the padding dropped on the way out. With a
+device mesh it serves on every rank of the process group (JAX's
+``Predictor(mesh=...)``).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from collections import deque
 from pathlib import Path
 from typing import Callable, Dict, Tuple
@@ -111,6 +114,16 @@ class Predictor:
     it under :func:`torch.inference_mode`. A batch larger than ``chunk`` and
     divisible by it runs as ``batch_size // chunk`` forward passes of
     ``chunk`` images, as the JAX package scans over chunks.
+
+    With ``mesh`` (a ``(data, model)`` mesh of :mod:`.parallel` over the
+    ranks of the process group) the parameters are placed by the
+    tensor-parallel rules (``parallel.shard_params``), each batch's rows
+    are split over ``data``, and there is no chunking, as in JAX;
+    ``batch_size`` must divide by the data size. Rank 0 serves: each of its
+    batches is broadcast to every rank, each rank runs its rows and the
+    probabilities are gathered on rank 0. The other ranks run
+    :meth:`follow` until rank 0 calls :meth:`close`. Batches from
+    concurrent threads of rank 0 go through one at a time.
     """
 
     def __init__(
@@ -124,6 +137,7 @@ class Predictor:
         mean=CIFAR10_MEAN,
         std=CIFAR10_STD,
         chunk: int = 64,
+        mesh=None,
     ):
         self.device = torch.device(device)
         self.model = model.to(device=self.device, dtype=compute_dtype).eval()
@@ -131,6 +145,22 @@ class Predictor:
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
         self.num_classes = int(model.num_classes)
+        self.mesh = mesh
+        if mesh is not None:
+            from focused_attention_vit_tpu_torch.parallel import sharding
+
+            dp = sharding.mesh_size(mesh, sharding.DATA)
+            if batch_size % dp:
+                raise ValueError(
+                    f"batch_size={batch_size} must be divisible by the "
+                    f"'data' axis size {dp}"
+                )
+            sharding.shard_params(self.model, mesh, ddp=False)
+            # On a mesh, chunking would split the rows that DP shards; the
+            # per-device batch is already small.
+            chunk = batch_size // dp
+            self._lock = threading.Lock()
+            self._stopped = False
         split = batch_size > chunk and batch_size % chunk == 0
         self.serving = ServingModule(
             self.model, img_size=img_size, dtype=compute_dtype, mean=mean,
@@ -182,12 +212,67 @@ class Predictor:
 
     @torch.inference_mode()
     def _fwd(self, images_u8: np.ndarray) -> torch.Tensor:
+        if self.mesh is not None:
+            with self._lock:
+                return self._mesh_step(np.ascontiguousarray(images_u8))
         x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
         return self.serving(x)
 
+    def _mesh_step(self, images_u8: np.ndarray | None):
+        """One batch over the mesh: rank 0 passes it (None: the stop) and
+        gets the probabilities of every row; the other ranks pass None and
+        get the same, or None at the stop."""
+        import torch.distributed as dist
+
+        from focused_attention_vit_tpu_torch.parallel import sharding
+
+        lead = dist.get_rank() == 0
+        header = torch.zeros(5, dtype=torch.int64, device=self.device)
+        if lead and images_u8 is not None:
+            header[0] = 1
+            header[1:] = torch.as_tensor(images_u8.shape)
+        dist.broadcast(header, 0)
+        if not int(header[0]):
+            return None
+        shape = [int(v) for v in header[1:]]
+        x = (torch.from_numpy(images_u8).to(self.device) if lead else
+             torch.empty(shape, dtype=torch.uint8, device=self.device))
+        dist.broadcast(x, 0)
+        rows = sharding.data_rows(shape[0], self.mesh)
+        return sharding.gather_rows(self.serving(x[rows]), self.mesh)
+
+    def follow(self) -> None:
+        """On a rank other than 0 of a mesh: run rank 0's batches until it
+        calls :meth:`close`. SIGINT is ignored here, so a Ctrl-C reaching
+        every process stops the ranks through rank 0."""
+        import signal
+
+        if threading.current_thread() is threading.main_thread():
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+        with torch.inference_mode():
+            while self._mesh_step(None) is not None:
+                pass
+
+    def close(self) -> None:
+        """On rank 0 of a mesh: stop the ranks in :meth:`follow` (once)."""
+        import torch.distributed as dist
+
+        if self.mesh is None or dist.get_rank() != 0:
+            return
+        with self._lock:
+            if not self._stopped:
+                self._stopped = True
+                self._mesh_step(None)
+
     def warmup(self, input_hw: Tuple[int, int] | None = None) -> None:
         """Run one batch of the expected input shape (default the model's
-        own size): builds the CUDA kernels on their first call."""
+        own size): builds the CUDA kernels on their first call. On a mesh
+        rank 0 warms every rank up; the others do nothing here."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            if dist.get_rank() != 0:
+                return
         h, w = input_hw if input_hw is not None else (
             self.img_size, self.img_size
         )

@@ -20,6 +20,11 @@ in training mode dropout draws from the :class:`DropoutRNG` a forward is
 given. The cross-attention layers and the MHLA layer take an attention
 mask.
 
+Under sequence parallelism (:mod:`..parallel.sequence`) the attention
+layers hold a rank's token rows and their ``sp`` says how the sequence is
+split: the MHLA band exchanges halos, every other attention core gathers
+the sequence and keeps the rank's rows of its output.
+
 Under tensor parallelism (:mod:`..parallel.sharding`) the attention layers
 and the MLPs hold their rank's heads and hidden columns, ``num_heads`` is
 the local count, and their ``tp_local`` flag makes them draw the dropout
@@ -280,6 +285,7 @@ class MultiHeadAttention(nn.Module):
     """
 
     tp_local = False  # True: this rank's heads only (tensor parallelism)
+    sp = None  # parallel.sequence.SeqShards under sequence parallelism
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  use_flash: bool | None = None, in_proj_names: bool = False,
@@ -311,6 +317,13 @@ class MultiHeadAttention(nn.Module):
         else:
             qkv = self.qkv(x)
         q, k, v = attn_ops.qkv_split(qkv, self.num_heads)
+        if self.sp is not None:
+            # Dense attention is not window-local: the sequence is
+            # gathered over ``seq`` (JAX's GSPMD gathers it too), the core
+            # runs on it as on one device and the rank keeps its rows.
+            from focused_attention_vit_tpu_torch.parallel import sequence
+
+            q, k, v = (sequence.gather_rows(t, self.sp, 2) for t in (q, k, v))
         rate = self.dropout if self.training else 0.0
         hrng = local_rng(rng, self)
         use_fused = (
@@ -335,6 +348,8 @@ class MultiHeadAttention(nn.Module):
             weights = inverted_dropout(torch.softmax(logits, dim=-1), rate,
                                        hrng)
             out = torch.matmul(weights.to(v.dtype), v)
+        if self.sp is not None:
+            out = sequence.local_rows(out, self.sp, 2)
         out = attn_ops.merge_heads(out)
         out = self.out_proj(out) if self.in_proj_names else self.proj(out)
         return inverted_dropout(out, rate, rng)
@@ -371,9 +386,19 @@ class MultiHeadLatentAttention(nn.Module):
     with the mask gathered into its ``[B, W, S]`` layout at S > 2W, the
     gather form below, each with the per-slot dropout above; the S-minor
     kernels, the dense band and the tile band run unmasked only.
+
+    Under sequence parallelism (``sp``, JAX ``models/layers.py`` :491-512)
+    x holds the rank's L rows of S and the dispatch reads S: with no mask
+    and S > 2W the band is :func:`~..parallel.sequence.sp_windowed_attention`
+    (the halo exchange, plain on the card too: JAX skips the roll kernel
+    under SP), ahead of the S-minor and dropout branches, its weights
+    dropped per slot from the rank's stream; otherwise the rows of q, k and
+    v are gathered, the branches above run on the whole sequence, and the
+    rank keeps its rows.
     """
 
     tp_local = False  # True: this rank's heads only (tensor parallelism)
+    sp = None  # parallel.sequence.SeqShards under sequence parallelism
 
     def __init__(self, embed_dim: int, num_heads: int, window_size: int = 7,
                  dropout: float = 0.0, device=None):
@@ -398,8 +423,9 @@ class MultiHeadLatentAttention(nn.Module):
         h, d = self.num_heads, self.head_dim
         w = self.window_size
         rate = self.dropout if self.training else 0.0
-        long_s = s > window_ops.DENSE_BAND_MAX_SEQ
-        if (long_s and attention_mask is None
+        seq_len = s if self.sp is None else self.sp.seq_len
+        long_s = seq_len > window_ops.DENSE_BAND_MAX_SEQ
+        if (long_s and attention_mask is None and self.sp is None
                 and os.environ.get("FAVIT_MHLA_IMPL", "auto") in ("auto",
                                                                   "roll")):
             return inverted_dropout(self._forward_sminor(x, rate, rng), rate,
@@ -411,6 +437,26 @@ class MultiHeadLatentAttention(nn.Module):
         def drop(wts):
             return inverted_dropout(wts, rate, local_rng(rng, self))
 
+        if self.sp is not None:
+            from focused_attention_vit_tpu_torch.parallel import sequence
+
+            if attention_mask is None and seq_len > 2 * w:
+                out = sequence.sp_windowed_attention(
+                    q, k, v, w, self.sp, drop if rate > 0.0 else None)
+            else:
+                out = sequence.local_rows(self._band(
+                    *(sequence.gather_rows(t, self.sp, 2) for t in (q, k, v)),
+                    rate, drop, attention_mask, long_s), self.sp, 2)
+        else:
+            out = self._band(q, k, v, rate, drop, attention_mask, long_s)
+        out = self.proj(out.transpose(1, 2).reshape(b, s, h * d))
+        return inverted_dropout(out, rate, rng)
+
+    def _band(self, q, k, v, rate: float, drop, attention_mask, long_s: bool
+              ) -> torch.Tensor:
+        """The token-major ``[B, h, S, d]`` branches: masked, dropout by
+        length, or :func:`~..ops.window.windowed_latent_attention`."""
+        s, w = q.shape[2], self.window_size
         if attention_mask is not None:
             band = (window_ops._shift_banded_attention if s > 2 * w
                     else window_ops._gather_windowed_attention)
@@ -425,8 +471,7 @@ class MultiHeadLatentAttention(nn.Module):
                 out = window_ops._gather_windowed_attention(q, k, v, w, drop)
         else:
             out = window_ops.windowed_latent_attention(q, k, v, w)
-        out = self.proj(out.transpose(1, 2).reshape(b, s, h * d))
-        return inverted_dropout(out, rate, rng)
+        return out
 
     def _forward_sminor(self, x: torch.Tensor, rate: float,
                         rng: DropoutRNG | None) -> torch.Tensor:

@@ -7,7 +7,6 @@ from __future__ import annotations
 
 import torch
 
-from focused_attention_vit_tpu_torch import NotPortedError
 from focused_attention_vit_tpu_torch.models.layers import MHLATransformerBlock
 from focused_attention_vit_tpu_torch.models.sppp_common import SPPPBase
 from focused_attention_vit_tpu_torch.models.vit import ViTBase
@@ -25,7 +24,9 @@ class PretrainedViTWithMHLA(ViTBase):
     At an even window the tile-band opt-in (``FAVIT_MHLA_IMPL=shiftband
     FAVIT_USE_PALLAS_MHLA=1``) computes another function than the default
     path: its interior rows read W + 1 keys, as in JAX (ROADMAP §C 1).
-    Sequence parallelism (``sp_mesh``) is not ported and raises."""
+    ``sp_mesh`` splits the token rows over its ``sp_axis`` dimension
+    (:meth:`~.vit.ViTBase.enable_sequence_parallel`); the model has no
+    pipeline parallelism, as in JAX."""
 
     def __init__(
         self,
@@ -42,14 +43,11 @@ class PretrainedViTWithMHLA(ViTBase):
         attn_dropout: float = 0.0,
         embed_dropout: float = 0.0,
         sp_mesh=None,
+        sp_axis: str = "seq",
         *,
         device=None,
         generator: torch.Generator | None = None,
     ):
-        if sp_mesh is not None:
-            raise NotPortedError(
-                "PretrainedViTWithMHLA: sequence parallelism (sp_mesh) is "
-                "not ported yet (ROADMAP §A 6)")
         super().__init__(
             lambda: MHLATransformerBlock(
                 embed_dim, num_heads, window_size, mlp_ratio, dropout,
@@ -60,6 +58,9 @@ class PretrainedViTWithMHLA(ViTBase):
             embed_dropout=embed_dropout, device=device, generator=generator,
         )
         self.window_size = window_size
+        self.sp_mesh = sp_mesh
+        if sp_mesh is not None:
+            self.enable_sequence_parallel(sp_mesh, sp_axis)
 
 
 class PretrainedSPPPViTWithMHLA(SPPPBase):

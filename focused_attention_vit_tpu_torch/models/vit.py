@@ -1,10 +1,13 @@
 """Dense Vision Transformer (port of
 ``focused_attention_vit_tpu/models/vit.py``), and the stem and head that
 :class:`~.vit_mhla.VisionTransformerMHLA` shares with it: a plain loop over
-the blocks, each optionally rematerialised (``remat``); no pipeline
-parallelism. ``scan_layers`` is accepted and does nothing: JAX rolls the
-blocks into one ``lax.scan`` to shrink its XLA program and to feed its
-pipeline, and an eager loop has neither need."""
+the blocks, each optionally rematerialised (``remat``), or, under pipeline
+parallelism (``pp_mesh``), the GPipe schedule of
+:mod:`..parallel.pipeline` over the same blocks. ``scan_layers`` is
+accepted and does nothing: JAX rolls the blocks into one ``lax.scan`` to
+shrink its XLA program and to feed its pipeline, and an eager loop has
+neither need; ``pp_mesh`` still asks for it, as JAX's does, so that the
+flags mean what they mean there."""
 
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ from focused_attention_vit_tpu_torch.models.layers import (
     init_weights,
     inverted_dropout,
 )
+
+PP_NEEDS_SCAN = ("pp_mesh (pipeline parallelism) requires scan_layers=True "
+                 "(the pipeline consumes the stacked block params)")
 
 SCAN_LAYERS_NOTE = (
     "scan_layers: a no-op in the PyTorch port (the blocks run in an eager "
@@ -48,7 +54,19 @@ class ViTBase(nn.Module):
     saving what ``remat_context`` (a policy of
     :func:`~.layers.resolve_remat_policy`) names; ``scan_layers`` prints
     :data:`SCAN_LAYERS_NOTE` to stderr and changes nothing.
+
+    Under sequence parallelism (:meth:`enable_sequence_parallel`) each rank
+    of the ``seq`` group keeps its L token rows after the position
+    embedding and its dropout, the attention layers exchange halos or
+    gather the sequence, and the cls row's features reach every rank by a
+    differentiable broadcast from rank 0. Under pipeline parallelism
+    (:meth:`enable_pipeline_parallel`) the blocks run as the GPipe schedule
+    over the ``stage`` group, each block under the remat policy as above.
     """
+
+    sp = None  # SeqShards (parallel.sequence) under sequence parallelism
+    pp = None  # the stage Axis (parallel.collectives) under PP
+    pp_microbatches = None
 
     def __init__(self, make_block, *, img_size: int, patch_size: int,
                  in_channels: int, num_classes: int, embed_dim: int,
@@ -100,6 +118,38 @@ class ViTBase(nn.Module):
     def num_patches(self) -> int:
         return (self.img_size // self.patch_size) ** 2
 
+    def enable_sequence_parallel(self, mesh, axis: str = "seq") -> None:
+        """Split the token rows over the ``axis`` dimension of ``mesh``
+        (JAX's ``sp_mesh``/``sp_axis``); every attention layer learns the
+        split."""
+        from focused_attention_vit_tpu_torch.models.layers import (
+            MultiHeadAttention,
+            MultiHeadLatentAttention,
+        )
+        from focused_attention_vit_tpu_torch.parallel.sequence import (
+            SeqShards,
+        )
+
+        self.sp = SeqShards.of(mesh, axis, self.num_patches + 1)
+        for m in self.modules():
+            if isinstance(m, (MultiHeadAttention, MultiHeadLatentAttention)):
+                m.sp = self.sp
+
+    def enable_pipeline_parallel(self, mesh, axis: str = "stage",
+                                 microbatches: int | None = None) -> None:
+        """Run the blocks as a pipeline over the ``axis`` dimension of
+        ``mesh`` in ``microbatches`` microbatches (default: the stage
+        count), JAX's ``pp_mesh``/``pp_axis``/``pp_microbatches``.
+        ``parallel.shard_params`` then drops the other stages' blocks."""
+        from focused_attention_vit_tpu_torch.parallel.collectives import Axis
+        from focused_attention_vit_tpu_torch.parallel.pipeline import (
+            stage_blocks,
+        )
+
+        self.pp = Axis.of(mesh, axis)
+        stage_blocks(self.depth, self.pp)
+        self.pp_microbatches = microbatches
+
     def forward_features(self, images: torch.Tensor,
                          rng: DropoutRNG | None = None) -> torch.Tensor:
         """``[B, H, W, C]`` images to ``[B, D]`` cls-token features."""
@@ -108,13 +158,31 @@ class ViTBase(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         x = inverted_dropout(
             x, self.embed_dropout if self.training else 0.0, rng)
+        if self.sp is not None:
+            from focused_attention_vit_tpu_torch.parallel import sequence
+
+            x = sequence.local_rows(x, self.sp, dim=1)
         remat = self._remat and self.training and torch.is_grad_enabled()
-        for block in self.blocks:
+
+        def apply_block(block, x, rng):
             if remat:
-                x = checkpoint_block(block, x, rng, self._remat_context)
-            else:
-                x = block(x, rng=rng)
-        return self.norm(x)[:, 0]
+                return checkpoint_block(block, x, rng, self._remat_context)
+            return block(x, rng=rng)
+
+        if self.pp is not None:
+            from focused_attention_vit_tpu_torch.parallel.pipeline import (
+                spmd_pipeline,
+            )
+
+            x = spmd_pipeline(apply_block, self.blocks, x, self.pp,
+                              microbatches=self.pp_microbatches, rng=rng)
+        else:
+            for block in self.blocks:
+                x = apply_block(block, x, rng)
+        x = self.norm(x)[:, 0]
+        if self.sp is not None:
+            x = sequence.from_first_rank(x, self.sp)
+        return x
 
     def forward(self, images: torch.Tensor,
                 rng: DropoutRNG | None = None) -> torch.Tensor:
@@ -129,7 +197,9 @@ class VisionTransformer(ViTBase):
     from 512 tokens on (patch 4 on 224x224 gives S = 3137); True or False
     forces either path. ``remat`` rematerialises each block in training
     (full remat: JAX's dense ViT takes no policy); ``scan_layers`` is a
-    no-op (module docstring)."""
+    no-op (module docstring). ``pp_mesh`` runs the blocks as a pipeline
+    over its ``pp_axis`` dimension in ``pp_microbatches`` microbatches and
+    needs ``scan_layers``, as in JAX."""
 
     def __init__(
         self,
@@ -147,10 +217,15 @@ class VisionTransformer(ViTBase):
         use_flash: bool | None = None,
         remat: bool = False,
         scan_layers: bool = False,
+        pp_mesh=None,
+        pp_axis: str = "stage",
+        pp_microbatches: int | None = None,
         *,
         device=None,
         generator: torch.Generator | None = None,
     ):
+        if pp_mesh is not None and not scan_layers:
+            raise ValueError(PP_NEEDS_SCAN)
         super().__init__(
             lambda: TransformerBlock(
                 embed_dim, num_heads, mlp_ratio, dropout, attn_dropout,
@@ -163,3 +238,6 @@ class VisionTransformer(ViTBase):
         )
         self.remat = remat
         self.scan_layers = scan_layers
+        self.pp_mesh = pp_mesh
+        if pp_mesh is not None:
+            self.enable_pipeline_parallel(pp_mesh, pp_axis, pp_microbatches)

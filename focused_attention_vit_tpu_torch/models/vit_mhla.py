@@ -1,7 +1,8 @@
 """ViT with switchable MHLA / dense blocks (port of
 ``focused_attention_vit_tpu/models/vit_mhla.py``): a plain loop over the
 blocks, each optionally rematerialised under a policy; ``scan_layers`` a
-no-op (:mod:`.vit`); no sequence or pipeline parallelism."""
+no-op (:mod:`.vit`); sequence parallelism (``sp_mesh``) and pipeline
+parallelism (``pp_mesh``), alone or together."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from focused_attention_vit_tpu_torch.models.layers import (
     SwitchableTransformerBlock,
     resolve_remat_policy,
 )
-from focused_attention_vit_tpu_torch.models.vit import ViTBase
+from focused_attention_vit_tpu_torch.models.vit import PP_NEEDS_SCAN, ViTBase
 
 
 class VisionTransformerMHLA(ViTBase):
@@ -32,6 +33,15 @@ class VisionTransformerMHLA(ViTBase):
     nothing, ``'band_weights'`` saves the band's weights) selects what the
     MHLA blocks keep; dense blocks (``use_mhla=False``) have no band and
     save nothing. ``scan_layers`` is a no-op (:mod:`.vit`).
+
+    ``sp_mesh`` splits the token rows over its ``sp_axis`` dimension
+    (:meth:`~.vit.ViTBase.enable_sequence_parallel`: the MHLA band
+    exchanges halos, a dense block gathers the sequence), ``pp_mesh`` runs
+    the blocks as a pipeline over ``pp_axis`` and needs ``scan_layers``,
+    as in JAX. With both, each stage's blocks exchange their halos over
+    ``seq`` (JAX lets GSPMD partition the plain band instead, because
+    Shardy rejects a manual region nested in the pipeline's; the numbers
+    are the same without dropout).
     """
 
     def __init__(
@@ -53,10 +63,17 @@ class VisionTransformerMHLA(ViTBase):
         remat: bool = False,
         remat_policy: Optional[str] = None,
         scan_layers: bool = False,
+        sp_mesh=None,
+        sp_axis: str = "seq",
+        pp_mesh=None,
+        pp_axis: str = "stage",
+        pp_microbatches: Optional[int] = None,
         *,
         device=None,
         generator: torch.Generator | None = None,
     ):
+        if pp_mesh is not None and not scan_layers:
+            raise ValueError(PP_NEEDS_SCAN)
         policy = resolve_remat_policy(remat_policy)
         super().__init__(
             lambda: SwitchableTransformerBlock(
@@ -74,3 +91,8 @@ class VisionTransformerMHLA(ViTBase):
         self.remat = remat
         self.remat_policy = remat_policy
         self.scan_layers = scan_layers
+        self.sp_mesh, self.pp_mesh = sp_mesh, pp_mesh
+        if sp_mesh is not None:
+            self.enable_sequence_parallel(sp_mesh, sp_axis)
+        if pp_mesh is not None:
+            self.enable_pipeline_parallel(pp_mesh, pp_axis, pp_microbatches)

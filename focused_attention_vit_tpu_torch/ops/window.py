@@ -178,14 +178,9 @@ def _shift_band_weights_ds(
     halo-padded K, scaled by ``d**-0.5``, the logits that
     ``attention_mask`` ``[B, S, S]`` zeroes set to the f32 minimum
     (:func:`_banded_mask`), softmax over W."""
-    d, s = q.shape[2], q.shape[3]
-    kp = _halo_pad(k, window_size, dim=3)
-    qf = q.float()
-    logits = torch.stack(
-        [(qf * kp[..., o:o + s].float()).sum(dim=2)
-         for o in range(window_size)],
-        dim=2,
-    ) * (d ** -0.5)
+    s = q.shape[3]
+    logits = _strip_logits_ds(q, _halo_pad(k, window_size, dim=3),
+                              window_size)
     if attention_mask is not None:
         mask_win = _banded_mask(attention_mask, s, window_size)[:, None]
         logits = torch.where(mask_win == 0, torch.finfo(torch.float32).min,
@@ -197,8 +192,30 @@ def _shift_band_apply_ds(weights: torch.Tensor, v: torch.Tensor
                          ) -> torch.Tensor:
     """``sum_o weights[:, :, o] * v`` shifted to slot o, in f32 over the
     halo-padded V; ``[B, h, d, S]`` f32."""
-    w, s = weights.shape[2], v.shape[3]
-    vp = _halo_pad(v, w, dim=3)
+    return _strip_apply_ds(weights, _halo_pad(v, weights.shape[2], dim=3))
+
+
+def _strip_logits_ds(q: torch.Tensor, kp: torch.Tensor, window_size: int
+                     ) -> torch.Tensor:
+    """f32 ``[B, h, W, S]`` logits of S-minor ``[B, h, d, S]`` queries
+    against a ``[B, h, d, S + W - 1]`` key strip whose row ``i + o`` is the
+    key of slot o of query i: W shifted multiply-reduces, scaled by
+    ``d**-0.5``. The strip is the halo-padded K here, and a shard's rows
+    between its neighbours' halos under sequence parallelism
+    (:mod:`..parallel.sequence`)."""
+    d, s = q.shape[2], q.shape[3]
+    qf = q.float()
+    return torch.stack(
+        [(qf * kp[..., o:o + s].float()).sum(dim=2)
+         for o in range(window_size)],
+        dim=2,
+    ) * (d ** -0.5)
+
+
+def _strip_apply_ds(weights: torch.Tensor, vp: torch.Tensor) -> torch.Tensor:
+    """``sum_o weights[:, :, o] * vp[..., o:o + S]`` in f32 over a
+    ``[B, h, d, S + W - 1]`` value strip; ``[B, h, d, S]`` f32."""
+    w, s = weights.shape[2], weights.shape[3]
     return sum(
         weights[:, :, o:o + 1] * vp[..., o:o + s].float() for o in range(w)
     )

@@ -12,9 +12,12 @@ child that exits with a code (``SystemExit``) makes the parent raise
 ``ProcessRaisedException`` with its traceback.
 
 ``cli.main`` starts its ranks here (:func:`cli_rank`) when more than one
-device is asked for and no ``RANK`` is set; under ``torchrun`` it joins
-the group that is already there instead. This module imports neither the
-CLI nor anything that a test module imports at its top.
+device is asked for and no ``RANK`` is set, and ``serve.main`` likewise
+(:func:`serve_rank`); under ``torchrun`` each joins the group that is
+already there instead. A Ctrl-C (SIGINT) while the parent waits gives the
+ranks ``grace`` seconds to stop by themselves before they are killed. This
+module imports neither the CLI nor anything that a test module imports at
+its top.
 """
 
 from __future__ import annotations
@@ -48,12 +51,16 @@ def _rank_entry(rank: int, world_size: int, init_method: str, backend: str,
 
 def run_ranks(fn: Callable, world_size: int, *args, backend: str = "gloo",
               timeout: Optional[float] = None, threads: Optional[int] = None,
-              rendezvous_dir: Optional[str] = None) -> None:
+              rendezvous_dir: Optional[str] = None,
+              grace: float = 30.0) -> None:
     """Run ``fn(rank, world_size, *args)`` on ``world_size`` spawned ranks
     of one process group (``backend`` gloo or nccl) and wait for all of
     them; ``fn`` and ``args`` must pickle (``fn`` by its module path).
     ``threads`` sets each child's torch thread count. Raises
-    ``TimeoutError`` after ``timeout`` seconds, the children killed."""
+    ``TimeoutError`` after ``timeout`` seconds, the children killed. On
+    ``KeyboardInterrupt`` the children get ``grace`` seconds to finish
+    (a Ctrl-C reaches them too) before they are killed; it returns when
+    they finished cleanly."""
     own_dir = rendezvous_dir is None
     rdzv = (tempfile.mkdtemp(prefix="favit-rdzv-") if own_dir
             else rendezvous_dir)
@@ -64,11 +71,18 @@ def run_ranks(fn: Callable, world_size: int, *args, backend: str = "gloo",
         nprocs=world_size, start_method="spawn", join=False)
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
-        while not ctx.join(timeout=1.0):
-            if deadline is not None and time.monotonic() > deadline:
-                raise TimeoutError(
-                    f"{world_size} ranks of {getattr(fn, '__name__', fn)} "
-                    f"did not finish in {timeout} s; killed")
+        try:
+            while not ctx.join(timeout=1.0):
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"{world_size} ranks of "
+                        f"{getattr(fn, '__name__', fn)} did not finish in "
+                        f"{timeout} s; killed")
+        except KeyboardInterrupt:
+            end = time.monotonic() + grace
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > end:
+                    raise
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -84,6 +98,23 @@ def cli_rank(rank: int, world_size: int, argv: list) -> None:
     from focused_attention_vit_tpu_torch import cli
 
     cli.main(argv)
+
+
+def serve_rank(rank: int, world_size: int, argv: list) -> None:
+    """One rank of ``serve.main(argv)``."""
+    from focused_attention_vit_tpu_torch import serve
+
+    serve.main(argv)
+
+
+def launch_serve(argv: list, world_size: int, backend: str) -> None:
+    """Serve ``serve.main(argv)`` from ``world_size`` spawned ranks until
+    they stop."""
+    threads = None
+    if backend == "gloo":
+        threads = max(1, (os.cpu_count() or 1) // world_size)
+    run_ranks(serve_rank, world_size, list(argv), backend=backend,
+              threads=threads)
 
 
 def launch_cli(argv: list, world_size: int, backend: str) -> None:

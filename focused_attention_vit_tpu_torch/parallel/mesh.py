@@ -1,11 +1,12 @@
 """Mesh construction (port of ``focused_attention_vit_tpu/parallel/mesh.py``).
 
-One mesh, two named dimensions: ``data`` (the batch and the gradient sum)
-and ``model`` (tensor parallelism), a
-``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the process
-group. ``model`` is the inner dimension, over adjacent ranks, so that the
-tensor-parallel collectives stay between neighbours (on one host, over
-NVLink). Sequence and pipeline parallelism are not ported yet.
+One mesh, named dimensions ``data`` (the batch and the gradient sum),
+``model`` (tensor parallelism) and, when asked for, ``seq`` (sequence
+parallelism, :mod:`.sequence`) and ``stage`` (pipeline parallelism,
+:mod:`.pipeline`): a ``torch.distributed.device_mesh.DeviceMesh`` over the
+ranks of the process group. The later dimensions are the inner ones, over
+adjacent ranks, so that the tensor-parallel collectives, the halos and the
+stage hand-offs stay between neighbours (on one host, over NVLink).
 """
 
 from __future__ import annotations
@@ -17,24 +18,19 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from focused_attention_vit_tpu_torch import NotPortedError
-
 
 def make_mesh(n_devices: Optional[int] = None, tp: int = 1, sp: int = 1,
               pp: int = 1, axis_names: Sequence[str] = ("data", "model"),
-              device_type: Optional[str] = None) -> DeviceMesh:
-    """A ``(data, model)`` mesh over the ``n_devices`` ranks of the
-    initialised process group (default: all of them; it must be all).
-
-    ``tp`` is the size of ``model`` and must divide the rank count.
+              device_type: Optional[str] = None,
+              unit_dims: Sequence[str] = ()) -> DeviceMesh:
+    """A ``(data, model[, seq][, stage])`` mesh of shape
+    ``[n/(tp·sp·pp), tp(, sp)(, pp)]`` over the ``n_devices`` ranks of the
+    initialised process group (default: all of them; it must be all), as
+    JAX's ``make_mesh``: ``seq`` is there when ``sp > 1``, ``stage`` when
+    ``pp > 1``, and each also when named in ``unit_dims`` (a dimension of
+    size 1, which drives the SP or PP path on one device).
     ``device_type`` defaults to ``"cuda"`` under NCCL and ``"cpu"`` under
-    gloo. ``sp > 1`` and ``pp > 1`` raise ``NotPortedError``."""
-    for flag, value in (("sp", sp), ("pp", pp)):
-        if value > 1:
-            raise NotPortedError(
-                f"--{flag} {value!r} is not ported yet: the PyTorch port's "
-                f"mesh has the data and model dimensions only (see "
-                f"ROADMAP.md)")
+    gloo."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialised process group "
@@ -50,5 +46,11 @@ def make_mesh(n_devices: Optional[int] = None, tp: int = 1, sp: int = 1,
             f"but the group has {world} ranks")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    grid = torch.as_tensor(np.arange(n).reshape(n // tp, tp))
-    return DeviceMesh(device_type, grid, mesh_dim_names=tuple(axis_names))
+    shape = [n // (tp * sp * pp), tp]
+    names = list(axis_names)
+    for name, size in (("seq", sp), ("stage", pp)):
+        if size > 1 or name in unit_dims:
+            shape.append(size)
+            names.append(name)
+    grid = torch.as_tensor(np.arange(n).reshape(shape))
+    return DeviceMesh(device_type, grid, mesh_dim_names=tuple(names))

@@ -62,7 +62,7 @@ from focused_attention_vit_tpu_torch.models.layers import (
     SequentialMLP,
 )
 
-DATA, MODEL = "data", "model"
+DATA, MODEL, SEQ, STAGE = "data", "model", "seq", "stage"
 
 # A tensor-parallel slice: the full parameter is viewed as ``view`` and cut
 # into ``tp`` pieces along ``view[dim]``, which is parameter dimension
@@ -71,7 +71,21 @@ Rule = Tuple[Tuple[int, ...], int, int]
 
 
 def mesh_size(mesh, dim: str) -> int:
+    """The size of ``dim`` (1 where the mesh has no such dimension)."""
+    if dim not in mesh.mesh_dim_names:
+        return 1
     return mesh.size(mesh.mesh_dim_names.index(dim))
+
+
+def loss_share(mesh) -> float:
+    """The share of the loss a rank backpropagates: every rank of a
+    ``seq`` and ``stage`` group computes the same loss, so each takes
+    1/(sp·pp) of it and the parameters those ranks share sum their
+    gradients (:meth:`Layout.finish_grads`); the sum is the gradient of one
+    loss, as each collective's backward is its transpose."""
+    if mesh is None:
+        return 1.0
+    return 1.0 / (mesh_size(mesh, SEQ) * mesh_size(mesh, STAGE))
 
 
 def data_rows(batch: int, mesh) -> slice:
@@ -104,7 +118,10 @@ def sum_over_data(t: torch.Tensor, mesh) -> torch.Tensor:
 def dropout_rng(seed: int, device, mesh):
     """The :class:`~..models.layers.DropoutRNG` of one rank's forward:
     ``seed`` with the data rank folded in (``seed`` itself at data size 1,
-    so that one data rank draws the single process's masks), and at model
+    so that one data rank draws the single process's masks), then the
+    ``seq`` and the ``stage`` rank where those sizes are above 1 (each
+    sequence rank drops its own rows; the pipeline folds in its tick and
+    stage besides, :mod:`.pipeline`), and at model
     size > 1 with ``local`` streams seeded by the model rank, which the
     tensor-parallel layers draw their heads' and MLP columns' dropout from
     (each global head then has its own masks and band seeds), while the
@@ -113,8 +130,9 @@ def dropout_rng(seed: int, device, mesh):
     from focused_attention_vit_tpu_torch.models.layers import DropoutRNG
     from focused_attention_vit_tpu_torch.train.steps import fold_in
 
-    if mesh is not None and mesh_size(mesh, DATA) > 1:
-        seed = fold_in(seed, mesh.get_local_rank(DATA))
+    for dim in (DATA, SEQ, STAGE):
+        if mesh is not None and mesh_size(mesh, dim) > 1:
+            seed = fold_in(seed, mesh.get_local_rank(dim))
     local = None
     if mesh is not None and mesh_size(mesh, MODEL) > 1:
         local = DropoutRNG(fold_in(seed, 1 + mesh.get_local_rank(MODEL)),
@@ -302,10 +320,14 @@ def _local(t):
 class Layout:
     """How a model is spread over ``mesh``: the tensor-parallel slices
     (``sliced``: name -> (rule, full shape)), FSDP2 over ``data`` (else its
-    gradients are replicated there, by DDP), the bare module (``module``)
-    whose parameter names are the single process's, and its parameters as
-    sharded (``params``, by name: the objects the optimizer holds; FSDP2
-    swaps unsharded ones into the module while they are in use)."""
+    gradients are replicated there: by DDP on a ``(data, model)`` mesh, by
+    :meth:`finish_grads` once the mesh has ``seq`` or ``stage``), the
+    blocks each pipeline stage holds (``stage_of``: block parameter name ->
+    stage; empty without ``stage``), the bare module (``module``) whose
+    parameter names are the single process's, its parameters as sharded
+    (``params``, by name: the objects the optimizer holds; FSDP2 swaps
+    unsharded ones into the module while they are in use), and the full
+    model's parameter names in order (``full_names``)."""
 
     mesh: Any
     module: nn.Module
@@ -314,6 +336,8 @@ class Layout:
         default_factory=dict)
     summed: List[str] = field(default_factory=list)
     params: Dict[str, nn.Parameter] = field(default_factory=dict)
+    stage_of: Dict[str, int] = field(default_factory=dict)
+    full_names: List[str] = field(default_factory=list)
 
     @property
     def dp(self) -> int:
@@ -323,14 +347,50 @@ class Layout:
     def tp(self) -> int:
         return mesh_size(self.mesh, MODEL)
 
+    @property
+    def sp(self) -> int:
+        return mesh_size(self.mesh, SEQ)
+
+    @property
+    def pp(self) -> int:
+        return mesh_size(self.mesh, STAGE)
+
+    @property
+    def manual_data_sync(self) -> bool:
+        """Whether :meth:`finish_grads` averages over ``data`` (DDP does it
+        on a ``(data, model)`` mesh, FSDP2 under ``fsdp``)."""
+        return not self.fsdp and any(
+            d in self.mesh.mesh_dim_names for d in (SEQ, STAGE))
+
     def finish_grads(self) -> None:
-        """Sum the partial gradients of :func:`_model_summed`'s parameters
-        over the model group (after the backward, before the update)."""
+        """After the backward, before the update: sum the partial gradients
+        of :func:`_model_summed`'s parameters over the model group; average
+        every gradient over ``data`` where no wrapper did
+        (:attr:`manual_data_sync`); sum every gradient over ``seq`` and
+        those of the parameters every stage holds over ``stage`` (each rank
+        took its :func:`loss_share` of the loss)."""
         group = self.mesh.get_group(MODEL)
         for name in self.summed:
             g = self.params[name].grad
             if g is not None:
                 dist.all_reduce(_local(g), group=group)
+        dims = [(DATA, self.manual_data_sync and self.dp > 1),
+                (SEQ, SEQ in self.mesh.mesh_dim_names),
+                (STAGE, STAGE in self.mesh.mesh_dim_names)]
+        for dim, on in dims:
+            if not on:
+                continue
+            group = self.mesh.get_group(dim)
+            for name, p in self.params.items():
+                if not p.requires_grad or (dim == STAGE
+                                           and name in self.stage_of):
+                    continue
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                g = _local(p.grad)
+                dist.all_reduce(g, group=group)
+                if dim == DATA:
+                    g.div_(self.dp)
 
     def grad_norm_sq(self, params) -> torch.Tensor:
         """The squared global norm of the gradients of ``params`` (this
@@ -341,9 +401,12 @@ class Layout:
         for p in params:
             if p.grad is None:
                 continue
-            copies = 1 if self.fsdp else self.dp
-            if names.get(id(p)) not in self.sliced:
+            name = names.get(id(p))
+            copies = (1 if self.fsdp else self.dp) * self.sp
+            if name not in self.sliced:
                 copies *= self.tp
+            if name not in self.stage_of:
+                copies *= self.pp
             s = _local(p.grad).float().pow(2).sum() / copies
             total = s if total is None else total + s
         if total is None:
@@ -378,39 +441,118 @@ class Layout:
         if hasattr(like, "to_local"):
             from torch.distributed.tensor import DTensor
 
-            piece = full.chunk(self.dp, 0)[self.mesh.get_local_rank(DATA)]
+            # FSDP2's torch.chunk pieces: a rank past the last chunk (a
+            # dimension 0 shorter than the data size) holds an empty one.
+            chunks = full.chunk(self.dp, 0)
+            r = self.mesh.get_local_rank(DATA)
+            piece = chunks[r] if r < len(chunks) else full[:0]
             piece = piece.to(like.to_local().device, like.dtype).contiguous()
             return DTensor.from_local(piece, like.device_mesh, like.placements,
                                       run_check=False, shape=like.shape,
                                       stride=like.stride())
         return full.to(like.device, like.dtype)
 
+    def _opt_names(self, tx) -> Tuple[List[str], List[str]]:
+        """The parameter names in the order of this rank's optimizer and in
+        that of the single process's (the index a checkpoint's AdamW state
+        is keyed by): labels in ``group_lrs`` order, names in model
+        order."""
+        ids = {id(p): n for n, p in self.params.items()}
+        local = [ids[id(p)] for g in tx.adamw.param_groups
+                 for p in g["params"]]
+        names = self.full_names or list(self.params)
+        single = [n for label in tx.spec.group_lrs for n in names
+                  if tx.spec.label_fn(n) == label]
+        return local, single
+
     def full_state(self, state) -> Dict[str, Any]:
         """The state tree of a single-device checkpoint (model state dict,
-        AdamW state by parameter index, update count, step), gathered on
-        every rank (a collective: every rank calls it)."""
-        names = {id(p): n for n, p in self.params.items()}
+        AdamW state by the single process's parameter index, update count,
+        step), gathered on every rank (a collective: every rank calls it);
+        under pipeline parallelism each stage's blocks are broadcast over
+        ``stage``."""
         model = {n: self._full(n, p) for n, p in self.params.items()}
         model.update((n, b.detach()) for n, b in self.module.named_buffers())
         opt = state.tx.adamw.state_dict()
-        params = [p for g in state.tx.adamw.param_groups for p in g["params"]]
+        local, single = self._opt_names(state.tx)
+        index = {n: i for i, n in enumerate(single)}
         full_opt = {}
-        for i, p in enumerate(params):
+        for i, name in enumerate(local):
             entry = opt["state"].get(i)
             if entry is None:
                 continue
-            full_opt[i] = {
-                k: (self._full(names[id(p)], v)
+            full_opt[index[name]] = {
+                k: (self._full(name, v)
                     if torch.is_tensor(v) and v.dim() > 0 else v)
                 for k, v in entry.items()}
+        groups = opt["param_groups"]
+        if self.stage_of:
+            model, full_opt = self._gather_stages(model, full_opt, single)
+            groups = self._single_groups(state.tx, groups, single)
         return {"model": model,
-                "optimizer": {"state": full_opt,
-                              "param_groups": opt["param_groups"]},
+                "optimizer": {"state": dict(sorted(full_opt.items())),
+                              "param_groups": groups},
                 "count": int(state.tx.count), "step": int(state.step)}
+
+    def _gather_stages(self, model, opt, single):
+        """Every stage's blocks (full tensors) and their AdamW state on
+        every rank: each stage broadcasts over the ``stage`` group what it
+        holds, after a gather of the shapes."""
+        from focused_attention_vit_tpu_torch.parallel.collectives import Axis
+
+        ax = Axis.of(self.mesh, STAGE)
+
+        def spec(v):
+            if torch.is_tensor(v) and v.dim() > 0:
+                return ("tensor", tuple(v.shape), v.dtype)
+            return ("value", v.cpu() if torch.is_tensor(v) else v)
+
+        mine = {"model": {n: spec(t) for n, t in model.items()
+                          if n in self.stage_of},
+                "opt": {i: {k: spec(v) for k, v in e.items()}
+                        for i, e in opt.items() if single[i] in self.stage_of}}
+        metas = [None] * ax.n
+        dist.all_gather_object(metas, mine, group=ax.group)
+
+        def bcast(src, own, shape, dtype):
+            t = (own.contiguous() if src == ax.index
+                 else torch.empty(shape, dtype=dtype, device=self.device))
+            dist.broadcast(t, ax.ranks[src], group=ax.group)
+            return t
+
+        for src, meta in enumerate(metas):
+            for n, (_, shape, dtype) in meta["model"].items():
+                model[n] = bcast(src, model.get(n), shape, dtype)
+            for i, entry in meta["opt"].items():
+                own = opt.get(i, {})
+                opt[i] = {k: (bcast(src, own.get(k), sp[1], sp[2])
+                              if sp[0] == "tensor" else sp[1])
+                          for k, sp in entry.items()}
+        return model, opt
+
+    def _single_groups(self, tx, groups, single):
+        """The single process's AdamW param groups: one for each label
+        with parameters, holding their single-process indices."""
+        from focused_attention_vit_tpu_torch.train.state import _lr_at
+
+        by_label = {g["label"]: g for g in groups}
+        out, start = [], 0
+        for label in tx.spec.group_lrs:
+            n = sum(1 for name in single if tx.spec.label_fn(name) == label)
+            if not n:
+                continue
+            g = dict(by_label.get(label) or dict(
+                groups[0], label=label,
+                lr=_lr_at(tx.spec.group_lrs[label], tx.count)))
+            g["params"] = list(range(start, start + n))
+            out.append(g)
+            start += n
+        return out
 
     def load_full_state(self, state, tree: Dict[str, Any]) -> None:
         """Cut a full state tree (:meth:`full_state`'s, or a single
-        process's checkpoint) into this rank's pieces, in place."""
+        process's checkpoint) into this rank's pieces, in place (a stage
+        takes its own blocks)."""
         names = {id(p): n for n, p in self.params.items()}
         with torch.no_grad():
             for n, p in self.params.items():
@@ -418,16 +560,31 @@ class Layout:
             for n, b in self.module.named_buffers():
                 b.copy_(tree["model"][n])
         params = [p for g in state.tx.adamw.param_groups for p in g["params"]]
+        local, single = self._opt_names(state.tx)
+        index = {n: i for i, n in enumerate(single)}
         opt = tree["optimizer"]
-        local = {}
-        for i, entry in opt["state"].items():
-            p = params[int(i)]
-            local[int(i)] = {
+        saved = {int(i): e for i, e in opt["state"].items()}
+        entries = {}
+        for i, name in enumerate(local):
+            entry = saved.get(index[name])
+            if entry is None:
+                continue
+            p = params[i]
+            entries[i] = {
                 k: (self._piece(names[id(p)], v, p).to(v.dtype)
                     if torch.is_tensor(v) and v.dim() > 0 else v)
                 for k, v in entry.items()}
-        state.tx.adamw.load_state_dict({"state": local,
-                                        "param_groups": opt["param_groups"]})
+        groups = opt["param_groups"]
+        if self.stage_of:
+            by_label = {g["label"]: g for g in groups}
+            groups, start = [], 0
+            for g in state.tx.adamw.param_groups:
+                n = len(g["params"])
+                groups.append(dict(by_label[g["label"]],
+                                   params=list(range(start, start + n))))
+                start += n
+        state.tx.adamw.load_state_dict({"state": entries,
+                                        "param_groups": groups})
         state.tx.count = tree["count"]
         state.step = tree["step"]
 
@@ -443,28 +600,47 @@ def shard_params(model: nn.Module, mesh, *, fsdp: bool = False,
                  ddp: Optional[bool] = None,
                  tensor_parallel: Optional[bool] = None) -> nn.Module:
     """Spread ``model`` (on its device) over ``mesh`` and return the module
-    to call: tensor parallelism (``tensor_parallel``; default: when the
-    mesh's ``model`` size is above 1), then FSDP2 on each block and the
-    root (``fsdp``), else DDP over the data group (``ddp``; default: when
-    the data size is above 1). The :class:`Layout` is the returned module's
-    ``favit_layout``."""
+    to call: under pipeline parallelism (the model's ``pp``, set by
+    ``enable_pipeline_parallel``) the blocks of other stages are dropped
+    (:func:`~.pipeline.hold_stage_blocks`); then tensor parallelism
+    (``tensor_parallel``; default: when the mesh's ``model`` size is above
+    1), then FSDP2 on each held block and the root (``fsdp``), else DDP over
+    the data group (``ddp``; default: when the data size is above 1 and the
+    mesh has neither ``seq`` nor ``stage``, whose gradient sums
+    :meth:`Layout.finish_grads` makes). The :class:`Layout` is the returned
+    module's ``favit_layout``."""
+    full_names = [n for n, _ in model.named_parameters()]
+    stage_of = {}
+    if getattr(model, "pp", None) is not None:
+        from focused_attention_vit_tpu_torch.parallel import pipeline
+
+        stage_of = pipeline.stage_sharding_rules(model, model.pp)
+        pipeline.hold_stage_blocks(model, model.pp)
     if tensor_parallel is None:
         tensor_parallel = mesh_size(mesh, MODEL) > 1
     sliced = apply_tensor_parallel(model, mesh) if tensor_parallel else {}
     layout = Layout(mesh, model, fsdp=fsdp, sliced=sliced,
-                    summed=_model_summed(model))
+                    summed=_model_summed(model), stage_of=stage_of,
+                    full_names=full_names)
     wrapped = model
     data_mesh = mesh[DATA]
     if fsdp:
         from torch.distributed.fsdp import fully_shard
 
+        from focused_attention_vit_tpu_torch.parallel.pipeline import (
+            RemoteBlock,
+        )
+
         for blocks in (m for n, m in model.named_children()
                        if isinstance(m, nn.ModuleList)):
             for block in blocks:
-                fully_shard(block, mesh=data_mesh)
+                if not isinstance(block, RemoteBlock):
+                    fully_shard(block, mesh=data_mesh)
         fully_shard(model, mesh=data_mesh)
     layout.params = dict(model.named_parameters())
-    if not fsdp and (ddp or (ddp is None and mesh_size(mesh, DATA) > 1)):
+    if ddp is None:
+        ddp = mesh_size(mesh, DATA) > 1 and not layout.manual_data_sync
+    if not fsdp and ddp:
         from torch.nn.parallel import DistributedDataParallel
 
         dev = layout.device

@@ -16,6 +16,15 @@
   :func:`main` serves it); ``--export_artifact DIR`` writes the
   predictor's serving artifact (:mod:`.export`) instead of serving, and
   ``--from_export DIR`` serves such an artifact.
+- ``--num_devices N`` (None or <= 0: every device; one with ``--device
+  cpu``) and ``--tp T`` serve on a ``(data, model)`` mesh, JAX's rule: one
+  device at ``tp=1`` is no mesh. The command starts its ranks as the
+  training CLI does (:mod:`.parallel.launch`; gloo with ``--device cpu``,
+  NCCL on the cards), or joins them under ``torchrun``: rank 0 owns the
+  :class:`BatchingServer` and the :class:`HTTPFrontend`, the others run
+  :meth:`~.infer.Predictor.follow`, and Ctrl-C (SIGINT) on rank 0, or on
+  every process, stops them all. ``--from_export`` ignores the mesh flags
+  and ``--export_artifact`` refuses a mesh, as in JAX.
 
 ``submit`` is thread-safe; results come back as
 :class:`concurrent.futures.Future`.
@@ -23,6 +32,8 @@
 
 from __future__ import annotations
 
+import os
+import sys
 import threading
 import time
 from concurrent.futures import Future
@@ -415,7 +426,29 @@ def _parser():
     p.add_argument("--port", type=int, default=8700)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="serve on a mesh of N ranks (None or <= 0: every "
+                        "device); the command starts them unless RANK is "
+                        "set")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size of the serving mesh")
     return p
+
+
+def _world_size(args) -> int:
+    """The ranks of the serving mesh, JAX's rule: a mesh when
+    ``--num_devices`` or ``--tp > 1`` asks for one, over every device for
+    None or <= 0 (one on the CPU); 1 (no mesh) for one device at tp 1 and
+    for ``--from_export``."""
+    import torch
+
+    if args.from_export or not (args.num_devices or args.tp > 1):
+        return 1
+    n = args.num_devices
+    if n is None or n <= 0:
+        n = (1 if torch.device(args.device).type == "cpu"
+             else torch.cuda.device_count())
+    return n if (n > 1 or args.tp > 1) else 1
 
 
 def setup(argv=None):
@@ -437,7 +470,23 @@ def setup(argv=None):
         predictor = load_serving_artifact(args.from_export)
         predictor.warmup()
         return args, predictor
-    kw = dict(img_size=args.img_size, device=args.device,
+    device = args.device
+    mesh = None
+    world = _world_size(args)
+    if world > 1 or args.tp > 1:
+        import torch.distributed as dist
+
+        from focused_attention_vit_tpu_torch.parallel import make_mesh
+
+        if world % args.tp:
+            raise ValueError(f"tp={args.tp} * sp=1 * pp=1 must divide device "
+                             f"count {world}")
+        mesh = make_mesh(world, tp=args.tp)
+        if torch.device(device).type == "cuda":
+            device = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count())))
+            torch.cuda.set_device(device)
+    kw = dict(img_size=args.img_size, device=device, mesh=mesh,
               batch_size=args.batch_size,
               compute_dtype=(torch.bfloat16
                              if args.compute_dtype == "bfloat16"
@@ -457,7 +506,43 @@ def main(argv=None) -> None:
     """``python -m focused_attention_vit_tpu_torch.serve --weights ...``
     (or ``--checkpoint_dir ...``, or ``--from_export DIR``): serve HTTP
     until interrupted; with ``--export_artifact DIR`` write the serving
-    artifact instead and exit."""
+    artifact instead and exit. With a mesh (``--num_devices``, ``--tp``)
+    and no ``RANK`` in the environment, start the ranks and wait for
+    them."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from focused_attention_vit_tpu_torch.parallel import launch, multihost
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    cpu = torch.device(args.device).type == "cpu"
+    world = _world_size(args)
+    if world > 1 and "RANK" not in os.environ:
+        launch.launch_serve(argv, world, "gloo" if cpu else "nccl")
+        return
+    own_group = "RANK" in os.environ and not dist.is_initialized()
+    if own_group:  # torchrun
+        multihost.initialize(backend="gloo" if cpu else "nccl")
+    try:
+        if dist.is_initialized() and dist.get_rank() != 0:
+            with open(os.devnull, "w") as null, \
+                    contextlib.redirect_stdout(null):
+                _serve(argv)
+        else:
+            _serve(argv)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _serve(argv) -> None:
+    """Build the predictor and serve it, or write its artifact; on a mesh
+    the ranks other than 0 follow rank 0's batches."""
+    import torch.distributed as dist
+
     args, predictor = setup(argv)
     if args.export_artifact:
         from focused_attention_vit_tpu_torch.export import (
@@ -467,18 +552,28 @@ def main(argv=None) -> None:
         out = save_serving_artifact(predictor, args.export_artifact)
         print(f"serving artifact written to {out}", flush=True)
         return
-    with BatchingServer(predictor, max_delay_ms=args.max_delay_ms,
-                        workers=args.workers) as srv:
-        with HTTPFrontend(srv, host=args.host, port=args.port) as fe:
-            print(f"serving on http://{fe.host}:{fe.port} "
-                  f"(POST /predict, GET /stats, GET /healthz; "
-                  f"batch {predictor.batch_size}, {predictor.device})",
-                  flush=True)
-            try:
-                while True:
-                    time.sleep(3600)
-            except KeyboardInterrupt:
-                print("shutting down", flush=True)
+    if getattr(predictor, "mesh", None) is not None and dist.get_rank():
+        predictor.follow()
+        return
+    try:
+        with BatchingServer(predictor, max_delay_ms=args.max_delay_ms,
+                            workers=args.workers) as srv:
+            with HTTPFrontend(srv, host=args.host, port=args.port) as fe:
+                mesh = getattr(predictor, "mesh", None)
+                where = (f"{predictor.device}" if mesh is None else
+                         f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                         f"mesh")
+                print(f"serving on http://{fe.host}:{fe.port} "
+                      f"(POST /predict, GET /stats, GET /healthz; "
+                      f"batch {predictor.batch_size}, {where})", flush=True)
+                try:
+                    while True:
+                        time.sleep(3600)
+                except KeyboardInterrupt:
+                    print("shutting down", flush=True)
+    finally:
+        if hasattr(predictor, "close"):
+            predictor.close()
 
 
 if __name__ == "__main__":

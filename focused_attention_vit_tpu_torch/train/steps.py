@@ -22,7 +22,11 @@ every rank and run this rank's ``data`` rows: the augmentation is drawn for
 the global batch (or microbatch) and sliced, the dropout key gets the data
 rank folded in (:func:`~..parallel.sharding.dropout_rng`), and the metric
 sums are summed over the ``data`` group, so every rank returns the global
-batch's. JAX shards the batch over ``'data'`` with ``in_shardings``.
+batch's. JAX shards the batch over ``'data'`` with ``in_shardings``. Under
+sequence and pipeline parallelism every rank of a ``seq`` and ``stage``
+group computes the same loss and backpropagates its
+:func:`~..parallel.sharding.loss_share` of it, so that the summed
+gradients are those of one loss.
 """
 
 from __future__ import annotations
@@ -147,7 +151,7 @@ def make_train_step(
         # Promote-only: bf16 logits go to f32 for the loss; f64 stays f64.
         logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         loss = F.cross_entropy(logits, labels)
-        loss.backward()
+        (loss * sharding.loss_share(mesh)).backward()
         correct = (logits.detach().argmax(-1) == labels).sum()
         return loss.detach() * labels.shape[0], correct
 

@@ -21,10 +21,6 @@ from focused_attention_vit_tpu_torch import experiments as exp
 from focused_attention_vit_tpu_torch.convert.from_jax import (
     load_flax_params_into_experiment,
 )
-from focused_attention_vit_tpu_torch.experiments.base import (
-    NOT_PORTED_DEFAULTS,
-    NotPortedError,
-)
 from focused_attention_vit_tpu_torch.models import VisionTransformer
 from focused_attention_vit_tpu_torch.ops import mha_kernel as mha
 from focused_attention_vit_tpu_torch.utils import metrics
@@ -335,37 +331,27 @@ REJECTED = [
 ]
 
 
-# Refused until ported (tests/test_torch_train_flags.py runs the training
-# flags, tests/test_torch_data_utils.py the data flags and
-# tests/test_torch_parallel.py the mesh flags).
-PORTED_SINCE = {"profile_dir", "remat", "remat_policy", "scan_layers",
-                "mu_dtype", "dataset", "visualize", "num_devices", "tp",
-                "fsdp"}
-
-
 @pytest.mark.parametrize("extra,flag", REJECTED, ids=[f for _, f in REJECTED])
 def test_cli_rejects_what_is_not_ported(extra, flag, dirs, tmp_path,
                                         monkeypatch):
-    """A flag of ``PORTED_SINCE`` now passes the refusal and reaches the
-    experiment's field (``--visualize``, which the CLI acts on itself, its
-    parsed value); the others are still refused by name."""
+    """Each of these flags was refused by name until it was ported
+    (tests/test_torch_train_flags.py runs the training flags,
+    tests/test_torch_data_utils.py the data flags,
+    tests/test_torch_parallel.py the mesh flags and
+    tests/test_torch_sequence_pipeline.py ``--sp`` and ``--pp``): each now
+    passes the CLI's checks and reaches the experiment's field
+    (``--visualize``, which the CLI acts on itself, its parsed value)."""
     monkeypatch.chdir(tmp_path)
     argv = BASE_ARGS + extra + ["--data_dir", dirs["data_dir"],
                                 "--results_dir", dirs["results_dir"]]
-    if flag in PORTED_SINCE:
-        args = cli.parse_args(argv)
-        cli.reject_not_ported(args)
-        if flag == "visualize":
-            assert args.visualize is True
-            return
-        e = exp.TraditionalViTExperiment(**cli._common_kwargs(args))
-        e._reject_not_ported()
-        assert getattr(e, flag) == getattr(args, flag) != getattr(
-            exp.TraditionalViTExperiment, flag)
+    args = cli.parse_args(argv)
+    cli.reject_unsupported(args)
+    if flag == "visualize":
+        assert args.visualize is True
         return
-    with pytest.raises(NotPortedError, match=f"--{flag} .*not ported yet"):
-        cli.main(argv)
-    assert not os.path.exists(dirs["results_dir"])  # before anything ran
+    e = exp.TraditionalViTExperiment(**cli._common_kwargs(args))
+    assert getattr(e, flag) == getattr(args, flag) != getattr(
+        exp.TraditionalViTExperiment, flag)
 
 
 CLI_TINY = ["--device", "cpu", "--img_size", "16", "--patch_size", "4",
@@ -429,49 +415,44 @@ def test_cli_dispatches_the_cross_attention_suites(name, tmp_path,
 
 @pytest.mark.parametrize("flag,value", [
     ("profile_dir", "x"), ("remat", True), ("remat_policy", "x"),
-    ("scan_layers", True),
-] + [
-    (f, {None: "x", False: True, 1: 2}[off])
-    for f, off in NOT_PORTED_DEFAULTS.items()
-] + [("dataset", "imagenet"), ("mu_dtype", "bfloat16"),
-     ("num_devices", 2), ("tp", 2), ("fsdp", True)])
+    ("scan_layers", True), ("sp", 2), ("pp", 2),
+    ("dataset", "imagenet"), ("mu_dtype", "bfloat16"),
+    ("num_devices", 2), ("tp", 2), ("fsdp", True)])
 def test_experiment_rejects_what_is_not_ported(flag, value, dirs):
-    """The fields of ``PORTED_SINCE`` are taken now: the model or the
-    optimizer carries them, and a ``remat_policy`` without ``remat`` is
-    refused as in JAX; ``dataset="imagenet"`` reads ``<data_dir>/imagenet``
-    and names it when it is missing; the mesh fields need the ranks of a
-    process group (``--fsdp`` a mesh, as in JAX). The others are still
-    refused by name."""
+    """Each of these fields was refused by name until it was ported: the
+    model or the optimizer carries them now, and a ``remat_policy`` without
+    ``remat`` is refused as in JAX; ``dataset="imagenet"`` reads
+    ``<data_dir>/imagenet`` and names it when it is missing; the mesh
+    fields need the ranks of a process group (``--fsdp`` a mesh, as in JAX;
+    ``--sp`` and ``--pp`` ask for one, which one CPU device cannot
+    hold)."""
     e = exp.TraditionalViTExperiment(**TINY, device="cpu", **dirs,
                                      **{flag: value})
-    if flag in ("dataset", "num_devices", "tp", "fsdp"):
-        e._reject_not_ported()
+    if flag in ("dataset", "num_devices", "tp", "fsdp", "sp", "pp"):
         err, match = {
             "dataset": (FileNotFoundError, "imagenet"),
             "num_devices": (RuntimeError, "ranks are not started"),
+            "sp": (ValueError,
+                   r"tp=1 \* sp=2 \* pp=1 must divide device count 1"),
+            "pp": (ValueError,
+                   r"tp=1 \* sp=1 \* pp=2 must divide device count 1"),
             "tp": (ValueError, "tp=2 must divide device count 1"),
             "fsdp": (ValueError, "--fsdp requires a device mesh"),
         }[flag]
         with pytest.raises(err, match=match):
             e.setup()
         return
-    if flag in PORTED_SINCE:
-        e._reject_not_ported()
-        e.torch_device = torch.device("cpu")
-        e.model = e.build_model()
-        if flag == "remat_policy":
-            with pytest.raises(ValueError, match="only applies under"):
-                e._check_remat_flags()
-            return
-        e._check_remat_flags()
-        if flag in ("remat", "scan_layers"):
-            assert getattr(e.model, flag) is True
-        if flag == "mu_dtype":
-            assert e.build_optimizer().mu_dtype == torch.bfloat16
+    e.torch_device = torch.device("cpu")
+    e.model = e.build_model()
+    if flag == "remat_policy":
+        with pytest.raises(ValueError, match="only applies under"):
+            e._check_remat_flags()
         return
-    with pytest.raises(NotPortedError, match=f"--{flag} "):
-        e.setup()
-    assert not hasattr(e, "model")
+    e._check_remat_flags()
+    if flag in ("remat", "scan_layers"):
+        assert getattr(e.model, flag) is True
+    if flag == "mu_dtype":
+        assert e.build_optimizer().mu_dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("flag", ["checkpoint_dir", "sync_checkpoint"])

@@ -1,7 +1,8 @@
 """The band, flash-attention, fused short-S attention and tile-band kernels
 on an NVIDIA Hopper GPU against their plain versions, SLIC and the SPPP
-models on the card, and the checkpoint manager's async snapshot and restore
-there.
+models on the card, the checkpoint manager's async snapshot and restore
+there, and the parallel layer at world size 1 (the wrappers, the
+sequence-parallel band, a 1-stage pipeline).
 
 Marked ``gpu``: these skip where there is no CUDA device. On a machine with
 the card and without JAX, run them with
@@ -1164,3 +1165,81 @@ def test_masked_block_on_the_card(cuda):
         masked = block(xb, torch.ones(2, 577, 577, device=cuda))
         assert band.launch_count("fwd") == 1  # the mask takes no kernel
         _close(masked, unmasked, torch.bfloat16, None, bf16_atol=2.0 ** -5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_virtual_sequence_shards_at_mhla_b4_width(cuda, dtype):
+    """The SP band of 4 virtual shards (``parallel/sequence.py``, plain on
+    the card) at MHLA-B/4 width (h=12, d=64, S=3137, W=7; L=785, 3 pad
+    rows) stitched together equals the plain shift band and K1's eval
+    output (f32 1e-5, bf16 within 2 ulps), and in f32 its gradients
+    through the exchange equal the plain band's within 1e-4."""
+    from focused_attention_vit_tpu_torch.parallel import sequence
+
+    q, k, v = _inputs(cuda, (2, 12, 3137, 64), dtype)
+    with torch.no_grad():
+        got = sequence.virtual_sp_windowed_attention(q, k, v, 7, 4)
+        plain = window._shift_banded_attention(q, k, v, 7)
+        k1 = band.roll_banded_attention(
+            *(t.transpose(2, 3).contiguous() for t in (q, k, v)),
+            7).transpose(2, 3)
+    for ref in (plain, k1):
+        _close(got, ref, dtype, 1e-5)
+    if dtype == torch.float32:
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        g = torch.randn_like(q)
+        a = torch.autograd.grad(
+            sequence.virtual_sp_windowed_attention(q, k, v, 7, 4),
+            (q, k, v), g)
+        b = torch.autograd.grad(window._shift_banded_attention(q, k, v, 7),
+                                (q, k, v), g)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+
+
+def test_one_stage_pipeline_at_mhla_b4_width(cuda, tmp_path):
+    """GPipe over a 1-stage ``stage`` dimension of a world-1 NCCL group:
+    2 blocks at MHLA-B/4 width (S=3137, D=768, 12 heads), batch 4 in 2
+    microbatches, f32, equals the plain step at microbatch 2 in losses and
+    parameters within 1e-5, and launches K1's training form and K2 once a
+    block a microbatch."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from focused_attention_vit_tpu_torch import train
+    from focused_attention_vit_tpu_torch.models import VisionTransformerMHLA
+    from focused_attention_vit_tpu_torch.parallel import make_mesh, shard_state
+
+    def fresh(**kw):
+        model = VisionTransformerMHLA(
+            depth=2, num_classes=10,
+            generator=torch.Generator().manual_seed(1), **kw)
+        return train.create_train_state(model, train.make_adamw(1e-4))
+
+    rng = np.random.default_rng(0)
+    data = [(rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+             rng.integers(0, 10, 4)) for _ in range(2)]
+    plain = fresh()
+    step = train.make_train_step(224, augment=False, microbatch=2)
+    want = [float(step(plain, x, y, i)[1]["loss_sum"])
+            for i, (x, y) in enumerate(data)]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, unit_dims=("stage",))
+        state = shard_state(fresh(scan_layers=True, pp_mesh=mesh,
+                                  pp_microbatches=2), mesh)
+        step = train.make_train_step(224, augment=False, mesh=mesh)
+        got = []
+        for i, (x, y) in enumerate(data):
+            band.reset_launch_count()
+            got.append(float(step(state, x, y, i)[1]["loss_sum"]))
+            torch.cuda.synchronize()
+            assert [band.launch_count(k) for k in band.LAUNCH_KINDS] == [
+                0, 4, 4]
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        for n, p in plain.model.named_parameters():
+            torch.testing.assert_close(state.layout.params[n], p, atol=1e-5,
+                                       rtol=0)
+    finally:
+        dist.destroy_process_group()

@@ -29,7 +29,7 @@ from focused_attention_vit_tpu.parallel import (
 )
 from focused_attention_vit_tpu.parallel import shard_params as jax_shard_params
 from focused_attention_vit_tpu.train import state as jstate
-from focused_attention_vit_tpu_torch import NotPortedError, cli, train
+from focused_attention_vit_tpu_torch import cli, train
 from focused_attention_vit_tpu_torch import experiments as exp
 from focused_attention_vit_tpu_torch.convert.from_jax import (
     flax_vit_mhla_to_state_dict,
@@ -315,13 +315,14 @@ def test_cli_trains_on_two_ranks_with_tp_and_fsdp(tmp_path, monkeypatch,
 
 
 def test_mesh_batch_and_microbatch_rules():
-    """Without ranks: ``--sp``/``--pp`` meshes are not ported, the host
-    slice is the whole batch and the global batch is the rank's own;
-    under a mesh an explicit microbatch must be a multiple of the data
-    size and the auto microbatch is off, as in JAX."""
-    with pytest.raises(NotPortedError, match="--sp"):
+    """Without ranks: ``--sp``/``--pp`` meshes (ported since; their ranks
+    run in tests/test_torch_sequence_pipeline.py), like any mesh, need the
+    process group; the host slice is the whole batch and the global batch
+    is the rank's own; under a mesh an explicit microbatch must be a
+    multiple of the data size and the auto microbatch is off, as in JAX."""
+    with pytest.raises(RuntimeError, match="process group"):
         make_mesh(4, sp=2)
-    with pytest.raises(NotPortedError, match="--pp"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_mesh(4, pp=2)
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(2)

@@ -37,7 +37,7 @@ from focused_attention_vit_tpu.models import (
     VisionTransformerMHLA as JaxVisionTransformerMHLA,
 )
 from focused_attention_vit_tpu.train import steps as jsteps
-from focused_attention_vit_tpu_torch import NotPortedError, cli, train
+from focused_attention_vit_tpu_torch import cli, train
 from focused_attention_vit_tpu_torch import experiments as exp
 from focused_attention_vit_tpu_torch.convert import checkpoints as C
 from focused_attention_vit_tpu_torch.convert.__main__ import (
@@ -621,13 +621,17 @@ def test_cli_rejects_what_is_not_ported(tmp_path, monkeypatch, name, extra,
                                         flag):
     """``--mu_dtype bfloat16`` and ``--remat`` have been ported since
     (tests/test_torch_train_flags.py), and ``--visualize``
-    (tests/test_torch_data_utils.py): they pass the refusal now, and
-    ``--sp`` is still refused by name."""
+    (tests/test_torch_data_utils.py): they pass the refusal now. ``--sp``
+    has been ported since too (tests/test_torch_sequence_pipeline.py): on
+    one CPU device its mesh cannot be built, and JAX's error says so
+    before anything is trained or written."""
     monkeypatch.chdir(tmp_path)
     args = cli.parse_args(["--experiment", name, "--device", "cpu", *extra])
-    cli.reject_not_ported(args)
+    cli.reject_unsupported(args)
     assert getattr(args, flag) in ("bfloat16", True)
-    with pytest.raises(NotPortedError, match="--sp .*not ported yet"):
+    with pytest.raises(ValueError,
+                       match=r"tp=1 \* sp=2 \* pp=1 must divide device "
+                             r"count 1"):
         cli.main(["--experiment", name, "--device", "cpu", *extra,
                   "--sp", "2"])
     assert not (tmp_path / "results").exists()
@@ -744,14 +748,27 @@ def test_pretrained_mhla_matches_jax(monkeypatch, impl):
     assert band.launch_count() == 0
 
 
-def test_pretrained_mhla_defaults_and_refusals():
+def test_pretrained_mhla_defaults_and_refusals(tmp_path):
     model = PretrainedViTWithMHLA(depth=1, embed_dim=32, num_heads=2)
     assert (model.patch_size, model.window_size, model.num_classes) == (
         4, 4, 1000)
     assert model.blocks[0].attn.window_size == 4
     assert model.blocks[0].mlp.dropout == 0.0
-    with pytest.raises(NotPortedError, match="sp_mesh"):
-        PretrainedViTWithMHLA(depth=1, sp_mesh=object())
+    # sp_mesh was refused until ported: on a one-rank group's size-1 seq
+    # dimension every attention layer learns the split of S = 3137.
+    import torch.distributed as dist
+
+    from focused_attention_vit_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, unit_dims=("seq",))
+        sp = PretrainedViTWithMHLA(depth=1, embed_dim=32, num_heads=2,
+                                   sp_mesh=mesh).sp
+        assert (sp.seq_len, sp.axis.n, sp.rows, sp.pad) == (3137, 1, 3137, 0)
+    finally:
+        dist.destroy_process_group()
     # A mask was refused until ported: the masked block now equals JAX's
     # (its plain masked bands) at banded S and at S <= 2W.
     for s in (100, 7):

@@ -317,6 +317,17 @@ def test_weights_or_checkpoint_dir_exactly_one(capsys):
 def test_flags_outside_the_slice_are_rejected(flag, capsys):
     """The export flags have been ported since (tests/test_torch_export.py):
     beside ``--weights``, ``--from_export`` is refused as exclusive, and
-    ``--export_artifact`` is refused beside ``--from_export``."""
+    ``--export_artifact`` is refused beside ``--from_export``. The mesh
+    flags have been ported since (tests/test_torch_sequence_pipeline.py
+    serves on two ranks): ``--num_devices 2`` and ``--tp 2`` are taken and
+    ask for two ranks, as JAX's rule says, on the CPU too."""
+    if flag[0] in ("--num_devices", "--tp"):
+        args = tserve._parser().parse_args(
+            ["--weights", "w.pt", "--device", "cpu", *flag])
+        assert getattr(args, flag[0][2:]) == 2
+        # --tp alone takes every device: one on the CPU.
+        want = 2 if flag[0] == "--num_devices" else 1
+        assert tserve._world_size(args) == want
+        return
     with pytest.raises(SystemExit):
         tserve._parser().parse_args(["--weights", "w.pt", *flag])
