@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA Hopper GPU.
 
 Drives the serving path and the training path of
-``focused_attention_vit_tpu_torch`` at MHLA-B/4 and at dense ViT-B/4 (D=768,
+``focused_attention_vit_tpu_torch`` at ViT-H/14 (MHLA at W=7 and W=129 and
+dense, 518x518, d=80), at MHLA-B/4 and at dense ViT-B/4 (D=768,
 12 blocks, 12 heads of d=64, W=7 for MHLA, patch 4 on 224x224, S=3137, 10
 classes, seeded random weights), then experiment E1 ``traditional`` at
 ViT-B/16 (patch 16, S=197) through the CLI, then MHLA-B/4 again through the
@@ -238,6 +239,31 @@ group:
     against the plain Predictor's on the same requests, K1 12 x the
     forward passes.
 
+Two groups of phases run right after kernel-train, at ViT-H/14's
+widths (D=1280, 32 blocks, 16 heads of d=80, patch 14) on 518x518 images
+(S=1370), batch 8:
+
+42. kernel-h14: K1 (eval, and training at dropout 0 and 0.1), K2 and the
+    dropout words at the band shape (8, 16, 80, 1370) for W in 7, 17, 64
+    and 129 (past 16 slots the kernels' wide path), and K5's eval forward,
+    training forward and backward at d in 24, 80 and 256, each in f32 and
+    bf16 against its plain version (the kernel phases' rules; the wide
+    gradients' bf16 entries within 2 ulps or 1e-4), each bf16 form timed
+    beside its plain version, its bound and PyTorch's fused attention;
+43. h14-model, h14-serve, export and h14-train for MHLA-H/14 at W=7 and at
+    W=129 and for dense ViT-H/14, with weights from a seeded tree in the
+    JAX package's Flax layout through ``convert/from_jax.py``: the model
+    cut to 2 blocks on the card against the CPU (f32 logits within 1e-3,
+    bf16 probabilities within 1e-2), then the 32-block model served by
+    ``serve.setup`` with the width flags through ``BatchingServer`` and one
+    ``POST /predict`` (the eval kernel 32 x the forward passes), MHLA-H/14
+    W=7 exported and served from its artifact bit-equal to the live path,
+    and 3 train steps (losses finite and falling; the training forward and
+    the backward 32 x the steps).
+
+A ``[time]`` line after each group of phases gives the seconds since the
+start.
+
 The kernel, kernel-train and kernel-tileband phases also time PyTorch's
 fused attention on K1's function (the band's float log-multiplicity mask
 on the S-minor tensors' transposed views: the eval call, the call with
@@ -276,6 +302,10 @@ import torch
 from focused_attention_vit_tpu_torch import serve, train
 from focused_attention_vit_tpu_torch.data import native as native_batcher
 from focused_attention_vit_tpu_torch.data.datasets import load_dataset
+from focused_attention_vit_tpu_torch.convert.from_jax import (
+    flax_vit_mhla_to_state_dict,
+    flax_vit_to_state_dict,
+)
 from focused_attention_vit_tpu_torch.data.pipeline import (
     batch_iterator,
     prepare_eval_batch,
@@ -520,34 +550,47 @@ def phase_build() -> None:
             _tile_ptxas(lib, text)
 
 
+# The tile widths whose bf16 flash kernels the build phase reports: the
+# B/4 paths' d = 64 and ViT-H/14's d = 80 must not spill; the widest, 256,
+# is reported (its 128-register accumulator spills; PERF.md).
+FLASH_PTXAS_DIMS = (64, 80, 256)
+FLASH_NO_SPILL_DIMS = (64, 80)
+
+
 def _flash_ptxas(lib: Path, text: str) -> None:
-    """Log ptxas's report of each d = 64 bf16 flash kernel in ``lib``; raise
-    if one spills or is missing."""
+    """Log ptxas's report of each bf16 flash kernel in ``lib`` at the tile
+    widths of FLASH_PTXAS_DIMS; raise if one of FLASH_NO_SPILL_DIMS spills
+    or one is missing."""
     lib_name = lib.name[3:-3]
     so = kernel_build.load(lib_name)
-    if lib_name == "flash_attention_fwd":
-        smem = {"flash_fwd_wgmma": so.flash_attention_fwd_smem(64)}
-    else:
-        smem = {"flash_bwd_dkv_wgmma": so.flash_attention_bwd_smem(64, 0),
-                "flash_bwd_dq_wgmma": so.flash_attention_bwd_smem(64, 1)}
     found = set()
-    for m in re.finditer(
-            r"Function properties for \S*?\d(flash_(?:fwd|bwd_dkv|bwd_dq)"
-            r"_wgmma)ILi64E(\w*?)Ev\S*\n\s*\d+ bytes stack frame, (\d+) "
-            r"bytes spill stores.*\n.*?Used (\d+) registers"
-            r"(?:.*?(\d+) bytes smem)?", text):
-        kernel, spills = m.group(1), int(m.group(3))
-        lse = ", lse" if "Lb1" in m.group(2) else ""
-        found.add(kernel)
-        log("build", f"ptxas {kernel}<64{lse}>: {m.group(4)} registers, "
-                     f"{spills} bytes of spill stores, {m.group(5) or 0} "
-                     f"bytes of static and {smem[kernel]} of dynamic shared "
-                     f"memory")
-        if spills:
-            raise AssertionError(f"{kernel}<64{lse}> spills {spills} bytes")
-    if found != set(smem):
-        raise AssertionError(f"ptxas report of {sorted(set(smem) - found)} "
-                             f"not found in {lib.parent / 'build.log'}")
+    for d in FLASH_PTXAS_DIMS:
+        if lib_name == "flash_attention_fwd":
+            smem = {"flash_fwd_wgmma": so.flash_attention_fwd_smem(d)}
+        else:
+            smem = {"flash_bwd_dkv_wgmma": so.flash_attention_bwd_smem(d, 0),
+                    "flash_bwd_dq_wgmma": so.flash_attention_bwd_smem(d, 1)}
+        for m in re.finditer(
+                r"Function properties for \S*?\d(flash_(?:fwd|bwd_dkv|bwd_dq)"
+                rf"_wgmma)ILi{d}E(\w*?)Ev\S*\n\s*\d+ bytes stack frame, "
+                r"(\d+) bytes spill stores.*\n.*?Used (\d+) registers"
+                r"(?:.*?(\d+) bytes smem)?", text):
+            kernel, spills = m.group(1), int(m.group(3))
+            form = ", lse" if "Lb1" in m.group(2) else (
+                ", dk" if "Li1E" in m.group(2) else
+                ", dv" if "Li2E" in m.group(2) else "")
+            found.add((kernel, d))
+            log("build", f"ptxas {kernel}<{d}{form}>: {m.group(4)} registers, "
+                         f"{spills} bytes of spill stores, {m.group(5) or 0} "
+                         f"bytes of static and {smem[kernel]} of dynamic "
+                         f"shared memory")
+            if spills and d in FLASH_NO_SPILL_DIMS:
+                raise AssertionError(f"{kernel}<{d}{form}> spills {spills} "
+                                     f"bytes")
+        missing = {(k, d) for k in smem} - found
+        if missing:
+            raise AssertionError(f"ptxas report of {sorted(missing)} not "
+                                 f"found in {lib.parent / 'build.log'}")
 
 
 def _fused_ptxas(lib: Path, text: str) -> None:
@@ -578,67 +621,72 @@ def _fused_ptxas(lib: Path, text: str) -> None:
 
 def _band_fwd_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's registers and spills and the dynamic shared memory of
-    every K1 instantiation (per dtype, head dim, slot cap, saved weights and
-    dropout); raise if one is missing or one of the main path's (bf16,
-    d=64, slot cap 8, eval or training form) spills."""
+    every K1 instantiation (per dtype, slot cap 8 or 16 or the wide kernel's
+    groups, saved weights and dropout; the head dim is an argument); raise
+    if one is missing or one of the main path's (bf16, slot cap 8, eval or
+    training form) spills."""
     so = kernel_build.load("mhla_band_fwd")
     found = {}
     for m in re.finditer(
-            r"Function properties for \S*?band_fwd_kernelI(13__nv_bfloat16|f)"
-            r"Li(\d+)ELi(\d+)ELb(\d)ELb(\d)E\S*\n\s*\d+ bytes stack frame, "
-            r"(\d+) bytes spill stores.*\n.*?Used (\d+) registers", text):
-        dtype, d, cap, save, drop, spills, regs = m.groups()
+            r"Function properties for \S*?band_fwd_(kernel|wide_kernel)I"
+            r"(13__nv_bfloat16|f)(?:Li(\d+)E)?Lb(\d)ELb(\d)E\S*\n\s*\d+ "
+            r"bytes stack frame, (\d+) bytes spill stores.*\n.*?Used (\d+) "
+            r"registers", text):
+        kind, dtype, cap, save, drop, spills, regs = m.groups()
         bf16 = dtype != "f"
-        smem = so.mhla_band_fwd_smem(int(bf16), int(d), int(cap))
-        key = ("bf16" if bf16 else "f32", int(d), int(cap), save + drop)
+        cap = cap or "wide"
+        smem = so.mhla_band_fwd_smem(int(bf16), 64,
+                                     129 if cap == "wide" else int(cap))
+        key = ("bf16" if bf16 else "f32", cap, save + drop)
         found[key] = (int(regs), int(spills), smem)
-        if bf16 and d == "64" and cap == "8" and int(spills):
+        if bf16 and cap == "8" and int(spills):
             raise AssertionError(f"K1 {key} spills {spills} bytes")
-    if len(found) != 64:
-        raise AssertionError(f"ptxas reports {len(found)} of K1's 64 "
+    if len(found) != 24:
+        raise AssertionError(f"ptxas reports {len(found)} of K1's 24 "
                              f"instantiations in {lib.parent / 'build.log'}")
     for dt in ("bf16", "f32"):
-        log("build", f"ptxas K1 {dt} (d/slot cap/save,dropout: registers, "
+        log("build", f"ptxas K1 {dt} (slot cap/save,dropout: registers, "
                      f"spill bytes, dynamic smem): " + "; ".join(
-                         f"{d}/{cap}/{form}: {r}, {sp}, {sm}"
-                         for (t_, d, cap, form), (r, sp, sm)
+                         f"{cap}/{form}: {r}, {sp}, {sm}"
+                         for (t_, cap, form), (r, sp, sm)
                          in sorted(found.items()) if t_ == dt))
 
 
 def _band_bwd_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's registers and spills and the dynamic shared memory of
-    every K2 instantiation (pass 1 and 2, per dtype, head dim, slot cap and
-    dropout flag); raise if one is missing or the main path's (bf16, d=64,
-    slot cap 8) spills."""
+    every K2 instantiation (pass 1 and 2, per dtype, slot cap 8 or 16 or
+    the wide kernels' groups, and dropout flag); raise if one is missing or
+    the main path's (bf16, slot cap 8) spills."""
     so = kernel_build.load("mhla_band_bwd")
     found = {}
     for m in re.finditer(
-            r"Function properties for \S*?band_bwd_(query|key)_kernelI"
-            r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E(?:Lb(\d)E)?E\S*\n\s*\d+ "
-            r"bytes stack frame, (\d+) bytes spill stores.*\n.*?Used (\d+) "
-            r"registers", text):
-        kind, dtype, d, cap, drop, spills, regs = m.groups()
+            r"Function properties for \S*?band_bwd_(query|key)_(?:wide_)?"
+            r"kernelI(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Lb(\d)E)?E\S*\n"
+            r"\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n.*?Used "
+            r"(\d+) registers", text):
+        kind, dtype, cap, drop, spills, regs = m.groups()
         bf16 = dtype != "f"
+        cap = cap or "wide"
         smem = so.mhla_band_bwd_smem(1 if kind == "query" else 2, int(bf16),
-                                     int(d), int(cap))
-        key = ("bf16" if bf16 else "f32", kind, int(d), int(cap), drop)
+                                     64, 129 if cap == "wide" else int(cap))
+        key = ("bf16" if bf16 else "f32", kind, cap, drop)
         found[key] = (int(regs), int(spills), smem)
-        if bf16 and d == "64" and cap == "8" and int(spills):
+        if bf16 and cap == "8" and int(spills):
             raise AssertionError(f"K2 {key} spills {spills} bytes")
-    if len(found) != 48:
-        raise AssertionError(f"ptxas reports {len(found)} of K2's 48 "
+    if len(found) != 18:
+        raise AssertionError(f"ptxas reports {len(found)} of K2's 18 "
                              f"instantiations in {lib.parent / 'build.log'}")
     for dt in ("bf16", "f32"):
         for kind in ("query", "key"):
             log("build", f"ptxas K2 {dt} pass {1 if kind == 'query' else 2}"
-                         f" (d/slot cap[/dropout]: registers, spill bytes, "
-                         f"dynamic smem): " + "; ".join(
-                             f"{d}/{cap}{'' if drop is None else '/' + drop}"
+                         f" (slot cap[/dropout]: registers, spill bytes, "
+                         f"dynamic smem at d=64): " + "; ".join(
+                             f"{cap}{'' if drop is None else '/' + drop}"
                              f": {r}, {sp}, {sm}"
-                             for (t_, k_, d, cap, drop), (r, sp, sm)
+                             for (t_, k_, cap, drop), (r, sp, sm)
                              in sorted(found.items(),
-                                       key=lambda kv: (kv[0][2], kv[0][3],
-                                                       kv[0][4] or ""))
+                                       key=lambda kv: (kv[0][2], kv[0][3]
+                                                       or ""))
                              if t_ == dt and k_ == kind))
 
 
@@ -794,9 +842,11 @@ def _worst(got: torch.Tensor, ref: torch.Tensor, dtype, f32_tol: float):
     return err, ulps <= BF16_ULPS, f"{err:.3g} ({ulps:.2f} ulps)"
 
 
-def _compare_train(q, k, v, g, w, rate, seed):
+def _compare_train(q, k, v, g, w, rate, seed, bwd_check=None):
     """The training forward and the backward kernel against their plain
-    versions on the same inputs; returns {name: (err, ok, text)}."""
+    versions on the same inputs; returns {name: (err, ok, text)}. The
+    gradients are held by ``bwd_check`` (default ``_worst``)."""
+    bwd_check = bwd_check or _worst
     dtype = q.dtype
     out, wts = band.band_forward_train(q, k, v, w, rate, seed)
     ref_out, ref_wts = band.plain_band_forward_train(q, k, v, w, rate, seed)
@@ -807,7 +857,7 @@ def _compare_train(q, k, v, g, w, rate, seed):
            # Saved weights are f32 on both sides: softmax of f32 logits.
            "wts": _worst(wts, ref_wts, torch.float32, F32_TOL)}
     for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
-        res[name] = _worst(a, b, dtype, F32_BWD_TOL)
+        res[name] = bwd_check(a, b, dtype, F32_BWD_TOL)
     return res
 
 
@@ -3865,7 +3915,10 @@ E1_FUSED = ModelPath("e1-fused-", "ViT-B/16 (FAVIT_FUSED_MHA=1)",
                      env={"FAVIT_FUSED_MHA": "1"}, idle_ops=(flash, band))
 
 
-def phase_export(path: ModelPath, cpu_model) -> dict:
+def phase_export(path: ModelPath, cpu_model, state_dict=None,
+                 geom_flags=(), img: int = 224, batch: int = EXPORT_BATCH,
+                 sizes=EXPORT_SIZES, depth: int = DEPTH, patch=None,
+                 name=None) -> dict:
     """``serve --export_artifact`` on ``path``'s model at full width with
     ``cpu_model``'s weights, in bf16 at batch 32 on the card, then ``serve
     --from_export``: the artifact's probabilities against the live
@@ -3875,18 +3928,25 @@ def phase_export(path: ModelPath, cpu_model) -> dict:
     timed from each (CUDA-event medians, in turns). An exported program
     takes one input shape, the model's 224x224 by default (JAX's rule), so
     the requests here are 224x224. Returns the artifact's launches and the
-    times."""
+    times. ``state_dict``, ``geom_flags``, ``img``, ``batch``, ``sizes``,
+    ``depth``, ``patch`` and ``name`` set another model (ViT-H/14: its
+    weights in place of ``cpu_model``'s, its width flags, 518x518 requests,
+    batch 8, 32 blocks, patch 14)."""
     phase = path.phase("export")
+    name = name or path.name
     rng = np.random.default_rng(6)
 
     def images(n):
-        return rng.integers(0, 256, size=(n, 224, 224, 3), dtype=np.uint8)
+        return rng.integers(0, 256, size=(n, img, img, 3), dtype=np.uint8)
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "w.pt")
-        torch.save(cpu_model.state_dict(), weights)
-        flags = ["--model", path.flag, "--patch_size", str(path.patch),
-                 "--img_size", "224", "--compute_dtype", "bfloat16",
-                 "--batch_size", str(EXPORT_BATCH), "--weights", weights]
+        torch.save(cpu_model.state_dict() if state_dict is None
+                   else state_dict, weights)
+        flags = ["--model", path.flag, "--patch_size",
+                 str(patch or path.patch), "--img_size", str(img),
+                 "--compute_dtype", "bfloat16",
+                 "--batch_size", str(batch), "--weights", weights,
+                 *geom_flags]
         art = os.path.join(tmp, "artifact")
         t0 = time.perf_counter()
         serve.main([*flags, "--export_artifact", art])
@@ -3900,34 +3960,34 @@ def phase_export(path: ModelPath, cpu_model) -> dict:
         _, live = serve.setup(flags)
     want_env = {k: path.env.get(k) for k in meta["trace_env"]}
     if meta["device"] != "cuda" or meta["trace_env"] != want_env or meta[
-            "batch_size"] != EXPORT_BATCH:
+            "batch_size"] != batch:
         raise AssertionError(f"{phase}: meta {meta}, expected the cuda "
                              f"device and the trace environment {want_env}")
-    log(phase, f"{path.name}: serve --export_artifact in {t_export:.1f} s "
+    log(phase, f"{name}: serve --export_artifact in {t_export:.1f} s "
                f"({size / 2**20:.1f} MiB program with its bf16 weights); "
                f"--from_export load and warm-up {t_load:.1f} s; meta {meta}")
-    reqs = [images(n) for n in EXPORT_SIZES]
+    reqs = [images(n) for n in sizes]
     path.reset_counts()
     got = [exported.predict_proba(r) for r in reqs]
     torch.cuda.synchronize()
     launches = path.op.launch_count()
     path.check_idle(phase)
-    passes = sum(-(-n // EXPORT_BATCH) for n in EXPORT_SIZES)
+    passes = sum(-(-n // batch) for n in sizes)
     want = [live.predict_proba(r) for r in reqs]
     equal = all(np.array_equal(a, b) for a, b in zip(got, want))
     dp = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
     for r, a in zip(reqs, got):
         _check_probs(a, len(r))
-    log(phase, f"requests of {list(EXPORT_SIZES)} images: artifact against "
+    log(phase, f"requests of {list(sizes)} images: artifact against "
                f"the live Predictor bit-equal: {equal}, max |d probs| {dp:.3g} "
                f"(tol {EXPORT_PROBS_TOL}); {path.op_name} launches "
                f"{launches} inside the ops for {passes} forward passes")
     if dp > EXPORT_PROBS_TOL:
         raise AssertionError(f"{phase}: the artifact disagrees with the live "
                              f"path")
-    if launches != DEPTH * passes:
+    if launches != depth * passes:
         raise AssertionError(f"{phase}: {path.op_name} launches {launches} "
-                             f"!= {DEPTH} x {passes} forward passes")
+                             f"!= {depth} x {passes} forward passes")
 
     path.reset_counts()
     with serve.BatchingServer(exported, max_delay_ms=5.0, workers=2) as srv, \
@@ -3946,7 +4006,7 @@ def phase_export(path: ModelPath, cpu_model) -> dict:
         raise AssertionError(f"{phase}: served artifact probabilities "
                              f"disagree with the live path")
 
-    full = images(EXPORT_BATCH)
+    full = images(batch)
     times = {"live": [], "artifact": []}
     for which in ("live", "artifact", "artifact", "live"):
         p = live if which == "live" else exported
@@ -3954,7 +4014,7 @@ def phase_export(path: ModelPath, cpu_model) -> dict:
                                            warmup=2))
     live_ms = statistics.mean(times["live"])
     art_ms = statistics.mean(times["artifact"])
-    log(phase, f"a batch of {EXPORT_BATCH} (uint8 to probs on the card, "
+    log(phase, f"a batch of {batch} (uint8 to probs on the card, "
                f"CUDA-event medians of 10, in turns live, artifact, artifact, "
                f"live): live {times['live']} ms, artifact "
                f"{times['artifact']} ms; artifact / live "
@@ -4137,11 +4197,525 @@ def phase_train_flags(path: ModelPath, policies, profile: bool) -> dict:
     return total
 
 
+# --- ViT-H/14 at 518x518: the band and flash kernels' range on a main path --
+
+# ViT-H/14 (Dosovitskiy et al., "An Image is Worth 16x16 Words", Table 1):
+# D = 1280, 32 blocks, 16 heads of d = 80, MLP 5120, patch 14, at 518x518,
+# the resolution the paper fine-tunes H/14 at: S = 37^2 + 1 = 1370. At
+# batch 8 the band is B*h = 128 rows of [80, 1370] (S-minor) and the flash
+# op 128 heads of [1370, 80].
+H14_IMG, H14_PATCH, H14_DIM, H14_DEPTH, H14_HEADS = 518, 14, 1280, 32, 16
+H14_HEAD_DIM = H14_DIM // H14_HEADS
+H14_S = (H14_IMG // H14_PATCH) ** 2 + 1
+H14_BATCH = 8
+H14_BAND_SHAPE = (H14_BATCH, H14_HEADS, H14_HEAD_DIM, H14_S)
+H14_FLASH_SHAPE = (H14_BATCH, H14_HEADS, H14_S, H14_HEAD_DIM)
+# The model's window, both sides of the slot groups (16 | 17), an even
+# window and JAX's roll-band limit.
+H14_WINDOWS = (7, 17, 64, 129)
+H14_WIDE_W = 129
+# A padded head dim (24 -> 32), ViT-H/14's, and the widest.
+H14_FLASH_DIMS = (24, 80, 256)
+H14_FLAGS = ("--embed_dim", str(H14_DIM), "--depth", str(H14_DEPTH),
+             "--num_heads", str(H14_HEADS))
+H14_STEPS = 3
+H14_SIZES = (1, 8, 12)  # requests; 12 takes two batches of 8
+
+
+def _wide_bwd_worst(got, ref, dtype, f32_tol):
+    """``_worst`` for the band's gradients past 16 slots: f32 within
+    ``f32_tol``; bf16 entry by entry within BF16_ULPS ulps or ``f32_tol``
+    abs. Each gradient sums up to W = 129 slot terms, in another order than
+    the plain version's, so the two sides' f32 sums differ by up to about
+    1e-4 before the one rounding (the f32 rows of kernel-h14); past 2 ulps
+    of an entry that cancels to near 0 that difference shows. This is the
+    bf16 backward's rule of tests/test_torch_gpu.py (absolute bound
+    1e-4)."""
+    if dtype == torch.float32:
+        return _worst(got, ref, dtype, f32_tol)
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        ref.abs().clamp_min(BF16_ULP_FLOOR))) - 7)
+    ulps = float((err / ulp).max())
+    ok = not bool((err > torch.clamp_min(BF16_ULPS * ulp, f32_tol)).any())
+    return float(err.max()), ok, (f"{float(err.max()):.3g} ({ulps:.2f} "
+                                  f"ulps; within {BF16_ULPS} ulps or "
+                                  f"{f32_tol} abs)")
+
+
+def _h14_times(fns: dict, reps: int = 30) -> dict:
+    """CUDA-event medians of the kernels (``reps``) and of the plain
+    versions (5: they take tens of ms here)."""
+    return {name: cuda_median_ms(fn, 5, 1) if name.endswith("plain")
+            else cuda_median_ms(fn, reps) for name, fn in fns.items()}
+
+
+def phase_kernel_h14() -> dict:
+    """K1 (eval, training at dropout 0 and 0.1), K2 and the dropout words at
+    the ViT-H/14 band shape for each window of H14_WINDOWS, and K5's three
+    forms at d in H14_FLASH_DIMS, against their plain versions in f32 and
+    bf16 by the rules of the kernel, kernel-train and kernel-flash phases;
+    each bf16 form timed beside its plain version, its bound and PyTorch's
+    fused attention. Returns {"band": {W: forms}, "flash": {d: forms}}."""
+    import torch.nn.functional as F  # the library call, timed as a yardstick
+
+    phase = "kernel-h14"
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def inputs(shape, dtype):
+        return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(4)]
+
+    def check(where, res):
+        bad = [f"{n} {t}" for n, (_, ok, t) in res.items() if not ok]
+        if bad:
+            raise AssertionError(f"{phase}: kernels disagree with the plain "
+                                 f"versions at {where}: {bad}")
+
+    b, h, d, s = H14_BAND_SHAPE
+    seed = 2**41 + 19
+    result = {"band": {}, "flash": {}}
+    for w in H14_WINDOWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            q, k, v, g = inputs(H14_BAND_SHAPE, dtype)
+            res = {"eval": _worst(band.roll_banded_attention(q, k, v, w),
+                                  band.plain_banded_attention(q, k, v, w),
+                                  dtype, F32_TOL)}
+            for rate, sd in ((0.0, None), (TRAIN_DROPOUT, seed)):
+                for n, r in _compare_train(
+                        q, k, v, g, w, rate, sd,
+                        _wide_bwd_worst if w > 16 else None).items():
+                    res[f"{n}@{rate}"] = r
+            check(f"{H14_BAND_SHAPE} W={w} {dt}", res)
+            log(phase, f"band B,h,d,S={H14_BAND_SHAPE} W={w} {dt}, dropout 0 "
+                       f"and {TRAIN_DROPOUT}: max abs err " + ", ".join(
+                           f"{n} {t}" for n, (_, _, t) in res.items()))
+            if dtype == torch.float32:
+                continue
+            out, wts = band.band_forward_train(q, k, v, w, TRAIN_DROPOUT,
+                                               seed)
+            library = band_library_call(s, w, dtype)
+            times = _h14_times({
+                "fwd": lambda: band.roll_banded_attention(q, k, v, w),
+                "fwd_plain": lambda: band.plain_banded_attention(q, k, v, w),
+                "fwd_train": lambda: band.band_forward_train(
+                    q, k, v, w, TRAIN_DROPOUT, seed),
+                "fwd_train_plain": lambda: band.plain_band_forward_train(
+                    q, k, v, w, TRAIN_DROPOUT, seed),
+                "bwd": lambda: band.band_backward(q, k, v, g, wts, w,
+                                                  TRAIN_DROPOUT, seed),
+                "bwd_plain": lambda: band.plain_band_backward(
+                    q, k, v, g, wts, w, TRAIN_DROPOUT, seed),
+            })
+            with torch.no_grad():
+                times["fwd_library"] = cuda_median_ms(lambda: library(q, k, v))
+                times["fwd_train_library"] = cuda_median_ms(
+                    lambda: library(q, k, v, TRAIN_DROPOUT))
+            times["bwd_library"] = backward_ms(
+                lambda *a: library(*a, TRAIN_DROPOUT), (q, k, v),
+                g.transpose(-1, -2).contiguous())
+            one = q.numel() * q.element_size()
+            pairs = b * h * s * w * d
+            errs = {n: e for n, (e, _, _) in res.items()}
+            result["band"][w] = dict(
+                fwd=dict(max_abs_err=errs["eval"], ms=times["fwd"],
+                         plain_ms=times["fwd_plain"],
+                         library_ms=times["fwd_library"],
+                         **least_time(4 * one, 4 * pairs)),
+                fwd_train=dict(
+                    max_abs_err=max(errs[f"{n}@{r}"] for n in ("out", "wts")
+                                    for r in (0.0, TRAIN_DROPOUT)),
+                    ms=times["fwd_train"], plain_ms=times["fwd_train_plain"],
+                    library_ms=times["fwd_train_library"],
+                    **least_time(4 * one + wts.numel() * 4, 4 * pairs)),
+                bwd=dict(
+                    max_abs_err=max(errs[f"{n}@{r}"]
+                                    for n in ("dq", "dk", "dv")
+                                    for r in (0.0, TRAIN_DROPOUT)),
+                    ms=times["bwd"], plain_ms=times["bwd_plain"],
+                    library_ms=times["bwd_library"],
+                    **least_time(7 * one + wts.numel() * 4, 10 * pairs)),
+            )
+            log(phase, f"band W={w} bf16, kernel / plain / PyTorch's fused "
+                       f"attention with the band's mask, ms (CUDA-event "
+                       f"medians of 30, plain of 5; dropout "
+                       f"{TRAIN_DROPOUT} in the training forms): " + "; ".join(
+                           f"{kind} {r['ms']:.4f} / {r['plain_ms']:.4f} / "
+                           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                           f"({r['bound_by']})"
+                           for kind, r in result["band"][w].items()))
+            del q, k, v, g, out, wts
+            torch.cuda.empty_cache()
+        if w > 16:
+            bits = band.keep_bits(b * h, w, s, seed, "cuda").cpu()
+            if not torch.equal(bits, band.keep_bits(b * h, w, s, seed,
+                                                    "cpu")):
+                raise AssertionError(f"{phase}: the kernels' dropout words "
+                                     f"differ from the plain generator's at "
+                                     f"W={w}")
+            log(phase, f"dropout words at B*h={b * h}, W={w}, S={s}: "
+                       f"identical to the plain generator's "
+                       f"({bits.numel()} words)")
+            del bits
+
+    fb, fh, fs, _ = H14_FLASH_SHAPE
+    for fd in H14_FLASH_DIMS:
+        shape = (fb, fh, fs, fd)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            q, k, v, g = inputs(shape, dtype)
+            res = _compare_flash(q, k, v, g)
+            check(f"flash {shape} {dt}", res)
+            log(phase, f"flash B,h,S,d={shape} {dt}: max abs err " + ", ".join(
+                f"{n} {t}" for n, (_, _, t) in res.items()))
+            if dtype == torch.float32:
+                continue
+            out, lse = flash.flash_forward_train(q, k, v)
+            again = [flash.flash_backward(q, k, v, out, lse, g)
+                     for _ in range(2)]
+            if not all(torch.equal(a, b_) for a, b_ in zip(*again)):
+                raise AssertionError(f"{phase}: two flash backward runs "
+                                     f"differ at d={fd}")
+            del again
+            times = _h14_times({
+                "fwd": lambda: flash.flash_attention(q, k, v),
+                "fwd_train": lambda: flash.flash_forward_train(q, k, v),
+                "bwd": lambda: flash.flash_backward(q, k, v, out, lse, g),
+                "fwd_plain": lambda: flash.plain_flash_forward(q, k, v),
+                "bwd_plain": lambda: flash.plain_flash_backward(
+                    q, k, v, out, lse, g),
+            })
+            with torch.no_grad():
+                times["fwd_library"] = cuda_median_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v))
+            lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+            times["fwd_train_library"] = cuda_median_ms(
+                lambda: F.scaled_dot_product_attention(lq, lk, lv))
+            times["bwd_library"] = backward_ms(
+                F.scaled_dot_product_attention, (q, k, v), g)
+            del lq, lk, lv
+            errs = {n: e for n, (e, _, _) in res.items()}
+            one = q.numel() * q.element_size()
+            pairs = fb * fh * fs * fs * fd
+            result["flash"][fd] = dict(
+                fwd=dict(max_abs_err=errs["out_eval"], ms=times["fwd"],
+                         plain_ms=times["fwd_plain"],
+                         library_ms=times["fwd_library"],
+                         **least_time(4 * one, 4 * pairs)),
+                fwd_train=dict(max_abs_err=max(errs["out"], errs["lse"]),
+                               ms=times["fwd_train"],
+                               plain_ms=times["fwd_plain"],
+                               library_ms=times["fwd_train_library"],
+                               **least_time(4 * one + lse.numel() * 4,
+                                            4 * pairs)),
+                bwd=dict(max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
+                         ms=times["bwd"], plain_ms=times["bwd_plain"],
+                         library_ms=times["bwd_library"],
+                         **least_time(8 * one + lse.numel() * 4,
+                                      10 * pairs)),
+            )
+            log(phase, f"flash d={fd} bf16, kernel / plain / PyTorch's fused "
+                       f"attention, ms (CUDA-event medians of 30, plain of "
+                       f"5; two backward runs bit-identical): " + "; ".join(
+                           f"{kind} {r['ms']:.4f} / {r['plain_ms']:.4f} / "
+                           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                           f"({r['bound_by']}), "
+                           f"{r['bound_ms'] / r['ms']:.3f} of it"
+                           for kind, r in result["flash"][fd].items()))
+            del q, k, v, g, out, lse
+            torch.cuda.empty_cache()
+    return result
+
+
+def _h14_flax_tree(mhla: bool, depth: int, seed: int) -> dict:
+    """A seeded parameter tree in the JAX package's Flax layout (what a JAX
+    checkpoint of the model holds): ViT-H/14's widths, ``depth`` blocks,
+    10 classes; weights N(0, 0.02^2), biases 0, LayerNorm scales 1."""
+    gen = torch.Generator().manual_seed(seed)  # torch.randn: all cores
+    dim, h, hd, mlp = H14_DIM, H14_HEADS, H14_HEAD_DIM, 4 * H14_DIM
+    tokens = (H14_IMG // H14_PATCH) ** 2 + 1
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=gen) * 0.02).numpy()
+
+    def dense(n_in, n_out):
+        return {"kernel": normal(n_in, n_out),
+                "bias": np.zeros(n_out, np.float32)}
+
+    def norm():
+        return {"scale": np.ones(dim, np.float32),
+                "bias": np.zeros(dim, np.float32)}
+
+    tree = {"patch_embed": {"projection": dense(H14_PATCH ** 2 * 3, dim)},
+            "cls_token": normal(1, 1, dim),
+            "pos_embed": normal(1, tokens, dim)}
+    for i in range(depth):
+        attn = {"qkv": {"kernel": normal(dim, 3, h, hd),
+                        "bias": np.zeros((3, h, hd), np.float32)},
+                "proj": {"kernel": normal(h, hd, dim),
+                         "bias": np.zeros(dim, np.float32)}}
+        if mhla:
+            attn["latent_proj"] = dense(hd, hd)
+        tree[f"blocks_{i}"] = {"attn": attn, "norm1": norm(), "norm2": norm(),
+                               "mlp": {"fc1": dense(dim, mlp),
+                                       "fc2": dense(mlp, dim)}}
+    tree["norm"] = norm()
+    tree["head"] = dense(dim, 10)
+    return tree
+
+
+def _without_latent(tree: dict) -> dict:
+    """The dense ViT's tree from an MHLA tree: the same stem, blocks and
+    head without the latent projections (the arrays are shared)."""
+    out = dict(tree)
+    for key, blk in tree.items():
+        if key.startswith("blocks_"):
+            attn = {k: v for k, v in blk["attn"].items() if k != "latent_proj"}
+            out[key] = {**blk, "attn": attn}
+    return out
+
+
+class _H14:
+    """One of the three ViT-H/14 paths: label, model class and flag, its
+    window (None: dense), the op whose kernels it runs."""
+
+    def __init__(self, label, w):
+        self.label, self.w = label, w
+        self.mhla = w is not None
+        self.cls = VisionTransformerMHLA if self.mhla else VisionTransformer
+        self.flag = "vit_mhla" if self.mhla else "vit"
+        self.op = band if self.mhla else flash
+        self.path = MHLA if self.mhla else DENSE
+        self.to_sd = (flax_vit_mhla_to_state_dict if self.mhla
+                      else flax_vit_to_state_dict)
+
+    def build(self, depth, device, **kw):
+        if self.mhla:
+            kw["window_size"] = self.w
+        return self.cls(img_size=H14_IMG, patch_size=H14_PATCH,
+                        num_classes=10, embed_dim=H14_DIM, depth=depth,
+                        num_heads=H14_HEADS, device=device, **kw)
+
+    def flags(self):
+        return [*H14_FLAGS, *(("--window_size", str(self.w)) if self.mhla
+                              else ())]
+
+
+H14_PATHS = (_H14("MHLA-H/14 W=7", 7), _H14(f"MHLA-H/14 W={H14_WIDE_W}",
+                                           H14_WIDE_W),
+             _H14("dense ViT-H/14", None))
+
+
+def _counts(op) -> dict:
+    return _op_counts()[op.__name__.rsplit(".", 1)[1]]
+
+
+def phase_h14_parity(p: _H14, tree: dict) -> None:
+    """The model cut to 2 blocks at full width, 2 images at 518x518: f32 on
+    the card against the CPU (the model phase's rule: logits within 1e-3,
+    probabilities within 1e-4) and bf16 autocast on the card against the
+    f32 CPU (the serve phase's 1e-2 on probabilities); 2 launches a pass."""
+    phase = "h14-model"
+    sd = p.to_sd(tree)
+    cpu_model = p.build(2, "cpu").eval()
+    cpu_model.load_state_dict(sd)
+    gpu_model = p.build(2, "cuda").eval()
+    gpu_model.load_state_dict(sd)
+    u8 = _images(np.random.default_rng(19), 2)
+    with torch.inference_mode():
+        x = prepare_eval_batch(torch.from_numpy(u8), H14_IMG)
+        ref = cpu_model(x)
+        _reset_ops()
+        got = gpu_model(x.to("cuda")).cpu()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got_bf16 = gpu_model(x.to("cuda")).float().cpu()
+        torch.cuda.synchronize()
+    launches = _counts(p.op)
+    ref_p = torch.softmax(ref, -1)
+    dl = float((got - ref).abs().max())
+    dp = float((torch.softmax(got, -1) - ref_p).abs().max())
+    dp16 = float((torch.softmax(got_bf16, -1) - ref_p).abs().max())
+    log(phase, f"{p.label} cut to 2 blocks, batch 2 at {H14_IMG}^2 (S="
+               f"{H14_S}), card vs CPU: f32 max |d logits| {dl:.3g} (tol "
+               f"1e-3), max |d probs| {dp:.3g} (tol 1e-4); bf16 autocast max "
+               f"|d probs| {dp16:.3g} (tol 1e-2); launches {launches}")
+    if not (dl <= 1e-3 and dp <= 1e-4 and dp16 <= 1e-2):
+        raise AssertionError(f"{phase}: {p.label} on the card disagrees "
+                             f"with the CPU")
+    if launches["fwd"] != 2 * 2:
+        raise AssertionError(f"{phase}: expected 4 eval launches, got "
+                             f"{launches}")
+
+
+def phase_h14_serve(p: _H14, weights: str) -> dict:
+    """``serve.setup`` with ViT-H/14's flags at 518x518, bf16, batch 8:
+    concurrent requests through ``BatchingServer`` and one ``POST
+    /predict`` through ``HTTPFrontend``; the op's eval kernel launched 32 x
+    the forward passes; a full batch's latency. Returns the launches."""
+    phase = "h14-serve"
+    rng = np.random.default_rng(20)
+    t0 = time.perf_counter()
+    args, predictor = serve.setup([
+        "--model", p.flag, "--patch_size", str(H14_PATCH), "--img_size",
+        str(H14_IMG), "--compute_dtype", "bfloat16", "--batch_size",
+        str(H14_BATCH), "--weights", weights, *p.flags()])
+    log(phase, f"{p.label}: set-up (weights, model, warm-up batch) "
+               f"{time.perf_counter() - t0:.1f} s")
+    forwards = [0]
+    hook = predictor.model.register_forward_pre_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    _reset_ops()
+    reqs = [_images(rng, n) for n in H14_SIZES]
+    with serve.BatchingServer(predictor, max_delay_ms=args.max_delay_ms,
+                              workers=args.workers) as srv, \
+            serve.HTTPFrontend(srv, host="127.0.0.1", port=0) as fe:
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            outs = list(pool.map(
+                lambda r: srv.submit(r).result(timeout=300), reqs))
+        for req, out in zip(reqs, outs):
+            _check_probs(out, len(req))
+        http_req = _images(rng, 4)
+        _check_probs(_post(f"http://{fe.host}:{fe.port}", http_req), 4)
+    full = _images(rng, H14_BATCH)
+    lat = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        predictor.predict_proba(full)
+        lat.append(time.perf_counter() - t0)
+    hook.remove()
+    launches = _counts(p.op)
+    log(phase, f"{p.label}: requests of {list(H14_SIZES)} images and one "
+               f"POST /predict of 4: shapes, finite, rows sum to 1; forward "
+               f"passes {forwards[0]}, launches {launches}; a batch of "
+               f"{H14_BATCH}: median latency "
+               f"{statistics.median(lat[2:]) * 1e3:.2f} ms (host clock, 5 "
+               f"runs after 2, uint8 in to probs out)")
+    if forwards[0] == 0 or launches["fwd"] != H14_DEPTH * forwards[0]:
+        raise AssertionError(f"{phase}: {p.label} launches {launches} != "
+                             f"{H14_DEPTH} x {forwards[0]} forward passes")
+    del predictor
+    torch.cuda.empty_cache()
+    return launches
+
+
+# AdamW's first steps move every weight by about the learning rate; at
+# 1e-4 a 32-block model from a random start overshoots by the third step
+# (losses 2.80, 1.96, 6.14 at 1e-4 on an H100), so the steps take 1e-5.
+H14_LR = 1e-5
+
+
+def phase_h14_train(p: _H14, sd: dict) -> dict:
+    """H14_STEPS train steps of the model at batch 8, bf16 autocast over f32
+    parameters, AdamW at H14_LR, dropout 0.1 (and attention dropout 0.1 on
+    MHLA, which the band's kernels draw) on one batch: losses finite and
+    falling; the training forward and the backward launched 32 x the steps.
+    Returns the launches."""
+    phase = "h14-train"
+    kw = dict(dropout=TRAIN_DROPOUT)
+    if p.mhla:
+        kw["attn_dropout"] = TRAIN_DROPOUT
+    model = p.build(H14_DEPTH, "cuda", **kw)
+    model.load_state_dict(sd)
+    state = train.create_train_state(model, train.make_adamw(H14_LR))
+    step = train.make_train_step(H14_IMG, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(21)
+    u8 = _images(rng, H14_BATCH)
+    y = rng.integers(0, 10, size=H14_BATCH)
+    _reset_ops()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(H14_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, u8, y, i)
+        losses.append(float(m["loss_sum"]) / H14_BATCH)
+        times.append(time.perf_counter() - t0)
+    launches = _counts(p.op)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(phase, f"{p.label}: {H14_STEPS} steps at batch {H14_BATCH}, bf16 "
+               f"autocast, dropout {kw}: losses "
+               f"{[round(x, 5) for x in losses]}"
+               f"; ms a step {[round(t * 1e3, 1) for t in times]} (host "
+               f"clock, the first with the kernels' first calls), peak "
+               f"{peak:.2f} GiB; launches {launches}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{phase}: {p.label} losses {losses} are not "
+                             f"finite and falling")
+    want = H14_DEPTH * H14_STEPS
+    if launches["fwd_train"] != want or launches["bwd"] != want:
+        raise AssertionError(f"{phase}: {p.label} launches {launches}, "
+                             f"expected {want} training forwards and "
+                             f"backwards")
+    del state, model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_h14() -> dict:
+    """The three ViT-H/14 paths end to end, weights carried from seeded
+    Flax-layout trees through ``convert/from_jax.py``: each cut to 2 blocks
+    against the CPU, then served, trained 3 steps, and MHLA-H/14 at W=7
+    exported and served from its artifact. Returns the launches by op."""
+    total = {"band": dict.fromkeys(band.LAUNCH_KINDS, 0),
+             "flash": dict.fromkeys(flash.LAUNCH_KINDS, 0)}
+
+    def add(op, counts):
+        for k, n in counts.items():
+            total["band" if op is band else "flash"][k] += n
+
+    t0 = time.perf_counter()
+    trees = {True: _h14_flax_tree(True, H14_DEPTH, 19)}
+    trees[False] = _without_latent(trees[True])
+    small = {True: _h14_flax_tree(True, 2, 21)}
+    small[False] = _without_latent(small[True])
+    sds = {m: flax_vit_mhla_to_state_dict(t) if m else
+           flax_vit_to_state_dict(t) for m, t in trees.items()}
+    del trees
+    n_params = sum(x.numel() for x in sds[True].values())
+    log("h14", f"seeded Flax-layout trees of MHLA-H/14 and ViT-H/14 through "
+               f"convert/from_jax.py in {time.perf_counter() - t0:.1f} s: "
+               f"MHLA-H/14 {n_params / 1e6:.1f}M parameters")
+    with tempfile.TemporaryDirectory() as tmp:
+        for p in H14_PATHS:
+            phase_h14_parity(p, small[p.mhla])
+            weights = os.path.join(tmp, f"{p.flag}_h14.pt")
+            if not os.path.exists(weights):
+                torch.save(sds[p.mhla], weights)
+            add(p.op, phase_h14_serve(p, weights))
+            if p.w == 7:
+                exported = phase_export(
+                    p.path, None, state_dict=sds[True],
+                    geom_flags=p.flags(), img=H14_IMG, batch=H14_BATCH,
+                    sizes=H14_SIZES, depth=H14_DEPTH, patch=H14_PATCH,
+                    name=p.label)
+                add(band, {"fwd": exported["launches"]})
+                log("h14-export", f"{p.label}: artifact {exported}")
+            torch.cuda.empty_cache()
+            add(p.op, phase_h14_train(p, sds[p.mhla]))
+    return total
+
+
 def main() -> None:
+    t0 = time.perf_counter()
+
+    def mark(done: str) -> None:
+        log("time", f"{done} done at {time.perf_counter() - t0:.1f} s")
+
     name = phase_device()
     phase_build()
+    mark("build")
     timing = phase_kernel()
+    mark("kernel")
     train_timing = phase_kernel_train()
+    mark("kernel-train")
+    # ViT-H/14: the kernels at d = 80 and W up to 129, then the
+    # three H/14 paths end to end.
+    h14_timing = phase_kernel_h14()
+    mark("kernel-h14")
+    h14 = phase_h14()
+    torch.cuda.empty_cache()
+    mark("h14")
 
     rng = np.random.default_rng(0)
     image = _images(rng, 1)
@@ -4150,50 +4724,68 @@ def main() -> None:
     for path, attn_dropout_launches in ((MHLA, True), (DENSE, False)):
         if path is DENSE:
             flash_timing = phase_kernel_flash()
+            mark("kernel-flash")
         cpu_model = path.build(
             generator=torch.Generator().manual_seed(0)).eval()
         ref_probs = phase_model(path, cpu_model, image)
         torch.cuda.empty_cache()
         launches[path] = phase_serve(path, cpu_model, image, ref_probs)
+        mark(f"{path.name} model, serve")
         exports[path] = phase_export(path, cpu_model)
         del cpu_model
         torch.cuda.empty_cache()
+        mark(f"{path.name} export")
         phase_train_parity(path)
         train_launches[path] = phase_train(path, attn_dropout_launches)
         torch.cuda.empty_cache()
+        mark(f"{path.name} train-parity, train")
         flags_launches[path] = phase_train_flags(
             path, ("band_weights",) if path is MHLA else (),
             profile=path is MHLA)
+        mark(f"{path.name} train-flags")
 
     phase_mhla_mask()
+    mark("mhla-mask")
     with tempfile.TemporaryDirectory() as tmp:
         parallel_launches = phase_parallel(tmp)
         torch.cuda.empty_cache()
+        mark("parallel")
         with _world_one(tmp):
             phase_sequence(CARD)
             pipeline_launches = phase_pipeline(tmp, CARD)
             mesh_serve_launches = phase_mesh_serve(CARD)
     torch.cuda.empty_cache()
+    mark("sequence, pipeline, mesh-serve")
 
     fused_timing = phase_kernel_fused()
+    mark("kernel-fused")
     e1_launches = phase_e1()
+    mark("e1")
     phase_e1_parity()
     fused_export_launches = phase_export_fused()
+    mark("e1-train-parity, e1-fused-export")
 
     # The fixture's directory lives until the checkpoint phases have run.
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = tmp_dir.name
     fixture = phase_pretrained_fixture(tmp)
     e3_launches = phase_e3(tmp, fixture)
+    mark("pretrained-fixture, e3")
     e5_launches = phase_e5(tmp, fixture)
+    mark("e5")
     pmhla_launches = phase_pretrained_mhla(image)
+    mark("pretrained-mhla")
     phase_slic()
     phase_sppp_model()
+    mark("slic, sppp-model")
     e6_launches = phase_sppp_experiments(tmp, fixture)
     del fixture
+    mark("e2, e4, e6")
     psppp_launches = phase_pretrained_sppp_mhla()
+    mark("pretrained-sppp-mhla")
 
     tile_timing = phase_kernel_tileband()
+    mark("kernel-tileband")
     with _environ(TILE.env):
         cpu_model = TILE.build(
             generator=torch.Generator().manual_seed(0)).eval()
@@ -4207,16 +4799,20 @@ def main() -> None:
         phase_train_parity(TILE)
         train_launches[TILE] = phase_train(TILE, False)
         torch.cuda.empty_cache()
+    mark("tile band")
 
     # Checkpoint, resume and preemption, and the cross-attention suites:
     # last, and without the profiler, whose later sessions in one process
     # record fewer and fewer launches (profile_device_ms).
     phase_e7_e8(tmp)
+    mark("e7-e8")
     preempt_launches, ckpt, resumed = phase_preempt(tmp)
     phase_serve_checkpoint(ckpt, resumed)
     del resumed
     tmp_dir.cleanup()
+    mark("preempt, serve-checkpoint")
     ckpt_launches = phase_checkpoint()
+    mark("checkpoint")
 
     log("export", "a batch of 32 from the artifact against the live path "
                   "(ms, CUDA-event medians), and the kernel launches of the "
@@ -4239,29 +4835,32 @@ def main() -> None:
         # and backwards in the train-flags phases (remat).
         ("mhla_band_fwd", band.KERNEL_SOURCE, f"{tpu}:158",
          launches[MHLA] + pmhla_launches + psppp_launches
-         + exports[MHLA]["launches"] + mesh_serve_launches, timing["bf16"]),
+         + exports[MHLA]["launches"] + mesh_serve_launches
+         + h14["band"]["fwd"], timing["bf16"]),
         # K1's training form and K2 also run in the checkpoint phase's steps,
         # inside DDP, FSDP2 and tensor parallelism (parallel phase) and in
         # each stage of the pipeline (pipeline phase).
         ("mhla_band_fwd_train", band.KERNEL_SOURCE, f"{tpu}:158",
          train_launches[MHLA]["fwd_train"] + ckpt_launches["fwd_train"]
          + flags_launches[MHLA]["fwd_train"]
-         + parallel_launches["fwd_train"] + pipeline_launches["fwd_train"],
-         train_timing["bf16"]["fwd_train"]),
+         + parallel_launches["fwd_train"] + pipeline_launches["fwd_train"]
+         + h14["band"]["fwd_train"], train_timing["bf16"]["fwd_train"]),
         ("mhla_band_bwd", band.BWD_KERNEL_SOURCE, f"{tpu}:199",
          train_launches[MHLA]["bwd"] + ckpt_launches["bwd"]
          + flags_launches[MHLA]["bwd"] + parallel_launches["bwd"]
-         + pipeline_launches["bwd"], train_timing["bf16"]["bwd"]),
+         + pipeline_launches["bwd"] + h14["band"]["bwd"],
+         train_timing["bf16"]["bwd"]),
+        # K5 also serves and trains dense ViT-H/14 (d = 80, S = 1370).
         ("flash_attention_fwd", flash.FWD_KERNEL_SOURCE, f"{tpu_flash}:73",
-         launches[DENSE] + exports[DENSE]["launches"],
+         launches[DENSE] + exports[DENSE]["launches"] + h14["flash"]["fwd"],
          flash_timing["bf16"]["fwd"]),
         ("flash_attention_fwd_train", flash.FWD_KERNEL_SOURCE,
          f"{tpu_flash}:73", train_launches[DENSE]["fwd_train"]
-         + flags_launches[DENSE]["fwd_train"],
+         + flags_launches[DENSE]["fwd_train"] + h14["flash"]["fwd_train"],
          flash_timing["bf16"]["fwd_train"]),
         ("flash_attention_bwd", flash.BWD_KERNEL_SOURCE, f"{tpu_flash}:73",
-         train_launches[DENSE]["bwd"] + flags_launches[DENSE]["bwd"],
-         flash_timing["bf16"]["bwd"]),
+         train_launches[DENSE]["bwd"] + flags_launches[DENSE]["bwd"]
+         + h14["flash"]["bwd"], flash_timing["bf16"]["bwd"]),
         # K3/K4 run in E1, E3 and E1 resumed after preemption, with the
         # fused switch on; K3's eval forward also from the ViT-B/16
         # artifact.
@@ -4291,6 +4890,9 @@ def main() -> None:
     for name_, _, _, count, _ in kernels:
         if count <= 0:
             raise AssertionError(f"{name_} was launched no time on its path")
+    log("h14", "ViT-H/14 paths' launches (included in the kernels line): "
+               f"{h14}; bf16 times at the H/14 shapes (ms: kernel, plain, "
+               f"library, bound): " + json.dumps(h14_timing))
     print(json.dumps({"kernels": [{
         "name": name_,
         "route": "cuda",

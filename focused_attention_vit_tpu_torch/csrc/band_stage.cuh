@@ -27,6 +27,10 @@
 
 namespace band_stage {
 
+// The head dims the band kernels take: whole chunks of 8 (bf16) or 4 (f32)
+// channels, up to 256.
+inline bool head_dim_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
+
 template <typename T>
 constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements a copy
 
@@ -93,17 +97,27 @@ __device__ __forceinline__ void stage(T* dst, const T* row0, int64_t s,
 
 // Writes the staged columns of [c_lo, c_hi) that lie outside the row (the
 // halo) of the C rows staged from src into dst: from column S-1 below 0 and
-// column 0 past S-1 (the forward's edge rule), or zeros.
-template <typename T, int C, int WIDTH, int NT>
+// column 0 past S-1 (the forward's edge rule), or zeros. With kFar the span
+// may lie wholly outside the row (a far slot group of a wide window);
+// without it, c_lo < S and c_hi > 0.
+template <typename T, int C, int WIDTH, int NT, bool kFar = false>
 __device__ __forceinline__ void fill_halo(T* dst, const T* src, int64_t s,
                                          int c_lo, int c_hi, bool zeros) {
-  const int left = c_lo < 0 ? -c_lo : 0;
-  const int right = c_hi > s ? c_hi - static_cast<int>(s) : 0;
+  int left, right, r_lo;  // r_lo: the first column past S-1
+  if constexpr (kFar) {
+    left = c_lo < 0 ? min(c_hi, 0) - c_lo : 0;
+    r_lo = max(c_lo, static_cast<int>(s));
+    right = c_hi > r_lo ? c_hi - r_lo : 0;
+  } else {
+    left = c_lo < 0 ? -c_lo : 0;
+    r_lo = static_cast<int>(s);
+    right = c_hi > s ? c_hi - r_lo : 0;
+  }
   const int n = left + right;
   for (int f = threadIdx.x; f < C * n; f += NT) {
     const int cc = f / n;
     const int e = f - cc * n;
-    const int x = e < left ? c_lo + e : static_cast<int>(s) + (e - left);
+    const int x = e < left ? c_lo + e : r_lo + (e - left);
     const T* row = src + cc * s;
     const T val = zeros ? T(0.f) : (e < left ? row[s - 1] : row[0]);
     dst[cc * WIDTH + x - c_lo + lead(row, c_lo)] = val;

@@ -63,6 +63,13 @@
 // query, with the other side's tile broadcast from shared memory): full f32
 // products, for parity runs at small shapes, not for speed. They keep up to
 // 4*d floats a thread and spill beyond d = 32.
+//
+// Head dims: as the forward (flash_attention_fwd.cu), every multiple of 8 up
+// to 256, run at the narrowest tile width D of 16, 32, 64, 80, 128, 192 and
+// 256 that holds it, zeros past d in every staged tile. Past D = 128 the dkv
+// kernel's two 64 x D accumulators would not fit the registers, so it runs
+// twice, once for dk and once for dv, each recomputing S^T and dP^T; the dq
+// kernel streams 32-key tiles there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,7 +95,7 @@ using flash_bwd::Dq;
 using flash_bwd::kMmaThreads;
 using flash_bwd::kOwn;
 
-template <int D>
+template <int D, int kPart>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -97,10 +104,10 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dk,
                         bf16* __restrict__ dv, int s, int tiles_per_row,
-                        float scale, float scale_log2) {
-  flash_bwd::dkv_block<D>(tq, tk, tv, tg, lse, delta, dk, dv, s,
-                          tiles_per_row, scale, scale_log2,
-                          flash_bwd::NoMask{});
+                        float scale, float scale_log2, int d) {
+  flash_bwd::dkv_block<D, flash_bwd::NoMask, kPart>(
+      tq, tk, tv, tg, lse, delta, dk, dv, s, tiles_per_row, scale, scale_log2,
+      flash_bwd::NoMask{}, d);
 }
 
 template <int D>
@@ -112,14 +119,19 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, bf16* __restrict__ dq,
                        int s, int tiles_per_row, float scale,
-                       float scale_log2) {
+                       float scale_log2, int d) {
   flash_bwd::dq_block<D>(tq, tk, tv, tg, lse, delta, dq, s, tiles_per_row,
-                         scale, scale_log2, flash_bwd::NoMask{});
+                         scale, scale_log2, flash_bwd::NoMask{}, d);
 }
 
 // --- f32: scalar FMA, a thread per row of the owned tile -------------------
 
-constexpr int kF32Tile = 32;  // rows of the staged tile
+// The loops over a row of D channels unroll whole up to D = 128; past it
+// the rows live in local memory anyway, and whole unrolled rows only
+// lengthen the build: 8 (as the forward's).
+// Rows of the staged tile: 32 KB of two f32 tiles at most.
+template <int D>
+constexpr int kF32Tile = D <= 128 ? 32 : 16;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -127,47 +139,48 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ v, const float* __restrict__ g,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int s, int tiles_per_row,
+                      float* __restrict__ dv, int d, int s, int tiles_per_row,
                       float scale) {
-  __shared__ __align__(16) float qs[kF32Tile * D];
-  __shared__ __align__(16) float gs[kF32Tile * D];
-  __shared__ float lse_s[kF32Tile];
-  __shared__ float delta_s[kF32Tile];
+  constexpr int TR = kF32Tile<D>;
+  __shared__ __align__(16) float qs[TR * D];
+  __shared__ __align__(16) float gs[TR * D];
+  __shared__ float lse_s[TR];
+  __shared__ float delta_s[TR];
 
   const int tid = threadIdx.x;
   const int64_t row = blockIdx.x / tiles_per_row;
   const int j = (blockIdx.x % tiles_per_row) * kThreads + tid;  // the key
   const bool real = j < s;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
   const int64_t vec = row * static_cast<int64_t>(s);
 
   float kr[D], vr[D], dk_acc[D], dv_acc[D];
-  load_row<D>(kr, k + base + static_cast<int64_t>(j) * D, real);
-  load_row<D>(vr, v + base + static_cast<int64_t>(j) * D, real);
-#pragma unroll
+  load_row<D>(kr, k + base + static_cast<int64_t>(j) * d, real, d);
+  load_row<D>(vr, v + base + static_cast<int64_t>(j) * d, real, d);
+#pragma unroll(D <= 128 ? D : 8)
   for (int c = 0; c < D; ++c) dk_acc[c] = dv_acc[c] = 0.f;
 
-  for (int q0 = 0; q0 < s; q0 += kF32Tile) {
-    flash::load_tile_f32<kF32Tile, D, kThreads>(qs, q + base, q0, s, tid);
-    flash::load_tile_f32<kF32Tile, D, kThreads>(gs, g + base, q0, s, tid);
-    if (tid < kF32Tile && q0 + tid < s) {
+  for (int q0 = 0; q0 < s; q0 += TR) {
+    flash::load_tile_f32<TR, D, kThreads>(qs, q + base, q0, s, tid, d);
+    flash::load_tile_f32<TR, D, kThreads>(gs, g + base, q0, s, tid, d);
+    if (tid < TR && q0 + tid < s) {
       lse_s[tid] = lse[vec + q0 + tid];
       delta_s[tid] = delta[vec + q0 + tid];
     }
     __syncthreads();
-    const int nq = min(kF32Tile, s - q0);
+    const int nq = min(TR, s - q0);
     for (int ii = 0; ii < nq; ++ii) {
       const float* qr = qs + ii * D;
       const float* gr = gs + ii * D;
       float dot = 0.f, dp = 0.f;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) {
         dot += qr[c] * kr[c];
         dp += gr[c] * vr[c];
       }
       const float p = expf(dot * scale - lse_s[ii]);
       const float ds = p * (dp - delta_s[ii]) * scale;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) {
         dv_acc[c] += p * gr[c];
         dk_acc[c] += ds * qr[c];
@@ -176,8 +189,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   if (!real) return;
-  store_row<D>(dk + base + static_cast<int64_t>(j) * D, dk_acc);
-  store_row<D>(dv + base + static_cast<int64_t>(j) * D, dv_acc);
+  store_row<D>(dk + base + static_cast<int64_t>(j) * d, dk_acc, d);
+  store_row<D>(dv + base + static_cast<int64_t>(j) * d, dv_acc, d);
 }
 
 template <int D>
@@ -186,61 +199,79 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dq,
-                     int s, int tiles_per_row, float scale) {
-  __shared__ __align__(16) float ks[kF32Tile * D];
-  __shared__ __align__(16) float vs[kF32Tile * D];
+                     int d, int s, int tiles_per_row, float scale) {
+  constexpr int TR = kF32Tile<D>;
+  __shared__ __align__(16) float ks[TR * D];
+  __shared__ __align__(16) float vs[TR * D];
 
   const int tid = threadIdx.x;
   const int64_t row = blockIdx.x / tiles_per_row;
   const int i = (blockIdx.x % tiles_per_row) * kThreads + tid;  // the query
   const bool real = i < s;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
   const int64_t vec = row * static_cast<int64_t>(s);
 
   float qr[D], gr[D], dq_acc[D];
-  load_row<D>(qr, q + base + static_cast<int64_t>(i) * D, real);
-  load_row<D>(gr, g + base + static_cast<int64_t>(i) * D, real);
-#pragma unroll
+  load_row<D>(qr, q + base + static_cast<int64_t>(i) * d, real, d);
+  load_row<D>(gr, g + base + static_cast<int64_t>(i) * d, real, d);
+#pragma unroll(D <= 128 ? D : 8)
   for (int c = 0; c < D; ++c) dq_acc[c] = 0.f;
   const float lse_i = real ? lse[vec + i] : 0.f;
   const float delta_i = real ? delta[vec + i] : 0.f;
 
-  for (int key0 = 0; key0 < s; key0 += kF32Tile) {
-    flash::load_tile_f32<kF32Tile, D, kThreads>(ks, k + base, key0, s, tid);
-    flash::load_tile_f32<kF32Tile, D, kThreads>(vs, v + base, key0, s, tid);
+  for (int key0 = 0; key0 < s; key0 += TR) {
+    flash::load_tile_f32<TR, D, kThreads>(ks, k + base, key0, s, tid, d);
+    flash::load_tile_f32<TR, D, kThreads>(vs, v + base, key0, s, tid, d);
     __syncthreads();
-    const int nk = min(kF32Tile, s - key0);
+    const int nk = min(TR, s - key0);
     for (int jj = 0; jj < nk; ++jj) {
       const float* kr = ks + jj * D;
       const float* vr = vs + jj * D;
       float dot = 0.f, dp = 0.f;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) {
         dot += qr[c] * kr[c];
         dp += gr[c] * vr[c];
       }
       const float p = expf(dot * scale - lse_i);
       const float ds = p * (dp - delta_i) * scale;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) dq_acc[c] += ds * kr[c];
     }
     __syncthreads();
   }
   if (!real) return;
-  store_row<D>(dq + base + static_cast<int64_t>(i) * D, dq_acc);
+  store_row<D>(dq + base + static_cast<int64_t>(i) * d, dq_acc, d);
 }
 
 struct Args {
   const void *q, *k, *v, *out, *lse, *g;
   void *dq, *dk, *dv, *delta;
   int64_t rows;
-  int s;
+  int s, d;
   float scale;
   cudaStream_t stream;
 };
 
+template <int D, int kPart>
+cudaError_t launch_dkv(const Args& a, const CUtensorMap& q_str,
+                       const CUtensorMap& k_own, const CUtensorMap& v_own,
+                       const CUtensorMap& g_str, dim3 grid, int tiles) {
+  auto dkv = flash_bwd_dkv_wgmma<D, kPart>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  dkv<<<grid, kMmaThreads, Dkv<D>::kSmem, a.stream>>>(
+      q_str, k_own, v_own, g_str, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.s, tiles, a.scale, a.scale * flash::kLog2e,
+      a.d);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_wgmma(const Args& a) {
+  constexpr int kCols = hp::Span<D>::kCols;
   const int tiles = (a.s + kOwn - 1) / kOwn;
   const int64_t blocks = a.rows * tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
@@ -258,26 +289,26 @@ cudaError_t launch_wgmma(const Args& a) {
                {&k_str, a.k, Dq<D>::kBN},   {&v_str, a.v, Dq<D>::kBN}};
   for (const auto& m : maps) {
     if (err == cudaSuccess) {
-      err = hp::tensor_map_3d(m.map, m.base, a.rows, a.s, D, m.box);
+      err = hp::tensor_map_3d(m.map, m.base, a.rows, a.s, a.d, m.box, kCols);
     }
   }
   if (err != cudaSuccess) return err;
-  err = flash::launch_delta<bf16, D, flash::for_flash_bwd>(
-      a.out, a.g, a.delta, a.rows * a.s, a.stream);
+  err = flash::launch_delta<bf16, flash::for_flash_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
   if (err != cudaSuccess) return err;
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
-  const float scale_log2 = a.scale * flash::kLog2e;
   const dim3 grid(static_cast<unsigned>(blocks));
 
-  auto dkv = flash_bwd_dkv_wgmma<D>;
-  err = cudaFuncSetAttribute(
-      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::kSmem);
-  if (err != cudaSuccess) return err;
-  dkv<<<grid, kMmaThreads, Dkv<D>::kSmem, a.stream>>>(
-      q_str, k_own, v_own, g_str, lse, delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.s, tiles, a.scale, scale_log2);
-  err = cudaGetLastError();
+  if constexpr (D <= 128) {
+    err = launch_dkv<D, flash_bwd::kBoth>(a, q_str, k_own, v_own, g_str, grid,
+                                          tiles);
+  } else {
+    err = launch_dkv<D, flash_bwd::kDkOnly>(a, q_str, k_own, v_own, g_str,
+                                            grid, tiles);
+    if (err == cudaSuccess) {
+      err = launch_dkv<D, flash_bwd::kDvOnly>(a, q_str, k_own, v_own, g_str,
+                                              grid, tiles);
+    }
+  }
   if (err != cudaSuccess) return err;
 
   auto dq = flash_bwd_dq_wgmma<D>;
@@ -285,8 +316,9 @@ cudaError_t launch_wgmma(const Args& a) {
       dq, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<D>::kSmem);
   if (err != cudaSuccess) return err;
   dq<<<grid, kMmaThreads, Dq<D>::kSmem, a.stream>>>(
-      q_own, k_str, v_str, g_own, lse, delta, static_cast<bf16*>(a.dq), a.s,
-      tiles, a.scale, scale_log2);
+      q_own, k_str, v_str, g_own, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.s,
+      tiles, a.scale, a.scale * flash::kLog2e, a.d);
   return cudaGetLastError();
 }
 
@@ -299,8 +331,8 @@ cudaError_t launch_d(const Args& a, bool is_bf16) {
   const dim3 grid(static_cast<unsigned>(blocks));
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err = flash::launch_delta<float, D, flash::for_flash_bwd>(
-      a.out, a.g, a.delta, a.rows * a.s, a.stream);
+  cudaError_t err = flash::launch_delta<float, flash::for_flash_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
   if (err != cudaSuccess) return err;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
@@ -308,11 +340,11 @@ cudaError_t launch_d(const Args& a, bool is_bf16) {
   const float* g = static_cast<const float*>(a.g);
   flash_bwd_dkv_f32<D><<<grid, kThreads, 0, a.stream>>>(
       q, k, v, g, lse, delta, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.s, tiles, a.scale);
+      static_cast<float*>(a.dv), a.d, a.s, tiles, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_f32<D><<<grid, kThreads, 0, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<float*>(a.dq), a.s, tiles,
+      q, k, v, g, lse, delta, static_cast<float*>(a.dq), a.d, a.s, tiles,
       a.scale);
   return cudaGetLastError();
 }
@@ -322,7 +354,8 @@ cudaError_t launch_d(const Args& a, bool is_bf16) {
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // first launch that failed (0 on success). q, k, v, out, g and dq, dk, dv
 // are device pointers to contiguous [rows, s, d] tensors of one dtype
-// (is_bf16 = 1 for bf16, 0 for f32), 16-byte aligned; `lse` is the
+// (is_bf16 = 1 for bf16, 0 for f32; d a multiple of 8 in [8, 256]),
+// 16-byte aligned; `lse` is the
 // forward's f32 [rows, s]; `delta` is f32 [rows, s] scratch that the first
 // kernel fills. `stream` is the caller's cudaStream_t. The kernels allocate
 // nothing and do not synchronise.
@@ -335,10 +368,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (rows <= 0 || s < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{q,  k,  v,     out,  lse, g,     dq,
-               dk, dv, delta, rows, s,   scale, static_cast<cudaStream_t>(stream)};
+  const Args a{q,    k,    v, out, lse,   g,
+               dq,   dk,   dv, delta, rows, s,
+               d,    scale, static_cast<cudaStream_t>(stream)};
   const bool bf = is_bf16 != 0;
-  switch (d) {
+  switch (flash::tile_width(d)) {
     case 16:
       err = launch_d<16>(a, bf);
       break;
@@ -348,8 +382,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     case 64:
       err = launch_d<64>(a, bf);
       break;
+    case 80:
+      err = launch_d<80>(a, bf);
+      break;
     case 128:
       err = launch_d<128>(a, bf);
+      break;
+    case 192:
+      err = launch_d<192>(a, bf);
+      break;
+    case 256:
+      err = launch_d<256>(a, bf);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -361,15 +404,21 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 // (kernel = 1) kernel at head dim d is launched with (0 for a head dim it
 // does not take).
 extern "C" int flash_attention_bwd_smem(int d, int kernel) {
-  switch (d) {
+  switch (flash::tile_width(d)) {
     case 16:
       return kernel == 0 ? Dkv<16>::kSmem : Dq<16>::kSmem;
     case 32:
       return kernel == 0 ? Dkv<32>::kSmem : Dq<32>::kSmem;
     case 64:
       return kernel == 0 ? Dkv<64>::kSmem : Dq<64>::kSmem;
+    case 80:
+      return kernel == 0 ? Dkv<80>::kSmem : Dq<80>::kSmem;
     case 128:
       return kernel == 0 ? Dkv<128>::kSmem : Dq<128>::kSmem;
+    case 192:
+      return kernel == 0 ? Dkv<192>::kSmem : Dq<192>::kSmem;
+    case 256:
+      return kernel == 0 ? Dkv<256>::kSmem : Dq<256>::kSmem;
     default:
       return 0;
   }

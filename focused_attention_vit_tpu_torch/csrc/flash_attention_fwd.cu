@@ -54,6 +54,17 @@
 // tiles broadcast from shared memory): full f32 products, which TF32 tensor
 // cores would not give, so it agrees with the plain version to 1e-5. It is
 // meant for small shapes and parity runs, not for speed.
+//
+// Head dims. The kernels take every d that is a multiple of 8 up to 256 (the
+// TMA row stride, d * 2 bytes, must be a multiple of 16 bytes; JAX's fused
+// kernel's rule). They are built for a few tile widths D (16, 32, 64, 80,
+// 128, 192, 256) and a call takes the narrowest D >= d: the tensor maps' box
+// reaches past column d and TMA zero-fills it, so Q K^T sums zeros past d
+// (wgmma's k is 16 columns) and P V's columns past d are never stored. The
+// scale is the caller's d^-1/2. D = 80 (ViT-H/14's head dim) is stored in
+// 16-column, 32-byte-swizzled blocks and its P V runs as products of 64 and
+// 16 columns; D = 192 and 256 in 64-column blocks with products of 128 and
+// 64 or 128, and key tiles of 64 and 32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,21 +91,25 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     bf16* __restrict__ out, float* __restrict__ lse, int s,
-                    int tiles_per_row, float scale_log2) {
+                    int tiles_per_row, float scale_log2, int d) {
   flash_fwd::block<D, kLse>(tq, tk, tv, out, lse, s, tiles_per_row,
-                            scale_log2, flash_fwd::NoMask{});
+                            scale_log2, flash_fwd::NoMask{}, d);
 }
 
 constexpr int kF32Threads = 128;  // queries a block, one a thread
+// The f32 kernels unroll their loops over a row of D channels whole up to
+// D = 128; past it the rows live in local memory anyway (they pass the
+// register file), and whole unrolled rows only lengthen the build: 8.
 
 template <int D, bool kLse>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  float* __restrict__ lse, int s, int tiles_per_row,
+                  float* __restrict__ lse, int d, int s, int tiles_per_row,
                   float scale) {
-  constexpr int BN = D <= 64 ? 64 : 32;  // 32 KB of K and V tiles at most
-  constexpr int kChunk = 8;              // keys per softmax update
+  // 32 KB of K and V tiles at most.
+  constexpr int BN = D <= 64 ? 64 : D <= 128 ? 32 : 16;
+  constexpr int kChunk = 8;  // keys per softmax update
   __shared__ __align__(16) float ks[BN * D];
   __shared__ __align__(16) float vs[BN * D];
 
@@ -102,24 +117,17 @@ __global__ void __launch_bounds__(kF32Threads)
   const int64_t row = blockIdx.x / tiles_per_row;
   const int i = (blockIdx.x % tiles_per_row) * kF32Threads + tid;
   const bool valid = i < s;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
 
   float qr[D], acc[D];
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (valid) {
-      val = *reinterpret_cast<const float4*>(
-          q + base + static_cast<int64_t>(i) * D + c);
-    }
-    qr[c] = val.x, qr[c + 1] = val.y, qr[c + 2] = val.z, qr[c + 3] = val.w;
-    acc[c] = acc[c + 1] = acc[c + 2] = acc[c + 3] = 0.f;
-  }
+  flash::load_row<D>(qr, q + base + static_cast<int64_t>(i) * d, valid, d);
+#pragma unroll(D <= 128 ? D : 8)
+  for (int c = 0; c < D; ++c) acc[c] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   for (int key0 = 0; key0 < s; key0 += BN) {
-    flash::load_tile_f32<BN, D, kF32Threads>(ks, k + base, key0, s, tid);
-    flash::load_tile_f32<BN, D, kF32Threads>(vs, v + base, key0, s, tid);
+    flash::load_tile_f32<BN, D, kF32Threads>(ks, k + base, key0, s, tid, d);
+    flash::load_tile_f32<BN, D, kF32Threads>(vs, v + base, key0, s, tid, d);
     __syncthreads();
     const int nk = min(BN, s - key0);
     for (int j0 = 0; j0 < nk; j0 += kChunk) {
@@ -129,7 +137,7 @@ __global__ void __launch_bounds__(kF32Threads)
       for (int jj = 0; jj < kChunk; ++jj) {
         const float* kr = ks + (j0 + jj) * D;
         float dot = 0.f;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
         for (int c = 0; c < D; ++c) dot += qr[c] * kr[c];
         p[jj] = j0 + jj < nk ? dot * scale : -INFINITY;
         mx = fmaxf(mx, p[jj]);
@@ -145,7 +153,7 @@ __global__ void __launch_bounds__(kF32Threads)
         psum += p[jj];
       }
       l = l * alpha + psum;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) {
         float a = acc[c] * alpha;
 #pragma unroll
@@ -158,27 +166,29 @@ __global__ void __launch_bounds__(kF32Threads)
 
   if (!valid) return;
   const float inv = 1.f / l;
-  float* orow = out + base + static_cast<int64_t>(i) * D;
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    *reinterpret_cast<float4*>(orow + c) = make_float4(
-        acc[c] * inv, acc[c + 1] * inv, acc[c + 2] * inv, acc[c + 3] * inv);
-  }
+#pragma unroll(D <= 128 ? D : 8)
+  for (int c = 0; c < D; ++c) acc[c] *= inv;
+  flash::store_row<D>(out + base + static_cast<int64_t>(i) * d, acc, d);
   if (kLse) lse[row * s + i] = m + logf(l);
 }
 
 template <int D, bool kLse>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, float* lse, int64_t rows, int s,
+                         void* out, float* lse, int64_t rows, int s, int d,
                          float scale, cudaStream_t stream) {
   using C = Fwd<D>;
+  constexpr int kCols = hp::Span<D>::kCols;
   const int tiles = (s + kBM - 1) / kBM;
   const int64_t blocks = rows * tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = hp::tensor_map_3d(&tq, q, rows, s, D, kBM);
-  if (err == cudaSuccess) err = hp::tensor_map_3d(&tk, k, rows, s, D, C::kBN);
-  if (err == cudaSuccess) err = hp::tensor_map_3d(&tv, v, rows, s, D, C::kBN);
+  cudaError_t err = hp::tensor_map_3d(&tq, q, rows, s, d, kBM, kCols);
+  if (err == cudaSuccess) {
+    err = hp::tensor_map_3d(&tk, k, rows, s, d, C::kBN, kCols);
+  }
+  if (err == cudaSuccess) {
+    err = hp::tensor_map_3d(&tv, v, rows, s, d, C::kBN, kCols);
+  }
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_wgmma<D, kLse>;
   err = cudaFuncSetAttribute(
@@ -186,19 +196,19 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), kThreads, C::kSmem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), lse, s, tiles,
-      scale * flash::kLog2e);
+      scale * flash::kLog2e, d);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     float* lse, int64_t rows, int s, bool is_bf16,
+                     float* lse, int64_t rows, int s, int d, bool is_bf16,
                      float scale, cudaStream_t stream) {
   if (is_bf16) {
     return lse != nullptr
-               ? launch_wgmma<D, true>(q, k, v, out, lse, rows, s, scale,
+               ? launch_wgmma<D, true>(q, k, v, out, lse, rows, s, d, scale,
                                        stream)
-               : launch_wgmma<D, false>(q, k, v, out, lse, rows, s, scale,
+               : launch_wgmma<D, false>(q, k, v, out, lse, rows, s, d, scale,
                                         stream);
   }
   const int tiles = (s + kF32Threads - 1) / kF32Threads;
@@ -211,10 +221,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
   float* op = static_cast<float*>(out);
   if (lse != nullptr) {
     flash_fwd_f32<D, true><<<grid, kF32Threads, 0, stream>>>(
-        qp, kp, vp, op, lse, s, tiles, scale);
+        qp, kp, vp, op, lse, d, s, tiles, scale);
   } else {
     flash_fwd_f32<D, false><<<grid, kF32Threads, 0, stream>>>(
-        qp, kp, vp, op, lse, s, tiles, scale);
+        qp, kp, vp, op, lse, d, s, tiles, scale);
   }
   return cudaGetLastError();
 }
@@ -223,11 +233,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // launch (0 on success). q, k, v and out are device pointers to contiguous
-// [rows, s, d] tensors of one dtype (is_bf16 = 1 for bf16, 0 for f32),
-// 16-byte aligned; `lse` is a contiguous f32 [rows, s] tensor to receive
-// the log-sum-exp of each query's scaled logits, or null for the eval
-// kernel. `stream` is the caller's cudaStream_t. The kernel allocates
-// nothing and does not synchronise.
+// [rows, s, d] tensors of one dtype (is_bf16 = 1 for bf16, 0 for f32; d a
+// multiple of 8 in [8, 256]), 16-byte aligned; `lse` is a contiguous f32
+// [rows, s] tensor to receive the log-sum-exp of each query's scaled
+// logits, or null for the eval kernel. `stream` is the caller's
+// cudaStream_t. The kernel allocates nothing and does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    long long rows, int s, int d, int is_bf16,
@@ -238,18 +248,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lp = static_cast<float*>(lse);
   const bool bf = is_bf16 != 0;
-  switch (d) {
+  switch (flash::tile_width(d)) {
     case 16:
-      err = launch_d<16>(q, k, v, out, lp, rows, s, bf, scale, st);
+      err = launch_d<16>(q, k, v, out, lp, rows, s, d, bf, scale, st);
       break;
     case 32:
-      err = launch_d<32>(q, k, v, out, lp, rows, s, bf, scale, st);
+      err = launch_d<32>(q, k, v, out, lp, rows, s, d, bf, scale, st);
       break;
     case 64:
-      err = launch_d<64>(q, k, v, out, lp, rows, s, bf, scale, st);
+      err = launch_d<64>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      break;
+    case 80:
+      err = launch_d<80>(q, k, v, out, lp, rows, s, d, bf, scale, st);
       break;
     case 128:
-      err = launch_d<128>(q, k, v, out, lp, rows, s, bf, scale, st);
+      err = launch_d<128>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      break;
+    case 192:
+      err = launch_d<192>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      break;
+    case 256:
+      err = launch_d<256>(q, k, v, out, lp, rows, s, d, bf, scale, st);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -260,15 +279,21 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // The dynamic shared memory, in bytes, that the bf16 kernel at head dim d
 // is launched with (0 for a head dim it does not take).
 extern "C" int flash_attention_fwd_smem(int d) {
-  switch (d) {
+  switch (flash::tile_width(d)) {
     case 16:
       return Fwd<16>::kSmem;
     case 32:
       return Fwd<32>::kSmem;
     case 64:
       return Fwd<64>::kSmem;
+    case 80:
+      return Fwd<80>::kSmem;
     case 128:
       return Fwd<128>::kSmem;
+    case 192:
+      return Fwd<192>::kSmem;
+    case 256:
+      return Fwd<256>::kSmem;
     default:
       return 0;
   }

@@ -35,17 +35,19 @@ __device__ __forceinline__ int acc_row(int tid) {
   return ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2);
 }
 
-// Rows r and r + 8 of a 64 x D accumulator, rounded, to a [s, D] matrix.
+// Rows r and r + 8 of a 64 x D accumulator, rounded, to a [s, d] matrix
+// (d <= D: the columns past d, of a padded tile, are not written).
 template <int D>
 __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 2],
-                                          int r0, int s, int wq) {
+                                          int r0, int s, int wq, int d = D) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = r0 + 8 * h;
     if (i >= s) continue;
-    bf16* row = dst + static_cast<int64_t>(i) * D;
+    bf16* row = dst + static_cast<int64_t>(i) * d;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= d) break;
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * wq) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
@@ -92,6 +94,8 @@ struct NoMask {
   }
 };
 
+// D is the tile width: the head dim, or the width it is padded to
+// (flash_attention_bwd.cu).
 template <int D>
 struct Dkv {
   static constexpr int kBQ = D <= 64 ? 64 : 32;  // queries a staged tile
@@ -100,16 +104,24 @@ struct Dkv {
   static constexpr int kSmem = 2 * kOwnBytes + 2 * kStages * kTileBytes + 1024;
 };
 
+// Which of dk and dv a dkv block sums: both, or (past D = 128, where two
+// 64 x D f32 accumulators leave no registers for the tiles) one of them, in
+// a launch of its own.
+enum Part { kBoth = 0, kDkOnly = 1, kDvOnly = 2 };
+
 // The dkv kernel's block (a kernel of kMmaThreads threads calls it with its
 // own __grid_constant__ tensor maps). `mask.dkv` turns a query tile's S^T
-// and dP^T into p^T (or z^T, the dropped weights) and dS^T in place.
-template <int D, class Mask>
+// and dP^T into p^T (or z^T, the dropped weights) and dS^T in place. `d` is
+// the head dim, the row stride of dk and dv (D, or less for padded tiles).
+template <int D, class Mask, int kPart = kBoth>
 __device__ __forceinline__ void dkv_block(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     const CUtensorMap& tg, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int s, int tiles_per_row, float scale,
-    float scale_log2, const Mask& mask) {
+    float scale_log2, const Mask& mask, int d = D) {
+  constexpr bool kDk = kPart != kDvOnly;
+  constexpr bool kDv = kPart != kDkOnly;
   using C = Dkv<D>;
   constexpr int BQ = C::kBQ;
   constexpr int ST = kStages;
@@ -176,9 +188,12 @@ __device__ __forceinline__ void dkv_block(
     const int wg = warp >> 2;
     const int wq = lane & 3;
 
-    float dk_acc[D / 2], dv_acc[D / 2];
+    // A part that sums one of them keeps 8 idle registers for the other.
+    float dk_acc[kDk ? D / 2 : 8], dv_acc[kDv ? D / 2 : 8];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < (kDk ? D / 2 : 8); ++i) dk_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kDv ? D / 2 : 8); ++i) dv_acc[i] = 0.f;
     float st_acc[BQ / 2], dp_acc[BQ / 2];  // S^T and dP^T of one query tile
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // p^T, ds^T as A operands
 
@@ -216,10 +231,12 @@ __device__ __forceinline__ void dkv_block(
       hp::wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc) {
-        hp::Wgmma<D>::rs(dv_acc, pa[kc],
-                                     hp::desc_mn<D, BQ>(qt + BQ * D, kc), 1);
-        hp::Wgmma<D>::rs(dk_acc, da[kc],
-                                     hp::desc_mn<D, BQ>(qt, kc), 1);
+        if constexpr (kDv) {
+          hp::rs_cols<D, BQ>(dv_acc, pa[kc], qt + BQ * D, kc);
+        }
+        if constexpr (kDk) {
+          hp::rs_cols<D, BQ>(dk_acc, da[kc], qt, kc);
+        }
       }
       hp::wgmma_commit();
       hp::fence_regs(dk_acc);
@@ -259,27 +276,30 @@ __device__ __forceinline__ void dkv_block(
     }
 
     const int r0 = key0 + wg * 64 + acc_row(tid);
-    store_acc<D>(dk + vec * D, dk_acc, r0, s, wq);
-    store_acc<D>(dv + vec * D, dv_acc, r0, s, wq);
+    if constexpr (kDk) store_acc<D>(dk + vec * d, dk_acc, r0, s, wq, d);
+    if constexpr (kDv) store_acc<D>(dv + vec * d, dv_acc, r0, s, wq, d);
   }
 }
 
 template <int D>
 struct Dq {
-  static constexpr int kBN = 64;                  // keys a staged tile
+  // Keys a staged tile: 32 past D = 128, where the ring of 64 would not
+  // fit shared memory beside the Q and g tiles.
+  static constexpr int kBN = D <= 128 ? 64 : 32;
   static constexpr int kOwnBytes = kOwn * D * 2;  // the Q or the g tile
   static constexpr int kTileBytes = kBN * D * 2;  // one K or V tile
   static constexpr int kSmem = 2 * kOwnBytes + 2 * kStages * kTileBytes + 1024;
 };
 
 // The dq kernel's block. `mask.dq` turns a key tile's S and dP into dS in
-// place (keys past S get p = 0).
+// place (keys past S get p = 0). `d` is the head dim, dq's row stride.
 template <int D, class Mask>
 __device__ __forceinline__ void dq_block(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     const CUtensorMap& tg, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dq, int s,
-    int tiles_per_row, float scale, float scale_log2, const Mask& mask) {
+    int tiles_per_row, float scale, float scale_log2, const Mask& mask,
+    int d = D) {
   using C = Dq<D>;
   constexpr int BN = C::kBN;
   constexpr int ST = kStages;
@@ -381,8 +401,7 @@ __device__ __forceinline__ void dq_block(
       hp::wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BN / 16; ++kc) {
-        hp::Wgmma<D>::rs(dq_acc, da[kc],
-                                     hp::desc_mn<D, BN>(kt, kc), 1);
+        hp::rs_cols<D, BN>(dq_acc, da[kc], kt, kc);
       }
       hp::wgmma_commit();
       hp::fence_regs(dq_acc);
@@ -433,7 +452,7 @@ __device__ __forceinline__ void dq_block(
     hp::wgmma_wait<0>();
     hp::fence_regs(dq_acc);
     hp::fence_regs(da);
-    store_acc<D>(dq + vec * D, dq_acc, r0, s, wq);
+    store_acc<D>(dq + vec * d, dq_acc, r0, s, wq, d);
   }
 }
 

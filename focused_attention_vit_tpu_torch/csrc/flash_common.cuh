@@ -62,20 +62,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Copy rows [row0, row0 + ROWS) of a contiguous [s, D] float matrix into
-// an unpadded float tile, 16 bytes a thread and step; rows at or past s
-// become zeros.
+// Copy rows [row0, row0 + ROWS) of a contiguous [s, d] float matrix into
+// an unpadded [ROWS, D] float tile (d <= D, a multiple of 4), 16 bytes a
+// thread and step; rows at or past s and columns at or past d become zeros.
 template <int ROWS, int D, int THREADS>
 __device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
-                                              int row0, int s, int tid) {
+                                              int row0, int s, int tid,
+                                              int d = D) {
   constexpr int kVecs = D / 4;
   for (int idx = tid; idx < ROWS * kVecs; idx += THREADS) {
     const int r = idx / kVecs;
     const int c = (idx % kVecs) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < s) {
+    if (row0 + r < s && c < d) {
       val = *reinterpret_cast<const float4*>(
-          src + static_cast<int64_t>(row0 + r) * D + c);
+          src + static_cast<int64_t>(row0 + r) * d + c);
     }
     *reinterpret_cast<float4*>(tile + r * D + c) = val;
   }
@@ -86,27 +87,27 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// delta_i = sum_c g_ic out_ic for every query row of [n, D] `out` and `g`:
-// the first kernel of a backward, a thread per row. `Caller` is one of the
-// tags below and changes nothing but the kernel's name, so that a profile
-// books the time under the op that launched it.
+// delta_i = sum_c g_ic out_ic for every query row of [n, d] `out` and `g`
+// (d a multiple of 8): the first kernel of a backward, a thread per row.
+// `Caller` is one of the tags below and changes nothing but the kernel's
+// name, so that a profile books the time under the op that launched it.
 constexpr int kDeltaThreads = 128;
 struct for_flash_bwd {};
 struct for_fused_bwd {};
 
-template <typename T, int D, typename Caller>
+template <typename T, typename Caller>
 __global__ void __launch_bounds__(kDeltaThreads)
     flash_delta(const T* __restrict__ out, const T* __restrict__ g,
-                float* __restrict__ delta, int64_t n) {
+                float* __restrict__ delta, int64_t n, int d) {
   const int64_t i =
       blockIdx.x * static_cast<int64_t>(kDeltaThreads) + threadIdx.x;
   if (i >= n) return;
   constexpr int kVec = 16 / sizeof(T);  // elements in 16 bytes
-  const T* orow = out + i * D;
-  const T* grow = g + i * D;
+  const T* orow = out + i * d;
+  const T* grow = g + i * d;
   float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += kVec) {
+#pragma unroll 4
+  for (int c = 0; c < d; c += kVec) {
     const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
     const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
     const T* oe = reinterpret_cast<const T*>(&ov);
@@ -117,16 +118,27 @@ __global__ void __launch_bounds__(kDeltaThreads)
   delta[i] = sum;
 }
 
-template <typename T, int D, typename Caller>
+template <typename T, typename Caller>
 cudaError_t launch_delta(const void* out, const void* g, void* delta,
-                         int64_t n, cudaStream_t stream) {
+                         int64_t n, int d, cudaStream_t stream) {
   const int64_t blocks = (n + kDeltaThreads - 1) / kDeltaThreads;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  flash_delta<T, D, Caller>
+  flash_delta<T, Caller>
       <<<static_cast<unsigned>(blocks), kDeltaThreads, 0, stream>>>(
           static_cast<const T*>(out), static_cast<const T*>(g),
-          static_cast<float*>(delta), n);
+          static_cast<float*>(delta), n, d);
   return cudaGetLastError();
+}
+
+// The tile width a dense attention call at head dim d runs at: the
+// narrowest of the widths the flash kernels are built for that holds d
+// (0: d is not a multiple of 8 in [8, 256]). The columns past d are zeros.
+inline int tile_width(int d) {
+  if (d < 8 || d > 256 || d % 8 != 0) return 0;
+  for (int w : {16, 32, 64, 80, 128, 192, 256}) {
+    if (d <= w) return w;
+  }
+  return 0;
 }
 
 template <int N>
@@ -138,22 +150,25 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
   }
 }
 
-// One row of D floats into registers (zeros when `real` is false), and back.
+// One row of d floats (d <= D, a multiple of 4) into D registers (zeros
+// past d, and everywhere when `real` is false), and back.
 template <int D>
 __device__ __forceinline__ void load_row(float (&x)[D], const float* src,
-                                         bool real) {
+                                         bool real, int d = D) {
 #pragma unroll
   for (int c = 0; c < D; c += 4) {
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (real) val = *reinterpret_cast<const float4*>(src + c);
+    if (real && c < d) val = *reinterpret_cast<const float4*>(src + c);
     x[c] = val.x, x[c + 1] = val.y, x[c + 2] = val.z, x[c + 3] = val.w;
   }
 }
 
 template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&x)[D]) {
+__device__ __forceinline__ void store_row(float* dst, const float (&x)[D],
+                                          int d = D) {
 #pragma unroll
   for (int c = 0; c < D; c += 4) {
+    if (c >= d) break;
     *reinterpret_cast<float4*>(dst + c) =
         make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]);
   }

@@ -26,11 +26,15 @@ constexpr int kConsumers = 256;            // two warpgroups of 64 queries
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kBM = 128;                   // queries a block
 
+// D is the tile width: the head dim, or the width it is padded to
+// (flash_attention_fwd.cu).
 template <int D>
 struct Fwd {
-  // 128-key tiles keep the logits in 64 registers a thread; at d = 128 the
-  // output accumulator takes 64 more, so the tiles are 64 keys.
-  static constexpr int kBN = D <= 64 ? 128 : 64;
+  // 128-key tiles keep the logits in 64 registers a thread; from D = 128
+  // the output accumulator takes 64 registers or more, so the tiles are 64
+  // keys, and 32 at D = 256 (128 registers of accumulator; the ring then
+  // fits shared memory).
+  static constexpr int kBN = D <= 80 ? 128 : D <= 192 ? 64 : 32;
   static constexpr int kStages = 3;
   static constexpr int kQBytes = kBM * D * 2;
   static constexpr int kTileBytes = kBN * D * 2;  // one K or V tile
@@ -47,10 +51,12 @@ struct NoMask {
 };
 
 // The block's work: a kernel of kThreads threads calls it with its own
-// __grid_constant__ tensor maps. `mask.apply(sc, row, i, key0)` may zero
-// weights of a key tile after they entered the sum l (rows i and i + 8 of
-// this thread, keys from key0, the accumulator layout of hopper_common.cuh);
-// the output is scaled by mask.inv_keep / l.
+// __grid_constant__ tensor maps; `d` is the head dim, the row stride of
+// `out` (D, or less when the tiles are padded: the columns past d are
+// zeros in Q, K and V, and are not written). `mask.apply(sc, row, i,
+// key0)` may zero weights of a key tile after they entered the sum l (rows
+// i and i + 8 of this thread, keys from key0, the accumulator layout of
+// hopper_common.cuh); the output is scaled by mask.inv_keep / l.
 template <int D, bool kLse, class Mask>
 __device__ __forceinline__ void block(const CUtensorMap& tq,
                                       const CUtensorMap& tk,
@@ -58,7 +64,7 @@ __device__ __forceinline__ void block(const CUtensorMap& tq,
                                       bf16* __restrict__ out,
                                       float* __restrict__ lse, int s,
                                       int tiles_per_row, float scale_log2,
-                                      const Mask& mask) {
+                                      const Mask& mask, int d = D) {
   using C = Fwd<D>;
   constexpr int BN = C::kBN;
   constexpr int ST = C::kStages;
@@ -142,7 +148,7 @@ __device__ __forceinline__ void block(const CUtensorMap& tq,
       hp::wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BN / 16; ++kc) {
-        hp::Wgmma<D>::rs(o, pa[kc], hp::desc_mn<D, BN>(vs, kc), 1);
+        hp::rs_cols<D, BN>(o, pa[kc], vs, kc);
       }
       hp::wgmma_commit();
       hp::fence_regs(o);
@@ -249,9 +255,10 @@ __device__ __forceinline__ void block(const CUtensorMap& tq,
       const int i = q0 + r + 8 * h;
       if (i >= s) continue;
       const float inv = mask.inv_keep / l[h];
-      bf16* orow = out + (static_cast<int64_t>(row) * s + i) * D;
+      bf16* orow = out + (static_cast<int64_t>(row) * s + i) * d;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
+        if (8 * j >= d) break;
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * wq) =
             __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
                                   o[4 * j + 2 * h + 1] * inv);

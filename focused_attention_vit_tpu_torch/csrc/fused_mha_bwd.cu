@@ -719,8 +719,8 @@ cudaError_t launch_f32(const Args& a) {
   const dim3 grid(static_cast<unsigned>(blocks));
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err = flash::launch_delta<float, D, flash::for_fused_bwd>(
-      a.out, a.g, a.delta, a.rows * a.s, a.stream);
+  cudaError_t err = flash::launch_delta<float, flash::for_fused_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, D, a.stream);
   if (err != cudaSuccess) return err;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
@@ -765,8 +765,8 @@ cudaError_t launch_tiled(const Args& a, bool drop_on) {
     }
   }
   if (err != cudaSuccess) return err;
-  err = flash::launch_delta<bf16, D, flash::for_fused_bwd>(
-      a.out, a.g, a.delta, a.rows * a.s, a.stream);
+  err = flash::launch_delta<bf16, flash::for_fused_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, D, a.stream);
   if (err != cudaSuccess) return err;
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);

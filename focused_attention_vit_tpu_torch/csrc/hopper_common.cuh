@@ -5,10 +5,11 @@
 // barriers, TMA tile loads, and the host-side encoding of the TMA tensor
 // maps.
 //
-// Tiles. Every bf16 tile of R rows and D columns that a kernel stages is
-// brought in by TMA as ceil(D / 64) column blocks of R rows x min(D, 64)
-// columns, one after the other, each row of a block min(D, 64) * 2 bytes
-// (32, 64 or 128) and swizzled by that span: the hardware XORs the 16-byte
+// Tiles. Every bf16 tile of R rows and D columns (D a multiple of 16) that a
+// kernel stages is brought in by TMA as D / span column blocks of R rows x
+// span columns, one after the other, span the widest of 64, 32 and 16 that
+// divides D (Span<D>), each row of a block span * 2 bytes (128, 64 or 32)
+// and swizzled by that span: the hardware XORs the 16-byte
 // chunk index of an address with its row bits, so that 8 consecutive rows
 // read the same column from 8 different bank groups. wgmma reads the same
 // bytes through a descriptor of the same swizzle mode:
@@ -21,7 +22,10 @@
 //     SBO = 8 * span, column blocks at LBO = R * span; a step of 16 rows
 //     moves the start address by 16 * span.
 // Tile bases are 1024-byte aligned, so the swizzle pattern that TMA writes
-// and the one wgmma reads start at the same row.
+// and the one wgmma reads start at the same row. A tile may be wider than
+// the tensor (a head dim padded to the next width the kernels are built
+// for): the map's box reaches past the last column, and TMA fills what lies
+// outside the tensor with zeros, which add nothing to a product.
 //
 // Accumulator layout of wgmma.m64nNk16 (f32), thread t of the warpgroup,
 // warp w = t / 32, g = (t % 32) / 4, q = t % 4: d[4j + 2h + e] is row
@@ -155,15 +159,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Rows [r0, r0 + R) of head `row` of a [rows, S, D] tensor into a tile of
-// ceil(D / 64) column blocks (rows past S arrive as zeros). The map's box
-// is min(D, 64) x R x 1.
+// Row span in columns and bytes of one column block of a D-column bf16 tile,
+// and the descriptor's swizzle mode for it (1: 128 B, 2: 64 B, 3: 32 B).
+template <int D>
+struct Span {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 256, "tile width");
+  static constexpr int kCols = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kBytes = kCols * 2;
+  static constexpr uint64_t kMode = kBytes == 128 ? 1 : kBytes == 64 ? 2 : 3;
+};
+
+// Rows [r0, r0 + R) of head `row` of a [rows, S, d] tensor into a tile of
+// D / Span<D>::kCols column blocks (rows past S and columns past d arrive as
+// zeros). The map's box is Span<D>::kCols x R x 1.
 template <int D, int R>
 __device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
                                           uint64_t* bar, int row, int r0) {
+  constexpr int kCols = Span<D>::kCols;
 #pragma unroll
-  for (int cb = 0; cb < (D + 63) / 64; ++cb) {
-    tma_load_3d(dst + cb * R * 64, map, bar, cb * 64, r0, row);
+  for (int cb = 0; cb < D / kCols; ++cb) {
+    tma_load_3d(dst + cb * R * kCols, map, bar, cb * kCols, r0, row);
   }
 }
 
@@ -215,16 +230,6 @@ __device__ __forceinline__ uint32_t swizzle128_offset(int r, int c) {
          ((((off >> 4) ^ (r & 7)) << 4) | (off & 15));
 }
 
-// Row span in bytes of one column block of a D-column bf16 tile, and the
-// descriptor's swizzle mode for it (1: 128 B, 2: 64 B, 3: 32 B).
-template <int D>
-struct Span {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
-  static constexpr int kCols = D < 64 ? D : 64;
-  static constexpr int kBytes = kCols * 2;
-  static constexpr uint64_t kMode = kBytes == 128 ? 1 : kBytes == 64 ? 2 : 3;
-};
-
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo, uint64_t mode) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -238,18 +243,21 @@ template <int D, int R>
 __device__ __forceinline__ uint64_t desc_k(const bf16* tile, int r0, int kk) {
   using Sp = Span<D>;
   const int c0 = kk * 16;
-  const uint32_t addr = smem_u32(tile) + (c0 / 64) * (R * Sp::kBytes) +
-                        r0 * Sp::kBytes + (c0 % 64) * 2;
+  const uint32_t addr = smem_u32(tile) + (c0 / Sp::kCols) * (R * Sp::kBytes) +
+                        r0 * Sp::kBytes + (c0 % Sp::kCols) * 2;
   return make_desc(addr, 16, 8 * Sp::kBytes, Sp::kMode);
 }
 
 // MN-major B operand (the transpose bit): rows [16 kk, 16 kk + 16) of an
-// R-row, D-column tile as the contraction, all D columns as N. With D = 64
-// it is also the MN-major A operand (ss_t) of 64 columns as M.
+// R-row, D-column tile as the contraction, its columns from n0 (a multiple
+// of the span) as N. With D = 64 it is also the MN-major A operand (ss_t) of
+// 64 columns as M.
 template <int D, int R>
-__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk) {
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk,
+                                            int n0 = 0) {
   using Sp = Span<D>;
-  const uint32_t addr = smem_u32(tile) + kk * 16 * Sp::kBytes;
+  const uint32_t addr = smem_u32(tile) + (n0 / Sp::kCols) * (R * Sp::kBytes) +
+                        kk * 16 * Sp::kBytes;
   return make_desc(addr, R * Sp::kBytes, 8 * Sp::kBytes, Sp::kMode);
 }
 
@@ -587,6 +595,21 @@ struct Wgmma<128> {
   }
 };
 
+// acc[64 x D] (+)= A[64 x 16] B[16 x D]: A in registers, B rows
+// [16 kk, 16 kk + 16) of an R-row, D-column tile read MN-major (the
+// transpose bit), as products of at most 128 columns (one for D in 16, 32,
+// 64, 128; 64 + 16 at D = 80, 128 + 64 at 192, 128 + 128 at 256), each on
+// its slice of the accumulator.
+template <int D, int R, int N0 = 0>
+__device__ __forceinline__ void rs_cols(float (&acc)[D / 2],
+                                        const uint32_t (&a)[4],
+                                        const bf16* tile, int kk) {
+  constexpr int kRest = D - N0;
+  constexpr int N = kRest >= 128 ? 128 : kRest >= 64 ? 64 : kRest >= 32 ? 32
+                                                                        : 16;
+  Wgmma<N>::rs(slice<N / 2>(acc, N0 / 2), a, desc_mn<D, R>(tile, kk, N0), 1);
+  if constexpr (N0 + N < D) rs_cols<D, R, N0 + N>(acc, a, tile, kk);
+}
 
 // The A-operand registers of 16-column slice kc of an accumulator of
 // wgmma.m64nNk16 (see the layout above), rounded to bf16.
@@ -633,14 +656,16 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 3-D map over a contiguous bf16 [rows, s, d] tensor (innermost first: d,
-// s, rows) whose box is min(d, 64) columns x box_rows rows of one head,
-// swizzled by its row span. A box past S is zero-filled and never reads the
-// next head's rows.
+// s, rows) whose box is `cols` columns (Span<D>::kCols of the tile it
+// fills; by default min(d, 64)) x box_rows rows of one head, swizzled by its
+// row span. A box past S, or past d, is zero-filled and never reads the next
+// head's rows or the next row's columns.
 inline cudaError_t tensor_map_3d(CUtensorMap* map, const void* base,
-                                 int64_t rows, int s, int d, int box_rows) {
+                                 int64_t rows, int s, int d, int box_rows,
+                                 int cols = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const int cols = d < 64 ? d : 64;
+  if (cols == 0) cols = d < 64 ? d : 64;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(rows)};

@@ -73,7 +73,17 @@
 //     of a run twice as long.
 //   - The slot count is a template parameter, WMAX in {8, 16}, dispatched by
 //     W inside the entry point: at W = 7 the slot arrays and loops are 8
-//     wide.
+//     wide. The head dim is an argument (a multiple of 8: whole chunks).
+//   - Past 16 slots (W = 17..129) the runs' slots no longer fit the
+//     registers, and both passes take them in groups of 16, as the
+//     forward's wide kernel does: pass 1 sums u group by group (g and the
+//     group's v columns staged) and writes dw and wd to the scratch while it
+//     sums the softmax backward's dot product, then turns each of its own
+//     queries' dw into dlog * scale in place, then stages k with the whole
+//     halo chunk by chunk and sums dq over the groups, each group's
+//     coefficients read back once for the chunk's channels; pass 2 stages q
+//     and g with the whole halo and sums dk and dv the same way, in runs of
+//     4 keys. The scratch keeps its [2, B*h, W, S] shape.
 //   - dq, dk and dv go out through a staged tile as well (written there in
 //     bf16 pairs), so the stores are 16 bytes wide but for each channel's
 //     two ragged ends.
@@ -99,8 +109,9 @@ namespace {
 
 using namespace band_stage;
 
-constexpr int kMaxWindow = 16;  // the wrapper raises above this
-constexpr int kTile = 512;      // queries (keys) a block
+constexpr int kMaxWindow = 129;  // the wrapper raises above this
+constexpr int kMaxSlots = 16;    // slots in registers: W's cap, then a group
+constexpr int kTile = 512;       // queries (keys) a block
 constexpr int kRun = 4;         // consecutive queries a thread (pass 1)
 constexpr int kThreads = kTile / kRun;
 // Consecutive keys a thread of pass 2, which gives dk and dv to different
@@ -120,6 +131,12 @@ constexpr int kStages = 2;  // chunks staged at once: one computed, the rest
 // every row starts 16-byte aligned.
 template <int WMAX>
 constexpr int kWidth = kTile + WMAX + 16;
+// The wide kernels' staged rows: the tile, the whole halo (W - 1 <= 128),
+// the alignment slack and the 8-byte words that the last group's runs read
+// past its one real slot.
+constexpr int kWideWidth = kTile + kMaxWindow - 1 + 32;
+constexpr int kWideKeyRun = 4;  // keys a thread of the wide pass 2
+constexpr int kWideKeyThreads = 2 * kTile / kWideKeyRun;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -132,34 +149,80 @@ struct Dropout {
   float one_minus_rate;
 };
 
-template <typename T, int WMAX>
+template <typename T, int WIDTH>
 constexpr int query_smem_bytes() {
   // kStages stages of (v or k, g) and the dq tile.
-  return (2 * kStages + 1) * kChunk<T> * kWidth<WMAX> *
-         static_cast<int>(sizeof(T));
+  return (2 * kStages + 1) * kChunk<T> * WIDTH * static_cast<int>(sizeof(T));
 }
-template <typename T, int WMAX>
+template <typename T, int WIDTH>
 constexpr int key_smem_bytes(int d) {
   // kStages stages of (q, g), the dk and dv tiles, and the edge fold.
-  return (2 * kStages + 2) * kChunk<T> * kWidth<WMAX> *
-             static_cast<int>(sizeof(T)) +
+  return (2 * kStages + 2) * kChunk<T> * WIDTH * static_cast<int>(sizeof(T)) +
          4 * d * static_cast<int>(sizeof(float));
+}
+
+// The edge fold of a block that holds key S-1 or key 0, one channel a
+// thread, into fold[edge: S-1, 0][dk, dv][d]: the wrapped slots of queries
+// i < hw (slots o < hw - i) land on key S-1, those of queries
+// i >= S - (w-1-hw) (slots o >= S + hw - i) on key 0. q and g point at the
+// row's channel 0, ckr and cvr at its coefficient rows.
+template <typename T, int NT>
+__device__ __forceinline__ void edge_fold(float* fold, const T* q, const T* g,
+                                          const float* ckr, const float* cvr,
+                                          int d, int s, int w, bool has_last,
+                                          bool has_first) {
+  if (!has_last && !has_first) return;
+  const int64_t sl = s;
+  const int hw = w / 2;
+  for (int c = threadIdx.x; c < d; c += NT) {
+    const T* qr = q + c * sl;
+    const T* gr = g + c * sl;
+    float fk = 0.f, fv = 0.f;
+    if (has_last) {
+      for (int i = 0; i < hw; ++i) {
+        const float qv = to_f32(qr[i]);
+        const float gv = to_f32(gr[i]);
+        for (int o = 0; o < hw - i; ++o) {
+          fk += ckr[o * sl + i] * qv;
+          fv += cvr[o * sl + i] * gv;
+        }
+      }
+    }
+    fold[c] = fk;
+    fold[d + c] = fv;
+    fk = fv = 0.f;
+    if (has_first) {
+      for (int i = s - (w - 1 - hw); i < s; ++i) {
+        const float qv = to_f32(qr[i]);
+        const float gv = to_f32(gr[i]);
+        for (int o = s + hw - i; o < w; ++o) {
+          fk += ckr[o * sl + i] * qv;
+          fv += cvr[o * sl + i] * gv;
+        }
+      }
+    }
+    fold[2 * d + c] = fk;
+    fold[3 * d + c] = fv;
+  }
 }
 
 // Pass 1: a block per kTile queries of a row; thread t owns the run of
 // queries i0 + kRun*t + r. Chunks 0..NC-1 stage v and g and sum u; chunks
 // NC..2NC-1 stage k, and the first of them turns u into the coefficients.
-template <typename T, int D, int WMAX, bool kDrop>
+template <typename T, int WMAX, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     band_bwd_query_kernel(const T* __restrict__ k, const T* __restrict__ v,
                           const T* __restrict__ g,
                           const float* __restrict__ wts, T* __restrict__ dq,
                           float* __restrict__ coef_k,
-                          float* __restrict__ coef_v, int s, int w,
+                          float* __restrict__ coef_v, int nc, int s, int w,
                           int tiles_per_row, float scale, Dropout drop) {
   constexpr int C = kChunk<T>;
   constexpr int WIDTH = kWidth<WMAX>;
-  constexpr int NC = D / C;
+  // The chunk count is an argument, not d / C: read from the parameter
+  // bank, it takes no register (the eval kernel is held to 96).
+  const int NC = nc;
+  const int d = nc * C;
   constexpr int RUN = kRun + WMAX - 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int SC = C * WIDTH;  // elements of one staged chunk
@@ -177,7 +240,7 @@ __global__ void __launch_bounds__(kThreads)
   const int hi = min(c_hi, s);
   const bool edge = c_lo < 0 || c_hi > s;
   const int64_t sl = s;
-  const int64_t base = row * D * sl;
+  const int64_t base = row * d * sl;
   const int64_t wbase = row * w * sl;
   const int t = threadIdx.x;
   const int q0 = kRun * t;  // this thread's first query, within the tile
@@ -311,15 +374,19 @@ __global__ void __launch_bounds__(kThreads)
 // query i = j + W/2 - o reads key j, so with the slots taken in reverse order
 // (p = W-1-o) the queries of key r are the staged columns r + p of the
 // thread's run.
-template <typename T, int D, int WMAX>
+template <typename T, int WMAX>
 __global__ void __launch_bounds__(kKeyThreads<WMAX>)
     band_bwd_key_kernel(const T* __restrict__ q, const T* __restrict__ g,
                         const float* __restrict__ coef_k,
                         const float* __restrict__ coef_v, T* __restrict__ dk,
-                        T* __restrict__ dv, int s, int w, int tiles_per_row) {
+                        T* __restrict__ dv, int nc, int s, int w,
+                        int tiles_per_row) {
   constexpr int C = kChunk<T>;
   constexpr int WIDTH = kWidth<WMAX>;
-  constexpr int NC = D / C;
+  // The chunk count is an argument, not d / C: read from the parameter
+  // bank, it takes no register (the eval kernel is held to 96).
+  const int NC = nc;
+  const int d = nc * C;
   constexpr int R = kKeyRun<WMAX>;
   constexpr int NT = kKeyThreads<WMAX>;
   constexpr int RUN = R + WMAX - 1;
@@ -329,7 +396,7 @@ __global__ void __launch_bounds__(kKeyThreads<WMAX>)
   T* const buf_g = buf_q + kStages * SC;            // [kStages][SC]
   T* const out_k = buf_g + kStages * SC;            // [SC]
   T* const out_v = out_k + SC;                      // [SC]
-  // [edge: S-1, 0][dk, dv][D]
+  // [edge: S-1, 0][dk, dv][d]
   float* const fold = reinterpret_cast<float*>(out_v + SC);
 
   const int64_t row = blockIdx.x / tiles_per_row;
@@ -342,7 +409,7 @@ __global__ void __launch_bounds__(kKeyThreads<WMAX>)
   const int hi = min(c_hi, s);
   const bool edge = c_lo < 0 || c_hi > s;
   const int64_t sl = s;
-  const int64_t base = row * D * sl;
+  const int64_t base = row * d * sl;
   const float* ckr = coef_k + row * w * sl;
   const float* cvr = coef_v + row * w * sl;
   const int t = threadIdx.x;
@@ -377,50 +444,17 @@ __global__ void __launch_bounds__(kKeyThreads<WMAX>)
     }
   }
 
-  // The edge fold, one channel a thread: the wrapped slots of queries
-  // i < hw (slots o < hw - i) land on key S-1, those of queries
-  // i >= S - (w-1-hw) (slots o >= S + hw - i) on key 0.
   const bool has_last = j0 + nk == s;
   const bool has_first = j0 == 0;
-  if (has_last || has_first) {
-    for (int c = t; c < D; c += NT) {
-      const T* qr = q + base + c * sl;
-      const T* gr = g + base + c * sl;
-      float fk = 0.f, fv = 0.f;
-      if (has_last) {
-        for (int i = 0; i < hw; ++i) {
-          const float qv = to_f32(qr[i]);
-          const float gv = to_f32(gr[i]);
-          for (int o = 0; o < hw - i; ++o) {
-            fk += ckr[o * sl + i] * qv;
-            fv += cvr[o * sl + i] * gv;
-          }
-        }
-      }
-      fold[c] = fk;
-      fold[D + c] = fv;
-      fk = fv = 0.f;
-      if (has_first) {
-        for (int i = s - (w - 1 - hw); i < s; ++i) {
-          const float qv = to_f32(qr[i]);
-          const float gv = to_f32(gr[i]);
-          for (int o = s + hw - i; o < w; ++o) {
-            fk += ckr[o * sl + i] * qv;
-            fv += cvr[o * sl + i] * gv;
-          }
-        }
-      }
-      fold[2 * D + c] = fk;
-      fold[3 * D + c] = fv;
-    }
-  }
+  edge_fold<T, NT>(fold, q + base, g + base, ckr, cvr, d, s, w, has_last,
+                   has_first);
   // The runs that hold key S-1 and key 0 (-1: none).
   const int r_last = has_last && s - 1 - j0 - k0 >= 0 && s - 1 - j0 - k0 < R
                          ? s - 1 - j0 - k0
                          : -1;
   const int r_first = has_first && k0 == 0 ? 0 : -1;
-  const float* fold_last = fold + role * D;
-  const float* fold_first = fold + (2 + role) * D;
+  const float* fold_last = fold + role * d;
+  const float* fold_first = fold + (2 + role) * d;
   const T* buf_in = role ? buf_g : buf_q;
   T* const out_s = role ? out_v : out_k;
   const Leads<T> lin = role ? lg : lq;
@@ -469,6 +503,348 @@ __global__ void __launch_bounds__(kKeyThreads<WMAX>)
   }
 }
 
+// Pass 1 past kMaxSlots slots: groups of kMaxSlots (see the header).
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+    band_bwd_query_wide_kernel(const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ g,
+                               const float* __restrict__ wts,
+                               T* __restrict__ dq, float* __restrict__ coef_k,
+                               float* __restrict__ coef_v, int d, int s, int w,
+                               int tiles_per_row, float scale, Dropout drop) {
+  constexpr int C = kChunk<T>;
+  constexpr int G = kMaxSlots;
+  constexpr int WIDTH = kWideWidth;
+  constexpr int RUN = kRun + G - 1;
+  constexpr int SC = C * WIDTH;  // elements of one staged chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf_a = reinterpret_cast<T*>(smem_raw);  // [kStages][SC]: v, k
+  T* const buf_g = buf_a + kStages * SC;            // [kStages][SC]: g
+  T* const buf_out = buf_g + kStages * SC;          // [SC]: dq
+
+  const int64_t row = blockIdx.x / tiles_per_row;
+  const int i0 = (blockIdx.x % tiles_per_row) * kTile;
+  const int nq = min(kTile, s - i0);
+  const int hw = w / 2;
+  const int nc = d / C;
+  const int groups = (w + G - 1) / G;
+  const int64_t sl = s;
+  const int64_t base = row * d * sl;
+  const int64_t wbase = row * w * sl;
+  const int t = threadIdx.x;
+  const int q0 = kRun * t;  // this thread's first query, within the tile
+
+  const Leads<T> lv(v + base, sl), lk(k + base, sl), lg(g + base, sl),
+      ld(dq + base, sl);
+
+  float dot[kRun];  // sum_o w_o dw_o
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) dot[r] = 0.f;
+
+  // u group by group; dw (for now) and wd out to the scratch.
+  for (int gi = 0; gi < groups; ++gi) {
+    const int o0 = gi * G;
+    const int gw = min(G, w - o0);
+    const int c_lo = i0 - hw + o0;  // the group's value columns
+    const int c_hi = c_lo + nq + G - 1;
+    const int lo = max(c_lo, 0);
+    const int hi = min(c_hi, s);
+    const bool edge = c_lo < 0 || c_hi > s;
+    auto issue = [&](int n) {
+      const int b = n % kStages;
+      if (n < nc) {
+        stage<T, kTile, C, WIDTH, G, kThreads>(buf_a + b * SC, v + base, sl,
+                                               lv, n * C, c_lo, lo, hi);
+        stage<T, kTile, C, WIDTH, G, kThreads>(buf_g + b * SC, g + base, sl,
+                                               lg, n * C, i0, i0, i0 + nq);
+      }
+      cp_async_commit();
+    };
+    float u[kRun][G];
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+      for (int o = 0; o < G; ++o) u[r][o] = 0.f;
+    }
+    for (int n = 0; n < kStages - 1; ++n) issue(n);
+    for (int n = 0; n < nc; ++n) {
+      issue(n + kStages - 1);
+      cp_async_wait<kStages - 1>();
+      __syncthreads();
+      const int b = n % kStages;
+      if (edge) {
+        fill_halo<T, C, WIDTH, kThreads, true>(
+            buf_a + b * SC, v + base + n * C * sl, sl, c_lo, c_hi, false);
+        __syncthreads();
+      }
+      const T* a = buf_a + b * SC;
+      const T* gs = buf_g + b * SC;
+#pragma unroll 1
+      for (int cc = 0; cc < C; ++cc) {
+        float gr[kRun];
+        load_run(gr, gs + cc * WIDTH, q0 + lg.at(n * C + cc, i0));
+        float vr[RUN];
+        load_run(vr, a + cc * WIDTH, q0 + lv.at(n * C + cc, c_lo));
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+          for (int o = 0; o < G; ++o) {
+            if (o < gw) u[r][o] += gr[r] * vr[r + o];
+          }
+        }
+      }
+      __syncthreads();  // before stage b is refilled
+    }
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      if (q0 + r >= nq) continue;
+      const int i = i0 + q0 + r;
+      [[maybe_unused]] uint32_t keep = 0;
+      if constexpr (kDrop) {
+        keep = philox::band_keep_group(drop.seed, row, i, gi, w,
+                                       drop.threshold);
+      }
+#pragma unroll
+      for (int o = 0; o < G; ++o) {
+        if (o < gw) {
+          const int64_t at = wbase + (o0 + o) * sl + i;
+          const float wt = wts[at];
+          float dw = u[r][o], wd = wt;
+          if constexpr (kDrop) {
+            const bool kept = (keep >> o) & 1u;
+            dw = kept ? dw / drop.one_minus_rate : 0.f;
+            wd = kept ? wt / drop.one_minus_rate : 0.f;
+          }
+          dot[r] += wt * dw;
+          coef_k[at] = dw;
+          coef_v[at] = wd;
+        }
+      }
+    }
+  }
+
+  // Each thread's own dw -> dlog * scale, in place.
+#pragma unroll 1
+  for (int r = 0; r < kRun; ++r) {
+    if (q0 + r >= nq) continue;
+    const int64_t at = wbase + i0 + q0 + r;
+#pragma unroll 1
+    for (int o = 0; o < w; ++o) {
+      coef_k[at + o * sl] = wts[at + o * sl] * (coef_k[at + o * sl] - dot[r]) *
+                            scale;
+    }
+  }
+
+  // dq: k with the whole halo, chunk by chunk; the groups summed inside.
+  const int c_lo = i0 - hw;  // staged key columns [c_lo, c_hi)
+  const int c_hi = i0 + nq + (w - 1 - hw);
+  const int lo = max(c_lo, 0);
+  const int hi = min(c_hi, s);
+  const bool edge = c_lo < 0 || c_hi > s;
+  auto issue_k = [&](int n) {
+    if (n < nc) {
+      stage<T, kTile, C, WIDTH, kMaxWindow, kThreads>(
+          buf_a + (n % kStages) * SC, k + base, sl, lk, n * C, c_lo, lo, hi);
+    }
+    cp_async_commit();
+  };
+  for (int n = 0; n < kStages - 1; ++n) issue_k(n);
+  for (int n = 0; n < nc; ++n) {
+    issue_k(n + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int b = n % kStages;
+    if (edge) {
+      fill_halo<T, C, WIDTH, kThreads>(buf_a + b * SC, k + base + n * C * sl,
+                                       sl, c_lo, c_hi, false);
+      __syncthreads();
+    }
+    const T* a = buf_a + b * SC;
+    const int c0 = n * C;
+    float acc[C][kRun];
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) acc[cc][r] = 0.f;
+    }
+#pragma unroll 1
+    for (int gi = 0; gi < groups; ++gi) {
+      const int o0 = gi * G;
+      float cf[kRun][G];
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        const float* at = coef_k + wbase + o0 * sl + i0 + q0 + r;
+#pragma unroll
+        for (int o = 0; o < G; ++o) {
+          cf[r][o] = q0 + r < nq && o0 + o < w ? at[o * sl] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) {
+        float kr[RUN];
+        load_run(kr, a + cc * WIDTH, q0 + o0 + lk.at(c0 + cc, c_lo));
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+          for (int o = 0; o < G; ++o) {
+            if (o0 + o < w) acc[cc][r] += cf[r][o] * kr[r + o];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+      store_run(buf_out + cc * WIDTH, q0 + ld.at(c0 + cc, i0), acc[cc]);
+    }
+    __syncthreads();
+    unstage<T, kTile, C, WIDTH, kThreads>(dq + base, buf_out, sl, ld, c0, i0,
+                                          i0 + nq);
+    __syncthreads();  // before stage b is refilled, by the next issue_k()
+  }
+}
+
+// Pass 2 past kMaxSlots slots: as band_bwd_key_kernel, with the q and g
+// columns of the whole halo staged and the slots taken in groups, each
+// group's coefficients read once for all the chunk's channels.
+template <typename T>
+__global__ void __launch_bounds__(kWideKeyThreads)
+    band_bwd_key_wide_kernel(const T* __restrict__ q, const T* __restrict__ g,
+                             const float* __restrict__ coef_k,
+                             const float* __restrict__ coef_v,
+                             T* __restrict__ dk, T* __restrict__ dv, int d,
+                             int s, int w, int tiles_per_row) {
+  constexpr int C = kChunk<T>;
+  constexpr int G = kMaxSlots;
+  constexpr int WIDTH = kWideWidth;
+  constexpr int R = kWideKeyRun;
+  constexpr int NT = kWideKeyThreads;
+  constexpr int RUN = R + G - 1;
+  constexpr int SC = C * WIDTH;  // elements of one staged chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf_q = reinterpret_cast<T*>(smem_raw);  // [kStages][SC]
+  T* const buf_g = buf_q + kStages * SC;            // [kStages][SC]
+  T* const out_k = buf_g + kStages * SC;            // [SC]
+  T* const out_v = out_k + SC;                      // [SC]
+  // [edge: S-1, 0][dk, dv][d]
+  float* const fold = reinterpret_cast<float*>(out_v + SC);
+
+  const int64_t row = blockIdx.x / tiles_per_row;
+  const int j0 = (blockIdx.x % tiles_per_row) * kTile;
+  const int nk = min(kTile, s - j0);
+  const int hw = w / 2;
+  const int c_lo = j0 - (w - 1 - hw);  // staged query columns [c_lo, c_hi)
+  const int c_hi = j0 + nk + hw;
+  const int lo = max(c_lo, 0);
+  const int hi = min(c_hi, s);
+  const bool edge = c_lo < 0 || c_hi > s;
+  const int nc = d / C;
+  const int groups = (w + G - 1) / G;
+  const int64_t sl = s;
+  const int64_t base = row * d * sl;
+  const float* ckr = coef_k + row * w * sl;
+  const float* cvr = coef_v + row * w * sl;
+  const int t = threadIdx.x;
+  const int role = (t >> 5) & 1;  // 0: dk, 1: dv; the same across a warp
+  const int k0 = R * (((t >> 6) << 5) | (t & 31));  // first key, in the tile
+  const Leads<T> lq(q + base, sl), lg(g + base, sl), lk(dk + base, sl),
+      lv(dv + base, sl);
+
+  auto issue = [&](int n) {
+    const int b = n % kStages;
+    if (n < nc) {
+      stage<T, kTile, C, WIDTH, kMaxWindow, NT>(buf_q + b * SC, q + base, sl,
+                                                lq, n * C, c_lo, lo, hi);
+      stage<T, kTile, C, WIDTH, kMaxWindow, NT>(buf_g + b * SC, g + base, sl,
+                                                lg, n * C, c_lo, lo, hi);
+    }
+    cp_async_commit();
+  };
+  for (int n = 0; n < kStages - 1; ++n) issue(n);
+
+  const bool has_last = j0 + nk == s;
+  const bool has_first = j0 == 0;
+  edge_fold<T, NT>(fold, q + base, g + base, ckr, cvr, d, s, w, has_last,
+                   has_first);
+  // The runs that hold key S-1 and key 0 (-1: none).
+  const int r_last = has_last && s - 1 - j0 - k0 >= 0 && s - 1 - j0 - k0 < R
+                         ? s - 1 - j0 - k0
+                         : -1;
+  const int r_first = has_first && k0 == 0 ? 0 : -1;
+  const float* fold_last = fold + role * d;
+  const float* fold_first = fold + (2 + role) * d;
+  const float* cr = role ? cvr : ckr;
+  const T* buf_in = role ? buf_g : buf_q;
+  T* const out_s = role ? out_v : out_k;
+  const Leads<T> lin = role ? lg : lq;
+  const Leads<T> lout = role ? lv : lk;
+
+  for (int n = 0; n < nc; ++n) {
+    issue(n + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int b = n % kStages;
+    if (edge) {
+      fill_halo<T, C, WIDTH, NT>(buf_q + b * SC, q + base + n * C * sl, sl,
+                                 c_lo, c_hi, true);
+      fill_halo<T, C, WIDTH, NT>(buf_g + b * SC, g + base + n * C * sl, sl,
+                                 c_lo, c_hi, true);
+      __syncthreads();
+    }
+    const T* in = buf_in + b * SC;
+    const int c0 = n * C;
+    float acc[C][R];
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[cc][r] = 0.f;
+    }
+#pragma unroll 1
+    for (int gi = 0; gi < groups; ++gi) {
+      const int p0 = gi * G;
+      // Slot o = w-1-p of query i = j + hw - o reads key j.
+      float cf[G][R];
+#pragma unroll
+      for (int p = 0; p < G; ++p) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int o = w - 1 - (p0 + p);
+          const int i = j0 + k0 + r + hw - o;
+          const bool valid = p0 + p < w && k0 + r < nk && i >= 0 && i < s;
+          cf[p][r] = valid ? cr[o * sl + i] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) {
+        float run[RUN];
+        load_run(run, in + cc * WIDTH, k0 + p0 + lin.at(c0 + cc, c_lo));
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int p = 0; p < G; ++p) {
+            if (p0 + p < w) acc[cc][r] += cf[p][r] * run[r + p];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+      if (r_last >= 0 || r_first >= 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r == r_last) acc[cc][r] += fold_last[c0 + cc];
+          if (r == r_first) acc[cc][r] += fold_first[c0 + cc];
+        }
+      }
+      store_run(out_s + cc * WIDTH, k0 + lout.at(c0 + cc, j0), acc[cc]);
+    }
+    __syncthreads();
+    unstage<T, kTile, C, WIDTH, NT>(dk + base, out_k, sl, lk, c0, j0, j0 + nk);
+    unstage<T, kTile, C, WIDTH, NT>(dv + base, out_v, sl, lv, c0, j0, j0 + nk);
+    __syncthreads();  // before stage b is refilled, by the next issue()
+  }
+}
+
 // Raises a kernel's dynamic shared memory limit where it passes 48 KB.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -477,84 +853,72 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int D, int WMAX>
-cudaError_t launch_d(const T* q, const T* k, const T* v, const T* g,
-                     const float* wts, T* dq, T* dk, T* dv, float* coef_k,
-                     float* coef_v, int s, int w, dim3 grid, int tiles,
-                     float scale, bool dropout, Dropout drop,
-                     cudaStream_t stream) {
-  constexpr int kQuerySmem = query_smem_bytes<T, WMAX>();
-  auto* query = dropout ? band_bwd_query_kernel<T, D, WMAX, true>
-                        : band_bwd_query_kernel<T, D, WMAX, false>;
+struct Launch {
+  const void *q, *k, *v, *g;
+  const float* wts;
+  void *dq, *dk, *dv;
+  float *coef_k, *coef_v;
+  int d, s, w, tiles;
+  dim3 grid;
+  float scale;
+  bool dropout;
+  Dropout drop;
+  cudaStream_t stream;
+};
+
+template <typename T, int WMAX>
+cudaError_t launch_w(const Launch& a) {
+  constexpr int kQuerySmem = query_smem_bytes<T, kWidth<WMAX>>();
+  auto* query = a.dropout ? band_bwd_query_kernel<T, WMAX, true>
+                          : band_bwd_query_kernel<T, WMAX, false>;
   cudaError_t err = allow_smem(query, kQuerySmem);
   if (err != cudaSuccess) return err;
-  query<<<grid, kThreads, kQuerySmem, stream>>>(
-      k, v, g, wts, dq, coef_k, coef_v, s, w, tiles, scale, drop);
+  query<<<a.grid, kThreads, kQuerySmem, a.stream>>>(
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), a.wts, static_cast<T*>(a.dq), a.coef_k,
+      a.coef_v, a.d / kChunk<T>, a.s, a.w, a.tiles, a.scale, a.drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr int kKeySmem = key_smem_bytes<T, WMAX>(D);
-  auto* key = band_bwd_key_kernel<T, D, WMAX>;
-  err = allow_smem(key, kKeySmem);
+  const int key_smem = key_smem_bytes<T, kWidth<WMAX>>(a.d);
+  auto* key = band_bwd_key_kernel<T, WMAX>;
+  err = allow_smem(key, key_smem);
   if (err != cudaSuccess) return err;
-  key<<<grid, kKeyThreads<WMAX>, kKeySmem, stream>>>(q, g, coef_k, coef_v,
-                                                     dk, dv, s, w, tiles);
+  key<<<a.grid, kKeyThreads<WMAX>, key_smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.g), a.coef_k,
+      a.coef_v, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      a.d / kChunk<T>, a.s, a.w, a.tiles);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_w(const T* q, const T* k, const T* v, const T* g,
-                     const float* wts, T* dq, T* dk, T* dv, float* coef_k,
-                     float* coef_v, int s, int w, dim3 grid, int tiles,
-                     float scale, bool dropout, Dropout drop,
-                     cudaStream_t stream) {
-  if (w <= 8) {
-    return launch_d<T, D, 8>(q, k, v, g, wts, dq, dk, dv, coef_k, coef_v, s,
-                             w, grid, tiles, scale, dropout, drop, stream);
-  }
-  return launch_d<T, D, kMaxWindow>(q, k, v, g, wts, dq, dk, dv, coef_k,
-                                    coef_v, s, w, grid, tiles, scale, dropout,
-                                    drop, stream);
+template <typename T>
+cudaError_t launch_wide(const Launch& a) {
+  constexpr int kQuerySmem = query_smem_bytes<T, kWideWidth>();
+  auto* query = a.dropout ? band_bwd_query_wide_kernel<T, true>
+                          : band_bwd_query_wide_kernel<T, false>;
+  cudaError_t err = allow_smem(query, kQuerySmem);
+  if (err != cudaSuccess) return err;
+  query<<<a.grid, kThreads, kQuerySmem, a.stream>>>(
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.g), a.wts, static_cast<T*>(a.dq), a.coef_k,
+      a.coef_v, a.d, a.s, a.w, a.tiles, a.scale, a.drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int key_smem = key_smem_bytes<T, kWideWidth>(a.d);
+  auto* key = band_bwd_key_wide_kernel<T>;
+  err = allow_smem(key, key_smem);
+  if (err != cudaSuccess) return err;
+  key<<<a.grid, kWideKeyThreads, key_smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.g), a.coef_k,
+      a.coef_v, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.d, a.s, a.w,
+      a.tiles);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* g, const float* wts, void* dq, void* dk,
-                   void* dv, float* scratch, int64_t rows, int d, int s,
-                   int w, float scale, bool dropout, Dropout drop,
-                   cudaStream_t stream) {
-  const int tiles = (s + kTile - 1) / kTile;
-  const int64_t blocks = rows * tiles;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  float* coef_k = scratch;
-  float* coef_v = scratch + rows * w * static_cast<int64_t>(s);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* gp = static_cast<const T*>(g);
-  T* dqp = static_cast<T*>(dq);
-  T* dkp = static_cast<T*>(dk);
-  T* dvp = static_cast<T*>(dv);
-  switch (d) {
-    case 16:
-      return launch_w<T, 16>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
-                             coef_v, s, w, grid, tiles, scale, dropout, drop,
-                             stream);
-    case 32:
-      return launch_w<T, 32>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
-                             coef_v, s, w, grid, tiles, scale, dropout, drop,
-                             stream);
-    case 64:
-      return launch_w<T, 64>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
-                             coef_v, s, w, grid, tiles, scale, dropout, drop,
-                             stream);
-    case 128:
-      return launch_w<T, 128>(qp, kp, vp, gp, wts, dqp, dkp, dvp, coef_k,
-                              coef_v, s, w, grid, tiles, scale, dropout, drop,
-                              stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch(const Launch& a) {
+  if (a.w <= 8) return launch_w<T, 8>(a);
+  if (a.w <= kMaxSlots) return launch_w<T, kMaxSlots>(a);
+  return launch_wide<T>(a);
 }
 
 }  // namespace
@@ -562,12 +926,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // launches (0 on success). q, k, v, g, dq, dk and dv are device pointers to
 // contiguous [rows, d, s] tensors of one dtype (is_bf16 = 1 for bf16, 0 for
-// f32), each at least 2-byte (bf16) or 4-byte (f32) aligned; wts is the
-// forward's f32 [rows, w, s] weights; scratch is f32 [2, rows, w, s],
-// written and read here. With dropout != 0 the forward's mask is
-// regenerated by philox.cuh's rule under (seed_lo, seed_hi, threshold).
-// `stream` is the caller's cudaStream_t. Nothing is allocated and nothing
-// synchronises.
+// f32; d a multiple of 8 in [8, 256]), each at least 2-byte (bf16) or
+// 4-byte (f32) aligned; wts is the forward's f32 [rows, w, s] weights;
+// scratch is f32 [2, rows, w, s], written and read here. With dropout != 0
+// the forward's mask is regenerated by philox.cuh's rule under (seed_lo,
+// seed_hi, threshold). `stream` is the caller's cudaStream_t. Nothing is
+// allocated and nothing synchronises.
 extern "C" int mhla_band_bwd(const void* q, const void* k, const void* v,
                              const void* g, const void* wts, void* dq,
                              void* dk, void* dv, void* scratch,
@@ -575,21 +939,39 @@ extern "C" int mhla_band_bwd(const void* q, const void* k, const void* v,
                              float scale, int dropout, unsigned int seed_lo,
                              unsigned int seed_hi, unsigned int threshold,
                              float one_minus_rate, int device, void* stream) {
-  if (rows <= 0 || w < 1 || w > kMaxWindow || s <= 2 * w) {
+  if (rows <= 0 || w < 1 || w > kMaxWindow || s <= 2 * w ||
+      !band_stage::head_dim_ok(d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{(static_cast<uint64_t>(seed_hi) << 32) | seed_lo,
-                     threshold, one_minus_rate};
-  const float* wp = static_cast<const float*>(wts);
+  const int tiles = (s + kTile - 1) / kTile;
+  const int64_t blocks = rows * tiles;
+  if (blocks > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
   float* sp = static_cast<float*>(scratch);
-  err = is_bf16
-            ? launch<__nv_bfloat16>(q, k, v, g, wp, dq, dk, dv, sp, rows, d,
-                                    s, w, scale, dropout != 0, drop, st)
-            : launch<float>(q, k, v, g, wp, dq, dk, dv, sp, rows, d, s, w,
-                            scale, dropout != 0, drop, st);
+  const Launch a{q,
+                 k,
+                 v,
+                 g,
+                 static_cast<const float*>(wts),
+                 dq,
+                 dk,
+                 dv,
+                 sp,
+                 sp + rows * w * static_cast<int64_t>(s),
+                 d,
+                 s,
+                 w,
+                 tiles,
+                 dim3(static_cast<unsigned>(blocks)),
+                 scale,
+                 dropout != 0,
+                 {(static_cast<uint64_t>(seed_hi) << 32) | seed_lo, threshold,
+                  one_minus_rate},
+                 static_cast<cudaStream_t>(stream)};
+  err = is_bf16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
   return static_cast<int>(err);
 }
 
@@ -597,22 +979,27 @@ extern "C" int mhla_band_bwd(const void* q, const void* k, const void* v,
 // at head dim d and window w, for the build report; 0 for what the kernels
 // do not take.
 extern "C" int mhla_band_bwd_smem(int pass, int is_bf16, int d, int w) {
-  if (w < 1 || w > kMaxWindow || (d != 16 && d != 32 && d != 64 && d != 128)) {
+  if (w < 1 || w > kMaxWindow || !band_stage::head_dim_ok(d) ||
+      (pass != 1 && pass != 2)) {
     return 0;
   }
-  if (pass == 1) {
-    if (is_bf16) {
-      return w <= 8 ? query_smem_bytes<__nv_bfloat16, 8>()
-                    : query_smem_bytes<__nv_bfloat16, kMaxWindow>();
-    }
-    return w <= 8 ? query_smem_bytes<float, 8>()
-                  : query_smem_bytes<float, kMaxWindow>();
-  }
-  if (pass != 2) return 0;
   if (is_bf16) {
-    return w <= 8 ? key_smem_bytes<__nv_bfloat16, 8>(d)
-                  : key_smem_bytes<__nv_bfloat16, kMaxWindow>(d);
+    using T = __nv_bfloat16;
+    if (pass == 1) {
+      return w <= 8           ? query_smem_bytes<T, kWidth<8>>()
+             : w <= kMaxSlots ? query_smem_bytes<T, kWidth<kMaxSlots>>()
+                              : query_smem_bytes<T, kWideWidth>();
+    }
+    return w <= 8           ? key_smem_bytes<T, kWidth<8>>(d)
+           : w <= kMaxSlots ? key_smem_bytes<T, kWidth<kMaxSlots>>(d)
+                            : key_smem_bytes<T, kWideWidth>(d);
   }
-  return w <= 8 ? key_smem_bytes<float, 8>(d)
-                : key_smem_bytes<float, kMaxWindow>(d);
+  if (pass == 1) {
+    return w <= 8           ? query_smem_bytes<float, kWidth<8>>()
+           : w <= kMaxSlots ? query_smem_bytes<float, kWidth<kMaxSlots>>()
+                            : query_smem_bytes<float, kWideWidth>();
+  }
+  return w <= 8           ? key_smem_bytes<float, kWidth<8>>(d)
+         : w <= kMaxSlots ? key_smem_bytes<float, kWidth<kMaxSlots>>(d)
+                          : key_smem_bytes<float, kWideWidth>(d);
 }

@@ -88,6 +88,28 @@ __device__ __forceinline__ uint32_t band_keep_mask(uint64_t seed, int64_t row,
   return keep;
 }
 
+// Bit o of the result is set iff window slot 16 * g + o (< w) of query i in
+// row `row` is kept: the mask of one group of 16 slots, for windows past 16
+// (the same words as band_keep_mask's, slot by slot).
+__device__ __forceinline__ uint32_t band_keep_group(uint64_t seed, int64_t row,
+                                                    int i, int g, int w,
+                                                    uint32_t threshold) {
+  uint32_t keep = 0;
+#pragma unroll
+  for (int sub = 0; sub < 4; ++sub) {
+    const int grp = 4 * g + sub;
+    if (4 * grp < w) {
+      const uint4 r = band_words(seed, row, i, grp);
+      const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (words[b] >= threshold) keep |= 1u << (4 * sub + b);
+      }
+    }
+  }
+  return keep;
+}
+
 // The four words of query i and key group `grp` in row `row` of the fused
 // attention's stream: for grp = 4 * c + t they decide keys 16c + 2t,
 // 16c + 2t + 1, 16c + 2t + 8 and 16c + 2t + 9, in that order. The stream's

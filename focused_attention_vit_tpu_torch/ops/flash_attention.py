@@ -43,8 +43,10 @@ from torch.utils.checkpoint import checkpoint
 
 FWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/flash_attention_fwd.cu"
 BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/flash_attention_bwd.cu"
-# The kernels' instantiations; the plain versions take any head dim.
-HEAD_DIMS = (16, 32, 64, 128)
+# The kernels take every head dim that is a multiple of 8 in [8, 256] (the
+# TMA row stride, d * 2 bytes, is then a multiple of 16 bytes); they pad d
+# to one of a few widths in shared memory. The plain versions take any.
+MIN_HEAD_DIM, MAX_HEAD_DIM, HEAD_DIM_STEP = 8, 256, 8
 DEFAULT_CHUNK = 512  # keys per step of the plain versions
 
 LAUNCH_KINDS = ("fwd", "fwd_train", "bwd")
@@ -114,10 +116,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.shape[2] < 1 or q.shape[0] * q.shape[1] < 1:
         raise ValueError(f"flash op needs B*h >= 1 and S >= 1, got "
                          f"{tuple(q.shape)}")
-    if q.device.type == "cuda" and q.shape[3] not in HEAD_DIMS:
+    d = q.shape[3]
+    if q.device.type == "cuda" and not (
+        MIN_HEAD_DIM <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0
+    ):
         raise ValueError(
-            f"the flash kernels support head dims {HEAD_DIMS}, got "
-            f"{q.shape[3]}"
+            f"the flash kernels support head dims that are multiples of "
+            f"{HEAD_DIM_STEP} in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}], got {d}"
         )
     _check_layout(q=q, k=k, v=v)
 

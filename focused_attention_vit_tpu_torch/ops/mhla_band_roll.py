@@ -44,9 +44,13 @@ from focused_attention_vit_tpu_torch.ops.window import (
 
 KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/mhla_band_fwd.cu"
 BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/mhla_band_bwd.cu"
-# The kernels unroll their slots to 16 (kMaxWindow in the sources).
-MAX_WINDOW = 16
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
+# The kernels' range on a CUDA tensor: JAX's roll band takes W <= 129 (its
+# halo of 128 lanes) and any head dim; the kernels stage channels in chunks
+# of 8 (bf16) or 4 (f32) and hold the slots of W > 16 in groups of 16
+# (kMaxWindow in the sources). A CPU tensor takes any W with S > 2W and any
+# head dim, as JAX's shift band does.
+MAX_WINDOW = 129
+MIN_HEAD_DIM, MAX_HEAD_DIM, HEAD_DIM_STEP = 8, 256, 8
 
 # The plain version the eval kernel is held against.
 plain_banded_attention = _shift_banded_attention_ds
@@ -80,7 +84,7 @@ _PTR, _INT, _UINT, _FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 _DROPOUT_ARGS = [_INT, _UINT, _UINT, _UINT, _FLOAT]
 _SIGNATURES = {
     ("mhla_band_fwd", "mhla_band_fwd"):
-        [_PTR] * 5 + [ctypes.c_longlong, _INT, _INT, _INT, _INT, _FLOAT]
+        [_PTR] * 6 + [ctypes.c_longlong, _INT, _INT, _INT, _INT, _FLOAT]
         + _DROPOUT_ARGS + [_INT, _PTR],
     ("mhla_band_fwd", "mhla_band_keep_bits"):
         [_PTR, ctypes.c_longlong, _INT, _INT, _UINT, _UINT, _INT, _PTR],
@@ -121,20 +125,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"band op runs on cpu or cuda, got {q.device}")
     d, s = q.shape[2], q.shape[3]
-    if not 1 <= window_size <= MAX_WINDOW:
-        raise ValueError(
-            f"band op supports 1 <= window_size <= {MAX_WINDOW}, got "
-            f"{window_size}"
-        )
+    if window_size < 1:
+        raise ValueError(f"band op needs window_size >= 1, got {window_size}")
     if s <= 2 * window_size:
         raise ValueError(
             f"band op needs S > 2*W (got S={s}, W={window_size}); the gather "
             f"form covers shorter sequences"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"band op supports head dims {HEAD_DIMS}, got {d}")
+    if q.device.type == "cuda":
+        _check_kernel_range(d, window_size)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("band op needs contiguous q, k, v")
+
+
+def _check_kernel_range(d: int, window_size: int) -> None:
+    """The kernels' range: W <= 129 (JAX's roll band's rule and message)
+    and head dims that are multiples of 8 in [8, 256]."""
+    if window_size > MAX_WINDOW:
+        raise ValueError(
+            f"band op supports window_size <= {MAX_WINDOW} (got "
+            f"{window_size}); use the shift path for wider windows"
+        )
+    if not (MIN_HEAD_DIM <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0):
+        raise ValueError(
+            f"the band kernels support head dims that are multiples of "
+            f"{HEAD_DIM_STEP} in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}], got {d}"
+        )
 
 
 def _dropout_args(rate: float, seed) -> tuple[float, int]:
@@ -245,14 +261,26 @@ def plain_band_backward(q, k, v, g, wts, window_size: int, rate: float = 0.0,
 # --- kernels ----------------------------------------------------------------
 
 
+# Slots the kernels hold in registers (csrc: kMaxSlots); past it, groups.
+_MAX_SLOTS = 16
+
+
 def _launch_forward(q, k, v, w: int, rate: float, seed: int, save: bool):
     b, h, d, s = q.shape
     fn = _kernel("mhla_band_fwd", "mhla_band_fwd")
     out = torch.empty_like(q)
     wts = (torch.empty(b * h, w, s, dtype=torch.float32, device=q.device)
            if save else None)
+    # Past 16 slots the kernel writes the logits, then the weights it
+    # applies, to f32 [B*h, W, S]: the saved weights themselves when they
+    # are the ones applied (training without dropout), scratch otherwise.
+    scratch = None
+    if w > _MAX_SLOTS and (wts is None or rate > 0.0):
+        scratch = torch.empty(b * h, w, s, dtype=torch.float32,
+                              device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if wts is None else wts.data_ptr(), b * h, d, s, w,
+             None if wts is None else wts.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), b * h, d, s, w,
              int(q.dtype == torch.bfloat16), d ** -0.5,
              *_kernel_dropout_args(rate, seed), *_stream_args(q))
     _check_launch(err, "mhla_band_fwd", q, w)

@@ -219,15 +219,100 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         band.band_forward_train(q.transpose(2, 3).contiguous().transpose(
             2, 3), q, q, 7)
     with pytest.raises(ValueError):  # window
-        band.band_forward_train(q, q, q, band.MAX_WINDOW + 1)
+        x = torch.zeros(1, 2, 16, 300, device=cuda)
+        band.band_forward_train(x, x, x, band.MAX_WINDOW + 1)
     with pytest.raises(ValueError):  # head dim
-        x = torch.zeros(1, 2, 24, 40, device=cuda)
+        x = torch.zeros(1, 2, 20, 40, device=cuda)
         band.band_forward_train(x, x, x, 7)
     with pytest.raises(TypeError):  # dtype
         x = q.half()
         band.band_backward(x, x, x, x, wts, 7)
     with pytest.raises(ValueError):  # saved weights on the wrong device
         band.band_backward(q, q, q, q, wts.cpu(), 7)
+
+
+# The kernels' range: every head dim that is a multiple of 8 up to
+# 256 and every window up to JAX's roll-band limit of 129; a short list of
+# each, on both sides of the slot groups (16 | 17) and at the limit.
+RANGE_HEAD_DIMS = (16, 24, 64, 80, 128, 256)
+RANGE_WINDOWS = (7, 17, 64, 129)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", RANGE_WINDOWS)
+@pytest.mark.parametrize("d", RANGE_HEAD_DIMS)
+def test_band_kernels_across_head_dims_and_windows(cuda, d, w, dtype, rate):
+    """Eval forward, training forward (output, saved weights, mask) and
+    backward against their plain versions at the head dims and windows the
+    kernels now take, S = 1001 (two tiles, every channel row at its own
+    offset within 16 bytes): the tolerances of the grid above. The backward
+    runs twice with the same bits."""
+    s = 1001
+    q, k, v, g = _inputs(cuda, (1, 2, d, s), dtype, n=4, seed=d + w)
+    seed = 2**33 + 7 if rate else None
+    band.reset_launch_count()
+    with torch.no_grad():
+        lean = band.roll_banded_attention(q, k, v, w, (rate, seed))
+    out, wts = band.band_forward_train(q, k, v, w, rate, seed)
+    grads = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    again = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    torch.cuda.synchronize()
+    assert [band.launch_count(kind) for kind in band.LAUNCH_KINDS] == [1, 1, 2]
+    ref_out, ref_wts = band.plain_band_forward_train(q, k, v, w, rate, seed)
+    ref_grads = band.plain_band_backward(q, k, v, g, wts, w, rate, seed)
+    _close(lean, ref_out, dtype, 1e-5)
+    _close(out, ref_out, dtype, 1e-5)
+    torch.testing.assert_close(wts, ref_wts, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert got.dtype == dtype and torch.equal(got, rerun)
+        _close(got, want, dtype, 1e-4, bf16_atol=1e-4)
+
+
+@pytest.mark.parametrize("w", RANGE_WINDOWS)
+def test_band_wide_windows_at_the_row_edges(cuda, w):
+    """Rows no longer than a few windows (S = 2W + 1, and one tile past a
+    tile edge, S = 513): the edge rule fills whole slot groups from rows 0
+    and S-1, and the backward folds them back."""
+    for s in (2 * w + 1, 513):
+        if s <= 2 * w:
+            continue
+        q, k, v, g = _inputs(cuda, (1, 2, 80, s), torch.float32, n=4, seed=s)
+        out, wts = band.band_forward_train(q, k, v, w, 0.1, 3)
+        grads = band.band_backward(q, k, v, g, wts, w, 0.1, 3)
+        ref_out, ref_wts = band.plain_band_forward_train(q, k, v, w, 0.1, 3)
+        ref_grads = band.plain_band_backward(q, k, v, g, wts, w, 0.1, 3)
+        torch.cuda.synchronize()
+        _close(out, ref_out, torch.float32, 1e-5)
+        torch.testing.assert_close(wts, ref_wts, atol=1e-5, rtol=0)
+        for got, want in zip(grads, ref_grads):
+            _close(got, want, torch.float32, 1e-4)
+
+
+def test_band_keep_bits_past_16_slots(cuda):
+    """The kernels' dropout words at W = 17 and 129 are the plain
+    generator's (groups of 4 slots a Philox draw)."""
+    for w in (17, 129):
+        got = band.keep_bits(3, w, 300, 2**40 + 9, cuda)
+        assert torch.equal(got.cpu(), band.keep_bits(3, w, 300, 2**40 + 9,
+                                                     "cpu"))
+
+
+def test_band_kernels_reject_outside_their_range(cuda):
+    """On a CUDA tensor the op raises past W = 129 (JAX's roll-band rule
+    and message) and at head dims that are not multiples of 8 in [8, 256];
+    it never runs the plain version instead."""
+    band.reset_launch_count()
+    x = torch.zeros(1, 2, 16, 300, device=cuda)
+    with pytest.raises(ValueError, match="window_size <= 129"):
+        band.roll_banded_attention(x, x, x, 130)
+    for d in (20, 264):
+        x = torch.zeros(1, 2, d, 40, device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            band.roll_banded_attention(x, x, x, 7)
+        with pytest.raises(ValueError, match="head dims"):
+            band.band_forward_train(x, x, x, 7)
+    assert [band.launch_count(kind) for kind in band.LAUNCH_KINDS] == [0, 0, 0]
 
 
 # --- flash attention ------------------------------------------------------------
@@ -288,6 +373,61 @@ def test_flash_kernels_match_plain(cuda, dtype, d, s):
     for got, rerun, want in zip(grads, again, ref_grads):
         assert got.dtype == dtype and torch.equal(got, rerun)
         _flash_close(got, want, dtype, 1e-4, max_ulps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [65, 577])
+@pytest.mark.parametrize("d", RANGE_HEAD_DIMS)
+def test_flash_kernels_across_head_dims(cuda, d, s, dtype):
+    """The head dims the kernels now take (padded to a tile width: 24 to
+    32; 80, 256 exact) at a ragged tile (S = 65) and ViT-B/16's S = 577:
+    the grid's tolerances; the backward runs twice with the same bits."""
+    q, k, v, g = _inputs(cuda, (1, 3, s, d), dtype, n=4, seed=s + d)
+    with torch.no_grad():
+        lean = flash.flash_attention(q, k, v)
+    out, lse = flash.flash_forward_train(q, k, v)
+    grads = flash.flash_backward(q, k, v, out, lse, g)
+    again = flash.flash_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash.plain_flash_forward(q, k, v)
+    ref_grads = flash.plain_flash_backward(q, k, v, out, lse, g)
+    assert torch.equal(lean, out)
+    _flash_close(out, ref_out, dtype, 1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert got.dtype == dtype and torch.equal(got, rerun)
+        _flash_close(got, want, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("d", [24, 80, 256])
+def test_flash_padded_head_dims_read_no_other_head(cuda, d):
+    """At a padded or new tile width the zero-filled columns past d and
+    rows past S never take the next head's values: head 1 holds NaN, head
+    0 comes out finite and equal to its plain version."""
+    s = 65
+    q, k, v, g = _inputs(cuda, (1, 2, s, d), torch.bfloat16, n=4, seed=d)
+    for x in (q, k, v, g):
+        x[0, 1] = float("nan")
+    head = [x[:, :1].contiguous() for x in (q, k, v, g)]
+    out, lse = flash.flash_forward_train(q, k, v)
+    grads = flash.flash_backward(q, k, v, out, lse, g)
+    ref_out, _ = flash.plain_flash_forward(*head[:3])
+    ref_grads = flash.plain_flash_backward(*head[:3], out[:, :1].contiguous(),
+                                           lse[:, :1].contiguous(), head[3])
+    torch.cuda.synchronize()
+    _flash_close(out[:, :1], ref_out, torch.bfloat16, 0.0)
+    for got, want in zip(grads, ref_grads):
+        assert torch.isfinite(got[:, :1]).all()
+        _flash_close(got[:, :1], want, torch.bfloat16, 0.0)
+
+
+def test_flash_kernels_reject_outside_their_range(cuda):
+    flash.reset_launch_count()
+    for d in (20, 264):
+        x = torch.zeros(1, 2, 40, d, device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            flash.flash_attention(x, x, x)
+    assert [flash.launch_count(k) for k in flash.LAUNCH_KINDS] == [0, 0, 0]
 
 
 def test_flash_launch_counters_and_gradients(cuda):
@@ -373,7 +513,7 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         x = q.transpose(2, 3).contiguous().transpose(2, 3)
         flash.flash_attention(x, x, x)
     with pytest.raises(ValueError):  # head dim
-        x = torch.zeros(1, 2, 40, 24, device=cuda)
+        x = torch.zeros(1, 2, 40, 20, device=cuda)
         flash.flash_attention(x, x, x)
     with pytest.raises(TypeError):  # dtype
         x = q.half()

@@ -378,7 +378,9 @@ def test_flash_sources_use_wgmma_and_asynchronous_copies(name):
     assert "cp.async.bulk.tensor" in text
     assert "mbarrier::complete_tx" in text and "mbarrier.try_wait" in text
     assert re.search(r"Wgmma<\w+>::ss\(", own)
-    assert re.search(r"Wgmma<\w+>::rs\(", own)
+    # Register-A products: Wgmma<N>::rs, or hopper_common's rs_cols, which
+    # issues them over a tile of more columns than one product takes.
+    assert re.search(r"Wgmma<\w+>::rs\(|rs_cols<", own)
     assert "load_tile<" in own and "mbar_wait(" in own
     for old in ("mma_bf16", "ldsm_x4", "load_b_trans", "flash::load_tile<",
                 "mma.sync"):
@@ -444,8 +446,8 @@ BAND_STAGING_PATTERNS = [
     (r"\], 16;", True),                         # of 16 bytes
     (r"cp\.async\.wait_group", True),
     (r"reinterpret_cast<uint4\*>", True),  # 16-byte stores of the results
-    (r"launch_d<T, D, 8>", True),          # the slot cap 8 at W <= 8
-    (r"launch_d<T, D, kMaxWindow>", True),  # and 16 past it
+    (r"launch_w<T, 8>", True),          # the slot cap 8 at W <= 8
+    (r"launch_w<T, kMaxSlots>", True),  # 16 past it, then groups of 16
     (r"\batomic\w*\(", False),             # sums in a fixed order
     (r"\batom\.", False),
     (r"\bred\.", False),

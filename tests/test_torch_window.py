@@ -113,20 +113,25 @@ def test_band_op_bf16_plain_rounds_once():
 
 @pytest.mark.parametrize("case,err", [
     ("short", ValueError),
-    ("wide", ValueError),
-    ("head_dim", ValueError),
+    ("wide", None),      # W = 17: computed on the CPU
+    ("head_dim", None),  # d = 24: computed on the CPU
     ("strided", ValueError),
     ("dtype", TypeError),
     ("rank", ValueError),
 ])
 def test_band_op_rejects(case, err):
+    """What the band op refuses on a CPU tensor; a window past 16 and a head
+    dim outside the kernels' old instantiations are computed there (as
+    JAX's shift band computes them), equal to the plain version. Their
+    rejection on a CUDA tensor (W > 129, d not a multiple of 8) is in
+    tests/test_torch_gpu.py."""
     s, w, d = 40, 7, 16
     shape = (1, 2, d, s)
     dtype = torch.float32
     if case == "short":
         shape = (1, 2, d, 2 * w)
     elif case == "wide":
-        w = band.MAX_WINDOW + 1
+        w = 17
     elif case == "head_dim":
         shape = (1, 2, 24, s)
     elif case == "dtype":
@@ -136,6 +141,14 @@ def test_band_op_rejects(case, err):
     q, k, v = (torch.zeros(shape, dtype=dtype) for _ in range(3))
     if case == "strided":
         q = torch.zeros(1, 2, s, d).transpose(2, 3)
+    if err is None:
+        q, k, v = map(torch.from_numpy, _qkv(w + shape[2], shape))
+        before = band.launch_count()
+        got = band.roll_banded_attention(q, k, v, w)
+        assert band.launch_count() == before
+        torch.testing.assert_close(
+            got, band.plain_banded_attention(q, k, v, w), atol=0, rtol=0)
+        return
     with pytest.raises(err):
         band.roll_banded_attention(q, k, v, w)
 
