@@ -239,7 +239,7 @@ group:
     against the plain Predictor's on the same requests, K1 12 x the
     forward passes.
 
-Two groups of phases run right after kernel-train, at ViT-H/14's
+Four groups of phases run right after kernel-train, at ViT-H/14's
 widths (D=1280, 32 blocks, 16 heads of d=80, patch 14) on 518x518 images
 (S=1370), batch 8:
 
@@ -254,12 +254,27 @@ widths (D=1280, 32 blocks, 16 heads of d=80, patch 14) on 518x518 images
     W=129 and for dense ViT-H/14, with weights from a seeded tree in the
     JAX package's Flax layout through ``convert/from_jax.py``: the model
     cut to 2 blocks on the card against the CPU (f32 logits within 1e-3,
-    bf16 probabilities within 1e-2), then the 32-block model served by
-    ``serve.setup`` with the width flags through ``BatchingServer`` and one
-    ``POST /predict`` (the eval kernel 32 x the forward passes), MHLA-H/14
-    W=7 exported and served from its artifact bit-equal to the live path,
-    and 3 train steps (losses finite and falling; the training forward and
-    the backward 32 x the steps).
+    bf16 probabilities within 1e-2), then the model cut to 8 blocks served
+    by ``serve.setup`` with the width flags through ``BatchingServer`` and
+    one ``POST /predict`` (the eval kernel 8 x the forward passes),
+    MHLA-H/14 W=7 exported and served from its artifact bit-equal to the
+    live path, and 3 train steps (losses finite and falling; the training
+    forward and the backward 8 x the steps);
+44. kernel-h14-optin: the opt-in kernels at ViT-H/14's shapes, in f32 and
+    bf16 against their plain versions: K3 (eval, training at dropout 0 and
+    0.1, the dropout words) and K4 at B*h=128, S in 65 and 257 (and 64 at
+    d=256), d in 24, 80, 256 (kernel-fused's loose-case rule: 3 ulps and
+    the rms bound); K6, K7 and K8 at B*h=128, S=1370, the same head dims,
+    W in 7, 17, 64, 129 (kernel-tileband's rule); each bf16 form timed
+    beside its plain version, its bound and PyTorch's fused attention;
+45. h14-model, h14-serve, export and h14-train through the opt-in
+    kernels, at 32 blocks: dense ViT-H/14 at 224x224 (S=257) with
+    ``FAVIT_FUSED_MHA=1`` (K3's eval form 32 x the forward passes, K3's
+    training form and K4 32 x the steps, the flash op and K1/K2 never),
+    MHLA-H/14 through the tile band at W=7 and W=129 (K6 32 x the passes,
+    K7 32 x the steps, K1/K2 never; trained without attention dropout),
+    W=129 also exported and served from its artifact bit-equal to the
+    live path.
 
 A ``[time]`` line after each group of phases gives the seconds since the
 start.
@@ -271,7 +286,9 @@ dropout for K1's training form, its backward for K2) and the backward of
 K6's boolean band-mask call for K7.
 
 Every launch count is set to 0 just before its path is driven and read just
-after. The line before the last is a JSON summary of the twelve kernels, each
+after. The line before the last is a JSON summary of the twelve kernels
+and of the new widths' rows (K3/K4 at d=80; K6/K7 at d=80, W=7 and 129;
+K8 at W=129), each
 with its time, its plain version's, the least time the card could take
 (``bound_ms``, from this run's shapes) and the library call's where PyTorch
 has one; the last line is ``{"ok": true, "device": {...}}``. Run from the
@@ -541,6 +558,7 @@ def phase_build() -> None:
             _flash_ptxas(lib, text)
         if lib.name.startswith("libfused_mha_"):
             _fused_ptxas(lib, text)
+            _fused_wide_ptxas(lib, text)
         if lib.name == "libmhla_band_fwd.so":
             _band_fwd_ptxas(lib, text)
         if lib.name == "libmhla_band_bwd.so":
@@ -619,6 +637,38 @@ def _fused_ptxas(lib: Path, text: str) -> None:
         raise AssertionError(f"{kernel}<{d}> spills {spills} bytes")
 
 
+# The fused kernels' tile widths past the four of the whole-row backward.
+FUSED_NEW_WIDTHS = (80, 192, 256)
+
+
+def _fused_wide_ptxas(lib: Path, text: str) -> None:
+    """Log ptxas's registers and spills of the fused source's bf16 kernels
+    at the tile widths 80, 192 and 256 (the whole-row forward at each count
+    of key chunks, the flash blocks with the mask, the backward's dkv parts
+    and dq): reported, not held (the widest flash blocks spill, PERF.md);
+    raise if a width has no kernel."""
+    got = {}
+    for m in re.finditer(
+            r"Function properties for \S*?(fused_(?:fwd|bwd)_\w+?_wgmma)"
+            r"ILi(\d+)E(?:Li(\d+)E|Lb(\d)E)?\S*\n\s*\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores.*\n.*?Used (\d+) registers", text):
+        name, d, n, flag, spills, regs = m.groups()
+        if int(d) in FUSED_NEW_WIDTHS:
+            key = (int(d), name + (f"<{n}>" if n else ""))
+            got[key] = (int(regs), int(spills))
+    missing = [w for w in FUSED_NEW_WIDTHS if not any(k[0] == w for k in got)]
+    if missing:
+        raise AssertionError(f"no ptxas report of {lib.name}'s kernels at "
+                             f"tile widths {missing}")
+    for w in FUSED_NEW_WIDTHS:
+        rows = {k[1]: v for k, v in got.items() if k[0] == w}
+        regs = [r for r, _ in rows.values()]
+        spills = {n: sp for n, (_, sp) in rows.items() if sp}
+        log("build", f"ptxas {lib.name} at tile width {w}: {len(rows)} bf16 "
+                     f"kernels, registers {min(regs)}-{max(regs)}, spill "
+                     f"stores (bytes) {spills or 'none'}")
+
+
 def _band_fwd_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's registers and spills and the dynamic shared memory of
     every K1 instantiation (per dtype, slot cap 8 or 16 or the wide kernel's
@@ -690,37 +740,53 @@ def _band_bwd_ptxas(lib: Path, text: str) -> None:
                              if t_ == dt and k_ == kind))
 
 
+# The tile widths of the tile-band sources (flash_common.cuh tile_width).
+TILE_WIDTHS = (16, 32, 64, 80, 128, 192, 256)
+# The ring kernels' head dims (hw <= 16): the MHLA-B/4 and E5/E6 paths'.
+TILE_RING_DIMS = (16, 32, 64, 128)
+
+
 def _tile_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's registers, spills and shared memory of every
-    instantiation of a tile-band source, K6/K8 (bf16 and f32, each head dim,
-    rows and tiles) or K7 (bf16 and f32, each head dim); raise if one is
-    missing or spills."""
+    instantiation of a tile-band source: K6/K8's ring kernels (bf16, the
+    four ring head dims, rows and tiles), wide kernels (bf16, every tile
+    width, rows and tiles) and f32 kernels (every tile width), or K7's ring
+    kernels, the wide band and keys kernels (every tile width) and the f32
+    kernel. Raise if one is missing, or if a bf16 kernel or an f32 kernel
+    up to D = 128 spills; the f32 kernels past 128 are reported (they keep
+    their rows of D floats in local memory by design)."""
     fwd = lib.name == "libmhla_tile_band_fwd.so"
     kind, what = ("fwd", "K6/K8") if fwd else ("bwd", "K7")
     smem = tile._kernel(f"mhla_tile_band_{kind}",
                         f"mhla_tile_band_{kind}_smem")
     found = {}
     for m in re.finditer(
-            rf"Function properties for \S*?tile_band_{kind}_(mma|f32)"
-            r"ILi(\d+)E(?:Lb(\d)E)?\S*\n\s*\d+ bytes stack frame, (\d+) "
-            r"bytes spill stores.*\n.*?Used (\d+) registers"
-            r"(?:.*?(\d+) bytes smem)?", text):
+            rf"Function properties for \S*?tile_band_{kind}_"
+            r"(mma|f32|wide_band|wide_keys|wide)(?:ILi(\d+)E)?(?:Lb(\d)E)?"
+            r"\S*\n\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
+            r".*?Used (\d+) registers(?:.*?(\d+) bytes smem)?", text):
         k, d, tiles, spills, regs, static = m.groups()
-        dt = "bf16" if k == "mma" else "f32"
-        key = (dt, int(d), "K8" if tiles == "1" else "K6") if fwd else (
-            dt, int(d))
-        found[key] = (int(regs), int(spills), int(static or 0),
-                      smem(int(d)) if dt == "bf16" else 0)
-    expected = 2 * len(tile.HEAD_DIMS) * (2 if fwd else 1)
+        d = int(d or 0)
+        line = ("K8" if tiles == "1" else "K6") if fwd else ""
+        # The dynamic shared memory at the widest halo a kernel takes (the
+        # ring kernels' 16, the wide ones' 64).
+        dyn = {"mma": lambda: smem(d, 16), "wide": lambda: smem(d, 64),
+               "wide_band": lambda: smem(d, 64),
+               "wide_keys": lambda: smem(d, 64)}.get(k, lambda: 0)()
+        found[(k, d, line)] = (int(regs), int(spills), int(static or 0), dyn)
+    expected = (2 * len(TILE_RING_DIMS) + 4 * len(TILE_WIDTHS) if fwd
+                else len(TILE_RING_DIMS) + 2 * len(TILE_WIDTHS) + 1)
     if len(found) != expected:
         raise AssertionError(f"ptxas reports {len(found)} of {what}'s "
                              f"{expected} instantiations in "
                              f"{lib.parent / 'build.log'}")
-    log("build", f"ptxas {what} (dtype d{' kernel' if fwd else ''}: "
-                 f"registers, spill bytes, static and dynamic smem): "
-        + "; ".join(f"{' '.join(map(str, key))}: {r}, {sp}, {st}, {dy}"
-                    for key, (r, sp, st, dy) in sorted(found.items())))
-    spilled = {key: v[1] for key, v in found.items() if v[1]}
+    log("build", f"ptxas {what} (kernel D{' line' if fwd else ''}: "
+                 f"registers, spill bytes, static smem, dynamic smem at the "
+                 f"kernel's widest halo): " + "; ".join(
+                     f"{k} {d}{' ' + ln if ln else ''}: {r}, {sp}, {st}, {dy}"
+                     for (k, d, ln), (r, sp, st, dy) in sorted(found.items())))
+    spilled = {key: v[1] for key, v in found.items()
+               if v[1] and (key[0] != "f32" or key[1] <= 128)}
     if spilled:
         raise AssertionError(f"{what} spills (bytes): {spilled}")
 
@@ -1041,7 +1107,7 @@ def phase_kernel_tileband() -> dict:
     windows = (3, 4, 7, 15, 33)
     for dtype in (torch.float32, torch.bfloat16):
         dt = "f32" if dtype == torch.float32 else "bf16"
-        for d in tile.HEAD_DIMS:
+        for d in TILE_RING_DIMS:
             worst, texts = {}, {}
             for w in windows:
                 for s in (2 * w + 1, 197, 1000, 3137):
@@ -3918,7 +3984,7 @@ E1_FUSED = ModelPath("e1-fused-", "ViT-B/16 (FAVIT_FUSED_MHA=1)",
 def phase_export(path: ModelPath, cpu_model, state_dict=None,
                  geom_flags=(), img: int = 224, batch: int = EXPORT_BATCH,
                  sizes=EXPORT_SIZES, depth: int = DEPTH, patch=None,
-                 name=None) -> dict:
+                 name=None, bit_equal: bool = False) -> dict:
     """``serve --export_artifact`` on ``path``'s model at full width with
     ``cpu_model``'s weights, in bf16 at batch 32 on the card, then ``serve
     --from_export``: the artifact's probabilities against the live
@@ -3931,7 +3997,8 @@ def phase_export(path: ModelPath, cpu_model, state_dict=None,
     times. ``state_dict``, ``geom_flags``, ``img``, ``batch``, ``sizes``,
     ``depth``, ``patch`` and ``name`` set another model (ViT-H/14: its
     weights in place of ``cpu_model``'s, its width flags, 518x518 requests,
-    batch 8, 32 blocks, patch 14)."""
+    batch 8, 32 blocks, patch 14); with ``bit_equal`` the artifact's
+    probabilities must equal the live path's bit for bit."""
     phase = path.phase("export")
     name = name or path.name
     rng = np.random.default_rng(6)
@@ -3982,7 +4049,7 @@ def phase_export(path: ModelPath, cpu_model, state_dict=None,
                f"the live Predictor bit-equal: {equal}, max |d probs| {dp:.3g} "
                f"(tol {EXPORT_PROBS_TOL}); {path.op_name} launches "
                f"{launches} inside the ops for {passes} forward passes")
-    if dp > EXPORT_PROBS_TOL:
+    if dp > EXPORT_PROBS_TOL or (bit_equal and not equal):
         raise AssertionError(f"{phase}: the artifact disagrees with the live "
                              f"path")
     if launches != depth * passes:
@@ -4216,8 +4283,10 @@ H14_WINDOWS = (7, 17, 64, 129)
 H14_WIDE_W = 129
 # A padded head dim (24 -> 32), ViT-H/14's, and the widest.
 H14_FLASH_DIMS = (24, 80, 256)
-H14_FLAGS = ("--embed_dim", str(H14_DIM), "--depth", str(H14_DEPTH),
-             "--num_heads", str(H14_HEADS))
+# The default paths' ViT-H/14 models (K1/K2, K5) run cut to 8 of the 32
+# blocks, to hold the smoke's time as the opt-in paths (32 blocks) joined
+# it; their kernels run at full width either way.
+H14_DEFAULT_DEPTH = 8
 H14_STEPS = 3
 H14_SIZES = (1, 8, 12)  # requests; 12 takes two batches of 8
 
@@ -4429,13 +4498,265 @@ def phase_kernel_h14() -> dict:
     return result
 
 
-def _h14_flax_tree(mhla: bool, depth: int, seed: int) -> dict:
+# --- ViT-H/14 through the opt-in kernels (K3/K4, K6/K7/K8) at JAX's range --
+
+# K3/K4 at B*h = 128 (batch 8 x 16 heads), S = 65 and 257 (ViT-H/14 at
+# 224^2): the whole-row kernel at S = 65 up to D = 128 and the flash blocks
+# with the mask past it and at 257; S = 64 at d = 256 takes the whole-row
+# kernel there. K6/K7/K8 at MHLA-H/14's band, B*h = 128, S = 1370, at the
+# four windows of kernel-h14 (JAX's halo 16, 32, 64, 64). Head dims: a padded
+# one (24 -> 32), ViT-H/14's and the widest.
+H14_OPTIN_DIMS = (24, 80, 256)
+H14_FUSED_SEQS = (65, 257)
+H14_FUSED_IMG = 224
+H14_FUSED_S = (H14_FUSED_IMG // H14_PATCH) ** 2 + 1
+
+
+def _optin_check(failures, where, res):
+    """Record the forms of ``res`` that missed their rule."""
+    bad = [f"{n} {t}" for n, (_, ok, t) in res.items() if not ok]
+    if bad:
+        failures.append(f"{where}: {bad}")
+
+
+def _tile_times(q, k, v, g, w, gen, reps=10):
+    """bf16 K6, K7 and K8 (on prebuilt window tiles) beside their plain
+    versions and PyTorch's fused attention on the window tiles with the band
+    as a boolean mask (and its backward for K7), CUDA-event medians; with
+    the window tiles' bytes for K8's bound."""
+    import torch.nn.functional as F  # the library call, timed as a yardstick
+
+    bh, s, d = q.shape
+    hw = w // 2
+    halo = tile._halo(tile.DEFAULT_BLOCK, hw)
+    t = max(2 * halo, min(tile.DEFAULT_BLOCK, -(-s // 8) * 8))
+    sp = -(-s // t) * t
+    ke, ve = (tile._window_tiles(x, t, halo, sp) for x in (k, v))
+    qt = tile._pad_seq(q, 0, sp - s).reshape(bh, sp // t, t, d).contiguous()
+    mask = tile._band_mask(t, t + 2 * halo, halo, hw, "cuda")
+    with torch.no_grad():
+        times = {
+            "fwd": cuda_median_ms(lambda: tile.tile_band_forward(q, k, v, w),
+                                  reps),
+            "bwd": cuda_median_ms(
+                lambda: tile.tile_band_backward(q, k, v, g, w), reps),
+            "fwd_b": cuda_median_ms(
+                lambda: tile.window_tile_band(qt, ke, ve, w), reps),
+            "fwd_plain": cuda_median_ms(
+                lambda: tile.plain_tile_band_forward(q, k, v, w), 3, 1),
+            "bwd_plain": cuda_median_ms(
+                lambda: tile.plain_bwd_rule(q, k, v, g, w), 3, 1),
+            "fwd_b_plain": cuda_median_ms(
+                lambda: tile.plain_window_tile_band(qt, ke, ve, w), 3, 1),
+            "library": cuda_median_ms(lambda: F.scaled_dot_product_attention(
+                qt, ke, ve, attn_mask=mask), reps),
+        }
+    gt = torch.randn(qt.shape, device="cuda", generator=gen).to(q.dtype)
+    times["library_bwd"] = backward_ms(
+        lambda *a: F.scaled_dot_product_attention(*a, attn_mask=mask),
+        (qt, ke, ve), gt)
+    tile_bytes = sum(x.numel() * x.element_size() for x in (qt, ke, ve, qt))
+    tile_pairs = qt.numel() // d * (2 * hw + 1) * d
+    return times, tile_bytes, tile_pairs, t
+
+
+def phase_kernel_h14_optin() -> dict:
+    """The opt-in kernels at ViT-H/14's shapes and JAX's range: K3 (eval,
+    training at dropout 0 and 0.1) and K4 at B*h = 128, S in H14_FUSED_SEQS
+    (and 64 at d = 256), d in H14_OPTIN_DIMS, with the dropout words
+    against the plain generator; K6, K7 (folded) and K8 at B*h = 128,
+    S = 1370, d in H14_OPTIN_DIMS, W in H14_WINDOWS; each in f32 and bf16
+    against its plain version by the rules of kernel-fused and
+    kernel-tileband, and each bf16 form timed beside its plain version, its
+    bound and PyTorch's fused attention. Returns {"fused": {(d, S): forms},
+    "tile": {(d, W): forms}, "fwd_b_launches": K8's launches}."""
+    import torch.nn.functional as F  # the library call, timed as a yardstick
+
+    phase = "kernel-h14-optin"
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    failures = []
+
+    def inputs(shape, dtype):
+        return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(4)]
+
+    seed = 2**41 + 20
+    rate = TRAIN_DROPOUT
+    result = {"fused": {}, "tile": {}}
+    cases = [(d, s) for d in H14_OPTIN_DIMS for s in H14_FUSED_SEQS]
+    for d, s in cases + [(256, 64)]:
+        shape = (H14_BATCH, H14_HEADS, s, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            q, k, v, g = inputs(shape, dtype)
+            # kernel-fused's rule for its loose cases: FUSED_LOOSE_ULPS entry
+            # by entry (a 10^6-entry bf16 tensor's worst entry lies in the
+            # tail of the weights' rounding noise) and the rms bound.
+            res = {}
+            for r, sd in ((0.0, None), (rate, seed)):
+                for n, x in _compare_fused(q, k, v, g, r, sd,
+                                           FUSED_LOOSE_ULPS).items():
+                    res[f"{n}@{r}"] = x
+            _optin_check(failures, f"fused {shape} {dt}", res)
+            log(phase, f"fused B,h,S,d={shape} {dt}, dropout 0 and {rate}: "
+                       f"max abs err " + ", ".join(
+                           f"{n} {t}" for n, (_, _, t) in res.items()))
+            if dtype == torch.float32 or (d, s) not in cases:
+                continue
+            out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
+            again = [fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+                     for _ in range(2)]
+            if not all(torch.equal(a, b_) for a, b_ in zip(*again)):
+                raise AssertionError(f"{phase}: two fused backward runs "
+                                     f"differ at {shape}")
+            del again
+            with torch.no_grad():
+                times = {
+                    "fwd": cuda_median_ms(
+                        lambda: fused.fused_multi_head_attention(q, k, v),
+                        30, batch=10),
+                    "fwd_train": cuda_median_ms(
+                        lambda: fused.fused_mha_forward_train(q, k, v, rate,
+                                                              seed),
+                        30, batch=10),
+                    "bwd": cuda_median_ms(
+                        lambda: fused.fused_mha_backward(
+                            q, k, v, out, lse, g, rate, seed), 30, batch=10),
+                    "fwd_plain": cuda_median_ms(
+                        lambda: fused.plain_fused_mha_forward(q, k, v), 5, 1),
+                    "fwd_train_plain": cuda_median_ms(
+                        lambda: fused.plain_fused_mha_forward(q, k, v, rate,
+                                                              seed), 5, 1),
+                    "bwd_plain": cuda_median_ms(
+                        lambda: fused.plain_fused_mha_backward(
+                            q, k, v, g, rate, seed, out=out), 5, 1),
+                    "fwd_library": cuda_median_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v), 30,
+                        batch=10),
+                }
+            times.update(_fused_library_times(q, k, v, g, rate, 30, 10))
+            errs = {n: e for n, (e, _, _) in res.items()}
+            one = q.numel() * q.element_size()
+            pairs = H14_BATCH * H14_HEADS * s * s * d
+            # The bounds of kernel-fused: q, k, v in and out back, two
+            # products forward; q, k, v, g in and dq, dk, dv back, five
+            # backward.
+            result["fused"][(d, s)] = dict(
+                fwd=dict(max_abs_err=errs["out_eval@0.0"], ms=times["fwd"],
+                         plain_ms=times["fwd_plain"],
+                         library_ms=times["fwd_library"],
+                         **least_time(4 * one, 4 * pairs)),
+                fwd_train=dict(
+                    max_abs_err=max(errs[f"{n}@{r}"] for n in ("out", "lse")
+                                    for r in (0.0, rate)),
+                    ms=times["fwd_train"], plain_ms=times["fwd_train_plain"],
+                    library_ms=times["fwd_train_library"],
+                    **least_time(4 * one, 4 * pairs)),
+                bwd=dict(
+                    max_abs_err=max(errs[f"{n}@{r}"]
+                                    for n in ("dq", "dk", "dv")
+                                    for r in (0.0, rate)),
+                    ms=times["bwd"], plain_ms=times["bwd_plain"],
+                    library_ms=times["bwd_library"],
+                    **least_time(7 * one, 10 * pairs)),
+            )
+            log(phase, f"fused d={d} S={s} bf16, kernel / plain / PyTorch's "
+                       f"fused attention, ms (CUDA-event medians of 30 "
+                       f"batches of 10, plain of 5; dropout {rate} in the "
+                       f"training forms; two backward runs bit-identical): "
+                       + "; ".join(
+                           f"{kind} {r['ms']:.4f} / {r['plain_ms']:.4f} / "
+                           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                           f"({r['bound_by']})"
+                           for kind, r in result["fused"][(d, s)].items()))
+            del q, k, v, g, out, lse
+            torch.cuda.empty_cache()
+    for s in H14_FUSED_SEQS:
+        rows = H14_BATCH * H14_HEADS
+        bits = fused.keep_bits(rows, s, seed, "cuda")
+        if not torch.equal(bits, philox.mha_keep_bits(rows, s, seed, "cuda")):
+            raise AssertionError(f"{phase}: the fused kernels' dropout words "
+                                 f"differ from the plain generator's at S={s}")
+        log(phase, f"fused dropout words at B*h={rows}, S={s}: identical to "
+                   f"the plain generator's ({bits.numel()} words)")
+        del bits
+
+    tile.reset_launch_count()
+    bh = H14_BATCH * H14_HEADS
+    for d in H14_OPTIN_DIMS:
+        for w in H14_WINDOWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                dt = "f32" if dtype == torch.float32 else "bf16"
+                q, k, v, g = inputs((bh, H14_S, d), dtype)
+                res = _tile_compare(q, k, v, g, w)
+                _optin_check(failures,
+                             f"tile ({bh}, {H14_S}, {d}) W={w} {dt}", res)
+                log(phase, f"tile band B*h,S,d=({bh}, {H14_S}, {d}) W={w} "
+                           f"{dt}: max abs err " + ", ".join(
+                               f"{n} {t}" for n, (_, _, t) in res.items()))
+                if dtype == torch.float32:
+                    continue
+                first = tile.tile_band_backward(q, k, v, g, w)
+                second = tile.tile_band_backward(q, k, v, g, w)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b_) for a, b_ in zip(first,
+                                                               second)):
+                    raise AssertionError(f"{phase}: two K7 runs differ at "
+                                         f"d={d} W={w}")
+                del first, second
+                times, tile_bytes, tile_pairs, t = _tile_times(
+                    q, k, v, g, w, gen)
+                one = q.numel() * q.element_size()
+                pairs = bh * H14_S * (2 * (w // 2) + 1) * d
+                errs = {n: e for n, (e, _, _) in res.items()}
+                # kernel-tileband's bounds: K6 reads q, k, v and writes out
+                # (two products of 2 hw + 1 keys a query); K7 reads q, k, v,
+                # g and writes dq, dk, dv (five products); K8 reads the q
+                # tiles and both window tensors and writes the out tiles.
+                result["tile"][(d, w)] = dict(
+                    fwd=dict(max_abs_err=errs["fwd"], ms=times["fwd"],
+                             plain_ms=times["fwd_plain"],
+                             library_ms=times["library"],
+                             **least_time(4 * one, 4 * pairs)),
+                    bwd=dict(max_abs_err=max(errs[n] for n in ("dq", "dk",
+                                                               "dv")),
+                             ms=times["bwd"], plain_ms=times["bwd_plain"],
+                             library_ms=times["library_bwd"],
+                             **least_time(7 * one, 10 * pairs)),
+                    fwd_b=dict(max_abs_err=errs["fwd_b"], ms=times["fwd_b"],
+                               plain_ms=times["fwd_b_plain"],
+                               library_ms=times["library"],
+                               **least_time(tile_bytes, 4 * tile_pairs)),
+                )
+                log(phase, f"tile band d={d} W={w} bf16 (K8 on window tiles "
+                           f"of {t} + {2 * tile._halo(0, w // 2)} rows), "
+                           f"kernel / plain / PyTorch's fused attention on "
+                           f"the window tiles with the band as a mask, ms "
+                           f"(CUDA-event medians of 10, plain of 3; two K7 "
+                           f"runs bit-identical): " + "; ".join(
+                               f"{kind} {r['ms']:.4f} / {r['plain_ms']:.4f} "
+                               f"/ {r['library_ms']:.4f}, bound "
+                               f"{r['bound_ms']:.4f} ({r['bound_by']})"
+                               for kind, r in
+                               result["tile"][(d, w)].items()))
+                del q, k, v, g
+                torch.cuda.empty_cache()
+    result["fwd_b_launches"] = tile.launch_count("fwd_b")
+    if failures:
+        raise AssertionError(f"{phase}: kernels disagree with the plain "
+                             f"versions at " + "; ".join(failures))
+    return result
+
+
+def _h14_flax_tree(mhla: bool, depth: int, seed: int,
+                   img: int = H14_IMG) -> dict:
     """A seeded parameter tree in the JAX package's Flax layout (what a JAX
     checkpoint of the model holds): ViT-H/14's widths, ``depth`` blocks,
-    10 classes; weights N(0, 0.02^2), biases 0, LayerNorm scales 1."""
+    10 classes, the position table of ``img``; weights N(0, 0.02^2),
+    biases 0, LayerNorm scales 1."""
     gen = torch.Generator().manual_seed(seed)  # torch.randn: all cores
     dim, h, hd, mlp = H14_DIM, H14_HEADS, H14_HEAD_DIM, 4 * H14_DIM
-    tokens = (H14_IMG // H14_PATCH) ** 2 + 1
+    tokens = (img // H14_PATCH) ** 2 + 1
 
     def normal(*shape):
         return (torch.randn(shape, generator=gen) * 0.02).numpy()
@@ -4478,34 +4799,62 @@ def _without_latent(tree: dict) -> dict:
 
 
 class _H14:
-    """One of the three ViT-H/14 paths: label, model class and flag, its
-    window (None: dense), the op whose kernels it runs."""
+    """One of the ViT-H/14 paths: label, model class and flag, its window
+    (None: dense), the op whose kernels it runs (the default path's band
+    and flash op, or an opt-in op with the environment that switches it
+    on), the ops that must launch nothing on it, and its resolution."""
 
-    def __init__(self, label, w):
-        self.label, self.w = label, w
+    def __init__(self, label, w, op=None, env=None, idle=(), img=H14_IMG,
+                 depth=H14_DEPTH):
+        self.label, self.w, self.img, self.depth = label, w, img, depth
         self.mhla = w is not None
         self.cls = VisionTransformerMHLA if self.mhla else VisionTransformer
         self.flag = "vit_mhla" if self.mhla else "vit"
-        self.op = band if self.mhla else flash
-        self.path = MHLA if self.mhla else DENSE
+        self.op = op or (band if self.mhla else flash)
+        self.env, self.idle = env or {}, idle
+        self.path = (TILE if self.op is tile else MHLA if self.mhla
+                     else DENSE)
         self.to_sd = (flax_vit_mhla_to_state_dict if self.mhla
                       else flax_vit_to_state_dict)
+        # The kind its training forward counts under (K6 counts both).
+        self.train_kind = "fwd" if self.op is tile else "fwd_train"
+        self.s = (img // H14_PATCH) ** 2 + 1
 
     def build(self, depth, device, **kw):
         if self.mhla:
             kw["window_size"] = self.w
-        return self.cls(img_size=H14_IMG, patch_size=H14_PATCH,
+        return self.cls(img_size=self.img, patch_size=H14_PATCH,
                         num_classes=10, embed_dim=H14_DIM, depth=depth,
                         num_heads=H14_HEADS, device=device, **kw)
 
+    def check_idle(self, phase: str) -> None:
+        busy = {op.__name__: _counts(op) for op in self.idle}
+        if any(any(c.values()) for c in busy.values()):
+            raise AssertionError(f"{phase}: ops that {self.label} must not "
+                                 f"run were launched: {busy}")
+
     def flags(self):
-        return [*H14_FLAGS, *(("--window_size", str(self.w)) if self.mhla
+        return ["--embed_dim", str(H14_DIM), "--depth", str(self.depth),
+                "--num_heads", str(H14_HEADS),
+                *(("--window_size", str(self.w)) if self.mhla
                               else ())]
 
 
-H14_PATHS = (_H14("MHLA-H/14 W=7", 7), _H14(f"MHLA-H/14 W={H14_WIDE_W}",
-                                           H14_WIDE_W),
-             _H14("dense ViT-H/14", None))
+H14_PATHS = (_H14("MHLA-H/14 W=7", 7, depth=H14_DEFAULT_DEPTH),
+             _H14(f"MHLA-H/14 W={H14_WIDE_W}", H14_WIDE_W,
+                  depth=H14_DEFAULT_DEPTH),
+             _H14("dense ViT-H/14", None, depth=H14_DEFAULT_DEPTH))
+# The opt-in paths: dense ViT-H/14 at 224^2 (S = 257, d = 80) through K3/K4
+# with FAVIT_FUSED_MHA=1 (the flash kernels launch nothing), and MHLA-H/14
+# at 518^2 through the tile band (K6/K7; K1/K2 launch nothing) at the
+# model's window and at JAX's roll-band limit, where the halo is 64.
+H14_OPTIN_PATHS = (
+    _H14("dense ViT-H/14 fused", None, fused, {"FAVIT_FUSED_MHA": "1"},
+         (flash, band), H14_FUSED_IMG),
+    _H14("MHLA-H/14 W=7 tile band", 7, tile, TILE_ENV, (band,)),
+    _H14(f"MHLA-H/14 W={H14_WIDE_W} tile band", H14_WIDE_W, tile, TILE_ENV,
+         (band,)),
+)
 
 
 def _counts(op) -> dict:
@@ -4524,8 +4873,8 @@ def phase_h14_parity(p: _H14, tree: dict) -> None:
     gpu_model = p.build(2, "cuda").eval()
     gpu_model.load_state_dict(sd)
     u8 = _images(np.random.default_rng(19), 2)
-    with torch.inference_mode():
-        x = prepare_eval_batch(torch.from_numpy(u8), H14_IMG)
+    with torch.inference_mode(), _environ(p.env):
+        x = prepare_eval_batch(torch.from_numpy(u8), p.img)
         ref = cpu_model(x)
         _reset_ops()
         got = gpu_model(x.to("cuda")).cpu()
@@ -4533,12 +4882,13 @@ def phase_h14_parity(p: _H14, tree: dict) -> None:
             got_bf16 = gpu_model(x.to("cuda")).float().cpu()
         torch.cuda.synchronize()
     launches = _counts(p.op)
+    p.check_idle(phase)
     ref_p = torch.softmax(ref, -1)
     dl = float((got - ref).abs().max())
     dp = float((torch.softmax(got, -1) - ref_p).abs().max())
     dp16 = float((torch.softmax(got_bf16, -1) - ref_p).abs().max())
-    log(phase, f"{p.label} cut to 2 blocks, batch 2 at {H14_IMG}^2 (S="
-               f"{H14_S}), card vs CPU: f32 max |d logits| {dl:.3g} (tol "
+    log(phase, f"{p.label} cut to 2 blocks, batch 2 at {p.img}^2 (S="
+               f"{p.s}), card vs CPU: f32 max |d logits| {dl:.3g} (tol "
                f"1e-3), max |d probs| {dp:.3g} (tol 1e-4); bf16 autocast max "
                f"|d probs| {dp16:.3g} (tol 1e-2); launches {launches}")
     if not (dl <= 1e-3 and dp <= 1e-4 and dp16 <= 1e-2):
@@ -4550,16 +4900,16 @@ def phase_h14_parity(p: _H14, tree: dict) -> None:
 
 
 def phase_h14_serve(p: _H14, weights: str) -> dict:
-    """``serve.setup`` with ViT-H/14's flags at 518x518, bf16, batch 8:
-    concurrent requests through ``BatchingServer`` and one ``POST
-    /predict`` through ``HTTPFrontend``; the op's eval kernel launched 32 x
-    the forward passes; a full batch's latency. Returns the launches."""
+    """``serve.setup`` with ViT-H/14's flags at the path's resolution, bf16,
+    batch 8: concurrent requests through ``BatchingServer`` and one ``POST
+    /predict`` through ``HTTPFrontend``; the op's eval kernel launched once
+    a block a forward pass; a full batch's latency. Returns the launches."""
     phase = "h14-serve"
     rng = np.random.default_rng(20)
     t0 = time.perf_counter()
     args, predictor = serve.setup([
         "--model", p.flag, "--patch_size", str(H14_PATCH), "--img_size",
-        str(H14_IMG), "--compute_dtype", "bfloat16", "--batch_size",
+        str(p.img), "--compute_dtype", "bfloat16", "--batch_size",
         str(H14_BATCH), "--weights", weights, *p.flags()])
     log(phase, f"{p.label}: set-up (weights, model, warm-up batch) "
                f"{time.perf_counter() - t0:.1f} s")
@@ -4586,15 +4936,16 @@ def phase_h14_serve(p: _H14, weights: str) -> dict:
         lat.append(time.perf_counter() - t0)
     hook.remove()
     launches = _counts(p.op)
+    p.check_idle(phase)
     log(phase, f"{p.label}: requests of {list(H14_SIZES)} images and one "
                f"POST /predict of 4: shapes, finite, rows sum to 1; forward "
                f"passes {forwards[0]}, launches {launches}; a batch of "
                f"{H14_BATCH}: median latency "
                f"{statistics.median(lat[2:]) * 1e3:.2f} ms (host clock, 5 "
                f"runs after 2, uint8 in to probs out)")
-    if forwards[0] == 0 or launches["fwd"] != H14_DEPTH * forwards[0]:
+    if forwards[0] == 0 or launches["fwd"] != p.depth * forwards[0]:
         raise AssertionError(f"{phase}: {p.label} launches {launches} != "
-                             f"{H14_DEPTH} x {forwards[0]} forward passes")
+                             f"{p.depth} x {forwards[0]} forward passes")
     del predictor
     torch.cuda.empty_cache()
     return launches
@@ -4608,18 +4959,21 @@ H14_LR = 1e-5
 
 def phase_h14_train(p: _H14, sd: dict) -> dict:
     """H14_STEPS train steps of the model at batch 8, bf16 autocast over f32
-    parameters, AdamW at H14_LR, dropout 0.1 (and attention dropout 0.1 on
-    MHLA, which the band's kernels draw) on one batch: losses finite and
-    falling; the training forward and the backward launched 32 x the steps.
-    Returns the launches."""
+    parameters, AdamW at H14_LR, dropout 0.1 (and attention dropout 0.1
+    where the op's kernels draw it: K1, K3) on one batch: losses finite and
+    falling; the training forward and the backward launched once a block a
+    step. Returns the launches."""
     phase = "h14-train"
     kw = dict(dropout=TRAIN_DROPOUT)
-    if p.mhla:
+    # Attention dropout where the op draws it in its kernels (the band's
+    # K1, the fused K3): the tile band trains without it, as in JAX, where
+    # attention dropout on a long row takes the plain shift band.
+    if p.op in (band, fused):
         kw["attn_dropout"] = TRAIN_DROPOUT
-    model = p.build(H14_DEPTH, "cuda", **kw)
+    model = p.build(p.depth, "cuda", **kw)
     model.load_state_dict(sd)
     state = train.create_train_state(model, train.make_adamw(H14_LR))
-    step = train.make_train_step(H14_IMG, compute_dtype=torch.bfloat16)
+    step = train.make_train_step(p.img, compute_dtype=torch.bfloat16)
     rng = np.random.default_rng(21)
     u8 = _images(rng, H14_BATCH)
     y = rng.integers(0, 10, size=H14_BATCH)
@@ -4632,6 +4986,7 @@ def phase_h14_train(p: _H14, sd: dict) -> dict:
         losses.append(float(m["loss_sum"]) / H14_BATCH)
         times.append(time.perf_counter() - t0)
     launches = _counts(p.op)
+    p.check_idle(phase)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(phase, f"{p.label}: {H14_STEPS} steps at batch {H14_BATCH}, bf16 "
                f"autocast, dropout {kw}: losses "
@@ -4642,8 +4997,8 @@ def phase_h14_train(p: _H14, sd: dict) -> dict:
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"{phase}: {p.label} losses {losses} are not "
                              f"finite and falling")
-    want = H14_DEPTH * H14_STEPS
-    if launches["fwd_train"] != want or launches["bwd"] != want:
+    want = p.depth * H14_STEPS
+    if launches[p.train_kind] != want or launches["bwd"] != want:
         raise AssertionError(f"{phase}: {p.label} launches {launches}, "
                              f"expected {want} training forwards and "
                              f"backwards")
@@ -4665,7 +5020,7 @@ def phase_h14() -> dict:
             total["band" if op is band else "flash"][k] += n
 
     t0 = time.perf_counter()
-    trees = {True: _h14_flax_tree(True, H14_DEPTH, 19)}
+    trees = {True: _h14_flax_tree(True, H14_DEFAULT_DEPTH, 19)}
     trees[False] = _without_latent(trees[True])
     small = {True: _h14_flax_tree(True, 2, 21)}
     small[False] = _without_latent(small[True])
@@ -4687,12 +5042,54 @@ def phase_h14() -> dict:
                 exported = phase_export(
                     p.path, None, state_dict=sds[True],
                     geom_flags=p.flags(), img=H14_IMG, batch=H14_BATCH,
-                    sizes=H14_SIZES, depth=H14_DEPTH, patch=H14_PATCH,
+                    sizes=H14_SIZES, depth=p.depth, patch=H14_PATCH,
                     name=p.label)
                 add(band, {"fwd": exported["launches"]})
                 log("h14-export", f"{p.label}: artifact {exported}")
             torch.cuda.empty_cache()
             add(p.op, phase_h14_train(p, sds[p.mhla]))
+    return total
+
+
+def phase_h14_optin() -> dict:
+    """The opt-in ViT-H/14 paths (H14_OPTIN_PATHS) end to end, each in its
+    environment, weights carried from seeded Flax-layout trees through
+    ``convert/from_jax.py``: cut to 2 blocks against the CPU, the 32-block
+    model served, 3 train steps; MHLA-H/14 at W=129 through the tile band
+    also exported and served from its artifact, bit-equal to the live path.
+    Returns the launches by op and path."""
+    total = {}
+    t0 = time.perf_counter()
+    mhla_sd = flax_vit_mhla_to_state_dict(_h14_flax_tree(True, H14_DEPTH, 19))
+    dense_tree = _without_latent(_h14_flax_tree(True, H14_DEPTH, 19,
+                                                H14_FUSED_IMG))
+    sds = {True: mhla_sd, False: flax_vit_to_state_dict(dense_tree)}
+    del dense_tree
+    small = {True: _h14_flax_tree(True, 2, 21)}
+    small[False] = _without_latent(_h14_flax_tree(True, 2, 21,
+                                                  H14_FUSED_IMG))
+    log("h14-optin", f"seeded Flax-layout trees through convert/from_jax.py "
+                     f"in {time.perf_counter() - t0:.1f} s: MHLA-H/14 at "
+                     f"{H14_IMG}^2, dense ViT-H/14 at {H14_FUSED_IMG}^2")
+    with tempfile.TemporaryDirectory() as tmp:
+        for p in H14_OPTIN_PATHS:
+            counts = total.setdefault(p.label, {})
+            with _environ(p.env):
+                phase_h14_parity(p, small[p.mhla])
+                weights = os.path.join(tmp, f"{p.flag}_{p.img}_h14.pt")
+                if not os.path.exists(weights):
+                    torch.save(sds[p.mhla], weights)
+                counts["serve"] = phase_h14_serve(p, weights)
+                if p.op is tile and p.w == H14_WIDE_W:
+                    exported = phase_export(
+                        p.path, None, state_dict=sds[True],
+                        geom_flags=p.flags(), img=H14_IMG, batch=H14_BATCH,
+                        sizes=H14_SIZES, depth=p.depth, patch=H14_PATCH,
+                        name=p.label, bit_equal=True)
+                    counts["export"] = exported["launches"]
+                    log("h14-export", f"{p.label}: artifact {exported}")
+                torch.cuda.empty_cache()
+                counts["train"] = phase_h14_train(p, sds[p.mhla])
     return total
 
 
@@ -4716,6 +5113,13 @@ def main() -> None:
     h14 = phase_h14()
     torch.cuda.empty_cache()
     mark("h14")
+    # The opt-in kernels (K3/K4, K6/K7/K8) at JAX's head dims and windows,
+    # then dense ViT-H/14 through K3/K4 and MHLA-H/14 through the tile band.
+    optin_timing = phase_kernel_h14_optin()
+    mark("kernel-h14-optin")
+    optin = phase_h14_optin()
+    torch.cuda.empty_cache()
+    mark("h14-optin")
 
     rng = np.random.default_rng(0)
     image = _images(rng, 1)
@@ -4887,12 +5291,51 @@ def main() -> None:
         ("mhla_tile_band_fwd_tiles", tile.KERNEL_SOURCE, f"{tpu_tile}:383",
          tile_timing["fwd_b_launches"], tile_timing["fwd_b"]),
     ]
+    # The new widths on the ViT-H/14 paths: K3/K4 at d = 80, S = 257 (dense
+    # ViT-H/14 at 224^2 with the fused switch); K6/K7 at d = 80 (the wide
+    # kernels) at W = 7 and 129 (MHLA-H/14 through the tile band, W = 129
+    # also from its artifact); K8 at d = 80, W = 129, launched by
+    # kernel-h14-optin.
+    fz = optin["dense ViT-H/14 fused"]
+    t7 = optin["MHLA-H/14 W=7 tile band"]
+    t129 = optin[f"MHLA-H/14 W={H14_WIDE_W} tile band"]
+    f80 = optin_timing["fused"][(80, H14_FUSED_S)]
+    kernels += [
+        ("fused_mha_fwd@d80", fused.FWD_KERNEL_SOURCE, f"{tpu_fused}:59",
+         fz["serve"]["fwd"], f80["fwd"]),
+        ("fused_mha_fwd_train@d80", fused.FWD_KERNEL_SOURCE,
+         f"{tpu_fused}:59", fz["train"]["fwd_train"], f80["fwd_train"]),
+        ("fused_mha_bwd@d80", fused.BWD_KERNEL_SOURCE, f"{tpu_fused}:83",
+         fz["train"]["bwd"], f80["bwd"]),
+        ("mhla_tile_band_fwd@d80,W7", tile.KERNEL_SOURCE, f"{tpu_tile}:66",
+         t7["serve"]["fwd"] + t7["train"]["fwd"],
+         optin_timing["tile"][(80, 7)]["fwd"]),
+        ("mhla_tile_band_bwd@d80,W7", tile.BWD_KERNEL_SOURCE,
+         f"{tpu_tile}:104", t7["train"]["bwd"],
+         optin_timing["tile"][(80, 7)]["bwd"]),
+        (f"mhla_tile_band_fwd@d80,W{H14_WIDE_W}", tile.KERNEL_SOURCE,
+         f"{tpu_tile}:66", t129["serve"]["fwd"] + t129["export"]
+         + t129["train"]["fwd"],
+         optin_timing["tile"][(80, H14_WIDE_W)]["fwd"]),
+        (f"mhla_tile_band_bwd@d80,W{H14_WIDE_W}", tile.BWD_KERNEL_SOURCE,
+         f"{tpu_tile}:104", t129["train"]["bwd"],
+         optin_timing["tile"][(80, H14_WIDE_W)]["bwd"]),
+        (f"mhla_tile_band_fwd_tiles@d80,W{H14_WIDE_W}", tile.KERNEL_SOURCE,
+         f"{tpu_tile}:383", optin_timing["fwd_b_launches"],
+         optin_timing["tile"][(80, H14_WIDE_W)]["fwd_b"]),
+    ]
     for name_, _, _, count, _ in kernels:
         if count <= 0:
             raise AssertionError(f"{name_} was launched no time on its path")
     log("h14", "ViT-H/14 paths' launches (included in the kernels line): "
                f"{h14}; bf16 times at the H/14 shapes (ms: kernel, plain, "
                f"library, bound): " + json.dumps(h14_timing))
+    log("h14-optin", "opt-in ViT-H/14 paths' launches (the new-width rows "
+                     f"of the kernels line): {optin}; bf16 times at the H/14 "
+                     f"shapes (ms: kernel, plain, library, bound): "
+        + json.dumps({f"{kind} {key}": forms
+                      for kind in ("fused", "tile")
+                      for key, forms in optin_timing[kind].items()}))
     print(json.dumps({"kernels": [{
         "name": name_,
         "route": "cuda",

@@ -80,6 +80,13 @@
 //
 // The f32 instantiations are scalar-FMA kernels for parity runs, one Philox
 // call a (query, key) pair.
+//
+// Head dims: every multiple of 8 in [8, 256], at the tile width D of
+// flash::tile_width (16, 32, 64, 80, 128, 192, 256), zeros past d in the
+// staged tiles, the columns past d not stored. The whole-row kernel is built
+// for d = D in 16, 32, 64 and 128; every other head dim takes the tiled
+// kernels at every S (the flash blocks take all seven widths; past D = 128
+// the dkv block runs twice, dk then dv).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,9 +117,14 @@ struct Dropout {
 // --- bf16, a whole row a block -----------------------------------------------
 
 // The keys of a row that one block holds: the row's Q, K, V and g tiles and
-// its bf16 dS (keys x queries) must fit the 227 KB of shared memory.
+// its bf16 dS (keys x queries) must fit the 227 KB of shared memory. The
+// whole-row kernel is built for the head dims 16, 32, 64 and 128 (0 keys at
+// the other tile widths: every row takes the tiled kernels there).
 template <int D>
-constexpr int kRowMaxKeys = D <= 32 ? 256 : D == 64 ? 208 : 128;
+constexpr int kRowMaxKeys = D <= 32    ? 256
+                            : D == 64  ? 208
+                            : D == 128 ? 128
+                                       : 0;
 
 constexpr int kRowThreads = 256;  // two warpgroups
 
@@ -545,7 +557,8 @@ struct PhiloxMask {
   }
 };
 
-template <int D>
+// D is the tile width, d the head dim (the row stride of dk, dv, dq).
+template <int D, int kPart>
 __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
     fused_bwd_dkv_tiled_wgmma(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -555,12 +568,15 @@ __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
                               const float* __restrict__ delta,
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               int s, int tiles_per_row, float scale,
-                              float scale_log2, PhiloxMask mask) {
-  flash_bwd::dkv_block<D>(tq, tk, tv, tg, lse, delta, dk, dv, s,
-                          tiles_per_row, scale, scale_log2, mask);
+                              float scale_log2, PhiloxMask mask, int d) {
+  flash_bwd::dkv_block<D, PhiloxMask, kPart>(tq, tk, tv, tg, lse, delta, dk,
+                                             dv, s, tiles_per_row, scale,
+                                             scale_log2, mask, d);
 }
 
-template <int D>
+// kExact: d == D, passed to the block as the constant D (with a run-time d
+// this kernel measured 9.5% slower at D = 64, S = 577: PERF.md).
+template <int D, bool kExact>
 __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
     fused_bwd_dq_tiled_wgmma(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -569,9 +585,10 @@ __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              bf16* __restrict__ dq, int s, int tiles_per_row,
-                             float scale, float scale_log2, PhiloxMask mask) {
+                             float scale, float scale_log2, PhiloxMask mask,
+                             int d) {
   flash_bwd::dq_block<D>(tq, tk, tv, tg, lse, delta, dq, s, tiles_per_row,
-                         scale, scale_log2, mask);
+                         scale, scale_log2, mask, kExact ? D : d);
 }
 
 // --- f32: scalar FMA, a thread per row of the owned tile -------------------
@@ -588,6 +605,11 @@ __device__ __forceinline__ float keep_scale(const Dropout& drop, int64_t row,
              : 0.f;
 }
 
+// The f32 kernels' staged tiles: 32 rows, 16 past D = 128 (two tiles of
+// 32 KB at most). D is the tile width, d the head dim and row stride.
+template <int D>
+constexpr int kF32Rows = D <= 128 ? kF32Tile : kF32Tile / 2;
+
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     fused_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -595,39 +617,40 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, int s, int tiles_per_row,
-                      float scale, Dropout drop) {
-  __shared__ __align__(16) float qs[kF32Tile * D];
-  __shared__ __align__(16) float gs[kF32Tile * D];
-  __shared__ float lse_s[kF32Tile];
-  __shared__ float delta_s[kF32Tile];
+                      float scale, Dropout drop, int d) {
+  constexpr int kTile = kF32Rows<D>;
+  __shared__ __align__(16) float qs[kTile * D];
+  __shared__ __align__(16) float gs[kTile * D];
+  __shared__ float lse_s[kTile];
+  __shared__ float delta_s[kTile];
 
   const int tid = threadIdx.x;
   const int64_t row = blockIdx.x / tiles_per_row;
   const int j = (blockIdx.x % tiles_per_row) * kThreads + tid;  // the key
   const bool real = j < s;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
   const int64_t vec = row * static_cast<int64_t>(s);
 
   float kr[D], vr[D], dk_acc[D], dv_acc[D];
-  load_row<D>(kr, k + base + static_cast<int64_t>(j) * D, real);
-  load_row<D>(vr, v + base + static_cast<int64_t>(j) * D, real);
-#pragma unroll
+  load_row<D>(kr, k + base + static_cast<int64_t>(j) * d, real, d);
+  load_row<D>(vr, v + base + static_cast<int64_t>(j) * d, real, d);
+#pragma unroll(D <= 128 ? D : 8)
   for (int c = 0; c < D; ++c) dk_acc[c] = dv_acc[c] = 0.f;
 
-  for (int q0 = 0; q0 < s; q0 += kF32Tile) {
-    flash::load_tile_f32<kF32Tile, D, kThreads>(qs, q + base, q0, s, tid);
-    flash::load_tile_f32<kF32Tile, D, kThreads>(gs, g + base, q0, s, tid);
-    if (tid < kF32Tile && q0 + tid < s) {
+  for (int q0 = 0; q0 < s; q0 += kTile) {
+    flash::load_tile_f32<kTile, D, kThreads>(qs, q + base, q0, s, tid, d);
+    flash::load_tile_f32<kTile, D, kThreads>(gs, g + base, q0, s, tid, d);
+    if (tid < kTile && q0 + tid < s) {
       lse_s[tid] = lse[vec + q0 + tid];
       delta_s[tid] = delta[vec + q0 + tid];
     }
     __syncthreads();
-    const int nq = min(kF32Tile, s - q0);
+    const int nq = min(kTile, s - q0);
     for (int ii = 0; ii < nq; ++ii) {
       const float* qr = qs + ii * D;
       const float* gr = gs + ii * D;
       float dot = 0.f, dz = 0.f;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) {
         dot += qr[c] * kr[c];
         dz += gr[c] * vr[c];
@@ -636,7 +659,7 @@ __global__ void __launch_bounds__(kThreads)
       const float p = expf(dot * scale - lse_s[ii]);
       const float z = p * mask;
       const float ds = p * (dz * mask - delta_s[ii]) * scale;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) {
         dv_acc[c] += z * gr[c];
         dk_acc[c] += ds * qr[c];
@@ -645,8 +668,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   if (!real) return;
-  store_row<D>(dk + base + static_cast<int64_t>(j) * D, dk_acc);
-  store_row<D>(dv + base + static_cast<int64_t>(j) * D, dv_acc);
+  store_row<D>(dk + base + static_cast<int64_t>(j) * d, dk_acc, d);
+  store_row<D>(dv + base + static_cast<int64_t>(j) * d, dv_acc, d);
 }
 
 template <int D, bool kDrop>
@@ -655,35 +678,37 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dq,
-                     int s, int tiles_per_row, float scale, Dropout drop) {
-  __shared__ __align__(16) float ks[kF32Tile * D];
-  __shared__ __align__(16) float vs[kF32Tile * D];
+                     int s, int tiles_per_row, float scale, Dropout drop,
+                     int d) {
+  constexpr int kTile = kF32Rows<D>;
+  __shared__ __align__(16) float ks[kTile * D];
+  __shared__ __align__(16) float vs[kTile * D];
 
   const int tid = threadIdx.x;
   const int64_t row = blockIdx.x / tiles_per_row;
   const int i = (blockIdx.x % tiles_per_row) * kThreads + tid;  // the query
   const bool real = i < s;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
   const int64_t vec = row * static_cast<int64_t>(s);
 
   float qr[D], gr[D], dq_acc[D];
-  load_row<D>(qr, q + base + static_cast<int64_t>(i) * D, real);
-  load_row<D>(gr, g + base + static_cast<int64_t>(i) * D, real);
-#pragma unroll
+  load_row<D>(qr, q + base + static_cast<int64_t>(i) * d, real, d);
+  load_row<D>(gr, g + base + static_cast<int64_t>(i) * d, real, d);
+#pragma unroll(D <= 128 ? D : 8)
   for (int c = 0; c < D; ++c) dq_acc[c] = 0.f;
   const float lse_i = real ? lse[vec + i] : 0.f;
   const float delta_i = real ? delta[vec + i] : 0.f;
 
-  for (int key0 = 0; key0 < s; key0 += kF32Tile) {
-    flash::load_tile_f32<kF32Tile, D, kThreads>(ks, k + base, key0, s, tid);
-    flash::load_tile_f32<kF32Tile, D, kThreads>(vs, v + base, key0, s, tid);
+  for (int key0 = 0; key0 < s; key0 += kTile) {
+    flash::load_tile_f32<kTile, D, kThreads>(ks, k + base, key0, s, tid, d);
+    flash::load_tile_f32<kTile, D, kThreads>(vs, v + base, key0, s, tid, d);
     __syncthreads();
-    const int nk = min(kF32Tile, s - key0);
+    const int nk = min(kTile, s - key0);
     for (int jj = 0; jj < nk; ++jj) {
       const float* kr = ks + jj * D;
       const float* vr = vs + jj * D;
       float dot = 0.f, dz = 0.f;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) {
         dot += qr[c] * kr[c];
         dz += gr[c] * vr[c];
@@ -691,20 +716,20 @@ __global__ void __launch_bounds__(kThreads)
       const float mask = keep_scale<kDrop>(drop, row, i, key0 + jj);
       const float p = expf(dot * scale - lse_i);
       const float ds = p * (dz * mask - delta_i) * scale;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) dq_acc[c] += ds * kr[c];
     }
     __syncthreads();
   }
   if (!real) return;
-  store_row<D>(dq + base + static_cast<int64_t>(i) * D, dq_acc);
+  store_row<D>(dq + base + static_cast<int64_t>(i) * d, dq_acc, d);
 }
 
 struct Args {
   const void *q, *k, *v, *out, *lse, *g;
   void *dq, *dk, *dv, *delta;
   int64_t rows;
-  int s;
+  int s, d;
   float scale;
   Dropout drop;
   int device;
@@ -720,7 +745,7 @@ cudaError_t launch_f32(const Args& a) {
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   cudaError_t err = flash::launch_delta<float, flash::for_fused_bwd>(
-      a.out, a.g, a.delta, a.rows * a.s, D, a.stream);
+      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
   if (err != cudaSuccess) return err;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
@@ -728,17 +753,36 @@ cudaError_t launch_f32(const Args& a) {
   const float* g = static_cast<const float*>(a.g);
   fused_bwd_dkv_f32<D, kDrop><<<grid, kThreads, 0, a.stream>>>(
       q, k, v, g, lse, delta, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.s, tiles, a.scale, a.drop);
+      static_cast<float*>(a.dv), a.s, tiles, a.scale, a.drop, a.d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   fused_bwd_dq_f32<D, kDrop><<<grid, kThreads, 0, a.stream>>>(
       q, k, v, g, lse, delta, static_cast<float*>(a.dq), a.s, tiles, a.scale,
-      a.drop);
+      a.drop, a.d);
+  return cudaGetLastError();
+}
+
+template <int D, int kPart>
+cudaError_t launch_dkv(const Args& a, const CUtensorMap& q_str,
+                       const CUtensorMap& k_own, const CUtensorMap& v_own,
+                       const CUtensorMap& g_str, dim3 grid, int tiles,
+                       const PhiloxMask& mask) {
+  using flash_bwd::Dkv;
+  auto dkv = fused_bwd_dkv_tiled_wgmma<D, kPart>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  dkv<<<grid, flash_bwd::kMmaThreads, Dkv<D>::kSmem, a.stream>>>(
+      q_str, k_own, v_own, g_str, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.s, tiles, a.scale, a.scale * flash::kLog2e,
+      mask, a.d);
   return cudaGetLastError();
 }
 
 // Three kernels in order on one stream: delta, then the flash backward's
-// dkv and dq blocks with the Philox mask.
+// dkv and dq blocks with the Philox mask; past D = 128 the dkv block runs
+// twice, once for dk and once for dv, as in the dense flash backward.
 template <int D>
 cudaError_t launch_tiled(const Args& a, bool drop_on) {
   using flash_bwd::Dkv;
@@ -761,12 +805,13 @@ cudaError_t launch_tiled(const Args& a, bool drop_on) {
                {&k_str, a.k, Dq<D>::kBN},   {&v_str, a.v, Dq<D>::kBN}};
   for (const auto& m : maps) {
     if (err == cudaSuccess) {
-      err = hp::tensor_map_3d(m.map, m.base, a.rows, a.s, D, m.box);
+      err = hp::tensor_map_3d(m.map, m.base, a.rows, a.s, a.d, m.box,
+                              hp::Span<D>::kCols);
     }
   }
   if (err != cudaSuccess) return err;
   err = flash::launch_delta<bf16, flash::for_fused_bwd>(
-      a.out, a.g, a.delta, a.rows * a.s, D, a.stream);
+      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
   if (err != cudaSuccess) return err;
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
@@ -775,23 +820,27 @@ cudaError_t launch_tiled(const Args& a, bool drop_on) {
                         drop_on ? 1 : 0};
   const dim3 grid(static_cast<unsigned>(blocks));
 
-  auto dkv = fused_bwd_dkv_tiled_wgmma<D>;
-  err = cudaFuncSetAttribute(
-      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::kSmem);
-  if (err != cudaSuccess) return err;
-  dkv<<<grid, flash_bwd::kMmaThreads, Dkv<D>::kSmem, a.stream>>>(
-      q_str, k_own, v_own, g_str, lse, delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.s, tiles, a.scale, scale_log2, mask);
-  err = cudaGetLastError();
+  if constexpr (D <= 128) {
+    err = launch_dkv<D, flash_bwd::kBoth>(a, q_str, k_own, v_own, g_str, grid,
+                                          tiles, mask);
+  } else {
+    err = launch_dkv<D, flash_bwd::kDkOnly>(a, q_str, k_own, v_own, g_str,
+                                            grid, tiles, mask);
+    if (err == cudaSuccess) {
+      err = launch_dkv<D, flash_bwd::kDvOnly>(a, q_str, k_own, v_own, g_str,
+                                              grid, tiles, mask);
+    }
+  }
   if (err != cudaSuccess) return err;
 
-  auto dq = fused_bwd_dq_tiled_wgmma<D>;
+  auto dq = a.d == D ? fused_bwd_dq_tiled_wgmma<D, true>
+                     : fused_bwd_dq_tiled_wgmma<D, false>;
   err = cudaFuncSetAttribute(
       dq, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq<D>::kSmem);
   if (err != cudaSuccess) return err;
   dq<<<grid, flash_bwd::kMmaThreads, Dq<D>::kSmem, a.stream>>>(
       q_own, k_str, v_str, g_own, lse, delta, static_cast<bf16*>(a.dq), a.s,
-      tiles, a.scale, scale_log2, mask);
+      tiles, a.scale, scale_log2, mask, a.d);
   return cudaGetLastError();
 }
 
@@ -846,9 +895,11 @@ cudaError_t launch_d(const Args& a, bool is_bf16, bool drop_on) {
   // (one launch), a longer one the tiled kernels. Neither falls back to the
   // other.
   if (is_bf16) {
-    if (a.s <= kRowMaxKeys<D>) {
-      return launch_row_chunks<D, kRowMaxKeys<D> / 16>(a, drop_on,
-                                                       (a.s + 15) / 16);
+    if constexpr (kRowMaxKeys<D> > 0) {
+      if (a.d == D && a.s <= kRowMaxKeys<D>) {
+        return launch_row_chunks<D, kRowMaxKeys<D> / 16>(a, drop_on,
+                                                         (a.s + 15) / 16);
+      }
     }
     return launch_tiled<D>(a, drop_on);
   }
@@ -860,9 +911,10 @@ cudaError_t launch_d(const Args& a, bool is_bf16, bool drop_on) {
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // first launch that failed (0 on success). q, k, v, out, g and dq, dk, dv
 // are device pointers to contiguous [rows, s, d] tensors of one dtype
-// (is_bf16 = 1 for bf16, 0 for f32), 16-byte aligned; `lse` is the
-// forward's f32 [rows, s]; `delta` is f32 [rows, s] scratch that the first
-// kernel fills. The dropout arguments are the forward's (fused_mha_fwd.cu).
+// (is_bf16 = 1 for bf16, 0 for f32; d a multiple of 8 in [8, 256]),
+// 16-byte aligned; `lse` is the forward's f32 [rows, s]; `delta` is f32
+// [rows, s] scratch that the first kernel fills. The dropout arguments are
+// the forward's (fused_mha_fwd.cu).
 // `stream` is the caller's cudaStream_t. The kernels allocate nothing and do
 // not synchronise.
 extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
@@ -880,12 +932,12 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Dropout drop{(static_cast<uint64_t>(seed_hi) << 32) | seed_lo,
                      threshold, drop_on ? 1.f / keep_prob : 1.f};
-  const Args a{q,  k,     v,    out, lse,   g,    dq,     dk,
-               dv, delta, rows, s,   scale, drop, device,
+  const Args a{q,  k,     v,    out, lse, g,     dq,   dk,     dv,
+               delta, rows, s, d,   scale, drop, device,
                static_cast<cudaStream_t>(stream)};
   const bool bf = is_bf16 != 0;
   const bool on = drop_on != 0;
-  switch (d) {
+  switch (flash::tile_width(d)) {
     case 16:
       err = launch_d<16>(a, bf, on);
       break;
@@ -895,8 +947,17 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
     case 64:
       err = launch_d<64>(a, bf, on);
       break;
+    case 80:
+      err = launch_d<80>(a, bf, on);
+      break;
     case 128:
       err = launch_d<128>(a, bf, on);
+      break;
+    case 192:
+      err = launch_d<192>(a, bf, on);
+      break;
+    case 256:
+      err = launch_d<256>(a, bf, on);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -906,7 +967,7 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
 
 // The dynamic shared memory, in bytes, that the whole-row bf16 kernel is
 // launched with at head dim d and key length s (0 where the tiled kernels
-// run instead).
+// run instead: every S at the head dims other than 16, 32, 64 and 128).
 extern "C" int fused_mha_bwd_smem(int d, int s) {
   const int max_keys = d == 16   ? kRowMaxKeys<16>
                        : d == 32 ? kRowMaxKeys<32>

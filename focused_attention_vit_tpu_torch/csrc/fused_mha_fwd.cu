@@ -64,6 +64,14 @@
 // The f32 instantiation is a scalar-FMA kernel (a thread per query) with
 // full f32 products, for parity runs (1e-5 against the plain version), not
 // for speed. It spends one Philox call a key.
+//
+// Head dims: every multiple of 8 in [8, 256] (JAX's rule is d % 8 == 0),
+// run at the narrowest tile width D of 16, 32, 64, 80, 128, 192 and 256
+// that holds it (flash::tile_width, as the dense flash kernels). The TMA
+// maps cover the real d columns and zero-fill the rest of the tile, the
+// softmax scale is the real d's, and the columns past d are not stored.
+// The whole-row kernel holds S <= kRowMaxKeys<D> keys (256, 192, 128 and 64
+// as D grows); longer rows take the flash blocks with the mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,11 +98,16 @@ struct Dropout {
 
 // --- bf16, a whole row a block (S <= kRowMaxKeys) ----------------------------
 
-// The keys of a row that one block holds: S <= 256 at d <= 64, S <= 128 at
-// d = 128 (where the output accumulator takes 64 registers more and two
-// rows' tiles must still fit).
+// The keys of a row that one block holds, by tile width D: S <= 256 at
+// D <= 64, 192 at D = 80, 128 at D = 128 (where the output accumulator
+// takes 64 registers more and two rows' tiles must still fit), 64 at
+// D = 192 and 256 (96 and 128 registers of accumulator; two stages of a
+// 64-key row take 145 and 193 KB).
 template <int D>
-constexpr int kRowMaxKeys = D <= 64 ? 256 : 128;
+constexpr int kRowMaxKeys = D <= 64    ? 256
+                            : D == 80  ? 192
+                            : D == 128 ? 128
+                                       : 64;
 
 constexpr int kRowThreads = 256;  // two warpgroups
 constexpr int kRowStages = 2;     // rows in flight a block
@@ -130,6 +143,24 @@ struct RowFwd {
 // 64-query tiles in turns (the first turn alternating from row to row, so
 // that a short last tile does not always fall to the same one); the one
 // that finishes a row second refills its stage with the row after next.
+// O (+)= P V for 16-key chunk kc of the row: one product where wgmma has
+// an N of D (the first chunk overwrites), else rs_cols' column slices (64
+// + 16 at D = 80, 128 + 64 at 192, 128 + 128 at 256), which accumulate, on
+// an O the caller zeroed.
+template <int D, int NK>
+__device__ __forceinline__ void pv_chunk(float (&o)[D / 2],
+                                         const uint32_t (&pa)[4],
+                                         const bf16* vs, int kc) {
+  if constexpr (D == 16 || D == 32 || D == 64 || D == 128) {
+    hp::Wgmma<D>::rs(o, pa, hp::desc_mn<D, NK>(vs, kc), kc > 0 ? 1 : 0);
+  } else {
+    hp::rs_cols<D, NK>(o, pa, vs, kc);
+  }
+}
+
+// D is the tile width; d (<= D, a multiple of 8) the head dim, the row
+// stride of `out`: Q, K and V arrive with zeros past d (TMA fills them),
+// and the columns past d are not stored.
 template <int D, int KC>
 __global__ void __launch_bounds__(kRowThreads, 1)
     fused_fwd_row_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -137,7 +168,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
                         const __grid_constant__ CUtensorMap tv,
                         bf16* __restrict__ out, float* __restrict__ lse,
                         int64_t rows, int s, float scale_log2, Dropout drop,
-                        int drop_on) {
+                        int drop_on, int d) {
   using C = RowFwd<D, KC>;
   constexpr int NK = C::kKeys;
   constexpr int NFULL = NK / 64;  // 64-key products of the chain
@@ -281,14 +312,15 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 
       // O = P V, V read through the transpose bit.
       hp::mbar_wait(&bar_v[st], parity);
+      if constexpr (!(D == 16 || D == 32 || D == 64 || D == 128)) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      }
       hp::fence_regs(o);
       hp::fence_regs(pa);
       hp::wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        hp::Wgmma<D>::rs(o, pa[kc], hp::desc_mn<D, NK>(vs, kc),
-                         kc > 0 ? 1 : 0);
-      }
+      for (int kc = 0; kc < KC; ++kc) pv_chunk<D, NK>(o, pa[kc], vs, kc);
       hp::wgmma_commit();
       hp::fence_regs(o);
       hp::fence_regs(pa);
@@ -304,9 +336,10 @@ __global__ void __launch_bounds__(kRowThreads, 1)
           const int i = i0 + 8 * h;
           if (i >= s) continue;
           const float inv = drop.inv_keep / l[h];
-          bf16* orow = out + (row * s + i) * D;
+          bf16* orow = out + (row * s + i) * d;
 #pragma unroll
           for (int j = 0; j < D / 8; ++j) {
+            if (8 * j >= d) break;
             *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * wq) =
                 __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
                                       o[4 * j + 2 * h + 1] * inv);
@@ -372,22 +405,26 @@ __global__ void __launch_bounds__(flash_fwd::kThreads, 1)
                           const __grid_constant__ CUtensorMap tv,
                           bf16* __restrict__ out, float* __restrict__ lse,
                           int s, int tiles_per_row, float scale_log2,
-                          PhiloxMask mask) {
+                          PhiloxMask mask, int d) {
   flash_fwd::block<D, kLse>(tq, tk, tv, out, lse, s, tiles_per_row,
-                            scale_log2, mask);
+                            scale_log2, mask, d);
 }
 
 // --- f32: scalar FMA, a thread per query -------------------------------------
 
 constexpr int kThreads = 128;  // scalar queries a block
 
+// D is the tile width, d (<= D) the head dim and row stride; the rows past
+// d are zeros in registers and in the tiles. The loops over D unroll whole
+// up to D = 128; past it the rows live in local memory anyway.
 template <int D, bool kLse, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     fused_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   float* __restrict__ lse, int s, int tiles_per_row,
-                  float scale, Dropout drop) {
-  constexpr int BN = D <= 64 ? 64 : 32;  // 32 KB of K and V tiles at most
+                  float scale, Dropout drop, int d) {
+  // K and V tiles of at most 32 KB.
+  constexpr int BN = D <= 64 ? 64 : D <= 128 ? 32 : 16;
   constexpr int kChunk = 8;              // keys per softmax update
   __shared__ __align__(16) float ks[BN * D];
   __shared__ __align__(16) float vs[BN * D];
@@ -396,17 +433,17 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t row = blockIdx.x / tiles_per_row;
   const int i = (blockIdx.x % tiles_per_row) * kThreads + tid;
   const bool valid = i < s;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
 
   float qr[D], acc[D];
-  flash::load_row<D>(qr, q + base + static_cast<int64_t>(i) * D, valid);
+  flash::load_row<D>(qr, q + base + static_cast<int64_t>(i) * d, valid, d);
 #pragma unroll
   for (int c = 0; c < D; ++c) acc[c] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   for (int key0 = 0; key0 < s; key0 += BN) {
-    flash::load_tile_f32<BN, D, kThreads>(ks, k + base, key0, s, tid);
-    flash::load_tile_f32<BN, D, kThreads>(vs, v + base, key0, s, tid);
+    flash::load_tile_f32<BN, D, kThreads>(ks, k + base, key0, s, tid, d);
+    flash::load_tile_f32<BN, D, kThreads>(vs, v + base, key0, s, tid, d);
     __syncthreads();
     const int nk = min(BN, s - key0);
     for (int j0 = 0; j0 < nk; j0 += kChunk) {
@@ -416,7 +453,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int jj = 0; jj < kChunk; ++jj) {
         const float* kr = ks + (j0 + jj) * D;
         float dot = 0.f;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
         for (int c = 0; c < D; ++c) dot += qr[c] * kr[c];
         p[jj] = j0 + jj < nk ? dot * scale : -INFINITY;
         mx = fmaxf(mx, p[jj]);
@@ -436,7 +473,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       l = l * alpha + psum;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
       for (int c = 0; c < D; ++c) {
         float a = acc[c] * alpha;
 #pragma unroll
@@ -449,9 +486,9 @@ __global__ void __launch_bounds__(kThreads)
 
   if (!valid) return;
   const float inv = drop.inv_keep / l;
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
   for (int c = 0; c < D; ++c) acc[c] *= inv;
-  flash::store_row<D>(out + base + static_cast<int64_t>(i) * D, acc);
+  flash::store_row<D>(out + base + static_cast<int64_t>(i) * d, acc, d);
   if (kLse) lse[row * s + i] = m + logf(l);
 }
 
@@ -480,7 +517,7 @@ struct Args {
   void* out;
   float* lse;
   int64_t rows;
-  int s;
+  int s, d;
   float scale;
   bool drop_on;
   Dropout drop;
@@ -497,7 +534,7 @@ cudaError_t launch_f32(const Args& a) {
       <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
-          a.s, tiles, a.scale, a.drop);
+          a.s, tiles, a.scale, a.drop, a.d);
   return cudaGetLastError();
 }
 
@@ -507,14 +544,15 @@ cudaError_t launch_tiled(const Args& a) {
   const int tiles = (a.s + flash_fwd::kBM - 1) / flash_fwd::kBM;
   const int64_t blocks = a.rows * tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  constexpr int kCols = hp::Span<D>::kCols;
   CUtensorMap tq, tk, tv;
   cudaError_t err =
-      hp::tensor_map_3d(&tq, a.q, a.rows, a.s, D, flash_fwd::kBM);
+      hp::tensor_map_3d(&tq, a.q, a.rows, a.s, a.d, flash_fwd::kBM, kCols);
   if (err == cudaSuccess) {
-    err = hp::tensor_map_3d(&tk, a.k, a.rows, a.s, D, C::kBN);
+    err = hp::tensor_map_3d(&tk, a.k, a.rows, a.s, a.d, C::kBN, kCols);
   }
   if (err == cudaSuccess) {
-    err = hp::tensor_map_3d(&tv, a.v, a.rows, a.s, D, C::kBN);
+    err = hp::tensor_map_3d(&tv, a.v, a.rows, a.s, a.d, C::kBN, kCols);
   }
   if (err != cudaSuccess) return err;
   auto kernel = fused_fwd_tiled_wgmma<D, kLse>;
@@ -525,7 +563,7 @@ cudaError_t launch_tiled(const Args& a) {
                         a.drop_on ? 1 : 0};
   kernel<<<static_cast<unsigned>(blocks), flash_fwd::kThreads, C::kSmem,
            a.stream>>>(tq, tk, tv, static_cast<bf16*>(a.out), a.lse, a.s,
-                       tiles, a.scale * flash::kLog2e, mask);
+                       tiles, a.scale * flash::kLog2e, mask, a.d);
   return cudaGetLastError();
 }
 
@@ -533,13 +571,15 @@ template <int D, int KC>
 cudaError_t launch_row(const Args& a) {
   using C = RowFwd<D, KC>;
   if (a.rows > INT32_MAX) return cudaErrorInvalidConfiguration;
+  constexpr int kCols = hp::Span<D>::kCols;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = hp::tensor_map_3d(&tq, a.q, a.rows, a.s, D, C::kQRows);
+  cudaError_t err =
+      hp::tensor_map_3d(&tq, a.q, a.rows, a.s, a.d, C::kQRows, kCols);
   if (err == cudaSuccess) {
-    err = hp::tensor_map_3d(&tk, a.k, a.rows, a.s, D, C::kKeys);
+    err = hp::tensor_map_3d(&tk, a.k, a.rows, a.s, a.d, C::kKeys, kCols);
   }
   if (err == cudaSuccess) {
-    err = hp::tensor_map_3d(&tv, a.v, a.rows, a.s, D, C::kKeys);
+    err = hp::tensor_map_3d(&tv, a.v, a.rows, a.s, a.d, C::kKeys, kCols);
   }
   if (err != cudaSuccess) return err;
   auto kernel = fused_fwd_row_wgmma<D, KC>;
@@ -555,7 +595,7 @@ cudaError_t launch_row(const Args& a) {
   const int64_t blocks = (a.rows + per_block - 1) / per_block;
   kernel<<<static_cast<unsigned>(blocks), kRowThreads, C::kSmem, a.stream>>>(
       tq, tk, tv, static_cast<bf16*>(a.out), a.lse, a.rows, a.s,
-      a.scale * flash::kLog2e, a.drop, a.drop_on ? 1 : 0);
+      a.scale * flash::kLog2e, a.drop, a.drop_on ? 1 : 0, a.d);
   return cudaGetLastError();
 }
 
@@ -594,7 +634,8 @@ cudaError_t launch_d(const Args& a, bool is_bf16) {
 // launch (0 on success). q, k, v and out are device pointers to contiguous
 // [rows, s, d] tensors of one dtype (is_bf16 = 1 for bf16, 0 for f32),
 // 16-byte aligned; `lse` is a contiguous f32 [rows, s] tensor to receive the
-// log-sum-exp of each query's scaled logits, or null. With drop_on != 0 the
+// log-sum-exp of each query's scaled logits, or null; d is a multiple of 8
+// in [8, 256]. With drop_on != 0 the
 // weights are dropped: keep iff the Philox word of (seed, row, query, key)
 // is at least `threshold`, and scale the kept by 1 / keep_prob. `stream` is
 // the caller's cudaStream_t. The kernel allocates nothing and does not
@@ -614,10 +655,10 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
   const Dropout drop{(static_cast<uint64_t>(seed_hi) << 32) | seed_lo,
                      threshold, drop_on ? 1.f / keep_prob : 1.f};
   const Args a{q,     k,           v,    out,
-               static_cast<float*>(lse), rows, s, scale,
+               static_cast<float*>(lse), rows, s, d, scale,
                drop_on != 0, drop, device, static_cast<cudaStream_t>(stream)};
   const bool bf = is_bf16 != 0;
-  switch (d) {
+  switch (flash::tile_width(d)) {
     case 16:
       err = launch_d<16>(a, bf);
       break;
@@ -627,8 +668,17 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
     case 64:
       err = launch_d<64>(a, bf);
       break;
+    case 80:
+      err = launch_d<80>(a, bf);
+      break;
     case 128:
       err = launch_d<128>(a, bf);
+      break;
+    case 192:
+      err = launch_d<192>(a, bf);
+      break;
+    case 256:
+      err = launch_d<256>(a, bf);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -656,11 +706,14 @@ extern "C" int fused_mha_keep_bits(void* out, long long rows, int s,
 }
 
 // The dynamic shared memory, in bytes, that the whole-row bf16 kernel is
-// launched with at head dim d and key length s (0 where the tiled kernel
-// runs instead).
+// launched with at head dim d and key length s, at d's padded tile width
+// (0 where the tiled kernel runs instead, or for a d it does not take).
 extern "C" int fused_mha_fwd_smem(int d, int s) {
-  const int max_keys = d == 16 || d == 32 || d == 64 ? kRowMaxKeys<64>
-                       : d == 128                    ? kRowMaxKeys<128>
-                                                     : 0;
-  return s >= 1 && s <= max_keys ? row_fwd_smem(d, (s + 15) / 16) : 0;
+  const int w = flash::tile_width(d);
+  const int max_keys = w == 0     ? 0
+                       : w <= 64  ? kRowMaxKeys<64>
+                       : w == 80  ? kRowMaxKeys<80>
+                       : w == 128 ? kRowMaxKeys<128>
+                                  : kRowMaxKeys<256>;
+  return s >= 1 && s <= max_keys ? row_fwd_smem(w, (s + 15) / 16) : 0;
 }

@@ -97,7 +97,14 @@
 // The f32 instantiation is a scalar-FMA kernel for parity runs, a block per
 // 64 rows (a thread per query that reaches them, then a thread per key for
 // dk and one for dv), reading q, k, v, g from device memory with p and ds in
-// shared memory; it folds the edges the same way.
+// shared memory; it folds the edges the same way, at any hw and head dim.
+//
+// Range. The design above (the ring kernel) takes hw <= 16 and the head
+// dims 16, 32, 64 and 128. The card takes JAX's range beyond it, hw <= 64
+// (W <= 129) and every head dim that is a multiple of 8 in [8, 256], at
+// JAX's halo and d's tile width (zeros past d), in the two wide kernels
+// below (tile_band_bwd_wide_band, tile_band_bwd_wide_keys), which pass p
+// and ds through a scratch buffer from the wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,7 +123,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace tile_ring;
 
-constexpr int kHalo = 16;          // hw <= 16
+constexpr int kHalo = 16;          // the ring kernel's halo: hw <= 16
 constexpr int kStep = 64;          // queries (keys) a step owns
 constexpr int kRing = 160;         // rows of each of the Q, G, K and V rings
 constexpr int kPTiles = 6;         // 16-query tiles of p and ds kept
@@ -126,8 +133,6 @@ constexpr int kThreads = 256;      // 8 warps
 constexpr int kMinUnits = 8;       // steps a block takes at least
 constexpr int kF32Threads = 128;
 constexpr int kF32Rows = 64;       // rows an f32 block owns
-constexpr int kF32Queries = kF32Rows + 2 * kHalo;
-constexpr int kMaxBand = 2 * kHalo + 1;
 
 __device__ __forceinline__ int clamp_row(int x, int s) {
   return min(max(x, 0), s - 1);
@@ -563,11 +568,404 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
 
 // --- f32: scalar FMA ---------------------------------------------------------
 
+// The wide kernels' scratch, carved from one buffer of
+// wide_scratch_bytes: p and ds of every 16-query block as [16][16 + 2 halo]
+// bf16 tiles (column c is key qb - halo + c), [rows][nqb] of each, then the
+// f32 fold sums of every query, [rows][s] of ds and of p over its clamped
+// keys.
+struct Scratch {
+  bf16* p;
+  bf16* ds;
+  float* fk;
+  float* fv;
+};
+
+inline int64_t wide_tile_elems(int64_t rows, int s, int halo) {
+  return rows * ((s + 15) / 16) * 16 * (16 + 2 * halo);
+}
+
+inline int64_t wide_scratch_bytes(int64_t rows, int s, int halo) {
+  return 2 * wide_tile_elems(rows, s, halo) * 2 + 2 * rows * s * 4;
+}
+
+inline Scratch carve(void* base, int64_t rows, int s, int halo) {
+  Scratch sc;
+  const int64_t tiles = wide_tile_elems(rows, s, halo);
+  sc.p = static_cast<bf16*>(base);
+  sc.ds = sc.p + tiles;
+  sc.fk = reinterpret_cast<float*>(sc.ds + tiles);
+  sc.fv = sc.fk + rows * s;
+  return sc;
+}
+
+// --- bf16, any halo and tile width: two kernels through a scratch ----------
+//
+// The ring kernel keeps a 16-row halo, head dims 16, 32, 64 and 128, and the
+// p/ds tiles of six query blocks in shared memory. Every other (hw, d) the
+// card takes (hw <= 64, d a multiple of 8 up to 256, at d's tile width D
+// with zeros past d and JAX's halo 16, 32, 48 or 64) runs in two kernels:
+//   - band: a block stages the Q and G rows of 64 queries (32 at D = 256
+//     and halo 64, where 64 would not fit shared memory) and the K and V
+//     rows of their band; each warp walks its 16 queries' band in chunks
+//     of 48 keys in two passes, as the wide forward does: the first keeps
+//     the running maximum, the sum of exponentials and the sum of dp times
+//     them, the second forms p and ds = p (dp - sum dp p) scale, writes
+//     both as bf16 into the scratch tiles, sums them over clamped keys for
+//     the fold, and adds ds K into dq (ds rounded to bf16, as the ring
+//     kernel and the TPU kernel round it);
+//   - keys: a block takes 64 keys and one of dk (ds^T Q) and dv (p^T G),
+//     blockIdx.y; it stages the Q (G) rows and the ds (p) tiles of the
+//     queries whose band reaches its keys, and each warp sums its 16 keys'
+//     products over those query blocks, adding the fold's mass to rows 0
+//     and S-1 as the ring kernel does.
+// The scratch (p and ds tiles, 2 (16 + 2 halo) bytes a query each) is
+// written once and read once; at halo 64 it is about as large as q.
+
+// The logits and dp of chunk ch (keys [qb - halo + 48 ch, + 48)) of a
+// warp's 16 queries; logits -inf outside the band |offset| <= hw. Blocks
+// that meet no query's band are skipped.
 template <int D>
-__device__ __forceinline__ float row_dot(const float* a, const float* b) {
+__device__ __forceinline__ void wide_scores(bf16* qs, bf16* gs, bf16* ks,
+                                            bf16* vs, int jq, int jk, int ch,
+                                            int halo, int hw, float scale,
+                                            int lane, float (&sc)[6][4],
+                                            float (&dp)[6][4]) {
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const LaneAddr<D> la = pattern_a<D>(lane);
+  const LaneAddr<D> lb = pattern_b<D>(lane);
+  bool used[3];
+#pragma unroll
+  for (int kc = 0; kc < 3; ++kc) {
+    used[kc] = block_live(16 * (3 * ch + kc) - halo, hw);
+  }
+  flash::zero(sc);
+  flash::zero(dp);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qf[4], gf[4];
+    flash::ldsm_x4(qf, la.at(qs, jq, kk));
+    flash::ldsm_x4(gf, la.at(gs, jq, kk));
+#pragma unroll
+    for (int kc = 0; kc < 3; ++kc) {
+      if (!used[kc]) continue;
+      const int j = jk + 48 * ch + 16 * kc;
+      uint32_t b[4];
+      flash::ldsm_x4(b, lb.at(ks, j, kk));
+      flash::mma_bf16(sc[2 * kc], qf, b[0], b[1]);
+      flash::mma_bf16(sc[2 * kc + 1], qf, b[2], b[3]);
+      flash::ldsm_x4(b, lb.at(vs, j, kk));
+      flash::mma_bf16(dp[2 * kc], gf, b[0], b[1]);
+      flash::mma_bf16(dp[2 * kc + 1], gf, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int off = 48 * ch + nt * 8 + 2 * t4 + (r & 1) -
+                      (g + 8 * (r >> 1)) - halo;
+      sc[nt][r] = (off >= -hw && off <= hw) ? sc[nt][r] * scale : -INFINITY;
+    }
+  }
+}
+
+// Shared memory of the band kernel at nq queries a block.
+constexpr int wide_band_smem(int d_tile, int halo, int nq) {
+  return (2 * nq + 2 * (nq + 2 * halo)) * d_tile * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kStep * 2, D <= 128 ? 2 : 1)
+    tile_band_bwd_wide_band(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ g,
+                            bf16* __restrict__ dq, Scratch scr, int s,
+                            int steps, int d, int hw, int halo, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nq = blockDim.x / 2;  // queries a block: 16 a warp
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* gs = qs + nq * D;
+  bf16* ks = gs + nq * D;
+  bf16* vs = ks + (nq + 2 * halo) * D;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const long long row = blockIdx.x / steps;
+  const int t = static_cast<int>(blockIdx.x % steps) * nq;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
+  // Q and G [t, t + nq) (zeros past S: their p g and ds are 0); K and V
+  // [t - halo, t + nq + halo), clamped.
+  issue_rows_n<D>(qs, q + base, t, nq, 0, s, false, tid, 2 * nq, d);
+  issue_rows_n<D>(gs, g + base, t, nq, 0, s, false, tid, 2 * nq, d);
+  issue_rows_n<D>(ks, k + base, t - halo, nq + 2 * halo, 0, s, true, tid,
+                  2 * nq, d);
+  issue_rows_n<D>(vs, v + base, t - halo, nq + 2 * halo, 0, s, true, tid,
+                  2 * nq, d);
+  band_stage::cp_async_commit();
+  band_stage::cp_async_wait<0>();
+  __syncthreads();
+
+  const int qb = t + 16 * warp;
+  if (qb >= s) return;
+  const int jq = 16 * warp;  // the warp's Q and G rows; its keys start there
+  const int nch = (16 + 2 * halo + 47) / 48;
+  float sc[6][4], dp[6][4];
+
+  // Pass 1: running maximum m, sum of exponentials l and of dp times them
+  // rs, of rows gq and gq + 8 (m quad-uniform, l and rs this lane's share).
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+  for (int ch = 0; ch < nch; ++ch) {
+    if (!wide_chunk_live(ch, halo, hw)) continue;
+    wide_scores<D>(qs, gs, ks, vs, jq, jq, ch, halo, hw, scale, lane, sc, dp);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt) {
+        mx = fmaxf(mx, fmaxf(sc[nt][2 * h], sc[nt][2 * h + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      if (m_new == -INFINITY) continue;
+      float sum = 0.f, rsum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = expf(sc[nt][2 * h + e] - m_new);
+          sum += x;
+          rsum += dp[nt][2 * h + e] * x;
+        }
+      }
+      const float alpha = expf(m[h] - m_new);
+      l[h] = l[h] * alpha + sum;
+      rs[h] = rs[h] * alpha + rsum;
+      m[h] = m_new;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+    rs[h] /= l[h];  // sum_o dp p
+  }
+
+  // Pass 2: p and ds into the scratch tiles, the fold sums, dq += ds K.
+  const int lt = 16 + 2 * halo;
+  const int64_t tile0 = (row * ((s + 15) / 16) + qb / 16) * 16 * lt;
+  bf16* pw = scr.p + tile0;
+  bf16* dw = scr.ds + tile0;
+  float o[D / 8][4];
+  flash::zero(o);
+  float fk[2] = {0.f, 0.f}, fv[2] = {0.f, 0.f};
+  const bool edge = qb < halo || qb + 16 + halo > s;
+  const LaneAddr<D> la = pattern_a<D>(lane);
+  for (int ch = 0; ch < nch; ++ch) {
+    if (!wide_chunk_live(ch, halo, hw)) {
+      // Zeros, so that the keys kernel reads no stale tile columns.
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt) {
+        const int c = 48 * ch + nt * 8 + 2 * t4;
+        if (c >= lt) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = (gq + 8 * h) * lt + c;
+          *reinterpret_cast<uint32_t*>(pw + at) = 0u;
+          *reinterpret_cast<uint32_t*>(dw + at) = 0u;
+        }
+      }
+      continue;
+    }
+    wide_scores<D>(qs, gs, ks, vs, jq, jq, ch, halo, hw, scale, lane, sc, dp);
+#pragma unroll
+    for (int nt = 0; nt < 6; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r >> 1;
+        const float x = sc[nt][r];
+        const bool real = qb + gq + 8 * h < s;
+        const float pr =
+            (x == -INFINITY || !real) ? 0.f : expf(x - m[h]) / l[h];
+        sc[nt][r] = pr;
+        dp[nt][r] = x == -INFINITY ? 0.f : (pr * (dp[nt][r] - rs[h])) * scale;
+        if (edge) {
+          const int key = qb - halo + 48 * ch + nt * 8 + 2 * t4 + (r & 1);
+          if (key < 0 || key >= s) {
+            fk[h] += dp[nt][r];
+            fv[h] += pr;
+          }
+        }
+      }
+      const int c = 48 * ch + nt * 8 + 2 * t4;
+      if (c < lt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = (gq + 8 * h) * lt + c;
+          *reinterpret_cast<uint32_t*>(pw + at) =
+              flash::pack_bf16(sc[nt][2 * h], sc[nt][2 * h + 1]);
+          *reinterpret_cast<uint32_t*>(dw + at) =
+              flash::pack_bf16(dp[nt][2 * h], dp[nt][2 * h + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < 3; ++kc) {
+      if (!block_live(16 * (3 * ch + kc) - halo, hw)) continue;
+      const uint32_t da[4] = {
+          flash::pack_bf16(dp[2 * kc][0], dp[2 * kc][1]),
+          flash::pack_bf16(dp[2 * kc][2], dp[2 * kc][3]),
+          flash::pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]),
+          flash::pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3])};
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bk[4];
+        flash::ldsm_x4_trans(bk, la.at(ks, jq + 48 * ch + 16 * kc, np));
+        flash::mma_bf16(o[2 * np], da, bk[0], bk[1]);
+        flash::mma_bf16(o[2 * np + 1], da, bk[2], bk[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    fk[h] += __shfl_xor_sync(0xffffffffu, fk[h], 1);
+    fk[h] += __shfl_xor_sync(0xffffffffu, fk[h], 2);
+    fv[h] += __shfl_xor_sync(0xffffffffu, fv[h], 1);
+    fv[h] += __shfl_xor_sync(0xffffffffu, fv[h], 2);
+    const int i = qb + gq + 8 * h;
+    if (t4 == 0 && i < s) {
+      scr.fk[row * s + i] = fk[h];
+      scr.fv[row * s + i] = fv[h];
+    }
+  }
+  // The warp's Q rows are dead: stage dq there.
+  store_rows<D, 0, D / 8>(dq + base, o, qs, jq, qb, s, lane, d);
+}
+
+// Shared memory of the keys kernel: the Q (G) rows of 64 + 2 halo queries
+// and their ds (p) tiles, rows padded by 8 columns (conflict-free ldmatrix).
+constexpr int wide_keys_smem(int d_tile, int halo) {
+  return (kStep + 2 * halo) * d_tile * 2 +
+         (kStep + 2 * halo) * (16 + 2 * halo + 8) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kStep * 2, D <= 128 ? 2 : 1)
+    tile_band_bwd_wide_keys(const bf16* __restrict__ q,
+                            const bf16* __restrict__ g, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, Scratch scr, int s,
+                            int steps, int d, int hw, int halo) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const bool is_dv = blockIdx.y == 1;
+  const int nr = kStep + 2 * halo;  // staged query rows
+  const int lt = 16 + 2 * halo;     // a scratch tile's row
+  const int ldp = lt + 8;           // and a staged tile's
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ts = xs + nr * D;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long row = blockIdx.x / steps;
+  const int t = static_cast<int>(blockIdx.x % steps) * kStep;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
+  const int nqb = (s + 15) / 16;
+  const bf16* tiles = (is_dv ? scr.p : scr.ds) +
+                      row * static_cast<int64_t>(nqb) * 16 * lt;
+  // Q (G) rows [t - halo, t + 64 + halo), zeros outside [0, S); the tiles
+  // of those query blocks, zeros for blocks outside [0, S).
+  issue_rows_n<D>(xs, (is_dv ? g : q) + base, t - halo, nr, 0, s, false,
+                  tid, blockDim.x, d);
+  {
+    const int cpr = lt / 8;  // 16-byte chunks a tile row
+    for (int f = tid; f < nr * cpr; f += blockDim.x) {
+      const int r = f / cpr;
+      const int c = f % cpr;
+      const int qi = t - halo + r;  // the query
+      char* dst = reinterpret_cast<char*>(ts + r * ldp) + 16 * c;
+      if (qi >= 0 && qi < 16 * nqb) {
+        band_stage::cp_async16(
+            dst, tiles + ((qi >> 4) * 16 + (qi & 15)) * lt + 8 * c);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+  band_stage::cp_async_commit();
+  band_stage::cp_async_wait<0>();
+  __syncthreads();
+
+  // Keys [kb, kb + 16): the query blocks qb = kb - halo + 16 u, u <
+  // nb, hold them at tile columns 2 halo - 16 u.
+  const int kb = t + 16 * warp;
+  const int nb = 1 + halo / 8;
+  const int mi = lane >> 3;
+  const LaneAddr<D> la = pattern_a<D>(lane);
+  float acc[D / 8][4];
+  flash::zero(acc);
+  for (int u = 0; u < nb; ++u) {
+    if (!block_live(halo - 16 * u, hw)) continue;  // key minus query block
+    uint32_t a[4];
+    flash::ldsm_x4_trans(a, ts + (16 * (warp + u) + (lane & 7) +
+                                  8 * (mi >> 1)) * ldp +
+                                (2 * halo - 16 * u) + 8 * (mi & 1));
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t b[4];
+      flash::ldsm_x4_trans(b, la.at(xs, 16 * (warp + u), np));
+      flash::mma_bf16(acc[2 * np], a, b[0], b[1]);
+      flash::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+  // The fold: row 0 gets sum_{r < hw} f_r x_r, row S-1 the same over
+  // r >= S - hw (f the query's sum over its clamped keys, x its Q or G).
+  if (hw > 0 && kb < s) {
+    const float* fold = (is_dv ? scr.fv : scr.fk) + row * s;
+    const int gq = lane >> 2;
+    const int t4 = lane & 3;
+    auto add_edge = [&](int r0, int r1, int rho) {
+      if (gq != (rho & 7)) return;
+      const bool hi = rho >= 8;
+      for (int r = r0; r < r1; ++r) {
+        const float f = fold[r];
+        const int j = r - (t - halo);
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+              ring_at<D>(xs, j, nt) + 4 * t4);
+          acc[nt][hi ? 2 : 0] += f * __low2float(x);
+          acc[nt][hi ? 3 : 1] += f * __high2float(x);
+        }
+      }
+    };
+    if (kb <= 0 && 0 < kb + 16) add_edge(0, min(hw, s), -kb);
+    if (kb <= s - 1 && s - 1 < kb + 16) {
+      add_edge(max(s - hw, 0), s, s - 1 - kb);
+    }
+  }
+  __syncthreads();  // every warp is done with the staged rows
+  if (kb < s) {
+    store_rows<D, 0, D / 8>((is_dv ? dv : dk) + base, acc, xs, 16 * warp, kb,
+                            s, lane, d);
+  }
+}
+
+// --- f32: scalar FMA ---------------------------------------------------------
+
+// Rows of d floats (d a multiple of 4).
+__device__ __forceinline__ float row_dot(const float* a, const float* b,
+                                         int d) {
   float acc = 0.f;
 #pragma unroll 8
-  for (int c = 0; c < D; c += 4) {
+  for (int c = 0; c < d; c += 4) {
     const float4 x = *reinterpret_cast<const float4*>(a + c);
     const float4 y = *reinterpret_cast<const float4*>(b + c);
     acc += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
@@ -583,43 +981,53 @@ __device__ __forceinline__ void fma4(float4& acc, float w, const float* x) {
   acc.w += w * y.w;
 }
 
-template <int D>
+// Shared memory of the f32 kernel: p and ds of the 64 + 2 hw queries that
+// reach a block's 64 keys, 2 hw + 1 each, and their two fold sums.
+inline int f32_smem(int hw) {
+  const int nq = kF32Rows + 2 * hw;
+  return (2 * nq * (2 * hw + 1) + 2 * nq) * 4;
+}
+
+// A block per 64 rows [t0, t0 + 64): p and ds of the queries
+// [t0 - hw, t0 + 64 + hw) (a thread per query, looping), dq of the owned
+// ones, then a thread per key for dk (threads 0-63) and dv (64-127).
 __global__ void __launch_bounds__(kF32Threads)
     tile_band_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ g,
                       float* __restrict__ dq, float* __restrict__ dk,
-                      float* __restrict__ dv, int s, int per_row, int hw,
-                      float scale) {
-  __shared__ float p_s[kF32Queries][kMaxBand];
-  __shared__ float ds_s[kF32Queries][kMaxBand];
-  __shared__ float fk_s[kF32Queries];
-  __shared__ float fv_s[kF32Queries];
+                      float* __restrict__ dv, int s, int per_row, int d,
+                      int hw, float scale) {
+  extern __shared__ float f32_smem_raw[];
+  const int n = 2 * hw + 1;
+  const int nq = kF32Rows + 2 * hw;
+  float* p_s = f32_smem_raw;
+  float* ds_s = p_s + nq * n;
+  float* fk_s = ds_s + nq * n;
+  float* fv_s = fk_s + nq;
 
   const int tid = threadIdx.x;
   const int64_t row = blockIdx.x / per_row;
   const int t0 = (blockIdx.x % per_row) * kF32Rows;
-  const int64_t base = row * static_cast<int64_t>(s) * D;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
   const float* qr = q + base;
   const float* kr = k + base;
   const float* vr = v + base;
   const float* gr = g + base;
-  const int n = 2 * hw + 1;
 
-  // A thread per query position t0 - 16 + tid: p and ds of its band (in
-  // shared memory), dq of an owned query, and its sums over clamped keys;
-  // a position outside [0, S) has g = 0 and so p g = ds = 0.
-  if (tid < kF32Queries) {
-    const int pos = t0 - kHalo + tid;
-    float* pr = p_s[tid];
-    float* dr = ds_s[tid];
+  // Slot i is query position t0 - hw + i; a position outside [0, S) has
+  // g = 0 and so p g = ds = 0.
+  for (int i = tid; i < nq; i += kF32Threads) {
+    const int pos = t0 - hw + i;
+    float* pr = p_s + i * n;
+    float* dr = ds_s + i * n;
     float fk = 0.f, fv = 0.f;
     if (pos >= 0 && pos < s) {
       float mx = -INFINITY;
       for (int o = 0; o < n; ++o) {
         const int64_t key = clamp_row(pos + o - hw, s);
-        pr[o] = row_dot<D>(qr + static_cast<int64_t>(pos) * D, kr + key * D) *
+        pr[o] = row_dot(qr + static_cast<int64_t>(pos) * d, kr + key * d, d) *
                 scale;
-        dr[o] = row_dot<D>(gr + static_cast<int64_t>(pos) * D, vr + key * D);
+        dr[o] = row_dot(gr + static_cast<int64_t>(pos) * d, vr + key * d, d);
         mx = fmaxf(mx, pr[o]);
       }
       float den = 0.f;
@@ -627,87 +1035,141 @@ __global__ void __launch_bounds__(kF32Threads)
         pr[o] = expf(pr[o] - mx);
         den += pr[o];
       }
-      float rs = 0.f;
+      float rsum = 0.f;
       for (int o = 0; o < n; ++o) {
         pr[o] /= den;
-        rs += dr[o] * pr[o];
+        rsum += dr[o] * pr[o];
       }
       for (int o = 0; o < n; ++o) {
-        dr[o] = (pr[o] * (dr[o] - rs)) * scale;
+        dr[o] = (pr[o] * (dr[o] - rsum)) * scale;
         const int key = pos + o - hw;
         if (key < 0 || key >= s) {
           fk += dr[o];
           fv += pr[o];
         }
       }
-      if (tid >= kHalo && tid < kHalo + kF32Rows) {
-        for (int c = 0; c < D; c += 4) {
+      if (i >= hw && i < hw + kF32Rows) {
+        for (int c = 0; c < d; c += 4) {
           float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
           for (int o = 0; o < n; ++o) {
             fma4(acc, dr[o],
-                 kr + static_cast<int64_t>(clamp_row(pos + o - hw, s)) * D +
+                 kr + static_cast<int64_t>(clamp_row(pos + o - hw, s)) * d +
                      c);
           }
           *reinterpret_cast<float4*>(dq + base +
-                                     static_cast<int64_t>(pos) * D + c) = acc;
+                                     static_cast<int64_t>(pos) * d + c) = acc;
         }
       }
     } else {
       for (int o = 0; o < n; ++o) pr[o] = dr[o] = 0.f;
     }
-    fk_s[tid] = fk;
-    fv_s[tid] = fv;
+    fk_s[i] = fk;
+    fv_s[i] = fv;
   }
   __syncthreads();
 
   // Key position t0 + j gets offset o - hw from the query at position
-  // t0 + j + hw - o, staged query j + 16 + hw - o. Threads 0-63 sum dk,
-  // 64-127 dv; rows 0 and S-1 add the edge queries' clamped mass.
+  // t0 + j + hw - o, slot j + 2 hw - o. Rows 0 and S-1 add the edge
+  // queries' clamped mass.
   const int j = tid & (kF32Rows - 1);
   const int pos = t0 + j;
   if (pos >= s) return;
   const bool is_dv = tid >= kF32Rows;
   const float* src = is_dv ? gr : qr;
   const float* fold = is_dv ? fv_s : fk_s;
-  for (int c = 0; c < D; c += 4) {
+  for (int c = 0; c < d; c += 4) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int o = 0; o < n; ++o) {
-      const int i = j + kHalo + hw - o;
-      fma4(acc, is_dv ? p_s[i][o] : ds_s[i][o],
-           src + static_cast<int64_t>(clamp_row(pos + hw - o, s)) * D + c);
+      const int i = j + 2 * hw - o;
+      fma4(acc, (is_dv ? p_s : ds_s)[i * n + o],
+           src + static_cast<int64_t>(clamp_row(pos + hw - o, s)) * d + c);
     }
     if (hw > 0 && pos == 0) {
       for (int r = 0; r < min(hw, s); ++r) {
-        fma4(acc, fold[r - t0 + kHalo], src + static_cast<int64_t>(r) * D + c);
+        fma4(acc, fold[r - t0 + hw], src + static_cast<int64_t>(r) * d + c);
       }
     }
     if (hw > 0 && pos == s - 1) {
       for (int r = max(s - hw, 0); r < s; ++r) {
-        fma4(acc, fold[r - t0 + kHalo], src + static_cast<int64_t>(r) * D + c);
+        fma4(acc, fold[r - t0 + hw], src + static_cast<int64_t>(r) * d + c);
       }
     }
     *reinterpret_cast<float4*>((is_dv ? dv : dk) + base +
-                               static_cast<int64_t>(pos) * D + c) = acc;
+                               static_cast<int64_t>(pos) * d + c) = acc;
   }
 }
 
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* g, void* dq, void* dk, void* dv,
+                       int64_t rows, int s, int d, int hw, float scale,
+                       cudaStream_t stream) {
+  const int per_row = (s + kF32Rows - 1) / kF32Rows;
+  const int64_t blocks = rows * per_row;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  const int smem = f32_smem(hw);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_band_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  tile_band_bwd_f32<<<static_cast<unsigned>(blocks), kF32Threads, smem,
+                      stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g),
+      static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), s, per_row, d, hw, scale);
+  return cudaGetLastError();
+}
+
+// The queries a band block takes at tile width d_tile and this halo: 64,
+// or 32 where 64 would not fit shared memory (D = 256 at halo 64).
+inline int wide_band_queries(int d_tile, int halo) {
+  return wide_band_smem(d_tile, halo, kStep) <= 227 * 1024 ? kStep
+                                                           : kStep / 2;
+}
+
+template <int D>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const void* g, void* dq, void* dk, void* dv,
+                        void* scratch, int64_t rows, int s, int d, int hw,
+                        float scale, cudaStream_t stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const int halo = halo_of(hw);
+  const Scratch scr = carve(scratch, rows, s, halo);
+  const int nq = wide_band_queries(D, halo);
+  const int band_smem = wide_band_smem(D, halo, nq);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_band_bwd_wide_band<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      band_smem);
+  if (err != cudaSuccess) return err;
+  const int band_steps = (s + nq - 1) / nq;
+  if (rows * band_steps > INT32_MAX) return cudaErrorInvalidConfiguration;
+  tile_band_bwd_wide_band<D>
+      <<<static_cast<unsigned>(rows * band_steps), 2 * nq, band_smem,
+         stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+                   static_cast<bf16*>(dq), scr, s, band_steps, d, hw, halo,
+                   scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int keys_smem = wide_keys_smem(D, halo);
+  err = cudaFuncSetAttribute(tile_band_bwd_wide_keys<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             keys_smem);
+  if (err != cudaSuccess) return err;
+  const int steps = (s + kStep - 1) / kStep;
+  tile_band_bwd_wide_keys<D>
+      <<<dim3(static_cast<unsigned>(rows * steps), 2), 2 * kStep, keys_smem,
+         stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(g),
+                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), scr, s,
+                   steps, d, hw, halo);
+  return cudaGetLastError();
+}
+
+// The ring kernel at head dim D (16, 32, 64, 128) and hw <= 16.
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* g, void* dq, void* dk, void* dv, int64_t rows,
-                     int s, int hw, bool is_bf16, float scale, int device,
+                     int s, int hw, float scale, int device,
                      cudaStream_t stream) {
-  if (!is_bf16) {
-    const int per_row = (s + kF32Rows - 1) / kF32Rows;
-    const int64_t blocks = rows * per_row;
-    if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-    tile_band_bwd_f32<D><<<static_cast<unsigned>(blocks), kF32Threads, 0,
-                           stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(g),
-        static_cast<float*>(dq), static_cast<float*>(dk),
-        static_cast<float*>(dv), s, per_row, hw, scale);
-    return cudaGetLastError();
-  }
   constexpr int kSmem = smem_bytes<D>();
   // Blocks an SM, found once: the attribute first, then the occupancy at
   // this shared memory (0 if either fails).
@@ -740,43 +1202,85 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Whether the ring kernel runs at (d, hw) in bf16; else the wide kernels.
+inline bool ring_kernel(int d, int hw) {
+  return hw <= kHalo && (d == 16 || d == 32 || d == 64 || d == 128);
+}
+
+// The ring kernel where it applies, else the wide kernels, at d's tile
+// width D.
+template <int D>
+cudaError_t launch_w(const void* q, const void* k, const void* v,
+                     const void* g, void* dq, void* dk, void* dv,
+                     void* scratch, int64_t rows, int s, int d, int hw,
+                     float scale, int device, cudaStream_t stream) {
+  if constexpr (D == 16 || D == 32 || D == 64 || D == 128) {
+    if (ring_kernel(d, hw)) {
+      return launch_d<D>(q, k, v, g, dq, dk, dv, rows, s, hw, scale, device,
+                         stream);
+    }
+  }
+  return launch_wide<D>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
+                        scale, stream);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
-// launch (0 on success). q, k, v, g and dq, dk, dv are device pointers to
-// contiguous [rows, s, d] tensors of one dtype (is_bf16 = 1 for bf16, 0 for
-// f32), 16-byte aligned; 0 <= hw <= 16; d is 16, 32, 64 or 128; `stream` is
-// the caller's cudaStream_t. dk and dv come with the clamped positions'
-// mass already folded into rows 0 and S-1. The kernel allocates nothing and
-// does not synchronise.
+// first launch that failed (0 on success). q, k, v, g and dq, dk, dv are
+// device pointers to contiguous [rows, s, d] tensors of one dtype (is_bf16
+// = 1 for bf16, 0 for f32), 16-byte aligned; 0 <= hw <= 64 (W <= 129); d a
+// multiple of 8 in [8, 256]; `scratch` a device buffer of
+// mhla_tile_band_bwd_scratch(rows, s, d, hw, is_bf16) bytes, 16-byte
+// aligned (null where that is 0); `stream` is the caller's cudaStream_t. dk
+// and dv come with the clamped positions' mass already folded into rows 0
+// and S-1. The kernels allocate nothing and do not synchronise.
 extern "C" int mhla_tile_band_bwd(const void* q, const void* k, const void* v,
                                   const void* g, void* dq, void* dk, void* dv,
-                                  long long rows, int s, int d, int hw,
-                                  int is_bf16, float scale, int device,
+                                  void* scratch, long long rows, int s, int d,
+                                  int hw, int is_bf16, float scale, int device,
                                   void* stream) {
-  if (rows <= 0 || s < 1 || hw < 0 || hw > kHalo) {
+  if (rows <= 0 || s < 1 || hw < 0 || hw > kMaxHalo) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool bf = is_bf16 != 0;
-  switch (d) {
+  if (is_bf16 == 0) {
+    if (flash::tile_width(d) == 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(
+        launch_f32(q, k, v, g, dq, dk, dv, rows, s, d, hw, scale, st));
+  }
+  switch (flash::tile_width(d)) {
     case 16:
-      err = launch_d<16>(q, k, v, g, dq, dk, dv, rows, s, hw, bf, scale,
-                         device, st);
+      err = launch_w<16>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
+                         scale, device, st);
       break;
     case 32:
-      err = launch_d<32>(q, k, v, g, dq, dk, dv, rows, s, hw, bf, scale,
-                         device, st);
+      err = launch_w<32>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
+                         scale, device, st);
       break;
     case 64:
-      err = launch_d<64>(q, k, v, g, dq, dk, dv, rows, s, hw, bf, scale,
-                         device, st);
+      err = launch_w<64>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
+                         scale, device, st);
+      break;
+    case 80:
+      err = launch_w<80>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
+                         scale, device, st);
       break;
     case 128:
-      err = launch_d<128>(q, k, v, g, dq, dk, dv, rows, s, hw, bf, scale,
-                          device, st);
+      err = launch_w<128>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
+                          scale, device, st);
+      break;
+    case 192:
+      err = launch_w<192>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
+                          scale, device, st);
+      break;
+    case 256:
+      err = launch_w<256>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
+                          scale, device, st);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -784,19 +1288,42 @@ extern "C" int mhla_tile_band_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory of the bf16 kernel at head dim d (-1 for a d it
-// does not take), for the build report.
-extern "C" int mhla_tile_band_bwd_smem(int d) {
-  switch (d) {
-    case 16:
-      return smem_bytes<16>();
-    case 32:
-      return smem_bytes<32>();
-    case 64:
-      return smem_bytes<64>();
-    case 128:
-      return smem_bytes<128>();
-    default:
-      return -1;
+// The bytes of scratch mhla_tile_band_bwd needs at these arguments, into
+// the long long at `bytes`: 0 for the ring kernel and the f32 kernel, the
+// wide kernels' p/ds tiles and fold sums otherwise. Returns
+// cudaErrorInvalidValue (and writes nothing) for arguments the kernels do
+// not take, else 0.
+extern "C" int mhla_tile_band_bwd_scratch(long long rows, int s, int d,
+                                          int hw, int is_bf16, void* bytes) {
+  if (rows <= 0 || s < 1 || hw < 0 || hw > kMaxHalo ||
+      flash::tile_width(d) == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  *static_cast<long long*>(bytes) = is_bf16 == 0 || ring_kernel(d, hw)
+               ? 0
+               : wide_scratch_bytes(rows, s, halo_of(hw));
+  return 0;
+}
+
+// Dynamic shared memory of the bf16 kernel that runs at head dim d and
+// half window hw (-1 for a pair the kernels do not take), for the build
+// report: the ring kernel's, or the larger of the wide kernels' two.
+extern "C" int mhla_tile_band_bwd_smem(int d, int hw) {
+  const int w = flash::tile_width(d);
+  if (w == 0 || hw < 0 || hw > kMaxHalo) return -1;
+  if (ring_kernel(d, hw)) {
+    switch (d) {
+      case 16:
+        return smem_bytes<16>();
+      case 32:
+        return smem_bytes<32>();
+      case 64:
+        return smem_bytes<64>();
+      default:
+        return smem_bytes<128>();
+    }
+  }
+  const int halo = halo_of(hw);
+  return std::max(wide_band_smem(w, halo, wide_band_queries(w, halo)),
+                  wide_keys_smem(w, halo));
 }

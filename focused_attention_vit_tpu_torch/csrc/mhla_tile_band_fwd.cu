@@ -14,7 +14,8 @@
 // even W reads W + 1 keys. Logits and softmax in f32, p = e / den rounded to
 // the input dtype before the product with V, f32 sums rounded once, as the
 // TPU kernel. K8 reads the same keys from prebuilt window tiles
-// [B*h, n_t, t + 32, d] (row c of tile i is position i*t + c - 16, clamped)
+// [B*h, n_t, t + 2 halo, d] (row c of tile i is position i*t + c - halo,
+// clamped; halo = 16 up to W = 33, JAX's _halo past it)
 // beside query tiles [B*h, n_t, t, d], and writes output tiles of the query
 // tiles' shape.
 //
@@ -87,6 +88,15 @@
 // The f32 instantiations are scalar-FMA kernels, a thread per query reading
 // its 2 hw + 1 keys from device memory: full f32 products, for parity runs,
 // not for speed.
+//
+// Range. The design above (the ring kernel) takes hw <= 16 and the head
+// dims 16, 32, 64 and 128, the MHLA-B/4, E5 and E6 paths'. The card takes
+// JAX's range beyond it: hw <= 64 (W <= 129, the default band's limit) and
+// every head dim that is a multiple of 8 in [8, 256], at JAX's halo (hw
+// rounded up to a multiple of 16, at least 16; K8's window tiles have
+// t + 2 halo rows) and at d's tile width (flash_common.cuh tile_width, zeros
+// past d). Those run the wide kernel below (tile_band_fwd_wide): one
+// 64-query step a block, its band walked in 48-key chunks in two passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,25 +115,30 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace tile_ring;
 
-constexpr int kHalo = 16;          // hw <= 16
+constexpr int kHalo = 16;          // the ring kernel's halo: hw <= 16
 constexpr int kStep = 64;          // queries a step owns
 constexpr int kKRing = 160;        // rows of the K and V rings
 constexpr int kQRing = 128;        // rows of the Q ring
 constexpr int kThreads = 128;      // 4 warps of 16 queries
 constexpr int kMinUnits = 8;       // steps a block takes at least
 constexpr int kBQ = 64;            // queries an f32 block
-constexpr int kMaxBand = 2 * kHalo + 1;
+constexpr int kMaxBand = 2 * kMaxHalo + 1;
 
 template <int D>
 constexpr int smem_bytes() {
   return (kQRing + 2 * kKRing) * D * 2;
 }
 
+// The wide kernel's: 64 Q rows and 64 + 2 halo rows of each of K and V.
+constexpr int wide_smem_bytes(int d_tile, int halo) {
+  return (kStep + 2 * (kStep + 2 * halo)) * d_tile * 2;
+}
+
 // One line, the unit the kernels walk along: K6 (kTiles false) a (b*h) row
-// of [n, D] q, k, v, out; K8 (kTiles true) one tile, query and output rows
-// [0, n) of [n, D] tiles and the n + 32 rows of its [n + 32, D] window
-// tiles. Key position p (query r reads positions r - hw..r + hw) is at
-// k + p D for p in [lo, hi); outside it, K6's clamped band reads the
+// of [n, d] q, k, v, out; K8 (kTiles true) one tile, query and output rows
+// [0, n) of [n, d] tiles and the n + 2 halo rows of its [n + 2 halo, d]
+// window tiles. Key position p (query r reads positions r - hw..r + hw) is
+// at k + p d for p in [lo, hi); outside it, K6's clamped band reads the
 // nearest edge row, and K8's window has no row (no stored query reads one).
 template <typename T, int D, bool kTiles>
 struct Line {
@@ -135,17 +150,18 @@ struct Line {
   int hi;
 
   __device__ Line(const T* q_, const T* k_, const T* v_, T* out_,
-                  long long line, int n) {
-    const int64_t base = line * static_cast<int64_t>(n) * D;
+                  long long line, int n, int d = D, int halo = kHalo) {
+    const int64_t base = line * static_cast<int64_t>(n) * d;
     q = q_ + base;
     out = out_ + base;
     if (kTiles) {
-      const int64_t kbase = line * static_cast<int64_t>(n + 2 * kHalo) * D +
-                            kHalo * D;  // window row 16 is position 0
+      // Window row `halo` is position 0.
+      const int64_t kbase =
+          line * static_cast<int64_t>(n + 2 * halo) * d + halo * d;
       k = k_ + kbase;
       v = v_ + kbase;
-      lo = -kHalo;
-      hi = n + kHalo;
+      lo = -halo;
+      hi = n + halo;
     } else {
       k = k_ + base;
       v = v_ + base;
@@ -333,66 +349,269 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2)
   }
 }
 
+// --- bf16, any halo and tile width: one 64-query step a block -------------
+//
+// The ring kernel above keeps a 16-row halo and the head dims 16, 32, 64
+// and 128. Every other (hw, d) the card takes (hw <= 64, d a multiple of 8
+// up to 256) runs here, at JAX's halo (16, 32, 48 or 64) and d's tile width
+// D (16, 32, 64, 80, 128, 192, 256; zeros past d): a block stages one
+// step's 64 Q rows and the 64 + 2 halo K and V rows its band reads (at
+// D = 256 and halo 64 that is 224 KB, so there is no second step in flight,
+// and a block does one step), then each warp walks its 16 queries' band,
+// 16 + 2 halo keys, in chunks of 48 keys in two passes: the first forms the
+// logits and keeps a running maximum and sum of exponentials, the second
+// forms them again and takes p = e / sum, rounded to bf16, into P V. So p
+// is the normalised weight rounded once, as in the ring kernel and the TPU
+// kernel, and the registers hold one chunk's logits whatever the window.
+// Each step re-reads 2 halo rows of K and V (three reads of each row at
+// halo 64): simple, not the bound.
+
+// The logits of chunk ch (keys [qb - halo + 48 ch, + 48)) of a warp's 16
+// queries, -inf outside the band |offset| <= hw; blocks that meet no query's
+// band are skipped (their slots are -inf either way).
+template <int D>
+__device__ __forceinline__ void wide_logits(const bf16* qs, const bf16* ks,
+                                            int jq, int ch, int halo, int hw,
+                                            float scale, int lane,
+                                            float (&sc)[6][4]) {
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const LaneAddr<D> la = pattern_a<D>(lane);
+  const LaneAddr<D> lb = pattern_b<D>(lane);
+  bool used[3];
+#pragma unroll
+  for (int kc = 0; kc < 3; ++kc) {
+    used[kc] = block_live(16 * (3 * ch + kc) - halo, hw);
+  }
+  flash::zero(sc);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qf[4];
+    flash::ldsm_x4(qf, la.at(const_cast<bf16*>(qs), jq, kk));
+#pragma unroll
+    for (int kc = 0; kc < 3; ++kc) {
+      if (!used[kc]) continue;
+      uint32_t b[4];
+      flash::ldsm_x4(b, lb.at(const_cast<bf16*>(ks), jq + 48 * ch + 16 * kc,
+                              kk));
+      flash::mma_bf16(sc[2 * kc], qf, b[0], b[1]);
+      flash::mma_bf16(sc[2 * kc + 1], qf, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int off = 48 * ch + nt * 8 + 2 * t4 + (r & 1) -
+                      (g + 8 * (r >> 1)) - halo;
+      sc[nt][r] = (off >= -hw && off <= hw) ? sc[nt][r] * scale : -INFINITY;
+    }
+  }
+}
+
+template <int D, bool kTiles>
+__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
+    tile_band_fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       int n, int steps, int d, int hw, int halo,
+                       float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kStep * D;
+  bf16* vs = ks + (kStep + 2 * halo) * D;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long line = blockIdx.x / steps;
+  const int t = static_cast<int>(blockIdx.x % steps) * kStep;
+  const Line<bf16, D, kTiles> ln(q, k, v, out, line, n, d, halo);
+  // Q [t, t + 64) to rows 0..63; K and V [t - halo, t + 64 + halo) to rows
+  // 0..63 + 2 halo.
+  issue_rows_n<D>(qs, ln.q, t, kStep, 0, n, false, tid, kThreads, d);
+  issue_rows_n<D>(ks, ln.k, t - halo, kStep + 2 * halo, ln.lo, ln.hi,
+                  !kTiles, tid, kThreads, d);
+  issue_rows_n<D>(vs, ln.v, t - halo, kStep + 2 * halo, ln.lo, ln.hi,
+                  !kTiles, tid, kThreads, d);
+  band_stage::cp_async_commit();
+  band_stage::cp_async_wait<0>();
+  __syncthreads();
+
+  const int qb = t + 16 * warp;
+  if (qb >= n) return;
+  const int jq = 16 * warp;  // the warp's Q rows; its keys start there too
+  const int nch = (16 + 2 * halo + 47) / 48;
+  float sc[6][4];
+
+  // Pass 1: the running maximum and sum of exponentials of rows g, g + 8
+  // (every lane of a quad holds the same maximum, its own share of the sum).
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  for (int ch = 0; ch < nch; ++ch) {
+    if (!wide_chunk_live(ch, halo, hw)) continue;
+    wide_logits<D>(qs, ks, jq, ch, halo, hw, scale, lane, sc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt) {
+        mx = fmaxf(mx, fmaxf(sc[nt][2 * h], sc[nt][2 * h + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      if (m_new == -INFINITY) continue;  // no key of this row yet
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt) {
+        sum += expf(sc[nt][2 * h] - m_new) + expf(sc[nt][2 * h + 1] - m_new);
+      }
+      l[h] = l[h] * expf(m[h] - m_new) + sum;
+      m[h] = m_new;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+
+  // Pass 2: p = e / l, rounded to bf16, into out = P V.
+  float o[D / 8][4];
+  flash::zero(o);
+  for (int ch = 0; ch < nch; ++ch) {
+    if (!wide_chunk_live(ch, halo, hw)) continue;
+    wide_logits<D>(qs, ks, jq, ch, halo, hw, scale, lane, sc);
+#pragma unroll
+    for (int nt = 0; nt < 6; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = sc[nt][r];
+        sc[nt][r] = x == -INFINITY ? 0.f : expf(x - m[r >> 1]) / l[r >> 1];
+      }
+    }
+    const LaneAddr<D> la = pattern_a<D>(lane);
+#pragma unroll
+    for (int kc = 0; kc < 3; ++kc) {
+      if (!block_live(16 * (3 * ch + kc) - halo, hw)) continue;
+      const uint32_t pa[4] = {
+          flash::pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
+          flash::pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
+          flash::pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
+          flash::pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bv[4];
+        flash::ldsm_x4_trans(bv, la.at(vs, jq + 48 * ch + 16 * kc, np));
+        flash::mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+        flash::mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+  // The warp's Q rows are dead: stage its results there.
+  store_rows<D, 0, D / 8>(ln.out, o, qs, jq, qb, n, lane, d);
+}
+
 // --- f32: scalar FMA, a thread per query ------------------------------------
 
-// Block b takes queries [64 (b % per_line), + 64) of line b / per_line.
+// Block b takes queries [64 (b % per_line), + 64) of line b / per_line. D is
+// the tile width (registers), d <= D the head dim and row stride; the loops
+// over D unroll whole up to D = 128 and stop at d.
 template <int D, bool kTiles>
 __global__ void __launch_bounds__(kBQ)
     tile_band_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
-                      int n, int per_line, int hw, float scale) {
+                      int n, int per_line, int d, int hw, int halo,
+                      float scale) {
   const int r = (blockIdx.x % per_line) * kBQ + threadIdx.x;
   if (r >= n) return;
-  const Line<float, D, kTiles> ln(q, k, v, out, blockIdx.x / per_line, n);
+  const Line<float, D, kTiles> ln(q, k, v, out, blockIdx.x / per_line, n, d,
+                                  halo);
   float qr[D];
-  flash::load_row<D>(qr, ln.q + static_cast<int64_t>(r) * D, true);
+  flash::load_row<D>(qr, ln.q + static_cast<int64_t>(r) * d, true, d);
   const int nb = 2 * hw + 1;
   const auto key = [&](int o) {
-    return static_cast<int64_t>(min(max(r + o - hw, ln.lo), ln.hi - 1)) * D;
+    return static_cast<int64_t>(min(max(r + o - hw, ln.lo), ln.hi - 1)) * d;
   };
-  float lg[kMaxBand];
+  // The thread's 2 hw + 1 logits, then weights: a column of shared memory
+  // (33 KB a block at hw = 64), not a local array.
+  __shared__ float lg_s[kMaxBand * kBQ];
+  float* lg = lg_s + threadIdx.x;
   float mx = -INFINITY;
   for (int o = 0; o < nb; ++o) {
     const float* kr = ln.k + key(o);
     float dot = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) dot += qr[c] * kr[c];
-    lg[o] = dot * scale;
-    mx = fmaxf(mx, lg[o]);
+#pragma unroll(D <= 128 ? D : 8)
+    for (int c = 0; c < D; ++c) {
+      if (c < d) dot += qr[c] * kr[c];
+    }
+    lg[o * kBQ] = dot * scale;
+    mx = fmaxf(mx, dot * scale);
   }
   float den = 0.f;
   for (int o = 0; o < nb; ++o) {
-    lg[o] = expf(lg[o] - mx);
-    den += lg[o];
+    const float e = expf(lg[o * kBQ] - mx);
+    lg[o * kBQ] = e;
+    den += e;
   }
   float acc[D];
-#pragma unroll
+#pragma unroll(D <= 128 ? D : 8)
   for (int c = 0; c < D; ++c) acc[c] = 0.f;
   for (int o = 0; o < nb; ++o) {
-    const float p = lg[o] / den;
+    const float p = lg[o * kBQ] / den;
     const float* vr = ln.v + key(o);
-#pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] += p * vr[c];
+#pragma unroll(D <= 128 ? D : 8)
+    for (int c = 0; c < D; ++c) {
+      if (c < d) acc[c] += p * vr[c];
+    }
   }
-  flash::store_row<D>(ln.out + static_cast<int64_t>(r) * D, acc);
+  flash::store_row<D>(ln.out + static_cast<int64_t>(r) * d, acc, d);
 }
 
-// `lines` lines of n queries: K6's (b*h) rows, K8's tiles.
+// The f32 kernel over `lines` lines of n queries at tile width D.
+template <int D, bool kTiles>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       int64_t lines, int n, int d, int hw, float scale,
+                       cudaStream_t stream) {
+  const int per_line = (n + kBQ - 1) / kBQ;
+  const int64_t blocks = lines * per_line;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  tile_band_fwd_f32<D, kTiles><<<static_cast<unsigned>(blocks), kBQ, 0,
+                                 stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), n, per_line, d,
+      hw, halo_of(hw), scale);
+  return cudaGetLastError();
+}
+
+// The wide bf16 kernel: one block a 64-query step.
+template <int D, bool kTiles>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, int64_t lines, int n, int d, int hw,
+                        float scale, cudaStream_t stream) {
+  const int halo = halo_of(hw);
+  const int smem = wide_smem_bytes(D, halo);
+  const cudaError_t err =
+      cudaFuncSetAttribute(tile_band_fwd_wide<D, kTiles>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int steps = (n + kStep - 1) / kStep;
+  const int64_t blocks = lines * steps;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  tile_band_fwd_wide<D, kTiles><<<static_cast<unsigned>(blocks), kThreads,
+                                  smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, steps, d, hw,
+      halo, scale);
+  return cudaGetLastError();
+}
+
+// `lines` lines of n queries: K6's (b*h) rows, K8's tiles; the ring kernel
+// at head dim D (16, 32, 64, 128) and hw <= 16.
 template <int D, bool kTiles>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     int64_t lines, int n, int hw, bool is_bf16, float scale,
-                     int device, cudaStream_t stream) {
-  if (!is_bf16) {
-    const int per_line = (n + kBQ - 1) / kBQ;
-    const int64_t blocks = lines * per_line;
-    if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-    tile_band_fwd_f32<D, kTiles><<<static_cast<unsigned>(blocks), kBQ, 0,
-                                   stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), n, per_line,
-        hw, scale);
-    return cudaGetLastError();
-  }
+                     int64_t lines, int n, int hw, float scale, int device,
+                     cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<D>();
   // Blocks an SM, found once: the attributes first (all the SM's shared
   // memory for shared memory), then the occupancy (0 if any step fails).
@@ -428,32 +647,63 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// The f32 kernel, or the ring kernel where it applies (hw <= 16 and d in
+// 16, 32, 64, 128), else the wide kernel, at d's tile width D.
+template <int D, bool kTiles>
+cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
+                     int64_t lines, int n, int d, int hw, bool is_bf16,
+                     float scale, int device, cudaStream_t stream) {
+  if (!is_bf16) {
+    return launch_f32<D, kTiles>(q, k, v, out, lines, n, d, hw, scale,
+                                 stream);
+  }
+  if constexpr (D == 16 || D == 32 || D == 64 || D == 128) {
+    if (d == D && hw <= kHalo) {
+      return launch_d<D, kTiles>(q, k, v, out, lines, n, hw, scale, device,
+                                 stream);
+    }
+  }
+  return launch_wide<D, kTiles>(q, k, v, out, lines, n, d, hw, scale, stream);
+}
+
 template <bool kTiles>
 int launch(const void* q, const void* k, const void* v, void* out,
            int64_t lines, int n, int d, int hw, int is_bf16, float scale,
            int device, void* stream) {
-  if (lines <= 0 || n < 1 || hw < 0 || hw > kHalo) {
+  if (lines <= 0 || n < 1 || hw < 0 || hw > kMaxHalo) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool bf = is_bf16 != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
+  switch (flash::tile_width(d)) {
     case 16:
-      err = launch_d<16, kTiles>(q, k, v, out, lines, n, hw, bf, scale,
+      err = launch_w<16, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
                                  device, st);
       break;
     case 32:
-      err = launch_d<32, kTiles>(q, k, v, out, lines, n, hw, bf, scale,
+      err = launch_w<32, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
                                  device, st);
       break;
     case 64:
-      err = launch_d<64, kTiles>(q, k, v, out, lines, n, hw, bf, scale,
+      err = launch_w<64, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+                                 device, st);
+      break;
+    case 80:
+      err = launch_w<80, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
                                  device, st);
       break;
     case 128:
-      err = launch_d<128, kTiles>(q, k, v, out, lines, n, hw, bf, scale,
+      err = launch_w<128, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+                                  device, st);
+      break;
+    case 192:
+      err = launch_w<192, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+                                  device, st);
+      break;
+    case 256:
+      err = launch_w<256, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
                                   device, st);
       break;
     default:
@@ -467,8 +717,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // Plain C entry points, loaded with ctypes. Each returns the cudaError_t of
 // its launch (0 on success); the kernels allocate nothing and do not
 // synchronise. Tensors are device pointers to contiguous tensors of one
-// dtype (is_bf16 = 1 for bf16, 0 for f32), 16-byte aligned; 0 <= hw <= 16;
-// d is 16, 32, 64 or 128; `stream` is the caller's cudaStream_t.
+// dtype (is_bf16 = 1 for bf16, 0 for f32), 16-byte aligned; 0 <= hw <= 64
+// (W <= 129); d is a multiple of 8 in [8, 256]; `stream` is the caller's
+// cudaStream_t.
 //
 // K6: q, k, v and out are [rows, s, d].
 extern "C" int mhla_tile_band_fwd(const void* q, const void* k, const void* v,
@@ -480,7 +731,8 @@ extern "C" int mhla_tile_band_fwd(const void* q, const void* k, const void* v,
 }
 
 // K8: q and out are [rows, n_t, t, d] query tiles, k and v
-// [rows, n_t, t + 32, d] window tiles.
+// [rows, n_t, t + 2 halo, d] window tiles, halo = max(16, ceil(hw / 16) 16)
+// (JAX's _halo).
 extern "C" int mhla_tile_band_fwd_tiles(const void* q, const void* k,
                                         const void* v, void* out,
                                         long long rows, int n_t, int t, int d,
@@ -491,19 +743,26 @@ extern "C" int mhla_tile_band_fwd_tiles(const void* q, const void* k,
                       device, stream);
 }
 
-// Dynamic shared memory of the bf16 kernels at head dim d (-1 for a d they
-// do not take), for the build report.
-extern "C" int mhla_tile_band_fwd_smem(int d) {
-  switch (d) {
-    case 16:
-      return smem_bytes<16>();
-    case 32:
-      return smem_bytes<32>();
-    case 64:
-      return smem_bytes<64>();
-    case 128:
-      return smem_bytes<128>();
-    default:
-      return -1;
+// Dynamic shared memory of the bf16 kernel that runs at head dim d and
+// half window hw (-1 for a pair the kernels do not take), for the build
+// report: the ring kernel's at hw <= 16 and d in 16, 32, 64, 128, else the
+// wide kernel's.
+extern "C" int mhla_tile_band_fwd_smem(int d, int hw) {
+  const int w = flash::tile_width(d);
+  if (w == 0 || hw < 0 || hw > kMaxHalo) return -1;
+  if (d == w && hw <= kHalo) {
+    switch (d) {
+      case 16:
+        return smem_bytes<16>();
+      case 32:
+        return smem_bytes<32>();
+      case 64:
+        return smem_bytes<64>();
+      case 128:
+        return smem_bytes<128>();
+      default:
+        break;
+    }
   }
+  return wide_smem_bytes(w, halo_of(hw));
 }

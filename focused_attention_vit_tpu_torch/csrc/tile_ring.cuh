@@ -11,6 +11,13 @@
 // multiple of 16 and the kernels address 16-row blocks that start at
 // positions that are multiples of 16, so such a block starts at a ring row
 // that is a multiple of 16 and never wraps.
+//
+// D is the tile width (16, 32, 64, 80, 128, 192 or 256); a head dim d < D
+// is copied into the first d / 8 chunks of a row and the rest are zeros.
+// At D = 80 (ten chunks, 160 bytes a row) the swizzle flips the low bit of
+// the chunk index in rows 4-7 of each 8, which keeps a chunk pair inside
+// the row: rows 0-3 start 32 bytes apart modulo 128, rows 4-7 land on the
+// other 16 bytes of each 32, so 8 rows of one chunk meet 8 bank groups.
 
 #pragma once
 
@@ -25,6 +32,27 @@ namespace tile_ring {
 
 using bf16 = __nv_bfloat16;
 
+// The wide kernels' range (mhla_tile_band_{fwd,bwd}.cu): hw <= 64, W <= 129.
+constexpr int kMaxHalo = 64;
+
+// JAX's halo (mhla_kernel_v4.py _halo): hw rounded up to a multiple of 16,
+// at least 16.
+inline int halo_of(int hw) { return hw <= 16 ? 16 : (hw + 15) / 16 * 16; }
+
+// Whether a block of 16 keys meets the band |key - query| <= hw of any of a
+// warp's 16 queries, b being its first key's offset from the first query.
+// A dead block's logits are -inf and its weights 0 in every slot.
+__device__ __forceinline__ bool block_live(int b, int hw) {
+  return b - 15 <= hw && b + 15 >= -hw;
+}
+
+// Whether chunk ch of the wide kernels' band walk (the 48 keys from offset
+// 48 ch - halo of the warp's first query) meets the band of any query.
+__device__ __forceinline__ bool wide_chunk_live(int ch, int halo, int hw) {
+  const int b = 48 * ch - halo;
+  return b - 15 <= hw && b + 47 >= -hw;
+}
+
 // Ring row of position p (p >= -R).
 template <int R>
 __device__ __forceinline__ int ring_row(int p) {
@@ -35,9 +63,14 @@ __device__ __forceinline__ int ring_row(int p) {
 template <int D>
 __device__ __forceinline__ int swz(int j) {
   constexpr int kChunks = D / 8;
-  constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
-  constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
-  return (j / kRowsPerLine) & kMask;
+  if constexpr (kChunks > 8 && kChunks % 8 != 0) {
+    static_assert(kChunks % 2 == 0, "chunk pairs");
+    return (j >> 2) & 1;
+  } else {
+    constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
+    constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+    return (j / kRowsPerLine) & kMask;
+  }
 }
 
 template <int D>
@@ -83,16 +116,16 @@ __device__ __forceinline__ void stsm_x4(void* ptr, uint32_t r0, uint32_t r1,
       : "memory");
 }
 
-// Positions [p0, p0 + N) of a row of D-element rows into a ring of R rows,
-// by NT threads with 16-byte cp.async copies: position p in [lo, hi) is
-// copied from src + p D; one outside is copied from the nearest of lo and
-// hi - 1 (clamp: the band's replicas of the edge rows) or stored as zeros
-// by the issuing thread. Nothing is written into the ring after a copy
-// lands. The caller commits the group.
+// Positions [p0, p0 + N) of a row of d-element rows (d <= D) into a ring
+// of R rows, by NT threads with 16-byte cp.async copies: position p in
+// [lo, hi) is copied from src + p d; one outside is copied from the nearest
+// of lo and hi - 1 (clamp: the band's replicas of the edge rows) or stored
+// as zeros by the issuing thread, as are the chunks past d. Nothing is
+// written into the ring after a copy lands. The caller commits the group.
 template <int D, int N, int NT, int R>
 __device__ __forceinline__ void issue_rows(bf16* ring, const bf16* src, int p0,
                                            int lo, int hi, bool clamp,
-                                           int tid) {
+                                           int tid, int d = D) {
   constexpr int C = D / 8;
   constexpr int kItems = N * C;
   const int j0 = ring_row<R>(p0);
@@ -105,10 +138,10 @@ __device__ __forceinline__ void issue_rows(bf16* ring, const bf16* src, int p0,
       const int p = p0 + r;
       const int j = j0 + r < R ? j0 + r : j0 + r - R;
       char* dst = ring_at<D>(ring, j, c);
-      if ((p >= lo && p < hi) || clamp) {
+      if (8 * c < d && ((p >= lo && p < hi) || clamp)) {
         band_stage::cp_async16(
             dst,
-            src + static_cast<int64_t>(min(max(p, lo), hi - 1)) * D + c * 8);
+            src + static_cast<int64_t>(min(max(p, lo), hi - 1)) * d + c * 8);
       } else {
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
       }
@@ -116,14 +149,37 @@ __device__ __forceinline__ void issue_rows(bf16* ring, const bf16* src, int p0,
   }
 }
 
+// The same for a run-time count of rows, by nt threads, into a linear
+// buffer (row r of the buffer holds position p0 + r).
+template <int D>
+__device__ __forceinline__ void issue_rows_n(bf16* buf, const bf16* src,
+                                             int p0, int rows, int lo, int hi,
+                                             bool clamp, int tid, int nt,
+                                             int d) {
+  constexpr int C = D / 8;
+  for (int f = tid; f < rows * C; f += nt) {
+    const int r = f / C;
+    const int c = f % C;
+    const int p = p0 + r;
+    char* dst = ring_at<D>(buf, r, c);
+    if (8 * c < d && ((p >= lo && p < hi) || clamp)) {
+      band_stage::cp_async16(
+          dst, src + static_cast<int64_t>(min(max(p, lo), hi - 1)) * d + c * 8);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
 // Columns [C0 * 8, (C0 + NC) * 8) of a warp's 16-row f32 result, rounded
-// to bf16, to rows pos0..pos0+15 of dst (those in [0, n)) in 16-byte
-// stores: through the same columns of ring rows j0..j0+15 of `stage`, which
-// no other warp touches meanwhile.
+// to bf16, to rows pos0..pos0+15 of dst (those in [0, n); rows of d
+// elements, the columns past d not stored) in 16-byte stores: through the
+// same columns of ring rows j0..j0+15 of `stage`, which no other warp
+// touches meanwhile.
 template <int D, int C0, int NC>
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[NC][4],
                                            bf16* stage, int j0, int pos0,
-                                           int n, int lane) {
+                                           int n, int lane, int d = D) {
   const LaneAddr<D> la = pattern_a<D>(lane);
   __syncwarp();
 #pragma unroll
@@ -141,8 +197,8 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[NC][4],
     const int r = f / NC;
     const int c = C0 + f % NC;
     const int pos = pos0 + r;
-    if (f < 16 * NC && pos >= 0 && pos < n) {
-      *reinterpret_cast<uint4*>(dst + static_cast<int64_t>(pos) * D + c * 8) =
+    if (f < 16 * NC && pos >= 0 && pos < n && 8 * c < d) {
+      *reinterpret_cast<uint4*>(dst + static_cast<int64_t>(pos) * d + c * 8) =
           *reinterpret_cast<const uint4*>(ring_at<D>(stage, j0 + r, c));
     }
   }

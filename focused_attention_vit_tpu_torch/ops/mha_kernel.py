@@ -49,14 +49,20 @@ import threading
 import torch
 
 from focused_attention_vit_tpu_torch.ops import philox
+from focused_attention_vit_tpu_torch.ops.flash_attention import (
+    HEAD_DIM_STEP,
+    MAX_HEAD_DIM,
+    MIN_HEAD_DIM,
+)
 
 FWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/fused_mha_fwd.cu"
 BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/fused_mha_bwd.cu"
 # Largest padded S the JAX single-tile formulation accepts; kept as the
 # op's range so that both packages take the fused path at the same shapes.
 MAX_TILE_SEQ = 1024
-# The kernels' instantiations; the plain versions take any head dim.
-HEAD_DIMS = (16, 32, 64, 128)
+# The kernels take every head dim that is a multiple of 8 in [8, 256], as
+# the flash kernels (MIN_HEAD_DIM, MAX_HEAD_DIM, HEAD_DIM_STEP), padded to
+# the same tile widths; the plain versions take any head dim.
 
 LAUNCH_KINDS = ("fwd", "fwd_train", "bwd")
 _launches = dict.fromkeys(LAUNCH_KINDS, 0)
@@ -89,7 +95,7 @@ def _row_tile(s: int) -> int:
 def fused_mha_supported(seq_len: int, head_dim: int) -> bool:
     """The JAX op's rule: S rounded up to 128 is at most ``MAX_TILE_SEQ``
     and the head dim is a multiple of 8. On a CUDA tensor the op further
-    needs a head dim in ``HEAD_DIMS`` and raises otherwise."""
+    needs a head dim of at most ``MAX_HEAD_DIM`` and raises otherwise."""
     return _row_tile(seq_len) <= MAX_TILE_SEQ and head_dim % 8 == 0
 
 
@@ -146,10 +152,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             f"fused attention supports S <= {MAX_TILE_SEQ} and head dims "
             f"that are multiples of 8, got S={s}, d={d}"
         )
-    if q.device.type == "cuda" and d not in HEAD_DIMS:
+    if q.device.type == "cuda" and not (
+        MIN_HEAD_DIM <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0
+    ):
         raise ValueError(
-            f"the fused attention kernels support head dims {HEAD_DIMS}, "
-            f"got {d}"
+            f"the fused attention kernels support head dims that are "
+            f"multiples of {HEAD_DIM_STEP} in [{MIN_HEAD_DIM}, "
+            f"{MAX_HEAD_DIM}], got {d}"
         )
     _check_layout(q=q, k=k, v=v)
 

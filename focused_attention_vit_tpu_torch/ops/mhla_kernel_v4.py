@@ -30,8 +30,11 @@ plain version. Nothing falls back.
 :func:`banded_attention_v4` joins K6 and K7 in one ``torch.autograd.Function``
 that saves q, k and v, as JAX's ``_fwd_rule``. :func:`banded_attention_v4b`
 builds the window tiles in plain PyTorch, as XLA does in JAX, and runs K8.
-The kernels stage a halo of 16 rows, so they take ``W // 2 <= 16`` (W up to
-33); JAX's halo grows with W.
+The kernels stage JAX's halo, ``_halo``: W // 2 rounded up to a multiple of
+16, at least 16. On the card they take ``1 <= W <= MAX_WINDOW`` (129, the
+default band's range) and every head dim that is a multiple of 8 in
+[8, 256]; the plain versions, and so the CPU, take any W and head dim, as
+JAX's v4 does.
 """
 
 from __future__ import annotations
@@ -43,6 +46,11 @@ import threading
 import numpy as np
 import torch
 
+from focused_attention_vit_tpu_torch.ops.flash_attention import (
+    HEAD_DIM_STEP,
+    MAX_HEAD_DIM,
+    MIN_HEAD_DIM,
+)
 from focused_attention_vit_tpu_torch.ops.window import real_constants
 
 KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/mhla_tile_band_fwd.cu"
@@ -52,10 +60,10 @@ DEFAULT_BLOCK = 256
 # it; the result does not depend on the grouping, and the port's K8 does not
 # group.
 GROUP = 8
-# The kernels' halo (kHalo in the sources): W // 2 up to 16.
-MAX_HALF_WINDOW = 16
+# The card's range (kMaxHalo in the sources): W // 2 up to 64, a halo of
+# 64 rows; head dims are the flash kernels' (multiples of 8 in [8, 256]).
+MAX_HALF_WINDOW = 64
 MAX_WINDOW = 2 * MAX_HALF_WINDOW + 1
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
 
 LAUNCH_KINDS = ("fwd", "bwd", "fwd_b")
 _launches = dict.fromkeys(LAUNCH_KINDS, 0)
@@ -253,10 +261,12 @@ _SIGNATURES = {
         [_PTR] * 4 + [_LL, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
     ("mhla_tile_band_fwd", "mhla_tile_band_fwd_tiles"):
         [_PTR] * 4 + [_LL, _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
-    ("mhla_tile_band_fwd", "mhla_tile_band_fwd_smem"): [_INT],
+    ("mhla_tile_band_fwd", "mhla_tile_band_fwd_smem"): [_INT, _INT],
     ("mhla_tile_band_bwd", "mhla_tile_band_bwd"):
-        [_PTR] * 7 + [_LL, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
-    ("mhla_tile_band_bwd", "mhla_tile_band_bwd_smem"): [_INT],
+        [_PTR] * 8 + [_LL, _INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
+    ("mhla_tile_band_bwd", "mhla_tile_band_bwd_scratch"):
+        [_LL, _INT, _INT, _INT, _INT, _PTR],
+    ("mhla_tile_band_bwd", "mhla_tile_band_bwd_smem"): [_INT, _INT],
 }
 
 
@@ -271,8 +281,10 @@ def _kernel(source: str, fn_name: str):
 
 
 def _check(tensors, window_size: int, what: str) -> None:
-    """One dtype (f32 or bf16), one device (cpu or cuda), contiguous, a
-    head dim the kernels take and ``W // 2 <= MAX_HALF_WINDOW``."""
+    """One dtype (f32 or bf16), one device (cpu or cuda), contiguous,
+    ``window_size >= 1``; on a CUDA tensor also the kernels' range,
+    ``window_size <= MAX_WINDOW`` and a head dim that is a multiple of 8
+    in [8, 256]. A CPU tensor takes any window and head dim."""
     x = tensors[0]
     if x.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != x.dtype for t in tensors):
@@ -282,13 +294,19 @@ def _check(tensors, window_size: int, what: str) -> None:
         raise ValueError(f"{what}: tensors must be on one device")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda, got {x.device}")
-    if not 1 <= window_size <= MAX_WINDOW:
-        raise ValueError(
-            f"{what} takes 1 <= window_size <= {MAX_WINDOW} (a halo of "
-            f"{MAX_HALF_WINDOW} rows), got {window_size}")
-    if x.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{what} takes head dims {HEAD_DIMS}, got "
-                         f"{x.shape[-1]}")
+    if window_size < 1:
+        raise ValueError(f"{what} takes window_size >= 1, got {window_size}")
+    if x.device.type == "cuda":
+        if window_size > MAX_WINDOW:
+            raise ValueError(
+                f"the {what} kernels take 1 <= window_size <= {MAX_WINDOW} "
+                f"(a halo of {MAX_HALF_WINDOW} rows), got {window_size}")
+        d = x.shape[-1]
+        if not (MIN_HEAD_DIM <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0):
+            raise ValueError(
+                f"the {what} kernels take head dims that are multiples of "
+                f"{HEAD_DIM_STEP} in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}], got "
+                f"{d}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} needs contiguous tensors")
 
@@ -342,11 +360,21 @@ def tile_band_backward(q, k, v, g, window_size: int):
     if q.device.type == "cpu":
         return plain_bwd_rule(q, k, v, g, window_size)
     bh, s, d = q.shape
+    hw = window_size // 2
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    # The wide kernels' p/ds tiles and fold sums (0 bytes for the ring
+    # kernel), as many bytes as the source asks for.
+    nbytes = ctypes.c_longlong(0)
+    err = _kernel("mhla_tile_band_bwd", "mhla_tile_band_bwd_scratch")(
+        bh, s, d, hw, int(q.dtype == torch.bfloat16), ctypes.byref(nbytes))
+    _check_launch(err, "mhla_tile_band_bwd_scratch", q, window_size)
+    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=q.device)
+               if nbytes.value else None)
     fn = _kernel("mhla_tile_band_bwd", "mhla_tile_band_bwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d,
-             window_size // 2, *_launch_args(q))
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), bh, s, d, hw,
+             *_launch_args(q))
     _check_launch(err, "mhla_tile_band_bwd", q, window_size)
     _count("bwd")
     return dq, dk, dv
@@ -355,8 +383,9 @@ def tile_band_backward(q, k, v, g, window_size: int):
 def window_tile_band(qt: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
                      window_size: int) -> torch.Tensor:
     """K8 on query tiles ``[BH, n_t, t, d]`` and window tiles
-    ``[BH, n_t, t + 2*halo, d]``: the kernel on a CUDA tensor (halo 16),
-    its plain version on a CPU tensor. Returns ``[BH, n_t, t, d]``."""
+    ``[BH, n_t, t + 2*halo, d]``: the kernel on a CUDA tensor (JAX's
+    ``_halo`` of W // 2), its plain version on a CPU tensor (any halo of at
+    least W // 2). Returns ``[BH, n_t, t, d]``."""
     _check((qt, ke, ve), window_size, "window tile band")
     bh, n_t, t, d = qt.shape
     ext = ke.shape[2]
@@ -370,9 +399,10 @@ def window_tile_band(qt: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
             f"{tuple(qt.shape)}, {tuple(ke.shape)}, {tuple(ve.shape)}")
     if qt.device.type == "cpu":
         return plain_window_tile_band(qt, ke, ve, window_size)
-    if ext - t != 2 * MAX_HALF_WINDOW:
-        raise ValueError(f"the K8 kernel takes a halo of {MAX_HALF_WINDOW} "
-                         f"rows, got {(ext - t) // 2}")
+    halo = _halo(DEFAULT_BLOCK, hw)
+    if ext - t != 2 * halo:
+        raise ValueError(f"the K8 kernel takes a halo of {halo} rows at "
+                         f"W={window_size}, got {(ext - t) // 2}")
     out = torch.empty_like(qt)
     fn = _kernel("mhla_tile_band_fwd", "mhla_tile_band_fwd_tiles")
     err = fn(qt.data_ptr(), ke.data_ptr(), ve.data_ptr(), out.data_ptr(),

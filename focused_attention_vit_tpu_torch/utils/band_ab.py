@@ -7,7 +7,11 @@ token-major the tile band's forward (K6, ``csrc/mhla_tile_band_fwd.cu``),
 its window-tile forward on JAX's 256-row tiles (K8, the same source) and
 its backward as its autograd Function runs it (K7,
 ``csrc/mhla_tile_band_bwd.cu``, with whatever edge fold the checkout runs
-after it, so that every checkout does the same work), in each checkout
+after it, so that every checkout does the same work), and the fused
+short-S attention (K3, ``csrc/fused_mha_fwd.cu``: the eval forward and the
+training forward at dropout 0.1; K4, ``csrc/fused_mha_bwd.cu``) at E1's
+shape (B*h=1536, S=197, d=64: the whole-row kernels) and past the whole-row
+kernels (B*h=384, S=577: the flash blocks with the mask), in each checkout
 given, each in a process of its own that imports that checkout's package,
 in turns: the order given, then the reverse. Every checkout's kernels are
 built first, all at once. With ``--steps`` it then profiles MHLA-B/4's
@@ -46,7 +50,10 @@ WINDOW = 7
 RATE = 0.1
 SEED = 1234
 LIBRARIES = ["mhla_band_fwd", "mhla_band_bwd", "mhla_tile_band_fwd",
-             "mhla_tile_band_bwd"]
+             "mhla_tile_band_bwd", "fused_mha_fwd", "fused_mha_bwd"]
+# B, h, S, d of the fused op: E1's (ViT-B/16, batch 128) and a row past the
+# whole-row kernels (ViT-B/16 at 384 pixels, batch 32).
+FUSED_SHAPES = {"fused": (128, 12, 197, 64), "fused_tiled": (32, 12, 577, 64)}
 TILE_ENV = {"FAVIT_MHLA_IMPL": "shiftband", "FAVIT_USE_PALLAS_MHLA": "1"}
 # --steps: (label, step_profile mode, environment).
 STEPS = [("serve", "serve", {}), ("train", "train", {}),
@@ -148,10 +155,38 @@ def time_kernels() -> dict:
     del got, ref
     calls["tile_fwd"] = lambda: tile.tile_band_forward(*rows[:3], w)
     calls["tile_fwd_b"] = lambda: tile.window_tile_band(qt, ke, ve, w)
+    calls.update(_fused_calls(res, gen))
     for name, fn in calls.items():
         res[f"{name}_ms"] = _median_ms(fn)
         res[f"{name}_device_ms"] = _device_ms(fn)
     return res
+
+
+def _fused_calls(res: dict, gen) -> dict:
+    """K3's eval and training forwards and K4 at each of
+    :data:`FUSED_SHAPES`, bf16, dropout :data:`RATE` in the training forms;
+    their largest errors against the plain versions go into ``res``."""
+    from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
+
+    calls = {}
+    for key, shape in FUSED_SHAPES.items():
+        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen)
+                      .bfloat16() for _ in range(4))
+        out, lse = fused.fused_mha_forward_train(q, k, v, RATE, SEED)
+        ref, _ = fused.plain_fused_mha_forward(q.float(), k.float(),
+                                               v.float(), RATE, SEED)
+        res[f"{key}_err"] = float((out.float() - ref).abs().max())
+        del ref
+        # No input requires grad: the eval forward.
+        calls[f"{key}_eval"] = (
+            lambda q=q, k=k, v=v: fused.fused_multi_head_attention(q, k, v))
+        calls[f"{key}_train"] = (
+            lambda q=q, k=k, v=v: fused.fused_mha_forward_train(
+                q, k, v, RATE, SEED))
+        calls[f"{key}_bwd"] = (
+            lambda q=q, k=k, v=v, out=out, lse=lse, g=g:
+            fused.fused_mha_backward(q, k, v, out, lse, g, RATE, SEED))
+    return calls
 
 
 def _run(tree: Path, args: list, env: dict | None = None) -> str:

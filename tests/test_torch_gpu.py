@@ -575,9 +575,13 @@ def _rms_close(got, want):
     assert rms <= 2.0 ** -8 * float(want.pow(2).mean().sqrt()) + 1e-6
 
 
+# The head dims of the whole-row kernels in both directions.
+FUSED_ROW_HEAD_DIMS = (16, 32, 64, 128)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", fused.HEAD_DIMS)
+@pytest.mark.parametrize("d", FUSED_ROW_HEAD_DIMS)
 @pytest.mark.parametrize("s", FUSED_SEQS)
 def test_fused_kernels_match_plain(cuda, dtype, d, s, rate):
     """Eval forward (rate 0), training forward with its log-sum-exp and the
@@ -620,8 +624,50 @@ def test_fused_kernels_match_plain(cuda, dtype, d, s, rate):
             _rms_close(got, want)
 
 
-@pytest.mark.parametrize("s", [197, 257])
-@pytest.mark.parametrize("d", fused.HEAD_DIMS)
+# S around each tile width's whole-row limit (64 at D = 192 and 256, 192 at
+# 80) and past it, the ViT-B/16 and ViT-H/14 lengths.
+FUSED_RANGE_SEQS = [17, 65, 193, 197, 257]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", RANGE_HEAD_DIMS + (8, 192))
+@pytest.mark.parametrize("s", FUSED_RANGE_SEQS)
+def test_fused_kernels_across_head_dims(cuda, dtype, d, s, rate):
+    """The fused kernels at head dims past the four of the grid above:
+    padded tile widths (8 and 24 run at 16 and 32, zeros past d), 80, 192
+    and 256, by the same rules (f32 forward within 1e-5, backward within
+    1e-4; bf16 within 3 ulps entry by entry and by the rms rule), the
+    eval forward equal to the training forward at rate 0, two backward
+    runs bit-identical."""
+    q, k, v, g = _inputs(cuda, (2, 3, s, d), dtype, n=4, seed=s + d)
+    seed = 2**40 + s if rate else None
+    out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
+    grads = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+    again = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    rq, rk, rv, rg = ((x.float() for x in (q, k, v, g)) if bf16
+                      else (q, k, v, g))
+    ref_out, ref_lse = fused.plain_fused_mha_forward(rq, rk, rv, rate, seed)
+    ref_grads = fused.plain_fused_mha_backward(
+        rq, rk, rv, rg, rate, seed, out=out.float() if bf16 else None)
+    if rate == 0.0:
+        with torch.no_grad():
+            assert torch.equal(fused.fused_multi_head_attention(q, k, v), out)
+    _fused_close(out, ref_out, dtype, 1e-5, 3.0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert got.dtype == dtype and torch.equal(got, rerun)
+        _fused_close(got, want, dtype, 1e-4, 3.0)
+    if bf16:
+        direct = fused.plain_fused_mha_backward(rq, rk, rv, rg, rate, seed)
+        for got, want in zip(grads[:2], direct[:2]):
+            _rms_close(got, want)
+
+
+@pytest.mark.parametrize("s", [65, 197, 257])
+@pytest.mark.parametrize("d", FUSED_ROW_HEAD_DIMS + (24, 80, 256))
 @pytest.mark.parametrize("bad", [float("nan"), float("inf"), 3e38])
 def test_fused_kernels_read_no_other_head(cuda, d, s, bad):
     """The q, k, v, g rows of head 1 hold huge or non-finite values; head 0
@@ -629,7 +675,8 @@ def test_fused_kernels_read_no_other_head(cuda, d, s, bad):
     head 0 alone (the dropout stream is keyed on the row, which is 0 in
     both). S = 197 takes the whole-row kernels, whose tensor maps zero-fill
     a row's padding instead of reading the next head; S = 257 the tiled
-    ones."""
+    ones (S = 65 the whole-row kernel at every tile width, S = 197 past
+    it at 192 and 256; d = 24 and 80 read tiles wider than the head)."""
     q, k, v, g = _inputs(cuda, (1, 2, s, d), torch.bfloat16, n=4, seed=d)
     for x in (q, k, v, g):
         x[0, 1] = bad
@@ -703,7 +750,7 @@ def test_fused_kernels_reject_what_they_do_not_take(cuda):
         x = q.transpose(2, 3).contiguous().transpose(2, 3)
         fused.fused_multi_head_attention(x, x, x)
     with pytest.raises(ValueError, match="head dims"):
-        x = torch.zeros(1, 2, 40, 24, device=cuda)
+        x = torch.zeros(1, 2, 40, 264, device=cuda)
         fused.fused_multi_head_attention(x, x, x)
     with pytest.raises(ValueError):  # longer than the op's range
         x = torch.zeros(1, 1, fused.MAX_TILE_SEQ + 1, 16, device=cuda)
@@ -744,8 +791,12 @@ TILE_LENGTHS = [None, 20, 48, 64, 65, 197, 496, 497, 511, 512, 513, 1000,
                 3137]
 
 
+# The ring kernels' head dims (hw <= 16) and windows.
+TILE_RING_HEAD_DIMS = (16, 32, 64, 128)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", tile.HEAD_DIMS)
+@pytest.mark.parametrize("d", TILE_RING_HEAD_DIMS)
 @pytest.mark.parametrize("w", [1, 3, 4, 7, 15, 33])
 @pytest.mark.parametrize("s", TILE_LENGTHS)
 def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
@@ -776,21 +827,63 @@ def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
         _tile_close(got, want, dtype, 1e-4)
 
 
+# The wide kernels' grid: every window of the range at every head dim of
+# it, S = W + 1 (shorter than a band: a query near one edge also reads
+# clamped positions past the other) and just past 2W (one or two 64-row
+# steps with both edges folded), the ViT-B/16 and MHLA-H/14 lengths, and
+# one row of 3137.
+TILE_RANGE_CASES = [(w, s) for w in RANGE_WINDOWS
+                    for s in (w + 1, 2 * w + 1, 2 * w + 2, 197, 1370, 3137)
+                    if s > 2 * w or s == w + 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", RANGE_HEAD_DIMS + (8, 192))
+@pytest.mark.parametrize("w,s", TILE_RANGE_CASES)
+def test_tile_band_kernels_across_head_dims_and_windows(cuda, dtype, d, w,
+                                                        s):
+    """K6, K7 (with the edge fold) and K8 at JAX's halo (16, 32, 64 at W =
+    7/17, 64 and 129) and the padded head dims against their plain versions
+    by the grid's rules above; two runs of each bit-identical."""
+    q, k, v, g = (x.view(6, s, d) for x in _inputs(cuda, (2, 3, s, d), dtype,
+                                                   n=4, seed=s + w + d))
+    before = [tile.launch_count(kind) for kind in tile.LAUNCH_KINDS]
+    out = tile.tile_band_forward(q, k, v, w)
+    out_again = tile.tile_band_forward(q, k, v, w)
+    grads = tile.tile_band_backward(q, k, v, g, w)
+    again = tile.tile_band_backward(q, k, v, g, w)
+    out_b = tile.banded_attention_v4b(*(x.view(2, 3, s, d) for x in (q, k, v)),
+                                      w)
+    torch.cuda.synchronize()
+    assert [tile.launch_count(kind) for kind in tile.LAUNCH_KINDS] == [
+        before[0] + 2, before[1] + 2, before[2] + 1]
+    assert torch.equal(out, out_again)
+    ref = tile.plain_tile_band_forward(q, k, v, w)
+    _tile_close(out, ref, dtype, 1e-5)
+    _tile_close(out_b.view(6, s, d), ref, dtype, 1e-5)
+    for got, rerun, want in zip(grads, again,
+                                tile.plain_bwd_rule(q, k, v, g, w)):
+        assert got.dtype == dtype and torch.equal(got, rerun)
+        _tile_close(got, want, dtype, 1e-4)
+
+
 @pytest.mark.parametrize("kernel", ["K6", "K7"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("poison", [float("nan"), float("inf"), 3e38])
 @pytest.mark.parametrize("s", [48, 65, 497, 3137])
+@pytest.mark.parametrize("w,d", [(7, 64), (7, 80), (129, 80), (65, 256)])
 def test_tile_band_backward_reads_only_its_row(cuda, dtype, poison, s,
-                                               kernel):
+                                               kernel, w, d):
     """NaN, inf or 3e38 in the neighbouring (b*h) rows of q, k, v and g
     leave a row's K6 output, and its K7 dq, dk and dv, bit-identical: the
-    kernels read no row but their own, the clamped halo included."""
-    q, k, v, g = _inputs(cuda, (3, s, 64), dtype, n=4, seed=s)
+    kernels read no row but their own, the clamped halo included (the ring
+    kernels at (7, 64), the wide ones at the other (W, d))."""
+    q, k, v, g = _inputs(cuda, (3, s, d), dtype, n=4, seed=s)
 
     def run():
         if kernel == "K6":
-            return [tile.tile_band_forward(q, k, v, 7)]
-        return tile.tile_band_backward(q, k, v, g, 7)
+            return [tile.tile_band_forward(q, k, v, w)]
+        return tile.tile_band_backward(q, k, v, g, w)
 
     clean = [x[1].clone() for x in run()]
     for x in (q, k, v, g):
@@ -804,27 +897,31 @@ def test_tile_band_backward_reads_only_its_row(cuda, dtype, poison, s,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t", [32, 200, 256])
-def test_tile_band_k8_matches_its_plain_version_on_tiles(cuda, t, dtype):
+@pytest.mark.parametrize("w,d", [(7, 64), (7, 24), (17, 80), (64, 64),
+                                 (129, 80), (129, 256)])
+def test_tile_band_k8_matches_its_plain_version_on_tiles(cuda, t, dtype, w,
+                                                         d):
     """K8 on three window tiles of t rows a (b*h) row (JAX's tile lengths
-    at S <= 32, S = 197 and the 256-row cap; none a multiple of 64 but
-    256) against its plain version, and NaN, inf or 3e38 in the
-    neighbouring tiles (the row's other tiles, the other rows) leave the
-    middle tile of the middle row bit-identical: K8 reads its own window
-    rows only."""
+    at S <= 32, S = 197 and the 256-row cap, raised to JAX's 2 halo where
+    the halo is longer; none a multiple of 64 but 256) against its plain
+    version, and NaN, inf or 3e38 in the neighbouring tiles (the row's
+    other tiles, the other rows) leave the middle tile of the middle row
+    bit-identical: K8 reads its own window rows only."""
+    halo = tile._halo(tile.DEFAULT_BLOCK, w // 2)
+    t = max(t, 2 * halo)
     s = 3 * t - 3
-    q, k, v = (x.view(3, s, 64) for x in _inputs(cuda, (3, s, 64), dtype,
-                                                 seed=t))
-    halo = tile.MAX_HALF_WINDOW
+    q, k, v = (x.view(3, s, d) for x in _inputs(cuda, (3, s, d), dtype,
+                                                seed=t))
     ke, ve = (tile._window_tiles(x, t, halo, 3 * t) for x in (k, v))
-    qt = tile._pad_seq(q, 0, 3).view(3, 3, t, 64).contiguous()
-    got = tile.window_tile_band(qt, ke, ve, 7)
-    _tile_close(got, tile.plain_window_tile_band(qt, ke, ve, 7), dtype, 1e-5)
+    qt = tile._pad_seq(q, 0, 3).view(3, 3, t, d).contiguous()
+    got = tile.window_tile_band(qt, ke, ve, w)
+    _tile_close(got, tile.plain_window_tile_band(qt, ke, ve, w), dtype, 1e-5)
     clean = got[1, 1].clone()
     for poison in (float("nan"), float("inf"), 3e38):
         for x in (qt, ke, ve):
             x[[0, 2]] = poison
             x[1, [0, 2]] = poison
-        again = tile.window_tile_band(qt, ke, ve, 7)
+        again = tile.window_tile_band(qt, ke, ve, w)
         torch.cuda.synchronize()
         assert torch.equal(again[1, 1], clean), poison
 
@@ -861,14 +958,15 @@ def test_tile_band_kernels_reject_what_they_do_not_take(cuda):
         x = q.transpose(1, 2).contiguous().transpose(1, 2)
         tile.tile_band_forward(x, x, x, 7)
     with pytest.raises(ValueError, match="window_size"):
-        tile.tile_band_backward(q, q, q, q, tile.MAX_WINDOW + 1)
+        x = torch.zeros(6, 300, 16, device=cuda)
+        tile.tile_band_backward(x, x, x, x, 131)
     with pytest.raises(ValueError, match="head dims"):
-        x = torch.zeros(6, 40, 24, device=cuda)
+        x = torch.zeros(6, 40, 264, device=cuda)
         tile.tile_band_forward(x, x, x, 7)
     with pytest.raises(TypeError):  # dtype
         x = q.half()
         tile.tile_band_forward(x, x, x, 7)
-    with pytest.raises(ValueError, match="halo"):  # K8 takes a halo of 16
+    with pytest.raises(ValueError, match="halo"):  # JAX's halo at W = 7: 16
         qt = torch.zeros(6, 1, 64, 16, device=cuda)
         kt = torch.zeros(6, 1, 64 + 64, 16, device=cuda)
         tile.window_tile_band(qt, kt, kt, 7)
@@ -961,7 +1059,7 @@ def test_segment_pool_in_bf16_on_the_card(cuda, pooling):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", tile.HEAD_DIMS)
+@pytest.mark.parametrize("d", TILE_RING_HEAD_DIMS)
 @pytest.mark.parametrize("w", [4, 7])
 def test_tile_band_kernels_at_17_tokens(cuda, dtype, d, w):
     """K6 and K7 at the SPPP models' S = 17 (a 16-query step and a 1-query

@@ -480,22 +480,40 @@ def test_cpu_tensors_launch_no_kernel():
     assert [tv4.launch_count(kind) for kind in tv4.LAUNCH_KINDS] == [0, 0, 0]
 
 
+# Computed on the CPU, held against JAX's v4 (interpret mode): W = 35 (a
+# halo of 32 rows, past the old kernels' 16) and d = 24.
+WIDE_CASE, HEAD_DIM_CASE = (1, 2, 80, 16, 35), (1, 2, 40, 24, 7)
+
+
 @pytest.mark.parametrize("case,err", [
-    ("wide", ValueError),
-    ("head_dim", ValueError),
+    ("wide", None),
+    ("head_dim", None),
     ("dtype", TypeError),
     ("strided", ValueError),
     ("shapes", ValueError),
     ("block", ValueError),
 ])
 def test_tile_band_rejects(case, err):
+    """What the tile band refuses on a CPU tensor. A window past 33 and a
+    head dim outside the kernels' old instantiations are computed there, as
+    JAX's v4 computes them: K6 and the folded K7 equal JAX's forward and
+    VJP. Their rejection on a CUDA tensor (W > 129, d not a multiple of 8 in
+    [8, 256]) is in tests/test_torch_gpu.py."""
     s, w, d = 40, 7, 16
     q, k, v = (torch.zeros(6, s, d) for _ in range(3))
-    if case == "wide":
-        w = tv4.MAX_WINDOW + 1
-    elif case == "head_dim":
-        q, k, v = (torch.zeros(6, s, 24) for _ in range(3))
-    elif case == "dtype":
+    if err is None:
+        jcase = WIDE_CASE if case == "wide" else HEAD_DIM_CASE
+        (qa, ka, va, ga), want, want_grads = _jax_v4(jcase)
+        rows = [_rows(x) for x in (qa, ka, va, ga)]
+        tv4.reset_launch_count()
+        got = tv4.tile_band_forward(*rows[:3], jcase[4])
+        _close(got.reshape(want.shape), want)
+        for got_g, ref in zip(tv4.tile_band_backward(*rows, jcase[4]),
+                              want_grads):
+            _close(got_g.reshape(ref.shape), ref)
+        assert [tv4.launch_count(k_) for k_ in tv4.LAUNCH_KINDS] == [0, 0, 0]
+        return
+    if case == "dtype":
         q, k, v = (x.half() for x in (q, k, v))
     elif case == "strided":
         q = torch.zeros(6, d, s).transpose(1, 2)
