@@ -268,13 +268,31 @@ widths (D=1280, 32 blocks, 16 heads of d=80, patch 14) on 518x518 images
     W in 7, 17, 64, 129 (kernel-tileband's rule); each bf16 form timed
     beside its plain version, its bound and PyTorch's fused attention;
 45. h14-model, h14-serve, export and h14-train through the opt-in
-    kernels, at 32 blocks: dense ViT-H/14 at 224x224 (S=257) with
-    ``FAVIT_FUSED_MHA=1`` (K3's eval form 32 x the forward passes, K3's
-    training form and K4 32 x the steps, the flash op and K1/K2 never),
-    MHLA-H/14 through the tile band at W=7 and W=129 (K6 32 x the passes,
-    K7 32 x the steps, K1/K2 never; trained without attention dropout),
+    kernels, cut to 8 blocks: dense ViT-H/14 at 224x224 (S=257) with
+    ``FAVIT_FUSED_MHA=1`` (K3's eval form 8 x the forward passes, K3's
+    training form and K4 8 x the steps, the flash op and K1/K2 never),
+    MHLA-H/14 through the tile band at W=7 and W=129 (K6 8 x the passes,
+    K7 8 x the steps, K1/K2 never; trained without attention dropout),
     W=129 also exported and served from its artifact bit-equal to the
     live path.
+
+Then two groups at ViT-B's width (D=768) with every head count the CLI
+takes (1, 2 and 64 heads: d = 768, 384 and 12), batch 8:
+
+46. kernel-headdims: K5 (eval, training forward, backward) at d = 768, 12
+    (dense ViT-B/4, S=3137) and 1280 (ViT-H's width in one head, S=1370);
+    K1 (eval, training at dropout 0 and 0.1) and K2 at d = 384, 12 and
+    1280 (W=7); K3 and K4 at d = 384 and 1280 (S=197, dropout 0 and 0.1,
+    kernel-fused's loose-case rule); K6, K7 and K8 at d = 4, 12, 36 (S=3137,
+    W=7 and 129): f32 at batch 1 and bf16 at batch 8 against the plain
+    versions, the paths' widths timed beside plain, bound and PyTorch's
+    fused attention (its backend named), the pad's copies at d = 12;
+47. headdims-model, headdims-serve, export and headdims-train: MHLA-B/4
+    with 2 and 64 heads (K1/K2), dense ViT-B/4 with 1 and 64 heads (K5),
+    ViT-B/16 with 2 heads and ``FAVIT_FUSED_MHA=1`` (K3/K4, attention
+    dropout 0.1), cut to 4 blocks: each against the CPU at 2 blocks, served
+    and trained 3 steps with its launches checked; MHLA-B/4 with 2 heads
+    also exported and served bit-equal from its artifact.
 
 A ``[time]`` line after each group of phases gives the seconds since the
 start.
@@ -288,7 +306,8 @@ K6's boolean band-mask call for K7.
 Every launch count is set to 0 just before its path is driven and read just
 after. The line before the last is a JSON summary of the twelve kernels
 and of the new widths' rows (K3/K4 at d=80; K6/K7 at d=80, W=7 and 129;
-K8 at W=129), each
+K8 at W=129; K5 at d=768 and 12, K1/K2 at d=384 and 12, K3/K4 at d=384),
+each
 with its time, its plain version's, the least time the card could take
 (``bound_ms``, from this run's shapes) and the library call's where PyTorch
 has one; the last line is ``{"ok": true, "device": {...}}``. Run from the
@@ -471,14 +490,17 @@ def least_time(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def band_library_call(s: int, w: int, dtype):
+def band_library_call(s: int, w: int, dtype, forced: bool = True):
     """PyTorch's fused attention computing the band's function (K1's):
     ``F.scaled_dot_product_attention`` on the S-minor tensors' transposed
     views, with the band's float mask (log m on the window, m the slots a
     key fills, -inf off it; ``ops/window._band_log_multiplicity``), the
-    memory-efficient backend. That backend takes rows of stride 1, so the
-    views are copied inside the call. Timed as a yardstick; the port uses
-    it nowhere."""
+    memory-efficient backend (or, ``forced=False``, the backend PyTorch
+    picks; ``call.backend(q, k, v)`` names it). That backend takes rows of
+    stride 1, so the views are copied inside the call. Timed as a
+    yardstick; the port uses it nowhere."""
+    import contextlib
+
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -486,10 +508,20 @@ def band_library_call(s: int, w: int, dtype):
                            device="cuda").to(dtype)
 
     def call(q, k, v, dropout_p=0.0):
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        with (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if forced
+              else contextlib.nullcontext()):
             return F.scaled_dot_product_attention(
                 *(x.transpose(-1, -2).contiguous() for x in (q, k, v)),
                 attn_mask=bias, dropout_p=dropout_p)
+
+    def backend(q, k, v):
+        if forced:
+            return "EFFICIENT_ATTENTION (forced, the mask's)"
+        rows = [x.transpose(-1, -2).contiguous() for x in (q, k, v)]
+        return SDPBackend(torch._fused_sdp_choice(*rows,
+                                                  attn_mask=bias)).name
+
+    call.backend = backend
     return call
 
 
@@ -556,9 +588,11 @@ def phase_build() -> None:
         # the dynamic shared memory they are launched with.
         if lib.name.startswith("libflash_attention_"):
             _flash_ptxas(lib, text)
+            _headdim_wide_ptxas(lib, text)
         if lib.name.startswith("libfused_mha_"):
             _fused_ptxas(lib, text)
             _fused_wide_ptxas(lib, text)
+            _headdim_wide_ptxas(lib, text)
         if lib.name == "libmhla_band_fwd.so":
             _band_fwd_ptxas(lib, text)
         if lib.name == "libmhla_band_bwd.so":
@@ -667,6 +701,35 @@ def _fused_wide_ptxas(lib: Path, text: str) -> None:
         log("build", f"ptxas {lib.name} at tile width {w}: {len(rows)} bf16 "
                      f"kernels, registers {min(regs)}-{max(regs)}, spill "
                      f"stores (bytes) {spills or 'none'}")
+
+
+def _headdim_wide_ptxas(lib: Path, text: str) -> None:
+    """Log ptxas's registers and spills of the blocks past head dim 256
+    (csrc/flash_wide.cuh) in a flash or fused library: the bf16 forward, or
+    the dkv and dq kernels, and their dynamic shared memory; raise if one
+    is missing or spills (none did when they were written: 166 to 236
+    registers)."""
+    op = "flash" if lib.name.startswith("libflash") else "fused"
+    kinds = ("fwd",) if "_fwd" in lib.name else ("bwd_dkv", "bwd_dq")
+    so = kernel_build.load("flash_attention_fwd" if kinds == ("fwd",)
+                           else "flash_attention_bwd")
+    smem = (so.flash_attention_fwd_smem(264) if kinds == ("fwd",)
+            else so.flash_attention_bwd_smem(264, 0))
+    for kind in kinds:
+        name = f"{op}_{kind}_wide"
+        found = re.findall(
+            rf"Function properties for \S*?\d{name}\S*\n\s*\d+ bytes "
+            r"stack frame, (\d+) bytes spill stores.*\n.*?Used (\d+) "
+            r"registers", text)
+        if not found:
+            raise AssertionError(f"ptxas report of {name} not found in "
+                                 f"{lib.parent / 'build.log'}")
+        log("build", f"ptxas {name} (head dims past 256): " + ", ".join(
+            f"{regs} registers, {spills} bytes of spill stores"
+            for spills, regs in found)
+            + f"; {smem} bytes of dynamic shared memory")
+        if any(int(spills) for spills, _ in found):
+            raise AssertionError(f"{name} spills: {found}")
 
 
 def _band_fwd_ptxas(lib: Path, text: str) -> None:
@@ -4283,9 +4346,9 @@ H14_WINDOWS = (7, 17, 64, 129)
 H14_WIDE_W = 129
 # A padded head dim (24 -> 32), ViT-H/14's, and the widest.
 H14_FLASH_DIMS = (24, 80, 256)
-# The default paths' ViT-H/14 models (K1/K2, K5) run cut to 8 of the 32
-# blocks, to hold the smoke's time as the opt-in paths (32 blocks) joined
-# it; their kernels run at full width either way.
+# The default ViT-H/14 models (K1/K2, K5) run cut to 8 of the 32 blocks, to
+# hold the smoke's time as the later paths joined it; the opt-in ones
+# (K3/K4, K6/K7) run all 32. Their kernels run at full width either way.
 H14_DEFAULT_DEPTH = 8
 H14_STEPS = 3
 H14_SIZES = (1, 8, 12)  # requests; 12 takes two batches of 8
@@ -4749,14 +4812,15 @@ def phase_kernel_h14_optin() -> dict:
 
 
 def _h14_flax_tree(mhla: bool, depth: int, seed: int,
-                   img: int = H14_IMG) -> dict:
+                   img: int = H14_IMG, dim: int = H14_DIM,
+                   h: int = H14_HEADS, patch: int = H14_PATCH) -> dict:
     """A seeded parameter tree in the JAX package's Flax layout (what a JAX
-    checkpoint of the model holds): ViT-H/14's widths, ``depth`` blocks,
-    10 classes, the position table of ``img``; weights N(0, 0.02^2),
-    biases 0, LayerNorm scales 1."""
+    checkpoint of the model holds): ViT-H/14's widths (or ``dim``, ``h``
+    heads and ``patch``), ``depth`` blocks, 10 classes, the position table
+    of ``img``; weights N(0, 0.02^2), biases 0, LayerNorm scales 1."""
     gen = torch.Generator().manual_seed(seed)  # torch.randn: all cores
-    dim, h, hd, mlp = H14_DIM, H14_HEADS, H14_HEAD_DIM, 4 * H14_DIM
-    tokens = (img // H14_PATCH) ** 2 + 1
+    hd, mlp = dim // h, 4 * dim
+    tokens = (img // patch) ** 2 + 1
 
     def normal(*shape):
         return (torch.randn(shape, generator=gen) * 0.02).numpy()
@@ -4769,7 +4833,7 @@ def _h14_flax_tree(mhla: bool, depth: int, seed: int,
         return {"scale": np.ones(dim, np.float32),
                 "bias": np.zeros(dim, np.float32)}
 
-    tree = {"patch_embed": {"projection": dense(H14_PATCH ** 2 * 3, dim)},
+    tree = {"patch_embed": {"projection": dense(patch ** 2 * 3, dim)},
             "cls_token": normal(1, 1, dim),
             "pos_embed": normal(1, tokens, dim)}
     for i in range(depth):
@@ -4802,11 +4866,16 @@ class _H14:
     """One of the ViT-H/14 paths: label, model class and flag, its window
     (None: dense), the op whose kernels it runs (the default path's band
     and flash op, or an opt-in op with the environment that switches it
-    on), the ops that must launch nothing on it, and its resolution."""
+    on), the ops that must launch nothing on it, and its resolution. The
+    head-count paths (phase_headdims) give another width, head count and
+    patch."""
 
     def __init__(self, label, w, op=None, env=None, idle=(), img=H14_IMG,
-                 depth=H14_DEPTH):
+                 depth=H14_DEPTH, dim=H14_DIM, heads=H14_HEADS,
+                 patch=H14_PATCH, prefix="h14"):
         self.label, self.w, self.img, self.depth = label, w, img, depth
+        self.dim, self.heads, self.patch = dim, heads, patch
+        self.prefix = prefix  # of its phases' labels
         self.mhla = w is not None
         self.cls = VisionTransformerMHLA if self.mhla else VisionTransformer
         self.flag = "vit_mhla" if self.mhla else "vit"
@@ -4818,14 +4887,20 @@ class _H14:
                       else flax_vit_to_state_dict)
         # The kind its training forward counts under (K6 counts both).
         self.train_kind = "fwd" if self.op is tile else "fwd_train"
-        self.s = (img // H14_PATCH) ** 2 + 1
+        self.s = (img // patch) ** 2 + 1
 
     def build(self, depth, device, **kw):
         if self.mhla:
             kw["window_size"] = self.w
-        return self.cls(img_size=self.img, patch_size=H14_PATCH,
-                        num_classes=10, embed_dim=H14_DIM, depth=depth,
-                        num_heads=H14_HEADS, device=device, **kw)
+        return self.cls(img_size=self.img, patch_size=self.patch,
+                        num_classes=10, embed_dim=self.dim, depth=depth,
+                        num_heads=self.heads, device=device, **kw)
+
+    def tree(self, depth: int, seed: int) -> dict:
+        """The path's seeded Flax-layout tree (_h14_flax_tree)."""
+        tree = _h14_flax_tree(True, depth, seed, self.img, self.dim,
+                              self.heads, self.patch)
+        return tree if self.mhla else _without_latent(tree)
 
     def check_idle(self, phase: str) -> None:
         busy = {op.__name__: _counts(op) for op in self.idle}
@@ -4834,8 +4909,8 @@ class _H14:
                                  f"run were launched: {busy}")
 
     def flags(self):
-        return ["--embed_dim", str(H14_DIM), "--depth", str(self.depth),
-                "--num_heads", str(H14_HEADS),
+        return ["--embed_dim", str(self.dim), "--depth", str(self.depth),
+                "--num_heads", str(self.heads),
                 *(("--window_size", str(self.w)) if self.mhla
                               else ())]
 
@@ -4862,11 +4937,11 @@ def _counts(op) -> dict:
 
 
 def phase_h14_parity(p: _H14, tree: dict) -> None:
-    """The model cut to 2 blocks at full width, 2 images at 518x518: f32 on
-    the card against the CPU (the model phase's rule: logits within 1e-3,
+    """The model cut to 2 blocks at full width, 2 images at the path's
+    resolution: f32 on the card against the CPU (the model phase's rule: logits within 1e-3,
     probabilities within 1e-4) and bf16 autocast on the card against the
     f32 CPU (the serve phase's 1e-2 on probabilities); 2 launches a pass."""
-    phase = "h14-model"
+    phase = f"{p.prefix}-model"
     sd = p.to_sd(tree)
     cpu_model = p.build(2, "cpu").eval()
     cpu_model.load_state_dict(sd)
@@ -4904,11 +4979,11 @@ def phase_h14_serve(p: _H14, weights: str) -> dict:
     batch 8: concurrent requests through ``BatchingServer`` and one ``POST
     /predict`` through ``HTTPFrontend``; the op's eval kernel launched once
     a block a forward pass; a full batch's latency. Returns the launches."""
-    phase = "h14-serve"
+    phase = f"{p.prefix}-serve"
     rng = np.random.default_rng(20)
     t0 = time.perf_counter()
     args, predictor = serve.setup([
-        "--model", p.flag, "--patch_size", str(H14_PATCH), "--img_size",
+        "--model", p.flag, "--patch_size", str(p.patch), "--img_size",
         str(p.img), "--compute_dtype", "bfloat16", "--batch_size",
         str(H14_BATCH), "--weights", weights, *p.flags()])
     log(phase, f"{p.label}: set-up (weights, model, warm-up batch) "
@@ -4963,7 +5038,7 @@ def phase_h14_train(p: _H14, sd: dict) -> dict:
     where the op's kernels draw it: K1, K3) on one batch: losses finite and
     falling; the training forward and the backward launched once a block a
     step. Returns the launches."""
-    phase = "h14-train"
+    phase = f"{p.prefix}-train"
     kw = dict(dropout=TRAIN_DROPOUT)
     # Attention dropout where the op draws it in its kernels (the band's
     # K1, the fused K3): the tile band trains without it, as in JAX, where
@@ -5093,6 +5168,399 @@ def phase_h14_optin() -> dict:
     return total
 
 
+# --- every head count the CLI takes: head dims off the grid of 8, past 256 --
+
+# At ViT-B's width (D = 768) --num_heads h gives the head dim 768 / h: 1, 2
+# and 64 heads are d = 768, 384 and 12 (the paper's E7 and E8 compare one
+# head with several). The kernels take a head dim off the grid of 8 padded
+# with zero columns (12 -> 16; ops/flash_attention.pad_head_dim) and one
+# past 256 through the wide blocks of csrc/flash_wide.cuh (K5, K3/K4) or
+# more channel chunks (K1/K2). kernel-headdims holds each at the main
+# paths' shapes (batch 8; f32 at batch 1): K5 at d = 768 and 12 (dense
+# ViT-B/4, S = 3137), K1/K2 at d = 384 and 12 (MHLA-B/4, W = 7), K3/K4 at
+# d = 384 (ViT-B/16, S = 197); each also at ViT-H's D = 1280 in one head (K5
+# and K1/K2 at S = 1370, K3/K4 at S = 197); and K6/K7/K8 at d = 4, 12, 36
+# (S = 3137, W = 7 and 129).
+HD_DIM, HD_IMG, HD_BATCH = 768, 224, 8
+HD_S = (HD_IMG // 4) ** 2 + 1
+HD_FUSED_S = (HD_IMG // 16) ** 2 + 1
+HD_H = H14_DIM  # ViT-H's width, one head
+HD_FLASH = ((768, 1, HD_S), (12, 64, HD_S), (HD_H, 1, H14_S))  # d, h, S
+HD_BAND = ((384, 2, HD_S), (12, 64, HD_S), (HD_H, 1, H14_S))
+HD_FUSED = ((384, 2), (HD_H, 1))  # d, h at S = 197
+HD_TILE_DIMS = (4, 12, 36)
+HD_TILE_WINDOWS = (7, 129)
+HD_TILE_ROWS = 16
+HD_W = 7
+HD_REPS = 10  # CUDA-event medians of the kernels; the plain versions of 3
+# The paths run cut to 4 of their 12 blocks, to hold the smoke's time; the
+# kernels run at full width either way.
+HD_DEPTH = 4
+
+
+def _sdpa_backend(q, k, v) -> str:
+    """The backend PyTorch's fused attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+
+
+def _recompute(d: int) -> str:
+    """The wide blocks' logits recomputation at head dim d: every 128
+    output columns of the forward and every 64 of the backward form the
+    logits (and dP) over all of d again (csrc/flash_wide.cuh); up to 256
+    the wgmma blocks hold whole rows."""
+    if d <= 256:
+        return "none (whole rows)"
+    fwd, bwd = -(-d // 128), -(-d // 64)
+    return (f"forward {(fwd + 1) / 2:.2f}x its 4 S^2 d flops ({fwd} slices), "
+            f"backward {(8 * bwd + 6) / 10:.2f}x its 10 S^2 d ({bwd} slices)")
+
+
+def _pad_ms(x, d: int, dim: int) -> float:
+    """The pad's extra copies in one eval call: q, k and v padded to the
+    grid of 8 along ``dim``, the output sliced back (CUDA-event median)."""
+    def run():
+        qp, kp, vp = (flash.pad_head_dim(t, dim) for t in x[:3])
+        return flash.unpad_head_dim(qp, d, dim)
+    return cuda_median_ms(run, HD_REPS)
+
+
+def phase_kernel_headdims() -> dict:
+    """K5 (eval, training forward, backward) at HD_FLASH, K1 (eval, training
+    at dropout 0 and 0.1) and K2 at HD_BAND, K3 (eval, training at dropout 0
+    and 0.1) and K4 at HD_FUSED, K6/K7/K8 at HD_TILE_DIMS: in f32 (batch 1)
+    and bf16 (batch 8) against their plain versions by the rules of
+    kernel-flash, kernel-train, kernel-fused's loose cases and
+    kernel-tileband; each bf16 form at the main paths' d timed beside its
+    plain version, its bound and PyTorch's fused attention (the backend it
+    picks named), with the pad's copies timed at d = 12. Returns {"flash":
+    {d: forms}, "band": {d: forms}, "fused": {d: forms}}."""
+    import torch.nn.functional as F  # the library call, timed as a yardstick
+
+    phase = "kernel-headdims"
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    failures = []
+    seed = 2**41 + 21
+    rate = TRAIN_DROPOUT
+
+    def inputs(shape, dtype):
+        return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(4)]
+
+    def times_of(fns):
+        return {n: cuda_median_ms(fn, 3, 1) if n.endswith("plain")
+                else cuda_median_ms(fn, HD_REPS) for n, fn in fns.items()}
+
+    def show(kind, d, r):
+        log(phase, f"{kind} d={d} bf16, kernel / plain / PyTorch's fused "
+                   f"attention ({r.pop('backend')}), ms (CUDA-event "
+                   f"medians of {HD_REPS}, plain of 3): " + "; ".join(
+                       f"{n} {x['ms']:.4f} / {x['plain_ms']:.4f} / "
+                       f"{x['library_ms'] if x['library_ms'] is None else round(x['library_ms'], 4)}"
+                       f", bound {x['bound_ms']:.4f} ({x['bound_by']}), "
+                       f"{x['bound_ms'] / x['ms']:.3f} of it"
+                       for n, x in r.items())
+            + ("" if kind == "band" else f"; recomputation {_recompute(d)}"))
+
+    result = {"flash": {}, "band": {}, "fused": {}}
+    for d, h, s in HD_FLASH:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            shape = (1 if dtype == torch.float32 else HD_BATCH, h, s, d)
+            q, k, v, g = inputs(shape, dtype)
+            res = _compare_flash(q, k, v, g)
+            _optin_check(failures, f"flash {shape} {dt}", res)
+            log(phase, f"flash B,h,S,d={shape} {dt}: max abs err " + ", ".join(
+                f"{n} {t}" for n, (_, _, t) in res.items()))
+            if dtype == torch.float32 or d == HD_H:
+                continue
+            out, lse = flash.flash_forward_train(q, k, v)
+            again = [flash.flash_backward(q, k, v, out, lse, g)
+                     for _ in range(2)]
+            if not all(torch.equal(a, b_) for a, b_ in zip(*again)):
+                raise AssertionError(f"{phase}: two flash backward runs "
+                                     f"differ at d={d}")
+            del again
+            t = times_of({
+                "fwd": lambda: flash.flash_attention(q, k, v),
+                "fwd_train": lambda: flash.flash_forward_train(q, k, v),
+                "bwd": lambda: flash.flash_backward(q, k, v, out, lse, g),
+                "fwd_plain": lambda: flash.plain_flash_forward(q, k, v),
+                "bwd_plain": lambda: flash.plain_flash_backward(
+                    q, k, v, out, lse, g),
+            })
+            with torch.no_grad():
+                t["fwd_library"] = cuda_median_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v), HD_REPS)
+            lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+            t["fwd_train_library"] = cuda_median_ms(
+                lambda: F.scaled_dot_product_attention(lq, lk, lv), HD_REPS)
+            del lq, lk, lv
+            t["bwd_library"] = backward_ms(F.scaled_dot_product_attention,
+                                           (q, k, v), g)
+            errs = {n: e for n, (e, _, _) in res.items()}
+            one = q.numel() * q.element_size()
+            pairs = HD_BATCH * h * s * s * d
+            r = result["flash"][d] = dict(
+                fwd=dict(max_abs_err=errs["out_eval"], ms=t["fwd"],
+                         plain_ms=t["fwd_plain"],
+                         library_ms=t["fwd_library"],
+                         **least_time(4 * one, 4 * pairs)),
+                fwd_train=dict(max_abs_err=max(errs["out"], errs["lse"]),
+                               ms=t["fwd_train"], plain_ms=t["fwd_plain"],
+                               library_ms=t["fwd_train_library"],
+                               **least_time(4 * one + lse.numel() * 4,
+                                            4 * pairs)),
+                bwd=dict(max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
+                         ms=t["bwd"], plain_ms=t["bwd_plain"],
+                         library_ms=t["bwd_library"],
+                         **least_time(8 * one + lse.numel() * 4,
+                                      10 * pairs)))
+            show("flash", d, dict(r, backend=_sdpa_backend(q, k, v)))
+            if d % 8:
+                log(phase, f"flash d={d}: the pad's copies (q, k, v to "
+                           f"{-(-d // 8) * 8} columns, out back) "
+                           f"{_pad_ms((q, k, v), d, 3):.4f} ms of the eval "
+                           f"call's {t['fwd']:.4f}")
+            del q, k, v, g, out, lse
+            torch.cuda.empty_cache()
+
+    for d, h, s in HD_BAND:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            shape = (1 if dtype == torch.float32 else HD_BATCH, h, d, s)
+            q, k, v, g = inputs(shape, dtype)
+            res = {"eval": _worst(band.roll_banded_attention(q, k, v, HD_W),
+                                  band.plain_banded_attention(q, k, v, HD_W),
+                                  dtype, F32_TOL)}
+            for r_, sd in ((0.0, None), (rate, seed)):
+                for n, x in _compare_train(q, k, v, g, HD_W, r_, sd).items():
+                    res[f"{n}@{r_}"] = x
+            _optin_check(failures, f"band {shape} {dt}", res)
+            log(phase, f"band B,h,d,S={shape} W={HD_W} {dt}, dropout 0 and "
+                       f"{rate}: max abs err " + ", ".join(
+                           f"{n} {t}" for n, (_, _, t) in res.items()))
+            if dtype == torch.float32 or d == HD_H:
+                continue
+            out, wts = band.band_forward_train(q, k, v, HD_W, rate, seed)
+            t = times_of({
+                "fwd": lambda: band.roll_banded_attention(q, k, v, HD_W),
+                "fwd_plain": lambda: band.plain_banded_attention(q, k, v,
+                                                                 HD_W),
+                "fwd_train": lambda: band.band_forward_train(
+                    q, k, v, HD_W, rate, seed),
+                "fwd_train_plain": lambda: band.plain_band_forward_train(
+                    q, k, v, HD_W, rate, seed),
+                "bwd": lambda: band.band_backward(q, k, v, g, wts, HD_W, rate,
+                                                  seed),
+                "bwd_plain": lambda: band.plain_band_backward(
+                    q, k, v, g, wts, HD_W, rate, seed),
+            })
+            # PyTorch's memory-efficient backend, which the band's mask
+            # needs, takes head dims that are multiples of 8 only; off that
+            # grid the call takes the backend PyTorch picks (the math one,
+            # which forms the [B*h, S, S] weights), named in the row.
+            # That backend may not fit the card: a form that runs out of
+            # memory there gets no library time, and its allocation is
+            # logged.
+            library = band_library_call(s, HD_W, dtype, forced=d % 8 == 0)
+            backend = library.backend(q, k, v)
+            free0 = torch.cuda.mem_get_info()[0]
+            torch.cuda.reset_peak_memory_stats()
+            forms = {
+                "fwd_library": lambda: library(q, k, v),
+                "fwd_train_library": lambda: library(q, k, v, rate),
+                "bwd_library": lambda: backward_ms(
+                    lambda *a: library(*a, rate), (q, k, v),
+                    g.transpose(-1, -2).contiguous())}
+            for n, fn in forms.items():
+                timed = (fn if n == "bwd_library"
+                         else lambda fn=fn: cuda_median_ms(fn, HD_REPS))
+                try:
+                    with torch.set_grad_enabled(n == "bwd_library"):
+                        t[n] = timed()
+                except torch.cuda.OutOfMemoryError as e:
+                    if d % 8 == 0:
+                        raise
+                    t[n] = None
+                    torch.cuda.empty_cache()
+                    log(phase, f"band d={d} library {n}: out of memory on "
+                               f"the card: {str(e).splitlines()[0]}")
+            backend += (f", peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+                        f" GiB of {free0 / 2**30:.1f} free")
+            del library
+            one = q.numel() * q.element_size()
+            pairs = HD_BATCH * h * s * HD_W * d
+            errs = {n: e for n, (e, _, _) in res.items()}
+            r = result["band"][d] = dict(
+                fwd=dict(max_abs_err=errs["eval"], ms=t["fwd"],
+                         plain_ms=t["fwd_plain"],
+                         library_ms=t["fwd_library"],
+                         **least_time(4 * one, 4 * pairs)),
+                fwd_train=dict(
+                    max_abs_err=max(errs[f"{n}@{r_}"] for n in ("out", "wts")
+                                    for r_ in (0.0, rate)),
+                    ms=t["fwd_train"], plain_ms=t["fwd_train_plain"],
+                    library_ms=t["fwd_train_library"],
+                    **least_time(4 * one + wts.numel() * 4, 4 * pairs)),
+                bwd=dict(
+                    max_abs_err=max(errs[f"{n}@{r_}"]
+                                    for n in ("dq", "dk", "dv")
+                                    for r_ in (0.0, rate)),
+                    ms=t["bwd"], plain_ms=t["bwd_plain"],
+                    library_ms=t["bwd_library"],
+                    **least_time(7 * one + wts.numel() * 4, 10 * pairs)))
+            show("band", d, dict(r, backend=backend))
+            if d % 8:
+                log(phase, f"band d={d}: the pad's copies (q, k, v to "
+                           f"{-(-d // 8) * 8} channels, out back) "
+                           f"{_pad_ms((q, k, v), d, 2):.4f} ms of the eval "
+                           f"call's {t['fwd']:.4f}")
+            del q, k, v, g, out, wts
+            torch.cuda.empty_cache()
+
+    for d, h in HD_FUSED:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            shape = (1 if dtype == torch.float32 else HD_BATCH, h,
+                     HD_FUSED_S, d)
+            q, k, v, g = inputs(shape, dtype)
+            # kernel-fused's rule for its loose cases (FUSED_LOOSE_ULPS entry
+            # by entry and the rms bound), as kernel-h14-optin holds them.
+            res = {}
+            for r_, sd in ((0.0, None), (rate, seed)):
+                for n, x in _compare_fused(q, k, v, g, r_, sd,
+                                           FUSED_LOOSE_ULPS).items():
+                    res[f"{n}@{r_}"] = x
+            _optin_check(failures, f"fused {shape} {dt}", res)
+            log(phase, f"fused B,h,S,d={shape} {dt}, dropout 0 and {rate}: "
+                       f"max abs err " + ", ".join(
+                           f"{n} {t}" for n, (_, _, t) in res.items()))
+            if dtype == torch.float32 or d == HD_H:
+                continue
+            out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
+            again = [fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+                     for _ in range(2)]
+            if not all(torch.equal(a, b_) for a, b_ in zip(*again)):
+                raise AssertionError(f"{phase}: two fused backward runs "
+                                     f"differ at d={d}")
+            del again
+            with torch.no_grad():
+                t = times_of({
+                    "fwd": lambda: fused.fused_multi_head_attention(q, k, v),
+                    "fwd_train": lambda: fused.fused_mha_forward_train(
+                        q, k, v, rate, seed),
+                    "bwd": lambda: fused.fused_mha_backward(
+                        q, k, v, out, lse, g, rate, seed),
+                    "fwd_plain": lambda: fused.plain_fused_mha_forward(
+                        q, k, v),
+                    "fwd_train_plain": lambda: fused.plain_fused_mha_forward(
+                        q, k, v, rate, seed),
+                    "bwd_plain": lambda: fused.plain_fused_mha_backward(
+                        q, k, v, g, rate, seed, out=out),
+                })
+                t["fwd_library"] = cuda_median_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v), HD_REPS)
+            t.update(_fused_library_times(q, k, v, g, rate, HD_REPS, 1))
+            errs = {n: e for n, (e, _, _) in res.items()}
+            one = q.numel() * q.element_size()
+            pairs = HD_BATCH * h * HD_FUSED_S * HD_FUSED_S * d
+            r = result["fused"][d] = dict(
+                fwd=dict(max_abs_err=errs["out_eval@0.0"], ms=t["fwd"],
+                         plain_ms=t["fwd_plain"],
+                         library_ms=t["fwd_library"],
+                         **least_time(4 * one, 4 * pairs)),
+                fwd_train=dict(
+                    max_abs_err=max(errs[f"{n}@{r_}"] for n in ("out", "lse")
+                                    for r_ in (0.0, rate)),
+                    ms=t["fwd_train"], plain_ms=t["fwd_train_plain"],
+                    library_ms=t["fwd_train_library"],
+                    **least_time(4 * one, 4 * pairs)),
+                bwd=dict(
+                    max_abs_err=max(errs[f"{n}@{r_}"]
+                                    for n in ("dq", "dk", "dv")
+                                    for r_ in (0.0, rate)),
+                    ms=t["bwd"], plain_ms=t["bwd_plain"],
+                    library_ms=t["bwd_library"],
+                    **least_time(7 * one, 10 * pairs)))
+            show(f"fused S={HD_FUSED_S}", d,
+                 dict(r, backend=_sdpa_backend(q, k, v)))
+            del q, k, v, g, out, lse
+            torch.cuda.empty_cache()
+
+    tile.reset_launch_count()
+    for d in HD_TILE_DIMS:
+        for w in HD_TILE_WINDOWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                dt = "f32" if dtype == torch.float32 else "bf16"
+                q, k, v, g = inputs((HD_TILE_ROWS, HD_S, d), dtype)
+                res = _tile_compare(q, k, v, g, w)
+                _optin_check(failures, f"tile ({HD_TILE_ROWS}, {HD_S}, {d}) "
+                                       f"W={w} {dt}", res)
+                log(phase, f"tile band B*h,S,d=({HD_TILE_ROWS}, {HD_S}, {d}) "
+                           f"W={w} {dt}: max abs err " + ", ".join(
+                               f"{n} {t}" for n, (_, _, t) in res.items()))
+                del q, k, v, g
+    if failures:
+        raise AssertionError(f"{phase}: kernels disagree with the plain "
+                             f"versions at " + "; ".join(failures))
+    return result
+
+
+# The head-count paths at D = 768, each cut to HD_DEPTH blocks: MHLA-B/4
+# (S = 3137, W = 7) with 2 and 64 heads through K1/K2, dense ViT-B/4 with 1
+# and 64 heads through K5, ViT-B/16 (S = 197) with 2 heads and the fused
+# switch through K3/K4's wide blocks with the mask (the flash and band
+# kernels launch nothing there).
+HD_PATHS = tuple(
+    _H14(label, w, op, env or None, idle, HD_IMG, HD_DEPTH, HD_DIM, heads,
+         patch, "headdims")
+    for label, w, op, env, idle, heads, patch in (
+        ("MHLA-B/4 2 heads (d=384)", HD_W, None, {}, (tile,), 2, 4),
+        ("MHLA-B/4 64 heads (d=12)", HD_W, None, {}, (tile,), 64, 4),
+        ("dense ViT-B/4 1 head (d=768)", None, None, {}, (fused,), 1, 4),
+        ("dense ViT-B/4 64 heads (d=12)", None, None, {}, (fused,), 64, 4),
+        ("ViT-B/16 fused 2 heads (d=384)", None, fused,
+         {"FAVIT_FUSED_MHA": "1"}, (flash, band), 2, 16)))
+
+
+def phase_headdims() -> dict:
+    """The head-count paths (HD_PATHS) end to end, weights carried from
+    seeded Flax-layout trees through ``convert/from_jax.py``: each cut to 2
+    blocks against the CPU, then served through ``BatchingServer`` and
+    HTTP and trained 3 steps with its launches checked; MHLA-B/4 with 2
+    heads also exported and served bit-equal from its artifact. Returns the
+    launches by path."""
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, p in enumerate(HD_PATHS):
+            counts = total.setdefault(p.label, {})
+            t0 = time.perf_counter()
+            sd = p.to_sd(p.tree(p.depth, 30 + i))
+            log("headdims", f"{p.label}: {p.depth} blocks, S={p.s}, a "
+                            f"seeded Flax-layout tree through "
+                            f"convert/from_jax.py in "
+                            f"{time.perf_counter() - t0:.1f} s")
+            with _environ(p.env):
+                phase_h14_parity(p, p.tree(2, 40 + i))
+                weights = os.path.join(tmp, f"{i}.pt")
+                torch.save(sd, weights)
+                counts["serve"] = phase_h14_serve(p, weights)
+                if i == 0:
+                    exported = phase_export(
+                        MHLA, None, state_dict=sd, geom_flags=p.flags(),
+                        img=p.img, batch=H14_BATCH, sizes=H14_SIZES,
+                        depth=p.depth, patch=p.patch, name=p.label,
+                        bit_equal=True)
+                    counts["export"] = exported["launches"]
+                    log("headdims-export", f"{p.label}: artifact {exported}")
+                torch.cuda.empty_cache()
+                counts["train"] = phase_h14_train(p, sd)
+            torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -5120,6 +5588,13 @@ def main() -> None:
     optin = phase_h14_optin()
     torch.cuda.empty_cache()
     mark("h14-optin")
+    # Every head count the CLI takes at D = 768 (1, 2 and 64 heads): the
+    # kernels at head dims off the grid of 8 and past 256, then the paths.
+    hd_timing = phase_kernel_headdims()
+    mark("kernel-headdims")
+    headdims = phase_headdims()
+    torch.cuda.empty_cache()
+    mark("headdims")
 
     rng = np.random.default_rng(0)
     image = _images(rng, 1)
@@ -5324,6 +5799,34 @@ def main() -> None:
          f"{tpu_tile}:383", optin_timing["fwd_b_launches"],
          optin_timing["tile"][(80, H14_WIDE_W)]["fwd_b"]),
     ]
+    # The head-count paths' widths (phase_headdims): K5 at d = 768 and 12
+    # (dense ViT-B/4, 1 and 64 heads), K1/K2 at d = 384 and 12 (MHLA-B/4, 2
+    # and 64 heads; d = 384 also from its artifact), K3/K4 at d = 384
+    # (ViT-B/16, 2 heads, the fused switch on).
+    hd_rows = (
+        ("flash_attention", "flash", flash.FWD_KERNEL_SOURCE,
+         flash.BWD_KERNEL_SOURCE, f"{tpu_flash}:73", f"{tpu_flash}:73",
+         ((768, "dense ViT-B/4 1 head (d=768)"),
+          (12, "dense ViT-B/4 64 heads (d=12)"))),
+        ("mhla_band", "band", band.KERNEL_SOURCE, band.BWD_KERNEL_SOURCE,
+         f"{tpu}:158", f"{tpu}:199",
+         ((384, "MHLA-B/4 2 heads (d=384)"),
+          (12, "MHLA-B/4 64 heads (d=12)"))),
+        ("fused_mha", "fused", fused.FWD_KERNEL_SOURCE,
+         fused.BWD_KERNEL_SOURCE, f"{tpu_fused}:59", f"{tpu_fused}:83",
+         ((384, "ViT-B/16 fused 2 heads (d=384)"),)),
+    )
+    for stem, key, fwd_src, bwd_src, fwd_at, bwd_at, cases in hd_rows:
+        for d, label in cases:
+            c, t = headdims[label], hd_timing[key][d]
+            kernels += [
+                (f"{stem}_fwd@d{d}", fwd_src, fwd_at,
+                 c["serve"]["fwd"] + c.get("export", 0), t["fwd"]),
+                (f"{stem}_fwd_train@d{d}", fwd_src, fwd_at,
+                 c["train"]["fwd_train"], t["fwd_train"]),
+                (f"{stem}_bwd@d{d}", bwd_src, bwd_at, c["train"]["bwd"],
+                 t["bwd"]),
+            ]
     for name_, _, _, count, _ in kernels:
         if count <= 0:
             raise AssertionError(f"{name_} was launched no time on its path")
@@ -5336,6 +5839,8 @@ def main() -> None:
         + json.dumps({f"{kind} {key}": forms
                       for kind in ("fused", "tile")
                       for key, forms in optin_timing[kind].items()}))
+    log("headdims", "head-count paths' launches (the @d rows of the kernels "
+                    f"line): {headdims}")
     print(json.dumps({"kernels": [{
         "name": name_,
         "route": "cuda",

@@ -28,8 +28,10 @@
 namespace band_stage {
 
 // The head dims the band kernels take: whole chunks of 8 (bf16) or 4 (f32)
-// channels, up to 256.
-inline bool head_dim_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
+// channels, any number of them (the wrapper pads other head dims with zero
+// channels). Nothing a block keeps grows with d but the backward's edge
+// fold, 16 d bytes of shared memory beside 64 KB of stages.
+inline bool head_dim_ok(int d) { return d >= 8 && d % 8 == 0; }
 
 template <typename T>
 constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements a copy

@@ -59,17 +59,17 @@
 // p and ds are rounded to bf16 for the second products; the plain version
 // keeps them in f32.
 //
-// The f32 instantiations are scalar-FMA kernels (a thread per key, or per
-// query, with the other side's tile broadcast from shared memory): full f32
-// products, for parity runs at small shapes, not for speed. They keep up to
-// 4*d floats a thread and spill beyond d = 32.
+// f32 tensors, at every head dim, take flash_f32.cuh's scalar kernels (full
+// f32 products, for parity runs and small shapes), after the same delta.
 //
-// Head dims: as the forward (flash_attention_fwd.cu), every multiple of 8 up
-// to 256, run at the narrowest tile width D of 16, 32, 64, 80, 128, 192 and
+// Head dims: as the forward (flash_attention_fwd.cu), every multiple of 8;
+// up to 256 run at the narrowest tile width D of 16, 32, 64, 80, 128, 192 and
 // 256 that holds it, zeros past d in every staged tile. Past D = 128 the dkv
 // kernel's two 64 x D accumulators would not fit the registers, so it runs
 // twice, once for dk and once for dv, each recomputing S^T and dP^T; the dq
-// kernel streams 32-key tiles there.
+// kernel streams 32-key tiles there. Past 256 the dkv and dq kernels are
+// flash_wide.cuh's blocks (dk, dv and dq in 64-column slices over the grid,
+// S^T, dP^T or S, dP over d in 64-column chunks), after the same delta.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +79,8 @@
 
 #include "flash_bwd_blocks.cuh"
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
+#include "flash_wide.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -86,10 +88,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 namespace hp = hopper;
 
-constexpr int kThreads = 128;  // the f32 kernels: 128 scalar rows a block
-
-using flash::load_row;
-using flash::store_row;
 using flash_bwd::Dkv;
 using flash_bwd::Dq;
 using flash_bwd::kMmaThreads;
@@ -124,126 +122,6 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
                          scale, scale_log2, flash_bwd::NoMask{}, d);
 }
 
-// --- f32: scalar FMA, a thread per row of the owned tile -------------------
-
-// The loops over a row of D channels unroll whole up to D = 128; past it
-// the rows live in local memory anyway, and whole unrolled rows only
-// lengthen the build: 8 (as the forward's).
-// Rows of the staged tile: 32 KB of two f32 tiles at most.
-template <int D>
-constexpr int kF32Tile = D <= 128 ? 32 : 16;
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ g,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int d, int s, int tiles_per_row,
-                      float scale) {
-  constexpr int TR = kF32Tile<D>;
-  __shared__ __align__(16) float qs[TR * D];
-  __shared__ __align__(16) float gs[TR * D];
-  __shared__ float lse_s[TR];
-  __shared__ float delta_s[TR];
-
-  const int tid = threadIdx.x;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int j = (blockIdx.x % tiles_per_row) * kThreads + tid;  // the key
-  const bool real = j < s;
-  const int64_t base = row * static_cast<int64_t>(s) * d;
-  const int64_t vec = row * static_cast<int64_t>(s);
-
-  float kr[D], vr[D], dk_acc[D], dv_acc[D];
-  load_row<D>(kr, k + base + static_cast<int64_t>(j) * d, real, d);
-  load_row<D>(vr, v + base + static_cast<int64_t>(j) * d, real, d);
-#pragma unroll(D <= 128 ? D : 8)
-  for (int c = 0; c < D; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-
-  for (int q0 = 0; q0 < s; q0 += TR) {
-    flash::load_tile_f32<TR, D, kThreads>(qs, q + base, q0, s, tid, d);
-    flash::load_tile_f32<TR, D, kThreads>(gs, g + base, q0, s, tid, d);
-    if (tid < TR && q0 + tid < s) {
-      lse_s[tid] = lse[vec + q0 + tid];
-      delta_s[tid] = delta[vec + q0 + tid];
-    }
-    __syncthreads();
-    const int nq = min(TR, s - q0);
-    for (int ii = 0; ii < nq; ++ii) {
-      const float* qr = qs + ii * D;
-      const float* gr = gs + ii * D;
-      float dot = 0.f, dp = 0.f;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) {
-        dot += qr[c] * kr[c];
-        dp += gr[c] * vr[c];
-      }
-      const float p = expf(dot * scale - lse_s[ii]);
-      const float ds = p * (dp - delta_s[ii]) * scale;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) {
-        dv_acc[c] += p * gr[c];
-        dk_acc[c] += ds * qr[c];
-      }
-    }
-    __syncthreads();
-  }
-  if (!real) return;
-  store_row<D>(dk + base + static_cast<int64_t>(j) * d, dk_acc, d);
-  store_row<D>(dv + base + static_cast<int64_t>(j) * d, dv_acc, d);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ g,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq,
-                     int d, int s, int tiles_per_row, float scale) {
-  constexpr int TR = kF32Tile<D>;
-  __shared__ __align__(16) float ks[TR * D];
-  __shared__ __align__(16) float vs[TR * D];
-
-  const int tid = threadIdx.x;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int i = (blockIdx.x % tiles_per_row) * kThreads + tid;  // the query
-  const bool real = i < s;
-  const int64_t base = row * static_cast<int64_t>(s) * d;
-  const int64_t vec = row * static_cast<int64_t>(s);
-
-  float qr[D], gr[D], dq_acc[D];
-  load_row<D>(qr, q + base + static_cast<int64_t>(i) * d, real, d);
-  load_row<D>(gr, g + base + static_cast<int64_t>(i) * d, real, d);
-#pragma unroll(D <= 128 ? D : 8)
-  for (int c = 0; c < D; ++c) dq_acc[c] = 0.f;
-  const float lse_i = real ? lse[vec + i] : 0.f;
-  const float delta_i = real ? delta[vec + i] : 0.f;
-
-  for (int key0 = 0; key0 < s; key0 += TR) {
-    flash::load_tile_f32<TR, D, kThreads>(ks, k + base, key0, s, tid, d);
-    flash::load_tile_f32<TR, D, kThreads>(vs, v + base, key0, s, tid, d);
-    __syncthreads();
-    const int nk = min(TR, s - key0);
-    for (int jj = 0; jj < nk; ++jj) {
-      const float* kr = ks + jj * D;
-      const float* vr = vs + jj * D;
-      float dot = 0.f, dp = 0.f;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) {
-        dot += qr[c] * kr[c];
-        dp += gr[c] * vr[c];
-      }
-      const float p = expf(dot * scale - lse_i);
-      const float ds = p * (dp - delta_i) * scale;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) dq_acc[c] += ds * kr[c];
-    }
-    __syncthreads();
-  }
-  if (!real) return;
-  store_row<D>(dq + base + static_cast<int64_t>(i) * d, dq_acc, d);
-}
-
 struct Args {
   const void *q, *k, *v, *out, *lse, *g;
   void *dq, *dk, *dv, *delta;
@@ -252,6 +130,67 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
+
+__global__ void __launch_bounds__(flash_wide::kThreads)
+    flash_bwd_dkv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ g,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int s, int d, int tiles_per_row,
+                       float scale, float scale_log2) {
+  flash_wide::dkv_block(q, k, v, g, lse, delta, dk, dv, s, d, tiles_per_row,
+                        scale, scale_log2, flash_bwd::NoMask{});
+}
+
+__global__ void __launch_bounds__(flash_wide::kThreads)
+    flash_bwd_dq_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ g,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dq,
+                      int s, int d, int tiles_per_row, float scale,
+                      float scale_log2) {
+  flash_wide::dq_block(q, k, v, g, lse, delta, dq, s, d, tiles_per_row, scale,
+                       scale_log2, flash_bwd::NoMask{});
+}
+
+// Past d = 256: the delta kernel, then flash_wide.cuh's dkv and dq kernels.
+cudaError_t launch_wide(const Args& a) {
+  dim3 grid;
+  int tiles = 0;
+  cudaError_t err = flash_wide::grid_of(&grid, &tiles, a.rows, a.s, a.d,
+                                        flash_wide::kBwdSlice);
+  if (err != cudaSuccess) return err;
+  err = flash::launch_delta<bf16, flash::for_flash_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wide,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             flash_wide::kBwdSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wide,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             flash_wide::kBwdSmem);
+  if (err != cudaSuccess) return err;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* g = static_cast<const bf16*>(a.g);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  const float scale_log2 = a.scale * flash::kLog2e;
+  flash_bwd_dkv_wide<<<grid, flash_wide::kThreads, flash_wide::kBwdSmem,
+                       a.stream>>>(q, k, v, g, lse, delta,
+                                   static_cast<bf16*>(a.dk),
+                                   static_cast<bf16*>(a.dv), a.s, a.d, tiles,
+                                   a.scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wide<<<grid, flash_wide::kThreads, flash_wide::kBwdSmem,
+                      a.stream>>>(q, k, v, g, lse, delta,
+                                  static_cast<bf16*>(a.dq), a.s, a.d, tiles,
+                                  a.scale, scale_log2);
+  return cudaGetLastError();
+}
 
 template <int D, int kPart>
 cudaError_t launch_dkv(const Args& a, const CUtensorMap& q_str,
@@ -322,40 +261,13 @@ cudaError_t launch_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_d(const Args& a, bool is_bf16) {
-  if (is_bf16) return launch_wgmma<D>(a);
-  const int tiles = (a.s + kThreads - 1) / kThreads;  // rows a block owns
-  const int64_t blocks = a.rows * tiles;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err = flash::launch_delta<float, flash::for_flash_bwd>(
-      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
-  if (err != cudaSuccess) return err;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* g = static_cast<const float*>(a.g);
-  flash_bwd_dkv_f32<D><<<grid, kThreads, 0, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.d, a.s, tiles, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_f32<D><<<grid, kThreads, 0, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<float*>(a.dq), a.d, a.s, tiles,
-      a.scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // first launch that failed (0 on success). q, k, v, out, g and dq, dk, dv
 // are device pointers to contiguous [rows, s, d] tensors of one dtype
-// (is_bf16 = 1 for bf16, 0 for f32; d a multiple of 8 in [8, 256]),
-// 16-byte aligned; `lse` is the
+// (is_bf16 = 1 for bf16, 0 for f32; d a multiple of 8), 16-byte aligned;
+// `lse` is the
 // forward's f32 [rows, s]; `delta` is f32 [rows, s] scratch that the first
 // kernel fills. `stream` is the caller's cudaStream_t. The kernels allocate
 // nothing and do not synchronise.
@@ -365,34 +277,41 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* dk, void* dv, void* delta,
                                    long long rows, int s, int d, int is_bf16,
                                    float scale, int device, void* stream) {
-  if (rows <= 0 || s < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || s < 1 || d < 8 || d % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{q,    k,    v, out, lse,   g,
                dq,   dk,   dv, delta, rows, s,
                d,    scale, static_cast<cudaStream_t>(stream)};
-  const bool bf = is_bf16 != 0;
+  if (!is_bf16) {
+    return static_cast<int>(flash_f32::launch_bwd<flash::for_flash_bwd>(
+        q, k, v, out, g, lse, delta, dq, dk, dv, rows, s, d, scale,
+        flash_f32::Drop{0, 0, 1.f, 0}, a.stream));
+  }
+  if (flash_wide::takes(d)) return static_cast<int>(launch_wide(a));
   switch (flash::tile_width(d)) {
     case 16:
-      err = launch_d<16>(a, bf);
+      err = launch_wgmma<16>(a);
       break;
     case 32:
-      err = launch_d<32>(a, bf);
+      err = launch_wgmma<32>(a);
       break;
     case 64:
-      err = launch_d<64>(a, bf);
+      err = launch_wgmma<64>(a);
       break;
     case 80:
-      err = launch_d<80>(a, bf);
+      err = launch_wgmma<80>(a);
       break;
     case 128:
-      err = launch_d<128>(a, bf);
+      err = launch_wgmma<128>(a);
       break;
     case 192:
-      err = launch_d<192>(a, bf);
+      err = launch_wgmma<192>(a);
       break;
     case 256:
-      err = launch_d<256>(a, bf);
+      err = launch_wgmma<256>(a);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -404,6 +323,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 // (kernel = 1) kernel at head dim d is launched with (0 for a head dim it
 // does not take).
 extern "C" int flash_attention_bwd_smem(int d, int kernel) {
+  if (flash_wide::takes(d)) return flash_wide::kBwdSmem;
   switch (flash::tile_width(d)) {
     case 16:
       return kernel == 0 ? Dkv<16>::kSmem : Dq<16>::kSmem;

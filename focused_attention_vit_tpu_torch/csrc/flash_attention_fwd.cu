@@ -50,21 +50,22 @@
 // The difference is a sum of S independent roundings of relative size 2^-9,
 // far below one bf16 ulp of a typical output.
 //
-// The f32 instantiation is a scalar-FMA kernel (a thread per query, K and V
-// tiles broadcast from shared memory): full f32 products, which TF32 tensor
-// cores would not give, so it agrees with the plain version to 1e-5. It is
-// meant for small shapes and parity runs, not for speed.
+// f32 tensors, at every head dim, take flash_f32.cuh's scalar kernels (full
+// f32 products, for parity runs and small shapes).
 //
-// Head dims. The kernels take every d that is a multiple of 8 up to 256 (the
-// TMA row stride, d * 2 bytes, must be a multiple of 16 bytes; JAX's fused
-// kernel's rule). They are built for a few tile widths D (16, 32, 64, 80,
-// 128, 192, 256) and a call takes the narrowest D >= d: the tensor maps' box
-// reaches past column d and TMA zero-fills it, so Q K^T sums zeros past d
-// (wgmma's k is 16 columns) and P V's columns past d are never stored. The
-// scale is the caller's d^-1/2. D = 80 (ViT-H/14's head dim) is stored in
-// 16-column, 32-byte-swizzled blocks and its P V runs as products of 64 and
-// 16 columns; D = 192 and 256 in 64-column blocks with products of 128 and
-// 64 or 128, and key tiles of 64 and 32.
+// Head dims. The bf16 kernels take every d that is a multiple of 8 (the
+// TMA row stride, d * 2 bytes, must be a multiple of 16 bytes; the wrapper
+// pads other head dims with zero columns). Up to 256 they are built for a
+// few tile widths D (16, 32, 64, 80, 128, 192, 256) and a call takes the
+// narrowest D >= d: the tensor maps' box reaches past column d and TMA
+// zero-fills it, so Q K^T sums zeros past d (wgmma's k is 16 columns) and
+// P V's columns past d are never stored. The scale is the caller's
+// d^-1/2. D = 80 (ViT-H/14's head dim) is stored in 16-column,
+// 32-byte-swizzled blocks and its P V runs as products of 64 and 16
+// columns; D = 192 and 256 in 64-column blocks with products of 128 and
+// 64 or 128, and key tiles of 64 and 32. Past 256 the forward runs
+// flash_wide.cuh's block: output columns in slices of 128 over the grid, the
+// logits over d in 64-column chunks, warp-level tensor-core products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +74,9 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
 #include "flash_fwd_block.cuh"
+#include "flash_wide.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -96,80 +99,35 @@ __global__ void __launch_bounds__(kThreads, 1)
                             scale_log2, flash_fwd::NoMask{}, d);
 }
 
-constexpr int kF32Threads = 128;  // queries a block, one a thread
-// The f32 kernels unroll their loops over a row of D channels whole up to
-// D = 128; past it the rows live in local memory anyway (they pass the
-// register file), and whole unrolled rows only lengthen the build: 8.
+template <bool kLse>
+__global__ void __launch_bounds__(flash_wide::kThreads)
+    flash_fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out,
+                   float* __restrict__ lse, int s, int d, int tiles_per_row,
+                   float scale_log2) {
+  flash_wide::fwd_block<kLse>(q, k, v, out, lse, s, d, tiles_per_row,
+                              scale_log2, flash_fwd::NoMask{});
+}
 
-template <int D, bool kLse>
-__global__ void __launch_bounds__(kF32Threads)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out,
-                  float* __restrict__ lse, int d, int s, int tiles_per_row,
-                  float scale) {
-  // 32 KB of K and V tiles at most.
-  constexpr int BN = D <= 64 ? 64 : D <= 128 ? 32 : 16;
-  constexpr int kChunk = 8;  // keys per softmax update
-  __shared__ __align__(16) float ks[BN * D];
-  __shared__ __align__(16) float vs[BN * D];
-
-  const int tid = threadIdx.x;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int i = (blockIdx.x % tiles_per_row) * kF32Threads + tid;
-  const bool valid = i < s;
-  const int64_t base = row * static_cast<int64_t>(s) * d;
-
-  float qr[D], acc[D];
-  flash::load_row<D>(qr, q + base + static_cast<int64_t>(i) * d, valid, d);
-#pragma unroll(D <= 128 ? D : 8)
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int key0 = 0; key0 < s; key0 += BN) {
-    flash::load_tile_f32<BN, D, kF32Threads>(ks, k + base, key0, s, tid, d);
-    flash::load_tile_f32<BN, D, kF32Threads>(vs, v + base, key0, s, tid, d);
-    __syncthreads();
-    const int nk = min(BN, s - key0);
-    for (int j0 = 0; j0 < nk; j0 += kChunk) {
-      float p[kChunk];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float* kr = ks + (j0 + jj) * D;
-        float dot = 0.f;
-#pragma unroll(D <= 128 ? D : 8)
-        for (int c = 0; c < D; ++c) dot += qr[c] * kr[c];
-        p[jj] = j0 + jj < nk ? dot * scale : -INFINITY;
-        mx = fmaxf(mx, p[jj]);
-      }
-      // Key j0 is real, so m_new is finite.
-      const float m_new = fmaxf(m, mx);
-      const float alpha = expf(m - m_new);
-      m = m_new;
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        p[jj] = expf(p[jj] - m_new);
-        psum += p[jj];
-      }
-      l = l * alpha + psum;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) {
-        float a = acc[c] * alpha;
-#pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) a += p[jj] * vs[(j0 + jj) * D + c];
-        acc[c] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (!valid) return;
-  const float inv = 1.f / l;
-#pragma unroll(D <= 128 ? D : 8)
-  for (int c = 0; c < D; ++c) acc[c] *= inv;
-  flash::store_row<D>(out + base + static_cast<int64_t>(i) * d, acc, d);
-  if (kLse) lse[row * s + i] = m + logf(l);
+// Past d = 256: flash_wide.cuh's block.
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, float* lse, int64_t rows, int s, int d,
+                        float scale, cudaStream_t stream) {
+  dim3 grid;
+  int tiles = 0;
+  cudaError_t err = flash_wide::grid_of(&grid, &tiles, rows, s, d,
+                                        flash_wide::kFwdSlice);
+  if (err != cudaSuccess) return err;
+  auto kernel = lse != nullptr ? flash_fwd_wide<true> : flash_fwd_wide<false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             flash_wide::kFwdSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, flash_wide::kThreads, flash_wide::kFwdSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, s, d, tiles,
+      scale * flash::kLog2e);
+  return cudaGetLastError();
 }
 
 template <int D, bool kLse>
@@ -202,31 +160,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     float* lse, int64_t rows, int s, int d, bool is_bf16,
-                     float scale, cudaStream_t stream) {
-  if (is_bf16) {
-    return lse != nullptr
-               ? launch_wgmma<D, true>(q, k, v, out, lse, rows, s, d, scale,
-                                       stream)
-               : launch_wgmma<D, false>(q, k, v, out, lse, rows, s, d, scale,
-                                        stream);
-  }
-  const int tiles = (s + kF32Threads - 1) / kF32Threads;
-  const int64_t blocks = rows * tiles;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  float* op = static_cast<float*>(out);
-  if (lse != nullptr) {
-    flash_fwd_f32<D, true><<<grid, kF32Threads, 0, stream>>>(
-        qp, kp, vp, op, lse, d, s, tiles, scale);
-  } else {
-    flash_fwd_f32<D, false><<<grid, kF32Threads, 0, stream>>>(
-        qp, kp, vp, op, lse, d, s, tiles, scale);
-  }
-  return cudaGetLastError();
+                     float* lse, int64_t rows, int s, int d, float scale,
+                     cudaStream_t stream) {
+  return lse != nullptr
+             ? launch_wgmma<D, true>(q, k, v, out, lse, rows, s, d, scale,
+                                     stream)
+             : launch_wgmma<D, false>(q, k, v, out, lse, rows, s, d, scale,
+                                      stream);
 }
 
 }  // namespace
@@ -234,7 +174,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // launch (0 on success). q, k, v and out are device pointers to contiguous
 // [rows, s, d] tensors of one dtype (is_bf16 = 1 for bf16, 0 for f32; d a
-// multiple of 8 in [8, 256]), 16-byte aligned; `lse` is a contiguous f32
+// multiple of 8), 16-byte aligned; `lse` is a contiguous f32
 // [rows, s] tensor to receive the log-sum-exp of each query's scaled
 // logits, or null for the eval kernel. `stream` is the caller's
 // cudaStream_t. The kernel allocates nothing and does not synchronise.
@@ -242,33 +182,43 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    long long rows, int s, int d, int is_bf16,
                                    float scale, int device, void* stream) {
-  if (rows <= 0 || s < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || s < 1 || d < 8 || d % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lp = static_cast<float*>(lse);
-  const bool bf = is_bf16 != 0;
+  if (!is_bf16) {
+    return static_cast<int>(flash_f32::launch_fwd(
+        q, k, v, out, lp, rows, s, d, scale, flash_f32::Drop{0, 0, 1.f, 0},
+        st));
+  }
+  if (flash_wide::takes(d)) {
+    return static_cast<int>(
+        launch_wide(q, k, v, out, lp, rows, s, d, scale, st));
+  }
   switch (flash::tile_width(d)) {
     case 16:
-      err = launch_d<16>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      err = launch_d<16>(q, k, v, out, lp, rows, s, d, scale, st);
       break;
     case 32:
-      err = launch_d<32>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      err = launch_d<32>(q, k, v, out, lp, rows, s, d, scale, st);
       break;
     case 64:
-      err = launch_d<64>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      err = launch_d<64>(q, k, v, out, lp, rows, s, d, scale, st);
       break;
     case 80:
-      err = launch_d<80>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      err = launch_d<80>(q, k, v, out, lp, rows, s, d, scale, st);
       break;
     case 128:
-      err = launch_d<128>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      err = launch_d<128>(q, k, v, out, lp, rows, s, d, scale, st);
       break;
     case 192:
-      err = launch_d<192>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      err = launch_d<192>(q, k, v, out, lp, rows, s, d, scale, st);
       break;
     case 256:
-      err = launch_d<256>(q, k, v, out, lp, rows, s, d, bf, scale, st);
+      err = launch_d<256>(q, k, v, out, lp, rows, s, d, scale, st);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -279,6 +229,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // The dynamic shared memory, in bytes, that the bf16 kernel at head dim d
 // is launched with (0 for a head dim it does not take).
 extern "C" int flash_attention_fwd_smem(int d) {
+  if (flash_wide::takes(d)) return flash_wide::kFwdSmem;
   switch (flash::tile_width(d)) {
     case 16:
       return Fwd<16>::kSmem;

@@ -1,10 +1,10 @@
 // Shared pieces of the attention kernels that do not run on wgmma: the
-// tile band (mhla_tile_band_fwd.cu, mhla_tile_band_bwd.cu) and the f32
-// parity kernels of the flash and fused short-S sources, and the constants
-// and the backward's delta kernel that the wgmma kernels use too: the
+// tile band (mhla_tile_band_fwd.cu, mhla_tile_band_bwd.cu) and the wide
+// blocks past head dim 256 (flash_wide.cuh), and the constants and the
+// backward's delta kernel that the wgmma and f32 kernels use too: the
 // warp-level bf16 tensor-core product (mma.sync.m16n8k16, f32
-// accumulation), ldmatrix fragment loads, the f32 tile loader, the delta
-// kernel and the accumulator and row helpers. The tile band's ring layout
+// accumulation), ldmatrix fragment loads, the delta kernel and the
+// accumulator and row helpers. The tile band's ring layout
 // (unpadded, swizzled rows) is in tile_ring.cuh.
 //
 // Fragment layout of mma.m16n8k16 for lane l, g = l / 4, t = l % 4:
@@ -60,26 +60,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Copy rows [row0, row0 + ROWS) of a contiguous [s, d] float matrix into
-// an unpadded [ROWS, D] float tile (d <= D, a multiple of 4), 16 bytes a
-// thread and step; rows at or past s and columns at or past d become zeros.
-template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void load_tile_f32(float* tile, const float* src,
-                                              int row0, int s, int tid,
-                                              int d = D) {
-  constexpr int kVecs = D / 4;
-  for (int idx = tid; idx < ROWS * kVecs; idx += THREADS) {
-    const int r = idx / kVecs;
-    const int c = (idx % kVecs) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < s && c < d) {
-      val = *reinterpret_cast<const float4*>(
-          src + static_cast<int64_t>(row0 + r) * d + c);
-    }
-    *reinterpret_cast<float4*>(tile + r * D + c) = val;
-  }
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

@@ -78,15 +78,17 @@
 // shares each call), the dq block one call per lane, row and 16-key chunk.
 // They compute the logits and dP twice, as the flash backward does.
 //
-// The f32 instantiations are scalar-FMA kernels for parity runs, one Philox
-// call a (query, key) pair.
+// f32 tensors, at every head dim, take flash_f32.cuh's scalar kernels for
+// parity runs, one Philox call a (query, key) pair, after the same delta.
 //
-// Head dims: every multiple of 8 in [8, 256], at the tile width D of
+// Head dims: every multiple of 8. Up to 256, at the tile width D of
 // flash::tile_width (16, 32, 64, 80, 128, 192, 256), zeros past d in the
 // staged tiles, the columns past d not stored. The whole-row kernel is built
 // for d = D in 16, 32, 64 and 128; every other head dim takes the tiled
 // kernels at every S (the flash blocks take all seven widths; past D = 128
-// the dkv block runs twice, dk then dv).
+// the dkv block runs twice, dk then dv). Past 256, the dense backward's wide
+// blocks (flash_wide.cuh: dk, dv and dq in 64-column slices over the grid)
+// with the Philox mask, after the delta kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,13 +100,13 @@
 
 #include "flash_bwd_blocks.cuh"
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
+#include "flash_wide.cuh"
 #include "hopper_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using flash::load_row;
-using flash::store_row;
 using bf16 = __nv_bfloat16;
 namespace hp = hopper;
 
@@ -591,138 +593,26 @@ __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
                          scale, scale_log2, mask, kExact ? D : d);
 }
 
-// --- f32: scalar FMA, a thread per row of the owned tile -------------------
-
-constexpr int kThreads = 128;  // scalar rows a block
-constexpr int kF32Tile = 32;   // rows of the staged tile
-
-template <bool kDrop>
-__device__ __forceinline__ float keep_scale(const Dropout& drop, int64_t row,
-                                            int i, int j) {
-  if (!kDrop) return 1.f;
-  return philox::mha_word(drop.seed, row, i, j) >= drop.threshold
-             ? drop.inv_keep
-             : 0.f;
+__global__ void __launch_bounds__(flash_wide::kThreads)
+    fused_bwd_dkv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ g,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int s, int d, int tiles_per_row,
+                       float scale, float scale_log2, PhiloxMask mask) {
+  flash_wide::dkv_block(q, k, v, g, lse, delta, dk, dv, s, d, tiles_per_row,
+                        scale, scale_log2, mask);
 }
 
-// The f32 kernels' staged tiles: 32 rows, 16 past D = 128 (two tiles of
-// 32 KB at most). D is the tile width, d the head dim and row stride.
-template <int D>
-constexpr int kF32Rows = D <= 128 ? kF32Tile : kF32Tile / 2;
-
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    fused_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ g,
+__global__ void __launch_bounds__(flash_wide::kThreads)
+    fused_bwd_dq_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ g,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int s, int tiles_per_row,
-                      float scale, Dropout drop, int d) {
-  constexpr int kTile = kF32Rows<D>;
-  __shared__ __align__(16) float qs[kTile * D];
-  __shared__ __align__(16) float gs[kTile * D];
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
-
-  const int tid = threadIdx.x;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int j = (blockIdx.x % tiles_per_row) * kThreads + tid;  // the key
-  const bool real = j < s;
-  const int64_t base = row * static_cast<int64_t>(s) * d;
-  const int64_t vec = row * static_cast<int64_t>(s);
-
-  float kr[D], vr[D], dk_acc[D], dv_acc[D];
-  load_row<D>(kr, k + base + static_cast<int64_t>(j) * d, real, d);
-  load_row<D>(vr, v + base + static_cast<int64_t>(j) * d, real, d);
-#pragma unroll(D <= 128 ? D : 8)
-  for (int c = 0; c < D; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-
-  for (int q0 = 0; q0 < s; q0 += kTile) {
-    flash::load_tile_f32<kTile, D, kThreads>(qs, q + base, q0, s, tid, d);
-    flash::load_tile_f32<kTile, D, kThreads>(gs, g + base, q0, s, tid, d);
-    if (tid < kTile && q0 + tid < s) {
-      lse_s[tid] = lse[vec + q0 + tid];
-      delta_s[tid] = delta[vec + q0 + tid];
-    }
-    __syncthreads();
-    const int nq = min(kTile, s - q0);
-    for (int ii = 0; ii < nq; ++ii) {
-      const float* qr = qs + ii * D;
-      const float* gr = gs + ii * D;
-      float dot = 0.f, dz = 0.f;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) {
-        dot += qr[c] * kr[c];
-        dz += gr[c] * vr[c];
-      }
-      const float mask = keep_scale<kDrop>(drop, row, q0 + ii, j);
-      const float p = expf(dot * scale - lse_s[ii]);
-      const float z = p * mask;
-      const float ds = p * (dz * mask - delta_s[ii]) * scale;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) {
-        dv_acc[c] += z * gr[c];
-        dk_acc[c] += ds * qr[c];
-      }
-    }
-    __syncthreads();
-  }
-  if (!real) return;
-  store_row<D>(dk + base + static_cast<int64_t>(j) * d, dk_acc, d);
-  store_row<D>(dv + base + static_cast<int64_t>(j) * d, dv_acc, d);
-}
-
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    fused_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ g,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq,
-                     int s, int tiles_per_row, float scale, Dropout drop,
-                     int d) {
-  constexpr int kTile = kF32Rows<D>;
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
-
-  const int tid = threadIdx.x;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int i = (blockIdx.x % tiles_per_row) * kThreads + tid;  // the query
-  const bool real = i < s;
-  const int64_t base = row * static_cast<int64_t>(s) * d;
-  const int64_t vec = row * static_cast<int64_t>(s);
-
-  float qr[D], gr[D], dq_acc[D];
-  load_row<D>(qr, q + base + static_cast<int64_t>(i) * d, real, d);
-  load_row<D>(gr, g + base + static_cast<int64_t>(i) * d, real, d);
-#pragma unroll(D <= 128 ? D : 8)
-  for (int c = 0; c < D; ++c) dq_acc[c] = 0.f;
-  const float lse_i = real ? lse[vec + i] : 0.f;
-  const float delta_i = real ? delta[vec + i] : 0.f;
-
-  for (int key0 = 0; key0 < s; key0 += kTile) {
-    flash::load_tile_f32<kTile, D, kThreads>(ks, k + base, key0, s, tid, d);
-    flash::load_tile_f32<kTile, D, kThreads>(vs, v + base, key0, s, tid, d);
-    __syncthreads();
-    const int nk = min(kTile, s - key0);
-    for (int jj = 0; jj < nk; ++jj) {
-      const float* kr = ks + jj * D;
-      const float* vr = vs + jj * D;
-      float dot = 0.f, dz = 0.f;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) {
-        dot += qr[c] * kr[c];
-        dz += gr[c] * vr[c];
-      }
-      const float mask = keep_scale<kDrop>(drop, row, i, key0 + jj);
-      const float p = expf(dot * scale - lse_i);
-      const float ds = p * (dz * mask - delta_i) * scale;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) dq_acc[c] += ds * kr[c];
-    }
-    __syncthreads();
-  }
-  if (!real) return;
-  store_row<D>(dq + base + static_cast<int64_t>(i) * d, dq_acc, d);
+                      const float* __restrict__ delta, bf16* __restrict__ dq,
+                      int s, int d, int tiles_per_row, float scale,
+                      float scale_log2, PhiloxMask mask) {
+  flash_wide::dq_block(q, k, v, g, lse, delta, dq, s, d, tiles_per_row, scale,
+                       scale_log2, mask);
 }
 
 struct Args {
@@ -735,32 +625,6 @@ struct Args {
   int device;
   cudaStream_t stream;
 };
-
-template <int D, bool kDrop>
-cudaError_t launch_f32(const Args& a) {
-  const int tiles = (a.s + kThreads - 1) / kThreads;  // rows a block owns
-  const int64_t blocks = a.rows * tiles;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
-  cudaError_t err = flash::launch_delta<float, flash::for_fused_bwd>(
-      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
-  if (err != cudaSuccess) return err;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* g = static_cast<const float*>(a.g);
-  fused_bwd_dkv_f32<D, kDrop><<<grid, kThreads, 0, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.s, tiles, a.scale, a.drop, a.d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  fused_bwd_dq_f32<D, kDrop><<<grid, kThreads, 0, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<float*>(a.dq), a.s, tiles, a.scale,
-      a.drop, a.d);
-  return cudaGetLastError();
-}
 
 template <int D, int kPart>
 cudaError_t launch_dkv(const Args& a, const CUtensorMap& q_str,
@@ -844,6 +708,48 @@ cudaError_t launch_tiled(const Args& a, bool drop_on) {
   return cudaGetLastError();
 }
 
+// Past d = 256: the delta kernel, then the wide dkv and dq blocks with the
+// Philox mask.
+cudaError_t launch_wide(const Args& a, bool drop_on) {
+  dim3 grid;
+  int tiles = 0;
+  cudaError_t err = flash_wide::grid_of(&grid, &tiles, a.rows, a.s, a.d,
+                                        flash_wide::kBwdSlice);
+  if (err != cudaSuccess) return err;
+  err = flash::launch_delta<bf16, flash::for_fused_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_bwd_dkv_wide,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             flash_wide::kBwdSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_bwd_dq_wide,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             flash_wide::kBwdSmem);
+  if (err != cudaSuccess) return err;
+  const PhiloxMask mask{a.drop.seed, a.drop.threshold, a.drop.inv_keep,
+                        drop_on ? 1 : 0};
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* g = static_cast<const bf16*>(a.g);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  const float scale_log2 = a.scale * flash::kLog2e;
+  fused_bwd_dkv_wide<<<grid, flash_wide::kThreads, flash_wide::kBwdSmem,
+                       a.stream>>>(q, k, v, g, lse, delta,
+                                   static_cast<bf16*>(a.dk),
+                                   static_cast<bf16*>(a.dv), a.s, a.d, tiles,
+                                   a.scale, scale_log2, mask);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_bwd_dq_wide<<<grid, flash_wide::kThreads, flash_wide::kBwdSmem,
+                      a.stream>>>(q, k, v, g, lse, delta,
+                                  static_cast<bf16*>(a.dq), a.s, a.d, tiles,
+                                  a.scale, scale_log2, mask);
+  return cudaGetLastError();
+}
+
 template <int D, int KC>
 cudaError_t launch_row(const Args& a, bool drop_on) {
   using C = RowBwd<D, KC>;
@@ -890,20 +796,17 @@ cudaError_t launch_row_chunks(const Args& a, bool drop_on, int kc) {
 }
 
 template <int D>
-cudaError_t launch_d(const Args& a, bool is_bf16, bool drop_on) {
+cudaError_t launch_d(const Args& a, bool drop_on) {
   // Dispatch by S: a row that one block holds takes the whole-row kernel
   // (one launch), a longer one the tiled kernels. Neither falls back to the
   // other.
-  if (is_bf16) {
-    if constexpr (kRowMaxKeys<D> > 0) {
-      if (a.d == D && a.s <= kRowMaxKeys<D>) {
-        return launch_row_chunks<D, kRowMaxKeys<D> / 16>(a, drop_on,
-                                                         (a.s + 15) / 16);
-      }
+  if constexpr (kRowMaxKeys<D> > 0) {
+    if (a.d == D && a.s <= kRowMaxKeys<D>) {
+      return launch_row_chunks<D, kRowMaxKeys<D> / 16>(a, drop_on,
+                                                       (a.s + 15) / 16);
     }
-    return launch_tiled<D>(a, drop_on);
   }
-  return drop_on ? launch_f32<D, true>(a) : launch_f32<D, false>(a);
+  return launch_tiled<D>(a, drop_on);
 }
 
 }  // namespace
@@ -911,8 +814,8 @@ cudaError_t launch_d(const Args& a, bool is_bf16, bool drop_on) {
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // first launch that failed (0 on success). q, k, v, out, g and dq, dk, dv
 // are device pointers to contiguous [rows, s, d] tensors of one dtype
-// (is_bf16 = 1 for bf16, 0 for f32; d a multiple of 8 in [8, 256]),
-// 16-byte aligned; `lse` is the forward's f32 [rows, s]; `delta` is f32
+// (is_bf16 = 1 for bf16, 0 for f32; d a multiple of 8), 16-byte aligned;
+// `lse` is the forward's f32 [rows, s]; `delta` is f32
 // [rows, s] scratch that the first kernel fills. The dropout arguments are
 // the forward's (fused_mha_fwd.cu).
 // `stream` is the caller's cudaStream_t. The kernels allocate nothing and do
@@ -924,7 +827,9 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
                              float scale, int drop_on, unsigned seed_lo,
                              unsigned seed_hi, unsigned threshold,
                              float keep_prob, int device, void* stream) {
-  if (rows <= 0 || s < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || s < 1 || d < 8 || d % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (drop_on && !(keep_prob > 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -935,29 +840,35 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
   const Args a{q,  k,     v,    out, lse, g,     dq,   dk,     dv,
                delta, rows, s, d,   scale, drop, device,
                static_cast<cudaStream_t>(stream)};
-  const bool bf = is_bf16 != 0;
   const bool on = drop_on != 0;
+  if (!is_bf16) {
+    return static_cast<int>(flash_f32::launch_bwd<flash::for_fused_bwd>(
+        q, k, v, out, g, lse, delta, dq, dk, dv, rows, s, d, scale,
+        flash_f32::Drop{drop.seed, drop.threshold, drop.inv_keep, on ? 1 : 0},
+        a.stream));
+  }
+  if (flash_wide::takes(d)) return static_cast<int>(launch_wide(a, on));
   switch (flash::tile_width(d)) {
     case 16:
-      err = launch_d<16>(a, bf, on);
+      err = launch_d<16>(a, on);
       break;
     case 32:
-      err = launch_d<32>(a, bf, on);
+      err = launch_d<32>(a, on);
       break;
     case 64:
-      err = launch_d<64>(a, bf, on);
+      err = launch_d<64>(a, on);
       break;
     case 80:
-      err = launch_d<80>(a, bf, on);
+      err = launch_d<80>(a, on);
       break;
     case 128:
-      err = launch_d<128>(a, bf, on);
+      err = launch_d<128>(a, on);
       break;
     case 192:
-      err = launch_d<192>(a, bf, on);
+      err = launch_d<192>(a, on);
       break;
     case 256:
-      err = launch_d<256>(a, bf, on);
+      err = launch_d<256>(a, on);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -61,11 +61,10 @@
 // consumer warpgroups taking turns) with the same Philox mask applied to
 // each key tile's weights after they entered the sum.
 //
-// The f32 instantiation is a scalar-FMA kernel (a thread per query) with
-// full f32 products, for parity runs (1e-5 against the plain version), not
-// for speed. It spends one Philox call a key.
+// f32 tensors, at every head dim, take flash_f32.cuh's scalar kernels (full
+// f32 products, one Philox call a key; for parity runs, not for speed).
 //
-// Head dims: every multiple of 8 in [8, 256] (JAX's rule is d % 8 == 0),
+// Head dims: every multiple of 8 (JAX's rule is d % 8 == 0). Up to 256 they
 // run at the narrowest tile width D of 16, 32, 64, 80, 128, 192 and 256
 // that holds it (flash::tile_width, as the dense flash kernels). The TMA
 // maps cover the real d columns and zero-fill the rest of the tile, the
@@ -81,7 +80,9 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
 #include "flash_fwd_block.cuh"
+#include "flash_wide.cuh"
 #include "hopper_common.cuh"
 #include "philox.cuh"
 
@@ -410,87 +411,17 @@ __global__ void __launch_bounds__(flash_fwd::kThreads, 1)
                             scale_log2, mask, d);
 }
 
-// --- f32: scalar FMA, a thread per query -------------------------------------
-
-constexpr int kThreads = 128;  // scalar queries a block
-
-// D is the tile width, d (<= D) the head dim and row stride; the rows past
-// d are zeros in registers and in the tiles. The loops over D unroll whole
-// up to D = 128; past it the rows live in local memory anyway.
-template <int D, bool kLse, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    fused_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out,
-                  float* __restrict__ lse, int s, int tiles_per_row,
-                  float scale, Dropout drop, int d) {
-  // K and V tiles of at most 32 KB.
-  constexpr int BN = D <= 64 ? 64 : D <= 128 ? 32 : 16;
-  constexpr int kChunk = 8;              // keys per softmax update
-  __shared__ __align__(16) float ks[BN * D];
-  __shared__ __align__(16) float vs[BN * D];
-
-  const int tid = threadIdx.x;
-  const int64_t row = blockIdx.x / tiles_per_row;
-  const int i = (blockIdx.x % tiles_per_row) * kThreads + tid;
-  const bool valid = i < s;
-  const int64_t base = row * static_cast<int64_t>(s) * d;
-
-  float qr[D], acc[D];
-  flash::load_row<D>(qr, q + base + static_cast<int64_t>(i) * d, valid, d);
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int key0 = 0; key0 < s; key0 += BN) {
-    flash::load_tile_f32<BN, D, kThreads>(ks, k + base, key0, s, tid, d);
-    flash::load_tile_f32<BN, D, kThreads>(vs, v + base, key0, s, tid, d);
-    __syncthreads();
-    const int nk = min(BN, s - key0);
-    for (int j0 = 0; j0 < nk; j0 += kChunk) {
-      float p[kChunk];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float* kr = ks + (j0 + jj) * D;
-        float dot = 0.f;
-#pragma unroll(D <= 128 ? D : 8)
-        for (int c = 0; c < D; ++c) dot += qr[c] * kr[c];
-        p[jj] = j0 + jj < nk ? dot * scale : -INFINITY;
-        mx = fmaxf(mx, p[jj]);
-      }
-      // Key j0 is real, so m_new is finite.
-      const float m_new = fmaxf(m, mx);
-      const float alpha = expf(m - m_new);
-      m = m_new;
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        p[jj] = expf(p[jj] - m_new);
-        psum += p[jj];  // unmasked: dropout acts on the normalised weights
-        if (kDrop && philox::mha_word(drop.seed, row, i, key0 + j0 + jj) <
-                         drop.threshold) {
-          p[jj] = 0.f;
-        }
-      }
-      l = l * alpha + psum;
-#pragma unroll(D <= 128 ? D : 8)
-      for (int c = 0; c < D; ++c) {
-        float a = acc[c] * alpha;
-#pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) a += p[jj] * vs[(j0 + jj) * D + c];
-        acc[c] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (!valid) return;
-  const float inv = drop.inv_keep / l;
-#pragma unroll(D <= 128 ? D : 8)
-  for (int c = 0; c < D; ++c) acc[c] *= inv;
-  flash::store_row<D>(out + base + static_cast<int64_t>(i) * d, acc, d);
-  if (kLse) lse[row * s + i] = m + logf(l);
+template <bool kLse>
+__global__ void __launch_bounds__(flash_wide::kThreads)
+    fused_fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out,
+                   float* __restrict__ lse, int s, int d, int tiles_per_row,
+                   float scale_log2, PhiloxMask mask) {
+  flash_wide::fwd_block<kLse>(q, k, v, out, lse, s, d, tiles_per_row,
+                              scale_log2, mask);
 }
+
+constexpr int kThreads = 128;  // the dropout words' threads a block
 
 // The dropout words as the kernels draw them, for holding the device
 // generator to the plain one: out[row][i][j] for every query i and key j.
@@ -525,19 +456,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool kLse, bool kDrop>
-cudaError_t launch_f32(const Args& a) {
-  const int tiles = (a.s + kThreads - 1) / kThreads;
-  const int64_t blocks = a.rows * tiles;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  fused_fwd_f32<D, kLse, kDrop>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
-          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-          static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
-          a.s, tiles, a.scale, a.drop, a.d);
-  return cudaGetLastError();
-}
-
 template <int D, bool kLse>
 cudaError_t launch_tiled(const Args& a) {
   using C = flash_fwd::Fwd<D>;
@@ -564,6 +482,28 @@ cudaError_t launch_tiled(const Args& a) {
   kernel<<<static_cast<unsigned>(blocks), flash_fwd::kThreads, C::kSmem,
            a.stream>>>(tq, tk, tv, static_cast<bf16*>(a.out), a.lse, a.s,
                        tiles, a.scale * flash::kLog2e, mask, a.d);
+  return cudaGetLastError();
+}
+
+// Past d = 256: the wide block with the Philox mask.
+cudaError_t launch_wide(const Args& a) {
+  dim3 grid;
+  int tiles = 0;
+  cudaError_t err = flash_wide::grid_of(&grid, &tiles, a.rows, a.s, a.d,
+                                        flash_wide::kFwdSlice);
+  if (err != cudaSuccess) return err;
+  auto kernel =
+      a.lse != nullptr ? fused_fwd_wide<true> : fused_fwd_wide<false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             flash_wide::kFwdSmem);
+  if (err != cudaSuccess) return err;
+  const PhiloxMask mask{a.drop.seed, a.drop.threshold, a.drop.inv_keep,
+                        a.drop_on ? 1 : 0};
+  kernel<<<grid, flash_wide::kThreads, flash_wide::kFwdSmem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.s,
+      a.d, tiles, a.scale * flash::kLog2e, mask);
   return cudaGetLastError();
 }
 
@@ -609,23 +549,14 @@ cudaError_t launch_row_chunks(const Args& a, int kc) {
 }
 
 template <int D>
-cudaError_t launch_d(const Args& a, bool is_bf16) {
-  if (is_bf16) {
-    // Dispatch by S: a row that one block holds takes the whole-row
-    // kernel, a longer one the tiled kernel. Neither falls back to the
-    // other.
-    if (a.s <= kRowMaxKeys<D>) {
-      return launch_row_chunks<D, kRowMaxKeys<D> / 16>(a, (a.s + 15) / 16);
-    }
-    return a.lse != nullptr ? launch_tiled<D, true>(a)
-                            : launch_tiled<D, false>(a);
+cudaError_t launch_d(const Args& a) {
+  // Dispatch by S: a row that one block holds takes the whole-row kernel, a
+  // longer one the tiled kernel. Neither falls back to the other.
+  if (a.s <= kRowMaxKeys<D>) {
+    return launch_row_chunks<D, kRowMaxKeys<D> / 16>(a, (a.s + 15) / 16);
   }
-  if (a.lse != nullptr) {
-    return a.drop_on ? launch_f32<D, true, true>(a)
-                     : launch_f32<D, true, false>(a);
-  }
-  return a.drop_on ? launch_f32<D, false, true>(a)
-                   : launch_f32<D, false, false>(a);
+  return a.lse != nullptr ? launch_tiled<D, true>(a)
+                          : launch_tiled<D, false>(a);
 }
 
 }  // namespace
@@ -634,8 +565,8 @@ cudaError_t launch_d(const Args& a, bool is_bf16) {
 // launch (0 on success). q, k, v and out are device pointers to contiguous
 // [rows, s, d] tensors of one dtype (is_bf16 = 1 for bf16, 0 for f32),
 // 16-byte aligned; `lse` is a contiguous f32 [rows, s] tensor to receive the
-// log-sum-exp of each query's scaled logits, or null; d is a multiple of 8
-// in [8, 256]. With drop_on != 0 the
+// log-sum-exp of each query's scaled logits, or null; d is a multiple of 8.
+// With drop_on != 0 the
 // weights are dropped: keep iff the Philox word of (seed, row, query, key)
 // is at least `threshold`, and scale the kept by 1 / keep_prob. `stream` is
 // the caller's cudaStream_t. The kernel allocates nothing and does not
@@ -646,7 +577,9 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
                              unsigned seed_lo, unsigned seed_hi,
                              unsigned threshold, float keep_prob, int device,
                              void* stream) {
-  if (rows <= 0 || s < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || s < 1 || d < 8 || d % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (drop_on && !(keep_prob > 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -657,28 +590,35 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
   const Args a{q,     k,           v,    out,
                static_cast<float*>(lse), rows, s, d, scale,
                drop_on != 0, drop, device, static_cast<cudaStream_t>(stream)};
-  const bool bf = is_bf16 != 0;
+  if (!is_bf16) {
+    return static_cast<int>(flash_f32::launch_fwd(
+        q, k, v, out, a.lse, rows, s, d, scale,
+        flash_f32::Drop{drop.seed, drop.threshold, drop.inv_keep,
+                        drop_on != 0 ? 1 : 0},
+        a.stream));
+  }
+  if (flash_wide::takes(d)) return static_cast<int>(launch_wide(a));
   switch (flash::tile_width(d)) {
     case 16:
-      err = launch_d<16>(a, bf);
+      err = launch_d<16>(a);
       break;
     case 32:
-      err = launch_d<32>(a, bf);
+      err = launch_d<32>(a);
       break;
     case 64:
-      err = launch_d<64>(a, bf);
+      err = launch_d<64>(a);
       break;
     case 80:
-      err = launch_d<80>(a, bf);
+      err = launch_d<80>(a);
       break;
     case 128:
-      err = launch_d<128>(a, bf);
+      err = launch_d<128>(a);
       break;
     case 192:
-      err = launch_d<192>(a, bf);
+      err = launch_d<192>(a);
       break;
     case 256:
-      err = launch_d<256>(a, bf);
+      err = launch_d<256>(a);
       break;
     default:
       err = cudaErrorInvalidValue;

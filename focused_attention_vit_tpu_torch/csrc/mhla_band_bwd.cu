@@ -926,7 +926,7 @@ cudaError_t launch(const Launch& a) {
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // launches (0 on success). q, k, v, g, dq, dk and dv are device pointers to
 // contiguous [rows, d, s] tensors of one dtype (is_bf16 = 1 for bf16, 0 for
-// f32; d a multiple of 8 in [8, 256]), each at least 2-byte (bf16) or
+// f32; d a multiple of 8), each at least 2-byte (bf16) or
 // 4-byte (f32) aligned; wts is the forward's f32 [rows, w, s] weights;
 // scratch is f32 [2, rows, w, s], written and read here. With dropout != 0
 // the forward's mask is regenerated by philox.cuh's rule under (seed_lo,

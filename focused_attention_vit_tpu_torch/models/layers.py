@@ -362,8 +362,8 @@ class MultiHeadLatentAttention(nn.Module):
 
     Dispatch as in the JAX package (``models/layers.py`` :361-592), by
     sequence length S and ``FAVIT_MHLA_IMPL`` (read at each call). At
-    S > ``DENSE_BAND_MAX_SEQ`` with ``auto`` (the default) or ``roll`` the
-    band op gets its S-minor ``[B, h, d, S]`` layout
+    S > ``DENSE_BAND_MAX_SEQ`` and S > 2W with ``auto`` (the default) or
+    ``roll`` the band op gets its S-minor ``[B, h, d, S]`` layout
     (:meth:`_forward_sminor`) and launches the CUDA kernels K1/K2 on a CUDA
     tensor; JAX's ``auto`` takes that branch on the TPU only, and on the
     CPU the two branches compute the same shift band. Otherwise the layer
@@ -425,7 +425,8 @@ class MultiHeadLatentAttention(nn.Module):
         rate = self.dropout if self.training else 0.0
         seq_len = s if self.sp is None else self.sp.seq_len
         long_s = seq_len > window_ops.DENSE_BAND_MAX_SEQ
-        if (long_s and attention_mask is None and self.sp is None
+        if (long_s and attention_mask is None and seq_len > 2 * w
+                and self.sp is None
                 and os.environ.get("FAVIT_MHLA_IMPL", "auto") in ("auto",
                                                                   "roll")):
             return inverted_dropout(self._forward_sminor(x, rate, rng), rate,
@@ -463,12 +464,12 @@ class MultiHeadLatentAttention(nn.Module):
             out = band(q, k, v, w, drop if rate > 0.0 else None,
                        attention_mask)
         elif rate > 0.0:
-            if long_s:
-                out = window_ops._shift_banded_attention(q, k, v, w, drop)
-            elif s > 2 * w:
-                out = window_ops._dense_band_attention(q, k, v, w, drop)
-            else:
+            if s <= 2 * w:
                 out = window_ops._gather_windowed_attention(q, k, v, w, drop)
+            elif long_s:
+                out = window_ops._shift_banded_attention(q, k, v, w, drop)
+            else:
+                out = window_ops._dense_band_attention(q, k, v, w, drop)
         else:
             out = window_ops.windowed_latent_attention(q, k, v, w)
         return out

@@ -9,7 +9,10 @@ whenever autograd records (grad enabled and q, k or v requiring grad);
 otherwise it runs the lean forward, which writes no log-sum-exp. On a CUDA
 tensor each part launches a hand-written kernel or raises; on a CPU tensor
 it runs the kernel's plain version. There is no fallback from a kernel to a
-plain version.
+plain version. The kernels take every head dim: one off their grid of
+multiples of 8 is padded with zero columns (:func:`pad_head_dim`, which the
+other ops' wrappers call too), and one past 256 runs the wide blocks of
+``csrc/flash_wide.cuh``.
 
 - eval forward: ``csrc/flash_attention_fwd.cu``, launch count ``"fwd"``,
   plain version :func:`plain_flash_forward`, through the
@@ -43,10 +46,14 @@ from torch.utils.checkpoint import checkpoint
 
 FWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/flash_attention_fwd.cu"
 BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/flash_attention_bwd.cu"
-# The kernels take every head dim that is a multiple of 8 in [8, 256] (the
-# TMA row stride, d * 2 bytes, is then a multiple of 16 bytes); they pad d
-# to one of a few widths in shared memory. The plain versions take any.
-MIN_HEAD_DIM, MAX_HEAD_DIM, HEAD_DIM_STEP = 8, 256, 8
+# The kernels of every op take head dims that are multiples of
+# HEAD_DIM_STEP: a TMA row stride, or a run of 16-byte copies, of d * 2
+# bytes is then a multiple of 16 bytes. The wrappers pad any other head dim
+# with zero columns (pad_head_dim) and run the kernel at the true head dim's
+# scale. Up to d = 256 the dense bf16 kernels hold a whole row of d in one
+# block, at one of a few tile widths; past it they split the output columns
+# over blocks (csrc/flash_wide.cuh). The plain versions take any d.
+HEAD_DIM_STEP = 8
 DEFAULT_CHUNK = 512  # keys per step of the plain versions
 
 LAUNCH_KINDS = ("fwd", "fwd_train", "bwd")
@@ -113,17 +120,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must be on one device")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash op runs on cpu or cuda, got {q.device}")
-    if q.shape[2] < 1 or q.shape[0] * q.shape[1] < 1:
-        raise ValueError(f"flash op needs B*h >= 1 and S >= 1, got "
+    if q.shape[2] < 1 or q.shape[0] * q.shape[1] < 1 or q.shape[3] < 1:
+        raise ValueError(f"flash op needs B*h >= 1, S >= 1 and d >= 1, got "
                          f"{tuple(q.shape)}")
-    d = q.shape[3]
-    if q.device.type == "cuda" and not (
-        MIN_HEAD_DIM <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0
-    ):
-        raise ValueError(
-            f"the flash kernels support head dims that are multiples of "
-            f"{HEAD_DIM_STEP} in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}], got {d}"
-        )
     _check_layout(q=q, k=k, v=v)
 
 
@@ -141,11 +140,14 @@ def _check_aligned(**tensors: torch.Tensor) -> None:
             raise ValueError(f"flash op needs 16-byte aligned {name}")
 
 
-def _launch_args(q: torch.Tensor) -> list:
-    b, h, s, d = q.shape
+def _launch_args(q: torch.Tensor, d: int) -> list:
+    """The kernels' arguments after the pointers: q is padded to the
+    kernels' grid of head dims, d is the true head dim, whose scale the
+    kernels apply."""
+    b, h, s, d_grid = q.shape
     device = q.get_device()
-    return [b * h, s, d, int(q.dtype == torch.bfloat16), d ** -0.5, device,
-            torch.cuda.current_stream(device).cuda_stream]
+    return [b * h, s, d_grid, int(q.dtype == torch.bfloat16), d ** -0.5,
+            device, torch.cuda.current_stream(device).cuda_stream]
 
 
 def _check_launch(err: int, what: str, q: torch.Tensor) -> None:
@@ -156,18 +158,45 @@ def _check_launch(err: int, what: str, q: torch.Tensor) -> None:
         )
 
 
+# --- head dims off the kernels' grid -----------------------------------------
+
+
+def pad_head_dim(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """x with zero columns appended along its head dim ``dim`` up to the
+    next multiple of :data:`HEAD_DIM_STEP`, for a kernel; x itself when it
+    is one. Zero columns leave every logit q . k unchanged, so with the true
+    head dim's scale the weights, the dropout masks (keyed by row, query and
+    key) and the first d columns of every result are those of the unpadded
+    call; the columns past d of an output or a gradient are zeros."""
+    pad = -x.shape[dim] % HEAD_DIM_STEP
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
+def unpad_head_dim(x: torch.Tensor, d: int, dim: int = -1) -> torch.Tensor:
+    """The first d entries of a kernel's result along its head dim ``dim``,
+    contiguous; x itself when it has d."""
+    if x.shape[dim] == d:
+        return x
+    return x.narrow(dim, 0, d).contiguous()
+
+
 # --- plain versions -------------------------------------------------------
 
 
 def plain_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        chunk: int = DEFAULT_CHUNK):
+                        chunk: int = DEFAULT_CHUNK,
+                        scale: float | None = None):
     """``(out, lse)``: attention on ``[B, h, S, d]`` by the online softmax
     over key chunks of ``chunk`` (f32 logits, running max ``m``, running
     sum ``l`` and accumulator; the weights stay f32 for the product with
     V), ``out`` rounded once to q's dtype, ``lse = m + log l`` f32
-    ``[B, h, S]``."""
+    ``[B, h, S]``. ``scale`` defaults to ``d**-0.5``."""
     b, h, s, d = q.shape
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qf = q.float()
     m = qf.new_full((b, h, s), float("-inf"))
     l = qf.new_zeros(b, h, s)
@@ -185,15 +214,15 @@ def plain_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l[..., None]).to(q.dtype), m + torch.log(l)
 
 
-def plain_flash_backward(q, k, v, out, lse, g, chunk: int = DEFAULT_CHUNK):
+def plain_flash_backward(q, k, v, out, lse, g, chunk: int = DEFAULT_CHUNK,
+                         scale: float | None = None):
     """``(dq, dk, dv)`` from the forward's ``out`` and ``lse`` and the
     cotangent ``g``, by the backward kernels' formulas, one key chunk at a
     time: ``p = exp(q k^T scale - lse)``, ``delta = rowsum(g * out)``,
     ``dv = p^T g``, ``dp = g v^T``, ``ds = p (dp - delta) scale``,
     ``dq = ds k``, ``dk = ds^T q``. Sums in f32, results rounded to the
-    inputs' dtype."""
-    d = q.shape[-1]
-    scale = d ** -0.5
+    inputs' dtype; ``scale`` defaults to ``d**-0.5``."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     qf, gf = q.float(), g.float()
     delta = (gf * out.float()).sum(dim=-1, keepdim=True)
     lse = lse[..., None]
@@ -215,17 +244,18 @@ def plain_flash_backward(q, k, v, out, lse, g, chunk: int = DEFAULT_CHUNK):
 
 
 def _launch_forward(q, k, v, save: bool):
+    b, h, s, d = q.shape
+    q, k, v = (pad_head_dim(x) for x in (q, k, v))
     _check_aligned(q=q, k=k, v=v)
-    b, h, s, _ = q.shape
     fn = _kernel("flash_attention_fwd")
     out = torch.empty_like(q)
     lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
            if save else None)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr(), *_launch_args(q))
+             None if lse is None else lse.data_ptr(), *_launch_args(q, d))
     _check_launch(err, "flash_attention_fwd", q)
     _count("fwd_train" if save else "fwd")
-    return out, lse
+    return unpad_head_dim(out, d), lse
 
 
 def flash_forward_train(q, k, v, chunk: int = DEFAULT_CHUNK):
@@ -259,16 +289,18 @@ def flash_backward(q, k, v, out, lse, g, chunk: int = DEFAULT_CHUNK):
     _check_layout(out=out, g=g, lse=lse)
     if q.device.type == "cpu":
         return plain_flash_backward(q, k, v, out, lse, g, chunk)
+    d = q.shape[3]
+    q, k, v, out, g = (pad_head_dim(x) for x in (q, k, v, out, g))
     _check_aligned(q=q, k=k, v=v, out=out, g=g, lse=lse)
     fn = _kernel("flash_attention_bwd")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), delta.data_ptr(), *_launch_args(q))
+             dv.data_ptr(), delta.data_ptr(), *_launch_args(q, d))
     _check_launch(err, "flash_attention_bwd", q)
     _count("bwd")
-    return dq, dk, dv
+    return tuple(unpad_head_dim(x, d) for x in (dq, dk, dv))
 
 
 class _FlashFunction(torch.autograd.Function):

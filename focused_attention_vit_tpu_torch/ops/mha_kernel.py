@@ -49,20 +49,16 @@ import threading
 import torch
 
 from focused_attention_vit_tpu_torch.ops import philox
-from focused_attention_vit_tpu_torch.ops.flash_attention import (
-    HEAD_DIM_STEP,
-    MAX_HEAD_DIM,
-    MIN_HEAD_DIM,
-)
 
 FWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/fused_mha_fwd.cu"
 BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/fused_mha_bwd.cu"
 # Largest padded S the JAX single-tile formulation accepts; kept as the
 # op's range so that both packages take the fused path at the same shapes.
 MAX_TILE_SEQ = 1024
-# The kernels take every head dim that is a multiple of 8 in [8, 256], as
-# the flash kernels (MIN_HEAD_DIM, MAX_HEAD_DIM, HEAD_DIM_STEP), padded to
-# the same tile widths; the plain versions take any head dim.
+# The kernels take every head dim that is a multiple of 8 (JAX's rule, which
+# fused_mha_supported keeps, so the op never pads): up to 256 at the flash
+# kernels' tile widths, past it through the dense kernels' wide blocks with
+# the op's mask (csrc/flash_wide.cuh).
 
 LAUNCH_KINDS = ("fwd", "fwd_train", "bwd")
 _launches = dict.fromkeys(LAUNCH_KINDS, 0)
@@ -94,8 +90,9 @@ def _row_tile(s: int) -> int:
 
 def fused_mha_supported(seq_len: int, head_dim: int) -> bool:
     """The JAX op's rule: S rounded up to 128 is at most ``MAX_TILE_SEQ``
-    and the head dim is a multiple of 8. On a CUDA tensor the op further
-    needs a head dim of at most ``MAX_HEAD_DIM`` and raises otherwise."""
+    and the head dim is a multiple of 8 (any such head dim, on the card
+    too). Off that grid the dense layer takes the non-fused path, as JAX
+    does."""
     return _row_tile(seq_len) <= MAX_TILE_SEQ and head_dim % 8 == 0
 
 
@@ -147,18 +144,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if s < 1 or b * h < 1:
         raise ValueError(f"fused attention needs B*h >= 1 and S >= 1, got "
                          f"{tuple(q.shape)}")
-    if not fused_mha_supported(s, d):
+    if d < 1 or not fused_mha_supported(s, d):
         raise ValueError(
             f"fused attention supports S <= {MAX_TILE_SEQ} and head dims "
             f"that are multiples of 8, got S={s}, d={d}"
-        )
-    if q.device.type == "cuda" and not (
-        MIN_HEAD_DIM <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0
-    ):
-        raise ValueError(
-            f"the fused attention kernels support head dims that are "
-            f"multiples of {HEAD_DIM_STEP} in [{MIN_HEAD_DIM}, "
-            f"{MAX_HEAD_DIM}], got {d}"
         )
     _check_layout(q=q, k=k, v=v)
 

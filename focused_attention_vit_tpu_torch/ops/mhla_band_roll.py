@@ -35,6 +35,10 @@ import threading
 import torch
 
 from focused_attention_vit_tpu_torch.ops import philox
+from focused_attention_vit_tpu_torch.ops.flash_attention import (
+    pad_head_dim,
+    unpad_head_dim,
+)
 from focused_attention_vit_tpu_torch.ops.window import (
     _halo_pad,
     _shift_band_apply_ds,
@@ -45,12 +49,12 @@ from focused_attention_vit_tpu_torch.ops.window import (
 KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/mhla_band_fwd.cu"
 BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/mhla_band_bwd.cu"
 # The kernels' range on a CUDA tensor: JAX's roll band takes W <= 129 (its
-# halo of 128 lanes) and any head dim; the kernels stage channels in chunks
-# of 8 (bf16) or 4 (f32) and hold the slots of W > 16 in groups of 16
-# (kMaxWindow in the sources). A CPU tensor takes any W with S > 2W and any
-# head dim, as JAX's shift band does.
+# halo of 128 lanes) and any head dim; so do the kernels, which stage
+# channels in chunks of 8 (bf16) or 4 (f32), hold the slots of W > 16 in
+# groups of 16 (kMaxWindow in the sources), and take a head dim off the grid
+# of 8 padded with zero channels (pad_head_dim). A CPU tensor takes any W
+# with S > 2W and any head dim, as JAX's shift band does.
 MAX_WINDOW = 129
-MIN_HEAD_DIM, MAX_HEAD_DIM, HEAD_DIM_STEP = 8, 256, 8
 
 # The plain version the eval kernel is held against.
 plain_banded_attention = _shift_banded_attention_ds
@@ -133,23 +137,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"form covers shorter sequences"
         )
     if q.device.type == "cuda":
-        _check_kernel_range(d, window_size)
+        _check_kernel_range(window_size)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("band op needs contiguous q, k, v")
 
 
-def _check_kernel_range(d: int, window_size: int) -> None:
-    """The kernels' range: W <= 129 (JAX's roll band's rule and message)
-    and head dims that are multiples of 8 in [8, 256]."""
+def _check_kernel_range(window_size: int) -> None:
+    """The kernels' range: W <= 129 (JAX's roll band's rule and message);
+    every head dim."""
     if window_size > MAX_WINDOW:
         raise ValueError(
             f"band op supports window_size <= {MAX_WINDOW} (got "
             f"{window_size}); use the shift path for wider windows"
-        )
-    if not (MIN_HEAD_DIM <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0):
-        raise ValueError(
-            f"the band kernels support head dims that are multiples of "
-            f"{HEAD_DIM_STEP} in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}], got {d}"
         )
 
 
@@ -267,6 +266,7 @@ _MAX_SLOTS = 16
 
 def _launch_forward(q, k, v, w: int, rate: float, seed: int, save: bool):
     b, h, d, s = q.shape
+    q, k, v = (pad_head_dim(x, 2) for x in (q, k, v))
     fn = _kernel("mhla_band_fwd", "mhla_band_fwd")
     out = torch.empty_like(q)
     wts = (torch.empty(b * h, w, s, dtype=torch.float32, device=q.device)
@@ -280,12 +280,12 @@ def _launch_forward(q, k, v, w: int, rate: float, seed: int, save: bool):
                               device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if wts is None else wts.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), b * h, d, s, w,
-             int(q.dtype == torch.bfloat16), d ** -0.5,
+             None if scratch is None else scratch.data_ptr(), b * h,
+             q.shape[2], s, w, int(q.dtype == torch.bfloat16), d ** -0.5,
              *_kernel_dropout_args(rate, seed), *_stream_args(q))
     _check_launch(err, "mhla_band_fwd", q, w)
     _count("fwd_train" if save else "fwd")
-    return out, wts
+    return unpad_head_dim(out, d, 2), wts
 
 
 def band_forward_train(q, k, v, window_size: int, rate: float = 0.0,
@@ -324,18 +324,19 @@ def band_backward(q, k, v, g, wts, window_size: int, rate: float = 0.0,
         raise ValueError("band backward needs contiguous g and wts")
     if q.device.type == "cpu":
         return plain_band_backward(q, k, v, g, wts, window_size, rate, seed)
+    q, k, v, g = (pad_head_dim(x, 2) for x in (q, k, v, g))
     fn = _kernel("mhla_band_bwd", "mhla_band_bwd")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     scratch = torch.empty(2, b * h, window_size, s, dtype=torch.float32,
                           device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              wts.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             scratch.data_ptr(), b * h, d, s, window_size,
+             scratch.data_ptr(), b * h, q.shape[2], s, window_size,
              int(q.dtype == torch.bfloat16), d ** -0.5,
              *_kernel_dropout_args(rate, seed), *_stream_args(q))
     _check_launch(err, "mhla_band_bwd", q, window_size)
     _count("bwd")
-    return dq, dk, dv
+    return tuple(unpad_head_dim(x, d, 2) for x in (dq, dk, dv))
 
 
 def keep_bits(rows: int, window_size: int, seq_len: int, seed: int,

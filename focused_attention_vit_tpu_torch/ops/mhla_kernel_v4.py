@@ -32,9 +32,9 @@ that saves q, k and v, as JAX's ``_fwd_rule``. :func:`banded_attention_v4b`
 builds the window tiles in plain PyTorch, as XLA does in JAX, and runs K8.
 The kernels stage JAX's halo, ``_halo``: W // 2 rounded up to a multiple of
 16, at least 16. On the card they take ``1 <= W <= MAX_WINDOW`` (129, the
-default band's range) and every head dim that is a multiple of 8 in
-[8, 256]; the plain versions, and so the CPU, take any W and head dim, as
-JAX's v4 does.
+default band's range) and every head dim up to 256 (one off the grid of 8
+padded with zero columns, :func:`.flash_attention.pad_head_dim`); the plain
+versions, and so the CPU, take any W and head dim, as JAX's v4 does.
 """
 
 from __future__ import annotations
@@ -47,9 +47,8 @@ import numpy as np
 import torch
 
 from focused_attention_vit_tpu_torch.ops.flash_attention import (
-    HEAD_DIM_STEP,
-    MAX_HEAD_DIM,
-    MIN_HEAD_DIM,
+    pad_head_dim,
+    unpad_head_dim,
 )
 from focused_attention_vit_tpu_torch.ops.window import real_constants
 
@@ -61,9 +60,12 @@ DEFAULT_BLOCK = 256
 # group.
 GROUP = 8
 # The card's range (kMaxHalo in the sources): W // 2 up to 64, a halo of
-# 64 rows; head dims are the flash kernels' (multiples of 8 in [8, 256]).
+# 64 rows; head dims up to 256, padded to a multiple of 8. Both limits are
+# the shared memory's: the ring and wide kernels stage whole rows of d for
+# the tile and its halo, 224 KB of the 227 at d = 256 and a halo of 64.
 MAX_HALF_WINDOW = 64
 MAX_WINDOW = 2 * MAX_HALF_WINDOW + 1
+MAX_HEAD_DIM = 256
 
 LAUNCH_KINDS = ("fwd", "bwd", "fwd_b")
 _launches = dict.fromkeys(LAUNCH_KINDS, 0)
@@ -283,8 +285,8 @@ def _kernel(source: str, fn_name: str):
 def _check(tensors, window_size: int, what: str) -> None:
     """One dtype (f32 or bf16), one device (cpu or cuda), contiguous,
     ``window_size >= 1``; on a CUDA tensor also the kernels' range,
-    ``window_size <= MAX_WINDOW`` and a head dim that is a multiple of 8
-    in [8, 256]. A CPU tensor takes any window and head dim."""
+    ``window_size <= MAX_WINDOW`` and a head dim of at most
+    ``MAX_HEAD_DIM``. A CPU tensor takes any window and head dim."""
     x = tensors[0]
     if x.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != x.dtype for t in tensors):
@@ -302,11 +304,10 @@ def _check(tensors, window_size: int, what: str) -> None:
                 f"the {what} kernels take 1 <= window_size <= {MAX_WINDOW} "
                 f"(a halo of {MAX_HALF_WINDOW} rows), got {window_size}")
         d = x.shape[-1]
-        if not (MIN_HEAD_DIM <= d <= MAX_HEAD_DIM and d % HEAD_DIM_STEP == 0):
+        if not 1 <= d <= MAX_HEAD_DIM:
             raise ValueError(
-                f"the {what} kernels take head dims that are multiples of "
-                f"{HEAD_DIM_STEP} in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}], got "
-                f"{d}")
+                f"the {what} kernels take head dims in [1, {MAX_HEAD_DIM}], "
+                f"got {d}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} needs contiguous tensors")
 
@@ -320,9 +321,11 @@ def _check_rows(tensors, window_size: int, what: str) -> None:
                          f"got {[tuple(t.shape) for t in tensors]}")
 
 
-def _launch_args(q: torch.Tensor) -> list:
+def _launch_args(q: torch.Tensor, d: int) -> list:
+    """The kernels' last arguments; d is the true head dim, whose scale the
+    kernels apply to q padded to the grid of 8."""
     device = q.get_device()
-    return [int(q.dtype == torch.bfloat16), q.shape[-1] ** -0.5, device,
+    return [int(q.dtype == torch.bfloat16), d ** -0.5, device,
             torch.cuda.current_stream(device).cuda_stream]
 
 
@@ -334,13 +337,14 @@ def _check_launch(err: int, what: str, q: torch.Tensor, w: int) -> None:
 
 def _launch_forward(q, k, v, window_size: int) -> torch.Tensor:
     bh, s, d = q.shape
+    q, k, v = (pad_head_dim(x) for x in (q, k, v))
     out = torch.empty_like(q)
     fn = _kernel("mhla_tile_band_fwd", "mhla_tile_band_fwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-             s, d, window_size // 2, *_launch_args(q))
+             s, q.shape[2], window_size // 2, *_launch_args(q, d))
     _check_launch(err, "mhla_tile_band_fwd", q, window_size)
     _count("fwd")
-    return out
+    return unpad_head_dim(out, d)
 
 
 def tile_band_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -360,24 +364,27 @@ def tile_band_backward(q, k, v, g, window_size: int):
     if q.device.type == "cpu":
         return plain_bwd_rule(q, k, v, g, window_size)
     bh, s, d = q.shape
+    q, k, v, g = (pad_head_dim(x) for x in (q, k, v, g))
+    d_grid = q.shape[2]
     hw = window_size // 2
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     # The wide kernels' p/ds tiles and fold sums (0 bytes for the ring
     # kernel), as many bytes as the source asks for.
     nbytes = ctypes.c_longlong(0)
     err = _kernel("mhla_tile_band_bwd", "mhla_tile_band_bwd_scratch")(
-        bh, s, d, hw, int(q.dtype == torch.bfloat16), ctypes.byref(nbytes))
+        bh, s, d_grid, hw, int(q.dtype == torch.bfloat16),
+        ctypes.byref(nbytes))
     _check_launch(err, "mhla_tile_band_bwd_scratch", q, window_size)
     scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=q.device)
                if nbytes.value else None)
     fn = _kernel("mhla_tile_band_bwd", "mhla_tile_band_bwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), bh, s, d, hw,
-             *_launch_args(q))
+             None if scratch is None else scratch.data_ptr(), bh, s, d_grid,
+             hw, *_launch_args(q, d))
     _check_launch(err, "mhla_tile_band_bwd", q, window_size)
     _count("bwd")
-    return dq, dk, dv
+    return tuple(unpad_head_dim(x, d) for x in (dq, dk, dv))
 
 
 def window_tile_band(qt: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
@@ -387,12 +394,14 @@ def window_tile_band(qt: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
     ``_halo`` of W // 2), its plain version on a CPU tensor (any halo of at
     least W // 2). Returns ``[BH, n_t, t, d]``."""
     _check((qt, ke, ve), window_size, "window tile band")
-    bh, n_t, t, d = qt.shape
-    ext = ke.shape[2]
-    hw = window_size // 2
-    if (qt.dim() != 4 or ke.shape != ve.shape
-            or ke.shape[:2] != qt.shape[:2] or ke.shape[3] != d
-            or ext - t < 2 * hw or (ext - t) % 2):
+    shapes_ok = qt.dim() == 4 and ke.dim() == 4 and ke.shape == ve.shape
+    if shapes_ok:
+        bh, n_t, t, d = qt.shape
+        ext = ke.shape[2]
+        hw = window_size // 2
+        shapes_ok = (ke.shape[:2] == qt.shape[:2] and ke.shape[3] == d
+                     and ext - t >= 2 * hw and (ext - t) % 2 == 0)
+    if not shapes_ok:
         raise ValueError(
             f"window tile band takes q tiles [BH, n_t, t, d] and window "
             f"tiles [BH, n_t, t + 2*halo, d] with halo >= W//2, got "
@@ -403,13 +412,14 @@ def window_tile_band(qt: torch.Tensor, ke: torch.Tensor, ve: torch.Tensor,
     if ext - t != 2 * halo:
         raise ValueError(f"the K8 kernel takes a halo of {halo} rows at "
                          f"W={window_size}, got {(ext - t) // 2}")
+    qt, ke, ve = (pad_head_dim(x) for x in (qt, ke, ve))
     out = torch.empty_like(qt)
     fn = _kernel("mhla_tile_band_fwd", "mhla_tile_band_fwd_tiles")
     err = fn(qt.data_ptr(), ke.data_ptr(), ve.data_ptr(), out.data_ptr(),
-             bh, n_t, t, d, hw, *_launch_args(qt))
+             bh, n_t, t, qt.shape[3], hw, *_launch_args(qt, d))
     _check_launch(err, "mhla_tile_band_fwd_tiles", qt, window_size)
     _count("fwd_b")
-    return out
+    return unpad_head_dim(out, d)
 
 
 class _TileBandFunction(torch.autograd.Function):

@@ -11,8 +11,11 @@ after it, so that every checkout does the same work), and the fused
 short-S attention (K3, ``csrc/fused_mha_fwd.cu``: the eval forward and the
 training forward at dropout 0.1; K4, ``csrc/fused_mha_bwd.cu``) at E1's
 shape (B*h=1536, S=197, d=64: the whole-row kernels) and past the whole-row
-kernels (B*h=384, S=577: the flash blocks with the mask), in each checkout
-given, each in a process of its own that imports that checkout's package,
+kernels (B*h=384, S=577: the flash blocks with the mask), the dense flash
+attention (K5, ``csrc/flash_attention_{fwd,bwd}.cu``: eval forward,
+training forward, backward) at dense ViT-B/4's shape (B*h=384, S=3137,
+d=64) and ViT-H/14's (B*h=128, S=1370, d=80), and K1/K2 at ViT-H/14's band
+(B*h=128, d=80, S=1370), in each checkout given, each in a process of its own that imports that checkout's package,
 in turns: the order given, then the reverse. Every checkout's kernels are
 built first, all at once. With ``--steps`` it then profiles MHLA-B/4's
 S-minor serving forward and train step and its tile-band serving forward
@@ -50,10 +53,15 @@ WINDOW = 7
 RATE = 0.1
 SEED = 1234
 LIBRARIES = ["mhla_band_fwd", "mhla_band_bwd", "mhla_tile_band_fwd",
-             "mhla_tile_band_bwd", "fused_mha_fwd", "fused_mha_bwd"]
+             "mhla_tile_band_bwd", "fused_mha_fwd", "fused_mha_bwd",
+             "flash_attention_fwd", "flash_attention_bwd"]
 # B, h, S, d of the fused op: E1's (ViT-B/16, batch 128) and a row past the
 # whole-row kernels (ViT-B/16 at 384 pixels, batch 32).
 FUSED_SHAPES = {"fused": (128, 12, 197, 64), "fused_tiled": (32, 12, 577, 64)}
+# B, h, S, d of the flash op at dense ViT-B/4 (batch 32) and ViT-H/14 at
+# 518^2 (batch 8); B, h, d, S of the band at MHLA-H/14.
+FLASH_SHAPES = {"flash": (32, 12, 3137, 64), "flash_h14": (8, 16, 1370, 80)}
+BAND_H14_SHAPE = (8, 16, 80, 1370)
 TILE_ENV = {"FAVIT_MHLA_IMPL": "shiftband", "FAVIT_USE_PALLAS_MHLA": "1"}
 # --steps: (label, step_profile mode, environment).
 STEPS = [("serve", "serve", {}), ("train", "train", {}),
@@ -156,6 +164,15 @@ def time_kernels() -> dict:
     calls["tile_fwd"] = lambda: tile.tile_band_forward(*rows[:3], w)
     calls["tile_fwd_b"] = lambda: tile.window_tile_band(qt, ke, ve, w)
     calls.update(_fused_calls(res, gen))
+    calls.update(_flash_calls(res, gen))
+    h14 = [torch.randn(BAND_H14_SHAPE, device="cuda", generator=gen)
+           .bfloat16() for _ in range(4)]
+    _, wts80 = band.band_forward_train(*h14[:3], w, RATE, SEED)
+    calls["band_h14_eval"] = lambda: band.roll_banded_attention(*h14[:3], w)
+    calls["band_h14_train"] = lambda: band.band_forward_train(
+        *h14[:3], w, RATE, SEED)
+    calls["band_h14_bwd"] = lambda: band.band_backward(*h14, wts80, w, RATE,
+                                                       SEED)
     for name, fn in calls.items():
         res[f"{name}_ms"] = _median_ms(fn)
         res[f"{name}_device_ms"] = _device_ms(fn)
@@ -186,6 +203,30 @@ def _fused_calls(res: dict, gen) -> dict:
         calls[f"{key}_bwd"] = (
             lambda q=q, k=k, v=v, out=out, lse=lse, g=g:
             fused.fused_mha_backward(q, k, v, out, lse, g, RATE, SEED))
+    return calls
+
+
+def _flash_calls(res: dict, gen) -> dict:
+    """K5's eval and training forwards and its backward at each of
+    :data:`FLASH_SHAPES`, bf16; the training output's largest error
+    against the plain version goes into ``res``."""
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+
+    calls = {}
+    for key, shape in FLASH_SHAPES.items():
+        q, k, v, g = (torch.randn(shape, device="cuda", generator=gen)
+                      .bfloat16() for _ in range(4))
+        out, lse = flash.flash_forward_train(q, k, v)
+        ref, _ = flash.plain_flash_forward(q, k, v)
+        res[f"{key}_err"] = float((out.float() - ref.float()).abs().max())
+        del ref
+        calls[f"{key}_eval"] = (
+            lambda q=q, k=k, v=v: flash.flash_attention(q, k, v))
+        calls[f"{key}_train"] = (
+            lambda q=q, k=k, v=v: flash.flash_forward_train(q, k, v))
+        calls[f"{key}_bwd"] = (
+            lambda q=q, k=k, v=v, out=out, lse=lse, g=g:
+            flash.flash_backward(q, k, v, out, lse, g))
     return calls
 
 

@@ -221,8 +221,8 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # window
         x = torch.zeros(1, 2, 16, 300, device=cuda)
         band.band_forward_train(x, x, x, band.MAX_WINDOW + 1)
-    with pytest.raises(ValueError):  # head dim
-        x = torch.zeros(1, 2, 20, 40, device=cuda)
+    with pytest.raises(ValueError, match="S > 2"):  # a row of S <= 2W
+        x = torch.zeros(1, 2, 20, 14, device=cuda)
         band.band_forward_train(x, x, x, 7)
     with pytest.raises(TypeError):  # dtype
         x = q.half()
@@ -300,19 +300,20 @@ def test_band_keep_bits_past_16_slots(cuda):
 
 def test_band_kernels_reject_outside_their_range(cuda):
     """On a CUDA tensor the op raises past W = 129 (JAX's roll-band rule
-    and message) and at head dims that are not multiples of 8 in [8, 256];
-    it never runs the plain version instead."""
+    and message) and never runs the plain version instead; every head dim
+    is inside the range (20 padded to 24, 264 in 33 chunks): the kernels
+    launch."""
     band.reset_launch_count()
     x = torch.zeros(1, 2, 16, 300, device=cuda)
     with pytest.raises(ValueError, match="window_size <= 129"):
         band.roll_banded_attention(x, x, x, 130)
-    for d in (20, 264):
-        x = torch.zeros(1, 2, d, 40, device=cuda)
-        with pytest.raises(ValueError, match="head dims"):
-            band.roll_banded_attention(x, x, x, 7)
-        with pytest.raises(ValueError, match="head dims"):
-            band.band_forward_train(x, x, x, 7)
     assert [band.launch_count(kind) for kind in band.LAUNCH_KINDS] == [0, 0, 0]
+    for d in (20, 264):
+        x = torch.ones(1, 2, d, 40, device=cuda)
+        out = band.roll_banded_attention(x, x, x, 7)
+        torch.testing.assert_close(out, x, atol=1e-6, rtol=0)
+        band.band_forward_train(x, x, x, 7)
+    assert [band.launch_count(kind) for kind in band.LAUNCH_KINDS] == [2, 2, 0]
 
 
 # --- flash attention ------------------------------------------------------------
@@ -422,12 +423,18 @@ def test_flash_padded_head_dims_read_no_other_head(cuda, d):
 
 
 def test_flash_kernels_reject_outside_their_range(cuda):
+    """Only an empty head dim is outside the kernels' range now: d = 20
+    (padded to 24) and 264 (the wide blocks) launch them."""
     flash.reset_launch_count()
-    for d in (20, 264):
-        x = torch.zeros(1, 2, 40, d, device=cuda)
-        with pytest.raises(ValueError, match="head dims"):
-            flash.flash_attention(x, x, x)
+    x = torch.zeros(1, 2, 40, 0, device=cuda)
+    with pytest.raises(ValueError, match="d >= 1"):
+        flash.flash_attention(x, x, x)
     assert [flash.launch_count(k) for k in flash.LAUNCH_KINDS] == [0, 0, 0]
+    for d in (20, 264):
+        x = torch.ones(1, 2, 40, d, device=cuda)
+        torch.testing.assert_close(flash.flash_attention(x, x, x), x,
+                                   atol=1e-6, rtol=0)
+    assert [flash.launch_count(k) for k in flash.LAUNCH_KINDS] == [2, 0, 0]
 
 
 def test_flash_launch_counters_and_gradients(cuda):
@@ -513,7 +520,7 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         x = q.transpose(2, 3).contiguous().transpose(2, 3)
         flash.flash_attention(x, x, x)
     with pytest.raises(ValueError):  # head dim
-        x = torch.zeros(1, 2, 40, 20, device=cuda)
+        x = torch.zeros(1, 2, 40, 0, device=cuda)
         flash.flash_attention(x, x, x)
     with pytest.raises(TypeError):  # dtype
         x = q.half()
@@ -749,8 +756,8 @@ def test_fused_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # stride
         x = q.transpose(2, 3).contiguous().transpose(2, 3)
         fused.fused_multi_head_attention(x, x, x)
-    with pytest.raises(ValueError, match="head dims"):
-        x = torch.zeros(1, 2, 40, 264, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):  # JAX's d % 8 rule
+        x = torch.zeros(1, 2, 40, 12, device=cuda)
         fused.fused_multi_head_attention(x, x, x)
     with pytest.raises(ValueError):  # longer than the op's range
         x = torch.zeros(1, 1, fused.MAX_TILE_SEQ + 1, 16, device=cuda)
@@ -1481,3 +1488,220 @@ def test_one_stage_pipeline_at_mhla_b4_width(cuda, tmp_path):
                                        rtol=0)
     finally:
         dist.destroy_process_group()
+
+
+# --- every head dim: off the grid of 8 (padded) and past 256 -------------------
+
+# Off the grid of 8 (4 -> 8, 12 -> 16, 36 -> 40: the pad's zero columns) and
+# past 256 (264 and 384: the wide blocks' ragged last chunk and slice; 768
+# and 1280: ViT-B's and ViT-H's width in one head).
+ANY_HEAD_DIMS = (4, 12, 36, 264, 384, 768, 1280)
+# The wide blocks' 64-row tiles: one short, exact, one past, two tiles and
+# a ragged one; then ViT-B/16's S.
+WIDE_SEQS = (63, 64, 65, 129, 197)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", WIDE_SEQS)
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+def test_flash_kernels_at_any_head_dim(cuda, d, s, dtype):
+    """K5's eval forward, training forward and backward at every kind of
+    head dim and the wide blocks' tile edges, against the plain versions by
+    the flash grid's rule (f32 within 1e-5 and 1e-4; bf16 within 2 ulps of
+    max(|plain|, a quarter of the largest entry)); the eval and training
+    outputs bit-equal; the backward twice with the same bits; one launch a
+    call."""
+    q, k, v, g = _inputs(cuda, (1, 2, s, d), dtype, n=4, seed=s + d)
+    flash.reset_launch_count()
+    with torch.no_grad():
+        lean = flash.flash_attention(q, k, v)
+    out, lse = flash.flash_forward_train(q, k, v)
+    grads = flash.flash_backward(q, k, v, out, lse, g)
+    again = flash.flash_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert [flash.launch_count(k_) for k_ in flash.LAUNCH_KINDS] == [1, 1, 2]
+    ref_out, ref_lse = flash.plain_flash_forward(q, k, v)
+    ref_grads = flash.plain_flash_backward(q, k, v, out, lse, g)
+    assert torch.equal(lean, out) and out.shape == q.shape
+    _flash_close(out, ref_out, dtype, 1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert got.shape == q.shape and torch.equal(got, rerun)
+        _flash_close(got, want, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [65, 197, 257])
+@pytest.mark.parametrize("d", [264, 384, 768, 1280])
+def test_fused_kernels_past_256(cuda, d, s, dtype, rate):
+    """K3 and K4 past d = 256, where no whole-row kernel holds a row and
+    every S takes the wide blocks with the Philox mask: against the plain
+    versions by the fused grid's loose rule (3 ulps entry by entry, as
+    FUSED_LOOSE_CASES; the rms bound), the backward run twice with the same
+    bits."""
+    q, k, v, g = _inputs(cuda, (1, 2, s, d), dtype, n=4, seed=s + d)
+    seed = 2**35 + 3 if rate else None
+    rq, rk, rv, rg = (x.float() for x in (q, k, v, g))
+    out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
+    grads = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+    again = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fused.plain_fused_mha_forward(rq, rk, rv, rate, seed)
+    ref_grads = fused.plain_fused_mha_backward(
+        rq, rk, rv, rg, rate, seed,
+        out=out.float() if dtype == torch.bfloat16 else None)
+    _fused_close(out, ref_out, dtype, 1e-5, ulps=3.0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert torch.equal(got, rerun)
+        _fused_close(got, want, dtype, 1e-4, ulps=3.0)
+        if dtype == torch.bfloat16:
+            _rms_close(got, want)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,w", [(15, 7), (513, 7), (35, 17), (1001, 17)])
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+def test_band_kernels_at_any_head_dim(cuda, d, s, w, dtype, rate):
+    """K1 (eval and training forms) and K2 at every kind of head dim, rows
+    of 2W + 1 and one past a 512-query tile, W on both sides of the slot
+    groups: against the plain versions by the head-dim grid's rule (bf16
+    gradients within 2 ulps or 1e-4 absolute); the backward twice with the
+    same bits."""
+    q, k, v, g = _inputs(cuda, (1, 2, d, s), dtype, n=4, seed=d + s)
+    seed = 2**33 + 7 if rate else None
+    band.reset_launch_count()
+    with torch.no_grad():
+        lean = band.roll_banded_attention(q, k, v, w, (rate, seed))
+    out, wts = band.band_forward_train(q, k, v, w, rate, seed)
+    grads = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    again = band.band_backward(q, k, v, g, wts, w, rate, seed)
+    torch.cuda.synchronize()
+    assert [band.launch_count(kind) for kind in band.LAUNCH_KINDS] == [1, 1, 2]
+    ref_out, ref_wts = band.plain_band_forward_train(q, k, v, w, rate, seed)
+    ref_grads = band.plain_band_backward(q, k, v, g, wts, w, rate, seed)
+    _close(lean, ref_out, dtype, 1e-5)
+    _close(out, ref_out, dtype, 1e-5)
+    torch.testing.assert_close(wts, ref_wts, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert got.shape == q.shape and torch.equal(got, rerun)
+        _close(got, want, dtype, 1e-4, bf16_atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,s", [(7, 65), (33, 500), (129, 300)])
+@pytest.mark.parametrize("d", [4, 12, 36])
+def test_tile_band_kernels_off_the_grid(cuda, d, w, s, dtype):
+    """K6, K7 (folded) and K8 at head dims off the grid of 8, padded to it:
+    against their plain versions by the tile band's rule (6 ulps and the
+    rms bound in bf16)."""
+    q, k, v, g = _inputs(cuda, (4, s, d), dtype, n=4, seed=d + w)
+    tile.reset_launch_count()
+    out = tile.tile_band_forward(q, k, v, w)
+    grads = tile.tile_band_backward(q, k, v, g, w)
+    out_b = tile.banded_attention_v4b(*(x.view(1, 4, s, d) for x in (q, k, v)),
+                                      w).view(4, s, d)
+    torch.cuda.synchronize()
+    assert [tile.launch_count(k_) for k_ in tile.LAUNCH_KINDS] == [1, 1, 1]
+    ref = tile.plain_tile_band_forward(q, k, v, w)
+    _tile_close(out, ref, dtype, 1e-5)
+    _tile_close(out_b, ref, dtype, 1e-5)
+    for got, want in zip(grads, tile.plain_bwd_rule(q, k, v, g, w)):
+        assert got.shape == q.shape
+        _tile_close(got, want, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), 3e38])
+@pytest.mark.parametrize("op", ["flash", "fused", "band"])
+def test_wide_head_dims_read_no_other_head(cuda, op, bad):
+    """At d = 384 (the wide blocks' ragged last slice and chunk; the band's
+    48 chunks) the next head's rows hold NaN, inf or 3e38: head 0's output
+    and gradients come out finite and equal to its plain version."""
+    d, s = 384, 197
+    shape = (1, 2, d, s) if op == "band" else (1, 2, s, d)
+    q, k, v, g = _inputs(cuda, shape, torch.bfloat16, n=4, seed=11)
+    for x in (q, k, v, g):
+        x[0, 1] = bad
+    head = [x[:, :1].contiguous() for x in (q, k, v, g)]
+    if op == "flash":
+        out, lse = flash.flash_forward_train(q, k, v)
+        grads = flash.flash_backward(q, k, v, out, lse, g)
+        ref_out, _ = flash.plain_flash_forward(*head[:3])
+        ref_grads = flash.plain_flash_backward(
+            *head[:3], out[:, :1].contiguous(), lse[:, :1].contiguous(),
+            head[3])
+    elif op == "fused":
+        out, lse = fused.fused_mha_forward_train(q, k, v, 0.1, 5)
+        grads = fused.fused_mha_backward(q, k, v, out, lse, g, 0.1, 5)
+        hq, hk, hv, hg = (x.float() for x in head)
+        ref_out, _ = fused.plain_fused_mha_forward(hq, hk, hv, 0.1, 5)
+        ref_grads = fused.plain_fused_mha_backward(
+            hq, hk, hv, hg, 0.1, 5, out=out[:, :1].float())
+    else:
+        out, wts = band.band_forward_train(q, k, v, 7, 0.1, 5)
+        grads = band.band_backward(q, k, v, g, wts, 7, 0.1, 5)
+        ref_out, _ = band.plain_band_forward_train(*head[:3], 7, 0.1, 5)
+        ref_grads = band.plain_band_backward(
+            *head, wts[:1].contiguous(), 7, 0.1, 5)
+    torch.cuda.synchronize()
+    close = _flash_close if op == "flash" else (
+        lambda a, b, dt, tol: _fused_close(a, b, dt, tol, ulps=3.0)
+        if op == "fused" else _close(a, b, dt, tol, bf16_atol=1e-4))
+    assert torch.isfinite(out[:, :1]).all()
+    close(out[:, :1], ref_out, torch.bfloat16, 0.0)
+    for got, want in zip(grads, ref_grads):
+        assert torch.isfinite(got[:, :1]).all()
+        close(got[:, :1], want, torch.bfloat16, 1e-4)
+
+
+@pytest.mark.parametrize("model,heads,patch,op", [
+    ("mhla", 2, 4, "band"), ("mhla", 64, 4, "band"),
+    ("vit", 1, 4, "flash"), ("vit", 64, 4, "flash"),
+    ("vit", 2, 16, "fused")])
+def test_head_count_paths_launch_their_kernels(cuda, monkeypatch, model,
+                                               heads, patch, op):
+    """A 2-block model at D = 768 with 1, 2 or 64 heads (d = 768, 384, 12):
+    one bf16 train step (attention dropout 0.1 where the op draws it) and
+    one eval pass launch the op's training forward and backward once a
+    block in the step and its eval forward once a block in the pass; the
+    other attention ops launch nothing."""
+    import numpy as np
+
+    from focused_attention_vit_tpu_torch import train
+    from focused_attention_vit_tpu_torch.models import (
+        VisionTransformer,
+        VisionTransformerMHLA,
+    )
+
+    ops = {"band": band, "flash": flash, "fused": fused}
+    if op == "fused":
+        monkeypatch.setenv("FAVIT_FUSED_MHA", "1")
+    cls = VisionTransformerMHLA if model == "mhla" else VisionTransformer
+    kw = {"attn_dropout": 0.1} if op in ("band", "fused") else {}
+    net = cls(img_size=224, patch_size=patch, num_classes=10, embed_dim=768,
+              depth=2, num_heads=heads,
+              generator=torch.Generator().manual_seed(0), **kw)
+    state = train.create_train_state(net, train.make_adamw(1e-4))
+    rng = np.random.default_rng(0)
+    u8 = rng.integers(0, 256, size=(2, 32, 32, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, size=2)
+    for m in ops.values():
+        m.reset_launch_count()
+    _, metrics = train.make_train_step(224, compute_dtype=torch.bfloat16)(
+        state, u8, y, 0)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss_sum"]))
+    want = {name: [0, 0, 0] for name in ops}
+    want[op] = [0, 2, 2]
+    assert {name: [m.launch_count(k) for k in m.LAUNCH_KINDS]
+            for name, m in ops.items()} == want
+    for m in ops.values():
+        m.reset_launch_count()
+    train.make_eval_step(224, compute_dtype=torch.bfloat16)(
+        state, u8, y, np.ones(2, dtype=bool))
+    torch.cuda.synchronize()
+    want[op] = [2, 0, 0]
+    assert {name: [m.launch_count(k) for k in m.LAUNCH_KINDS]
+            for name, m in ops.items()} == want

@@ -341,15 +341,19 @@ WGMMA_SOURCES = FLASH_SOURCES + ["fused_mha_bwd.cu", "fused_mha_fwd.cu"]
 # Headers of shared pieces; any other csrc header a source includes holds
 # kernel code of its own (the flash blocks that the fused sources share).
 SHARED_HEADERS = {"flash_common.cuh", "hopper_common.cuh", "philox.cuh"}
+# The blocks past head dim 256, which all four sources include and which
+# run warp-level products (tested on their own below).
+WIDE_HEADER = "flash_wide.cuh"
 
 
-def _kernel_code(name: str) -> str:
-    """A source and the kernel code it includes (its block headers)."""
+def _kernel_code(name: str, skip=()) -> str:
+    """A source and the kernel code it includes (its block headers but
+    those in ``skip``)."""
     import re
 
     text = (CSRC / name).read_text()
     for header in re.findall(r'#include "(\w+\.cuh)"', text):
-        if header not in SHARED_HEADERS:
+        if header not in SHARED_HEADERS and header not in skip:
             text += (CSRC / header).read_text()
     return text
 
@@ -366,13 +370,15 @@ def _with_headers(name: str) -> str:
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_flash_sources_use_wgmma_and_asynchronous_copies(name):
-    """Every product of the bf16 flash kernels and of the fused short-S
-    kernels (whole-row, and tiled on the flash blocks) is a warpgroup
-    product and the tiles arrive by an asynchronous copy that completes on
-    an mbarrier; their code calls none of the mma.sync fragment helpers."""
+    """Up to head dim 256 every product of the bf16 flash kernels and of the
+    fused short-S kernels (whole-row, and tiled on the flash blocks) is a
+    warpgroup product and the tiles arrive by an asynchronous copy that
+    completes on an mbarrier; their code calls none of the mma.sync fragment
+    helpers. (Past 256 the sources call the blocks of ``flash_wide.cuh``,
+    held by test_wide_blocks_take_the_head_dims_past_256.)"""
     import re
 
-    own = _kernel_code(name)
+    own = _kernel_code(name, skip={WIDE_HEADER})
     text = _with_headers(name)
     assert "wgmma.mma_async" in text
     assert "cp.async.bulk.tensor" in text
@@ -587,7 +593,7 @@ def test_band_sources_share_one_staging_header():
 def test_flash_common_keeps_the_fused_kernels_helpers():
     """``flash_common.cuh`` still defines every ``flash::`` helper that the
     sources including it use: the tile band's kernels, and the flash and
-    fused short-S sources' f32 kernels, delta kernel and constants."""
+    fused short-S sources' delta kernel and constants."""
     import re
 
     header = (CSRC / "flash_common.cuh").read_text()
@@ -600,7 +606,7 @@ def test_flash_common_keeps_the_fused_kernels_helpers():
     for src in users:
         used |= set(re.findall(r"flash::(\w+)", src.read_text()))
     assert {"mma_bf16", "ldsm_x4", "ldsm_x4_trans", "pack_bf16",
-            "load_tile_f32", "launch_delta"} <= used
+            "launch_delta"} <= used
     for name in sorted(used):
         defined = (
             re.search(rf"\b(?:void|float|uint32_t|cudaError_t|int)\s+{name}"
@@ -609,3 +615,28 @@ def test_flash_common_keeps_the_fused_kernels_helpers():
             or re.search(rf"constexpr\s+\w+\s+{name}\s*=", header)
             or re.search(rf"struct\s+{name}\b", header))
         assert defined, name
+
+
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
+def test_wide_blocks_take_the_head_dims_past_256(name):
+    """Each flash and fused source sends a head dim past 256 to the blocks
+    of ``flash_wide.cuh`` before its dispatch by tile width, whose widths
+    end at 256; those blocks are tensor-core products (mma.sync, operands by
+    ldmatrix) on chunks staged by zero-filling 16-byte cp.async copies,
+    with no atomics, and take the masks' calls of the whole-row blocks."""
+    import re
+
+    src = (CSRC / name).read_text()
+    wide = (CSRC / WIDE_HEADER).read_text()
+    assert f'#include "{WIDE_HEADER}"' in src
+    assert src.index("flash_wide::takes(d)") < src.index(
+        "switch (flash::tile_width(d))")
+    assert re.search(r"bool takes\(int d\) \{ return d > 256 && d % 8 == 0; \}",
+                     wide)
+    common = (CSRC / "flash_common.cuh").read_text()
+    assert "if (d < 8 || d > 256 || d % 8 != 0) return 0;" in common
+    for needle in ("mma.sync.aligned.m16n8k16", "flash::ldsm_x4(",
+                   "flash::ldsm_x4_trans(", "cp.async.cg.shared.global",
+                   "16, %2;", "mask.apply(", "mask.dkv(", "mask.dq("):
+        assert needle in wide, needle
+    assert "atomic" not in wide
