@@ -3,7 +3,7 @@
 
 Drives the serving path and the training path of
 ``focused_attention_vit_tpu_torch`` at ViT-H/14 (MHLA at W=7 and W=129 and
-dense, 518x518, d=80), at MHLA-B/4 and at dense ViT-B/4 (D=768,
+dense, 518x518, d=80; through the tile band also at W=257), at MHLA-B/4 and at dense ViT-B/4 (D=768,
 12 blocks, 12 heads of d=64, W=7 for MHLA, patch 4 on 224x224, S=3137, 10
 classes, seeded random weights), then experiment E1 ``traditional`` at
 ViT-B/16 (patch 16, S=197) through the CLI, then MHLA-B/4 again through the
@@ -294,6 +294,22 @@ takes (1, 2 and 64 heads: d = 768, 384 and 12), batch 8:
     and trained 3 steps with its launches checked; MHLA-B/4 with 2 heads
     also exported and served bit-equal from its artifact.
 
+And the tile band past W = 129 and d = 256, where its sources stream the
+band:
+
+48. kernel-tileband-range (right after kernel-h14-optin): K6, K7 and K8 at
+    W = 131, 257 and 683 (JAX's halo 80, 128, 352) and d = 16, 80, 264,
+    384 and 768, f32 and bf16 against their plain versions
+    (kernel-tileband's rule), and at the paths' shapes in bf16 (d = 384
+    and 768 at W = 7, B*h = 16 and 8, S = 3137; d = 80 at W = 257 and 683,
+    B*h = 128, S = 1370) timed beside the plain versions, the bound and
+    PyTorch's fused attention on K8's window tiles;
+49. the paths: MHLA-H/14 at W = 257 through the tile band among
+    h14-optin's paths (cut to 4 blocks; peak memory logged), and MHLA-B/4
+    with 2 and 1 heads (d = 384, 768) through the tile band among the
+    head-count paths, d = 384 also exported and served bit-equal from its
+    artifact (``favit::tile_band_fwd``); K1/K2 launch nothing on them.
+
 A ``[time]`` line after each group of phases gives the seconds since the
 start.
 
@@ -306,8 +322,8 @@ K6's boolean band-mask call for K7.
 Every launch count is set to 0 just before its path is driven and read just
 after. The line before the last is a JSON summary of the twelve kernels
 and of the new widths' rows (K3/K4 at d=80; K6/K7 at d=80, W=7 and 129;
-K8 at W=129; K5 at d=768 and 12, K1/K2 at d=384 and 12, K3/K4 at d=384),
-each
+K8 at W=129; K5 at d=768 and 12, K1/K2 at d=384 and 12, K3/K4 at d=384;
+K6/K7 at d=384 and 768 and at d=80, W=257, K8 at d=80, W=257), each
 with its time, its plain version's, the least time the card could take
 (``bound_ms``, from this run's shapes) and the library call's where PyTorch
 has one; the last line is ``{"ok": true, "device": {...}}``. Run from the
@@ -525,13 +541,14 @@ def band_library_call(s: int, w: int, dtype, forced: bool = True):
     return call
 
 
-def backward_ms(fn, args, cot) -> float:
+def backward_ms(fn, args, cot, repeats: int = 30) -> float:
     """CUDA-event median ms of the backward alone of ``fn(*args)`` through
     autograd, the forward's graph kept across the repeats."""
     xs = [x.detach().requires_grad_(True) for x in args]
     out = fn(*xs)
     return cuda_median_ms(
-        lambda: torch.autograd.grad(out, xs, cot, retain_graph=True))
+        lambda: torch.autograd.grad(out, xs, cot, retain_graph=True),
+        repeats)
 
 
 def phase_device() -> str:
@@ -813,11 +830,10 @@ def _tile_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's registers, spills and shared memory of every
     instantiation of a tile-band source: K6/K8's ring kernels (bf16, the
     four ring head dims, rows and tiles), wide kernels (bf16, every tile
-    width, rows and tiles) and f32 kernels (every tile width), or K7's ring
-    kernels, the wide band and keys kernels (every tile width) and the f32
-    kernel. Raise if one is missing, or if a bf16 kernel or an f32 kernel
-    up to D = 128 spills; the f32 kernels past 128 are reported (they keep
-    their rows of D floats in local memory by design)."""
+    width, rows and tiles), streamed kernels and f32 kernels (rows and
+    tiles), or K7's ring kernels, the wide band and keys kernels (every tile
+    width), the streamed band and keys kernels and the two f32 kernels.
+    Raise if one is missing or spills."""
     fwd = lib.name == "libmhla_tile_band_fwd.so"
     kind, what = ("fwd", "K6/K8") if fwd else ("bwd", "K7")
     smem = tile._kernel(f"mhla_tile_band_{kind}",
@@ -825,20 +841,24 @@ def _tile_ptxas(lib: Path, text: str) -> None:
     found = {}
     for m in re.finditer(
             rf"Function properties for \S*?tile_band_{kind}_"
-            r"(mma|f32|wide_band|wide_keys|wide)(?:ILi(\d+)E)?(?:Lb(\d)E)?"
+            r"(mma|f32_rows|f32_keys|f32|wide_band|wide_keys|wide|"
+            r"stream_band|stream_keys|stream)(?:I?Li(\d+)E)?(?:I?Lb(\d)E)?"
             r"\S*\n\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
             r".*?Used (\d+) registers(?:.*?(\d+) bytes smem)?", text):
         k, d, tiles, spills, regs, static = m.groups()
         d = int(d or 0)
         line = ("K8" if tiles == "1" else "K6") if fwd else ""
         # The dynamic shared memory at the widest halo a kernel takes (the
-        # ring kernels' 16, the wide ones' 64).
+        # ring kernels' 16, the wide ones' 64; the streamed ones' at any).
         dyn = {"mma": lambda: smem(d, 16), "wide": lambda: smem(d, 64),
                "wide_band": lambda: smem(d, 64),
-               "wide_keys": lambda: smem(d, 64)}.get(k, lambda: 0)()
+               "wide_keys": lambda: smem(d, 64),
+               "stream": lambda: smem(768, 3),
+               "stream_band": lambda: smem(768, 3),
+               "stream_keys": lambda: smem(768, 3)}.get(k, lambda: 0)()
         found[(k, d, line)] = (int(regs), int(spills), int(static or 0), dyn)
-    expected = (2 * len(TILE_RING_DIMS) + 4 * len(TILE_WIDTHS) if fwd
-                else len(TILE_RING_DIMS) + 2 * len(TILE_WIDTHS) + 1)
+    expected = (2 * len(TILE_RING_DIMS) + 2 * len(TILE_WIDTHS) + 4 if fwd
+                else len(TILE_RING_DIMS) + 2 * len(TILE_WIDTHS) + 4)
     if len(found) != expected:
         raise AssertionError(f"ptxas reports {len(found)} of {what}'s "
                              f"{expected} instantiations in "
@@ -848,8 +868,7 @@ def _tile_ptxas(lib: Path, text: str) -> None:
                  f"kernel's widest halo): " + "; ".join(
                      f"{k} {d}{' ' + ln if ln else ''}: {r}, {sp}, {st}, {dy}"
                      for (k, d, ln), (r, sp, st, dy) in sorted(found.items())))
-    spilled = {key: v[1] for key, v in found.items()
-               if v[1] and (key[0] != "f32" or key[1] <= 128)}
+    spilled = {key: v[1] for key, v in found.items() if v[1]}
     if spilled:
         raise AssertionError(f"{what} spills (bytes): {spilled}")
 
@@ -4922,13 +4941,21 @@ H14_PATHS = (_H14("MHLA-H/14 W=7", 7, depth=H14_DEFAULT_DEPTH),
 # The opt-in paths: dense ViT-H/14 at 224^2 (S = 257, d = 80) through K3/K4
 # with FAVIT_FUSED_MHA=1 (the flash kernels launch nothing), and MHLA-H/14
 # at 518^2 through the tile band (K6/K7; K1/K2 launch nothing) at the
-# model's window and at JAX's roll-band limit, where the halo is 64.
+# model's window, at JAX's roll-band limit, where the halo is 64, and at
+# W = 257 (JAX's halo of 128, the streamed kernels). The last runs cut to 4
+# blocks: the exact edge rows in plain PyTorch (ops/window.py) keep f32
+# [B, h, 2 hw, W, d] slabs of K and V a block for the backward, 2.7 GB each
+# at W = 257, batch 8.
+H14_STREAM_W = 257
+H14_STREAM_DEPTH = 4
 H14_OPTIN_PATHS = (
     _H14("dense ViT-H/14 fused", None, fused, {"FAVIT_FUSED_MHA": "1"},
          (flash, band), H14_FUSED_IMG),
     _H14("MHLA-H/14 W=7 tile band", 7, tile, TILE_ENV, (band,)),
     _H14(f"MHLA-H/14 W={H14_WIDE_W} tile band", H14_WIDE_W, tile, TILE_ENV,
          (band,)),
+    _H14(f"MHLA-H/14 W={H14_STREAM_W} tile band", H14_STREAM_W, tile,
+         TILE_ENV, (band,), depth=H14_STREAM_DEPTH),
 )
 
 
@@ -5130,9 +5157,9 @@ def phase_h14_optin() -> dict:
     """The opt-in ViT-H/14 paths (H14_OPTIN_PATHS) end to end, each in its
     environment, weights carried from seeded Flax-layout trees through
     ``convert/from_jax.py``: cut to 2 blocks against the CPU, the 32-block
-    model served, 3 train steps; MHLA-H/14 at W=129 through the tile band
-    also exported and served from its artifact, bit-equal to the live path.
-    Returns the launches by op and path."""
+    model (4 blocks at W=257) served, 3 train steps; MHLA-H/14 at W=129
+    through the tile band also exported and served from its artifact,
+    bit-equal to the live path. Returns the launches by op and path."""
     total = {}
     t0 = time.perf_counter()
     mhla_sd = flax_vit_mhla_to_state_dict(_h14_flax_tree(True, H14_DEPTH, 19))
@@ -5151,9 +5178,12 @@ def phase_h14_optin() -> dict:
             counts = total.setdefault(p.label, {})
             with _environ(p.env):
                 phase_h14_parity(p, small[p.mhla])
-                weights = os.path.join(tmp, f"{p.flag}_{p.img}_h14.pt")
+                sd = (sds[p.mhla] if p.depth == H14_DEPTH
+                      else p.to_sd(p.tree(p.depth, 19)))
+                weights = os.path.join(tmp, f"{p.flag}_{p.img}_{p.depth}"
+                                            f"_h14.pt")
                 if not os.path.exists(weights):
-                    torch.save(sds[p.mhla], weights)
+                    torch.save(sd, weights)
                 counts["serve"] = phase_h14_serve(p, weights)
                 if p.op is tile and p.w == H14_WIDE_W:
                     exported = phase_export(
@@ -5164,7 +5194,8 @@ def phase_h14_optin() -> dict:
                     counts["export"] = exported["launches"]
                     log("h14-export", f"{p.label}: artifact {exported}")
                 torch.cuda.empty_cache()
-                counts["train"] = phase_h14_train(p, sds[p.mhla])
+                counts["train"] = phase_h14_train(p, sd)
+                del sd
     return total
 
 
@@ -5224,6 +5255,37 @@ def _pad_ms(x, d: int, dim: int) -> float:
         qp, kp, vp = (flash.pad_head_dim(t, dim) for t in x[:3])
         return flash.unpad_head_dim(qp, d, dim)
     return cuda_median_ms(run, HD_REPS)
+
+
+def _sliced_library_ms(library, tensors, form: str, rate: float):
+    """The library call's ``form`` (band_library_call's eval, dropout or
+    backward) over the batch cut into the fewest equal slices that fit the
+    card (halving from 2), each slice timed (CUDA-event medians) and the
+    times summed. Returns (ms, slices)."""
+    q, k, v, g = tensors
+    b = q.shape[0]
+    parts = 2
+    while True:
+        rows = -(-b // parts)
+        total = 0.0
+        try:
+            for i in range(0, b, rows):
+                sl = [x[i:i + rows] for x in (q, k, v, g)]
+                if form == "bwd_library":
+                    total += backward_ms(
+                        lambda *a: library(*a, rate), sl[:3],
+                        sl[3].transpose(-1, -2).contiguous(), HD_REPS)
+                else:
+                    drop = rate if form == "fwd_train_library" else 0.0
+                    with torch.no_grad():
+                        total += cuda_median_ms(
+                            lambda: library(*sl[:3], drop), HD_REPS)
+            return total, parts
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            if rows == 1:
+                raise
+            parts *= 2
 
 
 def phase_kernel_headdims() -> dict:
@@ -5362,8 +5424,9 @@ def phase_kernel_headdims() -> dict:
             # grid the call takes the backend PyTorch picks (the math one,
             # which forms the [B*h, S, S] weights), named in the row.
             # That backend may not fit the card: a form that runs out of
-            # memory there gets no library time, and its allocation is
-            # logged.
+            # memory there is timed over slices of the batch that fit,
+            # halved until one does, the slices' times summed, and the
+            # allocation that failed is logged.
             library = band_library_call(s, HD_W, dtype, forced=d % 8 == 0)
             backend = library.backend(q, k, v)
             free0 = torch.cuda.mem_get_info()[0]
@@ -5383,10 +5446,15 @@ def phase_kernel_headdims() -> dict:
                 except torch.cuda.OutOfMemoryError as e:
                     if d % 8 == 0:
                         raise
-                    t[n] = None
                     torch.cuda.empty_cache()
                     log(phase, f"band d={d} library {n}: out of memory on "
-                               f"the card: {str(e).splitlines()[0]}")
+                               f"the card at batch {q.shape[0]}: "
+                               f"{str(e).splitlines()[0]}")
+                    t[n], parts = _sliced_library_ms(
+                        library, (q, k, v, g), n, rate)
+                    backend += f", {n} over {parts} slices of the batch"
+                    log(phase, f"band d={d} library {n}: {t[n]:.4f} ms, the "
+                               f"sum over {parts} slices of the batch")
             backend += (f", peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
                         f" GiB of {free0 / 2**30:.1f} free")
             del library
@@ -5508,11 +5576,117 @@ def phase_kernel_headdims() -> dict:
     return result
 
 
+# --- the tile band past the staged kernels' range: the streamed kernels ------
+
+# K6, K7 and K8 past W = 129 or d = 256 run the streamed kernels of
+# csrc/mhla_tile_band_{fwd,bwd}.cu (the band in 64-key chunks, d in 64-column
+# chunks, output slices over the grid's y). The grid (W, d, B*h, S), f32 and
+# bf16 against the plain versions: JAX's halo 80, 128 and 352 (W = 131, 257,
+# 683) at MHLA-H/14's d = 80 and at d = 16; the head dims 264, 384 and 768
+# at the model's W = 7 and at wide windows; S = W + 1 and just past 2W
+# among them.
+TR_GRID = ((131, 80, 4, 300), (257, 80, 4, 600), (683, 80, 2, H14_S),
+           (683, 16, 2, 684), (7, 264, 4, 197), (7, 384, 4, HD_S),
+           (7, 768, 2, HD_S), (257, 384, 2, 520), (683, 768, 1, H14_S))
+# The paths' shapes, timed in bf16 (d, W, B*h, S): MHLA-B/4 with 2 and 1
+# heads (d = 384 and 768 at W = 7, batch 8), MHLA-H/14 at W = 257 (d = 80,
+# B*h = 128) and at W = 683 (JAX's halo of 352, no path).
+TR_TIMED = ((384, HD_W, 2 * HD_BATCH, HD_S), (768, HD_W, HD_BATCH, HD_S),
+            (80, 257, H14_BATCH * H14_HEADS, H14_S),
+            (80, 683, H14_BATCH * H14_HEADS, H14_S))
+TR_REPS = 10  # CUDA-event medians of the kernels; the plain versions of 3
+
+
+def phase_kernel_tileband_range() -> dict:
+    """K6, K7 (folded) and K8 on the streamed kernels: TR_GRID in f32 and
+    bf16 against the plain versions by kernel-tileband's rule; at TR_TIMED
+    in bf16 against the plain versions, two K7 runs bit-identical, and each
+    form timed beside its plain version, its bound (bytes at 3.35 TB/s or
+    in-band operations at 989 TFLOP/s) and PyTorch's fused attention on K8's
+    window tiles with the band as a boolean mask (its backward for K7).
+    Returns {"tile": {(d, W): forms}, "fwd_b_launches": K8's launches}."""
+    phase = "kernel-tileband-range"
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    failures = []
+
+    def inputs(shape, dtype):
+        return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                for _ in range(4)]
+
+    tile.reset_launch_count()
+    for w, d, bh, s in TR_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            q, k, v, g = inputs((bh, s, d), dtype)
+            res = _tile_compare(q, k, v, g, w)
+            _optin_check(failures, f"tile ({bh}, {s}, {d}) W={w} {dt}", res)
+            log(phase, f"tile band B*h,S,d=({bh}, {s}, {d}) W={w} {dt}: max "
+                       f"abs err " + ", ".join(
+                           f"{n} {t}" for n, (_, _, t) in res.items()))
+            del q, k, v, g
+    result = {"tile": {}}
+    for d, w, bh, s in TR_TIMED:
+        torch.cuda.empty_cache()
+        q, k, v, g = inputs((bh, s, d), torch.bfloat16)
+        res = _tile_compare(q, k, v, g, w)
+        _optin_check(failures, f"tile ({bh}, {s}, {d}) W={w} bf16", res)
+        first = tile.tile_band_backward(q, k, v, g, w)
+        second = tile.tile_band_backward(q, k, v, g, w)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(first, second)):
+            raise AssertionError(f"{phase}: two K7 runs differ at d={d} "
+                                 f"W={w}")
+        del first, second
+        times, tile_bytes, tile_pairs, t = _tile_times(q, k, v, g, w, gen,
+                                                       TR_REPS)
+        one = q.numel() * q.element_size()
+        pairs = bh * s * (2 * (w // 2) + 1) * d
+        errs = {n: e for n, (e, _, _) in res.items()}
+        # kernel-tileband's bounds (kernel-h14-optin's at these shapes).
+        result["tile"][(d, w)] = dict(
+            fwd=dict(max_abs_err=errs["fwd"], ms=times["fwd"],
+                     plain_ms=times["fwd_plain"], library_ms=times["library"],
+                     **least_time(4 * one, 4 * pairs)),
+            bwd=dict(max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")),
+                     ms=times["bwd"], plain_ms=times["bwd_plain"],
+                     library_ms=times["library_bwd"],
+                     **least_time(7 * one, 10 * pairs)),
+            fwd_b=dict(max_abs_err=errs["fwd_b"], ms=times["fwd_b"],
+                       plain_ms=times["fwd_b_plain"],
+                       library_ms=times["library"],
+                       **least_time(tile_bytes, 4 * tile_pairs)),
+        )
+        log(phase, f"tile band B*h,S,d=({bh}, {s}, {d}) W={w} bf16: max abs "
+                   f"err " + ", ".join(f"{n} {t_}" for n, (_, _, t_) in
+                                       res.items()))
+        log(phase, f"tile band d={d} W={w} bf16 (B*h={bh}, S={s}; K8 on "
+                   f"window tiles of {t} + {2 * tile._halo(0, w // 2)} "
+                   f"rows), kernel / plain / PyTorch's fused attention on "
+                   f"the window tiles with the band as a mask, ms "
+                   f"(CUDA-event medians of {TR_REPS}, plain of 3; two K7 "
+                   f"runs bit-identical): " + "; ".join(
+                       f"{kind} {r['ms']:.4f} / {r['plain_ms']:.4f} / "
+                       f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                       f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} "
+                       f"of it" for kind, r in result["tile"][(d, w)].items()))
+        del q, k, v, g
+    result["fwd_b_launches"] = tile.launch_count("fwd_b")
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"{phase}: kernels disagree with the plain "
+                             f"versions at " + "; ".join(failures))
+    return result
+
+
 # The head-count paths at D = 768, each cut to HD_DEPTH blocks: MHLA-B/4
 # (S = 3137, W = 7) with 2 and 64 heads through K1/K2, dense ViT-B/4 with 1
 # and 64 heads through K5, ViT-B/16 (S = 197) with 2 heads and the fused
 # switch through K3/K4's wide blocks with the mask (the flash and band
-# kernels launch nothing there).
+# kernels launch nothing there), and MHLA-B/4 with 2 and 1 heads (d = 384,
+# 768) through the tile band's streamed kernels under the tile-band
+# variables (K1/K2 launch nothing there).
+HD_TILE_2 = "MHLA-B/4 2 heads (d=384) tile band"
+HD_TILE_1 = "MHLA-B/4 1 head (d=768) tile band"
 HD_PATHS = tuple(
     _H14(label, w, op, env or None, idle, HD_IMG, HD_DEPTH, HD_DIM, heads,
          patch, "headdims")
@@ -5522,7 +5696,9 @@ HD_PATHS = tuple(
         ("dense ViT-B/4 1 head (d=768)", None, None, {}, (fused,), 1, 4),
         ("dense ViT-B/4 64 heads (d=12)", None, None, {}, (fused,), 64, 4),
         ("ViT-B/16 fused 2 heads (d=384)", None, fused,
-         {"FAVIT_FUSED_MHA": "1"}, (flash, band), 2, 16)))
+         {"FAVIT_FUSED_MHA": "1"}, (flash, band), 2, 16),
+        (HD_TILE_2, HD_W, tile, TILE_ENV, (band,), 2, 4),
+        (HD_TILE_1, HD_W, tile, TILE_ENV, (band,), 1, 4)))
 
 
 def phase_headdims() -> dict:
@@ -5530,8 +5706,9 @@ def phase_headdims() -> dict:
     seeded Flax-layout trees through ``convert/from_jax.py``: each cut to 2
     blocks against the CPU, then served through ``BatchingServer`` and
     HTTP and trained 3 steps with its launches checked; MHLA-B/4 with 2
-    heads also exported and served bit-equal from its artifact. Returns the
-    launches by path."""
+    heads also exported and served bit-equal from its artifact, on K1 and
+    on the tile band (``favit::tile_band_fwd``). Returns the launches by
+    path."""
     total = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, p in enumerate(HD_PATHS):
@@ -5547,9 +5724,9 @@ def phase_headdims() -> dict:
                 weights = os.path.join(tmp, f"{i}.pt")
                 torch.save(sd, weights)
                 counts["serve"] = phase_h14_serve(p, weights)
-                if i == 0:
+                if i == 0 or p.label == HD_TILE_2:
                     exported = phase_export(
-                        MHLA, None, state_dict=sd, geom_flags=p.flags(),
+                        p.path, None, state_dict=sd, geom_flags=p.flags(),
                         img=p.img, batch=H14_BATCH, sizes=H14_SIZES,
                         depth=p.depth, patch=p.patch, name=p.label,
                         bit_equal=True)
@@ -5585,6 +5762,11 @@ def main() -> None:
     # then dense ViT-H/14 through K3/K4 and MHLA-H/14 through the tile band.
     optin_timing = phase_kernel_h14_optin()
     mark("kernel-h14-optin")
+    # The tile band past W = 129 and d = 256 (the streamed kernels), then
+    # its paths: MHLA-H/14 at W = 257 below, MHLA-B/4 with 2 and 1 heads in
+    # the head-count paths.
+    range_timing = phase_kernel_tileband_range()
+    mark("kernel-tileband-range")
     optin = phase_h14_optin()
     torch.cuda.empty_cache()
     mark("h14-optin")
@@ -5827,6 +6009,32 @@ def main() -> None:
                 (f"{stem}_bwd@d{d}", bwd_src, bwd_at, c["train"]["bwd"],
                  t["bwd"]),
             ]
+    # The streamed tile band on its paths: K6/K7 at d = 384 and 768
+    # (MHLA-B/4 with 2 and 1 heads, W = 7; d = 384 also from its artifact)
+    # and at d = 80, W = 257 (MHLA-H/14); K8 there, launched by
+    # kernel-tileband-range.
+    rt = range_timing["tile"]
+    for d, label in ((384, HD_TILE_2), (768, HD_TILE_1)):
+        c = headdims[label]
+        kernels += [
+            (f"mhla_tile_band_fwd@d{d}", tile.KERNEL_SOURCE,
+             f"{tpu_tile}:66",
+             c["serve"]["fwd"] + c["train"]["fwd"] + c.get("export", 0),
+             rt[(d, HD_W)]["fwd"]),
+            (f"mhla_tile_band_bwd@d{d}", tile.BWD_KERNEL_SOURCE,
+             f"{tpu_tile}:104", c["train"]["bwd"], rt[(d, HD_W)]["bwd"]),
+        ]
+    t257 = optin[f"MHLA-H/14 W={H14_STREAM_W} tile band"]
+    r257 = rt[(80, H14_STREAM_W)]
+    kernels += [
+        (f"mhla_tile_band_fwd@d80,W{H14_STREAM_W}", tile.KERNEL_SOURCE,
+         f"{tpu_tile}:66", t257["serve"]["fwd"] + t257["train"]["fwd"],
+         r257["fwd"]),
+        (f"mhla_tile_band_bwd@d80,W{H14_STREAM_W}", tile.BWD_KERNEL_SOURCE,
+         f"{tpu_tile}:104", t257["train"]["bwd"], r257["bwd"]),
+        (f"mhla_tile_band_fwd_tiles@d80,W{H14_STREAM_W}", tile.KERNEL_SOURCE,
+         f"{tpu_tile}:383", range_timing["fwd_b_launches"], r257["fwd_b"]),
+    ]
     for name_, _, _, count, _ in kernels:
         if count <= 0:
             raise AssertionError(f"{name_} was launched no time on its path")
@@ -5841,6 +6049,10 @@ def main() -> None:
                       for key, forms in optin_timing[kind].items()}))
     log("headdims", "head-count paths' launches (the @d rows of the kernels "
                     f"line): {headdims}")
+    log("kernel-tileband-range", "bf16 times of the streamed tile band (ms: "
+                                 "kernel, plain, library, bound): "
+        + json.dumps({f"d={d} W={w}": forms for (d, w), forms in
+                      range_timing["tile"].items()}))
     print(json.dumps({"kernels": [{
         "name": name_,
         "route": "cuda",

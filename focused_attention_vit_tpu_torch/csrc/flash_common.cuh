@@ -4,7 +4,7 @@
 // backward's delta kernel that the wgmma and f32 kernels use too: the
 // warp-level bf16 tensor-core product (mma.sync.m16n8k16, f32
 // accumulation), ldmatrix fragment loads, the delta kernel and the
-// accumulator and row helpers. The tile band's ring layout
+// accumulator helper. The tile band's ring layout
 // (unpadded, swizzled rows) is in tile_ring.cuh.
 //
 // Fragment layout of mma.m16n8k16 for lane l, g = l / 4, t = l % 4:
@@ -127,30 +127,6 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
   for (int a = 0; a < N; ++a) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) x[a][r] = 0.f;
-  }
-}
-
-// One row of d floats (d <= D, a multiple of 4) into D registers (zeros
-// past d, and everywhere when `real` is false), and back.
-template <int D>
-__device__ __forceinline__ void load_row(float (&x)[D], const float* src,
-                                         bool real, int d = D) {
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (real && c < d) val = *reinterpret_cast<const float4*>(src + c);
-    x[c] = val.x, x[c + 1] = val.y, x[c + 2] = val.z, x[c + 3] = val.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&x)[D],
-                                          int d = D) {
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    if (c >= d) break;
-    *reinterpret_cast<float4*>(dst + c) =
-        make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]);
   }
 }
 

@@ -94,17 +94,19 @@
 // (2 blocks an SM, at most 128 registers a thread), 188,416 at d = 128
 // (1 block).
 //
-// The f32 instantiation is a scalar-FMA kernel for parity runs, a block per
-// 64 rows (a thread per query that reaches them, then a thread per key for
-// dk and one for dv), reading q, k, v, g from device memory with p and ds in
-// shared memory; it folds the edges the same way, at any hw and head dim.
+// The f32 calls take two scalar-FMA kernels for parity runs (a thread per
+// query, then a thread per key, reading q, k, v, g from device memory and
+// recomputing p and ds, in 32-column slices) at every hw and head dim; they
+// fold the edges the same way.
 //
 // Range. The design above (the ring kernel) takes hw <= 16 and the head
-// dims 16, 32, 64 and 128. The card takes JAX's range beyond it, hw <= 64
-// (W <= 129) and every head dim that is a multiple of 8 in [8, 256], at
-// JAX's halo and d's tile width (zeros past d), in the two wide kernels
-// below (tile_band_bwd_wide_band, tile_band_bwd_wide_keys), which pass p
-// and ds through a scratch buffer from the wrapper.
+// dims 16, 32, 64 and 128. The card takes JAX's v4 range beyond it, every
+// W and every head dim that is a multiple of 8, at JAX's halo: up to hw =
+// 64 (W = 129) and d = 256 at d's tile width (zeros past d) in the two
+// wide kernels below (tile_band_bwd_wide_band, tile_band_bwd_wide_keys),
+// past either limit in the two streamed kernels (tile_band_bwd_stream_band,
+// tile_band_bwd_stream_keys); both pairs pass p and ds through a scratch
+// buffer from the wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,8 +133,7 @@ constexpr int kBand = 48;          // keys a 16-query block reaches
 constexpr int kLDP = kBand + 8;    // a p or ds tile row: conflict-free reads
 constexpr int kThreads = 256;      // 8 warps
 constexpr int kMinUnits = 8;       // steps a block takes at least
-constexpr int kF32Threads = 128;
-constexpr int kF32Rows = 64;       // rows an f32 block owns
+constexpr int kF32Threads = 128;  // rows (keys) an f32 block
 
 __device__ __forceinline__ int clamp_row(int x, int s) {
   return min(max(x, 0), s - 1);
@@ -958,13 +959,397 @@ __global__ void __launch_bounds__(kStep * 2, D <= 128 ? 2 : 1)
   }
 }
 
+// --- bf16 past the wide kernels' range: the streamed band and keys --------
+//
+// The wide band kernel stages the K and V rows of a step's whole band and
+// the keys kernel the Q (G) rows and p/ds tiles of the 64 + 2 halo queries
+// that reach its keys: 230 KB at W = 257 even at d = 80, and whole rows of
+// d. Past halo 64 or d = 256 two streamed kernels take their place, over
+// the same scratch of p/ds tiles and fold sums (csrc/tile_ring.cuh's
+// streamed helpers, flash_wide.cuh's layout: 64-row chunks of 64 columns of
+// d in padded rows, a two-stage cp.async ring, four warps of 16 rows):
+//   - band: a block owns 64 queries and 64 columns of dq (grid y, d / 64
+//     slices). In each of two passes it walks the keys [t - halo,
+//     t + 64 + halo) in chunks of 64, forming the logits (Q K^T) and dP
+//     (G V^T) over all of d chunk by chunk, the block's own dq columns
+//     last (flash_wide.cuh's walk), skipping a warp's dead 16-key blocks.
+//     Pass 1 keeps each query's running maximum, sum of exponentials and
+//     sum of dP times them; pass 2 forms p and ds = p (dP - sum dP p) scale,
+//     adds ds K (ds rounded to bf16) into dq and, in slice 0, writes p and
+//     ds as bf16 tiles into the scratch with the fold sums over clamped
+//     keys. Each pass reads K and V again: 2 (64 + 2 halo) / 64 rows of
+//     each a query row (10 at halo 128), from L2 for the most part, and
+//     each slice recomputes both passes' products.
+//   - keys: a block owns 64 keys and 64 columns of one of dk (ds^T Q) and
+//     dv (p^T G) (grid y: 2 x d / 64); it walks the queries [t - halo,
+//     t + 64 + halo) in chunks of 64, staging their Q (G) columns and the
+//     64 tile columns of its keys, and adds the fold's mass to rows 0 and
+//     S-1 from the fold sums and the edge rows read from device memory.
+//     No product is recomputed: the slice needs only its own columns.
+// The scratch stays 2 (16 + 2 halo) bytes a query for each of p and ds
+// (about 0.5 GB at W = 683, B*h = 128, S = 1370).
+
+__global__ void __launch_bounds__(fw::kThreads)
+    tile_band_bwd_stream_band(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ g,
+                              bf16* __restrict__ dq, Scratch scr, int s,
+                              int steps, int d, int hw, int halo,
+                              float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage b: Q, G, K, V
+  constexpr int E = fw::kChunkElems;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const long long row = blockIdx.x / steps;
+  const int t = static_cast<int>(blockIdx.x % steps) * kStep;
+  const int slice = blockIdx.y;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
+  const int nc = (d + fw::kCh - 1) / fw::kCh;
+  const int k0 = t - halo;
+  const int nk = (kStep + 2 * halo + kChunk - 1) / kChunk;
+  const int total = nk * nc;  // items a pass
+  const int qb = t + 16 * warp;  // the warp's first query
+  const int r = qb + gq;         // its rows r and r + 8
+  const int lt = 16 + 2 * halo;
+  const int nqb = (s + 15) / 16;
+  const bool tiles_out = slice == 0 && qb < s;  // this warp writes scratch
+  const int64_t tile0 = (row * nqb + qb / 16) * 16 * lt;
+  const bool edge = qb < halo || qb + 16 + halo > s;
+
+  auto issue = [&](int i) {
+    bf16* st = ring + (i & 1) * 4 * E;
+    const int e = i % total;
+    const int c0 = fw::walk_chunk(e % nc, slice, nc) * fw::kCh;
+    const int kj = k0 + (e / nc) * kChunk;
+    stage_rows<fw::kCh, fw::kPitch>(st, q + base, t, c0, 0, s, false, d);
+    stage_rows<fw::kCh, fw::kPitch>(st + E, g + base, t, c0, 0, s, false, d);
+    stage_rows<fw::kCh, fw::kPitch>(st + 2 * E, k + base, kj, c0, 0, s, true,
+                                    d);
+    stage_rows<fw::kCh, fw::kPitch>(st + 3 * E, v + base, kj, c0, 0, s, true,
+                                    d);
+  };
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+  float fk[2] = {0.f, 0.f}, fv[2] = {0.f, 0.f};
+  float dq_acc[fw::kBwdSlice / 2];
+#pragma unroll
+  for (int i = 0; i < fw::kBwdSlice / 2; ++i) dq_acc[i] = 0.f;
+  float sa[32], pa[32];
+
+  issue(0);
+  fw::commit();
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int j = 0; j < nk; ++j) {
+      const int kj = k0 + j * kChunk;
+      bool live[4];
+      chunk_live(live, kj, qb, hw);
+      const bool any = live[0] || live[1] || live[2] || live[3];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sa[i] = pa[i] = 0.f;
+      const bf16* last = ring;
+      for (int c = 0; c < nc; ++c) {
+        const int i = (pass * nk + j) * nc + c;
+        fw::wait_all();
+        __syncthreads();  // item i landed; the products of i - 1 are done
+        if (i + 1 < 2 * total) issue(i + 1);
+        fw::commit();
+        const bf16* st = ring + (i & 1) * 4 * E;
+        if (any) {
+          const int kks = steps_below(
+              d, fw::walk_chunk(c, slice, nc) * fw::kCh, fw::kCh);
+          band_product(sa, st, st + 2 * E, warp, lane, live, kks);
+          band_product(pa, st + E, st + 3 * E, warp, lane, live, kks);
+        }
+        last = st;
+      }
+      if (pass == 0) {
+        if (!any) continue;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          const int off = kj + (i >> 2) * 8 + 2 * t4 + (i & 1) - (r + 8 * h);
+          sa[i] = (off >= -hw && off <= hw) ? sa[i] * scale : -INFINITY;
+          mx[h] = fmaxf(mx[h], sa[i]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m[h], mx[h]);
+          if (m_new == -INFINITY) continue;  // no key of these rows yet
+          const float alpha = expf(m[h] - m_new);
+          l[h] *= alpha;
+          rs[h] *= alpha;
+          m[h] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          if (sa[i] == -INFINITY) continue;
+          const float e = expf(sa[i] - m[h]);
+          l[h] += e;
+          rs[h] += pa[i] * e;
+        }
+        continue;
+      }
+      // Pass 2: p and ds (0 off the band and for rows past S), the fold
+      // sums over clamped keys, the tiles, dq += ds K.
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const int key = kj + (i >> 2) * 8 + 2 * t4 + (i & 1);
+        const int off = key - (r + 8 * h);
+        const bool in = any && off >= -hw && off <= hw && r + 8 * h < s;
+        const float p = in ? expf(sa[i] * scale - m[h]) / l[h] : 0.f;
+        const float ds = in ? (p * (pa[i] - rs[h])) * scale : 0.f;
+        if (edge && in && (key < 0 || key >= s)) {
+          fk[h] += ds;
+          fv[h] += p;
+        }
+        sa[i] = p;
+        pa[i] = ds;
+      }
+      if (tiles_out) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = 64 * j - 16 * warp + 8 * nt + 2 * t4;
+          if (col < 0 || col >= lt) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int64_t at = tile0 + (gq + 8 * h) * lt + col;
+            const int i = 4 * nt + 2 * h;
+            *reinterpret_cast<uint32_t*>(scr.p + at) =
+                flash::pack_bf16(sa[i], sa[i + 1]);
+            *reinterpret_cast<uint32_t*>(scr.ds + at) =
+                flash::pack_bf16(pa[i], pa[i + 1]);
+          }
+        }
+      }
+      if (any) {
+        band_weights<fw::kBwdSlice, fw::kPitch>(
+            dq_acc, pa, last + 2 * E, lane, live,
+            steps_below(d, slice * fw::kBwdSlice, fw::kBwdSlice));
+      }
+    }
+    if (pass == 0) {
+      // The rows' sums over the quad; rs becomes sum dP p.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+        rs[h] /= l[h];
+      }
+    }
+  }
+  if (slice == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      fk[h] += __shfl_xor_sync(0xffffffffu, fk[h], 1);
+      fk[h] += __shfl_xor_sync(0xffffffffu, fk[h], 2);
+      fv[h] += __shfl_xor_sync(0xffffffffu, fv[h], 1);
+      fv[h] += __shfl_xor_sync(0xffffffffu, fv[h], 2);
+      const int i = r + 8 * h;
+      if (t4 == 0 && i < s) {
+        scr.fk[row * s + i] = fk[h];
+        scr.fv[row * s + i] = fv[h];
+      }
+    }
+  }
+  fw::store_rows<fw::kBwdSlice>(dq + base, dq_acc, r, slice * fw::kBwdSlice,
+                                s, d);
+}
+
+// x rounded to bf16 and back.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// The keys kernel's shared memory: two stages of 64 rows and 64 tile rows.
+constexpr int kStreamKeysSmem = 4 * fw::kChunkElems * 2;
+
+__global__ void __launch_bounds__(fw::kThreads)
+    tile_band_bwd_stream_keys(const bf16* __restrict__ q,
+                              const bf16* __restrict__ g,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              Scratch scr, int s, int steps, int d, int hw,
+                              int halo) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage b: rows, tiles
+  constexpr int E = fw::kChunkElems;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const int mi = lane >> 3;
+  const bool is_dv = blockIdx.y & 1;
+  const int c0 = (blockIdx.y >> 1) * fw::kBwdSlice;
+  const long long row = blockIdx.x / steps;
+  const int t = static_cast<int>(blockIdx.x % steps) * kStep;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
+  const bf16* xs = (is_dv ? g : q) + base;  // the rows of the products
+  const int lt = 16 + 2 * halo;
+  const int nqb = (s + 15) / 16;
+  const bf16* tiles = (is_dv ? scr.p : scr.ds) +
+                      row * static_cast<int64_t>(nqb) * 16 * lt;
+  const int q0 = t - halo;
+  const int nq = (kStep + 2 * halo + kChunk - 1) / kChunk;
+  const int kb = t + 16 * warp;  // the warp's first key
+  const int nps = steps_below(d, c0, fw::kBwdSlice);
+
+  // Query rows [qm, qm + 64): their X columns [c0, c0 + 64), and their
+  // tiles' columns of the keys [t, t + 64) (tile column c of the block at
+  // qb holds key qb - halo + c), zeros outside the tiles.
+  auto issue = [&](int m_) {
+    bf16* st = ring + (m_ & 1) * 2 * E;
+    const int qm = q0 + m_ * kChunk;
+    stage_rows<fw::kCh, fw::kPitch>(st, xs, qm, c0, 0, s, false, d);
+#pragma unroll
+    for (int f0 = 0; f0 < kChunk * 8; f0 += fw::kThreads) {
+      const int f = f0 + tid;
+      const int rr = f / 8;
+      const int e = (f % 8) * 8;
+      const int qi = qm + rr;
+      const int col = t - (qi & ~15) + halo + e;
+      const bool real = qi >= 0 && qi < 16 * nqb && col >= 0 && col < lt;
+      fw::cp16(st + E + rr * fw::kPitch + e,
+               real ? tiles + static_cast<int64_t>(qi) * lt + col : tiles,
+               real);
+    }
+  };
+
+  float acc[fw::kBwdSlice / 2];
+#pragma unroll
+  for (int i = 0; i < fw::kBwdSlice / 2; ++i) acc[i] = 0.f;
+
+  issue(0);
+  fw::commit();
+  for (int m_ = 0; m_ < nq; ++m_) {
+    fw::wait_all();
+    __syncthreads();  // chunk m_ landed; the products of m_ - 1 are done
+    if (m_ + 1 < nq) issue(m_ + 1);
+    fw::commit();
+    const bf16* st = ring + (m_ & 1) * 2 * E;
+    bool live[4];
+    chunk_live(live, q0 + m_ * kChunk, kb, hw);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (!live[u]) continue;
+      // A = the tile block transposed: keys (m) by queries (k).
+      uint32_t a[4];
+      flash::ldsm_x4_trans(
+          a, st + E + (16 * u + (lane & 7) + 8 * (mi >> 1)) * fw::kPitch +
+                 16 * warp + 8 * (mi & 1));
+#pragma unroll
+      for (int np = 0; np < fw::kBwdSlice / 16; ++np) {
+        if (np >= nps) break;
+        uint32_t bf[4];
+        flash::ldsm_x4_trans(
+            bf, fw::at_a<fw::kPitch>(st + u * 16 * fw::kPitch, lane, np * 16));
+        fw::mma(acc + 8 * np, a, bf[0], bf[1]);
+        fw::mma(acc + 8 * np + 4, a, bf[2], bf[3]);
+      }
+    }
+  }
+  // The fold: row 0 gets sum_{r < hw} f_r x_r, row S-1 the same over
+  // r >= S - hw (f the query's sum over its clamped keys, x its Q or G).
+  // As JAX's _bwd_rule adds them: the row's in-range sum and the fold's
+  // mass each rounded to bf16, then their sum (the staged kernels round
+  // once; the two differ by an ulp on those two rows).
+  if (hw > 0) {
+    const float* fold = (is_dv ? scr.fv : scr.fk) + row * s;
+    auto add_edge = [&](int r0, int r1, int rho) {
+      if (gq != (rho & 7)) return;
+      const bool hi = rho >= 8;
+      float mass[fw::kBwdSlice / 8][2] = {};
+      for (int rq = r0; rq < r1; ++rq) {
+        const float f = fold[rq];
+        const bf16* x = xs + static_cast<int64_t>(rq) * d + c0;
+#pragma unroll
+        for (int nt = 0; nt < fw::kBwdSlice / 8; ++nt) {
+          const int col = 8 * nt + 2 * t4;
+          if (c0 + col >= d) break;
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(x + col);
+          mass[nt][0] += f * __low2float(xv);
+          mass[nt][1] += f * __high2float(xv);
+        }
+      }
+      // Rows rho and rho + 8 hold acc[4 nt + 0, 1] and [4 nt + 2, 3]: each
+      // index a constant, so that acc stays in registers.
+#pragma unroll
+      for (int nt = 0; nt < fw::kBwdSlice / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = hi ? acc[4 * nt + 2 + e] : acc[4 * nt + e];
+          const float b = round_bf16(round_bf16(a) + round_bf16(mass[nt][e]));
+          if (hi) {
+            acc[4 * nt + 2 + e] = b;
+          } else {
+            acc[4 * nt + e] = b;
+          }
+        }
+      }
+    };
+    if (kb <= 0 && 0 < kb + 16) add_edge(0, min(hw, s), -kb);
+    if (kb <= s - 1 && s - 1 < kb + 16) {
+      add_edge(max(s - hw, 0), s, s - 1 - kb);
+    }
+  }
+  fw::store_rows<fw::kBwdSlice>((is_dv ? dv : dk) + base, acc, kb + gq, c0,
+                                s, d);
+}
+
 // --- f32: scalar FMA ---------------------------------------------------------
+//
+// Two kernels at every hw and head dim, full f32 products, for parity runs,
+// not for speed: a thread per query (rows) forms its logits and dP over all
+// of d, twice (the running maximum, sum and sum of dP times the weights
+// first), then dq for a slice of kF32Slice columns (grid y) and, in slice
+// 0, the query's maximum, sum of exponentials, sum dP p and fold sums into
+// a scratch of five f32 [rows, s]; then a thread per key (keys) recomputes
+// p = e / sum and ds of the 2 hw + 1 queries that reach it for a slice of
+// dk or dv (grid y), and rows 0 and S-1 add the fold's mass. p and ds are
+// f32 as in the plain version; the sums over the band are f64, rounded
+// once, as the plain version's (mhla_tile_band_fwd.cu's f32 kernel says
+// why).
+
+constexpr int kF32Slice = 32;  // f64 sums: 64 registers
+
+struct F32Stats {
+  float* m;    // the logits' maximum
+  float* den;  // sum_o exp(logit - m)
+  float* rs;   // sum_o dp p
+  float* fk;   // the fold sums of ds and p over clamped positions
+  float* fv;
+};
+
+inline F32Stats carve_f32(void* base, int64_t rows, int s) {
+  F32Stats st;
+  st.m = static_cast<float*>(base);
+  st.den = st.m + rows * s;
+  st.rs = st.den + rows * s;
+  st.fk = st.rs + rows * s;
+  st.fv = st.fk + rows * s;
+  return st;
+}
 
 // Rows of d floats (d a multiple of 4).
 __device__ __forceinline__ float row_dot(const float* a, const float* b,
                                          int d) {
   float acc = 0.f;
-#pragma unroll 8
+#pragma unroll 4
   for (int c = 0; c < d; c += 4) {
     const float4 x = *reinterpret_cast<const float4*>(a + c);
     const float4 y = *reinterpret_cast<const float4*>(b + c);
@@ -973,149 +1358,167 @@ __device__ __forceinline__ float row_dot(const float* a, const float* b,
   return acc;
 }
 
-__device__ __forceinline__ void fma4(float4& acc, float w, const float* x) {
-  const float4 y = *reinterpret_cast<const float4*>(x);
-  acc.x += w * y.x;
-  acc.y += w * y.y;
-  acc.z += w * y.z;
-  acc.w += w * y.w;
+// acc[c] += w x[c] for the n <= kF32Slice columns of x (n a multiple of 4).
+__device__ __forceinline__ void axpy(double (&acc)[kF32Slice], double w,
+                                     const float* x, int n) {
+#pragma unroll
+  for (int c = 0; c < kF32Slice; c += 4) {
+    if (c >= n) break;
+    const float4 y = *reinterpret_cast<const float4*>(x + c);
+    acc[c] += w * y.x;
+    acc[c + 1] += w * y.y;
+    acc[c + 2] += w * y.z;
+    acc[c + 3] += w * y.w;
+  }
 }
 
-// Shared memory of the f32 kernel: p and ds of the 64 + 2 hw queries that
-// reach a block's 64 keys, 2 hw + 1 each, and their two fold sums.
-inline int f32_smem(int hw) {
-  const int nq = kF32Rows + 2 * hw;
-  return (2 * nq * (2 * hw + 1) + 2 * nq) * 4;
+__device__ __forceinline__ void store_f32(float* dst,
+                                          const double (&acc)[kF32Slice],
+                                          int n) {
+#pragma unroll
+  for (int c = 0; c < kF32Slice; c += 4) {
+    if (c >= n) break;
+    *reinterpret_cast<float4*>(dst + c) = make_float4(
+        static_cast<float>(acc[c]), static_cast<float>(acc[c + 1]),
+        static_cast<float>(acc[c + 2]), static_cast<float>(acc[c + 3]));
+  }
 }
 
-// A block per 64 rows [t0, t0 + 64): p and ds of the queries
-// [t0 - hw, t0 + 64 + hw) (a thread per query, looping), dq of the owned
-// ones, then a thread per key for dk (threads 0-63) and dv (64-127).
+// p of a logit x at the query's statistics, f32 as the plain version's
+// softmax forms it.
+__device__ __forceinline__ float weight(float x, float m, float den) {
+  return expf(x - m) / den;
+}
+
 __global__ void __launch_bounds__(kF32Threads)
-    tile_band_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ g,
-                      float* __restrict__ dq, float* __restrict__ dk,
-                      float* __restrict__ dv, int s, int per_row, int d,
-                      int hw, float scale) {
-  extern __shared__ float f32_smem_raw[];
-  const int n = 2 * hw + 1;
-  const int nq = kF32Rows + 2 * hw;
-  float* p_s = f32_smem_raw;
-  float* ds_s = p_s + nq * n;
-  float* fk_s = ds_s + nq * n;
-  float* fv_s = fk_s + nq;
-
-  const int tid = threadIdx.x;
+    tile_band_bwd_f32_rows(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ g,
+                           float* __restrict__ dq, F32Stats st, int s,
+                           int per_row, int d, int hw, float scale) {
+  const int r = (blockIdx.x % per_row) * kF32Threads + threadIdx.x;
+  if (r >= s) return;
   const int64_t row = blockIdx.x / per_row;
-  const int t0 = (blockIdx.x % per_row) * kF32Rows;
   const int64_t base = row * static_cast<int64_t>(s) * d;
-  const float* qr = q + base;
-  const float* kr = k + base;
-  const float* vr = v + base;
-  const float* gr = g + base;
-
-  // Slot i is query position t0 - hw + i; a position outside [0, S) has
-  // g = 0 and so p g = ds = 0.
-  for (int i = tid; i < nq; i += kF32Threads) {
-    const int pos = t0 - hw + i;
-    float* pr = p_s + i * n;
-    float* dr = ds_s + i * n;
-    float fk = 0.f, fv = 0.f;
-    if (pos >= 0 && pos < s) {
-      float mx = -INFINITY;
-      for (int o = 0; o < n; ++o) {
-        const int64_t key = clamp_row(pos + o - hw, s);
-        pr[o] = row_dot(qr + static_cast<int64_t>(pos) * d, kr + key * d, d) *
-                scale;
-        dr[o] = row_dot(gr + static_cast<int64_t>(pos) * d, vr + key * d, d);
-        mx = fmaxf(mx, pr[o]);
-      }
-      float den = 0.f;
-      for (int o = 0; o < n; ++o) {
-        pr[o] = expf(pr[o] - mx);
-        den += pr[o];
-      }
-      float rsum = 0.f;
-      for (int o = 0; o < n; ++o) {
-        pr[o] /= den;
-        rsum += dr[o] * pr[o];
-      }
-      for (int o = 0; o < n; ++o) {
-        dr[o] = (pr[o] * (dr[o] - rsum)) * scale;
-        const int key = pos + o - hw;
-        if (key < 0 || key >= s) {
-          fk += dr[o];
-          fv += pr[o];
-        }
-      }
-      if (i >= hw && i < hw + kF32Rows) {
-        for (int c = 0; c < d; c += 4) {
-          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-          for (int o = 0; o < n; ++o) {
-            fma4(acc, dr[o],
-                 kr + static_cast<int64_t>(clamp_row(pos + o - hw, s)) * d +
-                     c);
-          }
-          *reinterpret_cast<float4*>(dq + base +
-                                     static_cast<int64_t>(pos) * d + c) = acc;
-        }
-      }
-    } else {
-      for (int o = 0; o < n; ++o) pr[o] = dr[o] = 0.f;
-    }
-    fk_s[i] = fk;
-    fv_s[i] = fv;
+  const int c0 = blockIdx.y * kF32Slice;
+  const int nv = min(kF32Slice, d - c0);
+  const float* qr = q + base + static_cast<int64_t>(r) * d;
+  const float* gr = g + base + static_cast<int64_t>(r) * d;
+  float m = -INFINITY;
+  double dsum = 0.0, rsum = 0.0;
+  for (int o = -hw; o <= hw; ++o) {
+    const int64_t key = base + static_cast<int64_t>(clamp_row(r + o, s)) * d;
+    const float x = row_dot(qr, k + key, d) * scale;
+    const float dp = row_dot(gr, v + key, d);
+    const float m_new = fmaxf(m, x);
+    const float alpha = expf(m - m_new);  // 0 at the first key
+    const float e = expf(x - m_new);
+    m = m_new;
+    dsum = dsum * alpha + e;
+    rsum = rsum * alpha + static_cast<double>(dp) * e;
   }
-  __syncthreads();
-
-  // Key position t0 + j gets offset o - hw from the query at position
-  // t0 + j + hw - o, slot j + 2 hw - o. Rows 0 and S-1 add the edge
-  // queries' clamped mass.
-  const int j = tid & (kF32Rows - 1);
-  const int pos = t0 + j;
-  if (pos >= s) return;
-  const bool is_dv = tid >= kF32Rows;
-  const float* src = is_dv ? gr : qr;
-  const float* fold = is_dv ? fv_s : fk_s;
-  for (int c = 0; c < d; c += 4) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int o = 0; o < n; ++o) {
-      const int i = j + 2 * hw - o;
-      fma4(acc, (is_dv ? p_s : ds_s)[i * n + o],
-           src + static_cast<int64_t>(clamp_row(pos + hw - o, s)) * d + c);
+  const float den = static_cast<float>(dsum);
+  const float rs = static_cast<float>(rsum / dsum);
+  double acc[kF32Slice];
+#pragma unroll
+  for (int c = 0; c < kF32Slice; ++c) acc[c] = 0.0;
+  double fk = 0.0, fv = 0.0;
+  for (int o = -hw; o <= hw; ++o) {
+    const int64_t key = base + static_cast<int64_t>(clamp_row(r + o, s)) * d;
+    const float p = weight(row_dot(qr, k + key, d) * scale, m, den);
+    const float ds = (p * (row_dot(gr, v + key, d) - rs)) * scale;
+    if (r + o < 0 || r + o >= s) {
+      fk += ds;
+      fv += p;
     }
-    if (hw > 0 && pos == 0) {
-      for (int r = 0; r < min(hw, s); ++r) {
-        fma4(acc, fold[r - t0 + hw], src + static_cast<int64_t>(r) * d + c);
-      }
-    }
-    if (hw > 0 && pos == s - 1) {
-      for (int r = max(s - hw, 0); r < s; ++r) {
-        fma4(acc, fold[r - t0 + hw], src + static_cast<int64_t>(r) * d + c);
-      }
-    }
-    *reinterpret_cast<float4*>((is_dv ? dv : dk) + base +
-                               static_cast<int64_t>(pos) * d + c) = acc;
+    axpy(acc, ds, k + key + c0, nv);
   }
+  store_f32(dq + base + static_cast<int64_t>(r) * d + c0, acc, nv);
+  if (blockIdx.y == 0) {
+    const int64_t i = row * s + r;
+    st.m[i] = m;
+    st.den[i] = den;
+    st.rs[i] = rs;
+    st.fk[i] = static_cast<float>(fk);
+    st.fv[i] = static_cast<float>(fv);
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    tile_band_bwd_f32_keys(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ g,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           F32Stats st, int s, int per_row, int d, int hw,
+                           float scale) {
+  const int j = (blockIdx.x % per_row) * kF32Threads + threadIdx.x;
+  if (j >= s) return;
+  const int64_t row = blockIdx.x / per_row;
+  const int64_t base = row * static_cast<int64_t>(s) * d;
+  const bool is_dv = blockIdx.y & 1;
+  const int c0 = (blockIdx.y >> 1) * kF32Slice;
+  const int nv = min(kF32Slice, d - c0);
+  const float* kj = k + base + static_cast<int64_t>(j) * d;
+  const float* vj = v + base + static_cast<int64_t>(j) * d;
+  const float* xs = (is_dv ? g : q) + base;  // the rows of the sums
+  const int64_t vec = row * s;
+  double acc[kF32Slice];
+#pragma unroll
+  for (int c = 0; c < kF32Slice; ++c) acc[c] = 0.0;
+  // Key j is position r + o of the queries r = j - o.
+  for (int o = -hw; o <= hw; ++o) {
+    const int rq = j - o;
+    if (rq < 0 || rq >= s) continue;
+    const float* qr = q + base + static_cast<int64_t>(rq) * d;
+    const float p = weight(row_dot(qr, kj, d) * scale, st.m[vec + rq],
+                           st.den[vec + rq]);
+    const float w =
+        is_dv ? p
+              : (p * (row_dot(g + base + static_cast<int64_t>(rq) * d, vj,
+                              d) -
+                      st.rs[vec + rq])) *
+                    scale;
+    axpy(acc, w, xs + static_cast<int64_t>(rq) * d + c0, nv);
+  }
+  if (hw > 0 && (j == 0 || j == s - 1)) {
+    const float* fold = (is_dv ? st.fv : st.fk) + vec;
+    const auto add_edge = [&](int r0, int r1) {
+      for (int rq = r0; rq < r1; ++rq) {
+        axpy(acc, fold[rq], xs + static_cast<int64_t>(rq) * d + c0, nv);
+      }
+    };
+    if (j == 0) add_edge(0, min(hw, s));
+    if (j == s - 1) add_edge(max(s - hw, 0), s);
+  }
+  store_f32((is_dv ? dv : dk) + base + static_cast<int64_t>(j) * d + c0, acc,
+            nv);
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* g, void* dq, void* dk, void* dv,
-                       int64_t rows, int s, int d, int hw, float scale,
-                       cudaStream_t stream) {
-  const int per_row = (s + kF32Rows - 1) / kF32Rows;
+                       void* scratch, int64_t rows, int s, int d, int hw,
+                       float scale, cudaStream_t stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const int per_row = (s + kF32Threads - 1) / kF32Threads;
   const int64_t blocks = rows * per_row;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const int smem = f32_smem(hw);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_band_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const F32Stats st = carve_f32(scratch, rows, s);
+  const unsigned n_slices = (d + kF32Slice - 1) / kF32Slice;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* gp = static_cast<const float*>(g);
+  tile_band_bwd_f32_rows<<<dim3(static_cast<unsigned>(blocks), n_slices),
+                           kF32Threads, 0, stream>>>(
+      qp, kp, vp, gp, static_cast<float*>(dq), st, s, per_row, d, hw, scale);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tile_band_bwd_f32<<<static_cast<unsigned>(blocks), kF32Threads, smem,
-                      stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(g),
-      static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), s, per_row, d, hw, scale);
+  tile_band_bwd_f32_keys<<<dim3(static_cast<unsigned>(blocks), 2 * n_slices),
+                           kF32Threads, 0, stream>>>(
+      qp, kp, vp, gp, static_cast<float*>(dk), static_cast<float*>(dv), st, s,
+      per_row, d, hw, scale);
   return cudaGetLastError();
 }
 
@@ -1161,6 +1564,39 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
          stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(g),
                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), scr, s,
                    steps, d, hw, halo);
+  return cudaGetLastError();
+}
+
+// The streamed kernels: band (64 queries, 64 dq columns a block), then keys
+// (64 keys, 64 columns of dk or dv).
+cudaError_t launch_stream(const void* q, const void* k, const void* v,
+                          const void* g, void* dq, void* dk, void* dv,
+                          void* scratch, int64_t rows, int s, int d, int hw,
+                          float scale, cudaStream_t stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const int halo = halo_of(hw);
+  const Scratch scr = carve(scratch, rows, s, halo);
+  const int steps = (s + kStep - 1) / kStep;
+  if (rows * steps > INT32_MAX) return cudaErrorInvalidConfiguration;
+  const unsigned n_slices = fw::slices(d, fw::kBwdSlice);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_band_bwd_stream_band, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fw::kBwdSmem);
+  if (err != cudaSuccess) return err;
+  tile_band_bwd_stream_band<<<dim3(static_cast<unsigned>(rows * steps),
+                                   n_slices),
+                              fw::kThreads, fw::kBwdSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+      static_cast<bf16*>(dq), scr, s, steps, d, hw, halo, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tile_band_bwd_stream_keys<<<dim3(static_cast<unsigned>(rows * steps),
+                                   2 * n_slices),
+                              fw::kThreads, kStreamKeysSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(g),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), scr, s, steps, d, hw,
+      halo);
   return cudaGetLastError();
 }
 
@@ -1229,29 +1665,30 @@ cudaError_t launch_w(const void* q, const void* k, const void* v,
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
 // first launch that failed (0 on success). q, k, v, g and dq, dk, dv are
 // device pointers to contiguous [rows, s, d] tensors of one dtype (is_bf16
-// = 1 for bf16, 0 for f32), 16-byte aligned; 0 <= hw <= 64 (W <= 129); d a
-// multiple of 8 in [8, 256]; `scratch` a device buffer of
-// mhla_tile_band_bwd_scratch(rows, s, d, hw, is_bf16) bytes, 16-byte
-// aligned (null where that is 0); `stream` is the caller's cudaStream_t. dk
-// and dv come with the clamped positions' mass already folded into rows 0
-// and S-1. The kernels allocate nothing and do not synchronise.
+// = 1 for bf16, 0 for f32), 16-byte aligned; hw >= 0; d a multiple of 8;
+// `scratch` a device buffer of mhla_tile_band_bwd_scratch(rows, s, d, hw,
+// is_bf16) bytes, 16-byte aligned (null where that is 0); `stream` is the
+// caller's cudaStream_t. dk and dv come with the clamped positions' mass
+// already folded into rows 0 and S-1. The kernels allocate nothing and do
+// not synchronise.
 extern "C" int mhla_tile_band_bwd(const void* q, const void* k, const void* v,
                                   const void* g, void* dq, void* dk, void* dv,
                                   void* scratch, long long rows, int s, int d,
                                   int hw, int is_bf16, float scale, int device,
                                   void* stream) {
-  if (rows <= 0 || s < 1 || hw < 0 || hw > kMaxHalo) {
+  if (rows <= 0 || s < 1 || hw < 0 || d < 8 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16 == 0) {
-    if (flash::tile_width(d) == 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(
-        launch_f32(q, k, v, g, dq, dk, dv, rows, s, d, hw, scale, st));
+    return static_cast<int>(launch_f32(q, k, v, g, dq, dk, dv, scratch, rows,
+                                       s, d, hw, scale, st));
+  }
+  if (!staged_range(d, hw)) {
+    return static_cast<int>(launch_stream(q, k, v, g, dq, dk, dv, scratch,
+                                          rows, s, d, hw, scale, st));
   }
   switch (flash::tile_width(d)) {
     case 16:
@@ -1278,39 +1715,38 @@ extern "C" int mhla_tile_band_bwd(const void* q, const void* k, const void* v,
       err = launch_w<192>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
                           scale, device, st);
       break;
-    case 256:
+    default:
       err = launch_w<256>(q, k, v, g, dq, dk, dv, scratch, rows, s, d, hw,
                           scale, device, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
 // The bytes of scratch mhla_tile_band_bwd needs at these arguments, into
-// the long long at `bytes`: 0 for the ring kernel and the f32 kernel, the
-// wide kernels' p/ds tiles and fold sums otherwise. Returns
+// the long long at `bytes`: 0 for the ring kernel, the f32 kernels' five
+// f32 [rows, s] (softmax maximum and sum, sum dP p, fold sums), the wide
+// and streamed kernels' p/ds tiles and fold sums. Returns
 // cudaErrorInvalidValue (and writes nothing) for arguments the kernels do
 // not take, else 0.
 extern "C" int mhla_tile_band_bwd_scratch(long long rows, int s, int d,
                                           int hw, int is_bf16, void* bytes) {
-  if (rows <= 0 || s < 1 || hw < 0 || hw > kMaxHalo ||
-      flash::tile_width(d) == 0) {
+  if (rows <= 0 || s < 1 || hw < 0 || d < 8 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  *static_cast<long long*>(bytes) = is_bf16 == 0 || ring_kernel(d, hw)
-               ? 0
-               : wide_scratch_bytes(rows, s, halo_of(hw));
+  *static_cast<long long*>(bytes) =
+      is_bf16 == 0          ? 20 * rows * static_cast<long long>(s)
+      : ring_kernel(d, hw) ? 0
+                            : wide_scratch_bytes(rows, s, halo_of(hw));
   return 0;
 }
 
 // Dynamic shared memory of the bf16 kernel that runs at head dim d and
 // half window hw (-1 for a pair the kernels do not take), for the build
-// report: the ring kernel's, or the larger of the wide kernels' two.
+// report: the ring kernel's, or the larger of the wide (streamed) kernels'
+// two.
 extern "C" int mhla_tile_band_bwd_smem(int d, int hw) {
-  const int w = flash::tile_width(d);
-  if (w == 0 || hw < 0 || hw > kMaxHalo) return -1;
+  if (hw < 0 || d < 8 || d % 8 != 0) return -1;
+  if (!staged_range(d, hw)) return std::max(fw::kBwdSmem, kStreamKeysSmem);
   if (ring_kernel(d, hw)) {
     switch (d) {
       case 16:
@@ -1323,6 +1759,7 @@ extern "C" int mhla_tile_band_bwd_smem(int d, int hw) {
         return smem_bytes<128>();
     }
   }
+  const int w = flash::tile_width(d);
   const int halo = halo_of(hw);
   return std::max(wide_band_smem(w, halo, wide_band_queries(w, halo)),
                   wide_keys_smem(w, halo));

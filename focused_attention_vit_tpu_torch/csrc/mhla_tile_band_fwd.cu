@@ -85,18 +85,20 @@
 // thread, one step of 24 KB of copies in flight each), 114,688 at d = 128
 // (2 blocks an SM).
 //
-// The f32 instantiations are scalar-FMA kernels, a thread per query reading
-// its 2 hw + 1 keys from device memory: full f32 products, for parity runs,
-// not for speed.
+// The f32 calls take one scalar-FMA kernel, a thread per query reading its
+// 2 hw + 1 keys from device memory, in 32-column output slices at every hw
+// and head dim: full f32 products, for parity runs, not for speed.
 //
 // Range. The design above (the ring kernel) takes hw <= 16 and the head
 // dims 16, 32, 64 and 128, the MHLA-B/4, E5 and E6 paths'. The card takes
-// JAX's range beyond it: hw <= 64 (W <= 129, the default band's limit) and
-// every head dim that is a multiple of 8 in [8, 256], at JAX's halo (hw
-// rounded up to a multiple of 16, at least 16; K8's window tiles have
-// t + 2 halo rows) and at d's tile width (flash_common.cuh tile_width, zeros
-// past d). Those run the wide kernel below (tile_band_fwd_wide): one
-// 64-query step a block, its band walked in 48-key chunks in two passes.
+// JAX's v4 range beyond it, every W and every head dim that is a multiple
+// of 8, at JAX's halo (hw rounded up to a multiple of 16, at least 16; K8's
+// window tiles have t + 2 halo rows): up to hw = 64 (W = 129) and d = 256
+// the wide kernel below (tile_band_fwd_wide: one 64-query step a block, its
+// whole band staged at d's tile width, flash_common.cuh tile_width, zeros
+// past d, walked in 48-key chunks in two passes); past either limit the
+// streamed kernel (tile_band_fwd_stream: the band in 64-key chunks, d in
+// 64-column chunks, 128-column output slices, two passes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,7 +124,6 @@ constexpr int kQRing = 128;        // rows of the Q ring
 constexpr int kThreads = 128;      // 4 warps of 16 queries
 constexpr int kMinUnits = 8;       // steps a block takes at least
 constexpr int kBQ = 64;            // queries an f32 block
-constexpr int kMaxBand = 2 * kMaxHalo + 1;
 
 template <int D>
 constexpr int smem_bytes() {
@@ -512,12 +513,184 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
   store_rows<D, 0, D / 8>(ln.out, o, qs, jq, qb, n, lane, d);
 }
 
+// --- bf16 past the wide kernel's range: the streamed band ------------------
+//
+// The wide kernel stages the whole band of a 64-query step, 64 + 2 halo rows
+// of K and of V at d's tile width: past halo 64 or d = 256 that does not fit
+// shared memory (256 KB at d = 256 and halo 80). Here a block owns the 64
+// queries [t, t + 64) of a line and 128 output columns (grid y; more
+// slices past d = 128), and walks the keys [t - halo, t + 64 + halo) in
+// chunks of 64 (tile_ring.cuh's streamed helpers, flash_wide.cuh's layout),
+// forming the logits over d in 64-column chunks of Q and K through a
+// two-stage cp.async ring (the next copies in flight under this chunk's
+// products). Two passes, as the wide kernel: the first keeps each query's
+// running maximum and sum of exponentials, the second forms the logits
+// again and takes p = e / sum, rounded to bf16, into P V with the chunk's V
+// slice, so p is the normalised weight rounded once, as JAX rounds it. (A
+// one-pass online softmax, its f32 sum rescaled and divided at the end,
+// rounds the unnormalised weights instead, and its bf16 outputs met the
+// test rule's rms bound with little room.)
+// K6's K and V rows outside [0, S) are copies of the clamped row, K8's come
+// from the window tile; a warp skips the 16-key blocks that meet none of its
+// queries' bands. Shared memory no longer grows with the halo or d (54,272
+// bytes). Each slice forms the logits twice: n_slices + 1 times the 4 W d
+// flops a query's band needs (3 at d = 384, 7 at 768). Q is staged again
+// for each key chunk and the chunks cover 64 + 2 halo keys for a band of
+// 2 hw + 1: simple, and L2 holds the re-reads.
+
+template <bool kTiles>
+__global__ void __launch_bounds__(fw::kThreads)
+    tile_band_fwd_stream(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         int n, int steps, int d, int hw, int halo,
+                         float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage b: Q, then K
+  bf16* vs = ring + 4 * fw::kChunkElems;          // the chunk's V slice
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const long long line = blockIdx.x / steps;
+  const int t = static_cast<int>(blockIdx.x % steps) * kStep;
+  const int c_out = blockIdx.y * fw::kFwdSlice;
+  const Line<bf16, 0, kTiles> ln(q, k, v, out, line, n, d, halo);
+  const int nc = (d + fw::kCh - 1) / fw::kCh;
+  const int k0 = t - halo;
+  const int nk = (kStep + 2 * halo + kChunk - 1) / kChunk;
+  const int total = nk * nc;  // items a pass
+  const int qb = t + 16 * warp;  // the warp's first query
+  const int r = qb + (lane >> 2);  // its rows r and r + 8
+  const int nps = steps_below(d, c_out, fw::kFwdSlice);
+
+  auto issue = [&](int i) {
+    bf16* st = ring + (i & 1) * 2 * fw::kChunkElems;
+    const int e = i % total;
+    const int c0 = (e % nc) * fw::kCh;
+    stage_rows<fw::kCh, fw::kPitch>(st, ln.q, t, c0, 0, n, false, d);
+    stage_rows<fw::kCh, fw::kPitch>(st + fw::kChunkElems, ln.k,
+                                    k0 + (e / nc) * kChunk, c0, ln.lo, ln.hi,
+                                    !kTiles, d);
+  };
+
+  float o[fw::kFwdSlice / 2];
+#pragma unroll
+  for (int i = 0; i < fw::kFwdSlice / 2; ++i) o[i] = 0.f;
+  float sc[32];
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  issue(0);
+  fw::commit();
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int j = 0; j < nk; ++j) {
+      const int kj = k0 + j * kChunk;
+      bool live[4];
+      chunk_live(live, kj, qb, hw);
+      const bool any = live[0] || live[1] || live[2] || live[3];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      for (int c = 0; c < nc; ++c) {
+        const int i = (pass * nk + j) * nc + c;
+        fw::wait_all();
+        __syncthreads();  // item i landed; the products of i - 1 are done
+        if (pass == 1 && c == 0) {
+          stage_rows<fw::kFwdSlice, fw::kVPitch>(vs, ln.v, kj, c_out, ln.lo,
+                                                 ln.hi, !kTiles, d);
+        }
+        if (i + 1 < 2 * total) issue(i + 1);
+        fw::commit();
+        if (any) {
+          const bf16* st = ring + (i & 1) * 2 * fw::kChunkElems;
+          band_product(sc, st, st + fw::kChunkElems, warp, lane, live,
+                       steps_below(d, c * fw::kCh, fw::kCh));
+        }
+      }
+      // The band |key - query| <= hw (-inf off it).
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int off = kj + (i >> 2) * 8 + 2 * t4 + (i & 1) -
+                        (r + 8 * ((i >> 1) & 1));
+        sc[i] = (off >= -hw && off <= hw) ? sc[i] * scale : -INFINITY;
+      }
+      if (pass == 0) {
+        if (!any) continue;
+        // The running maximum and sum of exponentials of rows r, r + 8
+        // (every lane of a quad holds the maximum, its own share of the
+        // sum).
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int i = 2 * h; i < 32; i += 4) {
+            mx = fmaxf(mx, fmaxf(sc[i], sc[i + 1]));
+          }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[h], mx);
+          if (m_new == -INFINITY) continue;  // no key of this row yet
+          float sum = 0.f;
+#pragma unroll
+          for (int i = 2 * h; i < 32; i += 4) {
+            sum += expf(sc[i] - m_new) + expf(sc[i + 1] - m_new);
+          }
+          l[h] = l[h] * expf(m[h] - m_new) + sum;
+          m[h] = m_new;
+        }
+        continue;
+      }
+      // Pass 2: p = e / l, rounded to bf16, into out = P V.
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        sc[i] = sc[i] == -INFINITY ? 0.f : expf(sc[i] - m[h]) / l[h];
+      }
+      fw::wait_all();
+      __syncthreads();  // chunk j's V slice landed
+      if (any) {
+        band_weights<fw::kFwdSlice, fw::kVPitch>(o, sc, vs, lane, live, nps);
+      }
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      }
+    }
+  }
+  fw::store_rows<fw::kFwdSlice>(ln.out, o, r, c_out, n, d);
+}
+
 // --- f32: scalar FMA, a thread per query ------------------------------------
 
-// Block b takes queries [64 (b % per_line), + 64) of line b / per_line. D is
-// the tile width (registers), d <= D the head dim and row stride; the loops
-// over D unroll whole up to D = 128 and stop at d.
-template <int D, bool kTiles>
+// Rows of d floats (d a multiple of 4).
+__device__ __forceinline__ float row_dot(const float* a, const float* b,
+                                         int d) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < d; c += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + c);
+    const float4 y = *reinterpret_cast<const float4*>(b + c);
+    acc += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+  }
+  return acc;
+}
+
+// Block b takes queries [64 (b % per_line), + 64) of line b / per_line and
+// the kF32Slice output columns of blockIdx.y, at any hw and head dim: for
+// each of the 2 hw + 1 positions of its band the logit over all of d, in
+// two passes: the maximum and the sum of exponentials first (running), then
+// p = e / sum in f32, as the plain version's softmax, into the slice's sum
+// in the band's order. The sums are f64, rounded once, as the
+// plain version's: a running f32 sum over hundreds of band terms drifts
+// about as far as the f32 rule allows. Every slice forms the logits
+// again. Full f32 products, for parity runs, not for speed.
+constexpr int kF32Slice = 32;  // f64 sums: 64 registers
+
+template <bool kTiles>
 __global__ void __launch_bounds__(kBQ)
     tile_band_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
@@ -525,62 +698,84 @@ __global__ void __launch_bounds__(kBQ)
                       float scale) {
   const int r = (blockIdx.x % per_line) * kBQ + threadIdx.x;
   if (r >= n) return;
-  const Line<float, D, kTiles> ln(q, k, v, out, blockIdx.x / per_line, n, d,
+  const Line<float, 0, kTiles> ln(q, k, v, out, blockIdx.x / per_line, n, d,
                                   halo);
-  float qr[D];
-  flash::load_row<D>(qr, ln.q + static_cast<int64_t>(r) * d, true, d);
-  const int nb = 2 * hw + 1;
+  const int c0 = blockIdx.y * kF32Slice;
+  const int nv = min(kF32Slice, d - c0);
+  const float* qr = ln.q + static_cast<int64_t>(r) * d;
   const auto key = [&](int o) {
-    return static_cast<int64_t>(min(max(r + o - hw, ln.lo), ln.hi - 1)) * d;
+    return static_cast<int64_t>(min(max(r + o, ln.lo), ln.hi - 1)) * d;
   };
-  // The thread's 2 hw + 1 logits, then weights: a column of shared memory
-  // (33 KB a block at hw = 64), not a local array.
-  __shared__ float lg_s[kMaxBand * kBQ];
-  float* lg = lg_s + threadIdx.x;
-  float mx = -INFINITY;
-  for (int o = 0; o < nb; ++o) {
-    const float* kr = ln.k + key(o);
-    float dot = 0.f;
-#pragma unroll(D <= 128 ? D : 8)
-    for (int c = 0; c < D; ++c) {
-      if (c < d) dot += qr[c] * kr[c];
-    }
-    lg[o * kBQ] = dot * scale;
-    mx = fmaxf(mx, dot * scale);
+  float m = -INFINITY;
+  double sum = 0.0;
+  for (int o = -hw; o <= hw; ++o) {
+    const float x = row_dot(qr, ln.k + key(o), d) * scale;
+    const float m_new = fmaxf(m, x);
+    sum = sum * expf(m - m_new) + expf(x - m_new);  // 0 * 0 at the first
+    m = m_new;
   }
-  float den = 0.f;
-  for (int o = 0; o < nb; ++o) {
-    const float e = expf(lg[o * kBQ] - mx);
-    lg[o * kBQ] = e;
-    den += e;
-  }
-  float acc[D];
-#pragma unroll(D <= 128 ? D : 8)
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  for (int o = 0; o < nb; ++o) {
-    const float p = lg[o * kBQ] / den;
-    const float* vr = ln.v + key(o);
-#pragma unroll(D <= 128 ? D : 8)
-    for (int c = 0; c < D; ++c) {
-      if (c < d) acc[c] += p * vr[c];
+  const float den = static_cast<float>(sum);
+  double acc[kF32Slice];
+#pragma unroll
+  for (int c = 0; c < kF32Slice; ++c) acc[c] = 0.0;
+  for (int o = -hw; o <= hw; ++o) {
+    const double p = expf(row_dot(qr, ln.k + key(o), d) * scale - m) / den;
+    const float* vr = ln.v + key(o) + c0;
+#pragma unroll
+    for (int c = 0; c < kF32Slice; c += 4) {
+      if (c >= nv) break;
+      const float4 y = *reinterpret_cast<const float4*>(vr + c);
+      acc[c] += p * y.x;
+      acc[c + 1] += p * y.y;
+      acc[c + 2] += p * y.z;
+      acc[c + 3] += p * y.w;
     }
   }
-  flash::store_row<D>(ln.out + static_cast<int64_t>(r) * d, acc, d);
+  float* dst = ln.out + static_cast<int64_t>(r) * d + c0;
+#pragma unroll
+  for (int c = 0; c < kF32Slice; c += 4) {
+    if (c >= nv) break;
+    *reinterpret_cast<float4*>(dst + c) = make_float4(
+        static_cast<float>(acc[c]), static_cast<float>(acc[c + 1]),
+        static_cast<float>(acc[c + 2]), static_cast<float>(acc[c + 3]));
+  }
 }
 
-// The f32 kernel over `lines` lines of n queries at tile width D.
-template <int D, bool kTiles>
+// The f32 kernel over `lines` lines of n queries.
+template <bool kTiles>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int64_t lines, int n, int d, int hw, float scale,
                        cudaStream_t stream) {
   const int per_line = (n + kBQ - 1) / kBQ;
   const int64_t blocks = lines * per_line;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  tile_band_fwd_f32<D, kTiles><<<static_cast<unsigned>(blocks), kBQ, 0,
-                                 stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  (d + kF32Slice - 1) / kF32Slice);
+  tile_band_fwd_f32<kTiles><<<grid, kBQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), n, per_line, d,
       hw, halo_of(hw), scale);
+  return cudaGetLastError();
+}
+
+// The streamed bf16 kernel: one block a 64-query step and 128 columns.
+template <bool kTiles>
+cudaError_t launch_stream(const void* q, const void* k, const void* v,
+                          void* out, int64_t lines, int n, int d, int hw,
+                          float scale, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      tile_band_fwd_stream<kTiles>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, fw::kFwdSmem);
+  if (err != cudaSuccess) return err;
+  const int steps = (n + kStep - 1) / kStep;
+  const int64_t blocks = lines * steps;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  fw::slices(d, fw::kFwdSlice));
+  tile_band_fwd_stream<kTiles><<<grid, fw::kThreads, fw::kFwdSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, steps, d, hw,
+      halo_of(hw), scale);
   return cudaGetLastError();
 }
 
@@ -647,16 +842,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// The f32 kernel, or the ring kernel where it applies (hw <= 16 and d in
-// 16, 32, 64, 128), else the wide kernel, at d's tile width D.
+// The ring kernel where it applies (hw <= 16 and d in 16, 32, 64, 128),
+// else the wide kernel, at d's tile width D.
 template <int D, bool kTiles>
 cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
-                     int64_t lines, int n, int d, int hw, bool is_bf16,
-                     float scale, int device, cudaStream_t stream) {
-  if (!is_bf16) {
-    return launch_f32<D, kTiles>(q, k, v, out, lines, n, d, hw, scale,
-                                 stream);
-  }
+                     int64_t lines, int n, int d, int hw, float scale,
+                     int device, cudaStream_t stream) {
   if constexpr (D == 16 || D == 32 || D == 64 || D == 128) {
     if (d == D && hw <= kHalo) {
       return launch_d<D, kTiles>(q, k, v, out, lines, n, hw, scale, device,
@@ -666,48 +857,54 @@ cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
   return launch_wide<D, kTiles>(q, k, v, out, lines, n, d, hw, scale, stream);
 }
 
+// The f32 kernel at every (hw, d); in bf16 the ring or wide kernel in
+// their range (tile_ring.cuh staged_range), else the streamed kernel.
 template <bool kTiles>
 int launch(const void* q, const void* k, const void* v, void* out,
            int64_t lines, int n, int d, int hw, int is_bf16, float scale,
            int device, void* stream) {
-  if (lines <= 0 || n < 1 || hw < 0 || hw > kMaxHalo) {
+  if (lines <= 0 || n < 1 || hw < 0 || d < 8 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool bf = is_bf16 != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16 == 0) {
+    return static_cast<int>(
+        launch_f32<kTiles>(q, k, v, out, lines, n, d, hw, scale, st));
+  }
+  if (!staged_range(d, hw)) {
+    return static_cast<int>(
+        launch_stream<kTiles>(q, k, v, out, lines, n, d, hw, scale, st));
+  }
   switch (flash::tile_width(d)) {
     case 16:
-      err = launch_w<16, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+      err = launch_w<16, kTiles>(q, k, v, out, lines, n, d, hw, scale,
                                  device, st);
       break;
     case 32:
-      err = launch_w<32, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+      err = launch_w<32, kTiles>(q, k, v, out, lines, n, d, hw, scale,
                                  device, st);
       break;
     case 64:
-      err = launch_w<64, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+      err = launch_w<64, kTiles>(q, k, v, out, lines, n, d, hw, scale,
                                  device, st);
       break;
     case 80:
-      err = launch_w<80, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+      err = launch_w<80, kTiles>(q, k, v, out, lines, n, d, hw, scale,
                                  device, st);
       break;
     case 128:
-      err = launch_w<128, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+      err = launch_w<128, kTiles>(q, k, v, out, lines, n, d, hw, scale,
                                   device, st);
       break;
     case 192:
-      err = launch_w<192, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
-                                  device, st);
-      break;
-    case 256:
-      err = launch_w<256, kTiles>(q, k, v, out, lines, n, d, hw, bf, scale,
+      err = launch_w<192, kTiles>(q, k, v, out, lines, n, d, hw, scale,
                                   device, st);
       break;
     default:
-      err = cudaErrorInvalidValue;
+      err = launch_w<256, kTiles>(q, k, v, out, lines, n, d, hw, scale,
+                                  device, st);
   }
   return static_cast<int>(err);
 }
@@ -717,9 +914,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // Plain C entry points, loaded with ctypes. Each returns the cudaError_t of
 // its launch (0 on success); the kernels allocate nothing and do not
 // synchronise. Tensors are device pointers to contiguous tensors of one
-// dtype (is_bf16 = 1 for bf16, 0 for f32), 16-byte aligned; 0 <= hw <= 64
-// (W <= 129); d is a multiple of 8 in [8, 256]; `stream` is the caller's
-// cudaStream_t.
+// dtype (is_bf16 = 1 for bf16, 0 for f32), 16-byte aligned; hw >= 0; d is a
+// multiple of 8; `stream` is the caller's cudaStream_t.
 //
 // K6: q, k, v and out are [rows, s, d].
 extern "C" int mhla_tile_band_fwd(const void* q, const void* k, const void* v,
@@ -745,11 +941,12 @@ extern "C" int mhla_tile_band_fwd_tiles(const void* q, const void* k,
 
 // Dynamic shared memory of the bf16 kernel that runs at head dim d and
 // half window hw (-1 for a pair the kernels do not take), for the build
-// report: the ring kernel's at hw <= 16 and d in 16, 32, 64, 128, else the
-// wide kernel's.
+// report: the ring kernel's at hw <= 16 and d in 16, 32, 64, 128, the wide
+// kernel's elsewhere in its range, else the streamed kernel's.
 extern "C" int mhla_tile_band_fwd_smem(int d, int hw) {
+  if (hw < 0 || d < 8 || d % 8 != 0) return -1;
+  if (!staged_range(d, hw)) return fw::kFwdSmem;
   const int w = flash::tile_width(d);
-  if (w == 0 || hw < 0 || hw > kMaxHalo) return -1;
   if (d == w && hw <= kHalo) {
     switch (d) {
       case 16:

@@ -31,10 +31,10 @@ plain version. Nothing falls back.
 that saves q, k and v, as JAX's ``_fwd_rule``. :func:`banded_attention_v4b`
 builds the window tiles in plain PyTorch, as XLA does in JAX, and runs K8.
 The kernels stage JAX's halo, ``_halo``: W // 2 rounded up to a multiple of
-16, at least 16. On the card they take ``1 <= W <= MAX_WINDOW`` (129, the
-default band's range) and every head dim up to 256 (one off the grid of 8
-padded with zero columns, :func:`.flash_attention.pad_head_dim`); the plain
-versions, and so the CPU, take any W and head dim, as JAX's v4 does.
+16, at least 16. Like JAX's v4 they take every ``W >= 1`` and every head dim,
+on the card and on the CPU alike (on the card a head dim off the grid of 8
+is padded with zero columns, :func:`.flash_attention.pad_head_dim`; past
+W = 129 or d = 256 the sources stream the band in chunks).
 """
 
 from __future__ import annotations
@@ -59,14 +59,6 @@ DEFAULT_BLOCK = 256
 # it; the result does not depend on the grouping, and the port's K8 does not
 # group.
 GROUP = 8
-# The card's range (kMaxHalo in the sources): W // 2 up to 64, a halo of
-# 64 rows; head dims up to 256, padded to a multiple of 8. Both limits are
-# the shared memory's: the ring and wide kernels stage whole rows of d for
-# the tile and its halo, 224 KB of the 227 at d = 256 and a halo of 64.
-MAX_HALF_WINDOW = 64
-MAX_WINDOW = 2 * MAX_HALF_WINDOW + 1
-MAX_HEAD_DIM = 256
-
 LAUNCH_KINDS = ("fwd", "bwd", "fwd_b")
 _launches = dict.fromkeys(LAUNCH_KINDS, 0)
 _launch_lock = threading.Lock()
@@ -134,11 +126,11 @@ def _window_tiles(x: torch.Tensor, t: int, halo: int, sp: int
 # --- plain versions ---------------------------------------------------------
 
 
-def _shifts(x: torch.Tensor, hw: int):
-    """The ``2*hw + 1`` row shifts of ``[BH, S, d]`` x in f32: shift j holds
-    row ``clamp(r + j - hw)`` at row r."""
+def _shifts(x: torch.Tensor, hw: int, dtype=torch.float32):
+    """The ``2*hw + 1`` row shifts of ``[BH, S, d]`` x in ``dtype``: shift j
+    holds row ``clamp(r + j - hw)`` at row r."""
     s = x.shape[1]
-    xp = _pad_seq(x, hw, hw).float()
+    xp = _pad_seq(x, hw, hw).to(dtype)
     return [xp[:, j:j + s] for j in range(2 * hw + 1)]
 
 
@@ -153,30 +145,35 @@ def plain_tile_band_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             window_size: int) -> torch.Tensor:
     """K6's plain version on ``[BH, S, d]``: the clamped band as
     ``2*hw + 1`` shifted multiply-reduces (JAX's ``_clamp_shift``), the
-    weights rounded to the input dtype before the f32 sum with V."""
+    weights rounded to the input dtype before the sum with V. The sum runs
+    in f64, rounded once: a running f32 sum over hundreds of band terms
+    drifts about as far as the kernels' f32 rule allows."""
     hw = window_size // 2
-    p = _band_weights(q, k, hw).to(q.dtype).float()
-    out = sum(p[..., j:j + 1] * vs for j, vs in enumerate(_shifts(v, hw)))
+    p = _band_weights(q, k, hw).to(q.dtype).double()
+    out = sum(p[..., j:j + 1] * vs
+              for j, vs in enumerate(_shifts(v, hw, torch.float64)))
     return out.to(q.dtype)
 
 
 def plain_tile_band_backward(q, k, v, g, window_size: int):
     """K7's plain version: ``(dq, dk, dv)`` on ``[BH, S, d]`` by the JAX
     kernel's formulas (the softmax VJP of the clamped band, ds and p rounded
-    to the input dtype for the second products, f32 sums). dk and dv hold
+    to the input dtype for the second products; f32 softmax, the sums over
+    the band in f64, as :func:`plain_tile_band_forward`'s). dk and dv hold
     the in-range positions only; :func:`_edge_fold` adds the clamped ones."""
     bh, s, d = q.shape
     hw = window_size // 2
     n = 2 * hw + 1
     scale = d ** -0.5
-    qf, gf = q.float(), g.float()
-    ks, vs = _shifts(k, hw), _shifts(v, hw)
+    gf = g.float()
     p = _band_weights(q, k, hw)
-    dp = torch.stack([(gf * x).sum(-1) for x in vs], -1)
+    dp = torch.stack([(gf * x).sum(-1) for x in _shifts(v, hw)], -1)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
-    dsb = ds.to(q.dtype).float()
-    pb = p.to(q.dtype).float()
+    dsb = ds.to(q.dtype).double()
+    pb = p.to(q.dtype).double()
+    ks = _shifts(k, hw, torch.float64)
     dq = sum(dsb[..., j:j + 1] * ks[j] for j in range(n))
+    qf, gf = q.double(), g.double()
     # Position r + j - hw of query r is row r + j of the padded sums.
     dk_ext = qf.new_zeros(bh, s + 2 * hw, d)
     dv_ext = qf.new_zeros(bh, s + 2 * hw, d)
@@ -244,13 +241,14 @@ def plain_window_tile_band(qt: torch.Tensor, ke: torch.Tensor,
                            ve: torch.Tensor, window_size: int) -> torch.Tensor:
     """K8's plain version: per-tile masked attention of query tiles
     ``[BH, n_t, t, d]`` over window tiles ``[BH, n_t, t + 2*halo, d]``, f32
-    logits and softmax, weights rounded to the input dtype, f32 sums."""
+    logits and softmax, weights rounded to the input dtype, the sum with V
+    in f64 (:func:`plain_tile_band_forward`'s rule)."""
     t, ext, d = qt.shape[2], ke.shape[2], qt.shape[3]
     mask = _band_mask(t, ext, (ext - t) // 2, window_size // 2, qt.device)
     logits = torch.matmul(qt.float(), ke.float().transpose(-1, -2)) * (
         d ** -0.5)
     p = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
-    return torch.matmul(p.to(qt.dtype).float(), ve.float()).to(qt.dtype)
+    return torch.matmul(p.to(qt.dtype).double(), ve.double()).to(qt.dtype)
 
 
 # --- kernels ----------------------------------------------------------------
@@ -284,9 +282,7 @@ def _kernel(source: str, fn_name: str):
 
 def _check(tensors, window_size: int, what: str) -> None:
     """One dtype (f32 or bf16), one device (cpu or cuda), contiguous,
-    ``window_size >= 1``; on a CUDA tensor also the kernels' range,
-    ``window_size <= MAX_WINDOW`` and a head dim of at most
-    ``MAX_HEAD_DIM``. A CPU tensor takes any window and head dim."""
+    ``window_size >= 1``; any window and head dim on either device."""
     x = tensors[0]
     if x.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != x.dtype for t in tensors):
@@ -298,16 +294,6 @@ def _check(tensors, window_size: int, what: str) -> None:
         raise ValueError(f"{what} runs on cpu or cuda, got {x.device}")
     if window_size < 1:
         raise ValueError(f"{what} takes window_size >= 1, got {window_size}")
-    if x.device.type == "cuda":
-        if window_size > MAX_WINDOW:
-            raise ValueError(
-                f"the {what} kernels take 1 <= window_size <= {MAX_WINDOW} "
-                f"(a halo of {MAX_HALF_WINDOW} rows), got {window_size}")
-        d = x.shape[-1]
-        if not 1 <= d <= MAX_HEAD_DIM:
-            raise ValueError(
-                f"the {what} kernels take head dims in [1, {MAX_HEAD_DIM}], "
-                f"got {d}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} needs contiguous tensors")
 
@@ -368,8 +354,9 @@ def tile_band_backward(q, k, v, g, window_size: int):
     d_grid = q.shape[2]
     hw = window_size // 2
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # The wide kernels' p/ds tiles and fold sums (0 bytes for the ring
-    # kernel), as many bytes as the source asks for.
+    # The wide and streamed kernels' p/ds tiles and fold sums, the f32
+    # kernels' softmax statistics (0 bytes for the ring kernel), as many
+    # bytes as the source asks for.
     nbytes = ctypes.c_longlong(0)
     err = _kernel("mhla_tile_band_bwd", "mhla_tile_band_bwd_scratch")(
         bh, s, d_grid, hw, int(q.dtype == torch.bfloat16),

@@ -14,9 +14,10 @@ shape (B*h=1536, S=197, d=64: the whole-row kernels) and past the whole-row
 kernels (B*h=384, S=577: the flash blocks with the mask), the dense flash
 attention (K5, ``csrc/flash_attention_{fwd,bwd}.cu``: eval forward,
 training forward, backward) at dense ViT-B/4's shape (B*h=384, S=3137,
-d=64) and ViT-H/14's (B*h=128, S=1370, d=80), and K1/K2 at ViT-H/14's band
-(B*h=128, d=80, S=1370), in each checkout given, each in a process of its own that imports that checkout's package,
-in turns: the order given, then the reverse. Every checkout's kernels are
+d=64) and ViT-H/14's (B*h=128, S=1370, d=80), K1/K2 at ViT-H/14's band
+(B*h=128, d=80, S=1370) and K6/K8/K7 at ViT-H/14's token-major band
+(B*h=128, S=1370, d=80, W=7 and 129), in each checkout given, each in a
+process of its own that imports that checkout's package, in turns: the order given, then the reverse. Every checkout's kernels are
 built first, all at once. With ``--steps`` it then profiles MHLA-B/4's
 S-minor serving forward and train step and its tile-band serving forward
 and train step (``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``;
@@ -62,6 +63,10 @@ FUSED_SHAPES = {"fused": (128, 12, 197, 64), "fused_tiled": (32, 12, 577, 64)}
 # 518^2 (batch 8); B, h, d, S of the band at MHLA-H/14.
 FLASH_SHAPES = {"flash": (32, 12, 3137, 64), "flash_h14": (8, 16, 1370, 80)}
 BAND_H14_SHAPE = (8, 16, 80, 1370)
+# B*h, S, d of the tile band at MHLA-H/14 (batch 8), at the model's window
+# and at JAX's roll-band limit (the wide kernels).
+TILE_H14_SHAPE = (128, 1370, 80)
+TILE_H14_WINDOWS = (7, 129)
 TILE_ENV = {"FAVIT_MHLA_IMPL": "shiftband", "FAVIT_USE_PALLAS_MHLA": "1"}
 # --steps: (label, step_profile mode, environment).
 STEPS = [("serve", "serve", {}), ("train", "train", {}),
@@ -134,35 +139,13 @@ def time_kernels() -> dict:
         "train": lambda: band.band_forward_train(q, k, v, w, RATE, SEED),
         "bwd": lambda: band.band_backward(q, k, v, g, wts, w, RATE, SEED),
     }
-    # The tile band's backward as _TileBandFunction runs it: the cast of g,
-    # K7 and the edge fold, in whichever place the checkout folds.
     b, h, d, s = SHAPE
-    rows = [x.view(b * h, s, d) for x in (q, k, v, g)]
-    ctx = SimpleNamespace(saved_tensors=tuple(rows[:3]), window_size=w)
-    got = tile._TileBandFunction.backward(ctx, rows[3])[:3]
-    ref = tile.plain_tile_band_backward(*rows, w)
-    ref = (ref[0], *tile._edge_fold(*rows, *ref[1:], w))
-    res["tile_bwd_err"] = max(float((x.float() - y.float()).abs().max())
-                              for x, y in zip(got, ref))
-    del got, ref
-    calls["tile_bwd"] = lambda: tile._TileBandFunction.backward(ctx, rows[3])
-    # K6 on the rows; K8 on their window tiles at JAX's tile length (256),
-    # built once outside the timed calls.
-    ref = tile.plain_tile_band_forward(*rows[:3], w)
-    res["tile_fwd_err"] = float(
-        (tile.tile_band_forward(*rows[:3], w).float() - ref.float())
-        .abs().max())
-    halo = tile._halo(tile.DEFAULT_BLOCK, w // 2)
-    t = max(2 * halo, min(tile.DEFAULT_BLOCK, -(-s // 8) * 8))
-    sp = -(-s // t) * t
-    ke, ve = (tile._window_tiles(x, t, halo, sp) for x in rows[1:3])
-    qt = tile._pad_seq(rows[0], 0, sp - s).reshape(b * h, sp // t, t, d)
-    qt = qt.contiguous()
-    got = tile.window_tile_band(qt, ke, ve, w).reshape(b * h, sp, d)[:, :s]
-    res["tile_fwd_b_err"] = float((got.float() - ref.float()).abs().max())
-    del got, ref
-    calls["tile_fwd"] = lambda: tile.tile_band_forward(*rows[:3], w)
-    calls["tile_fwd_b"] = lambda: tile.window_tile_band(qt, ke, ve, w)
+    calls.update(_tile_calls(res, "tile", [x.view(b * h, s, d)
+                                           for x in (q, k, v, g)], w))
+    for w14 in TILE_H14_WINDOWS:
+        rows = [torch.randn(TILE_H14_SHAPE, device="cuda", generator=gen)
+                .bfloat16() for _ in range(4)]
+        calls.update(_tile_calls(res, f"tile_h14_w{w14}", rows, w14))
     calls.update(_fused_calls(res, gen))
     calls.update(_flash_calls(res, gen))
     h14 = [torch.randn(BAND_H14_SHAPE, device="cuda", generator=gen)
@@ -177,6 +160,41 @@ def time_kernels() -> dict:
         res[f"{name}_ms"] = _median_ms(fn)
         res[f"{name}_device_ms"] = _device_ms(fn)
     return res
+
+
+def _tile_calls(res: dict, key: str, rows: list, w: int) -> dict:
+    """The tile band's forward (K6) on ``[B*h, S, d]`` rows, its
+    window-tile forward (K8) on them at JAX's tile length (256), built once
+    outside the timed calls, and its backward as ``_TileBandFunction`` runs
+    it (the cast of g, K7 and the edge fold, in whichever place the checkout
+    folds, so that every checkout does the same work); their largest errors
+    against the plain versions go into ``res``."""
+    from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
+
+    bh, s, d = rows[0].shape
+    ctx = SimpleNamespace(saved_tensors=tuple(rows[:3]), window_size=w)
+    got = tile._TileBandFunction.backward(ctx, rows[3])[:3]
+    ref = tile.plain_tile_band_backward(*rows, w)
+    ref = (ref[0], *tile._edge_fold(*rows, *ref[1:], w))
+    res[f"{key}_bwd_err"] = max(float((x.float() - y.float()).abs().max())
+                                for x, y in zip(got, ref))
+    del got, ref
+    ref = tile.plain_tile_band_forward(*rows[:3], w)
+    res[f"{key}_fwd_err"] = float(
+        (tile.tile_band_forward(*rows[:3], w).float() - ref.float())
+        .abs().max())
+    halo = tile._halo(tile.DEFAULT_BLOCK, w // 2)
+    t = max(2 * halo, min(tile.DEFAULT_BLOCK, -(-s // 8) * 8))
+    sp = -(-s // t) * t
+    ke, ve = (tile._window_tiles(x, t, halo, sp) for x in rows[1:3])
+    qt = tile._pad_seq(rows[0], 0, sp - s).reshape(bh, sp // t, t, d)
+    qt = qt.contiguous()
+    got = tile.window_tile_band(qt, ke, ve, w).reshape(bh, sp, d)[:, :s]
+    res[f"{key}_fwd_b_err"] = float((got.float() - ref.float()).abs().max())
+    return {f"{key}_bwd": lambda: tile._TileBandFunction.backward(ctx,
+                                                                  rows[3]),
+            f"{key}_fwd": lambda: tile.tile_band_forward(*rows[:3], w),
+            f"{key}_fwd_b": lambda: tile.window_tile_band(qt, ke, ve, w)}
 
 
 def _fused_calls(res: dict, gen) -> dict:

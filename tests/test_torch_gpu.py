@@ -834,24 +834,32 @@ def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
         _tile_close(got, want, dtype, 1e-4)
 
 
-# The wide kernels' grid: every window of the range at every head dim of
-# it, S = W + 1 (shorter than a band: a query near one edge also reads
-# clamped positions past the other) and just past 2W (one or two 64-row
-# steps with both edges folded), the ViT-B/16 and MHLA-H/14 lengths, and
-# one row of 3137.
-TILE_RANGE_CASES = [(w, s) for w in RANGE_WINDOWS
+# The windows and head dims past the wide kernels' range (W <= 129,
+# d <= 256), where the sources stream the band: JAX's halo 80, 128 and 352,
+# and the head dims 264, 384 (2 heads at D = 768) and 768 (1 head).
+TILE_STREAM_WINDOWS = (131, 257, 683)
+TILE_STREAM_HEAD_DIMS = (264, 384, 768)
+# The wide and streamed kernels' grid: every window of the range at every
+# head dim of it, S = W + 1 (shorter than a band: a query near one edge
+# also reads clamped positions past the other) and just past 2W (one or
+# two 64-row steps with both edges folded), the ViT-B/16 and MHLA-H/14
+# lengths, and one row of 3137.
+TILE_RANGE_CASES = [(w, s) for w in RANGE_WINDOWS + TILE_STREAM_WINDOWS
                     for s in (w + 1, 2 * w + 1, 2 * w + 2, 197, 1370, 3137)
                     if s > 2 * w or s == w + 1]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", RANGE_HEAD_DIMS + (8, 192))
+@pytest.mark.parametrize("d", RANGE_HEAD_DIMS + (8, 192)
+                         + TILE_STREAM_HEAD_DIMS)
 @pytest.mark.parametrize("w,s", TILE_RANGE_CASES)
 def test_tile_band_kernels_across_head_dims_and_windows(cuda, dtype, d, w,
                                                         s):
     """K6, K7 (with the edge fold) and K8 at JAX's halo (16, 32, 64 at W =
-    7/17, 64 and 129) and the padded head dims against their plain versions
-    by the grid's rules above; two runs of each bit-identical."""
+    7/17, 64 and 129; 80, 128, 352 at W = 131, 257, 683, the streamed
+    kernels, as at d = 264, 384, 768) and the padded head dims against their
+    plain versions by the grid's rules above; two runs of each
+    bit-identical."""
     q, k, v, g = (x.view(6, s, d) for x in _inputs(cuda, (2, 3, s, d), dtype,
                                                    n=4, seed=s + w + d))
     before = [tile.launch_count(kind) for kind in tile.LAUNCH_KINDS]
@@ -878,13 +886,15 @@ def test_tile_band_kernels_across_head_dims_and_windows(cuda, dtype, d, w,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("poison", [float("nan"), float("inf"), 3e38])
 @pytest.mark.parametrize("s", [48, 65, 497, 3137])
-@pytest.mark.parametrize("w,d", [(7, 64), (7, 80), (129, 80), (65, 256)])
+@pytest.mark.parametrize("w,d", [(7, 64), (7, 80), (129, 80), (65, 256),
+                                 (257, 80), (7, 384)])
 def test_tile_band_backward_reads_only_its_row(cuda, dtype, poison, s,
                                                kernel, w, d):
     """NaN, inf or 3e38 in the neighbouring (b*h) rows of q, k, v and g
     leave a row's K6 output, and its K7 dq, dk and dv, bit-identical: the
     kernels read no row but their own, the clamped halo included (the ring
-    kernels at (7, 64), the wide ones at the other (W, d))."""
+    kernels at (7, 64), the streamed ones at (257, 80) and (7, 384), the
+    wide ones at the other (W, d))."""
     q, k, v, g = _inputs(cuda, (3, s, d), dtype, n=4, seed=s)
 
     def run():
@@ -905,7 +915,7 @@ def test_tile_band_backward_reads_only_its_row(cuda, dtype, poison, s,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t", [32, 200, 256])
 @pytest.mark.parametrize("w,d", [(7, 64), (7, 24), (17, 80), (64, 64),
-                                 (129, 80), (129, 256)])
+                                 (129, 80), (129, 256), (257, 80), (7, 384)])
 def test_tile_band_k8_matches_its_plain_version_on_tiles(cuda, t, dtype, w,
                                                          d):
     """K8 on three window tiles of t rows a (b*h) row (JAX's tile lengths
@@ -964,12 +974,13 @@ def test_tile_band_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # stride
         x = q.transpose(1, 2).contiguous().transpose(1, 2)
         tile.tile_band_forward(x, x, x, 7)
-    with pytest.raises(ValueError, match="window_size"):
-        x = torch.zeros(6, 300, 16, device=cuda)
-        tile.tile_band_backward(x, x, x, x, 131)
-    with pytest.raises(ValueError, match="head dims"):
-        x = torch.zeros(6, 40, 264, device=cuda)
-        tile.tile_band_forward(x, x, x, 7)
+    # A window past 129 and a head dim past 256 are taken (the streamed
+    # kernels): each call returns its shapes.
+    x = torch.zeros(6, 300, 16, device=cuda)
+    assert all(t.shape == x.shape
+               for t in tile.tile_band_backward(x, x, x, x, 131))
+    x = torch.zeros(6, 40, 264, device=cuda)
+    assert tile.tile_band_forward(x, x, x, 7).shape == x.shape
     with pytest.raises(TypeError):  # dtype
         x = q.half()
         tile.tile_band_forward(x, x, x, 7)
