@@ -824,16 +824,19 @@ def _band_bwd_ptxas(lib: Path, text: str) -> None:
 TILE_WIDTHS = (16, 32, 64, 80, 128, 192, 256)
 # The ring kernels' head dims (hw <= 16): the MHLA-B/4 and E5/E6 paths'.
 TILE_RING_DIMS = (16, 32, 64, 128)
+# The wgmma kernels' output slice widths (tile_band_sm90.cuh slice_width).
+TILE_SLICE_WIDTHS = (64, 128, 192, 256)
 
 
 def _tile_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's registers, spills and shared memory of every
     instantiation of a tile-band source: K6/K8's ring kernels (bf16, the
     four ring head dims, rows and tiles), wide kernels (bf16, every tile
-    width, rows and tiles), streamed kernels and f32 kernels (rows and
-    tiles), or K7's ring kernels, the wide band and keys kernels (every tile
-    width), the streamed band and keys kernels and the two f32 kernels.
-    Raise if one is missing or spills."""
+    width, rows and tiles), wgmma kernels (every slice width, rows and
+    tiles) and f32 kernels (rows and tiles), or K7's ring kernels, the wide
+    band and keys kernels (every tile width), the wgmma band kernels (Q and
+    G kept or streamed) and rows kernels (every slice width) and the two
+    f32 kernels. Raise if one is missing or spills."""
     fwd = lib.name == "libmhla_tile_band_fwd.so"
     kind, what = ("fwd", "K6/K8") if fwd else ("bwd", "K7")
     smem = tile._kernel(f"mhla_tile_band_{kind}",
@@ -842,28 +845,36 @@ def _tile_ptxas(lib: Path, text: str) -> None:
     for m in re.finditer(
             rf"Function properties for \S*?tile_band_{kind}_"
             r"(mma|f32_rows|f32_keys|f32|wide_band|wide_keys|wide|"
-            r"stream_band|stream_keys|stream)(?:I?Li(\d+)E)?(?:I?Lb(\d)E)?"
+            r"sm90_band|sm90_rows|sm90)(?:I?Li(\d+)E)?(?:I?Lb(\d)E)?"
             r"\S*\n\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
             r".*?Used (\d+) registers(?:.*?(\d+) bytes smem)?", text):
         k, d, tiles, spills, regs, static = m.groups()
         d = int(d or 0)
-        line = ("K8" if tiles == "1" else "K6") if fwd else ""
+        line = (("K8" if tiles == "1" else "K6") if fwd
+                else ("kept" if tiles == "1" else "streamed")
+                if k == "sm90_band" else "")
         # The dynamic shared memory at the widest halo a kernel takes (the
-        # ring kernels' 16, the wide ones' 64; the streamed ones' at any).
+        # ring kernels' 16, the wide ones' 64); the wgmma kernels' at the
+        # widest head dim of their slice width past the wide range (the
+        # band kernel's at d = 768, Q and G kept beside the ring, and at
+        # d = 1024, streamed).
         dyn = {"mma": lambda: smem(d, 16), "wide": lambda: smem(d, 64),
                "wide_band": lambda: smem(d, 64),
                "wide_keys": lambda: smem(d, 64),
-               "stream": lambda: smem(768, 3),
-               "stream_band": lambda: smem(768, 3),
-               "stream_keys": lambda: smem(768, 3)}.get(k, lambda: 0)()
+               "sm90": lambda: smem(d, 128),
+               "sm90_band": lambda: smem(768 if line == "kept" else 1024,
+                                         128),
+               "sm90_rows": lambda: smem(d, 128)}.get(k, lambda: 0)()
         found[(k, d, line)] = (int(regs), int(spills), int(static or 0), dyn)
-    expected = (2 * len(TILE_RING_DIMS) + 2 * len(TILE_WIDTHS) + 4 if fwd
-                else len(TILE_RING_DIMS) + 2 * len(TILE_WIDTHS) + 4)
+    expected = (2 * len(TILE_RING_DIMS) + 2 * len(TILE_WIDTHS)
+                + 2 * len(TILE_SLICE_WIDTHS) + 2 if fwd
+                else len(TILE_RING_DIMS) + 2 * len(TILE_WIDTHS) + 2
+                + len(TILE_SLICE_WIDTHS) + 2)
     if len(found) != expected:
         raise AssertionError(f"ptxas reports {len(found)} of {what}'s "
                              f"{expected} instantiations in "
                              f"{lib.parent / 'build.log'}")
-    log("build", f"ptxas {what} (kernel D{' line' if fwd else ''}: "
+    log("build", f"ptxas {what} (kernel D{' line' if fwd else ' form'}: "
                  f"registers, spill bytes, static smem, dynamic smem at the "
                  f"kernel's widest halo): " + "; ".join(
                      f"{k} {d}{' ' + ln if ln else ''}: {r}, {sp}, {st}, {dy}"
@@ -4942,18 +4953,20 @@ H14_PATHS = (_H14("MHLA-H/14 W=7", 7, depth=H14_DEFAULT_DEPTH),
 # with FAVIT_FUSED_MHA=1 (the flash kernels launch nothing), and MHLA-H/14
 # at 518^2 through the tile band (K6/K7; K1/K2 launch nothing) at the
 # model's window, at JAX's roll-band limit, where the halo is 64, and at
-# W = 257 (JAX's halo of 128, the streamed kernels). The last runs cut to 4
-# blocks: the exact edge rows in plain PyTorch (ops/window.py) keep f32
+# W = 257 (JAX's halo of 128, the wgmma kernels). They run cut to the
+# default paths' 8 blocks, to hold the smoke's time, and the last to 4: the
+# exact edge rows in plain PyTorch (ops/window.py) keep f32
 # [B, h, 2 hw, W, d] slabs of K and V a block for the backward, 2.7 GB each
 # at W = 257, batch 8.
 H14_STREAM_W = 257
 H14_STREAM_DEPTH = 4
 H14_OPTIN_PATHS = (
     _H14("dense ViT-H/14 fused", None, fused, {"FAVIT_FUSED_MHA": "1"},
-         (flash, band), H14_FUSED_IMG),
-    _H14("MHLA-H/14 W=7 tile band", 7, tile, TILE_ENV, (band,)),
+         (flash, band), H14_FUSED_IMG, depth=H14_DEFAULT_DEPTH),
+    _H14("MHLA-H/14 W=7 tile band", 7, tile, TILE_ENV, (band,),
+         depth=H14_DEFAULT_DEPTH),
     _H14(f"MHLA-H/14 W={H14_WIDE_W} tile band", H14_WIDE_W, tile, TILE_ENV,
-         (band,)),
+         (band,), depth=H14_DEFAULT_DEPTH),
     _H14(f"MHLA-H/14 W={H14_STREAM_W} tile band", H14_STREAM_W, tile,
          TILE_ENV, (band,), depth=H14_STREAM_DEPTH),
 )
@@ -5156,17 +5169,17 @@ def phase_h14() -> dict:
 def phase_h14_optin() -> dict:
     """The opt-in ViT-H/14 paths (H14_OPTIN_PATHS) end to end, each in its
     environment, weights carried from seeded Flax-layout trees through
-    ``convert/from_jax.py``: cut to 2 blocks against the CPU, the 32-block
-    model (4 blocks at W=257) served, 3 train steps; MHLA-H/14 at W=129
+    ``convert/from_jax.py``: cut to 2 blocks against the CPU, the model cut
+    to H14_DEFAULT_DEPTH blocks (4 at W=257) served, 3 train steps (the
+    kernels run at full width either way); MHLA-H/14 at W=129
     through the tile band also exported and served from its artifact,
     bit-equal to the live path. Returns the launches by op and path."""
     total = {}
     t0 = time.perf_counter()
-    mhla_sd = flax_vit_mhla_to_state_dict(_h14_flax_tree(True, H14_DEPTH, 19))
-    dense_tree = _without_latent(_h14_flax_tree(True, H14_DEPTH, 19,
-                                                H14_FUSED_IMG))
-    sds = {True: mhla_sd, False: flax_vit_to_state_dict(dense_tree)}
-    del dense_tree
+    sds = {}
+    for p in H14_OPTIN_PATHS:
+        if (p.mhla, p.img, p.depth) not in sds:
+            sds[(p.mhla, p.img, p.depth)] = p.to_sd(p.tree(p.depth, 19))
     small = {True: _h14_flax_tree(True, 2, 21)}
     small[False] = _without_latent(_h14_flax_tree(True, 2, 21,
                                                   H14_FUSED_IMG))
@@ -5178,8 +5191,7 @@ def phase_h14_optin() -> dict:
             counts = total.setdefault(p.label, {})
             with _environ(p.env):
                 phase_h14_parity(p, small[p.mhla])
-                sd = (sds[p.mhla] if p.depth == H14_DEPTH
-                      else p.to_sd(p.tree(p.depth, 19)))
+                sd = sds[(p.mhla, p.img, p.depth)]
                 weights = os.path.join(tmp, f"{p.flag}_{p.img}_{p.depth}"
                                             f"_h14.pt")
                 if not os.path.exists(weights):
@@ -5187,7 +5199,7 @@ def phase_h14_optin() -> dict:
                 counts["serve"] = phase_h14_serve(p, weights)
                 if p.op is tile and p.w == H14_WIDE_W:
                     exported = phase_export(
-                        p.path, None, state_dict=sds[True],
+                        p.path, None, state_dict=sd,
                         geom_flags=p.flags(), img=H14_IMG, batch=H14_BATCH,
                         sizes=H14_SIZES, depth=p.depth, patch=H14_PATCH,
                         name=p.label, bit_equal=True)
@@ -5576,11 +5588,12 @@ def phase_kernel_headdims() -> dict:
     return result
 
 
-# --- the tile band past the staged kernels' range: the streamed kernels ------
+# --- the tile band past the staged kernels' range: the wgmma kernels --------
 
-# K6, K7 and K8 past W = 129 or d = 256 run the streamed kernels of
-# csrc/mhla_tile_band_{fwd,bwd}.cu (the band in 64-key chunks, d in 64-column
-# chunks, output slices over the grid's y). The grid (W, d, B*h, S), f32 and
+# K6, K7 and K8 past W = 129 or d = 256 run the wgmma kernels of
+# csrc/mhla_tile_band_{fwd,bwd}.cu on csrc/tile_band_sm90.cuh (Q kept, K and
+# V tiles by TMA through a deep ring, wgmma; K7 through its p/ds scratch).
+# The grid (W, d, B*h, S), f32 and
 # bf16 against the plain versions: JAX's halo 80, 128 and 352 (W = 131, 257,
 # 683) at MHLA-H/14's d = 80 and at d = 16; the head dims 264, 384 and 768
 # at the model's W = 7 and at wide windows; S = W + 1 and just past 2W
@@ -5598,7 +5611,7 @@ TR_REPS = 10  # CUDA-event medians of the kernels; the plain versions of 3
 
 
 def phase_kernel_tileband_range() -> dict:
-    """K6, K7 (folded) and K8 on the streamed kernels: TR_GRID in f32 and
+    """K6, K7 (folded) and K8 on the wgmma kernels: TR_GRID in f32 and
     bf16 against the plain versions by kernel-tileband's rule; at TR_TIMED
     in bf16 against the plain versions, two K7 runs bit-identical, and each
     form timed beside its plain version, its bound (bytes at 3.35 TB/s or
@@ -5683,7 +5696,7 @@ def phase_kernel_tileband_range() -> dict:
 # and 64 heads through K5, ViT-B/16 (S = 197) with 2 heads and the fused
 # switch through K3/K4's wide blocks with the mask (the flash and band
 # kernels launch nothing there), and MHLA-B/4 with 2 and 1 heads (d = 384,
-# 768) through the tile band's streamed kernels under the tile-band
+# 768) through the tile band's wgmma kernels under the tile-band
 # variables (K1/K2 launch nothing there).
 HD_TILE_2 = "MHLA-B/4 2 heads (d=384) tile band"
 HD_TILE_1 = "MHLA-B/4 1 head (d=768) tile band"
@@ -5762,7 +5775,7 @@ def main() -> None:
     # then dense ViT-H/14 through K3/K4 and MHLA-H/14 through the tile band.
     optin_timing = phase_kernel_h14_optin()
     mark("kernel-h14-optin")
-    # The tile band past W = 129 and d = 256 (the streamed kernels), then
+    # The tile band past W = 129 and d = 256 (the wgmma kernels), then
     # its paths: MHLA-H/14 at W = 257 below, MHLA-B/4 with 2 and 1 heads in
     # the head-count paths.
     range_timing = phase_kernel_tileband_range()
@@ -6009,7 +6022,7 @@ def main() -> None:
                 (f"{stem}_bwd@d{d}", bwd_src, bwd_at, c["train"]["bwd"],
                  t["bwd"]),
             ]
-    # The streamed tile band on its paths: K6/K7 at d = 384 and 768
+    # The wgmma tile band on its paths: K6/K7 at d = 384 and 768
     # (MHLA-B/4 with 2 and 1 heads, W = 7; d = 384 also from its artifact)
     # and at d = 80, W = 257 (MHLA-H/14); K8 there, launched by
     # kernel-tileband-range.
@@ -6049,7 +6062,7 @@ def main() -> None:
                       for key, forms in optin_timing[kind].items()}))
     log("headdims", "head-count paths' launches (the @d rows of the kernels "
                     f"line): {headdims}")
-    log("kernel-tileband-range", "bf16 times of the streamed tile band (ms: "
+    log("kernel-tileband-range", "bf16 times of the wgmma tile band (ms: "
                                  "kernel, plain, library, bound): "
         + json.dumps({f"d={d} W={w}": forms for (d, w), forms in
                       range_timing["tile"].items()}))

@@ -104,9 +104,9 @@
 // W and every head dim that is a multiple of 8, at JAX's halo: up to hw =
 // 64 (W = 129) and d = 256 at d's tile width (zeros past d) in the two
 // wide kernels below (tile_band_bwd_wide_band, tile_band_bwd_wide_keys),
-// past either limit in the two streamed kernels (tile_band_bwd_stream_band,
-// tile_band_bwd_stream_keys); both pairs pass p and ds through a scratch
-// buffer from the wrapper.
+// past either limit, and at d > 128 with W = 128 or 129, in the two wgmma
+// kernels (tile_band_bwd_sm90_band, tile_band_bwd_sm90_rows); both pairs
+// pass p and ds through a scratch buffer from the wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,6 +118,7 @@
 
 #include "band_stage.cuh"
 #include "flash_common.cuh"
+#include "tile_band_sm90.cuh"
 #include "tile_ring.cuh"
 
 namespace {
@@ -959,125 +960,240 @@ __global__ void __launch_bounds__(kStep * 2, D <= 128 ? 2 : 1)
   }
 }
 
-// --- bf16 past the wide kernels' range: the streamed band and keys --------
+// --- bf16 past the wide kernels' range: two wgmma kernels through a scratch
 //
-// The wide band kernel stages the K and V rows of a step's whole band and
-// the keys kernel the Q (G) rows and p/ds tiles of the 64 + 2 halo queries
-// that reach its keys: 230 KB at W = 257 even at d = 80, and whole rows of
-// d. Past halo 64 or d = 256 two streamed kernels take their place, over
-// the same scratch of p/ds tiles and fold sums (csrc/tile_ring.cuh's
-// streamed helpers, flash_wide.cuh's layout: 64-row chunks of 64 columns of
-// d in padded rows, a two-stage cp.async ring, four warps of 16 rows):
-//   - band: a block owns 64 queries and 64 columns of dq (grid y, d / 64
-//     slices). In each of two passes it walks the keys [t - halo,
-//     t + 64 + halo) in chunks of 64, forming the logits (Q K^T) and dP
-//     (G V^T) over all of d chunk by chunk, the block's own dq columns
-//     last (flash_wide.cuh's walk), skipping a warp's dead 16-key blocks.
+// Past hw = 64 or d = 256, and at d > 128 with hw = 64 (tile_ring.cuh
+// sm90_takes), K7 runs in two kernels on tile_band_sm90.cuh's ring (one
+// producer thread loading 64 x 64 tiles by TMA, 3 to 16 stages deep, one
+// consumer warpgroup on wgmma),
+// through the scratch of p/ds tiles and fold sums that the wrapper
+// allocates (the wide kernels' layout):
+//   - band: a block owns the 64 queries [t, t + 64) and keeps their Q and G
+//     in shared memory (2 ceil(d / 64) tiles; where they do not fit beside
+//     the ring, d past 768, tile c of Q or G streams through the ring just
+//     before tile c of K or V instead) while it walks the keys
+//     [t - halo, t + 64 + halo) in chunks of 64 twice, K and V streamed
+//     (positions outside [0, S) as zeros): the logits (Q K^T) and dp
+//     (G V^T) over d's 16-column steps, each once a pass; at positions
+//     outside [0, S) a clamped block takes each query's logit and dp
+//     against row 0 or S - 1, formed once from the kept edge rows.
 //     Pass 1 keeps each query's running maximum, sum of exponentials and
-//     sum of dP times them; pass 2 forms p and ds = p (dP - sum dP p) scale,
-//     adds ds K (ds rounded to bf16) into dq and, in slice 0, writes p and
-//     ds as bf16 tiles into the scratch with the fold sums over clamped
-//     keys. Each pass reads K and V again: 2 (64 + 2 halo) / 64 rows of
-//     each a query row (10 at halo 128), from L2 for the most part, and
-//     each slice recomputes both passes' products.
-//   - keys: a block owns 64 keys and 64 columns of one of dk (ds^T Q) and
-//     dv (p^T G) (grid y: 2 x d / 64); it walks the queries [t - halo,
-//     t + 64 + halo) in chunks of 64, staging their Q (G) columns and the
-//     64 tile columns of its keys, and adds the fold's mass to rows 0 and
-//     S-1 from the fold sums and the edge rows read from device memory.
-//     No product is recomputed: the slice needs only its own columns.
-// The scratch stays 2 (16 + 2 halo) bytes a query for each of p and ds
-// (about 0.5 GB at W = 683, B*h = 128, S = 1370).
+//     sum of dp times them; pass 2 forms p and ds = p (dp - sum dp p) scale,
+//     writes both as bf16 into the query block's scratch tiles, and sums
+//     them over clamped keys for the fold. The logits are formed twice a
+//     query, whatever d: no output columns are held, so nothing is sliced;
+//   - rows: a block owns 64 rows of one of dq (ds K, over the keys of the
+//     queries' band), dk (ds^T Q) and dv (p^T G, over the queries whose
+//     band reaches the keys), and a slice of at most 256 columns
+//     (tb90::slice_width), grid y = 3 x slices. Per chunk of 64 keys
+//     (queries) it loads one 64 x 64 tile of ds or p from the scratch and
+//     the slice's tiles of K (clamped rows), Q or G (zeros outside [0, S)),
+//     and adds their product on wgmma: ds as A read K-major for dq, MN-major
+//     (transposed) for dk and dv, the rows MN-major as B. Chunks of queries
+//     wholly outside [0, S) are skipped. Rows 0 and S - 1 of dk and dv take
+//     the fold's mass as JAX's _bwd_rule adds it: the in-range sum and the
+//     mass each rounded to bf16, then their sum; the block's threads sum the
+//     mass a column pair each over the hw edge queries.
+// So p and ds are formed once a query (the streamed kernels they replaced
+// formed them again for every 64 columns of dq), ds is rounded to bf16
+// before ds K (and dk), and every output element is one thread's sum in a
+// fixed order: two runs give the same bits. The scratch keeps its layout
+// (2 (16 + 2 halo) bytes a query for each of p and ds, and 8 bytes of fold
+// sums), written once and read twice (ds by dq and dk).
 
-__global__ void __launch_bounds__(fw::kThreads)
-    tile_band_bwd_stream_band(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
-                              const bf16* __restrict__ g,
-                              bf16* __restrict__ dq, Scratch scr, int s,
-                              int steps, int d, int hw, int halo,
-                              float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage b: Q, G, K, V
-  constexpr int E = fw::kChunkElems;
+// Maps (tile_band_sm90.cuh): tq, tg, tk, tv over the [rows, s, d] tensors
+// (64 x 64 boxes; K's and V's positions outside [0, s) arrive as zeros),
+// tk1 and tv1 over k and v with one-row boxes (the edge rows). kKeep: Q
+// and G kept in shared memory (two blocks an SM where they fit), else
+// streamed through the ring (one block an SM: its registers), and q and g
+// themselves read for the logits and dp against the edge rows.
+template <bool kKeep>
+__global__ void __launch_bounds__(tb90::kThreads, kKeep ? 2 : 1)
+    tile_band_bwd_sm90_band(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tg,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tk1,
+                            const __grid_constant__ CUtensorMap tv1,
+                            const bf16* __restrict__ q,
+                            const bf16* __restrict__ g, Scratch scr, int s,
+                            int steps, int d, int hw, int halo, int ns,
+                            float scale) {
+  namespace hp = hopper;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * tb90::kMaxStages + 2];
+  // A clamped block's logits and dp of each query against row 0 and row
+  // s - 1 of K and V (q.k_0, q.k_{s-1}, g.v_0, g.v_{s-1}): every position
+  // outside [0, s) in the band takes them.
+  __shared__ float edge_dots[4][kStep];
+  uint8_t* smem = hp::align1024(smem_raw);
+  const int nd = tb90::col_tiles(d);
+  // With kKeep, nd tiles of Q, then of G, before the ring.
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* gs = qs + nd * tb90::kTileElems;
+  const tb90::Ring ring = tb90::make_ring(
+      smem, kKeep ? 2 * nd * tb90::kTileBytes : 0, bars, ns);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int gq = lane >> 2;
-  const int t4 = lane & 3;
-  const long long row = blockIdx.x / steps;
+  const int row = static_cast<int>(blockIdx.x / steps);
   const int t = static_cast<int>(blockIdx.x % steps) * kStep;
-  const int slice = blockIdx.y;
-  const int64_t base = row * static_cast<int64_t>(s) * d;
-  const int nc = (d + fw::kCh - 1) / fw::kCh;
   const int k0 = t - halo;
-  const int nk = (kStep + 2 * halo + kChunk - 1) / kChunk;
-  const int total = nk * nc;  // items a pass
-  const int qb = t + 16 * warp;  // the warp's first query
-  const int r = qb + gq;         // its rows r and r + 8
+  const int nk = (kStep + 2 * halo + 63) / 64;
+  // Chunks that leave the row: their positions outside [0, s) are copies
+  // of row 0 or s - 1 (the clamped band), which the consumers take from the
+  // edge rows.
+  const bool clamped = k0 < 0 || k0 + 64 * nk > s;
+  const tb90::Edges ed = ring.edge_rows(d);
+
+  if (warp == tb90::kConsumers / 32) {
+    // The producer warp: Q and G (one thread, with kKeep), the edge rows
+    // where the chunks leave the row, then each pass's K and V tiles, chunk
+    // by chunk, each after its Q or G tile without kKeep.
+    if (kKeep && lane == 0) {
+      hp::mbar_arrive_expect_tx(ring.kept, 2 * nd * tb90::kTileBytes);
+      for (int c = 0; c < nd; ++c) {
+        hp::tma_load_3d(qs + c * tb90::kTileElems, &tq, ring.kept, 64 * c, t,
+                        row);
+        hp::tma_load_3d(gs + c * tb90::kTileElems, &tg, ring.kept, 64 * c, t,
+                        row);
+      }
+    }
+    if (clamped) tb90::load_edges(ed, &tk1, &tv1, ring.edges, s, row, lane);
+    int i = 0;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int j = 0; j < nk; ++j) {
+        for (int x = 0; x < 2; ++x) {
+          for (int c = 0; c < nd; ++c, ++i) {
+            if (!kKeep) {
+              tb90::load_full(ring.tile(i), x ? &tg : &tq, ring.acquire(i),
+                              64 * c, t, row, lane);
+              ++i;
+            }
+            tb90::load_full(ring.tile(i), x ? &tv : &tk, ring.acquire(i),
+                            64 * c, k0 + 64 * j, row, lane);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: query rows r and r + 8 of the warp's 16-query
+  // block qb, columns 8 j + 2 wq (+1) of each chunk.
+  const int gq = lane >> 2;
+  const int wq = lane & 3;
+  const int qb = t + 16 * warp;
+  const int r = qb + gq;
   const int lt = 16 + 2 * halo;
   const int nqb = (s + 15) / 16;
-  const bool tiles_out = slice == 0 && qb < s;  // this warp writes scratch
-  const int64_t tile0 = (row * nqb + qb / 16) * 16 * lt;
+  const bool tiles_out = qb < s;  // the warp's query block has tiles
+  const int64_t tile0 = (static_cast<int64_t>(row) * nqb + qb / 16) * 16 * lt;
   const bool edge = qb < halo || qb + 16 + halo > s;
-
-  auto issue = [&](int i) {
-    bf16* st = ring + (i & 1) * 4 * E;
-    const int e = i % total;
-    const int c0 = fw::walk_chunk(e % nc, slice, nc) * fw::kCh;
-    const int kj = k0 + (e / nc) * kChunk;
-    stage_rows<fw::kCh, fw::kPitch>(st, q + base, t, c0, 0, s, false, d);
-    stage_rows<fw::kCh, fw::kPitch>(st + E, g + base, t, c0, 0, s, false, d);
-    stage_rows<fw::kCh, fw::kPitch>(st + 2 * E, k + base, kj, c0, 0, s, true,
-                                    d);
-    stage_rows<fw::kCh, fw::kPitch>(st + 3 * E, v + base, kj, c0, 0, s, true,
-                                    d);
-  };
-
+  float sa[32], pa[32];
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
   float fk[2] = {0.f, 0.f}, fv[2] = {0.f, 0.f};
-  float dq_acc[fw::kBwdSlice / 2];
+  int i = 0;
+  if (kKeep) hp::mbar_wait(ring.kept, 0);
+  if (clamped) {
+    hp::mbar_wait(ring.edges, 0);
 #pragma unroll
-  for (int i = 0; i < fw::kBwdSlice / 2; ++i) dq_acc[i] = 0.f;
-  float sa[32], pa[32];
+    for (int h = 0; h < 2; ++h) {
+      const int rr = 16 * warp + gq + 8 * h;
+      float dot[4] = {0.f, 0.f, 0.f, 0.f};
+      // Without kKeep from device memory: a query past s has zero rows
+      // (its dots 0) there, as the kept tiles hold.
+      const int64_t at = (static_cast<int64_t>(row) * s + t + rr) * d;
+      for (int c = 2 * wq; c < d && (kKeep || t + rr < s); c += 8) {
+        const float2 x = kKeep ? tb90::kept_pair(qs, rr, c)
+                               : tb90::row_pair(q + at, c);
+        const float2 y = kKeep ? tb90::kept_pair(gs, rr, c)
+                               : tb90::row_pair(g + at, c);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 e = tb90::edge_pair(ed, u >> 1, u & 1, c);
+          const float2 z = u < 2 ? x : y;
+          dot[u] += z.x * e.x + z.y * e.y;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], 1);
+        dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], 2);
+        if (wq == 0) edge_dots[u][rr] = dot[u];
+      }
+    }
+    __syncwarp();  // a warp reads its own rows' dots
+  }
 
-  issue(0);
-  fw::commit();
+  // The logits (sa) and dp (pa) of chunk j, each product a committed group
+  // of kPer ring items (K or V, after its Q or G tile without kKeep), which
+  // are released once the product after it has been issued. The positions
+  // of a clamped chunk outside [0, s) take the edge rows'.
+  constexpr int kPer = kKeep ? 1 : 2;
+  auto scores = [&](int kj) {
+    hp::fence_regs(sa);
+    hp::fence_regs(pa);
+    for (int x = 0; x < 2; ++x) {
+      for (int c = 0; c < nd; ++c, ++i) {
+        if constexpr (!kKeep) ring.wait(i++);  // the Q or G tile
+        ring.wait(i);
+        hp::wgmma_fence();
+        if (x == 0) {
+          tb90::tile_product<0, 0>(
+              sa, kKeep ? qs + c * tb90::kTileElems : ring.tile(i - 1),
+              ring.tile(i), tb90::steps_of(d, c), c > 0);
+        } else {
+          tb90::tile_product<0, 0>(
+              pa, kKeep ? gs + c * tb90::kTileElems : ring.tile(i - 1),
+              ring.tile(i), tb90::steps_of(d, c), c > 0);
+        }
+        hp::wgmma_commit();
+        if (x > 0 || c > 0) {
+          hp::wgmma_wait<1>();
+          ring.release_last(i - kPer, kPer, lane);
+        }
+      }
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sa);
+    hp::fence_regs(pa);
+    ring.release_last(i - 1, kPer, lane);
+    if (clamped && (kj < 0 || kj + 64 > s)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int key = kj + (e >> 2) * 8 + 2 * wq + (e & 1);
+        const int rr = 16 * warp + gq + 8 * ((e >> 1) & 1);
+        if (key < 0) {
+          sa[e] = edge_dots[0][rr];
+          pa[e] = edge_dots[2][rr];
+        } else if (key >= s) {
+          sa[e] = edge_dots[1][rr];
+          pa[e] = edge_dots[3][rr];
+        }
+      }
+    }
+  };
+
+  // Logits in log2 units (scaled by d^-1/2 log2 e); ds keeps d^-1/2.
+  const float scale2 = scale * 1.4426950408889634f;
   for (int pass = 0; pass < 2; ++pass) {
     for (int j = 0; j < nk; ++j) {
-      const int kj = k0 + j * kChunk;
-      bool live[4];
-      chunk_live(live, kj, qb, hw);
-      const bool any = live[0] || live[1] || live[2] || live[3];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sa[i] = pa[i] = 0.f;
-      const bf16* last = ring;
-      for (int c = 0; c < nc; ++c) {
-        const int i = (pass * nk + j) * nc + c;
-        fw::wait_all();
-        __syncthreads();  // item i landed; the products of i - 1 are done
-        if (i + 1 < 2 * total) issue(i + 1);
-        fw::commit();
-        const bf16* st = ring + (i & 1) * 4 * E;
-        if (any) {
-          const int kks = steps_below(
-              d, fw::walk_chunk(c, slice, nc) * fw::kCh, fw::kCh);
-          band_product(sa, st, st + 2 * E, warp, lane, live, kks);
-          band_product(pa, st + E, st + 3 * E, warp, lane, live, kks);
-        }
-        last = st;
-      }
+      const int kj = k0 + 64 * j;
+      scores(kj);
       if (pass == 0) {
-        if (!any) continue;
+        // A chunk inside every row's band needs no mask.
+        const bool inside = kj + 63 - t <= hw && t + 63 - kj <= hw;
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int h = (i >> 1) & 1;
-          const int off = kj + (i >> 2) * 8 + 2 * t4 + (i & 1) - (r + 8 * h);
-          sa[i] = (off >= -hw && off <= hw) ? sa[i] * scale : -INFINITY;
-          mx[h] = fmaxf(mx[h], sa[i]);
+        for (int e = 0; e < 32; ++e) {
+          const int h = (e >> 1) & 1;
+          const int off = kj + (e >> 2) * 8 + 2 * wq + (e & 1) - (r + 8 * h);
+          sa[e] = (inside || (off >= -hw && off <= hw)) ? sa[e] * scale2
+                                                         : -INFINITY;
+          mx[h] = fmaxf(mx[h], sa[e]);
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -1085,62 +1201,57 @@ __global__ void __launch_bounds__(fw::kThreads)
           mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
           const float m_new = fmaxf(m[h], mx[h]);
           if (m_new == -INFINITY) continue;  // no key of these rows yet
-          const float alpha = expf(m[h] - m_new);
+          const float alpha = exp2f(m[h] - m_new);
           l[h] *= alpha;
           rs[h] *= alpha;
           m[h] = m_new;
         }
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int h = (i >> 1) & 1;
-          if (sa[i] == -INFINITY) continue;
-          const float e = expf(sa[i] - m[h]);
-          l[h] += e;
-          rs[h] += pa[i] * e;
+        for (int e = 0; e < 32; ++e) {
+          const int h = (e >> 1) & 1;
+          if (sa[e] == -INFINITY) continue;  // m may still be -inf
+          const float x = exp2f(sa[e] - m[h]);
+          l[h] += x;
+          rs[h] += pa[e] * x;
         }
         continue;
       }
       // Pass 2: p and ds (0 off the band and for rows past S), the fold
-      // sums over clamped keys, the tiles, dq += ds K.
+      // sums over clamped keys, the scratch tiles.
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int h = (i >> 1) & 1;
-        const int key = kj + (i >> 2) * 8 + 2 * t4 + (i & 1);
+      for (int e = 0; e < 32; ++e) {
+        const int h = (e >> 1) & 1;
+        const int key = kj + (e >> 2) * 8 + 2 * wq + (e & 1);
         const int off = key - (r + 8 * h);
-        const bool in = any && off >= -hw && off <= hw && r + 8 * h < s;
-        const float p = in ? expf(sa[i] * scale - m[h]) / l[h] : 0.f;
-        const float ds = in ? (p * (pa[i] - rs[h])) * scale : 0.f;
+        const bool in = off >= -hw && off <= hw && r + 8 * h < s;
+        const float p = in ? exp2f(sa[e] * scale2 - m[h]) * l[h] : 0.f;
+        const float ds = in ? (p * (pa[e] - rs[h])) * scale : 0.f;
         if (edge && in && (key < 0 || key >= s)) {
           fk[h] += ds;
           fv[h] += p;
         }
-        sa[i] = p;
-        pa[i] = ds;
+        sa[e] = p;
+        pa[e] = ds;
       }
       if (tiles_out) {
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-          const int col = 64 * j - 16 * warp + 8 * nt + 2 * t4;
+          const int col = 64 * j - 16 * warp + 8 * nt + 2 * wq;
           if (col < 0 || col >= lt) continue;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int64_t at = tile0 + (gq + 8 * h) * lt + col;
-            const int i = 4 * nt + 2 * h;
+            const int e = 4 * nt + 2 * h;
             *reinterpret_cast<uint32_t*>(scr.p + at) =
-                flash::pack_bf16(sa[i], sa[i + 1]);
+                flash::pack_bf16(sa[e], sa[e + 1]);
             *reinterpret_cast<uint32_t*>(scr.ds + at) =
-                flash::pack_bf16(pa[i], pa[i + 1]);
+                flash::pack_bf16(pa[e], pa[e + 1]);
           }
         }
       }
-      if (any) {
-        band_weights<fw::kBwdSlice, fw::kPitch>(
-            dq_acc, pa, last + 2 * E, lane, live,
-            steps_below(d, slice * fw::kBwdSlice, fw::kBwdSlice));
-      }
     }
     if (pass == 0) {
-      // The rows' sums over the quad; rs becomes sum dP p.
+      // The rows' sums over the quad; rs becomes sum dp p.
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -1148,25 +1259,22 @@ __global__ void __launch_bounds__(fw::kThreads)
         rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
         rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
         rs[h] /= l[h];
+        l[h] = 1.f / l[h];  // from here on the sum's reciprocal
       }
     }
   }
-  if (slice == 0) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      fk[h] += __shfl_xor_sync(0xffffffffu, fk[h], 1);
-      fk[h] += __shfl_xor_sync(0xffffffffu, fk[h], 2);
-      fv[h] += __shfl_xor_sync(0xffffffffu, fv[h], 1);
-      fv[h] += __shfl_xor_sync(0xffffffffu, fv[h], 2);
-      const int i = r + 8 * h;
-      if (t4 == 0 && i < s) {
-        scr.fk[row * s + i] = fk[h];
-        scr.fv[row * s + i] = fv[h];
-      }
+  for (int h = 0; h < 2; ++h) {
+    fk[h] += __shfl_xor_sync(0xffffffffu, fk[h], 1);
+    fk[h] += __shfl_xor_sync(0xffffffffu, fk[h], 2);
+    fv[h] += __shfl_xor_sync(0xffffffffu, fv[h], 1);
+    fv[h] += __shfl_xor_sync(0xffffffffu, fv[h], 2);
+    const int qi = r + 8 * h;
+    if (wq == 0 && qi < s) {
+      scr.fk[static_cast<int64_t>(row) * s + qi] = fk[h];
+      scr.fv[static_cast<int64_t>(row) * s + qi] = fv[h];
     }
   }
-  fw::store_rows<fw::kBwdSlice>(dq + base, dq_acc, r, slice * fw::kBwdSlice,
-                                s, d);
 }
 
 // x rounded to bf16 and back.
@@ -1174,141 +1282,222 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// The keys kernel's shared memory: two stages of 64 rows and 64 tile rows.
-constexpr int kStreamKeysSmem = 4 * fw::kChunkElems * 2;
+// The rows kernel's roles (grid y = 3 slice + role).
+constexpr int kRoleDq = 0;
+constexpr int kRoleDk = 1;
+constexpr int kRoleDv = 2;
 
-__global__ void __launch_bounds__(fw::kThreads)
-    tile_band_bwd_stream_keys(const bf16* __restrict__ q,
-                              const bf16* __restrict__ g,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv,
-                              Scratch scr, int s, int steps, int d, int hw,
-                              int halo) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage b: rows, tiles
-  constexpr int E = fw::kChunkElems;
+// Maps: tp and tds over the scratch's p and ds (tb90::map_scratch), tk,
+// tq, tg over the [rows, s, d] tensors (64 x 64 boxes; positions outside
+// [0, s) arrive as zeros), tk1 and tv1 over k and v with one-row boxes (the
+// edge rows); q and g themselves for the fold.
+template <int NO>
+__global__ void __launch_bounds__(tb90::kThreads, NO <= 128 ? 2 : 1)
+    tile_band_bwd_sm90_rows(const __grid_constant__ CUtensorMap tp,
+                            const __grid_constant__ CUtensorMap tds,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tk1,
+                            const __grid_constant__ CUtensorMap tv1,
+                            const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tg,
+                            const bf16* __restrict__ q,
+                            const bf16* __restrict__ g,
+                            bf16* __restrict__ dq, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, Scratch scr, int s,
+                            int steps, int d, int hw, int halo, int ns) {
+  namespace hp = hopper;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * tb90::kMaxStages + 2];
+  __shared__ float mass[NO];  // the fold's mass of one edge row
+  uint8_t* smem = hp::align1024(smem_raw);
+  const tb90::Ring ring = tb90::make_ring(smem, 0, bars, ns);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int gq = lane >> 2;
-  const int t4 = lane & 3;
-  const int mi = lane >> 3;
-  const bool is_dv = blockIdx.y & 1;
-  const int c0 = (blockIdx.y >> 1) * fw::kBwdSlice;
-  const long long row = blockIdx.x / steps;
+  const int role = blockIdx.y % 3;
+  const int c0 = (blockIdx.y / 3) * NO;
+  const int nv = min(NO / 64, tb90::col_tiles(d - c0));
+  const int row = static_cast<int>(blockIdx.x / steps);
   const int t = static_cast<int>(blockIdx.x % steps) * kStep;
-  const int64_t base = row * static_cast<int64_t>(s) * d;
-  const bf16* xs = (is_dv ? g : q) + base;  // the rows of the products
-  const int lt = 16 + 2 * halo;
-  const int nqb = (s + 15) / 16;
-  const bf16* tiles = (is_dv ? scr.p : scr.ds) +
-                      row * static_cast<int64_t>(nqb) * 16 * lt;
-  const int q0 = t - halo;
-  const int nq = (kStep + 2 * halo + kChunk - 1) / kChunk;
-  const int kb = t + 16 * warp;  // the warp's first key
-  const int nps = steps_below(d, c0, fw::kBwdSlice);
-
-  // Query rows [qm, qm + 64): their X columns [c0, c0 + 64), and their
-  // tiles' columns of the keys [t, t + 64) (tile column c of the block at
-  // qb holds key qb - halo + c), zeros outside the tiles.
-  auto issue = [&](int m_) {
-    bf16* st = ring + (m_ & 1) * 2 * E;
-    const int qm = q0 + m_ * kChunk;
-    stage_rows<fw::kCh, fw::kPitch>(st, xs, qm, c0, 0, s, false, d);
-#pragma unroll
-    for (int f0 = 0; f0 < kChunk * 8; f0 += fw::kThreads) {
-      const int f = f0 + tid;
-      const int rr = f / 8;
-      const int e = (f % 8) * 8;
-      const int qi = qm + rr;
-      const int col = t - (qi & ~15) + halo + e;
-      const bool real = qi >= 0 && qi < 16 * nqb && col >= 0 && col < lt;
-      fw::cp16(st + E + rr * fw::kPitch + e,
-               real ? tiles + static_cast<int64_t>(qi) * lt + col : tiles,
-               real);
-    }
+  const int64_t base = static_cast<int64_t>(row) * s * d;
+  const int nq = (s + 15) / 16 * 16;  // queries with scratch rows
+  const int k0 = t - halo;
+  const int nk = (kStep + 2 * halo + 63) / 64;
+  // Chunk j: keys (dq) or queries (dk, dv) [k0 + 64 j, + 64); a chunk of
+  // queries wholly outside the scratch rows adds nothing.
+  auto live = [&](int j) {
+    const int j0 = k0 + 64 * j;
+    return role == kRoleDq || (j0 + 64 > 0 && j0 < nq);
   };
+  // dq's chunks that leave the row: their keys outside [0, s) are row 0 or
+  // s - 1 of K (the clamped band), which the consumers add from the edge
+  // rows.
+  const bool clamped = role == kRoleDq && (k0 < 0 || k0 + 64 * nk > s);
+  const tb90::Edges ed = ring.edge_rows(d);
 
-  float acc[fw::kBwdSlice / 2];
-#pragma unroll
-  for (int i = 0; i < fw::kBwdSlice / 2; ++i) acc[i] = 0.f;
+  if (warp == tb90::kConsumers / 32) {
+    // The producer warp: per chunk the p or ds tile (one thread), then the
+    // slice's tiles of K, Q or G.
+    const CUtensorMap* pds = role == kRoleDv ? &tp : &tds;
+    const CUtensorMap* xs =
+        role == kRoleDq ? &tk : (role == kRoleDk ? &tq : &tg);
+    if (clamped) tb90::load_edges(ed, &tk1, &tv1, ring.edges, s, row, lane);
+    int i = 0;
+    for (int j = 0; j < nk; ++j) {
+      if (!live(j)) continue;
+      const int j0 = k0 + 64 * j;
+      uint64_t* bar = ring.acquire(i);
+      if (lane == 0) {
+        hp::mbar_arrive_expect_tx(bar, tb90::kTileBytes);
+        if (role == kRoleDq) {
+          tb90::load_scratch(ring.tile(i), pds, bar, t, j0, halo, row);
+        } else {
+          tb90::load_scratch(ring.tile(i), pds, bar, j0, t, halo, row);
+        }
+      }
+      ++i;
+      for (int vb = 0; vb < nv; ++vb, ++i) {
+        tb90::load_full(ring.tile(i), xs, ring.acquire(i), c0 + 64 * vb, j0,
+                        row, lane);
+      }
+    }
+    return;
+  }
 
-  issue(0);
-  fw::commit();
-  for (int m_ = 0; m_ < nq; ++m_) {
-    fw::wait_all();
-    __syncthreads();  // chunk m_ landed; the products of m_ - 1 are done
-    if (m_ + 1 < nq) issue(m_ + 1);
-    fw::commit();
-    const bf16* st = ring + (m_ & 1) * 2 * E;
-    bool live[4];
-    chunk_live(live, q0 + m_ * kChunk, kb, hw);
+  float acc[NO / 2];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (!live[u]) continue;
-      // A = the tile block transposed: keys (m) by queries (k).
-      uint32_t a[4];
-      flash::ldsm_x4_trans(
-          a, st + E + (16 * u + (lane & 7) + 8 * (mi >> 1)) * fw::kPitch +
-                 16 * warp + 8 * (mi & 1));
+  for (int e = 0; e < NO / 2; ++e) acc[e] = 0.f;
+  // dq of a clamped block: each query's ds at keys below 0 (sl) and past
+  // s - 1 (sh), as the tiles hold them (bf16), summed; added times row 0
+  // and s - 1 of K after the chunks (the K tiles hold zeros there).
+  const int gq = lane >> 2;
+  const int wq = lane & 3;
+  float sl[2] = {0.f, 0.f}, sh[2] = {0.f, 0.f};
+  int i = 0;
+  for (int j = 0; j < nk; ++j) {
+    if (!live(j)) continue;
+    const int it = i++;  // the chunk's p or ds tile, kept to its end
+    ring.wait(it);
+    const bf16* a = ring.tile(it);
+    const int j0 = k0 + 64 * j;
+    if (clamped && (j0 < 0 || j0 + 64 > s)) {
 #pragma unroll
-      for (int np = 0; np < fw::kBwdSlice / 16; ++np) {
-        if (np >= nps) break;
-        uint32_t bf[4];
-        flash::ldsm_x4_trans(
-            bf, fw::at_a<fw::kPitch>(st + u * 16 * fw::kPitch, lane, np * 16));
-        fw::mma(acc + 8 * np, a, bf[0], bf[1]);
-        fw::mma(acc + 8 * np + 4, a, bf[2], bf[3]);
+      for (int h = 0; h < 2; ++h) {
+        for (int c = 2 * wq; c < 64; c += 8) {
+          const float2 x = tb90::kept_pair(a, 16 * warp + gq + 8 * h, c);
+          const int key = j0 + c;
+          if (key < 0) sl[h] += x.x;
+          if (key >= s) sh[h] += x.x;
+          if (key + 1 < 0) sl[h] += x.y;
+          if (key + 1 >= s) sh[h] += x.y;
+        }
+      }
+    }
+    hp::fence_regs(acc);
+#pragma unroll
+    for (int vb = 0; vb < NO / 64; ++vb) {
+      if (vb >= nv) break;
+      ring.wait(i);
+      hp::wgmma_fence();
+      if (role == kRoleDq) {
+        tb90::tile_product<0, 1>(hp::slice<32>(acc, 32 * vb), a, ring.tile(i),
+                                 4, true);
+      } else {
+        tb90::tile_product<1, 1>(hp::slice<32>(acc, 32 * vb), a, ring.tile(i),
+                                 4, true);
+      }
+      hp::wgmma_commit();
+      if (vb > 0) {
+        hp::wgmma_wait<1>();
+        ring.release(i - 1, lane);
+      }
+      ++i;
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    ring.release(i - 1, lane);
+    ring.release(it, lane);
+  }
+
+  if (clamped) {
+    hp::mbar_wait(ring.edges, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int sh_ = 1; sh_ <= 2; sh_ <<= 1) {
+        sl[h] += __shfl_xor_sync(0xffffffffu, sl[h], sh_);
+        sh[h] += __shfl_xor_sync(0xffffffffu, sh[h], sh_);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < NO / 8; ++jj) {
+      const int col = c0 + 8 * jj + 2 * wq;
+      if (col >= d) break;
+      const float2 lo = tb90::edge_pair(ed, 0, 0, col);
+      const float2 hi = tb90::edge_pair(ed, 0, 1, col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[4 * jj + 2 * h] += sl[h] * lo.x + sh[h] * hi.x;
+        acc[4 * jj + 2 * h + 1] += sl[h] * lo.y + sh[h] * hi.y;
       }
     }
   }
-  // The fold: row 0 gets sum_{r < hw} f_r x_r, row S-1 the same over
-  // r >= S - hw (f the query's sum over its clamped keys, x its Q or G).
-  // As JAX's _bwd_rule adds them: the row's in-range sum and the fold's
-  // mass each rounded to bf16, then their sum (the staged kernels round
-  // once; the two differ by an ulp on those two rows).
-  if (hw > 0) {
-    const float* fold = (is_dv ? scr.fv : scr.fk) + row * s;
-    auto add_edge = [&](int r0, int r1, int rho) {
-      if (gq != (rho & 7)) return;
-      const bool hi = rho >= 8;
-      float mass[fw::kBwdSlice / 8][2] = {};
-      for (int rq = r0; rq < r1; ++rq) {
-        const float f = fold[rq];
-        const bf16* x = xs + static_cast<int64_t>(rq) * d + c0;
-#pragma unroll
-        for (int nt = 0; nt < fw::kBwdSlice / 8; ++nt) {
-          const int col = 8 * nt + 2 * t4;
-          if (c0 + col >= d) break;
-          const __nv_bfloat162 xv =
-              *reinterpret_cast<const __nv_bfloat162*>(x + col);
-          mass[nt][0] += f * __low2float(xv);
-          mass[nt][1] += f * __high2float(xv);
+
+  // The fold: row 0 of dk (dv) gets sum_{r < hw} f_r x_r, row S-1 the same
+  // over r >= S - hw (f the query's sum over its clamped keys, x its Q or
+  // G), as JAX's _bwd_rule adds them: the row's in-range sum and the mass
+  // each rounded to bf16, then their sum.
+  if (role != kRoleDq && hw > 0) {
+    const float* fold =
+        (role == kRoleDk ? scr.fk : scr.fv) + static_cast<int64_t>(row) * s;
+    const bf16* xs = (role == kRoleDk ? q : g) + base;
+    for (int side = 0; side < 2; ++side) {
+      const int key = side == 0 ? 0 : s - 1;
+      if (key < t || key >= t + kStep) continue;
+      const int r0 = side == 0 ? 0 : max(s - hw, 0);
+      const int r1 = side == 0 ? min(hw, s) : s;
+      const int col = c0 + 2 * tid;
+      float m0 = 0.f, m1 = 0.f;
+      if (2 * tid < NO && col < d) {
+        for (int rq = r0; rq < r1; ++rq) {
+          const float f = fold[rq];
+          const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+              xs + static_cast<int64_t>(rq) * d + col);
+          m0 += f * __low2float(x);
+          m1 += f * __high2float(x);
         }
       }
-      // Rows rho and rho + 8 hold acc[4 nt + 0, 1] and [4 nt + 2, 3]: each
-      // index a constant, so that acc stays in registers.
+      hp::named_sync(tb90::kConsumerBar, tb90::kConsumers);
+      if (2 * tid < NO) {
+        mass[2 * tid] = m0;
+        mass[2 * tid + 1] = m1;
+      }
+      hp::named_sync(tb90::kConsumerBar, tb90::kConsumers);
+      const int rr = key - t;
+      if (warp == rr >> 4 && gq == (rr & 7)) {
+        const bool hi = (rr >> 3) & 1;
+        // Each index a constant, so that acc stays in registers.
 #pragma unroll
-      for (int nt = 0; nt < fw::kBwdSlice / 8; ++nt) {
+        for (int nt = 0; nt < NO / 8; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float a = hi ? acc[4 * nt + 2 + e] : acc[4 * nt + e];
-          const float b = round_bf16(round_bf16(a) + round_bf16(mass[nt][e]));
-          if (hi) {
-            acc[4 * nt + 2 + e] = b;
-          } else {
-            acc[4 * nt + e] = b;
+          for (int e = 0; e < 2; ++e) {
+            const float a0 = hi ? acc[4 * nt + 2 + e] : acc[4 * nt + e];
+            const float mv = mass[8 * nt + 2 * wq + e];
+            const float b = round_bf16(round_bf16(a0) + round_bf16(mv));
+            if (hi) {
+              acc[4 * nt + 2 + e] = b;
+            } else {
+              acc[4 * nt + e] = b;
+            }
           }
         }
       }
-    };
-    if (kb <= 0 && 0 < kb + 16) add_edge(0, min(hw, s), -kb);
-    if (kb <= s - 1 && s - 1 < kb + 16) {
-      add_edge(max(s - hw, 0), s, s - 1 - kb);
     }
   }
-  fw::store_rows<fw::kBwdSlice>((is_dv ? dv : dk) + base, acc, kb + gq, c0,
-                                s, d);
+  tb90::store_acc<NO>(
+      (role == kRoleDq ? dq : role == kRoleDk ? dk : dv) + base, acc, t, c0, s,
+      d, tid);
 }
 
 // --- f32: scalar FMA ---------------------------------------------------------
@@ -1567,37 +1756,131 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The streamed kernels: band (64 queries, 64 dq columns a block), then keys
-// (64 keys, 64 columns of dk or dv).
-cudaError_t launch_stream(const void* q, const void* k, const void* v,
-                          const void* g, void* dq, void* dk, void* dv,
-                          void* scratch, int64_t rows, int s, int d, int hw,
-                          float scale, cudaStream_t stream) {
+// The maps of the wgmma kernels (tile_band_sm90.cuh): q, g, k, v with
+// 64 x 64 boxes, k and v with one-row boxes (the edge rows), the scratch's
+// p and ds.
+struct Maps {
+  CUtensorMap q, g, k, v, k1, v1, p, ds;
+};
+
+cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v,
+                      const void* g, const Scratch& scr, int64_t rows, int s,
+                      int d, int halo) {
+  const void* src[6] = {q, g, k, v, k, v};
+  CUtensorMap* dst[6] = {&m->q, &m->g, &m->k, &m->v, &m->k1, &m->v1};
+  for (int x = 0; x < 6; ++x) {
+    const cudaError_t err =
+        tb90::map_rows(dst[x], src[x], rows, s, d, x < 4 ? 64 : 1);
+    if (err != cudaSuccess) return err;
+  }
+  const int nqb = (s + 15) / 16;
+  const cudaError_t err =
+      tb90::map_scratch(&m->p, scr.p, rows, nqb, 16 + 2 * halo);
+  if (err != cudaSuccess) return err;
+  return tb90::map_scratch(&m->ds, scr.ds, rows, nqb, 16 + 2 * halo);
+}
+
+// The rows kernel's ring stages (no kept tiles; the edge rows after it).
+inline int rows_stages(int d, int no) {
+  return tb90::ring_stages(tb90::edge_bytes(d), no <= 128 ? 2 : 1);
+}
+
+// The rows kernel at output slices of NO columns.
+template <int NO>
+cudaError_t launch_rows(const Maps& m, const void* q, const void* g,
+                        void* dq, void* dk, void* dv, const Scratch& scr,
+                        int64_t rows, int s, int d, int hw,
+                        cudaStream_t stream) {
+  const int ns = rows_stages(d, NO);
+  const int smem = tb90::smem_bytes(0, ns, tb90::edge_bytes(d));
+  const cudaError_t err = cudaFuncSetAttribute(
+      tile_band_bwd_sm90_rows<NO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int steps = (s + kStep - 1) / kStep;
+  const unsigned slices = (d + NO - 1) / NO;
+  tile_band_bwd_sm90_rows<NO>
+      <<<dim3(static_cast<unsigned>(rows * steps), 3 * slices),
+         tb90::kThreads, smem, stream>>>(
+          m.p, m.ds, m.k, m.k1, m.v1, m.q, m.g,
+          static_cast<const bf16*>(q), static_cast<const bf16*>(g),
+          static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), scr, s, steps, d, hw, halo_of(hw), ns);
+  return cudaGetLastError();
+}
+
+// The band kernel's ring stages beside Q's and G's tiles (keep): two blocks
+// an SM where that leaves at least kMinStages, else one; where neither
+// does, no kept tiles and Q and G through the ring (at least kStreamStages,
+// one block an SM). *resident: the kept tiles' bytes.
+inline int band_stages(int d, int* keep, int* resident) {
+  const int edges = tb90::edge_bytes(d);
+  const int kept = 2 * tb90::col_tiles(d) * tb90::kTileBytes;
+  *keep = 1;
+  *resident = kept;
+  for (int per_sm = 2; per_sm >= 1; --per_sm) {
+    const int ns = tb90::ring_stages(kept + edges, per_sm);
+    if (ns) return ns;
+  }
+  *keep = 0;
+  *resident = 0;
+  return tb90::ring_stages(edges, 1, tb90::kStreamStages);
+}
+
+// The band kernel with Q and G kept (kKeep) or streamed.
+template <bool kKeep>
+cudaError_t launch_band(const Maps& m, const void* q, const void* g,
+                        const Scratch& scr, int64_t rows, int s, int steps,
+                        int d, int hw, int halo, int ns, int smem, float scale,
+                        cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      tile_band_bwd_sm90_band<kKeep>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  tile_band_bwd_sm90_band<kKeep>
+      <<<static_cast<unsigned>(rows * steps), tb90::kThreads, smem, stream>>>(
+          m.q, m.g, m.k, m.v, m.k1, m.v1, static_cast<const bf16*>(q),
+          static_cast<const bf16*>(g), scr, s, steps, d, hw, halo, ns, scale);
+  return cudaGetLastError();
+}
+
+// The wgmma kernels: band (64 queries a block), then rows (64 rows of dq,
+// dk or dv and a slice of columns a block).
+cudaError_t launch_sm90(const void* q, const void* k, const void* v,
+                        const void* g, void* dq, void* dk, void* dv,
+                        void* scratch, int64_t rows, int s, int d, int hw,
+                        float scale, cudaStream_t stream) {
   if (scratch == nullptr) return cudaErrorInvalidValue;
   const int halo = halo_of(hw);
   const Scratch scr = carve(scratch, rows, s, halo);
   const int steps = (s + kStep - 1) / kStep;
   if (rows * steps > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const unsigned n_slices = fw::slices(d, fw::kBwdSlice);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_band_bwd_stream_band, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      fw::kBwdSmem);
+  Maps m;
+  cudaError_t err = make_maps(&m, q, k, v, g, scr, rows, s, d, halo);
   if (err != cudaSuccess) return err;
-  tile_band_bwd_stream_band<<<dim3(static_cast<unsigned>(rows * steps),
-                                   n_slices),
-                              fw::kThreads, fw::kBwdSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(g),
-      static_cast<bf16*>(dq), scr, s, steps, d, hw, halo, scale);
-  err = cudaGetLastError();
+  int keep = 0, resident = 0;
+  const int ns = band_stages(d, &keep, &resident);
+  if (ns == 0) return cudaErrorInvalidConfiguration;
+  const int smem = tb90::smem_bytes(resident, ns, tb90::edge_bytes(d));
+  err = keep ? launch_band<true>(m, q, g, scr, rows, s, steps, d, hw, halo,
+                                 ns, smem, scale, stream)
+             : launch_band<false>(m, q, g, scr, rows, s, steps, d, hw, halo,
+                                  ns, smem, scale, stream);
   if (err != cudaSuccess) return err;
-  tile_band_bwd_stream_keys<<<dim3(static_cast<unsigned>(rows * steps),
-                                   2 * n_slices),
-                              fw::kThreads, kStreamKeysSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(g),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), scr, s, steps, d, hw,
-      halo);
-  return cudaGetLastError();
+  switch (tb90::slice_width(d)) {
+    case 64:
+      return launch_rows<64>(m, q, g, dq, dk, dv, scr, rows, s, d, hw,
+                             stream);
+    case 128:
+      return launch_rows<128>(m, q, g, dq, dk, dv, scr, rows, s, d, hw,
+                              stream);
+    case 192:
+      return launch_rows<192>(m, q, g, dq, dk, dv, scr, rows, s, d, hw,
+                              stream);
+    default:
+      return launch_rows<256>(m, q, g, dq, dk, dv, scr, rows, s, d, hw,
+                              stream);
+  }
 }
 
 // The ring kernel at head dim D (16, 32, 64, 128) and hw <= 16.
@@ -1686,9 +1969,9 @@ extern "C" int mhla_tile_band_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(launch_f32(q, k, v, g, dq, dk, dv, scratch, rows,
                                        s, d, hw, scale, st));
   }
-  if (!staged_range(d, hw)) {
-    return static_cast<int>(launch_stream(q, k, v, g, dq, dk, dv, scratch,
-                                          rows, s, d, hw, scale, st));
+  if (sm90_takes(d, hw)) {
+    return static_cast<int>(launch_sm90(q, k, v, g, dq, dk, dv, scratch, rows,
+                                        s, d, hw, scale, st));
   }
   switch (flash::tile_width(d)) {
     case 16:
@@ -1725,7 +2008,7 @@ extern "C" int mhla_tile_band_bwd(const void* q, const void* k, const void* v,
 // The bytes of scratch mhla_tile_band_bwd needs at these arguments, into
 // the long long at `bytes`: 0 for the ring kernel, the f32 kernels' five
 // f32 [rows, s] (softmax maximum and sum, sum dP p, fold sums), the wide
-// and streamed kernels' p/ds tiles and fold sums. Returns
+// and wgmma kernels' p/ds tiles and fold sums. Returns
 // cudaErrorInvalidValue (and writes nothing) for arguments the kernels do
 // not take, else 0.
 extern "C" int mhla_tile_band_bwd_scratch(long long rows, int s, int d,
@@ -1742,11 +2025,18 @@ extern "C" int mhla_tile_band_bwd_scratch(long long rows, int s, int d,
 
 // Dynamic shared memory of the bf16 kernel that runs at head dim d and
 // half window hw (-1 for a pair the kernels do not take), for the build
-// report: the ring kernel's, or the larger of the wide (streamed) kernels'
+// report: the ring kernel's, or the larger of the wide (wgmma) kernels'
 // two.
 extern "C" int mhla_tile_band_bwd_smem(int d, int hw) {
   if (hw < 0 || d < 8 || d % 8 != 0) return -1;
-  if (!staged_range(d, hw)) return std::max(fw::kBwdSmem, kStreamKeysSmem);
+  if (sm90_takes(d, hw)) {
+    int keep = 0, resident = 0;
+    const int ns = band_stages(d, &keep, &resident);
+    const int band = tb90::smem_bytes(resident, ns, tb90::edge_bytes(d));
+    const int rows = tb90::smem_bytes(
+        0, rows_stages(d, tb90::slice_width(d)), tb90::edge_bytes(d));
+    return std::max(band, rows);
+  }
   if (ring_kernel(d, hw)) {
     switch (d) {
       case 16:

@@ -96,9 +96,11 @@
 // window tiles have t + 2 halo rows): up to hw = 64 (W = 129) and d = 256
 // the wide kernel below (tile_band_fwd_wide: one 64-query step a block, its
 // whole band staged at d's tile width, flash_common.cuh tile_width, zeros
-// past d, walked in 48-key chunks in two passes); past either limit the
-// streamed kernel (tile_band_fwd_stream: the band in 64-key chunks, d in
-// 64-column chunks, 128-column output slices, two passes).
+// past d, walked in 48-key chunks in two passes); past either limit, and at
+// d > 128 with W = 128 or 129, the wgmma kernel (tile_band_fwd_sm90: Q kept
+// in shared memory where it fits, K and V by TMA through a deep ring, the
+// products on wgmma, output slices of at most 256 columns after one
+// statistics pass; tile_ring.cuh sm90_takes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,6 +112,7 @@
 
 #include "band_stage.cuh"
 #include "flash_common.cuh"
+#include "tile_band_sm90.cuh"
 #include "tile_ring.cuh"
 
 namespace {
@@ -513,155 +516,361 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
   store_rows<D, 0, D / 8>(ln.out, o, qs, jq, qb, n, lane, d);
 }
 
-// --- bf16 past the wide kernel's range: the streamed band ------------------
+// --- bf16 past the wide kernel's range: the wgmma band -------------------
 //
-// The wide kernel stages the whole band of a 64-query step, 64 + 2 halo rows
-// of K and of V at d's tile width: past halo 64 or d = 256 that does not fit
-// shared memory (256 KB at d = 256 and halo 80). Here a block owns the 64
-// queries [t, t + 64) of a line and 128 output columns (grid y; more
-// slices past d = 128), and walks the keys [t - halo, t + 64 + halo) in
-// chunks of 64 (tile_ring.cuh's streamed helpers, flash_wide.cuh's layout),
-// forming the logits over d in 64-column chunks of Q and K through a
-// two-stage cp.async ring (the next copies in flight under this chunk's
-// products). Two passes, as the wide kernel: the first keeps each query's
-// running maximum and sum of exponentials, the second forms the logits
-// again and takes p = e / sum, rounded to bf16, into P V with the chunk's V
-// slice, so p is the normalised weight rounded once, as JAX rounds it. (A
-// one-pass online softmax, its f32 sum rescaled and divided at the end,
-// rounds the unnormalised weights instead, and its bf16 outputs met the
-// test rule's rms bound with little room.)
-// K6's K and V rows outside [0, S) are copies of the clamped row, K8's come
-// from the window tile; a warp skips the 16-key blocks that meet none of its
-// queries' bands. Shared memory no longer grows with the halo or d (54,272
-// bytes). Each slice forms the logits twice: n_slices + 1 times the 4 W d
-// flops a query's band needs (3 at d = 384, 7 at 768). Q is staged again
-// for each key chunk and the chunks cover 64 + 2 halo keys for a band of
-// 2 hw + 1: simple, and L2 holds the re-reads.
+// Past hw = 64 (W = 129) or d = 256, and at d > 128 with hw = 64
+// (tile_ring.cuh sm90_takes), at JAX's halo. A block owns the 64 queries
+// [t, t + 64) of a line and walks the keys [t - halo, t + 64 + halo) in
+// chunks of 64 (tile_band_sm90.cuh):
+//   - one thread of a producer warp loads the block's Q once by TMA
+//     (ceil(d / 64) tiles of 64 x 64, kept for the whole block), then
+//     streams K and V tiles (64 keys x 64 columns) by TMA through a ring of
+//     up to 16 stages, each on its own mbarrier; K6's positions outside
+//     [0, S) arrive as zeros, K8's come from its window tile. Where Q does
+//     not fit beside the ring (d past 1472), its tile c streams through
+//     the ring just before each K tile c instead (keep_q = 0);
+//   - one consumer warpgroup forms a chunk's 64 x 64 logits on wgmma
+//     (m64n64k16, Q and K from shared memory) over d's 16-column steps
+//     only (d = 80: five steps), one committed group a tile, releasing each
+//     K tile as soon as the product after it is issued;
+//   - two passes, as the TPU kernel's softmax: the first keeps each query's
+//     running maximum and sum of exponentials (in log2 units, the scale
+//     folded in), the second forms the logits again and takes p = e / sum
+//     (times the sum's reciprocal), rounded to bf16, from registers as the A
+//     operand of out += P V (V tiles read MN-major), so p is the normalised
+//     weight rounded once. A block owns every output column up to d = 256
+//     (an accumulator of 64 x 256 f32 on one warpgroup); past that d runs
+//     in equal slices of at most 256 columns, each forming the logits once
+//     after the one statistics pass, the first slice keeping its bf16
+//     weights in shared memory for the others (64 x (64 + 2 halo) a block,
+//     where they fit), which then read V alone: the logits are formed twice
+//     a query whatever d (7 times at d = 768 in the streamed kernel this
+//     replaced). Only chunks that cross some row's band edge are masked;
+//   - K6's clamped band: a block whose chunks leave the line keeps row 0
+//     and row S - 1 of K and V; each query's logit against them (lo, hi)
+//     takes the place of the zero rows' at positions outside [0, S), and
+//     the weights there, rounded to bf16 and summed (wl, wh), add
+//     wl v_0 + wh v_{S-1} to its output: the same sum as the clamped rows'
+//     terms one by one, without a copy of a row.
+// A 64-query tile over the keys [t - halo, t + 64 + halo) also forms the
+// logits of keys outside every query's band (128 keys for a band of 15 at
+// W = 7); at small windows and at d <= 128 the wide kernel above, which
+// stages exactly the band at d's width, stays faster. What bounds this one
+// (PERF.md section 6): the consumer's chain of waits, products and softmax a
+// chunk and the tiles a block reads (K twice and V once, 64 + 2 halo rows,
+// from L2 for the most part), at two blocks an SM up to slice width 128.
 
-template <bool kTiles>
-__global__ void __launch_bounds__(fw::kThreads)
-    tile_band_fwd_stream(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out,
-                         int n, int steps, int d, int hw, int halo,
-                         float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage b: Q, then K
-  bf16* vs = ring + 4 * fw::kChunkElems;          // the chunk's V slice
+// Maps (tile_band_sm90.cuh): tq over the [lines, n, d] queries, tk and tv
+// over the keys and values (K6: [lines, n, d], positions outside [0, n)
+// arriving as zeros, and tk1, tv1 the same with one-row boxes for the edge
+// rows; K8: the [lines, n + 2 halo, d] window tiles, whose row p + halo is
+// position p); q itself for K6's logits against the edge rows. keep_q: Q
+// kept in shared memory, else streamed through the ring.
+template <int NO, bool kTiles>
+__global__ void __launch_bounds__(tb90::kThreads, NO <= 128 ? 2 : 1)
+    tile_band_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tk1,
+                       const __grid_constant__ CUtensorMap tv1,
+                       const bf16* __restrict__ q, bf16* __restrict__ out,
+                       int n, int steps, int d, int hw, int halo, int ns,
+                       int keep_q, int keep_p, float scale) {
+  namespace hp = hopper;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * tb90::kMaxStages + 2];
+  uint8_t* smem = hp::align1024(smem_raw);
+  const int nd = tb90::col_tiles(d);
+  const int nk = (kStep + 2 * halo + 63) / 64;
+  const int nq = keep_q ? nd : 0;  // kept tiles of Q
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  // With keep_p, the first slice's weights (one 64 x 64 tile a chunk) stay
+  // for the other slices, which then read V alone.
+  bf16* ps = qs + nq * tb90::kTileElems;
+  const tb90::Ring ring = tb90::make_ring(
+      smem, (nq + (keep_p ? nk : 0)) * tb90::kTileBytes, bars, ns);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int t4 = lane & 3;
-  const long long line = blockIdx.x / steps;
+  const int line = static_cast<int>(blockIdx.x / steps);
   const int t = static_cast<int>(blockIdx.x % steps) * kStep;
-  const int c_out = blockIdx.y * fw::kFwdSlice;
-  const Line<bf16, 0, kTiles> ln(q, k, v, out, line, n, d, halo);
-  const int nc = (d + fw::kCh - 1) / fw::kCh;
   const int k0 = t - halo;
-  const int nk = (kStep + 2 * halo + kChunk - 1) / kChunk;
-  const int total = nk * nc;  // items a pass
-  const int qb = t + 16 * warp;  // the warp's first query
-  const int r = qb + (lane >> 2);  // its rows r and r + 8
-  const int nps = steps_below(d, c_out, fw::kFwdSlice);
+  const int n_sl = (d + NO - 1) / NO;
+  // K6's chunks that leave the line: their positions outside [0, n) are
+  // copies of row 0 or n - 1 (the clamped band), which the consumers add
+  // from the edge rows.
+  const bool clamped = !kTiles && (k0 < 0 || k0 + 64 * nk > n);
+  const tb90::Edges ed = ring.edge_rows(d);
 
-  auto issue = [&](int i) {
-    bf16* st = ring + (i & 1) * 2 * fw::kChunkElems;
-    const int e = i % total;
-    const int c0 = (e % nc) * fw::kCh;
-    stage_rows<fw::kCh, fw::kPitch>(st, ln.q, t, c0, 0, n, false, d);
-    stage_rows<fw::kCh, fw::kPitch>(st + fw::kChunkElems, ln.k,
-                                    k0 + (e / nc) * kChunk, c0, ln.lo, ln.hi,
-                                    !kTiles, d);
-  };
+  if (warp == tb90::kConsumers / 32) {
+    // The producer warp: Q (one thread, with keep_q), K6's edge rows where
+    // its chunks leave the line, then pass 0's K tiles and each slice's K
+    // (the first slice's only, with keep_p; each after its Q tile without
+    // keep_q) and V.
+    if (keep_q && lane == 0) {
+      hp::mbar_arrive_expect_tx(ring.kept, nd * tb90::kTileBytes);
+      for (int c = 0; c < nd; ++c) {
+        hp::tma_load_3d(qs + c * tb90::kTileElems, &tq, ring.kept, 64 * c, t,
+                        line);
+      }
+    }
+    if (clamped) tb90::load_edges(ed, &tk1, &tv1, ring.edges, n, line, lane);
+    int i = 0;
+    auto load = [&](int x, int c, int kj) {
+      if (x == 0 && !keep_q) {
+        tb90::load_full(ring.tile(i), &tq, ring.acquire(i), 64 * c, t, line,
+                        lane);
+        ++i;
+      }
+      tb90::load_full(ring.tile(i), x ? &tv : &tk, ring.acquire(i), 64 * c,
+                      kTiles ? kj + halo : kj, line, lane);
+      ++i;
+    };
+    for (int pass = 0; pass <= n_sl; ++pass) {
+      const int c0 = (pass - 1) * NO;
+      const int nv = pass == 0 ? 0 : min(NO / 64, tb90::col_tiles(d - c0));
+      for (int j = 0; j < nk; ++j) {
+        const int kj = k0 + 64 * j;
+        if (pass < 2 || !keep_p) {
+          for (int c = 0; c < nd; ++c) load(0, c, kj);
+        }
+        for (int vb = 0; vb < nv; ++vb) load(1, c0 / 64 + vb, kj);
+      }
+    }
+    return;
+  }
 
-  float o[fw::kFwdSlice / 2];
-#pragma unroll
-  for (int i = 0; i < fw::kFwdSlice / 2; ++i) o[i] = 0.f;
+  // The consumer warpgroup: this thread holds query rows r and r + 8,
+  // columns 8 j + 2 wq (+1) of each 64-column accumulator.
+  const int g8 = (lane >> 2) + 16 * warp;  // rows g8, g8 + 8 of the 64
+  const int wq = lane & 3;
+  const int r = t + g8;
   float sc[32];
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-
-  issue(0);
-  fw::commit();
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int j = 0; j < nk; ++j) {
-      const int kj = k0 + j * kChunk;
-      bool live[4];
-      chunk_live(live, kj, qb, hw);
-      const bool any = live[0] || live[1] || live[2] || live[3];
+  int i = 0;
+  if (keep_q) hp::mbar_wait(ring.kept, 0);
+  const float scale2 = scale * 1.4426950408889634f;
+  // A clamped block's logits of rows r, r + 8 against row 0 (lo) and row
+  // n - 1 (hi) of K, in log2 units: every position outside [0, n) in the
+  // band takes one of them.
+  float lo[2] = {0.f, 0.f}, hi[2] = {0.f, 0.f};
+  if (clamped) {
+    hp::mbar_wait(ring.edges, 0);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-      for (int c = 0; c < nc; ++c) {
-        const int i = (pass * nk + j) * nc + c;
-        fw::wait_all();
-        __syncthreads();  // item i landed; the products of i - 1 are done
-        if (pass == 1 && c == 0) {
-          stage_rows<fw::kFwdSlice, fw::kVPitch>(vs, ln.v, kj, c_out, ln.lo,
-                                                 ln.hi, !kTiles, d);
-        }
-        if (i + 1 < 2 * total) issue(i + 1);
-        fw::commit();
-        if (any) {
-          const bf16* st = ring + (i & 1) * 2 * fw::kChunkElems;
-          band_product(sc, st, st + fw::kChunkElems, warp, lane, live,
-                       steps_below(d, c * fw::kCh, fw::kCh));
-        }
+    for (int h = 0; h < 2; ++h) {
+      // A query past n has a zero row (its logits 0), as the tiles hold.
+      const int qi = t + g8 + 8 * h;
+      const bf16* qr = q + (static_cast<int64_t>(line) * n + qi) * d;
+      for (int c = 2 * wq; c < d && qi < n; c += 8) {
+        const float2 x = tb90::row_pair(qr, c);
+        const float2 a = tb90::edge_pair(ed, 0, 0, c);
+        const float2 b = tb90::edge_pair(ed, 0, 1, c);
+        lo[h] += x.x * a.x + x.y * a.y;
+        hi[h] += x.x * b.x + x.y * b.y;
       }
-      // The band |key - query| <= hw (-inf off it).
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int off = kj + (i >> 2) * 8 + 2 * t4 + (i & 1) -
-                        (r + 8 * ((i >> 1) & 1));
-        sc[i] = (off >= -hw && off <= hw) ? sc[i] * scale : -INFINITY;
-      }
-      if (pass == 0) {
-        if (!any) continue;
-        // The running maximum and sum of exponentials of rows r, r + 8
-        // (every lane of a quad holds the maximum, its own share of the
-        // sum).
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float mx = -INFINITY;
-#pragma unroll
-          for (int i = 2 * h; i < 32; i += 4) {
-            mx = fmaxf(mx, fmaxf(sc[i], sc[i + 1]));
-          }
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float m_new = fmaxf(m[h], mx);
-          if (m_new == -INFINITY) continue;  // no key of this row yet
-          float sum = 0.f;
-#pragma unroll
-          for (int i = 2 * h; i < 32; i += 4) {
-            sum += expf(sc[i] - m_new) + expf(sc[i + 1] - m_new);
-          }
-          l[h] = l[h] * expf(m[h] - m_new) + sum;
-          m[h] = m_new;
-        }
-        continue;
-      }
-      // Pass 2: p = e / l, rounded to bf16, into out = P V.
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int h = (i >> 1) & 1;
-        sc[i] = sc[i] == -INFINITY ? 0.f : expf(sc[i] - m[h]) / l[h];
-      }
-      fw::wait_all();
-      __syncthreads();  // chunk j's V slice landed
-      if (any) {
-        band_weights<fw::kFwdSlice, fw::kVPitch>(o, sc, vs, lane, live, nps);
-      }
-    }
-    if (pass == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-      }
+      lo[h] += __shfl_xor_sync(0xffffffffu, lo[h], 1);
+      lo[h] += __shfl_xor_sync(0xffffffffu, lo[h], 2);
+      hi[h] += __shfl_xor_sync(0xffffffffu, hi[h], 1);
+      hi[h] += __shfl_xor_sync(0xffffffffu, hi[h], 2);
+      lo[h] *= scale2;
+      hi[h] *= scale2;
     }
   }
-  fw::store_rows<fw::kFwdSlice>(ln.out, o, r, c_out, n, d);
+
+  // The logits of chunk j into sc, in log2 units (scaled by d^-1/2 log2 e),
+  // -inf off the band |key - query| <= hw; a chunk inside every row's band
+  // needs no mask. K6's positions outside [0, n) take lo and hi. Each
+  // product reads `per` ring items (K, after its Q tile without keep_q),
+  // released once the product after it has been issued.
+  const int per = keep_q ? 1 : 2;
+  auto logits = [&](int j) {
+    hp::fence_regs(sc);
+    for (int c = 0; c < nd; ++c, ++i) {
+      const bf16* a = qs + c * tb90::kTileElems;
+      if (!keep_q) {
+        ring.wait(i);
+        a = ring.tile(i++);
+      }
+      ring.wait(i);
+      hp::wgmma_fence();
+      tb90::tile_product<0, 0>(sc, a, ring.tile(i), tb90::steps_of(d, c),
+                               c > 0);
+      hp::wgmma_commit();
+      if (c > 0) {
+        hp::wgmma_wait<1>();
+        ring.release_last(i - per, per, lane);
+      }
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    ring.release_last(i - 1, per, lane);
+    const int kj = k0 + 64 * j;
+    if (kj + 63 - t <= hw && t + 63 - kj <= hw) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] *= scale2;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int off = kj + (e >> 2) * 8 + 2 * wq + (e & 1) -
+                        (r + 8 * ((e >> 1) & 1));
+        sc[e] = (off >= -hw && off <= hw) ? sc[e] * scale2 : -INFINITY;
+      }
+    }
+    if (clamped && (kj < 0 || kj + 64 > n)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int key = kj + (e >> 2) * 8 + 2 * wq + (e & 1);
+        const int h = (e >> 1) & 1;
+        if (sc[e] != -INFINITY && (key < 0 || key >= n)) {
+          sc[e] = key < 0 ? lo[h] : hi[h];
+        }
+      }
+    }
+  };
+
+  // Pass 0: the running maximum and sum of exponentials of rows r, r + 8
+  // (every lane of a quad holds the maximum, its own share of the sum).
+  for (int j = 0; j < nk; ++j) {
+    logits(j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int e = 2 * h; e < 32; e += 4) {
+        mx = fmaxf(mx, fmaxf(sc[e], sc[e + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      if (m_new == -INFINITY) continue;  // no key of this row yet
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 2 * h; e < 32; e += 4) {
+        sum += exp2f(sc[e] - m_new) + exp2f(sc[e + 1] - m_new);
+      }
+      l[h] = l[h] * exp2f(m[h] - m_new) + sum;
+      m[h] = m_new;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = 1.f / l[h];  // from here on the sum's reciprocal
+  }
+
+  // Each slice: p = e / sum, rounded to bf16, into out = P V. A clamped
+  // block's weights at positions below 0 (wl) and past n - 1 (wh), each
+  // rounded to bf16 and summed over them in the first slice, add
+  // wl v_0 + wh v_{n-1} to every slice (the tiles hold zeros there).
+  float wl[2] = {0.f, 0.f}, wh[2] = {0.f, 0.f};
+  for (int sl = 0; sl < n_sl; ++sl) {
+    const int c0 = sl * NO;
+    const int nv = min(NO / 64, tb90::col_tiles(d - c0));
+    // Only slice widths past 128 (d > 256) have more than one slice.
+    bool kept = false;
+    if constexpr (NO > 128) kept = keep_p && sl > 0;
+    float o[NO / 2];
+#pragma unroll
+    for (int e = 0; e < NO / 2; ++e) o[e] = 0.f;
+    if (kept && sl == 1) {
+      // Slice 0's weights, written by every warp, before wgmma reads them.
+      hp::fence_proxy_async();
+      hp::named_sync(tb90::kConsumerBar, tb90::kConsumers);
+    }
+    for (int j = 0; j < nk; ++j) {
+      const bf16* pt = ps + j * tb90::kTileElems;
+      uint32_t pa[4][4];
+      if (!kept) {
+        logits(j);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          sc[e] = exp2f(sc[e] - m[(e >> 1) & 1]) * l[(e >> 1) & 1];
+        }
+        const int kj = k0 + 64 * j;
+        if (clamped && sl == 0 && (kj < 0 || kj + 64 > n)) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int key = kj + (e >> 2) * 8 + 2 * wq + (e & 1);
+            const float pr = __bfloat162float(__float2bfloat16(sc[e]));
+            if (key < 0) wl[(e >> 1) & 1] += pr;
+            if (key >= n) wh[(e >> 1) & 1] += pr;
+          }
+        }
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) hp::pack_a(pa[kc], sc, kc);
+        if (NO > 128 && keep_p) {
+          // The A operand's K-major tile (wgmma layout, 128-byte swizzle).
+          uint8_t* pb = reinterpret_cast<uint8_t*>(ps + j * tb90::kTileElems);
+#pragma unroll
+          for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              const int col = 16 * kc + 8 * (x >> 1) + 2 * wq;
+              *reinterpret_cast<uint32_t*>(
+                  pb + hp::swizzle128_offset<64>(g8 + 8 * (x & 1), col)) =
+                  pa[kc][x];
+            }
+          }
+        }
+      }
+      hp::fence_regs(o);
+      if (!kept) hp::fence_regs(pa);
+#pragma unroll
+      for (int vb = 0; vb < NO / 64; ++vb) {
+        if (vb >= nv) break;
+        ring.wait(i);
+        hp::wgmma_fence();
+        if (kept) {
+          tb90::tile_product<0, 1>(hp::slice<32>(o, 32 * vb), pt,
+                                   ring.tile(i), 4, true);
+        } else {
+#pragma unroll
+          for (int kc = 0; kc < 4; ++kc) {
+            hp::Wgmma<64>::rs(hp::slice<32>(o, 32 * vb), pa[kc],
+                              tb90::desc_mn(ring.tile(i), kc), 1);
+          }
+        }
+        hp::wgmma_commit();
+        if (vb > 0) {
+          hp::wgmma_wait<1>();
+          ring.release(i - 1, lane);
+        }
+        ++i;
+      }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(o);
+      if (!kept) hp::fence_regs(pa);
+      ring.release(i - 1, lane);
+    }
+    if (clamped) {
+      if (sl == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          wl[h] += __shfl_xor_sync(0xffffffffu, wl[h], 1);
+          wl[h] += __shfl_xor_sync(0xffffffffu, wl[h], 2);
+          wh[h] += __shfl_xor_sync(0xffffffffu, wh[h], 1);
+          wh[h] += __shfl_xor_sync(0xffffffffu, wh[h], 2);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < NO / 8; ++jj) {
+        const int col = c0 + 8 * jj + 2 * wq;
+        if (col >= d) break;
+        const float2 a = tb90::edge_pair(ed, 1, 0, col);
+        const float2 b = tb90::edge_pair(ed, 1, 1, col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          o[4 * jj + 2 * h] += wl[h] * a.x + wh[h] * b.x;
+          o[4 * jj + 2 * h + 1] += wl[h] * a.y + wh[h] * b.y;
+        }
+      }
+    }
+    tb90::store_acc<NO>(out + static_cast<int64_t>(line) * n * d, o, t, c0, n,
+                        d, tid);
+  }
 }
 
 // --- f32: scalar FMA, a thread per query ------------------------------------
@@ -758,25 +967,82 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// The streamed bf16 kernel: one block a 64-query step and 128 columns.
-template <bool kTiles>
-cudaError_t launch_stream(const void* q, const void* k, const void* v,
-                          void* out, int64_t lines, int n, int d, int hw,
-                          float scale, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      tile_band_fwd_stream<kTiles>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, fw::kFwdSmem);
+// The wgmma kernel's shared memory at slice width no: two blocks an SM up
+// to no = 128 (at 192 the accumulator spills under two blocks' register
+// cap); Q kept (keep_q) where that leaves the ring tb90::kMinStages
+// stages, else streamed through it (tb90::kStreamStages); past one slice
+// the first slice's weights kept (keep_p) where the ring keeps its least
+// stages beside them. `resident` is the kept tiles' bytes (Q's, and the
+// weights').
+inline void sm90_plan(int d, int hw, int no, int* keep_q, int* keep_p,
+                      int* ns, int* resident) {
+  const int per_sm = no <= 128 ? 2 : 1;
+  const int edges = tb90::edge_bytes(d);
+  *keep_q = tb90::ring_stages(tb90::col_tiles(d) * tb90::kTileBytes + edges,
+                              per_sm) > 0;
+  const int q = *keep_q ? tb90::col_tiles(d) * tb90::kTileBytes : 0;
+  const int least = *keep_q ? tb90::kMinStages : tb90::kStreamStages;
+  const int w = (kStep + 2 * halo_of(hw) + 63) / 64 * tb90::kTileBytes;
+  *keep_p = d > no && tb90::ring_stages(q + w + edges, per_sm, least) > 0;
+  *resident = q + (*keep_p ? w : 0);
+  *ns = tb90::ring_stages(*resident + edges, per_sm, least);
+}
+
+// The wgmma kernel at output slices of NO columns: its maps, then the
+// launch. K8's window tiles hold n + 2 halo rows a line.
+template <int NO, bool kTiles>
+cudaError_t launch_sm90_no(const void* q, const void* k, const void* v,
+                           void* out, int64_t lines, int n, int d, int hw,
+                           float scale, cudaStream_t stream) {
+  if (lines > INT32_MAX) return cudaErrorInvalidConfiguration;
+  const int halo = halo_of(hw);
+  const int nk = kTiles ? n + 2 * halo : n;  // rows of a K or V line
+  CUtensorMap tq, tk, tv, tk1, tv1;
+  cudaError_t err = tb90::map_rows(&tq, q, lines, n, d, 64);
+  const void* src[4] = {k, v, k, v};
+  CUtensorMap* dst[4] = {&tk, &tv, &tk1, &tv1};
+  for (int x = 0; x < 4 && err == cudaSuccess; ++x) {
+    err = tb90::map_rows(dst[x], src[x], lines, nk, d, x < 2 ? 64 : 1);
+  }
+  if (err != cudaSuccess) return err;
+  int keep_q = 0, keep_p = 0, ns = 0, resident = 0;
+  sm90_plan(d, hw, NO, &keep_q, &keep_p, &ns, &resident);
+  if (ns == 0) return cudaErrorInvalidConfiguration;
+  const int smem = tb90::smem_bytes(resident, ns, tb90::edge_bytes(d));
+  err = cudaFuncSetAttribute(tile_band_fwd_sm90<NO, kTiles>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
   const int steps = (n + kStep - 1) / kStep;
   const int64_t blocks = lines * steps;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  fw::slices(d, fw::kFwdSlice));
-  tile_band_fwd_stream<kTiles><<<grid, fw::kThreads, fw::kFwdSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, steps, d, hw,
-      halo_of(hw), scale);
+  tile_band_fwd_sm90<NO, kTiles>
+      <<<static_cast<unsigned>(blocks), tb90::kThreads, smem, stream>>>(
+          tq, tk, tv, tk1, tv1, static_cast<const bf16*>(q),
+          static_cast<bf16*>(out), n, steps, d, hw, halo, ns, keep_q, keep_p,
+          scale);
   return cudaGetLastError();
+}
+
+// The wgmma kernel at d's slice width (tb90::slice_width).
+template <bool kTiles>
+cudaError_t launch_sm90(const void* q, const void* k, const void* v,
+                        void* out, int64_t lines, int n, int d, int hw,
+                        float scale, cudaStream_t stream) {
+  switch (tb90::slice_width(d)) {
+    case 64:
+      return launch_sm90_no<64, kTiles>(q, k, v, out, lines, n, d, hw, scale,
+                                        stream);
+    case 128:
+      return launch_sm90_no<128, kTiles>(q, k, v, out, lines, n, d, hw,
+                                         scale, stream);
+    case 192:
+      return launch_sm90_no<192, kTiles>(q, k, v, out, lines, n, d, hw,
+                                         scale, stream);
+    default:
+      return launch_sm90_no<256, kTiles>(q, k, v, out, lines, n, d, hw,
+                                         scale, stream);
+  }
 }
 
 // The wide bf16 kernel: one block a 64-query step.
@@ -857,8 +1123,8 @@ cudaError_t launch_w(const void* q, const void* k, const void* v, void* out,
   return launch_wide<D, kTiles>(q, k, v, out, lines, n, d, hw, scale, stream);
 }
 
-// The f32 kernel at every (hw, d); in bf16 the ring or wide kernel in
-// their range (tile_ring.cuh staged_range), else the streamed kernel.
+// The f32 kernel at every (hw, d); in bf16 the wgmma kernel where it takes
+// the call, else the ring or wide kernel.
 template <bool kTiles>
 int launch(const void* q, const void* k, const void* v, void* out,
            int64_t lines, int n, int d, int hw, int is_bf16, float scale,
@@ -873,9 +1139,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
     return static_cast<int>(
         launch_f32<kTiles>(q, k, v, out, lines, n, d, hw, scale, st));
   }
-  if (!staged_range(d, hw)) {
+  if (sm90_takes(d, hw)) {
     return static_cast<int>(
-        launch_stream<kTiles>(q, k, v, out, lines, n, d, hw, scale, st));
+        launch_sm90<kTiles>(q, k, v, out, lines, n, d, hw, scale, st));
   }
   switch (flash::tile_width(d)) {
     case 16:
@@ -941,11 +1207,16 @@ extern "C" int mhla_tile_band_fwd_tiles(const void* q, const void* k,
 
 // Dynamic shared memory of the bf16 kernel that runs at head dim d and
 // half window hw (-1 for a pair the kernels do not take), for the build
-// report: the ring kernel's at hw <= 16 and d in 16, 32, 64, 128, the wide
-// kernel's elsewhere in its range, else the streamed kernel's.
+// report: the ring kernel's at hw <= 16 and d in 16, 32, 64, 128, the
+// wgmma kernel's (Q's tiles and the ring) where it takes the call, else the
+// wide kernel's.
 extern "C" int mhla_tile_band_fwd_smem(int d, int hw) {
   if (hw < 0 || d < 8 || d % 8 != 0) return -1;
-  if (!staged_range(d, hw)) return fw::kFwdSmem;
+  if (sm90_takes(d, hw)) {
+    int keep_q = 0, keep_p = 0, ns = 0, resident = 0;
+    sm90_plan(d, hw, tb90::slice_width(d), &keep_q, &keep_p, &ns, &resident);
+    return tb90::smem_bytes(resident, ns, tb90::edge_bytes(d));
+  }
   const int w = flash::tile_width(d);
   if (d == w && hw <= kHalo) {
     switch (d) {

@@ -2,9 +2,9 @@
 // mhla_tile_band_bwd.cu, K7): blocks that walk along a token-major row keep
 // rings of rows of D bf16 in shared memory, filled by 16-byte cp.async
 // copies (band_stage.cuh's), read by ldmatrix, and send their results out
-// through dead ring rows with stmatrix and 16-byte stores; past the wide
-// kernels' range (hw > 64 or d > 256) they stream the band in 64-row chunks
-// of 64 columns of d instead (the streamed helpers at the end).
+// through dead ring rows with stmatrix and 16-byte stores. (Past the wide
+// kernels' range, hw > 64 or d > 256, the sources run tile_band_sm90.cuh's
+// wgmma kernels.)
 //
 // A ring of R rows holds position p at ring row (p + R) mod R. Rows are
 // unpadded; chunk c (16 bytes) of ring row j is stored at chunk c ^ swz(j),
@@ -29,19 +29,28 @@
 
 #include "band_stage.cuh"
 #include "flash_common.cuh"
-#include "flash_wide.cuh"
 
 namespace tile_ring {
 
 using bf16 = __nv_bfloat16;
 
 // The wide kernels' range (mhla_tile_band_{fwd,bwd}.cu): hw <= 64, W <= 129,
-// and d up to 256; the streamed kernels take every (hw, d) beyond it.
+// and d up to 256; the wgmma kernels take every (hw, d) beyond it, and some
+// inside it (sm90_takes).
 constexpr int kMaxHalo = 64;
 
-// Whether the ring or wide kernels take (d, hw); else the streamed ones.
+// Whether the ring or wide kernels could take (d, hw).
 inline bool staged_range(int d, int hw) {
   return hw <= kMaxHalo && flash::tile_width(d) != 0;
+}
+
+// Whether a bf16 call of K6, K7 or K8 runs the wgmma kernels
+// (tile_band_sm90.cuh): past the wide kernels' range, and inside it at
+// d > 128 with hw = 64 (W = 128, 129), the one window of the range where
+// the card timed them against the wide kernels at d = 136, 192 and 256 and
+// they ran faster (PERF.md section 6). Elsewhere the ring and wide kernels.
+inline bool sm90_takes(int d, int hw) {
+  return !staged_range(d, hw) || (d > 128 && hw == kMaxHalo);
 }
 
 // JAX's halo (mhla_kernel_v4.py _halo): hw rounded up to a multiple of 16,
@@ -212,113 +221,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[NC][4],
     }
   }
   __syncwarp();
-}
-
-// --- the streamed kernels' helpers -------------------------------------------
-//
-// Past the wide kernels' range a block holds no whole band and no whole row:
-// it stages 64 rows at a time (a chunk of keys, or of queries) and 64
-// columns of d at a time, as csrc/flash_wide.cuh's blocks do, in padded
-// rows of flash_wide::kPitch (ldmatrix reads 8 rows at 8 bank groups), by
-// four warps of 16 rows. What differs from those blocks: the rows of a
-// band's chunk come from clamped positions (K6, K7) or from a window tile
-// (K8), and the 16-row blocks of a chunk that meet no row's band are
-// skipped.
-namespace fw = flash_wide;
-
-constexpr int kChunk = 64;  // rows of a streamed chunk (fw::kTile)
-
-// Positions [p0, p0 + 64) of a line of rows of d elements, columns
-// [c0, c0 + COLS), into 64 rows of PITCH: position p in [lo, hi) from
-// src + p d; one outside it from the nearest of lo and hi - 1 (clamp) or
-// zeros, as are the columns past d. Every byte lands by cp.async (zeros
-// by a copy of 0 source bytes), by the block's fw::kThreads threads.
-template <int COLS, int PITCH>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int p0, int c0, int lo, int hi,
-                                           bool clamp, int d) {
-  constexpr int kVecs = COLS / 8;
-  static_assert(kChunk * kVecs % fw::kThreads == 0, "whole rounds of copies");
-#pragma unroll
-  for (int f0 = 0; f0 < kChunk * kVecs; f0 += fw::kThreads) {
-    const int f = f0 + threadIdx.x;
-    const int r = f / kVecs;
-    const int c = (f % kVecs) * 8;
-    const int p = p0 + r;
-    const bool real = c0 + c < d && (clamp || (p >= lo && p < hi));
-    fw::cp16(dst + r * PITCH + c,
-             real ? src + static_cast<int64_t>(min(max(p, lo), hi - 1)) * d +
-                        c0 + c
-                  : src,
-             real);
-  }
-}
-
-// Which 16-row blocks of a 64-row chunk at position p0 meet the band
-// |key - query| <= hw of the 16 rows at r0 (keys against queries, or the
-// reverse: the test is symmetric).
-__device__ __forceinline__ void chunk_live(bool (&live)[4], int p0, int r0,
-                                           int hw) {
-#pragma unroll
-  for (int b = 0; b < 4; ++b) live[b] = block_live(p0 + 16 * b - r0, hw);
-}
-
-// acc (16 x 64, fw::chunk_product's layout) += A B^T over the first kks
-// 16-column steps of one staged chunk of columns: A the warp's 16 rows of
-// `a`, B the live 16-row blocks of `b`.
-__device__ __forceinline__ void band_product(float (&acc)[32], const bf16* a,
-                                             const bf16* b, int warp,
-                                             int lane, const bool (&live)[4],
-                                             int kks) {
-#pragma unroll
-  for (int kk = 0; kk < fw::kCh / 16; ++kk) {
-    if (kk >= kks) break;
-    uint32_t af[4];
-    flash::ldsm_x4(af, fw::at_a<fw::kPitch>(a + warp * 16 * fw::kPitch, lane,
-                                            kk * 16));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      if (!live[np]) continue;
-      uint32_t bf[4];
-      flash::ldsm_x4(bf, fw::at_b<fw::kPitch>(b + np * 16 * fw::kPitch, lane,
-                                              kk * 16));
-      fw::mma(acc + 8 * np, af, bf[0], bf[1]);
-      fw::mma(acc + 8 * np + 4, af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x N) += P B over the live 16-row blocks of B: P the warp's 16 x 64
-// weights in the accumulator layout (rounded to bf16 as A operands), B's
-// rows [64][N] (padded to PITCH) read transposed; the first nps 16-column
-// blocks of B only (the rest lie past d).
-template <int N, int PITCH>
-__device__ __forceinline__ void band_weights(float (&acc)[N / 2],
-                                             const float (&p)[32],
-                                             const bf16* b, int lane,
-                                             const bool (&live)[4], int nps) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    if (!live[kc]) continue;
-    const uint32_t pa[4] = {flash::pack_bf16(p[8 * kc], p[8 * kc + 1]),
-                            flash::pack_bf16(p[8 * kc + 2], p[8 * kc + 3]),
-                            flash::pack_bf16(p[8 * kc + 4], p[8 * kc + 5]),
-                            flash::pack_bf16(p[8 * kc + 6], p[8 * kc + 7])};
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      if (np >= nps) break;
-      uint32_t bf[4];
-      flash::ldsm_x4_trans(
-          bf, fw::at_a<PITCH>(b + kc * 16 * PITCH, lane, np * 16));
-      fw::mma(acc + 8 * np, pa, bf[0], bf[1]);
-      fw::mma(acc + 8 * np + 4, pa, bf[2], bf[3]);
-    }
-  }
-}
-
-// The 16-column steps of a chunk of columns at c0 that hold columns < d.
-__device__ __forceinline__ int steps_below(int d, int c0, int width) {
-  return min(width / 16, (d - c0 + 15) / 16);
 }
 
 }  // namespace tile_ring

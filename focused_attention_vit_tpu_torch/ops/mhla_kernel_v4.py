@@ -354,7 +354,7 @@ def tile_band_backward(q, k, v, g, window_size: int):
     d_grid = q.shape[2]
     hw = window_size // 2
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # The wide and streamed kernels' p/ds tiles and fold sums, the f32
+    # The wgmma kernels' p/ds tiles and fold sums, the f32
     # kernels' softmax statistics (0 bytes for the ring kernel), as many
     # bytes as the source asks for.
     nbytes = ctypes.c_longlong(0)

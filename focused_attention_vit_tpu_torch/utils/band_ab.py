@@ -16,14 +16,19 @@ attention (K5, ``csrc/flash_attention_{fwd,bwd}.cu``: eval forward,
 training forward, backward) at dense ViT-B/4's shape (B*h=384, S=3137,
 d=64) and ViT-H/14's (B*h=128, S=1370, d=80), K1/K2 at ViT-H/14's band
 (B*h=128, d=80, S=1370) and K6/K8/K7 at ViT-H/14's token-major band
-(B*h=128, S=1370, d=80, W=7 and 129), in each checkout given, each in a
+(B*h=128, S=1370, d=80, W=7 and 129), K6/K8/K7 at the paths' shapes past
+the wide kernels (chip_smoke.py's TR_TIMED: d=384 and 768 at W=7,
+S=3137; d=80 at W=257 and 683, B*h=128, S=1370) and at d=80, 136, 192,
+256 and W=64, 129 and one head of d=1024, 1280, 2048 at W=7
+(TILE_RANGE), in each checkout given, each in a
 process of its own that imports that checkout's package, in turns: the order given, then the reverse. Every checkout's kernels are
 built first, all at once. With ``--steps`` it then profiles MHLA-B/4's
 S-minor serving forward and train step and its tile-band serving forward
 and train step (``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``;
 ``utils/step_profile.py``, batch 32) in the same turns. Each run prints one
 JSON line: CUDA-event medians of 30 calls, the profiler's device ms a call by
-kernel, the largest error against the plain version.
+kernel, the largest error against the plain version. With ``--tile`` only
+the tile band's calls are timed.
 From the repository root, with the parent commit unpacked into an ignored
 directory::
 
@@ -67,6 +72,18 @@ BAND_H14_SHAPE = (8, 16, 80, 1370)
 # and at JAX's roll-band limit (the wide kernels).
 TILE_H14_SHAPE = (128, 1370, 80)
 TILE_H14_WINDOWS = (7, 129)
+# (d, W, B*h, S) of the tile band past the ring kernels: the paths' shapes
+# of chip_smoke.py's TR_TIMED, inside the wide kernels' range d = 80 at
+# W = 64 and d = 136, 192, 256 at W = 64 and 129 (where the sources choose
+# between the wide and the wgmma kernels), and one head of d = 1024, 1280
+# (ViT-H's width) and 2048 at MHLA-H/14's S, where the wgmma kernels stream
+# Q (and G) through their ring.
+TILE_RANGE = ((384, 7, 16, 3137), (768, 7, 8, 3137), (80, 257, 128, 1370),
+              (80, 683, 128, 1370), (80, 64, 128, 1370),
+              (136, 64, 128, 1370), (136, 129, 128, 1370),
+              (192, 64, 128, 1370), (192, 129, 128, 1370),
+              (256, 64, 128, 1370), (256, 129, 128, 1370),
+              (1024, 7, 8, 1370), (1280, 7, 8, 1370), (2048, 7, 8, 1370))
 TILE_ENV = {"FAVIT_MHLA_IMPL": "shiftband", "FAVIT_USE_PALLAS_MHLA": "1"}
 # --steps: (label, step_profile mode, environment).
 STEPS = [("serve", "serve", {}), ("train", "train", {}),
@@ -114,9 +131,11 @@ def _device_ms(fn, calls: int = 20) -> dict:
             * max(1, round(count[name] / calls)) for name in total}
 
 
-def time_kernels() -> dict:
+def time_kernels(only_tile: bool = False) -> dict:
     """K1 and K2 of the package on ``sys.path`` at :data:`SHAPE`, and its
-    tile band's K6, K8 and backward on the same shape token-major."""
+    tile band's K6, K8 and backward on the same shape token-major (and
+    the rest of the module docstring's calls); only the tile band's with
+    ``only_tile``."""
     from focused_attention_vit_tpu_torch.ops import mhla_band_roll as band
     from focused_attention_vit_tpu_torch.ops import mhla_kernel_v4 as tile
 
@@ -124,21 +143,23 @@ def time_kernels() -> dict:
     q, k, v, g = (torch.randn(SHAPE, device="cuda", generator=gen).bfloat16()
                   for _ in range(4))
     w = WINDOW
-    res = {}
-    out = band.roll_banded_attention(q, k, v, w)
-    res["eval_err"] = float(
-        (out.float() - band.plain_banded_attention(q, k, v, w).float())
-        .abs().max())
-    out, wts = band.band_forward_train(q, k, v, w, RATE, SEED)
-    ref, ref_wts = band.plain_band_forward_train(q, k, v, w, RATE, SEED)
-    res["train_err"] = float((out.float() - ref.float()).abs().max())
-    res["wts_err"] = float((wts - ref_wts).abs().max())
-    del ref, ref_wts
-    calls = {
-        "eval": lambda: band.roll_banded_attention(q, k, v, w),
-        "train": lambda: band.band_forward_train(q, k, v, w, RATE, SEED),
-        "bwd": lambda: band.band_backward(q, k, v, g, wts, w, RATE, SEED),
-    }
+    res, calls = {}, {}
+    if not only_tile:
+        out = band.roll_banded_attention(q, k, v, w)
+        res["eval_err"] = float(
+            (out.float() - band.plain_banded_attention(q, k, v, w).float())
+            .abs().max())
+        out, wts = band.band_forward_train(q, k, v, w, RATE, SEED)
+        ref, ref_wts = band.plain_band_forward_train(q, k, v, w, RATE, SEED)
+        res["train_err"] = float((out.float() - ref.float()).abs().max())
+        res["wts_err"] = float((wts - ref_wts).abs().max())
+        del ref, ref_wts
+        calls = {
+            "eval": lambda: band.roll_banded_attention(q, k, v, w),
+            "train": lambda: band.band_forward_train(q, k, v, w, RATE, SEED),
+            "bwd": lambda: band.band_backward(q, k, v, g, wts, w, RATE,
+                                              SEED),
+        }
     b, h, d, s = SHAPE
     calls.update(_tile_calls(res, "tile", [x.view(b * h, s, d)
                                            for x in (q, k, v, g)], w))
@@ -146,6 +167,15 @@ def time_kernels() -> dict:
         rows = [torch.randn(TILE_H14_SHAPE, device="cuda", generator=gen)
                 .bfloat16() for _ in range(4)]
         calls.update(_tile_calls(res, f"tile_h14_w{w14}", rows, w14))
+    for dr, wr, bh, sr in TILE_RANGE:
+        rows = [torch.randn((bh, sr, dr), device="cuda", generator=gen)
+                .bfloat16() for _ in range(4)]
+        calls.update(_tile_calls(res, f"tile_d{dr}_w{wr}", rows, wr))
+    if only_tile:
+        for name, fn in calls.items():
+            res[f"{name}_ms"] = _median_ms(fn)
+            res[f"{name}_device_ms"] = _device_ms(fn)
+        return res
     calls.update(_fused_calls(res, gen))
     calls.update(_flash_calls(res, gen))
     h14 = [torch.randn(BAND_H14_SHAPE, device="cuda", generator=gen)
@@ -267,20 +297,24 @@ def main(argv=None) -> list:
                    help="also profile the serving forwards and train steps")
     p.add_argument("--here", action="store_true",
                    help="time the package on sys.path and print one line")
+    p.add_argument("--tile", action="store_true",
+                   help="time the tile band's calls only")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the band A/B runs only on a CUDA device")
     if args.here:
-        print(json.dumps(time_kernels()), flush=True)
+        print(json.dumps(time_kernels(args.tile)), flush=True)
         return []
     trees = [t.resolve() for t in args.trees]
+    libs = [n for n in LIBRARIES if "tile" in n] if args.tile else LIBRARIES
     build = ("from focused_attention_vit_tpu_torch.utils import kernel_build;"
-             f" kernel_build.build_many({LIBRARIES!r})")
+             f" kernel_build.build_many({libs!r})")
     with ThreadPoolExecutor(max(1, len(trees))) as pool:
         list(pool.map(lambda t: _run(t, ["-c", build]), trees))
     rows = []
     for tree in turns(trees):
-        line = _run(tree, [__file__, "--here"]).strip().splitlines()[-1]
+        line = _run(tree, [__file__, "--here"]
+                    + (["--tile"] if args.tile else [])).strip().splitlines()[-1]
         rows.append({"tree": str(tree), **json.loads(line)})
         print(json.dumps(rows[-1]), flush=True)
     for label, mode, env in STEPS if args.steps else ():

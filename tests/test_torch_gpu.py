@@ -834,12 +834,13 @@ def test_tile_band_kernels_match_plain(cuda, dtype, d, w, s):
         _tile_close(got, want, dtype, 1e-4)
 
 
-# The windows and head dims past the wide kernels' range (W <= 129,
-# d <= 256), where the sources stream the band: JAX's halo 80, 128 and 352,
+# The windows and head dims past W = 129 and d = 256 (where the wide and
+# streamed kernels of earlier sources split; all run the wgmma kernels
+# now): JAX's halo 80, 128 and 352,
 # and the head dims 264, 384 (2 heads at D = 768) and 768 (1 head).
 TILE_STREAM_WINDOWS = (131, 257, 683)
 TILE_STREAM_HEAD_DIMS = (264, 384, 768)
-# The wide and streamed kernels' grid: every window of the range at every
+# The grid past the ring kernels: every window of the range at every
 # head dim of it, S = W + 1 (shorter than a band: a query near one edge
 # also reads clamped positions past the other) and just past 2W (one or
 # two 64-row steps with both edges folded), the ViT-B/16 and MHLA-H/14
@@ -856,8 +857,8 @@ TILE_RANGE_CASES = [(w, s) for w in RANGE_WINDOWS + TILE_STREAM_WINDOWS
 def test_tile_band_kernels_across_head_dims_and_windows(cuda, dtype, d, w,
                                                         s):
     """K6, K7 (with the edge fold) and K8 at JAX's halo (16, 32, 64 at W =
-    7/17, 64 and 129; 80, 128, 352 at W = 131, 257, 683, the streamed
-    kernels, as at d = 264, 384, 768) and the padded head dims against their
+    7/17, 64 and 129; 80, 128, 352 at W = 131, 257, 683; the wgmma kernels
+    past the ring kernels' range, as at d = 264, 384, 768) and the padded head dims against their
     plain versions by the grid's rules above; two runs of each
     bit-identical."""
     q, k, v, g = (x.view(6, s, d) for x in _inputs(cuda, (2, 3, s, d), dtype,
@@ -882,6 +883,99 @@ def test_tile_band_kernels_across_head_dims_and_windows(cuda, dtype, d, w,
         _tile_close(got, want, dtype, 1e-4)
 
 
+# The wgmma kernels' edges (csrc/tile_band_sm90.cuh): blocks of 64 queries,
+# chunks of 64 keys from t - halo, d in 16-column steps of 64-column tiles.
+# At W = 131, 257 and 683 (halo 80, 128, 352): S one short of and one past a
+# multiple of 64 (the last block's queries past S, or one query in it),
+# long enough that the first and last blocks' chunks cross each end of the
+# line and lie wholly past it (K6's and K7's clamped rows); d = 24 and 264,
+# off the grid of 16 (a last step of 8 columns and zeros, a last column
+# tile of 8).
+TILE_SM90_WINDOWS = (131, 257, 683)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [24, 264])
+@pytest.mark.parametrize("w", TILE_SM90_WINDOWS)
+@pytest.mark.parametrize("extra", [-1, 1])
+def test_tile_band_wgmma_kernels_at_their_edges(cuda, dtype, d, w, extra):
+    """K6, K7 (folded) and K8 on the wgmma kernels against their plain
+    versions by the grid's rules, S = 64 m + extra past 2 halo + 64; two
+    forward and two backward runs bit-identical."""
+    halo = tile._halo(tile.DEFAULT_BLOCK, w // 2)
+    s = 64 * ((2 * halo + 63) // 64 + 2) + extra
+    q, k, v, g = (x.view(2, s, d) for x in _inputs(cuda, (1, 2, s, d), dtype,
+                                                   n=4, seed=s + w + d))
+    out = tile.tile_band_forward(q, k, v, w)
+    out_again = tile.tile_band_forward(q, k, v, w)
+    grads = tile.tile_band_backward(q, k, v, g, w)
+    again = tile.tile_band_backward(q, k, v, g, w)
+    out_b = tile.banded_attention_v4b(*(x.view(1, 2, s, d) for x in (q, k, v)),
+                                      w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_again)
+    ref = tile.plain_tile_band_forward(q, k, v, w)
+    _tile_close(out, ref, dtype, 1e-5)
+    _tile_close(out_b.view(2, s, d), ref, dtype, 1e-5)
+    for got, rerun, want in zip(grads, again,
+                                tile.plain_bwd_rule(q, k, v, g, w)):
+        assert got.dtype == dtype and torch.equal(got, rerun)
+        _tile_close(got, want, dtype, 1e-4)
+
+
+# Head dims where the wgmma kernels' kept tiles no longer fit beside the
+# ring: K7's Q and G from d = 776 (1024, and 1280: ViT-H's width in one head,
+# which the CLI reaches through MHLA-H/14 with one head on the tile band),
+# K6/K8's Q from d = 1480 (2048); each streams through the ring with K and V
+# instead. At the model's W = 7 and at W = 257 (halo 128), S = 321: the
+# first and last blocks' chunks cross each end of the line.
+TILE_STREAMED_HEAD_DIMS = (1024, 1280, 2048)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [7, 257])
+@pytest.mark.parametrize("d", TILE_STREAMED_HEAD_DIMS)
+def test_tile_band_kernels_past_the_kept_tiles(cuda, dtype, d, w):
+    """K6, K7 (folded) and K8 at head dims whose Q (and G) tiles do not fit
+    in shared memory beside the ring, against their plain versions by the
+    grid's rules; two forward and two backward runs bit-identical."""
+    s = 321
+    q, k, v, g = (x.view(2, s, d) for x in _inputs(cuda, (1, 2, s, d), dtype,
+                                                   n=4, seed=s + w + d))
+    tile.reset_launch_count()
+    out = tile.tile_band_forward(q, k, v, w)
+    out_again = tile.tile_band_forward(q, k, v, w)
+    grads = tile.tile_band_backward(q, k, v, g, w)
+    again = tile.tile_band_backward(q, k, v, g, w)
+    out_b = tile.banded_attention_v4b(*(x.view(1, 2, s, d) for x in (q, k, v)),
+                                      w)
+    torch.cuda.synchronize()
+    assert [tile.launch_count(k_) for k_ in tile.LAUNCH_KINDS] == [2, 2, 1]
+    assert torch.equal(out, out_again)
+    ref = tile.plain_tile_band_forward(q, k, v, w)
+    _tile_close(out, ref, dtype, 1e-5)
+    _tile_close(out_b.view(2, s, d), ref, dtype, 1e-5)
+    for got, rerun, want in zip(grads, again,
+                                tile.plain_bwd_rule(q, k, v, g, w)):
+        assert got.dtype == dtype and torch.equal(got, rerun)
+        _tile_close(got, want, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("w,d,s", [(257, 80, 1370), (683, 80, 1370),
+                                   (129, 256, 300), (129, 80, 1370),
+                                   (7, 768, 3137)])
+def test_tile_band_backward_runs_are_bit_identical(cuda, w, d, s):
+    """Three bf16 K7 runs give the same bits at MHLA-H/14's wide windows
+    (W = 257, 683), at W = 129 (d = 80 and 256) and at d = 768: every sum in
+    a fixed order, no atomics."""
+    q, k, v, g = _inputs(cuda, (4, s, d), torch.bfloat16, n=4, seed=w + d)
+    first = tile.tile_band_backward(q, k, v, g, w)
+    for _ in range(2):
+        again = tile.tile_band_backward(q, k, v, g, w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 @pytest.mark.parametrize("kernel", ["K6", "K7"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("poison", [float("nan"), float("inf"), 3e38])
@@ -893,8 +987,7 @@ def test_tile_band_backward_reads_only_its_row(cuda, dtype, poison, s,
     """NaN, inf or 3e38 in the neighbouring (b*h) rows of q, k, v and g
     leave a row's K6 output, and its K7 dq, dk and dv, bit-identical: the
     kernels read no row but their own, the clamped halo included (the ring
-    kernels at (7, 64), the streamed ones at (257, 80) and (7, 384), the
-    wide ones at the other (W, d))."""
+    kernels at (7, 64), the wgmma ones at the other (W, d))."""
     q, k, v, g = _inputs(cuda, (3, s, d), dtype, n=4, seed=s)
 
     def run():
@@ -974,7 +1067,7 @@ def test_tile_band_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # stride
         x = q.transpose(1, 2).contiguous().transpose(1, 2)
         tile.tile_band_forward(x, x, x, 7)
-    # A window past 129 and a head dim past 256 are taken (the streamed
+    # A window past 129 and a head dim past 256 are taken (the wgmma
     # kernels): each call returns its shapes.
     x = torch.zeros(6, 300, 16, device=cuda)
     assert all(t.shape == x.shape

@@ -533,6 +533,67 @@ def test_tile_band_forward_stages_rows_without_atomics(pattern, present):
     assert bool(re.search(pattern, text)) == present, pattern
 
 
+TILE_SM90_PATTERNS = [
+    (r"wgmma\.mma_async", True),               # the band products on wgmma
+    (r"cp\.async\.bulk\.tensor", True),       # a stage's tiles by TMA land
+    (r"mbar_wait\(&full\[", True),               # on its barrier, awaited
+    (r"mbar_wait\(&empty\[", True),              # and released per stage
+    (r"\bring\.wait\(", True),
+    (r"\bring\.release\(", True),
+    (r"\bring\.acquire\(", True),
+    (r"mbar_arrive_expect_tx\(bar, kTileBytes\)", True),
+    (r"tb90::tile_product<", True),
+    (r"__syncthreads\(\)", False),               # no block barrier an item
+    (r"\batomic\w*\(", False),                   # sums in a fixed order
+    (r"\batom\.", False),
+    (r"\bred\.", False),
+]
+
+
+def _sm90_kernels(name: str) -> str:
+    """The bodies of a tile-band source's wgmma kernels (``__global__``
+    functions named ``..._sm90...``) and the text of the ``csrc`` headers it
+    includes, the ring header first."""
+    import re
+
+    src = (CSRC / name).read_text()
+    bodies = []
+    for m in re.finditer(r"__global__[^{;]*?\b(tile_band_\w*sm90\w*)\(", src):
+        start = src.index("{", m.end())
+        depth, i = 0, start
+        while True:
+            depth += {"{": 1, "}": -1}.get(src[i], 0)
+            i += 1
+            if depth == 0:
+                break
+        bodies.append(src[start:i])
+    assert bodies, name
+    headers = "".join((CSRC / h).read_text() for h in re.findall(
+        r'#include "(\w+\.cuh)"', src) if h == "tile_band_sm90.cuh")
+    return headers + "".join(bodies)
+
+
+@pytest.mark.parametrize("name", ["mhla_tile_band_fwd.cu",
+                                  "mhla_tile_band_bwd.cu"])
+@pytest.mark.parametrize("pattern,present", TILE_SM90_PATTERNS)
+def test_tile_band_wgmma_kernels_wait_per_stage(name, pattern, present):
+    """Past the ring kernels' range K6/K8 and K7 run wgmma kernels
+    (``tile_band_sm90.cuh``): their tiles arrive by TMA and complete on the
+    stage's own mbarrier, the consumers wait on the stage they read and
+    release it, the producer waits for a released stage, the products are
+    warpgroup products; no block-wide barrier per item and no atomics, so two runs
+    give the same bits. (The ring header's setup barrier is outside the
+    kernels' bodies.)"""
+    import re
+
+    text = _sm90_kernels(name)
+    if pattern == r"__syncthreads\(\)":
+        # make_ring's one barrier after the set-up is the only one.
+        text = text.replace("hp::fence_barrier_init();\n  }\n  __syncthreads();",
+                            "")
+    assert bool(re.search(pattern, text)) == present, pattern
+
+
 def test_tile_band_sources_share_one_ring_header():
     """Both tile-band sources include ``tile_ring.cuh``, which defines the
     ring helpers (ring rows, swizzle, lane addresses, row copies, staged
