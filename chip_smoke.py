@@ -285,8 +285,10 @@ takes (1, 2 and 64 heads: d = 768, 384 and 12), batch 8:
     1280 (W=7); K3 and K4 at d = 384 and 1280 (S=197, dropout 0 and 0.1,
     kernel-fused's loose-case rule); K6, K7 and K8 at d = 4, 12, 36 (S=3137,
     W=7 and 129): f32 at batch 1 and bf16 at batch 8 against the plain
-    versions, the paths' widths timed beside plain, bound and PyTorch's
-    fused attention (its backend named), the pad's copies at d = 12;
+    versions, the paths' widths and K5, K3/K4 at 1280 timed beside plain,
+    bound and PyTorch's fused attention (its backend named), the wide
+    blocks' slice plan and recomputation factor beside K5's and K3/K4's
+    times past 256, the pad's copies at d = 12;
 47. headdims-model, headdims-serve, export and headdims-train: MHLA-B/4
     with 2 and 64 heads (K1/K2), dense ViT-B/4 with 1 and 64 heads (K5),
     ViT-B/16 with 2 heads and ``FAVIT_FUSED_MHA=1`` (K3/K4, attention
@@ -635,10 +637,11 @@ def _flash_ptxas(lib: Path, text: str) -> None:
     found = set()
     for d in FLASH_PTXAS_DIMS:
         if lib_name == "flash_attention_fwd":
-            smem = {"flash_fwd_wgmma": so.flash_attention_fwd_smem(d)}
+            smem = {"flash_fwd_wgmma": so.flash_attention_fwd_smem(d, 0)}
         else:
-            smem = {"flash_bwd_dkv_wgmma": so.flash_attention_bwd_smem(d, 0),
-                    "flash_bwd_dq_wgmma": so.flash_attention_bwd_smem(d, 1)}
+            smem = {"flash_bwd_dkv_wgmma":
+                        so.flash_attention_bwd_smem(d, 0, 0),
+                    "flash_bwd_dq_wgmma": so.flash_attention_bwd_smem(d, 1, 0)}
         for m in re.finditer(
                 r"Function properties for \S*?\d(flash_(?:fwd|bwd_dkv|bwd_dq)"
                 rf"_wgmma)ILi{d}E(\w*?)Ev\S*\n\s*\d+ bytes stack frame, "
@@ -720,32 +723,43 @@ def _fused_wide_ptxas(lib: Path, text: str) -> None:
                      f"stores (bytes) {spills or 'none'}")
 
 
+# The head dims at which the build phase reports the wide kernels' dynamic
+# shared memory: the one-head paths' (each own tile kept at 768 in the
+# forward, streamed in the backward and at 1280).
+WIDE_SMEM_DIMS = (384, 768, 1280)
+
+
 def _headdim_wide_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's registers and spills of the blocks past head dim 256
-    (csrc/flash_wide.cuh) in a flash or fused library: the bf16 forward, or
-    the dkv and dq kernels, and their dynamic shared memory; raise if one
-    is missing or spills (none did when they were written: 166 to 236
-    registers)."""
+    (csrc/flash_wide.cuh) in a flash or fused library, each instantiation
+    (NT output tiles a warpgroup, with or without lse): the bf16 forward,
+    or the dkv and dq kernels, with their dynamic shared memory at
+    WIDE_SMEM_DIMS; raise if one is missing or spills."""
     op = "flash" if lib.name.startswith("libflash") else "fused"
     kinds = ("fwd",) if "_fwd" in lib.name else ("bwd_dkv", "bwd_dq")
     so = kernel_build.load("flash_attention_fwd" if kinds == ("fwd",)
                            else "flash_attention_bwd")
-    smem = (so.flash_attention_fwd_smem(264) if kinds == ("fwd",)
-            else so.flash_attention_bwd_smem(264, 0))
     for kind in kinds:
         name = f"{op}_{kind}_wide"
         found = re.findall(
-            rf"Function properties for \S*?\d{name}\S*\n\s*\d+ bytes "
-            r"stack frame, (\d+) bytes spill stores.*\n.*?Used (\d+) "
-            r"registers", text)
-        if not found:
-            raise AssertionError(f"ptxas report of {name} not found in "
-                                 f"{lib.parent / 'build.log'}")
-        log("build", f"ptxas {name} (head dims past 256): " + ", ".join(
-            f"{regs} registers, {spills} bytes of spill stores"
-            for spills, regs in found)
-            + f"; {smem} bytes of dynamic shared memory")
-        if any(int(spills) for spills, _ in found):
+            rf"Function properties for \S*?\d{name}ILi(\d)E(?:Lb(\d)E)?"
+            r"\S*\n\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
+            r".*?Used (\d+) registers", text)
+        if len(found) != (6 if kind == "fwd" else 3):
+            raise AssertionError(f"ptxas reports {len(found)} instantiations "
+                                 f"of {name} in {lib.parent / 'build.log'}")
+        def smem(nt):
+            return [so.flash_attention_fwd_smem(d, nt) if kind == "fwd"
+                    else so.flash_attention_bwd_smem(
+                        d, int(kind == "bwd_dq"), nt)
+                    for d in WIDE_SMEM_DIMS]
+        log("build", f"ptxas {name} (head dims past 256; NT, lse: "
+                     f"registers, spill bytes, dynamic smem at d = "
+                     f"{WIDE_SMEM_DIMS}): " + "; ".join(
+                         f"{nt}{',' + lse if lse else ''}: {regs}, {spills},"
+                         f" {smem(int(nt))}"
+                         for nt, lse, spills, regs in sorted(found)))
+        if any(int(spills) for _, _, spills, _ in found):
             raise AssertionError(f"{name} spills: {found}")
 
 
@@ -4612,6 +4626,20 @@ def _optin_check(failures, where, res):
         failures.append(f"{where}: {bad}")
 
 
+def _window_inputs(q, k, v, w):
+    """K8's window tiles of [B*h, S, d] q, k, v at JAX's tile length, and
+    the band as a boolean mask over them: (qt, ke, ve, mask, t)."""
+    bh, s, d = q.shape
+    hw = w // 2
+    halo = tile._halo(tile.DEFAULT_BLOCK, hw)
+    t = max(2 * halo, min(tile.DEFAULT_BLOCK, -(-s // 8) * 8))
+    sp = -(-s // t) * t
+    ke, ve = (tile._window_tiles(x, t, halo, sp) for x in (k, v))
+    qt = tile._pad_seq(q, 0, sp - s).reshape(bh, sp // t, t, d).contiguous()
+    mask = tile._band_mask(t, t + 2 * halo, halo, hw, "cuda")
+    return qt, ke, ve, mask, t
+
+
 def _tile_times(q, k, v, g, w, gen, reps=10):
     """bf16 K6, K7 and K8 (on prebuilt window tiles) beside their plain
     versions and PyTorch's fused attention on the window tiles with the band
@@ -4621,12 +4649,7 @@ def _tile_times(q, k, v, g, w, gen, reps=10):
 
     bh, s, d = q.shape
     hw = w // 2
-    halo = tile._halo(tile.DEFAULT_BLOCK, hw)
-    t = max(2 * halo, min(tile.DEFAULT_BLOCK, -(-s // 8) * 8))
-    sp = -(-s // t) * t
-    ke, ve = (tile._window_tiles(x, t, halo, sp) for x in (k, v))
-    qt = tile._pad_seq(q, 0, sp - s).reshape(bh, sp // t, t, d).contiguous()
-    mask = tile._band_mask(t, t + 2 * halo, halo, hw, "cuda")
+    qt, ke, ve, mask, t = _window_inputs(q, k, v, w)
     with torch.no_grad():
         times = {
             "fwd": cuda_median_ms(lambda: tile.tile_band_forward(q, k, v, w),
@@ -5222,8 +5245,8 @@ def phase_h14_optin() -> dict:
 # paths' shapes (batch 8; f32 at batch 1): K5 at d = 768 and 12 (dense
 # ViT-B/4, S = 3137), K1/K2 at d = 384 and 12 (MHLA-B/4, W = 7), K3/K4 at
 # d = 384 (ViT-B/16, S = 197); each also at ViT-H's D = 1280 in one head (K5
-# and K1/K2 at S = 1370, K3/K4 at S = 197); and K6/K7/K8 at d = 4, 12, 36
-# (S = 3137, W = 7 and 129).
+# and K1/K2 at S = 1370, K3/K4 at S = 197; K5 and K3/K4 timed there too);
+# and K6/K7/K8 at d = 4, 12, 36 (S = 3137, W = 7 and 129).
 HD_DIM, HD_IMG, HD_BATCH = 768, 224, 8
 HD_S = (HD_IMG // 4) ** 2 + 1
 HD_FUSED_S = (HD_IMG // 16) ** 2 + 1
@@ -5236,28 +5259,36 @@ HD_TILE_WINDOWS = (7, 129)
 HD_TILE_ROWS = 16
 HD_W = 7
 HD_REPS = 10  # CUDA-event medians of the kernels; the plain versions of 3
+# K3/K4 and their library calls at S = 197 in batches of calls, as
+# kernel-fused times them: a call takes about as long on the host as on
+# the card.
+HD_FUSED_BATCH = 10
 # The paths run cut to 4 of their 12 blocks, to hold the smoke's time; the
 # kernels run at full width either way.
 HD_DEPTH = 4
 
 
-def _sdpa_backend(q, k, v) -> str:
+def _sdpa_backend(q, k, v, mask=None) -> str:
     """The backend PyTorch's fused attention picks for these inputs."""
     from torch.nn.attention import SDPBackend
 
-    return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask=mask)).name
 
 
-def _recompute(d: int) -> str:
-    """The wide blocks' logits recomputation at head dim d: every 128
-    output columns of the forward and every 64 of the backward form the
-    logits (and dP) over all of d again (csrc/flash_wide.cuh); up to 256
-    the wgmma blocks hold whole rows."""
+def _recompute(rows: int, s: int, d: int) -> str:
+    """The wide blocks' slice plan and recomputation at this shape
+    (ops/flash_attention.wide_plan, csrc/flash_wide.cuh): each slice forms
+    the logits (and dP) over all of d once; up to 256 the blocks hold whole
+    rows."""
     if d <= 256:
         return "none (whole rows)"
-    fwd, bwd = -(-d // 128), -(-d // 64)
-    return (f"forward {(fwd + 1) / 2:.2f}x its 4 S^2 d flops ({fwd} slices), "
-            f"backward {(8 * bwd + 6) / 10:.2f}x its 10 S^2 d ({bwd} slices)")
+    plan = {k: flash.wide_plan(rows, s, d, k) for k in ("fwd", "dkv", "dq")}
+    return ("plan " + ", ".join(
+        f"{k} {p.slices} slices of {1 if k == 'dkv' else 2} x {p.cols} "
+        f"columns" for k, p in plan.items())
+        + f"; forward {flash.wide_factor(rows, s, d, 'fwd'):.2f}x its "
+          f"4 S^2 d operations, backward "
+          f"{flash.wide_factor(rows, s, d, 'bwd'):.2f}x its 10 S^2 d")
 
 
 def _pad_ms(x, d: int, dim: int) -> float:
@@ -5322,20 +5353,25 @@ def phase_kernel_headdims() -> dict:
         return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
                 for _ in range(4)]
 
-    def times_of(fns):
+    def times_of(fns, batch=1):
         return {n: cuda_median_ms(fn, 3, 1) if n.endswith("plain")
-                else cuda_median_ms(fn, HD_REPS) for n, fn in fns.items()}
+                else cuda_median_ms(fn, HD_REPS, batch=batch)
+                for n, fn in fns.items()}
 
-    def show(kind, d, r):
+    def show(kind, d, r, rows=0, s=0):
         log(phase, f"{kind} d={d} bf16, kernel / plain / PyTorch's fused "
                    f"attention ({r.pop('backend')}), ms (CUDA-event "
-                   f"medians of {HD_REPS}, plain of 3): " + "; ".join(
+                   f"medians of {HD_REPS}"
+                   + (f" of batches of {HD_FUSED_BATCH} calls"
+                      if kind.startswith("fused") else "")
+                   + ", plain of 3): " + "; ".join(
                        f"{n} {x['ms']:.4f} / {x['plain_ms']:.4f} / "
                        f"{x['library_ms'] if x['library_ms'] is None else round(x['library_ms'], 4)}"
                        f", bound {x['bound_ms']:.4f} ({x['bound_by']}), "
                        f"{x['bound_ms'] / x['ms']:.3f} of it"
                        for n, x in r.items())
-            + ("" if kind == "band" else f"; recomputation {_recompute(d)}"))
+            + ("" if kind == "band" else
+               f"; recomputation {_recompute(rows, s, d)}"))
 
     result = {"flash": {}, "band": {}, "fused": {}}
     for d, h, s in HD_FLASH:
@@ -5347,7 +5383,7 @@ def phase_kernel_headdims() -> dict:
             _optin_check(failures, f"flash {shape} {dt}", res)
             log(phase, f"flash B,h,S,d={shape} {dt}: max abs err " + ", ".join(
                 f"{n} {t}" for n, (_, _, t) in res.items()))
-            if dtype == torch.float32 or d == HD_H:
+            if dtype == torch.float32:
                 continue
             out, lse = flash.flash_forward_train(q, k, v)
             again = [flash.flash_backward(q, k, v, out, lse, g)
@@ -5391,7 +5427,8 @@ def phase_kernel_headdims() -> dict:
                          library_ms=t["bwd_library"],
                          **least_time(8 * one + lse.numel() * 4,
                                       10 * pairs)))
-            show("flash", d, dict(r, backend=_sdpa_backend(q, k, v)))
+            show("flash", d, dict(r, backend=_sdpa_backend(q, k, v)),
+                 HD_BATCH * h, s)
             if d % 8:
                 log(phase, f"flash d={d}: the pad's copies (q, k, v to "
                            f"{-(-d // 8) * 8} columns, out back) "
@@ -5517,7 +5554,7 @@ def phase_kernel_headdims() -> dict:
             log(phase, f"fused B,h,S,d={shape} {dt}, dropout 0 and {rate}: "
                        f"max abs err " + ", ".join(
                            f"{n} {t}" for n, (_, _, t) in res.items()))
-            if dtype == torch.float32 or d == HD_H:
+            if dtype == torch.float32:
                 continue
             out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
             again = [fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
@@ -5539,10 +5576,12 @@ def phase_kernel_headdims() -> dict:
                         q, k, v, rate, seed),
                     "bwd_plain": lambda: fused.plain_fused_mha_backward(
                         q, k, v, g, rate, seed, out=out),
-                })
+                }, HD_FUSED_BATCH)
                 t["fwd_library"] = cuda_median_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v), HD_REPS)
-            t.update(_fused_library_times(q, k, v, g, rate, HD_REPS, 1))
+                    lambda: F.scaled_dot_product_attention(q, k, v), HD_REPS,
+                    batch=HD_FUSED_BATCH)
+            t.update(_fused_library_times(q, k, v, g, rate, HD_REPS,
+                                          HD_FUSED_BATCH))
             errs = {n: e for n, (e, _, _) in res.items()}
             one = q.numel() * q.element_size()
             pairs = HD_BATCH * h * HD_FUSED_S * HD_FUSED_S * d
@@ -5565,7 +5604,8 @@ def phase_kernel_headdims() -> dict:
                     library_ms=t["bwd_library"],
                     **least_time(7 * one, 10 * pairs)))
             show(f"fused S={HD_FUSED_S}", d,
-                 dict(r, backend=_sdpa_backend(q, k, v)))
+                 dict(r, backend=_sdpa_backend(q, k, v)), HD_BATCH * h,
+                 HD_FUSED_S)
             del q, k, v, g, out, lse
             torch.cuda.empty_cache()
 
@@ -5608,6 +5648,10 @@ TR_TIMED = ((384, HD_W, 2 * HD_BATCH, HD_S), (768, HD_W, HD_BATCH, HD_S),
             (80, 257, H14_BATCH * H14_HEADS, H14_S),
             (80, 683, H14_BATCH * H14_HEADS, H14_S))
 TR_REPS = 10  # CUDA-event medians of the kernels; the plain versions of 3
+# One head of d = 1024, 1280 (ViT-H's width) and 2048 at W = 7, B*h = 8,
+# S = 1370 (utils/band_ab.py --tile times K6, K7 and K8 there): the library
+# call they are held against, timed alone, its backend named.
+TR_LIBRARY = ((1024, 7, 8, H14_S), (1280, 7, 8, H14_S), (2048, 7, 8, H14_S))
 
 
 def phase_kernel_tileband_range() -> dict:
@@ -5683,6 +5727,28 @@ def phase_kernel_tileband_range() -> dict:
                        f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} "
                        f"of it" for kind, r in result["tile"][(d, w)].items()))
         del q, k, v, g
+    import torch.nn.functional as F  # the library call, timed as a yardstick
+
+    for d, w, bh, s in TR_LIBRARY:
+        torch.cuda.empty_cache()
+        q, k, v, g = inputs((bh, s, d), torch.bfloat16)
+        qt, ke, ve, mask, _ = _window_inputs(q, k, v, w)
+        with torch.no_grad():
+            fwd = cuda_median_ms(lambda: F.scaled_dot_product_attention(
+                qt, ke, ve, attn_mask=mask), TR_REPS)
+        gt = torch.randn(qt.shape, device="cuda", generator=gen).to(q.dtype)
+        bwd = backward_ms(
+            lambda *a: F.scaled_dot_product_attention(*a, attn_mask=mask),
+            (qt, ke, ve), gt)
+        backend = _sdpa_backend(qt, ke, ve, mask)
+        result["library"] = {**result.get("library", {}),
+                             d: dict(fwd=fwd, bwd=bwd, backend=backend)}
+        log(phase, f"tile band d={d} W={w} B*h={bh} S={s} bf16: PyTorch's "
+                   f"fused attention on the window tiles with the band as a "
+                   f"mask ({backend}), ms (CUDA-event medians of {TR_REPS}): "
+                   f"forward {fwd:.4f} (K6's and K8's yardstick), backward "
+                   f"{bwd:.4f} (K7's)")
+        del q, k, v, g, qt, ke, ve, gt
     result["fwd_b_launches"] = tile.launch_count("fwd_b")
     torch.cuda.empty_cache()
     if failures:

@@ -68,8 +68,10 @@
 // kernel's two 64 x D accumulators would not fit the registers, so it runs
 // twice, once for dk and once for dv, each recomputing S^T and dP^T; the dq
 // kernel streams 32-key tiles there. Past 256 the dkv and dq kernels are
-// flash_wide.cuh's blocks (dk, dv and dq in 64-column slices over the grid,
-// S^T, dP^T or S, dP over d in 64-column chunks), after the same delta.
+// flash_wide.cuh's blocks, after the same delta: dkv in slices of up to 256
+// columns of dk and dv (one warpgroup forms S^T over d and adds dv, the
+// other dP^T and dk), dq in slices of up to 512 columns (S and dP over d,
+// one warpgroup each, swapped; each adds its share of dq).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,65 +133,70 @@ struct Args {
   cudaStream_t stream;
 };
 
-__global__ void __launch_bounds__(flash_wide::kThreads)
-    flash_bwd_dkv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ g,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int s, int d, int tiles_per_row,
-                       float scale, float scale_log2) {
-  flash_wide::dkv_block(q, k, v, g, lse, delta, dk, dv, s, d, tiles_per_row,
-                        scale, scale_log2, flash_bwd::NoMask{});
+// Past d = 256: flash_wide.cuh's dkv and dq blocks, NT output tiles of 64
+// columns a warpgroup.
+template <int NT>
+__global__ void __launch_bounds__(flash_wide::kThreads, 1)
+    flash_bwd_dkv_wide(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tg,
+                       flash_wide::Geom g, flash_wide::Io io,
+                       flash_bwd::NoMask mask) {
+  const flash_wide::Maps m0{&tk, &tq, &tg}, m1{&tv, &tg, &tq};
+  flash_wide::block<flash_wide::kDkv, NT, false>(m0, m1, g, io, mask);
 }
 
-__global__ void __launch_bounds__(flash_wide::kThreads)
-    flash_bwd_dq_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ g,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dq,
-                      int s, int d, int tiles_per_row, float scale,
-                      float scale_log2) {
-  flash_wide::dq_block(q, k, v, g, lse, delta, dq, s, d, tiles_per_row, scale,
-                       scale_log2, flash_bwd::NoMask{});
+template <int NT>
+__global__ void __launch_bounds__(flash_wide::kThreads, 1)
+    flash_bwd_dq_wide(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tg,
+                      flash_wide::Geom g, flash_wide::Io io,
+                      flash_bwd::NoMask mask) {
+  const flash_wide::Maps m0{&tq, &tk, &tk}, m1{&tg, &tv, &tk};
+  flash_wide::block<flash_wide::kDq, NT, false>(m0, m1, g, io, mask);
 }
 
-// Past d = 256: the delta kernel, then flash_wide.cuh's dkv and dq kernels.
-cudaError_t launch_wide(const Args& a) {
-  dim3 grid;
-  int tiles = 0;
-  cudaError_t err = flash_wide::grid_of(&grid, &tiles, a.rows, a.s, a.d,
-                                        flash_wide::kBwdSlice);
-  if (err != cudaSuccess) return err;
-  err = flash::launch_delta<bf16, flash::for_flash_bwd>(
+template <int KIND>
+auto wide_kernel(int tiles) {
+  if constexpr (KIND == flash_wide::kDkv) {
+    return tiles == 2   ? &flash_bwd_dkv_wide<2>
+           : tiles == 3 ? &flash_bwd_dkv_wide<3>
+                        : &flash_bwd_dkv_wide<4>;
+  } else {
+    return tiles == 2   ? &flash_bwd_dq_wide<2>
+           : tiles == 3 ? &flash_bwd_dq_wide<3>
+                        : &flash_bwd_dq_wide<4>;
+  }
+}
+
+// Past d = 256: the delta kernel, then the dkv and dq kernels at the
+// plan's slices and tiles (ops/flash_attention.py wide_plan).
+cudaError_t launch_wide(const Args& a, const int (&plan)[4]) {
+  namespace fw = flash_wide;
+  if (!fw::plan_ok(fw::kDkv, a.d, plan[0], plan[1]) ||
+      !fw::plan_ok(fw::kDq, a.d, plan[2], plan[3])) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = flash::launch_delta<bf16, flash::for_flash_bwd>(
       a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_wide,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             flash_wide::kBwdSmem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_wide,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             flash_wide::kBwdSmem);
-  if (err != cudaSuccess) return err;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* g = static_cast<const bf16*>(a.g);
-  const float* lse = static_cast<const float*>(a.lse);
+  float* lse = const_cast<float*>(static_cast<const float*>(a.lse));
   const float* delta = static_cast<const float*>(a.delta);
   const float scale_log2 = a.scale * flash::kLog2e;
-  flash_bwd_dkv_wide<<<grid, flash_wide::kThreads, flash_wide::kBwdSmem,
-                       a.stream>>>(q, k, v, g, lse, delta,
-                                   static_cast<bf16*>(a.dk),
-                                   static_cast<bf16*>(a.dv), a.s, a.d, tiles,
-                                   a.scale, scale_log2);
-  err = cudaGetLastError();
+  const fw::Io dkv{static_cast<bf16*>(a.dv), static_cast<bf16*>(a.dk), lse,
+                   delta, a.scale, scale_log2};
+  err = fw::launch(wide_kernel<fw::kDkv>(plan[1]), fw::kDkv, plan[1], a.q,
+                   a.k, a.v, a.g, a.rows, a.s, a.d, plan[0], dkv,
+                   flash_bwd::NoMask{}, a.stream);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wide<<<grid, flash_wide::kThreads, flash_wide::kBwdSmem,
-                      a.stream>>>(q, k, v, g, lse, delta,
-                                  static_cast<bf16*>(a.dq), a.s, a.d, tiles,
-                                  a.scale, scale_log2);
-  return cudaGetLastError();
+  const fw::Io dq{static_cast<bf16*>(a.dq), nullptr, lse, delta, a.scale,
+                  scale_log2};
+  return fw::launch(wide_kernel<fw::kDq>(plan[3]), fw::kDq, plan[3], a.q,
+                    a.k, a.v, a.g, a.rows, a.s, a.d, plan[2], dq,
+                    flash_bwd::NoMask{}, a.stream);
 }
 
 template <int D, int kPart>
@@ -276,7 +283,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* lse, const void* g, void* dq,
                                    void* dk, void* dv, void* delta,
                                    long long rows, int s, int d, int is_bf16,
-                                   float scale, int device, void* stream) {
+                                   float scale, int device, void* stream,
+                                   int kv_slices, int kv_tiles, int q_slices,
+                                   int q_tiles) {
   if (rows <= 0 || s < 1 || d < 8 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -290,7 +299,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
         q, k, v, out, g, lse, delta, dq, dk, dv, rows, s, d, scale,
         flash_f32::Drop{0, 0, 1.f, 0}, a.stream));
   }
-  if (flash_wide::takes(d)) return static_cast<int>(launch_wide(a));
+  if (flash_wide::takes(d)) {
+    const int plan[4] = {kv_slices, kv_tiles, q_slices, q_tiles};
+    return static_cast<int>(launch_wide(a, plan));
+  }
   switch (flash::tile_width(d)) {
     case 16:
       err = launch_wgmma<16>(a);
@@ -321,9 +333,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 
 // The dynamic shared memory, in bytes, that the bf16 dkv (kernel = 0) or dq
 // (kernel = 1) kernel at head dim d is launched with (0 for a head dim it
-// does not take).
-extern "C" int flash_attention_bwd_smem(int d, int kernel) {
-  if (flash_wide::takes(d)) return flash_wide::kBwdSmem;
+// does not take); past 256, at `tiles` output tiles a warpgroup.
+extern "C" int flash_attention_bwd_smem(int d, int kernel, int tiles) {
+  if (flash_wide::takes(d)) {
+    return flash_wide::smem_of(
+        kernel == 0 ? flash_wide::kDkv : flash_wide::kDq, d, tiles);
+  }
   switch (flash::tile_width(d)) {
     case 16:
       return kernel == 0 ? Dkv<16>::kSmem : Dq<16>::kSmem;

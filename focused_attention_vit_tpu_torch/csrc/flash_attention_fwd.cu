@@ -64,8 +64,10 @@
 // 32-byte-swizzled blocks and its P V runs as products of 64 and 16
 // columns; D = 192 and 256 in 64-column blocks with products of 128 and
 // 64 or 128, and key tiles of 64 and 32. Past 256 the forward runs
-// flash_wide.cuh's block: output columns in slices of 128 over the grid, the
-// logits over d in 64-column chunks, warp-level tensor-core products.
+// flash_wide.cuh's block: two consumer warpgroups split the logits over d
+// and swap their partials, then each adds P V over its share of an output
+// slice of up to 512 columns (slices over the grid's y, the plan's
+// arguments `slices` and `tiles`), wgmma on a TMA ring.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,35 +101,38 @@ __global__ void __launch_bounds__(kThreads, 1)
                             scale_log2, flash_fwd::NoMask{}, d);
 }
 
-template <bool kLse>
-__global__ void __launch_bounds__(flash_wide::kThreads)
-    flash_fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out,
-                   float* __restrict__ lse, int s, int d, int tiles_per_row,
-                   float scale_log2) {
-  flash_wide::fwd_block<kLse>(q, k, v, out, lse, s, d, tiles_per_row,
-                              scale_log2, flash_fwd::NoMask{});
+// Past d = 256: flash_wide.cuh's forward block, NT output tiles of 64
+// columns a warpgroup (the fourth map is unused).
+template <int NT, bool kLse>
+__global__ void __launch_bounds__(flash_wide::kThreads, 1)
+    flash_fwd_wide(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap, flash_wide::Geom g,
+                   flash_wide::Io io, flash_fwd::NoMask mask) {
+  const flash_wide::Maps m{&tq, &tk, &tv};
+  flash_wide::block<flash_wide::kFwd, NT, kLse>(m, m, g, io, mask);
 }
 
-// Past d = 256: flash_wide.cuh's block.
+template <bool kLse>
+auto wide_kernel(int tiles) {
+  return tiles == 2   ? &flash_fwd_wide<2, kLse>
+         : tiles == 3 ? &flash_fwd_wide<3, kLse>
+                      : &flash_fwd_wide<4, kLse>;
+}
+
+// The plan's `slices` slices of `tiles` 64-column tiles a warpgroup
+// (ops/flash_attention.py wide_plan).
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
                         void* out, float* lse, int64_t rows, int s, int d,
-                        float scale, cudaStream_t stream) {
-  dim3 grid;
-  int tiles = 0;
-  cudaError_t err = flash_wide::grid_of(&grid, &tiles, rows, s, d,
-                                        flash_wide::kFwdSlice);
-  if (err != cudaSuccess) return err;
-  auto kernel = lse != nullptr ? flash_fwd_wide<true> : flash_fwd_wide<false>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             flash_wide::kFwdSmem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, flash_wide::kThreads, flash_wide::kFwdSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, s, d, tiles,
-      scale * flash::kLog2e);
-  return cudaGetLastError();
+                        float scale, int slices, int tiles,
+                        cudaStream_t stream) {
+  const flash_wide::Io io{static_cast<bf16*>(out), nullptr, lse, nullptr,
+                          scale, scale * flash::kLog2e};
+  return flash_wide::launch(
+      lse != nullptr ? wide_kernel<true>(tiles) : wide_kernel<false>(tiles),
+      flash_wide::kFwd, tiles, q, k, v, v, rows, s, d, slices, io,
+      flash_fwd::NoMask{}, stream);
 }
 
 template <int D, bool kLse>
@@ -181,7 +186,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    long long rows, int s, int d, int is_bf16,
-                                   float scale, int device, void* stream) {
+                                   float scale, int device, void* stream,
+                                   int slices, int tiles) {
   if (rows <= 0 || s < 1 || d < 8 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -195,8 +201,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
         st));
   }
   if (flash_wide::takes(d)) {
-    return static_cast<int>(
-        launch_wide(q, k, v, out, lp, rows, s, d, scale, st));
+    return static_cast<int>(launch_wide(q, k, v, out, lp, rows, s, d, scale,
+                                        slices, tiles, st));
   }
   switch (flash::tile_width(d)) {
     case 16:
@@ -227,9 +233,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // The dynamic shared memory, in bytes, that the bf16 kernel at head dim d
-// is launched with (0 for a head dim it does not take).
-extern "C" int flash_attention_fwd_smem(int d) {
-  if (flash_wide::takes(d)) return flash_wide::kFwdSmem;
+// is launched with (0 for a head dim it does not take); past 256, at
+// `tiles` output tiles a warpgroup.
+extern "C" int flash_attention_fwd_smem(int d, int tiles) {
+  if (flash_wide::takes(d)) {
+    return flash_wide::smem_of(flash_wide::kFwd, d, tiles);
+  }
   switch (flash::tile_width(d)) {
     case 16:
       return Fwd<16>::kSmem;

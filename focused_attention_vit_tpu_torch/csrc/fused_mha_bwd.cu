@@ -87,8 +87,9 @@
 // for d = D in 16, 32, 64 and 128; every other head dim takes the tiled
 // kernels at every S (the flash blocks take all seven widths; past D = 128
 // the dkv block runs twice, dk then dv). Past 256, the dense backward's wide
-// blocks (flash_wide.cuh: dk, dv and dq in 64-column slices over the grid)
-// with the Philox mask, after the delta kernel.
+// blocks (flash_wide.cuh: dkv in slices of up to 256 columns of dk and dv,
+// dq in slices of up to 512, the slices over the grid's y) with the Philox
+// mask, after the delta kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -593,26 +594,43 @@ __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
                          scale, scale_log2, mask, kExact ? D : d);
 }
 
-__global__ void __launch_bounds__(flash_wide::kThreads)
-    fused_bwd_dkv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ g,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int s, int d, int tiles_per_row,
-                       float scale, float scale_log2, PhiloxMask mask) {
-  flash_wide::dkv_block(q, k, v, g, lse, delta, dk, dv, s, d, tiles_per_row,
-                        scale, scale_log2, mask);
+// Past d = 256: flash_wide.cuh's dkv and dq blocks with the Philox mask, NT
+// output tiles of 64 columns a warpgroup.
+template <int NT>
+__global__ void __launch_bounds__(flash_wide::kThreads, 1)
+    fused_bwd_dkv_wide(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tg,
+                       flash_wide::Geom g, flash_wide::Io io,
+                       PhiloxMask mask) {
+  const flash_wide::Maps m0{&tk, &tq, &tg}, m1{&tv, &tg, &tq};
+  flash_wide::block<flash_wide::kDkv, NT, false>(m0, m1, g, io, mask);
 }
 
-__global__ void __launch_bounds__(flash_wide::kThreads)
-    fused_bwd_dq_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ g,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dq,
-                      int s, int d, int tiles_per_row, float scale,
-                      float scale_log2, PhiloxMask mask) {
-  flash_wide::dq_block(q, k, v, g, lse, delta, dq, s, d, tiles_per_row, scale,
-                       scale_log2, mask);
+template <int NT>
+__global__ void __launch_bounds__(flash_wide::kThreads, 1)
+    fused_bwd_dq_wide(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tg,
+                      flash_wide::Geom g, flash_wide::Io io,
+                      PhiloxMask mask) {
+  const flash_wide::Maps m0{&tq, &tk, &tk}, m1{&tg, &tv, &tk};
+  flash_wide::block<flash_wide::kDq, NT, false>(m0, m1, g, io, mask);
+}
+
+template <int KIND>
+auto wide_kernel(int tiles) {
+  if constexpr (KIND == flash_wide::kDkv) {
+    return tiles == 2   ? &fused_bwd_dkv_wide<2>
+           : tiles == 3 ? &fused_bwd_dkv_wide<3>
+                        : &fused_bwd_dkv_wide<4>;
+  } else {
+    return tiles == 2   ? &fused_bwd_dq_wide<2>
+           : tiles == 3 ? &fused_bwd_dq_wide<3>
+                        : &fused_bwd_dq_wide<4>;
+  }
 }
 
 struct Args {
@@ -709,45 +727,33 @@ cudaError_t launch_tiled(const Args& a, bool drop_on) {
 }
 
 // Past d = 256: the delta kernel, then the wide dkv and dq blocks with the
-// Philox mask.
-cudaError_t launch_wide(const Args& a, bool drop_on) {
-  dim3 grid;
-  int tiles = 0;
-  cudaError_t err = flash_wide::grid_of(&grid, &tiles, a.rows, a.s, a.d,
-                                        flash_wide::kBwdSlice);
-  if (err != cudaSuccess) return err;
-  err = flash::launch_delta<bf16, flash::for_fused_bwd>(
+// Philox mask, at the plan's slices and tiles (ops/flash_attention.py
+// wide_plan).
+cudaError_t launch_wide(const Args& a, bool drop_on, const int (&plan)[4]) {
+  namespace fw = flash_wide;
+  if (!fw::plan_ok(fw::kDkv, a.d, plan[0], plan[1]) ||
+      !fw::plan_ok(fw::kDq, a.d, plan[2], plan[3])) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = flash::launch_delta<bf16, flash::for_fused_bwd>(
       a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fused_bwd_dkv_wide,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             flash_wide::kBwdSmem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fused_bwd_dq_wide,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             flash_wide::kBwdSmem);
   if (err != cudaSuccess) return err;
   const PhiloxMask mask{a.drop.seed, a.drop.threshold, a.drop.inv_keep,
                         drop_on ? 1 : 0};
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* g = static_cast<const bf16*>(a.g);
-  const float* lse = static_cast<const float*>(a.lse);
+  float* lse = const_cast<float*>(static_cast<const float*>(a.lse));
   const float* delta = static_cast<const float*>(a.delta);
   const float scale_log2 = a.scale * flash::kLog2e;
-  fused_bwd_dkv_wide<<<grid, flash_wide::kThreads, flash_wide::kBwdSmem,
-                       a.stream>>>(q, k, v, g, lse, delta,
-                                   static_cast<bf16*>(a.dk),
-                                   static_cast<bf16*>(a.dv), a.s, a.d, tiles,
-                                   a.scale, scale_log2, mask);
-  err = cudaGetLastError();
+  const fw::Io dkv{static_cast<bf16*>(a.dv), static_cast<bf16*>(a.dk), lse,
+                   delta, a.scale, scale_log2};
+  err = fw::launch(wide_kernel<fw::kDkv>(plan[1]), fw::kDkv, plan[1], a.q,
+                   a.k, a.v, a.g, a.rows, a.s, a.d, plan[0], dkv, mask,
+                   a.stream);
   if (err != cudaSuccess) return err;
-  fused_bwd_dq_wide<<<grid, flash_wide::kThreads, flash_wide::kBwdSmem,
-                      a.stream>>>(q, k, v, g, lse, delta,
-                                  static_cast<bf16*>(a.dq), a.s, a.d, tiles,
-                                  a.scale, scale_log2, mask);
-  return cudaGetLastError();
+  const fw::Io dq{static_cast<bf16*>(a.dq), nullptr, lse, delta, a.scale,
+                  scale_log2};
+  return fw::launch(wide_kernel<fw::kDq>(plan[3]), fw::kDq, plan[3], a.q,
+                    a.k, a.v, a.g, a.rows, a.s, a.d, plan[2], dq, mask,
+                    a.stream);
 }
 
 template <int D, int KC>
@@ -826,7 +832,9 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
                              long long rows, int s, int d, int is_bf16,
                              float scale, int drop_on, unsigned seed_lo,
                              unsigned seed_hi, unsigned threshold,
-                             float keep_prob, int device, void* stream) {
+                             float keep_prob, int device, void* stream,
+                             int kv_slices, int kv_tiles, int q_slices,
+                             int q_tiles) {
   if (rows <= 0 || s < 1 || d < 8 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -847,7 +855,10 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v,
         flash_f32::Drop{drop.seed, drop.threshold, drop.inv_keep, on ? 1 : 0},
         a.stream));
   }
-  if (flash_wide::takes(d)) return static_cast<int>(launch_wide(a, on));
+  if (flash_wide::takes(d)) {
+    const int plan[4] = {kv_slices, kv_tiles, q_slices, q_tiles};
+    return static_cast<int>(launch_wide(a, on, plan));
+  }
   switch (flash::tile_width(d)) {
     case 16:
       err = launch_d<16>(a, on);

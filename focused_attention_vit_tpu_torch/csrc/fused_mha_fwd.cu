@@ -70,7 +70,9 @@
 // maps cover the real d columns and zero-fill the rest of the tile, the
 // softmax scale is the real d's, and the columns past d are not stored.
 // The whole-row kernel holds S <= kRowMaxKeys<D> keys (256, 192, 128 and 64
-// as D grows); longer rows take the flash blocks with the mask.
+// as D grows); longer rows take the flash blocks with the mask. Past 256
+// every S takes the dense forward's wide block (flash_wide.cuh) with the
+// mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -411,14 +413,24 @@ __global__ void __launch_bounds__(flash_fwd::kThreads, 1)
                             scale_log2, mask, d);
 }
 
+// Past d = 256: flash_wide.cuh's forward block with the Philox mask, NT
+// output tiles of 64 columns a warpgroup (the fourth map is unused).
+template <int NT, bool kLse>
+__global__ void __launch_bounds__(flash_wide::kThreads, 1)
+    fused_fwd_wide(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap, flash_wide::Geom g,
+                   flash_wide::Io io, PhiloxMask mask) {
+  const flash_wide::Maps m{&tq, &tk, &tv};
+  flash_wide::block<flash_wide::kFwd, NT, kLse>(m, m, g, io, mask);
+}
+
 template <bool kLse>
-__global__ void __launch_bounds__(flash_wide::kThreads)
-    fused_fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out,
-                   float* __restrict__ lse, int s, int d, int tiles_per_row,
-                   float scale_log2, PhiloxMask mask) {
-  flash_wide::fwd_block<kLse>(q, k, v, out, lse, s, d, tiles_per_row,
-                              scale_log2, mask);
+auto wide_kernel(int tiles) {
+  return tiles == 2   ? &fused_fwd_wide<2, kLse>
+         : tiles == 3 ? &fused_fwd_wide<3, kLse>
+                      : &fused_fwd_wide<4, kLse>;
 }
 
 constexpr int kThreads = 128;  // the dropout words' threads a block
@@ -485,26 +497,18 @@ cudaError_t launch_tiled(const Args& a) {
   return cudaGetLastError();
 }
 
-// Past d = 256: the wide block with the Philox mask.
-cudaError_t launch_wide(const Args& a) {
-  dim3 grid;
-  int tiles = 0;
-  cudaError_t err = flash_wide::grid_of(&grid, &tiles, a.rows, a.s, a.d,
-                                        flash_wide::kFwdSlice);
-  if (err != cudaSuccess) return err;
-  auto kernel =
-      a.lse != nullptr ? fused_fwd_wide<true> : fused_fwd_wide<false>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             flash_wide::kFwdSmem);
-  if (err != cudaSuccess) return err;
+// Past d = 256: the wide block with the Philox mask, at the plan's
+// `slices` slices of `tiles` 64-column tiles a warpgroup
+// (ops/flash_attention.py wide_plan).
+cudaError_t launch_wide(const Args& a, int slices, int tiles) {
+  const flash_wide::Io io{static_cast<bf16*>(a.out), nullptr, a.lse, nullptr,
+                          a.scale, a.scale * flash::kLog2e};
   const PhiloxMask mask{a.drop.seed, a.drop.threshold, a.drop.inv_keep,
                         a.drop_on ? 1 : 0};
-  kernel<<<grid, flash_wide::kThreads, flash_wide::kFwdSmem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.s,
-      a.d, tiles, a.scale * flash::kLog2e, mask);
-  return cudaGetLastError();
+  return flash_wide::launch(
+      a.lse != nullptr ? wide_kernel<true>(tiles) : wide_kernel<false>(tiles),
+      flash_wide::kFwd, tiles, a.q, a.k, a.v, a.v, a.rows, a.s, a.d, slices,
+      io, mask, a.stream);
 }
 
 template <int D, int KC>
@@ -576,7 +580,7 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
                              int d, int is_bf16, float scale, int drop_on,
                              unsigned seed_lo, unsigned seed_hi,
                              unsigned threshold, float keep_prob, int device,
-                             void* stream) {
+                             void* stream, int slices, int tiles) {
   if (rows <= 0 || s < 1 || d < 8 || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -597,7 +601,9 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v,
                         drop_on != 0 ? 1 : 0},
         a.stream));
   }
-  if (flash_wide::takes(d)) return static_cast<int>(launch_wide(a));
+  if (flash_wide::takes(d)) {
+    return static_cast<int>(launch_wide(a, slices, tiles));
+  }
   switch (flash::tile_width(d)) {
     case 16:
       err = launch_d<16>(a);

@@ -685,4 +685,44 @@ inline cudaError_t tensor_map_3d(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Maps encoded earlier on this host thread, by tensor and shape, for the
+// tile band's kernels and the wide flash blocks (tile_band_sm90.cuh,
+// flash_wide.cuh): the allocator hands a training step the same buffers as
+// the step before, so a call mostly finds its maps here instead of encoding
+// them again (a map holds nothing but the address, the shape and the box).
+// `box` is the box's rows (0 for the tile band's 4-D scratch map).
+struct MapKey {
+  const void* base;
+  int64_t lines;
+  int n, d, box;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && lines == o.lines && n == o.n && d == o.d &&
+           box == o.box;
+  }
+};
+
+template <typename Encode>
+inline cudaError_t cached_map(CUtensorMap* map, const MapKey& key,
+                              Encode encode) {
+  constexpr int kEntries = 64;
+  struct Entry {
+    MapKey key;
+    CUtensorMap map;
+  };
+  thread_local Entry cache[kEntries] = {};
+  thread_local int next = 0;
+  for (const Entry& e : cache) {
+    if (e.key == key) {
+      *map = e.map;
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = encode(map);
+  if (err == cudaSuccess) {
+    cache[next] = Entry{key, *map};
+    next = (next + 1) % kEntries;
+  }
+  return err;
+}
+
 }  // namespace hopper

@@ -338,44 +338,9 @@ __device__ __forceinline__ void store_acc(bf16* dst,
 
 // --- host: tensor maps ------------------------------------------------------
 
-// Maps encoded earlier on this host thread, by tensor and shape: the
-// allocator hands a training step the same buffers as the step before, so
-// a call mostly finds its maps here instead of encoding them again (a map
-// holds nothing but the address, the shape and the box). `box` is the box's
-// rows (0 for the scratch's 4-D map).
-struct MapKey {
-  const void* base;
-  int64_t lines;
-  int n, d, box;
-  bool operator==(const MapKey& o) const {
-    return base == o.base && lines == o.lines && n == o.n && d == o.d &&
-           box == o.box;
-  }
-};
-
-template <typename Encode>
-inline cudaError_t cached_map(CUtensorMap* map, const MapKey& key,
-                              Encode encode) {
-  constexpr int kEntries = 64;
-  struct Entry {
-    MapKey key;
-    CUtensorMap map;
-  };
-  thread_local Entry cache[kEntries] = {};
-  thread_local int next = 0;
-  for (const Entry& e : cache) {
-    if (e.key == key) {
-      *map = e.map;
-      return cudaSuccess;
-    }
-  }
-  const cudaError_t err = encode(map);
-  if (err == cudaSuccess) {
-    cache[next] = Entry{key, *map};
-    next = (next + 1) % kEntries;
-  }
-  return err;
-}
+// The cache of maps (hopper_common.cuh), shared with flash_wide.cuh.
+using hp::cached_map;
+using hp::MapKey;
 
 // A map over a contiguous bf16 [lines, n, d] tensor whose box is 64 columns
 // (128-byte swizzled, zeros past d) x box_rows rows of one line.

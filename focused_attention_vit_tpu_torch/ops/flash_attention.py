@@ -12,7 +12,8 @@ it runs the kernel's plain version. There is no fallback from a kernel to a
 plain version. The kernels take every head dim: one off their grid of
 multiples of 8 is padded with zero columns (:func:`pad_head_dim`, which the
 other ops' wrappers call too), and one past 256 runs the wide blocks of
-``csrc/flash_wide.cuh``.
+``csrc/flash_wide.cuh`` at the slices :func:`wide_plan` chooses (the fused
+op's kernels take the same plan).
 
 - eval forward: ``csrc/flash_attention_fwd.cu``, launch count ``"fwd"``,
   plain version :func:`plain_flash_forward`, through the
@@ -40,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -52,9 +54,15 @@ BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/flash_attention_bwd.cu
 # with zero columns (pad_head_dim) and run the kernel at the true head dim's
 # scale. Up to d = 256 the dense bf16 kernels hold a whole row of d in one
 # block, at one of a few tile widths; past it they split the output columns
-# over blocks (csrc/flash_wide.cuh). The plain versions take any d.
+# over blocks (csrc/flash_wide.cuh, wide_plan). The plain versions take any d.
 HEAD_DIM_STEP = 8
 DEFAULT_CHUNK = 512  # keys per step of the plain versions
+WIDE_MIN_HEAD_DIM = 257  # the bf16 kernels' wide blocks from here on
+WIDE_TILE = 64  # columns of the wide blocks' output tiles
+# Output tiles a consumer warpgroup accumulates, at most (csrc/flash_wide.cuh
+# kMaxTiles: 256 columns).
+WIDE_MAX_TILES = 4
+CARD_SMS = 132  # the H100's streaming multiprocessors (wide_plan)
 
 LAUNCH_KINDS = ("fwd", "fwd_train", "bwd")
 _launches = dict.fromkeys(LAUNCH_KINDS, 0)
@@ -81,13 +89,15 @@ def _count(kind: str) -> None:
 
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ... rows, s, d, is_bf16, scale, device, stream; then the wide plan
+# (wide_args): the forward's slices and tiles, the backward's of dkv and dq.
 _SIGNATURES = {
     "flash_attention_fwd":
         [_PTR] * 5 + [ctypes.c_longlong, _INT, _INT, _INT, _FLOAT, _INT,
-                      _PTR],
+                      _PTR] + [_INT] * 2,
     "flash_attention_bwd":
         [_PTR] * 10 + [ctypes.c_longlong, _INT, _INT, _INT, _FLOAT, _INT,
-                       _PTR],
+                       _PTR] + [_INT] * 4,
 }
 
 
@@ -148,6 +158,84 @@ def _launch_args(q: torch.Tensor, d: int) -> list:
     device = q.get_device()
     return [b * h, s, d_grid, int(q.dtype == torch.bfloat16), d ** -0.5,
             device, torch.cuda.current_stream(device).cuda_stream]
+
+
+# --- the wide blocks' slice plan ---------------------------------------------
+
+
+class WidePlan(NamedTuple):
+    """How a wide kernel (``csrc/flash_wide.cuh``) covers a head dim."""
+
+    slices: int  # blocks over the grid's y, each a slice of the output
+    tiles: int  # 64-column output tiles a consumer warpgroup accumulates
+    # The kernel's operations over the function's own: the forward's over
+    # 4 S^2 d; dkv's and dq's shares of the backward's 10 S^2 d.
+    factor: float
+
+    @property
+    def cols(self) -> int:
+        """Output columns a consumer warpgroup accumulates."""
+        return WIDE_TILE * self.tiles
+
+
+def wide_plan(rows: int, s: int, d: int, kind: str) -> WidePlan:
+    """The slice plan of a wide kernel (``kind`` ``"fwd"``, ``"dkv"`` or
+    ``"dq"``) at ``rows`` heads, sequence length ``s`` and head dim ``d``
+    (past 256, a multiple of 8). The forward's and dq's two consumer
+    warpgroups split a slice's columns, dkv's each take all of them (one
+    dk, one dv); a warpgroup holds at most ``WIDE_MAX_TILES`` 64-column
+    tiles, so the slices are the fewest that cover d, and the tiles the
+    fewest that cover it in that many slices. Every slice forms the logits
+    (and dP) over all of d once: the forward does (slices + 1) / 2 times its
+    4 S^2 d operations, dkv (4 slices + 4) / 10 and dq (4 slices + 2) / 10
+    of the backward's 10 S^2 d. Where the grid would fill less than half of
+    the card's ``CARD_SMS`` SMs, a plan of 2 tiles a warpgroup (more
+    slices) is taken if all its blocks still fit one wave."""
+    if kind not in ("fwd", "dkv", "dq"):
+        raise ValueError(f"wide plan kind is fwd, dkv or dq, got {kind!r}")
+    if d < WIDE_MIN_HEAD_DIM or d % HEAD_DIM_STEP:
+        raise ValueError(f"the wide blocks take head dims past 256 that are "
+                         f"multiples of {HEAD_DIM_STEP}, got {d}")
+    ct = -(-d // WIDE_TILE)
+    split = 1 if kind == "dkv" else 2
+    slices = -(-ct // (split * WIDE_MAX_TILES))
+    tiles = -(-ct // (split * slices))
+    blocks = rows * -(-s // 64)
+    if tiles > 2 and 2 * blocks * slices <= CARD_SMS:
+        narrow = -(-ct // (split * 2))
+        if blocks * narrow <= CARD_SMS:
+            slices, tiles = narrow, 2
+    factor = {"fwd": (slices + 1) / 2, "dkv": (4 * slices + 4) / 10,
+              "dq": (4 * slices + 2) / 10}[kind]
+    return WidePlan(slices, tiles, factor)
+
+
+def wide_factor(rows: int, s: int, d: int, direction: str) -> float:
+    """The operations the bf16 kernels do over the function's own at this
+    shape: the forward's (``direction`` ``"fwd"``) or the backward's
+    (``"bwd"``: dkv's and dq's shares); 1 up to d = 256, where whole rows
+    form each logit once."""
+    if d < WIDE_MIN_HEAD_DIM:
+        return 1.0
+    if direction == "fwd":
+        return wide_plan(rows, s, d, "fwd").factor
+    return (wide_plan(rows, s, d, "dkv").factor
+            + wide_plan(rows, s, d, "dq").factor)
+
+
+def wide_args(q: torch.Tensor, direction: str) -> list:
+    """The wide plan's launch arguments for q (padded to the kernels' grid
+    of head dims): the forward's slices and tiles, or dkv's and dq's; zeros
+    where the kernels do not run the wide blocks (d <= 256, or f32)."""
+    b, h, s, d = q.shape
+    kinds = ("fwd",) if direction == "fwd" else ("dkv", "dq")
+    if q.dtype != torch.bfloat16 or d < WIDE_MIN_HEAD_DIM:
+        return [0] * (2 * len(kinds))
+    args = []
+    for kind in kinds:
+        plan = wide_plan(b * h, s, d, kind)
+        args += [plan.slices, plan.tiles]
+    return args
 
 
 def _check_launch(err: int, what: str, q: torch.Tensor) -> None:
@@ -252,7 +340,8 @@ def _launch_forward(q, k, v, save: bool):
     lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
            if save else None)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr(), *_launch_args(q, d))
+             None if lse is None else lse.data_ptr(), *_launch_args(q, d),
+             *wide_args(q, "fwd"))
     _check_launch(err, "flash_attention_fwd", q)
     _count("fwd_train" if save else "fwd")
     return unpad_head_dim(out, d), lse
@@ -297,7 +386,8 @@ def flash_backward(q, k, v, out, lse, g, chunk: int = DEFAULT_CHUNK):
     delta = torch.empty_like(lse)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), delta.data_ptr(), *_launch_args(q, d))
+             dv.data_ptr(), delta.data_ptr(), *_launch_args(q, d),
+             *wide_args(q, "bwd"))
     _check_launch(err, "flash_attention_bwd", q)
     _count("bwd")
     return tuple(unpad_head_dim(x, d) for x in (dq, dk, dv))

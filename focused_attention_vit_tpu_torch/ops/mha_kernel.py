@@ -49,6 +49,7 @@ import threading
 import torch
 
 from focused_attention_vit_tpu_torch.ops import philox
+from focused_attention_vit_tpu_torch.ops.flash_attention import wide_args
 
 FWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/fused_mha_fwd.cu"
 BWD_KERNEL_SOURCE = "focused_attention_vit_tpu_torch/csrc/fused_mha_bwd.cu"
@@ -58,7 +59,7 @@ MAX_TILE_SEQ = 1024
 # The kernels take every head dim that is a multiple of 8 (JAX's rule, which
 # fused_mha_supported keeps, so the op never pads): up to 256 at the flash
 # kernels' tile widths, past it through the dense kernels' wide blocks with
-# the op's mask (csrc/flash_wide.cuh).
+# the op's mask (csrc/flash_wide.cuh) at flash_attention.wide_plan's slices.
 
 LAUNCH_KINDS = ("fwd", "fwd_train", "bwd")
 _launches = dict.fromkeys(LAUNCH_KINDS, 0)
@@ -99,14 +100,16 @@ def fused_mha_supported(seq_len: int, head_dim: int) -> bool:
 _PTR, _INT, _UINT, _FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                              ctypes.c_float)
 # rows, s, d, is_bf16, scale; dropout on, seed low and high words,
-# threshold, 1 - rate; device, stream
+# threshold, 1 - rate; device, stream; then the wide plan
+# (flash_attention.wide_args: the forward's slices and tiles, the
+# backward's of dkv and dq)
 _TAIL = [ctypes.c_longlong, _INT, _INT, _INT, _FLOAT,
          _INT, _UINT, _UINT, _UINT, _FLOAT, _INT, _PTR]
 _SIGNATURES = {
-    ("fused_mha_fwd", "fused_mha_fwd"): [_PTR] * 5 + _TAIL,
+    ("fused_mha_fwd", "fused_mha_fwd"): [_PTR] * 5 + _TAIL + [_INT] * 2,
     ("fused_mha_fwd", "fused_mha_keep_bits"):
         [_PTR, ctypes.c_longlong, _INT, _UINT, _UINT, _INT, _PTR],
-    ("fused_mha_bwd", "fused_mha_bwd"): [_PTR] * 10 + _TAIL,
+    ("fused_mha_bwd", "fused_mha_bwd"): [_PTR] * 10 + _TAIL + [_INT] * 4,
 }
 
 
@@ -276,7 +279,7 @@ def _launch_forward(q, k, v, rate: float, seed: int, save: bool):
            if save else None)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(),
-             *_launch_args(q, rate, seed))
+             *_launch_args(q, rate, seed), *wide_args(q, "fwd"))
     _check_launch(err, "fused_mha_fwd", q)
     _count("fwd_train" if save else "fwd")
     return out, lse
@@ -324,7 +327,8 @@ def fused_mha_backward(q, k, v, out, lse, g, rate: float = 0.0,
     delta = torch.empty_like(lse)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), delta.data_ptr(), *_launch_args(q, rate, seed))
+             dv.data_ptr(), delta.data_ptr(), *_launch_args(q, rate, seed),
+             *wide_args(q, "bwd"))
     _check_launch(err, "fused_mha_bwd", q)
     _count("bwd")
     return dq, dk, dv

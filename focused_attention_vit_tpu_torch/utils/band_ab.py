@@ -28,7 +28,15 @@ and train step (``FAVIT_MHLA_IMPL=shiftband FAVIT_USE_PALLAS_MHLA=1``;
 ``utils/step_profile.py``, batch 32) in the same turns. Each run prints one
 JSON line: CUDA-event medians of 30 calls, the profiler's device ms a call by
 kernel, the largest error against the plain version. With ``--tile`` only
-the tile band's calls are timed.
+the tile band's calls are timed. With ``--wide`` only K5 (eval forward,
+training forward, backward) and K3/K4 (eval forward, training forward at
+dropout 0.1, backward) past head dim 256 are, at chip_smoke.py's
+kernel-headdims shapes (batch 8: K5 at d = 264, 384 and 768 at S = 3137
+and d = 1280 at S = 1370; K3/K4 at d = 264, 384, 768 and 1280 at S = 197;
+WIDE_FLASH, WIDE_FUSED), with K5 at d = 256 (the widest of the blocks up to
+256) beside them; in a checkout that has the slice plan's small-grid rule
+(``ops/flash_attention.CARD_SMS``), K3/K4 at d = 384 also at the plan with
+the rule off (``..._full``).
 From the repository root, with the parent commit unpacked into an ignored
 directory::
 
@@ -68,6 +76,14 @@ FUSED_SHAPES = {"fused": (128, 12, 197, 64), "fused_tiled": (32, 12, 577, 64)}
 # 518^2 (batch 8); B, h, d, S of the band at MHLA-H/14.
 FLASH_SHAPES = {"flash": (32, 12, 3137, 64), "flash_h14": (8, 16, 1370, 80)}
 BAND_H14_SHAPE = (8, 16, 80, 1370)
+# --wide: B, h, S, d of K5 and of K3/K4 past head dim 256 at the one- and
+# two-head paths' shapes (chip_smoke.py HD_FLASH, HD_FUSED; d = 264 the
+# first wide head dim), and K5 at d = 256.
+WIDE_FLASH = {"flash_d256": (8, 3, 3137, 256), "flash_d264": (8, 1, 3137, 264),
+              "flash_d384": (8, 2, 3137, 384), "flash_d768": (8, 1, 3137, 768),
+              "flash_d1280": (8, 1, 1370, 1280)}
+WIDE_FUSED = {"fused_d264": (8, 1, 197, 264), "fused_d384": (8, 2, 197, 384),
+              "fused_d768": (8, 1, 197, 768), "fused_d1280": (8, 1, 197, 1280)}
 # B*h, S, d of the tile band at MHLA-H/14 (batch 8), at the model's window
 # and at JAX's roll-band limit (the wide kernels).
 TILE_H14_SHAPE = (128, 1370, 80)
@@ -192,6 +208,33 @@ def time_kernels(only_tile: bool = False) -> dict:
     return res
 
 
+def time_wide() -> dict:
+    """K5 at :data:`WIDE_FLASH` and K3/K4 at :data:`WIDE_FUSED` of the
+    package on ``sys.path`` (and K3/K4 at d = 384 with the small-grid rule
+    off, where the package has it)."""
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    calls = _fused_calls(res, gen, WIDE_FUSED)
+    calls.update(_flash_calls(res, gen, WIDE_FLASH))
+    if hasattr(flash, "CARD_SMS"):
+        def full(fn):
+            def run():
+                old, flash.CARD_SMS = flash.CARD_SMS, 0
+                try:
+                    return fn()
+                finally:
+                    flash.CARD_SMS = old
+            return run
+        for form in ("eval", "train", "bwd"):
+            calls[f"fused_d384_full_{form}"] = full(calls[f"fused_d384_{form}"])
+    for name, fn in calls.items():
+        res[f"{name}_ms"] = _median_ms(fn)
+        res[f"{name}_device_ms"] = _device_ms(fn)
+    return res
+
+
 def _tile_calls(res: dict, key: str, rows: list, w: int) -> dict:
     """The tile band's forward (K6) on ``[B*h, S, d]`` rows, its
     window-tile forward (K8) on them at JAX's tile length (256), built once
@@ -227,14 +270,14 @@ def _tile_calls(res: dict, key: str, rows: list, w: int) -> dict:
             f"{key}_fwd_b": lambda: tile.window_tile_band(qt, ke, ve, w)}
 
 
-def _fused_calls(res: dict, gen) -> dict:
-    """K3's eval and training forwards and K4 at each of
-    :data:`FUSED_SHAPES`, bf16, dropout :data:`RATE` in the training forms;
-    their largest errors against the plain versions go into ``res``."""
+def _fused_calls(res: dict, gen, shapes: dict = FUSED_SHAPES) -> dict:
+    """K3's eval and training forwards and K4 at each of ``shapes``, bf16,
+    dropout :data:`RATE` in the training forms; their largest errors
+    against the plain versions go into ``res``."""
     from focused_attention_vit_tpu_torch.ops import mha_kernel as fused
 
     calls = {}
-    for key, shape in FUSED_SHAPES.items():
+    for key, shape in shapes.items():
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen)
                       .bfloat16() for _ in range(4))
         out, lse = fused.fused_mha_forward_train(q, k, v, RATE, SEED)
@@ -254,14 +297,14 @@ def _fused_calls(res: dict, gen) -> dict:
     return calls
 
 
-def _flash_calls(res: dict, gen) -> dict:
+def _flash_calls(res: dict, gen, shapes: dict = FLASH_SHAPES) -> dict:
     """K5's eval and training forwards and its backward at each of
-    :data:`FLASH_SHAPES`, bf16; the training output's largest error
-    against the plain version goes into ``res``."""
+    ``shapes``, bf16; the training output's largest error against the plain
+    version goes into ``res``."""
     from focused_attention_vit_tpu_torch.ops import flash_attention as flash
 
     calls = {}
-    for key, shape in FLASH_SHAPES.items():
+    for key, shape in shapes.items():
         q, k, v, g = (torch.randn(shape, device="cuda", generator=gen)
                       .bfloat16() for _ in range(4))
         out, lse = flash.flash_forward_train(q, k, v)
@@ -299,22 +342,27 @@ def main(argv=None) -> list:
                    help="time the package on sys.path and print one line")
     p.add_argument("--tile", action="store_true",
                    help="time the tile band's calls only")
+    p.add_argument("--wide", action="store_true",
+                   help="time K5 and K3/K4 past head dim 256 only")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the band A/B runs only on a CUDA device")
     if args.here:
-        print(json.dumps(time_kernels(args.tile)), flush=True)
+        print(json.dumps(time_wide() if args.wide
+                         else time_kernels(args.tile)), flush=True)
         return []
     trees = [t.resolve() for t in args.trees]
-    libs = [n for n in LIBRARIES if "tile" in n] if args.tile else LIBRARIES
+    libs = ([n for n in LIBRARIES if "tile" in n] if args.tile
+            else [n for n in LIBRARIES if "fused" in n or "flash" in n]
+            if args.wide else LIBRARIES)
+    mode = ["--tile"] if args.tile else ["--wide"] if args.wide else []
     build = ("from focused_attention_vit_tpu_torch.utils import kernel_build;"
              f" kernel_build.build_many({libs!r})")
     with ThreadPoolExecutor(max(1, len(trees))) as pool:
         list(pool.map(lambda t: _run(t, ["-c", build]), trees))
     rows = []
     for tree in turns(trees):
-        line = _run(tree, [__file__, "--here"]
-                    + (["--tile"] if args.tile else [])).strip().splitlines()[-1]
+        line = _run(tree, [__file__, "--here", *mode]).strip().splitlines()[-1]
         rows.append({"tree": str(tree), **json.loads(line)})
         print(json.dumps(rows[-1]), flush=True)
     for label, mode, env in STEPS if args.steps else ():

@@ -1,7 +1,8 @@
 """Every head dim the JAX package takes, against the JAX package on the CPU
 in f32: off the grid of 8 (d = 12: 64 heads at D = 768) and past 256 (264,
-384: 2 heads at D = 768). Dense attention (K5's plain versions) against
-JAX's ``flash_attention`` (its chunked path off the TPU), the fused op
+384: 2 heads at D = 768; 520 and 1032 at the wide blocks' slice edges).
+Dense attention (K5's plain versions) against JAX's ``flash_attention``
+(its chunked path off the TPU), the fused op
 (K3/K4's) against JAX's fused kernel in interpret mode, the band op (K1/K2's)
 against JAX's roll kernel in interpret mode, the tile band (K6/K7's) against
 JAX's v4 in interpret mode, and 2-block models at D = 24 and 768 with 2
@@ -46,9 +47,11 @@ torch.set_num_threads(2)
 OUT_TOL = 1e-4
 GRAD_TOL = 1e-5
 PAD_TOL = 1e-6  # one function, padded or not: f32 sums in other blockings
-DENSE_DIMS = (12, 264, 384)
+# Past 256 also the wide blocks' slice plan's edges, a column past a slice
+# of 512 and of 1024 (ops/flash_attention.wide_plan).
+DENSE_DIMS = (12, 264, 384, 520, 1032)
 DENSE_S = 577
-FUSED_DIMS = (264, 384)
+FUSED_DIMS = (264, 384, 520, 1032)
 FUSED_S = 65
 BAND_CASES = [(d, w) for d in (12, 384) for w in (7, 17)]
 BAND_S = 100

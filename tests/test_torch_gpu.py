@@ -1664,6 +1664,103 @@ def test_fused_kernels_past_256(cuda, d, s, dtype, rate):
             _rms_close(got, want)
 
 
+# The wide blocks' slice plan at its edges (ops/flash_attention.wide_plan,
+# with the small-grid rule off so that these small grids take the plans of
+# the large ones): a column past and short of a warpgroup's share or of a
+# slice (264 past 256; 392 and 520 past the 3- and 8-tile shares of 384 and
+# 512; 776, 1032 and 2056 past 768, 1024 and 2048, 2056 streaming every
+# kernel's own tiles), at S one short of, at and past a 64-row tile, at
+# ViT-B/16's 197 and at ViT-H/14's 1370.
+WIDE_EDGE_DIMS = (264, 392, 512, 520, 776, 1032, 2056)
+WIDE_EDGE_SEQS = (63, 64, 65, 197, 1370)
+
+
+@pytest.mark.parametrize("op", ["flash", "fused"])
+@pytest.mark.parametrize("s", WIDE_EDGE_SEQS)
+@pytest.mark.parametrize("d", WIDE_EDGE_DIMS)
+def test_wide_blocks_at_the_plan_edges(cuda, monkeypatch, op, d, s):
+    """K5 (eval and training forward, backward) and K3/K4 (dropout 0.1) in
+    bf16 at the slice plan's edges, against the plain versions by their
+    grids' rules (flash: 2 ulps; fused: 3 ulps and the rms bound); the
+    eval output equal to the training one, the backward run twice with the
+    same bits. The fused op's rows end at 1024: it takes S = 1024 for
+    1370."""
+    monkeypatch.setattr(flash, "CARD_SMS", 0)
+    if op == "fused":
+        s = min(s, fused.MAX_TILE_SEQ)
+    q, k, v, g = _inputs(cuda, (1, 2, s, d), torch.bfloat16, n=4,
+                         seed=s + d)
+    if op == "flash":
+        with torch.no_grad():
+            lean = flash.flash_attention(q, k, v)
+        out, lse = flash.flash_forward_train(q, k, v)
+        grads = flash.flash_backward(q, k, v, out, lse, g)
+        again = flash.flash_backward(q, k, v, out, lse, g)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash.plain_flash_forward(q, k, v)
+        ref_grads = flash.plain_flash_backward(q, k, v, out, lse, g)
+        assert torch.equal(lean, out)
+        _flash_close(out, ref_out, torch.bfloat16, 0.0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+        for got, rerun, want in zip(grads, again, ref_grads):
+            assert torch.equal(got, rerun)
+            _flash_close(got, want, torch.bfloat16, 0.0)
+        return
+    out, lse = fused.fused_mha_forward_train(q, k, v, 0.1, 9)
+    grads = fused.fused_mha_backward(q, k, v, out, lse, g, 0.1, 9)
+    again = fused.fused_mha_backward(q, k, v, out, lse, g, 0.1, 9)
+    torch.cuda.synchronize()
+    rq, rk, rv, rg = (x.float() for x in (q, k, v, g))
+    ref_out, ref_lse = fused.plain_fused_mha_forward(rq, rk, rv, 0.1, 9)
+    ref_grads = fused.plain_fused_mha_backward(rq, rk, rv, rg, 0.1, 9,
+                                               out=out.float())
+    _fused_close(out, ref_out, torch.bfloat16, 0.0, ulps=3.0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert torch.equal(got, rerun)
+        _fused_close(got, want, torch.bfloat16, 0.0, ulps=3.0)
+        _rms_close(got, want)
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("op", ["flash", "fused"])
+def test_wide_forms_launch_the_wide_kernels(cuda, monkeypatch, op, narrow):
+    """At d = 768 each wide form (eval forward, training forward, backward)
+    counts one launch of its op's counter and no other, at the full plan
+    and at a small grid's narrowed one; and it runs the wide blocks: only
+    they take the slice plan, so with the plan's arguments zeroed every
+    form's launch fails."""
+    if not narrow:
+        monkeypatch.setattr(flash, "CARD_SMS", 0)
+    m = flash if op == "flash" else fused
+    q, k, v, g = _inputs(cuda, (2, 1, 197, 768), torch.bfloat16, n=4, seed=5)
+    forms = {
+        "fwd": lambda: (flash.flash_attention(q, k, v) if op == "flash"
+                        else fused.fused_multi_head_attention(q, k, v)),
+        "fwd_train": lambda: (flash.flash_forward_train(q, k, v)
+                              if op == "flash" else
+                              fused.fused_mha_forward_train(q, k, v, 0.1, 3)),
+    }
+    out, lse = forms["fwd_train"]()
+    forms["bwd"] = lambda: (flash.flash_backward(q, k, v, out, lse, g)
+                            if op == "flash" else
+                            fused.fused_mha_backward(q, k, v, out, lse, g,
+                                                     0.1, 3))
+    for kind, fn in forms.items():
+        m.reset_launch_count()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        assert [m.launch_count(k_) for k_ in m.LAUNCH_KINDS] == [
+            int(kind == k_) for k_ in m.LAUNCH_KINDS]
+    monkeypatch.setattr(m, "wide_args", lambda x, direction: [0] * (
+        2 if direction == "fwd" else 4))
+    for kind, fn in forms.items():
+        with pytest.raises(RuntimeError, match="launch failed"):
+            with torch.no_grad():
+                fn()
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,w", [(15, 7), (513, 7), (35, 17), (1001, 17)])

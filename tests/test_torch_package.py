@@ -341,8 +341,8 @@ WGMMA_SOURCES = FLASH_SOURCES + ["fused_mha_bwd.cu", "fused_mha_fwd.cu"]
 # Headers of shared pieces; any other csrc header a source includes holds
 # kernel code of its own (the flash blocks that the fused sources share).
 SHARED_HEADERS = {"flash_common.cuh", "hopper_common.cuh", "philox.cuh"}
-# The blocks past head dim 256, which all four sources include and which
-# run warp-level products (tested on their own below).
+# The blocks past head dim 256, which all four sources include (tested on
+# their own below, and with the sources' kernel code above).
 WIDE_HEADER = "flash_wide.cuh"
 
 
@@ -370,15 +370,14 @@ def _with_headers(name: str) -> str:
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_flash_sources_use_wgmma_and_asynchronous_copies(name):
-    """Up to head dim 256 every product of the bf16 flash kernels and of the
-    fused short-S kernels (whole-row, and tiled on the flash blocks) is a
-    warpgroup product and the tiles arrive by an asynchronous copy that
-    completes on an mbarrier; their code calls none of the mma.sync fragment
-    helpers. (Past 256 the sources call the blocks of ``flash_wide.cuh``,
-    held by test_wide_blocks_take_the_head_dims_past_256.)"""
+    """Every product of the bf16 flash kernels and of the fused short-S
+    kernels (whole-row, tiled on the flash blocks, and the wide blocks past
+    head dim 256 of ``flash_wide.cuh``) is a warpgroup product and the tiles
+    arrive by an asynchronous copy that completes on an mbarrier; their code
+    calls none of the mma.sync fragment helpers."""
     import re
 
-    own = _kernel_code(name, skip={WIDE_HEADER})
+    own = _kernel_code(name)
     text = _with_headers(name)
     assert "wgmma.mma_async" in text
     assert "cp.async.bulk.tensor" in text
@@ -682,9 +681,14 @@ def test_flash_common_keeps_the_fused_kernels_helpers():
 def test_wide_blocks_take_the_head_dims_past_256(name):
     """Each flash and fused source sends a head dim past 256 to the blocks
     of ``flash_wide.cuh`` before its dispatch by tile width, whose widths
-    end at 256; those blocks are tensor-core products (mma.sync, operands by
-    ldmatrix) on chunks staged by zero-filling 16-byte cp.async copies,
-    with no atomics, and take the masks' calls of the whole-row blocks."""
+    end at 256, with the slice plan as launch arguments; those blocks run
+    wgmma (the logits from shared memory, the slice products with a
+    register A operand) on 64 x 64 tiles that each warpgroup's thread 0
+    brings by TMA into its ring, wait on the stage's full barrier, refill a
+    stage only past the warpgroup's barrier after the products that read
+    it, swap the warpgroups' tiles under a named barrier, take the masks'
+    calls of the narrower blocks, and use no atomics and no block-wide
+    barrier in their bodies."""
     import re
 
     src = (CSRC / name).read_text()
@@ -696,8 +700,115 @@ def test_wide_blocks_take_the_head_dims_past_256(name):
                      wide)
     common = (CSRC / "flash_common.cuh").read_text()
     assert "if (d < 8 || d > 256 || d % 8 != 0) return 0;" in common
-    for needle in ("mma.sync.aligned.m16n8k16", "flash::ldsm_x4(",
-                   "flash::ldsm_x4_trans(", "cp.async.cg.shared.global",
-                   "16, %2;", "mask.apply(", "mask.dkv(", "mask.dq("):
+    kinds = (["kFwd"] if "_fwd" in name else ["kDkv", "kDq"])
+    for kind in kinds:
+        assert f"flash_wide::block<flash_wide::{kind}, NT" in src, kind
+    plan = ("int slices, int tiles" if "_fwd" in name else
+            "int kv_slices, int kv_tiles, int q_slices,")
+    assert plan in src
+    for needle in ('#include "tile_band_sm90.cuh"', "tb90::mma_ss<0, 0>(",
+                   "hp::Wgmma<64>::rs(", "tb90::desc_mn(", "hp::pack_a(",
+                   "tb90::load_full(", "hp::tma_load_3d(",
+                   "hp::mbar_wait(&ring.full[stage], phase)",
+                   "hp::named_sync(kRingBar + w, 128)", "hp::wgmma_wait<0>()",
+                   "feed.upto(i + g.ns)",
+                   "hp::named_sync(kXchgBar, kConsumers)", "mask.apply(",
+                   "mask.dkv(", "mask.dq("):
         assert needle in wide, needle
-    assert "atomic" not in wide
+    for old in ("atomic", "__syncthreads()", "mma.sync", "ldsm", "cp.async.cg",
+                "ldmatrix"):
+        assert old not in wide, old
+
+
+# --- the wide blocks' slice plan ------------------------------------------------
+
+WIDE_PLAN_GRIDS = ((1, 65), (16, 197), (8, 3137), (128, 1370))  # rows, S
+
+
+def _wide_tiles(kind, plan, d):
+    """The (tensor, first column) of every 64-column output tile the plan's
+    warpgroups accumulate inside d, as csrc/flash_wide.cuh out_tile places
+    them: the forward's and dq's two warpgroups split a slice, dkv's each
+    hold the slice of their own tensor (0: dv, 1: dk)."""
+    out = []
+    for sl in range(plan.slices):
+        for w in range(2):
+            for t in range(plan.tiles):
+                tile = (sl * plan.tiles + t if kind == "dkv"
+                        else (sl * 2 + w) * plan.tiles + t)
+                if 64 * tile < d:
+                    out.append((w if kind == "dkv" else 0, 64 * tile))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
+def test_wide_plan_covers_every_column_once(kind):
+    """At every head dim past 256 up to 4096 and grids small and large, the
+    plan's tiles cover each column of each output once and leave no slice
+    empty; a warpgroup holds a multiple of 16 columns, at most 256; the
+    recomputation factor is (slices + 1) / 2 for the forward and (4 slices
+    + 4) / 10, (4 slices + 2) / 10 of the backward for dkv and dq."""
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+
+    for d in range(264, 4097, 8):
+        for rows, s in WIDE_PLAN_GRIDS:
+            plan = flash.wide_plan(rows, s, d, kind)
+            assert plan.cols % 16 == 0 and 32 <= plan.cols <= 256
+            tiles = _wide_tiles(kind, plan, d)
+            for tensor in {x for x, _ in tiles}:
+                cols = sorted(c for x, c in tiles if x == tensor)
+                assert cols == list(range(0, d, 64)), (d, rows, s, plan)
+            per = plan.tiles * (1 if kind == "dkv" else 2)
+            assert (plan.slices - 1) * per * 64 < d <= plan.slices * per * 64
+            want = {"fwd": (plan.slices + 1) / 2,
+                    "dkv": (4 * plan.slices + 4) / 10,
+                    "dq": (4 * plan.slices + 2) / 10}[kind]
+            assert plan.factor == pytest.approx(want)
+
+
+def test_wide_plan_factors_and_small_grids():
+    """The recomputation factors at the one-head paths' shapes (K5 at
+    B*h = 8, S = 3137; the factors PERF.md gives), the small-grid rule at
+    K3/K4's B*h = 16, S = 197 (2 tiles a warpgroup while every block still
+    fits one wave of the card's SMs; off with CARD_SMS = 0), and the
+    rejected head dims and kinds."""
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+
+    for d, fwd, bwd in ((264, 1.0, 1.8), (384, 1.0, 1.8), (768, 1.5, 2.6),
+                        (1280, 2.0, 3.8)):
+        assert flash.wide_factor(8, 3137, d, "fwd") == pytest.approx(fwd)
+        assert flash.wide_factor(8, 3137, d, "bwd") == pytest.approx(bwd)
+    assert flash.wide_factor(8, 3137, 256, "bwd") == 1.0
+    assert flash.wide_plan(8, 3137, 768, "fwd")[:2] == (2, 3)
+    assert flash.wide_plan(8, 3137, 768, "dkv")[:2] == (3, 4)
+    assert flash.wide_plan(8, 3137, 768, "dq")[:2] == (2, 3)
+    assert flash.wide_plan(16, 197, 384, "fwd")[:2] == (2, 2)
+    assert flash.wide_plan(16, 197, 384, "dkv")[:2] == (2, 3)
+    assert flash.wide_plan(16, 197, 384, "dq")[:2] == (2, 2)
+    for kind in ("fwd", "dkv", "dq"):
+        plan = flash.wide_plan(16, 197, 384, kind)
+        assert 16 * 4 * plan.slices <= flash.CARD_SMS
+    old = flash.CARD_SMS
+    try:
+        flash.CARD_SMS = 0
+        assert flash.wide_plan(16, 197, 384, "fwd")[:2] == (1, 3)
+    finally:
+        flash.CARD_SMS = old
+    for d in (256, 260):
+        with pytest.raises(ValueError):
+            flash.wide_plan(8, 197, d, "fwd")
+    with pytest.raises(ValueError):
+        flash.wide_plan(8, 197, 384, "bwd")
+
+
+def test_wide_args_follow_the_plan():
+    """The kernels' plan arguments: the plan's slices and tiles for bf16
+    past 256 (the forward's; dkv's then dq's), zeros for f32 and up to
+    256."""
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+
+    q = torch.zeros(2, 4, 3137, 768, dtype=torch.bfloat16)
+    assert flash.wide_args(q, "fwd") == [2, 3]
+    assert flash.wide_args(q, "bwd") == [3, 4, 2, 3]
+    assert flash.wide_args(q.float(), "bwd") == [0, 0, 0, 0]
+    assert flash.wide_args(q[..., :256].contiguous(), "fwd") == [0, 0]
