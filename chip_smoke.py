@@ -26,9 +26,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 2. build: compiles the eight kernel sources from ``csrc/`` with nvcc, and
    ``native/connectivity.cpp`` and ``native/batcher.cpp`` with g++, in
    parallel, and prints ptxas's registers, spills and shared memory of the
-   main path's wgmma kernels and of every instantiation of the band
-   forward (K1) and backward (K2) and of the tile band's forward (K6, K8)
-   and backward (K7);
+   main path's wgmma kernels (and of K5's and K3/K4's blocks at the tile
+   widths 192 and 256, held to no spill) and of every instantiation of the
+   band forward (K1) and backward (K2) and of the tile band's forward (K6,
+   K8) and backward (K7);
 3. kernel: the eval band kernel against its plain PyTorch version on the
    card (f32 within 1e-5 abs, bf16 within 2 bf16 ulps) over a grid of
    shapes and at the serving shape, with CUDA-event timings of both, the
@@ -277,24 +278,32 @@ widths (D=1280, 32 blocks, 16 heads of d=80, patch 14) on 518x518 images
     live path.
 
 Then two groups at ViT-B's width (D=768) with every head count the CLI
-takes (1, 2 and 64 heads: d = 768, 384 and 12), batch 8:
+takes (1, 2, 3, 4 and 64 heads: d = 768, 384, 256, 192 and 12), batch 8:
 
-46. kernel-headdims: K5 (eval, training forward, backward) at d = 768, 12
-    (dense ViT-B/4, S=3137) and 1280 (ViT-H's width in one head, S=1370);
-    K1 (eval, training at dropout 0 and 0.1) and K2 at d = 384, 12 and
-    1280 (W=7); K3 and K4 at d = 384 and 1280 (S=197, dropout 0 and 0.1,
-    kernel-fused's loose-case rule); K6, K7 and K8 at d = 4, 12, 36 (S=3137,
-    W=7 and 129): f32 at batch 1 and bf16 at batch 8 against the plain
-    versions, the paths' widths and K5, K3/K4 at 1280 timed beside plain,
-    bound and PyTorch's fused attention (its backend named), the wide
-    blocks' slice plan and recomputation factor beside K5's and K3/K4's
-    times past 256, the pad's copies at d = 12;
+46. kernel-headdims: K5 (eval, training forward, backward) at d = 768, 12,
+    256, 192 and 136 (dense ViT-B/4, S=3137) and 1280 (ViT-H's width in one
+    head, S=1370); K1 (eval, training at dropout 0 and 0.1) and K2 at
+    d = 384, 12 and 1280 (W=7); K3 and K4 at d = 384, 1280, 256 and 192
+    (S=197, dropout 0 and 0.1, kernel-fused's loose-case rule); K6, K7
+    and K8 at d = 4, 12, 36 (S=3137, W=7 and 129): f32 at batch 1 and
+    bf16 at batch 8 against the plain versions, the paths' widths and K5,
+    K3/K4 at 1280 timed beside plain, bound and PyTorch's fused attention
+    (its backend named), the wide blocks' slice plan and recomputation
+    factor beside K5's and K3/K4's times past 256 (up to 256: the tile
+    width; at the tile widths 192 and 256 also the backward's products
+    over 10 S^2 d from the dkv and dq launches counted in this run, 1.4,
+    which raises unless it is one of each), the pad's copies at d = 12;
 47. headdims-model, headdims-serve, export and headdims-train: MHLA-B/4
     with 2 and 64 heads (K1/K2), dense ViT-B/4 with 1 and 64 heads (K5),
     ViT-B/16 with 2 heads and ``FAVIT_FUSED_MHA=1`` (K3/K4, attention
     dropout 0.1), cut to 4 blocks: each against the CPU at 2 blocks, served
     and trained 3 steps with its launches checked; MHLA-B/4 with 2 heads
-    also exported and served bit-equal from its artifact.
+    also exported and served bit-equal from its artifact. Then the tile
+    widths 256 and 192 (csrc/flash_block256.cuh): dense ViT-B/4 with 3
+    heads at all 12 blocks (K5's eval form 12 x the passes, its training
+    form and backward 12 x the steps) and with 4 heads, and ViT-B/16 with
+    3 heads and the fused switch (K3/K4 past 64 keys, attention dropout
+    0.1), the last two cut to 4 blocks.
 
 And the tile band past W = 129 and d = 256, where its sources stream the
 band:
@@ -324,7 +333,8 @@ K6's boolean band-mask call for K7.
 Every launch count is set to 0 just before its path is driven and read just
 after. The line before the last is a JSON summary of the twelve kernels
 and of the new widths' rows (K3/K4 at d=80; K6/K7 at d=80, W=7 and 129;
-K8 at W=129; K5 at d=768 and 12, K1/K2 at d=384 and 12, K3/K4 at d=384;
+K8 at W=129; K5 at d=768, 12, 256 and 192, K1/K2 at d=384 and 12,
+K3/K4 at d=384 and 256;
 K6/K7 at d=384 and 768 and at d=80, W=257, K8 at d=80, W=257), each
 with its time, its plain version's, the least time the card could take
 (``bound_ms``, from this run's shapes) and the library call's where PyTorch
@@ -445,6 +455,21 @@ FLASH_RMS_REL = 2.0 ** -8
 # first, is the flash kernels' everywhere.
 FUSED_LOOSE_ULPS = 3
 FUSED_LOOSE_CASES = frozenset({(256, 16)})
+# kernel-headdims' fused cases are batch 8 at S = 197: up to 1.2M entries a
+# gradient, each a sum of 197 terms whose ds and weights the kernels round
+# to bf16 (as JAX's kernels do). On one draw at d = 384 the worst entry
+# lay 3.53 ulps from the f32 plain version, past FUSED_LOOSE_ULPS (dq at
+# rate 0; its rms 0.0024 of the plain rms, as the roundings give). Over 16
+# seeds (utils/bwd_rounding.py, PERF.md §6: K4 at d = 384, 256, 192 and
+# 64) the plain version run in bf16, which makes the same roundings,
+# reached up to 2.70 ulps of the f32 version, the kernels the same worst
+# entry as it in each of the 24 (d, rate, gradient) cases, and the kernels
+# lay within 2.16 ulps of it: their worst entry is the roundings' own. So
+# there the bf16 gradients are held within FUSED_LOOSE_ULPS of the bf16
+# plain version, their worst entry against the f32 version within
+# HEADDIM_OWN_MARGIN ulps of the bf16 version's worst, and by the rms bound
+# against the f32 version, unchanged (_near_check).
+HEADDIM_OWN_MARGIN = 1
 # The tile band's bf16 kernels and plain versions both round the weights
 # (and ds) to bf16, as JAX does, so an f32 difference of 1e-7 in a logit can
 # round one weight the other way on one side. The band sums only 2*hw + 1
@@ -621,36 +646,44 @@ def phase_build() -> None:
             _tile_ptxas(lib, text)
 
 
-# The tile widths whose bf16 flash kernels the build phase reports: the
-# B/4 paths' d = 64 and ViT-H/14's d = 80 must not spill; the widest, 256,
-# is reported (its 128-register accumulator spills; PERF.md).
-FLASH_PTXAS_DIMS = (64, 80, 256)
-FLASH_NO_SPILL_DIMS = (64, 80)
+# The bf16 kernels' tile widths up to head dim 256 (csrc/flash_common.cuh
+# tile_width: a call runs at the narrowest that holds its d); the last two
+# run csrc/flash_block256.cuh's blocks. The tile-band sources are built at
+# the same widths.
+TILE_WIDTHS = (16, 32, 64, 80, 128, 192, 256)
+BLOCK256_WIDTHS = TILE_WIDTHS[-2:]
+# The tile widths whose bf16 flash kernels the build phase reports and
+# holds to no spill: the B/4 paths' d = 64, ViT-H/14's d = 80, and the
+# blocks of csrc/flash_block256.cuh at 192 and 256 (the 3- and 4-head
+# paths at D = 768).
+FLASH_PTXAS_DIMS = (64, 80, 192, 256)
+FLASH_NO_SPILL_DIMS = FLASH_PTXAS_DIMS
 
 
 def _flash_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's report of each bf16 flash kernel in ``lib`` at the tile
-    widths of FLASH_PTXAS_DIMS; raise if one of FLASH_NO_SPILL_DIMS spills
+    widths of FLASH_PTXAS_DIMS (``flash_*_block256`` at 192 and 256,
+    ``flash_*_wgmma`` below); raise if one of FLASH_NO_SPILL_DIMS spills
     or one is missing."""
     lib_name = lib.name[3:-3]
     so = kernel_build.load(lib_name)
     found = set()
     for d in FLASH_PTXAS_DIMS:
+        block = "block256" if d in BLOCK256_WIDTHS else "wgmma"
         if lib_name == "flash_attention_fwd":
-            smem = {"flash_fwd_wgmma": so.flash_attention_fwd_smem(d, 0)}
+            smem = {f"flash_fwd_{block}": so.flash_attention_fwd_smem(d, 0)}
         else:
-            smem = {"flash_bwd_dkv_wgmma":
+            smem = {f"flash_bwd_dkv_{block}":
                         so.flash_attention_bwd_smem(d, 0, 0),
-                    "flash_bwd_dq_wgmma": so.flash_attention_bwd_smem(d, 1, 0)}
+                    f"flash_bwd_dq_{block}":
+                        so.flash_attention_bwd_smem(d, 1, 0)}
         for m in re.finditer(
                 r"Function properties for \S*?\d(flash_(?:fwd|bwd_dkv|bwd_dq)"
-                rf"_wgmma)ILi{d}E(\w*?)Ev\S*\n\s*\d+ bytes stack frame, "
+                rf"_{block})ILi{d}E(\w*?)Ev\S*\n\s*\d+ bytes stack frame, "
                 r"(\d+) bytes spill stores.*\n.*?Used (\d+) registers"
                 r"(?:.*?(\d+) bytes smem)?", text):
             kernel, spills = m.group(1), int(m.group(3))
-            form = ", lse" if "Lb1" in m.group(2) else (
-                ", dk" if "Li1E" in m.group(2) else
-                ", dv" if "Li2E" in m.group(2) else "")
+            form = ", lse" if "Lb1" in m.group(2) else ""
             found.add((kernel, d))
             log("build", f"ptxas {kernel}<{d}{form}>: {m.group(4)} registers, "
                          f"{spills} bytes of spill stores, {m.group(5) or 0} "
@@ -698,22 +731,36 @@ FUSED_NEW_WIDTHS = (80, 192, 256)
 def _fused_wide_ptxas(lib: Path, text: str) -> None:
     """Log ptxas's registers and spills of the fused source's bf16 kernels
     at the tile widths 80, 192 and 256 (the whole-row forward at each count
-    of key chunks, the flash blocks with the mask, the backward's dkv parts
-    and dq): reported, not held (the widest flash blocks spill, PERF.md);
-    raise if a width has no kernel."""
+    of key chunks, the flash blocks with the mask: at 192 and 256
+    csrc/flash_block256.cuh's forward, dkv and dq); raise if a width has no
+    kernel, or if a block256 kernel is missing or spills (the whole-row
+    ones are reported)."""
     got = {}
     for m in re.finditer(
-            r"Function properties for \S*?(fused_(?:fwd|bwd)_\w+?_wgmma)"
+            r"Function properties for \S*?(fused_(?:fwd|bwd)_(?:\w+?_)?"
+            r"(?:wgmma|block256))"
             r"ILi(\d+)E(?:Li(\d+)E|Lb(\d)E)?\S*\n\s*\d+ bytes stack frame, "
             r"(\d+) bytes spill stores.*\n.*?Used (\d+) registers", text):
         name, d, n, flag, spills, regs = m.groups()
         if int(d) in FUSED_NEW_WIDTHS:
-            key = (int(d), name + (f"<{n}>" if n else ""))
+            key = (int(d), name + (f"<{n}>" if n else "")
+                   + (f", lse {flag}" if flag else ""))
             got[key] = (int(regs), int(spills))
     missing = [w for w in FUSED_NEW_WIDTHS if not any(k[0] == w for k in got)]
     if missing:
         raise AssertionError(f"no ptxas report of {lib.name}'s kernels at "
                              f"tile widths {missing}")
+    kinds = (("fused_fwd_block256",) if "_fwd" in lib.name else
+             ("fused_bwd_dkv_block256", "fused_bwd_dq_block256"))
+    for w in BLOCK256_WIDTHS:
+        held = {k[1]: v for k, v in got.items()
+                if k[0] == w and "block256" in k[1]}
+        if {k.split(",")[0] for k in held} != set(kinds):
+            raise AssertionError(f"ptxas report of {kinds} at tile width {w}"
+                                 f" not found in {lib.parent / 'build.log'}")
+        if any(sp for _, sp in held.values()):
+            raise AssertionError(f"{lib.name}'s flash blocks at tile width "
+                                 f"{w} spill: {held}")
     for w in FUSED_NEW_WIDTHS:
         rows = {k[1]: v for k, v in got.items() if k[0] == w}
         regs = [r for r, _ in rows.values()]
@@ -834,8 +881,6 @@ def _band_bwd_ptxas(lib: Path, text: str) -> None:
                              if t_ == dt and k_ == kind))
 
 
-# The tile widths of the tile-band sources (flash_common.cuh tile_width).
-TILE_WIDTHS = (16, 32, 64, 80, 128, 192, 256)
 # The ring kernels' head dims (hw <= 16): the MHLA-B/4 and E5/E6 paths'.
 TILE_RING_DIMS = (16, 32, 64, 128)
 # The wgmma kernels' output slice widths (tile_band_sm90.cuh slice_width).
@@ -2497,7 +2542,32 @@ def _rms_check(got, ref):
         f"{err:.3g} (rms {rms / max(rms_ref, 1e-30):.2g} of the plain rms)")
 
 
-def _compare_fused(q, k, v, g, rate, seed, max_ulps=BF16_ULPS):
+def _near_check(got, exact, near, max_ulps):
+    """(max abs err, ok, description) of a bf16 gradient of the fused op
+    by the rule stated at HEADDIM_OWN_MARGIN: within ``max_ulps`` of
+    ``near`` (the plain version run in bf16, which rounds ds and the
+    weights as the kernels do), its worst entry against ``exact`` (the
+    plain version in f32) at most HEADDIM_OWN_MARGIN ulps past the worst
+    of ``near`` against it, both counted as _flash_check counts them, and
+    the error's rms against ``exact`` within FLASH_RMS_REL of its rms."""
+    got, exact, near = got.float(), exact.float(), near.float()
+    err = float((got - exact).abs().max())
+    floor = max(FLASH_ULP_FLOOR_SHARE * float(exact.abs().max()),
+                BF16_ULP_FLOOR)
+    to_exact = bf16_ulps(got, exact, floor)
+    own = bf16_ulps(near, exact, floor)
+    to_near = bf16_ulps(got, near, floor)
+    rms = float((got - exact).pow(2).mean().sqrt())
+    rms_ref = float(exact.pow(2).mean().sqrt())
+    ok = (to_near <= max_ulps and to_exact <= own + HEADDIM_OWN_MARGIN
+          and rms <= FLASH_RMS_REL * rms_ref + 1e-6)
+    return err, ok, (f"{err:.3g} ({to_exact:.2f} ulps, the bf16 plain "
+                     f"version {own:.2f}, {to_near:.2f} from it; rms "
+                     f"{rms / max(rms_ref, 1e-30):.2g} of the plain rms)")
+
+
+def _compare_fused(q, k, v, g, rate, seed, max_ulps=BF16_ULPS,
+                   rounded=False):
     """The eval forward (at rate 0), the training forward and the backward
     kernels of the fused short-S attention against the plain versions on
     the same inputs; {name: (err, ok, text)}. The backward takes the
@@ -2514,7 +2584,8 @@ def _compare_fused(q, k, v, g, rate, seed, max_ulps=BF16_ULPS):
     by the rms bound to the direct row sum (``dq_direct``, ``dk_direct``),
     which holds the identity in bf16 too. At S = 1 the true dq and dk are 0
     and out's rounding is all there is, so the second has no scale to be
-    relative to and is left out."""
+    relative to and is left out. With ``rounded`` (kernel-headdims) the
+    bf16 gradients are held entry by entry by _near_check instead."""
     dtype = q.dtype
     res = {}
 
@@ -2539,8 +2610,21 @@ def _compare_fused(q, k, v, g, rate, seed, max_ulps=BF16_ULPS):
     res["out"] = held(out, ref_out, dtype, F32_TOL)
     # lse is f32 on both sides: f32 logits of the same inputs.
     res["lse"] = held(lse, ref_lse, torch.float32, F32_TOL)
-    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
-        res[name] = held(a, b, dtype, F32_BWD_TOL)
+    if rounded and dtype == torch.bfloat16:
+        # cuBLAS's bf16 products of the rounded version sum in f32.
+        mm = torch.backends.cuda.matmul
+        reduced = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            near = fused.plain_fused_mha_backward(q, k, v, g, rate, seed,
+                                                  out=out)
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = reduced
+        for name, a, b, n in zip(("dq", "dk", "dv"), grads, ref_grads, near):
+            res[name] = _near_check(a, b, n, max_ulps)
+    else:
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+            res[name] = held(a, b, dtype, F32_BWD_TOL)
     if dtype == torch.bfloat16 and q.shape[2] > 1:
         direct = fused.plain_fused_mha_backward(rq, rk, rv, rg, rate, seed)
         for name, a, b in zip(("dq_direct", "dk_direct"), grads, direct):
@@ -4785,6 +4869,33 @@ def phase_kernel_h14_optin() -> dict:
                            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
                            f"({r['bound_by']})"
                            for kind, r in result["fused"][(d, s)].items()))
+            if (d, s) == (H14_HEAD_DIM, H14_FUSED_S):
+                # K3 at dense ViT-H/14's 224^2 shape on the device alone
+                # (the profiler's ms a call, summed over its kernels): is its
+                # time over the library's in batches of calls the kernel's
+                # or the host's?
+                try:
+                    with torch.no_grad():
+                        dev = {n: sum(profile_device_ms(fn).values())
+                               for n, fn in (
+                                   ("K3 eval", lambda: (
+                                       fused.fused_multi_head_attention(
+                                           q, k, v))),
+                                   ("K3 training", lambda: (
+                                       fused.fused_mha_forward_train(
+                                           q, k, v, rate, seed))),
+                                   ("library", lambda: (
+                                       F.scaled_dot_product_attention(
+                                           q, k, v))),
+                                   ("library with dropout", lambda: (
+                                       F.scaled_dot_product_attention(
+                                           q, k, v, dropout_p=rate))))}
+                    log(phase, f"fused d={d} S={s} bf16, device ms a call "
+                               f"(torch.profiler, 20 calls): " + ", ".join(
+                                   f"{n} {t:.4f}" for n, t in dev.items()))
+                except NoDeviceTime:
+                    log(phase, f"fused d={d} S={s}: the profiler recorded "
+                               f"no device time")
             del q, k, v, g, out, lse
             torch.cuda.empty_cache()
     for s in H14_FUSED_SEQS:
@@ -5251,9 +5362,14 @@ HD_DIM, HD_IMG, HD_BATCH = 768, 224, 8
 HD_S = (HD_IMG // 4) ** 2 + 1
 HD_FUSED_S = (HD_IMG // 16) ** 2 + 1
 HD_H = H14_DIM  # ViT-H's width, one head
-HD_FLASH = ((768, 1, HD_S), (12, 64, HD_S), (HD_H, 1, H14_S))  # d, h, S
+# K5 at d = 256 and 192 (3 and 4 heads: csrc/flash_block256.cuh's blocks)
+# and at 136 (4 heads of a width of 544: the tile width 192 with 56 zero
+# columns), and K3/K4 at 256 and 192 at S = 197 (past the whole-row
+# kernel's 64 keys).
+HD_FLASH = ((768, 1, HD_S), (12, 64, HD_S), (HD_H, 1, H14_S),
+            (256, 3, HD_S), (192, 4, HD_S), (136, 4, HD_S))  # d, h, S
 HD_BAND = ((384, 2, HD_S), (12, 64, HD_S), (HD_H, 1, H14_S))
-HD_FUSED = ((384, 2), (HD_H, 1))  # d, h at S = 197
+HD_FUSED = ((384, 2), (HD_H, 1), (256, 3), (192, 4))  # d, h at S = 197
 HD_TILE_DIMS = (4, 12, 36)
 HD_TILE_WINDOWS = (7, 129)
 HD_TILE_ROWS = 16
@@ -5275,13 +5391,43 @@ def _sdpa_backend(q, k, v, mask=None) -> str:
     return SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask=mask)).name
 
 
-def _recompute(rows: int, s: int, d: int) -> str:
+def _tile_width(d: int) -> int:
+    """The tile width the bf16 kernels run head dim d (up to 256) at: the
+    narrowest of TILE_WIDTHS that holds d padded to the grid of 8."""
+    padded = -(-d // flash.HEAD_DIM_STEP) * flash.HEAD_DIM_STEP
+    return next(w for w in TILE_WIDTHS if padded <= w)
+
+
+def _block256_factor(source: str, backward) -> float:
+    """Run ``backward`` once at a tile width of BLOCK256_WIDTHS and return
+    its matrix products over the function's 10 S^2 d, from the dkv and dq
+    launches the library ``source`` counted on csrc/flash_block256.cuh's
+    blocks (ops/flash_attention.block256_launches). Each dkv launch forms
+    S^T and dP^T, each dq launch S, dP and dq, and dk and dv are formed once
+    in all: 2 S^2 d (2 n_dkv + 2 + 3 n_dq), 1.4x with one dkv launch (1.8x
+    with a dk-then-dv pair). Raises unless the call made one of each."""
+    flash.block256_launches(source)  # zeroes the counts
+    backward()
+    torch.cuda.synchronize()
+    n = flash.block256_launches(source)
+    if n != {"dkv": 1, "dq": 1}:
+        raise AssertionError(f"{source} launched {n} on the blocks of the "
+                             f"tile widths 192 and 256, not one dkv and one "
+                             f"dq")
+    return 2 * (2 * n["dkv"] + 2 + 3 * n["dq"]) / 10
+
+
+def _recompute(rows: int, s: int, d: int, factor: float | None = None) -> str:
     """The wide blocks' slice plan and recomputation at this shape
     (ops/flash_attention.wide_plan, csrc/flash_wide.cuh): each slice forms
     the logits (and dP) over all of d once; up to 256 the blocks hold whole
-    rows."""
+    rows, and ``factor`` (_block256_factor) is the backward's products over
+    its 10 S^2 d where it was counted."""
     if d <= 256:
-        return "none (whole rows)"
+        return (f"none (whole rows at tile width {_tile_width(d)})"
+                + ("" if factor is None else
+                   f"; backward {factor:.2f}x its 10 S^2 d (this run's dkv "
+                   f"and dq launches)"))
     plan = {k: flash.wide_plan(rows, s, d, k) for k in ("fwd", "dkv", "dq")}
     return ("plan " + ", ".join(
         f"{k} {p.slices} slices of {1 if k == 'dkv' else 2} x {p.cols} "
@@ -5358,7 +5504,7 @@ def phase_kernel_headdims() -> dict:
                 else cuda_median_ms(fn, HD_REPS, batch=batch)
                 for n, fn in fns.items()}
 
-    def show(kind, d, r, rows=0, s=0):
+    def show(kind, d, r, rows=0, s=0, factor=None):
         log(phase, f"{kind} d={d} bf16, kernel / plain / PyTorch's fused "
                    f"attention ({r.pop('backend')}), ms (CUDA-event "
                    f"medians of {HD_REPS}"
@@ -5371,7 +5517,7 @@ def phase_kernel_headdims() -> dict:
                        f"{x['bound_ms'] / x['ms']:.3f} of it"
                        for n, x in r.items())
             + ("" if kind == "band" else
-               f"; recomputation {_recompute(rows, s, d)}"))
+               f"; recomputation {_recompute(rows, s, d, factor)}"))
 
     result = {"flash": {}, "band": {}, "fused": {}}
     for d, h, s in HD_FLASH:
@@ -5392,6 +5538,10 @@ def phase_kernel_headdims() -> dict:
                 raise AssertionError(f"{phase}: two flash backward runs "
                                      f"differ at d={d}")
             del again
+            factor = (_block256_factor(
+                "flash_attention_bwd",
+                lambda: flash.flash_backward(q, k, v, out, lse, g))
+                if d <= 256 and _tile_width(d) in BLOCK256_WIDTHS else None)
             t = times_of({
                 "fwd": lambda: flash.flash_attention(q, k, v),
                 "fwd_train": lambda: flash.flash_forward_train(q, k, v),
@@ -5428,7 +5578,7 @@ def phase_kernel_headdims() -> dict:
                          **least_time(8 * one + lse.numel() * 4,
                                       10 * pairs)))
             show("flash", d, dict(r, backend=_sdpa_backend(q, k, v)),
-                 HD_BATCH * h, s)
+                 HD_BATCH * h, s, factor)
             if d % 8:
                 log(phase, f"flash d={d}: the pad's copies (q, k, v to "
                            f"{-(-d // 8) * 8} columns, out back) "
@@ -5544,11 +5694,13 @@ def phase_kernel_headdims() -> dict:
                      HD_FUSED_S, d)
             q, k, v, g = inputs(shape, dtype)
             # kernel-fused's rule for its loose cases (FUSED_LOOSE_ULPS entry
-            # by entry and the rms bound), as kernel-h14-optin holds them.
+            # by entry and the rms bound), as kernel-h14-optin holds them;
+            # the bf16 gradients by the rule at HEADDIM_OWN_MARGIN.
             res = {}
             for r_, sd in ((0.0, None), (rate, seed)):
                 for n, x in _compare_fused(q, k, v, g, r_, sd,
-                                           FUSED_LOOSE_ULPS).items():
+                                           FUSED_LOOSE_ULPS,
+                                           rounded=True).items():
                     res[f"{n}@{r_}"] = x
             _optin_check(failures, f"fused {shape} {dt}", res)
             log(phase, f"fused B,h,S,d={shape} {dt}, dropout 0 and {rate}: "
@@ -5563,6 +5715,10 @@ def phase_kernel_headdims() -> dict:
                 raise AssertionError(f"{phase}: two fused backward runs "
                                      f"differ at d={d}")
             del again
+            factor = (_block256_factor(
+                "fused_mha_bwd", lambda: fused.fused_mha_backward(
+                    q, k, v, out, lse, g, rate, seed))
+                if d <= 256 and _tile_width(d) in BLOCK256_WIDTHS else None)
             with torch.no_grad():
                 t = times_of({
                     "fwd": lambda: fused.fused_multi_head_attention(q, k, v),
@@ -5605,7 +5761,7 @@ def phase_kernel_headdims() -> dict:
                     **least_time(7 * one, 10 * pairs)))
             show(f"fused S={HD_FUSED_S}", d,
                  dict(r, backend=_sdpa_backend(q, k, v)), HD_BATCH * h,
-                 HD_FUSED_S)
+                 HD_FUSED_S, factor)
             del q, k, v, g, out, lse
             torch.cuda.empty_cache()
 
@@ -5763,21 +5919,35 @@ def phase_kernel_tileband_range() -> dict:
 # switch through K3/K4's wide blocks with the mask (the flash and band
 # kernels launch nothing there), and MHLA-B/4 with 2 and 1 heads (d = 384,
 # 768) through the tile band's wgmma kernels under the tile-band
-# variables (K1/K2 launch nothing there).
+# variables (K1/K2 launch nothing there). Then the tile widths 256 and 192
+# (csrc/flash_block256.cuh): dense ViT-B/4 with 3 heads at all 12 blocks
+# and with 4 heads, ViT-B/16 with 3 heads and the fused switch (K3/K4 past
+# 64 keys, attention dropout 0.1).
 HD_TILE_2 = "MHLA-B/4 2 heads (d=384) tile band"
 HD_TILE_1 = "MHLA-B/4 1 head (d=768) tile band"
+HD_DENSE_3 = "dense ViT-B/4 3 heads (d=256)"
+HD_DENSE_4 = "dense ViT-B/4 4 heads (d=192)"
+HD_FUSED_3 = "ViT-B/16 fused 3 heads (d=256)"
 HD_PATHS = tuple(
-    _H14(label, w, op, env or None, idle, HD_IMG, HD_DEPTH, HD_DIM, heads,
+    _H14(label, w, op, env or None, idle, HD_IMG, depth, HD_DIM, heads,
          patch, "headdims")
-    for label, w, op, env, idle, heads, patch in (
-        ("MHLA-B/4 2 heads (d=384)", HD_W, None, {}, (tile,), 2, 4),
-        ("MHLA-B/4 64 heads (d=12)", HD_W, None, {}, (tile,), 64, 4),
-        ("dense ViT-B/4 1 head (d=768)", None, None, {}, (fused,), 1, 4),
-        ("dense ViT-B/4 64 heads (d=12)", None, None, {}, (fused,), 64, 4),
+    for label, w, op, env, idle, heads, patch, depth in (
+        ("MHLA-B/4 2 heads (d=384)", HD_W, None, {}, (tile,), 2, 4,
+         HD_DEPTH),
+        ("MHLA-B/4 64 heads (d=12)", HD_W, None, {}, (tile,), 64, 4,
+         HD_DEPTH),
+        ("dense ViT-B/4 1 head (d=768)", None, None, {}, (fused,), 1, 4,
+         HD_DEPTH),
+        ("dense ViT-B/4 64 heads (d=12)", None, None, {}, (fused,), 64, 4,
+         HD_DEPTH),
         ("ViT-B/16 fused 2 heads (d=384)", None, fused,
-         {"FAVIT_FUSED_MHA": "1"}, (flash, band), 2, 16),
-        (HD_TILE_2, HD_W, tile, TILE_ENV, (band,), 2, 4),
-        (HD_TILE_1, HD_W, tile, TILE_ENV, (band,), 1, 4)))
+         {"FAVIT_FUSED_MHA": "1"}, (flash, band), 2, 16, HD_DEPTH),
+        (HD_TILE_2, HD_W, tile, TILE_ENV, (band,), 2, 4, HD_DEPTH),
+        (HD_TILE_1, HD_W, tile, TILE_ENV, (band,), 1, 4, HD_DEPTH),
+        (HD_DENSE_3, None, None, {}, (fused,), 3, 4, DEPTH),
+        (HD_DENSE_4, None, None, {}, (fused,), 4, 4, HD_DEPTH),
+        (HD_FUSED_3, None, fused, {"FAVIT_FUSED_MHA": "1"}, (flash, band),
+         3, 16, HD_DEPTH)))
 
 
 def phase_headdims() -> dict:
@@ -6060,22 +6230,23 @@ def main() -> None:
          f"{tpu_tile}:383", optin_timing["fwd_b_launches"],
          optin_timing["tile"][(80, H14_WIDE_W)]["fwd_b"]),
     ]
-    # The head-count paths' widths (phase_headdims): K5 at d = 768 and 12
-    # (dense ViT-B/4, 1 and 64 heads), K1/K2 at d = 384 and 12 (MHLA-B/4, 2
-    # and 64 heads; d = 384 also from its artifact), K3/K4 at d = 384
-    # (ViT-B/16, 2 heads, the fused switch on).
+    # The head-count paths' widths (phase_headdims): K5 at d = 768, 12, 256
+    # and 192 (dense ViT-B/4, 1, 64, 3 and 4 heads), K1/K2 at d = 384 and 12
+    # (MHLA-B/4, 2 and 64 heads; d = 384 also from its artifact), K3/K4 at
+    # d = 384 and 256 (ViT-B/16, 2 and 3 heads, the fused switch on).
     hd_rows = (
         ("flash_attention", "flash", flash.FWD_KERNEL_SOURCE,
          flash.BWD_KERNEL_SOURCE, f"{tpu_flash}:73", f"{tpu_flash}:73",
          ((768, "dense ViT-B/4 1 head (d=768)"),
-          (12, "dense ViT-B/4 64 heads (d=12)"))),
+          (12, "dense ViT-B/4 64 heads (d=12)"), (256, HD_DENSE_3),
+          (192, HD_DENSE_4))),
         ("mhla_band", "band", band.KERNEL_SOURCE, band.BWD_KERNEL_SOURCE,
          f"{tpu}:158", f"{tpu}:199",
          ((384, "MHLA-B/4 2 heads (d=384)"),
           (12, "MHLA-B/4 64 heads (d=12)"))),
         ("fused_mha", "fused", fused.FWD_KERNEL_SOURCE,
          fused.BWD_KERNEL_SOURCE, f"{tpu_fused}:59", f"{tpu_fused}:83",
-         ((384, "ViT-B/16 fused 2 heads (d=384)"),)),
+         ((384, "ViT-B/16 fused 2 heads (d=384)"), (256, HD_FUSED_3))),
     )
     for stem, key, fwd_src, bwd_src, fwd_at, bwd_at, cases in hd_rows:
         for d, label in cases:

@@ -17,7 +17,8 @@
 // stored; only q, k, v, out and lse were saved.
 //
 // Three kernels, launched in order on one stream:
-//   1. delta: a thread per query row (flash_common.cuh);
+//   1. delta: a group of lanes per query row, as many as its 16-byte
+//      vectors up to a warp (flash_common.cuh);
 //   2. dkv: a block owns a tile of keys and loops over the query tiles;
 //   3. dq: a block owns a tile of queries and loops over the key tiles.
 // The TPU kernels carry the dk/dv (and dq) sums in scratch memory across a
@@ -64,10 +65,12 @@
 //
 // Head dims: as the forward (flash_attention_fwd.cu), every multiple of 8;
 // up to 256 run at the narrowest tile width D of 16, 32, 64, 80, 128, 192 and
-// 256 that holds it, zeros past d in every staged tile. Past D = 128 the dkv
-// kernel's two 64 x D accumulators would not fit the registers, so it runs
-// twice, once for dk and once for dv, each recomputing S^T and dP^T; the dq
-// kernel streams 32-key tiles there. Past 256 the dkv and dq kernels are
+// 256 that holds it, zeros past d in every staged tile. At D = 192 and 256
+// the dkv and dq kernels are flash_block256.cuh's (256 threads, no
+// producer, 64-row tiles): dkv splits the products between its warpgroups
+// (S^T, p^T and dv in one; dP^T, dS^T from the other's p^T and dk in the
+// other), so dkv forms S^T and dP^T once and the backward does 14 S^2 d
+// and 2 S^2 exponentials, as at D <= 128. Past 256 the dkv and dq kernels are
 // flash_wide.cuh's blocks, after the same delta: dkv in slices of up to 256
 // columns of dk and dv (one warpgroup forms S^T over d and adds dv, the
 // other dP^T and dk), dq in slices of up to 512 columns (S and dP over d,
@@ -79,6 +82,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_block256.cuh"
 #include "flash_bwd_blocks.cuh"
 #include "flash_common.cuh"
 #include "flash_f32.cuh"
@@ -95,7 +99,7 @@ using flash_bwd::Dq;
 using flash_bwd::kMmaThreads;
 using flash_bwd::kOwn;
 
-template <int D, int kPart>
+template <int D>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -105,7 +109,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
                         const float* __restrict__ delta, bf16* __restrict__ dk,
                         bf16* __restrict__ dv, int s, int tiles_per_row,
                         float scale, float scale_log2, int d) {
-  flash_bwd::dkv_block<D, flash_bwd::NoMask, kPart>(
+  flash_bwd::dkv_block<D, flash_bwd::NoMask>(
       tq, tk, tv, tg, lse, delta, dk, dv, s, tiles_per_row, scale, scale_log2,
       flash_bwd::NoMask{}, d);
 }
@@ -122,6 +126,37 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
                        float scale_log2, int d) {
   flash_bwd::dq_block<D>(tq, tk, tv, tg, lse, delta, dq, s, tiles_per_row,
                          scale, scale_log2, flash_bwd::NoMask{}, d);
+}
+
+// Tile widths 192 and 256: flash_block256.cuh's dkv and dq blocks.
+template <int D>
+__global__ void __launch_bounds__(flash256::kThreads, 1)
+    flash_bwd_dkv_block256(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tg,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
+                           int tiles_per_row, float scale, float scale_log2,
+                           flash256::NoMask mask, int d) {
+  flash256::dkv_block<D>(tq, tk, tv, tg, lse, delta, dk, dv, s, tiles_per_row,
+                         scale, scale_log2, mask, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash256::kThreads, 1)
+    flash_bwd_dq_block256(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tg,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int s, int tiles_per_row,
+                          float scale, float scale_log2, flash256::NoMask mask,
+                          int d) {
+  flash256::dq_block<D>(tq, tk, tv, tg, lse, delta, dq, s, tiles_per_row,
+                        scale, scale_log2, mask, d);
 }
 
 struct Args {
@@ -199,11 +234,11 @@ cudaError_t launch_wide(const Args& a, const int (&plan)[4]) {
                     flash_bwd::NoMask{}, a.stream);
 }
 
-template <int D, int kPart>
+template <int D>
 cudaError_t launch_dkv(const Args& a, const CUtensorMap& q_str,
                        const CUtensorMap& k_own, const CUtensorMap& v_own,
                        const CUtensorMap& g_str, dim3 grid, int tiles) {
-  auto dkv = flash_bwd_dkv_wgmma<D, kPart>;
+  auto dkv = flash_bwd_dkv_wgmma<D>;
   cudaError_t err = cudaFuncSetAttribute(
       dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::kSmem);
   if (err != cudaSuccess) return err;
@@ -213,6 +248,20 @@ cudaError_t launch_dkv(const Args& a, const CUtensorMap& q_str,
       static_cast<bf16*>(a.dv), a.s, tiles, a.scale, a.scale * flash::kLog2e,
       a.d);
   return cudaGetLastError();
+}
+
+// Tile widths 192 and 256: the delta kernel, then flash_block256.cuh's dkv
+// and dq kernels.
+template <int D>
+cudaError_t launch_block256(const Args& a) {
+  cudaError_t err = flash::launch_delta<bf16, flash::for_flash_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
+  if (err != cudaSuccess) return err;
+  return flash256::launch_bwd<D>(
+      &flash_bwd_dkv_block256<D>, &flash_bwd_dq_block256<D>, a.q, a.k, a.v,
+      a.g, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), a.dq, a.dk, a.dv, a.rows, a.s, a.d,
+      a.scale, flash256::NoMask{}, a.stream);
 }
 
 template <int D>
@@ -244,17 +293,7 @@ cudaError_t launch_wgmma(const Args& a) {
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(blocks));
 
-  if constexpr (D <= 128) {
-    err = launch_dkv<D, flash_bwd::kBoth>(a, q_str, k_own, v_own, g_str, grid,
-                                          tiles);
-  } else {
-    err = launch_dkv<D, flash_bwd::kDkOnly>(a, q_str, k_own, v_own, g_str,
-                                            grid, tiles);
-    if (err == cudaSuccess) {
-      err = launch_dkv<D, flash_bwd::kDvOnly>(a, q_str, k_own, v_own, g_str,
-                                              grid, tiles);
-    }
-  }
+  err = launch_dkv<D>(a, q_str, k_own, v_own, g_str, grid, tiles);
   if (err != cudaSuccess) return err;
 
   auto dq = flash_bwd_dq_wgmma<D>;
@@ -320,10 +359,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       err = launch_wgmma<128>(a);
       break;
     case 192:
-      err = launch_wgmma<192>(a);
+      err = launch_block256<192>(a);
       break;
     case 256:
-      err = launch_wgmma<256>(a);
+      err = launch_block256<256>(a);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -351,10 +390,19 @@ extern "C" int flash_attention_bwd_smem(int d, int kernel, int tiles) {
     case 128:
       return kernel == 0 ? Dkv<128>::kSmem : Dq<128>::kSmem;
     case 192:
-      return kernel == 0 ? Dkv<192>::kSmem : Dq<192>::kSmem;
+      return kernel == 0 ? flash256::Bwd<192>::kDkvSmem
+                         : flash256::Bwd<192>::kDqSmem;
     case 256:
-      return kernel == 0 ? Dkv<256>::kSmem : Dq<256>::kSmem;
+      return kernel == 0 ? flash256::Bwd<256>::kDkvSmem
+                         : flash256::Bwd<256>::kDqSmem;
     default:
       return 0;
   }
+}
+
+// The dkv and dq kernels of flash_block256.cuh that this library launched
+// since the last call, into counts[0] and counts[1]; zeroes both counts.
+extern "C" void flash_attention_bwd_block256_launches(long long* counts) {
+  counts[0] = flash256::dkv_launches.exchange(0);
+  counts[1] = flash256::dq_launches.exchange(0);
 }

@@ -62,12 +62,14 @@
 // P V's columns past d are never stored. The scale is the caller's
 // d^-1/2. D = 80 (ViT-H/14's head dim) is stored in 16-column,
 // 32-byte-swizzled blocks and its P V runs as products of 64 and 16
-// columns; D = 192 and 256 in 64-column blocks with products of 128 and
-// 64 or 128, and key tiles of 64 and 32. Past 256 the forward runs
-// flash_wide.cuh's block: two consumer warpgroups split the logits over d
-// and swap their partials, then each adds P V over its share of an output
-// slice of up to 512 columns (slices over the grid's y, the plan's
-// arguments `slices` and `tiles`), wgmma on a TMA ring.
+// columns. D = 192 and 256 run flash_block256.cuh's block: two
+// warpgroups and no producer (a 64 x D accumulator takes 96 or 128
+// registers a thread, which a launch with a producer does not give), and
+// K and V tiles of 80 keys (96 at 192) in rings of their own. Past 256 the
+// forward runs flash_wide.cuh's block: two consumer warpgroups split the
+// logits over d and swap their partials, then each adds P V over its share
+// of an output slice of up to 512 columns (slices over the grid's y, the
+// plan's arguments `slices` and `tiles`), wgmma on a TMA ring.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,6 +77,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_block256.cuh"
 #include "flash_common.cuh"
 #include "flash_f32.cuh"
 #include "flash_fwd_block.cuh"
@@ -99,6 +102,19 @@ __global__ void __launch_bounds__(kThreads, 1)
                     int tiles_per_row, float scale_log2, int d) {
   flash_fwd::block<D, kLse>(tq, tk, tv, out, lse, s, tiles_per_row,
                             scale_log2, flash_fwd::NoMask{}, d);
+}
+
+// Tile widths 192 and 256: flash_block256.cuh's forward block.
+template <int D, bool kLse>
+__global__ void __launch_bounds__(flash256::kThreads, 1)
+    flash_fwd_block256(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ out, float* __restrict__ lse, int s,
+                       int tiles_per_row, float scale_log2,
+                       flash256::NoMask mask, int d) {
+  flash256::fwd_block<D, kLse>(tq, tk, tv, out, lse, s, tiles_per_row,
+                               scale_log2, mask, d);
 }
 
 // Past d = 256: flash_wide.cuh's forward block, NT output tiles of 64
@@ -167,11 +183,19 @@ template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      float* lse, int64_t rows, int s, int d, float scale,
                      cudaStream_t stream) {
-  return lse != nullptr
-             ? launch_wgmma<D, true>(q, k, v, out, lse, rows, s, d, scale,
-                                     stream)
-             : launch_wgmma<D, false>(q, k, v, out, lse, rows, s, d, scale,
-                                      stream);
+  if constexpr (D == 192 || D == 256) {
+    return flash256::launch_fwd<D>(
+        lse != nullptr ? &flash_fwd_block256<D, true>
+                       : &flash_fwd_block256<D, false>,
+        q, k, v, out, lse, rows, s, d, scale * flash::kLog2e,
+        flash256::NoMask{}, stream);
+  } else {
+    return lse != nullptr
+               ? launch_wgmma<D, true>(q, k, v, out, lse, rows, s, d, scale,
+                                       stream)
+               : launch_wgmma<D, false>(q, k, v, out, lse, rows, s, d,
+                                        scale, stream);
+  }
 }
 
 }  // namespace
@@ -251,9 +275,9 @@ extern "C" int flash_attention_fwd_smem(int d, int tiles) {
     case 128:
       return Fwd<128>::kSmem;
     case 192:
-      return Fwd<192>::kSmem;
+      return flash256::Fwd<192>::kSmem;
     case 256:
-      return Fwd<256>::kSmem;
+      return flash256::Fwd<256>::kSmem;
     default:
       return 0;
   }

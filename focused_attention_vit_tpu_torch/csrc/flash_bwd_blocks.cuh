@@ -95,33 +95,27 @@ struct NoMask {
 };
 
 // D is the tile width: the head dim, or the width it is padded to
-// (flash_attention_bwd.cu).
+// (flash_attention_bwd.cu); 192 and 256 take flash_block256.cuh.
 template <int D>
 struct Dkv {
+  static_assert(D <= 128, "tile width");
   static constexpr int kBQ = D <= 64 ? 64 : 32;  // queries a staged tile
   static constexpr int kOwnBytes = kOwn * D * 2;  // the K or the V tile
   static constexpr int kTileBytes = kBQ * D * 2;  // one Q or g tile
   static constexpr int kSmem = 2 * kOwnBytes + 2 * kStages * kTileBytes + 1024;
 };
 
-// Which of dk and dv a dkv block sums: both, or (past D = 128, where two
-// 64 x D f32 accumulators leave no registers for the tiles) one of them, in
-// a launch of its own.
-enum Part { kBoth = 0, kDkOnly = 1, kDvOnly = 2 };
-
 // The dkv kernel's block (a kernel of kMmaThreads threads calls it with its
 // own __grid_constant__ tensor maps). `mask.dkv` turns a query tile's S^T
 // and dP^T into p^T (or z^T, the dropped weights) and dS^T in place. `d` is
 // the head dim, the row stride of dk and dv (D, or less for padded tiles).
-template <int D, class Mask, int kPart = kBoth>
+template <int D, class Mask>
 __device__ __forceinline__ void dkv_block(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     const CUtensorMap& tg, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int s, int tiles_per_row, float scale,
     float scale_log2, const Mask& mask, int d = D) {
-  constexpr bool kDk = kPart != kDvOnly;
-  constexpr bool kDv = kPart != kDkOnly;
   using C = Dkv<D>;
   constexpr int BQ = C::kBQ;
   constexpr int ST = kStages;
@@ -188,12 +182,11 @@ __device__ __forceinline__ void dkv_block(
     const int wg = warp >> 2;
     const int wq = lane & 3;
 
-    // A part that sums one of them keeps 8 idle registers for the other.
-    float dk_acc[kDk ? D / 2 : 8], dv_acc[kDv ? D / 2 : 8];
+    float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < (kDk ? D / 2 : 8); ++i) dk_acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < (kDv ? D / 2 : 8); ++i) dv_acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dv_acc[i] = 0.f;
     float st_acc[BQ / 2], dp_acc[BQ / 2];  // S^T and dP^T of one query tile
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // p^T, ds^T as A operands
 
@@ -231,12 +224,8 @@ __device__ __forceinline__ void dkv_block(
       hp::wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc) {
-        if constexpr (kDv) {
-          hp::rs_cols<D, BQ>(dv_acc, pa[kc], qt + BQ * D, kc);
-        }
-        if constexpr (kDk) {
-          hp::rs_cols<D, BQ>(dk_acc, da[kc], qt, kc);
-        }
+        hp::rs_cols<D, BQ>(dv_acc, pa[kc], qt + BQ * D, kc);
+        hp::rs_cols<D, BQ>(dk_acc, da[kc], qt, kc);
       }
       hp::wgmma_commit();
       hp::fence_regs(dk_acc);
@@ -276,16 +265,15 @@ __device__ __forceinline__ void dkv_block(
     }
 
     const int r0 = key0 + wg * 64 + acc_row(tid);
-    if constexpr (kDk) store_acc<D>(dk + vec * d, dk_acc, r0, s, wq, d);
-    if constexpr (kDv) store_acc<D>(dv + vec * d, dv_acc, r0, s, wq, d);
+    store_acc<D>(dk + vec * d, dk_acc, r0, s, wq, d);
+    store_acc<D>(dv + vec * d, dv_acc, r0, s, wq, d);
   }
 }
 
 template <int D>
 struct Dq {
-  // Keys a staged tile: 32 past D = 128, where the ring of 64 would not
-  // fit shared memory beside the Q and g tiles.
-  static constexpr int kBN = D <= 128 ? 64 : 32;
+  static_assert(D <= 128, "tile width");
+  static constexpr int kBN = 64;  // keys a staged tile
   static constexpr int kOwnBytes = kOwn * D * 2;  // the Q or the g tile
   static constexpr int kTileBytes = kBN * D * 2;  // one K or V tile
   static constexpr int kSmem = 2 * kOwnBytes + 2 * kStages * kTileBytes + 1024;

@@ -68,42 +68,63 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 
 // delta_i = sum_c g_ic out_ic for every query row of [n, d] `out` and `g`
-// (d a multiple of 8): the first kernel of a backward, a thread per row.
-// `Caller` is one of the tags below and changes nothing but the kernel's
-// name, so that a profile books the time under the op that launched it.
+// (d a multiple of 8): the first kernel of a backward. A group of L lanes
+// reads a row, 16 bytes a lane, so that a warp's loads sweep 32 / L whole
+// rows at once; L is the fewest lanes that cover a row's 16-byte vectors,
+// up to a warp (launch_delta). `Caller` is one of the tags below and
+// changes nothing but the kernel's name, so that a profile books the time
+// under the op that launched it.
 constexpr int kDeltaThreads = 128;
 struct for_flash_bwd {};
 struct for_fused_bwd {};
 
-template <typename T, typename Caller>
+template <typename T, int L, typename Caller>
 __global__ void __launch_bounds__(kDeltaThreads)
     flash_delta(const T* __restrict__ out, const T* __restrict__ g,
                 float* __restrict__ delta, int64_t n, int d) {
-  const int64_t i =
-      blockIdx.x * static_cast<int64_t>(kDeltaThreads) + threadIdx.x;
-  if (i >= n) return;
+  static_assert(L >= 1 && L <= 32 && (L & (L - 1)) == 0, "lanes a row");
   constexpr int kVec = 16 / sizeof(T);  // elements in 16 bytes
-  const T* orow = out + i * d;
-  const T* grow = g + i * d;
+  const int64_t i =
+      (blockIdx.x * static_cast<int64_t>(kDeltaThreads) + threadIdx.x) / L;
+  const int lane = threadIdx.x % L;
   float sum = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < d; c += kVec) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-    const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
-    const T* oe = reinterpret_cast<const T*>(&ov);
-    const T* ge = reinterpret_cast<const T*>(&gv);
+  if (i < n) {
+    const T* orow = out + i * d;
+    const T* grow = g + i * d;
+    for (int c = kVec * lane; c < d; c += kVec * L) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+      const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* ge = reinterpret_cast<const T*>(&gv);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) sum += to_f32(oe[e]) * to_f32(ge[e]);
+      for (int e = 0; e < kVec; ++e) {
+        sum = fmaf(to_f32(oe[e]), to_f32(ge[e]), sum);
+      }
+    }
   }
-  delta[i] = sum;
+  // Every lane of the warp takes part (rows past n add zeros); a group's
+  // lanes are adjacent, so the xor stays inside it.
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  }
+  if (i < n && lane == 0) delta[i] = sum;
 }
 
-template <typename T, typename Caller>
+// The delta kernel over n rows of d, at L lanes a row: L doubles, from
+// one, until L 16-byte vectors cover the row or L is a warp.
+template <typename T, typename Caller, int L = 1>
 cudaError_t launch_delta(const void* out, const void* g, void* delta,
                          int64_t n, int d, cudaStream_t stream) {
-  const int64_t blocks = (n + kDeltaThreads - 1) / kDeltaThreads;
+  if constexpr (L < 32) {
+    if (d > L * static_cast<int>(16 / sizeof(T))) {
+      return launch_delta<T, Caller, 2 * L>(out, g, delta, n, d, stream);
+    }
+  }
+  constexpr int64_t kRows = kDeltaThreads / L;  // rows a block
+  const int64_t blocks = (n + kRows - 1) / kRows;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  flash_delta<T, Caller>
+  flash_delta<T, L, Caller>
       <<<static_cast<unsigned>(blocks), kDeltaThreads, 0, stream>>>(
           static_cast<const T*>(out), static_cast<const T*>(g),
           static_cast<float*>(delta), n, d);

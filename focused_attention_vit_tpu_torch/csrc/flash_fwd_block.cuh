@@ -27,14 +27,13 @@ constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kBM = 128;                   // queries a block
 
 // D is the tile width: the head dim, or the width it is padded to
-// (flash_attention_fwd.cu).
+// (flash_attention_fwd.cu); 192 and 256 take flash_block256.cuh.
 template <int D>
 struct Fwd {
-  // 128-key tiles keep the logits in 64 registers a thread; from D = 128
-  // the output accumulator takes 64 registers or more, so the tiles are 64
-  // keys, and 32 at D = 256 (128 registers of accumulator; the ring then
-  // fits shared memory).
-  static constexpr int kBN = D <= 80 ? 128 : D <= 192 ? 64 : 32;
+  static_assert(D <= 128, "tile width");
+  // 128-key tiles keep the logits in 64 registers a thread; at D = 128
+  // the output accumulator takes 64 registers, so the tiles are 64 keys.
+  static constexpr int kBN = D <= 80 ? 128 : 64;
   static constexpr int kStages = 3;
   static constexpr int kQBytes = kBM * D * 2;
   static constexpr int kTileBytes = kBN * D * 2;  // one K or V tile

@@ -73,10 +73,15 @@
 // Longer rows (up to the op's S = 1024) take the tiled kernels, launched in
 // order on one stream: delta (flash_common.cuh), then the dense flash
 // backward's dkv and dq blocks (flash_bwd_blocks.cuh: wgmma products, TMA
-// rings, a producer warpgroup) with this op's Philox mask in their
-// elementwise steps: the dkv block draws key-major as above (a lane pair
-// shares each call), the dq block one call per lane, row and 16-key chunk.
-// They compute the logits and dP twice, as the flash backward does.
+// rings, a producer warpgroup; at the tile widths 192 and 256
+// flash_block256.cuh's, two warpgroups and no producer) with this op's
+// Philox mask in their elementwise steps: the dkv block draws key-major as
+// above (a lane pair shares each call), the dq block one call per lane,
+// row and 16-key chunk. They compute the logits and dP twice, as the flash
+// backward does. In flash_block256.cuh's dkv (and its dq at 256) one
+// warpgroup draws and forms p, and the other reads each dropped weight's
+// mark from the sign bit of the p it is handed; its dq at 192 draws each
+// warpgroup's own rows. Each word is drawn once a kernel.
 //
 // f32 tensors, at every head dim, take flash_f32.cuh's scalar kernels for
 // parity runs, one Philox call a (query, key) pair, after the same delta.
@@ -85,8 +90,8 @@
 // flash::tile_width (16, 32, 64, 80, 128, 192, 256), zeros past d in the
 // staged tiles, the columns past d not stored. The whole-row kernel is built
 // for d = D in 16, 32, 64 and 128; every other head dim takes the tiled
-// kernels at every S (the flash blocks take all seven widths; past D = 128
-// the dkv block runs twice, dk then dv). Past 256, the dense backward's wide
+// kernels at every S (the flash blocks up to 128, flash_block256.cuh's at
+// 192 and 256). Past 256, the dense backward's wide
 // blocks (flash_wide.cuh: dkv in slices of up to 256 columns of dk and dv,
 // dq in slices of up to 512, the slices over the grid's y) with the Philox
 // mask, after the delta kernel.
@@ -99,6 +104,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "flash_block256.cuh"
 #include "flash_bwd_blocks.cuh"
 #include "flash_common.cuh"
 #include "flash_f32.cuh"
@@ -480,37 +486,46 @@ struct PhiloxMask {
   // keys (kb a multiple of 16), columns the query tile's from q0. One
   // Philox call serves two keys of one query; a lane and its neighbour
   // (g ^ 1) draw for their pair of queries and swap halves.
+  // The factors (inv_keep or 0; 1 without dropout) of this lane's keys
+  // (rows h) and columns 8 j + 2 wq + e of the query tile from q0.
+  __device__ __forceinline__ void keep_kv(float (&keep)[2][2], int j,
+                                          int64_t row, int kb,
+                                          int q0) const {
+    keep[0][0] = keep[0][1] = keep[1][0] = keep[1][1] = 1.f;
+    if (!on) return;
+    const int lane = threadIdx.x & 31;
+    const int wq = lane & 3;
+    const int gr = lane >> 2;
+    const int odd = gr & 1;
+    const int grp = 4 * (kb >> 4) + (gr >> 1);
+    const uint4 w =
+        philox::mha_words(seed, row, q0 + 8 * j + 2 * wq + odd, grp);
+    const uint32_t mine0 = odd ? w.y : w.x, mine1 = odd ? w.w : w.z;
+    const uint32_t give0 = odd ? w.x : w.y, give1 = odd ? w.z : w.w;
+    const uint32_t got0 = __shfl_xor_sync(0xffffffffu, give0, 4);
+    const uint32_t got1 = __shfl_xor_sync(0xffffffffu, give1, 4);
+    const uint32_t words[2][2] = {{odd ? got0 : mine0, odd ? mine0 : got0},
+                                  {odd ? got1 : mine1, odd ? mine1 : got1}};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        keep[h][e] = words[h][e] >= threshold ? inv_keep : 0.f;
+      }
+    }
+  }
+
   template <int N>
   __device__ __forceinline__ void dkv(float (&st)[N], float (&dp)[N],
                                       const float* lse_c,
                                       const float* delta_c, float scale,
                                       float scale_log2, int64_t row, int kb,
                                       int q0) const {
-    const int lane = threadIdx.x & 31;
-    const int wq = lane & 3;
-    const int gr = lane >> 2;
-    const int odd = gr & 1;
-    const int grp = 4 * (kb >> 4) + (gr >> 1);
+    const int wq = threadIdx.x & 3;
 #pragma unroll
     for (int j = 0; j < N / 4; ++j) {
-      float keep[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
-      if (on) {
-        const uint4 w =
-            philox::mha_words(seed, row, q0 + 8 * j + 2 * wq + odd, grp);
-        const uint32_t mine0 = odd ? w.y : w.x, mine1 = odd ? w.w : w.z;
-        const uint32_t give0 = odd ? w.x : w.y, give1 = odd ? w.z : w.w;
-        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, give0, 4);
-        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, give1, 4);
-        const uint32_t words[2][2] = {{odd ? got0 : mine0, odd ? mine0 : got0},
-                                      {odd ? got1 : mine1, odd ? mine1 : got1}};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            keep[h][e] = words[h][e] >= threshold ? inv_keep : 0.f;
-          }
-        }
-      }
+      float keep[2][2];
+      keep_kv(keep, j, row, kb, q0);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -539,15 +554,8 @@ struct PhiloxMask {
     for (int kc = 0; kc < N / 8; ++kc) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float keep[4] = {1.f, 1.f, 1.f, 1.f};  // elements +0, +1, +4, +5
-        if (on) {
-          const uint4 w = philox::mha_words(seed, row, i + 8 * h,
-                                            4 * (key0 / 16 + kc) + wq);
-          keep[0] = w.x >= threshold ? inv_keep : 0.f;
-          keep[1] = w.y >= threshold ? inv_keep : 0.f;
-          keep[2] = w.z >= threshold ? inv_keep : 0.f;
-          keep[3] = w.w >= threshold ? inv_keep : 0.f;
-        }
+        float keep[4];  // elements +0, +1, +4, +5
+        keep_q(keep, row, i + 8 * h, key0, kc);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int e = 8 * kc + 2 * h + (u & 1) + 4 * (u >> 1);
@@ -558,10 +566,96 @@ struct PhiloxMask {
       }
     }
   }
+
+  // The factors of query i and this lane's keys of 16-key chunk kc from
+  // key0 (accumulator elements +0, +1, +4, +5): one call.
+  __device__ __forceinline__ void keep_q(float (&keep)[4], int64_t row, int i,
+                                         int key0, int kc) const {
+    keep[0] = keep[1] = keep[2] = keep[3] = 1.f;
+    if (!on) return;
+    const uint4 w = philox::mha_words(seed, row, i,
+                                      4 * (key0 / 16 + kc) + (threadIdx.x & 3));
+    keep[0] = w.x >= threshold ? inv_keep : 0.f;
+    keep[1] = w.y >= threshold ? inv_keep : 0.f;
+    keep[2] = w.z >= threshold ? inv_keep : 0.f;
+    keep[3] = w.w >= threshold ? inv_keep : 0.f;
+  }
+
+  // flash_block256.cuh's steps (its NoMask says what each takes). dkv,
+  // warpgroup 0: S^T into z^T = p^T keep, and p^T, its sign bit set where
+  // the weight is dropped, to the exchange.
+  template <int N>
+  __device__ __forceinline__ void dkv_p(float (&st)[N], float* x,
+                                        const float (&lse_c)[N / 2],
+                                        float scale_log2, int64_t row, int kb,
+                                        int q0) const {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      float keep[2][2];
+      keep_kv(keep, j, row, kb, q0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float p = exp2f(fmaf(st[i], scale_log2, -lse_c[2 * j + e]));
+          st[i] = p * keep[h][e];
+          x[128 * i] = keep[h][e] != 0.f ? p : -p;
+        }
+      }
+    }
+  }
+  // dkv, warpgroup 1: dP^T into dS^T from the exchange.
+  template <int N>
+  __device__ __forceinline__ void dkv_ds(float (&dp)[N], const float* x,
+                                         const float (&dl)[N / 2],
+                                         float scale) const {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      dp[e] = flash256::masked_ds(x[128 * e], dp[e], dl[flash256::col_of(e)],
+                                  scale, inv_keep);
+    }
+  }
+  // dq (warpgroup 0 at 256): S into p, marked where dropped; keys past S
+  // get 0.
+  template <int N>
+  __device__ __forceinline__ void dq_p(float (&sc)[N], const float (&lse2)[2],
+                                       float scale_log2, int s, int64_t row,
+                                       int i, int key0) const {
+    const int wq = threadIdx.x & 3;
+    const bool ragged = key0 + 2 * N > s;
+#pragma unroll
+    for (int kc = 0; kc < N / 8; ++kc) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float keep[4];
+        keep_q(keep, row, i + 8 * h, key0, kc);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 8 * kc + 2 * h + (u & 1) + 4 * (u >> 1);
+          float p = exp2f(fmaf(sc[e], scale_log2, -lse2[h]));
+          if (ragged && key0 + (e >> 2) * 8 + 2 * wq + (e & 1) >= s) p = 0.f;
+          sc[e] = keep[u] != 0.f ? p : -p;
+        }
+      }
+    }
+  }
+  // dq, every warpgroup: dS from the marked p (x) and dP.
+  template <int N>
+  __device__ __forceinline__ void dq_ds(const float (&x)[N],
+                                        const float (&dp)[N], float (&ds)[N],
+                                        const float (&dl)[2],
+                                        float scale) const {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      ds[e] = flash256::masked_ds(x[e], dp[e], dl[(e >> 1) & 1], scale,
+                                  inv_keep);
+    }
+  }
 };
 
 // D is the tile width, d the head dim (the row stride of dk, dv, dq).
-template <int D, int kPart>
+template <int D>
 __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
     fused_bwd_dkv_tiled_wgmma(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -572,9 +666,9 @@ __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               int s, int tiles_per_row, float scale,
                               float scale_log2, PhiloxMask mask, int d) {
-  flash_bwd::dkv_block<D, PhiloxMask, kPart>(tq, tk, tv, tg, lse, delta, dk,
-                                             dv, s, tiles_per_row, scale,
-                                             scale_log2, mask, d);
+  flash_bwd::dkv_block<D, PhiloxMask>(tq, tk, tv, tg, lse, delta, dk, dv, s,
+                                      tiles_per_row, scale, scale_log2, mask,
+                                      d);
 }
 
 // kExact: d == D, passed to the block as the constant D (with a run-time d
@@ -592,6 +686,38 @@ __global__ void __launch_bounds__(flash_bwd::kMmaThreads, 1)
                              int d) {
   flash_bwd::dq_block<D>(tq, tk, tv, tg, lse, delta, dq, s, tiles_per_row,
                          scale, scale_log2, mask, kExact ? D : d);
+}
+
+// Tile widths 192 and 256: flash_block256.cuh's dkv and dq blocks with the
+// Philox mask.
+template <int D>
+__global__ void __launch_bounds__(flash256::kThreads, 1)
+    fused_bwd_dkv_block256(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tg,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
+                           int tiles_per_row, float scale, float scale_log2,
+                           PhiloxMask mask, int d) {
+  flash256::dkv_block<D>(tq, tk, tv, tg, lse, delta, dk, dv, s, tiles_per_row,
+                         scale, scale_log2, mask, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash256::kThreads, 1)
+    fused_bwd_dq_block256(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tg,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int s, int tiles_per_row,
+                          float scale, float scale_log2, PhiloxMask mask,
+                          int d) {
+  flash256::dq_block<D>(tq, tk, tv, tg, lse, delta, dq, s, tiles_per_row,
+                        scale, scale_log2, mask, d);
 }
 
 // Past d = 256: flash_wide.cuh's dkv and dq blocks with the Philox mask, NT
@@ -644,13 +770,13 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, int kPart>
+template <int D>
 cudaError_t launch_dkv(const Args& a, const CUtensorMap& q_str,
                        const CUtensorMap& k_own, const CUtensorMap& v_own,
                        const CUtensorMap& g_str, dim3 grid, int tiles,
                        const PhiloxMask& mask) {
   using flash_bwd::Dkv;
-  auto dkv = fused_bwd_dkv_tiled_wgmma<D, kPart>;
+  auto dkv = fused_bwd_dkv_tiled_wgmma<D>;
   cudaError_t err = cudaFuncSetAttribute(
       dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, Dkv<D>::kSmem);
   if (err != cudaSuccess) return err;
@@ -663,8 +789,7 @@ cudaError_t launch_dkv(const Args& a, const CUtensorMap& q_str,
 }
 
 // Three kernels in order on one stream: delta, then the flash backward's
-// dkv and dq blocks with the Philox mask; past D = 128 the dkv block runs
-// twice, once for dk and once for dv, as in the dense flash backward.
+// dkv and dq blocks with the Philox mask.
 template <int D>
 cudaError_t launch_tiled(const Args& a, bool drop_on) {
   using flash_bwd::Dkv;
@@ -702,17 +827,7 @@ cudaError_t launch_tiled(const Args& a, bool drop_on) {
                         drop_on ? 1 : 0};
   const dim3 grid(static_cast<unsigned>(blocks));
 
-  if constexpr (D <= 128) {
-    err = launch_dkv<D, flash_bwd::kBoth>(a, q_str, k_own, v_own, g_str, grid,
-                                          tiles, mask);
-  } else {
-    err = launch_dkv<D, flash_bwd::kDkOnly>(a, q_str, k_own, v_own, g_str,
-                                            grid, tiles, mask);
-    if (err == cudaSuccess) {
-      err = launch_dkv<D, flash_bwd::kDvOnly>(a, q_str, k_own, v_own, g_str,
-                                              grid, tiles, mask);
-    }
-  }
+  err = launch_dkv<D>(a, q_str, k_own, v_own, g_str, grid, tiles, mask);
   if (err != cudaSuccess) return err;
 
   auto dq = a.d == D ? fused_bwd_dq_tiled_wgmma<D, true>
@@ -724,6 +839,22 @@ cudaError_t launch_tiled(const Args& a, bool drop_on) {
       q_own, k_str, v_str, g_own, lse, delta, static_cast<bf16*>(a.dq), a.s,
       tiles, a.scale, scale_log2, mask, a.d);
   return cudaGetLastError();
+}
+
+// Tile widths 192 and 256: the delta kernel, then flash_block256.cuh's dkv
+// and dq kernels with the Philox mask.
+template <int D>
+cudaError_t launch_block256(const Args& a, bool drop_on) {
+  cudaError_t err = flash::launch_delta<bf16, flash::for_fused_bwd>(
+      a.out, a.g, a.delta, a.rows * a.s, a.d, a.stream);
+  if (err != cudaSuccess) return err;
+  const PhiloxMask mask{a.drop.seed, a.drop.threshold, a.drop.inv_keep,
+                        drop_on ? 1 : 0};
+  return flash256::launch_bwd<D>(
+      &fused_bwd_dkv_block256<D>, &fused_bwd_dq_block256<D>, a.q, a.k, a.v,
+      a.g, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), a.dq, a.dk, a.dv, a.rows, a.s, a.d,
+      a.scale, mask, a.stream);
 }
 
 // Past d = 256: the delta kernel, then the wide dkv and dq blocks with the
@@ -812,7 +943,11 @@ cudaError_t launch_d(const Args& a, bool drop_on) {
                                                        (a.s + 15) / 16);
     }
   }
-  return launch_tiled<D>(a, drop_on);
+  if constexpr (D == 192 || D == 256) {
+    return launch_block256<D>(a, drop_on);
+  } else {
+    return launch_tiled<D>(a, drop_on);
+  }
 }
 
 }  // namespace
@@ -897,4 +1032,11 @@ extern "C" int fused_mha_bwd_smem(int d, int s) {
                        : d == 128 ? kRowMaxKeys<128>
                                   : 0;
   return s >= 1 && s <= max_keys ? row_bwd_smem(d, (s + 15) / 16) : 0;
+}
+
+// The dkv and dq kernels of flash_block256.cuh that this library launched
+// since the last call, into counts[0] and counts[1]; zeroes both counts.
+extern "C" void fused_mha_bwd_block256_launches(long long* counts) {
+  counts[0] = flash256::dkv_launches.exchange(0);
+  counts[1] = flash256::dq_launches.exchange(0);
 }

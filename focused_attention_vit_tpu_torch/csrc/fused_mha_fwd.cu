@@ -59,7 +59,10 @@
 // (flash_fwd_block.cuh: 128 queries, K/V tiles of 128 keys, 64 at d = 128,
 // in a TMA ring, wgmma products, the online-softmax recurrence, the two
 // consumer warpgroups taking turns) with the same Philox mask applied to
-// each key tile's weights after they entered the sum.
+// each key tile's weights after they entered the sum; at the tile widths
+// 192 and 256 the dense forward's block of flash_block256.cuh
+// (fused_fwd_block256: two warpgroups and no producer, 80- or 96-key K
+// and V tiles in rings of their own) with the same mask.
 //
 // f32 tensors, at every head dim, take flash_f32.cuh's scalar kernels (full
 // f32 products, one Philox call a key; for parity runs, not for speed).
@@ -81,6 +84,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_block256.cuh"
 #include "flash_common.cuh"
 #include "flash_f32.cuh"
 #include "flash_fwd_block.cuh"
@@ -375,6 +379,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 // whose word is below the threshold, keys from key0 in the accumulator
 // layout, one call per lane, row and 16-key chunk.
 struct PhiloxMask {
+  static constexpr bool kDraws = true;  // flash_block256.cuh sizes by it
   uint64_t seed;
   uint32_t threshold;
   float inv_keep;  // 1 / (1 - rate); 1 without dropout
@@ -411,6 +416,20 @@ __global__ void __launch_bounds__(flash_fwd::kThreads, 1)
                           PhiloxMask mask, int d) {
   flash_fwd::block<D, kLse>(tq, tk, tv, out, lse, s, tiles_per_row,
                             scale_log2, mask, d);
+}
+
+// Tile widths 192 and 256: flash_block256.cuh's forward block with the
+// Philox mask.
+template <int D, bool kLse>
+__global__ void __launch_bounds__(flash256::kThreads, 1)
+    fused_fwd_block256(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ out, float* __restrict__ lse, int s,
+                       int tiles_per_row, float scale_log2, PhiloxMask mask,
+                       int d) {
+  flash256::fwd_block<D, kLse>(tq, tk, tv, out, lse, s, tiles_per_row,
+                               scale_log2, mask, d);
 }
 
 // Past d = 256: flash_wide.cuh's forward block with the Philox mask, NT
@@ -497,6 +516,16 @@ cudaError_t launch_tiled(const Args& a) {
   return cudaGetLastError();
 }
 
+// Tile widths 192 and 256: flash_block256.cuh's forward with the mask.
+template <int D, bool kLse>
+cudaError_t launch_block256(const Args& a) {
+  const PhiloxMask mask{a.drop.seed, a.drop.threshold, a.drop.inv_keep,
+                        a.drop_on ? 1 : 0};
+  return flash256::launch_fwd<D>(&fused_fwd_block256<D, kLse>, a.q, a.k,
+                                 a.v, a.out, a.lse, a.rows, a.s, a.d,
+                                 a.scale * flash::kLog2e, mask, a.stream);
+}
+
 // Past d = 256: the wide block with the Philox mask, at the plan's
 // `slices` slices of `tiles` 64-column tiles a warpgroup
 // (ops/flash_attention.py wide_plan).
@@ -559,8 +588,13 @@ cudaError_t launch_d(const Args& a) {
   if (a.s <= kRowMaxKeys<D>) {
     return launch_row_chunks<D, kRowMaxKeys<D> / 16>(a, (a.s + 15) / 16);
   }
-  return a.lse != nullptr ? launch_tiled<D, true>(a)
-                          : launch_tiled<D, false>(a);
+  if constexpr (D == 192 || D == 256) {
+    return a.lse != nullptr ? launch_block256<D, true>(a)
+                            : launch_block256<D, false>(a);
+  } else {
+    return a.lse != nullptr ? launch_tiled<D, true>(a)
+                            : launch_tiled<D, false>(a);
+  }
 }
 
 }  // namespace

@@ -88,6 +88,19 @@ def _count(kind: str) -> None:
         _launches[kind] += 1
 
 
+def block256_launches(source: str = "flash_attention_bwd") -> dict:
+    """The backward's dkv and dq launches on ``csrc/flash_block256.cuh``'s
+    blocks (tile widths 192 and 256) in the library ``source``
+    (``"flash_attention_bwd"`` or ``"fused_mha_bwd"``) since the last call,
+    counted where the library launches each kernel, and zeroed:
+    ``{"dkv": n, "dq": n}``."""
+    from focused_attention_vit_tpu_torch.utils import kernel_build
+
+    counts = (ctypes.c_longlong * 2)()
+    getattr(kernel_build.load(source), f"{source}_block256_launches")(counts)
+    return {"dkv": counts[0], "dq": counts[1]}
+
+
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ... rows, s, d, is_bf16, scale, device, stream; then the wide plan
 # (wide_args): the forward's slices and tiles, the backward's of dkv and dq.

@@ -36,7 +36,18 @@ and d = 1280 at S = 1370; K3/K4 at d = 264, 384, 768 and 1280 at S = 197;
 WIDE_FLASH, WIDE_FUSED), with K5 at d = 256 (the widest of the blocks up to
 256) beside them; in a checkout that has the slice plan's small-grid rule
 (``ops/flash_attention.CARD_SMS``), K3/K4 at d = 384 also at the plan with
-the rule off (``..._full``).
+the rule off (``..._full``). With ``--block256`` only K5 and K3/K4 at the
+tile widths 192 and 256 (``csrc/flash_block256.cuh``) are: K5 at ViT-H/14's
+shape (B*h=128, S=1370) at d = 256 and 192 and at dense ViT-B/4's 3- and
+4-head shapes (batch 8, S=3137), K3/K4 at ViT-B/16's S=197 with 3 and 4 heads
+(batch 8), beside K5 at d = 64 (B/4) and 80 (H/14) and K3/K4 at d = 64
+(E1's and the tiled shape) and at ViT-H/14's d = 80, S = 257, whose
+sources the blocks of 192 and 256 leave as they were (BLOCK256_FLASH,
+BLOCK256_FUSED); K3/K4 also in batches of BATCH calls. With ``--delta``
+only the backward's delta kernel is, inside K5's backward at D = 768 in
+48 to 2 heads (d = 16 to 384), at ViT-H/14's d = 80 and in f32 at d = 64
+(DELTA_FLASH, DELTA_F32): the profiler's device ms of the kernels named
+``*delta*``, beside the backward's CUDA-event median.
 From the repository root, with the parent commit unpacked into an ignored
 directory::
 
@@ -84,6 +95,26 @@ WIDE_FLASH = {"flash_d256": (8, 3, 3137, 256), "flash_d264": (8, 1, 3137, 264),
               "flash_d1280": (8, 1, 1370, 1280)}
 WIDE_FUSED = {"fused_d264": (8, 1, 197, 264), "fused_d384": (8, 2, 197, 384),
               "fused_d768": (8, 1, 197, 768), "fused_d1280": (8, 1, 197, 1280)}
+# --block256: B, h, S, d of K5 and K3/K4 at the tile widths 192 and 256
+# (chip_smoke.py HD_FLASH, HD_FUSED and kernel-h14's d = 256) and of the
+# forms beside them that those blocks do not run.
+BLOCK256_FLASH = {"flash_h14_d256": (8, 16, 1370, 256),
+                  "flash_h14_d192": (8, 16, 1370, 192),
+                  "flash_b4_d256": (8, 3, 3137, 256),
+                  "flash_b4_d192": (8, 4, 3137, 192),
+                  "flash_b4_d64": (32, 12, 3137, 64),
+                  "flash_h14_d80": (8, 16, 1370, 80)}
+BLOCK256_FUSED = {"fused_d256": (8, 3, 197, 256), "fused_d192": (8, 4, 197, 192),
+                  "fused_h14_d80": (8, 16, 257, 80), **FUSED_SHAPES}
+# --delta: B, h, S, d of K5's backward, whose first kernel is the delta
+# kernel, at D = 768 in 48, 12, 6, 4, 3 and 2 heads (dense ViT-B/4, batch 8:
+# the same bytes at each d) and at ViT-H/14's d = 80; bf16, and f32 at
+# d = 64 (batch 1).
+DELTA_FLASH = {**{f"d{d}": (8, 768 // d, 3137, d)
+                  for d in (16, 64, 128, 192, 256, 384)},
+               "h14_d80": (8, 16, 1370, 80)}
+DELTA_F32 = {"f32_d64": (1, 12, 3137, 64)}
+BATCH = 10  # K3/K4's calls a timed batch: a call's host work is its length
 # B*h, S, d of the tile band at MHLA-H/14 (batch 8), at the model's window
 # and at JAX's roll-band limit (the wide kernels).
 TILE_H14_SHAPE = (128, 1370, 80)
@@ -235,6 +266,50 @@ def time_wide() -> dict:
     return res
 
 
+def time_block256() -> dict:
+    """K5 at :data:`BLOCK256_FLASH` and K3/K4 at :data:`BLOCK256_FUSED` of
+    the package on ``sys.path``, K3/K4 also in batches of :data:`BATCH`
+    calls (CUDA-event medians of the batch over BATCH)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    calls = _fused_calls(res, gen, BLOCK256_FUSED)
+    calls.update(_flash_calls(res, gen, BLOCK256_FLASH))
+    for name, fn in calls.items():
+        res[f"{name}_ms"] = _median_ms(fn)
+        res[f"{name}_device_ms"] = _device_ms(fn)
+        if name.startswith("fused"):
+            res[f"{name}_batch_ms"] = _median_ms(
+                lambda fn=fn: [fn() for _ in range(BATCH)]) / BATCH
+    return res
+
+
+def time_delta() -> dict:
+    """The delta kernel's device ms a call (the profiler's, every kernel
+    whose name holds ``delta``) inside K5's backward of the package on
+    ``sys.path`` at :data:`DELTA_FLASH` (bf16) and :data:`DELTA_F32`, and
+    the backward's CUDA-event median."""
+    from focused_attention_vit_tpu_torch.ops import flash_attention as flash
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    for dtype, shapes in ((torch.bfloat16, DELTA_FLASH),
+                          (torch.float32, DELTA_F32)):
+        for key, shape in shapes.items():
+            q, k, v, g = (torch.randn(shape, device="cuda", generator=gen)
+                          .to(dtype) for _ in range(4))
+            out, lse = flash.flash_forward_train(q, k, v)
+
+            def bwd(q=q, k=k, v=v, out=out, lse=lse, g=g):
+                return flash.flash_backward(q, k, v, out, lse, g)
+
+            res[f"{key}_bwd_ms"] = _median_ms(bwd)
+            res[f"{key}_delta_device_ms"] = sum(
+                ms for name, ms in _device_ms(bwd).items() if "delta" in name)
+            del q, k, v, g, out, lse
+            torch.cuda.empty_cache()
+    return res
+
+
 def _tile_calls(res: dict, key: str, rows: list, w: int) -> dict:
     """The tile band's forward (K6) on ``[B*h, S, d]`` rows, its
     window-tile forward (K8) on them at JAX's tile length (256), built once
@@ -344,18 +419,29 @@ def main(argv=None) -> list:
                    help="time the tile band's calls only")
     p.add_argument("--wide", action="store_true",
                    help="time K5 and K3/K4 past head dim 256 only")
+    p.add_argument("--block256", action="store_true",
+                   help="time K5 and K3/K4 at the tile widths 192 and 256 "
+                        "only")
+    p.add_argument("--delta", action="store_true",
+                   help="time the backward's delta kernel only")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the band A/B runs only on a CUDA device")
     if args.here:
-        print(json.dumps(time_wide() if args.wide
-                         else time_kernels(args.tile)), flush=True)
+        print(json.dumps(time_wide() if args.wide else time_block256()
+                         if args.block256 else time_delta() if args.delta
+                         else time_kernels(args.tile)),
+              flush=True)
         return []
     trees = [t.resolve() for t in args.trees]
     libs = ([n for n in LIBRARIES if "tile" in n] if args.tile
             else [n for n in LIBRARIES if "fused" in n or "flash" in n]
-            if args.wide else LIBRARIES)
-    mode = ["--tile"] if args.tile else ["--wide"] if args.wide else []
+            if args.wide or args.block256
+            else ["flash_attention_fwd", "flash_attention_bwd"] if args.delta
+            else LIBRARIES)
+    mode = (["--tile"] if args.tile else ["--wide"] if args.wide
+            else ["--block256"] if args.block256
+            else ["--delta"] if args.delta else [])
     build = ("from focused_attention_vit_tpu_torch.utils import kernel_build;"
              f" kernel_build.build_many({libs!r})")
     with ThreadPoolExecutor(max(1, len(trees))) as pool:

@@ -1,13 +1,16 @@
 """Every head dim the JAX package takes, against the JAX package on the CPU
-in f32: off the grid of 8 (d = 12: 64 heads at D = 768) and past 256 (264,
-384: 2 heads at D = 768; 520 and 1032 at the wide blocks' slice edges).
+in f32: off the grid of 8 (d = 12: 64 heads at D = 768), at the tile
+widths 192 and 256 (136, 192, 256: 4 and 3 heads at D = 768) and past 256
+(264, 384: 2 heads at D = 768; 520 and 1032 at the wide blocks' slice
+edges).
 Dense attention (K5's plain versions) against JAX's ``flash_attention``
 (its chunked path off the TPU), the fused op
 (K3/K4's) against JAX's fused kernel in interpret mode, the band op (K1/K2's)
 against JAX's roll kernel in interpret mode, the tile band (K6/K7's) against
 JAX's v4 in interpret mode, and 2-block models at D = 24 and 768 with 2
-heads, weights carried across by ``convert/from_jax.py``. Also the kernels'
-pad of the head dim on its own (:func:`..ops.flash_attention.pad_head_dim`).
+heads, and a dense one at D = 768 with 3, weights carried across by
+``convert/from_jax.py``. Also the kernels' pad of the head dim on its own
+(:func:`..ops.flash_attention.pad_head_dim`).
 Inputs come from numpy seeds and go through both packages; every JAX
 reference runs once, in a module fixture."""
 
@@ -49,9 +52,12 @@ GRAD_TOL = 1e-5
 PAD_TOL = 1e-6  # one function, padded or not: f32 sums in other blockings
 # Past 256 also the wide blocks' slice plan's edges, a column past a slice
 # of 512 and of 1024 (ops/flash_attention.wide_plan).
-DENSE_DIMS = (12, 264, 384, 520, 1032)
+DENSE_DIMS = (12, 136, 192, 256, 264, 384, 520, 1032)
 DENSE_S = 577
 FUSED_DIMS = (264, 384, 520, 1032)
+# The tile widths of csrc/flash_block256.cuh, past their whole-row kernel's
+# 64 keys.
+FUSED_BLOCK256_DIMS = (192, 256)
 FUSED_S = 65
 BAND_CASES = [(d, w) for d in (12, 384) for w in (7, 17)]
 BAND_S = 100
@@ -60,6 +66,7 @@ V4_CASE = (12, 7, 80)  # d, W, S
 # and 2 heads of 384 (D = 768).
 MODEL_DIMS = (24, 768)
 HEADS, DEPTH, IMG, PATCH = 2, 2, 96, 4
+HEADS_256 = 3  # D = 768 in 3 heads: d = 256, the widest tile
 MODEL_W = 7
 Y = np.array([3, 7])
 
@@ -107,7 +114,7 @@ def refs():
         arrays = _arrays(d, (1, 2, DENSE_S, d))
         out[("dense", d)] = (arrays, *_jax_vjp(jflash.flash_attention,
                                                arrays))
-    for d in FUSED_DIMS:
+    for d in FUSED_DIMS + FUSED_BLOCK256_DIMS:
         arrays = _arrays(d + FUSED_S, (1, 2, FUSED_S, d))
         out[("fused", d)] = (arrays, *_jax_vjp(
             jmha.fused_multi_head_attention, arrays, interpret=True))
@@ -130,6 +137,11 @@ def refs():
             window_size=MODEL_W, use_mhla=True, **geom), x))
         out[("vit", dim)] = (x, *_jax_model(jmodels.VisionTransformer(**geom),
                                             x))
+    geom = dict(img_size=IMG, patch_size=PATCH, num_classes=10,
+                embed_dim=MODEL_DIMS[1], depth=DEPTH, num_heads=HEADS_256)
+    x = np.random.default_rng(HEADS_256).normal(
+        size=(2, IMG, IMG, 3)).astype(np.float32)
+    out["vit256"] = (x, *_jax_model(jmodels.VisionTransformer(**geom), x))
     return out
 
 
@@ -150,8 +162,9 @@ def _through_autograd(op, arrays):
 @pytest.mark.parametrize("d", DENSE_DIMS)
 def test_dense_attention_matches_jax_flash(refs, d):
     """The flash op on CPU tensors (K5's plain forward and backward) against
-    JAX's ``flash_attention`` at S = 577 and d = 12, 264, 384: the output
-    within 1e-4, dq, dk, dv within 1e-5; no kernel launched."""
+    JAX's ``flash_attention`` at S = 577 and d = 12, 136 to 256 (the tile
+    widths 192 and 256), 264 to 1032 (the wide blocks): the output within
+    1e-4, dq, dk, dv within 1e-5; no kernel launched."""
     arrays, want, want_grads = refs[("dense", d)]
     flash.reset_launch_count()
     out, grads = _through_autograd(flash.flash_attention, arrays)
@@ -172,6 +185,22 @@ def test_fused_op_matches_jax_past_256(refs, d):
     _close(out, want, OUT_TOL, "out")
     for name, got, ref in zip("qkv", grads, want_grads):
         _close(got, ref, GRAD_TOL, f"d{name}")
+
+
+@pytest.mark.parametrize("d", FUSED_BLOCK256_DIMS)
+def test_fused_op_matches_jax_at_tile_widths_192_and_256(refs, d):
+    """The fused op on CPU tensors (K3/K4's plain versions) against JAX's
+    fused kernel (interpret mode) at S = 65, one key past the whole-row
+    kernel at d = 192 and 256: the output within 1e-4, gradients within
+    1e-5; no kernel launched."""
+    arrays, want, want_grads = refs[("fused", d)]
+    assert fused.fused_mha_supported(FUSED_S, d)
+    fused.reset_launch_count()
+    out, grads = _through_autograd(fused.fused_multi_head_attention, arrays)
+    _close(out, want, OUT_TOL, "out")
+    for name, got, ref in zip("qkv", grads, want_grads):
+        _close(got, ref, GRAD_TOL, f"d{name}")
+    assert [fused.launch_count(k) for k in fused.LAUNCH_KINDS] == [0, 0, 0]
 
 
 @pytest.mark.parametrize("d,w", BAND_CASES)
@@ -276,3 +305,15 @@ def test_dense_vit_matches_jax_at_two_heads(refs, dim):
                 embed_dim=dim, depth=DEPTH, num_heads=HEADS)
     _check_model(VisionTransformer(**geom), flax_vit_to_state_dict,
                  refs[("vit", dim)])
+
+
+def test_dense_vit_matches_jax_at_three_heads(refs):
+    """A 2-block dense ViT at D = 768 with 3 heads (d = 256, the widest
+    tile of csrc/flash_block256.cuh) at S = 577, through the flash op:
+    logits within 1e-4, every gradient within 1e-5."""
+    geom = dict(img_size=IMG, patch_size=PATCH, num_classes=10,
+                embed_dim=MODEL_DIMS[1], depth=DEPTH, num_heads=HEADS_256)
+    flash.reset_launch_count()
+    _check_model(VisionTransformer(**geom), flax_vit_to_state_dict,
+                 refs["vit256"])
+    assert [flash.launch_count(k) for k in flash.LAUNCH_KINDS] == [0, 0, 0]

@@ -1860,10 +1860,12 @@ def test_wide_head_dims_read_no_other_head(cuda, op, bad):
 @pytest.mark.parametrize("model,heads,patch,op", [
     ("mhla", 2, 4, "band"), ("mhla", 64, 4, "band"),
     ("vit", 1, 4, "flash"), ("vit", 64, 4, "flash"),
-    ("vit", 2, 16, "fused")])
+    ("vit", 2, 16, "fused"), ("vit", 3, 4, "flash"), ("vit", 4, 4, "flash"),
+    ("vit", 3, 16, "fused")])
 def test_head_count_paths_launch_their_kernels(cuda, monkeypatch, model,
                                                heads, patch, op):
-    """A 2-block model at D = 768 with 1, 2 or 64 heads (d = 768, 384, 12):
+    """A 2-block model at D = 768 with 1, 2, 3, 4 or 64 heads (d = 768,
+    384, 256, 192, 12):
     one bf16 train step (attention dropout 0.1 where the op draws it) and
     one eval pass launch the op's training forward and backward once a
     block in the step and its eval forward once a block in the pass; the
@@ -1906,3 +1908,112 @@ def test_head_count_paths_launch_their_kernels(cuda, monkeypatch, model,
     want[op] = [2, 0, 0]
     assert {name: [m.launch_count(k) for k in m.LAUNCH_KINDS]
             for name, m in ops.items()} == want
+
+
+# --- the blocks at the tile widths 192 and 256 (csrc/flash_block256.cuh) ------
+
+# Head dims at those widths (136 and 200 with zero columns in the tiles, 192
+# and 256 exact), at S one short of, at and one past the 64-key tile, at
+# ViT-B/16's 197 and at ViT-H/14's 1370.
+BLOCK256_DIMS = (136, 192, 200, 256)
+BLOCK256_SEQS = (63, 64, 65, 197, 1370)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", BLOCK256_SEQS)
+@pytest.mark.parametrize("d", BLOCK256_DIMS)
+def test_flash_kernels_at_tile_widths_192_and_256(cuda, d, s, dtype):
+    """K5's eval forward, training forward and backward on the blocks of
+    the tile widths 192 and 256, against the plain versions by the flash
+    grid's rule (f32 within 1e-5 and 1e-4; bf16 within 2 ulps of
+    max(|plain|, a quarter of the largest entry)); the eval and training
+    outputs bit-equal; the backward twice with the same bits; one launch
+    a call."""
+    q, k, v, g = _inputs(cuda, (1, 2, s, d), dtype, n=4, seed=s + d)
+    flash.reset_launch_count()
+    with torch.no_grad():
+        lean = flash.flash_attention(q, k, v)
+    out, lse = flash.flash_forward_train(q, k, v)
+    grads = flash.flash_backward(q, k, v, out, lse, g)
+    again = flash.flash_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert [flash.launch_count(k_) for k_ in flash.LAUNCH_KINDS] == [1, 1, 2]
+    ref_out, ref_lse = flash.plain_flash_forward(q, k, v)
+    ref_grads = flash.plain_flash_backward(q, k, v, out, lse, g)
+    assert torch.equal(lean, out)
+    _flash_close(out, ref_out, dtype, 1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert got.shape == q.shape and torch.equal(got, rerun)
+        _flash_close(got, want, dtype, 1e-4)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [65, 197, 577])
+@pytest.mark.parametrize("d", [192, 256])
+def test_fused_kernels_at_tile_widths_192_and_256(cuda, d, s, dtype, rate):
+    """K3 and K4 past the whole-row kernel's 64 keys at the tile widths 192
+    and 256, on the same blocks with the Philox mask: against the plain
+    versions by the fused grid's loose rule (3 ulps entry by entry; the
+    rms bound), the eval forward equal to the training one at rate 0, the
+    backward run twice with the same bits."""
+    q, k, v, g = _inputs(cuda, (1, 3, s, d), dtype, n=4, seed=s + d)
+    seed = 2**36 + 5 if rate else None
+    rq, rk, rv, rg = (x.float() for x in (q, k, v, g))
+    out, lse = fused.fused_mha_forward_train(q, k, v, rate, seed)
+    grads = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+    again = fused.fused_mha_backward(q, k, v, out, lse, g, rate, seed)
+    torch.cuda.synchronize()
+    if rate == 0.0:
+        with torch.no_grad():
+            assert torch.equal(fused.fused_multi_head_attention(q, k, v), out)
+    ref_out, ref_lse = fused.plain_fused_mha_forward(rq, rk, rv, rate, seed)
+    ref_grads = fused.plain_fused_mha_backward(
+        rq, rk, rv, rg, rate, seed,
+        out=out.float() if dtype == torch.bfloat16 else None)
+    _fused_close(out, ref_out, dtype, 1e-5, ulps=3.0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    for got, rerun, want in zip(grads, again, ref_grads):
+        assert torch.equal(got, rerun)
+        _fused_close(got, want, dtype, 1e-4, ulps=3.0)
+        if dtype == torch.bfloat16:
+            _rms_close(got, want)
+
+
+@pytest.mark.parametrize("op", ["flash", "fused"])
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_block256_forms_run_one_dkv_and_one_dq(cuda, op, d):
+    """At the tile widths 192 and 256 (S = 197) a backward launches one dkv
+    and one dq kernel of csrc/flash_block256.cuh (no dk-then-dv pair), as
+    the library counts them where it launches each, and its op counts one
+    backward; a training forward launches none of them. Past 256 the wide
+    blocks run and these counts stay 0."""
+    source = f"{op}_attention_bwd" if op == "flash" else "fused_mha_bwd"
+    m = flash if op == "flash" else fused
+
+    def forms(d):
+        q, k, v, g = _inputs(cuda, (2, 3, 197, d), torch.bfloat16, n=4,
+                             seed=d)
+        if op == "flash":
+            out, lse = flash.flash_forward_train(q, k, v)
+            return lambda: flash.flash_backward(q, k, v, out, lse, g)
+        out, lse = fused.fused_mha_forward_train(q, k, v, 0.1, 7)
+        return lambda: fused.fused_mha_backward(q, k, v, out, lse, g, 0.1, 7)
+
+    flash.block256_launches(source)  # zeroes what earlier calls counted
+    backward = forms(d)
+    torch.cuda.synchronize()
+    assert flash.block256_launches(source) == {"dkv": 0, "dq": 0}
+    m.reset_launch_count()
+    backward()
+    torch.cuda.synchronize()
+    assert flash.block256_launches(source) == {"dkv": 1, "dq": 1}
+    assert [m.launch_count(k_) for k_ in m.LAUNCH_KINDS] == [0, 0, 1]
+    for _ in range(3):
+        backward()
+    torch.cuda.synchronize()
+    assert flash.block256_launches(source) == {"dkv": 3, "dq": 3}
+    forms(264)()
+    torch.cuda.synchronize()
+    assert flash.block256_launches(source) == {"dkv": 0, "dq": 0}

@@ -71,6 +71,7 @@ PORT_MODULES = [
     "focused_attention_vit_tpu_torch.train.checkpoint",
     "focused_attention_vit_tpu_torch.train.resilience",
     "focused_attention_vit_tpu_torch.utils.band_ab",
+    "focused_attention_vit_tpu_torch.utils.bwd_rounding",
     "focused_attention_vit_tpu_torch.utils.kernel_build",
     "focused_attention_vit_tpu_torch.utils.metrics",
     "focused_attention_vit_tpu_torch.utils.patchify",
@@ -718,6 +719,83 @@ def test_wide_blocks_take_the_head_dims_past_256(name):
     for old in ("atomic", "__syncthreads()", "mma.sync", "ldsm", "cp.async.cg",
                 "ldmatrix"):
         assert old not in wide, old
+
+
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
+def test_tile_widths_192_and_256_take_the_block256_header(name):
+    """Each flash and fused source sends the tile widths 192 and 256 to
+    ``flash_block256.cuh`` (its forward, or flash_common.cuh's delta and
+    then its dkv and dq, one launch each: no dk-then-dv pair, each counted
+    where it is launched and read through the library's
+    ``*_block256_launches``), whose blocks are 256 threads of two
+    warpgroups, no producer and no setmaxnreg, wgmma on TMA rings, the
+    masks' split steps, no atomics; the narrower blocks stop at 128."""
+    import re
+
+    src = (CSRC / name).read_text()
+    block = (CSRC / "flash_block256.cuh").read_text()
+    assert '#include "flash_block256.cuh"' in src
+    if "_fwd" in name:
+        assert "flash256::launch_fwd<D>(" in src
+    else:
+        assert "flash::launch_delta<bf16, flash::for_" in src
+        assert "flash256::launch_bwd<D>(" in src
+        stem = name.removesuffix(".cu")
+        assert (f'extern "C" void {stem}_block256_launches(long long* '
+                f'counts)') in src
+        assert "flash256::dkv_launches.exchange(0)" in src
+        assert "flash256::dq_launches.exchange(0)" in src
+    assert re.search(r"if constexpr \(D == 192 \|\| D == 256\)"
+                     r"|launch_block256<192>\(a\)", src)
+    for old in ("kDkOnly", "kDvOnly", "kPart"):
+        assert old not in src, old
+    block = re.sub(r"//[^\n]*", "", block)  # the code, not its comments
+    assert "constexpr int kThreads = 256;" in block
+    for needle in ("hp::Wgmma<BN>::ss(", "hp::Wgmma<kTile>::ss(",
+                   "hp::Wgmma<NC>::rs(", "hp::rs_cols<D, BN>(",
+                   "hp::load_tile<D, kTile>(", "hp::mbar_wait(",
+                   "hp::named_sync(kXFull, kThreads)",
+                   "hp::named_sync(kXchg, kThreads)", "mask.apply(",
+                   "mask.dkv_p(", "mask.dkv_ds(", "mask.dq_p(",
+                   "mask.dq_ds("):
+        assert needle in block, needle
+    assert block.count("++dkv_launches;") == 1
+    assert block.count("++dq_launches;") == 1
+    for old in ("atomicAdd", "atom.", "red.", "reg_alloc", "setmaxnreg",
+                "mma.sync", "ldmatrix", "delta("):
+        assert old not in block, old
+    for header in ("flash_fwd_block.cuh", "flash_bwd_blocks.cuh"):
+        assert 'static_assert(D <= 128, "tile width");' in (
+            CSRC / header).read_text()
+
+
+def test_smoke_tile_widths_are_the_sources():
+    """chip_smoke.py's TILE_WIDTHS are the widths ``csrc/flash_common.cuh``
+    ``tile_width`` picks from, and its BLOCK256_WIDTHS the ones each flash
+    and fused source sends to ``flash_block256.cuh``: the build phase holds
+    the kernels of those widths to no spill, and kernel-headdims counts
+    the backward's launches there."""
+    import ast
+    import re
+
+    common = (CSRC / "flash_common.cuh").read_text()
+    widths = re.search(r"for \(int w : \{([\d, ]+)\}\)", common).group(1)
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    keep = [node for node in tree.body if isinstance(node, ast.Assign)
+            and isinstance(node.targets[0], ast.Name)
+            and node.targets[0].id in ("TILE_WIDTHS", "BLOCK256_WIDTHS")]
+    smoke = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), "chip_smoke.py",
+                 "exec"), smoke)
+    assert smoke["TILE_WIDTHS"] == tuple(int(w) for w in widths.split(","))
+    for name in WGMMA_SOURCES:
+        src = (CSRC / name).read_text()
+        routed = set(re.findall(r"launch_block256<(\d+)>\(a\)", src))
+        for pair in re.findall(
+                r"if constexpr \(D == (\d+) \|\| D == (\d+)\) \{", src):
+            routed.update(pair)
+        assert {int(w) for w in routed} == set(smoke["BLOCK256_WIDTHS"]), (
+            name, routed)
 
 
 # --- the wide blocks' slice plan ------------------------------------------------
